@@ -1,0 +1,328 @@
+// Paged decode attention for Hopper (sm_90a): one query token per slot,
+// K and V read in place through the block table.
+//
+// Replaces the TPU kernel `areal_tpu/ops/paged_attention.py::_paged_attn_kernel`
+// (:118), launched there by `_paged_attention_pallas` (:224). It computes
+// exactly what that kernel computes:
+//   s = (q . k) * sm_scale in f32, with invalid rows set to -1e30;
+//   online (m, l, acc) update over the pool blocks, with the guard
+//   p = (m_new > -5e29) ? exp(s - m_new) : 0;
+//   out = acc / (l > 0 ? l : 1), so a slot with no valid row outputs 0;
+//   written in q's dtype.
+//
+// Bound. Per call the work is 4 * nH * hd flops per valid KV row, on the
+// CUDA cores in f32, against 2 * nKV * hd * sizeof(T) bytes of K and V for
+// the same row: about 7 flops per byte for bf16 at Qwen2.5 widths (GQA
+// group 7), far below the H100's ~20 f32 flops per byte of HBM (67 TFLOP/s
+// over 3.35 TB/s). So the kernel is bound by bytes: the valid K and V rows,
+// plus q, out, the block table and the validity mask, over 3.35 TB/s.
+//
+// Design, first version (made fast in a later change):
+//   - one thread block per (kv head h, slot r), on the caller's stream; the
+//     TPU kernel's sequential grid axis over the table becomes a loop inside
+//     the block, since nothing carries between CUDA blocks;
+//   - 1024 threads per block: R * nKV blocks (64 at R=16, nKV=4) leave each
+//     SM one block, so that block's warps are all the latency hiding the SM
+//     gets. At the serve shapes chip_smoke.py measured 0.77 ms with 128
+//     threads and 0.23 ms with 1024 (H100 80GB HBM3, 700 W);
+//   - the group's q rows sit in shared memory in f32; acc lives in
+//     registers (one output column per thread, the page's rows split over
+//     1024 / hd slices of threads, summed once at the end) and m, l in
+//     shared memory;
+//   - per page: load its validity bits and skip the page if none is set
+//     (exact: an all-masked page leaves m, l and acc unchanged), so pages
+//     past a slot's length and null-block tails cost only their mask bytes;
+//   - K rows are read once per page with 16-byte vector loads by a team of
+//     hd * sizeof(T) / 16 threads that reduce the dot product with warp
+//     shuffles; rows that are not valid are not read at all, K or V, so the
+//     bytes moved are the valid rows (the bound above);
+//   - the GQA group (7 for Qwen2.5) is a runtime loop over at most 16 rows:
+//     no power-of-two assumption.
+// What it leaves on the table: each block walks its pages in turn, and a
+// page costs several dependent memory and barrier latencies whatever the
+// thread count, so the kernel sits ~30x above its bound. Splitting the page
+// walk across blocks (split-KV with a second reduction pass) so the pages
+// of all slots run at once is the next step.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 1024;
+constexpr int kMaxGroup = 16;
+constexpr int kMaxPage = 256;
+constexpr float kNegInf = -1e30f;
+
+template <typename T>
+struct VecWidth;  // elements per 16-byte load
+template <>
+struct VecWidth<float> {
+  static constexpr int value = 4;
+};
+template <>
+struct VecWidth<__nv_bfloat16> {
+  static constexpr int value = 8;
+};
+
+__device__ __forceinline__ void load16(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float x, float* p) { *p = x; }
+__device__ __forceinline__ void store(float x, __nv_bfloat16* p) {
+  *p = __float2bfloat16_rn(x);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+    paged_attn_kernel(const T* __restrict__ q,             // [R, nH, HD]
+                      const T* __restrict__ k_pool,        // [n_blocks, bsz, nKV, HD]
+                      const T* __restrict__ v_pool,        // [n_blocks, bsz, nKV, HD]
+                      const int32_t* __restrict__ table,   // [R, nb]
+                      const uint8_t* __restrict__ valid,   // [R, nb * bsz]
+                      T* __restrict__ out,                 // [R, nH, HD]
+                      int nKV, int group, int bsz, int nb, int n_blocks,
+                      float sm_scale) {
+  constexpr int kVec = VecWidth<T>::value;
+  constexpr int kTeam = HD / kVec;  // threads sharing one K row
+  static_assert(kTeam >= 1 && kTeam <= 32 && (kTeam & (kTeam - 1)) == 0,
+                "a K row must be read by a power-of-two team within a warp");
+  constexpr int kTeams = kThreads / kTeam;
+  constexpr int kSlices = kThreads / HD;  // threads per output column
+
+  const int h = blockIdx.x;
+  const int r = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int nH = nKV * group;
+
+  extern __shared__ float smem[];
+  float* q_s = smem;                   // [group, HD]
+  float* s_s = q_s + group * HD;       // [group, bsz] scores, then p
+  float* m_s = s_s + group * bsz;      // [group]
+  float* l_s = m_s + group;            // [group]
+  float* a_s = l_s + group;            // [group] this page's rescale
+  float* red = a_s + group;            // [kSlices, group, HD]
+  int* mask_s = reinterpret_cast<int*>(red + kSlices * group * HD);  // [bsz]
+
+  const T* q_r = q + ((size_t)r * nH + (size_t)h * group) * HD;
+  for (int i = tid; i < group * HD; i += kThreads) q_s[i] = to_f32(q_r[i]);
+  for (int g = tid; g < group; g += kThreads) {
+    m_s[g] = kNegInf;
+    l_s[g] = 0.f;
+  }
+
+  const int d = tid % HD;      // output column of this thread
+  const int slice = tid / HD;  // which rows of a page it accumulates
+  float acc[kMaxGroup];
+#pragma unroll
+  for (int g = 0; g < kMaxGroup; ++g) acc[g] = 0.f;
+
+  const int team = tid / kTeam;
+  const int team_lane = tid % kTeam;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const size_t row_stride = (size_t)nKV * HD;
+  const size_t block_stride = (size_t)bsz * row_stride;
+  const uint8_t* valid_r = valid + (size_t)r * nb * bsz;
+  const int32_t* table_r = table + (size_t)r * nb;
+  __syncthreads();
+
+  for (int b = 0; b < nb; ++b) {
+    int any = 0;
+    for (int j = tid; j < bsz; j += kThreads) {
+      const int v = valid_r[(size_t)b * bsz + j] != 0;
+      mask_s[j] = v;
+      any |= v;
+    }
+    if (!__syncthreads_or(any)) continue;
+    // a page with valid rows must name a pool block: a bad id faults the
+    // launch, as an out-of-range index does in PyTorch's CUDA kernels,
+    // rather than reading another allocation or giving a quietly wrong
+    // output (block ids of pages without valid rows are never read)
+    const int blk = table_r[b];
+    if (blk < 0 || blk >= n_blocks) __trap();
+
+    // scores: s[g, j] = (q[g] . K[j]) * sm_scale, or -1e30 for invalid j
+    const T* k_blk = k_pool + (size_t)blk * block_stride + (size_t)h * HD;
+    for (int j0 = 0; j0 < bsz; j0 += kTeams) {
+      const int j = j0 + team;
+      const bool live = j < bsz && mask_s[j] != 0;
+      float kf[kVec];
+      if (live) {
+        load16(k_blk + (size_t)j * row_stride + team_lane * kVec, kf);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) kf[e] = 0.f;
+      }
+      for (int g = 0; g < group; ++g) {
+        const float* qg = q_s + g * HD + team_lane * kVec;
+        float part = 0.f;
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) part += qg[e] * kf[e];
+#pragma unroll
+        for (int off = kTeam / 2; off > 0; off >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
+        if (team_lane == 0 && j < bsz)
+          s_s[g * bsz + j] = live ? part * sm_scale : kNegInf;
+      }
+    }
+    __syncthreads();
+
+    // online softmax, one warp per group row
+    for (int g = warp; g < group; g += kThreads / 32) {
+      float* sg = s_s + g * bsz;
+      float mx = kNegInf;
+      for (int j = lane; j < bsz; j += 32) mx = fmaxf(mx, sg[j]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_prev = m_s[g];
+      const float m_new = fmaxf(m_prev, mx);
+      const float alpha = expf(m_prev - m_new);
+      float sum = 0.f;
+      for (int j = lane; j < bsz; j += 32) {
+        const float p = m_new > kNegInf * 0.5f ? expf(sg[j] - m_new) : 0.f;
+        sg[j] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) {
+        l_s[g] = l_s[g] * alpha + sum;
+        m_s[g] = m_new;
+        a_s[g] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // acc[g, d] = acc[g, d] * alpha[g] + sum_j p[g, j] * V[j, d]
+#pragma unroll
+    for (int g = 0; g < kMaxGroup; ++g)
+      if (g < group) acc[g] *= a_s[g];
+    const T* v_blk = v_pool + (size_t)blk * block_stride + (size_t)h * HD + d;
+    for (int j = slice; j < bsz; j += kSlices) {
+      if (!mask_s[j]) continue;
+      const float v = to_f32(v_blk[(size_t)j * row_stride]);
+#pragma unroll
+      for (int g = 0; g < kMaxGroup; ++g)
+        if (g < group) acc[g] += s_s[g * bsz + j] * v;
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int g = 0; g < kMaxGroup; ++g)
+    if (g < group) red[(slice * group + g) * HD + d] = acc[g];
+  __syncthreads();
+  T* out_r = out + ((size_t)r * nH + (size_t)h * group) * HD;
+  for (int i = tid; i < group * HD; i += kThreads) {
+    const int g = i / HD;
+    const int col = i % HD;
+    float a = 0.f;
+    for (int s = 0; s < kSlices; ++s) a += red[(s * group + g) * HD + col];
+    const float l = l_s[g];
+    store(a / (l > 0.f ? l : 1.f), out_r + i);
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
+                   const void* table, const void* valid, void* out, int R,
+                   int nKV, int group, int bsz, int nb, int n_blocks,
+                   float sm_scale, cudaStream_t stream) {
+  constexpr int kSlices = kThreads / HD;
+  const size_t smem =
+      sizeof(float) * ((size_t)group * HD + (size_t)group * bsz + 3 * group +
+                       (size_t)kSlices * group * HD) +
+      sizeof(int) * bsz;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_attn_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(nKV, R);
+  paged_attn_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pool),
+      static_cast<const T*>(v_pool), static_cast<const int32_t*>(table),
+      static_cast<const uint8_t*>(valid), static_cast<T*>(out), nKV, group,
+      bsz, nb, n_blocks, sm_scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_hd(int hd, const void* q, const void* k_pool,
+                        const void* v_pool, const void* table,
+                        const void* valid, void* out, int R, int nKV,
+                        int group, int bsz, int nb, int n_blocks,
+                        float sm_scale, cudaStream_t stream) {
+  switch (hd) {
+    case 16:
+      return launch<T, 16>(q, k_pool, v_pool, table, valid, out, R, nKV, group,
+                           bsz, nb, n_blocks, sm_scale, stream);
+    case 32:
+      return launch<T, 32>(q, k_pool, v_pool, table, valid, out, R, nKV, group,
+                           bsz, nb, n_blocks, sm_scale, stream);
+    case 64:
+      return launch<T, 64>(q, k_pool, v_pool, table, valid, out, R, nKV, group,
+                           bsz, nb, n_blocks, sm_scale, stream);
+    case 128:
+      return launch<T, 128>(q, k_pool, v_pool, table, valid, out, R, nKV,
+                            group, bsz, nb, n_blocks, sm_scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Plain C entry for ctypes. Every pointer is a device pointer of a
+// contiguous tensor; `stream` is the caller's cudaStream_t. Returns the
+// launch's cudaGetLastError() (0 on success); the wrapper raises on
+// anything else. R and nb must be at least 1: with no row to attend the
+// output is 0, which the wrapper returns without a launch.
+extern "C" int areal_paged_attention(const void* q, const void* k_pool,
+                                     const void* v_pool, const void* table,
+                                     const void* valid, void* out, int R,
+                                     int nH, int nKV, int hd, int bsz, int nb,
+                                     int n_blocks, float sm_scale, int is_bf16,
+                                     void* stream) {
+  if (R <= 0 || nb <= 0 || nKV <= 0 || nH % nKV != 0)
+    return cudaErrorInvalidValue;
+  const int group = nH / nKV;
+  if (group < 1 || group > kMaxGroup || bsz < 1 || bsz > kMaxPage || R > 65535)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return dispatch_hd<__nv_bfloat16>(hd, q, k_pool, v_pool, table, valid, out,
+                                      R, nKV, group, bsz, nb, n_blocks,
+                                      sm_scale, s);
+  return dispatch_hd<float>(hd, q, k_pool, v_pool, table, valid, out, R, nKV,
+                            group, bsz, nb, n_blocks, sm_scale, s);
+}
+
+extern "C" const char* areal_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

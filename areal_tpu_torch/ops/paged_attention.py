@@ -1,0 +1,178 @@
+"""Paged decode attention over the KV pool, read in place (counterpart of
+`areal_tpu/ops/paged_attention.py`).
+
+`paged_attention` keeps the JAX signature and layout (:514): R single-token
+queries `[R, nH, hd]` attend over a pool `[n_blocks, bsz, nKV, hd]` through
+the `[R, nb]` block table, under the `[R, nb * bsz]` validity mask. On a
+CUDA tensor it launches the hand-written Hopper kernel
+(`csrc/paged_attention.cu`, the port of `_paged_attn_kernel`) or raises; on
+a CPU tensor it runs `paged_attention_ref`, the plain version. There is no
+fallback from one to the other.
+
+`launches` counts kernel launches, so a run can show that its main path
+went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from areal_tpu_torch.ops import _build
+
+_NEG_INF = -1e30
+_HEAD_DIMS = (16, 32, 64, 128)
+_MAX_GROUP = 16
+_MAX_PAGE = 256
+
+# kernel launches since the process started (or the last reset to 0)
+launches = 0
+
+_lib: ctypes.CDLL | None = None
+
+
+def paged_attention_ref(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
+    """Plain PyTorch version. It follows `_paged_attention_xla` (:88-110)
+    op for op: gather the table's blocks, score in q's dtype, divide by
+    sqrt(hd) exactly when `sm_scale` is the default, mask with -1e30,
+    softmax in f32, round the probabilities to q's dtype, and sum V.
+
+    One departure: a slot with no valid row returns 0, as
+    `_paged_attn_kernel` (and the CUDA kernel) do; the XLA path returns the
+    mean of the gathered V rows there. The decode step never produces such
+    a slot (row 0 is always valid)."""
+    R, nH, hd = q.shape
+    bsz, nKV = k_pool.shape[1], k_pool.shape[2]
+    nb = block_table.shape[1]
+    group = nH // nKV
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
+    idx = block_table.reshape(-1).long()
+    kc = k_pool.index_select(0, idx).reshape(R, nb * bsz, nKV, hd)
+    vc = v_pool.index_select(0, idx).reshape(R, nb * bsz, nKV, hd)
+    qg = q.reshape(R, nKV, group, hd)
+    scores = torch.einsum("rkgd,rskd->rkgs", qg, kc.to(q.dtype))
+    if sm_scale == 1.0 / math.sqrt(hd):
+        scores = (scores / math.sqrt(hd)).float()
+    else:
+        scores = (scores * sm_scale).float()
+    scores = torch.where(valid[:, None, None, :], scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("rkgs,rskd->rkgd", probs, vc.to(q.dtype))
+    out = torch.where(valid.any(dim=1)[:, None, None, None], out, 0)
+    return out.reshape(R, nH, hd)
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load("paged_attention")
+        lib.areal_paged_attention.argtypes = [
+            ctypes.c_void_p,  # q
+            ctypes.c_void_p,  # k_pool
+            ctypes.c_void_p,  # v_pool
+            ctypes.c_void_p,  # block table
+            ctypes.c_void_p,  # valid
+            ctypes.c_void_p,  # out
+            ctypes.c_int,  # R
+            ctypes.c_int,  # nH
+            ctypes.c_int,  # nKV
+            ctypes.c_int,  # hd
+            ctypes.c_int,  # bsz
+            ctypes.c_int,  # nb
+            ctypes.c_int,  # n_blocks
+            ctypes.c_float,  # sm_scale
+            ctypes.c_int,  # is_bf16
+            ctypes.c_void_p,  # stream
+        ]
+        lib.areal_paged_attention.restype = ctypes.c_int
+        lib.areal_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.areal_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(q, k_pool, v_pool, block_table, valid) -> None:
+    tensors = dict(
+        q=q, k_pool=k_pool, v_pool=v_pool, block_table=block_table,
+        valid=valid,
+    )
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or bfloat16")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError(
+            f"pool dtypes {k_pool.dtype}/{v_pool.dtype} must equal q's {q.dtype}"
+        )
+    if block_table.dtype != torch.int32:
+        raise TypeError(f"block_table dtype {block_table.dtype}, need int32")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"valid dtype {valid.dtype}, need bool")
+    if q.dim() != 3 or k_pool.dim() != 4 or block_table.dim() != 2:
+        raise ValueError("q [R, nH, hd], pools [n_blocks, bsz, nKV, hd], table [R, nb]")
+    R, nH, hd = q.shape
+    n_blocks, bsz, nKV, hd_k = k_pool.shape
+    nb = block_table.shape[1]
+    if v_pool.shape != k_pool.shape or hd_k != hd:
+        raise ValueError(f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)} vs q {tuple(q.shape)}")
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
+    if nH % nKV or not 1 <= nH // nKV <= _MAX_GROUP:
+        raise ValueError(f"{nH} query heads over {nKV} kv heads: group must be 1..{_MAX_GROUP}")
+    if not 1 <= bsz <= _MAX_PAGE:
+        raise ValueError(f"page size {bsz} not in 1..{_MAX_PAGE}")
+    if block_table.shape[0] != R or tuple(valid.shape) != (R, nb * bsz):
+        raise ValueError(
+            f"table {tuple(block_table.shape)} / valid {tuple(valid.shape)} "
+            f"do not match R={R}, nb*bsz={nb * bsz}"
+        )
+
+
+def paged_attention(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
+    """Decode attention of R single-token queries over paged KV.
+
+    q `[R, nH, hd]`; pools `[n_blocks, bsz, nKV, hd]` (one layer); table
+    `[R, nb]` int32 pool-block ids; valid `[R, nb * bsz]` bool. Logical row
+    s of slot r lives at `(block_table[r, s // bsz], s % bsz)`; rows that
+    `valid` hides (the null block 0 in table tails, rows past a slot's
+    position) are never scored. Returns `[R, nH, hd]` in q's dtype.
+
+    A block id outside the pool on a page that has valid rows faults the
+    kernel (the CUDA error surfaces at the next synchronisation), as an
+    out-of-range index does in PyTorch's own CUDA kernels; the plain
+    version raises IndexError.
+    """
+    global launches
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return paged_attention_ref(
+            q, k_pool, v_pool, block_table, valid, sm_scale=sm_scale
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on cuda or cpu, not {q.device}")
+    _check(q, k_pool, v_pool, block_table, valid)
+    R, nH, hd = q.shape
+    n_blocks, bsz, nKV, _ = k_pool.shape
+    if R == 0 or block_table.shape[1] == 0:
+        return torch.zeros_like(q)  # no row to attend: the output is 0
+    out = torch.empty_like(q)
+    lib = _kernel_lib()
+    err = lib.areal_paged_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_table.data_ptr(), valid.data_ptr(), out.data_ptr(),
+        R, nH, nKV, hd, bsz, block_table.shape[1], n_blocks,
+        float(sm_scale), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        msg = lib.areal_cuda_error_string(err).decode()
+        raise RuntimeError(f"paged attention kernel launch failed: {msg} ({err})")
+    launches += 1
+    return out

@@ -1,0 +1,322 @@
+"""TorchDecodeEngine on the CPU against the JAX package's model functions.
+
+The reference is a plain loop over the JAX `qwen2.prefill` (of
+`prompt[:-1]`) and `decode_step_paged` (attn_impl="xla"), greedy, one
+request at a time, at the smoke geometry in f32 with the same weights.
+Greedy tokens must match exactly and logprobs within atol 1e-5 (the two
+packages sum in different orders). The rest checks the serving contract:
+batching does not change a request's stream, stop ids, max_new_tokens,
+pause/continue, weight pushes and version stamps, pool-pressure
+preemption, the sampler's statistics, and the device rule.
+"""
+
+import asyncio
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from areal_tpu.models import qwen2 as jq
+from areal_tpu_torch.api.cli_args import (
+    GenerationHyperparameters,
+    TorchDecodeConfig,
+)
+from areal_tpu_torch.api.io_struct import ModelRequest
+from areal_tpu_torch.engine.sampling import sample
+from areal_tpu_torch.engine.torch_decode import TorchDecodeEngine
+from areal_tpu_torch.models import qwen2 as tq
+from areal_tpu_torch.models.convert import params_from_numpy
+from areal_tpu_torch.models.smoke import SMOKE_MODEL_DICT
+
+KW = dict(SMOKE_MODEL_DICT, dtype="float32", param_dtype="float32")
+JCFG = jq.ModelConfig(**KW)
+TCFG = tq.ModelConfig(**KW)
+SMALL = dict(context_length=128, max_running_requests=4, page_size=16,
+             new_tokens_per_chunk=8, kv_cache_dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jparams = jq.init_params(JCFG, jax.random.PRNGKey(7))
+    return jparams, params_from_numpy(jax.tree.map(np.asarray, jparams), TCFG)
+
+
+def _engine(tparams, **over):
+    eng = TorchDecodeEngine(TorchDecodeConfig(**dict(SMALL, **over)), device="cpu")
+    eng.set_model(tparams, TCFG)
+    return eng.initialize()
+
+
+@pytest.fixture
+def engine(weights):
+    eng = _engine(weights[1])
+    yield eng
+    eng.destroy()
+
+
+def _greedy(n, **kw):
+    return GenerationHyperparameters(max_new_tokens=n, greedy=True, **kw)
+
+
+def _jax_greedy(jparams, prompt, n_new, bsz=16, nb=8):
+    """Reference loop: prefill prompt[:-1] into a one-slot paged pool, then
+    decode_step_paged token by token, greedy."""
+    L, nKV, hd = JCFG.num_hidden_layers, JCFG.num_key_value_heads, JCFG.head_dim_
+    kp = jnp.zeros((L, nb + 1, bsz, nKV, hd), jnp.float32)
+    vp = jnp.zeros_like(kp)
+    table = jnp.arange(1, nb + 1, dtype=jnp.int32)[None]
+    pre = len(prompt) - 1
+    if pre:
+        _, ks, vs = jq.prefill(
+            jparams, jnp.asarray(prompt[:-1], jnp.int32),
+            jnp.arange(pre, dtype=jnp.int32), JCFG, with_logits=False,
+        )
+        rows = jnp.arange(pre)
+        kp = kp.at[:, 1 + rows // bsz, rows % bsz].set(ks)
+        vp = vp.at[:, 1 + rows // bsz, rows % bsz].set(vs)
+    step = jax.jit(
+        lambda p, t, pos, k, v: jq.decode_step_paged(
+            p, t, pos, k, v, table, JCFG, active=jnp.ones(1, bool), attn_impl="xla"
+        )
+    )
+    tok, toks, logps = prompt[-1], [], []
+    for i in range(n_new):
+        logits, kp, vp = step(
+            jparams, jnp.asarray([tok], jnp.int32),
+            jnp.asarray([pre + i], jnp.int32), kp, vp,
+        )
+        lp = jax.nn.log_softmax(logits[0])
+        tok = int(jnp.argmax(logits[0]))
+        toks.append(tok)
+        logps.append(float(lp[tok]))
+    return toks, logps
+
+
+PROMPTS = [[3], [1, 5, 9, 2, 7], list(range(2, 30)) + [4] * 40]
+
+
+@pytest.mark.parametrize("prompt", PROMPTS, ids=["len1", "len5", "len68"])
+def test_greedy_matches_jax_reference(weights, engine, prompt):
+    n = 20
+    want_toks, want_logps = _jax_greedy(weights[0], prompt, n)
+    resp = engine.generate(ModelRequest(input_ids=prompt, gconfig=_greedy(n)), timeout=120)
+    assert resp.output_tokens == want_toks
+    np.testing.assert_allclose(resp.output_logprobs, want_logps, atol=1e-5, rtol=0)
+    assert resp.stop_reason == "length" and resp.output_versions == [0] * n
+
+
+def test_concurrent_requests_match_solo_runs(engine):
+    prompts = [[1, 2, 3], [4] * 17, [5, 6], list(range(31))]
+    ns = [19, 8, 25, 11]
+    solo = [
+        engine.generate(ModelRequest(input_ids=p, gconfig=_greedy(n)), timeout=120)
+        for p, n in zip(prompts, ns)
+    ]
+
+    async def together():
+        return await asyncio.gather(*[
+            engine.agenerate(ModelRequest(input_ids=p, gconfig=_greedy(n)))
+            for p, n in zip(prompts, ns)
+        ])
+
+    batched = asyncio.run(together())
+    for a, b, n in zip(solo, batched, ns):
+        assert b.output_len == n
+        assert a.output_tokens == b.output_tokens
+        np.testing.assert_allclose(a.output_logprobs, b.output_logprobs, atol=1e-5, rtol=0)
+
+
+def test_stop_id_and_max_new_tokens(engine):
+    prompt = [2, 7, 1, 8]
+    full = engine.generate(ModelRequest(input_ids=prompt, gconfig=_greedy(12)), timeout=120)
+    assert full.output_len == 12 and full.stop_reason == "length"
+    stop = full.output_tokens[5]
+    first = full.output_tokens.index(stop)
+    cut = engine.generate(
+        ModelRequest(input_ids=prompt, gconfig=_greedy(12, stop_token_ids=[stop])),
+        timeout=120,
+    )
+    assert cut.stop_reason == "stop"
+    assert cut.output_tokens == full.output_tokens[: first + 1]
+    assert len(cut.output_logprobs) == len(cut.output_versions) == first + 1
+    # min_new_tokens defers the stop past its first occurrence
+    later = engine.generate(
+        ModelRequest(input_ids=prompt, gconfig=_greedy(12, stop_token_ids=[stop], min_new_tokens=first + 2)),
+        timeout=120,
+    )
+    assert later.output_tokens[: first + 1] == full.output_tokens[: first + 1]
+    assert later.output_len > first + 1
+
+
+def test_prompt_past_context_returns_length(engine):
+    resp = engine.generate(
+        ModelRequest(input_ids=[1] * 100, gconfig=_greedy(64)), timeout=60
+    )
+    assert resp.stop_reason == "length" and resp.output_len == 0
+
+
+def test_pause_and_continue(engine):
+    engine.pause_generation()
+    out = {}
+    t = threading.Thread(target=lambda: out.setdefault(
+        "r", engine.generate(ModelRequest(input_ids=[1, 2], gconfig=_greedy(6)), timeout=120)
+    ))
+    t.start()
+    time.sleep(0.3)
+    assert "r" not in out  # nothing decodes while paused
+    engine.continue_generation()
+    t.join(timeout=120)
+    assert not t.is_alive() and out["r"].output_len == 6
+
+
+def test_weight_push_and_versions(engine, weights):
+    req = ModelRequest(input_ids=[3, 1, 4], gconfig=_greedy(10))
+    before = engine.generate(req.copy(), timeout=120)
+    engine.set_version(3)
+    assert engine.get_version() == 3
+    same = engine.generate(req.copy(), timeout=120)
+    assert same.output_versions == [3] * 10
+    assert same.output_tokens == before.output_tokens
+    new_norm = np.linspace(0.5, 1.5, TCFG.hidden_size).astype(np.float32)
+    engine.update_weights_from_tensor({"final_norm": new_norm}, version=4)
+    assert engine.get_version() == 4
+    assert torch.equal(engine.params["final_norm"], torch.from_numpy(new_norm))
+    after = engine.generate(req.copy(), timeout=120)
+    assert after.output_versions == [4] * 10
+    assert after.output_logprobs != before.output_logprobs
+    with pytest.raises(KeyError):
+        engine.update_weights_from_tensor({"no/such/weight": new_norm})
+    with pytest.raises(ValueError):
+        engine.update_weights_from_tensor({"final_norm": new_norm[:-1]})
+    # a refused push writes nothing
+    assert torch.equal(engine.params["final_norm"], torch.from_numpy(new_norm))
+    engine.update_weights_from_tensor({"final_norm": weights[1]["final_norm"]})
+
+
+def test_layer_weight_push_reaches_the_decode_step(engine, weights):
+    """The engine keeps per-layer views built at set_model; an in-place
+    push of a layer weight must show through them."""
+    req = ModelRequest(input_ids=[3, 1, 4], gconfig=_greedy(6))
+    before = engine.generate(req.copy(), timeout=120)
+    name = sorted(n for n in engine.params if n.endswith("mlp/down_kernel"))[0]
+    engine.update_weights_from_tensor({name: np.zeros(engine.params[name].shape, np.float32)})
+    assert (engine._layers[0]["mlp/down_kernel"] == 0).all()
+    after = engine.generate(req.copy(), timeout=120)
+    assert after.output_logprobs != before.output_logprobs
+    engine.update_weights_from_tensor({name: weights[1][name]})
+    again = engine.generate(req.copy(), timeout=120)
+    assert again.output_tokens == before.output_tokens
+    np.testing.assert_allclose(again.output_logprobs, before.output_logprobs, atol=0, rtol=0)
+
+
+def test_pool_pressure_preempts_and_streams_stay_exact(weights):
+    """Two requests whose KV cannot both fit: the longer one is requeued
+    and re-prefilled, and both streams still equal their solo runs."""
+    tparams = weights[1]
+    roomy = _engine(tparams)
+    # 8 usable blocks of 16 rows; the two requests grow to 6 + 5 blocks
+    tight = _engine(tparams, kv_pool_tokens=96)
+    try:
+        reqs = [
+            ModelRequest(input_ids=list(range(1, 20)), gconfig=_greedy(60)),
+            ModelRequest(input_ids=[2, 2, 5], gconfig=_greedy(60)),
+        ]
+        solo = [roomy.generate(r.copy(), timeout=120) for r in reqs]
+
+        async def together():
+            return await asyncio.gather(*[tight.agenerate(r.copy()) for r in reqs])
+
+        both = asyncio.run(together())
+        assert tight.n_preemptions > 0
+        for a, b in zip(solo, both):
+            assert a.output_tokens == b.output_tokens
+            np.testing.assert_allclose(a.output_logprobs, b.output_logprobs, atol=1e-5, rtol=0)
+    finally:
+        roomy.destroy()
+        tight.destroy()
+
+
+def test_sampler_matches_softmax_at_temperature_one():
+    rng = np.random.default_rng(0)
+    V, R, rounds = 16, 4000, 5
+    logits = rng.standard_normal(V).astype(np.float32) * 1.5
+    probs = np.exp(logits - logits.max())
+    probs /= probs.sum()
+    gen = torch.Generator().manual_seed(0)
+    batch = torch.from_numpy(np.tile(logits, (R, 1)))
+    counts = np.zeros(V)
+    for _ in range(rounds):
+        tok, logp = sample(
+            batch, torch.ones(R), torch.ones(R), torch.zeros(R, dtype=torch.bool),
+            gen, use_topp=False,
+        )
+        counts += np.bincount(tok.numpy(), minlength=V)
+        np.testing.assert_allclose(
+            logp.numpy(), np.log(probs)[tok.numpy()], atol=1e-5, rtol=0
+        )
+    n = R * rounds
+    chi2 = float(((counts - n * probs) ** 2 / (n * probs)).sum())
+    assert chi2 < 37.7  # chi-square, 15 dof, p = 0.001
+
+
+def test_top_p_samples_stay_in_the_nucleus():
+    rng = np.random.default_rng(1)
+    V, R, top_p = 100, 2000, 0.6
+    logits = rng.standard_normal(V).astype(np.float32) * 2.0
+    order = np.argsort(-logits)
+    p = np.exp(logits[order] - logits.max())
+    p /= p.sum()
+    nucleus = set(order[(np.cumsum(p) - p) < top_p].tolist())
+    gen = torch.Generator().manual_seed(1)
+    tops = torch.full((R,), top_p)
+    tops[: R // 2] = 1.0  # the full-vocab rows of a mixed batch
+    tok, logp = sample(
+        torch.from_numpy(np.tile(logits, (R, 1))), torch.ones(R), tops,
+        torch.zeros(R, dtype=torch.bool), gen, use_topp=True,
+    )
+    inside = set(tok[R // 2:].tolist())
+    assert inside <= nucleus and len(inside) > 1
+    assert not set(tok[: R // 2].tolist()) <= nucleus  # top_p=1 rows roam
+    full_lp = torch.log_softmax(torch.from_numpy(logits), -1)
+    torch.testing.assert_close(logp, full_lp[tok])
+
+
+def test_greedy_rows_take_the_argmax():
+    logits = torch.randn(6, 50, generator=torch.Generator().manual_seed(2))
+    greedy = torch.tensor([True, False] * 3)
+    tok, _ = sample(logits, torch.full((6,), 0.7), torch.ones(6), greedy,
+                    torch.Generator().manual_seed(3), use_topp=False)
+    assert torch.equal(tok[greedy], logits.argmax(-1)[greedy])
+
+
+def test_device_none_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchDecodeEngine(TorchDecodeConfig())
+    assert TorchDecodeEngine(TorchDecodeConfig(), device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize(
+    "setting",
+    [dict(kv_dtype="int8"), dict(weight_dtype="int8"), dict(spec_decode="ngram"),
+     dict(kv_host_pool_mb=64.0), dict(tensor_parallel_size=2),
+     dict(kv_layout="workspace"), dict(model_path="/models/x"),
+     dict(kv_cache_dtype="bfloat16")],  # the model here is float32
+)
+def test_unported_settings_raise(weights, setting):
+    eng = TorchDecodeEngine(TorchDecodeConfig(**dict(SMALL, **setting)), device="cpu")
+    eng.set_model(weights[1], TCFG)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.initialize()
+
+
+def test_unported_request_options_raise(engine):
+    for g in (GenerationHyperparameters(stop=["x"]),
+              GenerationHyperparameters(frequency_penalty=0.5)):
+        with pytest.raises(NotImplementedError):
+            engine.generate(ModelRequest(input_ids=[1, 2], gconfig=g), timeout=30)
