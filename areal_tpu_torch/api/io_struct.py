@@ -1,5 +1,5 @@
-"""Request and response records (counterpart of
-`areal_tpu/api/io_struct.py:23, :47`)."""
+"""Request, response and training records (counterpart of
+`areal_tpu/api/io_struct.py:23, :47, :74, :106`)."""
 
 from __future__ import annotations
 
@@ -52,3 +52,41 @@ class ModelResponse:
     @property
     def output_len(self) -> int:
         return len(self.output_tokens)
+
+
+@dataclass
+class FinetuneSpec:
+    total_train_epochs: int
+    dataset_size: int
+    train_batch_size: int
+
+    @property
+    def total_train_steps(self) -> int:
+        return self.total_train_epochs * (self.dataset_size // self.train_batch_size)
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return self.dataset_size // self.train_batch_size
+
+
+@dataclass
+class WeightUpdateMeta:
+    """How trainer weights reach the decode engine. The port implements
+    "memory": the colocated trainer hands its tensors to the decode engine
+    on the same card, which copies them in place. "disk" and "dcn" are
+    refused by `TorchTrainEngine.update_weights` (ROADMAP.md queue 1,
+    item 4)."""
+
+    type: Literal["disk", "memory", "dcn"] = "memory"
+    path: str | None = None
+    alloc_mode: Any = None
+    transfer_addr: str | None = None
+    transfer_port: int = 29500
+    group_name: str = "update_weight_group"
+    weight_chunked_mem_mb: int = 1024
+    use_lora: bool = False
+    weight_dtype: str = "fp"
+
+    @classmethod
+    def from_memory(cls, alloc_mode: Any = None) -> "WeightUpdateMeta":
+        return cls(type="memory", alloc_mode=alloc_mode)

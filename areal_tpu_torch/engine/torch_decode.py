@@ -580,6 +580,25 @@ class TorchDecodeEngine(InferenceEngine):
             if not was_paused:
                 self.continue_generation()
 
+    def update_weights_from_distributed(
+        self, meta, params=None, model_config=None, version: int | None = None
+    ) -> None:
+        """Colocated push (the JAX name, `jax_decode.py:4842`): install the
+        trainer's parameter tensors in place, as `update_weights_from_tensor`
+        does, and stamp `version` inside the same pause window. The trainer
+        keeps its tensors; the served ones are copies."""
+        if params is None:
+            raise ValueError("update_weights_from_distributed needs params")
+        if model_config is not None and (
+            model_config.num_hidden_layers, model_config.hidden_size,
+            model_config.num_key_value_heads, model_config.head_dim_,
+        ) != (
+            self.model_config.num_hidden_layers, self.model_config.hidden_size,
+            self.model_config.num_key_value_heads, self.model_config.head_dim_,
+        ):
+            raise ValueError("the pushed model's geometry differs from the served one")
+        self.update_weights_from_tensor(params, version=version)
+
     def set_version(self, version: int) -> None:
         self._version = int(version)
 

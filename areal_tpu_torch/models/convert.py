@@ -27,11 +27,32 @@ def to_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
+def unstack_layers(tree: dict) -> dict:
+    """A scanned tree (`layers` leaves stacked `[L, ...]`) -> the unscanned
+    form (`layers_{i}` subtrees), the layout the port's trainer keeps."""
+    if "layers" not in tree:
+        return tree
+    out = {k: v for k, v in tree.items() if k != "layers"}
+
+    def take(node, i):
+        if isinstance(node, dict):
+            return {k: take(v, i) for k, v in node.items()}
+        return node[i]
+
+    L = len(next(iter(flatten_names(tree["layers"]).values())))
+    for i in range(L):
+        out[f"layers_{i}"] = take(tree["layers"], i)
+    return out
+
+
 def params_from_numpy(
     tree: dict, cfg: ModelConfig, device: torch.device | str = "cpu"
 ) -> dict[str, torch.Tensor]:
     """JAX parameter tree (numpy leaves) -> the port's flat tensor dict, in
-    `cfg.param_dtype`. Names and shapes must match `cfg` exactly."""
+    `cfg.param_dtype`. Names and shapes must match `cfg` exactly; a scanned
+    tree is unstacked first when `cfg` is unscanned."""
+    if not cfg.scan_layers:
+        tree = unstack_layers(tree)
     named = flatten_names(tree)
     want = named_shapes(cfg)
     if set(named) != set(want):

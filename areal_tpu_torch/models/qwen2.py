@@ -1,10 +1,17 @@
-"""Qwen2-class decoder, serving path (counterpart of `areal_tpu/models/qwen2.py`).
+"""Qwen2-class decoder (counterpart of `areal_tpu/models/qwen2.py`): the
+packed training forward and the serving path.
 
 The dense GLU / RMSNorm / RoPE decoder of Qwen2 and Qwen2.5 (qkv bias,
 tied or untied head), which Llama and Mistral share when unwindowed.
 The JAX decoder's other families (MoE, Qwen3 q/k norm, Gemma, GPT-2,
 sliding windows, LoRA, critic heads) are refused by `check_supported`
 until their ROADMAP item ports them.
+
+`forward` runs one packed token stream `[T]` with `segment_ids` (causal
+within each segment), its attention through the flash kernels
+(`ops/flash_attention.py`) or the dense path, with per-layer
+`torch.utils.checkpoint` when `cfg.remat`; `LMHead` hands the post-norm
+hidden states to the vocab-chunked loss (`ops/fused_xent.py`).
 
 Parameters are a flat dict of tensors keyed by the `/`-joined names of the
 JAX parameter tree, the wire names `core/weight_transfer.py` ships
@@ -27,9 +34,13 @@ import math
 import os
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from areal_tpu_torch.ops.flash_attention import PADDING_SEGMENT, flash_attention
+from areal_tpu_torch.ops.fused_xent import chunked_label_logprobs
 from areal_tpu_torch.ops.paged_attention import paged_attention
 
 _NEG_INF = -1e30
@@ -440,12 +451,168 @@ def _embed(params: dict, ids, cfg: ModelConfig):
     return params["embed/embedding"][ids].to(torch_dtype(cfg.dtype))
 
 
-def _logits(params: dict, x, cfg: ModelConfig):
-    x = _norm(x, params["final_norm"], cfg)
+def _head_logits(params: dict, x, cfg: ModelConfig):
+    """[T, H] post-norm hidden states -> [T, V] f32 logits."""
     if cfg.tie_word_embeddings:
         w = params["embed/embedding"].to(x.dtype)
         return (x @ w.t()).float()
     return (x @ params["lm_head/kernel"]).float()
+
+
+def _logits(params: dict, x, cfg: ModelConfig):
+    return _head_logits(params, _norm(x, params["final_norm"], cfg), cfg)
+
+
+def _dense_attention(q, k, v, mask):
+    """Masked softmax attention in the JAX XLA op order (:1244-1254):
+    scores in the compute dtype, cast to f32, divided by sqrt(hd), -1e30
+    where `mask` [T, T] is False, probabilities rounded back. q
+    `[T, nH, hd]`, k/v `[T, nKV, hd]`."""
+    T, nH, hd = q.shape
+    nKV = k.shape[1]
+    qg = q.reshape(T, nKV, nH // nKV, hd)
+    scores = torch.einsum("tkgd,skd->kgts", qg, k).float() / math.sqrt(hd)
+    scores = torch.where(mask[None, None], scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    del scores
+    return torch.einsum("kgts,skd->tkgd", probs, v).reshape(T, nH, hd)
+
+
+# ---------------------------------------------------------------------------
+# Packed training forward
+# ---------------------------------------------------------------------------
+
+
+def segment_ids_from_cu_seqlens(cu_seqlens: np.ndarray, total: int) -> np.ndarray:
+    """Host helper (JAX :1824): cu_seqlens -> per-token segment ids
+    0..n-1. The pad tail appended by `pad_packed_tensor_dict` is its own
+    segment, as in the JAX package."""
+    seg = np.zeros(total, dtype=np.int32)
+    for i in range(len(cu_seqlens) - 1):
+        seg[cu_seqlens[i] : cu_seqlens[i + 1]] = i
+    return seg
+
+
+def segment_causal_mask(segment_ids):
+    """[T, T] bool (JAX :1132): attend iff same segment AND causal AND the
+    query is not padding."""
+    T = segment_ids.shape[0]
+    seg_q = segment_ids[:, None]
+    causal = torch.ones(T, T, dtype=torch.bool, device=segment_ids.device).tril()
+    return (seg_q == segment_ids[None, :]) & causal & (seg_q != PADDING_SEGMENT)
+
+
+_ATTN_IMPLS = ("auto", "flash", "dense", "ring", "chunked")
+
+
+def resolve_attn_impl(cfg: ModelConfig) -> str:
+    """The attention path of the packed forward (JAX :1150). "auto" is
+    "flash": the hand-written kernels on CUDA tensors, their plain version
+    on CPU tensors. "dense" materialises the [T, T] mask."""
+    if cfg.attn_impl not in _ATTN_IMPLS:
+        raise ValueError(f"attn_impl={cfg.attn_impl!r} not in {_ATTN_IMPLS}")
+    if cfg.attn_impl in ("ring", "chunked"):
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} is not in the PyTorch port yet: "
+            "ROADMAP.md queue 1, item 5 (ring) and item 6 (chunked)"
+        )
+    return "flash" if cfg.attn_impl == "auto" else cfg.attn_impl
+
+
+def attention(lp: dict, x, cos, sin, segment_ids, mask, cfg: ModelConfig):
+    """Packed GQA attention over one token stream x [T, H] (JAX :1187);
+    q/k/v stay in the token-major `[T, n, hd]` layout the kernels read."""
+    q, k, v = _project_qkv(lp, x, cos, sin, cfg)
+    if resolve_attn_impl(cfg) == "flash":
+        out = flash_attention(q, k, v, segment_ids)
+    else:
+        out = _dense_attention(q, k, v, mask)
+    return _attn_out(lp, out)
+
+
+def decoder_layer(lp: dict, x, cos, sin, segment_ids, mask, cfg: ModelConfig):
+    """One pre-norm decoder layer (JAX :1423) of the dense family."""
+    x = x + attention(lp, _norm(x, lp["input_norm"], cfg), cos, sin, segment_ids, mask, cfg)
+    return x + mlp(lp, _norm(x, lp["post_attn_norm"], cfg), cfg)
+
+
+_REMAT_POLICIES = ("full", "dots_saveable", "dots_with_no_batch_dims_saveable")
+
+
+def forward(
+    params: dict,
+    input_ids,
+    position_ids,
+    segment_ids,
+    cfg: ModelConfig,
+    *,
+    return_hidden: bool = False,
+    layers: list[dict] | None = None,
+):
+    """Packed forward (JAX :1445): [T] ids -> [T, V] f32 logits, or the
+    post-final-norm hidden states [T, H] with `return_hidden` (the fused
+    LM-loss path, `LMHead`). `segment_ids` [T] mark sequence membership;
+    attention is causal within a segment.
+
+    With `cfg.remat` and gradients enabled, each layer runs under
+    `torch.utils.checkpoint` (non-reentrant): its activations are
+    recomputed in the backward, the flash forward kernel included. Only
+    `remat_policy="full"` is ported."""
+    if cfg.remat and cfg.remat_policy not in _REMAT_POLICIES:
+        raise ValueError(f"remat_policy={cfg.remat_policy!r} not in {_REMAT_POLICIES}")
+    if cfg.remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not in the PyTorch port "
+            "yet (ROADMAP.md queue 1, item 7); use 'full'"
+        )
+    if layers is None:
+        layers = layer_views(params, cfg)
+    x = _embed(params, input_ids, cfg)
+    cos, sin = rope_table(position_ids, cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling_)
+    mask = segment_causal_mask(segment_ids) if resolve_attn_impl(cfg) == "dense" else None
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in layers:
+        if remat:
+            x = checkpoint(decoder_layer, lp, x, cos, sin, segment_ids, mask, cfg,
+                           use_reentrant=False)
+        else:
+            x = decoder_layer(lp, x, cos, sin, segment_ids, mask, cfg)
+    x = _norm(x, params["final_norm"], cfg)
+    if return_hidden:
+        return x
+    return _head_logits(params, x, cfg)
+
+
+class LMHead:
+    """Lazy LM head over post-final-norm hidden states (JAX :1007), handed
+    to `hidden_loss`-tagged loss functions instead of dense logits: label
+    logprobs and entropy come from the vocab-chunked online logsumexp, so
+    the f32 [T, V] logits never exist."""
+
+    def __init__(self, hidden, params: dict, cfg: ModelConfig):
+        self.hidden = hidden
+        self.params = params
+        self.cfg = cfg
+
+    def _head(self):
+        if self.cfg.tie_word_embeddings:
+            return self.params["embed/embedding"], True
+        return self.params["lm_head/kernel"], False
+
+    def label_logprobs(self, labels, temperature: float = 1.0):
+        w, vh = self._head()
+        return chunked_label_logprobs(
+            self.hidden, w.to(self.hidden.dtype), labels, head_is_vh=vh,
+            temperature=temperature, vocab_chunk=self.cfg.loss_vocab_chunk,
+        )
+
+    def label_logprobs_entropy(self, labels, temperature: float = 1.0):
+        w, vh = self._head()
+        return chunked_label_logprobs(
+            self.hidden, w.to(self.hidden.dtype), labels, head_is_vh=vh,
+            temperature=temperature, with_entropy=True,
+            vocab_chunk=self.cfg.loss_vocab_chunk,
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -470,20 +637,11 @@ def prefill(params: dict, input_ids, position_ids, cfg: ModelConfig,
     cos, sin = rope_table(position_ids, cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling_)
     T = input_ids.shape[0]
     mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
-    nH, nKV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
-    group = nH // nKV
     ks, vs = [], []
     for lp in layers:
         h = _norm(x, lp["input_norm"], cfg)
         q, k, v = _project_qkv(lp, h, cos, sin, cfg)
-        qg = q.reshape(T, nKV, group, hd)
-        scores = torch.einsum("tkgd,skd->kgts", qg, k).float()
-        scores = scores / math.sqrt(hd)
-        scores = torch.where(mask[None, None], scores, _NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        del scores
-        attn = torch.einsum("kgts,skd->tkgd", probs, v).reshape(T, nH, hd)
-        x = x + _attn_out(lp, attn)
+        x = x + _attn_out(lp, _dense_attention(q, k, v, mask))
         h = _norm(x, lp["post_attn_norm"], cfg)
         x = x + mlp(lp, h, cfg)
         ks.append(k)

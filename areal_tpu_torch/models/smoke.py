@@ -3,7 +3,8 @@
 
 `SMOKE_MODEL_DICT` is a copy of the JAX package's tiny offline geometry
 (the tests hold the two equal). `QWEN25_7B` is the full-width,
-full-depth Qwen2.5-7B decoder the chip check serves with random weights.
+full-depth Qwen2.5-7B decoder the chip check serves with random weights;
+`QWEN25_1_5B` the Qwen2.5-1.5B decoder it trains.
 """
 
 from __future__ import annotations
@@ -43,6 +44,34 @@ QWEN25_7B_HF = dict(
 )
 QWEN25_7B = ModelConfig.from_hf_config(
     QWEN25_7B_HF, dtype="bfloat16", param_dtype="bfloat16"
+)
+
+# Qwen2.5-1.5B-Instruct at its published widths, the model of the
+# north-star GRPO recipe (`BASELINE.json`) and of
+# `examples/configs/countdown_grpo.yaml`; it trains whole on one H100.
+QWEN25_1_5B_SOURCE = (
+    "https://huggingface.co/Qwen/Qwen2.5-1.5B-Instruct/blob/main/config.json"
+)
+QWEN25_1_5B_HF = dict(
+    model_type="qwen2",
+    vocab_size=151936,
+    hidden_size=1536,
+    intermediate_size=8960,
+    num_hidden_layers=28,
+    num_attention_heads=12,
+    num_key_value_heads=2,
+    max_position_embeddings=32768,
+    rope_theta=1000000.0,
+    rms_norm_eps=1e-06,
+    tie_word_embeddings=True,
+    hidden_act="silu",
+    use_sliding_window=False,
+    sliding_window=32768,
+    max_window_layers=21,
+    torch_dtype="bfloat16",
+)
+QWEN25_1_5B = ModelConfig.from_hf_config(
+    QWEN25_1_5B_HF, dtype="bfloat16", param_dtype="bfloat16"
 )
 
 

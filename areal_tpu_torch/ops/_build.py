@@ -21,7 +21,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "areal_tpu_torch"
-SOURCES = {"paged_attention": CSRC / "paged_attention.cu"}
+SOURCES = {
+    "paged_attention": CSRC / "paged_attention.cu",
+    "flash_attention": CSRC / "flash_attention.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -6,12 +6,16 @@ Hopper card and the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout, holds
-each against its plain PyTorch version on the card, serves 16 concurrent
-requests through `TorchDecodeEngine` at Qwen2.5-7B full width and depth
-(seeded random weights, bf16), and checks the kernels really carried that
-path. Each phase prints one JSON line; then come the `kernels` line, the
-card's name and power limit, and last `{"ok": true, "device": ...}`. Any
-failed check raises, and the script exits non-zero without that last line.
+each against its plain PyTorch version on the card, then drives the two
+main paths with seeded random weights in bf16: it serves 16 concurrent
+requests through `TorchDecodeEngine` at Qwen2.5-7B full width and depth,
+and runs three colocated GRPO iterations (rollout, `compute_logp`,
+`compute_advantages`, `ppo_update`, weight push) through `TorchPPOActor`
+at Qwen2.5-1.5B full width and depth. It checks that the kernels really
+carried each path. Each phase prints one JSON line; then come the
+`kernels` line, the card's name and power limit, and last
+`{"ok": true, "device": ...}`. Any failed check raises, and the script
+exits non-zero without that last line.
 It imports nothing of JAX or of the JAX package.
 """
 
@@ -21,6 +25,7 @@ import asyncio
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -29,20 +34,46 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from areal_tpu_torch.api.cli_args import GenerationHyperparameters, TorchDecodeConfig
-from areal_tpu_torch.api.io_struct import ModelRequest
+from areal_tpu_torch.api.cli_args import (
+    GenerationHyperparameters,
+    MicroBatchSpec,
+    NormConfig,
+    OptimizerConfig,
+    PPOActorConfig,
+    TorchDecodeConfig,
+)
+from areal_tpu_torch.api.io_struct import FinetuneSpec, ModelRequest, WeightUpdateMeta
+from areal_tpu_torch.engine.ppo.actor import TorchPPOActor
 from areal_tpu_torch.engine.torch_decode import TorchDecodeEngine
-from areal_tpu_torch.models.qwen2 import decode_step_paged, init_params
-from areal_tpu_torch.models.smoke import QWEN25_7B, QWEN25_7B_SOURCE
+from areal_tpu_torch.models.qwen2 import (
+    decode_step_paged,
+    init_params,
+    segment_ids_from_cu_seqlens,
+)
+from areal_tpu_torch.models.smoke import (
+    QWEN25_1_5B,
+    QWEN25_1_5B_SOURCE,
+    QWEN25_7B,
+    QWEN25_7B_SOURCE,
+)
 from areal_tpu_torch.ops import _build
+from areal_tpu_torch.ops import flash_attention as fa
 from areal_tpu_torch.ops import paged_attention as pa
 from areal_tpu_torch.platforms import resolve_device
+from areal_tpu_torch.utils.data import split_padded_tensor_dict_into_mb_list
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
 KERNEL_SOURCE = "areal_tpu_torch/ops/csrc/paged_attention.cu"
 KERNEL_REPLACES = "areal_tpu/ops/paged_attention.py:118"
+FLASH_SOURCE = "areal_tpu_torch/ops/csrc/flash_attention.cu"
+FLASH_REPLACES = {
+    "flash_attention_fwd": "areal_tpu/ops/flash_attention.py:73",
+    "flash_attention_bwd_dq": "areal_tpu/ops/flash_attention.py:228",
+    "flash_attention_bwd_dkv": "areal_tpu/ops/flash_attention.py:287",
+}
 
 # serve phase (Qwen2.5-7B decode at the north-star recipe's batch shape)
 SERVE = dict(
@@ -56,6 +87,8 @@ MAX_NEW = 256
 # phase 3: kernel vs plain
 KERNEL_CASES = [
     dict(name="qwen2.5-7b", nH=28, nKV=4, hd=128, bsz=128, R=16, max_len=4096),
+    # the train phase's rollout engine: 32 slots, context 1024
+    dict(name="qwen2.5-1.5b", nH=12, nKV=2, hd=128, bsz=128, R=32, max_len=1024),
     dict(name="qwen2.5-0.5b", nH=14, nKV=2, hd=64, bsz=128, R=16, max_len=4096),
     dict(name="small-page", nH=4, nKV=2, hd=16, bsz=16, R=8, max_len=512),
 ]
@@ -108,22 +141,38 @@ def phase_device() -> tuple[torch.device, str]:
     return dev, smi
 
 
+def _ptxas_summary(log: str) -> list[str]:
+    """One line per compiled kernel from nvcc's `-Xptxas -v` report:
+    kernel<dtype,head_dim>, registers, spill bytes."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"\d((?:flash|paged)_[a-z_]+?kernel)I(f|13__nv_bfloat16)Li(\d+)E", line)
+            name = (f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'},{m.group(3)}>"
+                    if m else line.split("'")[1])
+        elif "spill stores" in line and name:
+            spill = re.findall(r"(\d+) bytes spill", line)
+        elif "Used" in line and name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers, spills {'/'.join(spill)} bytes")
+            name = None
+    return out
+
+
 def phase_build() -> None:
+    """Both sources, one nvcc each, started together; each kernel's
+    registers and spills from ptxas, and the dynamic shared memory of the
+    flash kernels' blocks as their launches size it."""
+    t0 = time.perf_counter()
     built = _build.build_all()
-    rows = []
-    for b in built.values():
-        ptxas = [
-            " ".join(line.split())
-            for line in b.log.splitlines()
-            if "registers" in line or "spill" in line or "Compiling entry" in line
-        ]
-        rows.append(dict(
-            name=b.name, seconds=b.seconds, cached=b.cached, ptxas=ptxas,
-            # ptxas reports static shared memory only; the kernels size
-            # theirs dynamically per launch
-            shared_memory="dynamic, sized per launch",
-        ))
-    emit("build", kernels=rows)
+    wall_s = time.perf_counter() - t0
+    rows = [dict(name=b.name, seconds=b.seconds, cached=b.cached, ptxas=_ptxas_summary(b.log))
+            for b in built.values()]
+    # ptxas reports static shared memory only; the kernels size theirs per launch
+    smem = {f"hd{hd}": fa.smem_bytes(8192, hd) for hd in (16, 64, 128)}
+    emit("build", kernels=rows, wall_s=wall_s,
+         shared_memory=dict(paged_attention="dynamic, sized per launch",
+                            flash_attention_T8192=smem))
 
 
 def _paged_case(case: dict, dtype: torch.dtype, dev: torch.device, seed: int):
@@ -230,6 +279,130 @@ def phase_bad_table() -> None:
     emit("bad_table", **res)
     check(res["unread_bad_id_ok"], "kernel: a bad id on a page without valid rows changed the output")
     check(res["faulted"], "kernel: a bad block id on a valid page did not fault the launch")
+
+
+# phase: K1/K2a/K2b against the plain version
+FLASH_CASES = [
+    dict(name="qwen2.5-1.5b", nH=12, nKV=2, hd=128, T=4096, n_seqs=40),
+    dict(name="qwen2.5-7b", nH=28, nKV=4, hd=128, T=2048, n_seqs=12),
+    dict(name="qwen2.5-0.5b", nH=14, nKV=2, hd=64, T=2048, n_seqs=16),
+    dict(name="small", nH=4, nKV=2, hd=16, T=1000, n_seqs=9),
+]
+FLASH_PAD = 45  # pad-tail rows (segment -1): fully masked, o 0 and lse -1e30
+# (a, rtol): an element passes when |x - ref| <= a * max|ref| + rtol * |ref|,
+# ref the plain version on the f32-upcast inputs. f32: summation order
+# only (the two sides sum up to a few thousand f32 products in different
+# orders, ~1e-6 of the largest value). bf16: the kernels round each output
+# to bf16 once (at most 2^-8 of itself: rtol), and the backward's delta =
+# rowsum(dO * O) reads the bf16-rounded O where the plain version reads the
+# f32 one, which moves ds, and so dq and dk, by a few 2^-9 of their scale:
+# a = 2^-8, of which dq read at most 0.744 on an H100 (700 W).
+# lse is f32 in both and takes the f32 tolerance.
+FLASH_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2.0 ** -8, 2.0 ** -8)}
+LSE_TOL = (2e-5, 0.0)
+
+
+def _packed_segments(T: int, n_seqs: int, pad: int, rng) -> np.ndarray:
+    """A packed stream: `n_seqs` sequences of random lengths, then a pad
+    tail of segment -1."""
+    body = T - pad
+    cuts = np.sort(rng.choice(np.arange(1, body), n_seqs - 1, replace=False))
+    seg = np.full(T, fa.PADDING_SEGMENT, np.int32)
+    for i, (a, b) in enumerate(zip([0, *cuts], [*cuts, body])):
+        seg[a:b] = i
+    return seg
+
+
+def _flash_run(fn, q, k, v, ids, w_o, w_l):
+    """(o, lse [Tq, nH], dq, dk, dv) of sum(o * w_o) + sum(lse * w_l) over
+    rows with a valid key."""
+    o, lse = fn(q, k, v, *ids)
+    live = lse > -5e29
+    loss = (o.float() * w_o).sum() + (torch.where(live, lse, 0.0) * w_l).sum()
+    grads = torch.autograd.grad(loss, (q, k, v))
+    return (o.detach(), lse.detach(), *grads)
+
+
+def _scaled_ratio(x, ref, a: float, rtol: float) -> float:
+    """Largest |x - ref| / (a * max|ref| + rtol * |ref|): at most 1 passes."""
+    x, ref = x.float(), ref.float()
+    bound = a * ref.abs().max() + rtol * ref.abs()
+    return ((x - ref).abs() / bound).max().item()
+
+
+def _flash_case(case: dict, dtype, dev, seed: int, chunk: bool):
+    """Inputs of one case. The packed case attends a stream to itself; the
+    chunk case attends a query chunk to an earlier, overlapping kv chunk
+    (global positions, as ring attention would), with a segment that has no
+    key in the chunk and a non-zero gradient through lse."""
+    rng = np.random.default_rng(seed)
+    nH, nKV, hd, T = case["nH"], case["nKV"], case["hd"], case["T"]
+    if chunk:
+        pos_k = np.arange(1000, 1000 + T, dtype=np.int32)
+        pos_q = np.arange(1000 + T // 2, 1000 + T // 2 + T, dtype=np.int32)
+        seg_k, seg_q = pos_k // 300, pos_q // 300
+        seg_q[100:150] = 10 ** 6  # no key of this segment: fully masked rows
+        seg_q[-FLASH_PAD:] = fa.PADDING_SEGMENT
+    else:
+        seg_q = seg_k = _packed_segments(T, case["n_seqs"], FLASH_PAD, rng)
+        pos_q = pos_k = np.arange(T, dtype=np.int32)
+    ids = [torch.as_tensor(x, device=dev) for x in (seg_q, seg_k, pos_q, pos_k)]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype).float()
+
+    q, k, v = rand(T, nH, hd), rand(T, nKV, hd), rand(T, nKV, hd)
+    w_o = rand(T, nH, hd)  # representable in `dtype`: both sides get the same dO
+    w_l = rand(T, nH) if chunk else torch.zeros(T, nH, device=dev)
+    return q, k, v, ids, w_o, w_l
+
+
+def phase_flash_kernel(dev: torch.device) -> dict:
+    """K1, K2a and K2b (through `flash_attention_chunk` and autograd)
+    against `flash_attention_ref` with autograd, on the card: o, lse, dq, dk
+    and dv. Each case also reads the kernels against a planted fault, the
+    plain version with the causal diagonal excluded (query positions
+    shifted by one), and checks that the tolerance would catch it."""
+    rows, worst = [], {}
+    cases = [(c, False) for c in FLASH_CASES] + [(FLASH_CASES[0], True)]
+    for i, (case, chunk) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, ids, w_o, w_l = _flash_case(case, dtype, dev, SEED + 10 + i, chunk)
+            xs = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+            got = _flash_run(fa.flash_attention_chunk, *xs, ids, w_o, w_l)
+            torch.cuda.synchronize()
+            fs = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref = _flash_run(fa.flash_attention_ref, *fs, ids, w_o, w_l)
+            shifted = [ids[0], ids[1], ids[2] - 1, ids[3]]
+            fault = _flash_run(fa.flash_attention_ref, *fs, shifted, w_o, w_l)
+            torch.cuda.synchronize()
+            live = ref[1] > -5e29
+            dead_ok = bool((got[1][~live] == -1e30).all() and (got[0][~live] == 0).all())
+            row = dict(case=case["name"] + (" chunk+dlse" if chunk else ""),
+                       dtype=str(dtype).split(".")[-1], T=case["T"],
+                       masked_rows=int((~live).any(dim=1).sum()), dead_rows_exact=dead_ok)
+            name = f"{row['case']} {row['dtype']}"
+            for j, out in enumerate(("o", "lse", "dq", "dk", "dv")):
+                a, rtol = LSE_TOL if out == "lse" else FLASH_TOL[dtype]
+                x, r, f = got[j], ref[j], fault[j]
+                if out == "lse":
+                    x, r, f = x[live], r[live], f[live]
+                err = (x.float() - r).abs().max().item()
+                ratio = _scaled_ratio(x, r, a, rtol)
+                fault_ratio = _scaled_ratio(x, f, a, rtol)
+                row[out] = dict(max_abs_err=err, tol_ratio=ratio, fault_tol_ratio=fault_ratio)
+                check(math.isfinite(ratio) and ratio <= 1.0,
+                      f"flash {name} {out}: {ratio} x the tolerance (max abs err {err})")
+                check(fault_ratio > 1.0, f"flash {name} {out}: the planted fault passes")
+                worst[out] = max(worst.get(out, 0.0), err)
+            check(dead_ok, f"flash {name}: a fully-masked row is not o 0, lse -1e30")
+            rows.append(row)
+            del xs, got, fs, ref, fault
+    emit("flash_kernel", tol=dict(f32=FLASH_TOL[torch.float32],
+                                  bf16=FLASH_TOL[torch.bfloat16], lse=LSE_TOL),
+         cases=rows, max_abs_err=worst)
+    return worst
 
 
 def _requests(rng, vocab: int, stop_prompt: list[int], stop_id: int) -> list[ModelRequest]:
@@ -436,20 +609,7 @@ def phase_profile(engine, cfg, batch: dict, steps: int = 4) -> None:
                 step()
             torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3
-    families = {"paged_attention": 0.0, "gemm": 0.0, "other": 0.0}
-    n_kernels = 0
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if not dev_us or ev.key.startswith(("aten::", "cuda", "Memcpy", "Memset")):
-            continue
-        n_kernels += ev.count
-        name = ev.key.lower()
-        fam = ("paged_attention" if "paged_attn" in name
-               else "gemm" if any(s in name for s in ("gemm", "sm90", "cutlass", "nvjet"))
-               else "other")
-        families[fam] += dev_us / 1e3
+    families, n_kernels, _ = _device_ms_by_family(prof)
     busy = sum(families.values())
     emit("profile", steps=steps, wall_ms_per_step=wall_ms / steps,
          profiled_wall_ms_per_step=profiled_ms / steps,
@@ -473,7 +633,7 @@ def _time(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_kernels_line(engine, cfg, batch: dict, launches: int, max_err: float) -> None:
+def phase_paged_line(engine, cfg, batch: dict, launches: int, max_err: float) -> dict:
     """K3 timings at the serve phase's shapes: the 16 slots of phase 5
     over the served pool, rotating over 4 layers' pools so the KV rows
     come from HBM rather than a warm L2, as in a real decode step."""
@@ -512,7 +672,7 @@ def phase_kernels_line(engine, cfg, batch: dict, launches: int, max_err: float) 
     flops = 4 * nH * hd * rows
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS * 1e3
-    print(json.dumps({"kernels": [dict(
+    return dict(
         name="paged_attention", route="cuda", source=KERNEL_SOURCE,
         replaces=KERNEL_REPLACES, launches=launches, max_abs_err=max_err,
         max_err=max_err, ms=ms, plain_ms=plain_ms,
@@ -521,7 +681,441 @@ def phase_kernels_line(engine, cfg, batch: dict, launches: int, max_err: float) 
         library_ms=library_ms,
         shape=dict(R=R, nH=nH, nKV=nKV, hd=hd, bsz=bsz, nb=nb, valid_rows=rows,
                    dtype="bfloat16"),
-    )]}), flush=True)
+    )
+
+
+# phase: one colocated GRPO loop at Qwen2.5-1.5B
+TRAIN_ROLLOUT = dict(
+    max_running_requests=32, context_length=1024, page_size=128,
+    new_tokens_per_chunk=128,
+)
+N_PROMPTS, GROUP = 8, 4  # 8 prompts x 4 samples, the GRPO group
+TRAIN_PROMPT_LEN = (64, 512)
+TRAIN_MAX_NEW = 256
+TRAIN_ITERS = 3
+# bf16 weights of the 1.5B model sit near 1/sqrt(1536) ~ 0.026, where bf16
+# values are 2^-13 ~ 1.2e-4 apart: an AdamW step (about lr per element)
+# under half of that rounds away in the cast back to bf16 and nothing
+# would move. 1e-4 moves most matrix elements by one bf16 step.
+TRAIN_LR = 1e-4
+# behaviour (decode engine) vs recomputed (trainer) logprobs of the same
+# tokens under the same weights: the two run the same bf16 model through
+# different kernels and GEMM shapes (and the trainer's loss head keeps its
+# logits in f32), so they differ by bf16 rounding only. On an H100 (700 W)
+# the train phase read max 0.0032 and mean 0.00067 over 8,192 tokens; the
+# bounds leave ~15x and ~7x of room for other seeds and cards.
+LOGP_MAX_ABS_DIFF = 0.05
+LOGP_MEAN_ABS_DIFF = 0.005
+
+
+def reward_of(tokens: list[int]) -> float:
+    """The fixed reward of a response (random weights have no task): 1 when
+    more than half of its token ids are even, else 0. About half of the
+    samples score 1, so most groups have a non-zero advantage."""
+    return float(2 * sum(1 for t in tokens if t % 2 == 0) > len(tokens))
+
+
+def _grpo_batch(prompts: list[list[int]], resps) -> dict:
+    """The RLVR workflow's padded batch (`areal_tpu/workflow/rlvr.py`):
+    prompt + response tokens, the behaviour logprob of each response token
+    at its own position, a loss mask over the response, one reward per
+    sequence."""
+    B = len(resps)
+    T = max(len(p) + r.output_len for p, r in zip(prompts, resps))
+    batch = dict(
+        input_ids=np.zeros((B, T), np.int64),
+        attention_mask=np.zeros((B, T), np.int64),
+        loss_mask=np.zeros((B, T), np.int32),
+        logprobs=np.zeros((B, T), np.float32),
+        versions=np.full((B, T), -1, np.int32),
+        rewards=np.zeros(B, np.float32),
+    )
+    for i, (p, r) in enumerate(zip(prompts, resps)):
+        n, m = len(p), r.output_len
+        batch["input_ids"][i, : n + m] = p + r.output_tokens
+        batch["attention_mask"][i, : n + m] = 1
+        batch["loss_mask"][i, n : n + m] = 1
+        batch["logprobs"][i, n : n + m] = r.output_logprobs
+        batch["versions"][i, n : n + m] = r.output_versions
+        batch["rewards"][i] = reward_of(r.output_tokens)
+    return batch
+
+
+def _flash_counts() -> np.ndarray:
+    return np.array([fa.launches_fwd, fa.launches_dq, fa.launches_dkv])
+
+
+def _kernel_family(name: str) -> str:
+    name = name.lower()
+    if "paged_attn" in name:
+        return "paged_attention"
+    if "flash_fwd" in name:
+        return "K1 flash_fwd"
+    if "flash_bwd_dq" in name:
+        return "K2a flash_bwd_dq"
+    if "flash_bwd_dkv" in name:
+        return "K2b flash_bwd_dkv"
+    if any(s in name for s in ("gemm", "sm90", "cutlass", "nvjet", "xmma")):
+        return "gemm"
+    return "other"
+
+
+def _device_ms_by_family(prof) -> tuple[dict, int, list]:
+    """Device ms summed by kernel family, the kernel count, and the six
+    costliest kernels of the "other" family."""
+    fams: dict[str, float] = {}
+    others = []
+    n = 0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if not dev_us or ev.key.startswith(("aten::", "cuda", "Memcpy", "Memset")):
+            continue
+        n += ev.count
+        fam = _kernel_family(ev.key)
+        fams[fam] = fams.get(fam, 0.0) + dev_us / 1e3
+        if fam == "other":
+            others.append((dev_us / 1e3, ev.count, ev.key[:90]))
+    return fams, n, sorted(others, reverse=True)[:6]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16) if t.element_size() == 2 else t.view(torch.int32)
+
+
+def phase_train(dev: torch.device) -> dict:
+    """One colocated GRPO loop at Qwen2.5-1.5B full width and depth (bf16,
+    random weights from the seed): for each of 3 iterations, 8 prompts x 4
+    samples from a `TorchDecodeEngine` (K3), rewards by `reward_of`, then
+    `compute_logp` (K1), `compute_advantages`, `ppo_update` (K1 twice per
+    layer under remat, K2a, K2b) and `update_weights` into the decode
+    engine. Checks: decode-engine and trainer logprobs agree on the first
+    iteration's weights; the first update (lr 0) leaves every parameter
+    bit for bit, the second moves them; each moving update lowers the PPO
+    loss on its own batch; loss and grad norm are finite; responses carry
+    the version of the last push; K1/K2a/K2b launch exactly L per
+    micro-batch per pass (K1 twice under remat), and K3 launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = dataclasses.replace(QWEN25_1_5B, scan_layers=False, remat=True)
+    L = cfg.num_hidden_layers
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 20), dev)
+    actor_cfg = PPOActorConfig(
+        experiment_name="chip_smoke", trial_name="train", path="",
+        init_from_scratch=True, dtype="bfloat16", gradient_checkpointing=True,
+        fused_lm_loss=True, mb_spec=MicroBatchSpec(max_tokens_per_mb=8192),
+        optimizer=OptimizerConfig(
+            lr=TRAIN_LR, weight_decay=0.01, lr_scheduler_type="constant",
+            warmup_steps_proportion=0.001, gradient_clipping=1.0,
+        ),
+        group_size=GROUP, ppo_n_minibatches=1, eps_clip=0.2, kl_ctl=0.0,
+        use_decoupled_loss=True, recompute_logprob=True, temperature=1.0,
+        adv_norm=NormConfig(mean_level="group", std_level="group", group_size=GROUP),
+    )
+    actor = TorchPPOActor(actor_cfg, device=dev)
+    actor.model_config = cfg
+    actor.create_process_group()
+    actor.initialize(None, FinetuneSpec(1, TRAIN_ITERS * N_PROMPTS * GROUP, N_PROMPTS * GROUP),
+                     params=params)
+    engine = TorchDecodeEngine(TorchDecodeConfig(random_seed=SEED, **TRAIN_ROLLOUT), device=dev)
+    engine.set_model(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    engine.initialize()
+    meta = WeightUpdateMeta.from_memory()
+    actor.connect_engine(engine, meta)
+    rng = np.random.default_rng(SEED + 3)
+    loss_fn = actor.actor._loss_fn
+
+    def weight_fn(mb):
+        return float(np.asarray(mb["loss_mask"]).sum())
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    iters, snapshot, main_mb = [], None, None
+    # ---- the main path: counts to 0 just before, read just after ----
+    pa.launches = fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    eval_launches = np.zeros(3, np.int64)
+    for it in range(TRAIN_ITERS):
+        prompts = [
+            rng.integers(0, cfg.vocab_size, int(rng.integers(*TRAIN_PROMPT_LEN, endpoint=True))).tolist()
+            for _ in range(N_PROMPTS)
+        ]
+        reqs = [
+            ModelRequest(rid=f"it{it}-p{i}-s{j}", input_ids=p,
+                         gconfig=GenerationHyperparameters(max_new_tokens=TRAIN_MAX_NEW,
+                                                           temperature=1.0))
+            for i, p in enumerate(prompts) for j in range(GROUP)
+        ]
+        k3_before = pa.launches
+        t0 = time.perf_counter()
+        resps = asyncio.run(_serve_wave(engine, reqs))
+        rollout_s = time.perf_counter() - t0
+        check(pa.launches > k3_before, "the rollout did not launch K3")
+        for r in resps:
+            check(r.output_len == TRAIN_MAX_NEW and r.output_versions == [it] * r.output_len,
+                  f"{r.input_len}-token prompt: {r.output_len} tokens, versions "
+                  f"{sorted(set(r.output_versions))} != [{it}]")
+        batch = _grpo_batch([q.input_ids for q in reqs], resps)
+        n_mbs = len(split_padded_tensor_dict_into_mb_list(batch, actor_cfg.mb_spec).mbs)
+        if main_mb is None:
+            main_mb = split_padded_tensor_dict_into_mb_list(batch, actor_cfg.mb_spec).mbs[0]
+
+        c0 = _flash_counts()
+        batch["prox_logp"] = actor.compute_logp(batch)
+        c1 = _flash_counts()
+        check((c1 - c0).tolist() == [n_mbs * L, 0, 0],
+              f"compute_logp launched {(c1 - c0).tolist()}, want [{n_mbs * L}, 0, 0]")
+        row = dict(iteration=it, rollout_s=rollout_s, n_mbs=n_mbs,
+                   tokens=int(batch["attention_mask"].sum()),
+                   response_tokens=int(batch["loss_mask"].sum()),
+                   reward_mean=float(batch["rewards"].mean()))
+        if it == 0:
+            # behaviour vs recomputed logprobs of each response token
+            lm = batch["loss_mask"][:, 1:] > 0
+            d = batch["prox_logp"][:, :-1][lm] - batch["logprobs"][:, 1:][lm]
+            row.update(behave_approx_kl=float(d.mean()), logp_max_abs_diff=float(np.abs(d).max()),
+                       logp_mean_abs_diff=float(np.abs(d).mean()))
+            check(np.abs(d).max() <= LOGP_MAX_ABS_DIFF and np.abs(d).mean() <= LOGP_MEAN_ABS_DIFF,
+                  f"decode vs trainer logprobs: max |d| {np.abs(d).max()}, mean {np.abs(d).mean()}")
+        actor.compute_advantages(batch)
+        moving = it > 0
+        if moving:  # the PPO loss on this batch before the update
+            e0 = _flash_counts()
+            row["loss_before"] = actor.eval_batch(batch, loss_fn, weight_fn)
+            eval_launches += _flash_counts() - e0
+        else:
+            snapshot = {k: v.detach().clone() for k, v in actor.params.items()}
+        c2 = _flash_counts()
+        if it == TRAIN_ITERS - 1:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                stats = actor.ppo_update(batch)
+                torch.cuda.synchronize()
+                profiled_s = time.perf_counter() - t0
+            fams, n_kernels, top_other = _device_ms_by_family(prof)
+            row["profile"] = dict(
+                wall_ms=profiled_s * 1e3, kernels=n_kernels,
+                device_ms=fams, device_busy_share=sum(fams.values()) / (profiled_s * 1e3),
+                top_other_ms=top_other,
+            )
+        else:
+            stats = actor.ppo_update(batch)
+        c3 = _flash_counts()
+        want = [2 * n_mbs * L, n_mbs * L, n_mbs * L]
+        check((c3 - c2).tolist() == want, f"ppo_update launched {(c3 - c2).tolist()}, want {want}")
+        st = stats[0]
+        row.update(loss=st["loss"], grad_norm=st["grad_norm"], lr=st["lr"],
+                   n_mbs_trained=st["n_mbs"], step_s=st["train_batch_time"],
+                   tokens_per_s=st["tokens_per_sec_per_chip"], mfu=st["mfu"],
+                   behave_approx_kl_stat=st.get("behave_approx_kl"),
+                   behave_imp_weight=st.get("behave_imp_weight"),
+                   clip_ratio=st.get("clip_ratio"), entropy=st.get("entropy"))
+        check(math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"]),
+              f"iteration {it}: loss {st['loss']}, grad norm {st['grad_norm']}")
+        if it == 0:
+            same = all(torch.equal(_bits(v), _bits(snapshot[k])) for k, v in actor.params.items())
+            check(same, "the first update (lr 0) changed the parameters")
+            row["params_bitwise_unchanged"] = same
+        else:
+            e0 = _flash_counts()
+            row["loss_after"] = actor.eval_batch(batch, loss_fn, weight_fn)
+            eval_launches += _flash_counts() - e0
+            check(row["loss_after"] < row["loss_before"],
+                  f"iteration {it}: PPO loss {row['loss_before']} -> {row['loss_after']}")
+        if it == 1:
+            changed = sum(int((_bits(v) != _bits(snapshot[k])).sum()) for k, v in actor.params.items())
+            total = sum(v.numel() for v in actor.params.values())
+            row["params_changed_share"] = changed / total
+            check(changed > 0, "the second update moved no parameter")
+            snapshot = None
+        actor.set_version(it + 1)
+        actor.update_weights(meta)
+        check(engine.get_version() == it + 1, "the push did not stamp the new version")
+        iters.append(row)
+    launches = dict(
+        paged_attention=pa.launches,
+        flash_attention_fwd=fa.launches_fwd - int(eval_launches[0]),
+        flash_attention_bwd_dq=fa.launches_dq - int(eval_launches[1]),
+        flash_attention_bwd_dkv=fa.launches_dkv - int(eval_launches[2]),
+    )
+    # ---- end of the main path ----
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    emit("train", model="Qwen2.5-1.5B", source=QWEN25_1_5B_SOURCE, layers=L,
+         dtype=cfg.dtype, lr=TRAIN_LR, max_tokens_per_mb=8192,
+         launches=launches, eval_launches=eval_launches.tolist(),
+         max_memory_allocated_gb=peak_gb, iterations=iters,
+         decode_tok_s=engine.decode_tokens / engine.decode_seconds,
+         decode_step_ms=engine.decode_seconds / engine.decode_steps * 1e3,
+         decode_steps=engine.decode_steps, prefill_tokens=engine.prefill_tokens,
+         prefill_s=engine.prefill_seconds)
+    seg = segment_ids_from_cu_seqlens(np.asarray(main_mb["cu_seqlens"]), int(main_mb["cu_seqlens"][-1]))
+    engine.destroy()
+    actor.destroy()
+    return dict(launches=launches, segment_ids=seg, cfg=cfg)
+
+
+def _flash_bounds(T: int, nH: int, nKV: int, hd: int, pairs: int) -> dict:
+    """Least time of each kernel at these inputs: the bytes each must move
+    (every input read once, every output written once; bf16 tensors, f32
+    lse/dd, int32 ids) at the HBM rate, or its FLOPs over the valid pairs at
+    the bf16 tensor-core rate, whichever is larger."""
+    q = T * nH * hd * 2
+    kv = T * nKV * hd * 2
+    rows = T * nH * 4
+    ids = 4 * T * 4
+    work = {
+        "flash_attention_fwd": (q + 2 * kv + ids + q + rows, 4),
+        "flash_attention_bwd_dq": (2 * q + 2 * kv + 2 * rows + ids + q, 6),
+        "flash_attention_bwd_dkv": (2 * q + 2 * kv + 2 * rows + ids + 2 * kv, 8),
+    }
+    out = {}
+    for name, (nbytes, per_pair) in work.items():
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = per_pair * hd * nH * pairs / BF16_FLOPS * 1e3
+        out[name] = dict(bound_ms=max(bytes_ms, ops_ms),
+                         bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    return out
+
+
+def phase_flash_line(dev: torch.device, train: dict) -> list[dict]:
+    """K1, K2a and K2b at the train phase's micro-batch shape (the first
+    micro-batch's packed segments, Qwen2.5-1.5B heads, bf16): each kernel
+    wrapper against its plain version on the same inputs (f32-upcast),
+    CUDA-event times of both, and `scaled_dot_product_attention` with the
+    [T, T] segment-causal mask, forward and backward timed apart, as the
+    library yardstick (timed here only; the port never calls it)."""
+    cfg = train["cfg"]
+    seg_np = train["segment_ids"]
+    T = len(seg_np)
+    nH, nKV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    g = nH // nKV
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v, do = rand(T, nH, hd), rand(T, nKV, hd), rand(T, nKV, hd), rand(T, nH, hd)
+    seg = torch.as_tensor(seg_np, device=dev)
+    pos = torch.arange(T, dtype=torch.int32, device=dev)
+    ids = (seg, seg, pos, pos)
+    mq = fa.tile_meta(seg, pos, queries=True)
+    mk = fa.tile_meta(seg, pos, queries=False)
+    sm = 1.0 / math.sqrt(hd)
+    o, lse = fa.flash_fwd(q, k, v, *ids, mq, mk, sm)
+    dd = (-(o.float() * do.float()).sum(-1).t()).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, dd, *ids, mq, mk, sm)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, dd, *ids, mq, mk, sm)
+    f32 = [t.float() for t in (q, k, v, do)]
+    with torch.no_grad():
+        ro, rl = fa.flash_attention_ref(*f32[:3], *ids, sm_scale=sm)
+        rdq = fa.flash_bwd_dq_ref(*f32, lse, dd, *ids, sm)
+        rdk, rdv = fa.flash_bwd_dkv_ref(*f32, lse, dd, *ids, sm)
+    torch.cuda.synchronize()
+    a, rtol = 2e-5, 2.0 ** -8  # same inputs: f32 summation order + one bf16 rounding
+    checks = {
+        "flash_attention_fwd": dict(o=(o, ro), lse=(lse, rl.t())),
+        "flash_attention_bwd_dq": dict(dq=(dq, rdq)),
+        "flash_attention_bwd_dkv": dict(dk=(dk, rdk), dv=(dv, rdv)),
+    }
+    errs, ratios, rounding = {}, {}, {}
+    for name, outs in checks.items():
+        ratios[name] = max(_scaled_ratio(x, r, a, rtol) for x, r in outs.values())
+        errs[name] = max((x.float() - r).abs().max().item() for x, r in outs.values())
+        rounding[name] = {out: _rounding_stats(x, r, a, rtol)
+                          for out, (x, r) in outs.items() if out != "lse"}
+        check(ratios[name] <= 1.0,
+              f"{name} vs its plain version at the train shape: {ratios[name]} x the tolerance")
+    del ro, rl, rdq, rdk, rdv, f32, checks
+
+    ms = {
+        "flash_attention_fwd": _time(lambda i: fa.flash_fwd(q, k, v, *ids, mq, mk, sm), 20),
+        "flash_attention_bwd_dq": _time(
+            lambda i: fa.flash_bwd_dq(q, k, v, do, lse, dd, *ids, mq, mk, sm), 20),
+        "flash_attention_bwd_dkv": _time(
+            lambda i: fa.flash_bwd_dkv(q, k, v, do, lse, dd, *ids, mq, mk, sm), 20),
+    }
+    with torch.no_grad():
+        plain_ms = {
+            "flash_attention_fwd": _time(
+                lambda i: fa.flash_attention_ref(q, k, v, *ids, sm_scale=sm), 5),
+            "flash_attention_bwd_dq": _time(
+                lambda i: fa.flash_bwd_dq_ref(q, k, v, do, lse, dd, *ids, sm), 5),
+            "flash_attention_bwd_dkv": _time(
+                lambda i: fa.flash_bwd_dkv_ref(q, k, v, do, lse, dd, *ids, sm), 5),
+        }
+    # library yardstick: SDPA over [1, nH, T, hd] with kv heads repeated and
+    # the dense [T, T] segment-causal mask
+    mask = fa._valid(*ids)
+    q4 = q.transpose(0, 1)[None].contiguous().requires_grad_()
+    k4 = k.transpose(0, 1)[None].repeat_interleave(g, dim=1).contiguous().requires_grad_()
+    v4 = v.transpose(0, 1)[None].repeat_interleave(g, dim=1).contiguous().requires_grad_()
+    do4 = do.transpose(0, 1)[None].contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        lib_fwd = _time(lambda i: sdpa(q4, k4, v4, attn_mask=mask), 20)
+    out4 = sdpa(q4, k4, v4, attn_mask=mask)
+    lib_bwd = _time(lambda i: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True), 20)
+    varlen = _varlen_library_ms(q, k, v, do, seg_np, g)
+    lib = {"flash_attention_fwd": lib_fwd, "flash_attention_bwd_dq": lib_bwd,
+           "flash_attention_bwd_dkv": lib_bwd}
+    lens = np.bincount(seg_np[seg_np >= 0])
+    pairs = int((lens * (lens + 1) // 2).sum())
+    bounds = _flash_bounds(T, nH, nKV, hd, pairs)
+    rows = []
+    for name in ms:
+        rows.append(dict(
+            name=name, route="cuda", source=FLASH_SOURCE, replaces=FLASH_REPLACES[name],
+            launches=train["launches"][name], max_abs_err=errs[name], max_err=errs[name],
+            tol=dict(a=a, rtol=rtol), tol_ratio=ratios[name], rounding=rounding[name],
+            ms=ms[name], plain_ms=plain_ms[name], **bounds[name], library_ms=lib[name],
+            library_call=("scaled_dot_product_attention forward, [T, T] mask"
+                          if name.endswith("fwd") else
+                          "scaled_dot_product_attention backward (dq, dk, dv in one call)"),
+            library_varlen_ms=varlen["fwd" if name.endswith("fwd") else "bwd"],
+            library_varlen_call=varlen["call"],
+            shape=dict(T=T, nH=nH, nKV=nKV, hd=hd, segments=len(lens),
+                       valid_pairs=pairs, dtype="bfloat16"),
+        ))
+    return rows
+
+
+def _rounding_stats(x, ref, a: float, rtol: float) -> dict:
+    """How a bf16 output sits against its f32 plain version: the share of
+    elements past half the tolerance, the share equal to the plain version
+    rounded to bf16, and the largest distance from it in bf16 ulps where
+    the relative term of the tolerance governs (rtol |ref| >= a max|ref|;
+    closer to 0 the f32 summation order alone is many ulps): 0 where the
+    two round alike, 1 where the summation order tips a rounding."""
+    x, ref = x.float(), ref.float()
+    scale = a * ref.abs().max()
+    ratio = (x - ref).abs() / (scale + rtol * ref.abs())
+    rb = ref.to(torch.bfloat16).float()
+    ulp = torch.exp2(torch.floor(torch.log2(rb.abs().clamp_min(1e-30))) - 7)
+    rel = rtol * ref.abs() >= scale
+    return dict(share_over_half_tol=(ratio > 0.5).float().mean().item(),
+                share_equal_rounded_plain=(x == rb).float().mean().item(),
+                max_ulps_from_rounded_plain=((x - rb).abs() / ulp)[rel].max().item())
+
+
+def _varlen_library_ms(q, k, v, do, seg_np, g) -> dict:
+    """`torch.nn.attention.varlen.varlen_attn` of the card's torch, causal
+    within each sequence, timed like SDPA. A yardstick only."""
+    from torch.nn.attention.varlen import varlen_attn
+
+    lens = np.bincount(seg_np[seg_np >= 0])
+    cu = torch.as_tensor(np.concatenate([[0], np.cumsum(lens)]), dtype=torch.int32, device=q.device)
+    kr = k.repeat_interleave(g, dim=1).contiguous()
+    vr = v.repeat_interleave(g, dim=1).contiguous()
+    mx = int(lens.max())
+    causal = (-1, 0)
+    with torch.no_grad():
+        fwd = _time(lambda i: varlen_attn(q, kr, vr, cu, cu, mx, mx, window_size=causal), 20)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, kr, vr))
+    out = varlen_attn(qg, kg, vg, cu, cu, mx, mx, window_size=causal)
+    bwd = _time(lambda i: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True), 20)
+    return dict(fwd=fwd, bwd=bwd, call="torch.nn.attention.varlen.varlen_attn "
+                "(window_size=(-1, 0), kv heads repeated)")
 
 
 def main() -> int:
@@ -530,13 +1124,25 @@ def main() -> int:
     phase_build()
     max_err = phase_kernel(dev)
     phase_bad_table()
+    phase_flash_kernel(dev)
     engine, cfg, launches = phase_serve(dev)
     try:
         batch = phase_step(engine, cfg)
         phase_profile(engine, cfg, batch)
-        phase_kernels_line(engine, cfg, batch, launches, max_err)
+        paged = phase_paged_line(engine, cfg, batch, launches, max_err)
     finally:
         engine.destroy()
+    del engine
+    torch.cuda.empty_cache()
+    train = phase_train(dev)
+    torch.cuda.empty_cache()
+    # K3 runs in both paths: the serve phase's launches and the rollouts'
+    paged["launches_by_path"] = dict(serve=launches, train=train["launches"]["paged_attention"])
+    paged["launches"] = launches + train["launches"]["paged_attention"]
+    rows = [paged, *phase_flash_line(dev, train)]
+    for r in rows:
+        check(r["launches"] > 0, f"{r['name']}: no launch on the main path")
+    print(json.dumps({"kernels": rows}), flush=True)
     emit("done", seconds=time.perf_counter() - t0)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,16 @@ def test_port_has_the_expected_modules():
         "areal_tpu_torch.ops.paged_attention",
         "areal_tpu_torch.models.qwen2",
         "areal_tpu_torch.engine.torch_decode",
+        "areal_tpu_torch.ops.flash_attention",
+        "areal_tpu_torch.ops.fused_xent",
+        "areal_tpu_torch.ops.gae",
+        "areal_tpu_torch.utils.data",
+        "areal_tpu_torch.utils.datapack",
+        "areal_tpu_torch.utils.functional",
+        "areal_tpu_torch.utils.flops",
+        "areal_tpu_torch.utils.stats_tracker",
+        "areal_tpu_torch.engine.torch_engine",
+        "areal_tpu_torch.engine.ppo.actor",
         "chip_smoke",
     ):
         assert want in names
