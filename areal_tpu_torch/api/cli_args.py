@@ -177,8 +177,12 @@ class TorchDecodeConfig:
 
     The serving dtype is the installed model's (`ModelConfig.dtype`); the
     JAX field `dtype` only matters with `model_path`, which the slice
-    refuses, so it is left out. `kv_cache_dtype` must equal the model's
-    dtype (checked in `TorchDecodeEngine.initialize`).
+    refuses, so it is left out. An fp pool's `kv_cache_dtype` must equal
+    the model's dtype; `kv_dtype="int8"` stores the pool as int8 with f32
+    scales whatever `kv_cache_dtype` says, and `weight_dtype="int8"` serves
+    the dense matmul kernels as int8 (both checked in
+    `TorchDecodeEngine.initialize`, which raises ValueError for a value
+    outside `KV_DTYPES` / `WEIGHT_DTYPES`).
     """
 
     model_path: str = ""
@@ -201,16 +205,17 @@ class TorchDecodeConfig:
     max_prefill_tokens: int = 8192
     new_tokens_per_chunk: int = 128
     decode_runahead_chunks: int = 1
-    spec_decode: str = "off"  # "ngram": not in the port yet
+    spec_decode: str = "off"  # "ngram": not in the port yet (K4, K5b)
     enable_prefix_caching: bool = True
 
     def check_supported(self) -> None:
         """Raise NotImplementedError for a setting this slice does not
         implement, naming the ROADMAP item that ports it."""
         todo = {
-            "kv_dtype": (self.kv_dtype != "fp", "item 3, int8 KV (K5a/K5b)"),
-            "weight_dtype": (self.weight_dtype != "fp", "item 3, int8 weights (K6)"),
-            "spec_decode": (self.spec_decode != "off", "item 3, speculative decode (K4)"),
+            "spec_decode": (
+                self.spec_decode != "off",
+                "item 3, speculative decode (K4, K5b) after a position-keyed sampler",
+            ),
             "kv_host_pool_mb": (float(self.kv_host_pool_mb) > 0, "item 3, host KV tier"),
             "tensor_parallel_size": (
                 int(self.tensor_parallel_size) > 1, "item 5, multi-GPU serving"

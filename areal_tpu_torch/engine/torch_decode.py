@@ -15,9 +15,17 @@ serving core).
   `pause_generation` takes effect on chunk boundaries, and each token
   carries the weight version it was generated under.
 
+- **Int8 serving.** `weight_dtype="int8"` quantizes the installed dense
+  matmul kernels per output channel (`models/qwen2.quantize_weights`), and
+  every prefill and decode matmul of the layers runs on the int8-weight
+  kernel. `kv_dtype="int8"` keeps the paged pool as int8 with one f32
+  scale per (row, kv head) in a scale pool paged like it
+  (`ops/kv_quant.py`); rows are quantized where they are written (prefill
+  scatter, decode step) and attention reads them through the int8 kernel.
+
 This slice schedules synchronously (dispatch a chunk, then consume it) and
 prefills every request in full: the JAX engine's run-ahead, prefix forks,
-host KV tier, speculative decode and int8 paths are later ROADMAP items
+host KV tier and speculative decode are later ROADMAP items
 (`TorchDecodeConfig.check_supported` refuses their settings).
 """
 
@@ -46,14 +54,17 @@ from areal_tpu_torch.engine.kv_pool import KVBlockAllocator, PoolDry
 from areal_tpu_torch.engine.sampling import sample
 from areal_tpu_torch.models.convert import to_tensor
 from areal_tpu_torch.models.qwen2 import (
+    WEIGHT_DTYPES,
     ModelConfig,
     check_supported,
     decode_step_paged,
     layer_views,
     named_shapes,
     prefill,
+    quantize_weights,
     torch_dtype,
 )
+from areal_tpu_torch.ops.kv_quant import KV_DTYPES, join_pool, quantize_kv, scales_blocked
 from areal_tpu_torch.platforms import resolve_device
 from areal_tpu_torch.utils import logging
 
@@ -121,8 +132,13 @@ class TorchDecodeEngine(InferenceEngine):
         self._thread_exc: BaseException | None = None
 
         # device and slot state (created in initialize)
-        self._k_pool: torch.Tensor | None = None
+        self._k_pool: torch.Tensor | None = None  # int8 when kv_dtype="int8"
         self._v_pool: torch.Tensor | None = None
+        # f32 [L, n_blocks, nKV, page_size] scales of an int8 pool, else None
+        self._k_scale: torch.Tensor | None = None
+        self._v_scale: torch.Tensor | None = None
+        self._w_quant = False  # weight_dtype == "int8"
+        self._kv_quant = False  # kv_dtype == "int8"
         self._alloc: KVBlockAllocator | None = None
         self._slots: list[_Slot | None] = []
         self._slot_lengths: np.ndarray | None = None  # KV rows each slot holds
@@ -135,6 +151,7 @@ class TorchDecodeEngine(InferenceEngine):
         self.decode_tokens = 0  # tokens delivered to requests
         self.prefill_tokens = 0
         self.prefill_seconds = 0.0
+        self.prefill_calls = 0  # one model prefill (all layers) each
         self.n_preemptions = 0
 
     # -- lifecycle ------------------------------------------------------
@@ -162,14 +179,26 @@ class TorchDecodeEngine(InferenceEngine):
         if self.params is None:
             raise RuntimeError("no model installed: call set_model first")
         cfg = self.model_config
-        if self.config.kv_cache_dtype != cfg.dtype:
-            # the kernel reads the pool in q's dtype; refuse the mismatch
+        if self.config.weight_dtype not in WEIGHT_DTYPES:
+            raise ValueError(
+                f"weight_dtype={self.config.weight_dtype!r} not in {WEIGHT_DTYPES}"
+            )
+        if self.config.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype={self.config.kv_dtype!r} not in {KV_DTYPES}")
+        self._w_quant = self.config.weight_dtype == "int8"
+        self._kv_quant = self.config.kv_dtype == "int8"
+        if not self._kv_quant and self.config.kv_cache_dtype != cfg.dtype:
+            # the fp kernel reads the pool in q's dtype; refuse the mismatch
             # here, on the CPU and the card alike, not at the first step
             raise NotImplementedError(
                 f"kv_cache_dtype={self.config.kv_cache_dtype!r} differs from "
-                f"the model dtype {cfg.dtype!r}: a KV pool in another dtype "
-                "is not in the PyTorch port yet: ROADMAP.md queue 1, item 3"
+                f"the model dtype {cfg.dtype!r}: an fp KV pool in another "
+                "dtype is not in the PyTorch port yet: ROADMAP.md queue 1, item 3"
             )
+        if self._w_quant:
+            # the installed fp kernels become q/scale pairs (idempotent)
+            self.params = quantize_weights(self.params)
+            self._layers = layer_views(self.params, cfg)
         R = int(self.config.max_running_requests)
         S = int(self.config.context_length)
         # pool sizing as jax_decode.py:692-802: page-size blocks, and either
@@ -185,9 +214,16 @@ class TorchDecodeEngine(InferenceEngine):
             cfg.num_hidden_layers, n_blocks, bs,
             cfg.num_key_value_heads, cfg.head_dim_,
         )
-        kv_dtype = torch_dtype(self.config.kv_cache_dtype)
+        kv_dtype = torch.int8 if self._kv_quant else torch_dtype(self.config.kv_cache_dtype)
         self._k_pool = torch.zeros(shape, dtype=kv_dtype, device=self.device)
         self._v_pool = torch.zeros(shape, dtype=kv_dtype, device=self.device)
+        self._k_scale = self._v_scale = None
+        if self._kv_quant:
+            # per-(row, kv head) scales, paged like the data pool; the kv
+            # head precedes the page row (jax_decode.py:807-815)
+            sshape = (cfg.num_hidden_layers, n_blocks, cfg.num_key_value_heads, bs)
+            self._k_scale = torch.zeros(sshape, dtype=torch.float32, device=self.device)
+            self._v_scale = torch.zeros(sshape, dtype=torch.float32, device=self.device)
         self._slots = [None] * R
         self._slot_lengths = np.zeros(R, dtype=np.int64)
         self._overflow = []
@@ -207,8 +243,13 @@ class TorchDecodeEngine(InferenceEngine):
             self._thread.join(timeout=60)
             self._thread = None
         self.params = self._layers = None
-        self._k_pool = self._v_pool = None
+        self._k_pool = self._v_pool = self._k_scale = self._v_scale = None
         self._alloc = None
+
+    def kv_pools(self):
+        """The pool operands of `decode_step_paged`: the K and V pools, or
+        `(int8 data, f32 scales)` tuples when kv_dtype="int8"."""
+        return join_pool(self._k_pool, self._k_scale), join_pool(self._v_pool, self._v_scale)
 
     # -- scheduler ------------------------------------------------------
     def _scheduler_loop(self) -> None:
@@ -320,12 +361,20 @@ class TorchDecodeEngine(InferenceEngine):
             v = F.pad(v, (0, 0, 0, 0, 0, pad))
         rows = torch.from_numpy(self._alloc.row(slot, nb_w)).long().to(self.device)
         shape = (cfg.num_hidden_layers, nb_w, bsz, cfg.num_key_value_heads, cfg.head_dim_)
+        if self._kv_quant:
+            # prompt rows quantize at this scatter, as decode rows do at
+            # theirs (jax_decode.py:1856-1866)
+            k, k_s = quantize_kv(k)
+            v, v_s = quantize_kv(v)
+            self._k_scale[:, rows] = scales_blocked(k_s, nb_w, bsz)
+            self._v_scale[:, rows] = scales_blocked(v_s, nb_w, bsz)
         self._k_pool[:, rows] = k.reshape(shape).to(self._k_pool.dtype)
         self._v_pool[:, rows] = v.reshape(shape).to(self._v_pool.dtype)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.prefill_seconds += time.perf_counter() - t0
         self.prefill_tokens += len(ids)
+        self.prefill_calls += 1
 
     def _chunk_bucket(self, active: np.ndarray) -> int:
         """Smallest KV span (256 x 2^k, capped at the context) covering
@@ -395,11 +444,12 @@ class TorchDecodeEngine(InferenceEngine):
         toks = torch.empty((n_chunk, R), dtype=torch.long, device=dev)
         logps = torch.empty((n_chunk, R), dtype=torch.float32, device=dev)
         version = self._version
+        k_pool, v_pool = self.kv_pools()
 
         t0 = time.perf_counter()
         for step in range(n_chunk):
             logits = decode_step_paged(
-                self.params, tokens, lengths, self._k_pool, self._v_pool,
+                self.params, tokens, lengths, k_pool, v_pool,
                 table, cfg, active=active_t, layers=self._layers,
             )
             tok, logp = sample(
@@ -550,7 +600,13 @@ class TorchDecodeEngine(InferenceEngine):
         shape is checked before anything is written. Runs inside a pause
         window (an external pause is preserved), and stamps `version`
         inside the same window, so no token mixes new weights with the old
-        version."""
+        version.
+
+        An int8-weight engine serves each dense kernel as `<path>/q` (int8)
+        and `<path>/scale` (f32): those names are installed verbatim in the
+        resident dtype (jax_decode.py:5009-5023), and an fp kernel name
+        raises KeyError with the weight_dtype-mismatch diagnosis (:5041).
+        `update_weights_from_distributed` quantizes fp tensors instead."""
         items = list(named.items() if isinstance(named, dict) else named)
         for name, val in items:
             if name.startswith("lora/"):
@@ -559,7 +615,13 @@ class TorchDecodeEngine(InferenceEngine):
                     "(ROADMAP.md queue 1, item 6)"
                 )
             if name not in self.params:
-                raise KeyError(f"weight name not in the served model: {name}")
+                raise KeyError(
+                    f"weight name not in the served model: {name} — engine "
+                    f"serves weight_dtype={self.config.weight_dtype!r}; an "
+                    "fp<->int8 producer/consumer mismatch shifts every kernel "
+                    "wire name by the '/q' + '/scale' suffix (set "
+                    "WeightUpdateMeta.weight_dtype to the engine's serving dtype)"
+                )
             if tuple(val.shape) != tuple(self.params[name].shape):
                 raise ValueError(
                     f"{name}: shape {tuple(val.shape)} != "
@@ -586,7 +648,9 @@ class TorchDecodeEngine(InferenceEngine):
         """Colocated push (the JAX name, `jax_decode.py:4842`): install the
         trainer's parameter tensors in place, as `update_weights_from_tensor`
         does, and stamp `version` inside the same pause window. The trainer
-        keeps its tensors; the served ones are copies."""
+        keeps its tensors; the served ones are copies. An int8-weight engine
+        quantizes the trainer's fp kernels on install (:4860-4866;
+        q/scale pairs pass through)."""
         if params is None:
             raise ValueError("update_weights_from_distributed needs params")
         if model_config is not None and (
@@ -597,6 +661,9 @@ class TorchDecodeEngine(InferenceEngine):
             self.model_config.num_key_value_heads, self.model_config.head_dim_,
         ):
             raise ValueError("the pushed model's geometry differs from the served one")
+        if self._w_quant:
+            with torch.no_grad():
+                params = quantize_weights(dict(params))
         self.update_weights_from_tensor(params, version=version)
 
     def set_version(self, version: int) -> None:

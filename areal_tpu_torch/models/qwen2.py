@@ -24,6 +24,13 @@ views (`layer_params`), so nothing is copied.
 returns a new pool: the pool is the largest tensor the engine owns, and an
 in-place O(1) row write is what the JAX version's donated scatter compiles
 to.
+
+Int8 weight serving (JAX :803-946): `quantize_weights` turns each dense
+matmul kernel (q/k/v/o, gate/up/down) into two tensors, `<path>/q` (int8,
+the kernel's shape) and `<path>/scale` (f32, its output dims), the JAX
+wire names. The serving path's matmuls go through `_w_einsum`, which runs
+the fp matmul unchanged for a tensor and `ops/quant_matmul.quant_einsum`
+for a quantized pair. Embedding, LM head, norms and biases stay fp.
 """
 
 from __future__ import annotations
@@ -41,7 +48,10 @@ from torch.utils.checkpoint import checkpoint
 
 from areal_tpu_torch.ops.flash_attention import PADDING_SEGMENT, flash_attention
 from areal_tpu_torch.ops.fused_xent import chunked_label_logprobs
+from areal_tpu_torch.ops.kv_quant import quantize_kv, split_pool
 from areal_tpu_torch.ops.paged_attention import paged_attention
+from areal_tpu_torch.ops.quant import dequantize_absmax, quantize_absmax
+from areal_tpu_torch.ops.quant_matmul import quant_einsum
 
 _NEG_INF = -1e30
 
@@ -344,6 +354,119 @@ def layer_views(params: dict, cfg: ModelConfig) -> list[dict[str, torch.Tensor]]
 
 
 # ---------------------------------------------------------------------------
+# Int8 weight serving: per-output-channel symmetric absmax (JAX :803-946)
+# ---------------------------------------------------------------------------
+
+# TorchDecodeConfig.weight_dtype values: "fp" serves the config dtype
+# verbatim, "int8" stores the dense matmul kernels in this scheme
+WEIGHT_DTYPES = ("fp", "int8")
+
+# contraction axes per unstacked kernel (the stacked [L, ...] layout shifts
+# every axis by one); the absmax reduces over them, leaving one scale per
+# output channel for the matmul to fold in after it accumulates
+_WQ_ATTN_AXES = {
+    "q_kernel": (0,),
+    "k_kernel": (0,),
+    "v_kernel": (0,),
+    "o_kernel": (0, 1),
+}
+_WQ_MLP_AXES = {
+    "gate_kernel": (0,),
+    "up_kernel": (0,),
+    "down_kernel": (0,),
+    "fc1_kernel": (0,),
+    "fc2_kernel": (0,),
+}
+_WQ_PARTS = ("q", "scale")
+
+
+def wq_contraction_axes(leaf: str, stacked: bool) -> tuple[int, ...] | None:
+    """Contraction axes of one kernel leaf ("q_kernel", ...), or None when
+    that leaf never quantizes; `stacked` shifts them for the [L, ...]
+    layout."""
+    ax = _WQ_ATTN_AXES.get(leaf) or _WQ_MLP_AXES.get(leaf)
+    if ax is None:
+        return None
+    off = 1 if stacked else 0
+    return tuple(a + off for a in ax)
+
+
+def _wq_axes(path: str) -> tuple[int, ...] | None:
+    """Contraction axes of the quantizable kernel at the flat name `path`
+    ("layers/attn/q_kernel", "layers_3/mlp/up_kernel"), or None."""
+    parts = path.split("/")
+    if len(parts) != 3:
+        return None
+    layer, sub, leaf = parts
+    if layer != "layers" and not layer.startswith("layers_"):
+        return None
+    table = {"attn": _WQ_ATTN_AXES, "mlp": _WQ_MLP_AXES}.get(sub, {})
+    if leaf not in table:
+        return None
+    return wq_contraction_axes(leaf, stacked=layer == "layers")
+
+
+def map_quant_kernels(params: dict, fn) -> dict:
+    """The flat parameter dict with `fn(leaf, contraction_axes)` applied to
+    every weight-quantizable kernel, scanned (`layers/...`) or per layer
+    (`layers_{i}/...`); everything else passes through. A quantized kernel
+    reaches `fn` as {"q": ..., "scale": ...}; `fn` returns a tensor (kept
+    under the kernel's name) or such a dict (kept as `<name>/q`,
+    `<name>/scale`)."""
+    out, pairs = {}, {}
+    for name, t in params.items():
+        head, _, last = name.rpartition("/")
+        if last in _WQ_PARTS and _wq_axes(head) is not None:
+            pairs.setdefault(head, {})[last] = t
+        elif _wq_axes(name) is not None:
+            pairs[name] = t
+        else:
+            out[name] = t
+    for path, leaf in pairs.items():
+        new = fn(leaf, _wq_axes(path))
+        if isinstance(new, dict):
+            out.update({f"{path}/{k}": v for k, v in new.items()})
+        else:
+            out[path] = new
+    return out
+
+
+def quantize_weights(params: dict) -> dict:
+    """fp parameters -> the dense matmul kernels as `<path>/q` (int8) and
+    `<path>/scale` (f32). Already-quantized kernels pass through, so an
+    install path can call it unconditionally."""
+
+    def one(w, axes):
+        if isinstance(w, dict):
+            return w
+        q, s = quantize_absmax(w, axis=axes)
+        return {"q": q, "scale": s}
+
+    return map_quant_kernels(params, one)
+
+
+def dequantize_weights(params: dict, dtype: torch.dtype) -> dict:
+    """Inverse of quantize_weights (lossy): each `q`/`scale` pair -> an fp
+    kernel in `dtype`; everything else passes through."""
+
+    def one(w, axes):
+        if not isinstance(w, dict):
+            return w
+        return dequantize_absmax(w["q"], w["scale"], dtype, axis=axes)
+
+    return map_quant_kernels(params, one)
+
+
+def is_weight_quantized(params: dict) -> bool:
+    """True when any dense kernel is a `q`/`scale` pair."""
+    return any(
+        name.rpartition("/")[2] in _WQ_PARTS
+        and _wq_axes(name.rpartition("/")[0]) is not None
+        for name in params
+    )
+
+
+# ---------------------------------------------------------------------------
 # Building blocks
 # ---------------------------------------------------------------------------
 
@@ -406,18 +529,26 @@ def _inv_freq(head_dim: int, theta: float, scaling: tuple | None, dev: torch.dev
     return inv_freq
 
 
-def _linear(x, w):
-    """x [..., H] against a kernel [H, *out] -> [..., *out]."""
-    H = w.shape[0]
-    return (x.reshape(-1, H) @ w.reshape(H, -1)).reshape(*x.shape[:-1], *w.shape[1:])
+def _w_einsum(x, lp: dict, name: str, n_contract: int, qmm=quant_einsum):
+    """The matmul seam (JAX `_w_einsum`, :937): x [..., *K] against layer
+    kernel `name` [*K, *out] (its first `n_contract` axes contracted) ->
+    [..., *out]. An fp kernel runs the plain matmul, so the fp path is
+    unchanged bit for bit; a `q`/`scale` pair runs `qmm` (`quant_einsum`:
+    the K6 kernel on a CUDA tensor, or a plain version a check swaps in)."""
+    w = lp.get(name)
+    if w is None:
+        return qmm(x, lp[f"{name}/q"], lp[f"{name}/scale"], n_contract)
+    K = math.prod(w.shape[:n_contract])
+    out = x.reshape(-1, K) @ w.reshape(K, -1)
+    return out.reshape(*x.shape[: x.dim() - n_contract], *w.shape[n_contract:])
 
 
-def _project_qkv(lp: dict, x, cos, sin, cfg: ModelConfig):
+def _project_qkv(lp: dict, x, cos, sin, cfg: ModelConfig, qmm=quant_einsum):
     """QKV projection + bias + rope (JAX :1844). x [T, H]; cos/sin
     [T, hd/2]."""
-    q = _linear(x, lp["attn/q_kernel"])
-    k = _linear(x, lp["attn/k_kernel"])
-    v = _linear(x, lp["attn/v_kernel"])
+    q = _w_einsum(x, lp, "attn/q_kernel", 1, qmm)
+    k = _w_einsum(x, lp, "attn/k_kernel", 1, qmm)
+    v = _w_einsum(x, lp, "attn/v_kernel", 1, qmm)
     if cfg.qkv_bias:
         q = q + lp["attn/q_bias"]
         k = k + lp["attn/k_bias"]
@@ -433,18 +564,18 @@ def _project_qkv(lp: dict, x, cos, sin, cfg: ModelConfig):
     return rot(q), rot(k), v
 
 
-def _attn_out(lp: dict, attn):
-    """[T, nH, hd] attention output -> [T, H] through o_kernel."""
-    T, nH, hd = attn.shape
-    return attn.reshape(T, nH * hd) @ lp["attn/o_kernel"].reshape(nH * hd, -1)
+def _attn_out(lp: dict, attn, qmm=quant_einsum):
+    """[T, nH, hd] attention output -> [T, H] through o_kernel, which
+    contracts over (nH, hd)."""
+    return _w_einsum(attn, lp, "attn/o_kernel", 2, qmm)
 
 
-def mlp(lp: dict, x, cfg: ModelConfig):
+def mlp(lp: dict, x, cfg: ModelConfig, qmm=quant_einsum):
     """Gated MLP (JAX :1275): down(act(gate(x)) * up(x))."""
     act = act_fn(cfg)
-    gate = x @ lp["mlp/gate_kernel"]
-    up = x @ lp["mlp/up_kernel"]
-    return (act(gate) * up) @ lp["mlp/down_kernel"]
+    gate = _w_einsum(x, lp, "mlp/gate_kernel", 1, qmm)
+    up = _w_einsum(x, lp, "mlp/up_kernel", 1, qmm)
+    return _w_einsum(act(gate) * up, lp, "mlp/down_kernel", 1, qmm)
 
 
 def _embed(params: dict, ids, cfg: ModelConfig):
@@ -552,12 +683,18 @@ def forward(
     """Packed forward (JAX :1445): [T] ids -> [T, V] f32 logits, or the
     post-final-norm hidden states [T, H] with `return_hidden` (the fused
     LM-loss path, `LMHead`). `segment_ids` [T] mark sequence membership;
-    attention is causal within a segment.
+    attention is causal within a segment. It trains fp weights: an
+    int8-quantized tree (`quantize_weights`) is refused.
 
     With `cfg.remat` and gradients enabled, each layer runs under
     `torch.utils.checkpoint` (non-reentrant): its activations are
     recomputed in the backward, the flash forward kernel included. Only
     `remat_policy="full"` is ported."""
+    if is_weight_quantized(params):
+        raise ValueError(
+            "forward takes fp weights; this tree holds int8 q/scale kernels, "
+            "which only the serving path (prefill, decode_step_paged) reads"
+        )
     if cfg.remat and cfg.remat_policy not in _REMAT_POLICIES:
         raise ValueError(f"remat_policy={cfg.remat_policy!r} not in {_REMAT_POLICIES}")
     if cfg.remat and cfg.remat_policy != "full":
@@ -656,13 +793,14 @@ def decode_step_paged(
     params: dict,
     tokens,  # [R] current input token per slot
     positions,  # [R] logical row the new token occupies
-    k_pool,  # [L, n_blocks, bsz, nKV, hd], written in place
-    v_pool,  # [L, n_blocks, bsz, nKV, hd], written in place
+    k_pool,  # [L, n_blocks, bsz, nKV, hd], or (int8, f32 scales), in place
+    v_pool,  # [L, n_blocks, bsz, nKV, hd], or (int8, f32 scales), in place
     block_tables,  # [R, nb] int32 pool-block ids per slot
     cfg: ModelConfig,
     active=None,  # [R] bool: slot holds a live request
     attn_fn=paged_attention,
     layers: list[dict] | None = None,  # layer_views(params, cfg), if kept
+    matmul_fn=quant_einsum,
 ):
     """One batched decode step attending directly over the paged pool
     (JAX :2153). Returns logits [R, V] in f32.
@@ -673,11 +811,20 @@ def decode_step_paged(
     `attn_fn` (the paged-attention op; chip checks pass its plain version
     to compare). Inactive slots write into the null block 0 instead
     (JAX :2228-2230), so a retired or parked slot's KV is never touched;
-    their stale positions are clamped into the table first."""
+    their stale positions are clamped into the table first.
+
+    Int8 pools (JAX :2185-2242): `k_pool`/`v_pool` are `(int8 data
+    [L, n_blocks, bsz, nKV, hd], f32 scales [L, n_blocks, nKV, bsz])`
+    tuples. The new row is quantized per (row, kv head) at the scatter,
+    its scales land at `scales[dest_block, :, dest_off]`, and attention
+    reads the row just written through its int8 form. Quantized weights
+    run through `matmul_fn` (`quant_einsum`; chip checks swap in its plain
+    version)."""
     if layers is None:
         layers = layer_views(params, cfg)
+    (k_data, k_scales), (v_data, v_scales) = split_pool(k_pool), split_pool(v_pool)
     R = tokens.shape[0]
-    bsz = k_pool.shape[2]
+    bsz = k_data.shape[2]
     nb = block_tables.shape[1]
     span = nb * bsz
     nH, hd = cfg.num_attention_heads, cfg.head_dim_
@@ -694,14 +841,22 @@ def decode_step_paged(
         dest_block = torch.where(active, dest_block, 0)
         dest_off = torch.where(active, dest_off, 0)
 
+    def write(data, scales, new):  # [n_blocks, bsz, nKV, hd] <- [R, nKV, hd]
+        if scales is None:
+            data.index_put_((dest_block, dest_off), new.to(data.dtype))
+            return data
+        q_row, s_row = quantize_kv(new)  # quantized at the scatter
+        data.index_put_((dest_block, dest_off), q_row)
+        scales[dest_block, :, dest_off] = s_row  # [R, nKV]
+        return data, scales
+
     for i, lp in enumerate(layers):
         h = _norm(x, lp["input_norm"], cfg)
-        q, k_new, v_new = _project_qkv(lp, h, cos, sin, cfg)
-        kp, vp = k_pool[i], v_pool[i]
-        kp.index_put_((dest_block, dest_off), k_new.to(kp.dtype))
-        vp.index_put_((dest_block, dest_off), v_new.to(vp.dtype))
+        q, k_new, v_new = _project_qkv(lp, h, cos, sin, cfg, matmul_fn)
+        kp = write(k_data[i], None if k_scales is None else k_scales[i], k_new)
+        vp = write(v_data[i], None if v_scales is None else v_scales[i], v_new)
         attn = attn_fn(q.reshape(R, nH, hd), kp, vp, block_tables, valid)
-        x = x + _attn_out(lp, attn)
+        x = x + _attn_out(lp, attn, matmul_fn)
         h = _norm(x, lp["post_attn_norm"], cfg)
-        x = x + mlp(lp, h, cfg)
+        x = x + mlp(lp, h, cfg, matmul_fn)
     return _logits(params, x, cfg)

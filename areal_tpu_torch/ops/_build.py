@@ -24,6 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "areal_tpu_torch"
 SOURCES = {
     "paged_attention": CSRC / "paged_attention.cu",
     "flash_attention": CSRC / "flash_attention.cu",
+    "quant_matmul": CSRC / "quant_matmul.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

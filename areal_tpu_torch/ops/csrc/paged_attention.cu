@@ -43,10 +43,28 @@
 // thread count, so the kernel sits ~30x above its bound. Splitting the page
 // walk across blocks (split-KV with a second reduction pass) so the pages
 // of all slots run at once is the next step.
+//
+// K5a, `paged_attn_q8_kernel`, replaces
+// `areal_tpu/ops/paged_attention.py::_paged_attn_kernel_q8` (:168), which the
+// same `pallas_call` (:270) launches for an int8 pool. It is K3's body
+// (`paged_attn_body`, instantiated with an int8 pool) with two changes:
+//   - K and V are int8 `[n_blocks, bsz, nKV, hd]` with one f32 scale per
+//     (row, kv head) in `[n_blocks, nKV, bsz]`: the scales of one
+//     (block, head) are `bsz` contiguous floats, read once per page into
+//     shared memory (valid rows only) through the same block id as the data;
+//   - one 16-byte load carries 16 int8 values, so a K row's team is hd / 16
+//     threads; each value is dequantized in f32 right after the load
+//     (`q8 * scale`, as the TPU kernel does at :198 and :212), and the
+//     attention math that follows is K3's, in f32.
+// Bound: bytes, as for K3, with 2 * (hd + 4) bytes per valid row and kv
+// head (int8 data and its f32 scale) in place of 2 * hd * sizeof(T): about
+// half of K3's bytes for a bf16 pool.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -55,8 +73,8 @@ constexpr int kMaxGroup = 16;
 constexpr int kMaxPage = 256;
 constexpr float kNegInf = -1e30f;
 
-template <typename T>
-struct VecWidth;  // elements per 16-byte load
+template <typename P>
+struct VecWidth;  // pool elements per 16-byte load
 template <>
 struct VecWidth<float> {
   static constexpr int value = 4;
@@ -64,6 +82,10 @@ struct VecWidth<float> {
 template <>
 struct VecWidth<__nv_bfloat16> {
   static constexpr int value = 8;
+};
+template <>
+struct VecWidth<int8_t> {
+  static constexpr int value = 16;
 };
 
 __device__ __forceinline__ void load16(const float* p, float* out) {
@@ -85,6 +107,14 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
   }
 }
 
+__device__ __forceinline__ void load16(const int8_t* p, float* out) {
+  const int4 v = *reinterpret_cast<const int4*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = static_cast<float>(b[i]);
+}
+
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -94,17 +124,20 @@ __device__ __forceinline__ void store(float x, __nv_bfloat16* p) {
   *p = __float2bfloat16_rn(x);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-    paged_attn_kernel(const T* __restrict__ q,             // [R, nH, HD]
-                      const T* __restrict__ k_pool,        // [n_blocks, bsz, nKV, HD]
-                      const T* __restrict__ v_pool,        // [n_blocks, bsz, nKV, HD]
-                      const int32_t* __restrict__ table,   // [R, nb]
-                      const uint8_t* __restrict__ valid,   // [R, nb * bsz]
-                      T* __restrict__ out,                 // [R, nH, HD]
-                      int nKV, int group, int bsz, int nb, int n_blocks,
-                      float sm_scale) {
-  constexpr int kVec = VecWidth<T>::value;
+// The body of K3 (P = T, no scales) and K5a (P = int8_t, f32 scales).
+template <typename T, typename P, int HD>
+__device__ __forceinline__ void paged_attn_body(
+    const T* __restrict__ q,             // [R, nH, HD]
+    const P* __restrict__ k_pool,        // [n_blocks, bsz, nKV, HD]
+    const float* __restrict__ k_scale,   // [n_blocks, nKV, bsz] (int8 only)
+    const P* __restrict__ v_pool,        // [n_blocks, bsz, nKV, HD]
+    const float* __restrict__ v_scale,   // [n_blocks, nKV, bsz] (int8 only)
+    const int32_t* __restrict__ table,   // [R, nb]
+    const uint8_t* __restrict__ valid,   // [R, nb * bsz]
+    T* __restrict__ out,                 // [R, nH, HD]
+    int nKV, int group, int bsz, int nb, int n_blocks, float sm_scale) {
+  constexpr bool kQuant = std::is_same<P, int8_t>::value;
+  constexpr int kVec = VecWidth<P>::value;
   constexpr int kTeam = HD / kVec;  // threads sharing one K row
   static_assert(kTeam >= 1 && kTeam <= 32 && (kTeam & (kTeam - 1)) == 0,
                 "a K row must be read by a power-of-two team within a warp");
@@ -124,6 +157,8 @@ __global__ void __launch_bounds__(kThreads)
   float* a_s = l_s + group;            // [group] this page's rescale
   float* red = a_s + group;            // [kSlices, group, HD]
   int* mask_s = reinterpret_cast<int*>(red + kSlices * group * HD);  // [bsz]
+  float* ks_s = reinterpret_cast<float*>(mask_s + bsz);  // [bsz] (int8 only)
+  float* vs_s = ks_s + bsz;                              // [bsz] (int8 only)
 
   const T* q_r = q + ((size_t)r * nH + (size_t)h * group) * HD;
   for (int i = tid; i < group * HD; i += kThreads) q_s[i] = to_f32(q_r[i]);
@@ -162,15 +197,31 @@ __global__ void __launch_bounds__(kThreads)
     // output (block ids of pages without valid rows are never read)
     const int blk = table_r[b];
     if (blk < 0 || blk >= n_blocks) __trap();
+    if constexpr (kQuant) {
+      // this (block, head)'s scale strips: bsz contiguous floats each
+      const float* ks_blk = k_scale + ((size_t)blk * nKV + h) * bsz;
+      const float* vs_blk = v_scale + ((size_t)blk * nKV + h) * bsz;
+      for (int j = tid; j < bsz; j += kThreads) {
+        const bool m = mask_s[j] != 0;
+        ks_s[j] = m ? ks_blk[j] : 0.f;
+        vs_s[j] = m ? vs_blk[j] : 0.f;
+      }
+      __syncthreads();
+    }
 
     // scores: s[g, j] = (q[g] . K[j]) * sm_scale, or -1e30 for invalid j
-    const T* k_blk = k_pool + (size_t)blk * block_stride + (size_t)h * HD;
+    const P* k_blk = k_pool + (size_t)blk * block_stride + (size_t)h * HD;
     for (int j0 = 0; j0 < bsz; j0 += kTeams) {
       const int j = j0 + team;
       const bool live = j < bsz && mask_s[j] != 0;
       float kf[kVec];
       if (live) {
         load16(k_blk + (size_t)j * row_stride + team_lane * kVec, kf);
+        if constexpr (kQuant) {
+          const float sc = ks_s[j];  // dequantize right after the load
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) kf[e] *= sc;
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < kVec; ++e) kf[e] = 0.f;
@@ -221,10 +272,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int g = 0; g < kMaxGroup; ++g)
       if (g < group) acc[g] *= a_s[g];
-    const T* v_blk = v_pool + (size_t)blk * block_stride + (size_t)h * HD + d;
+    const P* v_blk = v_pool + (size_t)blk * block_stride + (size_t)h * HD + d;
     for (int j = slice; j < bsz; j += kSlices) {
       if (!mask_s[j]) continue;
-      const float v = to_f32(v_blk[(size_t)j * row_stride]);
+      float v = to_f32(v_blk[(size_t)j * row_stride]);
+      if constexpr (kQuant) v *= vs_s[j];
 #pragma unroll
       for (int g = 0; g < kMaxGroup; ++g)
         if (g < group) acc[g] += s_s[g * bsz + j] * v;
@@ -247,80 +299,154 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K3: a pool in q's dtype
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const void* table, const void* valid, void* out, int R,
-                   int nKV, int group, int bsz, int nb, int n_blocks,
-                   float sm_scale, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+    paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+                      const T* __restrict__ v_pool,
+                      const int32_t* __restrict__ table,
+                      const uint8_t* __restrict__ valid, T* __restrict__ out,
+                      int nKV, int group, int bsz, int nb, int n_blocks,
+                      float sm_scale) {
+  paged_attn_body<T, T, HD>(q, k_pool, nullptr, v_pool, nullptr, table, valid,
+                            out, nKV, group, bsz, nb, n_blocks, sm_scale);
+}
+
+// K5a: an int8 pool with per-(row, kv head) f32 scales
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+    paged_attn_q8_kernel(const T* __restrict__ q,
+                         const int8_t* __restrict__ k_pool,
+                         const float* __restrict__ k_scale,
+                         const int8_t* __restrict__ v_pool,
+                         const float* __restrict__ v_scale,
+                         const int32_t* __restrict__ table,
+                         const uint8_t* __restrict__ valid, T* __restrict__ out,
+                         int nKV, int group, int bsz, int nb, int n_blocks,
+                         float sm_scale) {
+  paged_attn_body<T, int8_t, HD>(q, k_pool, k_scale, v_pool, v_scale, table,
+                                 valid, out, nKV, group, bsz, nb, n_blocks,
+                                 sm_scale);
+}
+
+struct Args {
+  const void* q;
+  const void* k_pool;
+  const void* k_scale;  // null for an fp pool
+  const void* v_pool;
+  const void* v_scale;  // null for an fp pool
+  const void* table;
+  const void* valid;
+  void* out;
+  int R, nKV, group, bsz, nb, n_blocks;
+  float sm_scale;
+};
+
+template <typename T, typename P, int HD>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  constexpr bool kQuant = std::is_same<P, int8_t>::value;
   constexpr int kSlices = kThreads / HD;
   const size_t smem =
-      sizeof(float) * ((size_t)group * HD + (size_t)group * bsz + 3 * group +
-                       (size_t)kSlices * group * HD) +
-      sizeof(int) * bsz;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_attn_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
+      sizeof(float) * ((size_t)a.group * HD + (size_t)a.group * a.bsz +
+                       3 * a.group + (size_t)kSlices * a.group * HD +
+                       (kQuant ? 2 * (size_t)a.bsz : 0)) +
+      sizeof(int) * a.bsz;
+  const dim3 grid(a.nKV, a.R);
+  if constexpr (kQuant) {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          paged_attn_q8_kernel<T, HD>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    paged_attn_q8_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const int8_t*>(a.k_pool),
+        static_cast<const float*>(a.k_scale),
+        static_cast<const int8_t*>(a.v_pool),
+        static_cast<const float*>(a.v_scale),
+        static_cast<const int32_t*>(a.table),
+        static_cast<const uint8_t*>(a.valid), static_cast<T*>(a.out), a.nKV,
+        a.group, a.bsz, a.nb, a.n_blocks, a.sm_scale);
+  } else {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          paged_attn_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    paged_attn_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k_pool),
+        static_cast<const T*>(a.v_pool), static_cast<const int32_t*>(a.table),
+        static_cast<const uint8_t*>(a.valid), static_cast<T*>(a.out), a.nKV,
+        a.group, a.bsz, a.nb, a.n_blocks, a.sm_scale);
   }
-  const dim3 grid(nKV, R);
-  paged_attn_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int32_t*>(table),
-      static_cast<const uint8_t*>(valid), static_cast<T*>(out), nKV, group,
-      bsz, nb, n_blocks, sm_scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k_pool,
-                        const void* v_pool, const void* table,
-                        const void* valid, void* out, int R, int nKV,
-                        int group, int bsz, int nb, int n_blocks,
-                        float sm_scale, cudaStream_t stream) {
+template <typename T, typename P>
+cudaError_t dispatch_hd(int hd, const Args& a, cudaStream_t stream) {
   switch (hd) {
     case 16:
-      return launch<T, 16>(q, k_pool, v_pool, table, valid, out, R, nKV, group,
-                           bsz, nb, n_blocks, sm_scale, stream);
+      return launch<T, P, 16>(a, stream);
     case 32:
-      return launch<T, 32>(q, k_pool, v_pool, table, valid, out, R, nKV, group,
-                           bsz, nb, n_blocks, sm_scale, stream);
+      return launch<T, P, 32>(a, stream);
     case 64:
-      return launch<T, 64>(q, k_pool, v_pool, table, valid, out, R, nKV, group,
-                           bsz, nb, n_blocks, sm_scale, stream);
+      return launch<T, P, 64>(a, stream);
     case 128:
-      return launch<T, 128>(q, k_pool, v_pool, table, valid, out, R, nKV,
-                            group, bsz, nb, n_blocks, sm_scale, stream);
+      return launch<T, P, 128>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+cudaError_t check_args(int R, int nH, int nKV, int bsz, int nb) {
+  if (R <= 0 || nb <= 0 || nKV <= 0 || nH % nKV != 0)
+    return cudaErrorInvalidValue;
+  const int group = nH / nKV;
+  if (group < 1 || group > kMaxGroup || bsz < 1 || bsz > kMaxPage || R > 65535)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// Plain C entry for ctypes. Every pointer is a device pointer of a
-// contiguous tensor; `stream` is the caller's cudaStream_t. Returns the
+// Plain C entries for ctypes. Every pointer is a device pointer of a
+// contiguous tensor; `stream` is the caller's cudaStream_t. Each returns the
 // launch's cudaGetLastError() (0 on success); the wrapper raises on
 // anything else. R and nb must be at least 1: with no row to attend the
 // output is 0, which the wrapper returns without a launch.
+
+// K3: q, k_pool and v_pool in one dtype (f32 or bf16).
 extern "C" int areal_paged_attention(const void* q, const void* k_pool,
                                      const void* v_pool, const void* table,
                                      const void* valid, void* out, int R,
                                      int nH, int nKV, int hd, int bsz, int nb,
                                      int n_blocks, float sm_scale, int is_bf16,
                                      void* stream) {
-  if (R <= 0 || nb <= 0 || nKV <= 0 || nH % nKV != 0)
-    return cudaErrorInvalidValue;
-  const int group = nH / nKV;
-  if (group < 1 || group > kMaxGroup || bsz < 1 || bsz > kMaxPage || R > 65535)
-    return cudaErrorInvalidValue;
+  const cudaError_t e = check_args(R, nH, nKV, bsz, nb);
+  if (e != cudaSuccess) return e;
+  const Args a{q,     k_pool, nullptr, v_pool, nullptr, table,
+               valid, out,    R,       nKV,    nH / nKV, bsz,
+               nb,    n_blocks, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k_pool, v_pool, table, valid, out,
-                                      R, nKV, group, bsz, nb, n_blocks,
-                                      sm_scale, s);
-  return dispatch_hd<float>(hd, q, k_pool, v_pool, table, valid, out, R, nKV,
-                            group, bsz, nb, n_blocks, sm_scale, s);
+  if (is_bf16) return dispatch_hd<__nv_bfloat16, __nv_bfloat16>(hd, a, s);
+  return dispatch_hd<float, float>(hd, a, s);
+}
+
+// K5a: q in f32 or bf16; int8 k/v pools with f32 scales [n_blocks, nKV, bsz].
+extern "C" int areal_paged_attention_q8(
+    const void* q, const void* k_pool, const void* k_scale, const void* v_pool,
+    const void* v_scale, const void* table, const void* valid, void* out,
+    int R, int nH, int nKV, int hd, int bsz, int nb, int n_blocks,
+    float sm_scale, int is_bf16, void* stream) {
+  const cudaError_t e = check_args(R, nH, nKV, bsz, nb);
+  if (e != cudaSuccess) return e;
+  const Args a{q,     k_pool, k_scale, v_pool, v_scale, table,
+               valid, out,    R,       nKV,    nH / nKV, bsz,
+               nb,    n_blocks, sm_scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return dispatch_hd<__nv_bfloat16, int8_t>(hd, a, s);
+  return dispatch_hd<float, int8_t>(hd, a, s);
 }
 
 extern "C" const char* areal_cuda_error_string(int err) {

@@ -9,8 +9,16 @@ CUDA tensor it launches the hand-written Hopper kernel
 a CPU tensor it runs `paged_attention_ref`, the plain version. There is no
 fallback from one to the other.
 
-`launches` counts kernel launches, so a run can show that its main path
-went through the kernel.
+Int8 pools (`ops/kv_quant.py`): `k_pool` and `v_pool` may be `(int8 data,
+f32 scales)` tuples, as in the JAX package (:30-37), with scales
+`[n_blocks, nKV, bsz]`. On a CUDA tensor they go to the int8 kernel (the
+port of `_paged_attn_kernel_q8`, in the same source), which dequantizes
+each row right after its load; the plain version dequantizes right after
+its gather (`_gather_dequant`, :75-85).
+
+`launches` counts launches of the fp kernel (K3), `launches_q8` those of
+the int8 kernel (K5a), so a run can show that its main path went through
+them.
 """
 
 from __future__ import annotations
@@ -21,28 +29,43 @@ import math
 import torch
 
 from areal_tpu_torch.ops import _build
+from areal_tpu_torch.ops.kv_quant import dequantize_kv, scales_rowmajor, split_pool
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GROUP = 16
 _MAX_PAGE = 256
 
-# kernel launches since the process started (or the last reset to 0)
+# kernel launches since the process started (or the last reset to 0):
+# fp pools (K3) and int8 pools (K5a)
 launches = 0
+launches_q8 = 0
 
 _lib: ctypes.CDLL | None = None
 
 
+def _gather_dequant(pool, scales, idx, R, nb, bsz, nKV, hd, dtype):
+    """Gather `idx` blocks into [R, nb*bsz, nKV, hd]; an int8 pool is
+    dequantized to `dtype` right after the gather (JAX :75-85)."""
+    c = pool.index_select(0, idx).reshape(R, nb * bsz, nKV, hd)
+    if scales is None:
+        return c
+    sc = scales_rowmajor(scales.index_select(0, idx).reshape(R, nb, nKV, bsz))
+    return dequantize_kv(c, sc, dtype)
+
+
 def paged_attention_ref(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
     """Plain PyTorch version. It follows `_paged_attention_xla` (:88-110)
-    op for op: gather the table's blocks, score in q's dtype, divide by
-    sqrt(hd) exactly when `sm_scale` is the default, mask with -1e30,
-    softmax in f32, round the probabilities to q's dtype, and sum V.
+    op for op: gather the table's blocks (dequantizing an int8 pool to q's
+    dtype), score in q's dtype, divide by sqrt(hd) exactly when `sm_scale`
+    is the default, mask with -1e30, softmax in f32, round the
+    probabilities to q's dtype, and sum V.
 
     One departure: a slot with no valid row returns 0, as
     `_paged_attn_kernel` (and the CUDA kernel) do; the XLA path returns the
     mean of the gathered V rows there. The decode step never produces such
     a slot (row 0 is always valid)."""
+    (k_pool, k_scales), (v_pool, v_scales) = split_pool(k_pool), split_pool(v_pool)
     R, nH, hd = q.shape
     bsz, nKV = k_pool.shape[1], k_pool.shape[2]
     nb = block_table.shape[1]
@@ -50,8 +73,8 @@ def paged_attention_ref(q, k_pool, v_pool, block_table, valid, *, sm_scale=None)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(hd)
     idx = block_table.reshape(-1).long()
-    kc = k_pool.index_select(0, idx).reshape(R, nb * bsz, nKV, hd)
-    vc = v_pool.index_select(0, idx).reshape(R, nb * bsz, nKV, hd)
+    kc = _gather_dequant(k_pool, k_scales, idx, R, nb, bsz, nKV, hd, q.dtype)
+    vc = _gather_dequant(v_pool, v_scales, idx, R, nb, bsz, nKV, hd, q.dtype)
     qg = q.reshape(R, nKV, group, hd)
     scores = torch.einsum("rkgd,rskd->rkgs", qg, kc.to(q.dtype))
     if sm_scale == 1.0 / math.sqrt(hd):
@@ -88,6 +111,15 @@ def _kernel_lib() -> ctypes.CDLL:
             ctypes.c_void_p,  # stream
         ]
         lib.areal_paged_attention.restype = ctypes.c_int
+        lib.areal_paged_attention_q8.argtypes = [
+            ctypes.c_void_p,  # q
+            ctypes.c_void_p,  # k_pool (int8)
+            ctypes.c_void_p,  # k scales
+            ctypes.c_void_p,  # v_pool (int8)
+            ctypes.c_void_p,  # v scales
+            *lib.areal_paged_attention.argtypes[3:],
+        ]
+        lib.areal_paged_attention_q8.restype = ctypes.c_int
         lib.areal_cuda_error_string.argtypes = [ctypes.c_int]
         lib.areal_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -95,10 +127,17 @@ def _kernel_lib() -> ctypes.CDLL:
 
 
 def _check(q, k_pool, v_pool, block_table, valid) -> None:
+    """Refuse what the kernels do not take. Pools are tensors in q's dtype
+    (K3) or `(int8 data, f32 scales [n_blocks, nKV, bsz])` tuples (K5a)."""
+    (k_pool, k_scales), (v_pool, v_scales) = split_pool(k_pool), split_pool(v_pool)
+    if (k_scales is None) != (v_scales is None):
+        raise TypeError("k_pool and v_pool must both be int8 tuples or neither")
     tensors = dict(
         q=q, k_pool=k_pool, v_pool=v_pool, block_table=block_table,
         valid=valid,
     )
+    if k_scales is not None:
+        tensors.update(k_scales=k_scales, v_scales=v_scales)
     for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -106,10 +145,21 @@ def _check(q, k_pool, v_pool, block_table, valid) -> None:
             raise ValueError(f"{name} must be contiguous")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or bfloat16")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+    pool_dtype = q.dtype if k_scales is None else torch.int8
+    if k_pool.dtype != pool_dtype or v_pool.dtype != pool_dtype:
         raise TypeError(
-            f"pool dtypes {k_pool.dtype}/{v_pool.dtype} must equal q's {q.dtype}"
+            f"pool dtypes {k_pool.dtype}/{v_pool.dtype} must be {pool_dtype}"
         )
+    if k_scales is not None:
+        n_blocks, bsz, nKV = k_pool.shape[:3]
+        for name, t in dict(k_scales=k_scales, v_scales=v_scales).items():
+            if t.dtype != torch.float32:
+                raise TypeError(f"{name} dtype {t.dtype}, need float32")
+            if tuple(t.shape) != (n_blocks, nKV, bsz):
+                raise ValueError(
+                    f"{name} {tuple(t.shape)} != [n_blocks, nKV, bsz] "
+                    f"{(n_blocks, nKV, bsz)}"
+                )
     if block_table.dtype != torch.int32:
         raise TypeError(f"block_table dtype {block_table.dtype}, need int32")
     if valid.dtype != torch.bool:
@@ -137,7 +187,8 @@ def _check(q, k_pool, v_pool, block_table, valid) -> None:
 def paged_attention(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
     """Decode attention of R single-token queries over paged KV.
 
-    q `[R, nH, hd]`; pools `[n_blocks, bsz, nKV, hd]` (one layer); table
+    q `[R, nH, hd]`; pools `[n_blocks, bsz, nKV, hd]` (one layer), or
+    `(int8 data, f32 scales [n_blocks, nKV, bsz])` tuples; table
     `[R, nb]` int32 pool-block ids; valid `[R, nb * bsz]` bool. Logical row
     s of slot r lives at `(block_table[r, s // bsz], s % bsz)`; rows that
     `valid` hides (the null block 0 in table tails, rows past a slot's
@@ -148,7 +199,7 @@ def paged_attention(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
     out-of-range index does in PyTorch's own CUDA kernels; the plain
     version raises IndexError.
     """
-    global launches
+    global launches, launches_q8
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -158,21 +209,33 @@ def paged_attention(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, not {q.device}")
     _check(q, k_pool, v_pool, block_table, valid)
+    (k_data, k_scales), (v_data, v_scales) = split_pool(k_pool), split_pool(v_pool)
     R, nH, hd = q.shape
-    n_blocks, bsz, nKV, _ = k_pool.shape
+    n_blocks, bsz, nKV, _ = k_data.shape
     if R == 0 or block_table.shape[1] == 0:
         return torch.zeros_like(q)  # no row to attend: the output is 0
     out = torch.empty_like(q)
     lib = _kernel_lib()
-    err = lib.areal_paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+    tail = (
         block_table.data_ptr(), valid.data_ptr(), out.data_ptr(),
         R, nH, nKV, hd, bsz, block_table.shape[1], n_blocks,
         float(sm_scale), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
+    if k_scales is None:
+        err = lib.areal_paged_attention(
+            q.data_ptr(), k_data.data_ptr(), v_data.data_ptr(), *tail
+        )
+    else:
+        err = lib.areal_paged_attention_q8(
+            q.data_ptr(), k_data.data_ptr(), k_scales.data_ptr(),
+            v_data.data_ptr(), v_scales.data_ptr(), *tail,
+        )
     if err != 0:
         msg = lib.areal_cuda_error_string(err).decode()
         raise RuntimeError(f"paged attention kernel launch failed: {msg} ({err})")
-    launches += 1
+    if k_scales is None:
+        launches += 1
+    else:
+        launches_q8 += 1
     return out

@@ -6,14 +6,15 @@ Hopper card and the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout, holds
-each against its plain PyTorch version on the card, then drives the two
+each against its plain PyTorch version on the card, then drives the three
 main paths with seeded random weights in bf16: it serves 16 concurrent
 requests through `TorchDecodeEngine` at Qwen2.5-7B full width and depth,
-and runs three colocated GRPO iterations (rollout, `compute_logp`,
-`compute_advantages`, `ppo_update`, weight push) through `TorchPPOActor`
-at Qwen2.5-1.5B full width and depth. It checks that the kernels really
-carried each path. Each phase prints one JSON line; then come the
-`kernels` line, the card's name and power limit, and last
+serves the same traffic again from an int8 engine (int8 weights and an
+int8 KV pool), and runs three colocated GRPO iterations (rollout,
+`compute_logp`, `compute_advantages`, `ppo_update`, weight push) through
+`TorchPPOActor` at Qwen2.5-1.5B full width and depth. It checks that the
+kernels really carried each path. Each phase prints one JSON line; then
+come the `kernels` line, the card's name and power limit, and last
 `{"ok": true, "device": ...}`. Any failed check raises, and the script
 exits non-zero without that last line.
 It imports nothing of JAX or of the JAX package.
@@ -50,6 +51,8 @@ from areal_tpu_torch.models.qwen2 import (
     init_params,
     segment_ids_from_cu_seqlens,
 )
+from areal_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
+from areal_tpu_torch.ops.quant import quantize_absmax
 from areal_tpu_torch.models.smoke import (
     QWEN25_1_5B,
     QWEN25_1_5B_SOURCE,
@@ -59,6 +62,7 @@ from areal_tpu_torch.models.smoke import (
 from areal_tpu_torch.ops import _build
 from areal_tpu_torch.ops import flash_attention as fa
 from areal_tpu_torch.ops import paged_attention as pa
+from areal_tpu_torch.ops import quant_matmul as qm
 from areal_tpu_torch.platforms import resolve_device
 from areal_tpu_torch.utils.data import split_padded_tensor_dict_into_mb_list
 
@@ -68,6 +72,9 @@ F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
 KERNEL_SOURCE = "areal_tpu_torch/ops/csrc/paged_attention.cu"
 KERNEL_REPLACES = "areal_tpu/ops/paged_attention.py:118"
+Q8_REPLACES = "areal_tpu/ops/paged_attention.py:168"
+QMM_SOURCE = "areal_tpu_torch/ops/csrc/quant_matmul.cu"
+QMM_REPLACES = "areal_tpu/ops/quant_matmul.py:55"
 FLASH_SOURCE = "areal_tpu_torch/ops/csrc/flash_attention.cu"
 FLASH_REPLACES = {
     "flash_attention_fwd": "areal_tpu/ops/flash_attention.py:73",
@@ -83,6 +90,14 @@ SERVE = dict(
 N_REQUESTS = 16
 PROMPT_LEN = (64, 1024)
 MAX_NEW = 256
+# the int8 serve phase: the same engine settings and traffic
+SERVE_INT8 = dict(SERVE, weight_dtype="int8", kv_dtype="int8")
+# Qwen2.5-7B's bytes as reckoned from its shapes (models/smoke.py), to set
+# beside the measured ones: weights with int8 dense kernels + f32 scales
+# + bf16 embedding, head, norms and biases; the int8 pool + f32 scales at
+# the serve shape (16 slots x 4096 context, page 128: 513 blocks)
+RECKONED_INT8_WEIGHTS_GB = 8.72
+RECKONED_INT8_KV_POOL_GB = 1.94
 
 # phase 3: kernel vs plain
 KERNEL_CASES = [
@@ -147,7 +162,7 @@ def _ptxas_summary(log: str) -> list[str]:
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"\d((?:flash|paged)_[a-z_]+?kernel)I(f|13__nv_bfloat16)Li(\d+)E", line)
+            m = re.search(r"\d((?:flash|paged|quant)_[a-z0-9_]+?kernel)I(f|13__nv_bfloat16)Li(\d+)E", line)
             name = (f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'},{m.group(3)}>"
                     if m else line.split("'")[1])
         elif "spill stores" in line and name:
@@ -160,9 +175,9 @@ def _ptxas_summary(log: str) -> list[str]:
 
 
 def phase_build() -> None:
-    """Both sources, one nvcc each, started together; each kernel's
+    """Every source, one nvcc each, started together; each kernel's
     registers and spills from ptxas, and the dynamic shared memory of the
-    flash kernels' blocks as their launches size it."""
+    flash and int8-matmul kernels' blocks as their launches size it."""
     t0 = time.perf_counter()
     built = _build.build_all()
     wall_s = time.perf_counter() - t0
@@ -170,9 +185,12 @@ def phase_build() -> None:
             for b in built.values()]
     # ptxas reports static shared memory only; the kernels size theirs per launch
     smem = {f"hd{hd}": fa.smem_bytes(8192, hd) for hd in (16, 64, 128)}
+    # quant_matmul: 4 stages of a 64 x 144-byte int8 tile and a 16 mt x 72 x tile
+    qmm = {f"{dt}_mt{mt}": 4 * (64 * 144 + 16 * mt * 72 * size)
+           for dt, size in (("bf16", 2), ("f32", 4)) for mt in (1, 4)}
     emit("build", kernels=rows, wall_s=wall_s,
          shared_memory=dict(paged_attention="dynamic, sized per launch",
-                            flash_attention_T8192=smem))
+                            flash_attention_T8192=smem, quant_matmul=qmm))
 
 
 def _paged_case(case: dict, dtype: torch.dtype, dev: torch.device, seed: int):
@@ -405,6 +423,116 @@ def phase_flash_kernel(dev: torch.device) -> dict:
     return worst
 
 
+# phase: K5a and K6 against their plain versions
+Q8_CASES = [
+    KERNEL_CASES[0],  # the serve shape: Qwen2.5-7B, R 16, context 4096
+    KERNEL_CASES[1],  # the rollout shape: Qwen2.5-1.5B, R 32, context 1024
+    dict(name="small-page-hd64", nH=14, nKV=2, hd=64, bsz=16, R=8, max_len=512),
+    KERNEL_CASES[3],  # hd 16, page 16
+]
+# (K, N) of Qwen2.5-7B's q/o, k/v, gate/up and down kernels, then ragged
+# ones: K and N off the 64/128 tiles (element loads), and N a multiple of
+# 16 but not of 128 with K not of 64 (16-byte loads, masked tiles)
+QMM_SHAPES = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584), (3037, 777), (1000, 3536)]
+QMM_T = (1, 16, 700)  # one slot, a decode batch, a ragged prefill bucket
+# (a, rtol): an element passes when |out - ref| <= a * max|ref| + rtol * |ref|,
+# ref the plain version in f32 (`q * scale` first, then the f32 product).
+# The kernel's products are exact (int8 is exact in bf16; f32 x is split
+# into three bf16 terms) and it scales after the K loop, so the two differ
+# by the order and rounding of f32 sums of up to 18,944 terms: a = 1e-5 of
+# the largest value. bf16 output: one rounding to nearest, rtol 2^-8.
+QMM_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-5, 2.0 ** -8)}
+
+
+def _int8_pool(pool):
+    """fp pool [n_blocks, bsz, nKV, hd] -> (int8 data, f32 scales
+    [n_blocks, nKV, bsz]), quantized by the port's `quantize_kv`."""
+    q, sc = quantize_kv(pool)
+    return q, sc.transpose(1, 2).contiguous()
+
+
+def phase_quant_kernel(dev: torch.device) -> dict:
+    """K5a against its plain version with the attention in f32 (the plain
+    bf16 path rounds the dequantized K/V to bf16, which the kernel does
+    not): the tolerances of K3, since both dequantize to the same f32
+    values. The planted fault: the plain version with the scales of the
+    first page of every multi-page slot ignored (read as 1). K6 against
+    `_quant_matmul_xla`'s arithmetic at Qwen2.5-7B's four (K, N) shapes
+    and two ragged ones, for T 1, 16 and 700, bf16 and f32 x. The planted
+    fault: the plain version without the last 64-deep K tile. Each fault
+    must read above its tolerance."""
+    rows, worst = [], dict(paged_attention_q8=0.0, quant_matmul=0.0)
+    for i, case in enumerate(Q8_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, table, valid = _paged_case(case, dtype, dev, SEED + 30 + i)
+            kq, vq = _int8_pool(k), _int8_pool(v)
+            del k, v
+            out = pa.paged_attention(q, kq, vq, table, valid)
+            torch.cuda.synchronize()
+            ref = pa.paged_attention_ref(q.float(), kq, vq, table, valid)
+            multi = (valid.sum(1) > case["bsz"]).nonzero()[:, 0]
+            first = table[multi, 0].long()
+            fk, fv = (kq[0], kq[1].clone()), (vq[0], vq[1].clone())
+            fk[1][first] = 1.0
+            fv[1][first] = 1.0
+            ref_fault = pa.paged_attention_ref(q.float(), fk, fv, table, valid)
+            torch.cuda.synchronize()
+            atol, rtol = KERNEL_TOL[dtype]
+            err = (out.float() - ref).abs().max().item()
+            ratio = _tol_ratio(out, ref, atol, rtol)
+            fault_ratio = _tol_ratio(out, ref_fault, atol, rtol)
+            empty_zero = bool((out[0] == 0).all().item())
+            name = f"K5a {case['name']} {str(dtype).split('.')[-1]}"
+            rows.append(dict(kernel="paged_attention_q8", case=case["name"],
+                             dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                             atol=atol, rtol=rtol, tol_ratio=ratio,
+                             planted_fault_tol_ratio=fault_ratio, empty_slot_zero=empty_zero))
+            check(math.isfinite(ratio) and ratio <= 1.0,
+                  f"{name}: {ratio} x the tolerance (max abs err {err})")
+            check(fault_ratio > 1.0, f"{name}: ignored page scales pass the tolerance")
+            check(empty_zero, f"{name}: slot with no valid row is not 0")
+            worst["paged_attention_q8"] = max(worst["paged_attention_q8"], err)
+            del q, kq, vq, fk, fv, out, ref, ref_fault
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    for K, N in QMM_SHAPES:
+        w = torch.randn((K, N), generator=gen, device=dev)
+        wq, ws = quantize_absmax(w, axis=0)
+        del w
+        k_last = (K - 1) // qm.TILE_K * qm.TILE_K  # the last K tile's first row
+        wq_fault = wq.clone()
+        wq_fault[k_last:] = 0
+        for T in QMM_T:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((T, K), generator=gen, device=dev).to(dtype)
+                out = qm.quant_matmul(x, wq, ws)
+                torch.cuda.synchronize()
+                ref = qm.quant_matmul_ref(x, wq, ws, torch.float32)
+                ref_fault = qm.quant_matmul_ref(x, wq_fault, ws, torch.float32)
+                a, rtol = QMM_TOL[dtype]
+                err = (out.float() - ref).abs().max().item()
+                ratio = _scaled_ratio(out, ref, a, rtol)
+                fault_ratio = _scaled_ratio(out, ref_fault, a, rtol)
+                mt, splits, _ = qm.plan(T, K, N, qm._n_sms(dev))
+                name = f"K6 T {T} K {K} N {N} {str(dtype).split('.')[-1]}"
+                rows.append(dict(kernel="quant_matmul", T=T, K=K, N=N,
+                                 dtype=str(dtype).split(".")[-1], mt=mt, splits=splits,
+                                 max_abs_err=err, a=a, rtol=rtol, tol_ratio=ratio,
+                                 planted_fault_tol_ratio=fault_ratio))
+                check(out.shape == (T, N) and out.dtype == dtype, f"{name}: shape or dtype")
+                check(math.isfinite(ratio) and ratio <= 1.0,
+                      f"{name}: {ratio} x the tolerance (max abs err {err})")
+                check(fault_ratio > 1.0, f"{name}: a dropped K tile passes the tolerance")
+                worst["quant_matmul"] = max(worst["quant_matmul"], err)
+        del wq, ws, wq_fault
+    torch.cuda.empty_cache()
+    emit("quant_kernel", tol=dict(paged_attention_q8={str(k).split(".")[-1]: v
+                                                      for k, v in KERNEL_TOL.items()},
+                                  quant_matmul={str(k).split(".")[-1]: v
+                                                for k, v in QMM_TOL.items()}),
+         cases=rows, max_abs_err=worst)
+    return worst
+
+
 def _requests(rng, vocab: int, stop_prompt: list[int], stop_id: int) -> list[ModelRequest]:
     """8 greedy (the first carries `stop_id`), 4 at temperature 1, 4 at
     temperature 1 with top_p 0.9."""
@@ -444,36 +572,26 @@ async def _serve_wave(engine, reqs):
     return await asyncio.gather(*[engine.agenerate(r) for r in reqs])
 
 
-def phase_serve(dev: torch.device):
-    cfg = dataclasses.replace(QWEN25_7B, scan_layers=False)  # layers_{i}/... tensors
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    weight_bytes = sum(t.numel() * t.element_size() for t in params.values())
-    engine = TorchDecodeEngine(TorchDecodeConfig(random_seed=SEED, **SERVE), device=dev)
-    engine.set_model(params, cfg)
-    del params
-    torch.cuda.empty_cache()
-    engine.initialize()
-    kv_bytes = 2 * engine._k_pool.numel() * engine._k_pool.element_size()
-    torch.cuda.reset_peak_memory_stats(dev)
-    rng = np.random.default_rng(SEED)
-
-    # ---- the main path: counts to 0 just before, read just after ----
-    pa.launches = 0
+def _serve_traffic(engine, cfg, rng) -> dict:
+    """The serve cell's traffic: one greedy probe request (its 9th token
+    becomes the stop id), then two waves of 16 concurrent requests with a
+    host weight push between them (layer 0 takes layer 1's tensors, under
+    the engine's own names) and the version bumped to 1. Checks stop
+    reasons and version stamps; returns what the phase reports."""
     steps0, tokens0, secs0 = engine.decode_steps, engine.decode_tokens, engine.decode_seconds
+    prefills0, prefill_s0 = engine.prefill_calls, engine.prefill_seconds
     stop_prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(*PROMPT_LEN, endpoint=True))).tolist()
     pre = engine.generate(ModelRequest(
         rid="pre", input_ids=stop_prompt,
         gconfig=GenerationHyperparameters(max_new_tokens=32, greedy=True),
     ))
     stop_id = pre.output_tokens[8]
-    waves = []
+    waves, pushed = [], []
     for version in (0, 1):
         if version == 1:
             # push layer 0 from the host (layer 1's weights), then bump
             donor = {k.split("/", 1)[1]: t.cpu() for k, t in engine.params.items() if k.startswith("layers_1/")}
+            pushed = sorted(f"layers_0/{k}" for k in donor)
             engine.update_weights_from_tensor({f"layers_0/{k}": t for k, t in donor.items()})
             engine.set_version(1)
         reqs = _requests(rng, cfg.vocab_size, stop_prompt, stop_id)
@@ -487,29 +605,103 @@ def phase_serve(dev: torch.device):
             ttft_ms=[r.ttft * 1e3 for r in resps],
             stop_request=dict(len=resps[0].output_len, reason=resps[0].stop_reason),
         ))
-    launches = pa.launches
     steps = engine.decode_steps - steps0
-    # ---- end of the main path ----
-    check(launches > 0 and launches == steps * cfg.num_hidden_layers,
-          f"paged attention launches {launches} != decode steps {steps} x {cfg.num_hidden_layers}")
     dec_tokens = engine.decode_tokens - tokens0
     dec_secs = engine.decode_seconds - secs0
     ttft = [x for w in waves for x in w["ttft_ms"]]
-    emit(
-        "serve",
-        model="Qwen2.5-7B", source=QWEN25_7B_SOURCE,
-        layers=cfg.num_hidden_layers, dtype="bfloat16",
-        weights_gb=weight_bytes / 1e9, kv_pool_gb=kv_bytes / 1e9,
-        kv_pool_shape=list(engine._k_pool.shape), init_s=init_s,
-        stop_id=stop_id,
+    return dict(
+        stop_id=stop_id, pushed=pushed,
         waves=[{k: v for k, v in w.items() if k != "ttft_ms"} for w in waves],
-        decode_steps=steps, launches=launches,
+        decode_steps=steps, prefill_calls=engine.prefill_calls - prefills0,
         decode_tok_s=dec_tokens / dec_secs,
         decode_step_ms=dec_secs / steps * 1e3,
         wave_tok_s=[w["tokens"] / w["wall_s"] for w in waves],
         ttft_p50_ms=float(np.percentile(ttft, 50)),
+        prefill_s=engine.prefill_seconds - prefill_s0,
+    )
+
+
+def _serve_engine(dev: torch.device, settings: dict):
+    """Qwen2.5-7B at full width and depth (bf16, random weights from SEED)
+    in a decode engine with `settings`."""
+    cfg = dataclasses.replace(QWEN25_7B, scan_layers=False)  # layers_{i}/... tensors
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = TorchDecodeEngine(TorchDecodeConfig(random_seed=SEED, **settings), device=dev)
+    engine.set_model(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    engine.initialize()
+    torch.cuda.empty_cache()
+    weight_bytes = sum(t.numel() * t.element_size() for t in engine.params.values())
+    pools = [t for t in (engine._k_pool, engine._v_pool, engine._k_scale, engine._v_scale)
+             if t is not None]
+    kv_bytes = sum(t.numel() * t.element_size() for t in pools)
+    return engine, cfg, dict(init_s=init_s, weights_gb=weight_bytes / 1e9, kv_pool_gb=kv_bytes / 1e9,
+                             kv_pool_shape=list(engine._k_pool.shape))
+
+
+def phase_serve(dev: torch.device):
+    engine, cfg, info = _serve_engine(dev, SERVE)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rng = np.random.default_rng(SEED)
+
+    # ---- the main path: counts to 0 just before, read just after ----
+    pa.launches = 0
+    traffic = _serve_traffic(engine, cfg, rng)
+    launches = pa.launches
+    # ---- end of the main path ----
+    steps = traffic["decode_steps"]
+    check(launches > 0 and launches == steps * cfg.num_hidden_layers,
+          f"paged attention launches {launches} != decode steps {steps} x {cfg.num_hidden_layers}")
+    emit(
+        "serve",
+        model="Qwen2.5-7B", source=QWEN25_7B_SOURCE,
+        layers=cfg.num_hidden_layers, dtype="bfloat16", **info,
+        launches=launches, **{k: v for k, v in traffic.items() if k != "pushed"},
         max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
-        prefill_tokens=engine.prefill_tokens, prefill_s=engine.prefill_seconds,
+        prefill_tokens=engine.prefill_tokens,
+    )
+    return engine, cfg, launches
+
+
+def phase_serve_int8(dev: torch.device):
+    """The serve cell again from an int8 engine (weight_dtype and kv_dtype
+    "int8") on the same weights and traffic; the push between the waves
+    ships `<path>/q` + `<path>/scale` tensors. Launch formulas over the
+    phase: K5a = decode steps x L, K6 = 7 x L x (decode steps + prefill
+    calls) (every dense matmul of every layer, prefill included), K3 = 0."""
+    engine, cfg, info = _serve_engine(dev, SERVE_INT8)
+    L = cfg.num_hidden_layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    rng = np.random.default_rng(SEED)
+
+    # ---- the main path: counts to 0 just before, read just after ----
+    pa.launches = pa.launches_q8 = qm.launches = 0
+    traffic = _serve_traffic(engine, cfg, rng)
+    launches = dict(paged_attention=pa.launches, paged_attention_q8=pa.launches_q8,
+                    quant_matmul=qm.launches)
+    # ---- end of the main path ----
+    steps, prefills = traffic["decode_steps"], traffic["prefill_calls"]
+    check(launches["paged_attention_q8"] > 0 and launches["paged_attention_q8"] == steps * L,
+          f"K5a launches {launches['paged_attention_q8']} != decode steps {steps} x {L}")
+    check(launches["quant_matmul"] > 0 and launches["quant_matmul"] == 7 * L * (steps + prefills),
+          f"K6 launches {launches['quant_matmul']} != 7 x {L} x ({steps} steps + {prefills} prefills)")
+    check(launches["paged_attention"] == 0, f"K3 launched {launches['paged_attention']} times")
+    quant = [n for n in traffic["pushed"] if n.endswith(("/q", "/scale"))]
+    check(len(quant) == 14, f"the push carried {len(quant)} q/scale tensors, not 14")
+    emit(
+        "serve_int8",
+        model="Qwen2.5-7B", source=QWEN25_7B_SOURCE, layers=L, dtype="bfloat16",
+        weight_dtype="int8", kv_dtype="int8", **info,
+        reckoned_weights_gb=RECKONED_INT8_WEIGHTS_GB,
+        reckoned_kv_pool_gb=RECKONED_INT8_KV_POOL_GB,
+        launches=launches, pushed_q_scale=len(quant),
+        **{k: v for k, v in traffic.items() if k != "pushed"},
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        prefill_tokens=engine.prefill_tokens,
     )
     return engine, cfg, launches
 
@@ -531,11 +723,13 @@ def _served_batch(engine, cfg, rng):
 
 
 def _attn_f32(q, k_pool, v_pool, table, valid):
-    """The plain version with its attention in f32 (what the kernel
-    computes), rounded back to q's dtype."""
-    return pa.paged_attention_ref(
-        q.float(), k_pool.float(), v_pool.float(), table, valid
-    ).to(q.dtype)
+    """The plain version with its attention in f32 (what the kernels
+    compute), rounded back to q's dtype; an int8 pool is dequantized to
+    f32 right after the gather."""
+    def f32(pool):
+        return pool if isinstance(pool, tuple) else pool.float()
+
+    return pa.paged_attention_ref(q.float(), f32(k_pool), f32(v_pool), table, valid).to(q.dtype)
 
 
 def phase_step(engine, cfg) -> dict:
@@ -578,10 +772,76 @@ def phase_step(engine, cfg) -> dict:
     return dict(table=table, lengths=lengths)
 
 
-def phase_profile(engine, cfg, batch: dict, steps: int = 4) -> None:
+def phase_quant_step(engine, cfg) -> dict:
+    """One decode step at full width on the int8 engine's served pool and
+    weights. The check: the kernel path (K5a and K6) against the plain
+    path (both swapped for their plain versions), held as phase `step`
+    holds K3: the kernel path's logits are no further from the plain path
+    with f32 attention than the plain bf16 path is, or than 4 bf16 ulps of
+    the largest logit, whichever is larger. The measurement: the kernel
+    path against the fp engine's step (K3, bf16 matmuls) on the fp weights
+    the int8 ones were quantized from (the same push applied) and the same
+    KV rows dequantized to bf16: max |logit difference| and argmax
+    agreement, the cost of int8 weights and of quantizing the new row."""
+    rng = np.random.default_rng(SEED + 1)
+    engine.pause_generation()
+    table, positions, tokens, lengths = _served_batch(engine, cfg, rng)
+    dev = engine.device
+    active = torch.ones(len(lengths), dtype=torch.bool, device=dev)
+    k_pool, v_pool = engine.kv_pools()
+    logits = {}
+    with torch.no_grad():
+        for name, attn, mm in (("kernel", pa.paged_attention, qm.quant_einsum),
+                               ("plain", pa.paged_attention_ref, qm.quant_einsum_ref),
+                               ("plain_f32_attn", _attn_f32, qm.quant_einsum_ref)):
+            logits[name] = decode_step_paged(
+                engine.params, tokens, positions, k_pool, v_pool, table, cfg,
+                active=active, attn_fn=attn, layers=engine._layers, matmul_fn=mm,
+            )
+    torch.cuda.synchronize()
+    a, b, c = logits["kernel"], logits["plain"], logits["plain_f32_attn"]
+    scale = c.abs().max().item()
+    kernel_vs_f32 = (a - c).abs().max().item()
+    plain_vs_f32 = (b - c).abs().max().item()
+    kernel_vs_plain = (a - b).abs().max().item()
+    tol = max(plain_vs_f32, 4 * 2.0 ** (math.floor(math.log2(scale)) - 7))
+    check(torch.isfinite(a).all().item(), "int8 kernel-path logits not finite")
+    check(kernel_vs_f32 <= tol,
+          f"int8 decode step: kernel path {kernel_vs_f32} from the f32-attention "
+          f"plain logits > {tol} (plain bf16 path: {plain_vs_f32})")
+    # the fp engine's step: fp weights (regenerated from the seed, with the
+    # serve traffic's push) over the same KV rows in bf16
+    fp = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    for k in [k for k in fp if k.startswith("layers_0/")]:
+        fp[k] = fp["layers_1/" + k.split("/", 1)[1]]
+    fp_pools = []
+    for data, sc in (k_pool, v_pool):
+        out = torch.empty(data.shape, dtype=torch.bfloat16, device=dev)
+        for i in range(data.shape[0]):
+            out[i] = dequantize_kv(data[i], sc[i].transpose(1, 2), torch.bfloat16)
+        fp_pools.append(out)
+    with torch.no_grad():
+        fp_logits = decode_step_paged(fp, tokens, positions, *fp_pools, table, cfg,
+                                      active=active)
+    torch.cuda.synchronize()
+    d = (a - fp_logits).abs()
+    emit("quant_step", max_abs_logit=scale, tol=tol,
+         kernel_vs_f32_attn=kernel_vs_f32, plain_vs_f32_attn=plain_vs_f32,
+         kernel_vs_plain=kernel_vs_plain, rel_kernel_vs_plain=kernel_vs_plain / scale,
+         argmax_agree_kernel_plain=(a.argmax(-1) == b.argmax(-1)).float().mean().item(),
+         vs_fp_engine=dict(max_abs_logit_diff=d.max().item(), mean_abs_logit_diff=d.mean().item(),
+                           rel_max=d.max().item() / fp_logits.abs().max().item(),
+                           argmax_agree=(a.argmax(-1) == fp_logits.argmax(-1)).float().mean().item()))
+    del fp, fp_pools, fp_logits, logits
+    torch.cuda.empty_cache()
+    return dict(table=table, lengths=lengths)
+
+
+def phase_profile(engine, cfg, batch: dict, steps: int = 4, phase: str = "profile") -> None:
     """Where a decode step's time goes: `torch.profiler` over `steps` decode
-    steps on the phase-5 batch, device time summed by kernel family, and
-    the device busy share of the wall time. A measurement, not a check."""
+    steps on the step phase's batch, device time summed by kernel family,
+    and the device busy share of the wall time. A measurement, not a
+    check."""
     from torch.profiler import ProfilerActivity, profile
 
     table, lengths = batch["table"], batch["lengths"]
@@ -589,10 +849,11 @@ def phase_profile(engine, cfg, batch: dict, steps: int = 4) -> None:
     positions = torch.as_tensor(lengths, device=dev)
     tokens = torch.zeros(len(lengths), dtype=torch.long, device=dev)
     active = torch.ones(len(lengths), dtype=torch.bool, device=dev)
+    k_pool, v_pool = engine.kv_pools()
 
     def step():
-        return decode_step_paged(engine.params, tokens, positions, engine._k_pool,
-                                 engine._v_pool, table, cfg, active=active,
+        return decode_step_paged(engine.params, tokens, positions, k_pool,
+                                 v_pool, table, cfg, active=active,
                                  layers=engine._layers)
 
     with torch.no_grad():
@@ -611,7 +872,12 @@ def phase_profile(engine, cfg, batch: dict, steps: int = 4) -> None:
         profiled_ms = (time.perf_counter() - t0) * 1e3
     families, n_kernels, _ = _device_ms_by_family(prof)
     busy = sum(families.values())
-    emit("profile", steps=steps, wall_ms_per_step=wall_ms / steps,
+    host = sorted(((ev.self_cpu_time_total / 1e3 / steps, ev.count // steps, ev.key)
+                   for ev in prof.key_averages() if ev.self_cpu_time_total > 0), reverse=True)
+    emit(phase, steps=steps, wall_ms_per_step=wall_ms / steps,
+         # host ms per step (profiled, so inflated) and calls per step of the
+         # costliest ops: where the host's launch time goes
+         host_top_ops=[dict(ms=m, calls=c, op=k[:60]) for m, c, k in host[:10]],
          profiled_wall_ms_per_step=profiled_ms / steps,
          device_ms_per_step={k: v / steps for k, v in families.items()},
          kernels_per_step=n_kernels / steps,
@@ -620,7 +886,9 @@ def phase_profile(engine, cfg, batch: dict, steps: int = 4) -> None:
 
 
 def _time(fn, iters: int) -> float:
-    """ms per call, CUDA events around `iters` calls after a warm-up."""
+    """ms per call, CUDA events around `iters` calls after a warm-up. Where
+    the host takes longer to launch a call than the device to run it, this
+    is the host's time."""
     for _ in range(3):
         fn(0)
     torch.cuda.synchronize()
@@ -633,32 +901,74 @@ def _time(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+H100_MAX_CLOCK_HZ = 1.98e9  # SM boost clock: a sleep of n cycles lasts >= n / this
+
+
+def _time_device(fn, iters: int) -> float:
+    """Device ms per call: as `_time`, but the timed calls are queued behind
+    a sleep kernel four times as long as the host takes to launch them (by
+    one call's launch time), so the device finds them all queued and the
+    events time the device alone. Raises if the host still fell behind."""
+    for _ in range(3):
+        fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(1)
+    launch_s = (time.perf_counter() - t0) * iters
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sleep_s = 4 * launch_s + 0.02
+    torch.cuda._sleep(int(sleep_s * H100_MAX_CLOCK_HZ))
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    queued_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    check(queued_s < sleep_s, f"device timing: launching took {queued_s} s, the sleep {sleep_s} s")
+    return start.elapsed_time(end) / iters
+
+
 def phase_paged_line(engine, cfg, batch: dict, launches: int, max_err: float) -> dict:
-    """K3 timings at the serve phase's shapes: the 16 slots of phase 5
-    over the served pool, rotating over 4 layers' pools so the KV rows
-    come from HBM rather than a warm L2, as in a real decode step."""
+    """K3 timings (K5a on an int8 engine's pool) at the serve phase's
+    shapes: the 16 slots of the step phase over the served pool, rotating
+    over 4 layers' pools so the KV rows come from HBM rather than a warm
+    L2, as in a real decode step."""
     dev = engine.device
+    quant = engine._k_scale is not None
     table, lengths = batch["table"], batch["lengths"]
     R, nb = table.shape
     bsz, nKV, hd = engine._k_pool.shape[2:]
     nH = cfg.num_attention_heads
-    layers = 4
+    layers = min(4, cfg.num_hidden_layers)
     span = nb * bsz
     valid = (torch.arange(span, device=dev)[None, :] <= torch.as_tensor(lengths, device=dev)[:, None]).contiguous()
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     q = torch.randn((R, nH, hd), generator=gen, device=dev).to(torch.bfloat16)
-    kp = [engine._k_pool[i] for i in range(layers)]
-    vp = [engine._v_pool[i] for i in range(layers)]
-    calls = pa.launches
+    if quant:
+        kp = [(engine._k_pool[i], engine._k_scale[i]) for i in range(layers)]
+        vp = [(engine._v_pool[i], engine._v_scale[i]) for i in range(layers)]
+    else:
+        kp = [engine._k_pool[i] for i in range(layers)]
+        vp = [engine._v_pool[i] for i in range(layers)]
+
+    def counter():
+        return pa.launches_q8 if quant else pa.launches
+
+    calls = counter()
     ms = _time(lambda i: pa.paged_attention(q, kp[i % layers], vp[i % layers], table, valid), 200)
     plain_ms = _time(lambda i: pa.paged_attention_ref(q, kp[i % layers], vp[i % layers], table, valid), 20)
-    check(pa.launches > calls, "timing did not launch the kernel")
-    # library yardstick: SDPA over KV gathered into [R, nH, span, hd]
-    # ahead of time (kv heads repeated for the query heads); not timed
+    check(counter() > calls, "timing did not launch the kernel")
+    # library yardstick: SDPA over KV gathered (and dequantized to bf16)
+    # into [R, nH, span, hd] ahead of time (kv heads repeated for the
+    # query heads); not timed
     idx = table.reshape(-1).long()
 
     def gathered(pool):
-        g = pool.index_select(0, idx).reshape(R, span, nKV, hd).permute(0, 2, 1, 3)
+        data, sc = pool if quant else (pool, None)
+        g = pa._gather_dequant(data, sc, idx, R, nb, bsz, nKV, hd, torch.bfloat16)
+        g = g.permute(0, 2, 1, 3)
         return g.repeat_interleave(nH // nKV, dim=1).contiguous()
 
     ks = [gathered(p) for p in kp]
@@ -668,19 +978,116 @@ def phase_paged_line(engine, cfg, batch: dict, launches: int, max_err: float) ->
     library_ms = _time(lambda i: torch.nn.functional.scaled_dot_product_attention(
         q4, ks[i % layers], vs[i % layers], attn_mask=mask), 200)
     rows = int((np.asarray(lengths) + 1).sum())
-    nbytes = (2 * rows * nKV * hd * 2 + 2 * R * nH * hd * 2 + R * nb * 4 + R * span)
+    # per valid row and kv head: K and V, bf16 (K3) or int8 + an f32 scale (K5a)
+    row_bytes = 2 * (hd + 4) if quant else 2 * hd * 2
+    nbytes = (rows * nKV * row_bytes + 2 * R * nH * hd * 2 + R * nb * 4 + R * span)
     flops = 4 * nH * hd * rows
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS * 1e3
     return dict(
-        name="paged_attention", route="cuda", source=KERNEL_SOURCE,
-        replaces=KERNEL_REPLACES, launches=launches, max_abs_err=max_err,
+        name="paged_attention_q8" if quant else "paged_attention", route="cuda",
+        source=KERNEL_SOURCE, replaces=Q8_REPLACES if quant else KERNEL_REPLACES,
+        launches=launches, max_abs_err=max_err,
         max_err=max_err, ms=ms, plain_ms=plain_ms,
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=library_ms,
+        library_call="scaled_dot_product_attention, KV pre-gathered"
+                     + (" and pre-dequantized to bf16" if quant else ""),
         shape=dict(R=R, nH=nH, nKV=nKV, hd=hd, bsz=bsz, nb=nb, valid_rows=rows,
-                   dtype="bfloat16"),
+                   dtype="bfloat16", pool="int8 + f32 scales" if quant else "bfloat16"),
+    )
+
+
+QMM_NAMES = ("attn/q_kernel", "attn/k_kernel", "attn/v_kernel", "attn/o_kernel",
+             "mlp/gate_kernel", "mlp/up_kernel", "mlp/down_kernel")
+
+
+
+def phase_qmm_line(engine, cfg, launches: int, max_err: float) -> dict:
+    """K6 timings at the main path's shapes: the 7 dense matmuls of one
+    layer (q, k, v, o, gate, up, down) on a decode step's T 16, the unit of
+    `ms`, rotating over 4 layers of the int8 engine's weights so they come
+    from HBM (each layer's 233 MB exceeds the 50 MB L2); the same at a
+    prefill bucket of 1024 tokens. A call runs for less time than the host
+    takes to launch it, so the times are the device's alone
+    (`_time_device`); `host_bound_ms` is the same work timed as the other
+    kernels are, which the host's launch rate sets. The plain version and
+    the library yardstick, the bf16 cuBLAS matmul on the weights
+    pre-dequantized to bf16 (what the fp engine runs), take the same 7
+    products. `torch._weight_int8pack_mm` (int8 weights, a scale per
+    column) is timed too where this torch has it for CUDA (as launched,
+    since it synchronizes). No yardstick is called by the port."""
+    dev = engine.device
+    layers = min(4, cfg.num_hidden_layers)
+    lps = engine._layers[:layers]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    xs = {}
+    for name in QMM_NAMES:
+        qt = lps[0][name + "/q"]
+        K = math.prod(qt.shape[: 2 if name.endswith("o_kernel") else 1])
+        xs[name] = {T: torch.randn((T, K), generator=gen, device=dev).to(torch.bfloat16)
+                    for T in (16, 1024)}
+
+    def weights(lp, name):
+        qt, st = lp[name + "/q"], lp[name + "/scale"]
+        K = xs[name][16].shape[1]
+        return qt.reshape(K, -1), st.reshape(-1)
+
+    w = [{n: weights(lp, n) for n in QMM_NAMES} for lp in lps]
+
+    def layer_calls(fn, T):
+        def run(i):
+            for n in QMM_NAMES:
+                fn(xs[n][T], *w[i % layers][n])
+        return run
+
+    calls = qm.launches
+    ms = _time_device(layer_calls(qm.quant_matmul, 16), 50)
+    host_ms = _time(layer_calls(qm.quant_matmul, 16), 50)
+    prefill_ms = _time_device(layer_calls(qm.quant_matmul, 1024), 10)
+    check(qm.launches > calls, "timing did not launch the kernel")
+    plain_ms = _time_device(
+        layer_calls(lambda x, q, s: qm.quant_matmul_ref(x, q, s, x.dtype), 16), 10)
+    by_shape = {}
+    for n in QMM_NAMES:
+        K, N = w[0][n][0].shape
+        by_shape[n] = dict(K=K, N=N, ms=_time_device(
+            lambda i, n=n: qm.quant_matmul(xs[n][16], *w[i % layers][n]), 50))
+    # library yardsticks, on weights dequantized ahead of time (not timed)
+    wd = [{n: (q.float() * s[None, :]).to(torch.bfloat16) for n, (q, s) in lw.items()} for lw in w]
+    library_ms = _time_device(lambda i: [xs[n][16] @ wd[i % layers][n] for n in QMM_NAMES], 50)
+    int8pack = None
+    if torch._C._dispatch_has_kernel_for_dispatch_key("aten::_weight_int8pack_mm", "CUDA"):
+        wt = [{n: (q.t().contiguous(), s.to(torch.bfloat16)) for n, (q, s) in lw.items()}
+              for lw in w]
+        # timed as launched: the call synchronizes, so it cannot be queued
+        int8pack = _time(lambda i: [torch._weight_int8pack_mm(xs[n][16], *wt[i % layers][n])
+                                    for n in QMM_NAMES], 20)
+        del wt
+    del wd
+    nbytes = ops = 0
+    for n in QMM_NAMES:
+        K, N = w[0][n][0].shape
+        nbytes += K * N + 4 * N + 2 * 16 * K + 2 * 16 * N
+        ops += 2 * 16 * K * N
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_FLOPS * 1e3
+    prefill_tflops = sum(2 * 1024 * w[0][n][0].numel() for n in QMM_NAMES) / (prefill_ms * 1e9)
+    return dict(
+        name="quant_matmul", route="cuda", source=QMM_SOURCE, replaces=QMM_REPLACES,
+        launches=launches, max_abs_err=max_err, max_err=max_err,
+        unit="the 7 dense matmuls of one layer (q, k, v, o, gate, up, down), T 16",
+        timing="device only: the calls queued behind a sleep kernel (_time_device)",
+        ms=ms, host_bound_ms=host_ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=library_ms,
+        library_call="torch.matmul, bf16 x on the weights pre-dequantized to bf16 (cuBLAS)",
+        library_int8pack_ms=int8pack,
+        by_shape_T16=by_shape, prefill_T1024_ms=prefill_ms,
+        prefill_T1024_tflops=prefill_tflops,
+        shape=dict(T=16, dtype="bfloat16", weights="int8 + f32 scale per column",
+                   bytes=nbytes),
     )
 
 
@@ -747,8 +1154,12 @@ def _flash_counts() -> np.ndarray:
 
 def _kernel_family(name: str) -> str:
     name = name.lower()
+    if "paged_attn_q8" in name:
+        return "K5a paged_attention_q8"
     if "paged_attn" in name:
         return "paged_attention"
+    if "quant_matmul" in name:
+        return "K6 quant_matmul"
     if "flash_fwd" in name:
         return "K1 flash_fwd"
     if "flash_bwd_dq" in name:
@@ -1125,6 +1536,7 @@ def main() -> int:
     max_err = phase_kernel(dev)
     phase_bad_table()
     phase_flash_kernel(dev)
+    q_err = phase_quant_kernel(dev)
     engine, cfg, launches = phase_serve(dev)
     try:
         batch = phase_step(engine, cfg)
@@ -1134,12 +1546,23 @@ def main() -> int:
         engine.destroy()
     del engine
     torch.cuda.empty_cache()
+    engine, cfg, q_launches = phase_serve_int8(dev)
+    try:
+        batch = phase_quant_step(engine, cfg)
+        phase_profile(engine, cfg, batch, phase="profile_int8")
+        q8 = phase_paged_line(engine, cfg, batch, q_launches["paged_attention_q8"],
+                              q_err["paged_attention_q8"])
+        qmm_row = phase_qmm_line(engine, cfg, q_launches["quant_matmul"], q_err["quant_matmul"])
+    finally:
+        engine.destroy()
+    del engine
+    torch.cuda.empty_cache()
     train = phase_train(dev)
     torch.cuda.empty_cache()
     # K3 runs in both paths: the serve phase's launches and the rollouts'
     paged["launches_by_path"] = dict(serve=launches, train=train["launches"]["paged_attention"])
     paged["launches"] = launches + train["launches"]["paged_attention"]
-    rows = [paged, *phase_flash_line(dev, train)]
+    rows = [paged, *phase_flash_line(dev, train), q8, qmm_row]
     for r in rows:
         check(r["launches"] > 0, f"{r['name']}: no launch on the main path")
     print(json.dumps({"kernels": rows}), flush=True)

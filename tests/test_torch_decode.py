@@ -2,12 +2,16 @@
 
 The reference is a plain loop over the JAX `qwen2.prefill` (of
 `prompt[:-1]`) and `decode_step_paged` (attn_impl="xla"), greedy, one
-request at a time, at the smoke geometry in f32 with the same weights.
-Greedy tokens must match exactly and logprobs within atol 1e-5 (the two
-packages sum in different orders). The rest checks the serving contract:
+request at a time, at the smoke geometry in f32 with the same weights,
+for each (weight_dtype, kv_dtype) in {fp, int8}^2: int8 weights are the
+JAX `quantize_weights` of the same fp weights, and an int8 pool gets the
+prompt rows through `quantize_kv` and `scales_blocked`. Greedy tokens must
+match exactly and logprobs within atol 1e-5 (the two packages sum in
+different orders; int8 rows quantized from them agree within one step,
+which the logprobs absorb). The rest checks the serving contract:
 batching does not change a request's stream, stop ids, max_new_tokens,
-pause/continue, weight pushes and version stamps, pool-pressure
-preemption, the sampler's statistics, and the device rule.
+pause/continue, weight pushes (fp and int8) and version stamps,
+pool-pressure preemption, the sampler's statistics, and the device rule.
 """
 
 import asyncio
@@ -22,6 +26,8 @@ import jax
 import jax.numpy as jnp
 
 from areal_tpu.models import qwen2 as jq
+from areal_tpu.ops.kv_quant import quantize_kv as jax_quantize_kv
+from areal_tpu.ops.kv_quant import scales_blocked as jax_scales_blocked
 from areal_tpu_torch.api.cli_args import (
     GenerationHyperparameters,
     TorchDecodeConfig,
@@ -63,27 +69,52 @@ def _greedy(n, **kw):
     return GenerationHyperparameters(max_new_tokens=n, greedy=True, **kw)
 
 
-def _jax_greedy(jparams, prompt, n_new, bsz=16, nb=8):
+_JAX_STEP = jax.jit(
+    lambda p, t, pos, k, v, table: jq.decode_step_paged(
+        p, t, pos, k, v, table, JCFG, active=jnp.ones(1, bool), attn_impl="xla"
+    )
+)
+
+
+def _jax_greedy(jparams, prompt, n_new, bsz=16, nb=8, weight_dtype="fp", kv_dtype="fp"):
     """Reference loop: prefill prompt[:-1] into a one-slot paged pool, then
-    decode_step_paged token by token, greedy."""
+    decode_step_paged token by token, greedy. int8 weights are quantized
+    with the JAX `quantize_weights`; an int8 pool holds the prompt rows as
+    the JAX engine's prefill scatter writes them (`quantize_kv`, then
+    `scales_blocked` into the scale pool)."""
     L, nKV, hd = JCFG.num_hidden_layers, JCFG.num_key_value_heads, JCFG.head_dim_
+    if weight_dtype == "int8":
+        jparams = jq.quantize_weights(jparams)
     kp = jnp.zeros((L, nb + 1, bsz, nKV, hd), jnp.float32)
     vp = jnp.zeros_like(kp)
     table = jnp.arange(1, nb + 1, dtype=jnp.int32)[None]
     pre = len(prompt) - 1
+    ks = vs = jnp.zeros((L, 0, nKV, hd), jnp.float32)
     if pre:
         _, ks, vs = jq.prefill(
             jparams, jnp.asarray(prompt[:-1], jnp.int32),
             jnp.arange(pre, dtype=jnp.int32), JCFG, with_logits=False,
         )
+    if kv_dtype == "int8":
+        pools = []
+        for rows in (ks, vs):
+            rows = jnp.pad(rows, ((0, 0), (0, nb * bsz - pre), (0, 0), (0, 0)))
+            q, sc = jax_quantize_kv(rows)
+            data = jnp.zeros((L, nb + 1, bsz, nKV, hd), jnp.int8)
+            scales = jnp.zeros((L, nb + 1, nKV, bsz), jnp.float32)
+            pools.append((
+                data.at[:, 1:].set(q.reshape(L, nb, bsz, nKV, hd)),
+                scales.at[:, 1:].set(jax_scales_blocked(sc, nb, bsz)),
+            ))
+        kp, vp = pools
+    elif pre:
         rows = jnp.arange(pre)
         kp = kp.at[:, 1 + rows // bsz, rows % bsz].set(ks)
         vp = vp.at[:, 1 + rows // bsz, rows % bsz].set(vs)
-    step = jax.jit(
-        lambda p, t, pos, k, v: jq.decode_step_paged(
-            p, t, pos, k, v, table, JCFG, active=jnp.ones(1, bool), attn_impl="xla"
-        )
-    )
+
+    def step(p, t, pos, k, v):
+        return _JAX_STEP(p, t, pos, k, v, table)
+
     tok, toks, logps = prompt[-1], [], []
     for i in range(n_new):
         logits, kp, vp = step(
@@ -98,13 +129,28 @@ def _jax_greedy(jparams, prompt, n_new, bsz=16, nb=8):
 
 
 PROMPTS = [[3], [1, 5, 9, 2, 7], list(range(2, 30)) + [4] * 40]
+_PROMPT_IDS = ["len1", "len5", "len68"]
+# (weight_dtype, kv_dtype) and the id suffix; the fp/fp cases keep the
+# plain prompt ids
+DTYPES = [("fp", "fp", ""), ("int8", "fp", "-w8"), ("fp", "int8", "-kv8"),
+          ("int8", "int8", "-w8kv8")]
 
 
-@pytest.mark.parametrize("prompt", PROMPTS, ids=["len1", "len5", "len68"])
-def test_greedy_matches_jax_reference(weights, engine, prompt):
+@pytest.mark.parametrize(
+    "prompt,weight_dtype,kv_dtype",
+    [(p, w, kv) for w, kv, _ in DTYPES for p in PROMPTS],
+    ids=[i + sfx for _, _, sfx in DTYPES for i in _PROMPT_IDS],
+)
+def test_greedy_matches_jax_reference(weights, prompt, weight_dtype, kv_dtype):
     n = 20
-    want_toks, want_logps = _jax_greedy(weights[0], prompt, n)
-    resp = engine.generate(ModelRequest(input_ids=prompt, gconfig=_greedy(n)), timeout=120)
+    want_toks, want_logps = _jax_greedy(
+        weights[0], prompt, n, weight_dtype=weight_dtype, kv_dtype=kv_dtype
+    )
+    engine = _engine(weights[1], weight_dtype=weight_dtype, kv_dtype=kv_dtype)
+    try:
+        resp = engine.generate(ModelRequest(input_ids=prompt, gconfig=_greedy(n)), timeout=120)
+    finally:
+        engine.destroy()
     assert resp.output_tokens == want_toks
     np.testing.assert_allclose(resp.output_logprobs, want_logps, atol=1e-5, rtol=0)
     assert resp.stop_reason == "length" and resp.output_versions == [0] * n
@@ -303,7 +349,7 @@ def test_device_none_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize(
     "setting",
-    [dict(kv_dtype="int8"), dict(weight_dtype="int8"), dict(spec_decode="ngram"),
+    [dict(spec_decode="ngram"),
      dict(kv_host_pool_mb=64.0), dict(tensor_parallel_size=2),
      dict(kv_layout="workspace"), dict(model_path="/models/x"),
      dict(kv_cache_dtype="bfloat16")],  # the model here is float32
@@ -313,6 +359,93 @@ def test_unported_settings_raise(weights, setting):
     eng.set_model(weights[1], TCFG)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.initialize()
+
+
+@pytest.mark.parametrize("setting", [dict(kv_dtype="int4"), dict(weight_dtype="fp8")])
+def test_unknown_dtypes_raise(weights, setting):
+    """As the JAX engine (jax_decode.py:659-663, :709-712): a value outside
+    KV_DTYPES / WEIGHT_DTYPES is a ValueError."""
+    eng = TorchDecodeEngine(TorchDecodeConfig(**dict(SMALL, **setting)), device="cpu")
+    eng.set_model(weights[1], TCFG)
+    with pytest.raises(ValueError, match="not in"):
+        eng.initialize()
+
+
+def test_int8_pool_ignores_kv_cache_dtype(weights):
+    """An int8 pool is int8 with f32 scales whatever kv_cache_dtype says
+    (here bfloat16 beside a float32 model)."""
+    eng = _engine(weights[1], kv_dtype="int8", kv_cache_dtype="bfloat16")
+    try:
+        assert eng._k_pool.dtype == torch.int8 and eng._k_scale.dtype == torch.float32
+        L, n_blocks, bsz, nKV, _ = eng._k_pool.shape
+        assert tuple(eng._v_scale.shape) == (L, n_blocks, nKV, bsz)
+        resp = eng.generate(ModelRequest(input_ids=[2, 7, 1], gconfig=_greedy(5)), timeout=120)
+        assert resp.output_len == 5 and eng.prefill_calls == 1
+    finally:
+        eng.destroy()
+
+
+@pytest.fixture
+def int8_engine(weights):
+    eng = _engine(weights[1], weight_dtype="int8", kv_dtype="int8")
+    yield eng
+    eng.destroy()
+
+
+def _other_weights(weights):
+    """Different fp weights of the same geometry: layer 0 and 1 swapped."""
+    out = {}
+    for k, t in weights[1].items():
+        out[k] = t.flip(0).clone() if k.startswith("layers/") else t.clone()
+    return out
+
+
+def test_int8_push_fp_weights_quantized_on_install(weights, int8_engine):
+    """The colocated trainer pushes fp tensors: the int8 engine quantizes
+    them on install, and then serves exactly what an int8 engine built on
+    those weights serves."""
+    new = _other_weights(weights)
+    int8_engine.update_weights_from_distributed(None, new, TCFG, version=2)
+    want = tq.quantize_weights(new)
+    assert set(int8_engine.params) == set(want)
+    for k, t in want.items():
+        assert torch.equal(int8_engine.params[k], t), k
+    req = ModelRequest(input_ids=[3, 1, 4], gconfig=_greedy(8))
+    got = int8_engine.generate(req.copy(), timeout=120)
+    fresh = _engine(new, weight_dtype="int8", kv_dtype="int8")
+    try:
+        ref = fresh.generate(req.copy(), timeout=120)
+    finally:
+        fresh.destroy()
+    assert got.output_versions == [2] * 8
+    assert got.output_tokens == ref.output_tokens
+    np.testing.assert_allclose(got.output_logprobs, ref.output_logprobs, atol=0, rtol=0)
+
+
+def test_int8_push_q_scale_installed_verbatim(weights, int8_engine):
+    """`<path>/q` + `<path>/scale` tensors (what an int8 producer ships)
+    are installed as they are, in the resident int8 / f32 dtypes."""
+    quant = tq.quantize_weights(_other_weights(weights))
+    pushed = {k: v.numpy() for k, v in quant.items() if k.endswith(("/q", "/scale"))}
+    assert pushed and all(k in int8_engine.params for k in pushed)
+    int8_engine.update_weights_from_tensor(pushed, version=5)
+    for k, arr in pushed.items():
+        t = int8_engine.params[k]
+        assert t.dtype == (torch.int8 if k.endswith("/q") else torch.float32)
+        np.testing.assert_array_equal(t.numpy(), arr)
+    resp = int8_engine.generate(ModelRequest(input_ids=[1, 2], gconfig=_greedy(4)), timeout=120)
+    assert resp.output_versions == [5] * 4
+
+
+def test_int8_push_fp_names_diagnosed(weights, int8_engine):
+    """fp kernel names pushed into an int8 engine miss its q/scale names:
+    KeyError with the weight_dtype-mismatch diagnosis, and nothing is
+    written."""
+    before = {k: v.clone() for k, v in int8_engine.params.items()}
+    with pytest.raises(KeyError, match="weight_dtype='int8'.*/q"):
+        int8_engine.update_weights_from_tensor(dict(weights[1]))
+    for k, t in before.items():
+        assert torch.equal(int8_engine.params[k], t), k
 
 
 def test_unported_request_options_raise(engine):

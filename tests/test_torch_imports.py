@@ -48,6 +48,9 @@ def test_port_has_the_expected_modules():
         "areal_tpu_torch.utils.stats_tracker",
         "areal_tpu_torch.engine.torch_engine",
         "areal_tpu_torch.engine.ppo.actor",
+        "areal_tpu_torch.ops.quant",
+        "areal_tpu_torch.ops.kv_quant",
+        "areal_tpu_torch.ops.quant_matmul",
         "chip_smoke",
     ):
         assert want in names

@@ -9,6 +9,10 @@ split-KV kernel in interpret mode. Cases cover GQA groups 1, 2 and 7
 table tails, a slot whose valid rows end mid-page, and a slot with no
 valid row, whose output must be exactly 0.
 
+Int8 pools, `(int8 data, f32 scales)` tuples made with the JAX
+`quantize_kv`, go through both packages the same way (the plain version
+dequantizes right after its gather, as the XLA path does).
+
 Tolerances: f32 atol 1e-5 (summation order); bf16 atol 2e-2 (both sides
 round scores and probabilities to bf16, in different places).
 """
@@ -19,6 +23,7 @@ import torch
 
 import jax.numpy as jnp
 
+from areal_tpu.ops.kv_quant import quantize_kv as jax_quantize_kv
 from areal_tpu.ops.paged_attention import paged_attention as jax_paged_attention
 from areal_tpu_torch.ops import paged_attention as pa
 
@@ -162,3 +167,75 @@ def test_group_above_kernel_limit_is_refused():
     q = np.repeat(q, 17, axis=1)  # 17 query heads over 1 kv head
     with pytest.raises(ValueError, match="group"):
         pa._check(*(torch.from_numpy(a) for a in (q, k, v, table, valid)))
+
+
+def _int8_pool(pool):
+    """An fp pool [n_blocks, bsz, nKV, hd] -> (int8 data, f32 scales
+    [n_blocks, nKV, bsz]) numpy arrays, quantized by the JAX package."""
+    q, sc = jax_quantize_kv(jnp.asarray(pool))
+    return np.array(q), np.array(jnp.swapaxes(sc, -1, -2))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("group,hd,bsz", CASES)
+def test_int8_pool_matches_jax(group, hd, bsz, impl, dtype):
+    q, k, v, table, valid = _inputs(group, hd, bsz, seed=3)
+    kq, vq = _int8_pool(k), _int8_pool(v)
+    t = TORCH_DTYPE[dtype]
+    before = pa.launches_q8
+    ours = pa.paged_attention(
+        torch.from_numpy(q).to(t), tuple(map(torch.from_numpy, kq)),
+        tuple(map(torch.from_numpy, vq)), torch.from_numpy(table),
+        torch.from_numpy(valid),
+    )
+    assert pa.launches_q8 == before and ours.dtype == t
+    ours = ours.float().numpy()
+    j = jnp.dtype(dtype)
+    kw = dict(impl="pallas", interpret=True) if impl == "pallas" else dict(impl="xla")
+    theirs = np.asarray(jax_paged_attention(
+        jnp.asarray(q, j), tuple(map(jnp.asarray, kq)), tuple(map(jnp.asarray, vq)),
+        jnp.asarray(table), jnp.asarray(valid), **kw,
+    ).astype(jnp.float32))
+    assert (ours[0] == 0).all()  # no valid row (the XLA path: mean of V)
+    np.testing.assert_allclose(ours[1:], theirs[1:], atol=TOL[dtype], rtol=0)
+
+
+def test_int8_pool_equals_dequantized_fp_pool():
+    """In f32 the int8 path is the fp path on the dequantized pool, exactly:
+    the plain version dequantizes right after its gather."""
+    q, k, v, table, valid = _inputs(7, 64, 16, seed=4)
+    kq, vq = _int8_pool(k), _int8_pool(v)
+
+    def deq(data, sc):
+        return data.astype(np.float32) * np.swapaxes(sc, -1, -2)[..., None]
+
+    args = [torch.from_numpy(a) for a in (table, valid)]
+    a = pa.paged_attention(torch.from_numpy(q), tuple(map(torch.from_numpy, kq)),
+                           tuple(map(torch.from_numpy, vq)), *args)
+    b = pa.paged_attention(torch.from_numpy(q), torch.from_numpy(deq(*kq)),
+                           torch.from_numpy(deq(*vq)), *args)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "mutate,err",
+    [
+        (lambda a: a.update(v_pool=a["v_pool"][0].float()), TypeError),
+        (lambda a: a.update(k_pool=(a["k_pool"][0].float(), a["k_pool"][1])), TypeError),
+        (lambda a: a.update(k_pool=(a["k_pool"][0], a["k_pool"][1].double())), TypeError),
+        (lambda a: a.update(v_pool=(a["v_pool"][0], a["v_pool"][1].transpose(1, 2).contiguous())),
+         ValueError),
+    ],
+)
+def test_int8_kernel_argument_checks(mutate, err):
+    q, k, v, table, valid = _inputs(2, 16, 16)
+    args = dict(
+        q=torch.from_numpy(q), k_pool=tuple(map(torch.from_numpy, _int8_pool(k))),
+        v_pool=tuple(map(torch.from_numpy, _int8_pool(v))),
+        block_table=torch.from_numpy(table), valid=torch.from_numpy(valid),
+    )
+    pa._check(**args)
+    mutate(args)
+    with pytest.raises(err):
+        pa._check(**args)
