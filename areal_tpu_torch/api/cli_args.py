@@ -13,6 +13,9 @@ import dataclasses
 from dataclasses import dataclass, field
 
 
+SPEC_DECODES = ("off", "ngram")
+
+
 @dataclass
 class NormConfig:
     """Normalization spec for rewards/advantages (`areal_tpu/api/cli_args.py:61`)."""
@@ -169,7 +172,11 @@ class TorchDecodeConfig:
     (`areal_tpu/api/cli_args.py:298`).
 
     The slice schedules synchronously (dispatch a chunk, then consume it)
-    and prefills every request in full. `decode_runahead_chunks` and
+    and prefills every request in full. `spec_decode="ngram"` turns on
+    draft-free speculative decode with `spec_k` and `spec_ngram_max` as in
+    the JAX engine; `TorchDecodeEngine.initialize` refuses a verify width
+    `spec_k + 1` past the verify kernels' limit
+    (`ops.paged_attention.check_verify_width`). `decode_runahead_chunks` and
     `enable_prefix_caching` keep their JAX defaults because in the JAX
     engine they change scheduling only, never output
     (`areal_tpu/engine/jax_decode.py:28-39, :447-453`); here they are
@@ -205,18 +212,29 @@ class TorchDecodeConfig:
     max_prefill_tokens: int = 8192
     new_tokens_per_chunk: int = 128
     decode_runahead_chunks: int = 1
-    spec_decode: str = "off"  # "ngram": not in the port yet (K4, K5b)
+    # draft-free speculative decode: "off" | "ngram" (prompt lookup of up
+    # to spec_k tokens by the trailing n-gram, n <= spec_ngram_max, verified
+    # in one forward; jax_decode.py:42-51)
+    spec_decode: str = "off"
+    spec_k: int = 4
+    spec_ngram_max: int = 3
     enable_prefix_caching: bool = True
 
     def check_supported(self) -> None:
-        """Raise NotImplementedError for a setting this slice does not
-        implement, naming the ROADMAP item that ports it."""
+        """Raise ValueError for an invalid speculative-decode setting (as
+        jax_decode.py:731-742), and NotImplementedError for a setting this
+        slice does not implement, naming the ROADMAP item that ports it."""
+        if self.spec_decode not in SPEC_DECODES:
+            raise ValueError(f"spec_decode={self.spec_decode!r} not in {SPEC_DECODES}")
+        if self.spec_decode == "ngram":
+            if int(self.spec_k) < 1 or int(self.spec_ngram_max) < 1:
+                raise ValueError(
+                    "spec_decode='ngram' needs spec_k >= 1 and "
+                    f"spec_ngram_max >= 1 (got spec_k={self.spec_k}, "
+                    f"spec_ngram_max={self.spec_ngram_max})"
+                )
         todo = {
-            "spec_decode": (
-                self.spec_decode != "off",
-                "item 3, speculative decode (K4, K5b) after a position-keyed sampler",
-            ),
-            "kv_host_pool_mb": (float(self.kv_host_pool_mb) > 0, "item 3, host KV tier"),
+            "kv_host_pool_mb":(float(self.kv_host_pool_mb) > 0, "item 3, host KV tier"),
             "tensor_parallel_size": (
                 int(self.tensor_parallel_size) > 1, "item 5, multi-GPU serving"
             ),

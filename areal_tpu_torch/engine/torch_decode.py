@@ -23,10 +23,27 @@ serving core).
   (`ops/kv_quant.py`); rows are quantized where they are written (prefill
   scatter, decode step) and attention reads them through the int8 kernel.
 
+- **Position-keyed sampling.** Each request gets a base key at its first
+  admission (`slot_base_key(random_seed, admission index)`, kept across
+  preemption), and the token at position p is drawn with `fold_in(base
+  key, p)` (`engine/sampling.py`), so a stream depends on nothing but its
+  key and its positions: not on batchmates, chunking, preemption or
+  speculation.
+- **Speculative decode** (`spec_decode="ngram"`, jax_decode.py:42-51).
+  Before each pass the host drafts up to `spec_k` tokens per slot by
+  prompt lookup (`_ngram_draft`). If some slot drafted, the pass is one
+  verify forward (`verify_step_paged`, W = draft bucket + 1 positions per
+  slot), which samples all W positions with their own keys and keeps the
+  longest draft prefix sampling would have emitted anyway plus a bonus
+  token; otherwise it is the normal chunk.
+
 This slice schedules synchronously (dispatch a chunk, then consume it) and
-prefills every request in full: the JAX engine's run-ahead, prefix forks,
-host KV tier and speculative decode are later ROADMAP items
-(`TorchDecodeConfig.check_supported` refuses their settings).
+prefills every request in full: the JAX engine's run-ahead, prefix forks
+and host KV tier are later ROADMAP items (`TorchDecodeConfig.
+check_supported` refuses their settings). Without run-ahead, the JAX
+verify path's freshness drain (:3316-3330) has nothing to drain, and its
+rewind reconcile (:3653-3660) is the plain bookkeeping of advancing each
+slot by the tokens it emitted.
 """
 
 from __future__ import annotations
@@ -51,7 +68,7 @@ from areal_tpu_torch.api.cli_args import (
 from areal_tpu_torch.api.engine_api import InferenceEngine
 from areal_tpu_torch.api.io_struct import ModelRequest, ModelResponse
 from areal_tpu_torch.engine.kv_pool import KVBlockAllocator, PoolDry
-from areal_tpu_torch.engine.sampling import sample
+from areal_tpu_torch.engine.sampling import sample, slot_base_key
 from areal_tpu_torch.models.convert import to_tensor
 from areal_tpu_torch.models.qwen2 import (
     WEIGHT_DTYPES,
@@ -63,8 +80,10 @@ from areal_tpu_torch.models.qwen2 import (
     prefill,
     quantize_weights,
     torch_dtype,
+    verify_step_paged,
 )
 from areal_tpu_torch.ops.kv_quant import KV_DTYPES, join_pool, quantize_kv, scales_blocked
+from areal_tpu_torch.ops.paged_attention import check_verify_width
 from areal_tpu_torch.platforms import resolve_device
 from areal_tpu_torch.utils import logging
 
@@ -75,6 +94,44 @@ _PREFILL_BUCKET = 64
 
 def _next_bucket(n: int, bucket: int = _PREFILL_BUCKET) -> int:
     return max(((n + bucket - 1) // bucket) * bucket, bucket)
+
+
+def _ngram_draft(context: list[int], k: int, ngram_max: int) -> list[int]:
+    """Prompt-lookup drafter: match the trailing n-gram of `context`
+    against its own earlier tokens and propose up to `k` continuation
+    tokens (the tokens that followed the MOST RECENT earlier occurrence).
+
+    Draft-model-free speculation (PLD / LLMA class): math and code
+    rollouts quote their prompts heavily, and repetition loops quote
+    themselves, so the request's own context is a strong cheap draft
+    source. Longest n wins (more context → better continuation); the
+    proposed span may overlap the suffix itself (self-extension — exactly
+    what makes periodic repetition fully accepted). Correctness never
+    depends on the draft: the verify chunk accepts only tokens sampling
+    would have emitted anyway.
+    """
+    n_ctx = len(context)
+    if k <= 0 or n_ctx < 2:
+        return []
+    arr = np.asarray(context, dtype=np.int64)
+    for n in range(min(int(ngram_max), n_ctx - 1), 0, -1):
+        pat = arr[n_ctx - n :]
+        n_starts = n_ctx - n  # candidate starts 0..n_ctx-n-1 (suffix excluded)
+        eq = np.ones(n_starts, dtype=bool)
+        for j in range(n):
+            eq &= arr[j : j + n_starts] == pat[j]
+        starts = np.nonzero(eq)[0]
+        if starts.size == 0:
+            continue
+        # most recent occurrence with a FULL k-token continuation if one
+        # exists (periodic contexts: an earlier period gives the whole
+        # draft), else the most recent overall (truncated continuation)
+        full = starts[starts + n + k <= n_ctx]
+        s = int(full[-1]) if full.size else int(starts[-1])
+        cont = arr[s + n : s + n + k]
+        if cont.size:
+            return cont.tolist()
+    return []
 
 
 @dataclass
@@ -91,6 +148,9 @@ class _Slot:
     start_time: float = field(default_factory=time.monotonic)
     ttft: float = float("inf")
     stop_reason: str | None = None
+    # [2] uint32 sampling key, set at the first admission and kept across
+    # pool-pressure preemption (jax_decode.py:2959-2960)
+    base_key: np.ndarray | None = None
 
 
 def _resolve(fut: asyncio.Future, resp: ModelResponse) -> None:
@@ -143,16 +203,31 @@ class TorchDecodeEngine(InferenceEngine):
         self._slots: list[_Slot | None] = []
         self._slot_lengths: np.ndarray | None = None  # KV rows each slot holds
         self._overflow: list[_Slot] = []  # popped, waiting for capacity
-        self._generator: torch.Generator | None = None
+        self._slot_keys: np.ndarray | None = None  # [R, 2] base keys (uint32 values)
+        self._admission_seq = 0  # first admissions so far: the key index
 
         # counters (written by the scheduler thread only)
-        self.decode_steps = 0
-        self.decode_seconds = 0.0  # chunk walls, each ending in its host copy
+        self.decode_steps = 0  # normal decode steps (R slots each)
+        self.decode_seconds = 0.0  # chunk walls (verify forwards included)
         self.decode_tokens = 0  # tokens delivered to requests
+        self.chunk_tokens = 0  # tokens the normal chunks sampled for live slots
+        self.tokens_cut = 0  # sampled tokens cut at a stop or max_new_tokens
         self.prefill_tokens = 0
         self.prefill_seconds = 0.0
         self.prefill_calls = 0  # one model prefill (all layers) each
         self.n_preemptions = 0
+        self._reset_spec_counters(1)
+
+    def _reset_spec_counters(self, spec_k: int) -> None:
+        """Speculative-decode counters, named as the JAX engine's
+        (jax_decode.py:852-858) without the underscore."""
+        self.verify_dispatches = 0  # verify forwards
+        self.verify_seconds = 0.0  # their walls, each ending in its host copy
+        self.spec_chunk_slots = 0  # (slot, verify forward) pairs consumed
+        self.spec_hist = np.zeros(max(int(spec_k), 1) + 1, dtype=np.int64)  # by accepted
+        self.spec_drafted = 0  # draft tokens dispatched to verify
+        self.spec_accepted = 0  # draft tokens accepted
+        self.spec_rejected = 0  # draft tokens rejected (drafted - accepted)
 
     # -- lifecycle ------------------------------------------------------
     def set_model(self, params: dict[str, torch.Tensor], model_config: ModelConfig) -> None:
@@ -187,6 +262,12 @@ class TorchDecodeEngine(InferenceEngine):
             raise ValueError(f"kv_dtype={self.config.kv_dtype!r} not in {KV_DTYPES}")
         self._w_quant = self.config.weight_dtype == "int8"
         self._kv_quant = self.config.kv_dtype == "int8"
+        if self.config.spec_decode == "ngram":
+            # the verify kernels' limits on W and W x group
+            check_verify_width(
+                int(self.config.spec_k) + 1,
+                cfg.num_attention_heads // cfg.num_key_value_heads,
+            )
         if not self._kv_quant and self.config.kv_cache_dtype != cfg.dtype:
             # the fp kernel reads the pool in q's dtype; refuse the mismatch
             # here, on the CPU and the card alike, not at the first step
@@ -227,8 +308,9 @@ class TorchDecodeEngine(InferenceEngine):
         self._slots = [None] * R
         self._slot_lengths = np.zeros(R, dtype=np.int64)
         self._overflow = []
-        self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed(int(self.config.random_seed))
+        self._slot_keys = np.zeros((R, 2), dtype=np.int64)
+        self._admission_seq = 0
+        self._reset_spec_counters(self.config.spec_k)
         self._thread_exc = None
         self._shutdown.clear()
         self._thread = threading.Thread(
@@ -332,7 +414,11 @@ class TorchDecodeEngine(InferenceEngine):
                 self._prefill(slot, prompt[:-1], bucket)
                 budget -= bucket
                 did_prefill = True
+            if item.base_key is None:  # first admission; a requeue keeps its key
+                item.base_key = slot_base_key(self.config.random_seed, self._admission_seq)
+                self._admission_seq += 1
             self._slots[slot] = item
+            self._slot_keys[slot] = item.base_key
             self._slot_lengths[slot] = P - 1
             admitted = True
         return admitted
@@ -376,11 +462,11 @@ class TorchDecodeEngine(InferenceEngine):
         self.prefill_tokens += len(ids)
         self.prefill_calls += 1
 
-    def _chunk_bucket(self, active: np.ndarray) -> int:
+    def _chunk_bucket(self, active: np.ndarray, grow: int) -> int:
         """Smallest KV span (256 x 2^k, capped at the context) covering
-        every active slot through this chunk: attention reads only the
-        table columns of this span."""
-        needed = int(self._slot_lengths[active].max()) + int(self.config.new_tokens_per_chunk) + 1
+        every active slot through this chunk's `grow` new rows: attention
+        reads only the table columns of this span."""
+        needed = int(self._slot_lengths[active].max()) + grow + 1
         b = 256
         while b < needed:
             b *= 2
@@ -396,22 +482,79 @@ class TorchDecodeEngine(InferenceEngine):
         self._overflow.insert(0, item)
         self.n_preemptions += 1
 
+    def _spec_draft_buckets(self) -> list[int]:
+        """Draft widths a verify forward can take: the powers of two below
+        spec_k, and spec_k (jax_decode.py:1556-1568); the forward scores
+        W = bucket + 1 positions, so a short draft does not pay the full
+        width."""
+        k = max(int(self.config.spec_k), 1)
+        out, b = [], 1
+        while b < k:
+            out.append(b)
+            b *= 2
+        out.append(k)
+        return sorted(set(out))
+
+    def _draft_all(self, active: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Prompt-lookup drafts of up to spec_k tokens per active slot from
+        its own context (jax_decode.py:1657-1696). A draft is capped so
+        that the verify forward, which also emits a bonus token, writes no
+        row at or past the context length and emits no token past the
+        slot's max_new_tokens. Returns (drafts [R, spec_k] int64, lengths
+        [R] int64)."""
+        R = int(self.config.max_running_requests)
+        k_max = int(self.config.spec_k)
+        ngram_max = int(self.config.spec_ngram_max)
+        S = int(self.config.context_length)
+        drafts = np.zeros((R, k_max), dtype=np.int64)
+        dlens = np.zeros(R, dtype=np.int64)
+        for i in np.nonzero(active)[0]:
+            s = self._slots[i]
+            if s is None:
+                continue
+            length = int(self._slot_lengths[i])
+            cap = min(
+                k_max,
+                S - 1 - length - 1,
+                s.gconfig.max_new_tokens - (length - (len(s.prompt) - 1)) - 1,
+            )
+            if cap <= 0:
+                continue
+            d = _ngram_draft(list(s.prompt) + list(s.tokens), cap, ngram_max)
+            if d:
+                dlens[i] = len(d)
+                drafts[i, : len(d)] = d
+        return drafts, dlens
+
     def _run_chunk(self, active: np.ndarray) -> bool:
-        """Run one chunk of `new_tokens_per_chunk` decode steps over the
-        active slots and consume it. False when pool pressure left no
-        slot to run."""
-        cfg = self.model_config
+        """Run one pass over the active slots and consume it: a verify
+        forward when speculative decode is on and some slot drafted, else
+        a chunk of `new_tokens_per_chunk` decode steps. False when pool
+        pressure left no slot to run.
+
+        Frequency-penalty batches would take the normal chunk as in the
+        JAX engine (:3364-3369); the port refuses the penalty itself."""
         R = int(self.config.max_running_requests)
         S = int(self.config.context_length)
         n_chunk = int(self.config.new_tokens_per_chunk)
         dev = self.device
-        # every active slot needs blocks through this chunk; shortest
+        drafts = dlens = None
+        W = 0  # verify width; 0: the normal chunk
+        if self.config.spec_decode == "ngram":
+            drafts, dlens = self._draft_all(active)
+            max_d = int(dlens.max())
+            if max_d > 0:
+                b = min(x for x in self._spec_draft_buckets() if x >= max_d)
+                W = b + 1
+                drafts = drafts[:, :b]
+        grow = W or n_chunk
+        # every active slot needs blocks through this pass; shortest
         # first, so pool pressure preempts as few slots as possible
         order = sorted(np.nonzero(active)[0], key=lambda i: self._slot_lengths[i])
         for i in order:
             if self._slots[i] is None:
                 continue
-            need = min(int(self._slot_lengths[i]) + n_chunk + 1, S)
+            need = min(int(self._slot_lengths[i]) + grow + 1, S)
             while not self._alloc.ensure(i, need):
                 victims = [j for j in order if j != i and self._slots[j] is not None]
                 if not victims:  # the pool always fits one full-context slot
@@ -421,7 +564,7 @@ class TorchDecodeEngine(InferenceEngine):
         if not active.any():
             return False
 
-        nb = -(-self._chunk_bucket(active) // self._alloc.block_size)
+        nb = -(-self._chunk_bucket(active, grow) // self._alloc.block_size)
         last = np.zeros(R, dtype=np.int64)
         temps = np.ones(R, dtype=np.float32)
         top_ps = np.ones(R, dtype=np.float32)
@@ -434,13 +577,28 @@ class TorchDecodeEngine(InferenceEngine):
             top_ps[i] = s.gconfig.top_p
             greedy[i] = s.gconfig.greedy
         use_topp = bool(np.any(~greedy & active & (top_ps < 1.0)))
+        ctl = dict(
+            lengths=torch.from_numpy(self._slot_lengths.copy()).to(dev),
+            active=torch.from_numpy(active.copy()).to(dev),
+            table=torch.from_numpy(self._alloc.table_slice(nb)).to(dev),
+            base_keys=torch.from_numpy(self._slot_keys.copy()).to(dev),
+            temps=torch.from_numpy(temps).to(dev),
+            top_ps=torch.from_numpy(top_ps).to(dev),
+            greedy=torch.from_numpy(greedy).to(dev),
+        )
+        if W:
+            self._verify_chunk(active, last, drafts, dlens, W, ctl, use_topp)
+        else:
+            self._decode_chunk(active, last, n_chunk, ctl, use_topp)
+        return True
+
+    def _decode_chunk(self, active, last, n_chunk: int, ctl: dict, use_topp: bool) -> None:
+        """`n_chunk` steps of `decode_step_paged` plus sampling on the
+        device, then one copy of the chunk's tokens to the host."""
+        R = len(active)
+        dev = self.device
         tokens = torch.from_numpy(last).to(dev)
-        lengths = torch.from_numpy(self._slot_lengths.copy()).to(dev)
-        active_t = torch.from_numpy(active.copy()).to(dev)
-        table = torch.from_numpy(self._alloc.table_slice(nb)).to(dev)
-        temps_t = torch.from_numpy(temps).to(dev)
-        top_ps_t = torch.from_numpy(top_ps).to(dev)
-        greedy_t = torch.from_numpy(greedy).to(dev)
+        lengths, active_t = ctl["lengths"], ctl["active"]
         toks = torch.empty((n_chunk, R), dtype=torch.long, device=dev)
         logps = torch.empty((n_chunk, R), dtype=torch.float32, device=dev)
         version = self._version
@@ -450,10 +608,12 @@ class TorchDecodeEngine(InferenceEngine):
         for step in range(n_chunk):
             logits = decode_step_paged(
                 self.params, tokens, lengths, k_pool, v_pool,
-                table, cfg, active=active_t, layers=self._layers,
+                ctl["table"], self.model_config, active=active_t, layers=self._layers,
             )
+            # the token at position `lengths` draws with fold_in(key, lengths)
             tok, logp = sample(
-                logits, temps_t, top_ps_t, greedy_t, self._generator, use_topp
+                logits, ctl["base_keys"], lengths, ctl["temps"], ctl["top_ps"],
+                ctl["greedy"], use_topp,
             )
             tok = torch.where(active_t, tok, tokens)
             toks[step] = tok
@@ -466,24 +626,82 @@ class TorchDecodeEngine(InferenceEngine):
         dt = time.perf_counter() - t0
         self.decode_steps += n_chunk
         self.decode_seconds += dt
-
-        now = time.monotonic()
+        self.chunk_tokens += n_chunk * int(active.sum())
         for i in np.nonzero(active)[0]:
-            s = self._slots[i]
-            if s.ttft == float("inf"):
-                s.ttft = now - s.start_time
-            n_before = len(s.tokens)
-            s.tokens.extend(toks_h[:, i].tolist())
-            s.logprobs.extend(logps_h[:, i].tolist())
-            s.versions.extend([version] * n_chunk)
-            s.itl.extend([dt / n_chunk] * n_chunk)
-            self._truncate_at_stop(s)
-            self.decode_tokens += len(s.tokens) - n_before
-            if s.stop_reason is not None:
-                self._retire(i)
-            else:
-                self._slot_lengths[i] += n_chunk
-        return True
+            self._emit(i, toks_h[:, i], logps_h[:, i], version, dt / n_chunk)
+
+    def _verify_chunk(self, active, last, drafts, dlens, W: int, ctl: dict,
+                      use_topp: bool) -> None:
+        """One verify forward (jax_decode.py:1596-1651): slot r's W inputs
+        are its last token and its draft (zero-padded), at positions
+        lengths[r] + j; every position samples with fold_in(key, lengths[r]
+        + j), the sampler of the normal chunk. A slot emits its accepted
+        draft prefix (position j's sample equal to draft token j, for j <
+        its draft length, in a row) and then the sample after it, the bonus:
+        exactly the tokens the normal chunk would have emitted. Rows written
+        for rejected positions are dead: the causal mask hides them until
+        the next write at that position overwrites them."""
+        R = len(active)
+        dev = self.device
+        tokens = torch.from_numpy(np.concatenate([last[:, None], drafts], axis=1)).to(dev)
+        version = self._version
+        k_pool, v_pool = self.kv_pools()
+
+        t0 = time.perf_counter()
+        logits = verify_step_paged(
+            self.params, tokens, ctl["lengths"], k_pool, v_pool, ctl["table"],
+            self.model_config, active=ctl["active"], layers=self._layers,
+        )  # [R, W, V]
+        positions = ctl["lengths"][:, None] + torch.arange(W, device=dev)
+
+        def rows(t):  # [R] -> [R * W], slot-major as the logits
+            return t.repeat_interleave(W, dim=0)
+
+        tok, logp = sample(
+            logits.reshape(R * W, -1), rows(ctl["base_keys"]), positions.reshape(-1),
+            rows(ctl["temps"]), rows(ctl["top_ps"]), rows(ctl["greedy"]), use_topp,
+        )
+        toks_h = tok.reshape(R, W).cpu().numpy()
+        logps_h = logp.reshape(R, W).cpu().numpy()
+        dt = time.perf_counter() - t0
+        self.verify_dispatches += 1
+        self.verify_seconds += dt
+        self.decode_seconds += dt
+
+        match = (toks_h[:, :-1] == drafts) & (np.arange(W - 1)[None, :] < dlens[:, None])
+        accepted = np.cumprod(match, axis=1).sum(axis=1)
+        for i in np.nonzero(active)[0]:
+            acc = int(accepted[i])
+            d = int(dlens[i])
+            self.spec_chunk_slots += 1
+            self.spec_hist[min(acc, len(self.spec_hist) - 1)] += 1
+            self.spec_drafted += d
+            self.spec_accepted += acc
+            self.spec_rejected += d - acc
+            e = acc + 1
+            self._emit(i, toks_h[i, :e], logps_h[i, :e], version, dt / e)
+
+    def _emit(self, slot: int, toks, logps, version: int, itl: float) -> None:
+        """Deliver a pass's tokens to the slot's request: advance the slot
+        by them, cut at a stop id or max_new_tokens (a stop may fall inside
+        an accepted draft), and retire the request when it ends."""
+        s = self._slots[slot]
+        if s.ttft == float("inf"):
+            s.ttft = time.monotonic() - s.start_time
+        n = len(toks)
+        n_before = len(s.tokens)
+        s.tokens.extend(toks.tolist())
+        s.logprobs.extend(logps.tolist())
+        s.versions.extend([version] * n)
+        s.itl.extend([itl] * n)
+        self._truncate_at_stop(s)
+        delivered = len(s.tokens) - n_before
+        self.decode_tokens += delivered
+        self.tokens_cut += n - delivered
+        if s.stop_reason is not None:
+            self._retire(slot)
+        else:
+            self._slot_lengths[slot] += n
 
     def _truncate_at_stop(self, item: _Slot) -> None:
         """Trim tokens generated past the first stop id (after

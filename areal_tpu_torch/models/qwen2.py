@@ -20,10 +20,10 @@ scanned `layers/...` leaves stacked `[L, ...]` when `cfg.scan_layers`,
 else `layers_{i}/...` per layer. Layer code reads a layer's tensors as
 views (`layer_params`), so nothing is copied.
 
-`decode_step_paged` updates the KV pool in place where the JAX version
-returns a new pool: the pool is the largest tensor the engine owns, and an
-in-place O(1) row write is what the JAX version's donated scatter compiles
-to.
+`decode_step_paged` and `verify_step_paged` update the KV pool in place
+where the JAX versions return a new pool: the pool is the largest tensor
+the engine owns, and an in-place row write is what the JAX version's
+donated scatter compiles to.
 
 Int8 weight serving (JAX :803-946): `quantize_weights` turns each dense
 matmul kernel (q/k/v/o, gate/up/down) into two tensors, `<path>/q` (int8,
@@ -49,7 +49,7 @@ from torch.utils.checkpoint import checkpoint
 from areal_tpu_torch.ops.flash_attention import PADDING_SEGMENT, flash_attention
 from areal_tpu_torch.ops.fused_xent import chunked_label_logprobs
 from areal_tpu_torch.ops.kv_quant import quantize_kv, split_pool
-from areal_tpu_torch.ops.paged_attention import paged_attention
+from areal_tpu_torch.ops.paged_attention import paged_attention, paged_attention_qlen
 from areal_tpu_torch.ops.quant import dequantize_absmax, quantize_absmax
 from areal_tpu_torch.ops.quant_matmul import quant_einsum
 
@@ -803,7 +803,9 @@ def decode_step_paged(
     matmul_fn=quant_einsum,
 ):
     """One batched decode step attending directly over the paged pool
-    (JAX :2153). Returns logits [R, V] in f32.
+    (JAX :2153): `verify_step_paged` with one position per slot, its
+    attention through `attn_fn` in the one-query form. Returns logits
+    [R, V] in f32.
 
     Each layer writes the new K/V row of every slot at pool coordinates
     `(block_tables[r, p // bsz], p % bsz)` with one in-place `index_put_`
@@ -820,34 +822,74 @@ def decode_step_paged(
     reads the row just written through its int8 form. Quantized weights
     run through `matmul_fn` (`quant_einsum`; chip checks swap in its plain
     version)."""
+
+    def one_query(q, kp, vp, table, valid):  # [R, 1, nH, hd] -> [R, 1, nH, hd]
+        return attn_fn(q[:, 0], kp, vp, table, valid[:, 0])[:, None]
+
+    return verify_step_paged(
+        params, tokens[:, None], positions, k_pool, v_pool, block_tables, cfg,
+        active=active, attn_fn=one_query, layers=layers, matmul_fn=matmul_fn,
+    )[:, 0]
+
+
+def verify_step_paged(
+    params: dict,
+    tokens,  # [R, W]: column 0 the slot's last token, then its draft
+    positions0,  # [R] logical row column 0 occupies
+    k_pool,  # [L, n_blocks, bsz, nKV, hd], or (int8, f32 scales), in place
+    v_pool,  # [L, n_blocks, bsz, nKV, hd], or (int8, f32 scales), in place
+    block_tables,  # [R, nb] int32 pool-block ids per slot
+    cfg: ModelConfig,
+    active=None,  # [R] bool: slot holds a live request
+    attn_fn=paged_attention_qlen,
+    layers: list[dict] | None = None,  # layer_views(params, cfg), if kept
+    matmul_fn=quant_einsum,
+):
+    """W positions per slot in one forward over the paged pool, the
+    speculative verify step (JAX :2414-2546). Column j of slot r sits at
+    `positions0[r] + j`. Returns logits [R, W, V] in f32.
+
+    Each layer writes the R x W new K/V rows at their pool coordinates with
+    one in-place `index_put_` per pool (inactive slots write all W rows
+    into the null block 0, row 0: a duplicate index, whose last write
+    nobody reads), then attends through the block table with `attn_fn`
+    (`paged_attention_qlen`: K4, or K5b on an int8 pool; chip checks pass
+    its plain version) under per-query causal masks, so column j sees the
+    rows written for columns < j in this same forward. Rows are written
+    before attention reads them, in one stream's order. An int8 pool
+    quantizes the W rows at the scatter and writes their scales to
+    `scales[dest_block, :, dest_off]`, as `decode_step_paged` does for its
+    one row. Matmuls run through `matmul_fn` at T = R x W rows."""
     if layers is None:
         layers = layer_views(params, cfg)
     (k_data, k_scales), (v_data, v_scales) = split_pool(k_pool), split_pool(v_pool)
-    R = tokens.shape[0]
+    R, W = tokens.shape
     bsz = k_data.shape[2]
     nb = block_tables.shape[1]
     span = nb * bsz
     nH, hd = cfg.num_attention_heads, cfg.head_dim_
     dev = tokens.device
-    x = _embed(params, tokens, cfg)  # [R, H]
-    positions = positions.long()
-    cos, sin = rope_table(positions, hd, cfg.rope_theta, cfg.rope_scaling_)
-    valid = torch.arange(span, device=dev)[None, :] <= positions[:, None]
+    positions = positions0.long()[:, None] + torch.arange(W, device=dev)  # [R, W]
+    x = _embed(params, tokens.reshape(-1), cfg)  # [R*W, H]
+    cos, sin = rope_table(positions.reshape(-1), hd, cfg.rope_theta, cfg.rope_scaling_)
+    valid = torch.arange(span, device=dev)[None, None, :] <= positions[:, :, None]
 
     blk_col = (positions // bsz).clamp(0, nb - 1)
-    dest_block = block_tables.long().gather(1, blk_col[:, None])[:, 0]
+    dest_block = block_tables.long().gather(1, blk_col)  # [R, W]
     dest_off = positions % bsz
     if active is not None:
-        dest_block = torch.where(active, dest_block, 0)
-        dest_off = torch.where(active, dest_off, 0)
+        dest_block = torch.where(active[:, None], dest_block, 0)
+        dest_off = torch.where(active[:, None], dest_off, 0)
+    dest_block = dest_block.reshape(-1)
+    dest_off = dest_off.reshape(-1)
 
-    def write(data, scales, new):  # [n_blocks, bsz, nKV, hd] <- [R, nKV, hd]
+    def write(data, scales, new):  # [n_blocks, bsz, nKV, hd] <- [R*W, nKV, hd]
         if scales is None:
             data.index_put_((dest_block, dest_off), new.to(data.dtype))
             return data
-        q_row, s_row = quantize_kv(new)  # quantized at the scatter
-        data.index_put_((dest_block, dest_off), q_row)
-        scales[dest_block, :, dest_off] = s_row  # [R, nKV]
+        q_rows, s_rows = quantize_kv(new)  # quantized at the scatter
+        data.index_put_((dest_block, dest_off), q_rows)
+        scales[dest_block, :, dest_off] = s_rows  # [R*W, nKV]
         return data, scales
 
     for i, lp in enumerate(layers):
@@ -855,8 +897,8 @@ def decode_step_paged(
         q, k_new, v_new = _project_qkv(lp, h, cos, sin, cfg, matmul_fn)
         kp = write(k_data[i], None if k_scales is None else k_scales[i], k_new)
         vp = write(v_data[i], None if v_scales is None else v_scales[i], v_new)
-        attn = attn_fn(q.reshape(R, nH, hd), kp, vp, block_tables, valid)
-        x = x + _attn_out(lp, attn, matmul_fn)
+        attn = attn_fn(q.reshape(R, W, nH, hd), kp, vp, block_tables, valid)
+        x = x + _attn_out(lp, attn.reshape(R * W, nH, hd), matmul_fn)
         h = _norm(x, lp["post_attn_norm"], cfg)
         x = x + mlp(lp, h, cfg, matmul_fn)
-    return _logits(params, x, cfg)
+    return _logits(params, x, cfg).reshape(R, W, -1)

@@ -25,6 +25,7 @@ SOURCES = {
     "paged_attention": CSRC / "paged_attention.cu",
     "flash_attention": CSRC / "flash_attention.cu",
     "quant_matmul": CSRC / "quant_matmul.cu",
+    "threefry": CSRC / "threefry.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -16,9 +16,18 @@ port of `_paged_attn_kernel_q8`, in the same source), which dequantizes
 each row right after its load; the plain version dequantizes right after
 its gather (`_gather_dequant`, :75-85).
 
+`paged_attention_qlen` keeps the JAX signature of the speculative-verify
+attention (:464): W query positions per slot, q `[R, W, nH, hd]`, each
+with its own causal horizon in `valid [R, W, nb * bsz]`. On a CUDA tensor
+it launches K4 (`_paged_verify_kernel`'s port, an fp pool) or K5b
+(`_paged_verify_kernel_q8`'s, an int8 pool), which read each valid K/V row
+once for all W queries; on a CPU tensor it runs
+`paged_attention_qlen_ref`. The kernels take W <= `VERIFY_MAX_W` and
+W * group <= `VERIFY_MAX_ROWS` (`check_verify_width`).
+
 `launches` counts launches of the fp kernel (K3), `launches_q8` those of
-the int8 kernel (K5a), so a run can show that its main path went through
-them.
+the int8 kernel (K5a), `launches_verify` and `launches_verify_q8` those of
+K4 and K5b, so a run can show that its main path went through them.
 """
 
 from __future__ import annotations
@@ -35,11 +44,18 @@ _NEG_INF = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GROUP = 16
 _MAX_PAGE = 256
+# the verify kernels' limits: query positions per slot, and query rows
+# (W x GQA group) per (slot, kv head) block, whose f32 q tile and
+# accumulators live in shared memory and registers
+VERIFY_MAX_W = 16
+VERIFY_MAX_ROWS = 128
 
 # kernel launches since the process started (or the last reset to 0):
-# fp pools (K3) and int8 pools (K5a)
+# fp pools (K3) and int8 pools (K5a); verify on fp (K4) and int8 (K5b)
 launches = 0
 launches_q8 = 0
+launches_verify = 0
+launches_verify_q8 = 0
 
 _lib: ctypes.CDLL | None = None
 
@@ -55,18 +71,35 @@ def _gather_dequant(pool, scales, idx, R, nb, bsz, nKV, hd, dtype):
 
 
 def paged_attention_ref(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
-    """Plain PyTorch version. It follows `_paged_attention_xla` (:88-110)
-    op for op: gather the table's blocks (dequantizing an int8 pool to q's
-    dtype), score in q's dtype, divide by sqrt(hd) exactly when `sm_scale`
-    is the default, mask with -1e30, softmax in f32, round the
-    probabilities to q's dtype, and sum V.
+    """Plain PyTorch version: `paged_attention_qlen_ref` with one query
+    per slot, which is `_paged_attention_xla` (:88-110) op for op: gather
+    the table's blocks (dequantizing an int8 pool to q's dtype), score in
+    q's dtype, divide by sqrt(hd) exactly when `sm_scale` is the default,
+    mask with -1e30, softmax in f32, round the probabilities to q's dtype,
+    and sum V.
 
     One departure: a slot with no valid row returns 0, as
     `_paged_attn_kernel` (and the CUDA kernel) do; the XLA path returns the
     mean of the gathered V rows there. The decode step never produces such
     a slot (row 0 is always valid)."""
+    out = paged_attention_qlen_ref(
+        q[:, None], k_pool, v_pool, block_table, valid[:, None], sm_scale=sm_scale
+    )
+    return out[:, 0]
+
+
+def paged_attention_qlen_ref(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
+    """Plain PyTorch version of `paged_attention_qlen`. It follows the XLA
+    path (:493-503) op for op: `_gather_dequant` of the table's blocks,
+    then `verify_attention` (`areal_tpu/ops/chunked_attention.py:55-70`):
+    score in q's dtype, divide by sqrt(hd) exactly when `sm_scale` is the
+    default, cast to f32, mask with -1e30, softmax in f32, round the
+    probabilities to q's dtype, and sum V.
+
+    One departure: a query with no valid row returns 0, as the kernels do;
+    the XLA path returns the mean of the gathered V rows there."""
     (k_pool, k_scales), (v_pool, v_scales) = split_pool(k_pool), split_pool(v_pool)
-    R, nH, hd = q.shape
+    R, W, nH, hd = q.shape
     bsz, nKV = k_pool.shape[1], k_pool.shape[2]
     nb = block_table.shape[1]
     group = nH // nKV
@@ -75,17 +108,26 @@ def paged_attention_ref(q, k_pool, v_pool, block_table, valid, *, sm_scale=None)
     idx = block_table.reshape(-1).long()
     kc = _gather_dequant(k_pool, k_scales, idx, R, nb, bsz, nKV, hd, q.dtype)
     vc = _gather_dequant(v_pool, v_scales, idx, R, nb, bsz, nKV, hd, q.dtype)
-    qg = q.reshape(R, nKV, group, hd)
-    scores = torch.einsum("rkgd,rskd->rkgs", qg, kc.to(q.dtype))
+    qg = q.reshape(R, W, nKV, group, hd)
+    scores = torch.einsum("rwkgd,rskd->rwkgs", qg, kc.to(q.dtype))
     if sm_scale == 1.0 / math.sqrt(hd):
         scores = (scores / math.sqrt(hd)).float()
     else:
         scores = (scores * sm_scale).float()
-    scores = torch.where(valid[:, None, None, :], scores, _NEG_INF)
+    scores = torch.where(valid[:, :, None, None, :], scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("rkgs,rskd->rkgd", probs, vc.to(q.dtype))
-    out = torch.where(valid.any(dim=1)[:, None, None, None], out, 0)
-    return out.reshape(R, nH, hd)
+    out = torch.einsum("rwkgs,rskd->rwkgd", probs, vc.to(q.dtype))
+    out = torch.where(valid.any(dim=2)[:, :, None, None, None], out, 0)
+    return out.reshape(R, W, nH, hd)
+
+
+def check_verify_width(W: int, group: int) -> None:
+    """Raise ValueError for a verify width the kernels do not take."""
+    if not 1 <= W <= VERIFY_MAX_W or W * group > VERIFY_MAX_ROWS:
+        raise ValueError(
+            f"verify width W={W} at GQA group {group}: the verify kernels take "
+            f"1 <= W <= {VERIFY_MAX_W} and W x group <= {VERIFY_MAX_ROWS}"
+        )
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -120,15 +162,30 @@ def _kernel_lib() -> ctypes.CDLL:
             *lib.areal_paged_attention.argtypes[3:],
         ]
         lib.areal_paged_attention_q8.restype = ctypes.c_int
+        # K4 and K5b: K3's and K5a's arguments with W after R
+        lib.areal_paged_verify.argtypes = [
+            *lib.areal_paged_attention.argtypes[:7],  # q, k, v, table, valid, out, R
+            ctypes.c_int,  # W
+            *lib.areal_paged_attention.argtypes[7:],
+        ]
+        lib.areal_paged_verify.restype = ctypes.c_int
+        lib.areal_paged_verify_q8.argtypes = [
+            *lib.areal_paged_attention_q8.argtypes[:9],  # ... out, R
+            ctypes.c_int,  # W
+            *lib.areal_paged_attention_q8.argtypes[9:],
+        ]
+        lib.areal_paged_verify_q8.restype = ctypes.c_int
         lib.areal_cuda_error_string.argtypes = [ctypes.c_int]
         lib.areal_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def _check(q, k_pool, v_pool, block_table, valid) -> None:
+def _check(q, k_pool, v_pool, block_table, valid, verify: bool = False) -> None:
     """Refuse what the kernels do not take. Pools are tensors in q's dtype
-    (K3) or `(int8 data, f32 scales [n_blocks, nKV, bsz])` tuples (K5a)."""
+    (K3, K4) or `(int8 data, f32 scales [n_blocks, nKV, bsz])` tuples (K5a,
+    K5b). With `verify`, q is `[R, W, nH, hd]` and valid `[R, W, nb * bsz]`
+    (K4, K5b), else q `[R, nH, hd]` and valid `[R, nb * bsz]`."""
     (k_pool, k_scales), (v_pool, v_scales) = split_pool(k_pool), split_pool(v_pool)
     if (k_scales is None) != (v_scales is None):
         raise TypeError("k_pool and v_pool must both be int8 tuples or neither")
@@ -164,9 +221,12 @@ def _check(q, k_pool, v_pool, block_table, valid) -> None:
         raise TypeError(f"block_table dtype {block_table.dtype}, need int32")
     if valid.dtype != torch.bool:
         raise TypeError(f"valid dtype {valid.dtype}, need bool")
-    if q.dim() != 3 or k_pool.dim() != 4 or block_table.dim() != 2:
-        raise ValueError("q [R, nH, hd], pools [n_blocks, bsz, nKV, hd], table [R, nb]")
-    R, nH, hd = q.shape
+    if q.dim() != (4 if verify else 3) or k_pool.dim() != 4 or block_table.dim() != 2:
+        raise ValueError(
+            f"q [R, {'W, ' if verify else ''}nH, hd], pools [n_blocks, bsz, nKV, hd], table [R, nb]"
+        )
+    R, nH, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    lead = tuple(q.shape[:-2])  # (R,) or (R, W)
     n_blocks, bsz, nKV, hd_k = k_pool.shape
     nb = block_table.shape[1]
     if v_pool.shape != k_pool.shape or hd_k != hd:
@@ -177,11 +237,13 @@ def _check(q, k_pool, v_pool, block_table, valid) -> None:
         raise ValueError(f"{nH} query heads over {nKV} kv heads: group must be 1..{_MAX_GROUP}")
     if not 1 <= bsz <= _MAX_PAGE:
         raise ValueError(f"page size {bsz} not in 1..{_MAX_PAGE}")
-    if block_table.shape[0] != R or tuple(valid.shape) != (R, nb * bsz):
+    if block_table.shape[0] != R or tuple(valid.shape) != (*lead, nb * bsz):
         raise ValueError(
             f"table {tuple(block_table.shape)} / valid {tuple(valid.shape)} "
-            f"do not match R={R}, nb*bsz={nb * bsz}"
+            f"do not match q's {lead}, nb*bsz={nb * bsz}"
         )
+    if verify:
+        check_verify_width(q.shape[1], nH // nKV)
 
 
 def paged_attention(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
@@ -238,4 +300,55 @@ def paged_attention(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
         launches += 1
     else:
         launches_q8 += 1
+    return out
+
+
+def paged_attention_qlen(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
+    """Speculative-verify attention: W query positions per slot over paged
+    KV, each under its own row of `valid`.
+
+    q `[R, W, nH, hd]`; pools as for `paged_attention`; table `[R, nb]`
+    int32; valid `[R, W, nb * bsz]` bool (query w of slot r attends the
+    logical rows s with `valid[r, w, s]`, typically s <= base + w). Returns
+    `[R, W, nH, hd]` in q's dtype; a query with no valid row gives 0. A
+    block id outside the pool on a page with a row valid for some query
+    faults the kernel, as in `paged_attention`.
+    """
+    global launches_verify, launches_verify_q8
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return paged_attention_qlen_ref(
+            q, k_pool, v_pool, block_table, valid, sm_scale=sm_scale
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_qlen runs on cuda or cpu, not {q.device}")
+    _check(q, k_pool, v_pool, block_table, valid, verify=True)
+    (k_data, k_scales), (v_data, v_scales) = split_pool(k_pool), split_pool(v_pool)
+    R, W, nH, hd = q.shape
+    n_blocks, bsz, nKV, _ = k_data.shape
+    if R == 0 or block_table.shape[1] == 0:
+        return torch.zeros_like(q)  # no row to attend: the output is 0
+    out = torch.empty_like(q)
+    lib = _kernel_lib()
+    tail = (
+        block_table.data_ptr(), valid.data_ptr(), out.data_ptr(),
+        R, W, nH, nKV, hd, bsz, block_table.shape[1], n_blocks,
+        float(sm_scale), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if k_scales is None:
+        err = lib.areal_paged_verify(q.data_ptr(), k_data.data_ptr(), v_data.data_ptr(), *tail)
+    else:
+        err = lib.areal_paged_verify_q8(
+            q.data_ptr(), k_data.data_ptr(), k_scales.data_ptr(),
+            v_data.data_ptr(), v_scales.data_ptr(), *tail,
+        )
+    if err != 0:
+        msg = lib.areal_cuda_error_string(err).decode()
+        raise RuntimeError(f"paged verify kernel launch failed: {msg} ({err})")
+    if k_scales is None:
+        launches_verify += 1
+    else:
+        launches_verify_q8 += 1
     return out

@@ -6,14 +6,16 @@ Hopper card and the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout, holds
-each against its plain PyTorch version on the card, then drives the three
-main paths with seeded random weights in bf16: it serves 16 concurrent
+each against its plain PyTorch version on the card, then drives the main
+paths with seeded random weights in bf16: it serves 16 concurrent
 requests through `TorchDecodeEngine` at Qwen2.5-7B full width and depth,
-serves the same traffic again from an int8 engine (int8 weights and an
-int8 KV pool), and runs three colocated GRPO iterations (rollout,
-`compute_logp`, `compute_advantages`, `ppo_update`, weight push) through
-`TorchPPOActor` at Qwen2.5-1.5B full width and depth. It checks that the
-kernels really carried each path. Each phase prints one JSON line; then
+serves self-quoting traffic with speculative decode (`spec_decode=
+"ngram"`) beside a spec-off engine, serves the first traffic again from
+an int8 engine (int8 weights and an int8 KV pool) and the speculative
+traffic from an int8 spec engine, and runs three colocated GRPO
+iterations (rollout, `compute_logp`, `compute_advantages`, `ppo_update`,
+weight push) through `TorchPPOActor` at Qwen2.5-1.5B full width and
+depth. It checks that the kernels really carried each path. Each phase prints one JSON line; then
 come the `kernels` line, the card's name and power limit, and last
 `{"ok": true, "device": ...}`. Any failed check raises, and the script
 exits non-zero without that last line.
@@ -44,12 +46,14 @@ from areal_tpu_torch.api.cli_args import (
     TorchDecodeConfig,
 )
 from areal_tpu_torch.api.io_struct import FinetuneSpec, ModelRequest, WeightUpdateMeta
+from areal_tpu_torch.engine import sampling
 from areal_tpu_torch.engine.ppo.actor import TorchPPOActor
 from areal_tpu_torch.engine.torch_decode import TorchDecodeEngine
 from areal_tpu_torch.models.qwen2 import (
     decode_step_paged,
     init_params,
     segment_ids_from_cu_seqlens,
+    verify_step_paged,
 )
 from areal_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
 from areal_tpu_torch.ops.quant import quantize_absmax
@@ -63,6 +67,7 @@ from areal_tpu_torch.ops import _build
 from areal_tpu_torch.ops import flash_attention as fa
 from areal_tpu_torch.ops import paged_attention as pa
 from areal_tpu_torch.ops import quant_matmul as qm
+from areal_tpu_torch.ops import threefry as tf
 from areal_tpu_torch.platforms import resolve_device
 from areal_tpu_torch.utils.data import split_padded_tensor_dict_into_mb_list
 
@@ -70,9 +75,17 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
+
+
+def peak_flops(dtype: torch.dtype) -> float:
+    """The card's peak rate for math on inputs of `dtype`."""
+    return BF16_FLOPS if dtype in (torch.bfloat16, torch.float16) else F32_FLOPS
+
 KERNEL_SOURCE = "areal_tpu_torch/ops/csrc/paged_attention.cu"
 KERNEL_REPLACES = "areal_tpu/ops/paged_attention.py:118"
 Q8_REPLACES = "areal_tpu/ops/paged_attention.py:168"
+VERIFY_REPLACES = "areal_tpu/ops/paged_attention.py:284"
+VERIFY_Q8_REPLACES = "areal_tpu/ops/paged_attention.py:346"
 QMM_SOURCE = "areal_tpu_torch/ops/csrc/quant_matmul.cu"
 QMM_REPLACES = "areal_tpu/ops/quant_matmul.py:55"
 FLASH_SOURCE = "areal_tpu_torch/ops/csrc/flash_attention.cu"
@@ -188,9 +201,17 @@ def phase_build() -> None:
     # quant_matmul: 4 stages of a 64 x 144-byte int8 tile and a 16 mt x 72 x tile
     qmm = {f"{dt}_mt{mt}": 4 * (64 * 144 + 16 * mt * 72 * size)
            for dt, size in (("bf16", 2), ("f32", 4)) for mt in (1, 4)}
+    # K4/K5b: f32 q rows, two 32-row K/V tiles, the tile's probabilities,
+    # m/l/alpha, and per-page scale strips and row flags (page 128)
+    def verify_smem(W, group, hd, bsz=128):
+        M = W * group
+        return 4 * (M * hd + 32 * (hd + 1) + 32 * hd + M * 32 + 3 * M + 2 * bsz) + 4 * bsz
+
+    verify = {f"W{W}_group{g}_hd{hd}": verify_smem(W, g, hd)
+              for W, g, hd in ((5, 7, 128), (9, 7, 128), (16, 8, 128), (9, 7, 64))}
     emit("build", kernels=rows, wall_s=wall_s,
          shared_memory=dict(paged_attention="dynamic, sized per launch",
-                            flash_attention_T8192=smem, quant_matmul=qmm))
+                            paged_verify=verify, flash_attention_T8192=smem, quant_matmul=qmm))
 
 
 def _paged_case(case: dict, dtype: torch.dtype, dev: torch.device, seed: int):
@@ -533,6 +554,197 @@ def phase_quant_kernel(dev: torch.device) -> dict:
     return worst
 
 
+# phase: K4 and K5b against their plain version, and the sampler's noise
+VERIFY_CASES = [
+    KERNEL_CASES[0],  # the serve shape: Qwen2.5-7B, R 16, context 4096
+    KERNEL_CASES[1],  # the rollout shape: Qwen2.5-1.5B, 12/2 heads, R 32
+    KERNEL_CASES[2],  # hd 64
+    KERNEL_CASES[3],  # hd 16, page 16
+]
+VERIFY_WIDTHS = (2, 3, 5, 9)
+SPEC_K = 4  # the spec serve phases' spec_k: verify widths 2, 3 and 5
+# jax.random on the CPU (jax 0.9.0): fold_in(key (123, 456), 7), then the
+# first 4 bits, uniforms (as f32 bit patterns) and Gumbel values of that
+# key, and fold_in(that key, 1) with its first 4 bits
+JAX_FOLD_IN_123_456_7 = (3069288025, 2881389178)
+JAX_BITS_4 = (4166509511, 2500705419, 59026623, 1202473212)
+JAX_UNIFORM_BITS_4 = (1064851426, 1058344380, 1013000960, 1049581712)
+JAX_GUMBEL_4 = (3.4944510459899902, 0.6145741939544678, -1.4556370973587036, -0.24142631888389587)
+JAX_SECONDARY_BITS_4 = (3303635717, 263785089, 1523738081, 3748719349)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9  # H100 SXM: 64 int32 lanes per SM at boost clock
+# 32-bit integer operations per element of the unrolled hash: 20 rounds of
+# add, rotate (one funnel shift) and xor (60), 11 key-injection adds (the
+# row's key sums are per row), then the xor of the two words and the shift
+# and or of the mantissa trick (3); the float tail (subtract, add, max, two
+# logs) runs on other units
+THREEFRY_OPS = 74
+
+
+def _verify_case(case: dict, W: int, dtype, dev, seed: int):
+    """Random pools and queries; slot r's query w attends rows s <=
+    base[r] + w over a ragged block table with null-block tails. Slot 0
+    has no valid row for any query, slot 1 none for query 0, slot 2 is
+    full."""
+    R, nH, nKV, hd, bsz = case["R"], case["nH"], case["nKV"], case["hd"], case["bsz"]
+    nb = -(-case["max_len"] // bsz)
+    n_blocks = R * nb + 1
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    base = rng.integers(1, case["max_len"] - W, R)
+    base[0], base[1], base[2] = -W, -1, case["max_len"] - W
+    perm = rng.permutation(np.arange(1, n_blocks))
+    table = np.zeros((R, nb), np.int32)
+    for r in range(R):
+        used = -(-max(int(base[r]) + W, 0) // bsz)
+        table[r, :used] = perm[r * nb : r * nb + used]
+    shape = (n_blocks, bsz, nKV, hd)
+    k = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    v = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    q = torch.randn((R, W, nH, hd), generator=gen, device=dev).to(dtype)
+    horizon = torch.as_tensor(base, device=dev)[:, None] + torch.arange(W, device=dev)
+    valid = torch.arange(nb * bsz, device=dev)[None, None, :] <= horizon[:, :, None]
+    return q, k, v, torch.as_tensor(table, device=dev), valid.contiguous()
+
+
+def _noise_checks(dev: torch.device) -> dict:
+    """The sampler's noise kernel against its plain version on the card
+    (bits and uniforms bit for bit, Gumbel values within GUMBEL_TOL), and
+    against constants jax.random gave on the CPU; a planted fault (the
+    plain version one position on) must differ."""
+    rng = np.random.default_rng(SEED + 50)
+    rows = []
+    for R, n in ((16, 152064), (80, 151936), (5, 64), (3, 1000)):
+        keys = torch.as_tensor(rng.integers(0, 2**32, (R, 2)), device=dev)
+        keys[0] = torch.tensor([123, 456])
+        pos = torch.as_tensor(rng.integers(0, 40000, R), device=dev)
+        pos[0] = 7
+        for secondary in (False, True):
+            got = {kind: tf.gumbel_noise(keys, pos, n, secondary=secondary, kind=kind) for kind in tf.KINDS}
+            ref = {kind: tf.gumbel_noise_ref(keys, pos, n, secondary=secondary, kind=kind) for kind in tf.KINDS}
+            fault = tf.gumbel_noise_ref(keys, pos + 1, n, secondary=secondary, kind="bits")
+            torch.cuda.synchronize()
+            bits_ok = torch.equal(got["bits"], ref["bits"])
+            uni_ok = torch.equal(got["uniform"].view(torch.int32), ref["uniform"].view(torch.int32))
+            atol, rtol = tf.GUMBEL_TOL
+            g_ratio = _tol_ratio(got["gumbel"], ref["gumbel"], atol, rtol)
+            g_equal = (got["gumbel"] == ref["gumbel"]).float().mean().item()
+            fault_differs = (got["bits"] != fault).float().mean().item()
+            name = f"noise R {R} n {n}{' secondary' if secondary else ''}"
+            check(bits_ok, f"{name}: bits differ from the plain version")
+            check(uni_ok, f"{name}: uniforms differ from the plain version")
+            check(g_ratio <= 1.0, f"{name}: Gumbel {g_ratio} x the tolerance")
+            check(fault_differs > 0.99, f"{name}: the next position's bits pass")
+            want_bits = JAX_SECONDARY_BITS_4 if secondary else JAX_BITS_4
+            check(got["bits"][0, :4].tolist() == list(want_bits[: min(n, 4)]),
+                  f"{name}: bits of fold_in((123, 456), 7) differ from jax.random's")
+            if not secondary:
+                check(got["uniform"][0, :4].view(torch.int32).tolist() == list(JAX_UNIFORM_BITS_4),
+                      f"{name}: uniforms differ from jax.random's")
+                g4 = torch.tensor(JAX_GUMBEL_4, device=dev)
+                check(_tol_ratio(got["gumbel"][0, :4], g4, atol, rtol) <= 1.0,
+                      f"{name}: Gumbel values beyond the tolerance of jax.random's")
+            rows.append(dict(R=R, n=n, secondary=secondary, bits_equal=bits_ok, uniforms_equal=uni_ok,
+                             gumbel_tol_ratio=g_ratio, gumbel_share_equal=g_equal,
+                             planted_fault_share_differs=fault_differs))
+    key = tf.fold_in(torch.tensor([[123, 456]], device=dev), 7)
+    check(tuple(key[0].tolist()) == JAX_FOLD_IN_123_456_7, f"fold_in((123, 456), 7) = {key.tolist()}")
+    return dict(cases=rows, tol=tf.GUMBEL_TOL)
+
+
+def _purity_checks(dev: torch.device) -> dict:
+    """On the card, a row's token is a function of its logits, key and
+    position alone: the same draw alone, in a shuffled batch, and beside a
+    top-p row (which makes the batch run the top-p variant)."""
+    rng = np.random.default_rng(SEED + 51)
+    R, V = 8, 152064
+    logits = torch.randn((R, V), generator=torch.Generator(device=dev).manual_seed(SEED + 51),
+                         device=dev) * 3
+    keys = torch.as_tensor(rng.integers(0, 2**32, (R, 2)), device=dev)
+    pos = torch.as_tensor(rng.integers(0, 4096, R), device=dev)
+    ones = torch.ones(R, device=dev)
+    no = torch.zeros(R, dtype=torch.bool, device=dev)
+    base, base_lp = sampling.sample(logits, keys, pos, ones, ones, no, use_topp=False)
+    alone = torch.cat([sampling.sample(logits[r:r + 1], keys[r:r + 1], pos[r:r + 1], ones[:1],
+                                       ones[:1], no[:1], use_topp=False)[0] for r in range(R)])
+    perm = torch.as_tensor(rng.permutation(R), device=dev)
+    shuffled, _ = sampling.sample(logits[perm], keys[perm], pos[perm], ones, ones, no, use_topp=False)
+    tops = ones.clone()
+    tops[R - 1] = 0.5
+    mixed, _ = sampling.sample(logits, keys, pos, ones, tops, no, use_topp=True)
+    # the same rows' tokens from the plain noise on the same card
+    plain = torch.argmax(tf.gumbel_noise_ref(keys, pos, V) + logits, dim=-1)
+    torch.cuda.synchronize()
+    res = dict(alone=torch.equal(alone, base), shuffled=torch.equal(shuffled, base[perm]),
+               beside_top_p=torch.equal(mixed[: R - 1], base[: R - 1]),
+               plain_noise=torch.equal(plain, base), distinct_tokens=len(set(base.tolist())))
+    for what, ok in res.items():
+        if what != "distinct_tokens":
+            check(ok, f"sampler purity: a row's draw changed {what.replace('_', ' ')}")
+    return res
+
+
+def phase_verify_kernel(dev: torch.device) -> dict:
+    """K4 (fp pool) and K5b (int8 pool) against `paged_attention_qlen_ref`
+    with f32 attention (K3's tolerances: the plain bf16 path would round
+    scores and probabilities to bf16, which the kernels do not), at widths
+    2, 3, 5 and 9, the serve and rollout shapes, hd 64 and a 16-row page,
+    f32 and bf16 q, with queries that have no valid row (exactly 0). The
+    planted faults, each of which must read above its tolerance: K4, the
+    plain version with the last query's mask replaced by the first one's;
+    K5b, the scales of every multi-page slot's first page ignored (read as
+    1). Then the sampler's noise kernel and the sampler's purity."""
+    rows, worst = [], dict(paged_verify=0.0, paged_verify_q8=0.0)
+    for i, case in enumerate(VERIFY_CASES):
+        for W in VERIFY_WIDTHS:
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, table, valid = _verify_case(case, W, dtype, dev, SEED + 60 + 10 * i + W)
+                empty = ~valid.any(-1)
+                for quant in (False, True):
+                    if quant:
+                        kp, vp = _int8_pool(k), _int8_pool(v)
+                        multi = ((valid.any(1).sum(-1)) > case["bsz"]).nonzero()[:, 0]
+                        first = table[multi, 0].long()
+                        fk, fv = (kp[0], kp[1].clone()), (vp[0], vp[1].clone())
+                        fk[1][first] = 1.0
+                        fv[1][first] = 1.0
+                        fault_args = (fk, fv, table, valid)
+                    else:
+                        kp, vp = k.float(), v.float()
+                        moved = valid.clone()
+                        moved[:, -1] = valid[:, 0]
+                        fault_args = (kp, vp, table, moved)
+                    out = pa.paged_attention_qlen(q, kp if quant else k, vp if quant else v, table, valid)
+                    torch.cuda.synchronize()
+                    ref = pa.paged_attention_qlen_ref(q.float(), kp, vp, table, valid)
+                    ref_fault = pa.paged_attention_qlen_ref(q.float(), *fault_args)
+                    torch.cuda.synchronize()
+                    atol, rtol = KERNEL_TOL[dtype]
+                    err = (out.float() - ref).abs().max().item()
+                    ratio = _tol_ratio(out, ref, atol, rtol)
+                    fault_ratio = _tol_ratio(out, ref_fault, atol, rtol)
+                    empty_zero = bool((out[empty] == 0).all().item())
+                    kname = "paged_verify_q8" if quant else "paged_verify"
+                    name = f"{'K5b' if quant else 'K4'} {case['name']} W {W} {str(dtype).split('.')[-1]}"
+                    rows.append(dict(kernel=kname, case=case["name"], W=W,
+                                     dtype=str(dtype).split(".")[-1], max_abs_err=err, atol=atol,
+                                     rtol=rtol, tol_ratio=ratio, planted_fault_tol_ratio=fault_ratio,
+                                     empty_queries=int(empty.sum()), empty_queries_zero=empty_zero))
+                    check(math.isfinite(ratio) and ratio <= 1.0,
+                          f"{name}: {ratio} x the tolerance (max abs err {err})")
+                    check(fault_ratio > 1.0, f"{name}: the planted fault passes the tolerance")
+                    check(empty_zero, f"{name}: a query with no valid row is not 0")
+                    worst[kname] = max(worst[kname], err)
+                    del out, ref, ref_fault, fault_args
+                del q, k, v
+    torch.cuda.empty_cache()
+    noise = _noise_checks(dev)
+    purity = _purity_checks(dev)
+    emit("verify_kernel", tol={str(k).split(".")[-1]: v for k, v in KERNEL_TOL.items()},
+         limits=dict(W=pa.VERIFY_MAX_W, rows=pa.VERIFY_MAX_ROWS),
+         cases=rows, max_abs_err=worst, noise=noise, purity=purity)
+    return worst
+
+
 def _requests(rng, vocab: int, stop_prompt: list[int], stop_id: int) -> list[ModelRequest]:
     """8 greedy (the first carries `stop_id`), 4 at temperature 1, 4 at
     temperature 1 with top_p 0.9."""
@@ -706,14 +918,15 @@ def phase_serve_int8(dev: torch.device):
     return engine, cfg, launches
 
 
-def _served_batch(engine, cfg, rng):
+def _served_batch(engine, cfg, rng, width: int = 1):
     """16 slots over the served pool: lengths from 64 + 128 to 1024 + 128,
-    blocks from the engine's allocator (they hold the waves' KV)."""
+    blocks from the engine's allocator (they hold the waves' KV) through
+    the `width` rows a step writes."""
     R = SERVE["max_running_requests"]
     alloc = engine._alloc
     lengths = rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1, R) + 128
     for r in range(R):
-        check(alloc.ensure(r, int(lengths[r]) + 1), "pool cannot back the step")
+        check(alloc.ensure(r, int(lengths[r]) + width), "pool cannot back the step")
     nb = int(alloc.nblocks.max())
     dev = engine.device
     table = torch.from_numpy(alloc.table_slice(nb)).to(dev)
@@ -837,9 +1050,11 @@ def phase_quant_step(engine, cfg) -> dict:
     return dict(table=table, lengths=lengths)
 
 
-def phase_profile(engine, cfg, batch: dict, steps: int = 4, phase: str = "profile") -> None:
+def phase_profile(engine, cfg, batch: dict, steps: int = 4, phase: str = "profile",
+                  width: int = 0) -> None:
     """Where a decode step's time goes: `torch.profiler` over `steps` decode
-    steps on the step phase's batch, device time summed by kernel family,
+    steps on the step phase's batch (or, with `width`, verify forwards of
+    that many positions per slot), device time summed by kernel family,
     and the device busy share of the wall time. A measurement, not a
     check."""
     from torch.profiler import ProfilerActivity, profile
@@ -847,14 +1062,15 @@ def phase_profile(engine, cfg, batch: dict, steps: int = 4, phase: str = "profil
     table, lengths = batch["table"], batch["lengths"]
     dev = engine.device
     positions = torch.as_tensor(lengths, device=dev)
-    tokens = torch.zeros(len(lengths), dtype=torch.long, device=dev)
+    tokens = torch.zeros((len(lengths), width) if width else len(lengths), dtype=torch.long,
+                         device=dev)
     active = torch.ones(len(lengths), dtype=torch.bool, device=dev)
     k_pool, v_pool = engine.kv_pools()
+    fn = verify_step_paged if width else decode_step_paged
 
     def step():
-        return decode_step_paged(engine.params, tokens, positions, k_pool,
-                                 v_pool, table, cfg, active=active,
-                                 layers=engine._layers)
+        return fn(engine.params, tokens, positions, k_pool, v_pool, table, cfg,
+                  active=active, layers=engine._layers)
 
     with torch.no_grad():
         step()
@@ -874,7 +1090,7 @@ def phase_profile(engine, cfg, batch: dict, steps: int = 4, phase: str = "profil
     busy = sum(families.values())
     host = sorted(((ev.self_cpu_time_total / 1e3 / steps, ev.count // steps, ev.key)
                    for ev in prof.key_averages() if ev.self_cpu_time_total > 0), reverse=True)
-    emit(phase, steps=steps, wall_ms_per_step=wall_ms / steps,
+    emit(phase, steps=steps, verify_width=width, wall_ms_per_step=wall_ms / steps,
          # host ms per step (profiled, so inflated) and calls per step of the
          # costliest ops: where the host's launch time goes
          host_top_ops=[dict(ms=m, calls=c, op=k[:60]) for m, c, k in host[:10]],
@@ -983,7 +1199,7 @@ def phase_paged_line(engine, cfg, batch: dict, launches: int, max_err: float) ->
     nbytes = (rows * nKV * row_bytes + 2 * R * nH * hd * 2 + R * nb * 4 + R * span)
     flops = 4 * nH * hd * rows
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS * 1e3
+    ops_ms = flops / peak_flops(q.dtype) * 1e3
     return dict(
         name="paged_attention_q8" if quant else "paged_attention", route="cuda",
         source=KERNEL_SOURCE, replaces=Q8_REPLACES if quant else KERNEL_REPLACES,
@@ -997,6 +1213,379 @@ def phase_paged_line(engine, cfg, batch: dict, launches: int, max_err: float) ->
         shape=dict(R=R, nH=nH, nKV=nKV, hd=hd, bsz=bsz, nb=nb, valid_rows=rows,
                    dtype="bfloat16", pool="int8 + f32 scales" if quant else "bfloat16"),
     )
+
+
+# the spec serve phases: the serve cells' engines with spec_decode="ngram"
+SPEC_MAX_NEW = 128
+SPEC_SEGMENT = (16, 64)  # each prompt repeats one random segment of this length
+
+
+def _spec_requests(rng, vocab: int) -> list[ModelRequest]:
+    """16 requests whose prompts quote themselves, as math and code
+    rollouts quote theirs: a random 16-64-token segment repeated to 64-1024
+    tokens. 8 greedy, 4 at temperature 1, 4 with top_p 0.9; 128 new
+    tokens each."""
+    reqs = []
+    for i in range(N_REQUESTS):
+        seg = rng.integers(0, vocab, int(rng.integers(*SPEC_SEGMENT, endpoint=True))).tolist()
+        n = int(rng.integers(*PROMPT_LEN, endpoint=True))
+        ids = (seg * (n // len(seg) + 1))[:n]
+        g = GenerationHyperparameters(max_new_tokens=SPEC_MAX_NEW)
+        if i < 8:
+            g = g.new(greedy=True)
+        elif i < 12:
+            g = g.new(temperature=1.0)
+        else:
+            g = g.new(temperature=1.0, top_p=0.9)
+        reqs.append(ModelRequest(rid=f"s{i}", input_ids=ids, gconfig=g))
+    return reqs
+
+
+def _pushed_params(dev: torch.device, cfg):
+    """The serve cells' weights after their push: the seeded random weights
+    with layer 0 holding layer 1's tensors."""
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    for k in [k for k in params if k.startswith("layers_0/")]:
+        params[k] = params["layers_1/" + k.split("/", 1)[1]]
+    return params
+
+
+def phase_serve_spec(dev: torch.device, settings: dict, phase: str):
+    """The spec serve cell: Qwen2.5-7B at full width and depth (bf16, the
+    serve cells' weights) in an engine with `settings` and
+    spec_decode="ngram", spec_k 4, serving one wave of `_spec_requests`;
+    the same wave on a spec-off engine with the same weights and seed
+    first (each engine's admission order, and so its keys, is the wave's
+    order). Launch formulas over the spec-on wave: on an fp engine K4 =
+    verify forwards x L, K3 = decode steps x L, K5a = K5b = K6 = 0; on an
+    int8 one K5b = verify forwards x L, K5a = steps x L, K6 = 7 L x (steps
+    + verify forwards + prefill calls), K3 = K4 = 0. The noise kernel
+    launches once or twice (top-p batches) per step or forward. The
+    accounting: drafted = accepted + rejected; the tokens delivered are
+    the verify forwards' accepted + 1 per slot plus the normal chunks'
+    tokens, less those cut at a stop. Reported, not checked: each
+    request's prefix that agrees with its spec-off stream."""
+    cfg = dataclasses.replace(QWEN25_7B, scan_layers=False)
+    L = cfg.num_hidden_layers
+    quant = settings.get("kv_dtype") == "int8"
+    params = _pushed_params(dev, cfg)
+    engines = {}
+    for spec in ("off", "ngram"):
+        eng = TorchDecodeEngine(TorchDecodeConfig(
+            random_seed=SEED, spec_decode=spec, spec_k=SPEC_K, **settings), device=dev)
+        eng.set_model(params, cfg)
+        engines[spec] = eng.initialize()
+    del params
+    torch.cuda.empty_cache()
+    off, on = engines["off"], engines["ngram"]
+    rng = np.random.default_rng(SEED + 7)
+    reqs = _spec_requests(rng, cfg.vocab_size)
+    try:
+        want = asyncio.run(_serve_wave(off, reqs))
+        off_stats = dict(decode_steps=off.decode_steps, decode_tok_s=off.decode_tokens / off.decode_seconds,
+                         decode_step_ms=off.decode_seconds / off.decode_steps * 1e3,
+                         ttft_p50_ms=float(np.percentile([r.ttft * 1e3 for r in want], 50)))
+    finally:
+        off.destroy()
+    del off, engines
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    c0 = dict(steps=on.decode_steps, verify=on.verify_dispatches, secs=on.decode_seconds,
+              vsecs=on.verify_seconds, tokens=on.decode_tokens, prefills=on.prefill_calls)
+
+    # ---- the main path: counts to 0 just before, read just after ----
+    pa.launches = pa.launches_q8 = pa.launches_verify = pa.launches_verify_q8 = 0
+    qm.launches = tf.launches = 0
+    t = time.perf_counter()
+    got = asyncio.run(_serve_wave(on, reqs))
+    wall = time.perf_counter() - t
+    launches = dict(paged_attention=pa.launches, paged_attention_q8=pa.launches_q8,
+                    paged_verify=pa.launches_verify, paged_verify_q8=pa.launches_verify_q8,
+                    quant_matmul=qm.launches, threefry_noise=tf.launches)
+    # ---- end of the main path ----
+    steps = on.decode_steps - c0["steps"]
+    vd = on.verify_dispatches - c0["verify"]
+    prefills = on.prefill_calls - c0["prefills"]
+    delivered = sum(r.output_len for r in got)
+    for req, resp in zip(reqs, got):
+        lp = np.asarray(resp.output_logprobs)
+        check(np.isfinite(lp).all() and (lp <= 0).all(), f"{req.rid}: logprobs not finite and <= 0")
+        check(resp.stop_reason == "length" and resp.output_len == SPEC_MAX_NEW
+              and resp.output_versions == [0] * SPEC_MAX_NEW,
+              f"{req.rid}: {resp.stop_reason} after {resp.output_len} tokens")
+    check(vd > 0, "the spec wave ran no verify forward")
+    want_launch = dict(paged_attention=0 if quant else steps * L,
+                       paged_attention_q8=steps * L if quant else 0,
+                       paged_verify=0 if quant else vd * L,
+                       paged_verify_q8=vd * L if quant else 0,
+                       quant_matmul=7 * L * (steps + vd + prefills) if quant else 0)
+    for name, n in want_launch.items():
+        check(launches[name] == n, f"{phase}: {name} launched {launches[name]} times, want {n}")
+    check(steps + vd <= launches["threefry_noise"] <= 2 * (steps + vd),
+          f"{phase}: noise kernel launched {launches['threefry_noise']} times for "
+          f"{steps} steps and {vd} verify forwards")
+    check(on.spec_drafted == on.spec_accepted + on.spec_rejected, "drafted != accepted + rejected")
+    check(on.decode_tokens - c0["tokens"] == delivered, "decode_tokens != tokens delivered")
+    check(on.spec_chunk_slots + on.spec_accepted + on.chunk_tokens - on.tokens_cut == delivered,
+          "delivered != verify (accepted + 1) + normal-chunk tokens - cut tokens")
+    agree = []
+    for a, b in zip(want, got):
+        n = next((i for i, (x, y) in enumerate(zip(a.output_tokens, b.output_tokens)) if x != y),
+                 min(a.output_len, b.output_len))
+        agree.append(n)
+    secs = on.decode_seconds - c0["secs"]
+    vsecs = on.verify_seconds - c0["vsecs"]
+    ttft = [r.ttft * 1e3 for r in got]
+    emit(
+        phase, model="Qwen2.5-7B", source=QWEN25_7B_SOURCE, layers=L, dtype="bfloat16",
+        weight_dtype=settings.get("weight_dtype", "fp"), kv_dtype=settings.get("kv_dtype", "fp"),
+        spec_k=SPEC_K, spec_ngram_max=on.config.spec_ngram_max, launches=launches,
+        verify_dispatches=vd, decode_steps=steps, prefill_calls=prefills,
+        spec_hist=on.spec_hist.tolist(), spec_drafted=on.spec_drafted,
+        spec_accepted=on.spec_accepted, spec_rejected=on.spec_rejected,
+        spec_chunk_slots=on.spec_chunk_slots, tokens_cut=on.tokens_cut,
+        tokens_per_verify_forward=(on.spec_chunk_slots + on.spec_accepted) / vd,
+        accepted_per_slot_forward=on.spec_accepted / on.spec_chunk_slots,
+        tokens=delivered, wall_s=wall, wave_tok_s=delivered / wall,
+        decode_tok_s=delivered / secs, verify_ms_per_forward=vsecs / vd * 1e3,
+        decode_step_ms=(secs - vsecs) / steps * 1e3 if steps else None,
+        ttft_p50_ms=float(np.percentile(ttft, 50)),
+        spec_off=off_stats,
+        agree_prefix_with_spec_off=agree,
+        agree_full=sum(n == SPEC_MAX_NEW for n in agree),
+        agree_full_greedy=sum(n == SPEC_MAX_NEW for n in agree[:8]),
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+    )
+    return on, cfg, launches
+
+
+def phase_spec_step(engine, cfg, width: int = SPEC_K + 1) -> dict:
+    """One verify forward at W 5 on the spec engine's pool against W
+    decode steps fed the same tokens on a copy of the same pool state.
+    Checks: (1) the kernel path (K4) against the plain path with f32
+    attention, held as phase `step` holds K3: no further from it than the
+    plain bf16 path is, or than 4 bf16 ulps of the largest logit; (2) the
+    layer-0 K/V rows both write bit-equal, on the kernel and the plain
+    path: they come from the embeddings and the q/k/v matmuls alone, so a
+    row written at the wrong place or rotated at the wrong position shows
+    there; (3) the verify logits against the sequential kernel-path logits,
+    and the rows of all layers, each within the larger of 4 bf16 ulps and
+    twice the same distance on the plain path (the two forwards multiply
+    at M = R W and M = R rows, where cuBLAS may tile and round
+    differently, and bf16 activations carry that through the layers);
+    (4) no other pool row differs; (5) a planted fault that only deeper
+    layers see, each query's causal horizon one row too far (query j also
+    reads column j + 1's row), reads above both tolerances of (3).
+    Reported: argmax agreement per position, and the planted fault's
+    readings."""
+    rng = np.random.default_rng(SEED + 8)
+    engine.pause_generation()
+    table, positions, _, lengths = _served_batch(engine, cfg, rng, width=width)
+    dev = engine.device
+    R = len(lengths)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (R, width)), device=dev)
+    active = torch.ones(R, dtype=torch.bool, device=dev)
+    kp, vp = engine._k_pool, engine._v_pool
+    ks, vs = kp.clone(), vp.clone()
+
+    def verify(attn, pools):
+        return verify_step_paged(engine.params, tokens, positions, *pools, table, cfg,
+                                 active=active, attn_fn=attn, layers=engine._layers)
+
+    def sequential(attn, pools):
+        return torch.stack([decode_step_paged(
+            engine.params, tokens[:, j], positions + j, *pools, table, cfg, active=active,
+            attn_fn=attn, layers=engine._layers) for j in range(width)], dim=1)
+
+    def _attn_qlen_f32(q, k_pool, v_pool, table, valid):
+        """As `_attn_f32`, for the verify attention."""
+        def f32(pool):
+            return pool if isinstance(pool, tuple) else pool.float()
+
+        return pa.paged_attention_qlen_ref(q.float(), f32(k_pool), f32(v_pool), table,
+                                           valid).to(q.dtype)
+
+    # the rows both paths wrote; every other row must stay as it was
+    pos = positions[:, None] + torch.arange(width, device=dev)
+    written = torch.zeros(kp.shape[1:3], dtype=torch.bool, device=dev)
+    written[table.long().gather(1, pos // kp.shape[2]), pos % kp.shape[2]] = True
+
+    def rows_apart() -> dict:
+        """Max |difference| of the written rows (all layers; layer 0), their
+        largest value, the least per-layer share of equal values, and
+        whether all other rows are equal."""
+        out = dict(max_diff=0.0, layer0_max_diff=0.0, scale=0.0, share_equal_min=1.0,
+                   others_equal=True)
+        for x, y in ((kp, ks), (vp, vs)):
+            for i in range(x.shape[0]):
+                xw, yw = x[i][written].float(), y[i][written].float()
+                d = (xw - yw).abs().max().item()
+                out["max_diff"] = max(out["max_diff"], d)
+                if i == 0:
+                    out["layer0_max_diff"] = max(out["layer0_max_diff"], d)
+                out["scale"] = max(out["scale"], yw.abs().max().item())
+                out["share_equal_min"] = min(out["share_equal_min"], (xw == yw).float().mean().item())
+                out["others_equal"] &= torch.equal(x[i][~written], y[i][~written])
+        return out
+
+    def off_by_one(q, k_pool, v_pool, table, valid):
+        """The planted fault: query j attends with query j + 1's horizon
+        (the last keeps its own)."""
+        return pa.paged_attention_qlen(q, k_pool, v_pool, table,
+                                       torch.cat([valid[:, 1:], valid[:, -1:]], dim=1))
+
+    with torch.no_grad():
+        a = verify(pa.paged_attention_qlen, (kp, vp))
+        s_kernel = sequential(pa.paged_attention, (ks, vs))
+        torch.cuda.synchronize()
+        rows = rows_apart()
+        fault = verify(off_by_one, (kp, vp))
+        torch.cuda.synchronize()
+        rows_fault = rows_apart()
+        b = verify(pa.paged_attention_qlen_ref, (kp, vp))
+        s_plain = sequential(pa.paged_attention_ref, (ks, vs))
+        torch.cuda.synchronize()
+        rows_plain = rows_apart()
+        c = verify(_attn_qlen_f32, (kp, vp))
+    torch.cuda.synchronize()
+    del ks, vs
+    torch.cuda.empty_cache()
+
+    def ulps4(x: float) -> float:
+        return 4 * 2.0 ** (math.floor(math.log2(x)) - 7)
+
+    scale = c.abs().max().item()
+    kernel_vs_f32 = (a - c).abs().max().item()
+    plain_vs_f32 = (b - c).abs().max().item()
+    tol = max(plain_vs_f32, ulps4(scale))
+    verify_vs_seq = (a - s_kernel).abs().max().item()
+    plain_verify_vs_seq = (b - s_plain).abs().max().item()
+    tol_seq = max(ulps4(scale), 2 * plain_verify_vs_seq)
+    tol_rows = max(ulps4(rows["scale"]), 2 * rows_plain["max_diff"])
+    check(torch.isfinite(a).all().item(), "verify kernel-path logits not finite")
+    check(kernel_vs_f32 <= tol, f"verify step: kernel path {kernel_vs_f32} from the f32-attention "
+          f"logits > {tol} (plain bf16 path: {plain_vs_f32})")
+    check(verify_vs_seq <= tol_seq, f"verify step: {verify_vs_seq} from {width} decode steps "
+          f"> {tol_seq} (plain path: {plain_verify_vs_seq})")
+    check(rows["layer0_max_diff"] == 0 and rows_plain["layer0_max_diff"] == 0,
+          f"verify step: layer-0 K/V rows differ from the decode steps' (kernel path "
+          f"{rows['layer0_max_diff']}, plain path {rows_plain['layer0_max_diff']})")
+    check(rows["max_diff"] <= tol_rows, f"verify step: written K/V rows {rows['max_diff']} from "
+          f"the decode steps' > {tol_rows} (plain path: {rows_plain['max_diff']})")
+    check(rows["others_equal"] and rows_plain["others_equal"],
+          "verify step: a pool row outside the W written rows differs")
+    fault_vs_seq = (fault - s_kernel).abs().max().item()
+    check(fault_vs_seq > tol_seq and rows_fault["max_diff"] > tol_rows,
+          f"verify step: the planted off-by-one horizon reads {fault_vs_seq} on the logits "
+          f"(tolerance {tol_seq}) and {rows_fault['max_diff']} on the rows (tolerance {tol_rows})")
+    emit("spec_step", width=width, max_abs_logit=scale, tol=tol, kernel_vs_f32_attn=kernel_vs_f32,
+         plain_vs_f32_attn=plain_vs_f32, tol_vs_sequential=tol_seq,
+         verify_vs_sequential=verify_vs_seq, plain_verify_vs_sequential=plain_verify_vs_seq,
+         rows_tol=tol_rows, rows=rows, rows_plain=rows_plain,
+         fault_vs_sequential=fault_vs_seq, rows_fault=rows_fault,
+         argmax_agree_verify_sequential=(a.argmax(-1) == s_kernel.argmax(-1)).float().mean(0).tolist(),
+         argmax_agree_kernel_plain=(a.argmax(-1) == b.argmax(-1)).float().mean().item())
+    return dict(table=table, lengths=lengths)
+
+
+def phase_verify_line(engine, cfg, batch: dict, launches: int, max_err: float,
+                      width: int = SPEC_K + 1) -> dict:
+    """K4 timings (K5b on an int8 engine's pool) at the spec batch: the 16
+    slots of `phase_spec_step`'s batch (or the int8 engine's own) with W 5
+    queries each over the served pool, rotating over 4 layers' pools so
+    the rows come from HBM. Yardsticks (timed here only; the port never
+    calls them): SDPA over KV pre-gathered (and pre-dequantized) with the
+    [W, span] masks, and K3 (K5a) launched over R x W virtual slots, the
+    alternative the TPU kernel was designed to beat."""
+    dev = engine.device
+    quant = engine._k_scale is not None
+    table, lengths = batch["table"], batch["lengths"]
+    R, nb = table.shape
+    bsz, nKV, hd = engine._k_pool.shape[2:]
+    nH = cfg.num_attention_heads
+    layers = min(4, cfg.num_hidden_layers)
+    span = nb * bsz
+    horizon = torch.as_tensor(lengths, device=dev)[:, None] + torch.arange(width, device=dev)
+    valid = (torch.arange(span, device=dev)[None, None, :] <= horizon[:, :, None]).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    q = torch.randn((R, width, nH, hd), generator=gen, device=dev).to(torch.bfloat16)
+    if quant:
+        kp = [(engine._k_pool[i], engine._k_scale[i]) for i in range(layers)]
+        vp = [(engine._v_pool[i], engine._v_scale[i]) for i in range(layers)]
+    else:
+        kp = [engine._k_pool[i] for i in range(layers)]
+        vp = [engine._v_pool[i] for i in range(layers)]
+
+    def counter():
+        return pa.launches_verify_q8 if quant else pa.launches_verify
+
+    calls = counter()
+    ms = _time(lambda i: pa.paged_attention_qlen(q, kp[i % layers], vp[i % layers], table, valid), 200)
+    plain_ms = _time(lambda i: pa.paged_attention_qlen_ref(q, kp[i % layers], vp[i % layers],
+                                                           table, valid), 20)
+    check(counter() > calls, "timing did not launch the kernel")
+    # K3 / K5a over R x W virtual slots, one query each
+    qv = q.reshape(R * width, nH, hd)
+    tv = table.repeat_interleave(width, dim=0).contiguous()
+    vv = valid.reshape(R * width, span)
+    per_query_ms = _time(lambda i: pa.paged_attention(qv, kp[i % layers], vp[i % layers], tv, vv), 200)
+    idx = table.reshape(-1).long()
+
+    def gathered(pool):
+        data, sc = pool if quant else (pool, None)
+        g = pa._gather_dequant(data, sc, idx, R, nb, bsz, nKV, hd, torch.bfloat16)
+        return g.permute(0, 2, 1, 3).repeat_interleave(nH // nKV, dim=1).contiguous()
+
+    ks = [gathered(p) for p in kp]
+    vs = [gathered(p) for p in vp]
+    q4 = q.transpose(1, 2)  # [R, nH, W, hd]
+    mask = valid[:, None]  # [R, 1, W, span]
+    library_ms = _time(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        q4, ks[i % layers], vs[i % layers], attn_mask=mask), 200)
+    del ks, vs
+    rows_any = int((np.asarray(lengths) + width).sum())  # rows some query reads
+    pairs = int(sum((np.asarray(lengths) + 1 + w).sum() for w in range(width)))  # (query, row)
+    row_bytes = 2 * (hd + 4) if quant else 2 * hd * 2
+    nbytes = (rows_any * nKV * row_bytes + 2 * R * width * nH * hd * 2 + R * nb * 4
+              + R * width * span)
+    flops = 4 * nH * hd * pairs
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / peak_flops(q.dtype) * 1e3
+    return dict(
+        name="paged_verify_q8" if quant else "paged_verify", route="cuda",
+        source=KERNEL_SOURCE, replaces=VERIFY_Q8_REPLACES if quant else VERIFY_REPLACES,
+        launches=launches, max_abs_err=max_err, max_err=max_err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=library_ms,
+        library_call="scaled_dot_product_attention, KV pre-gathered"
+                     + (" and pre-dequantized to bf16" if quant else "") + ", [W, span] mask",
+        per_query_kernel_ms=per_query_ms,
+        per_query_kernel=("K5a" if quant else "K3") + f" over R x W = {R * width} virtual slots",
+        shape=dict(R=R, W=width, nH=nH, nKV=nKV, hd=hd, bsz=bsz, nb=nb, rows=rows_any,
+                   pairs=pairs, dtype="bfloat16",
+                   pool="int8 + f32 scales" if quant else "bfloat16"),
+    )
+
+
+def phase_noise_line(dev: torch.device) -> dict:
+    """The sampler's noise kernel at a decode step's draw (16 rows over
+    Qwen2.5-7B's 152,064-token vocabulary) against its plain version (the
+    same Threefry as ~150 elementwise PyTorch ops); bound by its integer
+    operations. No PyTorch call computes jax.random's draw."""
+    R, V = N_REQUESTS, QWEN25_7B.vocab_size
+    gen = np.random.default_rng(SEED + 52)
+    keys = torch.as_tensor(gen.integers(0, 2**32, (R, 2)), device=dev)
+    pos = torch.as_tensor(gen.integers(0, 4096, R), device=dev)
+    calls = tf.launches
+    ms = _time(lambda i: tf.gumbel_noise(keys, pos + i, V), 200)
+    plain_ms = _time(lambda i: tf.gumbel_noise_ref(keys, pos + i, V), 10)
+    check(tf.launches > calls, "timing did not launch the noise kernel")
+    bytes_ms = (R * V * 4 + R * 24) / HBM_BYTES_PER_S * 1e3
+    ops_ms = R * V * THREEFRY_OPS / INT32_OPS_PER_S * 1e3
+    return dict(name="threefry_noise", route="cuda", source="areal_tpu_torch/ops/csrc/threefry.cu",
+                ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=None, shape=dict(R=R, n=V))
 
 
 QMM_NAMES = ("attn/q_kernel", "attn/k_kernel", "attn/v_kernel", "attn/o_kernel",
@@ -1154,6 +1743,12 @@ def _flash_counts() -> np.ndarray:
 
 def _kernel_family(name: str) -> str:
     name = name.lower()
+    if "paged_verify_q8" in name:
+        return "K5b paged_verify_q8"
+    if "paged_verify" in name:
+        return "K4 paged_verify"
+    if "threefry" in name:
+        return "threefry_noise"
     if "paged_attn_q8" in name:
         return "K5a paged_attention_q8"
     if "paged_attn" in name:
@@ -1537,11 +2132,22 @@ def main() -> int:
     phase_bad_table()
     phase_flash_kernel(dev)
     q_err = phase_quant_kernel(dev)
+    v_err = phase_verify_kernel(dev)
     engine, cfg, launches = phase_serve(dev)
     try:
         batch = phase_step(engine, cfg)
         phase_profile(engine, cfg, batch)
         paged = phase_paged_line(engine, cfg, batch, launches, max_err)
+    finally:
+        engine.destroy()
+    del engine
+    torch.cuda.empty_cache()
+    engine, cfg, s_launches = phase_serve_spec(dev, SERVE, "serve_spec")
+    try:
+        batch = phase_spec_step(engine, cfg)
+        phase_profile(engine, cfg, batch, phase="profile_verify", width=SPEC_K + 1)
+        verify = phase_verify_line(engine, cfg, batch, s_launches["paged_verify"],
+                                   v_err["paged_verify"])
     finally:
         engine.destroy()
     del engine
@@ -1557,12 +2163,35 @@ def main() -> int:
         engine.destroy()
     del engine
     torch.cuda.empty_cache()
+    engine, cfg, s8_launches = phase_serve_spec(dev, SERVE_INT8, "serve_spec_int8")
+    try:
+        batch = _served_batch(engine, cfg, np.random.default_rng(SEED + 8), width=SPEC_K + 1)
+        batch = dict(table=batch[0], lengths=batch[3])
+        verify_q8 = phase_verify_line(engine, cfg, batch, s8_launches["paged_verify_q8"],
+                                      v_err["paged_verify_q8"])
+    finally:
+        engine.destroy()
+    del engine
+    torch.cuda.empty_cache()
+    noise = phase_noise_line(dev)
+    noise["launches_by_path"] = dict(serve_spec=s_launches["threefry_noise"],
+                                     serve_spec_int8=s8_launches["threefry_noise"])
+    emit("noise_line", **noise)
     train = phase_train(dev)
     torch.cuda.empty_cache()
-    # K3 runs in both paths: the serve phase's launches and the rollouts'
-    paged["launches_by_path"] = dict(serve=launches, train=train["launches"]["paged_attention"])
-    paged["launches"] = launches + train["launches"]["paged_attention"]
-    rows = [paged, *phase_flash_line(dev, train), q8, qmm_row]
+    # K3 runs in the serve and train paths and in the spec path's normal
+    # chunks; K5a in the int8 serve path and the int8 spec path's; K6 in both
+    # int8 paths
+    paged["launches_by_path"] = dict(serve=launches, serve_spec=s_launches["paged_attention"],
+                                     train=train["launches"]["paged_attention"])
+    paged["launches"] = sum(paged["launches_by_path"].values())
+    q8["launches_by_path"] = dict(serve_int8=q_launches["paged_attention_q8"],
+                                  serve_spec_int8=s8_launches["paged_attention_q8"])
+    q8["launches"] = sum(q8["launches_by_path"].values())
+    qmm_row["launches_by_path"] = dict(serve_int8=q_launches["quant_matmul"],
+                                       serve_spec_int8=s8_launches["quant_matmul"])
+    qmm_row["launches"] = sum(qmm_row["launches_by_path"].values())
+    rows = [paged, *phase_flash_line(dev, train), q8, qmm_row, verify, verify_q8]
     for r in rows:
         check(r["launches"] > 0, f"{r['name']}: no launch on the main path")
     print(json.dumps({"kernels": rows}), flush=True)

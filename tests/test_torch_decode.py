@@ -11,7 +11,9 @@ different orders; int8 rows quantized from them agree within one step,
 which the logprobs absorb). The rest checks the serving contract:
 batching does not change a request's stream, stop ids, max_new_tokens,
 pause/continue, weight pushes (fp and int8) and version stamps,
-pool-pressure preemption, the sampler's statistics, and the device rule.
+pool-pressure preemption (greedy and sampled), the position-keyed
+sampler (its statistics, and a sampled stream's independence of its
+batchmates), and the device rule.
 """
 
 import asyncio
@@ -33,7 +35,7 @@ from areal_tpu_torch.api.cli_args import (
     TorchDecodeConfig,
 )
 from areal_tpu_torch.api.io_struct import ModelRequest
-from areal_tpu_torch.engine.sampling import sample
+from areal_tpu_torch.engine.sampling import sample, slot_base_key
 from areal_tpu_torch.engine.torch_decode import TorchDecodeEngine
 from areal_tpu_torch.models import qwen2 as tq
 from areal_tpu_torch.models.convert import params_from_numpy
@@ -261,17 +263,21 @@ def test_layer_weight_push_reaches_the_decode_step(engine, weights):
 
 
 def test_pool_pressure_preempts_and_streams_stay_exact(weights):
-    """Two requests whose KV cannot both fit: the longer one is requeued
-    and re-prefilled, and both streams still equal their solo runs."""
+    """Requests whose KV cannot all fit: the longest is requeued and
+    re-prefilled, and every stream, the sampled one included (it keeps its
+    base key across the requeue), still equals its solo run."""
     tparams = weights[1]
     roomy = _engine(tparams)
-    # 8 usable blocks of 16 rows; the two requests grow to 6 + 5 blocks
+    # 8 usable blocks of 16 rows; the requests grow to 6 + 5 + 4 blocks
     tight = _engine(tparams, kv_pool_tokens=96)
     try:
         reqs = [
             ModelRequest(input_ids=list(range(1, 20)), gconfig=_greedy(60)),
             ModelRequest(input_ids=[2, 2, 5], gconfig=_greedy(60)),
+            ModelRequest(input_ids=[6, 1, 6], gconfig=GenerationHyperparameters(
+                max_new_tokens=50, temperature=1.0, top_p=0.9)),
         ]
+        # one at a time: the same admission order, so the same keys
         solo = [roomy.generate(r.copy(), timeout=120) for r in reqs]
 
         async def together():
@@ -287,19 +293,53 @@ def test_pool_pressure_preempts_and_streams_stay_exact(weights):
         tight.destroy()
 
 
+def test_sampled_stream_ignores_a_top_p_batchmate(weights):
+    """A sampled request's stream alone equals its stream beside a top-p
+    batchmate admitted after it. The batchmate makes the chunk run the
+    top-p sampler variant, which draws a second noise block per step: with
+    one sequential generator that moved the request's draws; with draws
+    keyed by (request key, position) it cannot."""
+    req = ModelRequest(input_ids=[3, 1, 4, 1, 5], gconfig=GenerationHyperparameters(
+        max_new_tokens=24, temperature=1.0))
+    mate = ModelRequest(input_ids=[2, 7], gconfig=GenerationHyperparameters(
+        max_new_tokens=24, temperature=1.0, top_p=0.5))
+    alone_eng, pair_eng = _engine(weights[1]), _engine(weights[1])
+    try:
+        alone = alone_eng.generate(req.copy(), timeout=120)
+        pair_eng.pause_generation()
+
+        async def both():
+            tasks = [asyncio.ensure_future(pair_eng.agenerate(r.copy())) for r in (req, mate)]
+            await asyncio.sleep(0)  # both queued, in order, before an admission
+            pair_eng.continue_generation()
+            return await asyncio.gather(*tasks)
+
+        pair = asyncio.run(both())
+    finally:
+        alone_eng.destroy()
+        pair_eng.destroy()
+    assert pair[0].output_tokens == alone.output_tokens
+    np.testing.assert_allclose(pair[0].output_logprobs, alone.output_logprobs, atol=1e-5, rtol=0)
+
+
+def _keys(n: int, seed: int) -> torch.Tensor:
+    """[n, 2] base keys, as the engine gives its first n admissions."""
+    return torch.from_numpy(np.stack([slot_base_key(seed, i) for i in range(n)]).astype(np.int64))
+
+
 def test_sampler_matches_softmax_at_temperature_one():
     rng = np.random.default_rng(0)
     V, R, rounds = 16, 4000, 5
     logits = rng.standard_normal(V).astype(np.float32) * 1.5
     probs = np.exp(logits - logits.max())
     probs /= probs.sum()
-    gen = torch.Generator().manual_seed(0)
+    keys = _keys(R, 0)
     batch = torch.from_numpy(np.tile(logits, (R, 1)))
     counts = np.zeros(V)
-    for _ in range(rounds):
+    for position in range(rounds):
         tok, logp = sample(
-            batch, torch.ones(R), torch.ones(R), torch.zeros(R, dtype=torch.bool),
-            gen, use_topp=False,
+            batch, keys, torch.full((R,), position), torch.ones(R), torch.ones(R),
+            torch.zeros(R, dtype=torch.bool), use_topp=False,
         )
         counts += np.bincount(tok.numpy(), minlength=V)
         np.testing.assert_allclose(
@@ -318,12 +358,11 @@ def test_top_p_samples_stay_in_the_nucleus():
     p = np.exp(logits[order] - logits.max())
     p /= p.sum()
     nucleus = set(order[(np.cumsum(p) - p) < top_p].tolist())
-    gen = torch.Generator().manual_seed(1)
     tops = torch.full((R,), top_p)
     tops[: R // 2] = 1.0  # the full-vocab rows of a mixed batch
     tok, logp = sample(
-        torch.from_numpy(np.tile(logits, (R, 1))), torch.ones(R), tops,
-        torch.zeros(R, dtype=torch.bool), gen, use_topp=True,
+        torch.from_numpy(np.tile(logits, (R, 1))), _keys(R, 1), torch.arange(R),
+        torch.ones(R), tops, torch.zeros(R, dtype=torch.bool), use_topp=True,
     )
     inside = set(tok[R // 2:].tolist())
     assert inside <= nucleus and len(inside) > 1
@@ -335,8 +374,8 @@ def test_top_p_samples_stay_in_the_nucleus():
 def test_greedy_rows_take_the_argmax():
     logits = torch.randn(6, 50, generator=torch.Generator().manual_seed(2))
     greedy = torch.tensor([True, False] * 3)
-    tok, _ = sample(logits, torch.full((6,), 0.7), torch.ones(6), greedy,
-                    torch.Generator().manual_seed(3), use_topp=False)
+    tok, _ = sample(logits, _keys(6, 3), torch.arange(6), torch.full((6,), 0.7),
+                    torch.ones(6), greedy, use_topp=False)
     assert torch.equal(tok[greedy], logits.argmax(-1)[greedy])
 
 
@@ -349,8 +388,7 @@ def test_device_none_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize(
     "setting",
-    [dict(spec_decode="ngram"),
-     dict(kv_host_pool_mb=64.0), dict(tensor_parallel_size=2),
+    [dict(kv_host_pool_mb=64.0), dict(tensor_parallel_size=2),
      dict(kv_layout="workspace"), dict(model_path="/models/x"),
      dict(kv_cache_dtype="bfloat16")],  # the model here is float32
 )
@@ -358,6 +396,16 @@ def test_unported_settings_raise(weights, setting):
     eng = TorchDecodeEngine(TorchDecodeConfig(**dict(SMALL, **setting)), device="cpu")
     eng.set_model(weights[1], TCFG)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.initialize()
+
+
+@pytest.mark.parametrize("setting", [dict(spec_decode="medusa"), dict(spec_decode="ngram", spec_k=0)])
+def test_bad_spec_settings_raise(weights, setting):
+    """As the JAX engine (jax_decode.py:731-742): a spec_decode outside
+    ("off", "ngram"), or spec_k < 1 with "ngram", is a ValueError."""
+    eng = TorchDecodeEngine(TorchDecodeConfig(**dict(SMALL, **setting)), device="cpu")
+    eng.set_model(weights[1], TCFG)
+    with pytest.raises(ValueError, match="spec_"):
         eng.initialize()
 
 

@@ -51,6 +51,8 @@ def test_port_has_the_expected_modules():
         "areal_tpu_torch.ops.quant",
         "areal_tpu_torch.ops.kv_quant",
         "areal_tpu_torch.ops.quant_matmul",
+        "areal_tpu_torch.ops.threefry",
+        "areal_tpu_torch.engine.sampling",
         "chip_smoke",
     ):
         assert want in names
