@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from areal_tpu_torch.ops.flash_attention import PADDING_SEGMENT, flash_attention
+from areal_tpu_torch.ops.flash_attention import PADDING_SEGMENT, flash_attention, packed_layout
 from areal_tpu_torch.ops.fused_xent import chunked_label_logprobs
 from areal_tpu_torch.ops.kv_quant import quantize_kv, split_pool
 from areal_tpu_torch.ops.paged_attention import paged_attention, paged_attention_qlen
@@ -650,20 +650,22 @@ def resolve_attn_impl(cfg: ModelConfig) -> str:
     return "flash" if cfg.attn_impl == "auto" else cfg.attn_impl
 
 
-def attention(lp: dict, x, cos, sin, segment_ids, mask, cfg: ModelConfig):
+def attention(lp: dict, x, cos, sin, layout, cfg: ModelConfig):
     """Packed GQA attention over one token stream x [T, H] (JAX :1187);
-    q/k/v stay in the token-major `[T, n, hd]` layout the kernels read."""
+    q/k/v stay in the token-major `[T, n, hd]` layout the kernels read.
+    `layout` is what the attention path reads, built once per forward: the
+    flash kernels' `packed_layout(segment_ids)`, or the dense [T, T] mask."""
     q, k, v = _project_qkv(lp, x, cos, sin, cfg)
     if resolve_attn_impl(cfg) == "flash":
-        out = flash_attention(q, k, v, segment_ids)
+        out = flash_attention(q, k, v, layout)
     else:
-        out = _dense_attention(q, k, v, mask)
+        out = _dense_attention(q, k, v, layout)
     return _attn_out(lp, out)
 
 
-def decoder_layer(lp: dict, x, cos, sin, segment_ids, mask, cfg: ModelConfig):
+def decoder_layer(lp: dict, x, cos, sin, layout, cfg: ModelConfig):
     """One pre-norm decoder layer (JAX :1423) of the dense family."""
-    x = x + attention(lp, _norm(x, lp["input_norm"], cfg), cos, sin, segment_ids, mask, cfg)
+    x = x + attention(lp, _norm(x, lp["input_norm"], cfg), cos, sin, layout, cfg)
     return x + mlp(lp, _norm(x, lp["post_attn_norm"], cfg), cfg)
 
 
@@ -706,14 +708,18 @@ def forward(
         layers = layer_views(params, cfg)
     x = _embed(params, input_ids, cfg)
     cos, sin = rope_table(position_ids, cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling_)
-    mask = segment_causal_mask(segment_ids) if resolve_attn_impl(cfg) == "dense" else None
+    # the segment layout belongs to the micro-batch: built once, read by
+    # every layer and by every remat rerun
+    if resolve_attn_impl(cfg) == "dense":
+        layout = segment_causal_mask(segment_ids)
+    else:
+        layout = packed_layout(segment_ids)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in layers:
         if remat:
-            x = checkpoint(decoder_layer, lp, x, cos, sin, segment_ids, mask, cfg,
-                           use_reentrant=False)
+            x = checkpoint(decoder_layer, lp, x, cos, sin, layout, cfg, use_reentrant=False)
         else:
-            x = decoder_layer(lp, x, cos, sin, segment_ids, mask, cfg)
+            x = decoder_layer(lp, x, cos, sin, layout, cfg)
     x = _norm(x, params["final_norm"], cfg)
     if return_hidden:
         return x

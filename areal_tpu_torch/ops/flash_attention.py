@@ -1,19 +1,30 @@
 """Segment-aware flash attention over one packed token stream (counterpart
 of `areal_tpu/ops/flash_attention.py`).
 
-`flash_attention(q, k, v, segment_ids)` and `flash_attention_chunk(q, k,
-v, seg_q, seg_k, q_positions, kv_positions)` keep the JAX signatures and
-the token-major layout: q `[T, nH, hd]`, k/v `[T, nKV, hd]`. A key is
-valid for a query iff it has the same segment, `qpos >= kpos`, and the
-query's segment is not `PADDING_SEGMENT` (-1). The chunk entry also
-returns the per-row log-sum-exp `[Tq, nH]` and differentiates through it.
+`flash_attention(q, k, v, layout)` and `flash_attention_chunk(q, k, v,
+layout)` keep the token-major layout of the JAX functions: q
+`[T, nH, hd]`, k/v `[T, nKV, hd]`. Where the JAX functions take segment
+ids and positions, these take their `FlashLayout`: `packed_layout(
+segment_ids)` for a packed stream attending to itself, `flash_layout(
+seg_q, seg_k, q_positions, kv_positions)` for queries against a kv chunk.
+A key is valid for a query iff it has the same segment, `qpos >= kpos`,
+and the query's segment is not `PADDING_SEGMENT` (-1). The chunk entry
+also returns the per-row log-sum-exp `[Tq, nH]` and differentiates
+through it.
 
 On CUDA tensors both run `_FlashAttention`, one `torch.autograd.Function`
 whose forward is the hand-written Hopper kernel K1 and whose backward is
 K2a (dQ) and K2b (dK/dV), all in `csrc/flash_attention.cu`; a failed
-build or launch raises. On CPU tensors they run `flash_attention_ref`,
-the plain version, differentiated by autograd. There is no fallback from
-one to the other.
+build or launch raises. In bf16, K1 and K2b run on the tensor cores and
+read q, k, v and dO with 16-byte copies: a tensor whose storage does not
+start 16-byte aligned raises. On CPU tensors they run
+`flash_attention_ref`, the plain version, differentiated by autograd.
+There is no fallback from one to the other.
+
+The layout (int32 segment ids and positions, and each 64-row tile's
+`tile_meta`) belongs to the token stream, not to a layer: a caller that
+attends one stream in every layer builds it once (`layout_builds` counts
+the builds) and passes it to each call.
 
 Each kernel has its launcher (`flash_fwd`, `flash_bwd_dq`,
 `flash_bwd_dkv`, CUDA tensors only) and its plain version
@@ -27,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +56,7 @@ _INT_MIN = torch.iinfo(torch.int32).min
 launches_fwd = 0
 launches_dq = 0
 launches_dkv = 0
+layout_builds = 0  # flash_layout calls
 
 _lib: ctypes.CDLL | None = None
 
@@ -92,11 +105,11 @@ def _kernel_lib() -> ctypes.CDLL:
             [ptr] * 13 + [i32] * 5 + [f32, i32, ptr]
         )
         lib.areal_flash_bwd_dkv.argtypes = (
-            [ptr] * 14 + [i32] * 5 + [f32, i32, ptr]
+            [ptr] * 15 + [i32] * 6 + [f32, i32, ptr]
         )
         for fn in (lib.areal_flash_fwd, lib.areal_flash_bwd_dq, lib.areal_flash_bwd_dkv):
             fn.restype = ctypes.c_int
-        lib.areal_flash_smem_bytes.argtypes = [i32] * 4
+        lib.areal_flash_smem_bytes.argtypes = [i32] * 5
         lib.areal_flash_smem_bytes.restype = i32
         lib.areal_flash_error_string.argtypes = [ctypes.c_int]
         lib.areal_flash_error_string.restype = ctypes.c_char_p
@@ -131,12 +144,44 @@ def tile_meta(seg, pos, *, queries: bool):
     return torch.stack([smin, smax, p], dim=1).to(torch.int32).contiguous()
 
 
-def smem_bytes(T: int, hd: int) -> dict[str, int]:
+def smem_bytes(T: int, hd: int, dtype: torch.dtype = torch.bfloat16) -> dict[str, int]:
     """Dynamic shared memory of one block of each kernel over a T-token
-    stream at head dim `hd`, as the launches size it (builds the library)."""
+    stream at head dim `hd` for `dtype` inputs, as the launches size it
+    (builds the library)."""
     lib = _kernel_lib()
-    return {name: lib.areal_flash_smem_bytes(i, hd, T, T)
+    bf16 = int(dtype == torch.bfloat16)
+    return {name: lib.areal_flash_smem_bytes(i, hd, T, T, bf16)
             for i, name in enumerate(("fwd", "dq", "dkv"))}
+
+
+class FlashLayout(NamedTuple):
+    """The segment layout of one (query, key) stream pair as the kernels
+    read it: int32 segment ids and positions, and each 64-row tile's
+    `tile_meta`."""
+    seg_q: torch.Tensor
+    seg_k: torch.Tensor
+    pos_q: torch.Tensor
+    pos_k: torch.Tensor
+    meta_q: torch.Tensor
+    meta_k: torch.Tensor
+
+
+def flash_layout(seg_q, seg_k, q_positions, kv_positions) -> FlashLayout:
+    """The `FlashLayout` of queries (`seg_q`, `q_positions` `[Tq]`) against
+    keys (`seg_k`, `kv_positions` `[Tk]`)."""
+    global layout_builds
+    layout_builds += 1
+    sq, sk, pq, pk = (t.to(torch.int32).contiguous()
+                      for t in (seg_q, seg_k, q_positions, kv_positions))
+    return FlashLayout(sq, sk, pq, pk, tile_meta(sq, pq, queries=True),
+                       tile_meta(sk, pk, queries=False))
+
+
+def packed_layout(segment_ids) -> FlashLayout:
+    """The `FlashLayout` of a packed stream attending to itself, causal by
+    stream index."""
+    pos = torch.arange(segment_ids.shape[0], device=segment_ids.device, dtype=torch.int32)
+    return flash_layout(segment_ids, segment_ids, pos, pos)
 
 
 def _check(q, k, v, seg_q, seg_k, pos_q, pos_k) -> None:
@@ -164,10 +209,20 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _check_aligned(**tensors) -> None:
+    """The bf16 kernels K1 and K2b copy rows of q, k, v and dO 16 bytes at
+    a time (cp.async): their storage must start 16-byte aligned."""
+    for name, t in tensors.items():
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} starts at {t.data_ptr():#x}, not 16-byte aligned: "
+                             "the bf16 flash kernels copy 16-byte rows")
+
+
 def flash_fwd(q, k, v, seg_q, seg_k, pos_q, pos_k, meta_q, meta_k, sm_scale: float):
     """K1 on CUDA tensors (contiguous; int32 ids and `tile_meta`s):
     (o `[Tq, nH, hd]` in q's dtype, lse `[nH, Tq]` f32)."""
     global launches_fwd
+    _check_aligned(q=q, k=k, v=v)
     Tq, nH, hd = q.shape
     Tk, nKV, _ = k.shape
     o = torch.empty_like(q)
@@ -203,20 +258,30 @@ def flash_bwd_dq(q, k, v, do, lse, dd, seg_q, seg_k, pos_q, pos_k, meta_q, meta_
 
 
 def flash_bwd_dkv(q, k, v, do, lse, dd, seg_q, seg_k, pos_q, pos_k, meta_q, meta_k,
-                  sm_scale: float):
+                  sm_scale: float, *, splits: int | None = None):
     """K2b on CUDA tensors: (dk, dv) `[Tk, nKV, hd]` in k's dtype, summed
-    over each kv head's group of query heads inside the kernel."""
+    over each kv head's group of query heads. In bf16 `splits` blocks
+    (by default the group size: one query head each) share each K tile's
+    heads, and a second launch adds their f32 partials in a fixed order;
+    f32 takes one block per (K tile, kv head)."""
     global launches_dkv
+    _check_aligned(q=q, k=k, v=v, do=do)
     Tq, nH, hd = q.shape
     Tk, nKV, _ = k.shape
+    bf16 = q.dtype == torch.bfloat16
+    if splits is None:
+        splits = nH // nKV if bf16 else 1
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    work = None
+    if splits > 1:
+        work = torch.empty(2 * splits * k.numel(), dtype=torch.float32, device=q.device)
     err = _kernel_lib().areal_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         dd.data_ptr(), seg_q.data_ptr(), seg_k.data_ptr(), pos_q.data_ptr(),
         pos_k.data_ptr(), meta_q.data_ptr(), meta_k.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), Tq, Tk, nH, nKV, hd, float(sm_scale),
-        int(q.dtype == torch.bfloat16), _stream(q),
+        dv.data_ptr(), None if work is None else work.data_ptr(), splits,
+        Tq, Tk, nH, nKV, hd, float(sm_scale), int(bf16), _stream(q),
     )
     _raise_on(err, "dkv")
     launches_dkv += 1
@@ -261,13 +326,11 @@ def flash_bwd_dkv_ref(q, k, v, do, lse, dd, seg_q, seg_k, pos_q, pos_k, sm_scale
 
 class _FlashAttention(torch.autograd.Function):
     """Forward K1, backward K2a + K2b. Inputs are CUDA tensors: q
-    `[Tq, nH, hd]`, k/v `[Tk, nKV, hd]`, int32 segment ids and positions.
-    Returns (o `[Tq, nH, hd]`, lse `[nH, Tq]` f32)."""
+    `[Tq, nH, hd]`, k/v `[Tk, nKV, hd]`, and the six tensors of a
+    `FlashLayout`. Returns (o `[Tq, nH, hd]`, lse `[nH, Tq]` f32)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seg_q, seg_k, pos_q, pos_k, sm_scale):
-        meta_q = tile_meta(seg_q, pos_q, queries=True)
-        meta_k = tile_meta(seg_k, pos_k, queries=False)
+    def forward(ctx, q, k, v, seg_q, seg_k, pos_q, pos_k, meta_q, meta_k, sm_scale):
         o, lse = flash_fwd(q, k, v, seg_q, seg_k, pos_q, pos_k, meta_q, meta_k, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse, seg_q, seg_k, pos_q, pos_k, meta_q, meta_k)
         ctx.sm_scale = sm_scale
@@ -282,35 +345,33 @@ class _FlashAttention(torch.autograd.Function):
         dd = (dlse.float() - delta).contiguous()
         dq = flash_bwd_dq(q, k, v, do, lse, dd, *ids, ctx.sm_scale)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, dd, *ids, ctx.sm_scale)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
-def flash_attention_chunk(q, k, v, seg_q, seg_k, q_positions, kv_positions, *,
-                          sm_scale: float | None = None):
+def flash_attention_chunk(q, k, v, layout: FlashLayout, *, sm_scale: float | None = None):
     """Attention of queries `[Tq, nH, hd]` against one kv chunk
-    `[Tk, nKV, hd]`; positions are global token indices deciding
-    causality. Returns (out `[Tq, nH, hd]`, lse `[Tq, nH]` f32), `out`
-    normalised within this chunk and differentiable through both."""
+    `[Tk, nKV, hd]` under `layout` (`flash_layout` of their segment ids
+    and global positions, which decide causality). Returns (out
+    `[Tq, nH, hd]`, lse `[Tq, nH]` f32), `out` normalised within this
+    chunk and differentiable through both."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, seg_q, seg_k, q_positions,
-                                   kv_positions, sm_scale=sm_scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
-    ints = [t.to(torch.int32).contiguous() for t in (seg_q, seg_k, q_positions, kv_positions)]
+    ints = layout[:4]
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, *ints, sm_scale=sm_scale)
     _check(q, k, v, *ints)
     if q.shape[0] == 0 or k.shape[0] == 0:
         raise ValueError("flash attention needs at least one query and one key")
-    o, lse = _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   *ints, float(sm_scale))
+    o, lse = _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), *layout,
+                                   float(sm_scale))
     return o, lse.t()
 
 
-def flash_attention(q, k, v, segment_ids, *, sm_scale: float | None = None):
-    """Packed-layout attention: q `[T, nH, hd]`, k/v `[T, nKV, hd]`,
-    `segment_ids` `[T]` (PADDING_SEGMENT marks pad tokens), causal by
-    stream index within each segment. Returns `[T, nH, hd]` in q's dtype."""
-    pos = torch.arange(q.shape[0], device=q.device, dtype=torch.int32)
-    return flash_attention_chunk(q, k, v, segment_ids, segment_ids, pos, pos,
-                                 sm_scale=sm_scale)[0]
+def flash_attention(q, k, v, layout: FlashLayout, *, sm_scale: float | None = None):
+    """Packed-layout attention: q `[T, nH, hd]`, k/v `[T, nKV, hd]` under
+    `layout = packed_layout(segment_ids)` (PADDING_SEGMENT marks pad
+    tokens), causal by stream index within each segment. Returns
+    `[T, nH, hd]` in q's dtype."""
+    return flash_attention_chunk(q, k, v, layout, sm_scale=sm_scale)[0]

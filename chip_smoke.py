@@ -171,13 +171,14 @@ def phase_device() -> tuple[torch.device, str]:
 
 def _ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel from nvcc's `-Xptxas -v` report:
-    kernel<dtype,head_dim>, registers, spill bytes."""
+    kernel<dtype,head_dim>, registers, spill bytes. The flash tensor-core
+    kernels (`*_mma_kernel<HD>`) take bf16 only."""
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"\d((?:flash|paged|quant)_[a-z0-9_]+?kernel)I(f|13__nv_bfloat16)Li(\d+)E", line)
-            name = (f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'},{m.group(3)}>"
-                    if m else line.split("'")[1])
+            m = re.search(r"\d((?:flash|paged|quant)_[a-z0-9_]+?kernel)I(f|13__nv_bfloat16)?Li(\d+)E", line)
+            dtype = "f32" if m and m.group(2) == "f" else "bf16"
+            name = f"{m.group(1)}<{dtype},{m.group(3)}>" if m else line.split("'")[1]
         elif "spill stores" in line and name:
             spill = re.findall(r"(\d+) bytes spill", line)
         elif "Used" in line and name:
@@ -197,7 +198,8 @@ def phase_build() -> None:
     rows = [dict(name=b.name, seconds=b.seconds, cached=b.cached, ptxas=_ptxas_summary(b.log))
             for b in built.values()]
     # ptxas reports static shared memory only; the kernels size theirs per launch
-    smem = {f"hd{hd}": fa.smem_bytes(8192, hd) for hd in (16, 64, 128)}
+    smem = {f"{str(dt).split('.')[-1]}_hd{hd}": fa.smem_bytes(8192, hd, dt)
+            for dt in (torch.bfloat16, torch.float32) for hd in (16, 64, 128)}
     # quant_matmul: 4 stages of a 64 x 144-byte int8 tile and a 16 mt x 72 x tile
     qmm = {f"{dt}_mt{mt}": 4 * (64 * 144 + 16 * mt * 72 * size)
            for dt, size in (("bf16", 2), ("f32", 4)) for mt in (1, 4)}
@@ -326,6 +328,8 @@ FLASH_CASES = [
     dict(name="qwen2.5-7b", nH=28, nKV=4, hd=128, T=2048, n_seqs=12),
     dict(name="qwen2.5-0.5b", nH=14, nKV=2, hd=64, T=2048, n_seqs=16),
     dict(name="small", nH=4, nKV=2, hd=16, T=1000, n_seqs=9),
+    # hd 32, one kv head for a group of 6, a ragged T
+    dict(name="hd32-mqa", nH=6, nKV=1, hd=32, T=777, n_seqs=5),
 ]
 FLASH_PAD = 45  # pad-tail rows (segment -1): fully masked, o 0 and lse -1e30
 # (a, rtol): an element passes when |x - ref| <= a * max|ref| + rtol * |ref|,
@@ -403,13 +407,16 @@ def phase_flash_kernel(dev: torch.device) -> dict:
     and dv. Each case also reads the kernels against a planted fault, the
     plain version with the causal diagonal excluded (query positions
     shifted by one), and checks that the tolerance would catch it."""
+    def kernels(q, k, v, *ids):
+        return fa.flash_attention_chunk(q, k, v, fa.flash_layout(*ids))
+
     rows, worst = [], {}
     cases = [(c, False) for c in FLASH_CASES] + [(FLASH_CASES[0], True)]
     for i, (case, chunk) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, ids, w_o, w_l = _flash_case(case, dtype, dev, SEED + 10 + i, chunk)
             xs = [t.to(dtype).requires_grad_() for t in (q, k, v)]
-            got = _flash_run(fa.flash_attention_chunk, *xs, ids, w_o, w_l)
+            got = _flash_run(kernels, *xs, ids, w_o, w_l)
             torch.cuda.synchronize()
             fs = [t.clone().requires_grad_() for t in (q, k, v)]
             ref = _flash_run(fa.flash_attention_ref, *fs, ids, w_o, w_l)
@@ -438,9 +445,20 @@ def phase_flash_kernel(dev: torch.device) -> dict:
             check(dead_ok, f"flash {name}: a fully-masked row is not o 0, lse -1e30")
             rows.append(row)
             del xs, got, fs, ref, fault
+    # the bf16 kernels copy 16-byte rows: a misaligned view raises in the
+    # wrapper and never reaches them
+    q, k, v, ids, _, _ = _flash_case(FLASH_CASES[-1], torch.bfloat16, dev, SEED, False)
+    shifted = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(q.shape)
+    shifted.copy_(q)
+    try:
+        kernels(shifted, k.to(torch.bfloat16), v.to(torch.bfloat16), *ids)
+        misaligned_raises = False
+    except ValueError:
+        misaligned_raises = True
+    check(misaligned_raises, "flash: a misaligned bf16 q reached the kernels")
     emit("flash_kernel", tol=dict(f32=FLASH_TOL[torch.float32],
                                   bf16=FLASH_TOL[torch.bfloat16], lse=LSE_TOL),
-         cases=rows, max_abs_err=worst)
+         cases=rows, max_abs_err=worst, misaligned_bf16_raises=misaligned_raises)
     return worst
 
 
@@ -1737,6 +1755,12 @@ def _grpo_batch(prompts: list[list[int]], resps) -> dict:
     return batch
 
 
+def _segment_ids_of(mb: dict) -> np.ndarray:
+    """A packed micro-batch's segment ids, as the train engine makes them."""
+    cu = np.asarray(mb["cu_seqlens"])
+    return segment_ids_from_cu_seqlens(cu, int(cu[-1]))
+
+
 def _flash_counts() -> np.ndarray:
     return np.array([fa.launches_fwd, fa.launches_dq, fa.launches_dkv])
 
@@ -1892,7 +1916,7 @@ def phase_train(dev: torch.device) -> dict:
             eval_launches += _flash_counts() - e0
         else:
             snapshot = {k: v.detach().clone() for k, v in actor.params.items()}
-        c2 = _flash_counts()
+        c2, builds0 = _flash_counts(), fa.layout_builds
         if it == TRAIN_ITERS - 1:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -1908,6 +1932,30 @@ def phase_train(dev: torch.device) -> dict:
         else:
             stats = actor.ppo_update(batch)
         c3 = _flash_counts()
+        # the segment layout is built once per micro-batch forward (the remat
+        # reruns reuse it); before, every flash call built its own
+        row["layout_builds"] = fa.layout_builds - builds0
+        check(row["layout_builds"] == n_mbs,
+              f"ppo_update built the flash layout {row['layout_builds']} times, want {n_mbs}")
+        if "profile" in row:
+            # one layout build's kernels, from L builds in a row: the host's
+            # launch calls, and the kernels the device trace recorded
+            seg_dev = torch.as_tensor(_segment_ids_of(main_mb), device=dev)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as lprof:
+                for _ in range(L):
+                    fa.packed_layout(seg_dev)
+                torch.cuda.synchronize()
+            per_build = sum(ev.count for ev in lprof.key_averages()
+                            if ev.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))) / L
+            flash_calls = int(c3[0] - c2[0])
+            row["profile"].update(
+                layout_launches_per_build=per_build,
+                layout_traced_kernels_per_build=_device_ms_by_family(lprof)[1] / L,
+                flash_calls=flash_calls, layout_builds=row["layout_builds"],
+                # reckoned, not traced: this run's kernels plus one build's
+                # launches for each flash call past the micro-batches' own
+                reckoned_kernels_with_a_layout_per_call=n_kernels + per_build * (
+                    flash_calls - row["layout_builds"]))
         want = [2 * n_mbs * L, n_mbs * L, n_mbs * L]
         check((c3 - c2).tolist() == want, f"ppo_update launched {(c3 - c2).tolist()}, want {want}")
         st = stats[0]
@@ -1955,10 +2003,15 @@ def phase_train(dev: torch.device) -> dict:
          decode_step_ms=engine.decode_seconds / engine.decode_steps * 1e3,
          decode_steps=engine.decode_steps, prefill_tokens=engine.prefill_tokens,
          prefill_s=engine.prefill_seconds)
-    seg = segment_ids_from_cu_seqlens(np.asarray(main_mb["cu_seqlens"]), int(main_mb["cu_seqlens"][-1]))
+    seg = _segment_ids_of(main_mb)
     engine.destroy()
     actor.destroy()
     return dict(launches=launches, segment_ids=seg, cfg=cfg)
+
+
+FLASH_FLOPS_PER_PAIR = {  # x head_dim x query heads, per valid (query, key) pair
+    "flash_attention_fwd": 4, "flash_attention_bwd_dq": 6, "flash_attention_bwd_dkv": 8,
+}
 
 
 def _flash_bounds(T: int, nH: int, nKV: int, hd: int, pairs: int) -> dict:
@@ -1970,18 +2023,26 @@ def _flash_bounds(T: int, nH: int, nKV: int, hd: int, pairs: int) -> dict:
     kv = T * nKV * hd * 2
     rows = T * nH * 4
     ids = 4 * T * 4
-    work = {
-        "flash_attention_fwd": (q + 2 * kv + ids + q + rows, 4),
-        "flash_attention_bwd_dq": (2 * q + 2 * kv + 2 * rows + ids + q, 6),
-        "flash_attention_bwd_dkv": (2 * q + 2 * kv + 2 * rows + ids + 2 * kv, 8),
+    moved = {
+        "flash_attention_fwd": q + 2 * kv + ids + q + rows,
+        "flash_attention_bwd_dq": 2 * q + 2 * kv + 2 * rows + ids + q,
+        "flash_attention_bwd_dkv": 2 * q + 2 * kv + 2 * rows + ids + 2 * kv,
     }
     out = {}
-    for name, (nbytes, per_pair) in work.items():
+    for name, nbytes in moved.items():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = per_pair * hd * nH * pairs / BF16_FLOPS * 1e3
+        ops_ms = FLASH_FLOPS_PER_PAIR[name] * hd * nH * pairs / BF16_FLOPS * 1e3
         out[name] = dict(bound_ms=max(bytes_ms, ops_ms),
                          bound_by="bytes" if bytes_ms >= ops_ms else "operations")
     return out
+
+
+def _live_tile_pairs(mq, mk) -> int:
+    """(Q tile, K tile) pairs the kernels visit for one head (`tile_meta`'s
+    liveness rule)."""
+    qm, km = mq[:, None, :], mk[None, :, :]
+    live = (qm[..., 0] <= km[..., 1]) & (km[..., 0] <= qm[..., 1]) & (km[..., 2] <= qm[..., 2])
+    return int(live.sum())
 
 
 def phase_flash_line(dev: torch.device, train: dict) -> list[dict]:
@@ -1989,8 +2050,10 @@ def phase_flash_line(dev: torch.device, train: dict) -> list[dict]:
     micro-batch's packed segments, Qwen2.5-1.5B heads, bf16): each kernel
     wrapper against its plain version on the same inputs (f32-upcast),
     CUDA-event times of both, and `scaled_dot_product_attention` with the
-    [T, T] segment-causal mask, forward and backward timed apart, as the
-    library yardstick (timed here only; the port never calls it)."""
+    [T, T] segment-causal mask and `varlen_attn`, forward and backward timed
+    apart, as the library yardsticks (timed here only; the port never calls
+    them). Kernels and yardsticks are timed as the host issues them
+    (`_time`) and on the device alone (`_time_device`)."""
     cfg = train["cfg"]
     seg_np = train["segment_ids"]
     T = len(seg_np)
@@ -2002,11 +2065,8 @@ def phase_flash_line(dev: torch.device, train: dict) -> list[dict]:
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
     q, k, v, do = rand(T, nH, hd), rand(T, nKV, hd), rand(T, nKV, hd), rand(T, nH, hd)
-    seg = torch.as_tensor(seg_np, device=dev)
-    pos = torch.arange(T, dtype=torch.int32, device=dev)
-    ids = (seg, seg, pos, pos)
-    mq = fa.tile_meta(seg, pos, queries=True)
-    mk = fa.tile_meta(seg, pos, queries=False)
+    lay = fa.packed_layout(torch.as_tensor(seg_np, device=dev))
+    ids, mq, mk = lay[:4], lay.meta_q, lay.meta_k
     sm = 1.0 / math.sqrt(hd)
     o, lse = fa.flash_fwd(q, k, v, *ids, mq, mk, sm)
     dd = (-(o.float() * do.float()).sum(-1).t()).contiguous()
@@ -2032,15 +2092,28 @@ def phase_flash_line(dev: torch.device, train: dict) -> list[dict]:
                           for out, (x, r) in outs.items() if out != "lse"}
         check(ratios[name] <= 1.0,
               f"{name} vs its plain version at the train shape: {ratios[name]} x the tolerance")
-    del ro, rl, rdq, rdk, rdv, f32, checks
+    # K2b at every split of a kv head's query heads over blocks (the
+    # default, one head per block, is the last), each checked and timed
+    split_sweep = []
+    for splits in range(1, g + 1):
+        def dkv(i, splits=splits):
+            return fa.flash_bwd_dkv(q, k, v, do, lse, dd, *ids, mq, mk, sm, splits=splits)
 
-    ms = {
-        "flash_attention_fwd": _time(lambda i: fa.flash_fwd(q, k, v, *ids, mq, mk, sm), 20),
-        "flash_attention_bwd_dq": _time(
-            lambda i: fa.flash_bwd_dq(q, k, v, do, lse, dd, *ids, mq, mk, sm), 20),
-        "flash_attention_bwd_dkv": _time(
-            lambda i: fa.flash_bwd_dkv(q, k, v, do, lse, dd, *ids, mq, mk, sm), 20),
+        sdk, sdv = dkv(0)
+        ratio = max(_scaled_ratio(sdk, rdk, a, rtol), _scaled_ratio(sdv, rdv, a, rtol))
+        check(ratio <= 1.0, f"K2b at {splits} splits vs its plain version at the train "
+                            f"shape: {ratio} x the tolerance")
+        split_sweep.append(dict(splits=splits, tol_ratio=ratio, device_ms=_time_device(dkv, 20)))
+    del ro, rl, rdq, rdk, rdv, f32, checks, sdk, sdv
+
+    calls = {
+        "flash_attention_fwd": lambda i: fa.flash_fwd(q, k, v, *ids, mq, mk, sm),
+        "flash_attention_bwd_dq": lambda i: fa.flash_bwd_dq(q, k, v, do, lse, dd, *ids, mq, mk, sm),
+        "flash_attention_bwd_dkv": lambda i: fa.flash_bwd_dkv(q, k, v, do, lse, dd, *ids, mq, mk,
+                                                               sm),
     }
+    ms = {name: _time(fn, 20) for name, fn in calls.items()}
+    device_ms = {name: _time_device(fn, 20) for name, fn in calls.items()}
     with torch.no_grad():
         plain_ms = {
             "flash_attention_fwd": _time(
@@ -2058,31 +2131,49 @@ def phase_flash_line(dev: torch.device, train: dict) -> list[dict]:
     v4 = v.transpose(0, 1)[None].repeat_interleave(g, dim=1).contiguous().requires_grad_()
     do4 = do.transpose(0, 1)[None].contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib, lib_device = {}, {}
+
+    def sdpa_fwd(i):
+        return sdpa(q4, k4, v4, attn_mask=mask)
+
     with torch.no_grad():
-        lib_fwd = _time(lambda i: sdpa(q4, k4, v4, attn_mask=mask), 20)
+        lib["fwd"], lib_device["fwd"] = _time(sdpa_fwd, 20), _time_device(sdpa_fwd, 20)
     out4 = sdpa(q4, k4, v4, attn_mask=mask)
-    lib_bwd = _time(lambda i: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True), 20)
+
+    def sdpa_bwd(i):
+        return torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True)
+
+    lib["bwd"], lib_device["bwd"] = _time(sdpa_bwd, 20), _time_device(sdpa_bwd, 20)
+    del out4, q4, k4, v4, do4, mask
     varlen = _varlen_library_ms(q, k, v, do, seg_np, g)
-    lib = {"flash_attention_fwd": lib_fwd, "flash_attention_bwd_dq": lib_bwd,
-           "flash_attention_bwd_dkv": lib_bwd}
     lens = np.bincount(seg_np[seg_np >= 0])
     pairs = int((lens * (lens + 1) // 2).sum())
+    tile_pairs = _live_tile_pairs(mq.cpu(), mk.cpu()) * nH
     bounds = _flash_bounds(T, nH, nKV, hd, pairs)
     rows = []
     for name in ms:
+        d = "fwd" if name.endswith("fwd") else "bwd"
+        flops = FLASH_FLOPS_PER_PAIR[name] * hd * nH * pairs
         rows.append(dict(
             name=name, route="cuda", source=FLASH_SOURCE, replaces=FLASH_REPLACES[name],
             launches=train["launches"][name], max_abs_err=errs[name], max_err=errs[name],
             tol=dict(a=a, rtol=rtol), tol_ratio=ratios[name], rounding=rounding[name],
-            ms=ms[name], plain_ms=plain_ms[name], **bounds[name], library_ms=lib[name],
+            ms=ms[name], device_ms=device_ms[name],
+            tflops=flops / (device_ms[name] * 1e-3) / 1e12, tile_pairs=tile_pairs,
+            route_detail=("tensor cores (mma.sync bf16, P/dS as hi + lo)"
+                          if name != "flash_attention_bwd_dq" else "CUDA cores (first version)"),
+            plain_ms=plain_ms[name], **bounds[name],
+            library_ms=lib[d], library_device_ms=lib_device[d],
             library_call=("scaled_dot_product_attention forward, [T, T] mask"
-                          if name.endswith("fwd") else
+                          if d == "fwd" else
                           "scaled_dot_product_attention backward (dq, dk, dv in one call)"),
-            library_varlen_ms=varlen["fwd" if name.endswith("fwd") else "bwd"],
+            library_varlen_ms=varlen[d], library_varlen_device_ms=varlen[d + "_device"],
             library_varlen_call=varlen["call"],
             shape=dict(T=T, nH=nH, nKV=nKV, hd=hd, segments=len(lens),
                        valid_pairs=pairs, dtype="bfloat16"),
         ))
+        if name == "flash_attention_bwd_dkv":
+            rows[-1].update(splits=g, split_sweep=split_sweep)
     return rows
 
 
@@ -2116,11 +2207,19 @@ def _varlen_library_ms(q, k, v, do, seg_np, g) -> dict:
     mx = int(lens.max())
     causal = (-1, 0)
     with torch.no_grad():
-        fwd = _time(lambda i: varlen_attn(q, kr, vr, cu, cu, mx, mx, window_size=causal), 20)
+        def fwd_fn(i):
+            return varlen_attn(q, kr, vr, cu, cu, mx, mx, window_size=causal)
+
+        fwd, fwd_device = _time(fwd_fn, 20), _time_device(fwd_fn, 20)
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, kr, vr))
     out = varlen_attn(qg, kg, vg, cu, cu, mx, mx, window_size=causal)
-    bwd = _time(lambda i: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True), 20)
-    return dict(fwd=fwd, bwd=bwd, call="torch.nn.attention.varlen.varlen_attn "
+
+    def bwd_fn(i):
+        return torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+
+    bwd, bwd_device = _time(bwd_fn, 20), _time_device(bwd_fn, 20)
+    return dict(fwd=fwd, bwd=bwd, fwd_device=fwd_device, bwd_device=bwd_device,
+                call="torch.nn.attention.varlen.varlen_attn "
                 "(window_size=(-1, 0), kv heads repeated)")
 
 

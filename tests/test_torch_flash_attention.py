@@ -70,7 +70,7 @@ def test_forward_and_grads_match_jax(T, shape):
     (_, jo), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     tq, tk, tv = _t(q, k, v)
-    to = tfa.flash_attention(tq, tk, tv, torch.from_numpy(seg))
+    to = tfa.flash_attention(tq, tk, tv, tfa.packed_layout(torch.from_numpy(seg)))
     torch.sin(to).sum().backward()
     np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo), atol=FWD_TOL, rtol=FWD_TOL)
     for t, j, name in zip((tq, tk, tv), jg, "qkv"):
@@ -111,7 +111,7 @@ def test_chunk_with_offsets_and_dlse_matches_jax(shape):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     tq, tk, tv = _t(q, k, v)
     to, tl = tfa.flash_attention_chunk(
-        tq, tk, tv, *(torch.from_numpy(a) for a in (seg_q, seg_k, qpos, kpos)))
+        tq, tk, tv, tfa.flash_layout(*(torch.from_numpy(a) for a in (seg_q, seg_k, qpos, kpos))))
     live = tl > -5e29
     ((to * torch.from_numpy(w_o)).sum()
      + (torch.where(live, tl, 0.0) * torch.from_numpy(w_l)).sum()).backward()
@@ -131,10 +131,11 @@ def test_ref_matches_its_wrappers_and_rejects_other_devices():
     tq, tk, tv, tseg = (torch.from_numpy(a) for a in (q, k, v, seg))
     pos = torch.arange(130)
     ref_o, ref_l = tfa.flash_attention_ref(tq, tk, tv, tseg, tseg, pos, pos)
-    assert torch.equal(tfa.flash_attention(tq, tk, tv, tseg), ref_o)
+    assert torch.equal(tfa.flash_attention(tq, tk, tv, tfa.packed_layout(tseg)), ref_o)
     assert ref_l.shape == (130, 4) and ref_l.dtype == torch.float32
     with pytest.raises(ValueError):
-        tfa.flash_attention(tq.to("meta"), tk.to("meta"), tv.to("meta"), tseg.to("meta"))
+        tfa.flash_attention(tq.to("meta"), tk.to("meta"), tv.to("meta"),
+                            tfa.packed_layout(tseg.to("meta")))
 
 
 def _live(meta_q, meta_k):
@@ -246,7 +247,8 @@ def test_autograd_function_wiring_with_plain_kernels(monkeypatch):
     for path in ("function", "plain"):
         tq, tk, tv = _t(q, k, v)
         if path == "function":
-            o, lse = tfa._FlashAttention.apply(tq, tk, tv, *ids, 1.0 / np.sqrt(shape[2]))
+            o, lse = tfa._FlashAttention.apply(tq, tk, tv, *tfa.flash_layout(*ids),
+                                               1.0 / np.sqrt(shape[2]))
             lse = lse.t()
         else:
             o, lse = tfa.flash_attention_ref(tq, tk, tv, *ids)
@@ -257,3 +259,288 @@ def test_autograd_function_wiring_with_plain_kernels(monkeypatch):
     for got, want in zip(*grads):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=GRAD_TOL, rtol=GRAD_TOL)
     assert (tfa.launches_fwd, tfa.launches_dq, tfa.launches_dkv) == (1, 1, 1)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernels' numerics design, emulated in plain PyTorch
+# ---------------------------------------------------------------------------
+#
+# The tensor-core K1 and K2b (`csrc/flash_attention.cu`) multiply bf16
+# operands with f32 sums; P (K1, and P^T in K2b) and dS^T are f32 values
+# fed to the second products as bf16 hi + lo terms; exponentials are taken
+# in log2 units; K2a is the first version (f32 products). The emulation
+# below follows that rounding tile by tile (64 keys per K1 step) and is
+# held to chip_smoke.py's bf16 tolerances: phase_flash_kernel's (a, rtol) =
+# (2^-8, 2^-8), lse (2e-5, 0), against the plain version with autograd and
+# against the JAX Pallas kernels in interpret mode; and the train-shape
+# check of its flash line, (2e-5, 2^-8) against the plain version on the
+# same lse and dd. An element passes when |x - ref| <= a max|ref| + rtol |ref|.
+
+BF16_TOL = (2.0 ** -8, 2.0 ** -8)
+LSE_TOL = (2e-5, 0.0)
+TRAIN_SHAPE_TOL = (2e-5, 2.0 ** -8)
+_LOG2E = 1.4426950408889634
+QWEN15 = (12, 2, 128)  # Qwen2.5-1.5B heads and head dim
+
+
+def _bf(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _terms(x, split):
+    """x as the kernels feed it to a product: bf16 hi (+ bf16 lo)."""
+    hi = _bf(x)
+    return hi + _bf(x - hi) if split else hi
+
+
+def _emulated_fwd(q, k, v, ids, sm, split):
+    """K1: (o rounded to bf16 [Tq, nH, hd], lse f32 [nH, Tq])."""
+    Tq, nH, hd = q.shape
+    Tk, nKV, _ = k.shape
+    g = nH // nKV
+    valid = tfa._valid(*ids)
+    qh = q.reshape(Tq, nKV, g, hd)
+    m = torch.full((nKV, g, Tq, 1), -1e30)
+    l = torch.zeros(nKV, g, Tq, 1)
+    acc = torch.zeros(nKV, g, Tq, hd)
+    for k0 in range(0, Tk, 64):
+        s = torch.einsum("tkgd,skd->kgts", qh, k[k0:k0 + 64]) * (sm * _LOG2E)
+        s = torch.where(valid[:, k0:k0 + 64], s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(m_new > -5e29, torch.exp2(s - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("kgts,skd->kgtd", _terms(p, split), v[k0:k0 + 64])
+        m = m_new
+    safe_l = torch.where(l > 0, l, 1.0)
+    o = (acc / safe_l).permute(2, 0, 1, 3).reshape(Tq, nH, hd)
+    lse = torch.where(l > 0, m / _LOG2E + torch.log(safe_l), -1e30)[..., 0].reshape(nH, Tq)
+    return _bf(o), lse
+
+
+def _emulated_dkv(q, k, v, do, lse, dd, ids, sm, split):
+    """K2b: (dk, dv) rounded to bf16, summed over the GQA group."""
+    Tq, nH, hd = q.shape
+    nKV = k.shape[1]
+    g = nH // nKV
+    qh = q.reshape(Tq, nKV, g, hd)
+    s = torch.where(tfa._valid(*ids), torch.einsum("tkgd,skd->kgts", qh, k), -1e30)
+    lse2 = lse.reshape(nKV, g, Tq, 1) * _LOG2E
+    p = torch.where(lse2 > -5e29, torch.exp2(s * (sm * _LOG2E) - lse2), 0.0)
+    dof = do.reshape(Tq, nKV, g, hd)
+    ds = p * (torch.einsum("tkgd,skd->kgts", dof, v) + dd.reshape(nKV, g, Tq, 1))
+    dk = torch.einsum("kgts,tkgd->skd", _terms(ds, split), qh) * sm
+    dv = torch.einsum("kgts,tkgd->skd", _terms(p, split), dof)
+    return _bf(dk), _bf(dv)
+
+
+def _emulated_kernels(q, k, v, ids, w_o, w_l, split=True):
+    """(o, lse [Tq, nH], dq, dk, dv) of sum(o w_o) + sum(lse w_l) over live
+    rows, as the bf16 kernels and `_FlashAttention.backward` compute them."""
+    sm = 1.0 / np.sqrt(q.shape[-1])
+    o, lse = _emulated_fwd(q, k, v, ids, sm, split)
+    live = lse > -5e29
+    dd = torch.where(live, w_l.t(), 0.0) - (o * w_o).sum(-1).t()
+    dq = _bf(tfa.flash_bwd_dq_ref(q, k, v, w_o, lse, dd, *ids, sm))  # K2a: f32 products
+    dk, dv = _emulated_dkv(q, k, v, w_o, lse, dd, ids, sm, split)
+    return o, lse.t(), dq, dk, dv, dd
+
+
+def _ratio(x, ref, tol):
+    a, rtol = tol
+    return ((x - ref).abs() / (a * ref.abs().max() + rtol * ref.abs())).max().item()
+
+
+def _design_case(case, seed=0):
+    """chip_smoke's flash cases at T 512 with Qwen2.5-1.5B heads: a packed
+    stream with a 45-row pad tail, or a query chunk against an earlier,
+    overlapping kv chunk with a keyless segment and a gradient through lse.
+    Inputs are bf16 values held in f32."""
+    nH, nKV, hd = QWEN15
+    T = 512
+    rng = np.random.default_rng(seed)
+    if case == "packed":
+        seg_q = seg_k = _segments(T, 3, 45, rng)
+        pos_q = pos_k = np.arange(T, dtype=np.int32)
+    else:
+        pos_k = np.arange(1000, 1000 + T, dtype=np.int32)
+        pos_q = pos_k + T // 2
+        seg_k, seg_q = pos_k // 300, pos_q // 300
+        seg_q[100:150] = 10 ** 6  # no key of this segment: fully masked rows
+        seg_q[-45:] = tfa.PADDING_SEGMENT
+    q, k, v, w_o = (_bf(torch.from_numpy(rng.standard_normal(s).astype(np.float32)))
+                    for s in ((T, nH, hd), (T, nKV, hd), (T, nKV, hd), (T, nH, hd)))
+    w_l = (_bf(torch.from_numpy(rng.standard_normal((T, nH)).astype(np.float32)))
+           if case == "chunk" else torch.zeros(T, nH))
+    ids = [torch.from_numpy(np.ascontiguousarray(a)) for a in (seg_q, seg_k, pos_q, pos_k)]
+    return q, k, v, ids, w_o, w_l
+
+
+def _plain_with_grads(q, k, v, ids, w_o, w_l):
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    o, lse = tfa.flash_attention_ref(*qkv, *ids)
+    live = lse > -5e29
+    loss = (o * w_o).sum() + (torch.where(live, lse, 0.0) * w_l).sum()
+    return (o.detach(), lse.detach(), *torch.autograd.grad(loss, qkv))
+
+
+@pytest.mark.parametrize("case,seed", [("packed", 0), ("packed", 1), ("packed", 2),
+                                       ("chunk", 0)])
+def test_bf16_kernel_numerics_hold_the_chip_tolerances(case, seed):
+    """The emulated bf16 kernels (P and dS as hi + lo) against the plain
+    version with autograd at phase_flash_kernel's tolerances: K1's o and
+    lse, K2b's dk and dv. At the flash line's train-shape tolerance, against
+    the plain versions fed the same lse and dd: o, dk, dv, and K2a's dq.
+    (Through autograd, dq also carries delta = rowsum(dO * O) read from the
+    bf16 O: see the next test.)"""
+    q, k, v, ids, w_o, w_l = _design_case(case, seed)
+    got = _emulated_kernels(q, k, v, ids, w_o, w_l)
+    ref = _plain_with_grads(q, k, v, ids, w_o, w_l)
+    live = ref[1] > -5e29
+    assert torch.equal(got[1][~live], torch.full_like(got[1][~live], -1e30))
+    assert torch.equal(got[0][~live], torch.zeros_like(got[0][~live]))
+    assert _ratio(got[1][live], ref[1][live], LSE_TOL) <= 1.0
+    for name, j in (("o", 0), ("dk", 3), ("dv", 4)):
+        assert _ratio(got[j], ref[j], BF16_TOL) <= 1.0, name
+    # the train-shape check: the same lse and dd on both sides
+    o, lse, dq, dk, dv, dd = got
+    sm = 1.0 / np.sqrt(q.shape[-1])
+    lse_k = lse.t().contiguous()
+    ro, _ = tfa.flash_attention_ref(q, k, v, *ids)
+    rdq = tfa.flash_bwd_dq_ref(q, k, v, w_o, lse_k, dd, *ids, sm)
+    rdk, rdv = tfa.flash_bwd_dkv_ref(q, k, v, w_o, lse_k, dd, *ids, sm)
+    for name, x, r in (("o", o, ro), ("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        assert _ratio(x, r, TRAIN_SHAPE_TOL) <= 1.0, name
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bf16_dq_distance_is_delta_of_the_bf16_output(seed):
+    """dq through autograd: the backward's delta = rowsum(dO * O) reads the
+    bf16 O (as the JAX kernel does on bf16 inputs), an error shared by a
+    whole row of ds that dq sums coherently; at seed 2 it takes dq to 1.24x
+    phase_flash_kernel's bf16 tolerance. With delta from the f32 O the same
+    emulated kernels hold that tolerance."""
+    q, k, v, ids, w_o, w_l = _design_case("packed", seed)
+    ref = _plain_with_grads(q, k, v, ids, w_o, w_l)
+    sm = 1.0 / np.sqrt(q.shape[-1])
+    _, lse = _emulated_fwd(q, k, v, ids, sm, True)
+    o32, _ = tfa.flash_attention_ref(q, k, v, *ids)
+    dd = -(o32 * w_o).sum(-1).t()
+    dq = _bf(tfa.flash_bwd_dq_ref(q, k, v, w_o, lse, dd, *ids, sm))
+    assert _ratio(dq, ref[2], BF16_TOL) <= 1.0
+
+
+def test_single_bf16_term_would_miss_the_train_shape_tolerance():
+    """Why P and dS are split: as one bf16 term (FlashAttention-2's choice)
+    o, dk and dv land tens of times outside the train-shape check's 2e-5
+    absolute term, while hi + lo stays inside it."""
+    q, k, v, ids, w_o, w_l = _design_case("packed", seed=1)
+    sm = 1.0 / np.sqrt(q.shape[-1])
+    ro, _ = tfa.flash_attention_ref(q, k, v, *ids)
+    for split, inside in ((True, True), (False, False)):
+        o, lse = _emulated_fwd(q, k, v, ids, sm, split)
+        dd = (-(o * w_o).sum(-1).t()).contiguous()
+        dk, dv = _emulated_dkv(q, k, v, w_o, lse, dd, ids, sm, split)
+        rdk, rdv = tfa.flash_bwd_dkv_ref(q, k, v, w_o, lse, dd, *ids, sm)
+        ratios = [_ratio(o, ro, TRAIN_SHAPE_TOL), _ratio(dk, rdk, TRAIN_SHAPE_TOL),
+                  _ratio(dv, rdv, TRAIN_SHAPE_TOL)]
+        if inside:
+            assert max(ratios) <= 1.0, ratios
+        else:
+            assert min(ratios) > 5.0, ratios
+
+
+@pytest.mark.parametrize("case", ["packed", "chunk"])
+def test_bf16_kernel_numerics_match_jax_pallas(case):
+    """The emulated bf16 kernels against the JAX Pallas kernels (interpret
+    mode) on the same bf16-valued inputs, at phase_flash_kernel's bf16
+    tolerances (lse at its f32 one): K1's o and lse, K2b's dk and dv."""
+    q, k, v, ids, w_o, w_l = _design_case(case, seed=2)
+    got = _emulated_kernels(q, k, v, ids, w_o, w_l)
+    jids = [jnp.asarray(t.numpy()) for t in ids]
+
+    def jloss(q, k, v):
+        o, lse = jfa.flash_attention_chunk(q, k, v, *jids, block_q=128, block_k=128,
+                                           interpret=True)
+        live = lse > -5e29
+        return (jnp.sum(o * w_o.numpy()) + jnp.sum(jnp.where(live, lse, 0.0) * w_l.numpy()),
+                (o, lse))
+
+    (_, (jo, jl)), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    want = [torch.from_numpy(np.array(x)) for x in (jo, jl, *jg)]
+    live = want[1] > -5e29
+    assert _ratio(got[1][live], want[1][live], LSE_TOL) <= 1.0
+    for name, j in (("o", 0), ("dk", 3), ("dv", 4)):
+        assert _ratio(got[j], want[j], BF16_TOL) <= 1.0, name
+
+
+# ---------------------------------------------------------------------------
+# The segment layout, built once per micro-batch
+# ---------------------------------------------------------------------------
+
+
+def test_packed_layout_holds_what_the_kernels_read():
+    seg = torch.from_numpy(_segments(150, 3, 9, np.random.default_rng(0)))
+    builds = tfa.layout_builds
+    lay = tfa.packed_layout(seg.long())
+    assert tfa.layout_builds == builds + 1
+    assert all(t.dtype == torch.int32 and t.is_contiguous() for t in lay)
+    assert torch.equal(lay.seg_q, seg) and torch.equal(lay.seg_k, seg)
+    assert torch.equal(lay.pos_q, torch.arange(150, dtype=torch.int32))
+    assert torch.equal(lay.pos_k, lay.pos_q)
+    assert torch.equal(lay.meta_q, tfa.tile_meta(seg, lay.pos_q, queries=True))
+    assert torch.equal(lay.meta_k, tfa.tile_meta(seg, lay.pos_k, queries=False))
+    assert lay.meta_q.shape == (3, 3)  # 150 rows: three 64-row tiles
+
+
+def test_bf16_kernels_refuse_misaligned_rows():
+    """K1 and K2b copy 16-byte rows with cp.async: a bf16 tensor whose
+    storage starts off a 16-byte boundary raises (no silent copy); f32
+    inputs go to the first version, which reads elements."""
+    base = torch.zeros(8 * 64 + 8, dtype=torch.bfloat16)
+    tfa._check_aligned(q=base[:512].view(8, 4, 16))
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa._check_aligned(q=base[1:513].view(8, 4, 16))
+    tfa._check_aligned(q=torch.zeros(513)[1:].view(8, 4, 16))
+
+
+def test_model_builds_the_layout_once_per_forward(monkeypatch):
+    """`models/qwen2.forward` builds the flash layout once and hands it to
+    every layer and every remat rerun; outputs and gradients are bit for bit
+    those of the per-call layout (each attention call building its own)."""
+    from areal_tpu_torch.models import qwen2 as tq
+
+    cfg = tq.ModelConfig(vocab_size=64, hidden_size=32, intermediate_size=48,
+                         num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2,
+                         dtype="float32", param_dtype="float32", scan_layers=False, remat=True)
+    base = tq.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    T = 90
+    ids = torch.from_numpy(rng.integers(0, 64, T))
+    seg = torch.from_numpy(_segments(T, 3, 7, rng))
+    pos = torch.arange(T)
+    calls = []
+    real = tq.flash_attention
+
+    def per_call(q, k, v, layout):
+        calls.append(layout)
+        return real(q, k, v, tfa.packed_layout(layout.seg_q))  # its own, as before
+
+    results = {}
+    for mode in ("once", "per_call"):
+        if mode == "per_call":
+            monkeypatch.setattr(tq, "flash_attention", per_call)
+        params = {n: t.clone().requires_grad_() for n, t in base.items()}
+        builds = tfa.layout_builds
+        out = tq.forward(params, ids, pos, seg, cfg)
+        out.square().mean().backward()
+        results[mode] = (out.detach(), {n: p.grad for n, p in params.items()},
+                         tfa.layout_builds - builds)
+    (o1, g1, n1), (o2, g2, n2) = results["once"], results["per_call"]
+    assert n1 == 1  # the forward's; the remat reruns reuse it
+    assert n2 == 1 + 2 * cfg.num_hidden_layers  # plus one per layer, forward and rerun
+    assert len(calls) == 2 * cfg.num_hidden_layers
+    assert all(lay is calls[0] and isinstance(lay, tfa.FlashLayout) for lay in calls)
+    assert torch.equal(o1, o2)
+    assert all(torch.equal(g1[n], g2[n]) for n in g1)
