@@ -58,13 +58,23 @@ class OptimizerConfig:
 
 
 @dataclass
-class TrainEngineConfig:
-    """Train engine config (`areal_tpu/api/cli_args.py:194`).
+class JaxEngineConfig:
+    """The port's copy of the engine sub-config
+    (`areal_tpu/api/cli_args.py:129`), kept under its JAX name and key path
+    (`actor.jax.*`). Of it the port keeps the two knobs it acts on, with
+    the same names and defaults; the mesh, scan, pipeline and ZeRO knobs
+    have no counterpart on one card."""
 
-    The JAX `jax: JaxEngineConfig` sub-config (mesh, scan, pipeline and
-    ZeRO knobs) has no counterpart on one card; of it the port keeps
-    `remat_policy` and `fused_lm_loss`, with the same names and defaults,
-    as fields of this class."""
+    # layer-checkpointing policy; the port implements "full", and
+    # `models/qwen2.forward` refuses the others
+    remat_policy: str = "full"
+    # the vocab-chunked fused LM-head loss (`ops/fused_xent.py`)
+    fused_lm_loss: bool = True
+
+
+@dataclass
+class TrainEngineConfig:
+    """Train engine config (`areal_tpu/api/cli_args.py:194`)."""
 
     experiment_name: str = ""
     trial_name: str = ""
@@ -82,14 +92,11 @@ class TrainEngineConfig:
     weight_update_mode: str = "memory"
     weight_sync_delta: bool = True
     backend: str = "jax"
+    jax: JaxEngineConfig = field(default_factory=JaxEngineConfig)
     use_lora: bool = False
     lora_rank: int = 32
     lora_alpha: int = 16
     target_modules: list[str] = field(default_factory=list)
-    # from JaxEngineConfig: the layer-checkpointing policy ("full" is the
-    # one the port implements) and the vocab-chunked fused LM-head loss
-    remat_policy: str = "full"
-    fused_lm_loss: bool = True
 
 
 @dataclass
@@ -182,18 +189,20 @@ class TorchDecodeConfig:
     (`areal_tpu/engine/jax_decode.py:28-39, :447-453`); here they are
     accepted and not acted on.
 
-    The serving dtype is the installed model's (`ModelConfig.dtype`); the
-    JAX field `dtype` only matters with `model_path`, which the slice
-    refuses, so it is left out. An fp pool's `kv_cache_dtype` must equal
-    the model's dtype; `kv_dtype="int8"` stores the pool as int8 with f32
-    scales whatever `kv_cache_dtype` says, and `weight_dtype="int8"` serves
-    the dense matmul kernels as int8 (both checked in
-    `TorchDecodeEngine.initialize`, which raises ValueError for a value
-    outside `KV_DTYPES` / `WEIGHT_DTYPES`).
+    The serving dtype is the installed model's (`ModelConfig.dtype`).
+    `dtype` keeps its JAX name and default; as in the JAX engine
+    (`jax_decode.py:646-653`) it is read only to load `model_path`, which
+    the port still refuses, so nothing reads it yet. An fp pool's
+    `kv_cache_dtype` must equal the model's dtype; `kv_dtype="int8"`
+    stores the pool as int8 with f32 scales whatever `kv_cache_dtype`
+    says, and `weight_dtype="int8"` serves the dense matmul kernels as int8
+    (both checked in `TorchDecodeEngine.initialize`, which raises
+    ValueError for a value outside `KV_DTYPES` / `WEIGHT_DTYPES`).
     """
 
     model_path: str = ""
     random_seed: int = 1
+    dtype: str = "bfloat16"
     kv_cache_dtype: str = "bfloat16"
     kv_dtype: str = "fp"  # "fp" | "int8"
     weight_dtype: str = "fp"  # "fp" | "int8"

@@ -164,7 +164,8 @@ class Optimizer:
 def fused_lm_loss_enabled(engine) -> bool:
     """Whether `engine` wants `hidden_loss`-tagged loss functions (the
     vocab-chunked fused head; JAX :253)."""
-    return bool(getattr(getattr(engine, "config", None), "fused_lm_loss", False))
+    cfg = getattr(engine, "config", None)
+    return bool(getattr(getattr(cfg, "jax", None), "fused_lm_loss", False))
 
 
 class TorchTrainEngine(TrainEngine):
@@ -222,7 +223,7 @@ class TorchTrainEngine(TrainEngine):
                 dtype=cfg.dtype,
                 param_dtype=cfg.dtype,
                 remat=cfg.gradient_checkpointing,
-                remat_policy=cfg.remat_policy,
+                remat_policy=cfg.jax.remat_policy,
                 attn_impl=attn_impl,
             )
         self.model_config = dataclasses.replace(self.model_config, scan_layers=False)

@@ -28,50 +28,54 @@
 // (Qwen2.5-1.5B, a packed 8192-token micro-batch of sequences up to ~770
 // tokens: ~2.4M valid pairs per head, 12 query heads, HD 128) that is
 // 15-30 GFLOP against 10-25 MB of inputs and outputs. At the bf16
-// tensor-core rate (989 TFLOP/s) and 3.35 TB/s, K1's least time is its
-// bytes (0.018 ms against 0.015 ms of operations) and K2b's its
-// operations (0.030 ms).
+// tensor-core rate (989 TFLOP/s) and 3.35 TB/s, K1's and K2a's least
+// times are their bytes (0.018 and 0.025 ms, against 0.015 and 0.023 ms
+// of operations) and K2b's its operations (0.030 ms).
 //
 // Two routes, chosen by dtype:
 //
-// bf16 (the training path): K1 and K2b on the tensor cores. K2a keeps the
-// first version below until it gets the same design.
+// bf16 (the training path): all three kernels on the tensor cores.
 //   - mma.sync.m16n8k16, bf16 operands, f32 accumulators; 4 warps of 16
-//     tile rows each (queries in K1, keys in K2b). K1: one block per
-//     (64-row Q tile, query head); K2b: one block per (64-row K tile, kv
-//     head, split) that loops over its share of the group's heads and
-//     their live Q tiles and sums dK and dV in f32 registers (128 of its
-//     255 registers at HD 128). A sequence's first K tile sees all of its
-//     Q tiles and its last sees one, so on a short grid a few blocks carry
-//     most of the work: the wrapper splits the heads over `splits` blocks,
-//     by default one query head each (the fastest of 1..group at the
-//     train shape, chip_smoke.py's split sweep), and a second launch adds
-//     their f32 partials in split order. Deterministic, no atomics.
+//     tile rows each (queries in K1 and K2a, keys in K2b). K1 and K2a: one
+//     block per (64-row Q tile, query head); K2b: one block per (64-row K
+//     tile, kv head, split) that loops over its share of the group's heads
+//     and their live Q tiles and sums dK and dV in f32 registers (128 of
+//     its 255 registers at HD 128). A sequence's first K tile sees all of
+//     its Q tiles and its last sees one, so on a short grid a few blocks
+//     carry most of the work: the wrapper splits the heads over `splits`
+//     blocks, by default one query head each (the fastest of 1..group at
+//     the train shape, chip_smoke.py's split sweep), and a second launch
+//     adds their f32 partials in split order. Deterministic, no atomics.
 //   - Tiles in shared memory as bf16, rows padded by 16 bytes so that
-//     ldmatrix is free of bank conflicts. K1 keeps its Q tile and
-//     double-buffers the K/V tiles of its live list; K2b keeps its K/V
-//     tiles and double-buffers the Q/dO tiles (with their ids, lse and
-//     dd) of its live (head, Q tile) list. Each tile is copied with
-//     cp.async (16 bytes per copy; rows past T read as 0), the next live
-//     tile's copy issued before the current tile's products.
+//     ldmatrix is free of bank conflicts. K1 keeps its Q tile and K2a its
+//     Q and dO tiles, and both double-buffer the K/V tiles of their live
+//     list; K2b keeps its K/V tiles and double-buffers the Q/dO tiles (with
+//     their ids, lse and dd) of its live (head, Q tile) list. Each tile is
+//     copied with cp.async (16 bytes per copy; rows past T read as 0), the
+//     next live tile's copy issued before the current tile's products.
 //   - Scores come out of the mma in the accumulator layout of m16n8, which
-//     is the A-fragment layout of m16k16: P (K1), P^T and dS^T (K2b) feed
-//     the next product from registers and never touch shared memory. The
-//     second operand is read with ldmatrix (.trans for V, dO and Q in the
-//     second products). The online softmax runs in registers: a row lives
-//     in the 4 threads of a quad (two shuffles), exponentials as exp2f on
-//     scores prescaled by sm_scale * log2(e).
+//     is the A-fragment layout of m16k16: P (K1), dS (K2a), P^T and dS^T
+//     (K2b) feed the next product from registers and never touch shared
+//     memory. The second operand is read with ldmatrix (.trans for V in
+//     K1, K in K2a, dO and Q in K2b). The online softmax runs in
+//     registers: a row lives in the 4 threads of a quad (two shuffles),
+//     exponentials as exp2f on scores prescaled by sm_scale * log2(e).
+//   - K2a recomputes P from lse, so nothing carries from key to key but
+//     the dQ sums (64 registers at HD 128): it takes each K tile 32 keys at
+//     a time, and S, dP and dS of a step hold 16 + 16 registers where a
+//     whole tile would take 64. The Q and dO fragments are re-read from
+//     shared memory at every step.
 //   - Numerics. Every product of two bf16 inputs is exact in f32. P and
 //     dS are f32 in the JAX kernel and in the plain version; a single
-//     bf16 term (FlashAttention-2's choice) moves o, dk and dv by ~2^-9 of
-//     a term, which misses the train-shape check's 2e-5 absolute term
-//     20-60x (tests/test_torch_flash_attention.py emulates both). So each
+//     bf16 term (FlashAttention-2's choice) moves o, dq, dk and dv by
+//     ~2^-9 of a term, which misses the train-shape check's 2e-5 absolute
+//     term 20-60x (tests/test_torch_flash_attention.py emulates both). So each
 //     is split into bf16 hi + lo (within 2^-16 of the f32 value) and
 //     multiplied twice, lo first. The tensor cores' f32 accumulation
 //     truncates, so each stage of the second products (64 keys in K1, 16
-//     queries in K2b) is summed from zero and added into the running f32
-//     sums on the CUDA cores, rounding to nearest (K1 folds the softmax
-//     rescale into that add).
+//     keys in K2a, 16 queries in K2b) is summed from zero and added into
+//     the running f32 sums on the CUDA cores, rounding to nearest (K1
+//     folds the softmax rescale into that add).
 //   - Masks: every visited tile is masked per element (a tile that no
 //     boundary crosses pays the compares too).
 //
@@ -111,14 +115,6 @@ constexpr int kLdP = kTile + 1;     // padded row of a [64, 64] score tile
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float x, float* p) { *p = x; }
-__device__ __forceinline__ void store(float x, __nv_bfloat16* p) {
-  *p = __float2bfloat16_rn(x);
-}
 
 struct Args {
   const void* q;     // [Tq, nH, HD]
@@ -154,7 +150,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int t0,
   for (int i = threadIdx.x; i < kTile * HD; i += kThreads) {
     const int r = i / HD, d = i % HD, t = t0 + r;
     dst[r * LD + d] =
-        t < T_ ? to_f32(src[((size_t)t * n + head) * HD + d]) : 0.f;
+        t < T_ ? (src[((size_t)t * n + head) * HD + d]) : 0.f;
   }
 }
 
@@ -172,7 +168,7 @@ __device__ __forceinline__ bool valid(int sq, int pq, int sk, int pk) {
 }
 
 // ===========================================================================
-// First version, on the CUDA cores: K1 and K2b in f32, K2a in both dtypes
+// f32 route: the first version, on the CUDA cores
 // ===========================================================================
 
 // ---------------------------------------------------------------------------
@@ -299,7 +295,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
     const float safe_l = l[i] > 0.f ? l[i] : 1.f;
     T* row = out + ((size_t)t * a.nH + h) * HD;
 #pragma unroll
-    for (int o = 0; o < kOut; ++o) store(acc[i][o] / safe_l, row + tx + kTx * o);
+    for (int o = 0; o < kOut; ++o) row[tx + kTx * o] = acc[i][o] / safe_l;
     if (tx == 0) lse[(size_t)h * a.Tq + t] = l[i] > 0.f ? m[i] + logf(safe_l) : kNegInf;
   }
 }
@@ -419,7 +415,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
     if (t >= a.Tq) continue;
     T* row = dq + ((size_t)t * a.nH + h) * HD;
 #pragma unroll
-    for (int o = 0; o < kOut; ++o) store(a.sm_scale * acc[i][o], row + tx + kTx * o);
+    for (int o = 0; o < kOut; ++o) row[tx + kTx * o] = a.sm_scale * acc[i][o];
   }
 }
 
@@ -556,14 +552,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
     const size_t row = ((size_t)t * a.nKV + g) * HD;
 #pragma unroll
     for (int o = 0; o < kOut; ++o) {
-      store(a.sm_scale * dk[i][o], dk_out + row + tx + kTx * o);
-      store(dv[i][o], dv_out + row + tx + kTx * o);
+      dk_out[row + tx + kTx * o] = a.sm_scale * dk[i][o];
+      dv_out[row + tx + kTx * o] = dv[i][o];
     }
   }
 }
 
 // ===========================================================================
-// bf16 route: K1 and K2b on the tensor cores
+// bf16 route: K1, K2a and K2b on the tensor cores
 // ===========================================================================
 
 constexpr int kMmaThreads = 128;  // 4 warps, 16 tile rows each
@@ -887,6 +883,163 @@ __global__ void __launch_bounds__(kMmaThreads, 2) flash_fwd_mma_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// K2a (bf16): dQ. Grid (nq, nH), 4 warps; warp w owns query rows
+// 16w..16w+15 of the tile and their dQ rows over all HD columns (f32
+// registers), summed over the live K tiles, each taken 32 keys at a time.
+// Thread (g, t4) holds rows g and g + 8, as in K1.
+// ---------------------------------------------------------------------------
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads, 2) flash_bwd_dq_mma_kernel(Args a) {
+  constexpr int LD = HD + kRowPad;
+  constexpr int kTE = kTile * LD;  // elements of one shared tile
+  constexpr int KK = HD / 16;      // k-steps of S = Q K^T and dP = dO V^T
+  constexpr int NO = HD / 8;       // n-tiles of dQ
+  constexpr int kStep = 32;        // keys per step
+  constexpr int NS = kStep / 8;    // n-tiles of a step's S and dP
+  const int qt = blockIdx.x, h = blockIdx.y;
+  const int kvh = h / a.group;
+  const int nk = (a.Tk + kTile - 1) / kTile;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_mma);  // Q, then dO at q_s + kTE
+  bf16* kv_s = q_s + 2 * kTE;  // buffer b: K at kv_s + 2b kTE, V after it
+  int* ids_s = reinterpret_cast<int*>(kv_s + 4 * kTE);  // buffer b: seg, pos
+  int* list_s = ids_s + 4 * kTile;
+  __shared__ int n_live_s;
+
+  const int q0 = qt * kTile;
+  tile_async<HD>(q_s, static_cast<const bf16*>(a.q), q0, a.Tq, a.nH, h);
+  tile_async<HD>(q_s + kTE, static_cast<const bf16*>(a.dout), q0, a.Tq, a.nH, h);
+  cp_async_commit();
+  live_list<true>(list_s, &n_live_s, a.meta_q + 3 * qt, a.meta_k, nk);
+  __syncthreads();
+  const int n_live = n_live_s;
+
+  // the K/V tile list_s[i] and its ids into buffer i & 1
+  auto issue = [&](int i) {
+    const int k0 = list_s[i] * kTile;
+    bf16* ks = kv_s + (i & 1) * 2 * kTE;
+    tile_async<HD>(ks, k, k0, a.Tk, a.nKV, kvh);
+    tile_async<HD>(ks + kTE, v, k0, a.Tk, a.nKV, kvh);
+    int* ids = ids_s + (i & 1) * 2 * kTile;
+    if (tid < kTile)
+      elem_async(ids, a.seg_k, k0, a.Tk, tid);
+    else
+      elem_async(ids + kTile, a.pos_k, k0, a.Tk, tid - kTile);
+    cp_async_commit();
+  };
+  if (n_live > 0) issue(0);
+
+  // this thread's two query rows: ids, lse in log2 units, dd. A row whose
+  // lse is -1e30 (no valid key) has p = 0 everywhere: it takes segment -1,
+  // which matches no key.
+  int sq[2], pq[2];
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int t = q0 + warp * 16 + g + 8 * ri;
+    const bool in = t < a.Tq;
+    const float lse = in ? a.lse[(size_t)h * a.Tq + t] : kNegInf;
+    sq[ri] = in && lse > kNegInf * 0.5f ? a.seg_q[t] : -1;
+    pq[ri] = in ? a.pos_q[t] : 0;
+    lse2[ri] = lse * kLog2e;
+    dd[ri] = in ? a.dd[(size_t)h * a.Tq + t] : 0.f;
+  }
+  // the warp's Q and dO rows as A fragments, re-read from shared memory at
+  // every step: holding them would take HD / 2 registers more
+  const bf16* qa_row = q_s + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+  const bf16* da_row = qa_row + kTE;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float scale2 = a.sm_scale * kLog2e;  // scores in log2 units
+
+  for (int i = 0; i < n_live; ++i) {
+    if (i + 1 < n_live) {
+      issue(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* ks = kv_s + (i & 1) * 2 * kTE;
+    const bf16* vs = ks + kTE;
+    const int* segk = ids_s + (i & 1) * 2 * kTile;
+    const int* posk = segk + kTile;
+    const int kn = a.Tk - list_s[i] * kTile;  // key columns inside the stream
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += kStep) {
+      // S = Q K^T and dP = dO V^T: [16 rows, 32 keys] per warp
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        uint32_t qa[4], da[4];
+        ldsm_x4(qa, qa_row + kk * 16);
+        ldsm_x4(da, da_row + kk * 16);
+#pragma unroll
+        for (int np = 0; np < kStep / 16; ++np) {
+          const int off =
+              (c0 + np * 16 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 + ((lane / 8) % 2) * 8;
+          uint32_t b[4];
+          ldsm_x4(b, ks + off);
+          mma16816(s[2 * np], qa, b[0], b[1]);
+          mma16816(s[2 * np + 1], qa, b[2], b[3]);
+          ldsm_x4(b, vs + off);
+          mma16816(dp[2 * np], da, b[0], b[1]);
+          mma16816(dp[2 * np + 1], da, b[2], b[3]);
+        }
+      }
+      // P = exp(S - lse), dS = P (dP + dd), in registers (dS over dP)
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + j * 8 + 2 * t4 + (e & 1), ri = e >> 1;
+          const bool ok = c < kn && valid(sq[ri], pq[ri], segk[c], posk[c]);
+          const float p = ok ? exp2f(fmaf(s[j][e], scale2, -lse2[ri])) : 0.f;
+          dp[j][e] = p * (dp[j][e] + dd[ri]);
+        }
+      // dQ += dS K, 16 keys per stage, dS as hi + lo, K read transposed
+#pragma unroll
+      for (int kk = 0; kk < kStep / 16; ++kk) {
+        uint32_t dh[4], dl[4];
+        acc_to_a(dp, kk, dh, dl);
+        second_product<HD>(
+            acc, dh, dl,
+            ks + (c0 + kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD + (lane / 16) * 8);
+      }
+    }
+    __syncthreads();  // buffer i & 1 is refilled by the next iteration's copy
+  }
+
+  bf16* dq = static_cast<bf16*>(a.out);
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int t = q0 + warp * 16 + g + 8 * ri;
+    if (t >= a.Tq) continue;
+    bf16* row = dq + ((size_t)t * a.nH + h) * HD + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + n * 8) = __floats2bfloat162_rn(
+          a.sm_scale * acc[n][2 * ri], a.sm_scale * acc[n][2 * ri + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K2b (bf16): dK, dV. Grid (nk, nKV, splits), 4 warps; warp w owns key rows
 // 16w..16w+15 of the tile and their dK, dV rows over all HD columns (f32
 // registers), summed over its share of the group's heads x live Q tiles.
@@ -1081,18 +1234,16 @@ __global__ void __launch_bounds__(256) flash_dkv_reduce_kernel(const float* __re
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// The bf16 route's kernels: K1 and K2b (K2a is the first version in both
-// dtypes).
-bool on_tensor_cores(Which which, int is_bf16) { return is_bf16 && which != kDq; }
-
 // Dynamic shared memory of one block. First version: f32 tiles with padded
 // rows, the score tile(s), per-row ids, and one live flag per tile walked.
-// Tensor-core kernels: bf16 tiles with padded rows (K1: Q, 2 x K/V; K2b:
-// K/V, 2 x Q/dO), double-buffered row vectors, and the live list.
+// Tensor-core kernels (bf16): bf16 tiles with padded rows (K1: Q, 2 x K/V; K2a:
+// Q, dO, 2 x K/V; K2b: K/V, 2 x Q/dO), double-buffered row vectors, and
+// the live list.
 size_t smem_bytes(Which which, int hd, int nq, int nk, int is_bf16) {
-  if (on_tensor_cores(which, is_bf16)) {
+  if (is_bf16) {
     const size_t tile = sizeof(__nv_bfloat16) * kTile * (hd + kRowPad);
     if (which == kFwd) return 5 * tile + sizeof(int) * (4 * kTile + nk);
+    if (which == kDq) return 6 * tile + sizeof(int) * (4 * kTile + nk);
     return 6 * tile + sizeof(int) * (8 * kTile + nq);
   }
   const size_t tile = sizeof(float) * kTile * (hd + 1);
@@ -1120,8 +1271,13 @@ cudaError_t launch(Which which, const Args& a, cudaStream_t stream) {
       kernel = flash_fwd_kernel<T, HD>;
     }
   } else if (which == kDq) {
-    kernel = flash_bwd_dq_kernel<T, HD>;
     grid = dim3(nq, a.nH);
+    if constexpr (kBf16) {
+      kernel = flash_bwd_dq_mma_kernel<HD>;
+      threads = kMmaThreads;
+    } else {
+      kernel = flash_bwd_dq_kernel<T, HD>;
+    }
   } else {
     grid = dim3(nk, a.nKV);
     if constexpr (kBf16) {
@@ -1170,10 +1326,10 @@ int run(Which which, const Args& a, int hd, int is_bf16, void* stream) {
   if (a.Tq <= 0 || a.Tk <= 0 || a.nKV <= 0 || a.nH % a.nKV != 0 ||
       a.nH > 65535 || a.nKV > 65535)
     return cudaErrorInvalidValue;
-  const bool split = on_tensor_cores(which, is_bf16) && which == kDkv;
+  const bool split = is_bf16 && which == kDkv;
   if (a.splits < 1 || a.splits > a.group || (a.splits > 1 && (!split || !a.work)))
     return cudaErrorInvalidValue;
-  if (on_tensor_cores(which, is_bf16)) {  // cp.async reads 16-byte rows
+  if (is_bf16) {  // the tensor-core kernels' cp.async reads 16-byte rows
     const void* rows[] = {a.q, a.k, a.v, a.dout};
     for (const void* p : rows)
       if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
@@ -1221,7 +1377,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // contiguous tensor (layouts above); `stream` is the caller's
 // cudaStream_t. Each returns its launch's cudaGetLastError() (0 on
 // success); the wrapper raises on anything else. Tq and Tk must be >= 1.
-// On the bf16 route (K1, K2b) q, k, v and dout must be 16-byte aligned.
+// On the bf16 route q, k, v and dout must be 16-byte aligned.
 
 // K1: o [Tq, nH, HD] in q's dtype, lse f32 [nH, Tq].
 extern "C" int areal_flash_fwd(const void* q, const void* k, const void* v,
@@ -1273,7 +1429,7 @@ extern "C" int areal_flash_bwd_dkv(const void* q, const void* k, const void* v,
 
 // Dynamic shared memory one block of `which` (0: K1, 1: K2a, 2: K2b)
 // takes at head dim `hd` over Tq queries and Tk keys, for bf16 (the
-// tensor-core route of K1 and K2b) or f32 inputs.
+// tensor-core route) or f32 inputs.
 extern "C" int areal_flash_smem_bytes(int which, int hd, int Tq, int Tk, int is_bf16) {
   return (int)smem_bytes(static_cast<Which>(which), hd, (Tq + kTile - 1) / kTile,
                          (Tk + kTile - 1) / kTile, is_bf16);

@@ -15,7 +15,7 @@ through it.
 On CUDA tensors both run `_FlashAttention`, one `torch.autograd.Function`
 whose forward is the hand-written Hopper kernel K1 and whose backward is
 K2a (dQ) and K2b (dK/dV), all in `csrc/flash_attention.cu`; a failed
-build or launch raises. In bf16, K1 and K2b run on the tensor cores and
+build or launch raises. In bf16 the three run on the tensor cores and
 read q, k, v and dO with 16-byte copies: a tensor whose storage does not
 start 16-byte aligned raises. On CPU tensors they run
 `flash_attention_ref`, the plain version, differentiated by autograd.
@@ -210,8 +210,8 @@ def _stream(t) -> int:
 
 
 def _check_aligned(**tensors) -> None:
-    """The bf16 kernels K1 and K2b copy rows of q, k, v and dO 16 bytes at
-    a time (cp.async): their storage must start 16-byte aligned."""
+    """The bf16 kernels copy rows of q, k, v and dO 16 bytes at a time
+    (cp.async): their storage must start 16-byte aligned."""
     for name, t in tensors.items():
         if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
             raise ValueError(f"{name} starts at {t.data_ptr():#x}, not 16-byte aligned: "
@@ -243,6 +243,7 @@ def flash_bwd_dq(q, k, v, do, lse, dd, seg_q, seg_k, pos_q, pos_k, meta_q, meta_
     """K2a on CUDA tensors: dq `[Tq, nH, hd]` in q's dtype. `dd` is
     `dlse - rowsum(dO * O)`, f32 `[nH, Tq]`."""
     global launches_dq
+    _check_aligned(q=q, k=k, v=v, do=do)
     Tq, nH, hd = q.shape
     Tk, nKV, _ = k.shape
     dq = torch.empty_like(q)

@@ -39,6 +39,7 @@ import torch
 
 from areal_tpu_torch.api.cli_args import (
     GenerationHyperparameters,
+    JaxEngineConfig,
     MicroBatchSpec,
     NormConfig,
     OptimizerConfig,
@@ -197,6 +198,12 @@ def phase_build() -> None:
     wall_s = time.perf_counter() - t0
     rows = [dict(name=b.name, seconds=b.seconds, cached=b.cached, ptxas=_ptxas_summary(b.log))
             for b in built.values()]
+    # K2a on the tensor cores at every head dim: its dQ sums and a 32-key
+    # step's scores must fit in registers
+    k2a = [line for r in rows for line in r["ptxas"] if line.startswith("flash_bwd_dq_mma_kernel")]
+    check(len(k2a) == 4, f"K2a: {len(k2a)} tensor-core instantiations in the ptxas report")
+    check(any(line.startswith("flash_bwd_dq_mma_kernel<bf16,128>:") and
+              line.endswith("spills 0/0 bytes") for line in k2a), f"K2a spills at hd 128: {k2a}")
     # ptxas reports static shared memory only; the kernels size theirs per launch
     smem = {f"{str(dt).split('.')[-1]}_hd{hd}": fa.smem_bytes(8192, hd, dt)
             for dt in (torch.bfloat16, torch.float32) for hd in (16, 64, 128)}
@@ -211,7 +218,7 @@ def phase_build() -> None:
 
     verify = {f"W{W}_group{g}_hd{hd}": verify_smem(W, g, hd)
               for W, g, hd in ((5, 7, 128), (9, 7, 128), (16, 8, 128), (9, 7, 64))}
-    emit("build", kernels=rows, wall_s=wall_s,
+    emit("build", kernels=rows, wall_s=wall_s, k2a_ptxas=k2a,
          shared_memory=dict(paged_attention="dynamic, sized per launch",
                             paged_verify=verify, flash_attention_T8192=smem, quant_matmul=qmm))
 
@@ -336,11 +343,13 @@ FLASH_PAD = 45  # pad-tail rows (segment -1): fully masked, o 0 and lse -1e30
 # ref the plain version on the f32-upcast inputs. f32: summation order
 # only (the two sides sum up to a few thousand f32 products in different
 # orders, ~1e-6 of the largest value). bf16: the kernels round each output
-# to bf16 once (at most 2^-8 of itself: rtol), and the backward's delta =
-# rowsum(dO * O) reads the bf16-rounded O where the plain version reads the
-# f32 one, which moves ds, and so dq and dk, by a few 2^-9 of their scale:
-# a = 2^-8, of which dq read at most 0.744 on an H100 (700 W).
-# lse is f32 in both and takes the f32 tolerance.
+# to bf16 once (at most 2^-8 of itself: rtol), and the tensor-core kernels
+# feed P and dS to their second products as bf16 hi + lo (within 2^-16):
+# a = 2^-8. The backward's delta = rowsum(dO * O) reads the kernels' O,
+# rounded to bf16, where the plain version reads its f32 O; that error is
+# shared by a whole row of ds and summed coherently into dq, so the dq
+# reference carries it exactly (`_dq_delta_term`). lse is f32 in both and
+# takes the f32 tolerance.
 FLASH_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2.0 ** -8, 2.0 ** -8)}
 LSE_TOL = (2e-5, 0.0)
 
@@ -371,6 +380,17 @@ def _scaled_ratio(x, ref, a: float, rtol: float) -> float:
     x, ref = x.float(), ref.float()
     bound = a * ref.abs().max() + rtol * ref.abs()
     return ((x - ref).abs() / bound).max().item()
+
+
+def _dq_delta_term(q, k, ids, o, o_ref, do, sm_scale: float):
+    """What dq moves by, through autograd, when the backward's delta =
+    rowsum(dO * O) reads the kernels' output `o` where the plain version
+    reads its f32 `o_ref`: ds = p (dp - delta + dlse) is linear in delta, so
+    dq gains -sm_scale (delta_o - delta_ref)_i sum_j p_ij k_j, and
+    sum_j p_ij k_j is the plain forward with k in v's place. [Tq, nH, hd]."""
+    d_delta = ((o.float() - o_ref.float()) * do.float()).sum(-1)
+    pk, _ = fa.flash_attention_ref(q.float(), k.float(), k.float(), *ids, sm_scale=sm_scale)
+    return -sm_scale * d_delta[..., None] * pk
 
 
 def _flash_case(case: dict, dtype, dev, seed: int, chunk: bool):
@@ -404,9 +424,11 @@ def _flash_case(case: dict, dtype, dev, seed: int, chunk: bool):
 def phase_flash_kernel(dev: torch.device) -> dict:
     """K1, K2a and K2b (through `flash_attention_chunk` and autograd)
     against `flash_attention_ref` with autograd, on the card: o, lse, dq, dk
-    and dv. Each case also reads the kernels against a planted fault, the
-    plain version with the causal diagonal excluded (query positions
-    shifted by one), and checks that the tolerance would catch it."""
+    and dv, the dq reference with the delta term of the kernels' O
+    (`_dq_delta_term`; the ratio without it is printed beside). Each case
+    also reads the kernels against a planted fault, the plain version with
+    the causal diagonal excluded (query positions shifted by one), and
+    checks that the tolerance would catch it."""
     def kernels(q, k, v, *ids):
         return fa.flash_attention_chunk(q, k, v, fa.flash_layout(*ids))
 
@@ -429,22 +451,29 @@ def phase_flash_kernel(dev: torch.device) -> dict:
                        dtype=str(dtype).split(".")[-1], T=case["T"],
                        masked_rows=int((~live).any(dim=1).sum()), dead_rows_exact=dead_ok)
             name = f"{row['case']} {row['dtype']}"
+            sm = 1.0 / math.sqrt(case["hd"])
+            term = _dq_delta_term(q, k, ids, got[0], ref[0], w_o, sm)
             for j, out in enumerate(("o", "lse", "dq", "dk", "dv")):
                 a, rtol = LSE_TOL if out == "lse" else FLASH_TOL[dtype]
                 x, r, f = got[j], ref[j], fault[j]
                 if out == "lse":
                     x, r, f = x[live], r[live], f[live]
+                extra = {}
+                if out == "dq":
+                    extra["tol_ratio_without_delta_term"] = _scaled_ratio(x, r, a, rtol)
+                    r = r + term
                 err = (x.float() - r).abs().max().item()
                 ratio = _scaled_ratio(x, r, a, rtol)
                 fault_ratio = _scaled_ratio(x, f, a, rtol)
-                row[out] = dict(max_abs_err=err, tol_ratio=ratio, fault_tol_ratio=fault_ratio)
+                row[out] = dict(max_abs_err=err, tol_ratio=ratio, fault_tol_ratio=fault_ratio,
+                                **extra)
                 check(math.isfinite(ratio) and ratio <= 1.0,
                       f"flash {name} {out}: {ratio} x the tolerance (max abs err {err})")
                 check(fault_ratio > 1.0, f"flash {name} {out}: the planted fault passes")
                 worst[out] = max(worst.get(out, 0.0), err)
             check(dead_ok, f"flash {name}: a fully-masked row is not o 0, lse -1e30")
             rows.append(row)
-            del xs, got, fs, ref, fault
+            del xs, got, fs, ref, fault, term
     # the bf16 kernels copy 16-byte rows: a misaligned view raises in the
     # wrapper and never reaches them
     q, k, v, ids, _, _ = _flash_case(FLASH_CASES[-1], torch.bfloat16, dev, SEED, False)
@@ -1834,7 +1863,7 @@ def phase_train(dev: torch.device) -> dict:
     actor_cfg = PPOActorConfig(
         experiment_name="chip_smoke", trial_name="train", path="",
         init_from_scratch=True, dtype="bfloat16", gradient_checkpointing=True,
-        fused_lm_loss=True, mb_spec=MicroBatchSpec(max_tokens_per_mb=8192),
+        jax=JaxEngineConfig(fused_lm_loss=True), mb_spec=MicroBatchSpec(max_tokens_per_mb=8192),
         optimizer=OptimizerConfig(
             lr=TRAIN_LR, weight_decay=0.01, lr_scheduler_type="constant",
             warmup_steps_proportion=0.001, gradient_clipping=1.0,
@@ -1926,7 +1955,8 @@ def phase_train(dev: torch.device) -> dict:
             fams, n_kernels, top_other = _device_ms_by_family(prof)
             row["profile"] = dict(
                 wall_ms=profiled_s * 1e3, kernels=n_kernels,
-                device_ms=fams, device_busy_share=sum(fams.values()) / (profiled_s * 1e3),
+                device_ms=fams, device_total_ms=sum(fams.values()),
+                device_busy_share=sum(fams.values()) / (profiled_s * 1e3),
                 top_other_ms=top_other,
             )
         else:
@@ -2160,8 +2190,7 @@ def phase_flash_line(dev: torch.device, train: dict) -> list[dict]:
             tol=dict(a=a, rtol=rtol), tol_ratio=ratios[name], rounding=rounding[name],
             ms=ms[name], device_ms=device_ms[name],
             tflops=flops / (device_ms[name] * 1e-3) / 1e12, tile_pairs=tile_pairs,
-            route_detail=("tensor cores (mma.sync bf16, P/dS as hi + lo)"
-                          if name != "flash_attention_bwd_dq" else "CUDA cores (first version)"),
+            route_detail="tensor cores (mma.sync bf16, P/dS as hi + lo)",
             plain_ms=plain_ms[name], **bounds[name],
             library_ms=lib[d], library_device_ms=lib_device[d],
             library_call=("scaled_dot_product_attention forward, [T, T] mask"

@@ -17,6 +17,7 @@ batchmates), and the device rule.
 """
 
 import asyncio
+import dataclasses
 import threading
 import time
 
@@ -417,6 +418,23 @@ def test_unknown_dtypes_raise(weights, setting):
     eng.set_model(weights[1], TCFG)
     with pytest.raises(ValueError, match="not in"):
         eng.initialize()
+
+
+def test_decode_dtype_keeps_the_jax_name_and_default(weights):
+    """`decode.dtype` exists under its JAX name, place and default. As in
+    the JAX engine (jax_decode.py:646-653) only a `model_path` load reads
+    it, so an installed float32 model serves under either value."""
+    from areal_tpu.api.cli_args import JaxDecodeConfig
+
+    assert TorchDecodeConfig().dtype == JaxDecodeConfig().dtype == "bfloat16"
+    names = [f.name for f in dataclasses.fields(TorchDecodeConfig)]
+    assert names.index("dtype") == names.index("random_seed") + 1
+    for dtype in ("bfloat16", "float32"):
+        eng = _engine(weights[1], dtype=dtype)
+        try:
+            assert eng._k_pool.dtype == torch.float32
+        finally:
+            eng.destroy()
 
 
 def test_int8_pool_ignores_kv_cache_dtype(weights):

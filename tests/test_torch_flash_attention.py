@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from areal_tpu.ops import flash_attention as jfa
 from areal_tpu_torch.ops import flash_attention as tfa
 
@@ -265,16 +266,17 @@ def test_autograd_function_wiring_with_plain_kernels(monkeypatch):
 # The bf16 kernels' numerics design, emulated in plain PyTorch
 # ---------------------------------------------------------------------------
 #
-# The tensor-core K1 and K2b (`csrc/flash_attention.cu`) multiply bf16
-# operands with f32 sums; P (K1, and P^T in K2b) and dS^T are f32 values
-# fed to the second products as bf16 hi + lo terms; exponentials are taken
-# in log2 units; K2a is the first version (f32 products). The emulation
-# below follows that rounding tile by tile (64 keys per K1 step) and is
+# The tensor-core kernels K1, K2a and K2b (`csrc/flash_attention.cu`)
+# multiply bf16 operands with f32 sums; P (K1), dS (K2a), P^T and dS^T
+# (K2b) are f32 values fed to the second products as bf16 hi + lo terms;
+# exponentials are taken in log2 units. The emulation below follows that
+# rounding tile by tile (64 keys per K1 step, 16 keys per K2a stage) and is
 # held to chip_smoke.py's bf16 tolerances: phase_flash_kernel's (a, rtol) =
-# (2^-8, 2^-8), lse (2e-5, 0), against the plain version with autograd and
-# against the JAX Pallas kernels in interpret mode; and the train-shape
-# check of its flash line, (2e-5, 2^-8) against the plain version on the
-# same lse and dd. An element passes when |x - ref| <= a max|ref| + rtol |ref|.
+# (2^-8, 2^-8), lse (2e-5, 0), against the plain version with autograd (dq
+# with chip_smoke's delta term) and against the JAX Pallas kernels in
+# interpret mode; and the train-shape check of its flash line,
+# (2e-5, 2^-8) against the plain version on the same lse and dd. An element
+# passes when |x - ref| <= a max|ref| + rtol |ref|.
 
 BF16_TOL = (2.0 ** -8, 2.0 ** -8)
 LSE_TOL = (2e-5, 0.0)
@@ -318,8 +320,9 @@ def _emulated_fwd(q, k, v, ids, sm, split):
     return _bf(o), lse
 
 
-def _emulated_dkv(q, k, v, do, lse, dd, ids, sm, split):
-    """K2b: (dk, dv) rounded to bf16, summed over the GQA group."""
+def _emulated_p_ds(q, k, v, do, lse, dd, ids, sm):
+    """The backward's P and dS in f32 `[nKV, g, Tq, Tk]` as K2a and K2b form
+    them (exponentials in log2 units), with q and dO grouped by kv head."""
     Tq, nH, hd = q.shape
     nKV = k.shape[1]
     g = nH // nKV
@@ -329,6 +332,22 @@ def _emulated_dkv(q, k, v, do, lse, dd, ids, sm, split):
     p = torch.where(lse2 > -5e29, torch.exp2(s * (sm * _LOG2E) - lse2), 0.0)
     dof = do.reshape(Tq, nKV, g, hd)
     ds = p * (torch.einsum("tkgd,skd->kgts", dof, v) + dd.reshape(nKV, g, Tq, 1))
+    return p, ds, qh, dof
+
+
+def _emulated_dq(q, k, v, do, lse, dd, ids, sm, split):
+    """K2a: dq rounded to bf16; dS @ K summed 16 keys per stage, each
+    stage from zero."""
+    Tq, nH, hd = q.shape
+    _, ds, _, _ = _emulated_p_ds(q, k, v, do, lse, dd, ids, sm)
+    dq = sum(torch.einsum("kgts,skd->tkgd", _terms(ds[..., k0:k0 + 16], split), k[k0:k0 + 16])
+             for k0 in range(0, k.shape[0], 16))
+    return _bf(dq.reshape(Tq, nH, hd) * sm)
+
+
+def _emulated_dkv(q, k, v, do, lse, dd, ids, sm, split):
+    """K2b: (dk, dv) rounded to bf16, summed over the GQA group."""
+    p, ds, qh, dof = _emulated_p_ds(q, k, v, do, lse, dd, ids, sm)
     dk = torch.einsum("kgts,tkgd->skd", _terms(ds, split), qh) * sm
     dv = torch.einsum("kgts,tkgd->skd", _terms(p, split), dof)
     return _bf(dk), _bf(dv)
@@ -341,7 +360,7 @@ def _emulated_kernels(q, k, v, ids, w_o, w_l, split=True):
     o, lse = _emulated_fwd(q, k, v, ids, sm, split)
     live = lse > -5e29
     dd = torch.where(live, w_l.t(), 0.0) - (o * w_o).sum(-1).t()
-    dq = _bf(tfa.flash_bwd_dq_ref(q, k, v, w_o, lse, dd, *ids, sm))  # K2a: f32 products
+    dq = _emulated_dq(q, k, v, w_o, lse, dd, ids, sm, split)
     dk, dv = _emulated_dkv(q, k, v, w_o, lse, dd, ids, sm, split)
     return o, lse.t(), dq, dk, dv, dd
 
@@ -389,10 +408,9 @@ def _plain_with_grads(q, k, v, ids, w_o, w_l):
 def test_bf16_kernel_numerics_hold_the_chip_tolerances(case, seed):
     """The emulated bf16 kernels (P and dS as hi + lo) against the plain
     version with autograd at phase_flash_kernel's tolerances: K1's o and
-    lse, K2b's dk and dv. At the flash line's train-shape tolerance, against
-    the plain versions fed the same lse and dd: o, dk, dv, and K2a's dq.
-    (Through autograd, dq also carries delta = rowsum(dO * O) read from the
-    bf16 O: see the next test.)"""
+    lse, K2a's dq (its reference carrying the delta term, see the next
+    test), K2b's dk and dv. At the flash line's train-shape tolerance,
+    against the plain versions fed the same lse and dd: o, dq, dk, dv."""
     q, k, v, ids, w_o, w_l = _design_case(case, seed)
     got = _emulated_kernels(q, k, v, ids, w_o, w_l)
     ref = _plain_with_grads(q, k, v, ids, w_o, w_l)
@@ -402,9 +420,11 @@ def test_bf16_kernel_numerics_hold_the_chip_tolerances(case, seed):
     assert _ratio(got[1][live], ref[1][live], LSE_TOL) <= 1.0
     for name, j in (("o", 0), ("dk", 3), ("dv", 4)):
         assert _ratio(got[j], ref[j], BF16_TOL) <= 1.0, name
+    sm = 1.0 / np.sqrt(q.shape[-1])
+    term = chip_smoke._dq_delta_term(q, k, ids, got[0], ref[0], w_o, sm)
+    assert _ratio(got[2], ref[2] + term, BF16_TOL) <= 1.0, "dq"
     # the train-shape check: the same lse and dd on both sides
     o, lse, dq, dk, dv, dd = got
-    sm = 1.0 / np.sqrt(q.shape[-1])
     lse_k = lse.t().contiguous()
     ro, _ = tfa.flash_attention_ref(q, k, v, *ids)
     rdq = tfa.flash_bwd_dq_ref(q, k, v, w_o, lse_k, dd, *ids, sm)
@@ -418,32 +438,40 @@ def test_bf16_dq_distance_is_delta_of_the_bf16_output(seed):
     """dq through autograd: the backward's delta = rowsum(dO * O) reads the
     bf16 O (as the JAX kernel does on bf16 inputs), an error shared by a
     whole row of ds that dq sums coherently; at seed 2 it takes dq to 1.24x
-    phase_flash_kernel's bf16 tolerance. With delta from the f32 O the same
-    emulated kernels hold that tolerance."""
+    phase_flash_kernel's bf16 tolerance. chip_smoke's reference carries that
+    term exactly (`_dq_delta_term`: ds is linear in delta) at the unchanged
+    tolerance; with delta from the f32 O, the emulated K2a holds it bare."""
     q, k, v, ids, w_o, w_l = _design_case("packed", seed)
+    got = _emulated_kernels(q, k, v, ids, w_o, w_l)
     ref = _plain_with_grads(q, k, v, ids, w_o, w_l)
     sm = 1.0 / np.sqrt(q.shape[-1])
-    _, lse = _emulated_fwd(q, k, v, ids, sm, True)
+    term = chip_smoke._dq_delta_term(q, k, ids, got[0], ref[0], w_o, sm)
+    bare, held = _ratio(got[2], ref[2], BF16_TOL), _ratio(got[2], ref[2] + term, BF16_TOL)
+    assert held <= 1.0, (bare, held)
+    if seed == 2:
+        assert bare > 1.0, bare
     o32, _ = tfa.flash_attention_ref(q, k, v, *ids)
     dd = -(o32 * w_o).sum(-1).t()
-    dq = _bf(tfa.flash_bwd_dq_ref(q, k, v, w_o, lse, dd, *ids, sm))
+    dq = _emulated_dq(q, k, v, w_o, got[1].t(), dd, ids, sm, True)
     assert _ratio(dq, ref[2], BF16_TOL) <= 1.0
 
 
 def test_single_bf16_term_would_miss_the_train_shape_tolerance():
     """Why P and dS are split: as one bf16 term (FlashAttention-2's choice)
-    o, dk and dv land tens of times outside the train-shape check's 2e-5
-    absolute term, while hi + lo stays inside it."""
+    o, dq, dk and dv land tens of times outside the train-shape check's
+    2e-5 absolute term, while hi + lo stays inside it."""
     q, k, v, ids, w_o, w_l = _design_case("packed", seed=1)
     sm = 1.0 / np.sqrt(q.shape[-1])
     ro, _ = tfa.flash_attention_ref(q, k, v, *ids)
     for split, inside in ((True, True), (False, False)):
         o, lse = _emulated_fwd(q, k, v, ids, sm, split)
         dd = (-(o * w_o).sum(-1).t()).contiguous()
+        dq = _emulated_dq(q, k, v, w_o, lse, dd, ids, sm, split)
         dk, dv = _emulated_dkv(q, k, v, w_o, lse, dd, ids, sm, split)
+        rdq = tfa.flash_bwd_dq_ref(q, k, v, w_o, lse, dd, *ids, sm)
         rdk, rdv = tfa.flash_bwd_dkv_ref(q, k, v, w_o, lse, dd, *ids, sm)
-        ratios = [_ratio(o, ro, TRAIN_SHAPE_TOL), _ratio(dk, rdk, TRAIN_SHAPE_TOL),
-                  _ratio(dv, rdv, TRAIN_SHAPE_TOL)]
+        ratios = [_ratio(o, ro, TRAIN_SHAPE_TOL), _ratio(dq, rdq, TRAIN_SHAPE_TOL),
+                  _ratio(dk, rdk, TRAIN_SHAPE_TOL), _ratio(dv, rdv, TRAIN_SHAPE_TOL)]
         if inside:
             assert max(ratios) <= 1.0, ratios
         else:
@@ -454,7 +482,9 @@ def test_single_bf16_term_would_miss_the_train_shape_tolerance():
 def test_bf16_kernel_numerics_match_jax_pallas(case):
     """The emulated bf16 kernels against the JAX Pallas kernels (interpret
     mode) on the same bf16-valued inputs, at phase_flash_kernel's bf16
-    tolerances (lse at its f32 one): K1's o and lse, K2b's dk and dv."""
+    tolerances (lse at its f32 one): K1's o and lse, K2a's dq (the JAX
+    reference with the delta term of the kernels' bf16 O against its own),
+    K2b's dk and dv."""
     q, k, v, ids, w_o, w_l = _design_case(case, seed=2)
     got = _emulated_kernels(q, k, v, ids, w_o, w_l)
     jids = [jnp.asarray(t.numpy()) for t in ids]
@@ -473,6 +503,8 @@ def test_bf16_kernel_numerics_match_jax_pallas(case):
     assert _ratio(got[1][live], want[1][live], LSE_TOL) <= 1.0
     for name, j in (("o", 0), ("dk", 3), ("dv", 4)):
         assert _ratio(got[j], want[j], BF16_TOL) <= 1.0, name
+    term = chip_smoke._dq_delta_term(q, k, ids, got[0], want[0], w_o, 1.0 / np.sqrt(q.shape[-1]))
+    assert _ratio(got[2], want[2] + term, BF16_TOL) <= 1.0, "dq"
 
 
 # ---------------------------------------------------------------------------
@@ -495,14 +527,24 @@ def test_packed_layout_holds_what_the_kernels_read():
 
 
 def test_bf16_kernels_refuse_misaligned_rows():
-    """K1 and K2b copy 16-byte rows with cp.async: a bf16 tensor whose
-    storage starts off a 16-byte boundary raises (no silent copy); f32
-    inputs go to the first version, which reads elements."""
+    """K1, K2a and K2b copy 16-byte rows with cp.async: a bf16 tensor whose
+    storage starts off a 16-byte boundary raises (no silent copy), in each
+    launcher before any kernel is built; f32 inputs go to the first
+    version, which reads elements."""
     base = torch.zeros(8 * 64 + 8, dtype=torch.bfloat16)
     tfa._check_aligned(q=base[:512].view(8, 4, 16))
     with pytest.raises(ValueError, match="16-byte"):
         tfa._check_aligned(q=base[1:513].view(8, 4, 16))
     tfa._check_aligned(q=torch.zeros(513)[1:].view(8, 4, 16))
+    q = base[1:513].view(8, 4, 16)
+    kv = torch.zeros(8, 2, 16, dtype=torch.bfloat16)
+    ids = tfa.packed_layout(torch.zeros(8, dtype=torch.int32))
+    rows = torch.zeros(4, 8)
+    for launch in (lambda: tfa.flash_fwd(q, kv, kv, *ids, 0.25),
+                   lambda: tfa.flash_bwd_dq(q, kv, kv, q, rows, rows, *ids, 0.25),
+                   lambda: tfa.flash_bwd_dkv(q, kv, kv, q, rows, rows, *ids, 0.25)):
+        with pytest.raises(ValueError, match="16-byte"):
+            launch()
 
 
 def test_model_builds_the_layout_once_per_forward(monkeypatch):

@@ -89,12 +89,27 @@ def _fields(cls):
 def test_train_config_fields_match(name):
     want = _fields(getattr(jargs, name))
     got = _fields(getattr(targs, name))
-    if "jax" in want:  # the JAX sub-config: the port keeps two of its knobs
-        want.pop("jax")
-        for knob in ("remat_policy", "fused_lm_loss"):
-            assert got.pop(knob) == getattr(jargs.JaxEngineConfig(), knob)
+    if "jax" in want:
+        # the JAX sub-config at the same key path: the port keeps a subset
+        # of its knobs (`remat_policy`, `fused_lm_loss`) with equal defaults
+        assert set(got["jax"]) == {"remat_policy", "fused_lm_loss"}
+        assert got["jax"].items() <= want["jax"].items()
+        want["jax"] = got["jax"]
     assert list(got) == list(want)
     assert got == want
+
+
+@pytest.mark.parametrize("on", [True, False])
+def test_fused_lm_loss_probe_reads_the_jax_key_path(on):
+    """Both engines' probe reads `config.jax.fused_lm_loss`, so a config
+    that turns the fused head off at `actor.jax.fused_lm_loss` turns it off
+    in both."""
+    from types import SimpleNamespace
+
+    tcfg = targs.PPOActorConfig(jax=targs.JaxEngineConfig(fused_lm_loss=on))
+    jcfg = jargs.PPOActorConfig(jax=jargs.JaxEngineConfig(fused_lm_loss=on))
+    assert torch_engine.fused_lm_loss_enabled(SimpleNamespace(config=tcfg)) == on
+    assert jax_engine.fused_lm_loss_enabled(SimpleNamespace(config=jcfg)) == on
 
 
 def test_qwen25_1_5b_config_matches_jax_parse():
