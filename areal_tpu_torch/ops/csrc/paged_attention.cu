@@ -60,47 +60,95 @@
 // head (int8 data and its f32 scale) in place of 2 * hd * sizeof(T): about
 // half of K3's bytes for a bf16 pool.
 //
-// K4, `paged_verify_kernel`, replaces
-// `areal_tpu/ops/paged_attention.py::_paged_verify_kernel` (:284), launched
-// there by `_paged_verify_pallas` (:407) for `paged_attention_qlen` (:464):
+// K4 and K5b replace `areal_tpu/ops/paged_attention.py::_paged_verify_kernel`
+// (:284) and `::_paged_verify_kernel_q8` (:346), launched there by
+// `_paged_verify_pallas` (:407) for `paged_attention_qlen` (:464):
 // speculative verify attention, W query positions per slot, query w of slot
-// r attending the logical rows s with valid[r, w, s] (its causal horizon).
-// K5b, `paged_verify_q8_kernel`, replaces `_paged_verify_kernel_q8` (:346),
-// the same on an int8 pool. Per query row they compute what K3 computes
-// (scores in f32 times sm_scale, -1e30 on invalid rows, the guarded online
-// softmax, out = acc / (l > 0 ? l : 1), so a query with no valid row
-// outputs 0).
-// Bound. The bytes are K3's, counted once: each K and V row valid for some
-// query, plus q, out, table and the [R, W, span] mask. The work is
-// 4 * nH * hd flops per (query, valid row) pair, W times K3's per row; on
-// the CUDA cores in f32 (67 TFLOP/s) that is ~0.012 ms at the serve cell's
-// verify batch (R 16, W 5, 28/4 heads, ~11,000 valid rows), above its
-// ~0.007 ms of bytes, so the f32 version is bound by operations; tensor
-// cores would put the ceiling back at the bytes.
-// Design, first version:
+// r attending the logical rows s with valid[r, w, s] (its causal horizon),
+// on a pool in q's dtype (K4) or an int8 pool with per-(row, kv head) f32
+// scales (K5b). Per query row they compute what K3 computes: scores in f32
+// times sm_scale, -1e30 on invalid rows, the guarded online softmax
+// (p = m_new > -5e29 ? exp(s - m_new) : 0), out = acc / (l > 0 ? l : 1), so
+// a query with no valid row outputs exactly 0, in q's dtype; a block id
+// outside the pool on a page with a row valid for some query traps.
+// Bound. Bytes, counted once: each K and V row valid for some query, plus q,
+// out, table and the [R, W, span] mask. The work is 4 * nH * hd flops per
+// (query, valid row) pair; on the tensor cores (989 TFLOP/s bf16) that is far
+// below the bytes' time (at the serve cell's verify batch: R 16, W 5, 28/4
+// heads, ~10,750 valid rows, 0.0069 ms of bytes for a bf16 pool, 0.0038 for
+// int8; H100 SXM, 3.35 TB/s).
+//
+// Two routes, by q's dtype:
+//
+// bf16 q (the main path), `paged_verify_mma_kernel` (K4) and
+// `paged_verify_q8_mma_kernel` (K5b): split-KV over pages on the tensor
+// cores.
+//   - grid (split, kv head, slot): a split owns `pages_per_split` pages of
+//     the slot's table, so the pages of every slot run at once. The wrapper
+//     picks the most pages (a power of two, at most kVMaxSplitRows rows)
+//     that leave two blocks per SM: 2 at the spec batch (9 pages), the
+//     fastest of 1, 2, 4 and 9 (0.042, 0.038, 0.058 and 0.094 device ms for
+//     K4; H100 80GB HBM3, 700 W, chip_smoke.py's verify line);
+//   - a block has ceil(M / 16) warps for the M = W * group query rows of its
+//     (slot, kv head), m = w * group + g; warp i owns rows 16i..16i+15 as a
+//     padded bf16 shared tile, read as ldmatrix A fragments;
+//   - first the block reads its split's mask bytes once: a W-bit row mask
+//     and the row's pool offset per logical row into shared memory (the
+//     block id is checked here, for rows valid for some query), and a list
+//     of the 64-row tiles that hold such a row. A split with none writes
+//     m = -1e30, l = 0 and returns, having read only its mask bytes and
+//     table entries;
+//   - the live tiles' K and V rows come through the block table with
+//     16-byte cp.async, double-buffered; a tile may cross pages (pages of
+//     fewer than 64 rows), and rows valid for no query are zero-filled and
+//     never read;
+//   - S = Q K^T and O += P V use mma.sync.m16n8k16 (bf16 in, f32 sums) in
+//     K1's register layout (`flash_attention.cu`); scores in log2 units;
+//     P goes to P V as bf16 hi + lo, each 16-key stage summed from zero
+//     and added in f32 (the tensor cores' truncating sum; one bf16 term
+//     misses the bf16 tolerance, `tests/test_torch_paged_verify_design.py`);
+//   - K5b: int8 values are exact in bf16, so the int8 tiles (cp.async into
+//     their own double buffer) are widened unscaled to bf16 in one
+//     shared-to-shared pass; the K scale multiplies score column j after
+//     the product and the V scale multiplies probability column j before
+//     its hi/lo split (l sums the unscaled p), both in f32;
+//   - each split writes f32 partials (m in log2 units, l, the unnormalised
+//     acc [M, hd]) to scratch the wrapper allocates; a second launch,
+//     `paged_verify_combine_kernel` (`paged_verify_q8_combine_kernel` for
+//     K5b, so a profile files it under its kernel), reads a (slot, kv head)'s
+//     splits in split order, out = sum 2^(m_s - M*) acc_s / sum 2^(m_s - M*)
+//     l_s over the splits with l_s > 0, and 0 where there is none. With one
+//     split the main kernel writes the output itself and nothing else runs.
+//   Shared memory per block (hd 128, W 5, group 7, 128-row pages, two pages
+//   per split): q 13,056 bytes, K/V 69,632 (K5b: 34,816 bf16 + 36,864 int8
+//   + 1,024 scales), row masks and offsets 1,536, tile lists 32: 84,256
+//   bytes (K5b 87,328), so two blocks per SM; at most 157,696 (K5b, W x
+//   group 128, 4096 rows per split). Registers (ptxas, sm_90a): K4
+//   181/144/104/98 and K5b 179/151/110/76 at hd 128/64/32/16, the combine
+//   39; no spills.
+//   What it leaves: at the spec batch K4 runs ~5.5x its byte bound. Each
+//   block pays a serial prologue (mask scan, then the Q tile and first K/V
+//   tile) before its two to four tiles; the Q fragments are re-read from
+//   shared memory for each tile; the partials cost 2 * M * hd * 4 bytes per
+//   live split besides the K/V rows; mma.sync, not wgmma.
+//
+// f32 q, `paged_verify_kernel` and `paged_verify_q8_kernel`: the first
+// version, kept because f32 is held at an f32 tolerance that bf16 products
+// cannot meet; it never runs on the main path.
 //   - one block of 1024 threads per (kv head, slot), walking the slot's
 //     pages as K3 does; a page with no row valid for any query is skipped
 //     (only its mask bytes are read), as is a 32-row tile within a page;
 //   - each valid K and V row is read once, into a 32-row tile of shared
 //     memory (f32; int8 dequantized right after the load with the page's
 //     scale strip, read once into shared memory as K5a does), and scored
-//     against all M = W * group query rows: this is what the TPU kernel
-//     exists for (one block DMA for all W queries, :297-300);
+//     against all M = W * group query rows;
 //   - scores: one warp per query row, one lane per tile row (the K tile's
-//     rows padded to hd + 1 floats, so the lanes hit distinct banks); the
-//     warp then holds the row's whole tile and does its online-softmax
+//     rows padded to hd + 1 floats); the warp then does its online-softmax
 //     step with shuffles, masking per query from valid[r, w, :];
 //   - P.V: each thread owns one output column and the query rows m with
-//     m % (1024 / hd) == its slice, so every accumulator lives in one
-//     thread's registers from the first page to the store and no
-//     cross-thread reduction buffer exists (K3's [kSlices, group, hd]
-//     buffer, instantiated with group := W * group, would need ~290 KB at
-//     W 8, group 7: more than a block may have);
+//     m % (1024 / hd) == its slice;
 //   - shared memory is the f32 q rows (M x hd), two 32-row tiles, the
-//     tile's probabilities (M x 32) and per-row m, l, alpha: at most
-//     ~120 KB at the limits W <= 16 and W * group <= 128 (hd 128), 57 KB at
-//     W 5, group 7.
-// What it leaves: K3's serial page walk per block, and f32 CUDA-core math.
+//     tile's probabilities (M x 32) and per-row m, l, alpha.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -374,9 +422,10 @@ __global__ void __launch_bounds__(kThreads)
 // K4 / K5b: the verify kernels' limits (ops/paged_attention.py states them)
 constexpr int kVerifyMaxW = 16;
 constexpr int kVerifyMaxRows = 128;  // W * group
-constexpr int kTile = 32;            // K/V rows scored per step, one per lane
+constexpr int kTile = 32;  // first version: K/V rows scored per step, one per lane
 
-// The body of K4 (P = T, no scales) and K5b (P = int8_t, f32 scales).
+// The first version's body of K4 (P = T, no scales) and K5b (P = int8_t, f32
+// scales), instantiated for f32 q only: bf16 q takes the tensor-core route.
 template <typename T, typename P, int HD>
 __device__ __forceinline__ void paged_verify_body(
     const T* __restrict__ q,             // [R, W, nH, HD]
@@ -599,6 +648,502 @@ __global__ void __launch_bounds__(kThreads)
                                    n_blocks, sm_scale);
 }
 
+// ===========================================================================
+// K4 and K5b, bf16 q: split-KV over pages on the tensor cores
+// ===========================================================================
+
+constexpr int kVTile = 64;             // K/V rows per tile
+constexpr int kVRowPad = 8;            // bf16 elements (16 bytes) past each shared row
+constexpr int kVRawPad = 16;           // bytes past each shared int8 row
+constexpr int kVMaxThreads = kVerifyMaxRows / 16 * 32;  // 8 warps of 16 query rows
+constexpr int kVMaxSplitRows = 4096;   // logical rows per split
+constexpr int kCombineThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr unsigned kFull = 0xffffffffu;
+
+using bf16 = __nv_bfloat16;
+
+struct VerifyArgs {
+  const bf16* q;           // [R, W, nH, HD]
+  const void* k_pool;      // [n_blocks, bsz, nKV, HD], bf16 or int8
+  const float* k_scale;    // [n_blocks, nKV, bsz] (int8 only)
+  const void* v_pool;
+  const float* v_scale;
+  const int32_t* table;    // [R, nb]
+  const uint8_t* valid;    // [R, W, nb * bsz]
+  float* part_m;           // [R, nKV, n_splits, M], log2 units (n_splits > 1)
+  float* part_l;           // [R, nKV, n_splits, M]
+  float* part_acc;         // [R, nKV, n_splits, M, HD], unnormalised
+  bf16* out;               // [R, W, nH, HD]
+  int R, W, nKV, group, bsz, nb, n_blocks, pps, n_splits;
+  float sm_scale;
+};
+
+// Byte offsets of one block's dynamic shared memory, as the launch sizes it.
+struct VerifySmem {
+  size_t q, kv, raw, scale, row_off, row_mask, live, list, total;
+};
+
+__host__ __device__ inline VerifySmem verify_smem(int M, int hd, int bsz, int pps, bool quant) {
+  const size_t ld = (size_t)hd + kVRowPad;
+  const size_t m_pad = (size_t)(M + 15) / 16 * 16;
+  const size_t rows = (size_t)(pps * bsz + kVTile - 1) / kVTile * kVTile;
+  VerifySmem s;
+  size_t o = 0;
+  s.q = o;
+  o += m_pad * ld * 2;
+  s.kv = o;  // K and V bf16 tiles: two buffers, or one for int8 (widened here)
+  o += (quant ? 1 : 2) * 2 * (size_t)kVTile * ld * 2;
+  s.raw = o;  // int8 only: K and V int8 tiles, two buffers
+  if (quant) o += 2 * 2 * (size_t)kVTile * (hd + kVRawPad);
+  s.scale = o;  // int8 only: K and V scales, two buffers
+  if (quant) o += 2 * 2 * (size_t)kVTile * 4;
+  s.row_off = o;  // per logical row of the split: pool row, or -1
+  o += rows * 4;
+  s.row_mask = o;  // per logical row: bit w set if query w reads it
+  o += rows * 2;
+  o = (o + 3) / 4 * 4;
+  s.live = o;  // per tile: 1 if a row of it is read
+  o += rows / kVTile * 4;
+  s.list = o;  // the live tiles, in order
+  o += rows / kVTile * 4;
+  s.total = o;
+  return s;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; `full` false zero-fills and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(full ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pair_bits(__nv_bfloat162 p) {
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// an f32 pair (x in the low half) as two bf16 pairs whose sum is within
+// 2^-16 of it: hi rounds the pair, lo rounds the remainder
+__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = pair_bits(h);
+  lo = pair_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// The A fragments (hi and lo) of k-step kk (columns 16kk..16kk+15) of a
+// [16, 8n] accumulator tile c: the m16n8 accumulator layout of n-tiles
+// 2kk and 2kk+1 is the m16k16 A layout.
+__device__ __forceinline__ void acc_to_a(float (*c)[4], int kk, uint32_t* hi,
+                                         uint32_t* lo) {
+  split_pair(c[2 * kk][0], c[2 * kk][1], hi[0], lo[0]);
+  split_pair(c[2 * kk][2], c[2 * kk][3], hi[1], lo[1]);
+  split_pair(c[2 * kk + 1][0], c[2 * kk + 1][1], hi[2], lo[2]);
+  split_pair(c[2 * kk + 1][2], c[2 * kk + 1][3], hi[3], lo[3]);
+}
+
+// One split of one (slot, kv head). Warp i owns query rows 16i..16i+15;
+// thread (g, t4) = (lane / 4, lane % 4) holds rows g and g + 8 of those
+// and, in each 8-column n-tile, columns 2 t4 and 2 t4 + 1 (K1's layout).
+template <bool kQuant, int HD>
+__device__ __forceinline__ void verify_mma_body(const VerifyArgs& a) {
+  using PoolT = typename std::conditional<kQuant, int8_t, bf16>::type;
+  constexpr int LD = HD + kVRowPad;
+  constexpr int LDR = HD + kVRawPad;  // bytes per shared int8 row
+  constexpr int kTE = kVTile * LD;    // elements of one bf16 tile
+  constexpr int KK = HD / 16;         // k-steps of S = Q K^T
+  constexpr int NO = HD / 8;          // n-tiles of O
+  constexpr int kElems = 16 / sizeof(PoolT);  // pool elements per 16-byte copy
+  constexpr int CH = HD / kElems;             // 16-byte copies per pool row
+  const int split = blockIdx.x, h = blockIdx.y, r = blockIdx.z;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int W = a.W, group = a.group, M = W * group, nH = a.nKV * group;
+  const int span = a.nb * a.bsz;
+  const int start = split * a.pps * a.bsz;  // the split's first logical row
+  const int rows = min(a.pps * a.bsz, span - start);
+  const int ntiles = (rows + kVTile - 1) / kVTile;
+
+  extern __shared__ __align__(16) unsigned char smem_v[];
+  const VerifySmem lay = verify_smem(M, HD, a.bsz, a.pps, kQuant);
+  bf16* q_s = reinterpret_cast<bf16*>(smem_v + lay.q);
+  bf16* kv_s = reinterpret_cast<bf16*>(smem_v + lay.kv);
+  int8_t* raw_s = reinterpret_cast<int8_t*>(smem_v + lay.raw);
+  float* sc_s = reinterpret_cast<float*>(smem_v + lay.scale);
+  int* off_s = reinterpret_cast<int*>(smem_v + lay.row_off);
+  uint16_t* mask_s = reinterpret_cast<uint16_t*>(smem_v + lay.row_mask);
+  int* live_s = reinterpret_cast<int*>(smem_v + lay.live);
+  int* list_s = reinterpret_cast<int*>(smem_v + lay.list);
+  __shared__ int n_live_s;
+
+  // the split's mask bytes, read once: per logical row, which queries read
+  // it and, if any does, its pool row (the block id checked here)
+  for (int i = tid; i < ntiles; i += nthr) live_s[i] = 0;
+  __syncthreads();
+  const uint8_t* valid_r = a.valid + (size_t)r * W * span + start;
+  const int32_t* table_r = a.table + (size_t)r * a.nb;
+  for (int x = tid; x < ntiles * kVTile; x += nthr) {  // warp-uniform trip count
+    unsigned qmask = 0;
+    int off = -1;
+    if (x < rows) {
+      const int t = start + x;
+      const int page = t / a.bsz;
+      const int blk = table_r[page];
+      for (int w = 0; w < W; ++w) qmask |= (unsigned)(valid_r[(size_t)w * span + x] != 0) << w;
+      if (qmask) {
+        // a page with a row valid for some query must name a pool block
+        if (blk < 0 || blk >= a.n_blocks) __trap();
+        off = blk * a.bsz + (t - page * a.bsz);
+      }
+    }
+    off_s[x] = off;
+    mask_s[x] = static_cast<uint16_t>(qmask);
+    if (__ballot_sync(kFull, qmask != 0) && lane == 0) live_s[x / kVTile] = 1;
+  }
+  __syncthreads();
+  if (warp == 0) {  // the live tiles, in order
+    int cnt = 0;
+    for (int base = 0; base < ntiles; base += 32) {
+      const int i = base + lane;
+      const bool f = i < ntiles && live_s[i];
+      const unsigned bal = __ballot_sync(kFull, f);
+      if (f) list_s[cnt + __popc(bal & ((1u << lane) - 1u))] = i;
+      cnt += __popc(bal);
+    }
+    if (lane == 0) n_live_s = cnt;
+  }
+  __syncthreads();
+  const int n_live = n_live_s;
+  const size_t part = (((size_t)r * a.nKV + h) * a.n_splits + split) * M;  // row 0's partials
+  bf16* out_r = a.out + (size_t)r * W * nH * HD;
+
+  if (n_live == 0) {  // no row of this split is read by any query
+    if (a.n_splits == 1) {
+      for (int i = tid; i < M * HD; i += nthr) {
+        const int m = i / HD, w = m / group;
+        out_r[((size_t)w * nH + h * group + m - w * group) * HD + i % HD] = __float2bfloat16_rn(0.f);
+      }
+    } else {
+      for (int m = tid; m < M; m += nthr) {
+        a.part_m[part + m] = kNegInf;
+        a.part_l[part + m] = 0.f;
+      }
+    }
+    return;
+  }
+
+  // the query rows (padding rows zero), then the first live tile
+  const bf16* q_r = a.q + (size_t)r * W * nH * HD;
+  const int m_pad = nthr / 32 * 16;
+  for (int c = tid; c < m_pad * (HD / 8); c += nthr) {
+    const int m = c / (HD / 8), ch = c % (HD / 8);
+    const bool ok = m < M;
+    const int w = ok ? m / group : 0;
+    cp_async16(q_s + m * LD + ch * 8,
+               ok ? q_r + ((size_t)w * nH + h * group + m - w * group) * HD + ch * 8 : q_r, ok);
+  }
+  cp_async_commit();
+
+  const PoolT* k_pool = static_cast<const PoolT*>(a.k_pool);
+  const PoolT* v_pool = static_cast<const PoolT*>(a.v_pool);
+  // live tile i's K and V rows (and int8 scales) into buffer i & 1
+  auto issue = [&](int i) {
+    const int x0 = list_s[i] * kVTile;
+    const int b = i & 1;
+    for (int c = tid; c < 2 * kVTile * CH; c += nthr) {
+      const int which = c / (kVTile * CH);  // 0: K, 1: V
+      const int row = (c / CH) % kVTile, ch = c % CH;
+      const int off = off_s[x0 + row];
+      const PoolT* pool = which ? v_pool : k_pool;
+      const PoolT* src = pool + ((size_t)(off < 0 ? 0 : off) * a.nKV + h) * HD + ch * kElems;
+      void* dst;
+      if constexpr (kQuant)
+        dst = raw_s + ((b * 2 + which) * kVTile + row) * LDR + ch * 16;
+      else
+        dst = kv_s + (b * 2 + which) * kTE + row * LD + ch * 8;
+      cp_async16(dst, src, off >= 0);
+    }
+    if constexpr (kQuant) {
+      for (int c = tid; c < 2 * kVTile; c += nthr) {
+        const int which = c / kVTile, row = c % kVTile;
+        const int off = off_s[x0 + row];
+        const int blk = off < 0 ? 0 : off / a.bsz;
+        const int j = off < 0 ? 0 : off - blk * a.bsz;
+        const float* sc = which ? a.v_scale : a.k_scale;
+        cp_async4(sc_s + (b * 2 + which) * kVTile + row, sc + ((size_t)blk * a.nKV + h) * a.bsz + j,
+                  off >= 0);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  int wrow[2];  // the query position of this thread's rows; -1 for padding
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int m = warp * 16 + g + 8 * ri;
+    wrow[ri] = m < M ? m / group : -1;
+  }
+  // the warp's Q rows as A fragments are re-read from q_s for every tile:
+  // holding them would take HD / 4 registers more
+  const bf16* qa_row = q_s + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+  float acc[NO][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float scale2 = a.sm_scale * kLog2e;  // scores in log2 units
+
+  for (int i = 0; i < n_live; ++i) {
+    if (i + 1 < n_live) {
+      issue(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int x0 = list_s[i] * kVTile;
+    const bf16* ks = kv_s;
+    if constexpr (kQuant) {
+      // the int8 tiles widened to bf16, unscaled (|x| <= 127 is exact)
+      const int8_t* src = raw_s + (i & 1) * 2 * kVTile * LDR;
+      for (int c = tid; c < 2 * kVTile * (HD / 16); c += nthr) {
+        const int rr = c / (HD / 16), ch = c % (HD / 16);  // rr: K rows, then V rows
+        const int4 v = *reinterpret_cast<const int4*>(src + rr * LDR + ch * 16);
+        const int8_t* e8 = reinterpret_cast<const int8_t*>(&v);
+        uint32_t o[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          o[k] = pair_bits(__floats2bfloat162_rn(static_cast<float>(e8[2 * k]),
+                                                 static_cast<float>(e8[2 * k + 1])));
+        bf16* dst = kv_s + (rr / kVTile) * kTE + (rr % kVTile) * LD + ch * 16;
+        *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
+        *reinterpret_cast<uint4*>(dst + 8) = make_uint4(o[4], o[5], o[6], o[7]);
+      }
+      __syncthreads();
+    } else {
+      ks = kv_s + (i & 1) * 2 * kTE;
+    }
+    const bf16* vs = ks + kTE;
+    const float* ksc = sc_s + (i & 1) * 2 * kVTile;  // int8 only
+    const float* vsc = ksc + kVTile;
+
+    // S = Q K^T: [16 rows, 64 keys] per warp, 8 n-tiles
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      uint32_t qa[4];
+      ldsm_x4(qa, qa_row + kk * 16);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, ks + (np * 16 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 +
+                       ((lane / 8) % 2) * 8);
+        mma16816(s[2 * np], qa, b[0], b[1]);
+        mma16816(s[2 * np + 1], qa, b[2], b[3]);
+      }
+    }
+
+    // scale (K5b: the column's K scale), mask per query, online softmax in
+    // log2 units; a row's max and sum over its quad
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t4 + (e & 1), ri = e >> 1;
+        const unsigned cm = mask_s[x0 + c];
+        const bool ok = wrow[ri] >= 0 && ((cm >> wrow[ri]) & 1u);
+        const float f = kQuant ? ksc[c] * scale2 : scale2;
+        s[j][e] = ok ? s[j][e] * f : kNegInf;
+        mx[ri] = fmaxf(mx[ri], s[j][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(kFull, mx[ri], 1));
+      mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(kFull, mx[ri], 2));
+      const float m_new = fmaxf(m[ri], mx[ri]);
+      alpha[ri] = exp2f(m[ri] - m_new);
+      m[ri] = m_new;
+      l[ri] *= alpha[ri];  // this thread's share of the row sum
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ri = e >> 1;
+        const float p = m[ri] > kNegInf * 0.5f ? exp2f(s[j][e] - m[ri]) : 0.f;
+        l[ri] += p;
+        // K5b: the column's V scale, in f32 before the hi/lo split
+        s[j][e] = kQuant ? p * vsc[j * 8 + 2 * t4 + (e & 1)] : p;
+      }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+
+    // acc += P V by 16-key stages, P as hi + lo A fragments from registers,
+    // each stage's product summed from zero and added rounding to nearest
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ph[4], pl[4];
+      acc_to_a(s, kk, ph, pl);
+#pragma unroll
+      for (int np = 0; np < HD / 16; ++np) {
+        float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+        uint32_t b[4];
+        ldsm_x4_t(b, vs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD + np * 16 +
+                         (lane / 16) * 8);
+        mma16816(t0, pl, b[0], b[1]);
+        mma16816(t0, ph, b[0], b[1]);
+        mma16816(t1, pl, b[2], b[3]);
+        mma16816(t1, ph, b[2], b[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[2 * np][e] += t0[e];
+          acc[2 * np + 1][e] += t1[e];
+        }
+      }
+    }
+    __syncthreads();  // the next iteration refills the buffers read here
+  }
+
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    l[ri] += __shfl_xor_sync(kFull, l[ri], 1);
+    l[ri] += __shfl_xor_sync(kFull, l[ri], 2);
+    const int row = warp * 16 + g + 8 * ri;
+    if (row >= M) continue;
+    if (a.n_splits == 1) {  // the whole table: the output itself
+      const int w = row / group;
+      const float safe_l = l[ri] > 0.f ? l[ri] : 1.f;
+      bf16* o = out_r + ((size_t)w * nH + h * group + row - w * group) * HD + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(o + n * 8) =
+            __floats2bfloat162_rn(acc[n][2 * ri] / safe_l, acc[n][2 * ri + 1] / safe_l);
+    } else {
+      if (t4 == 0) {
+        a.part_m[part + row] = m[ri];
+        a.part_l[part + row] = l[ri];
+      }
+      float* pa = a.part_acc + (part + row) * HD + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<float2*>(pa + n * 8) = make_float2(acc[n][2 * ri], acc[n][2 * ri + 1]);
+    }
+  }
+}
+
+// The combine pass: grid (W, nKV, R), one block per (query position, kv
+// head, slot) over its group rows. The splits are read in split order, so
+// the output does not depend on which block finished first.
+template <int HD>
+__device__ __forceinline__ void verify_combine_body(const VerifyArgs& a) {
+  const int w = blockIdx.x, h = blockIdx.y, r = blockIdx.z;
+  const int group = a.group, M = a.W * group, S = a.n_splits, nH = a.nKV * group;
+  const size_t base = ((size_t)r * a.nKV + h) * S * M + (size_t)w * group;  // split 0, row (w, 0)
+  __shared__ float mx_s[kMaxGroup], den_s[kMaxGroup];
+  const int tid = threadIdx.x;
+  if (tid < group) {
+    float mx = kNegInf, den = 0.f;
+    for (int s = 0; s < S; ++s)
+      if (a.part_l[base + (size_t)s * M + tid] > 0.f) mx = fmaxf(mx, a.part_m[base + (size_t)s * M + tid]);
+    for (int s = 0; s < S; ++s) {
+      const float ls = a.part_l[base + (size_t)s * M + tid];
+      if (ls > 0.f) den += exp2f(a.part_m[base + (size_t)s * M + tid] - mx) * ls;
+    }
+    mx_s[tid] = mx;
+    den_s[tid] = den > 0.f ? den : 1.f;
+  }
+  __syncthreads();
+  bf16* out = a.out + (((size_t)r * a.W + w) * nH + (size_t)h * group) * HD;
+  for (int i = tid; i < group * HD / 4; i += blockDim.x) {
+    const int gg = i / (HD / 4), c4 = i % (HD / 4);
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < S; ++s) {
+      const size_t row = base + (size_t)s * M + gg;
+      if (a.part_l[row] > 0.f) {  // acc of a split with no row read is never written
+        const float c = exp2f(a.part_m[row] - mx_s[gg]);
+        const float4 v = *reinterpret_cast<const float4*>(a.part_acc + row * HD + c4 * 4);
+        o.x += c * v.x;
+        o.y += c * v.y;
+        o.z += c * v.z;
+        o.w += c * v.w;
+      }
+    }
+    const float d = den_s[gg];
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out + (size_t)gg * HD + c4 * 4);
+    dst[0] = __floats2bfloat162_rn(o.x / d, o.y / d);
+    dst[1] = __floats2bfloat162_rn(o.z / d, o.w / d);
+  }
+}
+
+// K4: a bf16 pool
+template <int HD>
+__global__ void __launch_bounds__(kVMaxThreads) paged_verify_mma_kernel(VerifyArgs a) {
+  verify_mma_body<false, HD>(a);
+}
+
+// K5b: an int8 pool with per-(row, kv head) f32 scales
+template <int HD>
+__global__ void __launch_bounds__(kVMaxThreads) paged_verify_q8_mma_kernel(VerifyArgs a) {
+  verify_mma_body<true, HD>(a);
+}
+
+// their combine passes (one body; two names, so a profile files each under
+// its kernel)
+template <int HD>
+__global__ void __launch_bounds__(kCombineThreads) paged_verify_combine_kernel(VerifyArgs a) {
+  verify_combine_body<HD>(a);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kCombineThreads) paged_verify_q8_combine_kernel(VerifyArgs a) {
+  verify_combine_body<HD>(a);
+}
+
 struct Args {
   const void* q;
   const void* k_pool;
@@ -696,16 +1241,71 @@ cudaError_t launch_verify(const Args& a, cudaStream_t stream) {
 
 template <typename T, typename P>
 cudaError_t dispatch_hd(int hd, const Args& a, cudaStream_t stream) {
-  const bool v = a.W > 0;
   switch (hd) {
     case 16:
-      return v ? launch_verify<T, P, 16>(a, stream) : launch<T, P, 16>(a, stream);
+      return launch<T, P, 16>(a, stream);
     case 32:
-      return v ? launch_verify<T, P, 32>(a, stream) : launch<T, P, 32>(a, stream);
+      return launch<T, P, 32>(a, stream);
     case 64:
-      return v ? launch_verify<T, P, 64>(a, stream) : launch<T, P, 64>(a, stream);
+      return launch<T, P, 64>(a, stream);
     case 128:
-      return v ? launch_verify<T, P, 128>(a, stream) : launch<T, P, 128>(a, stream);
+      return launch<T, P, 128>(a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// K4 / K5b, f32 q: the first version
+template <typename P>
+cudaError_t dispatch_verify_f32(int hd, const Args& a, cudaStream_t stream) {
+  switch (hd) {
+    case 16:
+      return launch_verify<float, P, 16>(a, stream);
+    case 32:
+      return launch_verify<float, P, 32>(a, stream);
+    case 64:
+      return launch_verify<float, P, 64>(a, stream);
+    case 128:
+      return launch_verify<float, P, 128>(a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// K4 / K5b, bf16 q: the split kernel, then (with more than one split) the
+// combine pass, both on `stream`
+template <bool kQuant, int HD>
+cudaError_t launch_verify_mma(const VerifyArgs& a, cudaStream_t stream) {
+  const int M = a.W * a.group;
+  const size_t smem = verify_smem(M, HD, a.bsz, a.pps, kQuant).total;
+  const auto kernel = kQuant ? paged_verify_q8_mma_kernel<HD> : paged_verify_mma_kernel<HD>;
+  static size_t opted_in = 48 * 1024;  // the dynamic shared memory this kernel may take
+  if (smem > opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    opted_in = smem;
+  }
+  kernel<<<dim3(a.n_splits, a.nKV, a.R), 32 * ((M + 15) / 16), smem, stream>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || a.n_splits == 1) return e;
+  const auto combine =
+      kQuant ? paged_verify_q8_combine_kernel<HD> : paged_verify_combine_kernel<HD>;
+  combine<<<dim3(a.W, a.nKV, a.R), kCombineThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kQuant>
+cudaError_t dispatch_verify_mma(int hd, const VerifyArgs& a, cudaStream_t stream) {
+  switch (hd) {
+    case 16:
+      return launch_verify_mma<kQuant, 16>(a, stream);
+    case 32:
+      return launch_verify_mma<kQuant, 32>(a, stream);
+    case 64:
+      return launch_verify_mma<kQuant, 64>(a, stream);
+    case 128:
+      return launch_verify_mma<kQuant, 128>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -724,6 +1324,29 @@ cudaError_t check_verify(int W, int group) {
   if (W < 1 || W > kVerifyMaxW || W * group > kVerifyMaxRows)
     return cudaErrorInvalidValue;
   return cudaSuccess;
+}
+
+// Route the verify call by q's dtype: f32 to the first version, bf16 to
+// the split kernel (and its combine). `scratch` holds the splits' partials
+// (`verify_scratch_floats` of them), unused with one split or f32 q.
+template <bool kQuant>
+int paged_verify(const Args& a, int hd, int is_bf16, float* scratch, int pages_per_split,
+                 cudaStream_t stream) {
+  if (!is_bf16) return dispatch_verify_f32<typename std::conditional<kQuant, int8_t, float>::type>(
+      hd, a, stream);
+  if (pages_per_split < 1 || (size_t)pages_per_split * a.bsz > kVMaxSplitRows)
+    return cudaErrorInvalidValue;
+  const int n_splits = (a.nb + pages_per_split - 1) / pages_per_split;
+  const size_t rows = (size_t)a.R * a.nKV * n_splits * a.W * a.group;  // partial rows
+  if (n_splits > 1 && scratch == nullptr) return cudaErrorInvalidValue;
+  VerifyArgs v{static_cast<const bf16*>(a.q), a.k_pool, static_cast<const float*>(a.k_scale),
+               a.v_pool, static_cast<const float*>(a.v_scale),
+               static_cast<const int32_t*>(a.table), static_cast<const uint8_t*>(a.valid),
+               // acc first: its float4 rows stay 16-byte aligned
+               scratch + rows * hd, scratch + rows * hd + rows, scratch,
+               static_cast<bf16*>(a.out), a.R, a.W, a.nKV, a.group, a.bsz, a.nb,
+               a.n_blocks, pages_per_split, n_splits, a.sm_scale};
+  return dispatch_verify_mma<kQuant>(hd, v, stream);
 }
 
 }  // namespace
@@ -768,22 +1391,24 @@ extern "C" int areal_paged_attention_q8(
 }
 
 // K4: q [R, W, nH, hd], k_pool and v_pool in q's dtype (f32 or bf16), valid
-// [R, W, nb * bsz]; out [R, W, nH, hd].
+// [R, W, nb * bsz]; out [R, W, nH, hd]. For bf16 q, `pages_per_split`
+// pages of the table go to each block (at most 4096 rows), and `scratch`
+// is f32 device memory of `areal_paged_verify_scratch_floats` elements
+// (null allowed when that is 0).
 extern "C" int areal_paged_verify(const void* q, const void* k_pool,
                                   const void* v_pool, const void* table,
                                   const void* valid, void* out, int R, int W,
                                   int nH, int nKV, int hd, int bsz, int nb,
                                   int n_blocks, float sm_scale, int is_bf16,
-                                  void* stream) {
+                                  void* scratch, int pages_per_split, void* stream) {
   cudaError_t e = check_args(R, nH, nKV, bsz, nb);
   if (e == cudaSuccess) e = check_verify(W, nH / nKV);
   if (e != cudaSuccess) return e;
   const Args a{q,     k_pool, nullptr, v_pool, nullptr, table,
                valid, out,    R,       nKV,    nH / nKV, bsz,
                nb,    n_blocks, sm_scale, W};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return dispatch_hd<__nv_bfloat16, __nv_bfloat16>(hd, a, s);
-  return dispatch_hd<float, float>(hd, a, s);
+  return paged_verify<false>(a, hd, is_bf16, static_cast<float*>(scratch), pages_per_split,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // K5b: K4 on int8 k/v pools with f32 scales [n_blocks, nKV, bsz].
@@ -791,16 +1416,30 @@ extern "C" int areal_paged_verify_q8(
     const void* q, const void* k_pool, const void* k_scale, const void* v_pool,
     const void* v_scale, const void* table, const void* valid, void* out,
     int R, int W, int nH, int nKV, int hd, int bsz, int nb, int n_blocks,
-    float sm_scale, int is_bf16, void* stream) {
+    float sm_scale, int is_bf16, void* scratch, int pages_per_split, void* stream) {
   cudaError_t e = check_args(R, nH, nKV, bsz, nb);
   if (e == cudaSuccess) e = check_verify(W, nH / nKV);
   if (e != cudaSuccess) return e;
   const Args a{q,     k_pool, k_scale, v_pool, v_scale, table,
                valid, out,    R,       nKV,    nH / nKV, bsz,
                nb,    n_blocks, sm_scale, W};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return dispatch_hd<__nv_bfloat16, int8_t>(hd, a, s);
-  return dispatch_hd<float, int8_t>(hd, a, s);
+  return paged_verify<true>(a, hd, is_bf16, static_cast<float*>(scratch), pages_per_split,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The f32 scratch the bf16 verify kernels need: (hd + 2) floats per query
+// row per split, none with one split.
+extern "C" long long areal_paged_verify_scratch_floats(int R, int W, int nH, int nKV, int hd,
+                                                       int nb, int pages_per_split) {
+  const long long n_splits = (nb + pages_per_split - 1) / pages_per_split;
+  return n_splits > 1 ? (long long)R * W * nH * n_splits * (hd + 2) : 0;
+}
+
+// The dynamic shared memory of one block of the bf16 verify kernel (K4, or
+// K5b with `quant`), as its launch sizes it.
+extern "C" long long areal_paged_verify_smem_bytes(int W, int group, int hd, int bsz,
+                                                   int pages_per_split, int quant) {
+  return (long long)verify_smem(W * group, hd, bsz, pages_per_split, quant != 0).total;
 }
 
 extern "C" const char* areal_cuda_error_string(int err) {

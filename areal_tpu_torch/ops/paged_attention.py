@@ -23,7 +23,11 @@ it launches K4 (`_paged_verify_kernel`'s port, an fp pool) or K5b
 (`_paged_verify_kernel_q8`'s, an int8 pool), which read each valid K/V row
 once for all W queries; on a CPU tensor it runs
 `paged_attention_qlen_ref`. The kernels take W <= `VERIFY_MAX_W` and
-W * group <= `VERIFY_MAX_ROWS` (`check_verify_width`).
+W * group <= `VERIFY_MAX_ROWS` (`check_verify_width`). For bf16 q they
+run on the tensor cores with the slot's table split over blocks,
+`verify_pages_per_split` pages each, and a combine pass over the splits'
+f32 partials (scratch this module allocates); f32 q runs the first
+version, one block per (kv head, slot).
 
 `launches` counts launches of the fp kernel (K3), `launches_q8` those of
 the int8 kernel (K5a), `launches_verify` and `launches_verify_q8` those of
@@ -49,6 +53,10 @@ _MAX_PAGE = 256
 # accumulators live in shared memory and registers
 VERIFY_MAX_W = 16
 VERIFY_MAX_ROWS = 128
+# the bf16 verify kernels: logical rows per split at most, and the blocks
+# per SM a split count may not go below (two ~85 KB blocks fit on an SM)
+VERIFY_MAX_SPLIT_ROWS = 4096
+VERIFY_MIN_BLOCKS_PER_SM = 2
 
 # kernel launches since the process started (or the last reset to 0):
 # fp pools (K3) and int8 pools (K5a); verify on fp (K4) and int8 (K5b)
@@ -162,19 +170,25 @@ def _kernel_lib() -> ctypes.CDLL:
             *lib.areal_paged_attention.argtypes[3:],
         ]
         lib.areal_paged_attention_q8.restype = ctypes.c_int
-        # K4 and K5b: K3's and K5a's arguments with W after R
+        # K4 and K5b: K3's and K5a's arguments with W after R, and the bf16
+        # route's scratch and pages per split before the stream
+        split = [ctypes.c_void_p, ctypes.c_int]  # scratch, pages_per_split
         lib.areal_paged_verify.argtypes = [
             *lib.areal_paged_attention.argtypes[:7],  # q, k, v, table, valid, out, R
             ctypes.c_int,  # W
-            *lib.areal_paged_attention.argtypes[7:],
+            *lib.areal_paged_attention.argtypes[7:-1], *split, ctypes.c_void_p,
         ]
         lib.areal_paged_verify.restype = ctypes.c_int
         lib.areal_paged_verify_q8.argtypes = [
             *lib.areal_paged_attention_q8.argtypes[:9],  # ... out, R
             ctypes.c_int,  # W
-            *lib.areal_paged_attention_q8.argtypes[9:],
+            *lib.areal_paged_attention_q8.argtypes[9:-1], *split, ctypes.c_void_p,
         ]
         lib.areal_paged_verify_q8.restype = ctypes.c_int
+        lib.areal_paged_verify_scratch_floats.argtypes = [ctypes.c_int] * 7
+        lib.areal_paged_verify_scratch_floats.restype = ctypes.c_longlong
+        lib.areal_paged_verify_smem_bytes.argtypes = [ctypes.c_int] * 6
+        lib.areal_paged_verify_smem_bytes.restype = ctypes.c_longlong
         lib.areal_cuda_error_string.argtypes = [ctypes.c_int]
         lib.areal_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -244,6 +258,13 @@ def _check(q, k_pool, v_pool, block_table, valid, verify: bool = False) -> None:
         )
     if verify:
         check_verify_width(q.shape[1], nH // nKV)
+        if q.dtype == torch.bfloat16:
+            # the tensor-core route copies rows of q and the pools 16 bytes
+            # at a time (cp.async)
+            for name, t in dict(q=q, k_pool=k_pool, v_pool=v_pool).items():
+                if t.data_ptr() % 16:
+                    raise ValueError(f"{name} starts at {t.data_ptr():#x}, not 16-byte "
+                                     "aligned: the bf16 verify kernels copy 16-byte rows")
 
 
 def paged_attention(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
@@ -303,38 +324,50 @@ def paged_attention(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
     return out
 
 
-def paged_attention_qlen(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
-    """Speculative-verify attention: W query positions per slot over paged
-    KV, each under its own row of `valid`.
+def verify_pages_per_split(nb: int, bsz: int, R: int, nKV: int, n_sms: int) -> int:
+    """Pages of the table per block of the bf16 verify kernels: the most
+    (a power of two, at most `VERIFY_MAX_SPLIT_ROWS` rows and the table)
+    that leave the grid at least `VERIFY_MIN_BLOCKS_PER_SM` blocks per SM.
+    Fewer splits write and combine fewer partials; too few leave SMs idle.
+    At the spec batch (R 16, 4 kv heads, 9 pages of 128 rows, 132 SMs) that
+    is 2, the fastest of 1, 2, 4 and 9 on an H100 (`PERF.md`)."""
+    pps = 1
+    while (pps < nb and 2 * pps * bsz <= VERIFY_MAX_SPLIT_ROWS
+           and R * nKV * -(-nb // (2 * pps)) >= VERIFY_MIN_BLOCKS_PER_SM * n_sms):
+        pps *= 2
+    return min(pps, nb)
 
-    q `[R, W, nH, hd]`; pools as for `paged_attention`; table `[R, nb]`
-    int32; valid `[R, W, nb * bsz]` bool (query w of slot r attends the
-    logical rows s with `valid[r, w, s]`, typically s <= base + w). Returns
-    `[R, W, nH, hd]` in q's dtype; a query with no valid row gives 0. A
-    block id outside the pool on a page with a row valid for some query
-    faults the kernel, as in `paged_attention`.
-    """
+
+def verify_smem_bytes(W: int, group: int, hd: int, bsz: int, pages_per_split: int,
+                      quant: bool) -> int:
+    """Dynamic shared memory of one block of the bf16 verify kernel (K4, or
+    K5b with `quant`), as its launch sizes it (builds the library)."""
+    return _kernel_lib().areal_paged_verify_smem_bytes(W, group, hd, bsz, pages_per_split,
+                                                       int(quant))
+
+
+def _verify_launch(q, k_pool, v_pool, block_table, valid, sm_scale: float,
+                   pages_per_split: int | None = None):
+    """Launch K4 or K5b on checked CUDA tensors and count the launch. For
+    bf16 q, `pages_per_split` (default `verify_pages_per_split`) sets the
+    blocks' share of the table; f32 q ignores it."""
     global launches_verify, launches_verify_q8
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return paged_attention_qlen_ref(
-            q, k_pool, v_pool, block_table, valid, sm_scale=sm_scale
-        )
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention_qlen runs on cuda or cpu, not {q.device}")
-    _check(q, k_pool, v_pool, block_table, valid, verify=True)
     (k_data, k_scales), (v_data, v_scales) = split_pool(k_pool), split_pool(v_pool)
     R, W, nH, hd = q.shape
     n_blocks, bsz, nKV, _ = k_data.shape
-    if R == 0 or block_table.shape[1] == 0:
-        return torch.zeros_like(q)  # no row to attend: the output is 0
+    nb = block_table.shape[1]
     out = torch.empty_like(q)
     lib = _kernel_lib()
+    bf16 = q.dtype == torch.bfloat16
+    if pages_per_split is None:
+        n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        pages_per_split = verify_pages_per_split(nb, bsz, R, nKV, n_sms) if bf16 else 1
+    n = lib.areal_paged_verify_scratch_floats(R, W, nH, nKV, hd, nb, pages_per_split) if bf16 else 0
+    scratch = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     tail = (
         block_table.data_ptr(), valid.data_ptr(), out.data_ptr(),
-        R, W, nH, nKV, hd, bsz, block_table.shape[1], n_blocks,
-        float(sm_scale), int(q.dtype == torch.bfloat16),
+        R, W, nH, nKV, hd, bsz, nb, n_blocks,
+        float(sm_scale), int(bf16), scratch.data_ptr() if n else None, pages_per_split,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if k_scales is None:
@@ -352,3 +385,28 @@ def paged_attention_qlen(q, k_pool, v_pool, block_table, valid, *, sm_scale=None
     else:
         launches_verify_q8 += 1
     return out
+
+
+def paged_attention_qlen(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
+    """Speculative-verify attention: W query positions per slot over paged
+    KV, each under its own row of `valid`.
+
+    q `[R, W, nH, hd]`; pools as for `paged_attention`; table `[R, nb]`
+    int32; valid `[R, W, nb * bsz]` bool (query w of slot r attends the
+    logical rows s with `valid[r, w, s]`, typically s <= base + w). Returns
+    `[R, W, nH, hd]` in q's dtype; a query with no valid row gives 0. A
+    block id outside the pool on a page with a row valid for some query
+    faults the kernel, as in `paged_attention`.
+    """
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return paged_attention_qlen_ref(
+            q, k_pool, v_pool, block_table, valid, sm_scale=sm_scale
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_qlen runs on cuda or cpu, not {q.device}")
+    _check(q, k_pool, v_pool, block_table, valid, verify=True)
+    if q.shape[0] == 0 or block_table.shape[1] == 0:
+        return torch.zeros_like(q)  # no row to attend: the output is 0
+    return _verify_launch(q, k_pool, v_pool, block_table, valid, sm_scale)

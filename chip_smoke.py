@@ -191,8 +191,9 @@ def _ptxas_summary(log: str) -> list[str]:
 
 def phase_build() -> None:
     """Every source, one nvcc each, started together; each kernel's
-    registers and spills from ptxas, and the dynamic shared memory of the
-    flash and int8-matmul kernels' blocks as their launches size it."""
+    registers and spills from ptxas (K2a, K4 and K5b on the tensor cores
+    must not spill at hd 128), and the dynamic shared memory of the flash,
+    int8-matmul and bf16 verify kernels' blocks as their launches size it."""
     t0 = time.perf_counter()
     built = _build.build_all()
     wall_s = time.perf_counter() - t0
@@ -204,23 +205,32 @@ def phase_build() -> None:
     check(len(k2a) == 4, f"K2a: {len(k2a)} tensor-core instantiations in the ptxas report")
     check(any(line.startswith("flash_bwd_dq_mma_kernel<bf16,128>:") and
               line.endswith("spills 0/0 bytes") for line in k2a), f"K2a spills at hd 128: {k2a}")
+    # K4 and K5b on the tensor cores (bf16 q) at every head dim, no spill at
+    # hd 128
+    verify_ptxas = {}
+    for kern in ("paged_verify_mma_kernel", "paged_verify_q8_mma_kernel"):
+        found = [line for r in rows for line in r["ptxas"] if line.startswith(kern + "<")]
+        check(len(found) == 4, f"{kern}: {len(found)} instantiations in the ptxas report")
+        check(any(line.startswith(f"{kern}<bf16,128>:") and line.endswith("spills 0/0 bytes")
+                  for line in found), f"{kern} spills at hd 128: {found}")
+        verify_ptxas[kern] = found
     # ptxas reports static shared memory only; the kernels size theirs per launch
     smem = {f"{str(dt).split('.')[-1]}_hd{hd}": fa.smem_bytes(8192, hd, dt)
             for dt in (torch.bfloat16, torch.float32) for hd in (16, 64, 128)}
     # quant_matmul: 4 stages of a 64 x 144-byte int8 tile and a 16 mt x 72 x tile
     qmm = {f"{dt}_mt{mt}": 4 * (64 * 144 + 16 * mt * 72 * size)
            for dt, size in (("bf16", 2), ("f32", 4)) for mt in (1, 4)}
-    # K4/K5b: f32 q rows, two 32-row K/V tiles, the tile's probabilities,
-    # m/l/alpha, and per-page scale strips and row flags (page 128)
-    def verify_smem(W, group, hd, bsz=128):
-        M = W * group
-        return 4 * (M * hd + 32 * (hd + 1) + 32 * hd + M * 32 + 3 * M + 2 * bsz) + 4 * bsz
-
-    verify = {f"W{W}_group{g}_hd{hd}": verify_smem(W, g, hd)
-              for W, g, hd in ((5, 7, 128), (9, 7, 128), (16, 8, 128), (9, 7, 64))}
-    emit("build", kernels=rows, wall_s=wall_s, k2a_ptxas=k2a,
+    # K4/K5b (bf16 q): q rows, K/V tiles (K5b: int8 tiles and scales beside
+    # them), per-row masks and offsets of a split; page 128
+    verify = {f"{'K5b' if quant else 'K4'}_W{W}_group{g}_hd{hd}_pages{pps}":
+              pa.verify_smem_bytes(W, g, hd, 128, pps, quant)
+              for quant in (False, True)
+              for W, g, hd, pps in ((5, 7, 128, 1), (5, 7, 128, 2), (5, 7, 128, 9), (9, 7, 128, 2),
+                                    (16, 8, 128, 2), (16, 8, 128, 32), (9, 7, 64, 2))}
+    emit("build", kernels=rows, wall_s=wall_s, k2a_ptxas=k2a, verify_ptxas=verify_ptxas,
          shared_memory=dict(paged_attention="dynamic, sized per launch",
-                            paged_verify=verify, flash_attention_T8192=smem, quant_matmul=qmm))
+                            paged_verify_bf16=verify, flash_attention_T8192=smem,
+                            quant_matmul=qmm))
 
 
 def _paged_case(case: dict, dtype: torch.dtype, dev: torch.device, seed: int):
@@ -607,7 +617,16 @@ VERIFY_CASES = [
     KERNEL_CASES[1],  # the rollout shape: Qwen2.5-1.5B, 12/2 heads, R 32
     KERNEL_CASES[2],  # hd 64
     KERNEL_CASES[3],  # hd 16, page 16
+    # 40-row pages: a 64-row tile crosses pages, and a split's last tile is
+    # partial (zero-filled past its rows)
+    dict(name="page-40", nH=28, nKV=4, hd=128, bsz=40, R=8, max_len=1000),
+    # the serve shape with slot 3's rows ending on a split boundary (8
+    # pages: a boundary of every swept split but the whole table)
+    dict(KERNEL_CASES[0], name="split-end", split_end_pages=8),
 ]
+# pages per split of the bf16 verify kernels' sweep (checked and timed);
+# None: the whole table in one split
+VERIFY_SPLITS = (1, 2, 4, None)
 VERIFY_WIDTHS = (2, 3, 5, 9)
 SPEC_K = 4  # the spec serve phases' spec_k: verify widths 2, 3 and 5
 # jax.random on the CPU (jax 0.9.0): fold_in(key (123, 456), 7), then the
@@ -631,7 +650,7 @@ def _verify_case(case: dict, W: int, dtype, dev, seed: int):
     """Random pools and queries; slot r's query w attends rows s <=
     base[r] + w over a ragged block table with null-block tails. Slot 0
     has no valid row for any query, slot 1 none for query 0, slot 2 is
-    full."""
+    full; with `split_end_pages`, slot 3's rows end on that page boundary."""
     R, nH, nKV, hd, bsz = case["R"], case["nH"], case["nKV"], case["hd"], case["bsz"]
     nb = -(-case["max_len"] // bsz)
     n_blocks = R * nb + 1
@@ -639,6 +658,8 @@ def _verify_case(case: dict, W: int, dtype, dev, seed: int):
     gen = torch.Generator(device=dev).manual_seed(seed)
     base = rng.integers(1, case["max_len"] - W, R)
     base[0], base[1], base[2] = -W, -1, case["max_len"] - W
+    if "split_end_pages" in case:  # the last query's last row ends a split
+        base[3] = case["split_end_pages"] * bsz - W
     perm = rng.permutation(np.arange(1, n_blocks))
     table = np.zeros((R, nb), np.int32)
     for r in range(R):
@@ -734,14 +755,20 @@ def phase_verify_kernel(dev: torch.device) -> dict:
     """K4 (fp pool) and K5b (int8 pool) against `paged_attention_qlen_ref`
     with f32 attention (K3's tolerances: the plain bf16 path would round
     scores and probabilities to bf16, which the kernels do not), at widths
-    2, 3, 5 and 9, the serve and rollout shapes, hd 64 and a 16-row page,
-    f32 and bf16 q, with queries that have no valid row (exactly 0). The
-    planted faults, each of which must read above its tolerance: K4, the
-    plain version with the last query's mask replaced by the first one's;
-    K5b, the scales of every multi-page slot's first page ignored (read as
-    1). Then the sampler's noise kernel and the sampler's purity."""
+    2, 3, 5 and 9, the serve and rollout shapes, hd 64, a 16-row page, a
+    40-row page and a slot whose rows end on a split boundary, f32 q (the
+    first version) and bf16 q (the tensor-core kernels, at their default
+    split and at every split of `VERIFY_SPLITS`), with queries that have no
+    valid row (exactly 0). The planted faults, each of which must read
+    above its tolerance: K4, the plain version with the last query's mask
+    replaced by the first one's; K5b, the scales of every multi-page slot's
+    first page ignored (read as 1). Then the sampler's noise kernel and the
+    sampler's purity."""
     rows, worst = [], dict(paged_verify=0.0, paged_verify_q8=0.0)
     for i, case in enumerate(VERIFY_CASES):
+        nb = -(-case["max_len"] // case["bsz"])
+        default_pps = pa.verify_pages_per_split(nb, case["bsz"], case["R"], case["nKV"],
+                                                qm._n_sms(dev))
         for W in VERIFY_WIDTHS:
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v, table, valid = _verify_case(case, W, dtype, dev, SEED + 60 + 10 * i + W)
@@ -760,7 +787,8 @@ def phase_verify_kernel(dev: torch.device) -> dict:
                         moved = valid.clone()
                         moved[:, -1] = valid[:, 0]
                         fault_args = (kp, vp, table, moved)
-                    out = pa.paged_attention_qlen(q, kp if quant else k, vp if quant else v, table, valid)
+                    pools = (kp, vp) if quant else (k, v)
+                    out = pa.paged_attention_qlen(q, *pools, table, valid)
                     torch.cuda.synchronize()
                     ref = pa.paged_attention_qlen_ref(q.float(), kp, vp, table, valid)
                     ref_fault = pa.paged_attention_qlen_ref(q.float(), *fault_args)
@@ -772,10 +800,26 @@ def phase_verify_kernel(dev: torch.device) -> dict:
                     empty_zero = bool((out[empty] == 0).all().item())
                     kname = "paged_verify_q8" if quant else "paged_verify"
                     name = f"{'K5b' if quant else 'K4'} {case['name']} W {W} {str(dtype).split('.')[-1]}"
+                    split_ratios = {}
+                    if dtype == torch.bfloat16:  # the tensor-core kernels at every swept split
+                        for pps in VERIFY_SPLITS:
+                            o = pa._verify_launch(q, *pools, table, valid, 1.0 / math.sqrt(case["hd"]),
+                                                  pps or nb)
+                            torch.cuda.synchronize()
+                            split_ratios[pps or "all"] = _tol_ratio(o, ref, atol, rtol)
+                            err = max(err, (o.float() - ref).abs().max().item())
+                            check(math.isfinite(split_ratios[pps or "all"])
+                                  and split_ratios[pps or "all"] <= 1.0,
+                                  f"{name} at {pps or nb} pages per split: "
+                                  f"{split_ratios[pps or 'all']} x the tolerance")
+                            check(bool((o[empty] == 0).all().item()),
+                                  f"{name} at {pps or nb} pages per split: a query with no valid row is not 0")
                     rows.append(dict(kernel=kname, case=case["name"], W=W,
                                      dtype=str(dtype).split(".")[-1], max_abs_err=err, atol=atol,
                                      rtol=rtol, tol_ratio=ratio, planted_fault_tol_ratio=fault_ratio,
-                                     empty_queries=int(empty.sum()), empty_queries_zero=empty_zero))
+                                     empty_queries=int(empty.sum()), empty_queries_zero=empty_zero,
+                                     **(dict(default_pages_per_split=default_pps,
+                                             split_tol_ratio=split_ratios) if split_ratios else {})))
                     check(math.isfinite(ratio) and ratio <= 1.0,
                           f"{name}: {ratio} x the tolerance (max abs err {err})")
                     check(fault_ratio > 1.0, f"{name}: the planted fault passes the tolerance")
@@ -1540,10 +1584,12 @@ def phase_verify_line(engine, cfg, batch: dict, launches: int, max_err: float,
     """K4 timings (K5b on an int8 engine's pool) at the spec batch: the 16
     slots of `phase_spec_step`'s batch (or the int8 engine's own) with W 5
     queries each over the served pool, rotating over 4 layers' pools so
-    the rows come from HBM. Yardsticks (timed here only; the port never
-    calls them): SDPA over KV pre-gathered (and pre-dequantized) with the
-    [W, span] masks, and K3 (K5a) launched over R x W virtual slots, the
-    alternative the TPU kernel was designed to beat."""
+    the rows come from HBM; as issued and on the device alone, at the
+    default split and at each of `VERIFY_SPLITS`. Yardsticks (timed here
+    only; the port never calls them): SDPA over KV pre-gathered (and
+    pre-dequantized) with the [W, span] masks, and K3 (K5a) launched over
+    R x W virtual slots, the alternative the TPU kernel was designed to
+    beat."""
     dev = engine.device
     quant = engine._k_scale is not None
     table, lengths = batch["table"], batch["lengths"]
@@ -1568,9 +1614,20 @@ def phase_verify_line(engine, cfg, batch: dict, launches: int, max_err: float,
 
     calls = counter()
     ms = _time(lambda i: pa.paged_attention_qlen(q, kp[i % layers], vp[i % layers], table, valid), 200)
+    ms_device = _time_device(
+        lambda i: pa.paged_attention_qlen(q, kp[i % layers], vp[i % layers], table, valid), 200)
     plain_ms = _time(lambda i: pa.paged_attention_qlen_ref(q, kp[i % layers], vp[i % layers],
                                                            table, valid), 20)
     check(counter() > calls, "timing did not launch the kernel")
+    # the split sweep: pages of the table per block (the whole table last),
+    # as issued and on the device alone
+    sm_scale = 1.0 / math.sqrt(hd)
+    default_pps = pa.verify_pages_per_split(nb, bsz, R, nKV, qm._n_sms(dev))
+    sweep = {}
+    for pps in VERIFY_SPLITS:
+        def run(i, pps=pps or nb):
+            return pa._verify_launch(q, kp[i % layers], vp[i % layers], table, valid, sm_scale, pps)
+        sweep[pps or "all"] = dict(pages=pps or nb, ms=_time(run, 200), ms_device=_time_device(run, 200))
     # K3 / K5a over R x W virtual slots, one query each
     qv = q.reshape(R * width, nH, hd)
     tv = table.repeat_interleave(width, dim=0).contiguous()
@@ -1601,9 +1658,11 @@ def phase_verify_line(engine, cfg, batch: dict, launches: int, max_err: float,
     return dict(
         name="paged_verify_q8" if quant else "paged_verify", route="cuda",
         source=KERNEL_SOURCE, replaces=VERIFY_Q8_REPLACES if quant else VERIFY_REPLACES,
-        launches=launches, max_abs_err=max_err, max_err=max_err, ms=ms, plain_ms=plain_ms,
+        launches=launches, max_abs_err=max_err, max_err=max_err, ms=ms, ms_device=ms_device,
+        plain_ms=plain_ms,
         bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=library_ms,
+        pages_per_split=default_pps, split_sweep=sweep,
         library_call="scaled_dot_product_attention, KV pre-gathered"
                      + (" and pre-dequantized to bf16" if quant else "") + ", [W, span] mask",
         per_query_kernel_ms=per_query_ms,
@@ -1795,6 +1854,8 @@ def _flash_counts() -> np.ndarray:
 
 
 def _kernel_family(name: str) -> str:
+    # K4's and K5b's combine passes (`paged_verify_combine_kernel`,
+    # `paged_verify_q8_combine_kernel`) fall under their kernels
     name = name.lower()
     if "paged_verify_q8" in name:
         return "K5b paged_verify_q8"
