@@ -10,55 +10,91 @@
 //   out = acc / (l > 0 ? l : 1), so a slot with no valid row outputs 0;
 //   written in q's dtype.
 //
-// Bound. Per call the work is 4 * nH * hd flops per valid KV row, on the
-// CUDA cores in f32, against 2 * nKV * hd * sizeof(T) bytes of K and V for
-// the same row: about 7 flops per byte for bf16 at Qwen2.5 widths (GQA
-// group 7), far below the H100's ~20 f32 flops per byte of HBM (67 TFLOP/s
-// over 3.35 TB/s). So the kernel is bound by bytes: the valid K and V rows,
-// plus q, out, the block table and the validity mask, over 3.35 TB/s.
+// Bound. Per call the work is 4 * nH * hd flops per valid KV row against
+// 2 * nKV * hd * sizeof(T) bytes of K and V for the same row: about 7
+// flops per byte for bf16 at Qwen2.5 widths (GQA group 7), far below the
+// H100's ~20 f32 flops per byte of HBM (67 TFLOP/s over 3.35 TB/s) and its
+// ~295 bf16 tensor-core flops per byte. So the kernel is bound by bytes:
+// the valid K and V rows, plus q, out, the block table and the validity
+// mask, over 3.35 TB/s (0.0068 ms at the serve batch: R 16, 28/4 heads,
+// hd 128, ~11,018 valid rows).
 //
-// Design, first version (made fast in a later change):
-//   - one thread block per (kv head h, slot r), on the caller's stream; the
-//     TPU kernel's sequential grid axis over the table becomes a loop inside
-//     the block, since nothing carries between CUDA blocks;
-//   - 1024 threads per block: R * nKV blocks (64 at R=16, nKV=4) leave each
-//     SM one block, so that block's warps are all the latency hiding the SM
-//     gets. At the serve shapes chip_smoke.py measured 0.77 ms with 128
-//     threads and 0.23 ms with 1024 (H100 80GB HBM3, 700 W);
+// K5a, `paged_attn_q8_kernel` / `paged_attn_q8_mma_kernel`, replaces
+// `areal_tpu/ops/paged_attention.py::_paged_attn_kernel_q8` (:168), which the
+// same `pallas_call` (:270) launches for an int8 pool: K and V are int8
+// `[n_blocks, bsz, nKV, hd]` with one f32 scale per (row, kv head) in
+// `[n_blocks, nKV, bsz]` (the scales of one (block, head) are `bsz`
+// contiguous floats), dequantized as `q8 * scale` (the TPU kernel's :198 and
+// :212); the attention math is K3's. Bound: bytes, as for K3, with
+// 2 * (hd + 4) bytes per valid row and kv head (int8 data and its f32
+// scale) in place of 2 * hd * sizeof(T): about half of K3's bytes.
+//
+// Two routes for K3 and K5a, by q's dtype:
+//
+// bf16 q (the main path), `paged_attn_mma_kernel` (K3) and
+// `paged_attn_q8_mma_kernel` (K5a): split-KV over pages on the tensor
+// cores, with warps over keys.
+//   - grid (split, kv head, slot): a split owns `pages_per_split` pages of
+//     the slot's table, so the pages of every slot run at once; the
+//     wrapper picks the most pages (a power of two) that leave 1.5 blocks
+//     per SM: 2 at the serve batch (9-10 pages), the fastest of the card's
+//     sweep there, and the fastest or within 1.27x of it over tables of
+//     2-32 pages (chip_smoke.py --decode-sweep);
+//   - the group's M = group <= 16 query rows are one m16 A tile, read from
+//     global memory straight into registers (HD / 4 of them) while the
+//     block scans its split's mask bytes once: the pool row of each valid
+//     row into shared memory (the block id is checked here) and the list
+//     of 64-row tiles that hold one. A split with none writes m = -1e30,
+//     l = 0 and returns, having read only its mask bytes and table entries;
+//   - four warps per block; warp w takes rows 16w..16w+15 of every live
+//     tile and copies its own quarter through the block table with 16-byte
+//     cp.async, double-buffered, with only __syncwarp between its steps
+//     (rows that are not valid are zero-filled and never read); a block
+//     holds ~70 KB (K5a ~73 KB) at the serve batch, so three blocks, twelve
+//     warps, per SM;
+//   - per warp and tile: S = Q K^T for its 16 keys and one 16-key P V stage
+//     on mma.sync.m16n8k16 (bf16 in, f32 sums) in K1's register layout,
+//     scores in log2 units, P as bf16 hi + lo, the stage summed from zero
+//     and added in f32 (one bf16 term misses the bf16 tolerance,
+//     `tests/test_torch_paged_decode_design.py`); each warp keeps its own
+//     (m, l, acc);
+//   - K5a: each warp widens its int8 quarter unscaled to bf16 in shared
+//     memory (exact); the K scale multiplies score column j after the
+//     product and the V scale probability column j before its hi/lo split
+//     (l sums the unscaled p), both in f32;
+//   - at the split's end the four warps' states meet in shared memory (over
+//     the tile buffers) and merge in warp order with the combine's formula;
+//     the block writes f32 partials (m, l, acc) for the combine pass
+//     (`paged_attn_combine_kernel` / `paged_attn_q8_combine_kernel`: the
+//     verify combine at W = 1, under K3's and K5a's names), or with one
+//     split the output itself.
+//   Registers (ptxas, sm_90a): K3 182/128/72/56 and K5a 180/128/80/64 at hd
+//   128/64/32/16, the combine 39; no spills.
+//   What it leaves: at the serve batch it runs ~3.5x its byte bound; each
+//   block pays a serial prologue (mask scan, table reads, the first
+//   quarter) before its two to eight quarter steps, and 9 of the 16 rows of
+//   the m16 tile are padding at Qwen2.5's group of 7.
+//
+// f32 q, `paged_attn_kernel` and `paged_attn_q8_kernel`: the first version,
+// kept because f32 is held at an f32 tolerance that bf16 products cannot
+// meet; it never runs on the main path.
+//   - one thread block of 1024 threads per (kv head h, slot r), walking the
+//     slot's pages in turn (R * nKV blocks, 64 at the serve batch);
 //   - the group's q rows sit in shared memory in f32; acc lives in
 //     registers (one output column per thread, the page's rows split over
 //     1024 / hd slices of threads, summed once at the end) and m, l in
 //     shared memory;
 //   - per page: load its validity bits and skip the page if none is set
-//     (exact: an all-masked page leaves m, l and acc unchanged), so pages
-//     past a slot's length and null-block tails cost only their mask bytes;
+//     (exact: an all-masked page leaves m, l and acc unchanged);
 //   - K rows are read once per page with 16-byte vector loads by a team of
 //     hd * sizeof(T) / 16 threads that reduce the dot product with warp
-//     shuffles; rows that are not valid are not read at all, K or V, so the
-//     bytes moved are the valid rows (the bound above);
-//   - the GQA group (7 for Qwen2.5) is a runtime loop over at most 16 rows:
-//     no power-of-two assumption.
-// What it leaves on the table: each block walks its pages in turn, and a
-// page costs several dependent memory and barrier latencies whatever the
-// thread count, so the kernel sits ~30x above its bound. Splitting the page
-// walk across blocks (split-KV with a second reduction pass) so the pages
-// of all slots run at once is the next step.
-//
-// K5a, `paged_attn_q8_kernel`, replaces
-// `areal_tpu/ops/paged_attention.py::_paged_attn_kernel_q8` (:168), which the
-// same `pallas_call` (:270) launches for an int8 pool. It is K3's body
-// (`paged_attn_body`, instantiated with an int8 pool) with two changes:
-//   - K and V are int8 `[n_blocks, bsz, nKV, hd]` with one f32 scale per
-//     (row, kv head) in `[n_blocks, nKV, bsz]`: the scales of one
-//     (block, head) are `bsz` contiguous floats, read once per page into
-//     shared memory (valid rows only) through the same block id as the data;
-//   - one 16-byte load carries 16 int8 values, so a K row's team is hd / 16
-//     threads; each value is dequantized in f32 right after the load
-//     (`q8 * scale`, as the TPU kernel does at :198 and :212), and the
-//     attention math that follows is K3's, in f32.
-// Bound: bytes, as for K3, with 2 * (hd + 4) bytes per valid row and kv
-// head (int8 data and its f32 scale) in place of 2 * hd * sizeof(T): about
-// half of K3's bytes for a bf16 pool.
+//     shuffles; rows that are not valid are not read at all, K or V;
+//     K5a reads the page's scale strips into shared memory (valid rows
+//     only) and dequantizes each value in f32 right after its load;
+//   - the GQA group is a runtime loop over at most 16 rows.
+//   Each page costs several dependent memory and barrier latencies, so in
+//   bf16 it ran ~34x its bound at the serve batch (0.232 ms, chip_smoke.py's
+//   paged line, H100 80GB HBM3, 700 W).
 //
 // K4 and K5b replace `areal_tpu/ops/paged_attention.py::_paged_verify_kernel`
 // (:284) and `::_paged_verify_kernel_q8` (:346), launched there by
@@ -136,8 +172,9 @@
 // version, kept because f32 is held at an f32 tolerance that bf16 products
 // cannot meet; it never runs on the main path.
 //   - one block of 1024 threads per (kv head, slot), walking the slot's
-//     pages as K3 does; a page with no row valid for any query is skipped
-//     (only its mask bytes are read), as is a 32-row tile within a page;
+//     pages as K3's first version does; a page with no row valid for any
+//     query is skipped (only its mask bytes are read), as is a 32-row tile
+//     within a page;
 //   - each valid K and V row is read once, into a 32-row tile of shared
 //     memory (f32; int8 dequantized right after the load with the page's
 //     scale strip, read once into shared memory as K5a does), and scored
@@ -170,10 +207,6 @@ struct VecWidth<float> {
   static constexpr int value = 4;
 };
 template <>
-struct VecWidth<__nv_bfloat16> {
-  static constexpr int value = 8;
-};
-template <>
 struct VecWidth<int8_t> {
   static constexpr int value = 16;
 };
@@ -186,17 +219,6 @@ __device__ __forceinline__ void load16(const float* p, float* out) {
   out[3] = v.w;
 }
 
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void load16(const int8_t* p, float* out) {
   const int4 v = *reinterpret_cast<const int4*>(p);
   const int8_t* b = reinterpret_cast<const int8_t*>(&v);
@@ -206,15 +228,11 @@ __device__ __forceinline__ void load16(const int8_t* p, float* out) {
 
 __device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float x, float* p) { *p = x; }
-__device__ __forceinline__ void store(float x, __nv_bfloat16* p) {
-  *p = __float2bfloat16_rn(x);
-}
 
-// The body of K3 (P = T, no scales) and K5a (P = int8_t, f32 scales).
+// The first version's body of K3 (P = T, no scales) and K5a (P = int8_t,
+// f32 scales), instantiated for f32 q only: bf16 q takes the tensor-core
+// route.
 template <typename T, typename P, int HD>
 __device__ __forceinline__ void paged_attn_body(
     const T* __restrict__ q,             // [R, nH, HD]
@@ -389,7 +407,7 @@ __device__ __forceinline__ void paged_attn_body(
   }
 }
 
-// K3: a pool in q's dtype
+// K3 (f32): a pool in q's dtype
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
@@ -402,7 +420,7 @@ __global__ void __launch_bounds__(kThreads)
                             out, nKV, group, bsz, nb, n_blocks, sm_scale);
 }
 
-// K5a: an int8 pool with per-(row, kv head) f32 scales
+// K5a (f32 q): an int8 pool with per-(row, kv head) f32 scales
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     paged_attn_q8_kernel(const T* __restrict__ q,
@@ -1144,6 +1162,384 @@ __global__ void __launch_bounds__(kCombineThreads) paged_verify_q8_combine_kerne
   verify_combine_body<HD>(a);
 }
 
+// ===========================================================================
+// K3 and K5a, bf16 q: split-KV over pages on the tensor cores, warps over keys
+// ===========================================================================
+
+constexpr int kDecodeWarps = 4;  // warp i takes rows 16i..16i+15 of every 64-row tile
+constexpr int kDecodeThreads = 32 * kDecodeWarps;
+constexpr int kQuarter = kVTile / kDecodeWarps;
+
+// Byte offsets of one decode block's dynamic shared memory, as the launch
+// sizes it. After the tiles, the warps' merge reuses the memory from `kv`.
+struct DecodeSmem {
+  size_t kv, raw, scale, row_off, live, list, total;
+};
+
+__host__ __device__ inline DecodeSmem decode_smem(int hd, int bsz, int pps, bool quant) {
+  const size_t ld = (size_t)hd + kVRowPad;
+  const size_t rows = (size_t)(pps * bsz + kVTile - 1) / kVTile * kVTile;
+  DecodeSmem s;
+  size_t o = 0;
+  s.kv = o;  // per warp: its K and V bf16 quarters, two buffers (int8: one, widened there)
+  o += (size_t)kDecodeWarps * (quant ? 1 : 2) * 2 * kQuarter * ld * 2;
+  s.raw = o;  // int8 only: per warp, its K and V int8 quarters, two buffers
+  if (quant) o += (size_t)kDecodeWarps * 2 * 2 * kQuarter * (hd + kVRawPad);
+  s.scale = o;  // int8 only: per warp, its K and V scales, two buffers
+  if (quant) o += (size_t)kDecodeWarps * 2 * 2 * kQuarter * 4;
+  s.row_off = o;  // per logical row of the split: pool row, or -1 if not valid
+  o += rows * 4;
+  s.live = o;  // per tile: 1 if a row of it is valid
+  o += rows / kVTile * 4;
+  s.list = o;  // the live tiles, in order
+  o += rows / kVTile * 4;
+  // the merge: per warp and query row, acc [HD] then m and l, all f32
+  const size_t merge = s.kv + (size_t)kDecodeWarps * 16 * (hd + 2) * 4;
+  s.total = o > merge ? o : merge;
+  return s;
+}
+
+// One split of one (slot, kv head) for the single query token of each
+// slot: the group's rows (M = group <= 16) are one m16 A tile, read from
+// global memory straight into registers. Warp i takes the 16-row quarter
+// i of each live 64-row tile: it copies its own quarter (double-buffered
+// cp.async, only __syncwarp between its steps), computes S = Q K^T for its
+// 16 keys and one 16-key P V stage, and keeps its own (m, l, acc). At the
+// split's end the warps' states are merged in warp order with the
+// combine's formula. Thread (g, t4) = (lane / 4, lane % 4) holds query
+// rows g and g + 8 (K1's layout).
+template <bool kQuant, int HD>
+__device__ __forceinline__ void decode_mma_body(const VerifyArgs& a) {
+  using PoolT = typename std::conditional<kQuant, int8_t, bf16>::type;
+  constexpr int LD = HD + kVRowPad;
+  constexpr int LDR = HD + kVRawPad;   // bytes per shared int8 row
+  constexpr int kQE = kQuarter * LD;   // elements of one bf16 quarter
+  constexpr int KK = HD / 16;          // k-steps of S = Q K^T
+  constexpr int NO = HD / 8;           // n-tiles of O
+  constexpr int kElems = 16 / sizeof(PoolT);  // pool elements per 16-byte copy
+  constexpr int CH = HD / kElems;             // 16-byte copies per pool row
+  const int split = blockIdx.x, h = blockIdx.y, r = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int group = a.group, nH = a.nKV * group;
+  const int span = a.nb * a.bsz;
+  const int start = split * a.pps * a.bsz;  // the split's first logical row
+  const int rows = min(a.pps * a.bsz, span - start);
+  const int ntiles = (rows + kVTile - 1) / kVTile;
+
+  // the query rows as A fragments (rows past the group zero), in flight
+  // during the mask scan: thread (g, t4) holds rows g and g + 8, columns
+  // 2 t4 and 2 t4 + 1 of each 8-column half of every 16-column k-step
+  uint32_t qa[KK][4];
+  {
+    const uint32_t* q32 =
+        reinterpret_cast<const uint32_t*>(a.q + ((size_t)r * nH + (size_t)h * group) * HD);
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = g + 8 * (e & 1), col = kk * 16 + 8 * (e >> 1) + 2 * t4;
+        qa[kk][e] = row < group ? q32[(row * HD + col) / 2] : 0u;
+      }
+  }
+
+  extern __shared__ __align__(16) unsigned char smem_v[];
+  const DecodeSmem lay = decode_smem(HD, a.bsz, a.pps, kQuant);
+  bf16* kv_s = reinterpret_cast<bf16*>(smem_v + lay.kv) + warp * (kQuant ? 1 : 2) * 2 * kQE;
+  int8_t* raw_s = reinterpret_cast<int8_t*>(smem_v + lay.raw) + warp * 2 * 2 * kQuarter * LDR;
+  float* sc_s = reinterpret_cast<float*>(smem_v + lay.scale) + warp * 2 * 2 * kQuarter;
+  int* off_s = reinterpret_cast<int*>(smem_v + lay.row_off);
+  int* live_s = reinterpret_cast<int*>(smem_v + lay.live);
+  int* list_s = reinterpret_cast<int*>(smem_v + lay.list);
+  __shared__ int n_live_s;
+  __shared__ float wt_s[kDecodeWarps][16], den_s[16], mx_s[16];
+
+  // the split's mask bytes, read once: per logical row, its pool row if it
+  // is valid (the block id checked here), else -1
+  for (int i = tid; i < ntiles; i += kDecodeThreads) live_s[i] = 0;
+  __syncthreads();
+  const uint8_t* valid_r = a.valid + (size_t)r * span + start;
+  const int32_t* table_r = a.table + (size_t)r * a.nb;
+  for (int x = tid; x < ntiles * kVTile; x += kDecodeThreads) {  // warp-uniform trip count
+    int off = -1;
+    if (x < rows && valid_r[x]) {
+      const int t = start + x;
+      const int page = t / a.bsz;
+      const int blk = table_r[page];
+      // a page with a valid row must name a pool block
+      if (blk < 0 || blk >= a.n_blocks) __trap();
+      off = blk * a.bsz + (t - page * a.bsz);
+    }
+    off_s[x] = off;
+    if (__ballot_sync(kFull, off >= 0) && lane == 0) live_s[x / kVTile] = 1;
+  }
+  __syncthreads();
+  if (warp == 0) {  // the live tiles, in order
+    int cnt = 0;
+    for (int base = 0; base < ntiles; base += 32) {
+      const int i = base + lane;
+      const bool f = i < ntiles && live_s[i];
+      const unsigned bal = __ballot_sync(kFull, f);
+      if (f) list_s[cnt + __popc(bal & ((1u << lane) - 1u))] = i;
+      cnt += __popc(bal);
+    }
+    if (lane == 0) n_live_s = cnt;
+  }
+  __syncthreads();
+  const int n_live = n_live_s;
+  const size_t part = (((size_t)r * a.nKV + h) * a.n_splits + split) * group;  // row 0's partials
+  // W = 1: the group's query rows of (slot r, kv head h) are contiguous
+  bf16* out_r = a.out + ((size_t)r * nH + (size_t)h * group) * HD;
+
+  if (n_live == 0) {  // no valid row in this split
+    if (a.n_splits == 1) {
+      for (int i = tid; i < group * HD; i += kDecodeThreads) out_r[i] = __float2bfloat16_rn(0.f);
+    } else {
+      for (int m = tid; m < group; m += kDecodeThreads) {
+        a.part_m[part + m] = kNegInf;
+        a.part_l[part + m] = 0.f;
+      }
+    }
+    return;
+  }
+
+  const PoolT* k_pool = static_cast<const PoolT*>(a.k_pool);
+  const PoolT* v_pool = static_cast<const PoolT*>(a.v_pool);
+  // this warp's quarter of live tile i (K and V rows, int8 scales) into
+  // its buffer i & 1
+  auto issue = [&](int i) {
+    const int x0 = list_s[i] * kVTile + warp * kQuarter;
+    const int b = i & 1;
+    for (int c = lane; c < 2 * kQuarter * CH; c += 32) {
+      const int which = c / (kQuarter * CH);  // 0: K, 1: V
+      const int row = (c / CH) % kQuarter, ch = c % CH;
+      const int off = off_s[x0 + row];
+      const PoolT* pool = which ? v_pool : k_pool;
+      const PoolT* src = pool + ((size_t)(off < 0 ? 0 : off) * a.nKV + h) * HD + ch * kElems;
+      void* dst;
+      if constexpr (kQuant)
+        dst = raw_s + ((b * 2 + which) * kQuarter + row) * LDR + ch * 16;
+      else
+        dst = kv_s + (b * 2 + which) * kQE + row * LD + ch * 8;
+      cp_async16(dst, src, off >= 0);
+    }
+    if constexpr (kQuant) {  // 32 lanes: 16 K scales, then 16 V scales
+      const int which = lane / kQuarter, row = lane % kQuarter;
+      const int off = off_s[x0 + row];
+      const int blk = off < 0 ? 0 : off / a.bsz;
+      const int j = off < 0 ? 0 : off - blk * a.bsz;
+      const float* sc = which ? a.v_scale : a.k_scale;
+      cp_async4(sc_s + (b * 2 + which) * kQuarter + row, sc + ((size_t)blk * a.nKV + h) * a.bsz + j,
+                off >= 0);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  float acc[NO][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float scale2 = a.sm_scale * kLog2e;  // scores in log2 units
+
+  for (int i = 0; i < n_live; ++i) {
+    if (i + 1 < n_live) {
+      issue(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const int x0 = list_s[i] * kVTile + warp * kQuarter;
+    const bf16* ks = kv_s;
+    if constexpr (kQuant) {
+      // the int8 quarters widened to bf16, unscaled (|x| <= 127 is exact)
+      const int8_t* src = raw_s + (i & 1) * 2 * kQuarter * LDR;
+      for (int c = lane; c < 2 * kQuarter * (HD / 16); c += 32) {
+        const int rr = c / (HD / 16), ch = c % (HD / 16);  // rr: K rows, then V rows
+        const int4 v = *reinterpret_cast<const int4*>(src + rr * LDR + ch * 16);
+        const int8_t* e8 = reinterpret_cast<const int8_t*>(&v);
+        uint32_t o[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          o[k] = pair_bits(__floats2bfloat162_rn(static_cast<float>(e8[2 * k]),
+                                                 static_cast<float>(e8[2 * k + 1])));
+        bf16* dst = kv_s + (rr / kQuarter) * kQE + (rr % kQuarter) * LD + ch * 16;
+        *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
+        *reinterpret_cast<uint4*>(dst + 8) = make_uint4(o[4], o[5], o[6], o[7]);
+      }
+      __syncwarp();
+    } else {
+      ks = kv_s + (i & 1) * 2 * kQE;
+    }
+    const bf16* vs = ks + kQE;
+    const float* ksc = sc_s + (i & 1) * 2 * kQuarter;  // int8 only
+    const float* vsc = ksc + kQuarter;
+
+    // S = Q K^T: [16 rows, 16 keys], 2 n-tiles
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      uint32_t b[4];
+      ldsm_x4(b, ks + ((lane / 16) * 8 + lane % 8) * LD + kk * 16 + ((lane / 8) % 2) * 8);
+      mma16816(s[0], qa[kk], b[0], b[1]);
+      mma16816(s[1], qa[kk], b[2], b[3]);
+    }
+
+    // scale (K5a: the column's K scale), mask, online softmax in log2
+    // units; a row's max and sum over its quad. Padding rows (>= group)
+    // are computed and never written.
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t4 + (e & 1);
+        const float f = kQuant ? ksc[c] * scale2 : scale2;
+        s[j][e] = off_s[x0 + c] >= 0 ? s[j][e] * f : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(kFull, mx[ri], 1));
+      mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(kFull, mx[ri], 2));
+      const float m_new = fmaxf(m[ri], mx[ri]);
+      alpha[ri] = exp2f(m[ri] - m_new);
+      m[ri] = m_new;
+      l[ri] *= alpha[ri];  // this thread's share of the row sum
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ri = e >> 1;
+        const float p = m[ri] > kNegInf * 0.5f ? exp2f(s[j][e] - m[ri]) : 0.f;
+        l[ri] += p;
+        // K5a: the column's V scale, in f32 before the hi/lo split
+        s[j][e] = kQuant ? p * vsc[j * 8 + 2 * t4 + (e & 1)] : p;
+      }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+
+    // acc += P V, one 16-key stage: P as hi + lo A fragments from
+    // registers, the stage's product summed from zero and added rounding
+    // to nearest
+    uint32_t ph[4], pl[4];
+    acc_to_a(s, 0, ph, pl);
+#pragma unroll
+    for (int np = 0; np < HD / 16; ++np) {
+      float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+      uint32_t b[4];
+      ldsm_x4_t(b, vs + (lane % 8 + ((lane / 8) % 2) * 8) * LD + np * 16 + (lane / 16) * 8);
+      mma16816(t0, pl, b[0], b[1]);
+      mma16816(t0, ph, b[0], b[1]);
+      mma16816(t1, pl, b[2], b[3]);
+      mma16816(t1, ph, b[2], b[3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[2 * np][e] += t0[e];
+        acc[2 * np + 1][e] += t1[e];
+      }
+    }
+    __syncwarp();  // the next step refills the buffers read here
+  }
+
+  // the warps' (m, l, acc) through shared memory (over the tile buffers,
+  // once every warp is done with them), merged in warp order
+  __syncthreads();
+  float* mg_acc = reinterpret_cast<float*>(smem_v + lay.kv);  // [warp][16][HD]
+  float* mg_m = mg_acc + kDecodeWarps * 16 * HD;              // [warp][16]
+  float* mg_l = mg_m + kDecodeWarps * 16;                     // [warp][16]
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    l[ri] += __shfl_xor_sync(kFull, l[ri], 1);
+    l[ri] += __shfl_xor_sync(kFull, l[ri], 2);
+    const int row = g + 8 * ri;
+    if (row >= group) continue;
+    if (t4 == 0) {
+      mg_m[warp * 16 + row] = m[ri];
+      mg_l[warp * 16 + row] = l[ri];
+    }
+    float* pa = mg_acc + (warp * 16 + row) * HD + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(pa + n * 8) = make_float2(acc[n][2 * ri], acc[n][2 * ri + 1]);
+  }
+  __syncthreads();
+  if (tid < group) {  // the combine's formula over the warps with l > 0
+    float mx = kNegInf, den = 0.f;
+    for (int w = 0; w < kDecodeWarps; ++w)
+      if (mg_l[w * 16 + tid] > 0.f) mx = fmaxf(mx, mg_m[w * 16 + tid]);
+    for (int w = 0; w < kDecodeWarps; ++w) {
+      const float lw = mg_l[w * 16 + tid];
+      const float c = lw > 0.f ? exp2f(mg_m[w * 16 + tid] - mx) : 0.f;
+      wt_s[w][tid] = c;
+      den += c * lw;
+    }
+    mx_s[tid] = mx;
+    den_s[tid] = den;
+  }
+  __syncthreads();
+  for (int i = tid; i < group * HD / 4; i += kDecodeThreads) {
+    const int row = i / (HD / 4), c4 = i % (HD / 4);
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) {
+      const float c = wt_s[w][row];
+      if (c > 0.f) {
+        const float4 v = *reinterpret_cast<const float4*>(mg_acc + (w * 16 + row) * HD + c4 * 4);
+        o.x += c * v.x;
+        o.y += c * v.y;
+        o.z += c * v.z;
+        o.w += c * v.w;
+      }
+    }
+    if (a.n_splits == 1) {  // the whole table: the output itself
+      const float d = den_s[row] > 0.f ? den_s[row] : 1.f;
+      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out_r + (size_t)row * HD + c4 * 4);
+      dst[0] = __floats2bfloat162_rn(o.x / d, o.y / d);
+      dst[1] = __floats2bfloat162_rn(o.z / d, o.w / d);
+    } else {
+      *reinterpret_cast<float4*>(a.part_acc + (part + row) * HD + c4 * 4) = o;
+    }
+  }
+  if (a.n_splits > 1 && tid < group) {
+    a.part_m[part + tid] = den_s[tid] > 0.f ? mx_s[tid] : kNegInf;
+    a.part_l[part + tid] = den_s[tid];
+  }
+}
+
+// K3: a bf16 pool
+template <int HD>
+__global__ void __launch_bounds__(kDecodeThreads) paged_attn_mma_kernel(VerifyArgs a) {
+  decode_mma_body<false, HD>(a);
+}
+
+// K5a: an int8 pool with per-(row, kv head) f32 scales
+template <int HD>
+__global__ void __launch_bounds__(kDecodeThreads) paged_attn_q8_mma_kernel(VerifyArgs a) {
+  decode_mma_body<true, HD>(a);
+}
+
+// their combine passes: the verify combine at W = 1, under K3's and K5a's
+// names so a profile files each under its kernel
+template <int HD>
+__global__ void __launch_bounds__(kCombineThreads) paged_attn_combine_kernel(VerifyArgs a) {
+  verify_combine_body<HD>(a);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kCombineThreads) paged_attn_q8_combine_kernel(VerifyArgs a) {
+  verify_combine_body<HD>(a);
+}
+
 struct Args {
   const void* q;
   const void* k_pool;
@@ -1158,6 +1554,7 @@ struct Args {
   int W;  // query positions per slot (K4, K5b); 0 for K3, K5a
 };
 
+// K3 / K5a, f32 q: the first version
 template <typename T, typename P, int HD>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr bool kQuant = std::is_same<P, int8_t>::value;
@@ -1272,7 +1669,7 @@ cudaError_t dispatch_verify_f32(int hd, const Args& a, cudaStream_t stream) {
   }
 }
 
-// K4 / K5b, bf16 q: the split kernel, then (with more than one split) the
+// K4 / K5b (bf16 q): the split kernel, then (with more than one split) the
 // combine pass, both on `stream`
 template <bool kQuant, int HD>
 cudaError_t launch_verify_mma(const VerifyArgs& a, cudaStream_t stream) {
@@ -1295,17 +1692,43 @@ cudaError_t launch_verify_mma(const VerifyArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool kQuant>
-cudaError_t dispatch_verify_mma(int hd, const VerifyArgs& a, cudaStream_t stream) {
+// K3 / K5a (bf16 q): the same two launches for one query per slot
+template <bool kQuant, int HD>
+cudaError_t launch_decode_mma(const VerifyArgs& a, cudaStream_t stream) {
+  const size_t smem = decode_smem(HD, a.bsz, a.pps, kQuant).total;
+  const auto kernel = kQuant ? paged_attn_q8_mma_kernel<HD> : paged_attn_mma_kernel<HD>;
+  static size_t opted_in = 48 * 1024;
+  if (smem > opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    opted_in = smem;
+  }
+  kernel<<<dim3(a.n_splits, a.nKV, a.R), kDecodeThreads, smem, stream>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || a.n_splits == 1) return e;
+  const auto combine = kQuant ? paged_attn_q8_combine_kernel<HD> : paged_attn_combine_kernel<HD>;
+  combine<<<dim3(1, a.nKV, a.R), kCombineThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kQuant, bool kDecode, int HD>
+cudaError_t launch_mma(const VerifyArgs& a, cudaStream_t stream) {
+  return kDecode ? launch_decode_mma<kQuant, HD>(a, stream)
+                 : launch_verify_mma<kQuant, HD>(a, stream);
+}
+
+template <bool kQuant, bool kDecode>
+cudaError_t dispatch_mma(int hd, const VerifyArgs& a, cudaStream_t stream) {
   switch (hd) {
     case 16:
-      return launch_verify_mma<kQuant, 16>(a, stream);
+      return launch_mma<kQuant, kDecode, 16>(a, stream);
     case 32:
-      return launch_verify_mma<kQuant, 32>(a, stream);
+      return launch_mma<kQuant, kDecode, 32>(a, stream);
     case 64:
-      return launch_verify_mma<kQuant, 64>(a, stream);
+      return launch_mma<kQuant, kDecode, 64>(a, stream);
     case 128:
-      return launch_verify_mma<kQuant, 128>(a, stream);
+      return launch_mma<kQuant, kDecode, 128>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1326,27 +1749,32 @@ cudaError_t check_verify(int W, int group) {
   return cudaSuccess;
 }
 
-// Route the verify call by q's dtype: f32 to the first version, bf16 to
-// the split kernel (and its combine). `scratch` holds the splits' partials
-// (`verify_scratch_floats` of them), unused with one split or f32 q.
+// Route a call by q's dtype: f32 to the first version (K3/K5a with a.W 0,
+// else K4/K5b), bf16 to the split kernels and their combine. `scratch`
+// holds the splits' partials ((hd + 2) floats per query row per split),
+// unused with one split or f32 q.
 template <bool kQuant>
-int paged_verify(const Args& a, int hd, int is_bf16, float* scratch, int pages_per_split,
-                 cudaStream_t stream) {
-  if (!is_bf16) return dispatch_verify_f32<typename std::conditional<kQuant, int8_t, float>::type>(
-      hd, a, stream);
+int paged_route(const Args& a, int hd, int is_bf16, float* scratch, int pages_per_split,
+                cudaStream_t stream) {
+  using P = typename std::conditional<kQuant, int8_t, float>::type;
+  const bool decode = a.W == 0;
+  if (!is_bf16)
+    return decode ? dispatch_hd<float, P>(hd, a, stream) : dispatch_verify_f32<P>(hd, a, stream);
   if (pages_per_split < 1 || (size_t)pages_per_split * a.bsz > kVMaxSplitRows)
     return cudaErrorInvalidValue;
+  const int W = decode ? 1 : a.W;
   const int n_splits = (a.nb + pages_per_split - 1) / pages_per_split;
-  const size_t rows = (size_t)a.R * a.nKV * n_splits * a.W * a.group;  // partial rows
+  const size_t rows = (size_t)a.R * a.nKV * n_splits * W * a.group;  // partial rows
   if (n_splits > 1 && scratch == nullptr) return cudaErrorInvalidValue;
   VerifyArgs v{static_cast<const bf16*>(a.q), a.k_pool, static_cast<const float*>(a.k_scale),
                a.v_pool, static_cast<const float*>(a.v_scale),
                static_cast<const int32_t*>(a.table), static_cast<const uint8_t*>(a.valid),
                // acc first: its float4 rows stay 16-byte aligned
                scratch + rows * hd, scratch + rows * hd + rows, scratch,
-               static_cast<bf16*>(a.out), a.R, a.W, a.nKV, a.group, a.bsz, a.nb,
+               static_cast<bf16*>(a.out), a.R, W, a.nKV, a.group, a.bsz, a.nb,
                a.n_blocks, pages_per_split, n_splits, a.sm_scale};
-  return dispatch_verify_mma<kQuant>(hd, v, stream);
+  return decode ? dispatch_mma<kQuant, true>(hd, v, stream)
+                : dispatch_mma<kQuant, false>(hd, v, stream);
 }
 
 }  // namespace
@@ -1355,23 +1783,26 @@ int paged_verify(const Args& a, int hd, int is_bf16, float* scratch, int pages_p
 // contiguous tensor; `stream` is the caller's cudaStream_t. Each returns the
 // launch's cudaGetLastError() (0 on success); the wrapper raises on
 // anything else. R and nb must be at least 1: with no row to attend the
-// output is 0, which the wrapper returns without a launch.
+// output is 0, which the wrapper returns without a launch. For bf16 q,
+// `pages_per_split` pages of the table go to each block (at most 4096
+// rows), and `scratch` is f32 device memory of R * W * nH * n_splits *
+// (hd + 2) floats (W = 1 for K3 and K5a; n_splits = ceil(nb /
+// pages_per_split)), null allowed with one split.
 
-// K3: q, k_pool and v_pool in one dtype (f32 or bf16).
+// K3: q [R, nH, hd], k_pool and v_pool in q's dtype (f32 or bf16).
 extern "C" int areal_paged_attention(const void* q, const void* k_pool,
                                      const void* v_pool, const void* table,
                                      const void* valid, void* out, int R,
                                      int nH, int nKV, int hd, int bsz, int nb,
                                      int n_blocks, float sm_scale, int is_bf16,
-                                     void* stream) {
+                                     void* scratch, int pages_per_split, void* stream) {
   const cudaError_t e = check_args(R, nH, nKV, bsz, nb);
   if (e != cudaSuccess) return e;
   const Args a{q,     k_pool, nullptr, v_pool, nullptr, table,
                valid, out,    R,       nKV,    nH / nKV, bsz,
                nb,    n_blocks, sm_scale, 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return dispatch_hd<__nv_bfloat16, __nv_bfloat16>(hd, a, s);
-  return dispatch_hd<float, float>(hd, a, s);
+  return paged_route<false>(a, hd, is_bf16, static_cast<float*>(scratch), pages_per_split,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // K5a: q in f32 or bf16; int8 k/v pools with f32 scales [n_blocks, nKV, bsz].
@@ -1379,22 +1810,18 @@ extern "C" int areal_paged_attention_q8(
     const void* q, const void* k_pool, const void* k_scale, const void* v_pool,
     const void* v_scale, const void* table, const void* valid, void* out,
     int R, int nH, int nKV, int hd, int bsz, int nb, int n_blocks,
-    float sm_scale, int is_bf16, void* stream) {
+    float sm_scale, int is_bf16, void* scratch, int pages_per_split, void* stream) {
   const cudaError_t e = check_args(R, nH, nKV, bsz, nb);
   if (e != cudaSuccess) return e;
   const Args a{q,     k_pool, k_scale, v_pool, v_scale, table,
                valid, out,    R,       nKV,    nH / nKV, bsz,
                nb,    n_blocks, sm_scale, 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return dispatch_hd<__nv_bfloat16, int8_t>(hd, a, s);
-  return dispatch_hd<float, int8_t>(hd, a, s);
+  return paged_route<true>(a, hd, is_bf16, static_cast<float*>(scratch), pages_per_split,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // K4: q [R, W, nH, hd], k_pool and v_pool in q's dtype (f32 or bf16), valid
-// [R, W, nb * bsz]; out [R, W, nH, hd]. For bf16 q, `pages_per_split`
-// pages of the table go to each block (at most 4096 rows), and `scratch`
-// is f32 device memory of `areal_paged_verify_scratch_floats` elements
-// (null allowed when that is 0).
+// [R, W, nb * bsz]; out [R, W, nH, hd].
 extern "C" int areal_paged_verify(const void* q, const void* k_pool,
                                   const void* v_pool, const void* table,
                                   const void* valid, void* out, int R, int W,
@@ -1407,8 +1834,8 @@ extern "C" int areal_paged_verify(const void* q, const void* k_pool,
   const Args a{q,     k_pool, nullptr, v_pool, nullptr, table,
                valid, out,    R,       nKV,    nH / nKV, bsz,
                nb,    n_blocks, sm_scale, W};
-  return paged_verify<false>(a, hd, is_bf16, static_cast<float*>(scratch), pages_per_split,
-                             static_cast<cudaStream_t>(stream));
+  return paged_route<false>(a, hd, is_bf16, static_cast<float*>(scratch), pages_per_split,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // K5b: K4 on int8 k/v pools with f32 scales [n_blocks, nKV, bsz].
@@ -1423,22 +1850,16 @@ extern "C" int areal_paged_verify_q8(
   const Args a{q,     k_pool, k_scale, v_pool, v_scale, table,
                valid, out,    R,       nKV,    nH / nKV, bsz,
                nb,    n_blocks, sm_scale, W};
-  return paged_verify<true>(a, hd, is_bf16, static_cast<float*>(scratch), pages_per_split,
-                            static_cast<cudaStream_t>(stream));
+  return paged_route<true>(a, hd, is_bf16, static_cast<float*>(scratch), pages_per_split,
+                           static_cast<cudaStream_t>(stream));
 }
 
-// The f32 scratch the bf16 verify kernels need: (hd + 2) floats per query
-// row per split, none with one split.
-extern "C" long long areal_paged_verify_scratch_floats(int R, int W, int nH, int nKV, int hd,
-                                                       int nb, int pages_per_split) {
-  const long long n_splits = (nb + pages_per_split - 1) / pages_per_split;
-  return n_splits > 1 ? (long long)R * W * nH * n_splits * (hd + 2) : 0;
-}
-
-// The dynamic shared memory of one block of the bf16 verify kernel (K4, or
-// K5b with `quant`), as its launch sizes it.
-extern "C" long long areal_paged_verify_smem_bytes(int W, int group, int hd, int bsz,
-                                                   int pages_per_split, int quant) {
+// The dynamic shared memory of one block of a bf16 split kernel, as its
+// launch sizes it: K4 (K5b with `quant`) at W query positions, or K3 (K5a)
+// with W = 0.
+extern "C" long long areal_paged_smem_bytes(int W, int group, int hd, int bsz,
+                                            int pages_per_split, int quant) {
+  if (W == 0) return (long long)decode_smem(hd, bsz, pages_per_split, quant != 0).total;
   return (long long)verify_smem(W * group, hd, bsz, pages_per_split, quant != 0).total;
 }
 

@@ -12,9 +12,8 @@ fallback from one to the other.
 Int8 pools (`ops/kv_quant.py`): `k_pool` and `v_pool` may be `(int8 data,
 f32 scales)` tuples, as in the JAX package (:30-37), with scales
 `[n_blocks, nKV, bsz]`. On a CUDA tensor they go to the int8 kernel (the
-port of `_paged_attn_kernel_q8`, in the same source), which dequantizes
-each row right after its load; the plain version dequantizes right after
-its gather (`_gather_dequant`, :75-85).
+port of `_paged_attn_kernel_q8`, in the same source); the plain version
+dequantizes right after its gather (`_gather_dequant`, :75-85).
 
 `paged_attention_qlen` keeps the JAX signature of the speculative-verify
 attention (:464): W query positions per slot, q `[R, W, nH, hd]`, each
@@ -23,11 +22,13 @@ it launches K4 (`_paged_verify_kernel`'s port, an fp pool) or K5b
 (`_paged_verify_kernel_q8`'s, an int8 pool), which read each valid K/V row
 once for all W queries; on a CPU tensor it runs
 `paged_attention_qlen_ref`. The kernels take W <= `VERIFY_MAX_W` and
-W * group <= `VERIFY_MAX_ROWS` (`check_verify_width`). For bf16 q they
-run on the tensor cores with the slot's table split over blocks,
-`verify_pages_per_split` pages each, and a combine pass over the splits'
-f32 partials (scratch this module allocates); f32 q runs the first
-version, one block per (kv head, slot).
+W * group <= `VERIFY_MAX_ROWS` (`check_verify_width`).
+
+For bf16 q all four run on the tensor cores with the slot's table split
+over blocks (`decode_pages_per_split` / `verify_pages_per_split` pages
+each) and a combine pass over the splits' f32 partials (scratch this
+module allocates); f32 q runs the first versions, one block per (kv head,
+slot).
 
 `launches` counts launches of the fp kernel (K3), `launches_q8` those of
 the int8 kernel (K5a), `launches_verify` and `launches_verify_q8` those of
@@ -53,10 +54,13 @@ _MAX_PAGE = 256
 # accumulators live in shared memory and registers
 VERIFY_MAX_W = 16
 VERIFY_MAX_ROWS = 128
-# the bf16 verify kernels: logical rows per split at most, and the blocks
-# per SM a split count may not go below (two ~85 KB blocks fit on an SM)
+# the bf16 split kernels: logical rows per split at most, and the blocks
+# per SM a split count may not go below: two ~85 KB verify blocks fit on
+# an SM; for the decode blocks (4 warps, ~70 KB, three per SM) the card's
+# sweep over table widths put the fastest split at ~1.9 blocks per SM
 VERIFY_MAX_SPLIT_ROWS = 4096
 VERIFY_MIN_BLOCKS_PER_SM = 2
+DECODE_MIN_BLOCKS_PER_SM = 1.5
 
 # kernel launches since the process started (or the last reset to 0):
 # fp pools (K3) and int8 pools (K5a); verify on fp (K4) and int8 (K5b)
@@ -66,6 +70,15 @@ launches_verify = 0
 launches_verify_q8 = 0
 
 _lib: ctypes.CDLL | None = None
+_sms: dict[int, int] = {}  # SMs per CUDA device index
+
+
+def _n_sms(dev: torch.device) -> int:
+    """The device's SM count, read once per device."""
+    n = _sms.get(dev.index)
+    if n is None:
+        n = _sms[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
 
 
 def _gather_dequant(pool, scales, idx, R, nb, bsz, nKV, hd, dtype):
@@ -142,14 +155,13 @@ def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("paged_attention")
-        lib.areal_paged_attention.argtypes = [
-            ctypes.c_void_p,  # q
-            ctypes.c_void_p,  # k_pool
-            ctypes.c_void_p,  # v_pool
+        tail = [
             ctypes.c_void_p,  # block table
             ctypes.c_void_p,  # valid
             ctypes.c_void_p,  # out
             ctypes.c_int,  # R
+        ]
+        shape = [
             ctypes.c_int,  # nH
             ctypes.c_int,  # nKV
             ctypes.c_int,  # hd
@@ -158,37 +170,21 @@ def _kernel_lib() -> ctypes.CDLL:
             ctypes.c_int,  # n_blocks
             ctypes.c_float,  # sm_scale
             ctypes.c_int,  # is_bf16
+            ctypes.c_void_p,  # scratch (bf16 q, more than one split)
+            ctypes.c_int,  # pages_per_split (bf16 q)
             ctypes.c_void_p,  # stream
         ]
-        lib.areal_paged_attention.restype = ctypes.c_int
-        lib.areal_paged_attention_q8.argtypes = [
-            ctypes.c_void_p,  # q
-            ctypes.c_void_p,  # k_pool (int8)
-            ctypes.c_void_p,  # k scales
-            ctypes.c_void_p,  # v_pool (int8)
-            ctypes.c_void_p,  # v scales
-            *lib.areal_paged_attention.argtypes[3:],
-        ]
-        lib.areal_paged_attention_q8.restype = ctypes.c_int
-        # K4 and K5b: K3's and K5a's arguments with W after R, and the bf16
-        # route's scratch and pages per split before the stream
-        split = [ctypes.c_void_p, ctypes.c_int]  # scratch, pages_per_split
-        lib.areal_paged_verify.argtypes = [
-            *lib.areal_paged_attention.argtypes[:7],  # q, k, v, table, valid, out, R
-            ctypes.c_int,  # W
-            *lib.areal_paged_attention.argtypes[7:-1], *split, ctypes.c_void_p,
-        ]
-        lib.areal_paged_verify.restype = ctypes.c_int
-        lib.areal_paged_verify_q8.argtypes = [
-            *lib.areal_paged_attention_q8.argtypes[:9],  # ... out, R
-            ctypes.c_int,  # W
-            *lib.areal_paged_attention_q8.argtypes[9:-1], *split, ctypes.c_void_p,
-        ]
-        lib.areal_paged_verify_q8.restype = ctypes.c_int
-        lib.areal_paged_verify_scratch_floats.argtypes = [ctypes.c_int] * 7
-        lib.areal_paged_verify_scratch_floats.restype = ctypes.c_longlong
-        lib.areal_paged_verify_smem_bytes.argtypes = [ctypes.c_int] * 6
-        lib.areal_paged_verify_smem_bytes.restype = ctypes.c_longlong
+        fp = [ctypes.c_void_p] * 3  # q, k_pool, v_pool
+        q8 = [ctypes.c_void_p] * 5  # q, k_pool (int8), k scales, v_pool (int8), v scales
+        # K4 and K5b take W after R
+        for name, args in (("areal_paged_attention", fp + tail + shape),
+                           ("areal_paged_attention_q8", q8 + tail + shape),
+                           ("areal_paged_verify", fp + tail + [ctypes.c_int] + shape),
+                           ("areal_paged_verify_q8", q8 + tail + [ctypes.c_int] + shape)):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = ctypes.c_int
+        lib.areal_paged_smem_bytes.argtypes = [ctypes.c_int] * 6
+        lib.areal_paged_smem_bytes.restype = ctypes.c_longlong
         lib.areal_cuda_error_string.argtypes = [ctypes.c_int]
         lib.areal_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -258,13 +254,13 @@ def _check(q, k_pool, v_pool, block_table, valid, verify: bool = False) -> None:
         )
     if verify:
         check_verify_width(q.shape[1], nH // nKV)
-        if q.dtype == torch.bfloat16:
-            # the tensor-core route copies rows of q and the pools 16 bytes
-            # at a time (cp.async)
-            for name, t in dict(q=q, k_pool=k_pool, v_pool=v_pool).items():
-                if t.data_ptr() % 16:
-                    raise ValueError(f"{name} starts at {t.data_ptr():#x}, not 16-byte "
-                                     "aligned: the bf16 verify kernels copy 16-byte rows")
+    if q.dtype == torch.bfloat16:
+        # the tensor-core route copies rows of q and the pools 16 bytes at a
+        # time (cp.async)
+        for name, t in dict(q=q, k_pool=k_pool, v_pool=v_pool).items():
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} starts at {t.data_ptr():#x}, not 16-byte "
+                                 "aligned: the bf16 paged kernels copy 16-byte rows")
 
 
 def paged_attention(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
@@ -282,7 +278,6 @@ def paged_attention(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
     out-of-range index does in PyTorch's own CUDA kernels; the plain
     version raises IndexError.
     """
-    global launches, launches_q8
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -292,32 +287,80 @@ def paged_attention(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, not {q.device}")
     _check(q, k_pool, v_pool, block_table, valid)
-    (k_data, k_scales), (v_data, v_scales) = split_pool(k_pool), split_pool(v_pool)
-    R, nH, hd = q.shape
-    n_blocks, bsz, nKV, _ = k_data.shape
-    if R == 0 or block_table.shape[1] == 0:
+    if q.shape[0] == 0 or block_table.shape[1] == 0:
         return torch.zeros_like(q)  # no row to attend: the output is 0
+    return _launch(q, k_pool, v_pool, block_table, valid, sm_scale)
+
+
+def _pages_per_split(nb: int, bsz: int, R: int, nKV: int, n_sms: int,
+                     min_blocks_per_sm: float) -> int:
+    """The most pages of the table per block (a power of two, at most
+    `VERIFY_MAX_SPLIT_ROWS` rows and the table) that leave the grid at
+    least `min_blocks_per_sm` blocks per SM. Fewer splits write and
+    combine fewer partials; too few leave SMs idle."""
+    pps = 1
+    while (pps < nb and 2 * pps * bsz <= VERIFY_MAX_SPLIT_ROWS
+           and R * nKV * -(-nb // (2 * pps)) >= min_blocks_per_sm * n_sms):
+        pps *= 2
+    return min(pps, nb)
+
+
+def decode_pages_per_split(nb: int, bsz: int, R: int, nKV: int, n_sms: int) -> int:
+    """Pages of the table per block of the bf16 decode kernels (K3, K5a):
+    `_pages_per_split` at `DECODE_MIN_BLOCKS_PER_SM`. At the serve batch
+    (R 16, 4 kv heads, 9-10 pages of 128 rows, 132 SMs) that is 2, the
+    fastest of 1, 2, 4 and the whole table on an H100; over tables of 2-32
+    pages it is the fastest split or within 1.27x of it (`PERF.md`)."""
+    return _pages_per_split(nb, bsz, R, nKV, n_sms, DECODE_MIN_BLOCKS_PER_SM)
+
+
+def _launch(q, k_pool, v_pool, block_table, valid, sm_scale: float,
+            pages_per_split: int | None = None):
+    """Launch K3/K5a (q [R, nH, hd]) or K4/K5b (q [R, W, nH, hd]) on checked
+    CUDA tensors and count the launch. For bf16 q, `pages_per_split`
+    (default: `decode_pages_per_split` or `verify_pages_per_split`) sets the
+    blocks' share of the table; f32 q ignores it."""
+    global launches, launches_q8, launches_verify, launches_verify_q8
+    W = q.shape[1] if q.dim() == 4 else 0  # 0: one query per slot
+    (k_data, k_scales), (v_data, v_scales) = split_pool(k_pool), split_pool(v_pool)
+    R, nH, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    n_blocks, bsz, nKV, _ = k_data.shape
+    nb = block_table.shape[1]
     out = torch.empty_like(q)
     lib = _kernel_lib()
+    bf16 = q.dtype == torch.bfloat16
+    if not bf16:
+        pages_per_split = 1
+    elif pages_per_split is None:
+        rule = verify_pages_per_split if W else decode_pages_per_split
+        pages_per_split = rule(nb, bsz, R, nKV, _n_sms(q.device))
+    # the splits' f32 partials: (hd + 2) floats per query row and split
+    n_splits = -(-nb // pages_per_split)
+    scratch = (torch.empty(R * max(W, 1) * nH * n_splits * (hd + 2), dtype=torch.float32,
+                           device=q.device) if bf16 and n_splits > 1 else None)
     tail = (
-        block_table.data_ptr(), valid.data_ptr(), out.data_ptr(),
-        R, nH, nKV, hd, bsz, block_table.shape[1], n_blocks,
-        float(sm_scale), int(q.dtype == torch.bfloat16),
+        block_table.data_ptr(), valid.data_ptr(), out.data_ptr(), R, *((W,) if W else ()),
+        nH, nKV, hd, bsz, nb, n_blocks, float(sm_scale), int(bf16),
+        None if scratch is None else scratch.data_ptr(), pages_per_split,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
+    name = "areal_paged_verify" if W else "areal_paged_attention"
     if k_scales is None:
-        err = lib.areal_paged_attention(
-            q.data_ptr(), k_data.data_ptr(), v_data.data_ptr(), *tail
-        )
+        err = getattr(lib, name)(q.data_ptr(), k_data.data_ptr(), v_data.data_ptr(), *tail)
     else:
-        err = lib.areal_paged_attention_q8(
+        err = getattr(lib, name + "_q8")(
             q.data_ptr(), k_data.data_ptr(), k_scales.data_ptr(),
             v_data.data_ptr(), v_scales.data_ptr(), *tail,
         )
     if err != 0:
         msg = lib.areal_cuda_error_string(err).decode()
-        raise RuntimeError(f"paged attention kernel launch failed: {msg} ({err})")
-    if k_scales is None:
+        kind = "verify" if W else "attention"
+        raise RuntimeError(f"paged {kind} kernel launch failed: {msg} ({err})")
+    if W and k_scales is None:
+        launches_verify += 1
+    elif W:
+        launches_verify_q8 += 1
+    elif k_scales is None:
         launches += 1
     else:
         launches_q8 += 1
@@ -325,66 +368,19 @@ def paged_attention(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
 
 
 def verify_pages_per_split(nb: int, bsz: int, R: int, nKV: int, n_sms: int) -> int:
-    """Pages of the table per block of the bf16 verify kernels: the most
-    (a power of two, at most `VERIFY_MAX_SPLIT_ROWS` rows and the table)
-    that leave the grid at least `VERIFY_MIN_BLOCKS_PER_SM` blocks per SM.
-    Fewer splits write and combine fewer partials; too few leave SMs idle.
-    At the spec batch (R 16, 4 kv heads, 9 pages of 128 rows, 132 SMs) that
-    is 2, the fastest of 1, 2, 4 and 9 on an H100 (`PERF.md`)."""
-    pps = 1
-    while (pps < nb and 2 * pps * bsz <= VERIFY_MAX_SPLIT_ROWS
-           and R * nKV * -(-nb // (2 * pps)) >= VERIFY_MIN_BLOCKS_PER_SM * n_sms):
-        pps *= 2
-    return min(pps, nb)
+    """Pages of the table per block of the bf16 verify kernels (K4, K5b):
+    `_pages_per_split` at `VERIFY_MIN_BLOCKS_PER_SM`. At the spec batch
+    (R 16, 4 kv heads, 9 pages of 128 rows, 132 SMs) that is 2, the fastest
+    of 1, 2, 4 and 9 on an H100 (`PERF.md`)."""
+    return _pages_per_split(nb, bsz, R, nKV, n_sms, VERIFY_MIN_BLOCKS_PER_SM)
 
 
-def verify_smem_bytes(W: int, group: int, hd: int, bsz: int, pages_per_split: int,
-                      quant: bool) -> int:
-    """Dynamic shared memory of one block of the bf16 verify kernel (K4, or
-    K5b with `quant`), as its launch sizes it (builds the library)."""
-    return _kernel_lib().areal_paged_verify_smem_bytes(W, group, hd, bsz, pages_per_split,
-                                                       int(quant))
-
-
-def _verify_launch(q, k_pool, v_pool, block_table, valid, sm_scale: float,
-                   pages_per_split: int | None = None):
-    """Launch K4 or K5b on checked CUDA tensors and count the launch. For
-    bf16 q, `pages_per_split` (default `verify_pages_per_split`) sets the
-    blocks' share of the table; f32 q ignores it."""
-    global launches_verify, launches_verify_q8
-    (k_data, k_scales), (v_data, v_scales) = split_pool(k_pool), split_pool(v_pool)
-    R, W, nH, hd = q.shape
-    n_blocks, bsz, nKV, _ = k_data.shape
-    nb = block_table.shape[1]
-    out = torch.empty_like(q)
-    lib = _kernel_lib()
-    bf16 = q.dtype == torch.bfloat16
-    if pages_per_split is None:
-        n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        pages_per_split = verify_pages_per_split(nb, bsz, R, nKV, n_sms) if bf16 else 1
-    n = lib.areal_paged_verify_scratch_floats(R, W, nH, nKV, hd, nb, pages_per_split) if bf16 else 0
-    scratch = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
-    tail = (
-        block_table.data_ptr(), valid.data_ptr(), out.data_ptr(),
-        R, W, nH, nKV, hd, bsz, nb, n_blocks,
-        float(sm_scale), int(bf16), scratch.data_ptr() if n else None, pages_per_split,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if k_scales is None:
-        err = lib.areal_paged_verify(q.data_ptr(), k_data.data_ptr(), v_data.data_ptr(), *tail)
-    else:
-        err = lib.areal_paged_verify_q8(
-            q.data_ptr(), k_data.data_ptr(), k_scales.data_ptr(),
-            v_data.data_ptr(), v_scales.data_ptr(), *tail,
-        )
-    if err != 0:
-        msg = lib.areal_cuda_error_string(err).decode()
-        raise RuntimeError(f"paged verify kernel launch failed: {msg} ({err})")
-    if k_scales is None:
-        launches_verify += 1
-    else:
-        launches_verify_q8 += 1
-    return out
+def split_smem_bytes(W: int, group: int, hd: int, bsz: int, pages_per_split: int,
+                     quant: bool) -> int:
+    """Dynamic shared memory of one block of a bf16 split kernel, as its
+    launch sizes it: K4 (K5b with `quant`) at W query positions, or K3 (K5a)
+    with W = 0 (builds the library)."""
+    return _kernel_lib().areal_paged_smem_bytes(W, group, hd, bsz, pages_per_split, int(quant))
 
 
 def paged_attention_qlen(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
@@ -409,4 +405,4 @@ def paged_attention_qlen(q, k_pool, v_pool, block_table, valid, *, sm_scale=None
     _check(q, k_pool, v_pool, block_table, valid, verify=True)
     if q.shape[0] == 0 or block_table.shape[1] == 0:
         return torch.zeros_like(q)  # no row to attend: the output is 0
-    return _verify_launch(q, k_pool, v_pool, block_table, valid, sm_scale)
+    return _launch(q, k_pool, v_pool, block_table, valid, sm_scale)

@@ -20,6 +20,19 @@ come the `kernels` line, the card's name and power limit, and last
 `{"ok": true, "device": ...}`. Any failed check raises, and the script
 exits non-zero without that last line.
 It imports nothing of JAX or of the JAX package.
+
+    python3 chip_smoke.py --paged-times
+
+times only K3 and K5a (as issued, on the device alone, and the wrapper's
+host time per call) at the serve batch's shapes on a synthetic pool. It
+calls nothing but `paged_attention`, so a copy of this script placed at
+the root of another tree (an earlier commit, say) times that tree's
+kernels the same way.
+
+    python3 chip_smoke.py --decode-sweep
+
+times bf16 K3 and K5a on the device alone over table widths and pages per
+split, beside the split rule's choice.
 """
 
 from __future__ import annotations
@@ -120,7 +133,12 @@ KERNEL_CASES = [
     dict(name="qwen2.5-1.5b", nH=12, nKV=2, hd=128, bsz=128, R=32, max_len=1024),
     dict(name="qwen2.5-0.5b", nH=14, nKV=2, hd=64, bsz=128, R=16, max_len=4096),
     dict(name="small-page", nH=4, nKV=2, hd=16, bsz=16, R=8, max_len=512),
+    # a group above 8: the bf16 kernels' query rows g + 8 of the m16 tile
+    dict(name="group-12", nH=24, nKV=2, hd=128, bsz=64, R=8, max_len=1000),
 ]
+# pages per split of the bf16 decode kernels' sweep (checked and timed);
+# None: the whole table in one split
+DECODE_SPLITS = (1, 2, 4, None)
 # (atol, rtol): an element passes when |out - ref| <= atol + rtol * |ref|.
 # f32: summation order only. bf16: held against the f32-upcast reference
 # (the plain bf16 path would also round scores and probabilities to bf16,
@@ -191,9 +209,10 @@ def _ptxas_summary(log: str) -> list[str]:
 
 def phase_build() -> None:
     """Every source, one nvcc each, started together; each kernel's
-    registers and spills from ptxas (K2a, K4 and K5b on the tensor cores
-    must not spill at hd 128), and the dynamic shared memory of the flash,
-    int8-matmul and bf16 verify kernels' blocks as their launches size it."""
+    registers and spills from ptxas (K2a, K3, K5a, K4 and K5b on the tensor
+    cores must not spill at hd 128), and the dynamic shared memory of the
+    flash, int8-matmul and bf16 paged kernels' blocks as their launches
+    size it."""
     t0 = time.perf_counter()
     built = _build.build_all()
     wall_s = time.perf_counter() - t0
@@ -205,15 +224,17 @@ def phase_build() -> None:
     check(len(k2a) == 4, f"K2a: {len(k2a)} tensor-core instantiations in the ptxas report")
     check(any(line.startswith("flash_bwd_dq_mma_kernel<bf16,128>:") and
               line.endswith("spills 0/0 bytes") for line in k2a), f"K2a spills at hd 128: {k2a}")
-    # K4 and K5b on the tensor cores (bf16 q) at every head dim, no spill at
-    # hd 128
-    verify_ptxas = {}
-    for kern in ("paged_verify_mma_kernel", "paged_verify_q8_mma_kernel"):
+    # K3, K5a, K4 and K5b on the tensor cores (bf16 q) at every head dim, no
+    # spill at hd 128; their combine passes
+    paged_ptxas = {}
+    for kern in ("paged_attn_mma_kernel", "paged_attn_q8_mma_kernel", "paged_verify_mma_kernel",
+                 "paged_verify_q8_mma_kernel", "paged_attn_combine_kernel",
+                 "paged_attn_q8_combine_kernel"):
         found = [line for r in rows for line in r["ptxas"] if line.startswith(kern + "<")]
         check(len(found) == 4, f"{kern}: {len(found)} instantiations in the ptxas report")
         check(any(line.startswith(f"{kern}<bf16,128>:") and line.endswith("spills 0/0 bytes")
                   for line in found), f"{kern} spills at hd 128: {found}")
-        verify_ptxas[kern] = found
+        paged_ptxas[kern] = found
     # ptxas reports static shared memory only; the kernels size theirs per launch
     smem = {f"{str(dt).split('.')[-1]}_hd{hd}": fa.smem_bytes(8192, hd, dt)
             for dt in (torch.bfloat16, torch.float32) for hd in (16, 64, 128)}
@@ -223,19 +244,25 @@ def phase_build() -> None:
     # K4/K5b (bf16 q): q rows, K/V tiles (K5b: int8 tiles and scales beside
     # them), per-row masks and offsets of a split; page 128
     verify = {f"{'K5b' if quant else 'K4'}_W{W}_group{g}_hd{hd}_pages{pps}":
-              pa.verify_smem_bytes(W, g, hd, 128, pps, quant)
+              pa.split_smem_bytes(W, g, hd, 128, pps, quant)
               for quant in (False, True)
               for W, g, hd, pps in ((5, 7, 128, 1), (5, 7, 128, 2), (5, 7, 128, 9), (9, 7, 128, 2),
                                     (16, 8, 128, 2), (16, 8, 128, 32), (9, 7, 64, 2))}
-    emit("build", kernels=rows, wall_s=wall_s, k2a_ptxas=k2a, verify_ptxas=verify_ptxas,
-         shared_memory=dict(paged_attention="dynamic, sized per launch",
-                            paged_verify_bf16=verify, flash_attention_T8192=smem,
-                            quant_matmul=qmm))
+    # K3/K5a (bf16 q): q rows, each warp's K/V quarters (K5a: int8 quarters
+    # and scales beside them), per-row offsets of a split; page 128
+    decode = {f"{'K5a' if quant else 'K3'}_hd{hd}_pages{pps}":
+              pa.split_smem_bytes(0, 7, hd, 128, pps, quant)
+              for quant in (False, True) for hd, pps in ((128, 1), (128, 2), (128, 10), (64, 1))}
+    emit("build", kernels=rows, wall_s=wall_s, k2a_ptxas=k2a, paged_ptxas=paged_ptxas,
+         shared_memory=dict(paged_attention_f32="dynamic, sized per launch",
+                            paged_attention_bf16=decode, paged_verify_bf16=verify,
+                            flash_attention_T8192=smem, quant_matmul=qmm))
 
 
 def _paged_case(case: dict, dtype: torch.dtype, dev: torch.device, seed: int):
     """Random pools, a ragged block table with null-block tails, one slot
-    with no valid row and one full slot."""
+    with no valid row, one full slot and one whose rows end on page 4's
+    last row."""
     R, nH, nKV, hd, bsz = case["R"], case["nH"], case["nKV"], case["hd"], case["bsz"]
     nb = -(-case["max_len"] // bsz)
     n_blocks = R * nb + 1
@@ -244,6 +271,8 @@ def _paged_case(case: dict, dtype: torch.dtype, dev: torch.device, seed: int):
     lengths = rng.integers(1, case["max_len"], R)
     lengths[0] = -1  # no valid row: output must be exactly 0
     lengths[1] = case["max_len"] - 1
+    if case["max_len"] > 4 * bsz:  # rows ending on a split boundary (1, 2 and 4 pages)
+        lengths[2] = 4 * bsz - 1
     perm = rng.permutation(np.arange(1, n_blocks))
     table = np.zeros((R, nb), np.int32)
     for r in range(R):
@@ -262,13 +291,38 @@ def _tol_ratio(out, ref, atol: float, rtol: float) -> float:
     return ((out.float() - ref).abs() / (atol + rtol * ref.abs())).max().item()
 
 
+def _decode_splits(q, pools, table, valid, ref, dtype, name: str) -> tuple[dict, float]:
+    """bf16 K3/K5a at every split of `DECODE_SPLITS` against `ref`: the
+    tolerance ratio per split and the largest error; each must pass, and
+    the slot with no valid row must give exactly 0."""
+    if dtype != torch.bfloat16:
+        return {}, 0.0
+    atol, rtol = KERNEL_TOL[dtype]
+    nb = table.shape[1]
+    ratios, err = {}, 0.0
+    for pps in DECODE_SPLITS:
+        o = pa._launch(q, *pools, table, valid, 1.0 / math.sqrt(q.shape[-1]), pps or nb)
+        torch.cuda.synchronize()
+        ratios[pps or "all"] = r = _tol_ratio(o, ref, atol, rtol)
+        err = max(err, (o.float() - ref).abs().max().item())
+        check(math.isfinite(r) and r <= 1.0,
+              f"{name} at {pps or nb} pages per split: {r} x the tolerance")
+        check(bool((o[0] == 0).all().item()),
+              f"{name} at {pps or nb} pages per split: slot with no valid row is not 0")
+    return ratios, err
+
+
 def phase_kernel(dev: torch.device) -> float:
-    """K3 against its plain version. Besides the sound reading, each case
-    reads the kernel against a planted fault, the plain version with the
-    first page of every multi-page slot dropped, and checks that the
-    tolerance would catch it."""
+    """K3 against its plain version, f32 q (the first version) and bf16 q
+    (the tensor-core kernel, at its default split and at every split of
+    `DECODE_SPLITS`). Besides the sound reading, each case reads the kernel
+    against a planted fault, the plain version with the first page of
+    every multi-page slot dropped, and checks that the tolerance would
+    catch it."""
     rows, worst = [], 0.0
     for i, case in enumerate(KERNEL_CASES):
+        nb = -(-case["max_len"] // case["bsz"])
+        default_pps = pa.decode_pages_per_split(nb, case["bsz"], case["R"], case["nKV"], pa._n_sms(dev))
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, table, valid = _paged_case(case, dtype, dev, SEED + i)
             out = pa.paged_attention(q, k, v, table, valid)
@@ -284,36 +338,50 @@ def phase_kernel(dev: torch.device) -> float:
             ratio = _tol_ratio(out, ref, atol, rtol)
             fault_ratio = _tol_ratio(out, ref_fault, atol, rtol)
             empty_zero = bool((out[0] == 0).all().item())
-            name = f"{case['name']} {str(dtype).split('.')[-1]}"
+            name = f"K3 {case['name']} {str(dtype).split('.')[-1]}"
+            split_ratios, split_err = _decode_splits(q, (k, v), table, valid, ref, dtype, name)
             rows.append(dict(case=case["name"], dtype=str(dtype).split(".")[-1],
-                             max_abs_err=err, atol=atol, rtol=rtol, tol_ratio=ratio,
+                             max_abs_err=max(err, split_err), atol=atol, rtol=rtol, tol_ratio=ratio,
                              planted_fault_tol_ratio=fault_ratio,
-                             empty_slot_zero=empty_zero))
+                             empty_slot_zero=empty_zero,
+                             **(dict(default_pages_per_split=default_pps,
+                                     split_tol_ratio=split_ratios) if split_ratios else {})))
             check(math.isfinite(ratio) and ratio <= 1.0,
                   f"kernel vs plain {name}: {ratio} x the tolerance (max abs err {err})")
             check(fault_ratio > 1.0, f"kernel {name}: a dropped page passes the tolerance")
             check(empty_zero, f"kernel {name}: slot with no valid row is not 0")
-            worst = max(worst, err)
+            worst = max(worst, err, split_err)
     # a table with no column: nothing to attend, the output is exactly 0
     none = pa.paged_attention(q, k, v, table[:, :0].contiguous(), valid[:, :0].contiguous())
     check(bool((none == 0).all().item()), "kernel: an empty table does not give 0")
-    emit("kernel", cases=rows, max_abs_err=worst)
+    emit("kernel", tol={str(k).split(".")[-1]: v for k, v in KERNEL_TOL.items()},
+         splits=[p or "all" for p in DECODE_SPLITS], cases=rows, max_abs_err=worst)
     return worst
 
 
-# Run in a child process: a faulted launch leaves the CUDA context unusable.
+# Run in a child process, one per q dtype: a faulted launch leaves the CUDA
+# context unusable. Slot 1's second page names block 7, outside the 5-block
+# pool. While that page holds no valid row the id is never read: the output
+# equals the launch with a good id there, bit for bit (bf16: at every split
+# of 1 and 2 pages). Then its rows are made valid: the launch must fault.
 _BAD_TABLE_PROBE = """
-import json, torch
+import json, sys, torch
 from areal_tpu_torch.ops import paged_attention as pa
 dev = torch.device("cuda")
-q = torch.randn(2, 4, 16, device=dev)
-k = torch.randn(5, 16, 2, 16, device=dev)
-table = torch.tensor([[1], [7]], dtype=torch.int32, device=dev)  # 7: no such block
-valid = torch.ones(2, 16, dtype=torch.bool, device=dev)
-valid[1] = False
-out = pa.paged_attention(q, k, k, table, valid)
+dtype = getattr(torch, sys.argv[1])
+q = torch.randn(2, 4, 16, device=dev).to(dtype)
+k = torch.randn(5, 16, 2, 16, device=dev).to(dtype)
+table = torch.tensor([[1, 2], [3, 7]], dtype=torch.int32, device=dev)  # 7: no such block
+good = torch.tensor([[1, 2], [3, 0]], dtype=torch.int32, device=dev)
+valid = torch.ones(2, 32, dtype=torch.bool, device=dev)
+valid[1, 16:] = False
+outs = [(pa.paged_attention(q, k, k, table, valid), pa.paged_attention(q, k, k, good, valid))]
+if dtype == torch.bfloat16:
+    for pps in (1, 2):
+        outs.append(tuple(pa._launch(q, k, k, t, valid, 0.25, pps) for t in (table, good)))
 torch.cuda.synchronize()
-res = dict(unread_bad_id_ok=bool((out[1] == 0).all()), faulted=False)
+res = dict(dtype=sys.argv[1], unread_bad_id_ok=all(torch.equal(a, b) for a, b in outs),
+           faulted=False)
 valid[1] = True
 try:
     pa.paged_attention(q, k, k, table, valid)
@@ -326,17 +394,24 @@ print(json.dumps(res), flush=True)
 
 def phase_bad_table() -> None:
     """A block id outside the pool on a page with valid rows must fault the
-    kernel's launch; on a page without valid rows it is never read."""
-    proc = subprocess.run(
-        [sys.executable, "-c", _BAD_TABLE_PROBE], cwd=Path(__file__).resolve().parent,
-        capture_output=True, text=True, timeout=300,
-    )
-    lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
-    check(bool(lines), f"bad-table probe printed nothing (rc {proc.returncode}): {proc.stderr[-2000:]}")
-    res = json.loads(lines[-1])
-    emit("bad_table", **res)
-    check(res["unread_bad_id_ok"], "kernel: a bad id on a page without valid rows changed the output")
-    check(res["faulted"], "kernel: a bad block id on a valid page did not fault the launch")
+    kernel's launch; on a page without valid rows it is never read. Both
+    routes: f32 q (the first version) and bf16 q (the tensor-core kernel)."""
+    results = []
+    for dtype in ("float32", "bfloat16"):
+        proc = subprocess.run(
+            [sys.executable, "-c", _BAD_TABLE_PROBE, dtype], cwd=Path(__file__).resolve().parent,
+            capture_output=True, text=True, timeout=300,
+        )
+        lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
+        check(bool(lines), f"bad-table probe ({dtype}) printed nothing (rc {proc.returncode}): "
+                           f"{proc.stderr[-2000:]}")
+        results.append(json.loads(lines[-1]))
+    emit("bad_table", cases=results)
+    for res in results:
+        check(res["unread_bad_id_ok"],
+              f"kernel ({res['dtype']}): a bad id on a page without valid rows changed the output")
+        check(res["faulted"],
+              f"kernel ({res['dtype']}): a bad block id on a valid page did not fault the launch")
 
 
 # phase: K1/K2a/K2b against the plain version
@@ -507,6 +582,7 @@ Q8_CASES = [
     KERNEL_CASES[1],  # the rollout shape: Qwen2.5-1.5B, R 32, context 1024
     dict(name="small-page-hd64", nH=14, nKV=2, hd=64, bsz=16, R=8, max_len=512),
     KERNEL_CASES[3],  # hd 16, page 16
+    KERNEL_CASES[4],  # group 12
 ]
 # (K, N) of Qwen2.5-7B's q/o, k/v, gate/up and down kernels, then ragged
 # ones: K and N off the 64/128 tiles (element loads), and N a multiple of
@@ -533,7 +609,8 @@ def phase_quant_kernel(dev: torch.device) -> dict:
     """K5a against its plain version with the attention in f32 (the plain
     bf16 path rounds the dequantized K/V to bf16, which the kernel does
     not): the tolerances of K3, since both dequantize to the same f32
-    values. The planted fault: the plain version with the scales of the
+    values; bf16 q also at every split of `DECODE_SPLITS`. The planted
+    fault: the plain version with the scales of the
     first page of every multi-page slot ignored (read as 1). K6 against
     `_quant_matmul_xla`'s arithmetic at Qwen2.5-7B's four (K, N) shapes
     and two ragged ones, for T 1, 16 and 700, bf16 and f32 x. The planted
@@ -561,15 +638,17 @@ def phase_quant_kernel(dev: torch.device) -> dict:
             fault_ratio = _tol_ratio(out, ref_fault, atol, rtol)
             empty_zero = bool((out[0] == 0).all().item())
             name = f"K5a {case['name']} {str(dtype).split('.')[-1]}"
+            split_ratios, split_err = _decode_splits(q, (kq, vq), table, valid, ref, dtype, name)
             rows.append(dict(kernel="paged_attention_q8", case=case["name"],
-                             dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                             dtype=str(dtype).split(".")[-1], max_abs_err=max(err, split_err),
                              atol=atol, rtol=rtol, tol_ratio=ratio,
-                             planted_fault_tol_ratio=fault_ratio, empty_slot_zero=empty_zero))
+                             planted_fault_tol_ratio=fault_ratio, empty_slot_zero=empty_zero,
+                             **(dict(split_tol_ratio=split_ratios) if split_ratios else {})))
             check(math.isfinite(ratio) and ratio <= 1.0,
                   f"{name}: {ratio} x the tolerance (max abs err {err})")
             check(fault_ratio > 1.0, f"{name}: ignored page scales pass the tolerance")
             check(empty_zero, f"{name}: slot with no valid row is not 0")
-            worst["paged_attention_q8"] = max(worst["paged_attention_q8"], err)
+            worst["paged_attention_q8"] = max(worst["paged_attention_q8"], err, split_err)
             del q, kq, vq, fk, fv, out, ref, ref_fault
     gen = torch.Generator(device=dev).manual_seed(SEED + 40)
     for K, N in QMM_SHAPES:
@@ -803,7 +882,7 @@ def phase_verify_kernel(dev: torch.device) -> dict:
                     split_ratios = {}
                     if dtype == torch.bfloat16:  # the tensor-core kernels at every swept split
                         for pps in VERIFY_SPLITS:
-                            o = pa._verify_launch(q, *pools, table, valid, 1.0 / math.sqrt(case["hd"]),
+                            o = pa._launch(q, *pools, table, valid, 1.0 / math.sqrt(case["hd"]),
                                                   pps or nb)
                             torch.cuda.synchronize()
                             split_ratios[pps or "all"] = _tol_ratio(o, ref, atol, rtol)
@@ -1212,10 +1291,16 @@ H100_MAX_CLOCK_HZ = 1.98e9  # SM boost clock: a sleep of n cycles lasts >= n / t
 
 
 def _time_device(fn, iters: int) -> float:
+    """Device ms per call (see `_time_device_and_host`)."""
+    return _time_device_and_host(fn, iters)[0]
+
+
+def _time_device_and_host(fn, iters: int) -> tuple[float, float]:
     """Device ms per call: as `_time`, but the timed calls are queued behind
     a sleep kernel four times as long as the host takes to launch them (by
     one call's launch time), so the device finds them all queued and the
-    events time the device alone. Raises if the host still fell behind."""
+    events time the device alone. Raises if the host still fell behind.
+    Also the host's ms per call while it queued them."""
     for _ in range(3):
         fn(0)
     torch.cuda.synchronize()
@@ -1234,76 +1319,202 @@ def _time_device(fn, iters: int) -> float:
     queued_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     check(queued_s < sleep_s, f"device timing: launching took {queued_s} s, the sleep {sleep_s} s")
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, queued_s * 1e3 / iters
+
+
+def _paged_times(kp: list, vp: list, table, lengths, nH: int, full: bool = True) -> dict:
+    """K3 timings (K5a on int8 pools) of bf16 queries over `table` with
+    slot r valid through row lengths[r], rotating over the layers' pools
+    in `kp`/`vp` so the KV rows come from HBM rather than a warm L2, as in
+    a real decode step: as issued, on the device alone, and the wrapper's
+    host ms per call. With `full`, also the plain version, the split sweep
+    (`DECODE_SPLITS`, through `pa._launch`), route A (K4's body at
+    W = 1: `pa._launch` of q viewed as [R, 1, nH, hd], at each swept
+    split),
+    and the library yardstick: SDPA over KV gathered (and dequantized to
+    bf16) into [R, nH, span, hd] ahead of time (kv heads repeated for the
+    query heads; the gather is not timed)."""
+    quant = isinstance(kp[0], tuple)
+    data = kp[0][0] if quant else kp[0]
+    dev = data.device
+    R, nb = table.shape
+    bsz, nKV, hd = data.shape[1:]
+    layers = len(kp)
+    span = nb * bsz
+    valid = (torch.arange(span, device=dev)[None, :] <= torch.as_tensor(lengths, device=dev)[:, None]).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    q = torch.randn((R, nH, hd), generator=gen, device=dev).to(torch.bfloat16)
+
+    def counter():
+        return pa.launches_q8 if quant else pa.launches
+
+    def kernel(i):
+        return pa.paged_attention(q, kp[i % layers], vp[i % layers], table, valid)
+
+    calls = counter()
+    ms = _time(kernel, 200)
+    ms_device, host_ms = _time_device_and_host(kernel, 200)
+    check(counter() > calls, "timing did not launch the kernel")
+    out = dict(ms=ms, ms_device=ms_device, host_ms=host_ms, host_minus_device_ms=ms - ms_device)
+    if not full:
+        return out
+    out["plain_ms"] = _time(lambda i: pa.paged_attention_ref(q, kp[i % layers], vp[i % layers],
+                                                             table, valid), 20)
+    sm_scale = 1.0 / math.sqrt(hd)
+    out["pages_per_split"] = pa.decode_pages_per_split(nb, bsz, R, nKV, pa._n_sms(dev))
+    sweep, route_a = {}, {}
+    q1, valid1 = q[:, None], valid[:, None]
+    for pps in DECODE_SPLITS:
+        def run(i, pps=pps or nb):
+            return pa._launch(q, kp[i % layers], vp[i % layers], table, valid, sm_scale, pps)
+
+        def run_a(i, pps=pps or nb):
+            return pa._launch(q1, kp[i % layers], vp[i % layers], table, valid1, sm_scale, pps)
+        sweep[pps or "all"] = dict(pages=pps or nb, ms=_time(run, 200), ms_device=_time_device(run, 200))
+        route_a[pps or "all"] = dict(pages=pps or nb, ms_device=_time_device(run_a, 200))
+    out.update(split_sweep=sweep, route_a_k4_at_w1=route_a)
+    idx = table.reshape(-1).long()
+
+    def gathered(pool):
+        d, sc = pool if quant else (pool, None)
+        g = pa._gather_dequant(d, sc, idx, R, nb, bsz, nKV, hd, torch.bfloat16)
+        return g.permute(0, 2, 1, 3).repeat_interleave(nH // nKV, dim=1).contiguous()
+
+    ks = [gathered(p) for p in kp]
+    vs = [gathered(p) for p in vp]
+    q4 = q[:, :, None, :]
+    mask = valid[:, None, None, :]
+    out["library_ms"] = _time(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        q4, ks[i % layers], vs[i % layers], attn_mask=mask), 200)
+    return out
 
 
 def phase_paged_line(engine, cfg, batch: dict, launches: int, max_err: float) -> dict:
     """K3 timings (K5a on an int8 engine's pool) at the serve phase's
     shapes: the 16 slots of the step phase over the served pool, rotating
-    over 4 layers' pools so the KV rows come from HBM rather than a warm
-    L2, as in a real decode step."""
-    dev = engine.device
+    over 4 layers' pools (`_paged_times`)."""
     quant = engine._k_scale is not None
     table, lengths = batch["table"], batch["lengths"]
     R, nb = table.shape
     bsz, nKV, hd = engine._k_pool.shape[2:]
     nH = cfg.num_attention_heads
     layers = min(4, cfg.num_hidden_layers)
-    span = nb * bsz
-    valid = (torch.arange(span, device=dev)[None, :] <= torch.as_tensor(lengths, device=dev)[:, None]).contiguous()
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    q = torch.randn((R, nH, hd), generator=gen, device=dev).to(torch.bfloat16)
     if quant:
         kp = [(engine._k_pool[i], engine._k_scale[i]) for i in range(layers)]
         vp = [(engine._v_pool[i], engine._v_scale[i]) for i in range(layers)]
     else:
         kp = [engine._k_pool[i] for i in range(layers)]
         vp = [engine._v_pool[i] for i in range(layers)]
-
-    def counter():
-        return pa.launches_q8 if quant else pa.launches
-
-    calls = counter()
-    ms = _time(lambda i: pa.paged_attention(q, kp[i % layers], vp[i % layers], table, valid), 200)
-    plain_ms = _time(lambda i: pa.paged_attention_ref(q, kp[i % layers], vp[i % layers], table, valid), 20)
-    check(counter() > calls, "timing did not launch the kernel")
-    # library yardstick: SDPA over KV gathered (and dequantized to bf16)
-    # into [R, nH, span, hd] ahead of time (kv heads repeated for the
-    # query heads); not timed
-    idx = table.reshape(-1).long()
-
-    def gathered(pool):
-        data, sc = pool if quant else (pool, None)
-        g = pa._gather_dequant(data, sc, idx, R, nb, bsz, nKV, hd, torch.bfloat16)
-        g = g.permute(0, 2, 1, 3)
-        return g.repeat_interleave(nH // nKV, dim=1).contiguous()
-
-    ks = [gathered(p) for p in kp]
-    vs = [gathered(p) for p in vp]
-    q4 = q[:, :, None, :]
-    mask = valid[:, None, None, :]
-    library_ms = _time(lambda i: torch.nn.functional.scaled_dot_product_attention(
-        q4, ks[i % layers], vs[i % layers], attn_mask=mask), 200)
+    times = _paged_times(kp, vp, table, lengths, nH)
     rows = int((np.asarray(lengths) + 1).sum())
+    span = nb * bsz
     # per valid row and kv head: K and V, bf16 (K3) or int8 + an f32 scale (K5a)
     row_bytes = 2 * (hd + 4) if quant else 2 * hd * 2
     nbytes = (rows * nKV * row_bytes + 2 * R * nH * hd * 2 + R * nb * 4 + R * span)
     flops = 4 * nH * hd * rows
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / peak_flops(q.dtype) * 1e3
+    ops_ms = flops / peak_flops(torch.bfloat16) * 1e3
     return dict(
         name="paged_attention_q8" if quant else "paged_attention", route="cuda",
         source=KERNEL_SOURCE, replaces=Q8_REPLACES if quant else KERNEL_REPLACES,
-        launches=launches, max_abs_err=max_err,
-        max_err=max_err, ms=ms, plain_ms=plain_ms,
+        launches=launches, max_abs_err=max_err, max_err=max_err, **times,
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=library_ms,
+        bytes_ms=bytes_ms, ops_ms=ops_ms,
         library_call="scaled_dot_product_attention, KV pre-gathered"
                      + (" and pre-dequantized to bf16" if quant else ""),
         shape=dict(R=R, nH=nH, nKV=nKV, hd=hd, bsz=bsz, nb=nb, valid_rows=rows,
                    dtype="bfloat16", pool="int8 + f32 scales" if quant else "bfloat16"),
     )
+
+
+# `--decode-sweep`: table widths (pages) and the shapes they are swept at
+SWEEP_WIDTHS = (2, 4, 8, 16, 32)
+SWEEP_SHAPES = (
+    dict(name="serve", R=16, nH=28, nKV=4, quant=(False, True)),  # Qwen2.5-7B's serve batch
+    dict(name="rollout", R=32, nH=12, nKV=2, quant=(False,)),  # the train phase's rollout batch
+)
+
+
+def decode_sweep_only() -> int:
+    """`--decode-sweep`: device ms of bf16 K3 (and K5a at the serve shape)
+    for tables of `SWEEP_WIDTHS` pages of 128 rows at hd 128, at every
+    power-of-two pages per split up to the table, beside the split
+    `decode_pages_per_split` picks. Slot lengths are uniform over the
+    table, the last slot filling it (the chunk's longest slot sets the
+    width); 4 layers of random pools from SEED, rotated."""
+    dev, smi = phase_device()
+    hd, bsz = 128, SERVE["page_size"]
+    rows = []
+    for shape in SWEEP_SHAPES:
+        R, nH, nKV = shape["R"], shape["nH"], shape["nKV"]
+        n_blocks = R * max(SWEEP_WIDTHS) + 1
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        pools = [torch.randn((n_blocks, bsz, nKV, hd), generator=gen, device=dev).to(torch.bfloat16)
+                 for _ in range(8)]
+        for quant in shape["quant"]:
+            kv = [_int8_pool(p) for p in pools] if quant else pools
+            rng = np.random.default_rng(SEED + 3)
+            for nb in SWEEP_WIDTHS:
+                lengths = rng.integers(1, nb * bsz, R)
+                lengths[-1] = nb * bsz - 1
+                table = torch.as_tensor(rng.permutation(np.arange(1, n_blocks))[: R * nb]
+                                        .reshape(R, nb).astype(np.int32), device=dev)
+                valid = (torch.arange(nb * bsz, device=dev)[None, :]
+                         <= torch.as_tensor(lengths, device=dev)[:, None]).contiguous()
+                q = torch.randn((R, nH, hd), generator=gen, device=dev).to(torch.bfloat16)
+                ms = {}
+                pps = 1
+                while pps <= nb:
+                    ms[pps] = _time_device(lambda i, pps=pps: pa._launch(
+                        q, kv[i % 4], kv[4 + i % 4], table, valid, 1.0 / math.sqrt(hd), pps), 200)
+                    pps *= 2
+                rows.append(dict(shape=shape["name"], pool="int8" if quant else "bf16", R=R, nH=nH,
+                                 nKV=nKV, nb=nb, valid_rows=int((lengths + 1).sum()),
+                                 ms_device=ms, fastest=min(ms, key=ms.get),
+                                 rule=pa.decode_pages_per_split(nb, bsz, R, nKV, pa._n_sms(dev))))
+            del kv
+        del pools
+        torch.cuda.empty_cache()
+    emit("decode_sweep", min_blocks_per_sm=pa.DECODE_MIN_BLOCKS_PER_SM, rows=rows)
+    print(smi, flush=True)
+    return 0
+
+
+def paged_times_only() -> int:
+    """`--paged-times`: K3 and K5a as issued, on the device alone and the
+    wrapper's host ms per call, at the serve batch's shapes on a synthetic
+    pool (Qwen2.5-7B's 28/4 heads, hd 128, page 128; 16 slots of 192-1152
+    rows, `_served_batch`'s lengths; 4 layers of a 513-block pool, random
+    bf16 values from SEED, the int8 pool quantized from them). It calls
+    only `paged_attention`, so the same script times another tree's
+    package when it is run from that tree's root."""
+    dev, smi = phase_device()
+    cfg = QWEN25_7B
+    nH, nKV = cfg.num_attention_heads, cfg.num_key_value_heads
+    hd, bsz = cfg.hidden_size // nH, SERVE["page_size"]
+    R = SERVE["max_running_requests"]
+    n_blocks = R * SERVE["context_length"] // bsz + 1
+    rng = np.random.default_rng(SEED + 1)
+    lengths = rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1, R) + 128
+    nb = int(-(-(lengths.max() + 1) // bsz))
+    table = np.zeros((R, nb), np.int32)
+    perm = rng.permutation(np.arange(1, n_blocks))
+    for r in range(R):
+        used = -(-(int(lengths[r]) + 1) // bsz)
+        table[r, :used] = perm[r * nb: r * nb + used]
+    table = torch.as_tensor(table, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pools = [torch.randn((n_blocks, bsz, nKV, hd), generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(8)]
+    res = dict(fp=_paged_times(pools[:4], pools[4:], table, lengths, nH, full=False))
+    q8 = [_int8_pool(p) for p in pools]
+    del pools
+    res["int8"] = _paged_times(q8[:4], q8[4:], table, lengths, nH, full=False)
+    emit("paged_times", shape=dict(R=R, nH=nH, nKV=nKV, hd=hd, bsz=bsz, nb=nb,
+                                   valid_rows=int((lengths + 1).sum())), **res)
+    print(smi, flush=True)
+    return 0
 
 
 # the spec serve phases: the serve cells' engines with spec_decode="ngram"
@@ -1626,7 +1837,7 @@ def phase_verify_line(engine, cfg, batch: dict, launches: int, max_err: float,
     sweep = {}
     for pps in VERIFY_SPLITS:
         def run(i, pps=pps or nb):
-            return pa._verify_launch(q, kp[i % layers], vp[i % layers], table, valid, sm_scale, pps)
+            return pa._launch(q, kp[i % layers], vp[i % layers], table, valid, sm_scale, pps)
         sweep[pps or "all"] = dict(pages=pps or nb, ms=_time(run, 200), ms_device=_time_device(run, 200))
     # K3 / K5a over R x W virtual slots, one query each
     qv = q.reshape(R * width, nH, hd)
@@ -2395,4 +2606,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    modes = {"--paged-times": paged_times_only, "--decode-sweep": decode_sweep_only}
+    sys.exit(modes[sys.argv[1]]() if sys.argv[1:] else main())

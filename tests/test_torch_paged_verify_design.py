@@ -133,20 +133,34 @@ def _emulate(q, k_pool, v_pool, table, valid, pps, split=True):
                                          vc[:, t0 + j0:min(t0 + j0 + _STAGE, t1)])
             m = m_new
         parts.append((m, l, acc))
-    if len(parts) == 1:  # the split kernel writes the output itself
-        m, l, acc = parts[0]
-        out = acc / torch.where(l > 0, l, 1.0)
-    else:  # the combine pass, splits in order
-        mx = torch.full_like(parts[0][0], -1e30)
-        for m, l, _ in parts:
-            mx = torch.where(l > 0, torch.maximum(mx, m), mx)
-        num, den = torch.zeros_like(parts[0][2]), torch.zeros_like(parts[0][1])
-        for m, l, acc in parts:
-            c = torch.where(l > 0, torch.exp2(m - mx), 0.0)
-            num = num + c * acc
-            den = den + c * l
-        out = num / torch.where(den > 0, den, 1.0)
+    out = _output(parts)
     return _bf(out.reshape(Rq, nKV, W, group, hd).permute(0, 2, 1, 3, 4).reshape(Rq, W, nH, hd))
+
+
+def _merge(parts):
+    """The combine's formula over (m, l, acc) states in order: M* the
+    largest m among those with l > 0, then sum 2^(m - M*) acc and sum
+    2^(m - M*) l over them; m -1e30 where none has l > 0."""
+    mx = torch.full_like(parts[0][0], -1e30)
+    for m, l, _ in parts:
+        mx = torch.where(l > 0, torch.maximum(mx, m), mx)
+    num, den = torch.zeros_like(parts[0][2]), torch.zeros_like(parts[0][1])
+    for m, l, acc in parts:
+        c = torch.where(l > 0, torch.exp2(m - mx), 0.0)
+        num = num + c * acc
+        den = den + c * l
+    return torch.where(den > 0, mx, -1e30), den, num
+
+
+def _output(parts):
+    """The splits' states to the f32 output: with one split the split
+    kernel writes acc / l itself, else the combine pass merges them in
+    split order; 0 where no row was valid."""
+    if len(parts) == 1:  # the split kernel writes the output itself
+        _, l, acc = parts[0]
+    else:  # the combine pass, splits in order
+        _, l, acc = _merge(parts)
+    return acc / torch.where(l > 0, l, 1.0)
 
 
 @functools.lru_cache(maxsize=None)
