@@ -1,79 +1,132 @@
 // Int8-weight matmul for Hopper (sm_90a): out[T, N] = (x[T, K] @ q[K, N]) *
-// scale[N], f32 accumulation, output in x's dtype (f32 or bf16).
+// scale[N], f32 accumulation, output in x's dtype (bf16 or f32).
 //
 // Replaces the TPU kernel `areal_tpu/ops/quant_matmul.py::_quant_matmul_kernel`
 // (:55), launched there by `_quant_matmul_pallas` (:84). The weights are
 // per-output-channel symmetric absmax int8 (`ops/quant.py`): row-major
-// [K, N] int8 with N contiguous, one f32 scale per column. It computes what
-// that kernel computes, with the scale folded in after the K loop instead of
-// before it: the values -127..127 are exact in bf16, so every product
-// x * q is exact in f32 and the result differs from the plain version
-// (`x @ (q * scale)` in f32) only by the order and rounding of the f32 sums.
+// [K, N] int8 with N contiguous, one f32 scale per column, stored as JAX
+// stores them. It computes what that kernel computes, with the scale folded
+// in after the K loop instead of before it: the values -127..127 are exact
+// in bf16, so every product x * q is exact in f32 and the result differs
+// from the plain version (`x @ (q * scale)` in f32) only by the order and
+// rounding of the f32 sums.
 //
-// Bound. In decode (T = 1..16) each weight byte is used by at most 16
-// rows: 2 * T flops per byte, far below the H100's ~295 bf16 flops per byte
-// of HBM, so the kernel is bound by bytes: the int8 weights, the scales, x
-// and the output, over 3.35 TB/s (one decode step's 196 calls read 6.53 GB
-// at Qwen2.5-7B, ~1.95 ms). In prefill (T up to 1024) it is bound by its
-// 2 * T * K * N operations at the bf16 tensor-core rate.
+// Bound. In decode (T = 1..16) and verify (T <= 80) each weight byte is used
+// by at most 80 rows, 2 T flops per byte, below the H100's ~295 bf16 flops
+// per byte of HBM: the call is bound by bytes (the int8 weights, the
+// scales, x and the output over 3.35 TB/s; one Qwen2.5-7B layer's 7 calls
+// read 233 MB, 0.070 ms). In prefill (T up to 1024) it is bound by its
+// 2 T K N operations at the bf16 tensor-core rate, which mma.sync reaches
+// only in part (a `wgmma` route is later work).
 //
-// Design, first version (made fast in a later change):
-//   - one block of 4 warps per 128 output columns x BT rows (BT = 16 when
-//     T <= 16, else 64), so at decode sizes every weight byte is read once
-//     per call; when those blocks cannot fill the card, the K loop is split
-//     across blocks (split-K): each split writes its f32 partial tile to a
-//     workspace, and the last split of a tile to arrive (an atomic counter,
-//     reset by that block) sums the partials in split order, applies the
-//     scale and writes the output: one launch, deterministic sums;
-//   - a 4-stage cp.async pipeline of 64-deep stages: int8 weight rows of
-//     128 bytes loaded as 16-byte chunks along N, x rows along K; ragged T,
-//     K and N are zero-filled (cp.async with a source size of 0), and a
-//     weight or x row that is not 16-byte aligned (N % 16, or K % 8 for
-//     bf16 / K % 4 for f32) is staged with element loads instead;
+// bf16 x, the main path (`quant_matmul_sk_kernel`):
+//   - stream-K: the work is a list of units, one (row tile, 128-column n
+//     tile, 64-deep k tile) each, k fastest. The wrapper sizes the grid to
+//     blocks the card holds at once (occupancy API, asked once per
+//     process) and block b takes the contiguous run of units
+//     [b q + min(b, r), ...) of q or q + 1 units (q, r = units / grid,
+//     units % grid): every block streams the same bytes to within one unit,
+//     nothing runs in a second wave, and the cp.async pipeline runs across
+//     the run's tile boundaries in its steady state. A unit's place moves by
+//     one unit at a time (no division in the loop);
+//   - one row tile carries all of x's rows up to 80 (five m16 fragments),
+//     so up to the verify batch every weight byte is read once per call;
+//     beyond 80 rows x is cut into the fewest row tiles of at most 80;
+//   - deterministic fix-up: a tile whose k range lies in one block's run is
+//     written out by that block. A tile cut between blocks is finished by
+//     the last of them to arrive: each writes its f32 partial (slot 0 for
+//     the first segment of its run, 1 for the last; coalesced, in the
+//     threads' own order) and bumps the tile's counter; the one that finds
+//     every other segment in sums the partials in segment order (block
+//     order), from zero, four segments' loads in flight at a time, applies
+//     the scale, writes the output and resets the counter to 0 for the next
+//     launch. The bits do not depend on which block arrives last, and a call
+//     is one launch;
 //   - the products run on the tensor cores, `mma.sync.m16n8k16` bf16 with
 //     f32 accumulators. The weight operand needs two consecutive k of one
 //     column per register while the tile holds N contiguous; so each thread
 //     reads 32-bit words of 4 neighbouring columns from 4 k rows, and the
 //     byte j of a word feeds n8 fragment j: fragment j of warp w covers
-//     columns 32w + 4g + j (g the lane's group). The int8 values become bf16
-//     in registers (exact); no fp copy of the weights exists outside them;
-//   - f32 x is split into three bf16 terms (hi + mid + lo, exact for a
-//     24-bit mantissa) and multiplied three times, smallest first, so f32
-//     inputs keep their precision on the tensor cores;
+//     columns 32w + 4g + j (g the lane's group), so a thread's 8
+//     accumulators of a row are 8 neighbouring columns, stored as one
+//     16-byte write;
+//   - exact widening without a conversion instruction (those issue 16 per
+//     clock per SM, slower than the bytes arrive): u = byte ^ 0x80 is
+//     v + 128; `prmt` puts u under the f32 exponent of 2^23 (the word
+//     0x4B0000uu is exactly 2^23 + u); an f32 subtract of 2^23 + 128 leaves
+//     exactly v, for all 256 bytes; v has at most 8 significant bits, so its
+//     bf16 is the f32's upper half, and one more `prmt` packs the upper
+//     halves of rows k and k + 1 into a bf16x2 register. That is 11 integer
+//     and fp32 instructions per 4 bytes;
 //   - the tensor cores' f32 accumulation truncates (rounds toward zero),
 //     which over a 3584-deep sum biases the result by ~1e-5 of its largest
 //     value (measured on an H100). So each 64-deep stage is summed by the
 //     mma from zero, and the stage sums are added into the running sum on
 //     the CUDA cores, rounding to nearest;
-//   - shared rows are padded (weights 144 bytes, x 72 elements) so the
-//     fragment reads are free of bank conflicts.
-// What it leaves on the table: the int8 -> bf16 conversion costs CUDA-core
-// instructions for every weight byte, the output is written as scattered
-// 2- or 4-byte stores, and mma.sync reaches a fraction of wgmma's rate at
-// prefill sizes.
+//   - x's A fragments come from shared memory by ldmatrix; shared rows are
+//     padded (weights 144 bytes, x 72 elements) so the reads are free of
+//     bank conflicts; ragged T, K and N are zero-filled (cp.async with a
+//     source size of 0) and masked at the store, and a weight or x row that
+//     is not 16-byte aligned is staged with element loads instead.
+// What was hard:
+//   - registers. Five row fragments of 32 columns hold 80 f32 sums, and
+//     summing each stage from zero doubled them in the first version's loop
+//     order; the loops turn, so the stage's widened weights (32 registers)
+//     stay while the row fragments take turns with one 16-register stage
+//     sum. ptxas fills whatever budget the launch bounds give it: left to
+//     itself it held four fragments to 128 registers and spilled, so four
+//     and five fragments are built for 2 blocks per SM;
+//   - instruction count. The first stream-K version spent ~650 instructions
+//     per warp on an 8 KB unit: two run-time divisions per unit, address
+//     arithmetic, and the `prmt` selectors made again every stage (ptxas
+//     gave PRMT's one immediate slot to the constant 0x4B000000). Cursors,
+//     per-tile pointers and the constant as `prmt`'s first source (a
+//     register in SASS) bring the unit to ~240, conversion included;
+//   - the hand-over. Past that, neither deeper stages, more resident
+//     blocks, fewer instructions nor TMA loads (one bulk copy per row, or a
+//     2-D tensor map per unit) moved gate/up/down off ~2.0 TB/s, and 3
+//     resident blocks per SM are slower than 2 (the wrapper uses 2).
+//     `tools/k6_load_diag.py` times a bare stream of the same 64 x 128-byte
+//     units (~2.6-2.7 TB/s on an H100), this kernel built with
+//     QMM_DIAG_LOADS_ONLY (its loads without the mma, ~2.0-2.1) and with
+//     QMM_DIAG_NO_HANDOVER as well (without the cut tiles' partials and
+//     fix-up, ~2.5-2.6): the hand-over, not the widening, holds most of the
+//     rest; at T 80 a partial is 40 KB a segment. Deferring the counts to a
+//     run's end, or finishing from registers when the others are in, did
+//     not help.
+//
+// f32 x keeps the first version (`quant_matmul_f32_kernel`): a grid of 128
+// output columns x 16 or 64 rows, split-K across blocks when the tiles
+// cannot fill the card, x split into three bf16 terms (hi + mid + lo, exact
+// for a 24-bit mantissa) multiplied smallest first, the weights widened by
+// int-to-float conversion.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
 constexpr int kThreads = 128;  // 4 warps, 32 output columns each
-constexpr int kBN = 128;       // output columns per block
-constexpr int kBK = 64;        // depth of one pipeline stage
-constexpr int kStages = 4;
+constexpr int kBN = 128;       // output columns per tile
+constexpr int kBK = 64;        // depth of one pipeline stage (one unit)
 constexpr int kWRow = kBN + 16;  // bytes per shared weight row
 constexpr int kXRow = kBK + 8;   // elements per shared x row
+constexpr int kMaxMT = 5;        // m16 fragments of a row tile: 80 rows
+// Pipeline depth of the bf16 kernel (quant_matmul.STAGES in the wrapper).
+// `chip_smoke.py --qmm-sweep` builds copies with -DQMM_STAGES=2 and 8.
+#ifndef QMM_STAGES
+#define QMM_STAGES 4
+#endif
+constexpr int kSkStages = QMM_STAGES;
 
-template <typename TX, int MT>
+template <typename TX, int MT, int STAGES>
 struct Tile {
-  static constexpr int kBT = 16 * MT;  // rows of x per block
+  static constexpr int kBT = 16 * MT;  // rows of x per tile
   static constexpr int kWBytes = kBK * kWRow;
   static constexpr int kXBytes = kBT * kXRow * (int)sizeof(TX);
   static constexpr int kStageBytes = kWBytes + kXBytes;
-  static constexpr int kSmem = kStages * kStageBytes;
+  static constexpr int kSmem = STAGES * kStageBytes;
   static_assert(kStageBytes % 16 == 0, "stages must stay 16-byte aligned");
 };
 
@@ -92,6 +145,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          const uint32_t* b) {
   asm volatile(
@@ -101,12 +158,62 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// the four 8 x 8 bf16 matrices of an m16k16 A fragment at shared address
+// s: lanes 0-15 give rows 0-15 at column 0, lanes 16-31 rows 0-15 at
+// column 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* a, uint32_t s) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(s));
+}
+
+// bf16x2 of two f32 with at most 8 significant bits: their upper halves,
+// `lo` (row k) in the low half
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, 0x7632;\n"
+      : "=r"(d)
+      : "r"(__float_as_uint(lo)), "r"(__float_as_uint(hi)));
+  return d;
+}
+
+// The int8 in byte J of `u`, a weight word already xor-ed with 0x80808080
+// (so the byte is v + 128), as an exact f32: the word 0x4B0000uu is the
+// f32 2^23 + u, and 2^23 + 128 subtracted from it leaves v. The constant
+// word 0x4B000000 is `prmt`'s first source, which SASS takes only from a
+// register, so the selector keeps the one immediate slot (given the slot,
+// ptxas made the selectors again in registers at every stage).
+template <int J>
+__device__ __forceinline__ float i8_as_f32(uint32_t u, uint32_t exp_word) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(exp_word), "r"(u), "n"(0x3004 | J));
+  return __uint_as_float(d) - 8388736.f;
+}
+
+// bf16x2 registers of n8 fragments 0-3 for rows (k, k + 1) from the two
+// rows' xor-ed words of 4 neighbouring columns: byte j feeds fragment j
+__device__ __forceinline__ void widen4(uint32_t u_k, uint32_t u_k1,
+                                       uint32_t exp_word, uint32_t* b,
+                                       int stride) {
+  b[0] = bf16_pair(i8_as_f32<0>(u_k, exp_word), i8_as_f32<0>(u_k1, exp_word));
+  b[stride] =
+      bf16_pair(i8_as_f32<1>(u_k, exp_word), i8_as_f32<1>(u_k1, exp_word));
+  b[2 * stride] =
+      bf16_pair(i8_as_f32<2>(u_k, exp_word), i8_as_f32<2>(u_k1, exp_word));
+  b[3 * stride] =
+      bf16_pair(i8_as_f32<3>(u_k, exp_word), i8_as_f32<3>(u_k1, exp_word));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // lo: low half
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// bf16 pair (k, k+1) of byte j of two weight words (rows k and k+1)
+// bf16 pair (k, k+1) of byte j of two weight words (rows k and k+1), by
+// int-to-float conversion (the f32 route's first version)
 __device__ __forceinline__ uint32_t pack_i8(uint32_t w_k, uint32_t w_k1,
                                             int j) {
   const float lo = static_cast<float>(static_cast<int8_t>(w_k >> (8 * j)));
@@ -135,25 +242,442 @@ __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
   return __float2bfloat16_rn(0.f);
 }
 
-__device__ __forceinline__ void store(float v, float* p) { *p = v; }
-__device__ __forceinline__ void store(float v, __nv_bfloat16* p) {
-  *p = __float2bfloat16_rn(v);
+// Stage one 64 x 128 int8 weight tile (rows k0.., columns n0..) into a
+// shared tile of kWRow-byte rows, zero past K and N.
+__device__ __forceinline__ void load_w_tile(uint8_t* ws,
+                                            const int8_t* __restrict__ w,
+                                            int k0, int n0, int K, int N,
+                                            int w_vec, int tid) {
+  if (w_vec) {
+    static_assert(kBK * (kBN / 16) % kThreads == 0, "whole chunks a thread");
+#pragma unroll
+    for (int i = 0; i < kBK * (kBN / 16) / kThreads; ++i) {
+      const int c = i * kThreads + tid;
+      const int row = c / (kBN / 16), ch = c % (kBN / 16);
+      const int k = k0 + row, n = n0 + ch * 16;
+      const bool ok = k < K && n < N;  // N % 16 == 0: all or nothing
+      cp_async16(ws + row * kWRow + ch * 16, ok ? w + (size_t)k * N + n : w,
+                 ok);
+    }
+  } else {
+    for (int e = tid; e < kBK * kBN; e += kThreads) {
+      const int row = e / kBN, col = e % kBN;
+      const int k = k0 + row, n = n0 + col;
+      ws[row * kWRow + col] =
+          (k < K && n < N) ? static_cast<uint8_t>(w[(size_t)k * N + n]) : 0;
+    }
+  }
 }
 
-template <typename TX, int MT>
-__global__ void __launch_bounds__(kThreads)
-    quant_matmul_kernel(const TX* __restrict__ x,        // [T, K]
-                        const int8_t* __restrict__ w,    // [K, N]
-                        const float* __restrict__ scale,  // [N]
-                        TX* __restrict__ out,            // [T, N]
-                        float* __restrict__ part,        // [splits, T, N]
-                        int* __restrict__ counters,      // [m_tiles, n_tiles]
-                        int T, int K, int N, int tiles_per_split, int x_vec,
-                        int w_vec) {
-  using TL = Tile<TX, MT>;
-  constexpr int kBT = TL::kBT;
-  constexpr bool kF32 = std::is_same<TX, float>::value;
+// Stage rows m0..m0+BT-1, columns k0..k0+63 of x into a shared tile of
+// kXRow-element rows, zero past T and K.
+template <typename TX, int BT>
+__device__ __forceinline__ void load_x_tile(TX* xs, const TX* __restrict__ x,
+                                            int m0, int k0, int T, int K,
+                                            int x_vec, int tid) {
   constexpr int kXV = 16 / (int)sizeof(TX);  // x elements per 16 bytes
+  if (x_vec) {
+    static_assert(BT * (kBK / kXV) % kThreads == 0, "whole chunks a thread");
+#pragma unroll
+    for (int i = 0; i < BT * (kBK / kXV) / kThreads; ++i) {
+      const int c = i * kThreads + tid;
+      const int row = c / (kBK / kXV), ch = c % (kBK / kXV);
+      const int t = m0 + row, k = k0 + ch * kXV;
+      const bool ok = t < T && k < K;  // K % kXV == 0: all or nothing
+      cp_async16(xs + row * kXRow + ch * kXV, ok ? x + (size_t)t * K + k : x,
+                 ok);
+    }
+  } else {
+    for (int e = tid; e < BT * kBK; e += kThreads) {
+      const int row = e / kBK, col = e % kBK;
+      const int t = m0 + row, k = k0 + col;
+      xs[row * kXRow + col] = (t < T && k < K) ? x[(size_t)t * K + k] : zero<TX>();
+    }
+  }
+}
+
+// The even split of `units` over `grid` blocks: block b owns
+// [start(b), start(b + 1)).
+struct EvenSplit {
+  int q, r;  // units / grid, units % grid
+  __device__ __forceinline__ int start(int b) const {
+    return b * q + min(b, r);
+  }
+  __device__ __forceinline__ int owner(int u) const {
+    const int big = r * (q + 1);
+    return u < big ? u / (q + 1) : r + (u - big) / q;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// bf16 x: stream-K over (row tile, n tile, k tile) units
+// ---------------------------------------------------------------------------
+
+// Blocks per SM the bf16 kernel is built for. ptxas takes the hint as a
+// register budget: asked for 4 blocks at 2 row fragments or 3 at 4 it
+// spilled, and with no hint it held 4 fragments to 128 registers and
+// spilled. So 4 and 5 fragments are built for 2 blocks, the rest for 1.
+constexpr int sk_min_blocks(int mt) { return mt >= 4 ? 2 : 1; }
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads, sk_min_blocks(MT))
+    quant_matmul_sk_kernel(const __nv_bfloat16* __restrict__ x,  // [T, K]
+                           const int8_t* __restrict__ w,         // [K, N]
+                           const float* __restrict__ scale,      // [N]
+                           __nv_bfloat16* __restrict__ out,      // [T, N]
+                           float* __restrict__ part,  // [grid, 2, 16 MT, 128]
+                           int* __restrict__ counters,  // [m_tiles, n_tiles]
+                           int T, int K, int N, int n_tiles, int k_tiles,
+                           int units, int x_vec, int w_vec, int o_vec) {
+  using TL = Tile<__nv_bfloat16, MT, kSkStages>;
+  constexpr int kBT = TL::kBT;
+  constexpr int kSlot = kBT * kBN;  // floats of one partial tile
+
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int last_segment;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;  // mma group
+  const int t4 = lane & 3;  // thread in group
+  const int b = blockIdx.x;
+  const EvenSplit split{units / (int)gridDim.x, units % (int)gridDim.x};
+  const int u_start = split.start(b);
+  const int n_units = split.start(b + 1) - u_start;
+
+  auto w_stage = [&](int st) { return smem + st * TL::kStageBytes; };
+  auto x_stage = [&](int st) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + st * TL::kStageBytes +
+                                            TL::kWBytes);
+  };
+
+  // A unit's place, moved one unit at a time (no division in the loop).
+  struct Cursor {
+    int kt, nt, mi;  // k tile, n tile, row tile
+  };
+  auto advance = [&](Cursor& c) {
+    if (++c.kt == k_tiles) {
+      c.kt = 0;
+      if (++c.nt == n_tiles) c.nt = 0, ++c.mi;
+    }
+  };
+  Cursor cu;  // the unit computed
+  cu.kt = u_start % k_tiles;
+  cu.nt = (u_start / k_tiles) % n_tiles;
+  cu.mi = u_start / k_tiles / n_tiles;
+
+  // The loader: this thread's 16-byte chunks of the next unit to load,
+  // weight rows c_row + 16 i at bytes 16 c_col of the tile's 128, x rows
+  // c_row + 16 i at elements 8 c_col of the stage's 64; pointers moved by
+  // one k tile per unit and set again at a tile's start.
+  const int c_row = tid >> 3, c_col = tid & 7;
+  const size_t w_pass = (size_t)16 * N, w_step = (size_t)kBK * N;
+  const size_t x_pass = (size_t)16 * K;
+  const bool ragged_k = K % kBK != 0;
+  struct Loader {
+    Cursor c;
+    const int8_t* wp;
+    const __nv_bfloat16* xp;
+    bool n_ok;      // this thread's weight columns lie inside N
+    unsigned x_ok;  // bit i: x row c_row + 16 i of the row tile lies inside T
+  } ld;
+  auto start_tile = [&](Loader& l) {
+    const int n0 = l.c.nt * kBN + 16 * c_col, m0 = l.c.mi * kBT + c_row;
+    const int k0 = l.c.kt * kBK;
+    l.wp = w + (size_t)(k0 + c_row) * N + n0;
+    l.xp = x + (size_t)m0 * K + k0 + 8 * c_col;
+    l.n_ok = n0 < N;  // N % 16 == 0 on this path: all or nothing
+    l.x_ok = 0;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) l.x_ok |= (unsigned)(m0 + 16 * i < T) << i;
+  };
+  ld.c = cu;
+  start_tile(ld);
+  auto next_unit = [&](Loader& l) {
+    advance(l.c);
+    if (l.c.kt == 0) {
+      start_tile(l);
+    } else {
+      l.wp += w_step;
+      l.xp += kBK;
+    }
+  };
+
+  // cp.async from every thread, zero past K, N and T; element loads where
+  // rows are not 16-byte aligned
+  auto load_unit = [&](int st, const Loader& l) {
+    uint8_t* ws = w_stage(st);
+    __nv_bfloat16* xs = x_stage(st);
+    const int k0 = l.c.kt * kBK;
+    // all but a ragged last k tile lie inside K
+    const bool full_k = !ragged_k || l.c.kt < k_tiles - 1;
+    if (w_vec) {
+#pragma unroll
+      for (int i = 0; i < kBK / 16; ++i) {
+        const bool ok = l.n_ok && (full_k || k0 + c_row + 16 * i < K);
+        cp_async16(ws + (c_row + 16 * i) * kWRow + 16 * c_col,
+                   ok ? l.wp + i * w_pass : w, ok);
+      }
+    } else {
+      load_w_tile(ws, w, k0, l.c.nt * kBN, K, N, 0, tid);
+    }
+    if (x_vec) {
+      const bool k_ok = full_k || k0 + 8 * c_col < K;  // K % 8 == 0
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const bool ok = k_ok && (l.x_ok >> i & 1);
+        cp_async16(xs + (c_row + 16 * i) * kXRow + 8 * c_col,
+                   ok ? l.xp + i * x_pass : x, ok);
+      }
+    } else {
+      load_x_tile<__nv_bfloat16, kBT>(xs, x, l.c.mi * kBT, k0, T, K, 0, tid);
+    }
+  };
+
+  float acc[MT][4][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const uint32_t exp_word = 0x4B000000u;  // 2^23 as an f32
+
+  // this thread's weight words: columns 32 warp + 4g .. +3 at the rows
+  // 16 kk + 2 t4 (+1, +8, +9); its A fragments: row lane % 16, column
+  // 8 (lane / 16) of each 16 x 16 block
+  const int w_frag = 2 * t4 * kWRow + warp * 32 + 4 * g;
+  const uint32_t x_frag = ((lane & 15) * kXRow + (lane >> 4) * 8) * 2;
+
+  auto compute = [&](int st) {
+    const uint8_t* ws = w_stage(st) + w_frag;
+#ifdef QMM_DIAG_LOADS_ONLY  // tools/k6_load_diag.py: one shared read a stage
+    acc[0][0][0] += __uint_as_float(*reinterpret_cast<const uint32_t*>(ws) &
+                                    0x3f000000u);
+    return;
+#endif
+    const uint32_t xs = smem_addr(x_stage(st)) + x_frag;
+    // the stage's weight fragments, widened once: [kk][n8 fragment][half]
+    uint32_t bw[4][4][2];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint8_t* wr = ws + 16 * kk * kWRow;
+      const uint32_t x80 = 0x80808080u;
+      widen4(*reinterpret_cast<const uint32_t*>(wr) ^ x80,
+             *reinterpret_cast<const uint32_t*>(wr + kWRow) ^ x80, exp_word,
+             &bw[kk][0][0], 2);
+      widen4(*reinterpret_cast<const uint32_t*>(wr + 8 * kWRow) ^ x80,
+             *reinterpret_cast<const uint32_t*>(wr + 9 * kWRow) ^ x80,
+             exp_word, &bw[kk][0][1], 2);
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      float p[4][4];  // this stage's sums of row fragment i, from zero
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, xs + (16 * i * kXRow + 16 * kk) * 2);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(p[j], a, bw[kk][j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += p[j][e];
+    }
+  };
+
+  // accumulator (i, j, e) -> row 16 i + g (+8 for e >= 2), column
+  // 32 warp + 8 t4 + j (+4 for odd e): a thread holds 8 neighbouring
+  // columns of each of its rows
+  auto store_tile = [&](int tile) {
+    const int m0 = (tile / n_tiles) * kBT;
+    const int col = (tile % n_tiles) * kBN + warp * 32 + 8 * t4;
+    if (col >= N) return;
+    float s[8];
+    const bool vec = o_vec && col + 8 <= N;
+    if (vec) {
+      const float4 s0 = *reinterpret_cast<const float4*>(scale + col);
+      const float4 s1 = *reinterpret_cast<const float4*>(scale + col + 4);
+      s[0] = s0.x, s[1] = s0.y, s[2] = s0.z, s[3] = s0.w;
+      s[4] = s1.x, s[5] = s1.y, s[6] = s1.z, s[7] = s1.w;
+    } else {
+#pragma unroll
+      for (int c8 = 0; c8 < 8; ++c8)
+        s[c8] = col + c8 < N ? scale[col + c8] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + 16 * i + g + 8 * h;
+        if (row >= T) continue;
+        float v[8];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          v[j] = acc[i][j][2 * h] * s[j];
+          v[4 + j] = acc[i][j][2 * h + 1] * s[4 + j];
+        }
+        __nv_bfloat16* o = out + (size_t)row * N + col;
+        if (vec) {
+          uint4 pk;
+          pk.x = pack_bf16(v[0], v[1]);
+          pk.y = pack_bf16(v[2], v[3]);
+          pk.z = pack_bf16(v[4], v[5]);
+          pk.w = pack_bf16(v[6], v[7]);
+          *reinterpret_cast<uint4*>(o) = pk;
+        } else {
+#pragma unroll
+          for (int c8 = 0; c8 < 8; ++c8)
+            if (col + c8 < N) o[c8] = __float2bfloat16_rn(v[c8]);
+        }
+      }
+  };
+
+  // a partial tile in the threads' own order: (i, j, e) of thread tid at
+  // ((i * 4 + j) * 4 + e) * 128 + tid, so writes and reads are coalesced
+  auto slot = [&](int blk, int which) {
+    return part + (size_t)(2 * blk + which) * kSlot;
+  };
+
+  // The last block in of a cut tile sums its partials in segment order
+  // (block order; the first block's segment is its run's last, slot 1, when
+  // its run began in an earlier tile), from zero, four segments' loads in
+  // flight at a time, and writes the tile out.
+  auto fix_tile = [&](int tile) {
+    const int first = tile * k_tiles;
+    const int b_lo = split.owner(first), b_hi = split.owner(first + k_tiles - 1);
+    constexpr int kAhead = 4;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      float sum[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[j][e] = 0.f;
+      for (int blk0 = b_lo; blk0 <= b_hi; blk0 += kAhead) {
+        float v[kAhead][4][4];
+#pragma unroll
+        for (int a = 0; a < kAhead; ++a) {
+          const int blk = min(blk0 + a, b_hi);  // past b_hi: read, not added
+          const float* p =
+              slot(blk, blk == b_lo && split.start(blk) < first) +
+              i * 16 * kThreads + tid;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              v[a][j][e] = __ldcg(p + (j * 4 + e) * kThreads);
+        }
+#pragma unroll
+        for (int a = 0; a < kAhead; ++a)
+          if (blk0 + a <= b_hi)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) sum[j][e] += v[a][j][e];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = sum[j][e];
+    }
+    store_tile(tile);
+  };
+
+  // The segment of the current tile that ends at unit `it` of the run:
+  // written out when it is the whole tile, else handed over as a partial
+  // (slot 0 for the run's first segment, 1 for its last) and counted; the
+  // block that brings the tile's counter to its number of segments
+  // finishes the tile and resets the counter to 0 for the next launch.
+  auto finish_segment = [&](int it) {
+#ifdef QMM_DIAG_NO_HANDOVER  // tools/k6_load_diag.py: no partials, no fix-up
+    if (acc[0][0][0] == 12345.f) out[tid] = __float2bfloat16_rn(acc[0][0][0]);
+    return;
+#endif
+    const bool from_first = it >= cu.kt;  // the segment starts at k tile 0
+    const int tile = cu.mi * n_tiles + cu.nt;
+    if (from_first && cu.kt == k_tiles - 1) {  // the whole tile is ours
+      store_tile(tile);
+      return;
+    }
+    float* mine = slot(b, it == cu.kt || !from_first ? 0 : 1);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          __stcg(mine + ((i * 4 + j) * 4 + e) * kThreads + tid, acc[i][j][e]);
+    const int first = tile * k_tiles;
+    const int segs = split.owner(first + k_tiles - 1) - split.owner(first) + 1;
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      last_segment = atomicAdd(counters + tile, 1) == segs - 1;
+      if (last_segment) counters[tile] = 0;
+    }
+    __syncthreads();
+    if (!last_segment) return;
+    __threadfence();
+    fix_tile(tile);
+  };
+
+  // the pipeline: kSkStages - 1 units in flight ahead of the one computed,
+  // across the run's tile boundaries
+#pragma unroll
+  for (int s = 0; s < kSkStages - 1; ++s) {
+    if (s < n_units) {
+      load_unit(s, ld);
+      next_unit(ld);
+    }
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_units; ++it) {
+    cp_async_wait<kSkStages - 2>();
+    __syncthreads();  // unit `it` landed; stage (it - 1) % kSkStages is free
+    if (it + kSkStages - 1 < n_units) {
+      load_unit((it + kSkStages - 1) % kSkStages, ld);
+      next_unit(ld);
+    }
+    cp_async_commit();
+    compute(it % kSkStages);
+    if (it == n_units - 1 || cu.kt == k_tiles - 1) {
+      finish_segment(it);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+    advance(cu);
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// f32 x: the first version (split-K grid)
+// ---------------------------------------------------------------------------
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads)
+    quant_matmul_f32_kernel(const float* __restrict__ x,      // [T, K]
+                            const int8_t* __restrict__ w,     // [K, N]
+                            const float* __restrict__ scale,  // [N]
+                            float* __restrict__ out,          // [T, N]
+                            float* __restrict__ part,    // [splits, T, N]
+                            int* __restrict__ counters,  // [m_tiles, n_tiles]
+                            int T, int K, int N, int tiles_per_split,
+                            int x_vec, int w_vec) {
+  constexpr int kStages = 4;
+  using TL = Tile<float, MT, kStages>;
+  constexpr int kBT = TL::kBT;
 
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int last_split;
@@ -173,45 +697,11 @@ __global__ void __launch_bounds__(kThreads)
 
   auto w_stage = [&](int st) { return smem + st * TL::kStageBytes; };
   auto x_stage = [&](int st) {
-    return reinterpret_cast<TX*>(smem + st * TL::kStageBytes + TL::kWBytes);
+    return reinterpret_cast<float*>(smem + st * TL::kStageBytes + TL::kWBytes);
   };
-
   auto load_tile = [&](int st, int kt) {
-    const int k0 = kt * kBK;
-    uint8_t* ws = w_stage(st);
-    if (w_vec) {
-      for (int c = tid; c < kBK * (kBN / 16); c += kThreads) {
-        const int row = c / (kBN / 16), ch = c % (kBN / 16);
-        const int k = k0 + row, n = n0 + ch * 16;
-        const bool ok = k < K && n < N;  // N % 16 == 0: all or nothing
-        cp_async16(ws + row * kWRow + ch * 16, ok ? w + (size_t)k * N + n : w,
-                   ok);
-      }
-    } else {
-      for (int e = tid; e < kBK * kBN; e += kThreads) {
-        const int row = e / kBN, col = e % kBN;
-        const int k = k0 + row, n = n0 + col;
-        ws[row * kWRow + col] =
-            (k < K && n < N) ? static_cast<uint8_t>(w[(size_t)k * N + n]) : 0;
-      }
-    }
-    TX* xs = x_stage(st);
-    if (x_vec) {
-      for (int c = tid; c < kBT * (kBK / kXV); c += kThreads) {
-        const int row = c / (kBK / kXV), ch = c % (kBK / kXV);
-        const int t = m0 + row, k = k0 + ch * kXV;
-        const bool ok = t < T && k < K;  // K % kXV == 0: all or nothing
-        cp_async16(xs + row * kXRow + ch * kXV,
-                   ok ? x + (size_t)t * K + k : x, ok);
-      }
-    } else {
-      for (int e = tid; e < kBT * kBK; e += kThreads) {
-        const int row = e / kBK, col = e % kBK;
-        const int t = m0 + row, k = k0 + col;
-        xs[row * kXRow + col] =
-            (t < T && k < K) ? x[(size_t)t * K + k] : zero<TX>();
-      }
-    }
+    load_w_tile(w_stage(st), w, kt * kBK, n0, K, N, w_vec, tid);
+    load_x_tile<float, kBT>(x_stage(st), x, m0, kt * kBK, T, K, x_vec, tid);
   };
 
   float acc[MT][4][4];
@@ -224,7 +714,7 @@ __global__ void __launch_bounds__(kThreads)
 
   auto compute = [&](int st) {
     const uint8_t* ws = w_stage(st);
-    const TX* xs = x_stage(st);
+    const float* xs = x_stage(st);
     float part[MT][4][4];  // this stage's sums, from the tensor cores
 #pragma unroll
     for (int i = 0; i < MT; ++i)
@@ -251,35 +741,24 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < MT; ++i) {
         const int row = 16 * i + g;
         const int col = kk + 2 * t4;
-        if constexpr (kF32) {
-          // (row, col), (row + 8, col), (row, col + 8), (row + 8, col + 8)
-          float2 v[4];
-          v[0] = *reinterpret_cast<const float2*>(xs + row * kXRow + col);
-          v[1] = *reinterpret_cast<const float2*>(xs + (row + 8) * kXRow + col);
-          v[2] = *reinterpret_cast<const float2*>(xs + row * kXRow + col + 8);
-          v[3] =
-              *reinterpret_cast<const float2*>(xs + (row + 8) * kXRow + col + 8);
-          float xk[4][3], xk1[4][3];  // the terms of x at k and k + 1
+        // (row, col), (row + 8, col), (row, col + 8), (row + 8, col + 8)
+        float2 v[4];
+        v[0] = *reinterpret_cast<const float2*>(xs + row * kXRow + col);
+        v[1] = *reinterpret_cast<const float2*>(xs + (row + 8) * kXRow + col);
+        v[2] = *reinterpret_cast<const float2*>(xs + row * kXRow + col + 8);
+        v[3] =
+            *reinterpret_cast<const float2*>(xs + (row + 8) * kXRow + col + 8);
+        float xk[4][3], xk1[4][3];  // the terms of x at k and k + 1
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            split3(v[r].x, xk[r]);
-            split3(v[r].y, xk1[r]);
-          }
+        for (int r = 0; r < 4; ++r) {
+          split3(v[r].x, xk[r]);
+          split3(v[r].y, xk1[r]);
+        }
 #pragma unroll
-          for (int p = 2; p >= 0; --p) {  // lo, mid, hi: smallest first
-            uint32_t a[4];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) a[r] = pack_bf16(xk[r][p], xk1[r][p]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mma_bf16(part[i][j], a, b[j]);
-          }
-        } else {
+        for (int p = 2; p >= 0; --p) {  // lo, mid, hi: smallest first
           uint32_t a[4];
-          a[0] = *reinterpret_cast<const uint32_t*>(xs + row * kXRow + col);
-          a[1] = *reinterpret_cast<const uint32_t*>(xs + (row + 8) * kXRow + col);
-          a[2] = *reinterpret_cast<const uint32_t*>(xs + row * kXRow + col + 8);
-          a[3] = *reinterpret_cast<const uint32_t*>(xs + (row + 8) * kXRow +
-                                                    col + 8);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) a[r] = pack_bf16(xk[r][p], xk1[r][p]);
 #pragma unroll
           for (int j = 0; j < 4; ++j) mma_bf16(part[i][j], a, b[j]);
         }
@@ -322,7 +801,7 @@ __global__ void __launch_bounds__(kThreads)
           const int row = m0 + 16 * i + g + (e >= 2 ? 8 : 0);
           const int col = col_base + j + (e & 1 ? 4 : 0);
           if (row < T && col < N)
-            store(acc[i][j][e] * scale[col], out + (size_t)row * N + col);
+            out[(size_t)row * N + col] = acc[i][j][e] * scale[col];
         }
     return;
   }
@@ -357,62 +836,136 @@ __global__ void __launch_bounds__(kThreads)
     float sum = 0.f;
     for (int s = 0; s < splits; ++s)
       sum += __ldcg(part + ((size_t)s * T + row) * N + col);
-    store(sum * scale[col], out + (size_t)row * N + col);
+    out[(size_t)row * N + col] = sum * scale[col];
   }
 }
 
-template <typename TX, int MT>
-cudaError_t launch(const void* x, const void* w, const void* scale, void* out,
-                   void* part, void* counters, int T, int K, int N,
-                   int splits, int tiles_per_split, int x_vec, int w_vec,
-                   cudaStream_t stream) {
-  using TL = Tile<TX, MT>;
+// Dynamic shared memory above 48 KB must be allowed once per kernel
+// before its first launch or occupancy query.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, bool* done) {
+  if (*done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) *done = true;
+  return e;
+}
+
+template <int MT>
+cudaError_t sk_launch(const void* x, const void* w, const void* scale,
+                      void* out, void* part, void* counters, int T, int K,
+                      int N, int m_tiles, int grid, int x_vec, int w_vec,
+                      int o_vec, int* occupancy, cudaStream_t stream) {
+  using TL = Tile<__nv_bfloat16, MT, kSkStages>;
   static bool smem_set = false;  // once per process (one card)
-  if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        quant_matmul_kernel<TX, MT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, TL::kSmem);
-    if (e != cudaSuccess) return e;
-    smem_set = true;
+  const cudaError_t e =
+      allow_smem(quant_matmul_sk_kernel<MT>, TL::kSmem, &smem_set);
+  if (e != cudaSuccess) return e;
+  if (occupancy != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        occupancy, quant_matmul_sk_kernel<MT>, kThreads, TL::kSmem);
+  const int n_tiles = (N + kBN - 1) / kBN, k_tiles = (K + kBK - 1) / kBK;
+  quant_matmul_sk_kernel<MT><<<grid, kThreads, TL::kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(part), static_cast<int*>(counters), T, K, N,
+      n_tiles, k_tiles, m_tiles * n_tiles * k_tiles, x_vec, w_vec, o_vec);
+  return cudaGetLastError();
+}
+
+cudaError_t sk_dispatch(int mt, const void* x, const void* w,
+                        const void* scale, void* out, void* part,
+                        void* counters, int T, int K, int N, int m_tiles,
+                        int grid, int x_vec, int w_vec, int o_vec,
+                        int* occupancy, cudaStream_t stream) {
+  switch (mt) {
+    case 1:
+      return sk_launch<1>(x, w, scale, out, part, counters, T, K, N, m_tiles,
+                          grid, x_vec, w_vec, o_vec, occupancy, stream);
+    case 2:
+      return sk_launch<2>(x, w, scale, out, part, counters, T, K, N, m_tiles,
+                          grid, x_vec, w_vec, o_vec, occupancy, stream);
+    case 3:
+      return sk_launch<3>(x, w, scale, out, part, counters, T, K, N, m_tiles,
+                          grid, x_vec, w_vec, o_vec, occupancy, stream);
+    case 4:
+      return sk_launch<4>(x, w, scale, out, part, counters, T, K, N, m_tiles,
+                          grid, x_vec, w_vec, o_vec, occupancy, stream);
+    case 5:
+      return sk_launch<5>(x, w, scale, out, part, counters, T, K, N, m_tiles,
+                          grid, x_vec, w_vec, o_vec, occupancy, stream);
   }
+  return cudaErrorInvalidValue;
+}
+
+template <int MT>
+cudaError_t f32_launch(const void* x, const void* w, const void* scale,
+                       void* out, void* part, void* counters, int T, int K,
+                       int N, int splits, int tiles_per_split, int x_vec,
+                       int w_vec, cudaStream_t stream) {
+  using TL = Tile<float, MT, 4>;
+  static bool smem_set = false;  // once per process (one card)
+  const cudaError_t e =
+      allow_smem(quant_matmul_f32_kernel<MT>, TL::kSmem, &smem_set);
+  if (e != cudaSuccess) return e;
   const dim3 grid((N + kBN - 1) / kBN, (T + TL::kBT - 1) / TL::kBT, splits);
-  quant_matmul_kernel<TX, MT><<<grid, kThreads, TL::kSmem, stream>>>(
-      static_cast<const TX*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<TX*>(out),
+  quant_matmul_f32_kernel<MT><<<grid, kThreads, TL::kSmem, stream>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(scale), static_cast<float*>(out),
       static_cast<float*>(part), static_cast<int*>(counters), T, K, N,
       tiles_per_split, x_vec, w_vec);
   return cudaGetLastError();
 }
 
-template <typename TX>
-cudaError_t dispatch_mt(int mt, const void* x, const void* w,
-                        const void* scale, void* out, void* part,
-                        void* counters, int T, int K, int N, int splits,
-                        int tiles_per_split, int x_vec, int w_vec,
-                        cudaStream_t stream) {
-  if (mt == 1)
-    return launch<TX, 1>(x, w, scale, out, part, counters, T, K, N, splits,
-                         tiles_per_split, x_vec, w_vec, stream);
-  if (mt == 4)
-    return launch<TX, 4>(x, w, scale, out, part, counters, T, K, N, splits,
-                         tiles_per_split, x_vec, w_vec, stream);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// Plain C entry for ctypes. Every pointer is a device pointer of a
-// contiguous tensor; `stream` is the caller's cudaStream_t. `mt` is 1
-// (T <= 16) or 4 row fragments of 16 per block. With splits > 1, `part`
-// holds splits * T * N floats and `counters` one zeroed int per output tile
-// (m_tiles * n_tiles), which the launch leaves zeroed again. The k tiles
-// (64 deep) are dealt `tiles_per_split` to a split, and every split gets at
-// least one. Returns the launch's cudaGetLastError() (0 on success).
-extern "C" int areal_quant_matmul(const void* x, const void* w,
-                                  const void* scale, void* out, void* part,
-                                  void* counters, int T, int K, int N, int mt,
-                                  int splits, int tiles_per_split, int x_vec,
-                                  int w_vec, int is_bf16, void* stream) {
+// Plain C entries for ctypes. Every pointer is a device pointer of a
+// contiguous tensor; `stream` is the caller's cudaStream_t. Each returns
+// the launch's cudaGetLastError() (0 on success).
+
+// bf16 x. `mt` (1..5) row fragments of 16 per row tile, `m_tiles` row tiles
+// (m_tiles * 16 * mt >= T), `grid` blocks (1..units, units = m_tiles * n_tiles * k_tiles of 128
+// columns and 64 rows of K). `part` holds grid * 2 * 16 mt * 128 floats and
+// `counters` one zeroed int per (row tile, n tile), which the launch leaves
+// zeroed again. `o_vec`: N % 8 == 0 and out and scale 16-byte aligned.
+extern "C" int areal_quant_matmul_bf16(const void* x, const void* w,
+                                       const void* scale, void* out,
+                                       void* part, void* counters, int T,
+                                       int K, int N, int mt, int m_tiles,
+                                       int grid, int x_vec, int w_vec,
+                                       int o_vec, void* stream) {
+  const long long units = (long long)m_tiles * ((N + kBN - 1) / kBN) *
+                          ((K + kBK - 1) / kBK);
+  if (T <= 0 || K <= 0 || N <= 0 || mt < 1 || mt > kMaxMT || m_tiles < 1 ||
+      (long long)m_tiles * 16 * mt < T ||
+      (long long)(m_tiles - 1) * 16 * mt >= T || units > (1ll << 30) ||
+      grid < 1 || grid > units || part == nullptr || counters == nullptr)
+    return cudaErrorInvalidValue;
+  return sk_dispatch(mt, x, w, scale, out, part, counters, T, K, N, m_tiles,
+                     grid, x_vec, w_vec, o_vec, nullptr,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of the bf16 kernel at `mt` row fragments one SM holds at once,
+// into *blocks (the occupancy API, after allowing the kernel its shared
+// memory).
+extern "C" int areal_quant_matmul_bf16_occupancy(int mt, int* blocks) {
+  if (blocks == nullptr) return cudaErrorInvalidValue;
+  return sk_dispatch(mt, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                     0, 0, 0, 0, 0, 0, 0, 0, blocks, nullptr);
+}
+
+// f32 x, the first version. `mt` is 1 (T <= 16) or 4 row fragments of 16
+// per block. With splits > 1, `part` holds splits * T * N floats and
+// `counters` one zeroed int per output tile (m_tiles * n_tiles), which the
+// launch leaves zeroed again. The k tiles (64 deep) are dealt
+// `tiles_per_split` to a split, and every split gets at least one.
+extern "C" int areal_quant_matmul_f32(const void* x, const void* w,
+                                      const void* scale, void* out,
+                                      void* part, void* counters, int T,
+                                      int K, int N, int mt, int splits,
+                                      int tiles_per_split, int x_vec,
+                                      int w_vec, void* stream) {
   const int k_tiles = (K + kBK - 1) / kBK;
   if (T <= 0 || K <= 0 || N <= 0 || splits < 1 || splits > 65535 ||
       tiles_per_split < 1 || (long long)splits * tiles_per_split < k_tiles ||
@@ -421,12 +974,13 @@ extern "C" int areal_quant_matmul(const void* x, const void* w,
       (splits > 1 && (part == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch_mt<__nv_bfloat16>(mt, x, w, scale, out, part, counters, T,
-                                      K, N, splits, tiles_per_split, x_vec,
-                                      w_vec, s);
-  return dispatch_mt<float>(mt, x, w, scale, out, part, counters, T, K, N,
-                            splits, tiles_per_split, x_vec, w_vec, s);
+  if (mt == 1)
+    return f32_launch<1>(x, w, scale, out, part, counters, T, K, N, splits,
+                         tiles_per_split, x_vec, w_vec, s);
+  if (mt == 4)
+    return f32_launch<4>(x, w, scale, out, part, counters, T, K, N, splits,
+                         tiles_per_split, x_vec, w_vec, s);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* areal_quant_matmul_error_string(int err) {

@@ -33,11 +33,25 @@ kernels the same way.
 
 times bf16 K3 and K5a on the device alone over table widths and pages per
 split, beside the split rule's choice.
+
+    python3 chip_smoke.py --qmm-times
+
+times only K6 (device ms per layer and per product at T 16, 80 and 1024,
+and the wrapper's host ms per call) on random Qwen2.5-7B int8 weights. It
+calls nothing but `quant_matmul`, so a copy of this script at the root of
+another tree times that tree's kernel.
+
+    python3 chip_smoke.py --qmm-sweep
+
+times the bf16 K6 kernel at Qwen2.5-7B's four (K, N) shapes at T 16 and 80
+over resident blocks per SM and pipeline depths (2 and 8 from copies of
+its source built with another `QMM_STAGES`), beside the default plan.
 """
 
 from __future__ import annotations
 
 import asyncio
+import ctypes
 import dataclasses
 import json
 import math
@@ -195,9 +209,16 @@ def _ptxas_summary(log: str) -> list[str]:
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"\d((?:flash|paged|quant)_[a-z0-9_]+?kernel)I(f|13__nv_bfloat16)?Li(\d+)E", line)
+            m = re.search(r"\d((?:flash|paged|quant)_[a-z0-9_]+?kernel)I(f|13__nv_bfloat16)?Li(\d+)E"
+                          r"(?:Li(\d+)E)?", line)
             dtype = "f32" if m and m.group(2) == "f" else "bf16"
-            name = f"{m.group(1)}<{dtype},{m.group(3)}>" if m else line.split("'")[1]
+            if m and m.group(1).startswith("quant_matmul"):
+                # K6: <row fragments>
+                name = f"{m.group(1)}<{m.group(3)}>"
+            elif m:
+                name = f"{m.group(1)}<{dtype},{m.group(3)}>"
+            else:
+                name = line.split("'")[1]
         elif "spill stores" in line and name:
             spill = re.findall(r"(\d+) bytes spill", line)
         elif "Used" in line and name:
@@ -210,9 +231,10 @@ def _ptxas_summary(log: str) -> list[str]:
 def phase_build() -> None:
     """Every source, one nvcc each, started together; each kernel's
     registers and spills from ptxas (K2a, K3, K5a, K4 and K5b on the tensor
-    cores must not spill at hd 128), and the dynamic shared memory of the
-    flash, int8-matmul and bf16 paged kernels' blocks as their launches
-    size it."""
+    cores must not spill at hd 128, nor K6's bf16 route at any row-tile
+    size), K6's bf16 occupancy (blocks per SM) at each row-tile size, and
+    the dynamic shared memory of the flash, int8-matmul and bf16 paged
+    kernels' blocks as their launches size it."""
     t0 = time.perf_counter()
     built = _build.build_all()
     wall_s = time.perf_counter() - t0
@@ -235,12 +257,21 @@ def phase_build() -> None:
         check(any(line.startswith(f"{kern}<bf16,128>:") and line.endswith("spills 0/0 bytes")
                   for line in found), f"{kern} spills at hd 128: {found}")
         paged_ptxas[kern] = found
+    # K6's bf16 route at every row-tile size (the main path launches all
+    # five: decode 1, verify 2-5, prefill 4-5)
+    k6 = [line for r in rows for line in r["ptxas"] if line.startswith("quant_matmul_")]
+    k6_mts = range(1, qm.MAX_ROWS // 16 + 1)
+    for mt in k6_mts:
+        check(any(line.startswith(f"quant_matmul_sk_kernel<{mt}>:") and
+                  line.endswith("spills 0/0 bytes") for line in k6),
+              f"K6 <{mt}> missing or spills: {k6}")
+    k6_occupancy = {mt: qm.occupancy(torch.device("cuda", 0), mt) for mt in k6_mts}
     # ptxas reports static shared memory only; the kernels size theirs per launch
     smem = {f"{str(dt).split('.')[-1]}_hd{hd}": fa.smem_bytes(8192, hd, dt)
             for dt in (torch.bfloat16, torch.float32) for hd in (16, 64, 128)}
-    # quant_matmul: 4 stages of a 64 x 144-byte int8 tile and a 16 mt x 72 x tile
-    qmm = {f"{dt}_mt{mt}": 4 * (64 * 144 + 16 * mt * 72 * size)
-           for dt, size in (("bf16", 2), ("f32", 4)) for mt in (1, 4)}
+    # quant_matmul: stages of a 64 x 144-byte int8 tile and a 16 mt x 72 x tile
+    qmm = {f"bf16_mt{mt}": qm.STAGES * (64 * 144 + 16 * mt * 72 * 2) for mt in k6_mts}
+    qmm.update({f"f32_mt{mt}": 4 * (64 * 144 + 16 * mt * 72 * 4) for mt in (1, 4)})
     # K4/K5b (bf16 q): q rows, K/V tiles (K5b: int8 tiles and scales beside
     # them), per-row masks and offsets of a split; page 128
     verify = {f"{'K5b' if quant else 'K4'}_W{W}_group{g}_hd{hd}_pages{pps}":
@@ -254,6 +285,7 @@ def phase_build() -> None:
               pa.split_smem_bytes(0, 7, hd, 128, pps, quant)
               for quant in (False, True) for hd, pps in ((128, 1), (128, 2), (128, 10), (64, 1))}
     emit("build", kernels=rows, wall_s=wall_s, k2a_ptxas=k2a, paged_ptxas=paged_ptxas,
+         k6_ptxas=k6, k6_occupancy=k6_occupancy,
          shared_memory=dict(paged_attention_f32="dynamic, sized per launch",
                             paged_attention_bf16=decode, paged_verify_bf16=verify,
                             flash_attention_T8192=smem, quant_matmul=qmm))
@@ -588,7 +620,11 @@ Q8_CASES = [
 # ones: K and N off the 64/128 tiles (element loads), and N a multiple of
 # 16 but not of 128 with K not of 64 (16-byte loads, masked tiles)
 QMM_SHAPES = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584), (3037, 777), (1000, 3536)]
-QMM_T = (1, 16, 700)  # one slot, a decode batch, a ragged prefill bucket
+# one slot, a decode batch, the verify batches of 16 slots at W 2 and 3,
+# the smallest prefill bucket, the verify batch at W 5, a ragged prefill
+# bucket: the bf16 kernel at every row-tile size (row fragments 1, 1, 2,
+# 3, 4, 5, 5)
+QMM_T = (1, 16, 32, 48, 64, 80, 700)
 # (a, rtol): an element passes when |out - ref| <= a * max|ref| + rtol * |ref|,
 # ref the plain version in f32 (`q * scale` first, then the f32 product).
 # The kernel's products are exact (int8 is exact in bf16; f32 x is split
@@ -605,6 +641,25 @@ def _int8_pool(pool):
     return q, sc.transpose(1, 2).contiguous()
 
 
+def _dropped_segment_ratio(x, wq, ws, out, ref, p, a: float, rtol: float):
+    """The bf16 K6 planted fault: the plain version without the middle
+    segment of the tile cut into the most segments under plan `p`, read
+    against the kernel's output (None when no tile is cut)."""
+    n_seg = [len(qm.tile_segments(p, t)) for t in range(p.m_tiles * p.n_tiles)]
+    tile = max(range(len(n_seg)), key=n_seg.__getitem__)
+    if n_seg[tile] == 1:
+        return None
+    _, _, lo, hi = qm.tile_segments(p, tile)[n_seg[tile] // 2]
+    mi, ni = divmod(tile, p.n_tiles)
+    rows = slice(16 * p.mt * mi, 16 * p.mt * (mi + 1))
+    cols = slice(qm.TILE_N * ni, qm.TILE_N * (ni + 1))
+    ks = slice((lo % p.k_tiles) * qm.TILE_K, (hi % p.k_tiles + 1) * qm.TILE_K)
+    ref_fault = ref.clone()
+    ref_fault[rows, cols] -= qm.quant_matmul_ref(
+        x[rows, ks].contiguous(), wq[ks, cols].contiguous(), ws[cols].contiguous(), torch.float32)
+    return _scaled_ratio(out, ref_fault, a, rtol)
+
+
 def phase_quant_kernel(dev: torch.device) -> dict:
     """K5a against its plain version with the attention in f32 (the plain
     bf16 path rounds the dequantized K/V to bf16, which the kernel does
@@ -613,9 +668,11 @@ def phase_quant_kernel(dev: torch.device) -> dict:
     fault: the plain version with the scales of the
     first page of every multi-page slot ignored (read as 1). K6 against
     `_quant_matmul_xla`'s arithmetic at Qwen2.5-7B's four (K, N) shapes
-    and two ragged ones, for T 1, 16 and 700, bf16 and f32 x. The planted
-    fault: the plain version without the last 64-deep K tile. Each fault
-    must read above its tolerance."""
+    and two ragged ones, for every `QMM_T`, bf16 and f32 x, each launched
+    twice (the two outputs must be equal bit for bit). The planted faults:
+    the plain version without the last 64-deep K tile, and for bf16 x
+    without one segment of a tile cut between blocks. Each fault must
+    read above its tolerance."""
     rows, worst = [], dict(paged_attention_q8=0.0, quant_matmul=0.0)
     for i, case in enumerate(Q8_CASES):
         for dtype in (torch.float32, torch.bfloat16):
@@ -662,6 +719,7 @@ def phase_quant_kernel(dev: torch.device) -> dict:
             for dtype in (torch.float32, torch.bfloat16):
                 x = torch.randn((T, K), generator=gen, device=dev).to(dtype)
                 out = qm.quant_matmul(x, wq, ws)
+                again = qm.quant_matmul(x, wq, ws)
                 torch.cuda.synchronize()
                 ref = qm.quant_matmul_ref(x, wq, ws, torch.float32)
                 ref_fault = qm.quant_matmul_ref(x, wq_fault, ws, torch.float32)
@@ -669,16 +727,27 @@ def phase_quant_kernel(dev: torch.device) -> dict:
                 err = (out.float() - ref).abs().max().item()
                 ratio = _scaled_ratio(out, ref, a, rtol)
                 fault_ratio = _scaled_ratio(out, ref_fault, a, rtol)
-                mt, splits, _ = qm.plan(T, K, N, qm._n_sms(dev))
                 name = f"K6 T {T} K {K} N {N} {str(dtype).split('.')[-1]}"
-                rows.append(dict(kernel="quant_matmul", T=T, K=K, N=N,
-                                 dtype=str(dtype).split(".")[-1], mt=mt, splits=splits,
-                                 max_abs_err=err, a=a, rtol=rtol, tol_ratio=ratio,
-                                 planted_fault_tol_ratio=fault_ratio))
+                row = dict(kernel="quant_matmul", T=T, K=K, N=N, dtype=str(dtype).split(".")[-1],
+                           max_abs_err=err, a=a, rtol=rtol, tol_ratio=ratio,
+                           planted_fault_tol_ratio=fault_ratio,
+                           bit_equal_relaunch=torch.equal(_bits(out), _bits(again)))
+                if dtype == torch.bfloat16:
+                    p = qm._plan_on(dev, T, K, N)
+                    row.update(mt=p.mt, m_tiles=p.m_tiles, grid=p.grid, units=p.units)
+                    seg_ratio = _dropped_segment_ratio(x, wq, ws, out, ref, p, a, rtol)
+                    row["dropped_segment_tol_ratio"] = seg_ratio
+                    check(seg_ratio is None or seg_ratio > 1.0,
+                          f"{name}: a dropped segment of a cut tile passes the tolerance")
+                else:
+                    row.update(zip(("mt", "splits", "tiles_per_split"),
+                                   qm.plan_f32(T, K, N, qm._n_sms(dev))))
+                rows.append(row)
                 check(out.shape == (T, N) and out.dtype == dtype, f"{name}: shape or dtype")
                 check(math.isfinite(ratio) and ratio <= 1.0,
                       f"{name}: {ratio} x the tolerance (max abs err {err})")
                 check(fault_ratio > 1.0, f"{name}: a dropped K tile passes the tolerance")
+                check(row["bit_equal_relaunch"], f"{name}: two launches differ")
                 worst["quant_matmul"] = max(worst["quant_matmul"], err)
         del wq, ws, wq_fault
     torch.cuda.empty_cache()
@@ -1907,94 +1976,211 @@ def phase_noise_line(dev: torch.device) -> dict:
 
 QMM_NAMES = ("attn/q_kernel", "attn/k_kernel", "attn/v_kernel", "attn/o_kernel",
              "mlp/gate_kernel", "mlp/up_kernel", "mlp/down_kernel")
+QMM_LINE_T = (16, 80, 1024)  # a decode step, the verify batch, a prefill bucket
 
+
+def _qmm_layer_times(w: list, xs: dict, T: int, by_shape: bool = True) -> dict:
+    """K6 at T rows on one layer's 7 products (`QMM_NAMES`), rotating over
+    the layers of `w` ([{name: (q [K, N], scale [N])}]) so the weights come
+    from HBM: device ms per layer, the wrapper's host ms per call while
+    the calls are queued, and (`by_shape`) device ms per product. Calls
+    nothing but `quant_matmul`, so it times another tree's kernel as well."""
+    L = len(w)
+    iters = 50 if T <= 80 else 10
+
+    def layer(i):
+        for n in QMM_NAMES:
+            qm.quant_matmul(xs[n][T], *w[i % L][n])
+
+    ms, host_ms = _time_device_and_host(layer, iters)
+    res = dict(ms=ms, host_ms_per_call=host_ms / len(QMM_NAMES))
+    if by_shape:
+        res["by_shape"] = {n: _time_device(
+            lambda i, n=n: qm.quant_matmul(xs[n][T], *w[i % L][n]), iters) for n in QMM_NAMES}
+    return res
+
+
+def _qmm_inputs(w0: dict, dev, ts=QMM_LINE_T) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    return {n: {T: torch.randn((T, q.shape[0]), generator=gen, device=dev).to(torch.bfloat16)
+                for T in ts} for n, (q, _) in w0.items()}
+
+
+def _qmm_bound(w0: dict, T: int) -> tuple[float, str]:
+    """Least ms for one layer's 7 products at T rows: each weight byte, scale,
+    x and output element moved once, or 2 T K N operations at the bf16 peak."""
+    nbytes = ops = 0
+    for q, _ in w0.values():
+        K, N = q.shape
+        nbytes += K * N + 4 * N + 2 * T * K + 2 * T * N
+        ops += 2 * T * K * N
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def phase_qmm_line(engine, cfg, launches: int, max_err: float) -> dict:
     """K6 timings at the main path's shapes: the 7 dense matmuls of one
-    layer (q, k, v, o, gate, up, down) on a decode step's T 16, the unit of
-    `ms`, rotating over 4 layers of the int8 engine's weights so they come
-    from HBM (each layer's 233 MB exceeds the 50 MB L2); the same at a
-    prefill bucket of 1024 tokens. A call runs for less time than the host
+    layer (q, k, v, o, gate, up, down) at T 16 (a decode step: the unit of
+    `ms`), 80 (the verify batch) and 1024 (a prefill bucket), rotating over
+    the int8 engine's layers so the weights come from HBM (each layer's
+    233 MB exceeds the 50 MB L2); device ms per layer and per product, and
+    the wrapper's host ms per call. A call runs for less time than the host
     takes to launch it, so the times are the device's alone
-    (`_time_device`); `host_bound_ms` is the same work timed as the other
+    (`_time_device`); `host_bound_ms` is the T 16 layer timed as the other
     kernels are, which the host's launch rate sets. The plain version and
     the library yardstick, the bf16 cuBLAS matmul on the weights
-    pre-dequantized to bf16 (what the fp engine runs), take the same 7
-    products. `torch._weight_int8pack_mm` (int8 weights, a scale per
-    column) is timed too where this torch has it for CUDA (as launched,
+    pre-dequantized to bf16 (what the fp engine runs, over 4 layers), take
+    the same 7 products. `torch._weight_int8pack_mm` (int8 weights, a scale
+    per column) is timed too where this torch has it for CUDA (as launched,
     since it synchronizes). No yardstick is called by the port."""
     dev = engine.device
-    layers = min(4, cfg.num_hidden_layers)
-    lps = engine._layers[:layers]
-    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
-    xs = {}
-    for name in QMM_NAMES:
-        qt = lps[0][name + "/q"]
-        K = math.prod(qt.shape[: 2 if name.endswith("o_kernel") else 1])
-        xs[name] = {T: torch.randn((T, K), generator=gen, device=dev).to(torch.bfloat16)
-                    for T in (16, 1024)}
 
     def weights(lp, name):
         qt, st = lp[name + "/q"], lp[name + "/scale"]
-        K = xs[name][16].shape[1]
+        K = math.prod(qt.shape[: 2 if name.endswith("o_kernel") else 1])
         return qt.reshape(K, -1), st.reshape(-1)
 
-    w = [{n: weights(lp, n) for n in QMM_NAMES} for lp in lps]
-
-    def layer_calls(fn, T):
-        def run(i):
-            for n in QMM_NAMES:
-                fn(xs[n][T], *w[i % layers][n])
-        return run
-
+    w = [{n: weights(lp, n) for n in QMM_NAMES} for lp in engine._layers]
+    xs = _qmm_inputs(w[0], dev)
     calls = qm.launches
-    ms = _time_device(layer_calls(qm.quant_matmul, 16), 50)
-    host_ms = _time(layer_calls(qm.quant_matmul, 16), 50)
-    prefill_ms = _time_device(layer_calls(qm.quant_matmul, 1024), 10)
+    times = {T: _qmm_layer_times(w, xs, T) for T in QMM_LINE_T}
+    host_ms = _time(lambda i: [qm.quant_matmul(xs[n][16], *w[i % len(w)][n]) for n in QMM_NAMES], 50)
     check(qm.launches > calls, "timing did not launch the kernel")
     plain_ms = _time_device(
-        layer_calls(lambda x, q, s: qm.quant_matmul_ref(x, q, s, x.dtype), 16), 10)
-    by_shape = {}
-    for n in QMM_NAMES:
-        K, N = w[0][n][0].shape
-        by_shape[n] = dict(K=K, N=N, ms=_time_device(
-            lambda i, n=n: qm.quant_matmul(xs[n][16], *w[i % layers][n]), 50))
+        lambda i: [qm.quant_matmul_ref(xs[n][16], *w[i % 4][n], torch.bfloat16) for n in QMM_NAMES],
+        10)
     # library yardsticks, on weights dequantized ahead of time (not timed)
-    wd = [{n: (q.float() * s[None, :]).to(torch.bfloat16) for n, (q, s) in lw.items()} for lw in w]
-    library_ms = _time_device(lambda i: [xs[n][16] @ wd[i % layers][n] for n in QMM_NAMES], 50)
+    wd = [{n: (q.float() * s[None, :]).to(torch.bfloat16) for n, (q, s) in lw.items()}
+          for lw in w[:4]]
+    library = {T: _time_device(lambda i, T=T: [xs[n][T] @ wd[i % 4][n] for n in QMM_NAMES],
+                               50 if T <= 80 else 10) for T in QMM_LINE_T}
     int8pack = None
     if torch._C._dispatch_has_kernel_for_dispatch_key("aten::_weight_int8pack_mm", "CUDA"):
         wt = [{n: (q.t().contiguous(), s.to(torch.bfloat16)) for n, (q, s) in lw.items()}
-              for lw in w]
+              for lw in w[:4]]
         # timed as launched: the call synchronizes, so it cannot be queued
-        int8pack = _time(lambda i: [torch._weight_int8pack_mm(xs[n][16], *wt[i % layers][n])
+        int8pack = _time(lambda i: [torch._weight_int8pack_mm(xs[n][16], *wt[i % 4][n])
                                     for n in QMM_NAMES], 20)
         del wt
     del wd
-    nbytes = ops = 0
-    for n in QMM_NAMES:
-        K, N = w[0][n][0].shape
-        nbytes += K * N + 4 * N + 2 * 16 * K + 2 * 16 * N
-        ops += 2 * 16 * K * N
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / BF16_FLOPS * 1e3
-    prefill_tflops = sum(2 * 1024 * w[0][n][0].numel() for n in QMM_NAMES) / (prefill_ms * 1e9)
+    bounds = {T: _qmm_bound(w[0], T) for T in QMM_LINE_T}
+    ops_1024 = sum(2 * 1024 * q.numel() for q, _ in w[0].values())
     return dict(
         name="quant_matmul", route="cuda", source=QMM_SOURCE, replaces=QMM_REPLACES,
         launches=launches, max_abs_err=max_err, max_err=max_err,
         unit="the 7 dense matmuls of one layer (q, k, v, o, gate, up, down), T 16",
         timing="device only: the calls queued behind a sleep kernel (_time_device)",
-        ms=ms, host_bound_ms=host_ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=library_ms,
+        ms=times[16]["ms"], host_bound_ms=host_ms, plain_ms=plain_ms, bound_ms=bounds[16][0],
+        bound_by=bounds[16][1], library_ms=library[16],
         library_call="torch.matmul, bf16 x on the weights pre-dequantized to bf16 (cuBLAS)",
         library_int8pack_ms=int8pack,
-        by_shape_T16=by_shape, prefill_T1024_ms=prefill_ms,
-        prefill_T1024_tflops=prefill_tflops,
+        by_T={T: dict(times[T], bound_ms=bounds[T][0], bound_by=bounds[T][1],
+                      library_ms=library[T]) for T in QMM_LINE_T},
+        prefill_T1024_tflops=ops_1024 / (times[1024]["ms"] * 1e9),
+        plans={T: {n: qm._plan_on(dev, T, *w[0][n][0].shape)._asdict() for n in QMM_NAMES}
+               for T in QMM_LINE_T},
+        occupancy={mt: qm.occupancy(dev, mt) for mt in range(1, qm.MAX_ROWS // 16 + 1)},
         shape=dict(T=16, dtype="bfloat16", weights="int8 + f32 scale per column",
-                   bytes=nbytes),
+                   layers_rotated=len(w)),
     )
+
+
+def _qwen7b_int8_layers(dev, n: int) -> list:
+    """`n` layers of Qwen2.5-7B's 7 dense products as random int8 weights
+    and f32 scales ([K, N], [N]) from SEED."""
+    cfg = QWEN25_7B
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    kv = cfg.num_key_value_heads * (H // cfg.num_attention_heads)
+    shapes = dict(zip(QMM_NAMES, [(H, H), (H, kv), (H, kv), (H, H), (H, I), (H, I), (I, H)]))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return [{name: (torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8),
+                    torch.rand(N, generator=gen, device=dev) * 1e-2 + 1e-3)
+             for name, (K, N) in shapes.items()} for _ in range(n)]
+
+
+def qmm_times_only() -> int:
+    """`--qmm-times`: K6 device ms per layer and per product at T 16, 80
+    and 1024, and the wrapper's host ms per call, on 28 layers of random
+    Qwen2.5-7B int8 weights. It calls only `quant_matmul`, so the same
+    script times another tree's kernel when it is run from that tree's
+    root."""
+    dev, smi = phase_device()
+    w = _qwen7b_int8_layers(dev, QWEN25_7B.num_hidden_layers)
+    xs = _qmm_inputs(w[0], dev)
+    qm.quant_matmul(xs[QMM_NAMES[0]][16], *w[0][QMM_NAMES[0]])  # build and load first
+    emit("qmm_times", **{f"T{T}": _qmm_layer_times(w, xs, T) for T in QMM_LINE_T},
+         bound_ms={f"T{T}": _qmm_bound(w[0], T)[0] for T in QMM_LINE_T})
+    print(smi, flush=True)
+    return 0
+
+
+K6_VARIANTS = Path(__file__).resolve().parent / "build" / "k6_variants"
+
+
+def k6_variants(defines: dict[str, tuple[str, ...]]) -> dict[str, ctypes.CDLL]:
+    """Copies of K6's library built from its source with other macros
+    (`defines[tag]`, each passed as -D): a sweep's pipeline depths, the load
+    diagnostic's reduced kernels. One nvcc each, all started together, into
+    build/k6_variants/; bound as the wrapper binds its own."""
+    K6_VARIANTS.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for tag, macros in defines.items():
+        so = K6_VARIANTS / f"libquant_matmul_{tag}.so"
+        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, *(f"-D{m}" for m in macros), "-o", str(so),
+               str(_build.SOURCES["quant_matmul"])]
+        procs[tag] = so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True)
+    libs = {}
+    for tag, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed for K6 variant {tag}:\n{log}")
+        libs[tag] = qm.bind(ctypes.CDLL(str(so)))
+    return libs
+
+
+def qmm_sweep_only() -> int:
+    """`--qmm-sweep`: device ms of the bf16 K6 kernel at Qwen2.5-7B's four
+    (K, N) shapes at T 16 and 80, for every resident blocks per SM up to the
+    occupancy and pipeline depths of 2, 4 (the wrapper's build) and 8
+    (copies built with `QMM_STAGES`), beside the default plan; weights
+    rotated over copies of 128 MB or more in all, so they come from HBM."""
+    dev, smi = phase_device()
+    libs = {qm.STAGES: qm._kernel_lib(),
+            **{int(t): lib for t, lib in k6_variants({"2": ("QMM_STAGES=2",),
+                                                      "8": ("QMM_STAGES=8",)}).items()}}
+    w = _qwen7b_int8_layers(dev, 1)[0]
+    n_sms = qm._n_sms(dev)
+    rows = []
+    for name in ("attn/q_kernel", "attn/k_kernel", "mlp/gate_kernel", "mlp/down_kernel"):
+        q, sc = w[name]
+        K, N = q.shape
+        copies = [(q, sc)] + [(q.clone(), sc.clone()) for _ in range(-(-(128 << 20) // q.numel()) - 1)]
+        for T in (16, 80):
+            x = torch.randn((T, K), device=dev).to(torch.bfloat16)
+            out = torch.empty((T, N), dtype=torch.bfloat16, device=dev)
+            mt = qm.row_tiles(T)[0]
+            ms = {}
+            for st, lib in sorted(libs.items()):
+                occ = ctypes.c_int(0)
+                qm._raise_on(lib.areal_quant_matmul_bf16_occupancy(mt, ctypes.byref(occ)))
+                for bps in range(1, occ.value + 1):
+                    p = qm.plan(T, K, N, bps * n_sms)
+                    # at least `st` units a block, as `plan` keeps STAGES
+                    p = p._replace(grid=max(1, min(bps * n_sms, p.units // st)))
+                    ms[f"stages{st}_bps{bps}"] = _time_device(
+                        lambda i, p=p, lib=lib: qm._launch_bf16(
+                            x, *copies[i % len(copies)], out, p, lib), 100)
+            best = min(ms, key=ms.get)
+            default = qm._plan_on(dev, T, K, N)
+            rows.append(dict(shape=name, K=K, N=N, T=T, copies=len(copies), ms_device=ms,
+                             fastest=best, default=dict(default._asdict(), ms=_time_device(
+                                 lambda i: qm._launch_bf16(x, *copies[i % len(copies)], out,
+                                                           default), 100))))
+        del copies
+        torch.cuda.empty_cache()
+    emit("qmm_sweep", n_sms=n_sms, rows=rows)
+    print(smi, flush=True)
+    return 0
 
 
 # phase: one colocated GRPO loop at Qwen2.5-1.5B
@@ -2606,5 +2792,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    modes = {"--paged-times": paged_times_only, "--decode-sweep": decode_sweep_only}
+    modes = {"--paged-times": paged_times_only, "--decode-sweep": decode_sweep_only,
+             "--qmm-times": qmm_times_only, "--qmm-sweep": qmm_sweep_only}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] else main())

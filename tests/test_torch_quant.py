@@ -211,14 +211,52 @@ def test_quant_matmul_argument_checks(mutate, err):
         qm._check(**args)
 
 
+def test_quant_matmul_scratch_per_stream(monkeypatch):
+    """The kernel's scratch (cut tiles' partials, tile counters) is kept
+    per (device, stream), grows and never shrinks, and refuses to grow
+    while a CUDA graph is captured (the graph's earlier launches would
+    point at freed memory)."""
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    bufs = {}
+    make = lambda n: torch.empty(n)  # noqa: E731
+    a = qm._grown(bufs, ("cuda:0", 1), 10, make)
+    assert a.numel() == 4096 and qm._grown(bufs, ("cuda:0", 1), 4096, make) is a
+    b = qm._grown(bufs, ("cuda:0", 2), 10, make)
+    assert b is not a and bufs[("cuda:0", 1)] is a
+    c = qm._grown(bufs, ("cuda:0", 1), 5000, make)
+    assert c.numel() == 5000 and bufs[("cuda:0", 1)] is c
+    assert qm._grown(bufs, ("cuda:0", 1), 100, make) is c
+    capturing[0] = True
+    assert qm._grown(bufs, ("cuda:0", 1), 5000, make) is c
+    qm._grown(bufs, ("cuda:0", 3), 10, make)  # a first buffer may be made
+    with pytest.raises(RuntimeError, match="capture"):
+        qm._grown(bufs, ("cuda:0", 1), 5001, make)
+
+
 @pytest.mark.parametrize("T", [1, 16, 17, 1024])
 @pytest.mark.parametrize("K,N", [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584), (100, 30)])
 def test_quant_matmul_plan_covers_k(T, K, N):
-    """Every launch plan deals each 64-deep k tile to exactly one split and
-    leaves no split empty; K is split only for grids of fewer than 4
-    blocks per SM."""
-    mt, splits, per = qm.plan(T, K, N, n_sms=132)
+    """The bf16 launch plan: one row tile up to 80 rows (each weight byte
+    read once), else the fewest of at most 80; the (row tile, n tile, k
+    tile) units dealt to min(units, resident) blocks, every unit to exactly
+    one block, none empty, the runs differing by at most one unit; each
+    tile's segments cover its 64-deep k tiles once, in order. The f32
+    route's first-version plan still deals each k tile to exactly one
+    split and splits K only for grids of fewer than 4 blocks per SM."""
+    resident = 4 * 132
+    p = qm.plan(T, K, N, resident)
     k_tiles = -(-K // qm.TILE_K)
+    assert (p.n_tiles, p.k_tiles) == (-(-N // qm.TILE_N), k_tiles)
+    assert p.m_tiles == -(-T // qm.MAX_ROWS) and 16 * p.mt * p.m_tiles >= T
+    assert p.grid == max(1, min(resident, p.units // qm.STAGES))
+    sizes = np.diff([qm.run_start(b, p.units, p.grid) for b in range(p.grid + 1)])
+    assert sizes.sum() == p.units and sizes.min() >= 1 and sizes.max() - sizes.min() <= 1
+    for tile in (0, p.m_tiles * p.n_tiles - 1):
+        segs = qm.tile_segments(p, tile)
+        covered = [u for _, _, lo, hi in segs for u in range(lo, hi + 1)]
+        assert covered == list(range(tile * k_tiles, (tile + 1) * k_tiles))
+    mt, splits, per = qm.plan_f32(T, K, N, n_sms=132)
     assert mt == (1 if T <= 16 else 4)
     assert splits * per >= k_tiles and (splits - 1) * per < k_tiles
     tiles = -(-N // qm.TILE_N) * -(-T // (16 * mt))
