@@ -1,16 +1,25 @@
-"""Configuration dataclasses (counterpart of `areal_tpu/api/cli_args.py`).
+"""Configuration dataclasses and the YAML + `key=value` loader
+(counterpart of `areal_tpu/api/cli_args.py`).
 
-Trimmed to the dataclasses the PyTorch serving and training slices read,
-under the same names and defaults as the JAX package, so a config that
-drives `JaxDecodeEngine` / `JaxPPOActor` drives `TorchDecodeEngine` /
-`TorchPPOActor` unchanged. A setting whose feature the port does not
-implement yet is refused with the ROADMAP item that ports it.
+Trimmed to the dataclasses the PyTorch serving and training slices and
+the GRPO entry point read, under the same names, key paths and defaults
+as the JAX package, so a config that drives `JaxDecodeEngine` /
+`JaxPPOActor` drives `TorchDecodeEngine` / `TorchPPOActor` unchanged; the
+decode engine's config sits under the same `decode` key. A setting whose
+feature the port does not implement yet is refused with the ROADMAP item
+that ports it; a key the port does not have raises at load.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import os
 from dataclasses import dataclass, field
+
+import yaml
+
+from areal_tpu_torch.utils import structured
 
 
 SPEC_DECODES = ("off", "ngram")
@@ -149,6 +158,7 @@ class PPOActorConfig(TrainEngineConfig):
 class GenerationHyperparameters:
     """Sampling hyperparameters (`areal_tpu/api/cli_args.py:82`)."""
 
+    n_samples: int = 1
     max_new_tokens: int = 16384
     min_new_tokens: int = 0
     greedy: bool = False
@@ -167,8 +177,18 @@ class GenerationHyperparameters:
 
 @dataclass
 class InferenceEngineConfig:
-    """Rollout-side engine config (`areal_tpu/api/cli_args.py:682`)."""
+    """Rollout-side engine config (`areal_tpu/api/cli_args.py:682`): the
+    fields `WorkflowExecutor` and the engines read. Capacity is counted in
+    episodes (one GRPO group each)."""
 
+    experiment_name: str | None = None
+    trial_name: str | None = None
+    max_concurrent_rollouts: None | int = None
+    queue_size: None | int = None
+    consumer_batch_size: int = 1
+    max_head_offpolicyness: int = 0
+    enable_rollout_tracing: bool = False
+    check_trajectory_format: bool = False
     # seconds `generate` waits for one request before raising TimeoutError
     request_timeout: float = 3600.0
 
@@ -259,3 +279,152 @@ class TorchDecodeConfig:
                     f"{name}={getattr(self, name)!r} is not in the PyTorch "
                     f"port yet: ROADMAP.md queue 1, {item}"
                 )
+
+
+@dataclass
+class _Timer:
+    experiment_name: str = ""
+    trial_name: str = ""
+    fileroot: str = ""
+    freq_epochs: int | None = None
+    freq_steps: int | None = None
+    freq_secs: int | None = None
+
+
+@dataclass
+class EvaluatorConfig(_Timer):
+    pass
+
+
+@dataclass
+class SaverConfig(_Timer):
+    pass
+
+
+@dataclass
+class RecoverConfig(_Timer):
+    """Step-level crash recovery (`utils/recover.py`). The port implements
+    `mode="disabled"`; the other modes are refused there."""
+
+    mode: str = "disabled"  # "disabled" | "auto" | "fault" | "resume"
+
+
+@dataclass
+class StatsLoggerConfig:
+    """Run-log location (`areal_tpu/api/cli_args.py:810`); the port logs
+    to the console only."""
+
+    experiment_name: str = ""
+    trial_name: str = ""
+    fileroot: str = ""
+
+
+@dataclass
+class ClusterSpecConfig:
+    fileroot: str = "/tmp/areal_tpu"
+
+
+@dataclass
+class DatasetConfig:
+    path: str = ""
+    type: str = ""
+    batch_size: int = 1
+    shuffle: bool = True
+    drop_last: bool = True
+    max_length: int | None = None
+
+
+@dataclass
+class BaseExperimentConfig:
+    """Root experiment config (`areal_tpu/api/cli_args.py:872`)."""
+
+    experiment_name: str = "experiment"
+    trial_name: str = "trial"
+    cluster: ClusterSpecConfig = field(default_factory=ClusterSpecConfig)
+    allocation_mode: str = ""
+    seed: int = 1
+    total_train_epochs: int = 1
+    total_train_steps: int | None = None
+    tokenizer_path: str = ""
+    train_dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    valid_dataset: DatasetConfig | None = None
+    saver: SaverConfig = field(default_factory=SaverConfig)
+    evaluator: EvaluatorConfig = field(default_factory=EvaluatorConfig)
+    stats_logger: StatsLoggerConfig = field(default_factory=StatsLoggerConfig)
+    recover: RecoverConfig = field(default_factory=RecoverConfig)
+    decode: TorchDecodeConfig = field(default_factory=TorchDecodeConfig)
+
+
+@dataclass
+class GRPOConfig(BaseExperimentConfig):
+    """GRPO experiment (`areal_tpu/api/cli_args.py:905`)."""
+
+    async_training: bool = True
+    gconfig: GenerationHyperparameters = field(
+        default_factory=GenerationHyperparameters
+    )
+    rollout: InferenceEngineConfig = field(default_factory=InferenceEngineConfig)
+    actor: PPOActorConfig = field(default_factory=PPOActorConfig)
+    ref: PPOActorConfig = field(default_factory=PPOActorConfig)
+    workflow: str = "rlvr"  # the port runs "rlvr"
+
+
+def parse_cli_args(argv: list[str]):
+    """Parse ``--config file.yaml key=value ...`` into (dict, overrides)."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", type=str, default=None, help="YAML config file")
+    args, overrides = parser.parse_known_args(argv)
+    cfg_dict = {}
+    if args.config is not None:
+        with open(args.config) as f:
+            cfg_dict = yaml.safe_load(f) or {}
+    kv = []
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"override {item!r} must be of the form key=value")
+        k, v = item.split("=", 1)
+        kv.append((k, v))
+    return cfg_dict, kv
+
+
+def load_expr_config(argv: list[str], config_cls):
+    """Load a structured experiment config from CLI argv: the YAML file,
+    then the `key=value` overrides; then the experiment and trial names
+    (and the cluster's file root) flow into the sub-configs that leave
+    them empty (JAX :953-996). Returns (config, the file's dict)."""
+    cfg_dict, overrides = parse_cli_args(argv)
+    config = structured.from_dict(config_cls, cfg_dict)
+    for k, v in overrides:
+        structured.apply_override(config, k, v)
+    for attr in ("saver", "evaluator", "stats_logger", "recover"):
+        sub = getattr(config, attr, None)
+        if sub is not None:
+            if not sub.experiment_name:
+                sub.experiment_name = config.experiment_name
+            if not sub.trial_name:
+                sub.trial_name = config.trial_name
+            if not sub.fileroot:
+                sub.fileroot = config.cluster.fileroot
+    sub = getattr(config, "rollout", None)
+    if sub is not None:
+        if sub.experiment_name is None:
+            sub.experiment_name = config.experiment_name
+        if sub.trial_name is None:
+            sub.trial_name = config.trial_name
+    for attr in ("actor", "ref"):
+        sub = getattr(config, attr, None)
+        if sub is not None:
+            if not sub.experiment_name:
+                sub.experiment_name = config.experiment_name
+            if not sub.trial_name:
+                sub.trial_name = config.trial_name
+    return config, cfg_dict
+
+
+def save_config(config, save_dir: str) -> str:
+    """Persist the resolved config as YAML in the run directory."""
+    os.makedirs(save_dir, exist_ok=True)
+    path = os.path.join(save_dir, "config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(structured.to_dict(config), f, sort_keys=False)
+    return path

@@ -2,9 +2,9 @@
 
 Only the methods the ported slices implement; method names match the JAX
 package's `TrainEngine` (:50) and `InferenceEngine` so callers port
-mechanically. The rollout-queue delegation (`submit` / `wait` /
-`prepare_batch`) comes with the `WorkflowExecutor` port (ROADMAP queue 1,
-item 3).
+mechanically. The rollout queue (`submit` / `wait` / `rollout_batch` /
+`prepare_batch`, `pause` / `resume`) is `TorchDecodeEngine`'s delegation
+to its `WorkflowExecutor` (ROADMAP queue 1, item 2a).
 """
 
 from __future__ import annotations

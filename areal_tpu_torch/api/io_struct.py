@@ -1,5 +1,5 @@
 """Request, response and training records (counterpart of
-`areal_tpu/api/io_struct.py:23, :47, :74, :106`)."""
+`areal_tpu/api/io_struct.py:23, :47, :74, :106, :173-202`)."""
 
 from __future__ import annotations
 
@@ -90,3 +90,36 @@ class WeightUpdateMeta:
     @classmethod
     def from_memory(cls, alloc_mode: Any = None) -> "WeightUpdateMeta":
         return cls(type="memory", alloc_mode=alloc_mode)
+
+
+@dataclass
+class SaveLoadMeta:
+    path: str
+    weight_format: str = "hf"
+    with_optim: bool = False
+    tokenizer: Any = None
+    base_model_path: str | None = None
+
+
+@dataclass
+class RolloutStat:
+    submitted: int = 0
+    accepted: int = 0
+    running: int = 0
+
+
+@dataclass
+class StepInfo:
+    epoch: int
+    epoch_step: int
+    global_step: int
+    steps_per_epoch: int
+
+    def next(self) -> "StepInfo":
+        last_in_epoch = self.epoch_step == self.steps_per_epoch - 1
+        return StepInfo(
+            epoch=self.epoch + last_in_epoch,
+            epoch_step=0 if last_in_epoch else self.epoch_step + 1,
+            global_step=self.global_step + 1,
+            steps_per_epoch=self.steps_per_epoch,
+        )

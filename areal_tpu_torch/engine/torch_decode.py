@@ -37,6 +37,13 @@ serving core).
   longest draft prefix sampling would have emitted anyway plus a bonus
   token; otherwise it is the normal chunk.
 
+- **Rollout queue.** The engine owns a `WorkflowExecutor` built from its
+  `inference_config` (staleness gate, sample ledger, async episodes) and
+  delegates `submit` / `wait` / `rollout_batch` / `prepare_batch`,
+  `pause` / `resume` (the executor's admission gate, not
+  `pause_generation`) and the ledger's checkpoint calls to it, as
+  `jax_decode.py:3814-3848` does; a new weight version reaches both.
+
 This slice schedules synchronously (dispatch a chunk, then consume it) and
 prefills every request in full: the JAX engine's run-ahead, prefix forks
 and host KV tier are later ROADMAP items (`TorchDecodeConfig.
@@ -67,6 +74,7 @@ from areal_tpu_torch.api.cli_args import (
 )
 from areal_tpu_torch.api.engine_api import InferenceEngine
 from areal_tpu_torch.api.io_struct import ModelRequest, ModelResponse
+from areal_tpu_torch.core.workflow_executor import WorkflowExecutor
 from areal_tpu_torch.engine.kv_pool import KVBlockAllocator, PoolDry
 from areal_tpu_torch.engine.sampling import sample, slot_base_key
 from areal_tpu_torch.models.convert import to_tensor
@@ -180,6 +188,7 @@ class TorchDecodeEngine(InferenceEngine):
         self.params: dict[str, torch.Tensor] | None = None
         self._layers: list[dict[str, torch.Tensor]] | None = None
         self._version = 0
+        self._executor: WorkflowExecutor | None = None  # created on initialize
 
         self._request_q: queue.Queue = queue.Queue()
         self._shutdown = threading.Event()
@@ -311,6 +320,9 @@ class TorchDecodeEngine(InferenceEngine):
         self._slot_keys = np.zeros((R, 2), dtype=np.int64)
         self._admission_seq = 0
         self._reset_spec_counters(self.config.spec_k)
+        self._executor = WorkflowExecutor(self.inference_config, self)
+        self._executor.initialize()
+        self._executor.set_version(self._version)
         self._thread_exc = None
         self._shutdown.clear()
         self._thread = threading.Thread(
@@ -324,6 +336,9 @@ class TorchDecodeEngine(InferenceEngine):
         if self._thread is not None:
             self._thread.join(timeout=60)
             self._thread = None
+        if self._executor is not None:
+            self._executor.destroy()
+            self._executor = None
         self.params = self._layers = None
         self._k_pool = self._v_pool = self._k_scale = self._v_scale = None
         self._alloc = None
@@ -855,7 +870,7 @@ class TorchDecodeEngine(InferenceEngine):
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             if version is not None:
-                self._version = int(version)
+                self.set_version(int(version))
         finally:
             if not was_paused:
                 self.continue_generation()
@@ -886,6 +901,44 @@ class TorchDecodeEngine(InferenceEngine):
 
     def set_version(self, version: int) -> None:
         self._version = int(version)
+        if self._executor is not None:
+            self._executor.set_version(int(version))
 
     def get_version(self) -> int:
         return self._version
+
+    # -- rollout queue (delegated to the WorkflowExecutor) ---------------
+    def submit(self, data, workflow=None, workflow_builder=None, should_accept=None,
+               rollout_id=None):
+        return self._executor.submit(
+            data, workflow, workflow_builder, should_accept, rollout_id=rollout_id
+        )
+
+    def wait(self, count, timeout=None):
+        return self._executor.wait(count, timeout=timeout)
+
+    def rollout_batch(self, data, workflow=None, workflow_builder=None, should_accept=None):
+        return self._executor.rollout_batch(data, workflow, workflow_builder, should_accept)
+
+    def prepare_batch(self, dataloader, workflow=None, workflow_builder=None,
+                      should_accept=None):
+        return self._executor.prepare_batch(dataloader, workflow, workflow_builder,
+                                            should_accept)
+
+    def pause(self) -> None:
+        """Stop admitting new episodes (the executor's gate); decoding of
+        requests already queued goes on."""
+        self._executor.pause()
+
+    def resume(self) -> None:
+        self._executor.resume()
+
+    # -- sample-ledger checkpointing (delegated) ------------------------
+    def attach_ledger_wal(self, path: str) -> None:
+        self._executor.attach_ledger_wal(path)
+
+    def state_dict(self) -> dict:
+        return self._executor.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self._executor.load_state_dict(state)

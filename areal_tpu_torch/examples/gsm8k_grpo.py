@@ -1,0 +1,300 @@
+"""Async GRPO, colocated on one CUDA card: the port's GRPO entry point
+(counterpart of `examples/gsm8k_grpo.py`, its COLOCATE branch).
+
+The trainer (`TorchPPOActor`) and the decode engine (`TorchDecodeEngine`)
+share the card. The engine's `WorkflowExecutor` runs RLVR episodes behind
+the staleness gate while the trainer recomputes logprobs, computes
+advantages and takes the decoupled-PPO update; then the weights are pushed
+to the engine in memory and the version goes up.
+
+Usage, from the repository root:
+
+  python -m areal_tpu_torch.examples.gsm8k_grpo \\
+      --config examples/configs/arith_grpo_smoke.yaml [key=value ...]
+
+Override any config field with key=value, e.g. `actor.optimizer.lr=1e-5`.
+It runs on `cuda:0`. From Python, `main([...], device="cpu")` runs the
+same loop on the CPU with the kernels' plain versions.
+
+As in the JAX example, the evaluation runs between `rollout.pause()` and
+`rollout.resume()`, where the executor admits nothing, so the first step
+at which `evaluator` fires waits out the executor's deadline and raises
+`TimeoutError` (a reference behaviour; ROADMAP queue 3).
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from typing import Any, Callable
+
+from areal_tpu_torch.api.cli_args import GRPOConfig, load_expr_config, save_config
+from areal_tpu_torch.api.io_struct import FinetuneSpec, StepInfo, WeightUpdateMeta
+from areal_tpu_torch.dataset import SimpleDataLoader, get_custom_dataset, load_tokenizer
+from areal_tpu_torch.engine.ppo.actor import TorchPPOActor
+from areal_tpu_torch.engine.torch_decode import TorchDecodeEngine
+from areal_tpu_torch.models.qwen2 import ModelConfig
+from areal_tpu_torch.utils import seeding, stats_tracker
+from areal_tpu_torch.utils.evaluator import Evaluator
+from areal_tpu_torch.utils.recover import RecoverHandler, ledger_wal_path
+from areal_tpu_torch.utils.saver import Saver
+from areal_tpu_torch.utils.stats_logger import StatsLogger
+from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
+
+WORKFLOWS = ("rlvr", "multi_turn", "vision_rlvr", "tir")
+
+
+def pick_reward_fn(dataset_path: str):
+    name = dataset_path.split("/")[-1].lower()
+    if name == "synthetic-arith":
+        from areal_tpu_torch.dataset.arith import arith_reward_fn
+
+        return arith_reward_fn
+    raise NotImplementedError(
+        f"the reward function of dataset {dataset_path!r} is not in the PyTorch "
+        "port yet: ROADMAP.md queue 1, item 6"
+    )
+
+
+def check_allocation(allocation_mode: str) -> None:
+    """Empty: COLOCATE, the decode engine in process on the trainer's card.
+    Anything else is refused with the ROADMAP item that ports it."""
+    mode = (allocation_mode or "").strip()
+    if not mode:
+        return
+    if "+" in mode:
+        raise NotImplementedError(
+            f"allocation_mode={mode!r} (DECOUPLED: decode servers beside the "
+            "trainer) is not in the PyTorch port yet: ROADMAP.md queue 1, item 4"
+        )
+    raise NotImplementedError(
+        f"allocation_mode={mode!r} (a parallel strategy over several devices) "
+        "is not in the PyTorch port yet: ROADMAP.md queue 1, item 5"
+    )
+
+
+def build_rollout(config: GRPOConfig, actor: TorchPPOActor, tokenizer, device):
+    """COLOCATE: the decode engine on the trainer's card, memory weight
+    updates."""
+    rollout = TorchDecodeEngine(config.decode, config.rollout, tokenizer=tokenizer,
+                                device=device)
+    rollout.set_model(actor.params, actor.model_config)
+    rollout.initialize()
+    return rollout, WeightUpdateMeta.from_memory(None)
+
+
+def main(
+    argv: list[str],
+    model_config: ModelConfig | None = None,
+    reward_fn: Callable[..., float] | None = None,
+    device: Any = None,
+) -> list[dict[str, Any]]:
+    """Run the loop of `argv` (`--config file.yaml key=value ...`).
+
+    `model_config` replaces the default model (the smoke decoder when
+    `actor.path` is empty), `reward_fn` the dataset's reward, and `device`
+    the card (`"cpu"` runs the plain versions). Returns one record per
+    step: the stats it committed (`stats`) and the batch it trained on
+    (`batch`)."""
+    config, _ = load_expr_config(argv, GRPOConfig)
+    config: GRPOConfig
+
+    rank = 0
+    seeding.set_random_seed(config.seed, key=f"trainer{rank}")
+    tokenizer = load_tokenizer(config.tokenizer_path)
+    check_allocation(config.allocation_mode)
+    if config.workflow not in WORKFLOWS:
+        raise ValueError(f"workflow={config.workflow!r} not in {WORKFLOWS}")
+    if config.workflow != "rlvr":
+        raise NotImplementedError(
+            f"workflow={config.workflow!r} is not in the PyTorch port yet: "
+            "ROADMAP.md queue 1, item 6"
+        )
+
+    actor = TorchPPOActor(config.actor, device=device)
+    if model_config is not None:
+        actor.model_config = model_config
+    elif not config.actor.path:
+        # offline smoke mode: the canonical tiny from-scratch decoder
+        from areal_tpu_torch.models.smoke import smoke_model_config
+
+        actor.model_config = smoke_model_config(
+            dtype=config.actor.dtype,
+            vocab_size=getattr(tokenizer, "vocab_size", None),
+        )
+    actor.create_process_group()
+
+    valid_cfg = config.valid_dataset or config.train_dataset
+    train_dataset = get_custom_dataset(
+        path=config.train_dataset.path,
+        split="train",
+        type=config.train_dataset.type or "rl",
+        tokenizer=tokenizer,
+        max_length=config.train_dataset.max_length,
+    )
+    valid_dataset = get_custom_dataset(
+        path=valid_cfg.path,
+        split="test",
+        type=valid_cfg.type or "rl",
+        tokenizer=tokenizer,
+        max_length=valid_cfg.max_length,
+    )
+    train_dataloader = SimpleDataLoader(
+        train_dataset,
+        batch_size=config.train_dataset.batch_size,
+        shuffle=config.train_dataset.shuffle,
+        seed=config.seed,
+        drop_last=config.train_dataset.drop_last,
+    )
+    valid_dataloader = SimpleDataLoader(
+        valid_dataset, batch_size=valid_cfg.batch_size, shuffle=False
+    )
+    steps_per_epoch = len(train_dataloader)
+    ft_spec = FinetuneSpec(
+        total_train_epochs=config.total_train_epochs,
+        dataset_size=steps_per_epoch * config.train_dataset.batch_size,
+        train_batch_size=config.train_dataset.batch_size,
+    )
+    actor.initialize(None, ft_spec)
+
+    rollout, weight_update_meta = build_rollout(config, actor, tokenizer, device)
+    ref = None
+    try:
+        actor.connect_engine(rollout, weight_update_meta)
+
+        if config.actor.kl_ctl > 0 and config.ref is not None and config.ref.path:
+            ref = TorchPPOActor(config.ref, device=device)
+            ref.model_config = actor.model_config
+            ref.create_process_group()
+            ref.initialize(None, ft_spec)
+
+        if reward_fn is None:
+            reward_fn = pick_reward_fn(config.train_dataset.path)
+        if getattr(tokenizer, "eos_token_id", None) is not None:
+            if tokenizer.eos_token_id not in config.gconfig.stop_token_ids:
+                config.gconfig.stop_token_ids.append(tokenizer.eos_token_id)
+
+        def make_workflow(gconfig, dump_dir=None):
+            return RLVRWorkflow(
+                reward_fn=reward_fn,
+                gconfig=gconfig,
+                tokenizer=tokenizer,
+                dump_dir=dump_dir,
+            )
+
+        workflow = make_workflow(
+            config.gconfig,
+            dump_dir=os.path.join(StatsLogger.get_log_path(config.stats_logger), "generated"),
+        )
+        eval_workflow = make_workflow(config.gconfig.new(temperature=0.6))
+
+        saver = Saver(config.saver, ft_spec)
+        stats_logger = StatsLogger(config.stats_logger, ft_spec)
+        evaluator = Evaluator(config.evaluator, ft_spec)
+        recover_handler = RecoverHandler(config.recover, ft_spec)
+        # exactly-once sample accounting: journal consumed batches to a WAL
+        # colocated with the recovery state
+        rollout.attach_ledger_wal(ledger_wal_path(config.recover))
+        recover_info = recover_handler.load(
+            actor,
+            saver,
+            evaluator,
+            train_dataloader,
+            inference_engine=rollout,
+            weight_update_meta=weight_update_meta,
+        )
+        start_step = (
+            recover_info.last_step_info.next().global_step
+            if recover_info is not None
+            else 0
+        )
+        if rank == 0:
+            save_config(config, StatsLogger.get_log_path(config.stats_logger))
+
+        max_steps = config.total_train_steps or (
+            config.total_train_epochs * steps_per_epoch
+        )
+
+        history = []
+        for global_step in range(start_step, max_steps):
+            epoch = global_step // steps_per_epoch
+            step = global_step % steps_per_epoch
+            step_info = StepInfo(
+                global_step=global_step,
+                epoch=epoch,
+                epoch_step=step,
+                steps_per_epoch=steps_per_epoch,
+            )
+
+            with stats_tracker.record_timing("rollout"):
+                if config.async_training:
+                    batch = rollout.prepare_batch(train_dataloader, workflow=workflow)
+                else:
+                    batch = rollout.rollout_batch(
+                        next(iter(train_dataloader)), workflow=workflow
+                    )
+
+            if config.actor.recompute_logprob or config.actor.use_decoupled_loss:
+                with stats_tracker.record_timing("recompute_logp"):
+                    batch["prox_logp"] = actor.compute_logp(batch)
+
+            if ref is not None:
+                with stats_tracker.record_timing("ref_logp"):
+                    batch["ref_logp"] = ref.compute_logp(batch)
+
+            with stats_tracker.record_timing("compute_advantage"):
+                actor.compute_advantages(batch)
+
+            with (
+                stats_tracker.record_timing("train_step"),
+                stats_tracker.scope("grpo_actor"),
+            ):
+                stats = actor.ppo_update(batch)
+
+            rollout.pause()
+            with stats_tracker.record_timing("update_weights"):
+                actor.set_version(global_step + 1)
+                actor.update_weights(weight_update_meta)
+                rollout.set_version(global_step + 1)
+
+            with stats_tracker.record_timing("save"):
+                saver.save(actor, epoch, step, global_step, tokenizer=tokenizer)
+
+            with stats_tracker.record_timing("checkpoint_for_recover"):
+                recover_handler.dump(
+                    actor,
+                    step_info,
+                    saver,
+                    evaluator,
+                    train_dataloader,
+                    tokenizer=tokenizer,
+                    rollout=rollout,
+                )
+
+            with stats_tracker.record_timing("eval"):
+
+                def evaluate_fn():
+                    cnt = 0
+                    for items in valid_dataloader:
+                        for item in items:
+                            rollout.submit(item, eval_workflow)
+                            cnt += 1
+                    rollout.wait(cnt, timeout=None)
+
+                evaluator.evaluate(evaluate_fn, epoch, step, global_step)
+
+            stats[0].update(stats_tracker.export_all())
+            stats_logger.commit(epoch, step, global_step, stats)
+            history.append(dict(stats=stats, batch=batch))
+            rollout.resume()
+        stats_logger.close()
+    finally:
+        rollout.destroy()
+        if ref is not None:
+            ref.destroy()
+        actor.destroy()
+    return history
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

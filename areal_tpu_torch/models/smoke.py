@@ -11,6 +11,9 @@ from __future__ import annotations
 
 from areal_tpu_torch.models.qwen2 import ModelConfig
 
+# model/tokenizer paths that mean "offline smoke" (no download)
+OFFLINE_SENTINELS = ("", "synthetic-arith", "arith", "synthetic-vision")
+
 SMOKE_MODEL_DICT = dict(
     vocab_size=32,
     hidden_size=64,
@@ -75,6 +78,16 @@ QWEN25_1_5B = ModelConfig.from_hf_config(
 )
 
 
-def smoke_model_config(dtype: str = "float32") -> ModelConfig:
-    """The fixed smoke geometry in `dtype`."""
-    return ModelConfig(**SMOKE_MODEL_DICT, dtype=dtype, param_dtype=dtype)
+def smoke_model_config(dtype: str = "float32", vocab_size: int | None = None) -> ModelConfig:
+    """The FIXED smoke geometry in `dtype`. `vocab_size` (a tokenizer's) is
+    validated, never enlarged, as in JAX (`areal_tpu/models/smoke.py:55`):
+    trainer and decode engine must agree on shapes, so the vocab cannot
+    silently follow a tokenizer."""
+    d = SMOKE_MODEL_DICT
+    if vocab_size is not None and vocab_size > d["vocab_size"]:
+        raise ValueError(
+            f"smoke model vocab is fixed at {d['vocab_size']} but the "
+            f"tokenizer has {vocab_size} tokens: offline smoke mode only "
+            "supports the built-in character tokenizer"
+        )
+    return ModelConfig(**d, dtype=dtype, param_dtype=dtype)

@@ -1,6 +1,7 @@
 """Padded and packed batches, micro-batch splitting, reward/advantage
-normalization (a copy of the parts of `areal_tpu/utils/data.py` the
-training path runs, :131-311, :319, :429).
+normalization, and the rollout side's padding and concatenation (a copy
+of the parts of `areal_tpu/utils/data.py` the GRPO loop runs, :83-130,
+:131-311, :319, :429, :457).
 
 A batch is a dict of numpy arrays on the host: padded `[B, T]` with an
 `attention_mask`, or packed 1-D with `cu_seqlens`. Packing pads the token
@@ -19,6 +20,61 @@ import torch
 
 from areal_tpu_torch.api.cli_args import MicroBatchSpec, NormConfig
 from areal_tpu_torch.utils import datapack
+
+
+def pad_sequences_to_tensors(
+    sequences: list[dict[str, Any]], pad_value: float = 0.0
+) -> dict[str, np.ndarray]:
+    """Stack a list of variable-length 1-D sample dicts into padded [B, T]
+    arrays + attention_mask."""
+    if not sequences:
+        return {}
+    max_len = max(len(seq["input_ids"]) for seq in sequences)
+    out: dict[str, list] = {}
+    for seq in sequences:
+        seq_len = len(seq["input_ids"])
+        for k, v in seq.items():
+            arr = np.asarray(v)
+            if arr.ndim >= 1 and arr.shape[0] == seq_len:
+                pad_width = [(0, max_len - seq_len)] + [(0, 0)] * (arr.ndim - 1)
+                padded = np.pad(arr, pad_width, constant_values=pad_value)
+            else:
+                padded = arr
+            out.setdefault(k, []).append(padded)
+        mask = np.zeros(max_len, dtype=bool)
+        mask[:seq_len] = True
+        out.setdefault("attention_mask", []).append(mask)
+    return {k: np.stack(v) for k, v in out.items()}
+
+
+def concat_padded_tensors(
+    tensor_dicts: list[dict[str, np.ndarray]], pad_value: float = 0.0
+) -> dict[str, np.ndarray]:
+    """Concatenate padded batches along the batch dim, re-padding every
+    sequence-shaped array to the common max length."""
+    if not tensor_dicts:
+        return {}
+    max_len = max(d["attention_mask"].shape[1] for d in tensor_dicts)
+    keys = tensor_dicts[0].keys()
+    if any(d.keys() != keys for d in tensor_dicts):
+        raise ValueError("inconsistent batch keys")
+    out: dict[str, list] = {k: [] for k in keys}
+    for d in tensor_dicts:
+        cur_len = d["attention_mask"].shape[1]
+        for k, v in d.items():
+            v = np.asarray(v)
+            if v.ndim >= 2 and v.shape[1] == cur_len:
+                pad_width = [(0, 0), (0, max_len - cur_len)] + [(0, 0)] * (v.ndim - 2)
+                fill = 0 if k == "attention_mask" else pad_value
+                v = np.pad(v, pad_width, constant_values=fill)
+            out[k].append(v)
+    return {k: np.concatenate(v, axis=0) for k, v in out.items()}
+
+
+def cycle_dataloader(dataloader):
+    """Infinite iterator over a (re-shuffling) dataloader."""
+    while True:
+        yield from dataloader
 
 
 def pack_tensor_dict(data: dict[str, np.ndarray]) -> dict[str, np.ndarray]:

@@ -12,10 +12,14 @@ requests through `TorchDecodeEngine` at Qwen2.5-7B full width and depth,
 serves self-quoting traffic with speculative decode (`spec_decode=
 "ngram"`) beside a spec-off engine, serves the first traffic again from
 an int8 engine (int8 weights and an int8 KV pool) and the speculative
-traffic from an int8 spec engine, and runs three colocated GRPO
-iterations (rollout, `compute_logp`, `compute_advantages`, `ppo_update`,
-weight push) through `TorchPPOActor` at Qwen2.5-1.5B full width and
-depth. It checks that the kernels really carried each path. Each phase prints one JSON line; then
+traffic from an int8 spec engine, runs the port's GRPO entry point
+(`areal_tpu_torch/examples/gsm8k_grpo.py`: the async loop of staleness
+gate, RLVR episodes, decoupled-PPO update and weight push) on
+`examples/configs/arith_grpo_smoke.yaml`, as a learning run beside its
+lr=0 control, and at Qwen2.5-1.5B full width and depth, and runs three
+colocated GRPO iterations (rollout, `compute_logp`, `compute_advantages`,
+`ppo_update`, weight push) through `TorchPPOActor` at Qwen2.5-1.5B full
+width and depth. It checks that the kernels really carried each path. Each phase prints one JSON line; then
 come the `kernels` line, the card's name and power limit, and last
 `{"ok": true, "device": ...}`. Any failed check raises, and the script
 exits non-zero without that last line.
@@ -51,6 +55,7 @@ its source built with another `QMM_STAGES`), beside the default plan.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -58,6 +63,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -66,17 +72,20 @@ import torch
 
 from areal_tpu_torch.api.cli_args import (
     GenerationHyperparameters,
+    GRPOConfig,
     JaxEngineConfig,
     MicroBatchSpec,
     NormConfig,
     OptimizerConfig,
     PPOActorConfig,
     TorchDecodeConfig,
+    load_expr_config,
 )
 from areal_tpu_torch.api.io_struct import FinetuneSpec, ModelRequest, WeightUpdateMeta
 from areal_tpu_torch.engine import sampling
 from areal_tpu_torch.engine.ppo.actor import TorchPPOActor
 from areal_tpu_torch.engine.torch_decode import TorchDecodeEngine
+from areal_tpu_torch.examples import gsm8k_grpo
 from areal_tpu_torch.models.qwen2 import (
     decode_step_paged,
     init_params,
@@ -2497,6 +2506,248 @@ def phase_train(dev: torch.device) -> dict:
     return dict(launches=launches, segment_ids=seg, cfg=cfg)
 
 
+# phase: the port's GRPO entry point (`areal_tpu_torch/examples/gsm8k_grpo.py`)
+GRPO_YAML = str(Path(__file__).resolve().parent / "examples" / "configs" / "arith_grpo_smoke.yaml")
+# the yaml's evaluator fires first at step 9 (its 10th step), between the
+# executor's pause and resume, where it admits nothing and its wait runs
+# into the 3600 s deadline (ROADMAP queue 3): every run stays below it
+LOOP_STEPS = 9
+# tests/test_grpo_learning.py's settings as overrides of the yaml, at the
+# smoke geometry (its TINY has hd 8, which no kernel takes)
+LEARN_STEPS = 12
+LEARN_OVERRIDES = [
+    "async_training=false", "gconfig.n_samples=8", "actor.group_size=8",
+    "actor.adv_norm.group_size=8", "train_dataset.batch_size=8",
+    "rollout.consumer_batch_size=8", "gconfig.max_new_tokens=2",
+    "actor.ppo_n_minibatches=1", f"total_train_steps={LEARN_STEPS}",
+    "evaluator.freq_steps=null",
+]
+LEARN_LR = 3e-2
+FULL_STEPS = 3
+FULL_OVERRIDES = [
+    "train_dataset.batch_size=8", "gconfig.n_samples=4", "gconfig.max_new_tokens=256",
+    "rollout.consumer_batch_size=8", "decode.context_length=512",
+    "decode.max_running_requests=32", "decode.new_tokens_per_chunk=128",
+    "decode.dtype=bfloat16", "decode.kv_cache_dtype=bfloat16", "actor.dtype=bfloat16",
+    "actor.group_size=4", "actor.adv_norm.group_size=4", "actor.optimizer.lr=1e-4",
+    f"total_train_steps={FULL_STEPS}",
+    # the train phase's micro-batch and remat settings
+    "actor.mb_spec.max_tokens_per_mb=8192", "actor.gradient_checkpointing=true",
+]
+LOOP_TIMINGS = ("rollout", "recompute_logp", "compute_advantage", "train_step",
+                "update_weights")
+
+
+def dense_reward(prompt, completion, prompt_ids, completion_ids, **kwargs) -> float:
+    """tests/test_grpo_learning.py's dense verifiable reward: the first
+    generated token pulled to 16."""
+    return 1.0 - abs(completion_ids[0] - 16) / 32.0
+
+
+def parity_reward(prompt, completion, prompt_ids, completion_ids, **kwargs) -> float:
+    """The train phase's `reward_of` under the reward-function contract."""
+    return reward_of(completion_ids)
+
+
+def _traced(fn, *args, **kwargs):
+    """`fn(*args, **kwargs)` under a device trace: (its result, the trace's
+    device ms by kernel family, kernel count and costliest "other"
+    kernels, and the call's wall ms up to a synchronize)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fams, n_kernels, top_other = _device_ms_by_family(prof)
+    total = sum(fams.values())
+    return out, dict(wall_ms=wall_ms, kernels=n_kernels, device_ms=fams, device_total_ms=total,
+                     device_busy_share=total / wall_ms, top_other_ms=top_other)
+
+
+@contextlib.contextmanager
+def _observe_loop(trace_step: int | None = None):
+    """While `main` runs: keep the decode engine it builds (its counters
+    outlive `destroy`), read the engine's decode counters and the peak
+    device memory as each `ppo_update` ends, and trace step `trace_step`'s
+    `prepare_batch` (the rollout wait, with the decode steps that run in
+    it) and `ppo_update` on the device. Patches the classes' methods for
+    the duration and restores them."""
+    seen = dict(engines=[], updates=[], rollouts=0, traces={})
+    init = TorchDecodeEngine.initialize
+    prepare = TorchDecodeEngine.prepare_batch
+    update = TorchPPOActor.ppo_update
+
+    def initialize(self):
+        seen["engines"].append(self)
+        return init(self)
+
+    def prepare_batch(self, *args, **kwargs):
+        step, seen["rollouts"] = seen["rollouts"], seen["rollouts"] + 1
+        if step != trace_step:
+            return prepare(self, *args, **kwargs)
+        steps0 = self.decode_steps
+        out, trace = _traced(prepare, self, *args, **kwargs)
+        seen["traces"]["rollout"] = dict(trace, decode_steps=self.decode_steps - steps0)
+        return out
+
+    def ppo_update(self, *args, **kwargs):
+        eng = seen["engines"][-1]
+        if len(seen["updates"]) == trace_step:
+            steps0 = eng.decode_steps
+            out, trace = _traced(update, self, *args, **kwargs)
+            seen["traces"]["ppo_update"] = dict(trace, decode_steps=eng.decode_steps - steps0)
+        else:
+            out = update(self, *args, **kwargs)
+        seen["updates"].append(dict(
+            decode_tokens=eng.decode_tokens, decode_seconds=eng.decode_seconds,
+            decode_steps=eng.decode_steps,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9))
+        return out
+
+    TorchDecodeEngine.initialize, TorchDecodeEngine.prepare_batch = initialize, prepare_batch
+    TorchPPOActor.ppo_update = ppo_update
+    try:
+        yield seen
+    finally:
+        TorchDecodeEngine.initialize, TorchDecodeEngine.prepare_batch = init, prepare
+        TorchPPOActor.ppo_update = update
+
+
+def _loop_run(dev, tag: str, overrides: list[str], model_config=None, reward_fn=None,
+              trace_step: int | None = None) -> dict:
+    """One run of the entry point on the smoke yaml with `overrides`, its
+    kernel counts set to 0 just before and read just after, and each
+    step's record: the mean reward, the loop's timings, the version lag
+    (the step's weight version minus the oldest version of a token it
+    trains on), the micro-batches of `compute_logp` and of `ppo_update`."""
+    with tempfile.TemporaryDirectory() as root:
+        argv = ["--config", GRPO_YAML, *overrides, f"cluster.fileroot={root}",
+                f"experiment_name=chip-smoke-{tag}"]
+        config, _ = load_expr_config(argv, GRPOConfig)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with _observe_loop(trace_step) as seen:
+            # ---- the main path: counts to 0 just before, read just after ----
+            pa.launches = fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+            t0 = time.perf_counter()
+            history = gsm8k_grpo.main(argv, model_config=model_config, reward_fn=reward_fn,
+                                      device=dev)
+            wall = time.perf_counter() - t0
+            launches = dict(paged_attention=pa.launches, flash_attention_fwd=fa.launches_fwd,
+                            flash_attention_bwd_dq=fa.launches_dq,
+                            flash_attention_bwd_dkv=fa.launches_dkv)
+            # ---- end of the main path ----
+    engine = seen["engines"][0]
+    L = engine.model_config.num_hidden_layers
+    remat = engine.model_config.remat
+    steps, logp_mbs, train_mbs = [], 0, 0
+    for i, rec in enumerate(history):
+        st, batch = rec["stats"][0], rec["batch"]
+        gen = batch["attention_mask"].astype(bool) & (batch["versions"] >= 0)
+        n_logp = len(split_padded_tensor_dict_into_mb_list(batch, config.actor.mb_spec).mbs)
+        n_train = int(sum(d["grpo_actor/n_mbs"] for d in rec["stats"]))
+        logp_mbs, train_mbs = logp_mbs + n_logp, train_mbs + n_train
+        completions = {tuple(ids[b:n]) for ids, b, n in zip(
+            batch["input_ids"].tolist(), batch["begin_of_answer"].tolist(),
+            batch["attention_mask"].sum(-1).tolist())}
+        row = dict(step=i, reward_mean=float(np.mean(batch["rewards"])),
+                   distinct_completions=len(completions),
+                   version_lag=int(i - batch["versions"][gen].min()),
+                   samples=int(batch["input_ids"].shape[0]),
+                   tokens=int(batch["attention_mask"].sum()), logp_mbs=n_logp,
+                   train_mbs=n_train, loss=st["grpo_actor/loss"],
+                   **{f"{k}_s": st[f"timeperf/{k}"] for k in LOOP_TIMINGS})
+        row["trained_tokens_per_s"] = row["tokens"] / row["train_step_s"]
+        if i == trace_step:
+            # the step's rollout and train_step times include the tracer's
+            # own processing; `traced_step` holds the traced windows' walls
+            row["traced"] = True
+        check(math.isfinite(row["loss"]), f"{tag} step {i}: loss {row['loss']}")
+        steps.append(row)
+    for i, u in enumerate(seen["updates"]):
+        prev = seen["updates"][i - 1] if i else dict(decode_tokens=0, decode_seconds=0.0)
+        dt = u["decode_seconds"] - prev["decode_seconds"]
+        steps[i].update(max_memory_allocated_gb=u["max_memory_allocated_gb"],
+                        decode_tok_s=(u["decode_tokens"] - prev["decode_tokens"]) / dt
+                        if dt else None)
+    want = dict(paged_attention=L * engine.decode_steps,
+                flash_attention_fwd=L * (logp_mbs + (2 if remat else 1) * train_mbs),
+                flash_attention_bwd_dq=L * train_mbs, flash_attention_bwd_dkv=L * train_mbs)
+    check(launches == want, f"{tag}: launches {launches}, formulas {want}")
+    out = dict(run=tag, overrides=overrides, layers=L, dtype=engine.model_config.dtype,
+               wall_s=wall, launches=launches, formulas=dict(
+                   paged_attention="decode steps x L",
+                   flash_attention_fwd="L x (logp mbs + (2 if remat else 1) x trained mbs)",
+                   flash_attention_bwd_dq="L x trained mbs",
+                   flash_attention_bwd_dkv="L x trained mbs"),
+               decode_steps=engine.decode_steps, prefill_calls=engine.prefill_calls,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               max_version_lag=max(r["version_lag"] for r in steps), steps=steps)
+    if seen["traces"]:
+        out["traced_step"] = dict(step=trace_step, **seen["traces"])
+    return out
+
+
+def phase_grpo_loop(dev: torch.device) -> dict:
+    """The port's GRPO entry point, `gsm8k_grpo.main`, on the card:
+
+    (a) on `examples/configs/arith_grpo_smoke.yaml` unchanged but for the
+        step count and the run's paths (the smoke decoder in f32, hd 16:
+        the kernels' f32 routes): async rollouts behind the staleness gate,
+        each step's version lag within `max_head_offpolicyness`;
+    (b) the learning check of `tests/test_grpo_learning.py` through the
+        same `main` (its dense reward and settings as overrides): the mean
+        reward of the last 3 steps is above 0.9 and 0.05 above that of the
+        first 3, and an lr=0 control run fails that check;
+    (c) Qwen2.5-1.5B at its published widths and depth, bf16, random
+        weights, with the train phase's reward: 3 steps of 8 prompts x 4
+        samples, 256 new tokens, async.
+
+    In every run K3 launches L per decode step and K1/K2a/K2b L per
+    micro-batch pass (K1 twice per trained micro-batch under remat); the
+    last step of (c) is traced on the device, its rollout wait and its
+    update apart."""
+    runs = {}
+    runs["yaml"] = _loop_run(dev, "yaml", [f"total_train_steps={LOOP_STEPS}"])
+    lag_cap = 2  # the yaml's rollout.max_head_offpolicyness
+    check(runs["yaml"]["max_version_lag"] <= lag_cap,
+          f"yaml run: version lag {runs['yaml']['max_version_lag']} > {lag_cap}")
+    curves = {}
+    for lr in (LEARN_LR, 0.0):
+        tag = f"learn_lr{lr:g}"
+        runs[tag] = _loop_run(dev, tag, LEARN_OVERRIDES + [f"actor.optimizer.lr={lr}"],
+                              reward_fn=dense_reward)
+        curves[lr] = [r["reward_mean"] for r in runs[tag]["steps"]]
+    learned = {}
+    for lr, c in curves.items():
+        start, end = float(np.mean(c[:3])), float(np.mean(c[-3:]))
+        learned[lr] = dict(start=start, end=end, rise=end - start,
+                           passes=end - start > 0.05 and end > 0.9)
+    check(learned[LEARN_LR]["passes"], f"lr {LEARN_LR}: no learning, rewards {curves[LEARN_LR]}")
+    check(not learned[0.0]["passes"], f"lr 0 control 'learned': rewards {curves[0.0]}")
+    full_cfg = dataclasses.replace(QWEN25_1_5B, remat=True)
+    runs["full"] = _loop_run(dev, "full", FULL_OVERRIDES, model_config=full_cfg,
+                             reward_fn=parity_reward, trace_step=FULL_STEPS - 1)
+    check(runs["full"]["max_version_lag"] <= lag_cap,
+          f"full run: version lag {runs['full']['max_version_lag']} > {lag_cap}")
+    # 256 tokens drawn from a near-uniform 151,936-way distribution: two
+    # samples can only coincide if they share their sampling keys
+    for r in runs["full"]["steps"]:
+        check(r["distinct_completions"] == r["samples"],
+              f"full run step {r['step']}: {r['distinct_completions']} distinct "
+              f"completions of {r['samples']}")
+    emit("grpo_loop", entry_point="areal_tpu_torch/examples/gsm8k_grpo.py:main",
+         yaml="examples/configs/arith_grpo_smoke.yaml",
+         full_model="Qwen2.5-1.5B", full_source=QWEN25_1_5B_SOURCE,
+         learning=dict(check="end - start > 0.05 and end > 0.9 (means of the first and "
+                             "last 3 steps)", lr=LEARN_LR, curves={str(k): v for k, v in curves.items()},
+                       result={str(k): v for k, v in learned.items()}),
+         runs=list(runs.values()))
+    total = {k: sum(r["launches"][k] for r in runs.values()) for k in runs["full"]["launches"]}
+    return dict(launches=total, by_run={t: r["launches"] for t, r in runs.items()})
+
+
 FLASH_FLOPS_PER_PAIR = {  # x head_dim x query heads, per valid (query, key) pair
     "flash_attention_fwd": 4, "flash_attention_bwd_dq": 6, "flash_attention_bwd_dkv": 8,
 }
@@ -2533,7 +2784,7 @@ def _live_tile_pairs(mq, mk) -> int:
     return int(live.sum())
 
 
-def phase_flash_line(dev: torch.device, train: dict) -> list[dict]:
+def phase_flash_line(dev: torch.device, train: dict, loop: dict) -> list[dict]:
     """K1, K2a and K2b at the train phase's micro-batch shape (the first
     micro-batch's packed segments, Qwen2.5-1.5B heads, bf16): each kernel
     wrapper against its plain version on the same inputs (f32-upcast),
@@ -2644,7 +2895,10 @@ def phase_flash_line(dev: torch.device, train: dict) -> list[dict]:
         flops = FLASH_FLOPS_PER_PAIR[name] * hd * nH * pairs
         rows.append(dict(
             name=name, route="cuda", source=FLASH_SOURCE, replaces=FLASH_REPLACES[name],
-            launches=train["launches"][name], max_abs_err=errs[name], max_err=errs[name],
+            launches=train["launches"][name] + loop["launches"][name],
+            launches_by_path=dict(grpo_loop=loop["launches"][name],
+                                  train=train["launches"][name]),
+            max_abs_err=errs[name], max_err=errs[name],
             tol=dict(a=a, rtol=rtol), tol_ratio=ratios[name], rounding=rounding[name],
             ms=ms[name], device_ms=device_ms[name],
             tflops=flops / (device_ms[name] * 1e-3) / 1e12, tile_pairs=tile_pairs,
@@ -2763,12 +3017,15 @@ def main() -> int:
     noise["launches_by_path"] = dict(serve_spec=s_launches["threefry_noise"],
                                      serve_spec_int8=s8_launches["threefry_noise"])
     emit("noise_line", **noise)
+    loop = phase_grpo_loop(dev)
+    torch.cuda.empty_cache()
     train = phase_train(dev)
     torch.cuda.empty_cache()
     # K3 runs in the serve and train paths and in the spec path's normal
     # chunks; K5a in the int8 serve path and the int8 spec path's; K6 in both
     # int8 paths
     paged["launches_by_path"] = dict(serve=launches, serve_spec=s_launches["paged_attention"],
+                                     grpo_loop=loop["launches"]["paged_attention"],
                                      train=train["launches"]["paged_attention"])
     paged["launches"] = sum(paged["launches_by_path"].values())
     q8["launches_by_path"] = dict(serve_int8=q_launches["paged_attention_q8"],
@@ -2777,7 +3034,7 @@ def main() -> int:
     qmm_row["launches_by_path"] = dict(serve_int8=q_launches["quant_matmul"],
                                        serve_spec_int8=s8_launches["quant_matmul"])
     qmm_row["launches"] = sum(qmm_row["launches_by_path"].values())
-    rows = [paged, *phase_flash_line(dev, train), q8, qmm_row, verify, verify_q8]
+    rows = [paged, *phase_flash_line(dev, train, loop), q8, qmm_row, verify, verify_q8]
     for r in rows:
         check(r["launches"] > 0, f"{r['name']}: no launch on the main path")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,0 +1,197 @@
+"""The port's GRPO loop on the CPU, at the smoke geometry.
+
+- `prepare_batch` with greedy sampling on `TorchDecodeEngine` and on
+  `JaxDecodeEngine`, the same weights (moved from JAX) and the same
+  prompts: the rows, sorted by (prompt, completion), have equal tokens
+  and masks, logprobs within 1e-5 (the tolerance of
+  `test_torch_decode.py`), and equal rewards and version stamps.
+- The port's entry point `main` for 2 steps on
+  `examples/configs/arith_grpo_smoke.yaml` (as `test_examples_smoke.py`
+  runs the JAX example).
+- The learning check of `tests/test_grpo_learning.py` through the same
+  `main` (the dense first-token reward, that test's settings as overrides
+  of the yaml), and its lr=0 control, which must fail the check. The
+  first update has lr 0 (a reference behaviour), so the check counts the
+  rewards of 12 steps. The evaluation stays off: the yaml's would fire at
+  step 9, inside the executor's pause, and wait out its deadline.
+"""
+
+import logging
+
+import numpy as np
+import pytest
+
+import jax
+
+from areal_tpu.api import cli_args as j_cli
+from areal_tpu.dataset import SimpleDataLoader as JLoader
+from areal_tpu.dataset import get_custom_dataset as j_dataset
+from areal_tpu.dataset.arith import ArithTokenizer as JTok
+from areal_tpu.dataset.arith import arith_reward_fn as j_reward
+from areal_tpu.engine.jax_decode import JaxDecodeEngine
+from areal_tpu.models import qwen2 as jq
+from areal_tpu.workflow.rlvr import RLVRWorkflow as JRLVR
+from areal_tpu_torch.api import cli_args as t_cli
+from areal_tpu_torch.dataset import SimpleDataLoader as TLoader
+from areal_tpu_torch.dataset import get_custom_dataset as t_dataset
+from areal_tpu_torch.dataset.arith import ArithTokenizer as TTok
+from areal_tpu_torch.dataset.arith import arith_reward_fn as t_reward
+from areal_tpu_torch.engine.torch_decode import TorchDecodeEngine
+from areal_tpu_torch.examples.gsm8k_grpo import main
+from areal_tpu_torch.models import qwen2 as tq
+from areal_tpu_torch.models.convert import params_from_numpy
+from areal_tpu_torch.models.smoke import SMOKE_MODEL_DICT, smoke_model_config
+from areal_tpu_torch.workflow.rlvr import RLVRWorkflow as TRLVR
+
+YAML = "examples/configs/arith_grpo_smoke.yaml"
+KW = dict(SMOKE_MODEL_DICT, dtype="float32", param_dtype="float32")
+DECODE = dict(context_length=64, max_running_requests=16, new_tokens_per_chunk=8,
+              dtype="float32", kv_cache_dtype="float32")
+# only the first batch is admitted at version 0: both engines serve the
+# same episodes
+ROLLOUT = dict(max_concurrent_rollouts=8, consumer_batch_size=4, max_head_offpolicyness=0)
+LOGP_ATOL = 1e-5
+
+TARGET_TOKEN = 16
+LEARN = [
+    "async_training=false", "gconfig.n_samples=8", "actor.group_size=8",
+    "actor.adv_norm.group_size=8", "train_dataset.batch_size=8",
+    "rollout.consumer_batch_size=8", "gconfig.max_new_tokens=2",
+    "actor.ppo_n_minibatches=1", "total_train_steps=12", "evaluator.freq_steps=null",
+]
+
+
+def dense_reward(prompt, completion, prompt_ids, completion_ids, **kwargs):
+    """Dense verifiable reward pulling the first generated token to 16
+    (`tests/test_grpo_learning.py:49`)."""
+    return 1.0 - abs(completion_ids[0] - TARGET_TOKEN) / 32.0
+
+
+def _rows(batch):
+    """(prompt, completion, logprobs, rest) per row, sorted by tokens."""
+    rows = []
+    for i in range(batch["input_ids"].shape[0]):
+        n = int(batch["attention_mask"][i].sum())
+        p = int(batch["begin_of_answer"][i])
+        ids = batch["input_ids"][i, :n].tolist()
+        rows.append((ids[:p], ids[p:], batch["logprobs"][i, :n],
+                     dict(loss_mask=batch["loss_mask"][i, :n].tolist(),
+                          versions=batch["versions"][i, :n].tolist(),
+                          reward=float(batch["rewards"][i]),
+                          rollout_version=int(batch["rollout_version"][i]))))
+    return sorted(rows, key=lambda r: (r[0], r[1]))
+
+
+def test_prepare_batch_matches_jax_engine(tmp_path):
+    jparams = jq.init_params(jq.ModelConfig(**KW), jax.random.PRNGKey(3))
+    tcfg = tq.ModelConfig(**KW)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg)
+    gj = j_cli.GenerationHyperparameters(n_samples=3, max_new_tokens=6, greedy=True,
+                                         stop_token_ids=[2])
+    gt = t_cli.GenerationHyperparameters(n_samples=3, max_new_tokens=6, greedy=True,
+                                         stop_token_ids=[2])
+    batches = {}
+    jeng = JaxDecodeEngine(j_cli.JaxDecodeConfig(**DECODE), j_cli.InferenceEngineConfig(**ROLLOUT),
+                           tokenizer=JTok())
+    jeng.set_model(jparams, jq.ModelConfig(**KW))
+    jeng.initialize()
+    try:
+        loader = JLoader(j_dataset("synthetic-arith", split="train"), batch_size=4, seed=1)
+        batches["jax"] = jeng.prepare_batch(loader, workflow=JRLVR(j_reward, gj, tokenizer=JTok()))
+    finally:
+        jeng.destroy()
+    teng = TorchDecodeEngine(t_cli.TorchDecodeConfig(**DECODE),
+                             t_cli.InferenceEngineConfig(**ROLLOUT), tokenizer=TTok(), device="cpu")
+    teng.set_model(tparams, tcfg)
+    teng.initialize()
+    try:
+        loader = TLoader(t_dataset("synthetic-arith", split="train"), batch_size=4, seed=1)
+        batches["torch"] = teng.prepare_batch(loader, workflow=TRLVR(t_reward, gt, tokenizer=TTok()))
+        # the second batch waits at the staleness gate
+        assert teng.state_dict()["staleness"]["submitted"] == 4
+    finally:
+        teng.destroy()
+    assert sorted(batches["jax"]) == sorted(batches["torch"])
+    assert batches["torch"]["input_ids"].shape[0] == 12
+    assert sorted(batches["torch"]["rollout_id"].tolist()) == [0] * 3 + [1] * 3 + [2] * 3 + [3] * 3
+    rj, rt = _rows(batches["jax"]), _rows(batches["torch"])
+    for (pj, cj, lj, xj), (pt, ct, lt, xt) in zip(rj, rt):
+        assert (pj, cj, xj) == (pt, ct, xt)
+        np.testing.assert_allclose(lt, lj, atol=LOGP_ATOL, rtol=0)
+    assert any(len(c) > 0 for _, c, _, _ in rt)
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def test_entry_point_two_steps(tmp_path):
+    """The yaml unchanged but for the step count and the run's paths; as
+    `test_examples_smoke.py::test_grpo_example_smoke` checks the JAX
+    example's output."""
+    records = _Records()
+    log = logging.getLogger("areal_tpu_torch.stats_logger")
+    log.addHandler(records)
+    try:
+        history = main(["--config", YAML, "total_train_steps=2", f"cluster.fileroot={tmp_path}",
+                        "experiment_name=grpo-smoke-test"], device="cpu")
+    finally:
+        log.removeHandler(records)
+    assert "grpo_actor/loss" in "\n".join(records.lines)
+    assert len(history) == 2
+    for step, rec in enumerate(history):
+        st, batch = rec["stats"][0], rec["batch"]
+        assert np.isfinite(st["grpo_actor/loss"])
+        for k in ("rollout", "recompute_logp", "compute_advantage", "train_step",
+                  "update_weights"):
+            assert st[f"timeperf/{k}"] >= 0
+        assert batch["input_ids"].shape[0] == 16  # 4 prompts x 4 samples
+        assert batch["rollout_version"].max() <= step
+        gen = batch["attention_mask"].astype(bool) & (batch["versions"] >= 0)
+        assert 0 <= step - batch["versions"][gen].min() <= 2
+    assert (tmp_path / "logs" / "grpo-smoke-test" / "run0" / "config.yaml").exists()
+
+
+def _learn(lr: float, tmp_path) -> list[float]:
+    history = main(["--config", YAML, *LEARN, f"actor.optimizer.lr={lr}",
+                    f"cluster.fileroot={tmp_path}", f"experiment_name=learn{lr}"],
+                   reward_fn=dense_reward, device="cpu")
+    return [float(np.mean(rec["batch"]["rewards"])) for rec in history]
+
+
+def _learned(rewards: list[float]) -> bool:
+    start, end = float(np.mean(rewards[:3])), float(np.mean(rewards[-3:]))
+    return end - start > 0.05 and end > 0.9
+
+
+def test_grpo_learns_dense_reward(tmp_path):
+    rewards = _learn(3e-2, tmp_path)
+    assert len(rewards) == 12
+    assert _learned(rewards), f"no learning: {rewards}"
+
+
+def test_grpo_lr_zero_does_not_learn(tmp_path):
+    rewards = _learn(0.0, tmp_path)
+    assert not _learned(rewards), f"lr=0 run 'learned': {rewards}"
+
+
+def test_entry_point_refusals(tmp_path):
+    base = ["--config", YAML, f"cluster.fileroot={tmp_path}"]
+    with pytest.raises(NotImplementedError, match="item 4"):
+        main(base + ["allocation_mode=jax:d1t1+d1"], device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        main(base + ["workflow=multi_turn"], device="cpu")
+    with pytest.raises(ValueError, match="workflow"):
+        main(base + ["workflow=nope"], device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        main(base + ["train_dataset.path=gsm8k"], device="cpu")
+    with pytest.raises(NotImplementedError, match="item 2b"):
+        main(base + ["recover.mode=auto"], device="cpu")
+    with pytest.raises(ValueError, match="vocab is fixed at 32"):
+        smoke_model_config(vocab_size=33)
+    assert smoke_model_config(vocab_size=21).vocab_size == 32

@@ -53,6 +53,23 @@ def test_port_has_the_expected_modules():
         "areal_tpu_torch.ops.quant_matmul",
         "areal_tpu_torch.ops.threefry",
         "areal_tpu_torch.engine.sampling",
+        "areal_tpu_torch.utils.structured",
+        "areal_tpu_torch.utils.seeding",
+        "areal_tpu_torch.utils.timeutil",
+        "areal_tpu_torch.utils.evaluator",
+        "areal_tpu_torch.utils.saver",
+        "areal_tpu_torch.utils.stats_logger",
+        "areal_tpu_torch.utils.recover",
+        "areal_tpu_torch.core.async_task_runner",
+        "areal_tpu_torch.core.staleness_manager",
+        "areal_tpu_torch.core.sample_ledger",
+        "areal_tpu_torch.core.workflow_executor",
+        "areal_tpu_torch.api.workflow_api",
+        "areal_tpu_torch.api.reward_api",
+        "areal_tpu_torch.workflow.rlvr",
+        "areal_tpu_torch.dataset",
+        "areal_tpu_torch.dataset.arith",
+        "areal_tpu_torch.examples.gsm8k_grpo",
         "chip_smoke",
     ):
         assert want in names
