@@ -17,6 +17,7 @@ from areal_tpu_torch.api.io_struct import (
     FinetuneSpec,
     ModelRequest,
     ModelResponse,
+    SaveLoadMeta,
     WeightUpdateMeta,
 )
 
@@ -62,6 +63,12 @@ class TrainEngine(abc.ABC):
         raise NotImplementedError()
 
     def get_version(self) -> int:
+        raise NotImplementedError()
+
+    def save(self, meta: SaveLoadMeta) -> None:
+        raise NotImplementedError()
+
+    def load(self, meta: SaveLoadMeta) -> None:
         raise NotImplementedError()
 
     # -- compute --------------------------------------------------------

@@ -95,6 +95,8 @@ class WeightUpdateMeta:
 @dataclass
 class SaveLoadMeta:
     path: str
+    # "hf" (safetensors) | "torch" (the port's recovery format, in place of
+    # the JAX package's "orbax")
     weight_format: str = "hf"
     with_optim: bool = False
     tokenizer: Any = None

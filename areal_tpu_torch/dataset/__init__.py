@@ -1,8 +1,8 @@
-"""Datasets and the dataloader of the GRPO entry point (counterpart of
-`areal_tpu/dataset/__init__.py`), trimmed to the offline RL path: the
-built-in arithmetic tokenizer, the `synthetic-arith` dataset's RL view,
-and `SimpleDataLoader`. Hub datasets and tokenizers, and the SFT and
-reward-model views, are refused with the ROADMAP item that ports them.
+"""Datasets and the dataloader of the entry points (counterpart of
+`areal_tpu/dataset/__init__.py`), trimmed to the offline paths: the
+built-in arithmetic tokenizer, the `synthetic-arith` dataset's RL and SFT
+views, and `SimpleDataLoader`. Hub datasets and tokenizers, and the
+reward-model view, are refused with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -38,30 +38,42 @@ def get_custom_dataset(
     world_size: int = 1,
     **kwargs,
 ):
-    """Load a dataset by name; the port has `synthetic-arith`'s RL view:
-    integer arithmetic in the RLVR schema with pre-tokenized prompts
-    (`dataset/arith.py`)."""
+    """Load a dataset by name; the port has `synthetic-arith`: integer
+    arithmetic in the RLVR schema with pre-tokenized prompts
+    (`dataset/arith.py`), and its SFT view (JAX :300-326), where
+    `input_ids` is prompt + answer + eos and `loss_mask` covers the answer
+    tokens, both cut to `max_length`."""
     name = path.split("/")[-1].lower()
     if name != "synthetic-arith":
         raise NotImplementedError(f"dataset {path!r} {_HUB}")
-    if type != "rl":
+    if type not in ("rl", "sft"):
         raise NotImplementedError(
             f"the {type!r} view of a dataset is not in the PyTorch port yet: "
-            "ROADMAP.md queue 1, items 2c (SFT) and 6 (reward models)"
+            "ROADMAP.md queue 1, item 6 (reward models)"
         )
     if world_size > 1:
         raise NotImplementedError(
             "sharding a dataset over hosts is not in the PyTorch port yet: "
             "ROADMAP.md queue 1, item 5"
         )
-    from areal_tpu_torch.dataset.arith import make_arith_dataset
+    from areal_tpu_torch.dataset.arith import ArithTokenizer, make_arith_dataset
 
-    return make_arith_dataset(
+    items = make_arith_dataset(
         n_items=kwargs.get("n_items", 4096),
         max_operand=kwargs.get("max_operand", 99),
         seed=kwargs.get("seed", 0),
         split=split,
     )
+    if type == "sft":
+        tok = ArithTokenizer()
+        for x in items:
+            ids = tok.encode(x["prompt"] + x["answer"]) + [tok.eos_token_id]
+            n_prompt = len(x["input_ids"])
+            x["input_ids"] = ids[:max_length] if max_length else ids
+            # supervise the answer tokens only; the mask follows a cut
+            n = len(x["input_ids"])
+            x["loss_mask"] = ([0] * n_prompt + [1] * max(0, n - n_prompt))[:n]
+    return items
 
 
 class SimpleDataLoader:

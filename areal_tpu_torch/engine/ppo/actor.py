@@ -34,6 +34,7 @@ from areal_tpu_torch.utils import stats_tracker
 from areal_tpu_torch.utils.data import KLEstimator, Normalization
 from areal_tpu_torch.utils.datapack import ffd_allocate
 from areal_tpu_torch.utils.functional import (
+    clamped_entropy_of,
     dynamic_sampling,
     label_logprobs_entropy_of,
     label_logprobs_of,
@@ -44,11 +45,6 @@ from areal_tpu_torch.utils.functional import (
 
 class PPOActor:
     def __init__(self, config: PPOActorConfig, engine: TrainEngine):
-        if config.entropy_clamp > 0:
-            raise NotImplementedError(
-                "entropy_clamp > 0 (the AEnt clamped entropy) is not in the "
-                "PyTorch port yet: ROADMAP.md queue 1, item 2"
-            )
         self.config = config
         self.engine = engine
         self.reward_bias = config.reward_bias
@@ -74,6 +70,7 @@ class PPOActor:
             c_clip=config.c_clip,
             behav_imp_weight_cap=config.behav_imp_weight_cap,
             entropy_coeff=config.entropy_coeff,
+            entropy_clamp=config.entropy_clamp,
         )
         self._loss_fn.hidden_loss = fused_lm_loss_enabled(engine)
         self._loss_fn.returns_aux = True
@@ -301,13 +298,20 @@ def grpo_loss_fn(
     c_clip: float | None,
     behav_imp_weight_cap: float | None,
     entropy_coeff: float = 0.0,
+    entropy_clamp: float = 0.0,
 ):
     """Packed GRPO/decoupled-PPO loss (JAX :378) and its per-update stats
     (masked means over trained tokens). Labels are the packed stream rolled
-    by -1; cross-segment labels carry loss_mask 0."""
+    by -1; cross-segment labels carry loss_mask 0. With `entropy_clamp > 0`
+    the entropy (the AEnt bonus and the logged stat) is the clamped one
+    (JAX :387-406)."""
     labels = torch.roll(mb["input_ids"], shifts=-1)
     loss_mask = mb["loss_mask"].bool()
-    logprobs, entropy = label_logprobs_entropy_of(logits, labels, temperature)
+    if entropy_clamp > 0:
+        logprobs = label_logprobs_of(logits, labels, temperature)
+        entropy = clamped_entropy_of(logits, entropy_clamp, temperature)
+    else:
+        logprobs, entropy = label_logprobs_entropy_of(logits, labels, temperature)
     loss, stat = ppo_actor_loss_fn(
         logprobs=logprobs,
         proximal_logprobs=mb["prox_logp"],

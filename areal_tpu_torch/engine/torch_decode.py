@@ -260,6 +260,7 @@ class TorchDecodeEngine(InferenceEngine):
 
     def initialize(self) -> "TorchDecodeEngine":
         self.config.check_supported()
+        self.inference_config.check_supported()
         if self.params is None:
             raise RuntimeError("no model installed: call set_model first")
         cfg = self.model_config

@@ -26,13 +26,25 @@
 - Weights reach a colocated `TorchDecodeEngine` in memory
   (`update_weights`, "memory" only): the decode engine copies them in
   place on the same card.
-Save/load and the SFT engine are later ROADMAP items (queue 1, item 2).
+- `save` / `load` (JAX :791, :823) take two formats. "hf" is one HF
+  `model.safetensors` (`models/hf_io.py`), with the optimizer beside it
+  under `optim/` when `with_optim`. "torch" is the recovery format that
+  replaces JAX's orbax one: `torch_state.pt`, a dict of tensors and ints
+  written by `torch.save` and read with `torch.load(weights_only=True)`
+  (the parameters, AdamW's `mu` and `nu`, its update `count`), and
+  `train_meta.json` (`step_count`, `version`, the layout tag) as JAX
+  writes it (:885-895). A load copies into the engine's tensors in place,
+  so the optimizer state stays on the device and the next `train_batch`
+  takes the step an uninterrupted run would have taken.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
+import shutil
 import time
 from typing import Any, Callable
 
@@ -42,7 +54,8 @@ import torch
 from areal_tpu_torch.api.alloc_mode import ParallelStrategy
 from areal_tpu_torch.api.cli_args import OptimizerConfig, TrainEngineConfig
 from areal_tpu_torch.api.engine_api import InferenceEngine, TrainEngine
-from areal_tpu_torch.api.io_struct import FinetuneSpec, WeightUpdateMeta
+from areal_tpu_torch.api.io_struct import FinetuneSpec, SaveLoadMeta, WeightUpdateMeta
+from areal_tpu_torch.models import hf_io
 from areal_tpu_torch.models.qwen2 import (
     LMHead,
     ModelConfig,
@@ -63,6 +76,12 @@ from areal_tpu_torch.utils.data import (
 from areal_tpu_torch.utils.flops import peak_flops, train_flops_per_token
 
 logger = logging.getLogger("torch_engine")
+
+# the recovery format's files (weight_format="torch")
+STATE_FILE = "torch_state.pt"
+TRAIN_META = "train_meta.json"
+# the JAX engine's layer-layout tag for a model-order layer stack
+LAYER_LAYOUT = "model"
 
 
 def make_lr_schedule(cfg: OptimizerConfig, total_steps: int) -> Callable[[int], float]:
@@ -125,6 +144,24 @@ class Optimizer:
             self.nu = [torch.zeros_like(p) for p in params]
             self.decay = list(decay)
 
+    def state_dict(self, names: list[str]) -> dict:
+        """The update count and, for AdamW, `mu` and `nu` keyed by the
+        parameter names (host tensors)."""
+        out: dict = {"count": int(self.count)}
+        if self.cfg.type == "adamw":
+            out["mu"] = {n: t.detach().cpu() for n, t in zip(names, self.mu)}
+            out["nu"] = {n: t.detach().cpu() for n, t in zip(names, self.nu)}
+        return out
+
+    def load_state_dict(self, state: dict, names: list[str]) -> None:
+        """Copy `state` into the moments in place (a changed `moment_dtype`
+        is an error, not a cast)."""
+        if self.cfg.type == "adamw":
+            for key, moments in (("mu", self.mu), ("nu", self.nu)):
+                for n, t in zip(names, moments):
+                    _copy_into(t, state[key][n], f"optimizer {key}[{n}]")
+        self.count = int(state["count"])
+
     @torch.no_grad()
     def step(self, params: list[torch.Tensor], grads: list[torch.Tensor]) -> None:
         """`grads` in the parameters' dtype, already clipped."""
@@ -159,6 +196,22 @@ class Optimizer:
                 u.add_(p * weak(cfg.weight_decay, p))
             u.mul_(neg_lr)
             p.copy_(p.float().add_(u))
+
+
+@torch.no_grad()
+def _copy_into(dst: torch.Tensor, src: torch.Tensor, what: str) -> None:
+    """`dst.copy_(src)` for a stored tensor of `dst`'s dtype and shape."""
+    if src.dtype != dst.dtype or src.shape != dst.shape:
+        raise ValueError(f"{what}: stored {src.dtype} {tuple(src.shape)}, engine "
+                         f"{dst.dtype} {tuple(dst.shape)}")
+    dst.copy_(src)
+
+
+def _format_message(fmt: str) -> str:
+    if fmt == "orbax":
+        return ("weight_format='orbax' is the JAX package's recovery format; the "
+                "port's is a torch state dict: weight_format='torch'")
+    return f"weight_format={fmt!r} not in ('hf', 'torch')"
 
 
 def fused_lm_loss_enabled(engine) -> bool:
@@ -227,6 +280,7 @@ class TorchTrainEngine(TrainEngine):
                 attn_impl=attn_impl,
             )
         self.model_config = dataclasses.replace(self.model_config, scan_layers=False)
+        cfg.jax.check_supported()
         mcfg = self.model_config
         check_supported(mcfg)
         want = named_shapes(mcfg)
@@ -275,6 +329,88 @@ class TorchTrainEngine(TrainEngine):
 
     def get_version(self) -> int:
         return self._version
+
+    # -- save / load ----------------------------------------------------
+    def save(self, meta: SaveLoadMeta) -> None:
+        """Write the weights as an HF checkpoint ("hf") or the whole
+        training state in the recovery format ("torch")."""
+        if meta.weight_format == "hf":
+            hf_io.save_hf_params(self.params, self.model_config, meta.path)
+            src = os.path.join(self.config.path, "config.json") if self.config.path else ""
+            if src and os.path.exists(src):
+                shutil.copy(src, os.path.join(meta.path, "config.json"))
+            self._save_tokenizer(meta)
+            if meta.with_optim:
+                self._state_save(os.path.join(meta.path, "optim"), with_params=False,
+                                 with_optim=True)
+        elif meta.weight_format == "torch":
+            self._state_save(meta.path, with_params=True, with_optim=meta.with_optim)
+            self._save_tokenizer(meta)
+        else:
+            raise NotImplementedError(_format_message(meta.weight_format))
+
+    def load(self, meta: SaveLoadMeta) -> None:
+        """Install a checkpoint `save` wrote: the recovery format when asked
+        for or found, else an HF directory (and its `optim/` with
+        `with_optim`)."""
+        if meta.weight_format not in ("hf", "torch"):
+            raise NotImplementedError(_format_message(meta.weight_format))
+        if meta.weight_format == "torch" or os.path.exists(os.path.join(meta.path, STATE_FILE)):
+            self._state_load(meta.path, with_params=True, with_optim=meta.with_optim)
+            return
+        host = hf_io.load_hf_params(meta.path, self.model_config)
+        self._copy_params(host)
+        optim_dir = os.path.join(meta.path, "optim")
+        if meta.with_optim and os.path.isdir(optim_dir):
+            self._state_load(optim_dir, with_params=False, with_optim=True)
+
+    @staticmethod
+    def _save_tokenizer(meta: SaveLoadMeta) -> None:
+        # the built-in arithmetic tokenizer has no files and no
+        # save_pretrained (the JAX engine calls it on any tokenizer)
+        if meta.tokenizer is not None and hasattr(meta.tokenizer, "save_pretrained"):
+            meta.tokenizer.save_pretrained(meta.path)
+
+    def _state_save(self, path: str, *, with_params: bool, with_optim: bool) -> None:
+        os.makedirs(path, exist_ok=True)
+        state: dict = {}
+        if with_params:
+            state["params"] = {k: v.detach().cpu() for k, v in self.params.items()}
+        if with_optim and self.optimizer is not None:
+            state["optim"] = self.optimizer.state_dict(list(self.params))
+        torch.save(state, os.path.join(path, STATE_FILE))
+        with open(os.path.join(path, TRAIN_META), "w") as f:
+            json.dump(dict(step_count=self._step_count, version=self._version,
+                           layer_layout=LAYER_LAYOUT), f)
+
+    def _state_load(self, path: str, *, with_params: bool, with_optim: bool) -> None:
+        with open(os.path.join(path, TRAIN_META)) as f:
+            meta = json.load(f)
+        if meta.get("layer_layout", LAYER_LAYOUT) != LAYER_LAYOUT:
+            raise ValueError(
+                f"checkpoint layer layout {meta['layer_layout']!r} does not match "
+                f"the engine's {LAYER_LAYOUT!r}"
+            )
+        state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                           weights_only=True)
+        if with_params:
+            self._copy_params(state["params"])
+        if with_optim and self.optimizer is not None:
+            if "optim" not in state:
+                raise KeyError(f"{path} holds no optimizer state")
+            self.optimizer.load_state_dict(state["optim"], list(self.params))
+        self._step_count = int(meta["step_count"])
+        self._version = int(meta["version"])
+
+    def _copy_params(self, named: dict[str, torch.Tensor]) -> None:
+        """Copy `named` into the engine's parameters in place; names,
+        shapes and dtypes must be the engine's."""
+        if set(named) != set(self.params):
+            missing = sorted(set(self.params) - set(named))[:5]
+            extra = sorted(set(named) - set(self.params))[:5]
+            raise KeyError(f"parameter names differ: missing {missing}, extra {extra}")
+        for k, p in self.params.items():
+            _copy_into(p, named[k], k)
 
     # -- weight updates -------------------------------------------------
     def connect_engine(self, engine: InferenceEngine, meta: WeightUpdateMeta):

@@ -98,6 +98,7 @@ def main(
     (`batch`)."""
     config, _ = load_expr_config(argv, GRPOConfig)
     config: GRPOConfig
+    config.check_supported()
 
     rank = 0
     seeding.set_random_seed(config.seed, key=f"trainer{rank}")

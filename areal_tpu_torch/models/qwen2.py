@@ -47,7 +47,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from areal_tpu_torch.ops.flash_attention import PADDING_SEGMENT, flash_attention, packed_layout
-from areal_tpu_torch.ops.fused_xent import chunked_label_logprobs
+from areal_tpu_torch.ops.fused_xent import chunked_clamped_entropy, chunked_label_logprobs
 from areal_tpu_torch.ops.kv_quant import quantize_kv, split_pool
 from areal_tpu_torch.ops.paged_attention import paged_attention, paged_attention_qlen
 from areal_tpu_torch.ops.quant import dequantize_absmax, quantize_absmax
@@ -755,6 +755,15 @@ class LMHead:
             self.hidden, w.to(self.hidden.dtype), labels, head_is_vh=vh,
             temperature=temperature, with_entropy=True,
             vocab_chunk=self.cfg.loss_vocab_chunk,
+        )
+
+    def clamped_entropy(self, entropy_clamp: float, temperature: float = 1.0):
+        """AEnt clamped entropy (JAX :1054), in token chunks: the clamp's
+        threshold cannot ride the online vocab scan."""
+        w, vh = self._head()
+        return chunked_clamped_entropy(
+            self.hidden, w.to(self.hidden.dtype), head_is_vh=vh,
+            entropy_clamp=entropy_clamp, temperature=temperature,
         )
 
 

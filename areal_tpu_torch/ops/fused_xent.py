@@ -1,6 +1,8 @@
 """Label logprobs (and entropy) from the LM head without [T, V] logits
 (counterpart of `areal_tpu/ops/fused_xent.py::chunked_label_logprobs`,
-:34). There is no Pallas kernel behind it, so it is plain PyTorch.
+:34), and the AEnt clamped entropy over token chunks
+(`chunked_clamped_entropy`, :135). There is no Pallas kernel behind
+either, so they are plain PyTorch.
 
 An online logsumexp runs over vocab chunks: each chunk's [T, chunk]
 logits fold into running (max, sumexp, entropy numerator, label logit)
@@ -30,6 +32,15 @@ def _mm_f32(a, b):
     return a.float() @ b.float()
 
 
+def _split_f32(g, dtype: torch.dtype):
+    """An f32 cotangent as operands of `dtype`: itself in f32, else
+    hi + lo, each exact in the narrow dtype, to about 2^-16 of g."""
+    if dtype == torch.float32:
+        return (g,)
+    hi = g.to(dtype)
+    return hi, (g - hi.float()).to(dtype)
+
+
 class _HeadLogits(torch.autograd.Function):
     """[T, H] x [H, chunk] -> f32 logits. `torch.mm` with an `out_dtype`
     has no derivative, hence the Function; the gradients come back in the
@@ -43,11 +54,7 @@ class _HeadLogits(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         hidden, w = ctx.saved_tensors
-        if hidden.dtype == torch.float32:
-            parts = (g,)
-        else:  # g = hi + lo to about 2^-16 of g, each half exact in bf16
-            hi = g.to(hidden.dtype)
-            parts = (hi, (g - hi.float()).to(hidden.dtype))
+        parts = _split_f32(g, hidden.dtype)
         dh = dw = None
         if ctx.needs_input_grad[0]:
             dh = sum(_mm_f32(p, w.t()) for p in parts).to(hidden.dtype)
@@ -112,3 +119,72 @@ def chunked_label_logprobs(
     if with_entropy:
         return logp, lse - e / s
     return logp
+
+
+class _ClampedEntropy(torch.autograd.Function):
+    """Clamped entropy over token chunks of the head's logits. The forward
+    keeps no chunk: the backward computes each chunk's logits again, takes
+    its cotangent through the dense `clamped_softmax_entropy`, and adds the
+    head's gradient over the chunks in an f32 accumulator the head's shape,
+    rounded once at the end (a sum of bf16-rounded chunk gradients drifts by
+    about 2^-9 of the running sum per chunk)."""
+
+    @staticmethod
+    def forward(ctx, hidden, head_w, head_is_vh, entropy_clamp, temperature, token_chunk):
+        from areal_tpu_torch.utils.functional import clamped_softmax_entropy
+
+        w_hv = head_w.t() if head_is_vh else head_w
+        out = [clamped_softmax_entropy(_mm_f32(hidden[s:s + token_chunk], w_hv),
+                                       entropy_clamp, temperature)
+               for s in range(0, hidden.shape[0], token_chunk)]
+        ctx.save_for_backward(hidden, head_w)
+        ctx.args = (head_is_vh, entropy_clamp, temperature, token_chunk)
+        return torch.cat(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        from areal_tpu_torch.utils.functional import clamped_softmax_entropy
+
+        hidden, head_w = ctx.saved_tensors
+        head_is_vh, entropy_clamp, temperature, token_chunk = ctx.args
+        w_hv = head_w.t() if head_is_vh else head_w
+        dh = torch.empty_like(hidden) if ctx.needs_input_grad[0] else None
+        acc = (torch.zeros(head_w.shape, dtype=torch.float32, device=head_w.device)
+               if ctx.needs_input_grad[1] else None)
+        for s in range(0, hidden.shape[0], token_chunk):
+            h = hidden[s:s + token_chunk]
+            with torch.enable_grad():
+                logits = _mm_f32(h, w_hv).requires_grad_()
+                ent = clamped_softmax_entropy(logits, entropy_clamp, temperature)
+                (dl,) = torch.autograd.grad(ent, logits, g[s:s + token_chunk])
+            parts = _split_f32(dl, hidden.dtype)
+            if dh is not None:
+                dh[s:s + token_chunk] = sum(_mm_f32(p, w_hv.t()) for p in parts).to(dh.dtype)
+            if acc is not None:
+                for p in parts:
+                    acc += _mm_f32(p.t(), h) if head_is_vh else _mm_f32(h.t(), p)
+        dw = acc.to(head_w.dtype) if acc is not None else None
+        return dh, dw, None, None, None, None
+
+
+def chunked_clamped_entropy(
+    hidden,
+    head_w,
+    *,
+    head_is_vh: bool = False,
+    entropy_clamp: float = 0.2,
+    temperature: float = 1.0,
+    token_chunk: int = 128,
+):
+    """AEnt clamped entropy (f32 [T]) from post-final-norm hidden states
+    [T, H] and the LM head weight ([H, V], or [V, H] with `head_is_vh`).
+    The clamp's threshold is an order statistic over the whole vocab, so it
+    cannot ride the online vocab scan: the tokens go in chunks of
+    `token_chunk`, each chunk's [token_chunk, V] f32 logits computed whole
+    (78 MB at 128 x 151936) and computed again in the backward, so one
+    chunk of logits is the peak in both passes. The same value as
+    `clamped_softmax_entropy` of the dense logits, to f32 rounding; the
+    head's gradient is summed over the chunks in f32 (where JAX's `lax.map`
+    adds the chunks' bf16 gradients in bf16)."""
+    return _ClampedEntropy.apply(hidden, head_w, bool(head_is_vh), float(entropy_clamp),
+                                 float(temperature), int(token_chunk))

@@ -49,6 +49,42 @@ def label_logprobs_entropy_of(x, labels, temperature: float = 1.0):
     return gather_logprobs_entropy(x, labels, temperature)
 
 
+def clamped_softmax_entropy(logits, entropy_clamp: float, temperature: float = 1.0):
+    """Token-space-clamped softmax entropy, the AEnt regulariser (JAX :90):
+    the `floor(V * entropy_clamp)` lowest logits of each row are left out,
+    the rest renormalised, and its entropy returned, f32 `[...]`. The
+    threshold is the k-th order statistic of the row (`kthvalue`); the keep
+    mask is discrete and detached, so the gradient reaches the kept logits
+    only. Ties at the threshold are all kept."""
+    if not 0.0 <= entropy_clamp < 1.0:
+        raise ValueError(f"entropy_clamp must be in [0, 1), got {entropy_clamp}")
+    v = logits.shape[-1]
+    k_rm = min(int(v * entropy_clamp), v - 1)
+    x = logits.float() / max(temperature, 1e-6)
+    if k_rm <= 0:
+        logz = torch.logsumexp(x, dim=-1)
+        p = torch.exp(x - logz[..., None])
+        return logz - (p * x).sum(-1)
+    # the smallest kept logit: ascending positions [0, k_rm) are removed
+    with torch.no_grad():
+        tau = torch.kthvalue(x, k_rm + 1, dim=-1).values
+        keep = x >= tau[..., None]
+    masked = torch.where(keep, x, float("-inf"))
+    lse = torch.logsumexp(masked, dim=-1)
+    p = torch.where(keep, torch.exp(x - lse[..., None]), 0.0)
+    return lse - (p * x).sum(-1)
+
+
+def clamped_entropy_of(x, entropy_clamp: float, temperature: float = 1.0):
+    """Clamped entropy from dense `[T, V]` logits or an `LMHead`, whose
+    fused head cannot clamp inside its online vocab scan (the threshold is
+    an order statistic over the whole row): it computes the logits in token
+    chunks instead (`LMHead.clamped_entropy`)."""
+    if hasattr(x, "clamped_entropy"):
+        return x.clamped_entropy(entropy_clamp, temperature)
+    return clamped_softmax_entropy(x, entropy_clamp, temperature)
+
+
 def masked_normalization(
     x,
     mask=None,

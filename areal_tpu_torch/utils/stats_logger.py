@@ -1,6 +1,6 @@
 """Per-step metrics to the console (counterpart of
 `areal_tpu/utils/stats_logger.py`; its tensorboard, wandb and swanlab
-backends are not in the port)."""
+backends are not in the port, and switching one on is refused)."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ logger = logging.getLogger("stats_logger")
 
 class StatsLogger:
     def __init__(self, config: StatsLoggerConfig, ft_spec: FinetuneSpec | None = None):
+        config.check_supported()
         self.config = config
         self.ft_spec = ft_spec
 

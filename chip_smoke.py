@@ -19,7 +19,15 @@ gate, RLVR episodes, decoupled-PPO update and weight push) on
 lr=0 control, and at Qwen2.5-1.5B full width and depth, and runs three
 colocated GRPO iterations (rollout, `compute_logp`, `compute_advantages`,
 `ppo_update`, weight push) through `TorchPPOActor` at Qwen2.5-1.5B full
-width and depth. It checks that the kernels really carried each path. Each phase prints one JSON line; then
+width and depth. Then the trainer's persistence and the SFT path: the
+port's SFT entry point (`areal_tpu_torch/examples/gsm8k_sft.py`) at
+Qwen2.5-1.5B full width and depth, 4 steps with an HF export, 2 steps
+with a recovery point and a resume to 4 that must equal the uninterrupted
+run bit for bit; `arith_sft_smoke.yaml` unchanged with its evaluations;
+the GRPO entry point's recovery (a resume at step 2 serving the restored
+weights); and the AEnt clamped entropy, in a GRPO run and at Qwen2.5-1.5B's
+head against its dense version. It checks that the kernels really carried
+each path. Each phase prints one JSON line; then
 come the `kernels` line, the card's name and power limit, and last
 `{"ok": true, "device": ...}`. Any failed check raises, and the script
 exits non-zero without that last line.
@@ -61,6 +69,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2533,6 +2542,9 @@ FULL_OVERRIDES = [
     f"total_train_steps={FULL_STEPS}",
     # the train phase's micro-batch and remat settings
     "actor.mb_spec.max_tokens_per_mb=8192", "actor.gradient_checkpointing=true",
+    # one recovery point, at the last step (global step 2), while the
+    # decode thread runs the next batch's chunk on the same stream
+    "recover.mode=auto", f"recover.freq_steps={FULL_STEPS}", "recover.keep_last=1",
 ]
 LOOP_TIMINGS = ("rollout", "recompute_logp", "compute_advantage", "train_step",
                 "update_weights")
@@ -2564,6 +2576,35 @@ def _traced(fn, *args, **kwargs):
     total = sum(fams.values())
     return out, dict(wall_ms=wall_ms, kernels=n_kernels, device_ms=fams, device_total_ms=total,
                      device_busy_share=total / wall_ms, top_other_ms=top_other)
+
+
+@contextlib.contextmanager
+def _observe_dump():
+    """While a run dumps recovery points: each `_state_save`'s seconds (the
+    state's copy to the host, which waits behind the work queued on the
+    stream, and its write) and the seconds of `torch.save` inside it."""
+    from areal_tpu_torch.engine.torch_engine import TorchTrainEngine
+
+    seen = []
+    state_save, save = TorchTrainEngine._state_save, torch.save
+
+    def save_(*args, **kwargs):
+        t0 = time.perf_counter()
+        save(*args, **kwargs)
+        seen[-1]["torch_save_s"] = time.perf_counter() - t0
+
+    def state_save_(self, *args, **kwargs):
+        seen.append({})
+        t0 = time.perf_counter()
+        state_save(self, *args, **kwargs)
+        seen[-1]["state_save_s"] = time.perf_counter() - t0
+        seen[-1]["host_copy_s"] = seen[-1]["state_save_s"] - seen[-1]["torch_save_s"]
+
+    TorchTrainEngine._state_save, torch.save = state_save_, save_
+    try:
+        yield seen
+    finally:
+        TorchTrainEngine._state_save, torch.save = state_save, save
 
 
 @contextlib.contextmanager
@@ -2616,18 +2657,23 @@ def _observe_loop(trace_step: int | None = None):
 
 
 def _loop_run(dev, tag: str, overrides: list[str], model_config=None, reward_fn=None,
-              trace_step: int | None = None) -> dict:
+              trace_step: int | None = None, root: str | None = None,
+              first_step: int = 0) -> dict:
     """One run of the entry point on the smoke yaml with `overrides`, its
     kernel counts set to 0 just before and read just after, and each
     step's record: the mean reward, the loop's timings, the version lag
     (the step's weight version minus the oldest version of a token it
-    trains on), the micro-batches of `compute_logp` and of `ppo_update`."""
-    with tempfile.TemporaryDirectory() as root:
+    trains on), the micro-batches of `compute_logp` and of `ppo_update`.
+    `root` (a temporary directory by default) is the run's file root, and
+    `first_step` the global step a resumed run starts at."""
+    with contextlib.ExitStack() as stack:
+        if root is None:
+            root = stack.enter_context(tempfile.TemporaryDirectory())
         argv = ["--config", GRPO_YAML, *overrides, f"cluster.fileroot={root}",
-                f"experiment_name=chip-smoke-{tag}"]
+                f"experiment_name=chip-smoke-{tag.split('/')[0]}"]
         config, _ = load_expr_config(argv, GRPOConfig)
         torch.cuda.reset_peak_memory_stats(dev)
-        with _observe_loop(trace_step) as seen:
+        with _observe_loop(trace_step) as seen, _observe_dump() as dumps:
             # ---- the main path: counts to 0 just before, read just after ----
             pa.launches = fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
             t0 = time.perf_counter()
@@ -2651,14 +2697,17 @@ def _loop_run(dev, tag: str, overrides: list[str], model_config=None, reward_fn=
         completions = {tuple(ids[b:n]) for ids, b, n in zip(
             batch["input_ids"].tolist(), batch["begin_of_answer"].tolist(),
             batch["attention_mask"].sum(-1).tolist())}
-        row = dict(step=i, reward_mean=float(np.mean(batch["rewards"])),
+        row = dict(step=first_step + i, reward_mean=float(np.mean(batch["rewards"])),
                    distinct_completions=len(completions),
-                   version_lag=int(i - batch["versions"][gen].min()),
+                   version_lag=int(first_step + i - batch["versions"][gen].min()),
                    samples=int(batch["input_ids"].shape[0]),
                    tokens=int(batch["attention_mask"].sum()), logp_mbs=n_logp,
                    train_mbs=n_train, loss=st["grpo_actor/loss"],
+                   entropy=st["grpo_actor/entropy"],
                    **{f"{k}_s": st[f"timeperf/{k}"] for k in LOOP_TIMINGS})
         row["trained_tokens_per_s"] = row["tokens"] / row["train_step_s"]
+        if "timeperf/checkpoint_for_recover" in st:
+            row["checkpoint_for_recover_s"] = st["timeperf/checkpoint_for_recover"]
         if i == trace_step:
             # the step's rollout and train_step times include the tracer's
             # own processing; `traced_step` holds the traced windows' walls
@@ -2686,6 +2735,8 @@ def _loop_run(dev, tag: str, overrides: list[str], model_config=None, reward_fn=
                max_version_lag=max(r["version_lag"] for r in steps), steps=steps)
     if seen["traces"]:
         out["traced_step"] = dict(step=trace_step, **seen["traces"])
+    if dumps:
+        out["dumps"] = dumps
     return out
 
 
@@ -2702,7 +2753,9 @@ def phase_grpo_loop(dev: torch.device) -> dict:
         first 3, and an lr=0 control run fails that check;
     (c) Qwen2.5-1.5B at its published widths and depth, bf16, random
         weights, with the train phase's reward: 3 steps of 8 prompts x 4
-        samples, 256 new tokens, async.
+        samples, 256 new tokens, async; one recovery point at the last
+        step, dumped while the decode thread runs the next chunk (its
+        `checkpoint_for_recover` seconds and split in the run's record).
 
     In every run K3 launches L per decode step and K1/K2a/K2b L per
     micro-batch pass (K1 twice per trained micro-batch under remat); the
@@ -2748,6 +2801,382 @@ def phase_grpo_loop(dev: torch.device) -> dict:
     return dict(launches=total, by_run={t: r["launches"] for t, r in runs.items()})
 
 
+# phases: checkpoints, recovery and the SFT entry point
+# (`areal_tpu_torch/examples/gsm8k_sft.py`)
+SFT_YAML = str(Path(__file__).resolve().parent / "examples" / "configs" / "arith_sft_smoke.yaml")
+# examples/configs/gsm8k_sft.yaml's model and optimizer settings on the
+# synthetic set: 1024 items a step (4 steps to the 4096-item epoch, ~10k
+# tokens, two 8192-token micro-batches), the evaluator off
+SFT_OVERRIDES = [
+    "train_dataset.batch_size=1024", "model.dtype=bfloat16",
+    "model.gradient_checkpointing=true", "model.mb_spec.max_tokens_per_mb=8192",
+    "model.optimizer.lr=1e-5", "model.optimizer.lr_scheduler_type=cosine",
+    "model.optimizer.warmup_steps_proportion=0.01", "model.optimizer.weight_decay=0.05",
+    "evaluator.freq_steps=null",
+]
+SFT_STEPS = 4
+# free disk the full-size phase needs: A's HF export (f32, ~6.2 GB) and
+# B's recovery point (~12.4 GB), with room to spare
+SFT_DISK_BYTES = 24e9
+SMOKE_SFT_STEPS = 30
+SMOKE_SFT_EVAL_STEPS = [9, 19, 29]  # the yaml's evaluator.freq_steps: 10
+FLASH_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+@contextlib.contextmanager
+def _observe_recover():
+    """While an entry point runs: each `RecoverHandler.load`'s seconds and
+    the step it restored, and with a decode engine the trainer's and the
+    decode engine's versions and whether the decode engine serves the
+    trainer's restored weights bit for bit, read right after the load's
+    re-push."""
+    from areal_tpu_torch.utils.recover import RecoverHandler
+
+    seen = []
+    load = RecoverHandler.load
+
+    def load_(self, engine, *args, inference_engine=None, **kwargs):
+        t0 = time.perf_counter()
+        info = load(self, engine, *args, inference_engine=inference_engine, **kwargs)
+        rec = dict(seconds=time.perf_counter() - t0,
+                   step=None if info is None else info.last_step_info.global_step)
+        if info is not None and inference_engine is not None:
+            served = inference_engine.params
+            rec.update(trainer_version=engine.get_version(),
+                       decode_version=inference_engine.get_version(),
+                       weights_equal=all(torch.equal(v, served[k])
+                                         for k, v in engine.params.items()))
+        seen.append(rec)
+        return info
+
+    RecoverHandler.load = load_
+    try:
+        yield seen
+    finally:
+        RecoverHandler.load = load
+
+
+@contextlib.contextmanager
+def _observe_sft():
+    """While `gsm8k_sft.main` runs: keep each engine's final parameters
+    (`destroy` drops them), the peak device memory after each step and the
+    micro-batches of every `eval_batch`. Patches the methods for the
+    duration and restores them."""
+    from areal_tpu_torch.engine.sft.lm_engine import TorchLMEngine
+
+    seen = dict(final=[], model_config=None, peak_gb=[], eval_mbs=0)
+    destroy, train_lm, evaluate = TorchLMEngine.destroy, TorchLMEngine.train_lm, \
+        TorchLMEngine.eval_batch
+
+    def destroy_(self):
+        seen["final"].append(self.params)  # dropped by the caller unless kept
+        seen["model_config"] = self.model_config
+        return destroy(self)
+
+    def train_lm_(self, data):
+        out = train_lm(self, data)
+        seen["peak_gb"].append(torch.cuda.max_memory_allocated() / 1e9)
+        return out
+
+    def eval_batch_(self, input_, *args, **kwargs):
+        seen["eval_mbs"] += len(split_padded_tensor_dict_into_mb_list(
+            input_, self.config.mb_spec).mbs)
+        return evaluate(self, input_, *args, **kwargs)
+
+    TorchLMEngine.destroy, TorchLMEngine.train_lm = destroy_, train_lm_
+    TorchLMEngine.eval_batch = eval_batch_
+    try:
+        yield seen
+    finally:
+        TorchLMEngine.destroy, TorchLMEngine.train_lm = destroy, train_lm
+        TorchLMEngine.eval_batch = evaluate
+
+
+def _sft_run(dev, tag: str, argv: list[str], model_config=None,
+             keep_final: bool = False) -> dict:
+    """One run of the SFT entry point, its flash counts set to 0 just before
+    and read just after; the counts must equal L x (2 if remat else 1) x
+    trained micro-batches + L x evaluated micro-batches for K1 and L x
+    trained micro-batches for K2a and K2b. Peak memory is reported above
+    what was allocated before the run (an earlier run's kept parameters);
+    `keep_final` keeps the engine's final parameters on the device."""
+    from areal_tpu_torch.examples import gsm8k_sft
+
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _observe_sft() as seen, _observe_dump() as dumps, _observe_recover() as loads:
+        # ---- the main path: counts to 0 just before, read just after ----
+        fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+        t0 = time.perf_counter()
+        history = gsm8k_sft.main(argv, model_config=model_config, device=dev)
+        wall = time.perf_counter() - t0
+        launches = dict(flash_attention_fwd=fa.launches_fwd,
+                        flash_attention_bwd_dq=fa.launches_dq,
+                        flash_attention_bwd_dkv=fa.launches_dkv)
+        # ---- end of the main path ----
+    cfg = seen["model_config"]
+    L, remat = cfg.num_hidden_layers, cfg.remat
+    train_mbs = int(sum(r["n_mbs"] for r in history))
+    want = dict(flash_attention_fwd=L * ((2 if remat else 1) * train_mbs + seen["eval_mbs"]),
+                flash_attention_bwd_dq=L * train_mbs, flash_attention_bwd_dkv=L * train_mbs)
+    check(launches == want, f"sft {tag}: launches {launches}, formulas {want}")
+    steps = []
+    for r, peak in zip(history, seen["peak_gb"]):
+        check(math.isfinite(r["loss"]), f"sft {tag} step {r['global_step']}: loss {r['loss']}")
+        steps.append(dict(
+            step=r["global_step"], loss=r["loss"], grad_norm=r["grad_norm"], lr=r["lr"],
+            n_mbs=r["n_mbs"], tokens=r["n_tokens"], wall_s=r["timeperf/train_step"],
+            trained_tokens_per_s=r["n_tokens"] / r["train_batch_time"], mfu=r["mfu"],
+            max_memory_allocated_gb=peak - base_gb, save_s=r["timeperf/save"],
+            checkpoint_for_recover_s=r["timeperf/checkpoint_for_recover"],
+            **({"eval_loss": r["eval_loss"]} if "eval_loss" in r else {})))
+    return dict(run=tag, wall_s=wall, layers=L, launches=launches, eval_mbs=seen["eval_mbs"],
+                train_mbs=train_mbs, loads=loads, dumps=dumps, steps=steps,
+                allocated_before_gb=base_gb, final=seen["final"][0] if keep_final else None)
+
+
+def phase_sft(dev: torch.device) -> dict:
+    """The port's SFT entry point at Qwen2.5-1.5B full width and depth,
+    bf16, on `arith_sft_smoke.yaml` with the overrides of `SFT_OVERRIDES`:
+
+    A. 4 steps (the epoch) uninterrupted, `saver.freq_epochs=1`: the HF
+       export fires at step 3;
+    B. 2 steps, `recover.mode=auto`, `recover.freq_steps=2`,
+       `recover.keep_last=1`: one recovery point, at global step 1;
+    C. `recover.mode=resume` to 4 steps in B's file root: it must start at
+       global step 2.
+
+    Checks: C's losses at steps 2-3 and its final parameters equal A's bit
+    for bit (no flash kernel adds with atomics, and the same kernels run on
+    the same card); A's HF export, loaded into a fresh engine, equals A's
+    final parameters bit for bit (bf16 -> F32 on disk -> bf16), and its
+    size is the reckoned bytes (every parameter as f32, the tied head
+    once); K1 = L x 2 x trained micro-batches (remat), K2a = K2b = L x
+    trained micro-batches in every run. Everything is written under a
+    temporary directory that the phase removes."""
+    from areal_tpu_torch.api.cli_args import SFTConfig
+    from areal_tpu_torch.api.io_struct import SaveLoadMeta
+    from areal_tpu_torch.engine.sft.lm_engine import TorchLMEngine
+    from areal_tpu_torch.models.qwen2 import named_shapes
+    from areal_tpu_torch.utils.saver import Saver
+
+    cfg = dataclasses.replace(QWEN25_1_5B, remat=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sft_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        emit("sft_disk", path=tmp, free_bytes=free, needs_bytes=SFT_DISK_BYTES)
+        check(free >= SFT_DISK_BYTES, f"sft: {free} bytes free under {tmp}, "
+                                      f"{SFT_DISK_BYTES:.0f} needed")
+        base = ["--config", SFT_YAML, *SFT_OVERRIDES, "experiment_name=chip-smoke-sft"]
+        runs = {}
+        argv_a = base + [f"cluster.fileroot={tmp}/A", f"total_train_steps={SFT_STEPS}",
+                         "saver.freq_epochs=1"]
+        runs["A"] = _sft_run(dev, "A", argv_a, cfg, keep_final=True)
+        runs["B"] = _sft_run(dev, "B", base + [
+            f"cluster.fileroot={tmp}/B", "total_train_steps=2", "recover.mode=auto",
+            "recover.freq_steps=2", "recover.keep_last=1"], cfg)
+        step_dirs = sorted(Path(tmp, "B", "recover").rglob("step-*"))
+        check([d.name for d in step_dirs] == ["step-1"], f"sft B: recovery points {step_dirs}")
+        dump_bytes = _dir_bytes(str(step_dirs[0]))
+        runs["C"] = _sft_run(dev, "C", base + [
+            f"cluster.fileroot={tmp}/B", f"total_train_steps={SFT_STEPS}",
+            "recover.mode=resume"], cfg, keep_final=True)
+        a, c = runs["A"], runs["C"]
+        check([r["step"] for r in c["steps"]] == [2, 3],
+              f"sft C: steps {[r['step'] for r in c['steps']]}, expected [2, 3]")
+        check(c["loads"][0]["step"] == 1, f"sft C: loaded {c['loads']}")
+        a_loss = [r["loss"] for r in a["steps"][2:]]
+        c_loss = [r["loss"] for r in c["steps"]]
+        check(a_loss == c_loss, f"sft: resumed losses {c_loss} != uninterrupted {a_loss}")
+        differ = [k for k in a["final"] if not torch.equal(a["final"][k], c["final"][k])]
+        check(not differ, f"sft: resumed final parameters differ from A's at {differ[:5]}")
+        # A's HF export into a fresh engine (no optimizer)
+        config, _ = load_expr_config(argv_a, SFTConfig)
+        export = Path(Saver.get_save_checkpoint_path(config.saver, 0, SFT_STEPS - 1,
+                                                     SFT_STEPS - 1))
+        f = export / "model.safetensors"
+        check(f.exists(), f"sft A: no HF export at {f}")
+        with open(f, "rb") as fh:
+            header = 8 + int.from_bytes(fh.read(8), "little")
+        reckoned = sum(math.prod(shape) for shape in named_shapes(cfg).values()) * 4
+        size = f.stat().st_size
+        check(size - header == reckoned,
+              f"sft A: export holds {size - header} tensor bytes, reckoned {reckoned}")
+        model_cfg = dataclasses.replace(config.model, optimizer=None)
+        fresh = TorchLMEngine(model_cfg, device=dev)
+        fresh.model_config = cfg
+        fresh.create_process_group()
+        fresh.initialize(None, None)
+        t0 = time.perf_counter()
+        fresh.load(SaveLoadMeta(path=str(export), weight_format="hf"))
+        torch.cuda.synchronize()
+        hf_load_s = time.perf_counter() - t0
+        differ = [k for k in a["final"] if not torch.equal(a["final"][k], fresh.params[k])]
+        fresh.destroy()
+        check(not differ, f"sft: the HF export reloads unequal at {differ[:5]}")
+        for r in runs.values():
+            r.pop("final")
+        dump_s = runs["B"]["steps"][1]["checkpoint_for_recover_s"]
+        emit("sft", entry_point="areal_tpu_torch/examples/gsm8k_sft.py:main", yaml=SFT_YAML,
+             overrides=SFT_OVERRIDES, model="Qwen2.5-1.5B", source=QWEN25_1_5B_SOURCE,
+             resumed_losses=c_loss, losses_equal=True, final_params_equal=True,
+             hf_export=dict(path=str(f.relative_to(tmp)), bytes=size, header_bytes=header,
+                            reckoned_tensor_bytes=reckoned, save_s=a["steps"][-1]["save_s"],
+                            load_s=hf_load_s, reload_equal=True),
+             recover=dict(dump_s=dump_s, dump_bytes=dump_bytes, dump_split=runs["B"]["dumps"],
+                          load_s=c["loads"][0]["seconds"]),
+             runs=list(runs.values()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = {k: sum(r["launches"][k] for r in runs.values()) for k in FLASH_COUNTERS}
+    return dict(launches=total, by_run={t: r["launches"] for t, r in runs.items()})
+
+
+def phase_sft_smoke(dev: torch.device) -> dict:
+    """`arith_sft_smoke.yaml` unchanged through the SFT entry point (the
+    smoke decoder in f32: the flash kernels' f32 routes): 30 steps, the
+    evaluator at steps 9, 19 and 29 (`eval_batch`, K1 alone). The loss at
+    the last step is below the first, every eval loss is finite, and the
+    flash counts equal their formulas."""
+    with tempfile.TemporaryDirectory() as root:
+        run = _sft_run(dev, "smoke", ["--config", SFT_YAML, f"cluster.fileroot={root}",
+                                      "experiment_name=chip-smoke-sft-smoke"])
+    steps = run["steps"]
+    check(len(steps) == SMOKE_SFT_STEPS, f"sft_smoke: {len(steps)} steps")
+    evals = [r["step"] for r in steps if "eval_loss" in r]
+    check(evals == SMOKE_SFT_EVAL_STEPS, f"sft_smoke: evaluations at {evals}")
+    check(all(math.isfinite(r["eval_loss"]) for r in steps if "eval_loss" in r),
+          "sft_smoke: eval loss not finite")
+    check(steps[-1]["loss"] < steps[0]["loss"],
+          f"sft_smoke: loss {steps[0]['loss']} -> {steps[-1]['loss']} did not fall")
+    run.pop("final")
+    emit("sft_smoke", yaml=SFT_YAML, first_loss=steps[0]["loss"], last_loss=steps[-1]["loss"],
+         eval_losses={r["step"]: r["eval_loss"] for r in steps if "eval_loss" in r}, **run)
+    return dict(launches=run["launches"])
+
+
+def phase_grpo_recover(dev: torch.device) -> dict:
+    """The GRPO entry point's recovery on the smoke yaml: 2 steps with
+    `recover.mode=auto` and `recover.freq_steps=1`, then a resume to 4
+    steps in the same file root. The resumed run restores global step 1
+    and starts at step 2 with version 2 on both engines, the decode engine
+    serves the trainer's restored weights bit for bit, the version lag stays
+    within the yaml's 2, and each run's launches equal their formulas
+    (`_loop_run`)."""
+    over = ["evaluator.freq_steps=null", "recover.mode=auto", "recover.freq_steps=1"]
+    with tempfile.TemporaryDirectory() as root, _observe_recover() as loads:
+        first = _loop_run(dev, "grpo_recover/first", over + ["total_train_steps=2"], root=root)
+        resumed = _loop_run(dev, "grpo_recover/resumed", over + ["total_train_steps=4"],
+                            root=root, first_step=2)
+    check(loads[0]["step"] is None, f"grpo_recover: the first run loaded {loads[0]}")
+    rec = loads[1]
+    check(rec["step"] == 1 and rec["trainer_version"] == 2 and rec["decode_version"] == 2,
+          f"grpo_recover: resumed from {rec}")
+    check(rec["weights_equal"], "grpo_recover: the decode engine does not serve the "
+                                "trainer's restored weights")
+    check([r["step"] for r in resumed["steps"]] == [2, 3],
+          f"grpo_recover: resumed steps {[r['step'] for r in resumed['steps']]}")
+    for run in (first, resumed):
+        check(run["max_version_lag"] <= 2, f"{run['run']}: version lag {run['max_version_lag']}")
+    emit("grpo_recover", load=rec, runs=[first, resumed])
+    return dict(launches={k: first["launches"][k] + resumed["launches"][k]
+                          for k in first["launches"]})
+
+
+AENT_CLAMP = 0.2
+AENT_T = 4096
+# fused vs dense clamped entropy: the same bf16 operands, products exact in
+# f32, sums in another order (over H and over the kept vocab), so the
+# entropy (~11.9 for these logits, f32 ulp ~1e-6) agrees to 1e-4 absolute;
+# the gradients come back in bf16, one rounding of an f32 value whose
+# inputs carry the cotangent as bf16 hi + lo (2^-16): 2^-8 relative plus
+# 2^-8 of the largest
+AENT_TOL = dict(entropy=(1e-4, 0.0), grad=(2.0 ** -8, 2.0 ** -8))
+
+
+def phase_aent(dev: torch.device) -> dict:
+    """The AEnt clamped entropy: (a) a 3-step smoke-yaml GRPO run with
+    `actor.entropy_clamp=0.2` through the entry point: losses and logged
+    entropy finite, the trained loss's entropy the clamped one (every
+    trained micro-batch calls `clamped_entropy_of` and none the unclamped
+    entropy); (b) `chunked_clamped_entropy` forward and backward at
+    Qwen2.5-1.5B's tied head (V 151936, H 1536, T 4096, bf16 hidden)
+    against the dense f32 version, within `AENT_TOL`, with the peak memory
+    of each."""
+    from areal_tpu_torch.engine.ppo import actor as actor_mod
+    from areal_tpu_torch.ops.fused_xent import chunked_clamped_entropy
+    from areal_tpu_torch.utils.functional import clamped_softmax_entropy
+
+    calls = dict(clamped=0, unclamped=0)
+    clamped, unclamped = actor_mod.clamped_entropy_of, actor_mod.label_logprobs_entropy_of
+
+    def clamped_(*a, **k):
+        calls["clamped"] += 1
+        return clamped(*a, **k)
+
+    def unclamped_(*a, **k):
+        calls["unclamped"] += 1
+        return unclamped(*a, **k)
+
+    actor_mod.clamped_entropy_of, actor_mod.label_logprobs_entropy_of = clamped_, unclamped_
+    try:
+        run = _loop_run(dev, "aent", ["evaluator.freq_steps=null", "total_train_steps=3",
+                                      f"actor.entropy_clamp={AENT_CLAMP}"])
+    finally:
+        actor_mod.clamped_entropy_of, actor_mod.label_logprobs_entropy_of = clamped, unclamped
+    entropy = [r["entropy"] for r in run["steps"]]
+    check(all(math.isfinite(e) for e in entropy), f"aent: entropy {entropy}")
+    train_mbs = sum(r["train_mbs"] for r in run["steps"])
+    check(calls == dict(clamped=train_mbs, unclamped=0),
+          f"aent: entropy calls {calls}, {train_mbs} trained micro-batches")
+
+    cfg = QWEN25_1_5B
+    V, H, T = cfg.vocab_size, cfg.hidden_size, AENT_T
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    hidden = torch.randn(T, H, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn(V, H, generator=gen, device=dev) / math.sqrt(H)).to(torch.bfloat16)
+    g = torch.randn(T, generator=gen, device=dev)
+    out = {}
+    for name in ("fused", "dense"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        if name == "fused":
+            h, wt = hidden.clone().requires_grad_(), w.clone().requires_grad_()
+            ent = chunked_clamped_entropy(h, wt, head_is_vh=True, entropy_clamp=AENT_CLAMP)
+        else:
+            h, wt = hidden.float().requires_grad_(), w.float().requires_grad_()
+            ent = clamped_softmax_entropy(h @ wt.t(), AENT_CLAMP)
+        dh, dw = torch.autograd.grad(ent, (h, wt), g)
+        torch.cuda.synchronize()
+        out[name] = dict(ent=ent.detach(), dh=dh, dw=dw, s=time.perf_counter() - t0,
+                         peak_gb=(torch.cuda.max_memory_allocated(dev) - base) / 1e9)
+        del h, wt, ent
+    f, d = out["fused"], out["dense"]
+    ratios = dict(
+        entropy=_tol_ratio(f["ent"], d["ent"], *AENT_TOL["entropy"]),
+        dhidden=_tol_ratio(f["dh"], d["dh"], AENT_TOL["grad"][0] * d["dh"].abs().max().item(),
+                           AENT_TOL["grad"][1]),
+        dhead=_tol_ratio(f["dw"], d["dw"], AENT_TOL["grad"][0] * d["dw"].abs().max().item(),
+                         AENT_TOL["grad"][1]))
+    for k, r in ratios.items():
+        check(r <= 1.0, f"aent: chunked_clamped_entropy {k} at {r} x the tolerance")
+    emit("aent", run=run, entropy_calls=calls, clamp=AENT_CLAMP,
+         chunked=dict(V=V, H=H, T=T, token_chunk=128, tol=AENT_TOL, tol_ratio=ratios,
+                      max_abs_err=(f["ent"] - d["ent"]).abs().max().item(),
+                      entropy_mean=d["ent"].mean().item(),
+                      fused_peak_gb=f["peak_gb"], dense_peak_gb=d["peak_gb"],
+                      fused_s=f["s"], dense_s=d["s"]))
+    del out, f, d
+    return dict(launches=run["launches"])
+
+
 FLASH_FLOPS_PER_PAIR = {  # x head_dim x query heads, per valid (query, key) pair
     "flash_attention_fwd": 4, "flash_attention_bwd_dq": 6, "flash_attention_bwd_dkv": 8,
 }
@@ -2784,7 +3213,7 @@ def _live_tile_pairs(mq, mk) -> int:
     return int(live.sum())
 
 
-def phase_flash_line(dev: torch.device, train: dict, loop: dict) -> list[dict]:
+def phase_flash_line(dev: torch.device, train: dict, paths: dict[str, dict]) -> list[dict]:
     """K1, K2a and K2b at the train phase's micro-batch shape (the first
     micro-batch's packed segments, Qwen2.5-1.5B heads, bf16): each kernel
     wrapper against its plain version on the same inputs (f32-upcast),
@@ -2895,9 +3324,8 @@ def phase_flash_line(dev: torch.device, train: dict, loop: dict) -> list[dict]:
         flops = FLASH_FLOPS_PER_PAIR[name] * hd * nH * pairs
         rows.append(dict(
             name=name, route="cuda", source=FLASH_SOURCE, replaces=FLASH_REPLACES[name],
-            launches=train["launches"][name] + loop["launches"][name],
-            launches_by_path=dict(grpo_loop=loop["launches"][name],
-                                  train=train["launches"][name]),
+            launches=sum(p[name] for p in paths.values()),
+            launches_by_path={path: p[name] for path, p in paths.items()},
             max_abs_err=errs[name], max_err=errs[name],
             tol=dict(a=a, rtol=rtol), tol_ratio=ratios[name], rounding=rounding[name],
             ms=ms[name], device_ms=device_ms[name],
@@ -3021,12 +3449,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_train(dev)
     torch.cuda.empty_cache()
+    sft = phase_sft(dev)
+    torch.cuda.empty_cache()
+    sft_smoke = phase_sft_smoke(dev)
+    recover = phase_grpo_recover(dev)
+    aent = phase_aent(dev)
+    torch.cuda.empty_cache()
+    # K1/K2a/K2b run in the GRPO loop, the train phase, both SFT runs, the
+    # GRPO recovery runs and the AEnt run; K3 in every GRPO run
+    flash_paths = dict(grpo_loop=loop["launches"], train=train["launches"],
+                       sft={k: sft["launches"][k] + sft_smoke["launches"][k]
+                            for k in FLASH_COUNTERS},
+                       grpo_recover=recover["launches"], aent=aent["launches"])
     # K3 runs in the serve and train paths and in the spec path's normal
     # chunks; K5a in the int8 serve path and the int8 spec path's; K6 in both
     # int8 paths
     paged["launches_by_path"] = dict(serve=launches, serve_spec=s_launches["paged_attention"],
                                      grpo_loop=loop["launches"]["paged_attention"],
-                                     train=train["launches"]["paged_attention"])
+                                     train=train["launches"]["paged_attention"],
+                                     grpo_recover=recover["launches"]["paged_attention"],
+                                     aent=aent["launches"]["paged_attention"])
     paged["launches"] = sum(paged["launches_by_path"].values())
     q8["launches_by_path"] = dict(serve_int8=q_launches["paged_attention_q8"],
                                   serve_spec_int8=s8_launches["paged_attention_q8"])
@@ -3034,7 +3476,7 @@ def main() -> int:
     qmm_row["launches_by_path"] = dict(serve_int8=q_launches["quant_matmul"],
                                        serve_spec_int8=s8_launches["quant_matmul"])
     qmm_row["launches"] = sum(qmm_row["launches_by_path"].values())
-    rows = [paged, *phase_flash_line(dev, train, loop), q8, qmm_row, verify, verify_q8]
+    rows = [paged, *phase_flash_line(dev, train, flash_paths), q8, qmm_row, verify, verify_q8]
     for r in rows:
         check(r["launches"] > 0, f"{r['name']}: no launch on the main path")
     print(json.dumps({"kernels": rows}), flush=True)

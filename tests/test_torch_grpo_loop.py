@@ -14,12 +14,17 @@
   first update has lr 0 (a reference behaviour), so the check counts the
   rewards of 12 steps. The evaluation stays off: the yaml's would fire at
   step 9, inside the executor's pause, and wait out its deadline.
+- Recovery through `main`: 2 steps with `recover.mode=auto` and a dump
+  every step, then a resume to 4 steps in the same file root, which
+  restores global step 1 and starts at step 2 with version 2 on both
+  engines and the trainer's restored weights served bit for bit.
 """
 
 import logging
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -190,8 +195,37 @@ def test_entry_point_refusals(tmp_path):
         main(base + ["workflow=nope"], device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
         main(base + ["train_dataset.path=gsm8k"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        main(base + ["recover.mode=auto"], device="cpu")
     with pytest.raises(ValueError, match="vocab is fixed at 32"):
         smoke_model_config(vocab_size=33)
     assert smoke_model_config(vocab_size=21).vocab_size == 32
+
+
+def test_recover_resumes_at_step_two(tmp_path, monkeypatch):
+    from areal_tpu_torch.utils.recover import RecoverHandler
+
+    seen = []
+    load = RecoverHandler.load
+
+    def load_(self, engine, *args, inference_engine=None, **kwargs):
+        info = load(self, engine, *args, inference_engine=inference_engine, **kwargs)
+        if info is not None:
+            served = inference_engine.params
+            seen.append(dict(
+                step=info.last_step_info.global_step, trainer=engine.get_version(),
+                decode=inference_engine.get_version(),
+                equal=all(torch.equal(v, served[k]) for k, v in engine.params.items())))
+        return info
+
+    monkeypatch.setattr(RecoverHandler, "load", load_)
+    base = ["--config", YAML, f"cluster.fileroot={tmp_path}", "evaluator.freq_steps=null",
+            "recover.mode=auto", "recover.freq_steps=1"]
+    first = main(base + ["total_train_steps=2"], device="cpu")
+    assert len(first) == 2 and not seen
+    assert (tmp_path / "recover" / "arith-grpo-smoke" / "run0" / "step-1").is_dir()
+    resumed = main(base + ["total_train_steps=4"], device="cpu")
+    assert seen == [dict(step=1, trainer=2, decode=2, equal=True)]
+    assert len(resumed) == 2  # global steps 2 and 3
+    for step, rec in enumerate(resumed, start=2):
+        batch = rec["batch"]
+        gen = batch["attention_mask"].astype(bool) & (batch["versions"] >= 0)
+        assert 0 <= step - batch["versions"][gen].min() <= 2

@@ -70,6 +70,9 @@ def test_port_has_the_expected_modules():
         "areal_tpu_torch.dataset",
         "areal_tpu_torch.dataset.arith",
         "areal_tpu_torch.examples.gsm8k_grpo",
+        "areal_tpu_torch.models.hf_io",
+        "areal_tpu_torch.engine.sft.lm_engine",
+        "areal_tpu_torch.examples.gsm8k_sft",
         "chip_smoke",
     ):
         assert want in names
