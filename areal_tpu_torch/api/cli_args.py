@@ -337,17 +337,24 @@ class TorchDecodeConfig:
     """Decode engine config, mirroring `JaxDecodeConfig`
     (`areal_tpu/api/cli_args.py:298`) field for field.
 
-    The slice schedules synchronously (dispatch a chunk, then consume it)
-    and prefills every request in full. `spec_decode="ngram"` turns on
-    draft-free speculative decode with `spec_k` and `spec_ngram_max` as in
-    the JAX engine; `TorchDecodeEngine.initialize` refuses a verify width
-    `spec_k + 1` past the verify kernels' limit
-    (`ops.paged_attention.check_verify_width`). `decode_runahead_chunks`,
-    `enable_prefix_caching`, `disable_radix_cache`, `schedule_policy` and
-    `kv_fabric` keep their JAX defaults because in a lone JAX engine they
-    change scheduling only, never output (`areal_tpu/engine/jax_decode.py:
-    28-39, :447-453`; the fabric's peer fetch needs the router, ROADMAP
-    queue 1, item 4); here they are accepted and not acted on, as are the
+    The scheduling knobs act as in the JAX engine: `decode_runahead_chunks`
+    (default 1) keeps that many dispatched chunks in flight while the host
+    consumes the one before (0: dispatch a chunk, then consume it), and
+    `max_prefill_tokens` caps prefill work per scheduler pass. Prefix-KV
+    reuse (forks of a group's shared prompt, suffix prefill of a follow-up
+    turn, parked-KV resume) is unconditional, as in the JAX engine, which
+    never reads `enable_prefix_caching` either; `disable_radix_cache` and
+    `schedule_policy` are not read by it and are accepted here.
+    `spec_decode="ngram"` turns on draft-free speculative decode with
+    `spec_k` and `spec_ngram_max` as in the JAX engine;
+    `TorchDecodeEngine.initialize` refuses a verify width `spec_k + 1` past
+    the verify kernels' limit (`ops.paged_attention.check_verify_width`).
+    `kv_fabric` is accepted and not acted on: the fabric's content index and
+    peer fetch come with the decode server and router, ROADMAP queue 1,
+    item 4. Its device rung also acts in a lone JAX engine: a prompt that
+    shares only a block-aligned head with a registered conversation that
+    diverges later forks those blocks there, and prefills in full here
+    unless the registry holds that head as a key of its own. So are the
     server's knobs (`log_level`, `enable_metrics`, `decode_log_interval`,
     `idempotency_*`, `weight_staging_ttl_s`, `kv_migrate_chunk_mb`,
     `kv_import_pool_mb`, `skip_tokenizer_init`, the `kv_fabric_*` limits)

@@ -1,10 +1,16 @@
 """Paged KV-cache accounting (counterpart of `areal_tpu/engine/kv_pool.py`,
-`KVBlockAllocator` and `PoolDry`, :48-180).
+`KVBlockAllocator` and `PoolDry`, :48-232).
 
 One pool tensor `[L, n_blocks, block_size, nKV, hd]` per K/V lives on the
 device; the block tables that map each slot's logical rows to pool blocks
 are host-side numpy, owned by the decode scheduler thread. The decode
 step receives a `[R, nb]` slice of them each chunk.
+
+Sharing: a prefix fork aliases the donor's full blocks (a reference
+count bump, a table write) and copies only the partial block at the
+shared boundary. Aliased blocks are never written: a slot writes at
+positions at or past its length, which is at or past the shared
+boundary, and the boundary block is always the copied one.
 
 Block 0 is a reserved null block: unallocated table entries point at it,
 and the writes of inactive slots land in it. Its rows are read but never
@@ -17,7 +23,8 @@ import numpy as np
 
 
 class PoolDry(Exception):
-    """No free blocks; the caller reclaims (preempts) and retries."""
+    """No free blocks; the caller reclaims (drops donor registrations and
+    parked KV, then preempts) and retries or falls back."""
 
 
 class KVBlockAllocator:
@@ -42,6 +49,24 @@ class KVBlockAllocator:
         self.nblocks = np.zeros(n_slots, dtype=np.int32)
         # bumped on every table mutation; consumers cache uploads against it
         self.version = 0
+        self.reset_peaks()
+
+    def reset_peaks(self) -> None:
+        """Start the high-water marks over: `peak_blocks`, the most distinct
+        blocks in use at once, and `peak_table_blocks`, the most table
+        entries at once (an aliased block counted once per holder: the
+        blocks the same slots would hold without sharing)."""
+        self.peak_blocks = self.used_blocks
+        self.peak_table_blocks = int(self.nblocks.sum())
+
+    def _note_peaks(self) -> None:
+        self.peak_blocks = max(self.peak_blocks, self.used_blocks)
+        self.peak_table_blocks = max(self.peak_table_blocks, int(self.nblocks.sum()))
+
+    @property
+    def used_blocks(self) -> int:
+        """Distinct blocks in use (aliased blocks count once)."""
+        return self.usable_blocks - len(self._free)
 
     @property
     def free_blocks(self) -> int:
@@ -53,6 +78,10 @@ class KVBlockAllocator:
 
     def blocks_for(self, tokens: int) -> int:
         return max(-(-int(tokens) // self.block_size), 0)
+
+    def allocated_tokens(self) -> int:
+        """Distinct blocks in use x block_size (aliased blocks count once)."""
+        return self.used_blocks * self.block_size
 
     def table_slice(self, nb: int) -> np.ndarray:
         """[n_slots, nb] table head (a copy: the scheduler mutates the
@@ -97,4 +126,40 @@ class KVBlockAllocator:
         self.tables[slot, cur:target] = got
         self.nblocks[slot] = target
         self.version += 1
+        self._note_peaks()
         return True
+
+    def fork(self, src: int, dst: int, covered: int) -> tuple[int, int] | None:
+        """Point dst at src's first `covered` tokens of KV.
+
+        Full blocks below the boundary are aliased (reference count + 1);
+        the partial boundary block is freshly allocated and must be copied
+        on the device by the caller: returns (src_block, dst_block) for
+        that copy, or None when the boundary is block-aligned. src == dst
+        is a no-op (in-place reuse of a retired donor slot). Raises
+        PoolDry, with the aliases rolled back, when the boundary block
+        cannot be allocated."""
+        if src == dst:
+            return None
+        self.free_slot(dst)
+        full = covered // self.block_size
+        partial = covered % self.block_size
+        for j in range(full):
+            b = int(self.tables[src, j])
+            self.tables[dst, j] = b
+            if b != 0:
+                self.refcount[b] += 1
+        self.nblocks[dst] = full
+        self.version += 1
+        if partial:
+            got = self._alloc(1)
+            if got is None:
+                # roll back the aliases; the caller reclaims or falls back
+                self.free_slot(dst)
+                raise PoolDry("no block for the fork boundary")
+            self.tables[dst, full] = got[0]
+            self.nblocks[dst] = full + 1
+            self._note_peaks()
+            return int(self.tables[src, full]), got[0]
+        self._note_peaks()
+        return None

@@ -773,35 +773,79 @@ class LMHead:
 
 
 def prefill(params: dict, input_ids, position_ids, cfg: ModelConfig,
-            with_logits: bool = True, layers: list[dict] | None = None):
-    """Causal forward over ONE sequence [T] (JAX :1872). Returns
-    (logits [T, V] f32 or None, k [L, T, nKV, hd], v [L, T, nKV, hd]).
+            with_logits: bool = True, layers: list[dict] | None = None,
+            prefix_k=None, prefix_v=None, prefix_len=None):
+    """Causal forward over ONE sequence [T] (JAX :1872), or over B distinct
+    sequences [B, T] that share a bucket (the JAX engine's vmap of it,
+    `jax_decode.py:1818-1879`). Returns (logits [(B,) T, V] f32 or None,
+    k [(B,) L, T, nKV, hd], v [(B,) L, T, nKV, hd]).
 
     Attention is dense: plain matmul + softmax in the JAX op order (scores
     in the compute dtype, cast to f32, divided by sqrt(hd), -1e30 above
-    the diagonal, probabilities rounded back). `with_logits=False` skips
+    the diagonal, probabilities rounded back), one sequence at a time; the
+    dense matmuls take the B x T rows at once. `with_logits=False` skips
     the LM head: the decode engine samples every token, the first one
     included, in its decode loop, so prefill only writes KV. `layers` is
-    `layer_views(params, cfg)` when the caller keeps it."""
+    `layer_views(params, cfg)` when the caller keeps it. `position_ids`
+    is [T], or [B, T].
+
+    `prefix_k/prefix_v` [L, Tp, nKV, hd] with `prefix_len`: cached context
+    for a SUFFIX prefill of one sequence (partial prefix sharing). Every
+    token also attends to the prefix rows < prefix_len, and
+    `position_ids` must then be the absolute positions (prefix_len +
+    arange). One layer body serves both modes, as in JAX."""
     if layers is None:
         layers = layer_views(params, cfg)
-    x = _embed(params, input_ids, cfg)
-    cos, sin = rope_table(position_ids, cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling_)
-    T = input_ids.shape[0]
+    batched = input_ids.dim() == 2
+    ids = input_ids if batched else input_ids[None]
+    B, T = ids.shape
+    pos = position_ids if position_ids.dim() == 2 else position_ids[None].expand(B, T)
+    x = _embed(params, ids.reshape(-1), cfg)  # [B*T, H]
+    cos, sin = rope_table(pos.reshape(-1), cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling_)
     mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+    if prefix_k is not None:
+        if batched:
+            raise ValueError("a suffix prefill takes one sequence")
+        Tp = prefix_k.shape[1]
+        in_prefix = torch.arange(Tp, device=x.device) < prefix_len
+        mask = torch.cat([in_prefix[None, :].expand(T, Tp), mask], dim=1)  # [T, Tp+T]
+    nH, hd = cfg.num_attention_heads, cfg.head_dim_
     ks, vs = [], []
-    for lp in layers:
+    for i, lp in enumerate(layers):
         h = _norm(x, lp["input_norm"], cfg)
-        q, k, v = _project_qkv(lp, h, cos, sin, cfg)
-        x = x + _attn_out(lp, _dense_attention(q, k, v, mask))
+        q, k, v = (t.reshape(B, T, *t.shape[1:]) for t in _project_qkv(lp, h, cos, sin, cfg))
+        if prefix_k is not None:
+            kk = torch.cat([prefix_k[i].to(k.dtype), k[0]])[None]
+            vv = torch.cat([prefix_v[i].to(v.dtype), v[0]])[None]
+        else:
+            kk, vv = k, v
+        attn = torch.stack([_dense_attention(q[b], kk[b], vv[b], mask) for b in range(B)])
+        x = x + _attn_out(lp, attn.reshape(B * T, nH, hd))
         h = _norm(x, lp["post_attn_norm"], cfg)
         x = x + mlp(lp, h, cfg)
         ks.append(k)
         vs.append(v)
-    k_all, v_all = torch.stack(ks), torch.stack(vs)
-    if not with_logits:
-        return None, k_all, v_all
-    return _logits(params, x, cfg), k_all, v_all
+    k_all, v_all = torch.stack(ks, dim=1), torch.stack(vs, dim=1)  # [B, L, T, nKV, hd]
+    logits = None if not with_logits else _logits(params, x, cfg).reshape(B, T, -1)
+    if not batched:
+        k_all, v_all = k_all[0], v_all[0]
+        logits = None if logits is None else logits[0]
+    return logits, k_all, v_all
+
+
+def prefill_with_prefix(params: dict, input_ids, prefix_k, prefix_v, prefix_len: int,
+                        cfg: ModelConfig, layers: list[dict] | None = None):
+    """Causal forward over a SUFFIX [T] (bucket-padded) whose context is
+    cached prefix KV `[L, Tp, nKV, hd]` (JAX :2008): each suffix token
+    attends to the prefix rows < prefix_len and, causally, to the earlier
+    suffix tokens; suffix token i sits at absolute position prefix_len + i
+    for rope. Returns the suffix's (k, v) [L, T, nKV, hd], to be written
+    at offset prefix_len. A thin wrapper over `prefill`: one layer body."""
+    T = input_ids.shape[0]
+    positions = prefix_len + torch.arange(T, device=input_ids.device)
+    _, ks, vs = prefill(params, input_ids, positions, cfg, with_logits=False, layers=layers,
+                        prefix_k=prefix_k, prefix_v=prefix_v, prefix_len=prefix_len)
+    return ks, vs
 
 
 def decode_step_paged(

@@ -9,8 +9,11 @@ It builds the port's CUDA kernels from the sources in the checkout, holds
 each against its plain PyTorch version on the card, then drives the main
 paths with seeded random weights in bf16: it serves 16 concurrent
 requests through `TorchDecodeEngine` at Qwen2.5-7B full width and depth,
-serves self-quoting traffic with speculative decode (`spec_decode=
-"ngram"`) beside a spec-off engine, serves the first traffic again from
+drives the decode scheduler's defaults on such an engine (GRPO groups
+forked from one prefill under run-ahead 1 and 0, a multi-turn suffix
+prefill, interrupt and parked-KV resume, stop strings, and the frequency
+penalty on the spec engine), serves self-quoting traffic with
+speculative decode (`spec_decode="ngram"`) beside a spec-off engine, serves the first traffic again from
 an int8 engine (int8 weights and an int8 KV pool) and the speculative
 traffic from an int8 spec engine, runs the port's GRPO entry point
 (`areal_tpu_torch/examples/gsm8k_grpo.py`: the async loop of staleness
@@ -73,6 +76,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -95,9 +99,11 @@ from areal_tpu_torch.engine import sampling
 from areal_tpu_torch.engine.ppo.actor import TorchPPOActor
 from areal_tpu_torch.engine.torch_decode import TorchDecodeEngine
 from areal_tpu_torch.examples import gsm8k_grpo
+from areal_tpu_torch.dataset.arith import ArithTokenizer
 from areal_tpu_torch.models.qwen2 import (
     decode_step_paged,
     init_params,
+    prefill,
     segment_ids_from_cu_seqlens,
     verify_step_paged,
 )
@@ -108,6 +114,7 @@ from areal_tpu_torch.models.smoke import (
     QWEN25_1_5B_SOURCE,
     QWEN25_7B,
     QWEN25_7B_SOURCE,
+    smoke_model_config,
 )
 from areal_tpu_torch.ops import _build
 from areal_tpu_torch.ops import flash_attention as fa
@@ -1175,6 +1182,359 @@ def phase_serve_int8(dev: torch.device):
     return engine, cfg, launches
 
 
+# phase sched: the decode scheduler's defaults on the serve cell's engine
+# (g) GRPO groups: one prompt per 64-token bucket, so the wave's prefills
+# are one forward each; 2 greedy members, 1 sampled, 1 top-p per group
+SCHED_LENS = (256, 512, 768, 1024)
+SCHED_NEW = 256
+SCHED_GCONFIGS = (dict(greedy=True), dict(greedy=True), dict(temperature=1.0),
+                  dict(temperature=1.0, top_p=0.9))
+# (m) multi-turn: turn 1's prompt and answer, turn 2's fresh tokens and answer
+MT_PROMPT, MT_NEW1, MT_FRESH, MT_NEW2, MT_AGREE = 512, 128, 64, 128, 32
+# The suffix prefill's KV rows against a full prefill of the whole turn-2
+# prompt, per layer: max |a - b| over max |b|. The two are bf16 rows from
+# different GEMM shapes, and the prefix the suffix attends to was written
+# by the decode steps of turn 1 rather than by a prefill; a suffix off by
+# one position (the planted fault) must read above it.
+SUFFIX_KV_TOL = 2.0 ** -4
+# (i) interrupt: prompts, new tokens, requests
+INT_PROMPT, INT_NEW, INT_N = 512, 256, 4
+# seconds any one request or wave of the phase may take before it fails
+SCHED_TIMEOUT = 300
+
+
+def _sched_counts(engine) -> dict:
+    return dict(prefill_calls=engine.prefill_calls, prefills=engine._n_prefills,
+                forks=engine._n_prefix_forks, inplace=engine._n_prefix_inplace,
+                suffix_prefills=engine._n_suffix_prefills, decode_steps=engine.decode_steps,
+                decode_tokens=engine.decode_tokens, decode_seconds=engine.decode_seconds,
+                prefill_seconds=engine.prefill_seconds, verify=engine.verify_dispatches,
+                runahead_discarded=engine.runahead_discarded)
+
+
+def _delta(engine, c0: dict) -> dict:
+    return {k: v - c0[k] for k, v in _sched_counts(engine).items()}
+
+
+def _paused_wave(engine, reqs, interrupt: bool = False) -> list:
+    """Serve `reqs` as one admission wave: queued while the engine is
+    paused, then released together. With `interrupt`, pause again as soon
+    as the wave's prefill is queued (so the pause lands on the first
+    chunk's boundary, while the scheduler is still queueing that chunk)
+    and `abort_all`: every request returns with stop reason "interrupt"
+    and its KV parked."""
+    engine.pause_generation()
+    out: list = []
+    t = threading.Thread(target=lambda: out.extend(asyncio.run(_serve_wave(engine, reqs))))
+    t.start()
+    deadline = time.monotonic() + 60
+    while engine._request_q.qsize() < len(reqs):
+        check(time.monotonic() < deadline, "requests never enqueued")
+        time.sleep(0.001)
+    calls = engine.prefill_calls
+    engine.continue_generation()
+    if interrupt:
+        while engine.prefill_calls == calls:
+            check(time.monotonic() < deadline, "the wave was never prefilled")
+            time.sleep(0.0005)
+        engine.pause_generation()
+        n = engine.abort_all()
+        engine.continue_generation()
+        check(n == len(reqs), f"abort_all ended {n} of {len(reqs)}")
+    t.join(SCHED_TIMEOUT)
+    check(len(out) == len(reqs), f"the wave did not finish in {SCHED_TIMEOUT} s")
+    return out
+
+
+def _sched_groups(engine, reqs) -> tuple[list, dict]:
+    """(g) on one engine: the wave, its counts, K3 launches, peak blocks."""
+    engine._alloc.reset_peaks()
+    c0 = _sched_counts(engine)
+    pa.launches = 0
+    t = time.perf_counter()
+    resps = _paused_wave(engine, reqs)
+    wall = time.perf_counter() - t
+    launches = pa.launches
+    d = _delta(engine, c0)
+    L = engine.model_config.num_hidden_layers
+    check(launches > 0 and launches == d["decode_steps"] * L,
+          f"(g) K3 launches {launches} != decode steps {d['decode_steps']} x {L}")
+    check(d["prefill_calls"] == len(SCHED_LENS) and d["prefills"] == len(SCHED_LENS),
+          f"(g) {d['prefill_calls']} prefill calls for {d['prefills']} prefills, want 4 and 4")
+    check(d["forks"] == len(reqs) - len(SCHED_LENS), f"(g) {d['forks']} forks, want 12")
+    for req, resp in zip(reqs, resps):
+        lp = np.asarray(resp.output_logprobs)
+        check(np.isfinite(lp).all() and (lp <= 0).all(), f"{req.rid}: logprobs not finite and <= 0")
+        check(resp.stop_reason == "length" and resp.output_len == SCHED_NEW,
+              f"{req.rid}: {resp.stop_reason} after {resp.output_len} tokens")
+    per = len(SCHED_GCONFIGS)
+    for i in range(len(SCHED_LENS)):
+        check(resps[i * per + 1].output_tokens == resps[i * per].output_tokens,
+              f"(g) group {i}: the forked greedy member's tokens differ from the first's")
+    ttft = [r.ttft * 1e3 for r in resps]
+    return resps, dict(
+        runahead=int(engine.config.decode_runahead_chunks), wall_s=wall, k3_launches=launches,
+        decode_tok_s=d["decode_tokens"] / d["decode_seconds"],
+        ttft_p50_ms=float(np.percentile(ttft, 50)), prefill_calls=d["prefill_calls"],
+        prefill_s=d["prefill_seconds"], prefills=d["prefills"], forks=d["forks"],
+        suffix_prefills=d["suffix_prefills"], decode_steps=d["decode_steps"],
+        runahead_discarded=d["runahead_discarded"],
+        peak_blocks=engine._alloc.peak_blocks,
+        peak_blocks_without_sharing=engine._alloc.peak_table_blocks,
+    )
+
+
+def _suffix_rows(engine, turn2: list[int], plen: int):
+    """The K and V rows [plen, len(turn2) - 1) of the slot registered for
+    turn 2's conversation: [L, n, nKV, hd] each."""
+    slot = engine._find_covering_donor(tuple(turn2[:-1]))
+    check(slot is not None, "turn 2's conversation is not registered")
+    bsz = engine._alloc.block_size
+    pos = np.arange(plen, len(turn2) - 1)
+    blocks = torch.as_tensor(engine._alloc.tables[slot][pos // bsz].astype(np.int64), device=engine.device)
+    offs = torch.as_tensor(pos % bsz, device=engine.device)
+    return engine._k_pool[:, blocks, offs], engine._v_pool[:, blocks, offs]
+
+
+def _row_ratio(a, b) -> float:
+    """Worst layer's max |a - b| over its max |b|."""
+    a, b = a.float(), b.float()
+    L = a.shape[0]
+    return max(float((a[i] - b[i]).abs().max() / b[i].abs().max()) for i in range(L))
+
+
+def _sched_multiturn(engine, ref, cfg, rng) -> dict:
+    """(m) on `engine`: two conversations' turn 1, then turn 2 (turn 1's
+    prompt + answer + fresh tokens) as a suffix prefill; its KV rows
+    against a full prefill of turn 2, and its first tokens against
+    `ref`'s run of turn 2 from a full prefill."""
+    turn1 = [rng.integers(0, cfg.vocab_size, MT_PROMPT).tolist() for _ in range(2)]
+    g1 = GenerationHyperparameters(max_new_tokens=MT_NEW1, greedy=True)
+    r1 = _paused_wave(engine, [ModelRequest(rid=f"m{i}-1", input_ids=t, gconfig=g1)
+                               for i, t in enumerate(turn1)])
+    turn2 = [t + r.output_tokens + rng.integers(0, cfg.vocab_size, MT_FRESH).tolist()
+             for t, r in zip(turn1, r1)]
+    g2 = GenerationHyperparameters(max_new_tokens=MT_NEW2, greedy=True)
+    c0 = _sched_counts(engine)
+    r2 = _paused_wave(engine, [ModelRequest(rid=f"m{i}-2", input_ids=t, gconfig=g2)
+                               for i, t in enumerate(turn2)])
+    d = _delta(engine, c0)
+    check(d["suffix_prefills"] == 2 and d["prefill_calls"] == 2 and d["prefills"] == 0,
+          f"(m) turn 2: {d['suffix_prefills']} suffix prefills in {d['prefill_calls']} calls, "
+          f"{d['prefills']} full prefills; want 2, 2, 0")
+    plen = MT_PROMPT - 1 + MT_NEW1  # turn 1's registration: prompt + answer, less its last token
+    rows, agree = [], []
+    with torch.no_grad():
+        for t2 in turn2:
+            k, v = _suffix_rows(engine, t2, plen)
+            _, fk, fv = prefill(engine.params, torch.as_tensor(t2[:-1], device=engine.device),
+                                torch.arange(len(t2) - 1, device=engine.device), cfg,
+                                with_logits=False, layers=engine._layers)
+            P1 = len(t2) - 1
+            rows.append(dict(
+                k=_row_ratio(k, fk[:, plen:P1]), v=_row_ratio(v, fv[:, plen:P1]),
+                k_layer0=_row_ratio(k[:1], fk[:1, plen:P1]),
+                planted_k=_row_ratio(k[:, :-1], fk[:, plen + 1:P1]),
+                planted_v=_row_ratio(v[:, :-1], fv[:, plen + 1:P1])))
+    for r in rows:
+        check(max(r["k"], r["v"]) <= SUFFIX_KV_TOL,
+              f"(m) suffix KV rows off the full prefill's: {r}")
+        check(min(r["planted_k"], r["planted_v"]) > SUFFIX_KV_TOL,
+              f"(m) a suffix one position off reads within the tolerance: {r}")
+    refs = _paused_wave(ref, [ModelRequest(rid=f"m{i}-ref", input_ids=t, gconfig=g2.new(
+        max_new_tokens=MT_AGREE)) for i, t in enumerate(turn2)])
+    for a, b in zip(r2, refs):
+        agree.append(next((i for i, (x, y) in enumerate(zip(a.output_tokens, b.output_tokens))
+                           if x != y), MT_AGREE))
+    return dict(suffix_prefills=d["suffix_prefills"], prefill_calls=d["prefill_calls"],
+                prefix_len=plen, suffix_len=len(turn2[0]) - 1 - plen, tol=SUFFIX_KV_TOL,
+                rows=rows, agree_first_32_with_full_prefill=agree,
+                prefill_s=d["prefill_seconds"])
+
+
+def _sched_interrupt(engine, ref, cfg, rng) -> dict:
+    """(i) on `engine`: 4 greedy requests interrupted after the first chunk
+    and resumed (prompt + partial tokens, same rid) with no prefill, the
+    joined streams against `ref`'s uninterrupted run; then one more
+    interrupted request, a weight push, and its resume prefills again."""
+    n_chunk = int(engine.config.new_tokens_per_chunk)
+    prompts = [rng.integers(0, cfg.vocab_size, INT_PROMPT).tolist() for _ in range(INT_N)]
+    g = GenerationHyperparameters(max_new_tokens=INT_NEW, greedy=True)
+    first = _paused_wave(engine, [ModelRequest(rid=f"i{k}", input_ids=p, gconfig=g)
+                                  for k, p in enumerate(prompts)], interrupt=True)
+    for r in first:
+        check(r.stop_reason == "interrupt" and r.output_len == n_chunk,
+              f"(i) {r.stop_reason} after {r.output_len} tokens, want interrupt after {n_chunk}")
+    c0 = _sched_counts(engine)
+    resumed = _paused_wave(engine, [
+        ModelRequest(rid=f"i{k}", input_ids=p + r.output_tokens,
+                     gconfig=g.new(max_new_tokens=INT_NEW - r.output_len))
+        for k, (p, r) in enumerate(zip(prompts, first))])
+    d = _delta(engine, c0)
+    check(d["prefill_calls"] == 0 and d["forks"] + d["inplace"] + d["suffix_prefills"] == 0,
+          f"(i) the resume prefilled or forked: {d}")
+    want = _paused_wave(ref, [ModelRequest(rid=f"iref{k}", input_ids=p, gconfig=g)
+                              for k, p in enumerate(prompts)])
+    joined = [a.output_tokens + b.output_tokens for a, b in zip(first, resumed)]
+    equal = [j == w.output_tokens for j, w in zip(joined, want)]
+    check(all(equal), f"(i) interrupted + resumed streams differ from the uninterrupted: {equal}")
+    # a weight push between abort and resume: the resume prefills again
+    p = rng.integers(0, cfg.vocab_size, INT_PROMPT).tolist()
+    cut, = _paused_wave(engine, [ModelRequest(rid="ipush", input_ids=p, gconfig=g)], interrupt=True)
+    engine.update_weights_from_tensor({"final_norm": engine.params["final_norm"]}, version=1)
+    c1 = _sched_counts(engine)
+    again = engine.generate(ModelRequest(rid="ipush", input_ids=p + cut.output_tokens,
+                                         gconfig=g.new(max_new_tokens=INT_NEW - cut.output_len)),
+                            timeout=SCHED_TIMEOUT)
+    d1 = _delta(engine, c1)
+    check(d1["prefill_calls"] == 1 and d1["prefills"] == 1,
+          f"(i) the resume after a push ran {d1['prefill_calls']} prefill calls, want 1")
+    check(again.output_versions == [1] * again.output_len, "(i) the resume after the push is not version 1")
+    return dict(interrupted_at=[r.output_len for r in first], resume=d, joined_equal=sum(equal),
+                resume_after_push=dict(prefill_calls=d1["prefill_calls"], prefills=d1["prefills"]))
+
+
+def _sched_stop_strings(dev) -> dict:
+    """(s) on the GRPO-loop (a) smoke decoder (f32, seeded random weights)
+    with the port's `ArithTokenizer`: a stop string spanning two tokens
+    cuts where the decoded output first holds it, also when a stop id of
+    the request comes later in the stream."""
+    tok = ArithTokenizer()
+    cfg = smoke_model_config("float32", vocab_size=tok.vocab_size)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    engine = TorchDecodeEngine(TorchDecodeConfig(
+        random_seed=SEED, context_length=256, max_running_requests=4, page_size=16,
+        new_tokens_per_chunk=8, kv_cache_dtype="float32"), tokenizer=tok, device=dev)
+    engine.set_model(params, cfg)
+    engine.initialize()
+    try:
+        g = GenerationHyperparameters(max_new_tokens=48, greedy=True)
+        for a in range(10, 100, 7):
+            prompt = tok.encode(f"{a}+{a // 3}=")
+            full = engine.generate(ModelRequest(input_ids=prompt, gconfig=g),
+                                   timeout=SCHED_TIMEOUT).output_tokens
+            text = [tok.decode([t]) for t in full]
+            for j in range(len(full) - 2):
+                s = "".join(text[j:j + 2])
+                later = [t for t in full[j + 2:] if t not in full[:j + 2] and tok.decode([t])]
+                if len(s) == 2 and s not in tok.decode(full[:j + 1]) and later:
+                    break
+            else:
+                continue
+            break
+        else:
+            raise AssertionError("(s) no greedy stream held a two-token stop string")
+        cut = j + 2
+        r1 = engine.generate(ModelRequest(input_ids=prompt, gconfig=g.new(stop=[s])),
+                             timeout=SCHED_TIMEOUT)
+        r2 = engine.generate(ModelRequest(input_ids=prompt, gconfig=g.new(
+            stop=[s], stop_token_ids=[later[0]])), timeout=SCHED_TIMEOUT)
+        for r in (r1, r2):
+            check(r.stop_reason == "stop" and r.output_tokens == full[:cut],
+                  f"(s) stop {s!r}: {r.stop_reason} after {r.output_len} tokens, want stop after {cut}")
+        return dict(prompt=tok.decode(prompt), stream=tok.decode(full), stop=s, cut=cut,
+                    later_stop_id=int(later[0]), reasons=[r1.stop_reason, r2.stop_reason])
+    finally:
+        engine.destroy()
+
+
+def phase_sched(dev: torch.device) -> dict:
+    """The decode scheduler's JAX defaults through `agenerate` on the serve
+    cell's engine (Qwen2.5-7B, full width and depth, bf16, random weights
+    from SEED, `decode_runahead_chunks` 1):
+
+    (g) 4 prompts x 4 samples in one wave: 4 prefill forwards (one per
+        bucket), 12 forks; the forked greedy member equals the first;
+        K3 = decode steps x L; peak blocks beside the count without
+        sharing. Then the same wave on an engine over the same weights
+        with `decode_runahead_chunks=0`: tokens equal, logprobs within
+        KERNEL_TOL, the bit-equal count printed.
+    (m) two conversations: turn 2 (turn 1's prompt + answer + 64 fresh
+        tokens) is one suffix prefill each; its KV rows against a full
+        prefill of turn 2 within SUFFIX_KV_TOL (a one-off suffix must read
+        above it); the first 32 tokens against a run from a full prefill.
+    (i) 4 requests paused after their first chunk, `abort_all`, resumed
+        under their rids with no prefill; joined streams equal an
+        uninterrupted run's; after a weight push the resume prefills.
+    (s) stop strings on the smoke decoder with `ArithTokenizer`.
+    (f), the frequency penalty, runs on the spec engine (`_sched_freq`)."""
+    engine, cfg, info = _serve_engine(dev, SERVE)
+    sync = TorchDecodeEngine(TorchDecodeConfig(
+        random_seed=SEED, decode_runahead_chunks=0, **SERVE), device=dev)
+    sync.set_model(engine.params, cfg)
+    sync.initialize()
+    torch.cuda.empty_cache()
+    try:
+        rng = np.random.default_rng(SEED + 12)
+        reqs = []
+        for i, n in enumerate(SCHED_LENS):
+            ids = rng.integers(0, cfg.vocab_size, n).tolist()
+            reqs += [ModelRequest(rid=f"g{i}-{j}", input_ids=ids, gconfig=GenerationHyperparameters(
+                max_new_tokens=SCHED_NEW, **gc)) for j, gc in enumerate(SCHED_GCONFIGS)]
+        ahead, g1 = _sched_groups(engine, reqs)
+        behind, g0 = _sched_groups(sync, reqs)
+        a_tol, r_tol = KERNEL_TOL[torch.bfloat16]
+        bit_equal = 0
+        for req, a, b in zip(reqs, ahead, behind):
+            check(a.output_tokens == b.output_tokens,
+                  f"(g) {req.rid}: run-ahead 1 and 0 streams differ")
+            x, y = np.asarray(a.output_logprobs), np.asarray(b.output_logprobs)
+            check(bool(np.all(np.abs(x - y) <= a_tol + r_tol * np.abs(y))),
+                  f"(g) {req.rid}: logprobs differ beyond KERNEL_TOL")
+            bit_equal += a.output_logprobs == b.output_logprobs
+        m = _sched_multiturn(engine, sync, cfg, rng)
+        i = _sched_interrupt(engine, sync, cfg, rng)
+    finally:
+        engine.destroy()
+        sync.destroy()
+    del engine, sync
+    torch.cuda.empty_cache()
+    s = _sched_stop_strings(dev)
+    return dict(model="Qwen2.5-7B", source=QWEN25_7B_SOURCE, init_s=info["init_s"],
+                g=dict(runahead_1=g1, runahead_0=g0, streams=len(reqs),
+                       bit_equal_streams=bit_equal, kernel_tol=[a_tol, r_tol]),
+                m=m, i=i, s=s, k3_launches=g1["k3_launches"] + g0["k3_launches"])
+
+
+def _sched_freq(engine, cfg) -> dict:
+    """(f) on the spec serve engine (spec_decode="ngram"): a greedy
+    request with frequency_penalty 1.0 alone under run-ahead 0, then
+    beside three self-quoting spec requests in one wave under run-ahead 1:
+    no verify forward runs while it is active (the penalty's counts evolve
+    token by token, which one verify forward cannot reproduce), and its
+    stream is the same in both. (It runs alone first: a slot keeps the
+    counts an unpenalized request added beside a penalized one, as in the
+    JAX engine, ROADMAP.md queue 3, so the wave must come second.)"""
+    rng = np.random.default_rng(SEED + 13)
+    spec = _spec_requests(rng, cfg.vocab_size)
+    pen = GenerationHyperparameters(max_new_tokens=SPEC_MAX_NEW, greedy=True, frequency_penalty=1.0)
+    engine.continue_generation()  # the spec step left the engine paused
+    engine.config.decode_runahead_chunks = 0
+    try:
+        alone = engine.generate(ModelRequest(rid="pen0", input_ids=spec[3].input_ids, gconfig=pen),
+                                timeout=SCHED_TIMEOUT)
+    finally:
+        engine.config.decode_runahead_chunks = 1
+    c0 = _sched_counts(engine)
+    t = time.perf_counter()
+    got = _paused_wave(engine, spec[:3] + [ModelRequest(rid="pen1", input_ids=spec[3].input_ids,
+                                                        gconfig=pen)])
+    wall = time.perf_counter() - t
+    d = _delta(engine, c0)
+    check(d["verify"] == 0 and d["decode_steps"] > 0,
+          f"(f) {d['verify']} verify forwards while a penalized request was active")
+    check(alone.output_tokens == got[-1].output_tokens,
+          "(f) the penalized stream differs between run-ahead 0 and 1")
+    # the fallback ends with the penalty: a spec request alone verifies again
+    engine.generate(spec[4], timeout=SCHED_TIMEOUT)
+    check(engine.verify_dispatches > c0["verify"], "(f) no verify forward after the penalty")
+    x, y = np.asarray(got[-1].output_logprobs), np.asarray(alone.output_logprobs)
+    return dict(verify_forwards_while_penalized=d["verify"], decode_steps=d["decode_steps"],
+                wall_s=wall, distinct_tokens=len(set(got[-1].output_tokens)),
+                stream_equal=True, logprobs_bit_equal=bool(np.array_equal(x, y)),
+                logprob_max_abs_diff=float(np.abs(x - y).max()))
+
+
 def _served_batch(engine, cfg, rng, width: int = 1):
     """16 slots over the served pool: lengths from 64 + 128 to 1024 + 128,
     blocks from the engine's allocator (they hold the waves' KV) through
@@ -1476,6 +1836,22 @@ def _paged_times(kp: list, vp: list, table, lengths, nH: int, full: bool = True)
     return out
 
 
+def _k3_bound(rows: int, R: int, nb: int, bsz: int, nKV: int, nH: int, hd: int,
+              quant: bool) -> tuple[float, str, float, float]:
+    """The least time of one K3 (K5a on an int8 pool) launch with bf16 q
+    over `rows` valid rows in all: (bound ms, "bytes" or "operations",
+    bytes ms, operations ms). Bytes: each valid row's K and V per kv head
+    (bf16, or int8 + an f32 scale), q and the output, the [R, nb] table
+    and the [R, nb x bsz] mask, at HBM_BYTES_PER_S; operations: 4 nH hd
+    per valid (query, row) pair at the bf16 peak."""
+    row_bytes = 2 * (hd + 4) if quant else 2 * hd * 2
+    nbytes = rows * nKV * row_bytes + 2 * R * nH * hd * 2 + R * nb * 4 + R * nb * bsz
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * nH * hd * rows / peak_flops(torch.bfloat16) * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(bytes_ms, ops_ms), by, bytes_ms, ops_ms
+
+
 def phase_paged_line(engine, cfg, batch: dict, launches: int, max_err: float) -> dict:
     """K3 timings (K5a on an int8 engine's pool) at the serve phase's
     shapes: the 16 slots of the step phase over the served pool, rotating
@@ -1494,20 +1870,12 @@ def phase_paged_line(engine, cfg, batch: dict, launches: int, max_err: float) ->
         vp = [engine._v_pool[i] for i in range(layers)]
     times = _paged_times(kp, vp, table, lengths, nH)
     rows = int((np.asarray(lengths) + 1).sum())
-    span = nb * bsz
-    # per valid row and kv head: K and V, bf16 (K3) or int8 + an f32 scale (K5a)
-    row_bytes = 2 * (hd + 4) if quant else 2 * hd * 2
-    nbytes = (rows * nKV * row_bytes + 2 * R * nH * hd * 2 + R * nb * 4 + R * span)
-    flops = 4 * nH * hd * rows
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / peak_flops(torch.bfloat16) * 1e3
+    bound_ms, bound_by, bytes_ms, ops_ms = _k3_bound(rows, R, nb, bsz, nKV, nH, hd, quant)
     return dict(
         name="paged_attention_q8" if quant else "paged_attention", route="cuda",
         source=KERNEL_SOURCE, replaces=Q8_REPLACES if quant else KERNEL_REPLACES,
         launches=launches, max_abs_err=max_err, max_err=max_err, **times,
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        bytes_ms=bytes_ms, ops_ms=ops_ms,
+        bound_ms=bound_ms, bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms,
         library_call="scaled_dot_product_attention, KV pre-gathered"
                      + (" and pre-dequantized to bf16" if quant else ""),
         shape=dict(R=R, nH=nH, nKV=nKV, hd=hd, bsz=bsz, nb=nb, valid_rows=rows,
@@ -1769,12 +2137,24 @@ def phase_spec_step(engine, cfg, width: int = SPEC_K + 1) -> dict:
     readings."""
     rng = np.random.default_rng(SEED + 8)
     engine.pause_generation()
+    # the wave's retired slots keep their blocks as donor material: free
+    # them, so the slots below draw their blocks from the free list
+    engine._invalidate_prefixes()
     table, positions, _, lengths = _served_batch(engine, cfg, rng, width=width)
     dev = engine.device
     R = len(lengths)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (R, width)), device=dev)
     active = torch.ones(R, dtype=torch.bool, device=dev)
     kp, vp = engine._k_pool, engine._v_pool
+    # the last two slots hold no KV of their own (zero rows): there a query
+    # attends only to the W rows of this forward, so the planted fault of
+    # (5) shows on the logits. Over a few hundred served rows it moves
+    # them by less than the 4-ulp floor; the first versions' batch had
+    # two such slots only because the free list ran out of served blocks.
+    for r in (R - 2, R - 1):
+        own = table[r, : int(engine._alloc.nblocks[r])].long()
+        kp[:, own] = 0
+        vp[:, own] = 0
     ks, vs = kp.clone(), vp.clone()
 
     def verify(attn, pools):
@@ -2613,23 +2993,45 @@ def _observe_loop(trace_step: int | None = None):
     outlive `destroy`), read the engine's decode counters and the peak
     device memory as each `ppo_update` ends, and trace step `trace_step`'s
     `prepare_batch` (the rollout wait, with the decode steps that run in
-    it) and `ppo_update` on the device. Patches the classes' methods for
-    the duration and restores them."""
-    seen = dict(engines=[], updates=[], rollouts=0, traces={})
+    it) and `ppo_update` on the device, with the K3 bound of every decode
+    step dispatched in the traced rollout wait (`_k3_bound` of the valid
+    rows each slot's mask marks: its length + 1, growing by one a step on
+    the active slots). Patches the classes' methods for the duration and
+    restores them."""
+    seen = dict(engines=[], updates=[], rollouts=0, traces={}, k3_bounds=None)
     init = TorchDecodeEngine.initialize
     prepare = TorchDecodeEngine.prepare_batch
+    dispatch = TorchDecodeEngine._dispatch_chunk
     update = TorchPPOActor.ppo_update
 
     def initialize(self):
         seen["engines"].append(self)
         return init(self)
 
+    def dispatch_chunk(self, active):
+        lengths = self._slot_lengths.copy()
+        rec = dispatch(self, active)
+        if seen["k3_bounds"] is not None and rec is not None and not rec.spec_w:
+            cfg = self.model_config
+            pre = np.where(rec.active, self._slot_lengths - rec.n_chunk, lengths)
+            for st in range(rec.n_chunk):
+                rows = int((pre + 1).sum()) + st * int(rec.active.sum())
+                seen["k3_bounds"].append(_k3_bound(
+                    rows, len(pre), rec.nb, self._alloc.block_size, cfg.num_key_value_heads,
+                    cfg.num_attention_heads, cfg.head_dim_, quant=False))
+        return rec
+
     def prepare_batch(self, *args, **kwargs):
         step, seen["rollouts"] = seen["rollouts"], seen["rollouts"] + 1
         if step != trace_step:
             return prepare(self, *args, **kwargs)
         steps0 = self.decode_steps
+        seen["k3_bounds"] = []
         out, trace = _traced(prepare, self, *args, **kwargs)
+        bounds, seen["k3_bounds"] = seen["k3_bounds"], None
+        trace["k3_bound_ms_per_launch"] = (
+            float(np.mean([b[0] for b in bounds])) if bounds else None)
+        trace["k3_bound_by"] = sorted({b[1] for b in bounds})
         seen["traces"]["rollout"] = dict(trace, decode_steps=self.decode_steps - steps0)
         return out
 
@@ -2648,11 +3050,13 @@ def _observe_loop(trace_step: int | None = None):
         return out
 
     TorchDecodeEngine.initialize, TorchDecodeEngine.prepare_batch = initialize, prepare_batch
+    TorchDecodeEngine._dispatch_chunk = dispatch_chunk
     TorchPPOActor.ppo_update = ppo_update
     try:
         yield seen
     finally:
         TorchDecodeEngine.initialize, TorchDecodeEngine.prepare_batch = init, prepare
+        TorchDecodeEngine._dispatch_chunk = dispatch
         TorchPPOActor.ppo_update = update
 
 
@@ -2724,6 +3128,12 @@ def _loop_run(dev, tag: str, overrides: list[str], model_config=None, reward_fn=
                 flash_attention_fwd=L * (logp_mbs + (2 if remat else 1) * train_mbs),
                 flash_attention_bwd_dq=L * train_mbs, flash_attention_bwd_dkv=L * train_mbs)
     check(launches == want, f"{tag}: launches {launches}, formulas {want}")
+    # each group's later members fork the first's prompt KV (or reuse it in place)
+    n = config.gconfig.n_samples
+    admissions = dict(prefills=engine._n_prefills, forks=engine._n_prefix_forks,
+                      inplace=engine._n_prefix_inplace, suffix_prefills=engine._n_suffix_prefills)
+    check(admissions["forks"] + admissions["inplace"] >= (n - 1) * admissions["prefills"],
+          f"{tag}: {admissions} for groups of {n}")
     out = dict(run=tag, overrides=overrides, layers=L, dtype=engine.model_config.dtype,
                wall_s=wall, launches=launches, formulas=dict(
                    paged_attention="decode steps x L",
@@ -2731,6 +3141,7 @@ def _loop_run(dev, tag: str, overrides: list[str], model_config=None, reward_fn=
                    flash_attention_bwd_dq="L x trained mbs",
                    flash_attention_bwd_dkv="L x trained mbs"),
                decode_steps=engine.decode_steps, prefill_calls=engine.prefill_calls,
+               admissions=admissions, runahead_discarded=engine.runahead_discarded,
                max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
                max_version_lag=max(r["version_lag"] for r in steps), steps=steps)
     if seen["traces"]:
@@ -2790,7 +3201,14 @@ def phase_grpo_loop(dev: torch.device) -> dict:
         check(r["distinct_completions"] == r["samples"],
               f"full run step {r['step']}: {r['distinct_completions']} distinct "
               f"completions of {r['samples']}")
+    rollout = runs["full"]["traced_step"]["rollout"]
+    fam = rollout["device_ms"].get("paged_attention", 0.0)
+    k3_steps = rollout["decode_steps"] * runs["full"]["layers"]
+    k3_at_loop = dict(shape="R 32, 12/2 heads, hd 128, page 128, bf16",
+                      bound_ms=rollout["k3_bound_ms_per_launch"], bound_by=rollout["k3_bound_by"],
+                      device_ms_per_launch=fam / k3_steps if k3_steps else None)
     emit("grpo_loop", entry_point="areal_tpu_torch/examples/gsm8k_grpo.py:main",
+         k3_at_loop=k3_at_loop,
          yaml="examples/configs/arith_grpo_smoke.yaml",
          full_model="Qwen2.5-1.5B", full_source=QWEN25_1_5B_SOURCE,
          learning=dict(check="end - start > 0.05 and end > 0.9 (means of the first and "
@@ -3410,16 +3828,19 @@ def main() -> int:
         engine.destroy()
     del engine
     torch.cuda.empty_cache()
+    sched = phase_sched(dev)
     engine, cfg, s_launches = phase_serve_spec(dev, SERVE, "serve_spec")
     try:
         batch = phase_spec_step(engine, cfg)
         phase_profile(engine, cfg, batch, phase="profile_verify", width=SPEC_K + 1)
         verify = phase_verify_line(engine, cfg, batch, s_launches["paged_verify"],
                                    v_err["paged_verify"])
+        sched["f"] = _sched_freq(engine, cfg)
     finally:
         engine.destroy()
     del engine
     torch.cuda.empty_cache()
+    emit("sched", **sched)
     engine, cfg, q_launches = phase_serve_int8(dev)
     try:
         batch = phase_quant_step(engine, cfg)
@@ -3461,10 +3882,11 @@ def main() -> int:
                        sft={k: sft["launches"][k] + sft_smoke["launches"][k]
                             for k in FLASH_COUNTERS},
                        grpo_recover=recover["launches"], aent=aent["launches"])
-    # K3 runs in the serve and train paths and in the spec path's normal
-    # chunks; K5a in the int8 serve path and the int8 spec path's; K6 in both
+    # K3 runs in the serve, sched (its group waves) and train paths and in
+    # the spec path's normal chunks; K5a in the int8 serve path and the int8 spec path's; K6 in both
     # int8 paths
-    paged["launches_by_path"] = dict(serve=launches, serve_spec=s_launches["paged_attention"],
+    paged["launches_by_path"] = dict(serve=launches, sched=sched["k3_launches"],
+                                     serve_spec=s_launches["paged_attention"],
                                      grpo_loop=loop["launches"]["paged_attention"],
                                      train=train["launches"]["paged_attention"],
                                      grpo_recover=recover["launches"]["paged_attention"],

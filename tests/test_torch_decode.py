@@ -512,10 +512,3 @@ def test_int8_push_fp_names_diagnosed(weights, int8_engine):
         int8_engine.update_weights_from_tensor(dict(weights[1]))
     for k, t in before.items():
         assert torch.equal(int8_engine.params[k], t), k
-
-
-def test_unported_request_options_raise(engine):
-    for g in (GenerationHyperparameters(stop=["x"]),
-              GenerationHyperparameters(frequency_penalty=0.5)):
-        with pytest.raises(NotImplementedError):
-            engine.generate(ModelRequest(input_ids=[1, 2], gconfig=g), timeout=30)

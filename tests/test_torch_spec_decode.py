@@ -473,7 +473,10 @@ def test_spec_streams_equal_spec_off_streams(weights, weight_dtype, kv_dtype, mo
     monkeypatch.setattr(td, "verify_step_paged", spy)
     outs, engines = {}, {}
     for spec in ("off", "ngram"):
-        eng = _engine(params, spec_decode=spec, spec_k=4,
+        # the synchronous schedule, whose batches draft buckets 1, 2 and 4
+        # on this traffic (run-ahead admits a freed slot's successor one
+        # pass later); tests/test_torch_decode_runahead.py runs it ahead
+        eng = _engine(params, spec_decode=spec, spec_k=4, decode_runahead_chunks=0,
                       weight_dtype=weight_dtype, kv_dtype=kv_dtype)
         try:
             outs[spec] = _serve(eng, _requests())
