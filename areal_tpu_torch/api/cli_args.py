@@ -298,11 +298,11 @@ class SupervisorConfig:
 class InferenceEngineConfig:
     """Rollout-side engine config (`areal_tpu/api/cli_args.py:682`).
     Capacity is counted in episodes (one GRPO group each). The port's
-    `WorkflowExecutor` and engines read the first nine fields; the rest
-    steer a remote engine behind a router (retries, failover, the staged
-    weight push: ROADMAP queue 1, item 4) and are accepted and not acted on
-    in a colocated run. `check_supported` refuses fault injection
-    (item 7)."""
+    `WorkflowExecutor` and engines read the first nine fields;
+    `RemoteInfEngine` also reads the discovery, retry, failover and
+    staged-push fields. The router's (`router`, `router_request_timeout`)
+    steer the fleet router, ROADMAP queue 1, item 4, and are accepted and
+    not acted on. `check_supported` refuses fault injection (item 7)."""
 
     experiment_name: str | None = None
     trial_name: str | None = None
@@ -350,16 +350,16 @@ class TorchDecodeConfig:
     `TorchDecodeEngine.initialize` refuses a verify width `spec_k + 1` past
     the verify kernels' limit (`ops.paged_attention.check_verify_width`).
     `kv_fabric` is accepted and not acted on: the fabric's content index and
-    peer fetch come with the decode server and router, ROADMAP queue 1,
-    item 4. Its device rung also acts in a lone JAX engine: a prompt that
+    peer fetch come with the fleet router, ROADMAP queue 1, item 4. Its device rung also acts in a lone JAX engine: a prompt that
     shares only a block-aligned head with a registered conversation that
     diverges later forks those blocks there, and prefills in full here
-    unless the registry holds that head as a key of its own. So are the
-    server's knobs (`log_level`, `enable_metrics`, `decode_log_interval`,
-    `idempotency_*`, `weight_staging_ttl_s`, `kv_migrate_chunk_mb`,
+    unless the registry holds that head as a key of its own. The decode
+    server (`launcher/decode_server.py`) reads `idempotency_*` and
+    `weight_staging_ttl_s`; its other knobs (`log_level`,
+    `enable_metrics`, `decode_log_interval`, `kv_migrate_chunk_mb`,
     `kv_import_pool_mb`, `skip_tokenizer_init`, the `kv_fabric_*` limits)
-    and `hbm_utilization`: the pool is sized by `kv_pool_tokens`, or the
-    dense worst case.
+    and `hbm_utilization` are accepted and not acted on: the pool is sized
+    by `kv_pool_tokens`, or the dense worst case.
 
     The serving dtype is the installed model's (`ModelConfig.dtype`).
     `dtype` keeps its JAX name and default; as in the JAX engine
@@ -492,9 +492,9 @@ class RecoverConfig(_Timer):
     """Step-level crash recovery (`utils/recover.py`): each dump is
     written to a fresh `step-{G}.tmp`, sealed with a checksummed, fsynced
     MANIFEST.json, renamed to `step-{G}`, and only then pruned to the
-    newest `keep_last` (>= 1). `retries` is the JAX launcher's restart
-    count (`areal_tpu/launcher/local.py:425`); the launcher is ROADMAP
-    queue 1, item 4, so it is accepted and not acted on."""
+    newest `keep_last` (>= 1). `retries` is the local launcher's restart
+    count (`launcher/local.py`, as `areal_tpu/launcher/local.py:425`)
+    when `mode` is "auto" or "fault"."""
 
     mode: str = "disabled"  # "disabled" | "auto" | "fault" | "resume"
     retries: int = 3
@@ -557,8 +557,10 @@ class StatsLoggerConfig:
 @dataclass
 class NameResolveConfig:
     """Name-resolve backend (`areal_tpu/utils/name_resolve.py:40`): service
-    discovery for decode servers and trainers, which a colocated run does
-    not need; accepted and not acted on."""
+    discovery for decode servers and trainers (`utils/name_resolve.py`),
+    read by the launcher and the DECOUPLED entry point; "memory" and
+    "nfs" are ported, "etcd3" and "ray" are refused (ROADMAP queue 1,
+    item 5)."""
 
     type: str = "nfs"  # "memory" | "nfs"
     nfs_record_root: str = "/tmp/areal_tpu/name_resolve"
@@ -600,11 +602,12 @@ class SlurmLauncherConfig:
 
 @dataclass
 class LauncherConfig:
-    """Launcher resources (`areal_tpu/api/cli_args.py:851`). The launchers
-    are ROADMAP queue 1, items 4 and 5: an entry point started by hand
-    reads none of this, so the resources are accepted and not acted on;
-    `check_supported` refuses the fleet features (prefill replicas, the
-    supervisor)."""
+    """Launcher resources (`areal_tpu/api/cli_args.py:851`). The local
+    launcher (`launcher/local.py`) runs one server and one trainer on one
+    host and sets no resources, so these are accepted and not acted on
+    (the slurm and ray launchers are ROADMAP queue 1, item 5);
+    `check_supported` refuses the fleet features of item 4, prefill
+    replicas and the supervisor."""
 
     inference_server_cpus_per_accelerator: int = 4
     inference_server_mem_per_accelerator: int = 32 * 1024
@@ -617,9 +620,10 @@ class LauncherConfig:
     slurm: SlurmLauncherConfig = field(default_factory=SlurmLauncherConfig)
 
     def check_supported(self) -> None:
-        item = "item 4, the decode fleet"
-        _refuse(self, {"prefill_replicas": (int(self.prefill_replicas) > 0, item)})
-        _refuse(self.supervisor, {"enabled": (self.supervisor.enabled, item)}, "supervisor.")
+        _refuse(self, {"prefill_replicas": (
+            int(self.prefill_replicas) > 0, "item 4, the prefill/decode roles")})
+        _refuse(self.supervisor, {"enabled": (
+            self.supervisor.enabled, "item 4, the fleet supervisor")}, "supervisor.")
 
 
 @dataclass
@@ -647,7 +651,8 @@ class BaseExperimentConfig:
 
     def check_supported(self) -> None:
         """What an entry point refuses before it builds anything: more than
-        one node (item 5) and the launcher's fleet features (item 4)."""
+        one node (item 5) and the launcher's fleet features, prefill
+        replicas and the supervisor (item 4)."""
         _refuse(self.cluster, {
             "n_nodes": (int(self.cluster.n_nodes) > 1, "item 5, multi-node runs"),
         }, "cluster.")
@@ -715,15 +720,21 @@ def parse_cli_args(argv: list[str]):
     return cfg_dict, kv
 
 
-def load_expr_config(argv: list[str], config_cls):
+def load_expr_config(argv: list[str], config_cls, ignore_unknown: bool = False):
     """Load a structured experiment config from CLI argv: the YAML file,
     then the `key=value` overrides; then the experiment and trial names
     (and the cluster's file root) flow into the sub-configs that leave
-    them empty (JAX :953-996). Returns (config, the file's dict)."""
+    them empty (JAX :953-996). `ignore_unknown` skips the keys and
+    overrides `config_cls` lacks (a subset view, as the launcher reads an
+    entry point's config). Returns (config, the file's dict)."""
     cfg_dict, overrides = parse_cli_args(argv)
-    config = structured.from_dict(config_cls, cfg_dict)
+    config = structured.from_dict(config_cls, cfg_dict, ignore_unknown=ignore_unknown)
     for k, v in overrides:
-        structured.apply_override(config, k, v)
+        try:
+            structured.apply_override(config, k, v)
+        except structured.UnknownFieldError:
+            if not ignore_unknown:
+                raise
     for attr in ("saver", "evaluator", "stats_logger", "recover"):
         sub = getattr(config, attr, None)
         if sub is not None:

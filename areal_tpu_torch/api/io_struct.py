@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import os
 import uuid
 from dataclasses import dataclass, field
 from typing import Any, Literal
@@ -71,11 +72,20 @@ class FinetuneSpec:
 
 @dataclass
 class WeightUpdateMeta:
-    """How trainer weights reach the decode engine. The port implements
-    "memory": the colocated trainer hands its tensors to the decode engine
-    on the same card, which copies them in place. "disk" and "dcn" are
-    refused by `TorchTrainEngine.update_weights` (ROADMAP.md queue 1,
-    item 4)."""
+    """How trainer weights reach the decode engine
+    (`TorchTrainEngine.update_weights`):
+
+    - "memory": the colocated trainer hands its tensors to the decode
+      engine on the same card, which copies them in place.
+    - "disk": an HF safetensors checkpoint at `path`, loaded by every
+      decode server, with name_resolve's timestamp handshake.
+    - "dcn": the staged HTTP push to the decode servers
+      (`core/weight_transfer.py`), in frames of at most
+      `weight_chunked_mem_mb`; `weight_dtype` "int8" quantizes the dense
+      kernels at the trainer and must match the servers' `weight_dtype`.
+
+    `use_lora` (a LoRA delta push) is refused (ROADMAP.md queue 1,
+    item 6)."""
 
     type: Literal["disk", "memory", "dcn"] = "memory"
     path: str | None = None
@@ -86,6 +96,13 @@ class WeightUpdateMeta:
     weight_chunked_mem_mb: int = 1024
     use_lora: bool = False
     weight_dtype: str = "fp"
+
+    @classmethod
+    def from_disk(cls, experiment_name: str, trial_name: str, file_root: str,
+                  name: str = "default", use_lora: bool = False) -> "WeightUpdateMeta":
+        path = os.path.join(file_root, "checkpoints", experiment_name, trial_name, name,
+                            "weight_update")
+        return cls(type="disk", path=path, use_lora=use_lora)
 
     @classmethod
     def from_memory(cls, alloc_mode: Any = None) -> "WeightUpdateMeta":

@@ -85,6 +85,13 @@ serving core and its default scheduling).
   `pause_generation`) and the ledger's checkpoint calls to it, as
   `jax_decode.py:3814-3848` does; a new weight version reaches both.
 
+- **Behind a server** (`launcher/decode_server.py`): `get_metrics`
+  reports load and ITL windows under the JAX keys plus the op wrappers'
+  `kernel_launches` and the process's `device_memory_peak`,
+  `reset_timing_windows` clears the windows, and
+  `update_weights_from_disk` installs an HF checkpoint as a push does,
+  reading it before the pause (JAX reads it inside).
+
 The JAX engine's host KV tier, workspace layout, session export and
 import, prefill-only admissions and KV fabric are later ROADMAP items.
 """
@@ -115,6 +122,7 @@ from areal_tpu_torch.api.io_struct import ModelRequest, ModelResponse
 from areal_tpu_torch.core.workflow_executor import WorkflowExecutor
 from areal_tpu_torch.engine.kv_pool import KVBlockAllocator, PoolDry
 from areal_tpu_torch.engine.sampling import sample, slot_base_key
+from areal_tpu_torch.models import hf_io
 from areal_tpu_torch.models.convert import to_tensor
 from areal_tpu_torch.models.qwen2 import (
     WEIGHT_DTYPES,
@@ -136,6 +144,10 @@ from areal_tpu_torch.ops.kv_quant import (
     quantize_kv,
     scales_rowmajor,
 )
+from areal_tpu_torch.ops import flash_attention as _fa
+from areal_tpu_torch.ops import paged_attention as _pa
+from areal_tpu_torch.ops import quant_matmul as _qm
+from areal_tpu_torch.ops import threefry as _tf
 from areal_tpu_torch.ops.paged_attention import check_verify_width
 from areal_tpu_torch.platforms import resolve_device
 from areal_tpu_torch.utils import logging
@@ -148,6 +160,24 @@ _PREFILL_BUCKET = 64
 _MIN_SHARED_PREFIX = 64
 # tokens of overlap when the stop-string scan re-decodes a chunk's tail
 _STOP_OVERLAP = 16
+# consumed passes kept in the rolling inter-token-latency windows
+_ITL_WINDOW = 512
+
+
+def kernel_launches() -> dict[str, int]:
+    """The op wrappers' launch counters in this process (the port-only
+    `kernel_launches` key of `get_metrics`)."""
+    return dict(
+        paged_attention=_pa.launches,
+        paged_attention_q8=_pa.launches_q8,
+        paged_verify=_pa.launches_verify,
+        paged_verify_q8=_pa.launches_verify_q8,
+        quant_matmul=_qm.launches,
+        threefry_noise=_tf.launches,
+        flash_attention_fwd=_fa.launches_fwd,
+        flash_attention_bwd_dq=_fa.launches_dq,
+        flash_attention_bwd_dkv=_fa.launches_dkv,
+    )
 
 
 def _next_bucket(n: int, bucket: int = _PREFILL_BUCKET) -> int:
@@ -333,6 +363,15 @@ class TorchDecodeEngine(InferenceEngine):
         self._prefill_events: list[tuple[Any, Any]] = []
         self._prefill_secs = 0.0
         self._events_lock = threading.Lock()
+        # rolling timing windows (get_metrics, reset_timing_windows):
+        # per-token device and wall inter-token latency of recent passes,
+        # and the device's busy and idle seconds between passes
+        self._metrics_lock = threading.Lock()
+        self._chunk_itl_ms: deque[float] = deque(maxlen=_ITL_WINDOW)
+        self._chunk_wall_itl_ms: deque[float] = deque(maxlen=_ITL_WINDOW)
+        self._dev_busy_s = 0.0
+        self._dev_idle_s = 0.0
+        self._chunks_dispatched = 0
 
         # counters (written by the scheduler thread, or under a pause)
         self.decode_steps = 0  # normal decode steps dispatched (R slots each)
@@ -1249,6 +1288,7 @@ class TorchDecodeEngine(InferenceEngine):
             acc = None
             self.decode_steps += n_chunk
             self._slot_lengths[active] += n_chunk
+        self._chunks_dispatched += 1
         host = [self._to_host(t) for t in (toks, logps) + (() if acc is None else (acc,))]
         event = None
         if self.device.type == "cuda":
@@ -1354,6 +1394,16 @@ class TorchDecodeEngine(InferenceEngine):
         dev_s = max(t_ready - start, 0.0)
         self._last_ready_t = t_ready
         self.decode_seconds += dev_s
+        with self._metrics_lock:
+            self._dev_busy_s += dev_s
+            if prev is not None:
+                # the host gap: the previous pass had landed and this one
+                # was not queued yet
+                self._dev_idle_s += max(rec.t_dispatch - prev, 0.0)
+            self._chunk_itl_ms.append(1e3 * dev_s / rec.n_chunk)
+            self._chunk_wall_itl_ms.append(
+                1e3 * (t_ready - (prev if prev is not None else rec.t_dispatch)) / rec.n_chunk
+            )
         spec = rec.spec_w > 0
         if spec:
             self.verify_seconds += dev_s
@@ -1650,6 +1700,120 @@ class TorchDecodeEngine(InferenceEngine):
 
     def get_version(self) -> int:
         return self._version
+
+    def read_disk_weights(self, meta) -> dict[str, torch.Tensor]:
+        """The served tensors of an HF checkpoint directory (`meta.path`,
+        as `models/hf_io.save_hf_params` writes it), read on the host with
+        generation live; an int8-weight engine quantizes its kernels."""
+        if meta.path is None:
+            raise ValueError("update_weights_from_disk needs meta.path")
+        host = hf_io.load_hf_params(meta.path, self.model_config)
+        if self._w_quant:
+            with torch.no_grad():
+                host = quantize_weights(host)
+        return host
+
+    def update_weights_from_disk(self, meta) -> None:
+        """Install the weights of an HF checkpoint directory
+        (jax_decode.py:5063). The file is read before the pause
+        (`read_disk_weights`; JAX reads it inside); the install is
+        `update_weights_from_tensor`'s: one pause window (an external
+        pause is kept), every name and shape checked first, the parked KV
+        and the prefix registry dropped. The caller stamps the version
+        (the server passes it to `update_weights_from_tensor` itself, to
+        stamp it inside the install's pause)."""
+        self.update_weights_from_tensor(self.read_disk_weights(meta))
+
+    # -- observability --------------------------------------------------
+    def reset_timing_windows(self) -> None:
+        """Clear the rolling ITL windows and the busy/idle seconds
+        (jax_decode.py:5103): call on an idle engine between a warm-up and
+        a measured run. Counters are left alone."""
+        with self._metrics_lock:
+            self._chunk_itl_ms.clear()
+            self._chunk_wall_itl_ms.clear()
+            self._dev_busy_s = 0.0
+            self._dev_idle_s = 0.0
+            self._last_ready_t = None
+
+    def get_metrics(self) -> dict:
+        """Load and latency counters under the JAX engine's key names
+        (jax_decode.py:5116) that this engine has, and two keys of the
+        port's own: `kernel_launches`, the op wrappers' launch counters in
+        this process with `decode_steps`, `verify_dispatches` and
+        `prefill_calls`, so a caller in another process can hold the
+        launch formulas (read it while paused: the scheduler counts a pass
+        at dispatch, and the counters of a pass in progress may be torn);
+        and `device_memory_peak`, this process's peak allocated and
+        reserved device bytes (None on the CPU).
+        ITL is per token: a pass's device window (or ready-to-ready wall
+        time) over its tokens."""
+        running, active_tokens = 0, 0
+        for i, s in enumerate(list(self._slots)):
+            if s is not None:
+                running += 1
+                active_tokens += int(self._slot_lengths[i]) + 1
+        with self._request_q.mutex:
+            queued_items = list(self._request_q.queue)
+        queued_items += list(self._overflow)
+        queued_tokens = sum(len(it.prompt) + it.gconfig.max_new_tokens for it in queued_items)
+        self._collect_prefill_events(wait=False)
+        with self._metrics_lock:
+            itl = np.asarray(self._chunk_itl_ms, dtype=np.float64)
+            itl_wall = np.asarray(self._chunk_wall_itl_ms, dtype=np.float64)
+            busy, idle = self._dev_busy_s, self._dev_idle_s
+
+        def pct(x, q):
+            return float(np.percentile(x, q)) if x.size else 0.0
+
+        prefix_hits = self._n_prefix_forks + self._n_prefix_inplace + self._n_suffix_prefills
+        prefix_total = prefix_hits + self._n_prefills
+        alloc = self._alloc
+        return {
+            "running_requests": running,
+            "queued_requests": len(queued_items),
+            "queued_tokens": queued_tokens,
+            "active_tokens": active_tokens,
+            "generated_tokens_total": self.decode_tokens,
+            "decode_runahead_chunks": int(self.config.decode_runahead_chunks),
+            "chunks_dispatched_total": self._chunks_dispatched,
+            "runahead_discarded_tokens_total": self.runahead_discarded,
+            "device_busy_s": round(busy, 6),
+            "device_idle_s": round(idle, 6),
+            "device_idle_frac": round(idle / (busy + idle), 6) if busy + idle > 0 else 0.0,
+            "itl_p50_ms": pct(itl, 50),
+            "itl_p99_ms": pct(itl, 99),
+            "itl_wall_p50_ms": pct(itl_wall, 50),
+            "itl_wall_p99_ms": pct(itl_wall, 99),
+            "prefill_secs_total": round(self._prefill_secs, 6),
+            "role": self.config.role,
+            "prefills_total": self._n_prefills,
+            "prefix_forks_total": self._n_prefix_forks,
+            "prefix_inplace_total": self._n_prefix_inplace,
+            "suffix_prefills_total": self._n_suffix_prefills,
+            "prefix_cache_hit_rate": round(prefix_hits / prefix_total, 6) if prefix_total else 0.0,
+            "preemptions_total": self.n_preemptions,
+            "kv_layout": self.config.kv_layout,
+            "kv_dtype": self.config.kv_dtype,
+            "weight_dtype": self.config.weight_dtype,
+            "kv_block_size": alloc.block_size if alloc else 0,
+            "kv_blocks_total": alloc.usable_blocks if alloc else 0,
+            "kv_blocks_free": alloc.free_blocks if alloc else 0,
+            "kv_tokens_allocated": alloc.allocated_tokens() if alloc else 0,
+            "kernel_launches": dict(
+                kernel_launches(), decode_steps=self.decode_steps,
+                verify_dispatches=self.verify_dispatches, prefill_calls=self.prefill_calls,
+            ),
+            "device_memory_peak": self._device_memory_peak(),
+        }
+
+    def _device_memory_peak(self) -> dict | None:
+        """This process's peak device memory since it started (the card's
+        allocator), or None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        return dict(max_allocated_bytes=torch.cuda.max_memory_allocated(self.device),
+                    max_reserved_bytes=torch.cuda.max_memory_reserved(self.device))
 
     # -- rollout queue (delegated to the WorkflowExecutor) ---------------
     def submit(self, data, workflow=None, workflow_builder=None, should_accept=None,

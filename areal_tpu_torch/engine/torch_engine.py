@@ -23,9 +23,17 @@
   one per layer leaf (`layers_{i}/...`), because eager autograd through
   views of a stacked `[L, ...]` leaf would write a whole-stack gradient
   for every layer.
-- Weights reach a colocated `TorchDecodeEngine` in memory
-  (`update_weights`, "memory" only): the decode engine copies them in
-  place on the same card.
+- Weights reach the decode side three ways (`update_weights`, JAX
+  :947-990). "memory": a colocated `TorchDecodeEngine` copies them in
+  place on the same card. "disk": an HF checkpoint at `meta.path`, then
+  the connected engine (a `RemoteInfEngine`) has every server load it.
+  "dcn": the staged HTTP push (`update_weights_async`, :1070-1130): the
+  bf16 cast of the parameters (int8 kernels with
+  `meta.weight_dtype="int8"`), streamed leaf by leaf in the JAX wire
+  layout of the model's configured `scan_layers` (each `layers_{i}` leaf
+  stacked into its `[L, ...]` wire form one leaf at a time), copied to
+  the host on a side stream and framed while the servers keep
+  generating; only the commit pauses them.
 - `save` / `load` (JAX :791, :823) take two formats. "hf" is one HF
   `model.safetensors` (`models/hf_io.py`), with the optimizer beside it
   under `optim/` when `with_optim`. "torch" is the recovery format that
@@ -45,6 +53,7 @@ import json
 import math
 import os
 import shutil
+import threading
 import time
 from typing import Any, Callable
 
@@ -57,6 +66,7 @@ from areal_tpu_torch.api.engine_api import InferenceEngine, TrainEngine
 from areal_tpu_torch.api.io_struct import FinetuneSpec, SaveLoadMeta, WeightUpdateMeta
 from areal_tpu_torch.models import hf_io
 from areal_tpu_torch.models.qwen2 import (
+    WEIGHT_DTYPES,
     LMHead,
     ModelConfig,
     check_supported,
@@ -64,11 +74,13 @@ from areal_tpu_torch.models.qwen2 import (
     init_params,
     layer_views,
     named_shapes,
+    quantize_weights,
     segment_ids_from_cu_seqlens,
     torch_dtype,
 )
+from areal_tpu_torch.ops.quant import quantize_absmax_compiled
 from areal_tpu_torch.platforms import resolve_device
-from areal_tpu_torch.utils import logging, stats_tracker
+from areal_tpu_torch.utils import logging, name_resolve, names, stats_tracker
 from areal_tpu_torch.utils.data import (
     split_padded_tensor_dict_into_mb_list,
     unpack_sequence,
@@ -221,6 +233,74 @@ def fused_lm_loss_enabled(engine) -> bool:
     return bool(getattr(getattr(cfg, "jax", None), "fused_lm_loss", False))
 
 
+class DcnWeightPush:
+    """Handle of a staged "dcn" weight push in flight (JAX :261-330).
+
+    `stage_fn` (framing and streaming, generation live) runs on a daemon
+    thread started here; the trainer goes on meanwhile. `commit()` joins
+    the staging thread, re-raising its error, then runs `commit_fn`: the
+    only pause the decode servers see. `abort()` drops the servers'
+    staging of a push that will not commit."""
+
+    def __init__(self, stage_fn: Callable[[], None] | None,
+                 commit_fn: Callable[[], None] | None,
+                 abort_fn: Callable[[], None] | None = None):
+        self._error: BaseException | None = None
+        self._commit_fn = commit_fn
+        self._abort_fn = abort_fn
+        self._t0 = time.monotonic()
+        self.stage_secs = 0.0
+        self.commit_secs = 0.0
+        self.committed = False
+        self._thread = None
+        if stage_fn is not None:
+
+            def _run():
+                try:
+                    stage_fn()
+                except BaseException as e:  # noqa: BLE001 — raised at join
+                    self._error = e
+                finally:
+                    self.stage_secs = time.monotonic() - self._t0
+
+            self._thread = threading.Thread(target=_run, daemon=True, name="dcn-weight-push")
+            self._thread.start()
+
+    def wait_staged(self) -> None:
+        """Wait for staging to end, whatever its outcome (an error comes
+        out of `join` or `commit`)."""
+        if self._thread is not None:
+            self._thread.join()
+
+    def join(self, timeout: float | None = None) -> None:
+        """Wait for staging to finish; re-raise its error, if any."""
+        if self._thread is not None:
+            self._thread.join(timeout)
+            if self._thread.is_alive():
+                raise TimeoutError("dcn weight push still staging")
+        if self._error is not None:
+            raise self._error
+
+    def commit(self) -> None:
+        """`join`, then the pause window and the commit (once)."""
+        if self.committed:
+            return
+        self.join()
+        if self._commit_fn is not None:
+            t0 = time.monotonic()
+            self._commit_fn()
+            self.commit_secs = time.monotonic() - t0
+        self.committed = True
+        logger.info(f"dcn weight push: staged {self.stage_secs:.2f}s (generation live) "
+                    f"+ commit pause {self.commit_secs:.2f}s")
+
+    def abort(self) -> None:
+        """Best effort: drop the servers' staging of this push."""
+        self.wait_staged()
+        if self._abort_fn is not None and not self.committed:
+            self._abort_fn()
+
+
 class TorchTrainEngine(TrainEngine):
     """Training engine for the dense decoder on one card."""
 
@@ -240,6 +320,12 @@ class TorchTrainEngine(TrainEngine):
         self._train_mode = True
         self.rollout_engine: InferenceEngine | None = None
         self.weight_update_meta: WeightUpdateMeta | None = None
+        # the layer layout weight pushes name: the model's configured
+        # scan_layers (the engine itself keeps its layers unscanned)
+        self._wire_scan = True
+        # a dcn push whose staging may still read the parameters: the
+        # next optimizer step waits for it
+        self._push_in_flight: DcnWeightPush | None = None
 
     # -- lifecycle ------------------------------------------------------
     def create_process_group(self, parallel_strategy: ParallelStrategy | None = None) -> None:
@@ -279,6 +365,7 @@ class TorchTrainEngine(TrainEngine):
                 remat_policy=cfg.jax.remat_policy,
                 attn_impl=attn_impl,
             )
+        self._wire_scan = self.model_config.scan_layers
         self.model_config = dataclasses.replace(self.model_config, scan_layers=False)
         cfg.jax.check_supported()
         mcfg = self.model_config
@@ -420,21 +507,111 @@ class TorchTrainEngine(TrainEngine):
         return self
 
     def update_weights(self, meta: WeightUpdateMeta | None = None) -> None:
-        """Push the current weights to the connected decode engine, which
-        copies them in place and stamps this engine's version on every
-        token it generates next (JAX :947-963)."""
+        """Push the current weights to the connected decode engine, stamped
+        with this engine's version (JAX :947-990): "memory" copies them
+        into a colocated engine in place; "disk" writes an HF checkpoint
+        to `meta.path`, records the push under name_resolve's
+        `update_weights_from_disk` key and has the engine load it; "dcn"
+        stages and commits an HTTP push (`update_weights_async`)."""
         meta = meta or self.weight_update_meta
         if meta is None or self.rollout_engine is None:
             raise RuntimeError("no decode engine connected: call connect_engine first")
-        if meta.type != "memory":
+        if meta.use_lora:
             raise NotImplementedError(
-                f"weight update type {meta.type!r} is not in the PyTorch port "
-                "yet: ROADMAP.md queue 1, item 4"
+                "LoRA delta push is not in the PyTorch port yet: ROADMAP.md queue 1, item 6"
             )
-        named = {k: v.detach() for k, v in self.params.items()}
-        self.rollout_engine.update_weights_from_distributed(
-            meta, named, self.model_config, version=self.get_version()
+        if meta.type == "memory":
+            named = {k: v.detach() for k, v in self.params.items()}
+            self.rollout_engine.update_weights_from_distributed(
+                meta, named, self.model_config, version=self.get_version()
+            )
+        elif meta.type == "disk":
+            if meta.path is None:
+                raise ValueError("a disk weight update needs meta.path")
+            start = time.monotonic()
+            hf_io.save_hf_params(self.params, self.model_config, meta.path)
+            # the timestamp handshake of the reference's disk push
+            name_resolve.add(
+                names.update_weights_from_disk(
+                    self.config.experiment_name, self.config.trial_name, self.get_version()),
+                str(time.time_ns()), replace=True,
+            )
+            self.rollout_engine.update_weights_from_disk(meta)
+            logger.info(f"disk weight update took {time.monotonic() - start:.2f}s")
+        elif meta.type == "dcn":
+            self.update_weights_async(meta).commit()
+        else:
+            raise NotImplementedError(f"weight update type {meta.type}")
+
+    def _wire_leaves(self, weight_dtype: str):
+        """(wire name, device tensor) of the push, one leaf at a time, in
+        the order the JAX trainer pushes (its jitted cast returns the tree
+        with sorted keys) for the configured layout: each floating
+        tensor cast to bf16, each `layers_{i}` leaf stacked into
+        `layers/<leaf>` `[L, ...]` when the layout is scanned, and the
+        dense kernels quantized to `<path>/q` (int8) and `<path>/scale`
+        (f32) for `weight_dtype="int8"`, with the arithmetic of the JAX
+        trainer's jitted quantizer (`quantize_absmax_compiled`)."""
+        if weight_dtype not in WEIGHT_DTYPES:
+            raise ValueError(f"weight_dtype={weight_dtype!r} not in {WEIGHT_DTYPES}")
+        cfg = dataclasses.replace(self.model_config, scan_layers=self._wire_scan)
+        L = cfg.num_hidden_layers
+        with torch.no_grad():
+            for name in sorted(named_shapes(cfg), key=lambda n: n.split("/")):
+                if name.startswith("layers/"):
+                    leaf = name[len("layers/"):]
+                    t = torch.stack([self.params[f"layers_{i}/{leaf}"] for i in range(L)])
+                else:
+                    t = self.params[name]
+                t = t.detach()
+                if t.is_floating_point():
+                    t = t.to(torch.bfloat16)
+                if weight_dtype == "int8":
+                    yield from quantize_weights({name: t}, quantize_absmax_compiled).items()
+                else:
+                    yield name, t
+
+    def _dcn_payload(self, inflight: int, weight_dtype: str = "fp"):
+        """The push's lazy (name, host tensor) producer (JAX :992-1068):
+        `_wire_leaves` with the copies of the next `inflight` (at least 2)
+        leaves to pinned host memory running on a side stream while the
+        earlier ones are framed and sent."""
+        from areal_tpu_torch.core.weight_transfer import iter_prefetched
+
+        return iter_prefetched(self._wire_leaves(weight_dtype), window=max(inflight, 2))
+
+    def update_weights_async(self, meta: WeightUpdateMeta | None = None) -> DcnWeightPush:
+        """Start a dcn push without blocking the trainer (JAX :1070-1130):
+        framing and streaming run on the handle's thread, generation goes
+        on, and `.commit()` on the handle pauses the servers only for the
+        install. The staging thread reads the parameters leaf by leaf, so
+        this engine's next optimizer step waits until it has finished."""
+        meta = meta or self.weight_update_meta
+        if meta is None or meta.type != "dcn":
+            raise ValueError("update_weights_async takes a 'dcn' WeightUpdateMeta")
+        if meta.use_lora:
+            raise NotImplementedError(
+                "LoRA delta push is not in the PyTorch port yet: ROADMAP.md queue 1, item 6"
+            )
+        engine = self.rollout_engine
+        if engine is None:
+            raise RuntimeError("no decode engine connected: call connect_engine first")
+        inflight = getattr(getattr(engine, "config", None), "weight_sync_inflight_buckets", 2)
+        chunk_mb = meta.weight_chunked_mem_mb or 512
+        named = self._dcn_payload(inflight, meta.weight_dtype)
+        version = self.get_version()
+        push_id = engine._new_push_id()
+
+        def _stage():
+            engine.stage_weights(named, push_id=push_id, chunk_mb=chunk_mb, inflight=inflight)
+
+        push = DcnWeightPush(
+            _stage,
+            lambda: engine.commit_staged(push_id, version=version),
+            lambda: engine.abort_push(push_id),
         )
+        self._push_in_flight = push
+        return push
 
     # -- compute --------------------------------------------------------
     def _device_mb(self, mb: dict[str, Any]) -> dict[str, torch.Tensor]:
@@ -516,7 +693,11 @@ class TorchTrainEngine(TrainEngine):
     @torch.no_grad()
     def _apply_update(self, plist, acc, total_weight: float):
         """grads / total_weight, global-norm clip, cast to the parameter
-        dtype, optimizer step (JAX :1531). Consumes `acc`."""
+        dtype, optimizer step (JAX :1531). Consumes `acc`. A dcn push still
+        reading the parameters finishes first."""
+        if self._push_in_flight is not None:
+            self._push_in_flight.wait_staged()
+            self._push_in_flight = None
         torch._foreach_div_(acc, total_weight)
         gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(acc)))
         clip = self.config.optimizer.gradient_clipping

@@ -1,20 +1,31 @@
-"""Async GRPO, colocated on one CUDA card: the port's GRPO entry point
-(counterpart of `examples/gsm8k_grpo.py`, its COLOCATE branch).
+"""Async GRPO on one CUDA card: the port's GRPO entry point (counterpart
+of `examples/gsm8k_grpo.py`).
 
-The trainer (`TorchPPOActor`) and the decode engine (`TorchDecodeEngine`)
-share the card. The engine's `WorkflowExecutor` runs RLVR episodes behind
-the staleness gate while the trainer recomputes logprobs, computes
-advantages and takes the decoupled-PPO update; then the weights are pushed
-to the engine in memory and the version goes up.
+The trainer (`TorchPPOActor`) recomputes logprobs, computes advantages and
+takes the decoupled-PPO update while a `WorkflowExecutor` runs RLVR
+episodes behind the staleness gate; then the weights are pushed and the
+version goes up. `allocation_mode` says where rollouts decode:
+
+- empty (COLOCATE): a `TorchDecodeEngine` in process on the trainer's
+  card; weights go to it in memory.
+- `jax:d1+d1` (DECOUPLED_TRAIN): a decode server
+  (`launcher/decode_server.py`) the local launcher started, found through
+  name_resolve; the trainer talks to it through `RemoteInfEngine`, and
+  weights go over the staged HTTP push (`WeightUpdateMeta(type="dcn")`).
 
 Usage, from the repository root:
 
   python -m areal_tpu_torch.examples.gsm8k_grpo \\
       --config examples/configs/arith_grpo_smoke.yaml [key=value ...]
 
+  python -m areal_tpu_torch.launcher.local \\
+      areal_tpu_torch/examples/gsm8k_grpo.py \\
+      --config examples/configs/arith_grpo_smoke.yaml allocation_mode=jax:d1+d1
+
 Override any config field with key=value, e.g. `actor.optimizer.lr=1e-5`.
 It runs on `cuda:0`. From Python, `main([...], device="cpu")` runs the
-same loop on the CPU with the kernels' plain versions.
+same loop on the CPU with the kernels' plain versions (a decoupled run
+also needs its server started with `--device cpu`).
 
 As in the JAX example, the evaluation runs between `rollout.pause()` and
 `rollout.resume()`, where the executor admits nothing, so the first step
@@ -28,13 +39,14 @@ import os
 import sys
 from typing import Any, Callable
 
+from areal_tpu_torch.api.alloc_mode import AllocationMode, AllocationType
 from areal_tpu_torch.api.cli_args import GRPOConfig, load_expr_config, save_config
 from areal_tpu_torch.api.io_struct import FinetuneSpec, StepInfo, WeightUpdateMeta
 from areal_tpu_torch.dataset import SimpleDataLoader, get_custom_dataset, load_tokenizer
 from areal_tpu_torch.engine.ppo.actor import TorchPPOActor
 from areal_tpu_torch.engine.torch_decode import TorchDecodeEngine
 from areal_tpu_torch.models.qwen2 import ModelConfig
-from areal_tpu_torch.utils import seeding, stats_tracker
+from areal_tpu_torch.utils import name_resolve, seeding, stats_tracker
 from areal_tpu_torch.utils.evaluator import Evaluator
 from areal_tpu_torch.utils.recover import RecoverHandler, ledger_wal_path
 from areal_tpu_torch.utils.saver import Saver
@@ -56,31 +68,31 @@ def pick_reward_fn(dataset_path: str):
     )
 
 
-def check_allocation(allocation_mode: str) -> None:
-    """Empty: COLOCATE, the decode engine in process on the trainer's card.
-    Anything else is refused with the ROADMAP item that ports it."""
-    mode = (allocation_mode or "").strip()
-    if not mode:
-        return
-    if "+" in mode:
-        raise NotImplementedError(
-            f"allocation_mode={mode!r} (DECOUPLED: decode servers beside the "
-            "trainer) is not in the PyTorch port yet: ROADMAP.md queue 1, item 4"
-        )
-    raise NotImplementedError(
-        f"allocation_mode={mode!r} (a parallel strategy over several devices) "
-        "is not in the PyTorch port yet: ROADMAP.md queue 1, item 5"
-    )
+def check_allocation(allocation_mode: str) -> AllocationMode:
+    """COLOCATE (the decode engine in process) or DECOUPLED_TRAIN (one
+    decode server); `AllocationMode.from_str` refuses more than one device
+    per side (ROADMAP.md queue 1, item 5)."""
+    return AllocationMode.from_str(allocation_mode)
 
 
-def build_rollout(config: GRPOConfig, actor: TorchPPOActor, tokenizer, device):
-    """COLOCATE: the decode engine on the trainer's card, memory weight
-    updates."""
+def build_rollout(config: GRPOConfig, alloc: AllocationMode, actor: TorchPPOActor, tokenizer,
+                  device):
+    """DECOUPLED: the HTTP client over the launcher's decode server, dcn
+    weight pushes (JAX `examples/gsm8k_grpo.py:84-100`). COLOCATE: the
+    decode engine on the trainer's card, memory weight pushes."""
+    if alloc.type_ == AllocationType.DECOUPLED_TRAIN:
+        from areal_tpu_torch.core.remote_inf_engine import JaxDecodeBackend, RemoteInfEngine
+
+        # the store the launcher and the servers share
+        name_resolve.reconfigure(config.cluster.name_resolve)
+        rollout = RemoteInfEngine(config.rollout, JaxDecodeBackend(), tokenizer=tokenizer)
+        rollout.initialize(train_data_parallel_size=1)
+        return rollout, WeightUpdateMeta(type="dcn")
     rollout = TorchDecodeEngine(config.decode, config.rollout, tokenizer=tokenizer,
                                 device=device)
     rollout.set_model(actor.params, actor.model_config)
     rollout.initialize()
-    return rollout, WeightUpdateMeta.from_memory(None)
+    return rollout, WeightUpdateMeta.from_memory(alloc)
 
 
 def main(
@@ -103,7 +115,7 @@ def main(
     rank = 0
     seeding.set_random_seed(config.seed, key=f"trainer{rank}")
     tokenizer = load_tokenizer(config.tokenizer_path)
-    check_allocation(config.allocation_mode)
+    alloc = check_allocation(config.allocation_mode)
     if config.workflow not in WORKFLOWS:
         raise ValueError(f"workflow={config.workflow!r} not in {WORKFLOWS}")
     if config.workflow != "rlvr":
@@ -158,7 +170,7 @@ def main(
     )
     actor.initialize(None, ft_spec)
 
-    rollout, weight_update_meta = build_rollout(config, actor, tokenizer, device)
+    rollout, weight_update_meta = build_rollout(config, alloc, actor, tokenizer, device)
     ref = None
     try:
         actor.connect_engine(rollout, weight_update_meta)
@@ -298,4 +310,6 @@ def main(
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    from areal_tpu_torch.utils.experiment import run_with_status
+
+    run_with_status(main, sys.argv[1:])

@@ -9,6 +9,8 @@ keeps a flat dict of tensors under the `/`-joined names of that tree
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -80,3 +82,34 @@ def to_numpy(params: dict[str, torch.Tensor]) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = t.detach().to("cpu", torch.float32).numpy()
     return tree
+
+
+_LAYER = re.compile(r"^layers_(\d+)/(.*)$")
+
+
+def to_layout(named: dict, cfg: ModelConfig) -> dict:
+    """Flat `/`-named tensors in either layer layout -> the
+    layout `cfg.scan_layers` names: `layers_{i}/<leaf>` entries are
+    stacked into `layers/<leaf>` `[L, ...]` for a scanned model, and a
+    stacked `layers/<leaf>` is split into per-layer views for an unscanned
+    one. Other names pass through. Weight pushes name the trainer's
+    configured layout; a decode server installs into its own."""
+    L = cfg.num_hidden_layers
+    out, per_layer = {}, {}
+    for name, t in named.items():
+        m = _LAYER.match(name)
+        if m and cfg.scan_layers:
+            per_layer.setdefault(m.group(2), {})[int(m.group(1))] = t
+        elif name.startswith("layers/") and not cfg.scan_layers:
+            leaf = name[len("layers/"):]
+            if len(t) != L:
+                raise ValueError(f"{name}: {len(t)} stacked layers, the model has {L}")
+            for i in range(L):
+                out[f"layers_{i}/{leaf}"] = t[i]
+        else:
+            out[name] = t
+    for leaf, layers in per_layer.items():
+        if sorted(layers) != list(range(L)):
+            raise KeyError(f"layers_*/{leaf}: layers {sorted(layers)} of {L}")
+        out[f"layers/{leaf}"] = torch.stack([layers[i] for i in range(L)])
+    return out

@@ -431,15 +431,17 @@ def map_quant_kernels(params: dict, fn) -> dict:
     return out
 
 
-def quantize_weights(params: dict) -> dict:
+def quantize_weights(params: dict, quant=quantize_absmax) -> dict:
     """fp parameters -> the dense matmul kernels as `<path>/q` (int8) and
-    `<path>/scale` (f32). Already-quantized kernels pass through, so an
-    install path can call it unconditionally."""
+    `<path>/scale` (f32), each by `quant` (`ops/quant.quantize_absmax`, or
+    its `_compiled` form for the trainer's push). Already-quantized
+    kernels pass through, so an install path can call it
+    unconditionally."""
 
     def one(w, axes):
         if isinstance(w, dict):
             return w
-        q, s = quantize_absmax(w, axis=axes)
+        q, s = quant(w, axis=axes)
         return {"q": q, "scale": s}
 
     return map_quant_kernels(params, one)

@@ -56,6 +56,26 @@ def quantize_absmax(
     return q.to(torch.int8), scale.float()
 
 
+def quantize_absmax_compiled(
+    x: torch.Tensor, axis: int | tuple[int, ...] = -1
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`quantize_absmax` as XLA compiles the JAX version under `jit`, where
+    it folds the division `amax / 127` into a product with the f32
+    reciprocal (scales then differ from the eager ones by an ulp, and a
+    few int8 values by one). The JAX trainer quantizes its int8 weight
+    push under `jit` (`jax_engine.py:1037`); the port's push uses this to
+    send the same bytes."""
+    axes = _as_axes(axis)
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=axes)
+    recip = torch.tensor(1.0 / INT8_QMAX, dtype=torch.float32, device=x.device)
+    scale = torch.where(amax > 0.0, amax * recip, 1.0)
+    q = torch.clamp(
+        torch.round(xf / _expand(scale, axes, x.dim())), -INT8_QMAX, INT8_QMAX
+    )
+    return q.to(torch.int8), scale.float()
+
+
 def dequantize_absmax(
     q: torch.Tensor,
     scale: torch.Tensor,

@@ -43,8 +43,11 @@ def to_dict(obj: Any) -> Any:
     return obj
 
 
-def from_dict(cls, data: dict | None):
-    """Build dataclass `cls` from a nested dict, validating field names."""
+def from_dict(cls, data: dict | None, ignore_unknown: bool = False):
+    """Build dataclass `cls` from a nested dict, validating field names.
+    `ignore_unknown=True` drops keys `cls` lacks: a reader of a subset
+    view (the launcher reads an entry point's YAML as
+    `BaseExperimentConfig`)."""
     if data is None:
         return cls()
     if not is_dataclass_type(cls):
@@ -53,11 +56,13 @@ def from_dict(cls, data: dict | None):
     kwargs = {}
     for key, value in data.items():
         if key not in field_map:
+            if ignore_unknown:
+                continue
             raise ValueError(f"unknown config field {cls.__name__}.{key}")
         f = field_map[key]
         tp, _ = _unwrap_optional(f.type if not isinstance(f.type, str) else _resolve(cls, f.name))
         if is_dataclass_type(tp) and isinstance(value, dict):
-            kwargs[key] = from_dict(tp, value)
+            kwargs[key] = from_dict(tp, value, ignore_unknown=ignore_unknown)
         else:
             kwargs[key] = value
     return cls(**kwargs)

@@ -29,8 +29,15 @@ with a recovery point and a resume to 4 that must equal the uninterrupted
 run bit for bit; `arith_sft_smoke.yaml` unchanged with its evaluations;
 the GRPO entry point's recovery (a resume at step 2 serving the restored
 weights); and the AEnt clamped entropy, in a GRPO run and at Qwen2.5-1.5B's
-head against its dense version. It checks that the kernels really carried
-each path. Each phase prints one JSON line; then
+head against its dense version. Last, the decoupled path
+(`allocation_mode=jax:d1+d1`): a decode server process
+(`areal_tpu_torch/launcher/decode_server.py`, spawned by the local
+launcher) serves the GRPO entry point's rollouts at Qwen2.5-1.5B full
+width and depth while the trainer runs in this process and pushes its
+weights back over HTTP; then a dcn and a disk push of the same weights
+must give the same greedy tokens, and the launcher runs the smoke yaml end
+to end with both processes on the card. It checks that the kernels really
+carried each path. Each phase prints one JSON line; then
 come the `kernels` line, the card's name and power limit, and last
 `{"ok": true, "device": ...}`. Any failed check raises, and the script
 exits non-zero without that last line.
@@ -56,6 +63,10 @@ and the wrapper's host ms per call) on random Qwen2.5-7B int8 weights. It
 calls nothing but `quant_matmul`, so a copy of this script at the root of
 another tree times that tree's kernel.
 
+    python3 chip_smoke.py --decoupled
+
+runs only the decoupled phase (after the device and build phases).
+
     python3 chip_smoke.py --qmm-sweep
 
 times the bf16 K6 kernel at Qwen2.5-7B's four (K, N) shapes at T 16 and 80
@@ -71,8 +82,10 @@ import ctypes
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -88,6 +101,7 @@ from areal_tpu_torch.api.cli_args import (
     GRPOConfig,
     JaxEngineConfig,
     MicroBatchSpec,
+    NameResolveConfig,
     NormConfig,
     OptimizerConfig,
     PPOActorConfig,
@@ -3060,6 +3074,42 @@ def _observe_loop(trace_step: int | None = None):
         TorchPPOActor.ppo_update = update
 
 
+def _step_rows(tag: str, history: list, config, first_step: int = 0,
+               trace_step: int | None = None) -> tuple[list, int, int]:
+    """Each step's record of a `main` run (the mean reward, the loop's
+    timings, the version lag: the step's weight version minus the oldest
+    version of a token it trains on, the micro-batches of `compute_logp`
+    and of `ppo_update`), and the run's micro-batch totals of both."""
+    steps, logp_mbs, train_mbs = [], 0, 0
+    for i, rec in enumerate(history):
+        st, batch = rec["stats"][0], rec["batch"]
+        gen = batch["attention_mask"].astype(bool) & (batch["versions"] >= 0)
+        n_logp = len(split_padded_tensor_dict_into_mb_list(batch, config.actor.mb_spec).mbs)
+        n_train = int(sum(d["grpo_actor/n_mbs"] for d in rec["stats"]))
+        logp_mbs, train_mbs = logp_mbs + n_logp, train_mbs + n_train
+        completions = {tuple(ids[b:n]) for ids, b, n in zip(
+            batch["input_ids"].tolist(), batch["begin_of_answer"].tolist(),
+            batch["attention_mask"].sum(-1).tolist())}
+        row = dict(step=first_step + i, reward_mean=float(np.mean(batch["rewards"])),
+                   distinct_completions=len(completions),
+                   version_lag=int(first_step + i - batch["versions"][gen].min()),
+                   samples=int(batch["input_ids"].shape[0]),
+                   tokens=int(batch["attention_mask"].sum()), logp_mbs=n_logp,
+                   train_mbs=n_train, loss=st["grpo_actor/loss"],
+                   entropy=st["grpo_actor/entropy"],
+                   **{f"{k}_s": st[f"timeperf/{k}"] for k in LOOP_TIMINGS})
+        row["trained_tokens_per_s"] = row["tokens"] / row["train_step_s"]
+        if "timeperf/checkpoint_for_recover" in st:
+            row["checkpoint_for_recover_s"] = st["timeperf/checkpoint_for_recover"]
+        if i == trace_step:
+            # the step's rollout and train_step times include the tracer's
+            # own processing; `traced_step` holds the traced windows' walls
+            row["traced"] = True
+        check(math.isfinite(row["loss"]), f"{tag} step {i}: loss {row['loss']}")
+        steps.append(row)
+    return steps, logp_mbs, train_mbs
+
+
 def _loop_run(dev, tag: str, overrides: list[str], model_config=None, reward_fn=None,
               trace_step: int | None = None, root: str | None = None,
               first_step: int = 0) -> dict:
@@ -3091,33 +3141,7 @@ def _loop_run(dev, tag: str, overrides: list[str], model_config=None, reward_fn=
     engine = seen["engines"][0]
     L = engine.model_config.num_hidden_layers
     remat = engine.model_config.remat
-    steps, logp_mbs, train_mbs = [], 0, 0
-    for i, rec in enumerate(history):
-        st, batch = rec["stats"][0], rec["batch"]
-        gen = batch["attention_mask"].astype(bool) & (batch["versions"] >= 0)
-        n_logp = len(split_padded_tensor_dict_into_mb_list(batch, config.actor.mb_spec).mbs)
-        n_train = int(sum(d["grpo_actor/n_mbs"] for d in rec["stats"]))
-        logp_mbs, train_mbs = logp_mbs + n_logp, train_mbs + n_train
-        completions = {tuple(ids[b:n]) for ids, b, n in zip(
-            batch["input_ids"].tolist(), batch["begin_of_answer"].tolist(),
-            batch["attention_mask"].sum(-1).tolist())}
-        row = dict(step=first_step + i, reward_mean=float(np.mean(batch["rewards"])),
-                   distinct_completions=len(completions),
-                   version_lag=int(first_step + i - batch["versions"][gen].min()),
-                   samples=int(batch["input_ids"].shape[0]),
-                   tokens=int(batch["attention_mask"].sum()), logp_mbs=n_logp,
-                   train_mbs=n_train, loss=st["grpo_actor/loss"],
-                   entropy=st["grpo_actor/entropy"],
-                   **{f"{k}_s": st[f"timeperf/{k}"] for k in LOOP_TIMINGS})
-        row["trained_tokens_per_s"] = row["tokens"] / row["train_step_s"]
-        if "timeperf/checkpoint_for_recover" in st:
-            row["checkpoint_for_recover_s"] = st["timeperf/checkpoint_for_recover"]
-        if i == trace_step:
-            # the step's rollout and train_step times include the tracer's
-            # own processing; `traced_step` holds the traced windows' walls
-            row["traced"] = True
-        check(math.isfinite(row["loss"]), f"{tag} step {i}: loss {row['loss']}")
-        steps.append(row)
+    steps, logp_mbs, train_mbs = _step_rows(tag, history, config, first_step, trace_step)
     for i, u in enumerate(seen["updates"]):
         prev = seen["updates"][i - 1] if i else dict(decode_tokens=0, decode_seconds=0.0)
         dt = u["decode_seconds"] - prev["decode_seconds"]
@@ -3216,7 +3240,8 @@ def phase_grpo_loop(dev: torch.device) -> dict:
                        result={str(k): v for k, v in learned.items()}),
          runs=list(runs.values()))
     total = {k: sum(r["launches"][k] for r in runs.values()) for k in runs["full"]["launches"]}
-    return dict(launches=total, by_run={t: r["launches"] for t, r in runs.items()})
+    return dict(launches=total, by_run={t: r["launches"] for t, r in runs.items()},
+                full_steps=runs["full"]["steps"])
 
 
 # phases: checkpoints, recovery and the SFT entry point
@@ -3595,6 +3620,323 @@ def phase_aent(dev: torch.device) -> dict:
     return dict(launches=run["launches"])
 
 
+# phase decoupled: the DECOUPLED allocation (`allocation_mode=jax:d1+d1`), a
+# decode server process (`areal_tpu_torch/launcher/decode_server.py`, K3)
+# beside the trainer (K1/K2a/K2b) on the same card
+DECOUPLED_ALLOC = "jax:d1+d1"
+# loop cell (c)'s settings without its recovery point
+DECOUPLED_OVERRIDES = [o for o in FULL_OVERRIDES if not o.startswith("recover.")]
+DECOUPLED_STEPS = 2  # (d2): the launcher end to end on the unchanged yaml
+PROBE_REQUESTS, PROBE_NEW = 8, 64
+PROBE_PROMPT_LEN = (32, 256)
+SERVER_TIMEOUT = 300
+# the ModelConfig fields `--scratch-model` carries: the geometry
+GEOMETRY_KEYS = ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+                 "num_attention_heads", "num_key_value_heads", "head_dim", "rope_theta",
+                 "rms_norm_eps", "tie_word_embeddings", "max_position_embeddings",
+                 "model_type", "qkv_bias", "hidden_act")
+
+
+def _scratch_model_json(cfg) -> str:
+    return json.dumps({k: getattr(cfg, k) for k in GEOMETRY_KEYS})
+
+
+def _server_get(addr: str, endpoint: str) -> dict:
+    from areal_tpu_torch.utils.http import request_with_retry
+
+    return request_with_retry(addr, endpoint, method="GET", max_retries=1, timeout=60)
+
+
+def _server_post(addr: str, endpoint: str, payload: dict) -> dict:
+    from areal_tpu_torch.utils.http import request_with_retry
+
+    return request_with_retry(addr, endpoint, payload=payload, max_retries=1, timeout=600)
+
+
+def _card_memory_used() -> str:
+    """The card's memory in use by every process on it (`nvidia-smi`; it
+    cannot tell the processes apart in a sandbox, where each reads as pid
+    1 with the card's total)."""
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"not measured ({e!r})"
+    return r.stdout.strip() if r.returncode == 0 else "not measured"
+
+
+@contextlib.contextmanager
+def _observe_decoupled():
+    """While `main` runs DECOUPLED: keep the trainer past `main` (its
+    `destroy` is deferred to the caller) and the `RemoteInfEngine` it
+    builds (its weight-sync counters outlive `destroy`)."""
+    from areal_tpu_torch.core.remote_inf_engine import RemoteInfEngine
+
+    seen = dict(actors=[], clients=[])
+    destroy, init = TorchPPOActor.destroy, RemoteInfEngine.initialize
+
+    def initialize(self, *args, **kwargs):
+        seen["clients"].append(self)
+        return init(self, *args, **kwargs)
+
+    TorchPPOActor.destroy = lambda self: seen["actors"].append(self)
+    RemoteInfEngine.initialize = initialize
+    try:
+        yield seen
+    finally:
+        TorchPPOActor.destroy, RemoteInfEngine.initialize = destroy, init
+
+
+def _probe_wave(addr: str, client, prompts: list[list[int]], tag: str) -> list:
+    """`prompts` as greedy requests of PROBE_NEW tokens released as one
+    admission wave: the server paused, every request queued, then let go
+    (so both probes prefill and decode the same batches)."""
+    from areal_tpu_torch.api.cli_args import GenerationHyperparameters as G
+
+    _server_post(addr, "/pause_generation", {"abort": False})
+    reqs = [ModelRequest(rid=f"{tag}-{i}", input_ids=p,
+                         gconfig=G(greedy=True, max_new_tokens=PROBE_NEW))
+            for i, p in enumerate(prompts)]
+    out: dict = {}
+
+    async def run_all():
+        return await asyncio.gather(*[client.agenerate(r) for r in reqs])
+
+    t = threading.Thread(target=lambda: out.update(resps=asyncio.run(run_all())), daemon=True)
+    t.start()
+    deadline = time.monotonic() + 120
+    while _server_get(addr, "/metrics")["queued_requests"] < len(reqs):
+        check(time.monotonic() < deadline and t.is_alive(), f"{tag}: requests not queued")
+        time.sleep(0.05)
+    _server_post(addr, "/continue_generation", {})
+    t.join(timeout=600)
+    check(not t.is_alive() and "resps" in out, f"{tag}: the probe wave did not finish")
+    return out["resps"]
+
+
+def _server_pause_read(addr: str) -> dict:
+    """/metrics with the server paused (no pass in progress, so the launch
+    counters are whole), then resumed."""
+    _server_post(addr, "/pause_generation", {"abort": True})
+    m = _server_get(addr, "/metrics")
+    _server_post(addr, "/continue_generation", {})
+    return m
+
+
+def _decoupled_loop(dev, root: str, colocated_steps: list) -> dict:
+    """(d1): the trainer here, the server spawned by `LocalLauncher`;
+    each step's timers beside `colocated_steps`' (loop cell (c), when
+    given)."""
+    from areal_tpu_torch.core.remote_inf_engine import RemoteInfEngine
+    from areal_tpu_torch.launcher import local
+    from areal_tpu_torch.utils import name_resolve
+
+    full_cfg = dataclasses.replace(QWEN25_1_5B, remat=True)
+    L = full_cfg.num_hidden_layers
+    argv = ["--config", GRPO_YAML, *DECOUPLED_OVERRIDES, f"cluster.fileroot={root}",
+            "cluster.name_resolve.type=nfs", f"cluster.name_resolve.nfs_record_root={root}/nr",
+            f"allocation_mode={DECOUPLED_ALLOC}", "experiment_name=chip-smoke-decoupled"]
+    config, _ = load_expr_config(argv, GRPOConfig)
+    name_resolve.reconfigure(config.cluster.name_resolve)
+    launcher = local.LocalLauncher(config.experiment_name, config.trial_name, root)
+    t_spawn = time.perf_counter()
+    job, addr = launcher.spawn_decode_server(
+        model_path=config.tokenizer_path,
+        extra_args=local._server_args(config, dev) + [
+            "--scratch-model", _scratch_model_json(full_cfg)],
+        env=name_resolve.to_env(config.cluster.name_resolve), timeout=SERVER_TIMEOUT)
+    spawn_s = time.perf_counter() - t_spawn
+    try:
+        m0 = _server_get(addr, "/metrics")["kernel_launches"]
+        check(all(v == 0 for v in m0.values()), f"d1: the server launched before the run: {m0}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        with _observe_decoupled() as seen:
+            # ---- the main path: counts to 0 just before, read just after ----
+            pa.launches = fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+            t0 = time.perf_counter()
+            history = gsm8k_grpo.main(argv, model_config=full_cfg, reward_fn=parity_reward,
+                                      device=dev)
+            wall = time.perf_counter() - t0
+            trainer = dict(paged_attention=pa.launches, flash_attention_fwd=fa.launches_fwd,
+                           flash_attention_bwd_dq=fa.launches_dq,
+                           flash_attention_bwd_dkv=fa.launches_dkv)
+            server = _server_pause_read(addr)
+            # ---- end of the main path ----
+        trainer_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        trainer_reserved_gb = torch.cuda.max_memory_reserved(dev) / 1e9
+        card_memory_used = _card_memory_used()
+        actor, client = seen["actors"][0], seen["clients"][0]
+        steps, logp_mbs, train_mbs = _step_rows("decoupled", history, config)
+        lag_cap = config.rollout.max_head_offpolicyness
+        check(max(r["version_lag"] for r in steps) <= lag_cap,
+              f"decoupled: version lag {[r['version_lag'] for r in steps]} > {lag_cap}")
+        k = server["kernel_launches"]
+        launches = dict(trainer, paged_attention=k["paged_attention"])
+        want = dict(paged_attention=L * k["decode_steps"],
+                    flash_attention_fwd=L * (logp_mbs + 2 * train_mbs),
+                    flash_attention_bwd_dq=L * train_mbs, flash_attention_bwd_dkv=L * train_mbs)
+        check(launches == want, f"decoupled: launches {launches}, formulas {want}")
+        check(trainer["paged_attention"] == 0, "decoupled: the trainer launched K3")
+        check(k["flash_attention_fwd"] == 0 and k["quant_matmul"] == 0,
+              f"decoupled: the server launched {k}")
+        ws = server["weight_sync"]
+        check(ws["n_pushes"] == FULL_STEPS, f"decoupled: {ws['n_pushes']} pushes committed")
+        # one more push of the final weights, greedy probes, the trainer's
+        # logprobs of them; then a disk push of the same weights and the
+        # same probes again
+        probe = RemoteInfEngine(config.rollout)
+        probe.initialize(addr=[addr])
+        try:
+            meta = WeightUpdateMeta(type="dcn")
+            actor.connect_engine(probe, meta)
+            actor.set_version(FULL_STEPS + 1)
+            t_push = time.perf_counter()
+            actor.update_weights(meta)
+            push_s = time.perf_counter() - t_push
+            check(_server_get(addr, "/health")["version"] == FULL_STEPS + 1,
+                  "d1: the last push's version is not served")
+            rng = np.random.default_rng(SEED + 30)
+            prompts = [rng.integers(0, full_cfg.vocab_size, int(n)).tolist()
+                       for n in rng.integers(*PROBE_PROMPT_LEN, PROBE_REQUESTS)]
+            resps = _probe_wave(addr, probe, prompts, "probe-dcn")
+            check(all(r.output_versions == [FULL_STEPS + 1] * PROBE_NEW for r in resps),
+                  "d1: probe tokens not stamped with the pushed version")
+            batch = _grpo_batch(prompts, resps)
+            batch["prox_logp"] = actor.compute_logp(batch)
+            lm = batch["loss_mask"][:, 1:] > 0
+            d = batch["prox_logp"][:, :-1][lm] - batch["logprobs"][:, 1:][lm]
+            logp = dict(tokens=int(lm.sum()), max_abs_diff=float(np.abs(d).max()),
+                        mean_abs_diff=float(np.abs(d).mean()))
+            check(logp["max_abs_diff"] <= LOGP_MAX_ABS_DIFF
+                  and logp["mean_abs_diff"] <= LOGP_MEAN_ABS_DIFF,
+                  f"d1: server vs trainer logprobs after the dcn push: {logp}")
+            disk = WeightUpdateMeta(type="disk", path=os.path.join(root, "disk_push"))
+            t_disk = time.perf_counter()
+            actor.update_weights(disk)
+            disk_s = time.perf_counter() - t_disk
+            resps2 = _probe_wave(addr, probe, prompts, "probe-disk")
+            check([r.output_tokens for r in resps2] == [r.output_tokens for r in resps],
+                  "d1: the disk push's greedy tokens differ from the dcn push's")
+            after = _server_get(addr, "/metrics")
+            server_peak = after["device_memory_peak"]
+            check(server_peak is not None and server_peak["max_allocated_bytes"] > 0,
+                  f"d1: the server reports no device memory peak: {server_peak}")
+        finally:
+            probe.destroy()
+            actor.destroy()
+        client_sync = client.get_metrics()
+    finally:
+        launcher.stop_all()
+        name_resolve.reconfigure(NameResolveConfig(type="memory"))
+    log = Path(job.log_path).read_text()
+    check("Traceback" not in log, "d1: the server's log holds a Traceback")
+    check(job.proc.poll() is not None, "d1: the server process is still running")
+    host, port = addr.rsplit(":", 1)
+    with socket.socket() as s:
+        check(s.connect_ex((host, int(port))) != 0, f"d1: {addr} still accepts connections")
+    rows = []
+    for i, r in enumerate(steps):
+        row = dict(step=r["step"], version_lag=r["version_lag"],
+                   **{f"{t}_s": r[f"{t}_s"] for t in LOOP_TIMINGS})
+        if i < len(colocated_steps):
+            row["colocated"] = {f"{t}_s": colocated_steps[i][f"{t}_s"] for t in LOOP_TIMINGS}
+        rows.append(row)
+    busy = server["device_busy_s"]
+    return dict(
+        run="d1", model="Qwen2.5-1.5B", source=QWEN25_1_5B_SOURCE, layers=L,
+        allocation_mode=DECOUPLED_ALLOC, overrides=DECOUPLED_OVERRIDES, wall_s=wall,
+        server_spawn_s=spawn_s, launches=launches, formulas=dict(
+            paged_attention="server decode steps x L (read from its /metrics)",
+            flash_attention_fwd="L x (logp mbs + 2 x trained mbs)",
+            flash_attention_bwd_dq="L x trained mbs", flash_attention_bwd_dkv="L x trained mbs"),
+        server_decode_steps=k["decode_steps"], server_prefill_calls=k["prefill_calls"],
+        steps=rows, update_weights=dict(
+            client=client_sync, server=ws,
+            last_push=dict(dcn_s=push_s, disk_s=disk_s,
+                           server_after=after["weight_sync"])),
+        server_decode_tok_s=server["generated_tokens_total"] / busy if busy else None,
+        server_device_idle_frac=server["device_idle_frac"],
+        server_itl_p50_ms=server["itl_p50_ms"], logp=logp,
+        trainer_max_memory_allocated_gb=trainer_peak_gb,
+        trainer_max_memory_reserved_gb=trainer_reserved_gb,
+        server_max_memory_allocated_gb=server_peak["max_allocated_bytes"] / 1e9,
+        server_max_memory_reserved_gb=server_peak["max_reserved_bytes"] / 1e9,
+        card_memory_used=card_memory_used)
+
+
+def _decoupled_launcher(dev, root: str) -> dict:
+    """(d2): `run_experiment` on the smoke yaml, DECOUPLED, both processes
+    on the card."""
+    from areal_tpu_torch.api.cli_args import BaseExperimentConfig
+    from areal_tpu_torch.launcher import local
+    from areal_tpu_torch.utils import name_resolve
+
+    argv = ["--config", GRPO_YAML, f"allocation_mode={DECOUPLED_ALLOC}",
+            f"total_train_steps={DECOUPLED_STEPS}", f"cluster.fileroot={root}",
+            "cluster.name_resolve.type=nfs", f"cluster.name_resolve.nfs_record_root={root}/nr"]
+    config, _ = load_expr_config(argv, BaseExperimentConfig, ignore_unknown=True)
+    t0 = time.perf_counter()
+    try:
+        local.run_experiment(config, [sys.executable, "-m", "areal_tpu_torch.examples.gsm8k_grpo",
+                                      *argv], device=dev, timeout=SERVER_TIMEOUT)
+    finally:
+        name_resolve.reconfigure(NameResolveConfig(type="memory"))
+    wall = time.perf_counter() - t0
+    logs = Path(root) / "logs" / config.experiment_name / config.trial_name
+    trainer, server = ((logs / f).read_text() for f in ("trainer_0.log", "decode_server_0.log"))
+    check("(global step 1)" in trainer, "d2: the trainer's log has no global step 1")
+    for name, text in (("trainer", trainer), ("server", server)):
+        check("Traceback" not in text, f"d2: the {name}'s log holds a Traceback")
+    return dict(run="d2", yaml="examples/configs/arith_grpo_smoke.yaml", overrides=argv[2:3],
+                steps=DECOUPLED_STEPS, wall_s=wall,
+                trainer_log_tail=trainer.strip().splitlines()[-1][:200])
+
+
+def decoupled_only() -> int:
+    """`--decoupled`: the device and build phases, then the decoupled
+    phase alone (no colocated loop to set its timers beside)."""
+    dev, smi = phase_device()
+    phase_build()
+    out = phase_decoupled(dev, dict(full_steps=[]))
+    print(smi, flush=True)
+    print(json.dumps({"decoupled_launches": out["launches"]}), flush=True)
+    return 0
+
+
+def phase_decoupled(dev: torch.device, loop: dict) -> dict:
+    """The DECOUPLED allocation (`allocation_mode=jax:d1+d1`) on the card:
+
+    (d1) Qwen2.5-1.5B at full width and depth with loop cell (c)'s
+         settings: `LocalLauncher` spawns the decode server
+         (`--scratch-model`, the 1.5B geometry, `--device cuda:0`, nfs
+         name_resolve under a temporary root) and the trainer runs here,
+         `gsm8k_grpo.main(... allocation_mode=jax:d1+d1)`, weights going to
+         the server over the staged dcn push every step. Each step's
+         version lag is within `max_head_offpolicyness`; K3's launches
+         read from the server's /metrics equal its decode steps x L, and
+         K1/K2a/K2b's here `_loop_run`'s formulas. Then one more dcn push
+         of the final weights, 8 greedy probes of 64 tokens whose
+         logprobs agree with the trainer's `compute_logp` within the train
+         phase's bounds, a disk push of the same weights (an HF
+         checkpoint), and the same probes again: the same tokens bit for
+         bit. The server's log has no Traceback, and its process has
+         ended and released its port.
+    (d2) `run_experiment` on `arith_grpo_smoke.yaml` unchanged but for
+         the allocation, 2 steps and the run's paths: both processes on
+         the card; the trainer logs global step 1, neither log holds a
+         Traceback, and both end."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        runs["d1"] = _decoupled_loop(dev, root, loop["full_steps"])
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        runs["d2"] = _decoupled_launcher(dev, root)
+    emit("decoupled", entry_point="areal_tpu_torch/examples/gsm8k_grpo.py:main",
+         server="areal_tpu_torch/launcher/decode_server.py",
+         launcher="areal_tpu_torch/launcher/local.py", runs=list(runs.values()))
+    return dict(launches=runs["d1"]["launches"])
+
+
 FLASH_FLOPS_PER_PAIR = {  # x head_dim x query heads, per valid (query, key) pair
     "flash_attention_fwd": 4, "flash_attention_bwd_dq": 6, "flash_attention_bwd_dkv": 8,
 }
@@ -3876,12 +4218,16 @@ def main() -> int:
     recover = phase_grpo_recover(dev)
     aent = phase_aent(dev)
     torch.cuda.empty_cache()
+    decoupled = phase_decoupled(dev, loop)
+    torch.cuda.empty_cache()
     # K1/K2a/K2b run in the GRPO loop, the train phase, both SFT runs, the
-    # GRPO recovery runs and the AEnt run; K3 in every GRPO run
+    # GRPO recovery runs, the AEnt run and the decoupled trainer; K3 in every
+    # GRPO run (the decoupled one's in its server process)
     flash_paths = dict(grpo_loop=loop["launches"], train=train["launches"],
                        sft={k: sft["launches"][k] + sft_smoke["launches"][k]
                             for k in FLASH_COUNTERS},
-                       grpo_recover=recover["launches"], aent=aent["launches"])
+                       grpo_recover=recover["launches"], aent=aent["launches"],
+                       decoupled=decoupled["launches"])
     # K3 runs in the serve, sched (its group waves) and train paths and in
     # the spec path's normal chunks; K5a in the int8 serve path and the int8 spec path's; K6 in both
     # int8 paths
@@ -3890,7 +4236,8 @@ def main() -> int:
                                      grpo_loop=loop["launches"]["paged_attention"],
                                      train=train["launches"]["paged_attention"],
                                      grpo_recover=recover["launches"]["paged_attention"],
-                                     aent=aent["launches"]["paged_attention"])
+                                     aent=aent["launches"]["paged_attention"],
+                                     decoupled=decoupled["launches"]["paged_attention"])
     paged["launches"] = sum(paged["launches_by_path"].values())
     q8["launches_by_path"] = dict(serve_int8=q_launches["paged_attention_q8"],
                                   serve_spec_int8=s8_launches["paged_attention_q8"])
@@ -3914,5 +4261,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     modes = {"--paged-times": paged_times_only, "--decode-sweep": decode_sweep_only,
-             "--qmm-times": qmm_times_only, "--qmm-sweep": qmm_sweep_only}
+             "--qmm-times": qmm_times_only, "--qmm-sweep": qmm_sweep_only,
+             "--decoupled": decoupled_only}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] else main())

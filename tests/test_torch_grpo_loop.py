@@ -185,10 +185,50 @@ def test_grpo_lr_zero_does_not_learn(tmp_path):
     assert not _learned(rewards), f"lr=0 run 'learned': {rewards}"
 
 
+def _smoke_server(nfs_root: str):
+    """The port's decode server in this process on the CPU, serving the
+    smoke model, registered under the yaml's names in an nfs store."""
+    from areal_tpu_torch.launcher.decode_server import DecodeServer
+    from areal_tpu_torch.utils import name_resolve
+
+    name_resolve.reconfigure(t_cli.NameResolveConfig(type="nfs", nfs_record_root=nfs_root))
+    cfg = t_cli.TorchDecodeConfig(**{**DECODE, "new_tokens_per_chunk": 8})
+    srv = DecodeServer(cfg, device="cpu")
+    mc = smoke_model_config(dtype="float32")
+    srv.engine.set_model(tq.init_params(mc, torch.Generator().manual_seed(1)), mc)
+    srv.start("127.0.0.1", 0)
+    srv.register("arith-grpo-smoke", "run0", srv.addr)
+    return srv
+
+
 def test_entry_point_refusals(tmp_path):
+    """The DECOUPLED branch runs against a decode server (one device per
+    side); more than one device is item 5, the fleet's router, prefill
+    replicas and supervisor item 4, other workflows and datasets item 6."""
+    from areal_tpu_torch.utils import name_resolve, names
+
     base = ["--config", YAML, f"cluster.fileroot={tmp_path}"]
-    with pytest.raises(NotImplementedError, match="item 4"):
-        main(base + ["allocation_mode=jax:d1t1+d1"], device="cpu")
+    nfs = ["cluster.name_resolve.type=nfs", f"cluster.name_resolve.nfs_record_root={tmp_path}/nr"]
+    srv = _smoke_server(f"{tmp_path}/nr")
+    try:
+        history = main(base + nfs + ["allocation_mode=jax:d1t1+d1", "total_train_steps=2",
+                                     "evaluator.freq_steps=null"], device="cpu")
+        assert len(history) == 2 and srv.engine.get_version() == 2
+        for step, rec in enumerate(history):
+            batch = rec["batch"]
+            gen = batch["attention_mask"].astype(bool) & (batch["versions"] >= 0)
+            assert 0 <= step - batch["versions"][gen].min() <= 2
+        with pytest.raises(NotImplementedError, match="item 5"):
+            main(base + nfs + ["allocation_mode=jax:d2t1+d1"], device="cpu")
+        for over in ("launcher.prefill_replicas=1", "launcher.supervisor.enabled=true"):
+            with pytest.raises(NotImplementedError, match="item 4"):
+                main(base + nfs + ["allocation_mode=jax:d1t1+d1", over], device="cpu")
+        name_resolve.add(names.rollout_router("arith-grpo-smoke", "run0"), "127.0.0.1:1")
+        with pytest.raises(NotImplementedError, match="item 4"):
+            main(base + nfs + ["allocation_mode=jax:d1t1+d1"], device="cpu")
+    finally:
+        srv.stop()
+        name_resolve.reconfigure(t_cli.NameResolveConfig(type="memory"))
     with pytest.raises(NotImplementedError, match="item 6"):
         main(base + ["workflow=multi_turn"], device="cpu")
     with pytest.raises(ValueError, match="workflow"):

@@ -1,9 +1,11 @@
-"""The PyTorch port stands alone: it imports neither JAX nor the JAX package.
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
+nor the packages the card machine lacks (`aiohttp`, `lark`, `transformers`).
 
-A subprocess whose import system refuses `jax`, `jaxlib` and the top-level
-`areal_tpu` package (exactly that name: `areal_tpu_torch` is the port)
-imports every module of the port and `chip_smoke`; an AST scan of the same
-files finds no such import anywhere, lazy ones included.
+A subprocess whose import system refuses `jax`, `jaxlib`, the top-level
+`areal_tpu` package (exactly that name: `areal_tpu_torch` is the port),
+`aiohttp`, `lark` and `transformers` imports every module of the port and
+`chip_smoke`; an AST scan of the same files finds no such import
+anywhere, lazy ones included.
 """
 
 import ast
@@ -16,7 +18,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "areal_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "areal_tpu")
+BLOCKED = ("jax", "jaxlib", "areal_tpu", "aiohttp", "lark", "transformers")
 
 
 def _port_files():
@@ -73,6 +75,17 @@ def test_port_has_the_expected_modules():
         "areal_tpu_torch.models.hf_io",
         "areal_tpu_torch.engine.sft.lm_engine",
         "areal_tpu_torch.examples.gsm8k_sft",
+        "areal_tpu_torch.utils.network",
+        "areal_tpu_torch.utils.names",
+        "areal_tpu_torch.utils.name_resolve",
+        "areal_tpu_torch.utils.experiment",
+        "areal_tpu_torch.utils.http",
+        "areal_tpu_torch.core.weight_transfer",
+        "areal_tpu_torch.core.remote_inf_engine",
+        "areal_tpu_torch.api.alloc_mode",
+        "areal_tpu_torch.launcher.base",
+        "areal_tpu_torch.launcher.local",
+        "areal_tpu_torch.launcher.decode_server",
         "chip_smoke",
     ):
         assert want in names

@@ -24,6 +24,8 @@ Same weights in both packages (the JAX `init_params`, moved by
 """
 
 import dataclasses
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -43,7 +45,7 @@ from areal_tpu.utils import flops as jflops
 from areal_tpu.utils import functional as jfn
 from areal_tpu_torch.api import cli_args as targs
 from areal_tpu_torch.api.alloc_mode import ParallelStrategy
-from areal_tpu_torch.api.io_struct import WeightUpdateMeta
+from areal_tpu_torch.api.io_struct import FinetuneSpec, WeightUpdateMeta
 from areal_tpu_torch.engine import torch_engine
 from areal_tpu_torch.models import qwen2 as tq
 from areal_tpu_torch.models.convert import params_from_numpy, unstack_layers
@@ -557,12 +559,182 @@ def test_decay_mask_is_the_reference_mask_on_its_stacked_layout():
 # ---------------------------------------------------------------------------
 
 
-def test_engine_refuses_what_the_port_lacks():
-    eng = torch_engine.TorchTrainEngine(targs.TrainEngineConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+class _RecordingRemote:
+    """The push surface of a `RemoteInfEngine`, recording what it gets."""
+
+    config = targs.InferenceEngineConfig()
+
+    def __init__(self):
+        self.frames, self.commits, self.disk = [], [], []
+
+    def init_weights_update_group(self, meta):
+        pass
+
+    def _new_push_id(self):
+        return "push-1"
+
+    def stage_weights(self, named, push_id, chunk_mb, inflight):
+        from areal_tpu_torch.core.weight_transfer import pack_buckets
+
+        self.frames += list(pack_buckets(named, chunk_mb=chunk_mb))
+
+    def commit_staged(self, push_id, version=None):
+        self.commits.append((push_id, version))
+
+    def abort_push(self, push_id):
+        raise AssertionError("no push is aborted here")
+
+    def update_weights_from_disk(self, meta):
+        self.disk.append(meta.path)
+
+
+def test_engine_refuses_what_the_port_lacks(tmp_path):
+    """More than one device (item 5) and the LoRA delta push (item 6) are
+    refused; the disk and dcn pushes run (a recording remote engine)."""
+    from areal_tpu_torch.core.weight_transfer import WeightStaging
+    from areal_tpu_torch.models import hf_io
+
+    eng = torch_engine.TorchTrainEngine(targs.TrainEngineConfig(init_from_scratch=True,
+                                                                dtype="float32"), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         eng.create_process_group(ParallelStrategy(data_parallel_size=2))
     eng.create_process_group(ParallelStrategy())
-    eng.rollout_engine = object()
-    for kind in ("disk", "dcn"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-            eng.update_weights(WeightUpdateMeta(type=kind))
+    eng.model_config = tq.ModelConfig(**MODEL)
+    eng.initialize(None, None)
+    remote = _RecordingRemote()
+    eng.connect_engine(remote, WeightUpdateMeta(type="dcn"))
+    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+        eng.update_weights(WeightUpdateMeta(type="dcn", use_lora=True))
+    with pytest.raises(NotImplementedError, match="weight update type"):
+        eng.update_weights(WeightUpdateMeta(type="nccl"))
+    eng.set_version(3)
+    eng.update_weights(WeightUpdateMeta(type="dcn", weight_chunked_mem_mb=1))
+    assert remote.commits == [("push-1", 3)]
+    st = WeightStaging()
+    for frame in remote.frames:
+        st.add_bucket(frame)
+    wire = st.finalize()
+    # the configured scan_layers (True) names the wire: layers stacked
+    scanned = tq.ModelConfig(**MODEL)
+    assert {k: tuple(v.shape) for k, v in wire.items()} == tq.named_shapes(scanned)
+    L = scanned.num_hidden_layers
+    for name, t in wire.items():
+        want = (torch.stack([eng.params[f"layers_{i}/{name[7:]}"] for i in range(L)])
+                if name.startswith("layers/") else eng.params[name])
+        assert t.dtype == torch.bfloat16 and torch.equal(t, want.detach().to(torch.bfloat16))
+    path = str(tmp_path / "disk")
+    eng.update_weights(WeightUpdateMeta(type="disk", path=path))
+    assert remote.disk == [path]
+    back = hf_io.load_hf_params(path, eng.model_config)
+    for k, v in eng.params.items():
+        assert torch.equal(back[k], v.detach()), k
+
+
+class _SlowStagingRemote(_RecordingRemote):
+    """Staging that starts only once the trainer's next step has run its
+    loss, then lingers: the step's optimizer update must wait for it."""
+
+    def __init__(self, fail: bool = False):
+        super().__init__()
+        self.loss_ran = threading.Event()
+        self.fail = fail
+        self.aborted = []
+
+    def stage_weights(self, named, push_id, chunk_mb, inflight):
+        assert self.loss_ran.wait(60)
+        time.sleep(0.3)
+        if self.fail:
+            raise ConnectionError("server gone")
+        super().stage_weights(named, push_id, chunk_mb, inflight)
+
+    def abort_push(self, push_id):
+        self.aborted.append(push_id)
+
+
+def _trained_engine():
+    eng = torch_engine.TorchTrainEngine(targs.TrainEngineConfig(
+        init_from_scratch=True, dtype="float32",
+        mb_spec=targs.MicroBatchSpec(max_tokens_per_mb=64),
+        optimizer=targs.OptimizerConfig(lr=1e-2, warmup_steps_proportion=0.0,
+                                        lr_scheduler_type="constant")), device="cpu")
+    eng.create_process_group(ParallelStrategy())
+    eng.model_config = tq.ModelConfig(**MODEL)
+    eng.initialize(None, FinetuneSpec(1, 8, 4))
+    # the schedule's first update has lr 0 (as optax's): take it here
+    eng.train_batch(_lm_batch(), lambda logits, mb: logits.float().square().mean(),
+                    lambda mb: 1.0)
+    return eng
+
+
+def _lm_batch():
+    rng = np.random.default_rng(2)
+    return tdata.pad_sequences_to_tensors(
+        [dict(input_ids=rng.integers(1, MODEL["vocab_size"], n)) for n in (9, 13, 7)])
+
+
+def _step_beside(eng, remote, handle) -> list[bool]:
+    """One train step while `handle` stages; whether staging had ended at
+    each optimizer update."""
+    staged_at_update, step = [], eng.optimizer.step
+
+    def spy(plist, grads):
+        staged_at_update.append(not handle._thread.is_alive())
+        return step(plist, grads)
+
+    def loss_fn(logits, mb):
+        remote.loss_ran.set()
+        return logits.float().square().mean()
+
+    eng.optimizer.step = spy
+    stats = eng.train_batch(_lm_batch(), loss_fn, lambda mb: 1.0)
+    assert np.isfinite(stats["loss"])
+    return staged_at_update
+
+
+def test_dcn_push_async_stages_beside_a_train_step():
+    """`update_weights_async` (JAX :1070-1130): the trainer runs its next
+    step while the push stages; the step's optimizer update waits for
+    staging, so the frames hold the weights of the push's version, and
+    only `commit` (idempotent) installs them."""
+    from areal_tpu_torch.core.weight_transfer import WeightStaging
+
+    eng = _trained_engine()
+    remote = _SlowStagingRemote()
+    eng.connect_engine(remote, WeightUpdateMeta(type="dcn", weight_chunked_mem_mb=1))
+    before = {k: v.detach().clone() for k, v in eng.params.items()}
+    eng.set_version(4)
+    handle = eng.update_weights_async()
+    assert _step_beside(eng, remote, handle) == [True]
+    assert remote.commits == [] and not handle.committed
+    handle.commit()
+    handle.commit()
+    assert remote.commits == [("push-1", 4)] and handle.committed
+    assert any(not torch.equal(before[k], eng.params[k]) for k in before)
+    st = WeightStaging()
+    for frame in remote.frames:
+        st.add_bucket(frame)
+    L = MODEL["num_hidden_layers"]
+    for name, t in st.finalize().items():
+        want = (torch.stack([before[f"layers_{i}/{name[7:]}"] for i in range(L)])
+                if name.startswith("layers/") else before[name])
+        assert torch.equal(t, want.to(torch.bfloat16)), name
+
+
+def test_dcn_push_async_abort_and_staging_error():
+    """A push that will not commit is aborted (its staging dropped on the
+    servers); a staging error comes out of `commit`, which then installs
+    nothing; the optimizer update waits for a failing stage too."""
+    eng = _trained_engine()
+    remote = _SlowStagingRemote()
+    eng.connect_engine(remote, WeightUpdateMeta(type="dcn", weight_chunked_mem_mb=1))
+    handle = eng.update_weights_async()
+    remote.loss_ran.set()
+    handle.abort()
+    assert remote.aborted == ["push-1"] and remote.commits == [] and remote.frames
+    failing = _SlowStagingRemote(fail=True)
+    eng.connect_engine(failing, WeightUpdateMeta(type="dcn"))
+    handle = eng.update_weights_async()
+    assert _step_beside(eng, failing, handle) == [True]
+    with pytest.raises(ConnectionError, match="server gone"):
+        handle.commit()
+    assert failing.commits == [] and not handle.committed
