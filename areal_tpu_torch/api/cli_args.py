@@ -188,9 +188,10 @@ class PPOActorConfig(TrainEngineConfig):
 
 @dataclass
 class PPOCriticConfig(TrainEngineConfig):
-    """PPO critic config (`areal_tpu/api/cli_args.py:289`); the critic
-    engine is ROADMAP queue 1, item 6 (`TorchTrainEngine` refuses
-    `is_critic`)."""
+    """PPO critic config (`areal_tpu/api/cli_args.py:289`), read by
+    `engine/ppo/critic.py`: `eps_clip` clips the value update around the
+    old values and `ppo_n_minibatches` splits each update, as in JAX; the
+    loss is `ppo_critic_loss_fn`'s default, "mse"."""
 
     ppo_n_minibatches: int = 4
     eps_clip: float = 0.5
@@ -668,17 +669,18 @@ class SFTConfig(BaseExperimentConfig):
 
 @dataclass
 class RWConfig(BaseExperimentConfig):
-    """Reward-model experiment (`areal_tpu/api/cli_args.py:900`); its
-    entry point is ROADMAP queue 1, item 6."""
+    """Reward-model experiment (`areal_tpu/api/cli_args.py:900`), run by
+    `examples/hhrlhf_rw.py`."""
 
     model: TrainEngineConfig = field(default_factory=TrainEngineConfig)
 
 
 @dataclass
 class GRPOConfig(BaseExperimentConfig):
-    """GRPO experiment (`areal_tpu/api/cli_args.py:905`). The multi-turn
-    and tool knobs belong to the `multi_turn` and `tir` workflows, which
-    the entry point refuses (item 6)."""
+    """GRPO experiment (`areal_tpu/api/cli_args.py:905`). `max_turns` and
+    `turn_discount` configure the `multi_turn` workflow; the tool knobs
+    belong to the `tir` workflow, which the entry point refuses (item
+    6)."""
 
     async_training: bool = True
     gconfig: GenerationHyperparameters = field(
@@ -687,7 +689,7 @@ class GRPOConfig(BaseExperimentConfig):
     rollout: InferenceEngineConfig = field(default_factory=InferenceEngineConfig)
     actor: PPOActorConfig = field(default_factory=PPOActorConfig)
     ref: PPOActorConfig = field(default_factory=PPOActorConfig)
-    workflow: str = "rlvr"  # the port runs "rlvr"
+    workflow: str = "rlvr"  # the port runs "rlvr" and "multi_turn"
     max_turns: int = 3
     turn_discount: float = 0.9
     max_tool_calls: int = 4
@@ -696,8 +698,8 @@ class GRPOConfig(BaseExperimentConfig):
 
 @dataclass
 class PPOConfig(GRPOConfig):
-    """PPO with a critic (`areal_tpu/api/cli_args.py:926`); its entry
-    point is ROADMAP queue 1, item 6."""
+    """PPO with a critic (`areal_tpu/api/cli_args.py:926`), run by
+    `examples/gsm8k_ppo.py`."""
 
     critic: PPOCriticConfig = field(default_factory=PPOCriticConfig)
 

@@ -1,8 +1,8 @@
 """Datasets and the dataloader of the entry points (counterpart of
 `areal_tpu/dataset/__init__.py`), trimmed to the offline paths: the
-built-in arithmetic tokenizer, the `synthetic-arith` dataset's RL and SFT
-views, and `SimpleDataLoader`. Hub datasets and tokenizers, and the
-reward-model view, are refused with the ROADMAP item that ports them.
+built-in arithmetic tokenizer, the `synthetic-arith` dataset's RL, SFT
+and reward-model views, and `SimpleDataLoader`. Hub datasets and
+tokenizers are refused with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -40,17 +40,16 @@ def get_custom_dataset(
 ):
     """Load a dataset by name; the port has `synthetic-arith`: integer
     arithmetic in the RLVR schema with pre-tokenized prompts
-    (`dataset/arith.py`), and its SFT view (JAX :300-326), where
-    `input_ids` is prompt + answer + eos and `loss_mask` covers the answer
-    tokens, both cut to `max_length`."""
+    (`dataset/arith.py`); its SFT view (JAX :300-326), where `input_ids`
+    is prompt + answer + eos and `loss_mask` covers the answer tokens,
+    both cut to `max_length`; and its pairwise view for reward models
+    (`type="rw"`, JAX :327-344): `chosen_input_ids` the well-formed answer
+    and `rejected_input_ids` the answer with a dangling `+`, each + eos
+    and cut to `max_length`. A malformed rejection, not a wrong number,
+    keeps the preference learnable by the smoke model."""
     name = path.split("/")[-1].lower()
     if name != "synthetic-arith":
         raise NotImplementedError(f"dataset {path!r} {_HUB}")
-    if type not in ("rl", "sft"):
-        raise NotImplementedError(
-            f"the {type!r} view of a dataset is not in the PyTorch port yet: "
-            "ROADMAP.md queue 1, item 6 (reward models)"
-        )
     if world_size > 1:
         raise NotImplementedError(
             "sharding a dataset over hosts is not in the PyTorch port yet: "
@@ -73,6 +72,15 @@ def get_custom_dataset(
             # supervise the answer tokens only; the mask follows a cut
             n = len(x["input_ids"])
             x["loss_mask"] = ([0] * n_prompt + [1] * max(0, n - n_prompt))[:n]
+    elif type == "rw":
+        tok = ArithTokenizer()
+        for x in items:
+            chosen = tok.encode(x["prompt"] + x["answer"]) + [tok.eos_token_id]
+            rejected = tok.encode(x["prompt"] + x["answer"] + "+") + [tok.eos_token_id]
+            if max_length:
+                chosen, rejected = chosen[:max_length], rejected[:max_length]
+            x["chosen_input_ids"] = chosen
+            x["rejected_input_ids"] = rejected
     return items
 
 

@@ -127,6 +127,7 @@ from areal_tpu_torch.models.convert import to_tensor
 from areal_tpu_torch.models.qwen2 import (
     WEIGHT_DTYPES,
     ModelConfig,
+    check_servable,
     check_supported,
     decode_step_paged,
     layer_views,
@@ -425,8 +426,10 @@ class TorchDecodeEngine(InferenceEngine):
     # -- lifecycle ------------------------------------------------------
     def set_model(self, params: dict[str, torch.Tensor], model_config: ModelConfig) -> None:
         """Install weights (the port's flat name -> tensor dict). Always
-        copies onto the engine's device: the caller keeps its tensors."""
+        copies onto the engine's device: the caller keeps its tensors. A
+        critic (a value head, no LM head) is refused."""
         check_supported(model_config)
+        check_servable(model_config)
         want = named_shapes(model_config)
         if set(params) != set(want):
             missing = sorted(set(want) - set(params))[:5]

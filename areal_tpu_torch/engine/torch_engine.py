@@ -346,14 +346,10 @@ class TorchTrainEngine(TrainEngine):
         name -> tensor dict, any device) installs given weights instead of
         a random init; they are copied onto the engine's device."""
         cfg = self.config
-        for name, unsupported, item in (
-            ("is_critic", cfg.is_critic, "item 6"),
-            ("use_lora", cfg.use_lora, "item 6"),
-        ):
-            if unsupported:
-                raise NotImplementedError(
-                    f"{name}=True is not in the PyTorch port yet: ROADMAP.md queue 1, {item}"
-                )
+        if cfg.use_lora:
+            raise NotImplementedError(
+                "use_lora=True is not in the PyTorch port yet: ROADMAP.md queue 1, item 6"
+            )
         self.ft_spec = ft_spec
         if self.model_config is None:
             attn_impl = {"pallas": "flash", "xla": "dense"}.get(cfg.attn_impl, cfg.attn_impl)
@@ -364,6 +360,7 @@ class TorchTrainEngine(TrainEngine):
                 remat=cfg.gradient_checkpointing,
                 remat_policy=cfg.jax.remat_policy,
                 attn_impl=attn_impl,
+                is_critic=cfg.is_critic,
             )
         self._wire_scan = self.model_config.scan_layers
         self.model_config = dataclasses.replace(self.model_config, scan_layers=False)
@@ -632,8 +629,13 @@ class TorchTrainEngine(TrainEngine):
         return out
 
     def _model_out(self, mb: dict[str, torch.Tensor], fn: Callable | None):
-        """Logits, or an `LMHead` for `hidden_loss`-tagged functions."""
+        """Logits (a critic's values `[T]`), or an `LMHead` for
+        `hidden_loss`-tagged functions, which a critic refuses."""
         hidden = bool(getattr(fn, "hidden_loss", False))
+        if hidden and self.model_config.is_critic:
+            raise ValueError(
+                "a hidden_loss-tagged function reads the LM head; a critic has a value head"
+            )
         x = model_forward(
             self.params, mb["input_ids"], mb["position_ids"], mb["segment_ids"],
             self.model_config, return_hidden=hidden, layers=self._layers,
@@ -710,7 +712,9 @@ class TorchTrainEngine(TrainEngine):
 
     def _throughput_stats(self, input_: dict[str, Any], step_time: float) -> dict[str, float]:
         """Tokens, step time, TFLOP/s and MFU against the card's bf16 dense
-        peak (JAX :1654)."""
+        peak (JAX :1654). A critic's series are prefixed `critic/`, so a
+        colocated actor's and critic's never average into one stream (JAX
+        :1680-1682)."""
         mask = input_.get("attention_mask")
         if mask is not None:
             lens = np.asarray(mask).sum(axis=-1).astype(np.int64)
@@ -721,12 +725,13 @@ class TorchTrainEngine(TrainEngine):
         tflops = train_flops_per_token(self.model_config, avg_ctx) * n_tokens / step_time / 1e12
         kind = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu"
         mfu = tflops * 1e12 / peak_flops(kind)
+        p = "critic/" if self.config.is_critic else ""
         stats_tracker.scalar(**{
-            "time_perf/train_batch": step_time,
-            "throughput/n_tokens": float(n_tokens),
-            "throughput/tokens_per_sec_per_chip": n_tokens / step_time,
-            "throughput/tflops_per_chip": tflops,
-            "throughput/mfu": mfu,
+            f"{p}time_perf/train_batch": step_time,
+            f"{p}throughput/n_tokens": float(n_tokens),
+            f"{p}throughput/tokens_per_sec_per_chip": n_tokens / step_time,
+            f"{p}throughput/tflops_per_chip": tflops,
+            f"{p}throughput/mfu": mfu,
         })
         return dict(
             n_tokens=float(n_tokens),

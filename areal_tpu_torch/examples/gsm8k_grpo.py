@@ -2,9 +2,14 @@
 of `examples/gsm8k_grpo.py`).
 
 The trainer (`TorchPPOActor`) recomputes logprobs, computes advantages and
-takes the decoupled-PPO update while a `WorkflowExecutor` runs RLVR
-episodes behind the staleness gate; then the weights are pushed and the
-version goes up. `allocation_mode` says where rollouts decode:
+takes the decoupled-PPO update while a `WorkflowExecutor` runs episodes
+behind the staleness gate; then the weights are pushed and the version
+goes up. `workflow` picks the episode: "rlvr" (`workflow/rlvr.py`, a
+group of `n_samples` answers per prompt) or "multi_turn"
+(`workflow/multi_turn.py`: a wrong answer gets feedback and another try,
+up to `max_turns`, the reward discounted by `turn_discount` per extra
+turn); "tir" and "vision_rlvr" are refused (ROADMAP queue 1, item 6).
+`allocation_mode` says where rollouts decode:
 
 - empty (COLOCATE): a `TorchDecodeEngine` in process on the trainer's
   card; weights go to it in memory.
@@ -51,6 +56,7 @@ from areal_tpu_torch.utils.evaluator import Evaluator
 from areal_tpu_torch.utils.recover import RecoverHandler, ledger_wal_path
 from areal_tpu_torch.utils.saver import Saver
 from areal_tpu_torch.utils.stats_logger import StatsLogger
+from areal_tpu_torch.workflow.multi_turn import MultiTurnWorkflow
 from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
 
 WORKFLOWS = ("rlvr", "multi_turn", "vision_rlvr", "tir")
@@ -118,7 +124,7 @@ def main(
     alloc = check_allocation(config.allocation_mode)
     if config.workflow not in WORKFLOWS:
         raise ValueError(f"workflow={config.workflow!r} not in {WORKFLOWS}")
-    if config.workflow != "rlvr":
+    if config.workflow not in ("rlvr", "multi_turn"):
         raise NotImplementedError(
             f"workflow={config.workflow!r} is not in the PyTorch port yet: "
             "ROADMAP.md queue 1, item 6"
@@ -188,6 +194,17 @@ def main(
                 config.gconfig.stop_token_ids.append(tokenizer.eos_token_id)
 
         def make_workflow(gconfig, dump_dir=None):
+            if config.workflow == "multi_turn":
+                # the self-correction loop: a wrong answer gets a feedback
+                # prompt and a retry, rewards discounted per extra turn
+                return MultiTurnWorkflow(
+                    reward_fn=reward_fn,
+                    gconfig=gconfig,
+                    tokenizer=tokenizer,
+                    max_turns=config.max_turns,
+                    turn_discount=config.turn_discount,
+                    dump_dir=dump_dir,
+                )
             return RLVRWorkflow(
                 reward_fn=reward_fn,
                 gconfig=gconfig,

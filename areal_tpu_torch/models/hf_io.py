@@ -19,8 +19,11 @@ little-endian bytes. As in the JAX package, a save writes one
 `load_hf_params`, which reads through numpy and so has no bf16, reads the
 port's exports.
 
-MoE, Qwen3's q/k norms, value heads, GPT-2 and the vision tower are
-ROADMAP queue 1, item 6.
+A critic's value head is HF's token-classification `score.weight`
+`[1, H]` and `score.bias` `[1]` (JAX :62-65); a critic loaded from a
+causal-LM checkpoint starts from a zero value head and drops `lm_head`,
+as in JAX (:267-277). MoE, Qwen3's q/k norms, GPT-2 and the vision tower
+are ROADMAP queue 1, item 6.
 """
 
 from __future__ import annotations
@@ -144,6 +147,10 @@ def hf_name_to_ours(name: str) -> tuple[str, ...] | None:
         return ("final_norm",)
     if name == "lm_head.weight":
         return ("lm_head", "kernel")
+    if name == "score.weight":  # HF token-classification value head
+        return ("value_head", "kernel")
+    if name == "score.bias":
+        return ("value_head", "bias")
     if name.startswith("layers."):
         parts = name.split(".")
         rest = ".".join(parts[2:])
@@ -162,6 +169,10 @@ def ours_name_to_hf(path: tuple[str, ...], model_type: str = "qwen2") -> str:
         return "model.norm.weight"
     if path == ("lm_head", "kernel"):
         return "lm_head.weight"
+    if path == ("value_head", "kernel"):
+        return "score.weight"
+    if path == ("value_head", "bias"):
+        return "score.bias"
     if path[0].startswith("layers_") and path[1:] in _LAYER_NAMES:
         return f"model.layers.{int(path[0].split('_')[1])}." + _LAYER_NAMES[path[1:]]
     raise KeyError(path)
@@ -227,10 +238,17 @@ def assemble_params(flat: dict[tuple, torch.Tensor], cfg: ModelConfig,
                     dtype: str) -> dict[str, torch.Tensor]:
     """{path of the unstacked tree: tensor} -> the port's parameters in
     `dtype`, layers stacked when `cfg.scan_layers` (JAX :240); a tied head
-    drops `lm_head`. Names and shapes must be `cfg`'s exactly."""
+    or a critic drops `lm_head`, a critic missing its value head gets a
+    zero one, and a model that is no critic drops `value_head` (JAX
+    :267-277). Names and shapes must be `cfg`'s exactly."""
     tdt = torch_dtype(dtype)
-    if cfg.tie_word_embeddings:
+    if cfg.tie_word_embeddings or cfg.is_critic:
         flat = {p: w for p, w in flat.items() if p[0] != "lm_head"}
+    if cfg.is_critic:
+        flat.setdefault(("value_head", "kernel"), torch.zeros(cfg.hidden_size, 1))
+        flat.setdefault(("value_head", "bias"), torch.zeros(1))
+    else:
+        flat = {p: w for p, w in flat.items() if p[0] != "value_head"}
     out: dict[str, torch.Tensor] = {}
     if cfg.scan_layers:
         subs = sorted({p[1:] for p in flat if p[0].startswith("layers_")})

@@ -4,8 +4,12 @@ packed training forward and the serving path.
 The dense GLU / RMSNorm / RoPE decoder of Qwen2 and Qwen2.5 (qkv bias,
 tied or untied head), which Llama and Mistral share when unwindowed.
 The JAX decoder's other families (MoE, Qwen3 q/k norm, Gemma, GPT-2,
-sliding windows, LoRA, critic heads) are refused by `check_supported`
-until their ROADMAP item ports them.
+sliding windows, LoRA) are refused by `check_supported` until their
+ROADMAP item ports them. A critic (`is_critic`) ends in the scalar value
+head `value_head/kernel` `[H, 1]` and `value_head/bias` `[1]` instead of
+the LM head: `forward` returns f32 values `[T]`. It trains and scores, and
+never serves: `prefill` and the paged steps refuse it
+(`check_servable`).
 
 `forward` runs one packed token stream `[T]` with `segment_ids` (causal
 within each segment), its attention through the flash kernels
@@ -215,7 +219,6 @@ def check_supported(cfg: ModelConfig) -> None:
         "attn_out_bias": cfg.attn_out_bias,
         "sliding_window": cfg.sliding_window is not None,
         "lora_rank": cfg.lora_rank != 0,
-        "is_critic": cfg.is_critic,
     }
     for name, unsupported in todo.items():
         if unsupported:
@@ -223,6 +226,17 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"{name}={getattr(cfg, name)!r} is not in the PyTorch port "
                 "yet (ROADMAP.md queue 1, item 6)"
             )
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """Refuse a critic on the serving path (the decode engine, `prefill`,
+    the paged steps), which samples from an LM head."""
+    if cfg.is_critic:
+        raise ValueError(
+            "is_critic=True: a critic's value head gives one value per token, "
+            "not logits, so the decode engine, prefill and the paged steps "
+            "cannot serve it"
+        )
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -281,7 +295,9 @@ def param_shapes(cfg: ModelConfig) -> dict:
         **layers_tree,
         "final_norm": (cfg.hidden_size,),
     }
-    if not cfg.tie_word_embeddings:
+    if cfg.is_critic:
+        out["value_head"] = {"kernel": (cfg.hidden_size, 1), "bias": (1,)}
+    elif not cfg.tie_word_embeddings:
         out["lm_head"] = {"kernel": (cfg.hidden_size, cfg.vocab_size)}
     return out
 
@@ -316,7 +332,7 @@ def init_params(
     out = {}
     for name, shape in named_shapes(cfg).items():
         core = shape[1:] if name.startswith("layers/") else shape
-        if name.endswith("_bias"):
+        if name.endswith("_bias") or name == "value_head/bias":
             out[name] = torch.zeros(shape, dtype=dtype, device=device)
             continue
         if len(core) == 1:  # norms
@@ -592,6 +608,13 @@ def _head_logits(params: dict, x, cfg: ModelConfig):
     return (x @ params["lm_head/kernel"]).float()
 
 
+def _head_values(params: dict, x, cfg: ModelConfig):
+    """[T, H] post-norm hidden states -> [T] f32 values through the value
+    head (JAX :1544-1548), in the hidden states' dtype."""
+    w = params["value_head/kernel"]
+    return (x @ w.to(x.dtype) + params["value_head/bias"].to(x.dtype))[:, 0].float()
+
+
 def _logits(params: dict, x, cfg: ModelConfig):
     return _head_logits(params, _norm(x, params["final_norm"], cfg), cfg)
 
@@ -684,9 +707,10 @@ def forward(
     return_hidden: bool = False,
     layers: list[dict] | None = None,
 ):
-    """Packed forward (JAX :1445): [T] ids -> [T, V] f32 logits, or the
-    post-final-norm hidden states [T, H] with `return_hidden` (the fused
-    LM-loss path, `LMHead`). `segment_ids` [T] mark sequence membership;
+    """Packed forward (JAX :1445): [T] ids -> [T, V] f32 logits (f32
+    values [T] for a critic), or the post-final-norm hidden states [T, H]
+    with `return_hidden` (the fused LM-loss path, `LMHead`; a critic
+    refuses it, JAX :1541). `segment_ids` [T] mark sequence membership;
     attention is causal within a segment. It trains fp weights: an
     int8-quantized tree (`quantize_weights`) is refused.
 
@@ -699,6 +723,8 @@ def forward(
             "forward takes fp weights; this tree holds int8 q/scale kernels, "
             "which only the serving path (prefill, decode_step_paged) reads"
         )
+    if return_hidden and cfg.is_critic:
+        raise ValueError("return_hidden is the fused LM-loss path; a critic has no LM head")
     if cfg.remat and cfg.remat_policy not in _REMAT_POLICIES:
         raise ValueError(f"remat_policy={cfg.remat_policy!r} not in {_REMAT_POLICIES}")
     if cfg.remat and cfg.remat_policy != "full":
@@ -725,6 +751,8 @@ def forward(
     x = _norm(x, params["final_norm"], cfg)
     if return_hidden:
         return x
+    if cfg.is_critic:
+        return _head_values(params, x, cfg)
     return _head_logits(params, x, cfg)
 
 
@@ -789,13 +817,14 @@ def prefill(params: dict, input_ids, position_ids, cfg: ModelConfig,
     the LM head: the decode engine samples every token, the first one
     included, in its decode loop, so prefill only writes KV. `layers` is
     `layer_views(params, cfg)` when the caller keeps it. `position_ids`
-    is [T], or [B, T].
+    is [T], or [B, T]. A critic is refused (`check_servable`).
 
     `prefix_k/prefix_v` [L, Tp, nKV, hd] with `prefix_len`: cached context
     for a SUFFIX prefill of one sequence (partial prefix sharing). Every
     token also attends to the prefix rows < prefix_len, and
     `position_ids` must then be the absolute positions (prefix_len +
     arange). One layer body serves both modes, as in JAX."""
+    check_servable(cfg)
     if layers is None:
         layers = layer_views(params, cfg)
     batched = input_ids.dim() == 2
@@ -920,7 +949,9 @@ def verify_step_paged(
     before attention reads them, in one stream's order. An int8 pool
     quantizes the W rows at the scatter and writes their scales to
     `scales[dest_block, :, dest_off]`, as `decode_step_paged` does for its
-    one row. Matmuls run through `matmul_fn` at T = R x W rows."""
+    one row. Matmuls run through `matmul_fn` at T = R x W rows. A critic
+    is refused (`check_servable`)."""
+    check_servable(cfg)
     if layers is None:
         layers = layer_views(params, cfg)
     (k_data, k_scales), (v_data, v_scales) = split_pool(k_pool), split_pool(v_pool)

@@ -78,11 +78,13 @@ QWEN25_1_5B = ModelConfig.from_hf_config(
 )
 
 
-def smoke_model_config(dtype: str = "float32", vocab_size: int | None = None) -> ModelConfig:
-    """The FIXED smoke geometry in `dtype`. `vocab_size` (a tokenizer's) is
-    validated, never enlarged, as in JAX (`areal_tpu/models/smoke.py:55`):
-    trainer and decode engine must agree on shapes, so the vocab cannot
-    silently follow a tokenizer."""
+def smoke_model_config(dtype: str = "float32", vocab_size: int | None = None,
+                       is_critic: bool = False) -> ModelConfig:
+    """The FIXED smoke geometry in `dtype`, with a value head for
+    `is_critic`. `vocab_size` (a tokenizer's) is validated, never
+    enlarged, as in JAX (`areal_tpu/models/smoke.py:55`): trainer and
+    decode engine must agree on shapes, so the vocab cannot silently
+    follow a tokenizer."""
     d = SMOKE_MODEL_DICT
     if vocab_size is not None and vocab_size > d["vocab_size"]:
         raise ValueError(
@@ -90,4 +92,4 @@ def smoke_model_config(dtype: str = "float32", vocab_size: int | None = None) ->
             f"tokenizer has {vocab_size} tokens: offline smoke mode only "
             "supports the built-in character tokenizer"
         )
-    return ModelConfig(**d, dtype=dtype, param_dtype=dtype)
+    return ModelConfig(**d, dtype=dtype, param_dtype=dtype, is_critic=is_critic)

@@ -11,10 +11,13 @@ Per-token *forward* matmul FLOPs (2·m·n per [m,n] matmul output element):
                attn out proj   2·nH·hd·d
                scores + values 4·ctx·nH·hd        (ctx = avg causal context)
                gate/up/down    6·d·ff             (SwiGLU: three matmuls)
-  final:       lm_head         2·d·V
+  final:       lm_head         2·d·V              (a critic's value head: 2·d)
 
 Embedding *lookup* is a gather, not a matmul, and is excluded — but the
 lm_head projection is a real matmul and is counted (once, even when tied).
+A critic computes its value head `[d, 1]` and no LM head, so it counts
+2·d there; the JAX copy counts the LM head for every model (ROADMAP queue
+3 lists the difference).
 Backward re-does each matmul twice (dX and dW) → train = 3× forward.
 MoE: ff work is per-activated-expert (top_k), not per-parameter.
 """
@@ -76,7 +79,7 @@ def forward_flops_per_token(model_cfg, avg_context: float) -> float:
         mlp = 6 * d * ff * top_k + 2 * d * n_experts  # experts + router
     else:
         mlp = 6 * d * model_cfg.intermediate_size
-    lm_head = 2 * d * model_cfg.vocab_size
+    lm_head = 2 * d * (1 if getattr(model_cfg, "is_critic", False) else model_cfg.vocab_size)
     return L * (qkv + out + attn + mlp) + lm_head
 
 

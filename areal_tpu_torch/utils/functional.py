@@ -179,6 +179,50 @@ def ppo_actor_loss_fn(
     return pg_loss, stat
 
 
+def _huber_loss(x, y, delta: float = 10.0):
+    diff = torch.abs(x - y)
+    return torch.where(diff < delta, 0.5 * diff**2, delta * (diff - 0.5 * delta))
+
+
+def _mse_loss(x, y):
+    return 0.5 * (x - y) ** 2
+
+
+def ppo_critic_loss_fn(
+    value,
+    old_value,
+    target_value,
+    value_eps_clip: float,
+    loss_mask=None,
+    loss_fn_type: str = "mse",
+):
+    """Value-clipped critic loss (JAX :247): the larger of the loss at
+    `value` and at `value` clipped to `old_value` +- `value_eps_clip`,
+    averaged over `loss_mask` (or every token). The clip mask carries no
+    gradient and is masked by `loss_mask`."""
+    if loss_fn_type == "huber":
+        loss_fn = _huber_loss
+    elif loss_fn_type == "mse":
+        loss_fn = _mse_loss
+    else:
+        raise NotImplementedError(f"unknown loss fn type {loss_fn_type}")
+
+    loss_orig = loss_fn(value, target_value)
+    value_clipped = old_value + torch.clamp(value - old_value, -value_eps_clip, value_eps_clip)
+    loss_clip = loss_fn(value_clipped, target_value)
+    value_loss = torch.maximum(loss_orig, loss_clip)
+
+    clip_mask = (loss_clip > loss_orig).detach()
+    if loss_mask is not None:
+        loss_mask = loss_mask.bool()
+        clip_mask = clip_mask & loss_mask
+        value_loss = (torch.where(loss_mask, value_loss, 0.0).sum()
+                      / torch.clamp(loss_mask.sum(), min=1))
+    else:
+        value_loss = value_loss.mean()
+    return value_loss, dict(clip_mask=clip_mask, loss=value_loss.detach())
+
+
 def dynamic_sampling(
     data: dict[str, Any], group_size: int
 ) -> tuple[dict[str, Any], dict[str, int]]:

@@ -36,8 +36,16 @@ launcher) serves the GRPO entry point's rollouts at Qwen2.5-1.5B full
 width and depth while the trainer runs in this process and pushes its
 weights back over HTTP; then a dcn and a disk push of the same weights
 must give the same greedy tokens, and the launcher runs the smoke yaml end
-to end with both processes on the card. It checks that the kernels really
-carried each path. Each phase prints one JSON line; then
+to end with both processes on the card. Then the customization layer's
+other trainers: the PPO entry point (`areal_tpu_torch/examples/gsm8k_ppo.py`:
+an actor and a value-head critic beside the decode engine) on
+`arith_ppo_smoke.yaml` and at Qwen2.5-1.5B full width and depth for both
+models; the Bradley-Terry reward model (`TorchRWEngine`) at Qwen2.5-1.5B
+and through its entry point (`examples/hhrlhf_rw.py`) on
+`arith_rw_smoke.yaml`; and the multi-turn workflow through the GRPO entry
+point on `arith_grpo_multiturn_smoke.yaml` and at Qwen2.5-1.5B, its retries
+served from the decode engine's prefix registry. It checks that the
+kernels really carried each path. Each phase prints one JSON line; then
 come the `kernels` line, the card's name and power limit, and last
 `{"ok": true, "device": ...}`. Any failed check raises, and the script
 exits non-zero without that last line.
@@ -66,6 +74,11 @@ another tree times that tree's kernel.
     python3 chip_smoke.py --decoupled
 
 runs only the decoupled phase (after the device and build phases).
+
+    python3 chip_smoke.py --trainers
+
+runs only the ppo, rw and multi_turn phases (after the device and build
+phases).
 
     python3 chip_smoke.py --qmm-sweep
 
@@ -3075,16 +3088,19 @@ def _observe_loop(trace_step: int | None = None):
 
 
 def _step_rows(tag: str, history: list, config, first_step: int = 0,
-               trace_step: int | None = None) -> tuple[list, int, int]:
+               trace_step: int | None = None, batch_check=None) -> tuple[list, int, int]:
     """Each step's record of a `main` run (the mean reward, the loop's
     timings, the version lag: the step's weight version minus the oldest
     version of a token it trains on, the micro-batches of `compute_logp`
-    and of `ppo_update`), and the run's micro-batch totals of both."""
+    and of `ppo_update`, and what `batch_check(batch)` returns), and the
+    run's micro-batch totals of both."""
     steps, logp_mbs, train_mbs = [], 0, 0
     for i, rec in enumerate(history):
         st, batch = rec["stats"][0], rec["batch"]
         gen = batch["attention_mask"].astype(bool) & (batch["versions"] >= 0)
-        n_logp = len(split_padded_tensor_dict_into_mb_list(batch, config.actor.mb_spec).mbs)
+        recompute = config.actor.recompute_logprob or config.actor.use_decoupled_loss
+        n_logp = len(split_padded_tensor_dict_into_mb_list(
+            batch, config.actor.mb_spec).mbs) if recompute else 0
         n_train = int(sum(d["grpo_actor/n_mbs"] for d in rec["stats"]))
         logp_mbs, train_mbs = logp_mbs + n_logp, train_mbs + n_train
         completions = {tuple(ids[b:n]) for ids, b, n in zip(
@@ -3097,10 +3113,12 @@ def _step_rows(tag: str, history: list, config, first_step: int = 0,
                    tokens=int(batch["attention_mask"].sum()), logp_mbs=n_logp,
                    train_mbs=n_train, loss=st["grpo_actor/loss"],
                    entropy=st["grpo_actor/entropy"],
-                   **{f"{k}_s": st[f"timeperf/{k}"] for k in LOOP_TIMINGS})
+                   **{f"{k}_s": st.get(f"timeperf/{k}") for k in LOOP_TIMINGS})
         row["trained_tokens_per_s"] = row["tokens"] / row["train_step_s"]
         if "timeperf/checkpoint_for_recover" in st:
             row["checkpoint_for_recover_s"] = st["timeperf/checkpoint_for_recover"]
+        if batch_check is not None:
+            row.update(batch_check(batch))
         if i == trace_step:
             # the step's rollout and train_step times include the tracer's
             # own processing; `traced_step` holds the traced windows' walls
@@ -3112,18 +3130,19 @@ def _step_rows(tag: str, history: list, config, first_step: int = 0,
 
 def _loop_run(dev, tag: str, overrides: list[str], model_config=None, reward_fn=None,
               trace_step: int | None = None, root: str | None = None,
-              first_step: int = 0) -> dict:
-    """One run of the entry point on the smoke yaml with `overrides`, its
-    kernel counts set to 0 just before and read just after, and each
-    step's record: the mean reward, the loop's timings, the version lag
-    (the step's weight version minus the oldest version of a token it
-    trains on), the micro-batches of `compute_logp` and of `ppo_update`.
-    `root` (a temporary directory by default) is the run's file root, and
-    `first_step` the global step a resumed run starts at."""
+              first_step: int = 0, yaml: str | None = None, batch_check=None) -> dict:
+    """One run of the entry point on `yaml` (the smoke yaml by default)
+    with `overrides`, its kernel counts set to 0 just before and read just
+    after, and each step's record: the mean reward, the loop's timings, the
+    version lag (the step's weight version minus the oldest version of a
+    token it trains on), the micro-batches of `compute_logp` and of
+    `ppo_update`, and `batch_check(batch)`. `root` (a temporary directory
+    by default) is the run's file root, and `first_step` the global step a
+    resumed run starts at."""
     with contextlib.ExitStack() as stack:
         if root is None:
             root = stack.enter_context(tempfile.TemporaryDirectory())
-        argv = ["--config", GRPO_YAML, *overrides, f"cluster.fileroot={root}",
+        argv = ["--config", yaml or GRPO_YAML, *overrides, f"cluster.fileroot={root}",
                 f"experiment_name=chip-smoke-{tag.split('/')[0]}"]
         config, _ = load_expr_config(argv, GRPOConfig)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3141,7 +3160,8 @@ def _loop_run(dev, tag: str, overrides: list[str], model_config=None, reward_fn=
     engine = seen["engines"][0]
     L = engine.model_config.num_hidden_layers
     remat = engine.model_config.remat
-    steps, logp_mbs, train_mbs = _step_rows(tag, history, config, first_step, trace_step)
+    steps, logp_mbs, train_mbs = _step_rows(tag, history, config, first_step, trace_step,
+                                            batch_check)
     for i, u in enumerate(seen["updates"]):
         prev = seen["updates"][i - 1] if i else dict(decode_tokens=0, decode_seconds=0.0)
         dt = u["decode_seconds"] - prev["decode_seconds"]
@@ -3152,13 +3172,16 @@ def _loop_run(dev, tag: str, overrides: list[str], model_config=None, reward_fn=
                 flash_attention_fwd=L * (logp_mbs + (2 if remat else 1) * train_mbs),
                 flash_attention_bwd_dq=L * train_mbs, flash_attention_bwd_dkv=L * train_mbs)
     check(launches == want, f"{tag}: launches {launches}, formulas {want}")
-    # each group's later members fork the first's prompt KV (or reuse it in place)
+    # each RLVR group's later members fork the first's prompt KV (or reuse
+    # it in place); a multi-turn episode asks one answer a turn
     n = config.gconfig.n_samples
     admissions = dict(prefills=engine._n_prefills, forks=engine._n_prefix_forks,
                       inplace=engine._n_prefix_inplace, suffix_prefills=engine._n_suffix_prefills)
-    check(admissions["forks"] + admissions["inplace"] >= (n - 1) * admissions["prefills"],
-          f"{tag}: {admissions} for groups of {n}")
-    out = dict(run=tag, overrides=overrides, layers=L, dtype=engine.model_config.dtype,
+    if config.workflow == "rlvr":
+        check(admissions["forks"] + admissions["inplace"] >= (n - 1) * admissions["prefills"],
+              f"{tag}: {admissions} for groups of {n}")
+    out = dict(run=tag, workflow=config.workflow, overrides=overrides, layers=L,
+               dtype=engine.model_config.dtype,
                wall_s=wall, launches=launches, formulas=dict(
                    paged_attention="decode steps x L",
                    flash_attention_fwd="L x (logp mbs + (2 if remat else 1) x trained mbs)",
@@ -3937,6 +3960,391 @@ def phase_decoupled(dev: torch.device, loop: dict) -> dict:
     return dict(launches=runs["d1"]["launches"])
 
 
+# phases: the customization layer's other trainers, the PPO critic
+# (`areal_tpu_torch/examples/gsm8k_ppo.py`), the reward model
+# (`areal_tpu_torch/examples/hhrlhf_rw.py`) and the multi-turn workflow
+# (`areal_tpu_torch/examples/multi_turn_math.py`)
+PPO_YAML = str(Path(__file__).resolve().parent / "examples" / "configs" / "arith_ppo_smoke.yaml")
+RW_YAML = str(Path(__file__).resolve().parent / "examples" / "configs" / "arith_rw_smoke.yaml")
+MT_YAML = str(Path(__file__).resolve().parent / "examples" / "configs"
+              / "arith_grpo_multiturn_smoke.yaml")
+PPO_SMOKE_STEPS = 4
+# loop cell (c)'s traffic on the PPO yaml: the actor and the critic at
+# (c)'s micro-batch and remat settings, two minibatches each, no recovery
+# point (the PPO entry point refuses one)
+PPO_FULL_OVERRIDES = [o for o in FULL_OVERRIDES
+                      if not o.startswith(("recover.", "actor.adv_norm"))] + [
+    "actor.ppo_n_minibatches=2", "critic.dtype=bfloat16", "critic.optimizer.lr=1e-4",
+    "critic.mb_spec.max_tokens_per_mb=8192", "critic.gradient_checkpointing=true",
+    "critic.ppo_n_minibatches=2",
+]
+PPO_TIMINGS = ("rollout", "critic_values", "compute_advantage", "train_step", "critic_step",
+               "update_weights")
+RW_PAIRS, RW_STEPS = 16, 4
+RW_LEN, RW_PREFIX = (256, 512), 192
+RW_MB_TOKENS = 4096
+RW_SMOKE_STEPS = 30
+RW_SMOKE_EVAL_STEPS = [9, 19, 29]  # the yaml's evaluator.freq_steps: 10
+MT_SMOKE_STEPS = MT_FULL_STEPS = 2
+# cell (c)'s traffic with two turns of 256 tokens (and (c)'s two
+# minibatches an update): a retry's prompt is the first turn's
+# conversation and the feedback (up to 6 + 256 + 38 tokens), and its 256
+# new tokens need a context above (c)'s 512
+MT_FULL_OVERRIDES = [o for o in FULL_OVERRIDES if not o.startswith(
+    ("recover.", "actor.adv_norm", "decode.context_length", "total_train_steps"))] + [
+    "decode.context_length=1024", "max_turns=2", "actor.ppo_n_minibatches=2",
+    f"total_train_steps={MT_FULL_STEPS}"]
+
+
+@contextlib.contextmanager
+def _observe_passes():
+    """While a trainer runs: every packed micro-batch pass of every train
+    engine (`_device_mb`), with gradients (a trained micro-batch) or without
+    (`forward`, `eval_batch`), by actor or critic, with the engine's depth
+    and remat, and the end markers of each reward-model micro-batch. The
+    flash formulas read these: K1 = L x (passes without gradients + (2
+    under remat, else 1) x passes with), K2a = K2b = L x passes with."""
+    from areal_tpu_torch.engine.torch_engine import TorchTrainEngine
+
+    seen = dict(engines={}, rw_ends=[])
+    device_mb = TorchTrainEngine._device_mb
+
+    def device_mb_(self, mb):
+        cfg = self.model_config
+        rec = seen["engines"].setdefault(
+            "critic" if cfg.is_critic else "actor",
+            dict(layers=cfg.num_hidden_layers, remat=cfg.remat, trained=0, untrained=0))
+        rec["trained" if torch.is_grad_enabled() else "untrained"] += 1
+        if "rw_seq_end" in mb:
+            seen["rw_ends"].append(int(np.asarray(mb["rw_seq_end"]).sum()))
+        return device_mb(self, mb)
+
+    TorchTrainEngine._device_mb = device_mb_
+    try:
+        yield seen
+    finally:
+        TorchTrainEngine._device_mb = device_mb
+
+
+def _flash_want(passes: dict) -> dict:
+    """The flash launch formulas over `_observe_passes`'s counts."""
+    fwd = sum(e["layers"] * (e["untrained"] + (2 if e["remat"] else 1) * e["trained"])
+              for e in passes["engines"].values())
+    bwd = sum(e["layers"] * e["trained"] for e in passes["engines"].values())
+    return dict(flash_attention_fwd=fwd, flash_attention_bwd_dq=bwd, flash_attention_bwd_dkv=bwd)
+
+
+def _flash_launches() -> dict:
+    return dict(flash_attention_fwd=fa.launches_fwd, flash_attention_bwd_dq=fa.launches_dq,
+                flash_attention_bwd_dkv=fa.launches_dkv)
+
+
+def _ppo_run(dev, tag: str, overrides: list[str], model_config=None,
+             critic_model_config=None, reward_fn=None) -> dict:
+    """One run of the PPO entry point (`gsm8k_ppo.main`) on the PPO yaml
+    with `overrides`, its kernel counts set to 0 just before and read just
+    after: K3 = decode steps x L, K1/K2a/K2b on `_flash_want` over both
+    engines' passes (the actor's `compute_logp` when the yaml asks for
+    it, the critic's `compute_values`, both updates); each step's version
+    lag within `max_head_offpolicyness`, the critic's stats under
+    `ppo_critic/`, its loss finite."""
+    from areal_tpu_torch.api.cli_args import PPOConfig
+    from areal_tpu_torch.examples import gsm8k_ppo
+
+    with tempfile.TemporaryDirectory() as root:
+        argv = ["--config", PPO_YAML, *overrides, f"cluster.fileroot={root}",
+                f"experiment_name=chip-smoke-ppo-{tag}"]
+        config, _ = load_expr_config(argv, PPOConfig)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with _observe_loop() as seen, _observe_passes() as passes:
+            # ---- the main path: counts to 0 just before, read just after ----
+            pa.launches = fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+            t0 = time.perf_counter()
+            history = gsm8k_ppo.main(argv, model_config=model_config,
+                                     critic_model_config=critic_model_config,
+                                     reward_fn=reward_fn, device=dev)
+            wall = time.perf_counter() - t0
+            launches = dict(paged_attention=pa.launches, **_flash_launches())
+            # ---- end of the main path ----
+    engine = seen["engines"][0]
+    L = engine.model_config.num_hidden_layers
+    want = dict(paged_attention=L * engine.decode_steps, **_flash_want(passes))
+    check(launches == want, f"ppo {tag}: launches {launches}, formulas {want}")
+    lag_cap = config.rollout.max_head_offpolicyness
+    steps = []
+    for i, rec in enumerate(history):
+        st, batch = rec["stats"][0], rec["batch"]
+        gen = batch["attention_mask"].astype(bool) & (batch["versions"] >= 0)
+        row = dict(step=i, reward_mean=float(np.mean(batch["rewards"])),
+                   tokens=int(batch["attention_mask"].sum()),
+                   version_lag=int(i - batch["versions"][gen].min()),
+                   actor_loss=st["ppo_actor/loss"], critic_loss=st["ppo_critic/critic_loss"],
+                   value_clip_ratio=st["ppo_critic/critic_value_clip_ratio"],
+                   critic_grad_norm=st["ppo_critic/critic_grad_norm"],
+                   values_mean=float(batch["values"][batch["attention_mask"] > 0].mean()),
+                   **{f"{k}_s": st[f"timeperf/{k}"] for k in PPO_TIMINGS})
+        row["step_s"] = sum(row[f"{k}_s"] for k in PPO_TIMINGS)
+        check(math.isfinite(row["critic_loss"]) and math.isfinite(row["actor_loss"]),
+              f"ppo {tag} step {i}: losses {row['actor_loss']}, {row['critic_loss']}")
+        check(row["version_lag"] <= lag_cap, f"ppo {tag} step {i}: lag {row['version_lag']}")
+        check(not any(k.startswith("ppo_actor/critic") for k in st),
+              f"ppo {tag}: critic stats under ppo_actor/")
+        steps.append(row)
+    for i, u in enumerate(seen["updates"]):
+        steps[i]["max_memory_allocated_gb_at_actor_update"] = u["max_memory_allocated_gb"]
+    return dict(run=tag, overrides=overrides, layers=L, dtype=engine.model_config.dtype,
+                wall_s=wall, launches=launches, formulas=dict(
+                    paged_attention="decode steps x L",
+                    flash_attention_fwd="L x (logp mbs + value mbs + (2 if remat else 1) x "
+                                        "trained mbs of both engines)",
+                    flash_attention_bwd_dq="L x trained mbs of both engines",
+                    flash_attention_bwd_dkv="L x trained mbs of both engines"),
+                passes=passes["engines"], decode_steps=engine.decode_steps,
+                prefill_calls=engine.prefill_calls,
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                max_memory_reserved_gb=torch.cuda.max_memory_reserved(dev) / 1e9,
+                max_version_lag=max(r["version_lag"] for r in steps), steps=steps)
+
+
+def phase_ppo(dev: torch.device) -> dict:
+    """The port's PPO entry point (actor and critic) on the card:
+
+    (p1) `arith_ppo_smoke.yaml` unchanged but for the step count and the
+         run's paths (the smoke decoder and its value-head twin in f32,
+         hd 16: the kernels' f32 routes), 4 async steps;
+    (p2) Qwen2.5-1.5B at its published widths and depth for both the actor
+         and the critic (a value head in place of the tied LM head), bf16,
+         random weights, with the colocated decode engine, on loop cell
+         (c)'s traffic and the train phase's reward: 3 steps of 8 prompts x
+         4 samples, 256 new tokens, 32 slots, context 512, 128-step chunks,
+         remat, `ppo_n_minibatches` 2 for each engine.
+
+    Each run: K3 = decode steps x L; K1/K2a/K2b on `_flash_want` over both
+    engines; the version lag within 2; the critic's stats under
+    `ppo_critic/` (its loss finite, `value_clip_ratio` read); the step's
+    timers (`critic_values` and `critic_step` among them) and the peak
+    device memory, two trainers and the decode engine on one card."""
+    runs = {"p1": _ppo_run(dev, "p1", [f"total_train_steps={PPO_SMOKE_STEPS}"])}
+    torch.cuda.empty_cache()
+    runs["p2"] = _ppo_run(dev, "p2", PPO_FULL_OVERRIDES,
+                          model_config=dataclasses.replace(QWEN25_1_5B, remat=True),
+                          critic_model_config=dataclasses.replace(QWEN25_1_5B, remat=True,
+                                                                  is_critic=True),
+                          reward_fn=parity_reward)
+    emit("ppo", entry_point="areal_tpu_torch/examples/gsm8k_ppo.py:main", yaml=PPO_YAML,
+         full_model="Qwen2.5-1.5B", full_source=QWEN25_1_5B_SOURCE, runs=list(runs.values()))
+    total = {k: sum(r["launches"][k] for r in runs.values()) for k in runs["p2"]["launches"]}
+    return dict(launches=total, by_run={t: r["launches"] for t, r in runs.items()})
+
+
+def _rw_pairs(rng, vocab: int, pairs: int) -> dict:
+    """`pairs` (chosen, rejected) rows (2i, 2i+1) of RW_LEN tokens each,
+    sharing a RW_PREFIX-token prefix, padded to one batch."""
+    from areal_tpu_torch.utils.data import pad_sequences_to_tensors
+
+    seqs = []
+    for _ in range(pairs):
+        prefix = rng.integers(3, vocab, RW_PREFIX).tolist()
+        for _ in range(2):
+            n = int(rng.integers(RW_LEN[0], RW_LEN[1] + 1))
+            ids = np.asarray(prefix + rng.integers(3, vocab, n - RW_PREFIX).tolist(), np.int32)
+            seqs.append(dict(input_ids=ids, loss_mask=np.ones_like(ids)))
+    return pad_sequences_to_tensors(seqs)
+
+
+def _rw_full(dev) -> dict:
+    """(r1): `TorchRWEngine` at Qwen2.5-1.5B with random weights from seed
+    0, remat, bf16, RW_MB_TOKENS-token micro-batches: RW_STEPS `train_rw`
+    steps, one `eval_rw` and `compute_scores` on RW_PAIRS pairs, and a
+    `forward` whose values at each sequence's last token must equal the
+    scores bit for bit. Every micro-batch carries an even count of end
+    markers (whole pairs); the flash counts equal `_flash_want`."""
+    from areal_tpu_torch.api.cli_args import TrainEngineConfig
+    from areal_tpu_torch.engine.rw.rw_engine import TorchRWEngine, _identity_hook
+
+    cfg = dataclasses.replace(QWEN25_1_5B, remat=True, is_critic=True, scan_layers=False)
+    econf = TrainEngineConfig(
+        experiment_name="chip-smoke-rw", trial_name="r1", dtype="bfloat16",
+        mb_spec=MicroBatchSpec(max_tokens_per_mb=RW_MB_TOKENS),
+        optimizer=OptimizerConfig(lr=1e-5, weight_decay=0.01, warmup_steps_proportion=0.0,
+                                  lr_scheduler_type="constant", gradient_clipping=1.0))
+    rng = np.random.default_rng(SEED + 14)
+    batches = [_rw_pairs(rng, cfg.vocab_size, RW_PAIRS) for _ in range(RW_STEPS + 1)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    engine = TorchRWEngine(econf, device=dev)
+    engine.model_config = cfg
+    engine.create_process_group()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    engine.initialize(None, FinetuneSpec(1, RW_STEPS * RW_PAIRS, RW_PAIRS),
+                      params=init_params(cfg, gen, dev))
+    try:
+        with _observe_passes() as passes:
+            # ---- the main path: counts to 0 just before, read just after ----
+            fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+            wall = time.perf_counter()
+            steps = []
+            for i in range(RW_STEPS):
+                t0 = time.perf_counter()
+                st = engine.train_rw(batches[i])
+                steps.append(dict(step=i, loss=st["loss"], grad_norm=st["grad_norm"],
+                                  lr=st["lr"], n_mbs=st["n_mbs"], tokens=st["n_tokens"],
+                                  wall_s=time.perf_counter() - t0, mfu=st["mfu"],
+                                  trained_tokens_per_s=st["tokens_per_sec_per_chip"]))
+            t0 = time.perf_counter()
+            eval_loss = engine.eval_rw(batches[-1])
+            eval_s = time.perf_counter() - t0
+            scores = engine.compute_scores(batches[-1])
+            flat = engine.forward(batches[-1], post_hook=_identity_hook, aggregate_fn=list)
+            wall = time.perf_counter() - wall
+            launches = _flash_launches()
+            # ---- end of the main path ----
+    finally:
+        engine.destroy()
+    lens = batches[-1]["attention_mask"].sum(-1)
+    last = np.array([seq[n - 1] for seq, n in zip(flat, lens)], np.float32)
+    check(np.array_equal(scores, last), "rw r1: compute_scores differ from the forward's values "
+                                        "at the last tokens")
+    check(all(math.isfinite(r["loss"]) for r in steps) and math.isfinite(eval_loss),
+          f"rw r1: losses {[r['loss'] for r in steps]}, eval {eval_loss}")
+    odd = [n for n in passes["rw_ends"] if n % 2]
+    check(not odd, f"rw r1: micro-batches with an odd count of end markers: {odd}")
+    check(all(r["n_mbs"] > 1 for r in steps), f"rw r1: {[r['n_mbs'] for r in steps]} mbs a step")
+    want = _flash_want(passes)
+    check(launches == want, f"rw r1: launches {launches}, formulas {want}")
+    return dict(run="r1", wall_s=wall, model="Qwen2.5-1.5B", layers=cfg.num_hidden_layers,
+                pairs=RW_PAIRS,
+                seq_len=RW_LEN, shared_prefix=RW_PREFIX, max_tokens_per_mb=RW_MB_TOKENS,
+                launches=launches, passes=passes["engines"],
+                end_markers_per_mb=passes["rw_ends"], steps=steps, eval_loss=eval_loss,
+                eval_s=eval_s, chosen_above_rejected=float(np.mean(scores[0::2] > scores[1::2])),
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                max_memory_reserved_gb=torch.cuda.max_memory_reserved(dev) / 1e9)
+
+
+def _rw_smoke(dev) -> dict:
+    """(r2): `arith_rw_smoke.yaml` unchanged through the reward-model entry
+    point (the smoke decoder with a value head, f32): 30 steps, the
+    evaluator at steps 9, 19 and 29; every loss finite, the last three
+    steps' mean below the first three's, the flash counts on
+    `_flash_want`."""
+    from areal_tpu_torch.examples import hhrlhf_rw
+
+    with tempfile.TemporaryDirectory() as root, _observe_passes() as passes:
+        # ---- the main path: counts to 0 just before, read just after ----
+        fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+        t0 = time.perf_counter()
+        history = hhrlhf_rw.main(["--config", RW_YAML, f"cluster.fileroot={root}",
+                                  "experiment_name=chip-smoke-rw-smoke"], device=dev)
+        wall = time.perf_counter() - t0
+        launches = _flash_launches()
+        # ---- end of the main path ----
+    check(len(history) == RW_SMOKE_STEPS, f"rw r2: {len(history)} steps")
+    evals = {r["global_step"]: r["eval_loss"] for r in history if "eval_loss" in r}
+    check(sorted(evals) == RW_SMOKE_EVAL_STEPS, f"rw r2: evaluations at {sorted(evals)}")
+    losses = [r["rw_loss"] for r in history]
+    check(all(map(math.isfinite, losses + list(evals.values()))), "rw r2: a loss is not finite")
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]), f"rw r2: losses did not fall: {losses}")
+    want = _flash_want(passes)
+    check(launches == want, f"rw r2: launches {launches}, formulas {want}")
+    odd = [n for n in passes["rw_ends"] if n % 2]
+    check(not odd, f"rw r2: micro-batches with an odd count of end markers: {odd}")
+    return dict(run="r2", yaml=RW_YAML, wall_s=wall, launches=launches, passes=passes["engines"],
+                losses=losses, eval_losses=evals)
+
+
+def phase_rw(dev: torch.device) -> dict:
+    """The port's Bradley-Terry reward model on the card: (r1) the engine
+    at Qwen2.5-1.5B full width and depth, (r2) the entry point on its smoke
+    yaml."""
+    runs = dict(r1=_rw_full(dev))
+    torch.cuda.empty_cache()
+    runs["r2"] = _rw_smoke(dev)
+    emit("rw", entry_point="areal_tpu_torch/examples/hhrlhf_rw.py:main",
+         engine="areal_tpu_torch/engine/rw/rw_engine.py:TorchRWEngine",
+         full_source=QWEN25_1_5B_SOURCE, runs=list(runs.values()))
+    total = {k: sum(r["launches"][k] for r in runs.values()) for k in FLASH_COUNTERS}
+    return dict(launches=dict(total, paged_attention=0))
+
+
+def _feedback_spans(batch: dict) -> dict:
+    """The retries in a trained multi-turn batch: each feedback span must
+    carry version -1 and loss mask 0 (read through `compute_advantages`'
+    roll of the mask by -1)."""
+    from areal_tpu_torch.workflow.multi_turn import DEFAULT_FEEDBACK
+
+    fb = ArithTokenizer().encode(DEFAULT_FEEDBACK)
+    k, spans = len(fb), 0
+    for i in range(batch["input_ids"].shape[0]):
+        n = int(batch["attention_mask"][i].sum())
+        ids = batch["input_ids"][i, :n].tolist()
+        mask = np.roll(np.asarray(batch["loss_mask"][i]), 1)[:n]
+        ver = batch["versions"][i, :n]
+        for p in range(int(batch["begin_of_answer"][i]), n - k + 1):
+            if ids[p:p + k] == fb:
+                check(not mask[p:p + k].any() and (ver[p:p + k] == -1).all(),
+                      f"multi_turn: row {i}'s feedback at {p} is trained or stamped")
+                spans += 1
+    return dict(feedback_spans=spans, rows=int(batch["input_ids"].shape[0]),
+                discounted_rewards=sorted(set(np.round(batch["rewards"], 6).tolist())))
+
+
+def phase_multi_turn(dev: torch.device) -> dict:
+    """The multi-turn workflow through the GRPO entry point
+    (`workflow=multi_turn`) on the card:
+
+    (m1) `arith_grpo_multiturn_smoke.yaml` unchanged but for the step
+         count and the run's paths, 2 steps, through `multi_turn_math.main`'s
+         path (the entry point with `workflow=multi_turn`);
+    (m2) Qwen2.5-1.5B at full width and depth, random weights, on loop
+         cell (c)'s traffic with `max_turns=2` and a context of 1024 (a
+         retry re-sends up to 300 tokens and asks 256 more), 2 steps, with
+         the dataset's reward. Random weights answer no sum, so every
+         trained episode holds a retry.
+
+    Each run: every feedback span in the trained rows has loss mask 0 and
+    version -1; K3 = decode steps x L and K1/K2a/K2b on the loop formulas
+    (`_loop_run`); the decode engine's prefills, forks and suffix
+    prefills printed. In (m2) the retries, each re-sending its whole
+    conversation, are served by suffix prefills (or forks)."""
+    runs = {"m1": _loop_run(dev, "m1", [f"total_train_steps={MT_SMOKE_STEPS}"], yaml=MT_YAML,
+                            batch_check=_feedback_spans)}
+    torch.cuda.empty_cache()
+    runs["m2"] = _loop_run(dev, "m2", MT_FULL_OVERRIDES, yaml=MT_YAML,
+                           model_config=dataclasses.replace(QWEN25_1_5B, remat=True),
+                           batch_check=_feedback_spans)
+    for tag, r in runs.items():
+        check(r["workflow"] == "multi_turn", f"{tag}: workflow {r['workflow']}")
+        check(r["max_version_lag"] <= 2, f"{tag}: version lag {r['max_version_lag']}")
+    m2 = runs["m2"]
+    for r in m2["steps"]:
+        check(r["feedback_spans"] == r["rows"],
+              f"m2 step {r['step']}: {r['feedback_spans']} retries in {r['rows']} rows")
+    served = m2["admissions"]["suffix_prefills"] + m2["admissions"]["forks"]
+    check(served > 0, f"m2: no retry served from the prefix registry: {m2['admissions']}")
+    emit("multi_turn", entry_point="areal_tpu_torch/examples/gsm8k_grpo.py:main "
+                                   "(workflow=multi_turn; multi_turn_math.py appends it)",
+         workflow="areal_tpu_torch/workflow/multi_turn.py", yaml=MT_YAML,
+         full_model="Qwen2.5-1.5B", runs=list(runs.values()))
+    total = {k: sum(r["launches"][k] for r in runs.values()) for k in runs["m2"]["launches"]}
+    return dict(launches=total, by_run={t: r["launches"] for t, r in runs.items()})
+
+
+def trainers_only() -> int:
+    """`--trainers`: the device and build phases, then the ppo, rw and
+    multi_turn phases alone."""
+    dev, smi = phase_device()
+    phase_build()
+    out = dict(ppo=phase_ppo(dev)["launches"])
+    torch.cuda.empty_cache()
+    out["rw"] = phase_rw(dev)["launches"]
+    torch.cuda.empty_cache()
+    out["multi_turn"] = phase_multi_turn(dev)["launches"]
+    print(smi, flush=True)
+    print(json.dumps({"trainers_launches": out}), flush=True)
+    return 0
+
+
 FLASH_FLOPS_PER_PAIR = {  # x head_dim x query heads, per valid (query, key) pair
     "flash_attention_fwd": 4, "flash_attention_bwd_dq": 6, "flash_attention_bwd_dkv": 8,
 }
@@ -4220,14 +4628,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     decoupled = phase_decoupled(dev, loop)
     torch.cuda.empty_cache()
+    ppo = phase_ppo(dev)
+    torch.cuda.empty_cache()
+    rw = phase_rw(dev)
+    torch.cuda.empty_cache()
+    multi_turn = phase_multi_turn(dev)
+    torch.cuda.empty_cache()
     # K1/K2a/K2b run in the GRPO loop, the train phase, both SFT runs, the
-    # GRPO recovery runs, the AEnt run and the decoupled trainer; K3 in every
-    # GRPO run (the decoupled one's in its server process)
+    # GRPO recovery runs, the AEnt run, the decoupled trainer and the PPO,
+    # reward-model and multi-turn trainers; K3 in every GRPO and PPO run
+    # (the decoupled one's in its server process)
     flash_paths = dict(grpo_loop=loop["launches"], train=train["launches"],
                        sft={k: sft["launches"][k] + sft_smoke["launches"][k]
                             for k in FLASH_COUNTERS},
                        grpo_recover=recover["launches"], aent=aent["launches"],
-                       decoupled=decoupled["launches"])
+                       decoupled=decoupled["launches"], ppo=ppo["launches"],
+                       rw=rw["launches"], multi_turn=multi_turn["launches"])
     # K3 runs in the serve, sched (its group waves) and train paths and in
     # the spec path's normal chunks; K5a in the int8 serve path and the int8 spec path's; K6 in both
     # int8 paths
@@ -4237,7 +4653,9 @@ def main() -> int:
                                      train=train["launches"]["paged_attention"],
                                      grpo_recover=recover["launches"]["paged_attention"],
                                      aent=aent["launches"]["paged_attention"],
-                                     decoupled=decoupled["launches"]["paged_attention"])
+                                     decoupled=decoupled["launches"]["paged_attention"],
+                                     ppo=ppo["launches"]["paged_attention"],
+                                     multi_turn=multi_turn["launches"]["paged_attention"])
     paged["launches"] = sum(paged["launches_by_path"].values())
     q8["launches_by_path"] = dict(serve_int8=q_launches["paged_attention_q8"],
                                   serve_spec_int8=s8_launches["paged_attention_q8"])
@@ -4262,5 +4680,5 @@ def main() -> int:
 if __name__ == "__main__":
     modes = {"--paged-times": paged_times_only, "--decode-sweep": decode_sweep_only,
              "--qmm-times": qmm_times_only, "--qmm-sweep": qmm_sweep_only,
-             "--decoupled": decoupled_only}
+             "--decoupled": decoupled_only, "--trainers": trainers_only}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] else main())

@@ -230,7 +230,7 @@ def test_entry_point_refusals(tmp_path):
         srv.stop()
         name_resolve.reconfigure(t_cli.NameResolveConfig(type="memory"))
     with pytest.raises(NotImplementedError, match="item 6"):
-        main(base + ["workflow=multi_turn"], device="cpu")
+        main(base + ["workflow=tir"], device="cpu")
     with pytest.raises(ValueError, match="workflow"):
         main(base + ["workflow=nope"], device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):

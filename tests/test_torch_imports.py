@@ -86,6 +86,13 @@ def test_port_has_the_expected_modules():
         "areal_tpu_torch.launcher.base",
         "areal_tpu_torch.launcher.local",
         "areal_tpu_torch.launcher.decode_server",
+        "areal_tpu_torch.engine.ppo.critic",
+        "areal_tpu_torch.engine.rw",
+        "areal_tpu_torch.engine.rw.rw_engine",
+        "areal_tpu_torch.workflow.multi_turn",
+        "areal_tpu_torch.examples.gsm8k_ppo",
+        "areal_tpu_torch.examples.hhrlhf_rw",
+        "areal_tpu_torch.examples.multi_turn_math",
         "chip_smoke",
     ):
         assert want in names

@@ -32,6 +32,7 @@ from areal_tpu.models import qwen2 as jq
 from areal_tpu_torch.api import cli_args as t_cli
 from areal_tpu_torch.api.io_struct import FinetuneSpec
 from areal_tpu_torch.dataset import get_custom_dataset as t_dataset
+from areal_tpu_torch.dataset.arith import ArithTokenizer
 from areal_tpu_torch.engine.sft import lm_engine as t_lm
 from areal_tpu_torch.models import qwen2 as tq
 from areal_tpu_torch.models.convert import params_from_numpy, unstack_layers
@@ -54,8 +55,15 @@ def test_sft_view_matches_jax(split, max_length):
 
 
 def test_rw_view_is_refused_with_item_6():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t_dataset("synthetic-arith", type="rw")
+    """The `rw` view, refused until the reward model was ported (the name
+    is kept from then), is now accepted: each item pairs the well-formed answer (chosen) with the
+    malformed one (rejected, a dangling `+`), as JAX's does."""
+    items = t_dataset("synthetic-arith", type="rw", n_items=64)
+    assert items == j_dataset("synthetic-arith", type="rw", n_items=64)
+    tok = ArithTokenizer()
+    for x in items:
+        assert x["chosen_input_ids"] == tok.encode(x["prompt"] + x["answer"]) + [2]
+        assert x["rejected_input_ids"] == tok.encode(x["prompt"] + x["answer"] + "+") + [2]
 
 
 def _packed_mb(seed=0, V=48):
