@@ -364,8 +364,9 @@ class TorchDecodeConfig:
 
     The serving dtype is the installed model's (`ModelConfig.dtype`).
     `dtype` keeps its JAX name and default; as in the JAX engine
-    (`jax_decode.py:646-653`) it is read only to load `model_path`, which
-    the port still refuses, so nothing reads it yet. An fp pool's
+    (`jax_decode.py:646-653`) it is read only to load `model_path` (the
+    HF checkpoint `initialize` reads when no model is installed). An fp
+    pool's
     `kv_cache_dtype` must equal the model's dtype; `kv_dtype="int8"`
     stores the pool as int8 with f32 scales whatever `kv_cache_dtype`
     says, and `weight_dtype="int8"` serves the dense matmul kernels as int8
@@ -450,10 +451,6 @@ class TorchDecodeConfig:
                 self.paged_attn_impl == "xla", "item 3, the workspace layout's gather path"
             ),
             "role": (self.role != "unified", "item 4, disaggregated prefill/decode roles"),
-            "model_path": (
-                bool(self.model_path),
-                "item 6, safetensors loading; install weights with set_model",
-            ),
         })
 
 

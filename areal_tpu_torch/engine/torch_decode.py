@@ -449,7 +449,15 @@ class TorchDecodeEngine(InferenceEngine):
         self.config.check_supported()
         self.inference_config.check_supported()
         if self.params is None:
-            raise RuntimeError("no model installed: call set_model first")
+            # no model installed: the HF checkpoint at `model_path`, in
+            # `dtype` (jax_decode.py:646-655)
+            if not self.config.model_path:
+                raise RuntimeError("no model installed or configured: call set_model "
+                                   "or set model_path")
+            mc = ModelConfig.from_hf_config(self.config.model_path, dtype=self.config.dtype,
+                                            param_dtype=self.config.dtype)
+            self.set_model(hf_io.load_hf_params(self.config.model_path, mc, device=self.device),
+                           mc)
         cfg = self.model_config
         if self.config.weight_dtype not in WEIGHT_DTYPES:
             raise ValueError(

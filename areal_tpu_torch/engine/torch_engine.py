@@ -342,9 +342,11 @@ class TorchTrainEngine(TrainEngine):
         ft_spec: FinetuneSpec | None = None,
         params: dict[str, torch.Tensor] | None = None,
     ) -> None:
-        """Build the model and the optimizer. `params` (the port's flat
-        name -> tensor dict, any device) installs given weights instead of
-        a random init; they are copied onto the engine's device."""
+        """Build the model and the optimizer. The weights are `params`
+        (the port's flat name -> tensor dict, any device, copied onto the
+        engine's device), else a random init (`init_from_scratch` or no
+        `path`), else the HF checkpoint at `path`, whose `config.json`
+        also gives the model config when none is set."""
         cfg = self.config
         if cfg.use_lora:
             raise NotImplementedError(
@@ -385,11 +387,9 @@ class TorchTrainEngine(TrainEngine):
             gen = torch.Generator(device=self.device).manual_seed(1)
             self.params = init_params(mcfg, gen, self.device)
         else:
-            raise NotImplementedError(
-                "loading weights from a checkpoint path is not in the PyTorch "
-                "port yet (ROADMAP.md queue 1, item 6); pass params= or "
-                "init_from_scratch=True"
-            )
+            # the HF checkpoint at `path` (JAX :439-448); a critic read from
+            # a causal LM starts from a zero value head
+            self.params = hf_io.load_hf_params(cfg.path, mcfg, device=self.device)
         for p in self.params.values():
             p.requires_grad_(True)
         self._layers = layer_views(self.params, mcfg)

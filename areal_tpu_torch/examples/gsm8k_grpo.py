@@ -28,6 +28,10 @@ Usage, from the repository root:
       --config examples/configs/arith_grpo_smoke.yaml allocation_mode=jax:d1+d1
 
 Override any config field with key=value, e.g. `actor.optimizer.lr=1e-5`.
+With `actor.path` (and `actor.init_from_scratch=false`) the actor loads
+that HF checkpoint, its model config from its `config.json`; with
+`actor.kl_ctl > 0` and `ref.path`, a frozen reference policy loads
+`ref.path` and its `compute_logp` gives each step's `ref_logp`.
 It runs on `cuda:0`. From Python, `main([...], device="cpu")` runs the
 same loop on the CPU with the kernels' plain versions (a decoupled run
 also needs its server started with `--device cpu`).
@@ -62,16 +66,31 @@ from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
 WORKFLOWS = ("rlvr", "multi_turn", "vision_rlvr", "tir")
 
 
+def gsm8k_reward_fn(prompt, completion, prompt_ids, completion_ids, **data):
+    from areal_tpu_torch.reward.math_parser import math_verify_reward
+
+    return math_verify_reward(prompt, completion, prompt_ids, completion_ids, **data)
+
+
 def pick_reward_fn(dataset_path: str):
+    """The dataset's reward (JAX :52-82): `countdown` and `synthetic-arith`
+    their own, the vision datasets refused (ROADMAP.md queue 1, item 6),
+    any other name the math grader."""
     name = dataset_path.split("/")[-1].lower()
+    if name == "countdown":
+        from areal_tpu_torch.reward.countdown import countdown_reward
+
+        return countdown_reward
     if name == "synthetic-arith":
         from areal_tpu_torch.dataset.arith import arith_reward_fn
 
         return arith_reward_fn
-    raise NotImplementedError(
-        f"the reward function of dataset {dataset_path!r} is not in the PyTorch "
-        "port yet: ROADMAP.md queue 1, item 6"
-    )
+    if name in ("clevr_count_70k", "geometry3k", "synthetic-vision"):
+        raise NotImplementedError(
+            f"the reward function of dataset {dataset_path!r} is not in the PyTorch "
+            "port yet: ROADMAP.md queue 1, item 6"
+        )
+    return gsm8k_reward_fn
 
 
 def check_allocation(allocation_mode: str) -> AllocationMode:
@@ -109,8 +128,9 @@ def main(
 ) -> list[dict[str, Any]]:
     """Run the loop of `argv` (`--config file.yaml key=value ...`).
 
-    `model_config` replaces the default model (the smoke decoder when
-    `actor.path` is empty), `reward_fn` the dataset's reward, and `device`
+    `model_config` replaces the default model (the HF checkpoint's
+    config at `actor.path`, the smoke decoder when it is empty),
+    `reward_fn` the dataset's reward, and `device`
     the card (`"cpu"` runs the plain versions). Returns one record per
     step: the stats it committed (`stats`) and the batch it trained on
     (`batch`)."""

@@ -47,9 +47,13 @@ a submission in flight waits on a `concurrent.futures.Future`.
 scheduler is its own thread.
 
 Run one with `python -m areal_tpu_torch.launcher.decode_server
---scratch-model '<ModelConfig JSON>' [flags]`: the JAX server's flags and
-defaults, and `--device` (the card, `cuda:0`, by default; `cpu` runs the
-kernels' plain versions).
+--model-path <HF checkpoint directory> [flags]`, or `--scratch-model
+'<ModelConfig JSON>'` for random weights from `--seed`: the JAX server's
+flags and defaults, and `--device` (the card, `cuda:0`, by default; `cpu`
+runs the kernels' plain versions). A checkpoint is served in `--dtype`
+with its tokenizer (`transformers.AutoTokenizer` on the same directory)
+unless `--skip-tokenizer-init`; a tokenizer that fails to load is logged
+and the server runs without stop-on-eos, as the JAX server does.
 """
 
 from __future__ import annotations
@@ -77,6 +81,7 @@ from areal_tpu_torch.api.cli_args import (
 from areal_tpu_torch.api.io_struct import ModelRequest, WeightUpdateMeta
 from areal_tpu_torch.core.weight_transfer import WeightStaging, frame_raw_nbytes
 from areal_tpu_torch.models.convert import to_layout
+from areal_tpu_torch.models.qwen2 import ModelConfig
 from areal_tpu_torch.utils import logging, name_resolve, names
 from areal_tpu_torch.utils.network import gethostip
 
@@ -539,7 +544,7 @@ def _scratch_model(args: argparse.Namespace, device):
     `--seed` on `device`."""
     import torch
 
-    from areal_tpu_torch.models.qwen2 import ModelConfig, init_params
+    from areal_tpu_torch.models.qwen2 import init_params
 
     mc = ModelConfig(**{**json.loads(args.scratch_model), "dtype": args.dtype,
                         "param_dtype": args.dtype})
@@ -575,20 +580,32 @@ def _serve(args: argparse.Namespace) -> None:
     )
     # flags of unported features are refused before anything is built
     config.check_supported()
-    if not args.scratch_model:
-        raise NotImplementedError(
-            "serving a checkpoint (--model-path) is not in the PyTorch port yet: "
-            "ROADMAP.md queue 1, item 6; pass --scratch-model"
-        )
     if args.prewarm_prompt_len > 0:
         # the JAX engine compiles its jit variants there; the port has
         # nothing to compile ahead (its kernels build on first use)
         logger.info("--prewarm-prompt-len: nothing to warm in the PyTorch port")
     device = resolve_device(args.device or None)
-    server = DecodeServer(config, device=device)
-    params, mc = _scratch_model(args, device)
-    server.engine.set_model(params, mc)
-    del params
+    tokenizer = None
+    if not args.scratch_model:
+        # the checkpoint's config.json first: a path with no local
+        # directory (a hub id) fails here, before a tokenizer load could
+        # reach for the hub
+        ModelConfig.from_hf_config(args.model_path)
+        if not args.skip_tokenizer_init:
+            try:
+                from transformers import AutoTokenizer
+
+                tokenizer = AutoTokenizer.from_pretrained(args.model_path)
+                logger.info(f"tokenizer {type(tokenizer).__name__} loaded, eos "
+                            f"{getattr(tokenizer, 'eos_token_id', None)}")
+            except Exception as e:  # noqa: BLE001 — as the JAX server (:1296-1297)
+                logger.warning(f"tokenizer load failed ({e}); stop-on-eos disabled")
+    server = DecodeServer(config, tokenizer=tokenizer, device=device)
+    if args.scratch_model:
+        params, mc = _scratch_model(args, device)
+        server.engine.set_model(params, mc)
+        del params
+    # a checkpoint is read by the engine's initialize, in --dtype
     server.start(args.host, args.port)
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())

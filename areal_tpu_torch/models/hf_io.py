@@ -15,9 +15,10 @@ The safetensors format is read and written here, with no package behind
 it: an 8-byte little-endian header length, a JSON header mapping each
 name to its dtype, shape and byte range, then the tensors' raw
 little-endian bytes. As in the JAX package, a save writes one
-`model.safetensors` with bf16 tensors upcast to F32 (exact), so the JAX
-`load_hf_params`, which reads through numpy and so has no bf16, reads the
-port's exports.
+`model.safetensors` with bf16 tensors upcast to F32 (exact) by default;
+it can also keep them in bf16 and shard them under a
+`model.safetensors.index.json`, as HF checkpoints ship, and a load reads
+either form, a tied head with or without `lm_head.weight` on disk.
 
 A critic's value head is HF's token-classification `score.weight`
 `[1, H]` and `score.bias` `[1]` (JAX :62-65); a critic loaded from a
@@ -245,8 +246,9 @@ def assemble_params(flat: dict[tuple, torch.Tensor], cfg: ModelConfig,
     if cfg.tie_word_embeddings or cfg.is_critic:
         flat = {p: w for p, w in flat.items() if p[0] != "lm_head"}
     if cfg.is_critic:
-        flat.setdefault(("value_head", "kernel"), torch.zeros(cfg.hidden_size, 1))
-        flat.setdefault(("value_head", "bias"), torch.zeros(1))
+        dev = next(iter(flat.values())).device if flat else "cpu"
+        flat.setdefault(("value_head", "kernel"), torch.zeros(cfg.hidden_size, 1, device=dev))
+        flat.setdefault(("value_head", "bias"), torch.zeros(1, device=dev))
     else:
         flat = {p: w for p, w in flat.items() if p[0] != "value_head"}
     out: dict[str, torch.Tensor] = {}
@@ -273,31 +275,60 @@ def assemble_params(flat: dict[tuple, torch.Tensor], cfg: ModelConfig,
     return out
 
 
-def load_hf_params(model_dir: str, cfg: ModelConfig, dtype: str | None = None
-                   ) -> dict[str, torch.Tensor]:
-    """An HF checkpoint directory -> the port's parameters (host tensors in
-    `dtype`, by default `cfg.param_dtype`; JAX :220)."""
+def load_hf_params(model_dir: str, cfg: ModelConfig, dtype: str | None = None,
+                   device: torch.device | str = "cpu") -> dict[str, torch.Tensor]:
+    """An HF checkpoint directory -> the port's parameters in `dtype`, by
+    default `cfg.param_dtype` (JAX :220), on `device`: each tensor is
+    moved there as read, so its transpose runs there."""
     _check_family(cfg)
     flat = {}
     for name, w in _iter_hf_tensors(model_dir):
         path = hf_name_to_ours(name)
         if path is not None:
-            flat[path] = _convert_tensor(path, w, cfg)
+            flat[path] = _convert_tensor(path, w.to(device), cfg)
     return assemble_params(flat, cfg, dtype or cfg.param_dtype)
 
 
-def save_hf_params(params: dict[str, torch.Tensor], cfg: ModelConfig, out_dir: str) -> str:
-    """Write the parameters as one HF-format `model.safetensors` in
-    `out_dir` (JAX :488), in torch's `[out, in]` layout, bf16 upcast to
-    F32 (exact; JAX :505-509)."""
+def save_hf_params(params: dict[str, torch.Tensor], cfg: ModelConfig, out_dir: str, *,
+                   upcast_bf16: bool = True, max_shard_bytes: int | None = None) -> str:
+    """Write the parameters in HF format in `out_dir` (JAX :488), in
+    torch's `[out, in]` layout: by default one `model.safetensors` with
+    bf16 upcast to F32 (exact; JAX :505-509). `upcast_bf16=False` keeps
+    bf16 tensors as BF16, as HF checkpoints ship them. `max_shard_bytes`
+    deals the tensors, in name order, into `model-0000i-of-0000n.safetensors`
+    files of at most that many bytes (a larger tensor gets one of its
+    own) and writes the `model.safetensors.index.json` that
+    `_iter_hf_tensors` reads (`metadata.total_size`, `weight_map`), as
+    `save_pretrained` does."""
     _check_family(cfg)
     tensors = {}
     for path, w in flatten_params(params, cfg).items():
         arr = _unconvert_tensor(path, w.detach(), cfg)
-        tensors[ours_name_to_hf(path, cfg.model_type)] = (
-            arr.float() if arr.dtype == torch.bfloat16 else arr)
+        if upcast_bf16 and arr.dtype == torch.bfloat16:
+            arr = arr.float()
+        tensors[ours_name_to_hf(path, cfg.model_type)] = arr
     os.makedirs(out_dir, exist_ok=True)
-    write_safetensors(tensors, os.path.join(out_dir, "model.safetensors"))
+    if max_shard_bytes is None:
+        write_safetensors(tensors, os.path.join(out_dir, "model.safetensors"))
+        return out_dir
+    shards: list[list[str]] = [[]]
+    size = 0
+    for name in sorted(tensors):
+        nbytes = tensors[name].numel() * tensors[name].element_size()
+        if shards[-1] and size + nbytes > max_shard_bytes:
+            shards.append([])
+            size = 0
+        shards[-1].append(name)
+        size += nbytes
+    weight_map, total = {}, 0
+    for i, names in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        part = {n: tensors[n] for n in names}
+        write_safetensors(part, os.path.join(out_dir, fname))
+        total += sum(t.numel() * t.element_size() for t in part.values())
+        weight_map.update({n: fname for n in names})
+    with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
+        json.dump(dict(metadata=dict(total_size=total), weight_map=weight_map), f, indent=2)
     return out_dir
 
 

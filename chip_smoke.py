@@ -44,7 +44,13 @@ models; the Bradley-Terry reward model (`TorchRWEngine`) at Qwen2.5-1.5B
 and through its entry point (`examples/hhrlhf_rw.py`) on
 `arith_rw_smoke.yaml`; and the multi-turn workflow through the GRPO entry
 point on `arith_grpo_multiturn_smoke.yaml` and at Qwen2.5-1.5B, its retries
-served from the decode engine's prefix registry. It checks that the
+served from the decode engine's prefix registry. Last, checkpoints from
+local paths: a Qwen2.5-1.5B checkpoint written sharded in bf16 by the
+port's own writer, read back bit for bit by the GRPO entry point's actor
+and its frozen KL reference policy (3 steps on the countdown dataset), by
+the offline evaluator (`areal_tpu_torch/evaluation/eval_and_aggregate.py`)
+and by a decode server started with `--model-path`, whose greedy tokens
+must equal an in-process engine's. It checks that the
 kernels really carried each path. Each phase prints one JSON line; then
 come the `kernels` line, the card's name and power limit, and last
 `{"ok": true, "device": ...}`. Any failed check raises, and the script
@@ -80,6 +86,10 @@ runs only the decoupled phase (after the device and build phases).
 runs only the ppo, rw and multi_turn phases (after the device and build
 phases).
 
+    python3 chip_smoke.py --hf-path
+
+runs only the hf_path phase (after the device and build phases).
+
     python3 chip_smoke.py --qmm-sweep
 
 times the bf16 K6 kernel at Qwen2.5-7B's four (K, N) shapes at T 16 and 80
@@ -112,6 +122,7 @@ import torch
 from areal_tpu_torch.api.cli_args import (
     GenerationHyperparameters,
     GRPOConfig,
+    InferenceEngineConfig,
     JaxEngineConfig,
     MicroBatchSpec,
     NameResolveConfig,
@@ -136,8 +147,10 @@ from areal_tpu_torch.models.qwen2 import (
 )
 from areal_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
 from areal_tpu_torch.ops.quant import quantize_absmax
+from areal_tpu_torch.models import hf_io
 from areal_tpu_torch.models.smoke import (
     QWEN25_1_5B,
+    QWEN25_1_5B_HF,
     QWEN25_1_5B_SOURCE,
     QWEN25_7B,
     QWEN25_7B_SOURCE,
@@ -2949,9 +2962,6 @@ FULL_OVERRIDES = [
     f"total_train_steps={FULL_STEPS}",
     # the train phase's micro-batch and remat settings
     "actor.mb_spec.max_tokens_per_mb=8192", "actor.gradient_checkpointing=true",
-    # one recovery point, at the last step (global step 2), while the
-    # decode thread runs the next batch's chunk on the same stream
-    "recover.mode=auto", f"recover.freq_steps={FULL_STEPS}", "recover.keep_last=1",
 ]
 LOOP_TIMINGS = ("rollout", "recompute_logp", "compute_advantage", "train_step",
                 "update_weights")
@@ -3091,9 +3101,10 @@ def _step_rows(tag: str, history: list, config, first_step: int = 0,
                trace_step: int | None = None, batch_check=None) -> tuple[list, int, int]:
     """Each step's record of a `main` run (the mean reward, the loop's
     timings, the version lag: the step's weight version minus the oldest
-    version of a token it trains on, the micro-batches of `compute_logp`
-    and of `ppo_update`, and what `batch_check(batch)` returns), and the
-    run's micro-batch totals of both."""
+    version of a token it trains on, the micro-batches of the actor's and
+    the reference policy's `compute_logp` and of `ppo_update`, and what
+    `batch_check(batch)` returns), and the run's micro-batch totals: the
+    untrained passes (both `compute_logp`s) and the trained ones."""
     steps, logp_mbs, train_mbs = [], 0, 0
     for i, rec in enumerate(history):
         st, batch = rec["stats"][0], rec["batch"]
@@ -3102,7 +3113,10 @@ def _step_rows(tag: str, history: list, config, first_step: int = 0,
         n_logp = len(split_padded_tensor_dict_into_mb_list(
             batch, config.actor.mb_spec).mbs) if recompute else 0
         n_train = int(sum(d["grpo_actor/n_mbs"] for d in rec["stats"]))
-        logp_mbs, train_mbs = logp_mbs + n_logp, train_mbs + n_train
+        # the reference policy's forward on the same batch (its own mb_spec)
+        n_ref = len(split_padded_tensor_dict_into_mb_list(
+            batch, config.ref.mb_spec).mbs) if "ref_logp" in batch else 0
+        logp_mbs, train_mbs = logp_mbs + n_logp + n_ref, train_mbs + n_train
         completions = {tuple(ids[b:n]) for ids, b, n in zip(
             batch["input_ids"].tolist(), batch["begin_of_answer"].tolist(),
             batch["attention_mask"].sum(-1).tolist())}
@@ -3111,12 +3125,13 @@ def _step_rows(tag: str, history: list, config, first_step: int = 0,
                    version_lag=int(first_step + i - batch["versions"][gen].min()),
                    samples=int(batch["input_ids"].shape[0]),
                    tokens=int(batch["attention_mask"].sum()), logp_mbs=n_logp,
-                   train_mbs=n_train, loss=st["grpo_actor/loss"],
+                   ref_logp_mbs=n_ref, train_mbs=n_train, loss=st["grpo_actor/loss"],
                    entropy=st["grpo_actor/entropy"],
                    **{f"{k}_s": st.get(f"timeperf/{k}") for k in LOOP_TIMINGS})
         row["trained_tokens_per_s"] = row["tokens"] / row["train_step_s"]
-        if "timeperf/checkpoint_for_recover" in st:
-            row["checkpoint_for_recover_s"] = st["timeperf/checkpoint_for_recover"]
+        for k in ("checkpoint_for_recover", "ref_logp"):
+            if f"timeperf/{k}" in st:
+                row[f"{k}_s"] = st[f"timeperf/{k}"]
         if batch_check is not None:
             row.update(batch_check(batch))
         if i == trace_step:
@@ -3184,7 +3199,8 @@ def _loop_run(dev, tag: str, overrides: list[str], model_config=None, reward_fn=
                dtype=engine.model_config.dtype,
                wall_s=wall, launches=launches, formulas=dict(
                    paged_attention="decode steps x L",
-                   flash_attention_fwd="L x (logp mbs + (2 if remat else 1) x trained mbs)",
+                   flash_attention_fwd="L x (logp mbs + ref logp mbs + (2 if remat else 1) x "
+                                       "trained mbs)",
                    flash_attention_bwd_dq="L x trained mbs",
                    flash_attention_bwd_dkv="L x trained mbs"),
                decode_steps=engine.decode_steps, prefill_calls=engine.prefill_calls,
@@ -3211,9 +3227,8 @@ def phase_grpo_loop(dev: torch.device) -> dict:
         first 3, and an lr=0 control run fails that check;
     (c) Qwen2.5-1.5B at its published widths and depth, bf16, random
         weights, with the train phase's reward: 3 steps of 8 prompts x 4
-        samples, 256 new tokens, async; one recovery point at the last
-        step, dumped while the decode thread runs the next chunk (its
-        `checkpoint_for_recover` seconds and split in the run's record).
+        samples, 256 new tokens, async (no recovery point: the sft and
+        grpo_recover phases dump and resume one).
 
     In every run K3 launches L per decode step and K1/K2a/K2b L per
     micro-batch pass (K1 twice per trained micro-batch under remat); the
@@ -3647,8 +3662,8 @@ def phase_aent(dev: torch.device) -> dict:
 # decode server process (`areal_tpu_torch/launcher/decode_server.py`, K3)
 # beside the trainer (K1/K2a/K2b) on the same card
 DECOUPLED_ALLOC = "jax:d1+d1"
-# loop cell (c)'s settings without its recovery point
-DECOUPLED_OVERRIDES = [o for o in FULL_OVERRIDES if not o.startswith("recover.")]
+# loop cell (c)'s settings
+DECOUPLED_OVERRIDES = FULL_OVERRIDES
 DECOUPLED_STEPS = 2  # (d2): the launcher end to end on the unchanged yaml
 PROBE_REQUESTS, PROBE_NEW = 8, 64
 PROBE_PROMPT_LEN = (32, 256)
@@ -3970,10 +3985,8 @@ MT_YAML = str(Path(__file__).resolve().parent / "examples" / "configs"
               / "arith_grpo_multiturn_smoke.yaml")
 PPO_SMOKE_STEPS = 4
 # loop cell (c)'s traffic on the PPO yaml: the actor and the critic at
-# (c)'s micro-batch and remat settings, two minibatches each, no recovery
-# point (the PPO entry point refuses one)
-PPO_FULL_OVERRIDES = [o for o in FULL_OVERRIDES
-                      if not o.startswith(("recover.", "actor.adv_norm"))] + [
+# (c)'s micro-batch and remat settings, two minibatches each
+PPO_FULL_OVERRIDES = [o for o in FULL_OVERRIDES if not o.startswith("actor.adv_norm")] + [
     "actor.ppo_n_minibatches=2", "critic.dtype=bfloat16", "critic.optimizer.lr=1e-4",
     "critic.mb_spec.max_tokens_per_mb=8192", "critic.gradient_checkpointing=true",
     "critic.ppo_n_minibatches=2",
@@ -3991,7 +4004,7 @@ MT_SMOKE_STEPS = MT_FULL_STEPS = 2
 # conversation and the feedback (up to 6 + 256 + 38 tokens), and its 256
 # new tokens need a context above (c)'s 512
 MT_FULL_OVERRIDES = [o for o in FULL_OVERRIDES if not o.startswith(
-    ("recover.", "actor.adv_norm", "decode.context_length", "total_train_steps"))] + [
+    ("actor.adv_norm", "decode.context_length", "total_train_steps"))] + [
     "decode.context_length=1024", "max_turns=2", "actor.ppo_n_minibatches=2",
     f"total_train_steps={MT_FULL_STEPS}"]
 
@@ -4330,6 +4343,323 @@ def phase_multi_turn(dev: torch.device) -> dict:
     return dict(launches=total, by_run={t: r["launches"] for t, r in runs.items()})
 
 
+# phase: HF checkpoints from local paths (the GRPO entry point's actor and
+# reference policy, the offline evaluator, the decode server's
+# --model-path)
+HF_SHARD_BYTES = 2 << 30  # Qwen2.5-1.5B's 3.09 GB of bf16 tensors: 2 shards
+HF_KL = 0.05
+# loop cell (c)'s traffic on the countdown dataset, the actor and the
+# reference policy loaded from the checkpoint
+HF_OVERRIDES = FULL_OVERRIDES + [
+    "train_dataset.path=countdown", "actor.init_from_scratch=false", f"actor.kl_ctl={HF_KL}",
+    "ref.dtype=bfloat16", "ref.mb_spec.max_tokens_per_mb=8192"]
+HF_EVAL = ["--data-names", "synthetic-arith", "--tokenizer-path", "synthetic-arith",
+           "--max-problems", "16", "--n-sampling", "4", "--max-gen-tokens", "64"]
+HF_METRICS = {"n_problems", "n_samples", "mean_reward", "pass_at_1", "pass@1", "pass@4",
+              "mean_output_len", "maj_at_n"}
+HF_PROBES, HF_PROBE_NEW = 4, 32
+# the served engine's and the in-process engine's settings
+HF_SERVE = dict(context_length=1024, max_running_requests=8, new_tokens_per_chunk=32)
+
+
+def _bit_sums(params: dict) -> dict:
+    """Each tensor's bits, read as int16, summed on its device plainly and
+    weighted by position mod 65521: equal tensors give equal sums, and a
+    changed or moved value changes them."""
+    out = {}
+    for name, t in params.items():
+        bits = t.detach().reshape(-1).view(torch.int16)
+        plain = weighted = 0
+        for start in range(0, bits.numel(), 1 << 22):
+            chunk = bits[start:start + (1 << 22)].to(torch.int64)
+            pos = torch.arange(start, start + chunk.numel(), device=chunk.device) % 65521 + 1
+            plain += int(chunk.sum())
+            weighted += int((chunk * pos).sum())
+        out[name] = (plain, weighted)
+    return out
+
+
+def _version_of(module: str) -> str | None:
+    """An installed package's version, or None, without importing it."""
+    from importlib import metadata
+
+    try:
+        return metadata.version(module)
+    except metadata.PackageNotFoundError:
+        return None
+
+
+def _write_hf_checkpoint(dev, root: str) -> tuple[dict, dict]:
+    """Qwen2.5-1.5B at its published widths, bf16 weights from seed 0,
+    written sharded in HF format by the port's writer (`hf_io`) with
+    `QWEN25_1_5B_HF` as its config.json: (the written tensors'
+    `_bit_sums`, the write's record)."""
+    cfg = dataclasses.replace(QWEN25_1_5B, scan_layers=False)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    t0 = time.perf_counter()
+    hf_io.save_hf_params(params, cfg, root, upcast_bf16=False, max_shard_bytes=HF_SHARD_BYTES)
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(dict(QWEN25_1_5B_HF, architectures=["Qwen2ForCausalLM"]), f)
+    write_s = time.perf_counter() - t0
+    with open(os.path.join(root, "model.safetensors.index.json")) as f:
+        shards = sorted(set(json.load(f)["weight_map"].values()))
+    check(len(shards) >= 2, f"hf_path: {shards}: fewer than 2 shards")
+    sums = _bit_sums(params)
+    reckoned = sum(t.numel() * t.element_size() for t in params.values())
+    del params
+    return sums, dict(path=root, shards=shards, write_s=write_s, tensor_bytes=reckoned,
+                      disk_bytes=_dir_bytes(root))
+
+
+@contextlib.contextmanager
+def _observe_engines(written: dict):
+    """While `main` runs: each train engine's weights right after its
+    `initialize`, their `_bit_sums` held against `written`, with its load
+    seconds and whether it built an optimizer."""
+    from areal_tpu_torch.engine.torch_engine import TorchTrainEngine
+
+    seen = []
+    init = TorchTrainEngine.initialize
+
+    def initialize(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        init(self, *args, **kwargs)
+        secs = time.perf_counter() - t0
+        loaded = _bit_sums(self.params)
+        diff = sorted(k for k in written if loaded.get(k) != written[k])
+        seen.append(dict(path=self.config.path, initialize_s=secs, tensors=len(loaded),
+                         bit_equal=not diff and set(loaded) == set(written),
+                         differ=diff[:5], optimizer=self.optimizer is not None))
+
+    TorchTrainEngine.initialize = initialize
+    try:
+        yield seen
+    finally:
+        TorchTrainEngine.initialize = init
+
+
+@contextlib.contextmanager
+def _observe_countdown():
+    """The countdown reward as `pick_reward_fn` finds it, counting each
+    call by (prompt, completion) ids with the reward it returned."""
+    from areal_tpu_torch.reward import countdown
+
+    calls: dict = {}
+    reward = countdown.countdown_reward
+
+    def counted(prompt, completion, prompt_ids, completion_ids, **kw):
+        r = reward(prompt, completion, prompt_ids, completion_ids, **kw)
+        calls.setdefault((tuple(prompt_ids), tuple(completion_ids)), []).append(r)
+        return r
+
+    countdown.countdown_reward = counted
+    try:
+        yield calls
+    finally:
+        countdown.countdown_reward = reward
+
+
+def _ref_check(batch: dict) -> dict:
+    """A trained batch's reference logprobs against the actor's recomputed
+    ones on the trained tokens, and its KL rewards."""
+    lm = np.roll(batch["loss_mask"], -1, axis=-1) > 0
+    d = np.abs(batch["ref_logp"][lm] - batch["prox_logp"][lm])
+    return dict(ref_vs_actor_logp=dict(tokens=int(lm.sum()), max_abs_diff=float(d.max()),
+                                       mean_abs_diff=float(d.mean())),
+                kl_rewards_max_abs=float(np.abs(batch["kl_rewards"]).max()))
+
+
+def _hf_grpo(dev, ckpt: str, written: dict) -> dict:
+    """(h1) the GRPO entry point on the checkpoint: the actor and the
+    reference policy load it bit for bit, step 0's reference logprobs
+    equal the actor's, the countdown reward scores every sample once."""
+    with _observe_engines(written) as engines, _observe_countdown() as calls:
+        run = _loop_run(dev, "h1", HF_OVERRIDES + [f"actor.path={ckpt}", f"ref.path={ckpt}"],
+                        batch_check=_ref_check)
+    check(len(engines) == 2, f"h1: {len(engines)} train engines, want actor and reference")
+    for name, e in zip(("actor", "ref"), engines):
+        check(e["path"] == ckpt and e["bit_equal"],
+              f"h1: the {name}'s loaded weights differ from the written ones: {e['differ']}")
+    check(engines[0]["optimizer"] and not engines[1]["optimizer"],
+          f"h1: optimizers {[e['optimizer'] for e in engines]}: the actor's only")
+    r0 = run["steps"][0]["ref_vs_actor_logp"]
+    check(r0["max_abs_diff"] <= LOGP_MAX_ABS_DIFF and r0["mean_abs_diff"] <= LOGP_MEAN_ABS_DIFF,
+          f"h1 step 0: reference vs actor logprobs {r0}")
+    check(all(r["ref_logp_mbs"] > 0 for r in run["steps"]), "h1: a step without the reference")
+    samples = sum(r["samples"] for r in run["steps"])
+    once = all(len(v) == 1 for v in calls.values())
+    check(once, "h1: a sample scored twice")
+    check(len(calls) >= samples, f"h1: {len(calls)} countdown rewards for {samples} trained samples")
+    return dict(run, engines=engines, countdown_reward_calls=len(calls), trained_samples=samples,
+                kl_ctl=HF_KL)
+
+
+def _hf_eval(dev, ckpt: str, root: str) -> dict:
+    """(h2) `eval_and_aggregate.main` in process with `--model-path`: K3 =
+    decode steps x L; every metric written."""
+    from areal_tpu_torch.evaluation import eval_and_aggregate
+
+    out = os.path.join(root, "eval")
+    with _observe_loop() as seen:
+        # ---- the main path: counts to 0 just before, read just after ----
+        pa.launches = 0
+        t0 = time.perf_counter()
+        eval_and_aggregate.main(HF_EVAL + ["--model-path", ckpt, "--output-path", out],
+                                device=dev)
+        wall = time.perf_counter() - t0
+        k3 = pa.launches
+        # ---- end of the main path ----
+    eng = seen["engines"][0]
+    L = eng.model_config.num_hidden_layers
+    check(k3 == L * eng.decode_steps > 0, f"h2: K3 {k3}, want {L} x {eng.decode_steps}")
+    with open(os.path.join(out, "synthetic-arith", "metrics.json")) as f:
+        metrics = json.load(f)
+    check(set(metrics) == HF_METRICS, f"h2: metrics.json keys {sorted(metrics)}")
+    check(all(math.isfinite(v) for v in metrics.values()), f"h2: metrics {metrics}")
+    check(metrics["n_problems"] == 16 and metrics["n_samples"] == 4, f"h2: {metrics}")
+    return dict(run="h2", argv=HF_EVAL, wall_s=wall, launches=dict(paged_attention=k3),
+                decode_steps=eng.decode_steps, prefill_calls=eng.prefill_calls, metrics=metrics)
+
+
+def _subprocess_grades(out: dict) -> None:
+    """Two grades through the math grader's forkserver children (whose
+    server preloads this script), an equal pair and an unequal one, and
+    their seconds, into `out`."""
+    from areal_tpu_torch.reward.math_parser import math_equal_subprocess
+
+    t0 = time.perf_counter()
+    out["grades"] = [math_equal_subprocess("\\frac{1}{2}", "0.5", timeout_s=120),
+                     math_equal_subprocess("\\frac{1}{2}", "0.6", timeout_s=120)]
+    out["seconds"] = time.perf_counter() - t0
+
+
+def _hf_serve(dev, ckpt: str, root: str) -> dict:
+    """(h3) the decode server started with `--model-path`, and an engine
+    in this process with `model_path` and the same settings: greedy
+    tokens of HF_PROBES prompts, one request at a time, equal; K3 =
+    decode steps x L in both."""
+    from areal_tpu_torch.launcher import local
+    from areal_tpu_torch.utils import name_resolve
+
+    rng = np.random.default_rng(SEED + 40)
+    prompts = [rng.integers(0, QWEN25_1_5B.vocab_size, int(n)).tolist()
+               for n in rng.integers(*PROBE_PROMPT_LEN, HF_PROBES)]
+    gconfig = dict(greedy=True, max_new_tokens=HF_PROBE_NEW)
+    nr = NameResolveConfig(type="nfs", nfs_record_root=os.path.join(root, "nr"))
+    name_resolve.reconfigure(nr)
+    launcher = local.LocalLauncher("chip-smoke-hf", "run0", root)
+    args = ["--dtype", "bfloat16", "--device", str(dev)]
+    for k, v in HF_SERVE.items():
+        args += [f"--{k.replace('_', '-')}", str(v)]
+    t0 = time.perf_counter()
+    job, addr = launcher.spawn_decode_server(model_path=ckpt, extra_args=args,
+                                             env=name_resolve.to_env(nr), timeout=SERVER_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    try:
+        # ---- the main path (the server's counts start at 0) ----
+        served = [_server_post(addr, "/generate", dict(input_ids=p, gconfig=gconfig))
+                  for p in prompts]
+        server = _server_pause_read(addr)
+        # ---- end of the main path ----
+    finally:
+        launcher.stop_all()
+        name_resolve.reconfigure(NameResolveConfig(type="memory"))
+    log = Path(job.log_path).read_text()
+    check("Traceback" not in log, "h3: the server's log holds a Traceback")
+    eng = TorchDecodeEngine(TorchDecodeConfig(model_path=ckpt, **HF_SERVE),
+                            InferenceEngineConfig(), device=dev)
+    eng.initialize()
+    try:
+        # ---- the main path: counts to 0 just before, read just after ----
+        pa.launches = 0
+        local_out = [eng.generate(ModelRequest(input_ids=p,
+                                               gconfig=GenerationHyperparameters(**gconfig)))
+                     for p in prompts]
+        k3_local = pa.launches
+        # ---- end of the main path ----
+        steps_local = eng.decode_steps
+    finally:
+        eng.destroy()
+    L = QWEN25_1_5B.num_hidden_layers
+    k = server["kernel_launches"]
+    check(k["paged_attention"] == L * k["decode_steps"] > 0, f"h3: server launches {k}")
+    check(k3_local == L * steps_local > 0, f"h3: K3 {k3_local}, want {L} x {steps_local}")
+    tokens = [r["output_tokens"] for r in served]
+    check(all(len(t) == HF_PROBE_NEW for t in tokens), "h3: a served probe stopped early")
+    check(tokens == [r.output_tokens for r in local_out],
+          "h3: the server's greedy tokens differ from the in-process engine's")
+    return dict(run="h3", server_spawn_s=spawn_s, probes=HF_PROBES, new_tokens=HF_PROBE_NEW,
+                settings=HF_SERVE, tokens_equal=True,
+                packages={m: _version_of(m) for m in ("transformers", "datasets")},
+                server_tokenizer_log=[ln[-200:] for ln in log.splitlines() if "tokenizer" in ln],
+                launches=dict(paged_attention=k["paged_attention"] + k3_local),
+                server_decode_steps=k["decode_steps"], local_decode_steps=steps_local)
+
+
+def phase_hf_path(dev: torch.device) -> dict:
+    """HF checkpoints from local paths on the card:
+
+    (h0) Qwen2.5-1.5B at its published widths, bf16 weights from seed 0,
+         written by the port's own writer in 2 shards with an index;
+    (h1) the GRPO entry point on it, colocated, under loop cell (c)'s
+         settings on the countdown dataset, with `actor.path` and
+         `ref.path` at the checkpoint and `actor.kl_ctl` 0.05, 3 steps:
+         both engines load it with the written tensors' bit sums (the
+         reference without an optimizer), step 0's reference logprobs
+         equal the actor's within the bf16 logprob tolerances, the
+         countdown reward scores each sample once; K3 = decode steps x L, K1 = L x (logp mbs + ref logp
+         mbs + 2 x trained mbs), K2a = K2b = L x trained mbs;
+    (h2) `eval_and_aggregate` in process with `--model-path`: K3 = decode
+         steps x L, every metric in `metrics.json`;
+    (h3) the decode server with `--model-path`: its greedy tokens equal
+         those of an engine loaded here from the same directory; beside
+         it, the math grader's subprocess grades an equal pair True and
+         an unequal one False from inside the run.
+
+    The checkpoint is deleted at the end."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        ckpt = os.path.join(root, "qwen2.5-1.5b")
+        written, write = _write_hf_checkpoint(dev, ckpt)
+        torch.cuda.empty_cache()
+        h1 = _hf_grpo(dev, ckpt, written)
+        del written
+        torch.cuda.empty_cache()
+        h2 = _hf_eval(dev, ckpt, root)
+        torch.cuda.empty_cache()
+        # the grader's forkserver starts (and imports this script) while
+        # the server process loads the checkpoint
+        grades: dict = {}
+        grader = threading.Thread(target=_subprocess_grades, args=(grades,), daemon=True)
+        grader.start()
+        h3 = _hf_serve(dev, ckpt, root)
+        grader.join(timeout=300)
+    check(not grader.is_alive() and grades.get("grades") == [True, False],
+          f"hf_path: subprocess grades {grades}")
+    runs = [h1, h2, h3]
+    emit("hf_path", wall_s=time.perf_counter() - t0,
+         checkpoint=dict(write, model="Qwen2.5-1.5B", source=QWEN25_1_5B_SOURCE),
+         entry_points=["areal_tpu_torch/examples/gsm8k_grpo.py:main",
+                       "areal_tpu_torch/evaluation/eval_and_aggregate.py:main",
+                       "areal_tpu_torch/launcher/decode_server.py --model-path"],
+         subprocess_grades=grades, runs=runs)
+    total = dict(h1["launches"])
+    total["paged_attention"] += h2["launches"]["paged_attention"] + h3["launches"][
+        "paged_attention"]
+    return dict(launches=total, by_run={r["run"]: r["launches"] for r in runs})
+
+
+def hf_path_only() -> int:
+    """`--hf-path`: the device and build phases, then the hf_path phase
+    alone."""
+    dev, smi = phase_device()
+    phase_build()
+    out = phase_hf_path(dev)
+    print(smi, flush=True)
+    print(json.dumps({"hf_path_launches": out["launches"]}), flush=True)
+    return 0
+
+
 def trainers_only() -> int:
     """`--trainers`: the device and build phases, then the ppo, rw and
     multi_turn phases alone."""
@@ -4634,16 +4964,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     multi_turn = phase_multi_turn(dev)
     torch.cuda.empty_cache()
+    hf_path = phase_hf_path(dev)
+    torch.cuda.empty_cache()
     # K1/K2a/K2b run in the GRPO loop, the train phase, both SFT runs, the
-    # GRPO recovery runs, the AEnt run, the decoupled trainer and the PPO,
-    # reward-model and multi-turn trainers; K3 in every GRPO and PPO run
-    # (the decoupled one's in its server process)
+    # GRPO recovery runs, the AEnt run, the decoupled trainer, the PPO,
+    # reward-model and multi-turn trainers and the GRPO run on a
+    # checkpoint with its reference policy; K3 in every GRPO and PPO run
+    # (the decoupled one's in its server process), the evaluator and the
+    # server started on a checkpoint
     flash_paths = dict(grpo_loop=loop["launches"], train=train["launches"],
                        sft={k: sft["launches"][k] + sft_smoke["launches"][k]
                             for k in FLASH_COUNTERS},
                        grpo_recover=recover["launches"], aent=aent["launches"],
                        decoupled=decoupled["launches"], ppo=ppo["launches"],
-                       rw=rw["launches"], multi_turn=multi_turn["launches"])
+                       rw=rw["launches"], multi_turn=multi_turn["launches"],
+                       hf_path=hf_path["launches"])
     # K3 runs in the serve, sched (its group waves) and train paths and in
     # the spec path's normal chunks; K5a in the int8 serve path and the int8 spec path's; K6 in both
     # int8 paths
@@ -4655,7 +4990,8 @@ def main() -> int:
                                      aent=aent["launches"]["paged_attention"],
                                      decoupled=decoupled["launches"]["paged_attention"],
                                      ppo=ppo["launches"]["paged_attention"],
-                                     multi_turn=multi_turn["launches"]["paged_attention"])
+                                     multi_turn=multi_turn["launches"]["paged_attention"],
+                                     hf_path=hf_path["launches"]["paged_attention"])
     paged["launches"] = sum(paged["launches_by_path"].values())
     q8["launches_by_path"] = dict(serve_int8=q_launches["paged_attention_q8"],
                                   serve_spec_int8=s8_launches["paged_attention_q8"])
@@ -4680,5 +5016,6 @@ def main() -> int:
 if __name__ == "__main__":
     modes = {"--paged-times": paged_times_only, "--decode-sweep": decode_sweep_only,
              "--qmm-times": qmm_times_only, "--qmm-sweep": qmm_sweep_only,
-             "--decoupled": decoupled_only, "--trainers": trainers_only}
+             "--decoupled": decoupled_only, "--trainers": trainers_only,
+             "--hf-path": hf_path_only}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] else main())

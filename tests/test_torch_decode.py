@@ -18,6 +18,7 @@ batchmates), and the device rule.
 
 import asyncio
 import dataclasses
+import json
 import threading
 import time
 
@@ -390,7 +391,7 @@ def test_device_none_without_a_card_raises(monkeypatch):
 @pytest.mark.parametrize(
     "setting",
     [dict(kv_host_pool_mb=64.0), dict(tensor_parallel_size=2),
-     dict(kv_layout="workspace"), dict(model_path="/models/x"),
+     dict(kv_layout="workspace"), dict(role="prefill"),
      dict(kv_cache_dtype="bfloat16")],  # the model here is float32
 )
 def test_unported_settings_raise(weights, setting):
@@ -398,6 +399,38 @@ def test_unported_settings_raise(weights, setting):
     eng.set_model(weights[1], TCFG)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.initialize()
+
+
+def test_model_path_loads_the_checkpoint(weights, tmp_path):
+    """With no model installed, `initialize` reads the HF checkpoint at
+    `model_path` in `dtype` (jax_decode.py:646-655): the weights the port
+    exported, served with the greedy tokens of the installed ones. A path
+    with no checkpoint fails on its config.json, and no model and no path
+    is an error."""
+    from areal_tpu_torch.models import hf_io
+
+    hf_io.save_hf_params(weights[1], TCFG, str(tmp_path))
+    (tmp_path / "config.json").write_text(json.dumps(dict(
+        model_type="qwen2", **SMOKE_MODEL_DICT, rope_theta=TCFG.rope_theta,
+        rms_norm_eps=TCFG.rms_norm_eps, max_position_embeddings=TCFG.max_position_embeddings)))
+    eng = TorchDecodeEngine(TorchDecodeConfig(**dict(SMALL, model_path=str(tmp_path),
+                                                     dtype="float32")), device="cpu")
+    eng.initialize()
+    ref = _engine(weights[1])
+    try:
+        assert eng.model_config == dataclasses.replace(TCFG, scan_layers=True)
+        for k, t in weights[1].items():
+            assert torch.equal(eng.params[k], t), k
+        req = ModelRequest(input_ids=[3, 9, 4, 7], gconfig=_greedy(6))
+        assert eng.generate(req).output_tokens == ref.generate(req.copy()).output_tokens
+    finally:
+        eng.destroy()
+        ref.destroy()
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        TorchDecodeEngine(TorchDecodeConfig(**dict(SMALL, model_path=str(tmp_path / "none"))),
+                          device="cpu").initialize()
+    with pytest.raises(RuntimeError, match="no model installed"):
+        TorchDecodeEngine(TorchDecodeConfig(**SMALL), device="cpu").initialize()
 
 
 @pytest.mark.parametrize("setting", [dict(spec_decode="medusa"), dict(spec_decode="ngram", spec_k=0)])

@@ -20,6 +20,7 @@
   engines and the trainer's restored weights served bit for bit.
 """
 
+import json
 import logging
 
 import numpy as np
@@ -204,7 +205,8 @@ def _smoke_server(nfs_root: str):
 def test_entry_point_refusals(tmp_path):
     """The DECOUPLED branch runs against a decode server (one device per
     side); more than one device is item 5, the fleet's router, prefill
-    replicas and supervisor item 4, other workflows and datasets item 6."""
+    replicas and supervisor item 4, other workflows and the code and
+    vision datasets item 6."""
     from areal_tpu_torch.utils import name_resolve, names
 
     base = ["--config", YAML, f"cluster.fileroot={tmp_path}"]
@@ -234,10 +236,59 @@ def test_entry_point_refusals(tmp_path):
     with pytest.raises(ValueError, match="workflow"):
         main(base + ["workflow=nope"], device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
-        main(base + ["train_dataset.path=gsm8k"], device="cpu")
+        main(base + ["train_dataset.path=clevr_count_70k"], device="cpu")
     with pytest.raises(ValueError, match="vocab is fixed at 32"):
         smoke_model_config(vocab_size=33)
     assert smoke_model_config(vocab_size=21).vocab_size == 32
+
+
+def test_reference_policy_from_a_checkpoint(tmp_path, monkeypatch):
+    """`actor.path` and `ref.path` at one HF checkpoint of the smoke
+    model, `actor.kl_ctl=0.1`, 2 steps: the actor and the frozen reference
+    load the same weights, so step 0's `ref_logp` equals the actor's
+    recomputed logp (atol 1e-6); each step's KL-shaped rewards, total
+    rewards and advantages equal what the JAX `PPOActor` computes from the
+    same batch (atol 1e-5), and after step 0's second minibatch (the
+    first has lr 0) the actor has moved off the reference."""
+    from areal_tpu.engine.ppo.actor import PPOActor as JaxPPOActorCore
+    from areal_tpu_torch.engine.ppo.actor import PPOActor
+    from areal_tpu_torch.models import hf_io
+
+    mc = smoke_model_config(dtype="float32")
+    ckpt = tmp_path / "ckpt"
+    hf_io.save_hf_params(tq.init_params(mc, torch.Generator().manual_seed(5)), mc, str(ckpt))
+    (ckpt / "config.json").write_text(json.dumps(dict(
+        model_type="qwen2", **SMOKE_MODEL_DICT, rope_theta=mc.rope_theta,
+        rms_norm_eps=mc.rms_norm_eps, max_position_embeddings=mc.max_position_embeddings,
+        tie_word_embeddings=False, torch_dtype="float32")))
+    argv = ["--config", YAML, f"cluster.fileroot={tmp_path}", "total_train_steps=2",
+            "evaluator.freq_steps=null", f"actor.path={ckpt}", "actor.init_from_scratch=false",
+            f"ref.path={ckpt}", "actor.kl_ctl=0.1"]
+    jconf, _ = j_cli.load_expr_config(argv, j_cli.GRPOConfig)
+    before = []
+    compute = PPOActor.compute_advantages
+
+    def compute_advantages(self, data):
+        before.append({k: np.array(v, copy=True) for k, v in data.items()})
+        compute(self, data)
+
+    monkeypatch.setattr(PPOActor, "compute_advantages", compute_advantages)
+    history = main(argv, device="cpu")
+    assert len(history) == len(before) == 2
+    b0 = before[0]
+    mask = np.roll(b0["loss_mask"], -1, axis=-1) > 0
+    assert mask.any()
+    np.testing.assert_allclose(b0["ref_logp"][mask], b0["prox_logp"][mask], atol=1e-6, rtol=0)
+    for step, (pre, rec) in enumerate(zip(before, history)):
+        jb = dict(pre)
+        JaxPPOActorCore(jconf.actor, None).compute_advantages(jb)
+        for k in ("kl_rewards", "tot_rewards", "advantages", "returns"):
+            np.testing.assert_allclose(rec["batch"][k], np.asarray(jb[k]), atol=1e-5, rtol=0,
+                                       err_msg=f"step {step}: {k}")
+    pre1 = before[1]
+    m1 = np.roll(pre1["loss_mask"], -1, axis=-1) > 0
+    assert np.abs(pre1["ref_logp"][m1] - pre1["prox_logp"][m1]).max() > 1e-4
+    assert np.abs(history[1]["batch"]["kl_rewards"]).max() > 0
 
 
 def test_recover_resumes_at_step_two(tmp_path, monkeypatch):

@@ -1,11 +1,17 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-nor the packages the card machine lacks (`aiohttp`, `lark`, `transformers`).
+nor, at import time, the packages the card machine lacks (`aiohttp`,
+`lark`, `transformers`, `datasets`).
 
 A subprocess whose import system refuses `jax`, `jaxlib`, the top-level
 `areal_tpu` package (exactly that name: `areal_tpu_torch` is the port),
-`aiohttp`, `lark` and `transformers` imports every module of the port and
-`chip_smoke`; an AST scan of the same files finds no such import
-anywhere, lazy ones included.
+`aiohttp`, `lark`, `transformers` and `datasets` imports every module of
+the port and `chip_smoke`, and runs the offline paths `chip_smoke.py`
+takes (the arithmetic tokenizer, the countdown and synthetic-arith
+datasets and rewards, the math grader). An AST scan of the same files
+finds no import of the first five anywhere, lazy ones included, and
+imports `transformers` and `datasets` only inside functions: the
+loaders of HF tokenizers and hub datasets (`dataset/__init__.py`) and
+the decode server's tokenizer load.
 """
 
 import ast
@@ -18,7 +24,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "areal_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "areal_tpu", "aiohttp", "lark", "transformers")
+NEVER = ("jax", "jaxlib", "areal_tpu", "aiohttp", "lark")
+LAZY_ONLY = ("transformers", "datasets")
+BLOCKED = NEVER + LAZY_ONLY
 
 
 def _port_files():
@@ -93,14 +101,19 @@ def test_port_has_the_expected_modules():
         "areal_tpu_torch.examples.gsm8k_ppo",
         "areal_tpu_torch.examples.hhrlhf_rw",
         "areal_tpu_torch.examples.multi_turn_math",
+        "areal_tpu_torch.reward",
+        "areal_tpu_torch.reward.math_parser",
+        "areal_tpu_torch.reward.countdown",
+        "areal_tpu_torch.utils.arith_eval",
+        "areal_tpu_torch.evaluation",
+        "areal_tpu_torch.evaluation.offline",
+        "areal_tpu_torch.evaluation.eval_and_aggregate",
         "chip_smoke",
     ):
         assert want in names
 
 
-def test_every_module_imports_with_jax_blocked():
-    modules = [_module_name(p) for p in _port_files()]
-    code = f"""
+_BLOCKER = f"""
 import importlib, importlib.abc, sys
 
 class Block(importlib.abc.MetaPathFinder):
@@ -110,30 +123,83 @@ class Block(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Block())
+"""
+
+
+def _run_blocked(code: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.run(
+        [sys.executable, "-c", _BLOCKER + code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+
+
+def test_every_module_imports_with_jax_blocked():
+    modules = [_module_name(p) for p in _port_files()]
+    out = _run_blocked(f"""
 for m in {modules!r}:
     importlib.import_module(m)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r})
 assert not leaked, leaked
 print("ok", len({modules!r}))
-"""
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    out = subprocess.run(
-        [sys.executable, "-c", code], cwd=ROOT, env=env,
-        capture_output=True, text=True, timeout=300,
-    )
+""")
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("ok")
+
+
+def test_offline_paths_run_without_transformers_and_datasets():
+    """What `chip_smoke.py` runs on a machine with neither package: the
+    offline tokenizer, the countdown and synthetic-arith datasets, their
+    rewards and the math grader."""
+    out = _run_blocked("""
+from areal_tpu_torch.dataset import get_custom_dataset, load_tokenizer
+from areal_tpu_torch.examples.gsm8k_grpo import pick_reward_fn
+from areal_tpu_torch.reward.math_parser import math_equal
+
+tok = load_tokenizer("synthetic-arith")
+items = get_custom_dataset("countdown", split="train", n_items=4)
+reward = pick_reward_fn("countdown")
+x = items[0]
+assert reward(None, "<answer>" + x["solution"] + "</answer>", [], [],
+              target=x["target"], numbers=x["numbers"]) == 1.0
+arith = get_custom_dataset("synthetic-arith", split="test", type="sft")
+assert arith and tok.decode(arith[0]["input_ids"])
+assert pick_reward_fn("synthetic-arith")(None, "", [], [], answer="1") == 0.0
+assert math_equal(r"\\frac{1}{2}", "0.5") and not math_equal("1/2", "0.6")
+try:
+    load_tokenizer("/models/some-tokenizer")
+except ImportError as e:
+    assert "transformers" in str(e)
+else:
+    raise AssertionError("an HF tokenizer loaded without transformers")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+assert not leaked, leaked
+print("ok")
+""" % (BLOCKED,))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("ok")
+
+
+def _imports(tree: ast.AST):
+    """(import node, imported names, whether it sits inside a function)."""
+    def walk(node, in_fn):
+        for child in ast.iter_child_nodes(node):
+            fn = in_fn or isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))
+            if isinstance(child, ast.Import):
+                yield child, [a.name for a in child.names], in_fn
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield child, [child.module or ""], in_fn
+            yield from walk(child, fn)
+
+    yield from walk(tree, False)
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
     tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            names = [node.module or ""]
-        else:
-            continue
+    for node, names, in_fn in _imports(tree):
         for name in names:
-            assert name.split(".")[0] not in BLOCKED, f"{path}: imports {name}"
+            top = name.split(".")[0]
+            assert top not in NEVER, f"{path}:{node.lineno}: imports {name}"
+            assert top not in LAZY_ONLY or in_fn, (
+                f"{path}:{node.lineno}: imports {name} outside a function")
