@@ -675,9 +675,8 @@ class RWConfig(BaseExperimentConfig):
 @dataclass
 class GRPOConfig(BaseExperimentConfig):
     """GRPO experiment (`areal_tpu/api/cli_args.py:905`). `max_turns` and
-    `turn_discount` configure the `multi_turn` workflow; the tool knobs
-    belong to the `tir` workflow, which the entry point refuses (item
-    6)."""
+    `turn_discount` configure the `multi_turn` workflow, `max_tool_calls`
+    and `tool_timeout_seconds` the `tir` workflow."""
 
     async_training: bool = True
     gconfig: GenerationHyperparameters = field(
@@ -686,7 +685,7 @@ class GRPOConfig(BaseExperimentConfig):
     rollout: InferenceEngineConfig = field(default_factory=InferenceEngineConfig)
     actor: PPOActorConfig = field(default_factory=PPOActorConfig)
     ref: PPOActorConfig = field(default_factory=PPOActorConfig)
-    workflow: str = "rlvr"  # the port runs "rlvr" and "multi_turn"
+    workflow: str = "rlvr"  # the port runs "rlvr", "multi_turn" and "tir"
     max_turns: int = 3
     turn_discount: float = 0.9
     max_tool_calls: int = 4

@@ -6,11 +6,13 @@ to a loader that returns items in the framework's schema: {"messages" |
 "prompt" | "input_ids", "answer", ...}. The hub-backed loaders (`gsm8k`,
 `math500`, `aime`, `hh-rlhf`, `torl_data`) go through
 `datasets.load_dataset` as the JAX package does, with the same canonical
-hub ids, or a local directory or file given as the path; `countdown` and
+hub ids, or a local directory or file given as the path; the code
+benchmarks (`humaneval`, `openai_humaneval`, `mbpp`) read a local `.jsonl`
+directly and send any other path to their hub id; `countdown` and
 `synthetic-arith` are made offline from a seed. `transformers` and
 `datasets` are imported inside the functions that need them, so the port
-imports without them. The code and vision datasets are refused with the
-ROADMAP item that ports them, and so is sharding a dataset over hosts.
+imports without them. The vision datasets are refused with the ROADMAP
+item that ports them, and so is sharding a dataset over hosts.
 """
 
 from __future__ import annotations
@@ -22,9 +24,8 @@ import numpy as np
 from areal_tpu_torch.models.smoke import OFFLINE_SENTINELS
 _REGISTRY: dict[str, Callable] = {}
 
-# the code and vision datasets of the JAX registry
-_UNPORTED = ("humaneval", "openai_humaneval", "mbpp", "clevr_count_70k", "geometry3k",
-             "synthetic-vision")
+# the vision datasets of the JAX registry
+_UNPORTED = ("clevr_count_70k", "geometry3k", "synthetic-vision")
 
 
 def register_dataset(name: str):
@@ -296,6 +297,92 @@ def _torl(path: str, split: str, type: str, tokenizer=None, max_length=None, **k
         )
 
     return ds.map(to_item, remove_columns=ds.column_names)
+
+
+def _code_rows(path: str, default_hub: str, split: str):
+    """Rows for a code benchmark: a local .jsonl fixture (offline eval,
+    tests) or the canonical hub id."""
+    import json as _json
+    import os as _os
+
+    if path and _os.path.isfile(path):
+        with open(path) as f:
+            return [_json.loads(ln) for ln in f if ln.strip()]
+    import datasets as hf_datasets
+
+    hub = path if path and "/" in path else default_hub
+    return hf_datasets.load_dataset(hub, split=split)
+
+
+@register_dataset("humaneval")
+@register_dataset("openai_humaneval")
+def _humaneval(path: str, split: str, type: str, tokenizer=None, max_length=None, **kw):
+    """HumanEval completion benchmark (canonical hub id
+    openai/openai_humaneval; local .jsonl fixtures load directly) mapped to
+    the code-eval schema: `code_prompt` is the function-signature prefix
+    (Codex continuation convention), `input_output.asserts` carries the
+    check(candidate) harness for the sandbox runner. pass@k flows through
+    evaluation/offline.py with reward/code_verify.code_eval_reward_fn —
+    the pipeline behind the reference's LCB/code numbers
+    (functioncall/code/verify.py)."""
+    rows = _code_rows(path, "openai/openai_humaneval", split or "test")
+    items = []
+    for r in rows:
+        harness = f"{r['test']}\n\ncheck({r['entry_point']})\n"
+        items.append(
+            dict(
+                task_id=r.get("task_id", ""),
+                prompt=r["prompt"],
+                code_prompt=r["prompt"],
+                messages=[
+                    {
+                        "role": "user",
+                        "content": (
+                            "Complete the following Python function. "
+                            "Reply with the full implementation in a "
+                            "```python code block.\n\n```python\n"
+                            f"{r['prompt']}\n```"
+                        ),
+                    }
+                ],
+                input_output=dict(asserts=[harness]),
+            )
+        )
+    return items
+
+
+@register_dataset("mbpp")
+def _mbpp(path: str, split: str, type: str, tokenizer=None, max_length=None, **kw):
+    """MBPP (canonical hub id google-research-datasets/mbpp; local .jsonl
+    fixtures load directly): each row's `test_list` asserts become sandbox
+    harness cases, prefixed by `test_setup_code` when present."""
+    rows = _code_rows(path, "google-research-datasets/mbpp", split or "test")
+    items = []
+    for r in rows:
+        setup = (r.get("test_setup_code") or "").strip()
+        asserts = [
+            (setup + "\n" + t) if setup else t for t in r["test_list"]
+        ]
+        text = r.get("text") or r.get("prompt") or ""
+        items.append(
+            dict(
+                task_id=str(r.get("task_id", "")),
+                prompt=text,
+                messages=[
+                    {
+                        "role": "user",
+                        "content": (
+                            f"{text}\n\nReply with a complete Python "
+                            "solution in a ```python code block. Your "
+                            "solution must satisfy these tests:\n"
+                            + "\n".join(r["test_list"])
+                        ),
+                    }
+                ],
+                input_output=dict(asserts=asserts),
+            )
+        )
+    return items
 
 
 class SimpleDataLoader:

@@ -14,7 +14,17 @@ decode-server fleet (``--servers`` / name_resolve discovery, through
         --data-names gsm8k --model-path /models/Qwen2.5-0.5B-Instruct \
         --n-sampling 8 --max-gen-tokens 1024 --output-path ./eval_out
 
-``--task code`` (the code graders) is refused: ROADMAP.md queue 1, item 6.
+``--task code`` scores with `reward/code_verify.code_reward_fn`, as the
+JAX CLI does: the last fenced code block of a completion runs against the
+item's testcases (`input_output`), so a fence-less HumanEval continuation
+scores 0 (`code_eval_reward_fn` would assemble it with `code_prompt`).
+
+    python -m areal_tpu_torch.evaluation.eval_and_aggregate --task code \
+        --data-names /data/humaneval --model-path /models/Qwen2.5-Coder \
+        --output-path ./eval_out
+
+(a local `.jsonl` named after its loader, `humaneval` or `mbpp`, loads
+directly.)
 """
 
 from __future__ import annotations
@@ -31,10 +41,9 @@ def _reward_for(task: str):
 
         return math_verify_reward
     if task == "code":
-        raise NotImplementedError(
-            "--task code (reward/code_verify.py) is not in the PyTorch port yet: "
-            "ROADMAP.md queue 1, item 6"
-        )
+        from areal_tpu_torch.reward.code_verify import code_reward_fn
+
+        return code_reward_fn
     raise ValueError(f"unknown task {task!r} (math | code)")
 
 

@@ -8,7 +8,10 @@ goes up. `workflow` picks the episode: "rlvr" (`workflow/rlvr.py`, a
 group of `n_samples` answers per prompt) or "multi_turn"
 (`workflow/multi_turn.py`: a wrong answer gets feedback and another try,
 up to `max_turns`, the reward discounted by `turn_discount` per extra
-turn); "tir" and "vision_rlvr" are refused (ROADMAP queue 1, item 6).
+turn) or "tir" (`workflow/tir.py`: ```python blocks run in a sandbox
+mid-generation and their output is spliced back as context, up to
+`max_tool_calls` per sample); "vision_rlvr" is refused (ROADMAP queue 1,
+item 6).
 `allocation_mode` says where rollouts decode:
 
 - empty (COLOCATE): a `TorchDecodeEngine` in process on the trainer's
@@ -62,6 +65,7 @@ from areal_tpu_torch.utils.saver import Saver
 from areal_tpu_torch.utils.stats_logger import StatsLogger
 from areal_tpu_torch.workflow.multi_turn import MultiTurnWorkflow
 from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
+from areal_tpu_torch.workflow.tir import TIRWorkflow
 
 WORKFLOWS = ("rlvr", "multi_turn", "vision_rlvr", "tir")
 
@@ -144,7 +148,7 @@ def main(
     alloc = check_allocation(config.allocation_mode)
     if config.workflow not in WORKFLOWS:
         raise ValueError(f"workflow={config.workflow!r} not in {WORKFLOWS}")
-    if config.workflow not in ("rlvr", "multi_turn"):
+    if config.workflow == "vision_rlvr":
         raise NotImplementedError(
             f"workflow={config.workflow!r} is not in the PyTorch port yet: "
             "ROADMAP.md queue 1, item 6"
@@ -223,6 +227,17 @@ def main(
                     tokenizer=tokenizer,
                     max_turns=config.max_turns,
                     turn_discount=config.turn_discount,
+                    dump_dir=dump_dir,
+                )
+            if config.workflow == "tir":
+                # tool-integrated reasoning: ```python blocks run in a
+                # sandbox mid-generation (JAX :241-252)
+                return TIRWorkflow(
+                    reward_fn=reward_fn,
+                    gconfig=gconfig,
+                    tokenizer=tokenizer,
+                    max_tool_calls=config.max_tool_calls,
+                    tool_timeout_seconds=config.tool_timeout_seconds,
                     dump_dir=dump_dir,
                 )
             return RLVRWorkflow(

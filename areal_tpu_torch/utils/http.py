@@ -7,6 +7,8 @@ has no `aiohttp`.
   rules: connection errors, 5xx and torn 2xx bodies (unparseable JSON)
   are retried with `backoff_delays`; a 4xx raises at once with the parsed
   error body on `HttpRequestError.body`.
+- `send_json` sends one JSON POST and returns its status and text, for
+  callers that keep retry rules of their own (`reward/remote_verify.py`).
 - `arequest_with_retry` runs it on a daemon thread of its own and awaits
   the result, so a coroutine never blocks its event loop and any number
   of requests can be outstanding (a thread pool would cap them).
@@ -124,6 +126,15 @@ def _send_once(addr: str, endpoint: str, method: str, body, headers: dict,
     else:
         _give_back(addr, conn)
     return resp.status, text
+
+
+def send_json(addr: str, endpoint: str, payload: dict[str, Any],
+              timeout: float) -> tuple[int, str]:
+    """POST `payload` as JSON to `http://{addr}{endpoint}` once, on a
+    pooled connection; (status, response text), whatever the status. For
+    callers with retry rules of their own."""
+    body, headers = _body_of(payload, None, "POST")
+    return _send_once(addr, endpoint, "POST", body, headers, timeout)
 
 
 def request_with_retry(

@@ -50,7 +50,16 @@ port's own writer, read back bit for bit by the GRPO entry point's actor
 and its frozen KL reference policy (3 steps on the countdown dataset), by
 the offline evaluator (`areal_tpu_torch/evaluation/eval_and_aggregate.py`)
 and by a decode server started with `--model-path`, whose greedy tokens
-must equal an in-process engine's. It checks that the
+must equal an in-process engine's. Last, code and tool RL: the TIR entry
+point (`areal_tpu_torch/examples/tir_math.py`) on `tir_math.yaml` with
+its offline overrides at Qwen2.5-1.5B, its checkpoints scored by the
+checkpoint watcher's evaluation jobs on the card; tool rounds of the TIR
+workflow (a python tool and a calculator) whose decode logprobs must
+agree with the trainer's; the verification service, the agent layer and
+the OpenAI-style client, and the code evaluation. The decoupled, PPO and
+multi-turn runs and the SFT entry point at Qwen2.5-1.5B take 4 of its 28
+layers, so that the
+script keeps within its time limit. It checks that the
 kernels really carried each path. Each phase prints one JSON line; then
 come the `kernels` line, the card's name and power limit, and last
 `{"ok": true, "device": ...}`. Any failed check raises, and the script
@@ -90,6 +99,10 @@ phases).
 
 runs only the hf_path phase (after the device and build phases).
 
+    python3 chip_smoke.py --tir
+
+runs only the tir phase (after the device and build phases).
+
     python3 chip_smoke.py --qmm-sweep
 
 times the bf16 K6 kernel at Qwen2.5-7B's four (K, N) shapes at T 16 and 80
@@ -100,6 +113,7 @@ its source built with another `QMM_STAGES`), beside the default plan.
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -2965,6 +2979,11 @@ FULL_OVERRIDES = [
 ]
 LOOP_TIMINGS = ("rollout", "recompute_logp", "compute_advantage", "train_step",
                 "update_weights")
+# Qwen2.5-1.5B's depth (28 layers) in the SFT, decoupled (d1), PPO (p2)
+# and multi-turn (m2) runs, cut to keep the script within its time limit;
+# their widths stay the published ones and their launch formulas read
+# their own L
+CUT_LAYERS = 4
 
 
 def dense_reward(prompt, completion, prompt_ids, completion_ids, **kwargs) -> float:
@@ -3145,8 +3164,10 @@ def _step_rows(tag: str, history: list, config, first_step: int = 0,
 
 def _loop_run(dev, tag: str, overrides: list[str], model_config=None, reward_fn=None,
               trace_step: int | None = None, root: str | None = None,
-              first_step: int = 0, yaml: str | None = None, batch_check=None) -> dict:
-    """One run of the entry point on `yaml` (the smoke yaml by default)
+              first_step: int = 0, yaml: str | None = None, batch_check=None,
+              entry=None) -> dict:
+    """One run of the entry point (`entry`, `gsm8k_grpo.main` by default)
+    on `yaml` (the smoke yaml by default)
     with `overrides`, its kernel counts set to 0 just before and read just
     after, and each step's record: the mean reward, the loop's timings, the
     version lag (the step's weight version minus the oldest version of a
@@ -3165,8 +3186,8 @@ def _loop_run(dev, tag: str, overrides: list[str], model_config=None, reward_fn=
             # ---- the main path: counts to 0 just before, read just after ----
             pa.launches = fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
             t0 = time.perf_counter()
-            history = gsm8k_grpo.main(argv, model_config=model_config, reward_fn=reward_fn,
-                                      device=dev)
+            history = (entry or gsm8k_grpo.main)(argv, model_config=model_config,
+                                                 reward_fn=reward_fn, device=dev)
             wall = time.perf_counter() - t0
             launches = dict(paged_attention=pa.launches, flash_attention_fwd=fa.launches_fwd,
                             flash_attention_bwd_dq=fa.launches_dq,
@@ -3278,8 +3299,7 @@ def phase_grpo_loop(dev: torch.device) -> dict:
                        result={str(k): v for k, v in learned.items()}),
          runs=list(runs.values()))
     total = {k: sum(r["launches"][k] for r in runs.values()) for k in runs["full"]["launches"]}
-    return dict(launches=total, by_run={t: r["launches"] for t, r in runs.items()},
-                full_steps=runs["full"]["steps"])
+    return dict(launches=total, by_run={t: r["launches"] for t, r in runs.items()})
 
 
 # phases: checkpoints, recovery and the SFT entry point
@@ -3422,8 +3442,9 @@ def _sft_run(dev, tag: str, argv: list[str], model_config=None,
 
 
 def phase_sft(dev: torch.device) -> dict:
-    """The port's SFT entry point at Qwen2.5-1.5B full width and depth,
-    bf16, on `arith_sft_smoke.yaml` with the overrides of `SFT_OVERRIDES`:
+    """The port's SFT entry point at Qwen2.5-1.5B full width, its depth cut
+    to CUT_LAYERS, bf16, on `arith_sft_smoke.yaml` with the overrides of
+    `SFT_OVERRIDES`:
 
     A. 4 steps (the epoch) uninterrupted, `saver.freq_epochs=1`: the HF
        export fires at step 3;
@@ -3446,7 +3467,7 @@ def phase_sft(dev: torch.device) -> dict:
     from areal_tpu_torch.models.qwen2 import named_shapes
     from areal_tpu_torch.utils.saver import Saver
 
-    cfg = dataclasses.replace(QWEN25_1_5B, remat=True)
+    cfg = dataclasses.replace(QWEN25_1_5B, remat=True, num_hidden_layers=CUT_LAYERS)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sft_")
     try:
         free = shutil.disk_usage(tmp).free
@@ -3761,15 +3782,13 @@ def _server_pause_read(addr: str) -> dict:
     return m
 
 
-def _decoupled_loop(dev, root: str, colocated_steps: list) -> dict:
-    """(d1): the trainer here, the server spawned by `LocalLauncher`;
-    each step's timers beside `colocated_steps`' (loop cell (c), when
-    given)."""
+def _decoupled_loop(dev, root: str) -> dict:
+    """(d1): the trainer here, the server spawned by `LocalLauncher`."""
     from areal_tpu_torch.core.remote_inf_engine import RemoteInfEngine
     from areal_tpu_torch.launcher import local
     from areal_tpu_torch.utils import name_resolve
 
-    full_cfg = dataclasses.replace(QWEN25_1_5B, remat=True)
+    full_cfg = dataclasses.replace(QWEN25_1_5B, remat=True, num_hidden_layers=CUT_LAYERS)
     L = full_cfg.num_hidden_layers
     argv = ["--config", GRPO_YAML, *DECOUPLED_OVERRIDES, f"cluster.fileroot={root}",
             "cluster.name_resolve.type=nfs", f"cluster.name_resolve.nfs_record_root={root}/nr",
@@ -3872,13 +3891,8 @@ def _decoupled_loop(dev, root: str, colocated_steps: list) -> dict:
     host, port = addr.rsplit(":", 1)
     with socket.socket() as s:
         check(s.connect_ex((host, int(port))) != 0, f"d1: {addr} still accepts connections")
-    rows = []
-    for i, r in enumerate(steps):
-        row = dict(step=r["step"], version_lag=r["version_lag"],
-                   **{f"{t}_s": r[f"{t}_s"] for t in LOOP_TIMINGS})
-        if i < len(colocated_steps):
-            row["colocated"] = {f"{t}_s": colocated_steps[i][f"{t}_s"] for t in LOOP_TIMINGS}
-        rows.append(row)
+    rows = [dict(step=r["step"], version_lag=r["version_lag"],
+                 **{f"{t}_s": r[f"{t}_s"] for t in LOOP_TIMINGS}) for r in steps]
     busy = server["device_busy_s"]
     return dict(
         run="d1", model="Qwen2.5-1.5B", source=QWEN25_1_5B_SOURCE, layers=L,
@@ -3932,21 +3946,21 @@ def _decoupled_launcher(dev, root: str) -> dict:
 
 def decoupled_only() -> int:
     """`--decoupled`: the device and build phases, then the decoupled
-    phase alone (no colocated loop to set its timers beside)."""
+    phase alone."""
     dev, smi = phase_device()
     phase_build()
-    out = phase_decoupled(dev, dict(full_steps=[]))
+    out = phase_decoupled(dev)
     print(smi, flush=True)
     print(json.dumps({"decoupled_launches": out["launches"]}), flush=True)
     return 0
 
 
-def phase_decoupled(dev: torch.device, loop: dict) -> dict:
+def phase_decoupled(dev: torch.device) -> dict:
     """The DECOUPLED allocation (`allocation_mode=jax:d1+d1`) on the card:
 
-    (d1) Qwen2.5-1.5B at full width and depth with loop cell (c)'s
-         settings: `LocalLauncher` spawns the decode server
-         (`--scratch-model`, the 1.5B geometry, `--device cuda:0`, nfs
+    (d1) Qwen2.5-1.5B at full width, its depth cut to CUT_LAYERS, with
+         loop cell (c)'s settings: `LocalLauncher` spawns the decode server
+         (`--scratch-model`, that geometry, `--device cuda:0`, nfs
          name_resolve under a temporary root) and the trainer runs here,
          `gsm8k_grpo.main(... allocation_mode=jax:d1+d1)`, weights going to
          the server over the staged dcn push every step. Each step's
@@ -3965,7 +3979,7 @@ def phase_decoupled(dev: torch.device, loop: dict) -> dict:
          Traceback, and both end."""
     runs = {}
     with tempfile.TemporaryDirectory() as root:
-        runs["d1"] = _decoupled_loop(dev, root, loop["full_steps"])
+        runs["d1"] = _decoupled_loop(dev, root)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         runs["d2"] = _decoupled_launcher(dev, root)
@@ -4125,7 +4139,8 @@ def phase_ppo(dev: torch.device) -> dict:
     (p1) `arith_ppo_smoke.yaml` unchanged but for the step count and the
          run's paths (the smoke decoder and its value-head twin in f32,
          hd 16: the kernels' f32 routes), 4 async steps;
-    (p2) Qwen2.5-1.5B at its published widths and depth for both the actor
+    (p2) Qwen2.5-1.5B at its published widths, the depth cut to
+         CUT_LAYERS, for both the actor
          and the critic (a value head in place of the tied LM head), bf16,
          random weights, with the colocated decode engine, on loop cell
          (c)'s traffic and the train phase's reward: 3 steps of 8 prompts x
@@ -4140,9 +4155,11 @@ def phase_ppo(dev: torch.device) -> dict:
     runs = {"p1": _ppo_run(dev, "p1", [f"total_train_steps={PPO_SMOKE_STEPS}"])}
     torch.cuda.empty_cache()
     runs["p2"] = _ppo_run(dev, "p2", PPO_FULL_OVERRIDES,
-                          model_config=dataclasses.replace(QWEN25_1_5B, remat=True),
-                          critic_model_config=dataclasses.replace(QWEN25_1_5B, remat=True,
-                                                                  is_critic=True),
+                          model_config=dataclasses.replace(QWEN25_1_5B, remat=True,
+                                                           num_hidden_layers=CUT_LAYERS),
+                          critic_model_config=dataclasses.replace(
+                              QWEN25_1_5B, remat=True, is_critic=True,
+                              num_hidden_layers=CUT_LAYERS),
                           reward_fn=parity_reward)
     emit("ppo", entry_point="areal_tpu_torch/examples/gsm8k_ppo.py:main", yaml=PPO_YAML,
          full_model="Qwen2.5-1.5B", full_source=QWEN25_1_5B_SOURCE, runs=list(runs.values()))
@@ -4309,7 +4326,8 @@ def phase_multi_turn(dev: torch.device) -> dict:
     (m1) `arith_grpo_multiturn_smoke.yaml` unchanged but for the step
          count and the run's paths, 2 steps, through `multi_turn_math.main`'s
          path (the entry point with `workflow=multi_turn`);
-    (m2) Qwen2.5-1.5B at full width and depth, random weights, on loop
+    (m2) Qwen2.5-1.5B at full width, the depth cut to CUT_LAYERS, random
+         weights, on loop
          cell (c)'s traffic with `max_turns=2` and a context of 1024 (a
          retry re-sends up to 300 tokens and asks 256 more), 2 steps, with
          the dataset's reward. Random weights answer no sum, so every
@@ -4324,7 +4342,8 @@ def phase_multi_turn(dev: torch.device) -> dict:
                             batch_check=_feedback_spans)}
     torch.cuda.empty_cache()
     runs["m2"] = _loop_run(dev, "m2", MT_FULL_OVERRIDES, yaml=MT_YAML,
-                           model_config=dataclasses.replace(QWEN25_1_5B, remat=True),
+                           model_config=dataclasses.replace(QWEN25_1_5B, remat=True,
+                                                            num_hidden_layers=CUT_LAYERS),
                            batch_check=_feedback_spans)
     for tag, r in runs.items():
         check(r["workflow"] == "multi_turn", f"{tag}: workflow {r['workflow']}")
@@ -4649,6 +4668,575 @@ def phase_hf_path(dev: torch.device) -> dict:
     return dict(launches=total, by_run={r["run"]: r["launches"] for r in runs})
 
 
+# phase: code and tool RL (`areal_tpu_torch/examples/tir_math.py` over
+# `workflow/tir.py`, the code graders and the verification service, the
+# agent layer and the OpenAI-style client, the checkpoint watcher)
+TIR_YAML = str(Path(__file__).resolve().parent / "examples" / "configs" / "tir_math.yaml")
+# the offline smoke overrides of examples/tir_math.py's docstring, and the
+# validation set's (the yaml's math500 is a hub id)
+TIR_OFFLINE = ["tokenizer_path=synthetic-arith", "train_dataset.path=synthetic-arith",
+               "actor.path=", "decode.model_path=", "actor.init_from_scratch=true",
+               "valid_dataset.path=synthetic-arith"]
+TIR_STEPS = 2
+# (t1): loop cell (c)'s size on the yaml, and a checkpoint every step
+TIR_OVERRIDES = TIR_OFFLINE + [o for o in FULL_OVERRIDES if not o.startswith(
+    "total_train_steps")] + [f"total_train_steps={TIR_STEPS}", "actor.ppo_n_minibatches=2",
+                             "rollout.max_concurrent_rollouts=32", "saver.freq_steps=1"]
+# the watcher scores each checkpoint with its default command
+TIR_AUTO_EVAL = dict(data_names="synthetic-arith", tokenizer_path="synthetic-arith",
+                     max_gen_tokens=64, n_sampling=4, max_problems=16, max_concurrent_jobs=2)
+TIR_AUTO_TIMEOUT = 300
+# (t2): tool rounds at Qwen2.5-1.5B's widths and depth with the arithmetic
+# tokenizer's vocabulary in place of 151,936 rows, and the random weights'
+# final norm scaled down, so that the sampler draws the 21 rows near
+# uniformly and meets a one-character marker every ~21 tokens (with the
+# norm at 1 the random model loops on a few rows: two chip runs sampled 4
+# of the 18 characters, and no closing marker); the tools' markers are
+# arithmetic characters
+TIR_PY_MARKERS = ("?", "=")
+TIR_CALC_MARKERS = ("*", ".")
+TIR_FINAL_NORM_SCALE = 0.05
+TIR_PROMPTS, TIR_SAMPLES, TIR_MAX_NEW, TIR_MAX_CALLS = 8, 4, 128, 4
+# (c)'s slots and context; 16-step chunks, since a round ends at its
+# marker within a few tokens and the engine cuts it at the chunk's end
+TIR_DECODE = dict(max_running_requests=32, context_length=512, new_tokens_per_chunk=16)
+# (t3): one stdio problem, 4 canonical solutions and 4 broken ones
+VERIFY_IO = dict(inputs=["3 4\n", "10 -2\n"], outputs=["7\n", "8\n"], fn_name="")
+VERIFY_ANSWERS = [
+    "```python\na, b = map(int, input().split())\nprint(a + b)\n```",
+    "```py\nimport sys\nprint(sum(map(int, sys.stdin.read().split())))\n```",
+    "reasoning first\n```python\nx = input().split()\nprint(int(x[0]) + int(x[1]))\n```",
+    "```python\nprint(eval('+'.join(input().split())))\n```",
+    "```python\na, b = map(int, input().split())\nprint(a - b)\n```",
+    "```python\nprint(7)\n```",
+    "```python\nprint(a + b\n```",
+    "a, b = map(int, input().split())\nprint(a + b)\n",  # no fence: no code
+]
+VERIFY_WANT = [1.0] * 4 + [0.0] * 4
+# (t3): 8 HumanEval-style problems for `eval_and_aggregate --task code`
+CODE_EVAL_PROBLEMS = 8
+CODE_EVAL = ["--task", "code", "--tokenizer-path", "synthetic-arith", "--n-sampling", "2",
+             "--max-gen-tokens", "64"]
+
+
+class _ChatTokenizer(ArithTokenizer):
+    """The arithmetic tokenizer made lossless for a chat client: every id
+    decodes to a character of its own (ids without one to private-use code
+    points), and the chat template concatenates the turns (a user's content
+    and "=", an assistant's content as decoded), so the next turn's prompt
+    extends the previous call's tokens."""
+
+    def decode(self, ids, skip_special_tokens: bool = False) -> str:
+        return "".join(self._i2c.get(int(i)) or chr(0xE000 + int(i))
+                       for i in np.asarray(ids).reshape(-1))
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> list[int]:
+        return [self._c2i[c] if c in self._c2i else ord(c) - 0xE000 for c in text]
+
+    def apply_chat_template(self, messages, add_generation_prompt=True, tokenize=True, **kw):
+        text = "".join(m["content"] + ("=" if m["role"] == "user" else "") for m in messages)
+        return self.encode(text) if tokenize else text
+
+
+@contextlib.contextmanager
+def _observe_tools():
+    """While a run goes: each call of the TIR python tool (`run_python_tool`)
+    and its output."""
+    from areal_tpu_torch.workflow import tir
+
+    calls = []
+    run = tir.run_python_tool
+
+    def run_(code, *args, **kwargs):
+        out = run(code, *args, **kwargs)
+        calls.append(out)
+        return out
+
+    tir.run_python_tool = run_
+    try:
+        yield calls
+    finally:
+        tir.run_python_tool = run
+
+
+def _tool_tokens(batch: dict) -> dict:
+    """The tool-output tokens of a TIR batch (past `begin_of_answer`, loss
+    mask 0; `compute_advantages` has rolled the mask by -1 when `rolled`):
+    their count, and whether each has logprob 0 and version -1."""
+    n_tool, ok = 0, True
+    for i in range(batch["input_ids"].shape[0]):
+        n, boa = int(batch["attention_mask"][i].sum()), int(batch["begin_of_answer"][i])
+        mask = np.asarray(batch["loss_mask"][i])[:n]
+        tool = np.flatnonzero(mask[boa:] == 0) + boa
+        n_tool += len(tool)
+        ok &= bool((batch["versions"][i, tool] == -1).all()
+                   and (batch["logprobs"][i, tool] == 0).all())
+    return dict(tool_tokens=n_tool, tool_tokens_masked=ok)
+
+
+def _tir_loop(dev, root: str) -> tuple[dict, tuple]:
+    """(t1): `tir_math.main` on tir_math.yaml with the offline smoke
+    overrides at (c)'s size, a checkpoint every step; then
+    `AutomaticEvaluator` with its default command starts a child process
+    on the card for each checkpoint (`_tir_watch` waits for them):
+    (the run's record, (the watcher, its publications, the root))."""
+    from areal_tpu_torch.evaluation.auto import AutomaticEvaluator
+    from areal_tpu_torch.examples import tir_math
+    from areal_tpu_torch.utils.saver import Saver
+
+    full_cfg = dataclasses.replace(QWEN25_1_5B, remat=True)
+
+    def no_tool_tokens(batch):
+        # compute_advantages rolled the loss mask by -1: undo it
+        b = dict(batch, loss_mask=np.roll(batch["loss_mask"], 1, axis=1))
+        return _tool_tokens(b)
+
+    with _observe_tools() as calls:
+        run = _loop_run(dev, "t1", TIR_OVERRIDES, model_config=full_cfg,
+                        reward_fn=parity_reward, root=root, yaml=TIR_YAML,
+                        batch_check=no_tool_tokens, entry=tir_math.main)
+    config, _ = load_expr_config(["--config", TIR_YAML, *TIR_OVERRIDES,
+                                  f"cluster.fileroot={root}",
+                                  "experiment_name=chip-smoke-t1"], GRPOConfig)
+    check(run["workflow"] == "tir", f"t1: workflow {run['workflow']}")
+    lag_cap = config.rollout.max_head_offpolicyness
+    check(run["max_version_lag"] <= lag_cap, f"t1: version lag {run['max_version_lag']} > {lag_cap}")
+    # the arithmetic tokenizer cannot spell ```python: no tool call
+    check(not calls and all(r["tool_tokens"] == 0 for r in run["steps"]),
+          f"t1: {len(calls)} tool calls, tool tokens {[r['tool_tokens'] for r in run['steps']]}")
+    ckpt_root = Saver.get_save_checkpoint_root(config.saver)
+    ckpts = sorted(os.listdir(ckpt_root))
+    check(len(ckpts) == TIR_STEPS, f"t1: checkpoints {ckpts}")
+    # a run from scratch saves no config.json (the train engine copies the
+    # one at `actor.path`, as the JAX engine does), and the watcher's
+    # evaluator reads one: the model's goes beside each checkpoint
+    without_config = [c for c in ckpts
+                      if not os.path.exists(os.path.join(ckpt_root, c, "config.json"))]
+    hf_config = dict(json.loads(_scratch_model_json(full_cfg)),
+                     architectures=["Qwen2ForCausalLM"], torch_dtype=full_cfg.dtype)
+    for c in without_config:
+        with open(os.path.join(ckpt_root, c, "config.json"), "w") as f:
+            json.dump(hf_config, f)
+    torch.cuda.empty_cache()
+    published = []
+    ev = AutomaticEvaluator(ckpt_root, os.path.join(root, "auto_eval"),
+                            publish=lambda g, r: published.append((g, r)), **TIR_AUTO_EVAL)
+    # the jobs start here and run beside (t2) and (t3)
+    ev.step()
+    return dict(run, tool_calls=len(calls), checkpoint_root=ckpt_root, checkpoints=ckpts,
+                checkpoints_saved_without_config=without_config), (ev, published, root)
+
+
+def _tir_watch(ev, published: list, root: str) -> dict:
+    """(t1)'s watcher: wait for its jobs, each checkpoint published once,
+    in step order, with every metric."""
+    t0 = time.perf_counter()
+    ev.drain(timeout=TIR_AUTO_TIMEOUT)
+    auto_s = time.perf_counter() - t0
+    steps = [g for g, _ in published]
+    logs = {g: Path(root, "auto_eval", f"globalstep{g}", "eval_job.log").read_text()
+            for g in ev.statuses}
+    check(steps == list(range(TIR_STEPS)) and set(ev.statuses.values()) == {"logged"},
+          f"t1: the watcher published steps {steps}, statuses {ev.statuses}; the jobs' "
+          f"logs end: {[text[-1500:] for text in logs.values()]}")
+    for g, result in published:
+        m = result.get("synthetic-arith", {})
+        check(m.get("n_problems") == TIR_AUTO_EVAL["max_problems"]
+              and all(math.isfinite(v) for v in m.values()), f"t1: globalstep{g}'s result {m}")
+    check(not any("Traceback" in text for text in logs.values()),
+          "t1: an evaluation job's log holds a Traceback")
+    return dict(command=ev._cmd(ev._steps[0])[1:3], settings=TIR_AUTO_EVAL,
+                drain_s=auto_s, published=published,
+                k3="launched in the jobs' own processes: not in this phase's count")
+
+
+def _tir_engine(dev):
+    """(t2)'s model, actor and decode engine: Qwen2.5-1.5B's widths and
+    depth with the arithmetic tokenizer's rows, bf16, random weights; the
+    engine with the tokenizer (stop strings) at (c)'s slots and context."""
+    tok = ArithTokenizer()
+    cfg = dataclasses.replace(QWEN25_1_5B, vocab_size=tok.vocab_size, scan_layers=False,
+                              remat=True)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 50), dev)
+    params["final_norm"].mul_(TIR_FINAL_NORM_SCALE)
+    actor_cfg = PPOActorConfig(
+        experiment_name="chip_smoke", trial_name="tir", path="", init_from_scratch=True,
+        dtype="bfloat16", gradient_checkpointing=True,
+        jax=JaxEngineConfig(fused_lm_loss=True), mb_spec=MicroBatchSpec(max_tokens_per_mb=8192),
+        optimizer=OptimizerConfig(lr=TRAIN_LR, weight_decay=0.01, lr_scheduler_type="constant",
+                                  warmup_steps_proportion=0.001, gradient_clipping=1.0),
+        group_size=TIR_SAMPLES, ppo_n_minibatches=1, eps_clip=0.2, kl_ctl=0.0,
+        use_decoupled_loss=True, recompute_logprob=True, temperature=1.0,
+        adv_norm=NormConfig(mean_level="group", std_level="group", group_size=TIR_SAMPLES),
+    )
+    actor = TorchPPOActor(actor_cfg, device=dev)
+    actor.model_config = cfg
+    actor.create_process_group()
+    actor.initialize(None, FinetuneSpec(1, TIR_PROMPTS * TIR_SAMPLES, TIR_PROMPTS * TIR_SAMPLES),
+                     params=params)
+    engine = TorchDecodeEngine(
+        TorchDecodeConfig(random_seed=SEED, **TIR_DECODE),
+        InferenceEngineConfig(max_concurrent_rollouts=TIR_PROMPTS, consumer_batch_size=TIR_PROMPTS),
+        tokenizer=tok, device=dev)
+    engine.set_model(params, cfg)
+    del params
+    engine.initialize()
+    actor.connect_engine(engine, WeightUpdateMeta.from_memory())
+    return cfg, actor, engine
+
+
+def _tir_rounds(dev, actor, engine, cfg) -> dict:
+    """(t2): `TIRWorkflow` with a python tool and the calculator on
+    arithmetic markers, 8 prompts x 4 samples; tool tokens masked, the
+    actor's logprobs against the decode engine's, one `ppo_update`."""
+    from areal_tpu_torch.dataset import get_custom_dataset
+    from areal_tpu_torch.workflow import tir
+
+    tok = ArithTokenizer()
+    items = get_custom_dataset("synthetic-arith", split="train", n_items=TIR_PROMPTS)
+    py_markers, calc_markers = TIR_PY_MARKERS, TIR_CALC_MARKERS
+    seen = dict(python=[], calculator=[])
+
+    tool_s = dict(python=[], calculator=[])
+
+    def counted(name, fn):
+        def call(x):
+            t0 = time.perf_counter()
+            out = fn(x)
+            tool_s[name].append(time.perf_counter() - t0)
+            seen[name].append(out)
+            return out
+        return call
+
+    tools = [tir.Tool("python", *py_markers,
+                      fn=counted("python", lambda code: tir.run_python_tool(code, 8.0)),
+                      output_template=tir.OUTPUT_TEMPLATE),
+             tir.Tool("calculator", *calc_markers,
+                      fn=counted("calculator", tir.calculator_tool().fn))]
+    wf = tir.TIRWorkflow(parity_reward, GenerationHyperparameters(
+        n_samples=TIR_SAMPLES, max_new_tokens=TIR_MAX_NEW, temperature=1.0), tok,
+        max_tool_calls=TIR_MAX_CALLS, tools=tools)
+    rounds = collections.Counter()
+    agenerate = engine.agenerate
+
+    async def counted_generate(req):
+        resp = await agenerate(req)
+        text = tok.decode(resp.output_tokens)
+        ended = next((m for m in req.gconfig.stop if text.endswith(m)), "none")
+        rounds[(resp.stop_reason, f"ends on marker {ended!r}")] += 1
+        rounds["tokens"] += resp.output_len
+        return resp
+
+    engine.agenerate = counted_generate
+    c0 = dict(steps=engine.decode_steps, prefills=engine._n_prefills,
+              forks=engine._n_prefix_forks, suffix=engine._n_suffix_prefills,
+              inplace=engine._n_prefix_inplace)
+    t0 = time.perf_counter()
+    try:
+        batch = engine.rollout_batch([dict(x) for x in items], workflow=wf)
+    finally:
+        del engine.agenerate
+    rollout_s = time.perf_counter() - t0
+    rounds = {str(k): v for k, v in rounds.items()}
+    rows = int(batch["input_ids"].shape[0])
+    check(rows == TIR_PROMPTS * TIR_SAMPLES, f"t2: {rows} rows")
+    gen = batch["attention_mask"].astype(bool) & (batch["loss_mask"] > 0)
+    # the sampled rows' shares, under which the markers occur
+    ids, counts = np.unique(batch["input_ids"][gen], return_counts=True)
+    shares = {tok.decode([int(i)], skip_special_tokens=False): round(int(c) / int(gen.sum()), 4)
+              for i, c in zip(ids, counts)}
+    for name, outs in seen.items():
+        check(len(outs) > 0, f"t2: the {name} tool never ran (markers {py_markers}, "
+                             f"{calc_markers}; runs {[len(v) for v in seen.values()]}; "
+                             f"rounds {rounds}; generated {shares})")
+    # a python run that failed to start (`preexec_fn` in a threaded
+    # process) returns its exception's name and message: reported
+    py_failed = [o for o in seen["python"] if re.match(r"[A-Za-z]+(Error|Exception): ", o)
+                 and not o.startswith("TimeoutError: code did not finish")]
+    tokens = _tool_tokens(batch)
+    check(tokens["tool_tokens"] > 0 and tokens["tool_tokens_masked"],
+          f"t2: tool tokens {tokens}")
+    check((batch["versions"][gen] == 0).all(), "t2: a generated token not stamped version 0")
+    admissions = dict(prefills=engine._n_prefills - c0["prefills"],
+                      forks=engine._n_prefix_forks - c0["forks"],
+                      inplace=engine._n_prefix_inplace - c0["inplace"],
+                      suffix_prefills=engine._n_suffix_prefills - c0["suffix"])
+    n_logp = len(split_padded_tensor_dict_into_mb_list(batch, actor.config.mb_spec).mbs)
+    t0 = time.perf_counter()
+    batch["prox_logp"] = actor.compute_logp(batch)
+    logp_s = time.perf_counter() - t0
+    lm = batch["loss_mask"][:, 1:] > 0
+    d = batch["prox_logp"][:, :-1][lm] - batch["logprobs"][:, 1:][lm]
+    logp = dict(tokens=int(lm.sum()), max_abs_diff=float(np.abs(d).max()),
+                mean_abs_diff=float(np.abs(d).mean()))
+    check(logp["max_abs_diff"] <= LOGP_MAX_ABS_DIFF and logp["mean_abs_diff"] <= LOGP_MEAN_ABS_DIFF,
+          f"t2: decode vs trainer logprobs over tool rounds: {logp}")
+    actor.compute_advantages(batch)
+    t0 = time.perf_counter()
+    stats = actor.ppo_update(batch)
+    update_s = time.perf_counter() - t0
+    loss = float(stats[0]["loss"])
+    check(math.isfinite(loss), f"t2: ppo_update loss {loss}")
+    n_train = int(sum(st["n_mbs"] for st in stats))
+    # the update goes to the engine, which serves (t3) at version 1
+    t0 = time.perf_counter()
+    actor.set_version(1)
+    actor.update_weights(WeightUpdateMeta.from_memory())
+    push_s = time.perf_counter() - t0
+    check(engine.get_version() == 1, "t2: the push did not stamp version 1")
+    # rows that spliced a tool's output: a version -1 past the prompt
+    past = np.arange(batch["versions"].shape[1])[None] >= batch["begin_of_answer"][:, None]
+    with_tool = int(((batch["versions"] == -1) & past).any(axis=1).sum())
+    return dict(run="t2", model="Qwen2.5-1.5B widths and depth, vocab 21 (the arithmetic "
+                "tokenizer's rows in place of 151,936)", final_norm_scale=TIR_FINAL_NORM_SCALE, markers=dict(
+                    python=py_markers, calculator=calc_markers),
+                rows=rows, rows_with_a_tool_round=with_tool, generated_shares=shares,
+                rounds=rounds,
+                tool_runs={k: len(v) for k, v in seen.items()},
+                tool_ms={k: [round(min(v) * 1e3, 1), round(max(v) * 1e3, 1)]
+                         for k, v in tool_s.items() if v},
+                python_tool_start_failures=len(py_failed),
+                python_outputs=[o[:80] for o in seen["python"][:4]],
+                calculator_outputs=[o[:40] for o in seen["calculator"][:4]],
+                admissions=admissions, decode_steps=engine.decode_steps - c0["steps"],
+                rollout_s=rollout_s, logp_s=logp_s, update_s=update_s, push_s=push_s, loss=loss,
+                logp_mbs=n_logp, train_mbs=n_train, logp=logp, **tokens)
+
+
+def _agent_rounds(engine) -> dict:
+    """(t3) on (t2)'s engine: `AgentWorkflow` over `MathSingleStepAgent`,
+    and `ArealOpenAI` in 2 conversations of 2 turns whose exported
+    logprobs are the engine's own."""
+    from areal_tpu_torch.agent.math_single_step import (
+        AgentWorkflow,
+        MathSingleStepAgent,
+        MathSingleStepEnv,
+    )
+    from areal_tpu_torch.dataset import get_custom_dataset
+    from areal_tpu_torch.experimental.openai import ArealOpenAI
+
+    items = get_custom_dataset("synthetic-arith", split="test", n_items=4)
+    agent = MathSingleStepAgent(GenerationHyperparameters(n_samples=2, max_new_tokens=32),
+                                ArithTokenizer())
+    t0 = time.perf_counter()
+    rows = engine.rollout_batch([dict(x) for x in items],
+                                workflow=AgentWorkflow(agent, MathSingleStepEnv))
+    agent_s = time.perf_counter() - t0
+    check(rows["input_ids"].shape[0] == 2 * len(items), f"t3: {rows['input_ids'].shape[0]} rows")
+    resps = []
+    agenerate = engine.agenerate
+
+    async def spy(req):
+        resp = await agenerate(req)
+        resps.append(resp)
+        return resp
+
+    engine.agenerate = spy
+    try:
+        client = ArealOpenAI(engine, _ChatTokenizer(),
+                             gconfig=GenerationHyperparameters(max_new_tokens=32))
+
+        async def conversation(q):
+            messages = [{"role": "user", "content": q}]
+            r1 = await client.chat.completions.create(messages=messages)
+            messages += [{"role": "assistant", "content": r1.choices[0].message.content},
+                         {"role": "user", "content": "1+1"}]
+            r2 = await client.chat.completions.create(messages=messages)
+            client.set_reward(r2.id, 1.0)
+            return r1.id, r2.id
+
+        async def both():
+            return await asyncio.gather(conversation("2+3"), conversation("40-1"))
+
+        ids = asyncio.run(both())
+    finally:
+        del engine.agenerate
+    client.apply_reward_discount(turn_discount=0.9)
+    export = client.export_interactions()
+    check(export["input_ids"].shape[0] == 4, f"t3: {export['input_ids'].shape[0]} exported rows")
+    for r1, r2 in ids:
+        check(client.get_interaction(r2).parent_id == r1, "t3: a second turn without its parent")
+    by_tokens = {tuple(r.input_tokens + r.output_tokens): r for r in resps}
+    for i in range(export["input_ids"].shape[0]):
+        n = int(export["attention_mask"][i].sum())
+        r = by_tokens[tuple(export["input_ids"][i, :n].tolist())]
+        check(np.array_equal(export["logprobs"][i, r.input_len:n],
+                             np.asarray(r.output_logprobs, np.float32)),
+              "t3: an exported logprob differs from the engine's")
+    return dict(agent_rows=int(rows["input_ids"].shape[0]), agent_s=agent_s,
+                agent_rewards=rows["rewards"].tolist(), openai_calls=len(resps),
+                exported_rows=int(export["input_ids"].shape[0]),
+                exported_rewards=sorted(export["rewards"].tolist()))
+
+
+def _verify_service() -> dict:
+    """(t3) a `VerifyServer` on a free port with AREAL_VERIFIER_SERVICE
+    set: `MathCodeSingleStepEnv` grades the canonical and broken solutions
+    through it (a spy here counts the payloads it served), then the same
+    call after `stop()` grades locally to the same list."""
+    from areal_tpu_torch.agent.math_code_env import MathCodeSingleStepEnv
+    from areal_tpu_torch.reward.verify_server import VerifyServer
+
+    env = MathCodeSingleStepEnv({"q0": dict(task="code", input_output=VERIFY_IO)})
+    srv = VerifyServer(max_workers=4)
+    served = []
+    verify = srv.verify
+    srv.verify = lambda body: served.append(body["language"]) or verify(body)
+    addr = srv.start("127.0.0.1", 0)
+    old = os.environ.get("AREAL_VERIFIER_SERVICE")
+    os.environ["AREAL_VERIFIER_SERVICE"] = addr
+    try:
+        t0 = time.perf_counter()
+        _, remote, *_ = asyncio.run(env.step(("q0@0", VERIFY_ANSWERS)))
+        remote_s = time.perf_counter() - t0
+        srv.stop()
+        t0 = time.perf_counter()
+        _, local, *_ = asyncio.run(env.step(("q0@0", VERIFY_ANSWERS)))
+        local_s = time.perf_counter() - t0
+    finally:
+        srv.stop()
+        if old is None:
+            os.environ.pop("AREAL_VERIFIER_SERVICE", None)
+        else:
+            os.environ["AREAL_VERIFIER_SERVICE"] = old
+    payloads = math.ceil(len(VERIFY_ANSWERS) / 10)
+    check(remote == VERIFY_WANT, f"t3: the service graded {remote}")
+    check(served == ["CODE"] * payloads, f"t3: the service served {served}")
+    check(local == remote, f"t3: after stop() the call graded {local}")
+    return dict(service=addr, graded=remote, payloads_served=len(served), remote_s=remote_s,
+                after_stop=local, after_stop_s=local_s)
+
+
+def _code_eval(dev, ckpt: str) -> dict:
+    """(t3) `eval_and_aggregate --task code` in process on (t1)'s
+    checkpoint and 8 HumanEval-style fixture problems: K3 = decode steps
+    x L, `metrics.json` written."""
+    from areal_tpu_torch.evaluation import eval_and_aggregate
+
+    # a relative dataset name: each dataset's outputs go to --output-path
+    # joined with its name (an absolute name would be the file itself)
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build") as d:
+        data = os.path.join(os.path.relpath(d), "humaneval")
+        with open(data, "w") as f:
+            for i in range(CODE_EVAL_PROBLEMS):
+                f.write(json.dumps(dict(
+                    task_id=f"Fix/{i}", prompt=f"def f{i}(x):\n", entry_point=f"f{i}",
+                    test=f"def check(c):\n    assert c({i}) == {i + 1}\n")) + "\n")
+        out = os.path.join(d, "out")
+        with _observe_loop() as seen:
+            # ---- the main path: counts to 0 just before, read just after ----
+            pa.launches = 0
+            t0 = time.perf_counter()
+            eval_and_aggregate.main(CODE_EVAL + ["--data-names", data, "--model-path", ckpt,
+                                                 "--output-path", out], device=dev)
+            wall = time.perf_counter() - t0
+            k3 = pa.launches
+            # ---- end of the main path ----
+        with open(os.path.join(out, data, "metrics.json")) as f:
+            metrics = json.load(f)
+    eng = seen["engines"][0]
+    L = eng.model_config.num_hidden_layers
+    check(k3 == L * eng.decode_steps > 0, f"t3 eval: K3 {k3}, want {L} x {eng.decode_steps}")
+    check(metrics["n_problems"] == CODE_EVAL_PROBLEMS and metrics["n_samples"] == 2
+          and all(math.isfinite(v) for v in metrics.values()), f"t3 eval: {metrics}")
+    return dict(argv=CODE_EVAL, wall_s=wall, decode_steps=eng.decode_steps,
+                launches=dict(paged_attention=k3), metrics=metrics)
+
+
+def phase_tir(dev: torch.device) -> dict:
+    """Code and tool RL on the card:
+
+    (t1) `tir_math.py` (the GRPO entry point with `workflow=tir`) on
+         `tir_math.yaml` with its offline smoke overrides at loop cell
+         (c)'s size: Qwen2.5-1.5B at full width and depth, random weights
+         from seed 0, `synthetic-arith`, 8 prompts x 4 samples, 256 new
+         tokens, 32 slots, context 512, 128-step chunks,
+         `ppo_n_minibatches` 2, 2 steps, a checkpoint every step; then the
+         checkpoint watcher (`AutomaticEvaluator`, its default command)
+         scores each checkpoint in a child process on the card, beside
+         (t2) and (t3), and publishes each once, in step order. The arithmetic tokenizer
+         cannot spell the tool's fence: zero tool calls, reported. K3 = L x
+         decode steps, K1 = L x (logp mbs + 2 x trained mbs), K2a = K2b =
+         L x trained mbs, the version lag within `max_head_offpolicyness`.
+    (t2) tool rounds: `TIRWorkflow` with a python tool and the calculator
+         on markers of arithmetic characters, at Qwen2.5-1.5B's widths and
+         depth with the arithmetic tokenizer's 21 rows in place of 151,936
+         (the one reduction) and the random weights' final norm scaled by
+         TIR_FINAL_NORM_SCALE (so that the sampler draws the rows near
+         uniformly and meets the markers), 8 prompts x 4 samples,
+         `max_tool_calls` 4. Each tool
+         runs; tool tokens have loss mask 0, logprob 0 and version -1; the
+         actor's `compute_logp` agrees with the decode logprobs on the
+         generated tokens within the train phase's bounds; one
+         `ppo_update`; the engine's forks and suffix prefills reported.
+    (t3) a `VerifyServer` on a free port with AREAL_VERIFIER_SERVICE set:
+         `MathCodeSingleStepEnv` grades 4 canonical and 4 broken solutions
+         to [1, 1, 1, 1, 0, 0, 0, 0] in one payload, and the same after
+         `stop()` grades locally alike; `AgentWorkflow` and `ArealOpenAI`
+         (2 conversations x 2 turns) on (t2)'s engine, the exported
+         logprobs the engine's; `eval_and_aggregate --task code` on 8
+         fixture problems and (t1)'s checkpoint writes `metrics.json`."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        t1, watch = _tir_loop(dev, root)
+        torch.cuda.empty_cache()
+        try:
+            cfg, actor, engine = _tir_engine(dev)
+            try:
+                # ---- the main path: counts to 0 just before, read just after ----
+                pa.launches = fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+                t2 = _tir_rounds(dev, actor, engine, cfg)
+                agents = _agent_rounds(engine)
+                t2_launches = dict(paged_attention=pa.launches, **_flash_launches())
+                # ---- end of the main path ----
+                L = cfg.num_hidden_layers
+                steps = engine.decode_steps
+            finally:
+                engine.destroy()
+                actor.destroy()
+            del engine, actor
+            torch.cuda.empty_cache()
+            want = dict(paged_attention=L * steps,
+                        flash_attention_fwd=L * (t2["logp_mbs"] + 2 * t2["train_mbs"]),
+                        flash_attention_bwd_dq=L * t2["train_mbs"],
+                        flash_attention_bwd_dkv=L * t2["train_mbs"])
+            check(t2_launches == want, f"t2/t3: launches {t2_launches}, formulas {want}")
+            t3 = dict(run="t3", verify=_verify_service(), agents=agents,
+                      code_eval=_code_eval(dev, os.path.join(t1["checkpoint_root"],
+                                                             t1["checkpoints"][-1])))
+            t1["auto_eval"] = _tir_watch(*watch)
+        finally:
+            # a failed phase leaves no evaluation job running
+            for job in watch[0]._steps.values():
+                if job.process is not None and job.process.poll() is None:
+                    job.process.kill()
+                    job.process.wait()
+    t2["launches"] = t2_launches
+    t2["formulas"] = dict(paged_attention="L x decode steps (the TIR rounds and the agents)",
+                          flash_attention_fwd="L x (logp mbs + 2 x trained mbs)",
+                          flash_attention_bwd_dq="L x trained mbs",
+                          flash_attention_bwd_dkv="L x trained mbs")
+    emit("tir", wall_s=time.perf_counter() - t0,
+         entry_point="areal_tpu_torch/examples/tir_math.py:main",
+         workflow="areal_tpu_torch/workflow/tir.py", yaml=TIR_YAML, full_model="Qwen2.5-1.5B",
+         full_source=QWEN25_1_5B_SOURCE, runs=[t1, t2, t3])
+    total = {k: t1["launches"][k] + t2_launches[k] for k in t1["launches"]}
+    total["paged_attention"] += t3["code_eval"]["launches"]["paged_attention"]
+    return dict(launches=total, by_run=dict(t1=t1["launches"], t2=t2_launches,
+                                            t3=t3["code_eval"]["launches"]))
+
+
+def tir_only() -> int:
+    """`--tir`: the device and build phases, then the tir phase alone."""
+    dev, smi = phase_device()
+    phase_build()
+    out = phase_tir(dev)
+    print(smi, flush=True)
+    print(json.dumps({"tir_launches": out["launches"]}), flush=True)
+    return 0
+
+
 def hf_path_only() -> int:
     """`--hf-path`: the device and build phases, then the hf_path phase
     alone."""
@@ -4956,7 +5544,7 @@ def main() -> int:
     recover = phase_grpo_recover(dev)
     aent = phase_aent(dev)
     torch.cuda.empty_cache()
-    decoupled = phase_decoupled(dev, loop)
+    decoupled = phase_decoupled(dev)
     torch.cuda.empty_cache()
     ppo = phase_ppo(dev)
     torch.cuda.empty_cache()
@@ -4966,19 +5554,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     hf_path = phase_hf_path(dev)
     torch.cuda.empty_cache()
+    tir = phase_tir(dev)
+    torch.cuda.empty_cache()
     # K1/K2a/K2b run in the GRPO loop, the train phase, both SFT runs, the
     # GRPO recovery runs, the AEnt run, the decoupled trainer, the PPO,
-    # reward-model and multi-turn trainers and the GRPO run on a
-    # checkpoint with its reference policy; K3 in every GRPO and PPO run
-    # (the decoupled one's in its server process), the evaluator and the
-    # server started on a checkpoint
+    # reward-model and multi-turn trainers, the GRPO run on a checkpoint
+    # with its reference policy and the TIR runs; K3 in every GRPO and PPO
+    # run (the decoupled one's in its server process), the evaluators, the
+    # server started on a checkpoint and the agents
     flash_paths = dict(grpo_loop=loop["launches"], train=train["launches"],
                        sft={k: sft["launches"][k] + sft_smoke["launches"][k]
                             for k in FLASH_COUNTERS},
                        grpo_recover=recover["launches"], aent=aent["launches"],
                        decoupled=decoupled["launches"], ppo=ppo["launches"],
                        rw=rw["launches"], multi_turn=multi_turn["launches"],
-                       hf_path=hf_path["launches"])
+                       hf_path=hf_path["launches"], tir=tir["launches"])
     # K3 runs in the serve, sched (its group waves) and train paths and in
     # the spec path's normal chunks; K5a in the int8 serve path and the int8 spec path's; K6 in both
     # int8 paths
@@ -4991,7 +5581,8 @@ def main() -> int:
                                      decoupled=decoupled["launches"]["paged_attention"],
                                      ppo=ppo["launches"]["paged_attention"],
                                      multi_turn=multi_turn["launches"]["paged_attention"],
-                                     hf_path=hf_path["launches"]["paged_attention"])
+                                     hf_path=hf_path["launches"]["paged_attention"],
+                                     tir=tir["launches"]["paged_attention"])
     paged["launches"] = sum(paged["launches_by_path"].values())
     q8["launches_by_path"] = dict(serve_int8=q_launches["paged_attention_q8"],
                                   serve_spec_int8=s8_launches["paged_attention_q8"])
@@ -5017,5 +5608,5 @@ if __name__ == "__main__":
     modes = {"--paged-times": paged_times_only, "--decode-sweep": decode_sweep_only,
              "--qmm-times": qmm_times_only, "--qmm-sweep": qmm_sweep_only,
              "--decoupled": decoupled_only, "--trainers": trainers_only,
-             "--hf-path": hf_path_only}
+             "--hf-path": hf_path_only, "--tir": tir_only}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] else main())

@@ -194,11 +194,30 @@ def test_unregistered_name_goes_to_load_dataset(local_hub):
     assert asked == [(path, None, "train")] and t == j == TORL
 
 
+CODE_HUBS = {"humaneval": "openai/openai_humaneval",
+             "openai/openai_humaneval": "openai/openai_humaneval",
+             "mbpp": "google-research-datasets/mbpp"}
+
+
 @pytest.mark.parametrize("name", ["humaneval", "openai/openai_humaneval", "mbpp",
                                   "clevr_count_70k", "geometry3k", "synthetic-vision"])
-def test_code_and_vision_datasets_are_refused(name):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        td.get_custom_dataset(path=name, split="test")
+def test_code_and_vision_datasets_are_refused(name, local_hub):
+    """The vision datasets are refused with item 6. The code benchmarks
+    are ported: a name that is no local file goes to its hub id through
+    `load_dataset` (here the recording reader), as in JAX."""
+    if name not in CODE_HUBS:
+        with pytest.raises(NotImplementedError, match="item 6"):
+            td.get_custom_dataset(path=name, split="test")
+        return
+    write, calls = local_hub
+    hub = CODE_HUBS[name]
+    rows = [dict(task_id="T/0", prompt="def f():\n", entry_point="f",
+                 test="def check(c):\n    assert c() is None\n", text="f", code="",
+                 test_list=["assert f() is None"], test_setup_code="")]
+    write(hub.split("/")[-1], rows, "test")
+    t, j, asked = _both(calls, path=name, split="test", type="rl")
+    assert t == j and len(t) == 1 and "input_output" in t[0]
+    assert [a[0] for a in asked] == [hub]
 
 
 def test_sharding_over_hosts_is_refused():

@@ -7,8 +7,8 @@
   pass@k, maj@n, lengths), under a reward that parts the samples.
 - `eval_and_aggregate.main` of both packages on an HF checkpoint of the
   same weights (`--model-path`, `--tokenizer-path synthetic-arith`, f32
-  engines): equal `metrics.json` and `samples.jsonl`; `--task code` is
-  refused with its ROADMAP item.
+  engines): equal `metrics.json` and `samples.jsonl`; `--task code` takes
+  the code grader.
 - `--servers`: the same evaluation through `RemoteInfEngine` against a
   port `DecodeServer`, at temperature 0, equal to the in-process run.
 - `pass_at_k_estimate` equal on a grid.
@@ -117,9 +117,13 @@ def test_eval_and_aggregate_writes_the_jax_metrics(weights, cpu_devices, tmp_pat
     assert ((tmp_path / "torch" / sub / "samples.jsonl").read_text()
             == (tmp_path / "jax" / sub / "samples.jsonl").read_text())
     assert json.loads((tmp_path / "torch" / "result.json").read_text()) == {sub: got}
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tea.main(argv + ["--task", "code", "--output-path", str(tmp_path / "code")],
-                 device="cpu")
+    # --task code scores with the code grader, as in JAX (its run on a code
+    # dataset: tests/test_torch_code_verify.py)
+    from areal_tpu_torch.reward.code_verify import code_reward_fn
+
+    assert tea._reward_for("code") is code_reward_fn
+    with pytest.raises(ValueError, match="unknown task"):
+        tea._reward_for("lean")
 
 
 def test_eval_over_servers_equals_the_in_process_engine(weights, tmp_path, monkeypatch):

@@ -205,8 +205,8 @@ def _smoke_server(nfs_root: str):
 def test_entry_point_refusals(tmp_path):
     """The DECOUPLED branch runs against a decode server (one device per
     side); more than one device is item 5, the fleet's router, prefill
-    replicas and supervisor item 4, other workflows and the code and
-    vision datasets item 6."""
+    replicas and supervisor item 4, the vision workflow and datasets item
+    6."""
     from areal_tpu_torch.utils import name_resolve, names
 
     base = ["--config", YAML, f"cluster.fileroot={tmp_path}"]
@@ -232,7 +232,7 @@ def test_entry_point_refusals(tmp_path):
         srv.stop()
         name_resolve.reconfigure(t_cli.NameResolveConfig(type="memory"))
     with pytest.raises(NotImplementedError, match="item 6"):
-        main(base + ["workflow=tir"], device="cpu")
+        main(base + ["workflow=vision_rlvr"], device="cpu")
     with pytest.raises(ValueError, match="workflow"):
         main(base + ["workflow=nope"], device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):

@@ -1,13 +1,15 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
 nor, at import time, the packages the card machine lacks (`aiohttp`,
-`lark`, `transformers`, `datasets`).
+`lark`, `transformers`, `datasets`). The verification client and server
+run on the standard library's HTTP modules, never `aiohttp`.
 
 A subprocess whose import system refuses `jax`, `jaxlib`, the top-level
 `areal_tpu` package (exactly that name: `areal_tpu_torch` is the port),
 `aiohttp`, `lark`, `transformers` and `datasets` imports every module of
 the port and `chip_smoke`, and runs the offline paths `chip_smoke.py`
 takes (the arithmetic tokenizer, the countdown and synthetic-arith
-datasets and rewards, the math grader). An AST scan of the same files
+datasets and rewards, the math grader, the code grader, the verification
+service and its client, and the TIR tools). An AST scan of the same files
 finds no import of the first five anywhere, lazy ones included, and
 imports `transformers` and `datasets` only inside functions: the
 loaders of HF tokenizers and hub datasets (`dataset/__init__.py`) and
@@ -108,6 +110,19 @@ def test_port_has_the_expected_modules():
         "areal_tpu_torch.evaluation",
         "areal_tpu_torch.evaluation.offline",
         "areal_tpu_torch.evaluation.eval_and_aggregate",
+        "areal_tpu_torch.reward._code_runner",
+        "areal_tpu_torch.reward.code_verify",
+        "areal_tpu_torch.reward.remote_verify",
+        "areal_tpu_torch.reward.verify_server",
+        "areal_tpu_torch.workflow.tir",
+        "areal_tpu_torch.examples.tir_math",
+        "areal_tpu_torch.api.agent_api",
+        "areal_tpu_torch.agent.math_single_step",
+        "areal_tpu_torch.agent.math_code_env",
+        "areal_tpu_torch.experimental.openai",
+        "areal_tpu_torch.experimental.openai.types",
+        "areal_tpu_torch.experimental.openai.client",
+        "areal_tpu_torch.evaluation.auto",
         "chip_smoke",
     ):
         assert want in names
@@ -172,6 +187,25 @@ except ImportError as e:
     assert "transformers" in str(e)
 else:
     raise AssertionError("an HF tokenizer loaded without transformers")
+# the code graders, the verification service and its client, the tools
+import os
+from areal_tpu_torch.agent.math_code_env import MathCodeSingleStepEnv
+from areal_tpu_torch.reward.code_verify import code_reward_fn
+from areal_tpu_torch.reward.verify_server import VerifyServer
+from areal_tpu_torch.workflow.tir import calculator_tool, run_python_tool
+
+io = {"inputs": ["2 3"], "outputs": ["5"]}
+good = "```python\\na, b = map(int, input().split())\\nprint(a + b)\\n```"
+assert code_reward_fn(None, good, [], [], input_output=io) == 1.0
+srv = VerifyServer(max_workers=2)
+os.environ["AREAL_VERIFIER_SERVICE"] = srv.start("127.0.0.1", 0)
+try:
+    import asyncio
+    env = MathCodeSingleStepEnv({"q": {"task": "code", "input_output": io}})
+    assert asyncio.run(env.step(("q", [good, "no code"])))[1] == [1.0, 0.0]
+finally:
+    srv.stop()
+assert run_python_tool("print(6*7)") == "42\\n" and calculator_tool().fn("6*7") == "42\\n"
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 assert not leaked, leaked
 print("ok")

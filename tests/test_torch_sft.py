@@ -203,4 +203,4 @@ def test_entry_point_refusals(tmp_path):
     with pytest.raises(NotImplementedError, match="item 5"):
         main(base + ["cluster.n_nodes=2"], device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
-        main(base + ["train_dataset.path=humaneval"], device="cpu")
+        main(base + ["train_dataset.path=clevr_count_70k"], device="cpu")
