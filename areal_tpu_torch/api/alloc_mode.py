@@ -380,3 +380,60 @@ class AllocationMode:
             type_=AllocationType.DECOUPLED_TRAIN if kind == "disagg" else AllocationType.COLOCATE,
             gen=gen, gen_backend=gen_backend, train=train, train_backend=train_backend,
         )
+
+    def check_hbm(
+        self,
+        model_cfg,
+        device_kind: str,
+        *,
+        microbatch_tokens: int = 8192,
+        remat: bool = True,
+        decode_slots: int = 64,
+        decode_context: int = 32768,
+        decode_pool_tokens: int | None = None,
+        decode_weight_dtype: str = "fp",
+        utilization: float = 0.9,
+    ) -> dict:
+        """Check that this allocation's train and gen halves each fit the
+        device's memory by the closed-form estimator (`utils/hbm.py`; JAX
+        :442-505). Raises AllocationValidationError with the per-component
+        breakdown; returns {"train": ..., "gen": ...} breakdowns when both
+        fit. Each half is checked alone, as in JAX: a colocated run holds
+        both on one device, and its caller adds them. JAX's `fsdp`, `zero1`,
+        `pipeline_schedule` and `virtual_pp` act only across devices, so at
+        the one device a side the port accepts they take the estimator's
+        defaults."""
+        from areal_tpu_torch.utils import hbm
+
+        report: dict = {}
+        if self.train is not None:
+            t = self.train
+            est = hbm.estimate_train_hbm(
+                model_cfg,
+                dp=t.data_parallel_size,
+                tp=t.tensor_parallel_size,
+                pp=t.pipeline_parallel_size,
+                sp=t.context_parallel_size,
+                microbatch_tokens=microbatch_tokens,
+                remat=remat,
+            )
+            try:
+                hbm.check_fit(est, device_kind, utilization=utilization)
+            except MemoryError as e:
+                raise AllocationValidationError(f"train half: {e}") from None
+            report["train"] = est.breakdown()
+        if self.gen is not None and self.gen.world_size > 0:
+            est = hbm.estimate_decode_hbm(
+                model_cfg,
+                tp=self.gen.tensor_parallel_size,
+                slots=decode_slots,
+                context_length=decode_context,
+                pool_tokens=decode_pool_tokens,
+                weight_dtype=decode_weight_dtype,
+            )
+            try:
+                hbm.check_fit(est, device_kind, utilization=utilization)
+            except MemoryError as e:
+                raise AllocationValidationError(f"gen half: {e}") from None
+            report["gen"] = est.breakdown()
+        return report

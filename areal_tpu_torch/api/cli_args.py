@@ -225,8 +225,9 @@ class GenerationHyperparameters:
 
 @dataclass
 class FaultInjectionConfig:
-    """Deterministic fault injection (`areal_tpu/api/cli_args.py:492`);
-    the harness is ROADMAP queue 1, item 7."""
+    """Deterministic fault injection (`areal_tpu/api/cli_args.py:492`):
+    `enabled` arms `core/fault_injection.py` with `plan`, a JSON list of
+    fault points (or `{"seed": ..., "points": [...]}`), drawn from `seed`."""
 
     enabled: bool = False
     seed: int = 0
@@ -303,7 +304,9 @@ class InferenceEngineConfig:
     `RemoteInfEngine` also reads the discovery, retry, failover and
     staged-push fields. The router's (`router`, `router_request_timeout`)
     steer the fleet router, ROADMAP queue 1, item 4, and are accepted and
-    not acted on. `check_supported` refuses fault injection (item 7)."""
+    not acted on. An enabled `fault_injection` arms the process-global
+    injector (`core/fault_injection.py`) when the remote client is built,
+    and in the GRPO entry point's colocated branch (`build_rollout`)."""
 
     experiment_name: str | None = None
     trial_name: str | None = None
@@ -328,9 +331,8 @@ class InferenceEngineConfig:
     fault_injection: FaultInjectionConfig = field(default_factory=FaultInjectionConfig)
 
     def check_supported(self) -> None:
-        _refuse(self.fault_injection, {
-            "enabled": (self.fault_injection.enabled, "item 7, the fault-injection harness"),
-        }, prefix="fault_injection.")
+        """Every value here is accepted; a registered router is refused
+        where it would be used (`RemoteInfEngine.initialize`)."""
 
 
 @dataclass

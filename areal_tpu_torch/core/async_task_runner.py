@@ -7,8 +7,10 @@ The trainer thread is synchronous (it drives the device steps); rollout
 episodes are coroutines awaiting the decode engine. This runner owns a
 private event loop on a daemon thread and bridges the two worlds with
 thread-safe queues. Every task yields exactly one `TaskResult`, a
-cancelled one included. The JAX runner's fault-injection seam and its
-HTTP session close (the remote engine's) are not in the port.
+cancelled one included. The `task.run` fault seam fires before each
+task's coroutine starts; a fault there releases the task's slot like any
+failure. The JAX runner's HTTP session close (the remote engine's) is not
+in the port.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import traceback
 from dataclasses import dataclass, field
 from typing import Any, Awaitable, Callable
 
+from areal_tpu_torch.core import fault_injection
 from areal_tpu_torch.utils import logging
 
 logger = logging.getLogger("async_task_runner")
@@ -118,6 +121,9 @@ class AsyncTaskRunner:
             self._output.put(tr)
 
         try:
+            fi = fault_injection.get()
+            if fi is not None:
+                await fi.afire("task.run", task_id=task_id)
             result = await factory()
             finish(
                 TaskResult(

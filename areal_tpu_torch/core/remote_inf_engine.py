@@ -26,11 +26,13 @@ Kept from the JAX client:
   pushes by time.
 - The rollout queue is the port's `WorkflowExecutor`, as in
   `TorchDecodeEngine`.
+- Fault injection: an enabled `config.fault_injection` arms the
+  process-global injector at construction (a disabled one leaves an armed
+  injector as it is), and `client.weights.stage` fires per staged frame.
 
 Not here: the fleet router (`_schedule_via_router`) and the prefill
 handoff, ROADMAP.md queue 1, item 4 (a registered router is refused at
-`initialize`), and the fault-injection seams, item 7. Plain
-`threading.Lock`s stand in for `OrderedLock`.
+`initialize`). Plain `threading.Lock`s stand in for `OrderedLock`.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from typing import Any
 from areal_tpu_torch.api.cli_args import InferenceEngineConfig
 from areal_tpu_torch.api.engine_api import InferenceEngine
 from areal_tpu_torch.api.io_struct import ModelRequest, ModelResponse, WeightUpdateMeta
+from areal_tpu_torch.core import fault_injection
 from areal_tpu_torch.core.weight_transfer import (
     frame_nbytes,
     pack_frames,
@@ -106,6 +109,7 @@ class RemoteInfEngine(InferenceEngine):
         self.config = config
         self.backend = backend or JaxDecodeBackend()
         self.tokenizer = tokenizer
+        fault_injection.configure_from_config(config.fault_injection)
         self.addresses: list[str] = []
         # round-robin cursor, rid affinity and per-server estimated load,
         # touched by the rollout loop and by callers on other threads
@@ -414,6 +418,8 @@ class RemoteInfEngine(InferenceEngine):
                 while len(sending) >= inflight:
                     for f in sending.popleft():
                         f.result()
+                fault_injection.fire("client.weights.stage", push_id=push_id,
+                                     nbytes=frame_nbytes(item))
                 n_bytes += frame_nbytes(item) * len(self.addresses)
                 sending.append([
                     pool.submit(request_with_retry, a, endpoint, data=item,

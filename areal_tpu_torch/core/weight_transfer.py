@@ -34,6 +34,7 @@ from typing import Any, Iterable, Iterator
 import numpy as np
 import torch
 
+from areal_tpu_torch.core import fault_injection
 from areal_tpu_torch.utils import logging
 
 logger = logging.getLogger("weight_transfer")
@@ -307,6 +308,14 @@ class WeightStaging:
         self.ready.clear()
 
     def add_bucket(self, payload) -> None:
+        # staging seam (JAX :305-313): an abort is a frame lost between the
+        # receive and the staging; a torn frame fails the manifest length
+        # check in `unpack_bucket_parts` before a byte stages. Either way the
+        # client's retry sends the whole frame again.
+        inj = fault_injection.get()
+        if inj is not None:
+            inj.fire("weight.stage.add", nbytes=memoryview(payload).nbytes)
+            payload = inj.tear("weight.stage.add", payload)
         for spec, raw in unpack_bucket_parts(payload):
             name = spec["name"]
             if name in self.ready:

@@ -21,6 +21,7 @@ from typing import Any, Callable
 
 import numpy as np
 
+from areal_tpu_torch.core import fault_injection
 from areal_tpu_torch.models.smoke import OFFLINE_SENTINELS
 _REGISTRY: dict[str, Callable] = {}
 
@@ -418,6 +419,9 @@ class SimpleDataLoader:
         while self._pos + self.batch_size <= n or (
             not self.drop_last and self._pos < n
         ):
+            # chaos seam: death between fetching a batch and any effect of
+            # it; the restored position re-yields the batch
+            fault_injection.fire("dataloader.next", epoch=self._epoch, pos=self._pos)
             idx = order[self._pos : self._pos + self.batch_size]
             self._pos += len(idx)
             yield [self.dataset[int(i)] for i in idx]

@@ -44,6 +44,12 @@
   writes it (:885-895). A load copies into the engine's tensors in place,
   so the optimizer state stays on the device and the next `train_batch`
   takes the step an uninterrupted run would have taken.
+- Seams and tracing (JAX :948-954, :1580-1596): `train.step` fires at the
+  top of `train_batch`, `train.weights.push` at the entry of
+  `update_weights` (`core/fault_injection.py`); `train_batch` calls
+  `maybe_xprof_step` (the env-gated device-trace window) and runs its
+  micro-batches and update inside an `annotate("train_batch")` range
+  (`utils/perf_tracer.py`).
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from areal_tpu_torch.api.alloc_mode import ParallelStrategy
 from areal_tpu_torch.api.cli_args import OptimizerConfig, TrainEngineConfig
 from areal_tpu_torch.api.engine_api import InferenceEngine, TrainEngine
 from areal_tpu_torch.api.io_struct import FinetuneSpec, SaveLoadMeta, WeightUpdateMeta
+from areal_tpu_torch.core import fault_injection
 from areal_tpu_torch.models import hf_io
 from areal_tpu_torch.models.qwen2 import (
     WEIGHT_DTYPES,
@@ -86,6 +93,7 @@ from areal_tpu_torch.utils.data import (
     unpack_sequence,
 )
 from areal_tpu_torch.utils.flops import peak_flops, train_flops_per_token
+from areal_tpu_torch.utils.perf_tracer import annotate, maybe_xprof_step
 
 logger = logging.getLogger("torch_engine")
 
@@ -513,6 +521,10 @@ class TorchTrainEngine(TrainEngine):
         meta = meta or self.weight_update_meta
         if meta is None or self.rollout_engine is None:
             raise RuntimeError("no decode engine connected: call connect_engine first")
+        # chaos seam (JAX :948-954): death in the middle of a push; the
+        # decode side keeps the old version until the restored trainer
+        # pushes again. `update_weights_async` has none, as in JAX.
+        fault_injection.fire("train.weights.push", version=self.get_version())
         if meta.use_lora:
             raise NotImplementedError(
                 "LoRA delta push is not in the PyTorch port yet: ROADMAP.md queue 1, item 6"
@@ -650,30 +662,36 @@ class TorchTrainEngine(TrainEngine):
     ) -> dict[str, float]:
         if self.optimizer is None:
             raise RuntimeError("engine has no optimizer")
+        # chaos seam (JAX :1580-1585): death inside an optimizer step, with
+        # nothing durable written
+        fault_injection.fire("train.step", step=self._step_count)
         t_start = time.perf_counter()
+        # the env-gated device-trace window (AREAL_TPU_XPROF_DIR, _STEPS)
+        maybe_xprof_step(self._step_count, owner=id(self), device=self.device)
         mb_list = split_padded_tensor_dict_into_mb_list(input_, self.config.mb_spec)
         weights = [float(loss_weight_fn(mb)) for mb in mb_list.mbs]
         total_weight = float(sum(weights)) or 1.0
         aux_mode = bool(getattr(loss_fn, "returns_aux", False))
         plist = list(self.params.values())
         grad_dtype = torch_dtype(self.config.grad_reduce_dtype)
-        acc = [torch.zeros_like(p, dtype=grad_dtype) for p in plist]
         losses, mb_stat_list = [], []
-        for mb, w in zip(mb_list.mbs, weights):
-            dev_mb = self._device_mb(mb)
-            res = loss_fn(self._model_out(dev_mb, loss_fn), dev_mb)
-            loss, stats = res if aux_mode else (res, {})
-            grads = torch.autograd.grad(loss, plist, allow_unused=True)
-            with torch.no_grad():
-                for a, g in zip(acc, grads):
-                    if g is not None:
-                        a.add_(g.to(grad_dtype) * w)
-            del grads
-            # device scalars: read once after the update, no sync per mb
-            losses.append(loss.detach())
-            mb_stat_list.append({k: v.detach() for k, v in stats.items()})
-        gnorm = self._apply_update(plist, acc, total_weight)
-        gnorm_f = float(gnorm)  # waits for the step on the device
+        with annotate("train_batch", device=self.device):
+            acc = [torch.zeros_like(p, dtype=grad_dtype) for p in plist]
+            for mb, w in zip(mb_list.mbs, weights):
+                dev_mb = self._device_mb(mb)
+                res = loss_fn(self._model_out(dev_mb, loss_fn), dev_mb)
+                loss, stats = res if aux_mode else (res, {})
+                grads = torch.autograd.grad(loss, plist, allow_unused=True)
+                with torch.no_grad():
+                    for a, g in zip(acc, grads):
+                        if g is not None:
+                            a.add_(g.to(grad_dtype) * w)
+                del grads
+                # device scalars: read once after the update, no sync per mb
+                losses.append(loss.detach())
+                mb_stat_list.append({k: v.detach() for k, v in stats.items()})
+            gnorm = self._apply_update(plist, acc, total_weight)
+            gnorm_f = float(gnorm)  # waits for the step on the device
         step_time = time.perf_counter() - t_start
         self._step_count += 1
         aux_stats: dict[str, float] = {}

@@ -54,6 +54,7 @@ from typing import Any, Callable
 from areal_tpu_torch.api.alloc_mode import AllocationMode, AllocationType
 from areal_tpu_torch.api.cli_args import GRPOConfig, load_expr_config, save_config
 from areal_tpu_torch.api.io_struct import FinetuneSpec, StepInfo, WeightUpdateMeta
+from areal_tpu_torch.core import fault_injection
 from areal_tpu_torch.dataset import SimpleDataLoader, get_custom_dataset, load_tokenizer
 from areal_tpu_torch.engine.ppo.actor import TorchPPOActor
 from areal_tpu_torch.engine.torch_decode import TorchDecodeEngine
@@ -108,7 +109,9 @@ def build_rollout(config: GRPOConfig, alloc: AllocationMode, actor: TorchPPOActo
                   device):
     """DECOUPLED: the HTTP client over the launcher's decode server, dcn
     weight pushes (JAX `examples/gsm8k_grpo.py:84-100`). COLOCATE: the
-    decode engine on the trainer's card, memory weight pushes."""
+    decode engine on the trainer's card, memory weight pushes; an enabled
+    `rollout.fault_injection` arms the process's injector in both (the
+    client does it at construction)."""
     if alloc.type_ == AllocationType.DECOUPLED_TRAIN:
         from areal_tpu_torch.core.remote_inf_engine import JaxDecodeBackend, RemoteInfEngine
 
@@ -117,6 +120,9 @@ def build_rollout(config: GRPOConfig, alloc: AllocationMode, actor: TorchPPOActo
         rollout = RemoteInfEngine(config.rollout, JaxDecodeBackend(), tokenizer=tokenizer)
         rollout.initialize(train_data_parallel_size=1)
         return rollout, WeightUpdateMeta(type="dcn")
+    # no remote client arms `rollout.fault_injection` here (JAX's colocated
+    # run leaves it unarmed), so the entry point does
+    fault_injection.configure_from_config(config.rollout.fault_injection)
     rollout = TorchDecodeEngine(config.decode, config.rollout, tokenizer=tokenizer,
                                 device=device)
     rollout.set_model(actor.params, actor.model_config)

@@ -46,6 +46,12 @@ a submission in flight waits on a `concurrent.futures.Future`.
 `/generate` calls the engine's blocking `generate`; the engine's
 scheduler is its own thread.
 
+Fault seams (`core/fault_injection.py`, JAX :274, :472, :512):
+`server.generate` before the idempotency table and the engine,
+`server.weights.stage` per received frame and `server.weights.commit`
+before `_ctl_lock` is taken. A raised `InjectedFault` answers 500, which
+the client retries; a delay sleeps only the handler's own thread.
+
 Run one with `python -m areal_tpu_torch.launcher.decode_server
 --model-path <HF checkpoint directory> [flags]`, or `--scratch-model
 '<ModelConfig JSON>'` for random weights from `--seed`: the JAX server's
@@ -79,6 +85,7 @@ from areal_tpu_torch.api.cli_args import (
     TorchDecodeConfig,
 )
 from areal_tpu_torch.api.io_struct import ModelRequest, WeightUpdateMeta
+from areal_tpu_torch.core import fault_injection
 from areal_tpu_torch.core.weight_transfer import WeightStaging, frame_raw_nbytes
 from areal_tpu_torch.models.convert import to_layout
 from areal_tpu_torch.models.qwen2 import ModelConfig
@@ -250,6 +257,10 @@ class DecodeServer:
     def _generate(self, query, body) -> dict:
         req_body = self._json(body)
         xid = req_body.get("xid")
+        # pre-effect seam: an abort rejects the request before any engine
+        # state moves; a delay sleeps this handler's thread only
+        fault_injection.fire("server.generate", rid=str(req_body.get("rid") or ""),
+                             xid=str(xid or ""), addr=str(self.addr or ""))
         ent = None
         if xid is not None:
             with self._idem_lock:
@@ -354,6 +365,8 @@ class DecodeServer:
 
     def _update_weights_from_tensor(self, query, body) -> dict:
         push_id = (query.get("push_id") or [None])[0]
+        fault_injection.fire("server.weights.stage", push_id=str(push_id or ""),
+                             addr=str(self.addr or ""))
         with self._ctl_lock:
             self._reap_stale_staging_locked()
             # push ids are ordered by time: a newer one supersedes what an
@@ -385,6 +398,10 @@ class DecodeServer:
         if req_body.get("lora_scale") is not None:
             raise _Reply(501, "LoRA delta push is not in the PyTorch port yet: ROADMAP.md "
                               "queue 1, item 6")
+        # before the lock (JAX :512-516): a delay never stalls a pause or an
+        # install, an abort leaves the staged weights and the old version
+        fault_injection.fire("server.weights.commit", push_id=str(push_id or ""),
+                             addr=str(self.addr or ""))
         with self._ctl_lock:
             self._reap_stale_staging_locked()
             if push_id is not None and push_id != self._staging_push_id:

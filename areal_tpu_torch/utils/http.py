@@ -18,6 +18,11 @@ has no `aiohttp`.
 - An idle pooled connection the server has since closed fails before any
   response arrives; such a request is sent once more on a new connection
   without counting as a retry.
+- Fault seams (`core/fault_injection.py`, the JAX places :125-175):
+  `client.http.send` before a request leaves, `client.http.recv` after a
+  2xx arrived (the error-after-effect shape: the retry is a duplicate
+  delivery the server's xid table answers) and `client.http.body`, a torn
+  reply. An `InjectedFault` is retried like a transport error.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ import random
 import threading
 import time
 from typing import Any
+
+from areal_tpu_torch.core import fault_injection
 
 DEFAULT_RETRIES = 3
 DEFAULT_REQUEST_TIMEOUT = 3600.0
@@ -154,12 +161,21 @@ def request_with_retry(
     body, headers = _body_of(payload, data, method)
     delays = backoff_delays(retry_delay, max_retries)
     last_exc: Exception | None = None
+    inj = fault_injection.get()
     for attempt in range(max_retries):
         try:
+            if inj is not None:
+                inj.fire("client.http.send", addr=addr, endpoint=endpoint, method=method,
+                         attempt=attempt)
             status, text = _send_once(addr, endpoint, method, body, headers, timeout)
             if status >= 400:
                 raise HttpRequestError(f"{url} -> {status}: {text}", status=status,
                                        body=_parse_json_body(text))
+            if inj is not None:
+                # post-effect: the server has answered; only the reply is lost
+                inj.fire("client.http.recv", addr=addr, endpoint=endpoint, method=method,
+                         attempt=attempt)
+                text = inj.tear("client.http.body", text, addr=addr, endpoint=endpoint)
             try:
                 return json.loads(text)
             except ValueError as e:
@@ -168,7 +184,8 @@ def request_with_retry(
                 raise HttpRequestError(
                     f"{url} -> torn response body ({len(text)} bytes): {e}"
                 ) from e
-        except (OSError, http.client.HTTPException, HttpRequestError) as e:
+        except (OSError, http.client.HTTPException, HttpRequestError,
+                fault_injection.InjectedFault) as e:
             if isinstance(e, HttpRequestError) and e.status is not None and e.status < 500:
                 raise
             last_exc = e

@@ -27,9 +27,12 @@ next cadence. `load` walks the committed steps newest to oldest and skips
 a torn, mismatched or half-deleted candidate (`recover_torn_skipped_total`)
 instead of crashing.
 
-Left out: the JAX module's fault-injection seams
-(`core/fault_injection.fire` at `recover.dump.save`, `.info`, `.marker` and
-`recover.load`), whose harness is ROADMAP queue 1, item 7.
+Fault seams (`core/fault_injection.py`, JAX :322-402): `recover.dump.save`
+(the tmp directory made, nothing written into it), `recover.dump.info`
+(between the engine checkpoint and `recover_info.pkl`),
+`recover.dump.marker` (between the fsynced manifest and the rename: all
+written, nothing committed) and `recover.load` (per candidate: an abort
+there skips to the next-older step like any torn candidate).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from dataclasses import dataclass, field
 
 from areal_tpu_torch.api.cli_args import RecoverConfig
 from areal_tpu_torch.api.io_struct import FinetuneSpec, SaveLoadMeta, StepInfo
+from areal_tpu_torch.core import fault_injection
 from areal_tpu_torch.utils import logging
 from areal_tpu_torch.utils.timeutil import FrequencyControl
 
@@ -267,8 +271,10 @@ class RecoverHandler:
                 shutil.rmtree(stale)
         ckpt = os.path.join(tmp, "checkpoint")
         os.makedirs(ckpt)
+        fault_injection.fire("recover.dump.save", step=g)
         engine.save(SaveLoadMeta(path=ckpt, weight_format=CHECKPOINT_FORMAT, with_optim=True,
                                  tokenizer=tokenizer))
+        fault_injection.fire("recover.dump.info", step=g)
         info = RecoverInfo(
             last_step_info=step_info,
             saver_info=saver.state_dict() if saver is not None else {},
@@ -286,6 +292,7 @@ class RecoverHandler:
             f.flush()
             os.fsync(f.fileno())
         _write_manifest(tmp, g)
+        fault_injection.fire("recover.dump.marker", step=g)
         if os.path.exists(final):
             # a replayed step: move the old directory to a name that is no
             # candidate, so the window without a recovery point for G is
@@ -322,6 +329,7 @@ class RecoverHandler:
             return None
         for g, path in _step_dirs_newest_first(recover_root(self.config)):
             try:
+                fault_injection.fire("recover.load", step=g)
                 ok, reason = verify_step_dir(path)
                 if not ok:
                     raise RuntimeError(reason)

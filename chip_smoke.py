@@ -8,8 +8,9 @@ Hopper card and the CUDA toolkit:
 It builds the port's CUDA kernels from the sources in the checkout, holds
 each against its plain PyTorch version on the card, then drives the main
 paths with seeded random weights in bf16: it serves 16 concurrent
-requests through `TorchDecodeEngine` at Qwen2.5-7B full width and depth,
-drives the decode scheduler's defaults on such an engine (GRPO groups
+requests through `TorchDecodeEngine` at Qwen2.5-7B's full width and depth,
+drives the decode scheduler's defaults on such an engine, at 14 of its 28
+layers as the spec and int8 engines below (GRPO groups
 forked from one prefill under run-ahead 1 and 0, a multi-turn suffix
 prefill, interrupt and parked-KV resume, stop strings, and the frequency
 penalty on the spec engine), serves self-quoting traffic with
@@ -22,9 +23,9 @@ gate, RLVR episodes, decoupled-PPO update and weight push) on
 lr=0 control, and at Qwen2.5-1.5B full width and depth, and runs three
 colocated GRPO iterations (rollout, `compute_logp`, `compute_advantages`,
 `ppo_update`, weight push) through `TorchPPOActor` at Qwen2.5-1.5B full
-width and depth. Then the trainer's persistence and the SFT path: the
+width (4 of its 28 layers). Then the trainer's persistence and the SFT path: the
 port's SFT entry point (`areal_tpu_torch/examples/gsm8k_sft.py`) at
-Qwen2.5-1.5B full width and depth, 4 steps with an HF export, 2 steps
+Qwen2.5-1.5B full width, 4 steps with an HF export, 2 steps
 with a recovery point and a resume to 4 that must equal the uninterrupted
 run bit for bit; `arith_sft_smoke.yaml` unchanged with its evaluations;
 the GRPO entry point's recovery (a resume at step 2 serving the restored
@@ -33,13 +34,13 @@ head against its dense version. Last, the decoupled path
 (`allocation_mode=jax:d1+d1`): a decode server process
 (`areal_tpu_torch/launcher/decode_server.py`, spawned by the local
 launcher) serves the GRPO entry point's rollouts at Qwen2.5-1.5B full
-width and depth while the trainer runs in this process and pushes its
+width while the trainer runs in this process and pushes its
 weights back over HTTP; then a dcn and a disk push of the same weights
 must give the same greedy tokens, and the launcher runs the smoke yaml end
 to end with both processes on the card. Then the customization layer's
 other trainers: the PPO entry point (`areal_tpu_torch/examples/gsm8k_ppo.py`:
 an actor and a value-head critic beside the decode engine) on
-`arith_ppo_smoke.yaml` and at Qwen2.5-1.5B full width and depth for both
+`arith_ppo_smoke.yaml` and at Qwen2.5-1.5B full width for both
 models; the Bradley-Terry reward model (`TorchRWEngine`) at Qwen2.5-1.5B
 and through its entry point (`examples/hhrlhf_rw.py`) on
 `arith_rw_smoke.yaml`; and the multi-turn workflow through the GRPO entry
@@ -56,10 +57,20 @@ its offline overrides at Qwen2.5-1.5B, its checkpoints scored by the
 checkpoint watcher's evaluation jobs on the card; tool rounds of the TIR
 workflow (a python tool and a calculator) whose decode logprobs must
 agree with the trainer's; the verification service, the agent layer and
-the OpenAI-style client, and the code evaluation. The decoupled, PPO and
-multi-turn runs and the SFT entry point at Qwen2.5-1.5B take 4 of its 28
-layers, so that the
-script keeps within its time limit. It checks that the
+the OpenAI-style client, and the code evaluation. Then the memory
+estimator (`areal_tpu_torch/utils/hbm.py`) beside the measured peaks of
+five of those runs, and last the fault-injection harness
+(`areal_tpu_torch/core/fault_injection.py`) on the GRPO path's kernels:
+a colocated GRPO loop killed at four seams in turn (each trainer's
+successor its resume) and past a torn checkpoint, resumed bit-equal to an
+unfaulted oracle with every sample trained once, and two decode servers in this process under a four-mode fault
+plan with every request served once, then a weight push whose commit
+fails. The PPO, multi-turn, checkpoint, decoupled and TIR runs trace
+their last train step through the train engine's own trace window
+(`AREAL_TPU_XPROF_DIR`). The decoupled, PPO, multi-turn, checkpoint and
+TIR (t1, t2) runs, the train phase and the SFT entry point at
+Qwen2.5-1.5B take 4 of its 28 layers, and the chaos phase 1, so that the script keeps within its time
+limit; each phase's seconds are printed. It checks that the
 kernels really carried each path. Each phase prints one JSON line; then
 come the `kernels` line, the card's name and power limit, and last
 `{"ok": true, "device": ...}`. Any failed check raises, and the script
@@ -99,6 +110,10 @@ phases).
 
 runs only the hf_path phase (after the device and build phases).
 
+    python3 chip_smoke.py --chaos
+
+runs only the chaos phase (after the device and build phases).
+
     python3 chip_smoke.py --tir
 
 runs only the tir phase (after the device and build phases).
@@ -128,6 +143,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -144,6 +160,7 @@ from areal_tpu_torch.api.cli_args import (
     OptimizerConfig,
     PPOActorConfig,
     TorchDecodeConfig,
+    TrainEngineConfig,
     load_expr_config,
 )
 from areal_tpu_torch.api.io_struct import FinetuneSpec, ModelRequest, WeightUpdateMeta
@@ -241,8 +258,12 @@ DECODE_SPLITS = (1, 2, 4, None)
 KERNEL_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-5, 2.0 ** -8)}
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - _T0, **fields}),
+          flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -508,15 +529,23 @@ def phase_bad_table() -> None:
     kernel's launch; on a page without valid rows it is never read. Both
     routes: f32 q (the first version) and bf16 q (the tensor-core kernel)."""
     results = []
-    for dtype in ("float32", "bfloat16"):
-        proc = subprocess.run(
-            [sys.executable, "-c", _BAD_TABLE_PROBE, dtype], cwd=Path(__file__).resolve().parent,
-            capture_output=True, text=True, timeout=300,
-        )
-        lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
-        check(bool(lines), f"bad-table probe ({dtype}) printed nothing (rc {proc.returncode}): "
-                           f"{proc.stderr[-2000:]}")
-        results.append(json.loads(lines[-1]))
+    # one child per dtype (the fault spoils its CUDA context), run side by side
+    procs = {dtype: subprocess.Popen(
+        [sys.executable, "-c", _BAD_TABLE_PROBE, dtype], cwd=Path(__file__).resolve().parent,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for dtype in ("float32", "bfloat16")}
+    try:
+        for dtype, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            lines = [l for l in out.splitlines() if l.startswith("{")]
+            check(bool(lines), f"bad-table probe ({dtype}) printed nothing "
+                               f"(rc {proc.returncode}): {err[-2000:]}")
+            results.append(json.loads(lines[-1]))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     emit("bad_table", cases=results)
     for res in results:
         check(res["unread_bad_id_ok"],
@@ -1151,10 +1180,19 @@ def _serve_traffic(engine, cfg, rng) -> dict:
     )
 
 
-def _serve_engine(dev: torch.device, settings: dict):
-    """Qwen2.5-7B at full width and depth (bf16, random weights from SEED)
-    in a decode engine with `settings`."""
-    cfg = dataclasses.replace(QWEN25_7B, scan_layers=False)  # layers_{i}/... tensors
+# The serve cell runs all of Qwen2.5-7B's 28 layers; the sched, spec and
+# int8 serve cells, built on the same engine settings, run SERVE_LAYERS of
+# them to keep the script within its time limit (their decode steps are
+# host-bound: the launches per step scale with the depth); widths stay the
+# published ones and every launch formula reads its own L
+SERVE_LAYERS = 14
+
+
+def _serve_engine(dev: torch.device, settings: dict, layers: int = SERVE_LAYERS):
+    """Qwen2.5-7B at full width, `layers` of its 28 layers (bf16, random
+    weights from SEED) in a decode engine with `settings`."""
+    cfg = dataclasses.replace(QWEN25_7B, scan_layers=False,  # layers_{i}/... tensors
+                              num_hidden_layers=layers)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
     torch.cuda.synchronize()
@@ -1174,7 +1212,7 @@ def _serve_engine(dev: torch.device, settings: dict):
 
 
 def phase_serve(dev: torch.device):
-    engine, cfg, info = _serve_engine(dev, SERVE)
+    engine, cfg, info = _serve_engine(dev, SERVE, layers=QWEN25_7B.num_hidden_layers)
     torch.cuda.reset_peak_memory_stats(dev)
     rng = np.random.default_rng(SEED)
 
@@ -1494,7 +1532,7 @@ def _sched_stop_strings(dev) -> dict:
 
 def phase_sched(dev: torch.device) -> dict:
     """The decode scheduler's JAX defaults through `agenerate` on the serve
-    cell's engine (Qwen2.5-7B, full width and depth, bf16, random weights
+    cell's engine (Qwen2.5-7B, full width, SERVE_LAYERS of 28 layers, bf16, random weights
     from SEED, `decode_runahead_chunks` 1):
 
     (g) 4 prompts x 4 samples in one wave: 4 prefill forwards (one per
@@ -2062,7 +2100,8 @@ def _pushed_params(dev: torch.device, cfg):
 
 
 def phase_serve_spec(dev: torch.device, settings: dict, phase: str):
-    """The spec serve cell: Qwen2.5-7B at full width and depth (bf16, the
+    """The spec serve cell: Qwen2.5-7B at full width, SERVE_LAYERS of its
+    28 layers (bf16, the
     serve cells' weights) in an engine with `settings` and
     spec_decode="ngram", spec_k 4, serving one wave of `_spec_requests`;
     the same wave on a spec-off engine with the same weights and seed
@@ -2076,7 +2115,7 @@ def phase_serve_spec(dev: torch.device, settings: dict, phase: str):
     the verify forwards' accepted + 1 per slot plus the normal chunks'
     tokens, less those cut at a stop. Reported, not checked: each
     request's prefix that agrees with its spec-off stream."""
-    cfg = dataclasses.replace(QWEN25_7B, scan_layers=False)
+    cfg = dataclasses.replace(QWEN25_7B, scan_layers=False, num_hidden_layers=SERVE_LAYERS)
     L = cfg.num_hidden_layers
     quant = settings.get("kv_dtype") == "int8"
     params = _pushed_params(dev, cfg)
@@ -2731,22 +2770,30 @@ def _kernel_family(name: str) -> str:
 
 def _device_ms_by_family(prof) -> tuple[dict, int, list]:
     """Device ms summed by kernel family, the kernel count, and the six
-    costliest kernels of the "other" family."""
-    fams: dict[str, float] = {}
-    others = []
+    costliest kernels of the "other" family, from the kernel events of the
+    profile's Chrome trace (`key_averages` builds a Python record of every
+    event first: ~45 s after a traced rollout wait of ~200k kernels)."""
+    with tempfile.TemporaryDirectory(prefix="trace-") as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    fams: dict[str, float] = collections.defaultdict(float)
+    others: dict[str, list] = {}
     n = 0
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if not dev_us or ev.key.startswith(("aten::", "cuda", "Memcpy", "Memset")):
+    for e in events:
+        if e.get("cat") != "kernel":
             continue
-        n += ev.count
-        fam = _kernel_family(ev.key)
-        fams[fam] = fams.get(fam, 0.0) + dev_us / 1e3
+        n += 1
+        ms = e.get("dur", 0.0) / 1e3
+        fam = _kernel_family(e["name"])
+        fams[fam] += ms
         if fam == "other":
-            others.append((dev_us / 1e3, ev.count, ev.key[:90]))
-    return fams, n, sorted(others, reverse=True)[:6]
+            rec = others.setdefault(e["name"], [0.0, 0])
+            rec[0] += ms
+            rec[1] += 1
+    top = sorted(((ms, c, name[:90]) for name, (ms, c) in others.items()), reverse=True)[:6]
+    return dict(fams), n, top
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -2754,7 +2801,8 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def phase_train(dev: torch.device) -> dict:
-    """One colocated GRPO loop at Qwen2.5-1.5B full width and depth (bf16,
+    """One colocated GRPO loop at Qwen2.5-1.5B full width, CUT_LAYERS of its
+    28 layers (bf16,
     random weights from the seed): for each of 3 iterations, 8 prompts x 4
     samples from a `TorchDecodeEngine` (K3), rewards by `reward_of`, then
     `compute_logp` (K1), `compute_advantages`, `ppo_update` (K1 twice per
@@ -2767,7 +2815,8 @@ def phase_train(dev: torch.device) -> dict:
     micro-batch per pass (K1 twice under remat), and K3 launches."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = dataclasses.replace(QWEN25_1_5B, scan_layers=False, remat=True)
+    cfg = dataclasses.replace(QWEN25_1_5B, scan_layers=False, remat=True,
+                              num_hidden_layers=CUT_LAYERS)
     L = cfg.num_hidden_layers
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 20), dev)
     actor_cfg = PPOActorConfig(
@@ -2946,7 +2995,7 @@ def phase_train(dev: torch.device) -> dict:
     seg = _segment_ids_of(main_mb)
     engine.destroy()
     actor.destroy()
-    return dict(launches=launches, segment_ids=seg, cfg=cfg)
+    return dict(launches=launches, segment_ids=seg, cfg=cfg, peak_gb=peak_gb)
 
 
 # phase: the port's GRPO entry point (`areal_tpu_torch/examples/gsm8k_grpo.py`)
@@ -2979,10 +3028,10 @@ FULL_OVERRIDES = [
 ]
 LOOP_TIMINGS = ("rollout", "recompute_logp", "compute_advantage", "train_step",
                 "update_weights")
-# Qwen2.5-1.5B's depth (28 layers) in the SFT, decoupled (d1), PPO (p2)
-# and multi-turn (m2) runs, cut to keep the script within its time limit;
-# their widths stay the published ones and their launch formulas read
-# their own L
+# Qwen2.5-1.5B's depth (28 layers) in the train, SFT, decoupled (d1), PPO
+# (p2), multi-turn (m2), checkpoint (h0-h3) and TIR (t1, t2) runs, cut to keep the
+# script within its time limit; their widths stay the published ones and
+# their launch formulas read their own L
 CUT_LAYERS = 4
 
 
@@ -3012,6 +3061,138 @@ def _traced(fn, *args, **kwargs):
     total = sum(fams.values())
     return out, dict(wall_ms=wall_ms, kernels=n_kernels, device_ms=fams, device_total_ms=total,
                      device_busy_share=total / wall_ms, top_other_ms=top_other)
+
+
+XPROF_FAMILIES = ("K1 flash_fwd", "K2a flash_bwd_dq", "K2b flash_bwd_dkv")
+
+
+def _read_xprof(path: str) -> dict:
+    """A Chrome trace of the env-gated window (`utils/perf_tracer.py`),
+    read back: its `train_batch` ranges, and the device ms and launches by
+    kernel family (`_kernel_family`) of the kernels launched within those
+    spans, by the launching thread. The trainer's are those of the thread
+    that opened the ranges and of autograd's backward threads (the threads
+    that ran an `autograd::engine::evaluate_function` inside a range): they
+    give the families, the launches and the ranges' busy share. The
+    kernels that other threads launched inside the ranges are kept apart:
+    the decode scheduler's (a thread that launches K3 anywhere in the
+    trace) under "decode", any other thread's under "other_threads"."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("name") == "train_batch"
+             and e.get("cat") == "user_annotation" and e.get("ph") == "X"]
+    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in spans]
+
+    def inside(ts):
+        return any(a <= ts <= b for a, b in ranges)
+
+    trainer = {e["tid"] for e in spans}
+    backward = {e["tid"] for e in events if e.get("cat") == "cpu_op"
+                and str(e.get("name", "")).startswith("autograd::engine::evaluate_function")
+                and inside(e["ts"])}
+    launch = {}
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
+            launch[e["args"]["correlation"]] = (e["ts"], e["tid"])
+    kernels = []
+    for e in events:
+        if e.get("cat") == "kernel":
+            at = launch.get(e.get("args", {}).get("correlation"))
+            if at is not None:
+                kernels.append((e, _kernel_family(e["name"]), *at))
+    decode_tids = {tid for _, fam, _, tid in kernels if fam == "paged_attention"}
+    by_part = {part: (collections.defaultdict(float), collections.Counter())
+               for part in ("trainer", "decode", "other_threads")}
+    for e, fam, ts, tid in kernels:
+        if not inside(ts):
+            continue
+        part = ("trainer" if tid in trainer | backward
+                else "decode" if tid in decode_tids else "other_threads")
+        by_part[part][0][fam] += e["dur"] / 1e3
+        by_part[part][1][fam] += 1
+    device_ms, launches = by_part["trainer"]
+    wall_ms = sum(b - a for a, b in ranges) / 1e3
+    total = sum(device_ms.values())
+    apart = {part: dict(device_ms=dict(ms), device_total_ms=sum(ms.values()),
+                        kernels=sum(n.values()),
+                        busy_share=sum(ms.values()) / wall_ms if wall_ms else None)
+             for part, (ms, n) in by_part.items() if part != "trainer"}
+    return dict(trace_events=len(events), train_batch_ranges=len(ranges), wall_ms=wall_ms,
+                threads=dict(trainer=len(trainer), backward=len(backward - trainer),
+                             decode=len(decode_tids)),
+                device_ms=dict(device_ms), device_total_ms=total,
+                device_busy_share=total / wall_ms if wall_ms else None,
+                launches={k: launches[k] for k in XPROF_FAMILIES}, **apart)
+
+
+@contextlib.contextmanager
+def _xprof_window(tag: str, steps: str):
+    """Run the enclosed entry point under the train engine's own env-gated
+    trace window (`AREAL_TPU_XPROF_DIR`, `AREAL_TPU_XPROF_STEPS` = `steps`,
+    the `train_batch` counts of the run's last step), reset before and
+    flushed after. Records each `train_batch` that ran inside the window
+    and its micro-batches; after the block, reads the trace back and checks
+    that it holds those `train_batch` ranges with K1 = L x 2 (under remat)
+    x trained mbs and K2a = K2b = L x trained mbs launched inside them,
+    summed over the calls (each with its engine's L). The record is in the
+    yielded dict's "xprof"."""
+    from areal_tpu_torch.engine.torch_engine import TorchTrainEngine
+    from areal_tpu_torch.utils import perf_tracer
+
+    seen: dict = dict(calls=[])
+    train_batch = TorchTrainEngine.train_batch
+
+    def train_batch_(self, *args, **kwargs):
+        st = train_batch(self, *args, **kwargs)
+        if perf_tracer._xprof_state["active"]:
+            mc = self.model_config
+            seen["calls"].append(dict(critic=bool(mc.is_critic), layers=mc.num_hidden_layers,
+                                      remat=bool(mc.remat), n_mbs=int(st["n_mbs"]),
+                                      owner=perf_tracer._xprof_state["owner"] == id(self)))
+        return st
+
+    target = tempfile.mkdtemp(prefix=f"xprof-{tag}-")
+    keys = ("AREAL_TPU_XPROF_DIR", "AREAL_TPU_XPROF_STEPS")
+    old = {k: os.environ.get(k) for k in keys}
+    perf_tracer.reset_xprof_window()
+    os.environ.update(AREAL_TPU_XPROF_DIR=target, AREAL_TPU_XPROF_STEPS=steps)
+    TorchTrainEngine.train_batch = train_batch_
+    try:
+        yield seen
+    finally:
+        TorchTrainEngine.train_batch = train_batch
+        path = perf_tracer.reset_xprof_window()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    try:
+        check(path is not None, f"{tag}: the trace window never opened (steps {steps})")
+        trace = _read_xprof(path)
+        trace_bytes = os.path.getsize(path)
+    finally:
+        shutil.rmtree(target, ignore_errors=True)
+    calls = seen["calls"]
+    k2 = sum(c["layers"] * c["n_mbs"] for c in calls)
+    want = {"K1 flash_fwd": sum(c["layers"] * (2 if c["remat"] else 1) * c["n_mbs"]
+                                for c in calls),
+            "K2a flash_bwd_dq": k2, "K2b flash_bwd_dkv": k2}
+    seen["xprof"] = dict(steps=steps, calls=seen.pop("calls"), trace_bytes=trace_bytes,
+                         formula=want, **trace)
+    check(trace["train_batch_ranges"] == len(seen["xprof"]["calls"]) > 0,
+          f"{tag}: {trace['train_batch_ranges']} train_batch ranges in the trace for "
+          f"{len(seen['xprof']['calls'])} calls in the window")
+    check(trace["launches"] == want,
+          f"{tag}: launches inside train_batch {trace['launches']}, formula {want}")
+
+
+def _last_step_window(config) -> str:
+    """`AREAL_TPU_XPROF_STEPS` for a run's last step: its `train_batch`
+    counts, one per minibatch."""
+    n_mb = config.actor.ppo_n_minibatches
+    lo = (config.total_train_steps - 1) * n_mb
+    return f"{lo}-{lo + n_mb - 1}"
 
 
 @contextlib.contextmanager
@@ -3165,7 +3346,7 @@ def _step_rows(tag: str, history: list, config, first_step: int = 0,
 def _loop_run(dev, tag: str, overrides: list[str], model_config=None, reward_fn=None,
               trace_step: int | None = None, root: str | None = None,
               first_step: int = 0, yaml: str | None = None, batch_check=None,
-              entry=None) -> dict:
+              entry=None, xprof: bool = False) -> dict:
     """One run of the entry point (`entry`, `gsm8k_grpo.main` by default)
     on `yaml` (the smoke yaml by default)
     with `overrides`, its kernel counts set to 0 just before and read just
@@ -3174,7 +3355,8 @@ def _loop_run(dev, tag: str, overrides: list[str], model_config=None, reward_fn=
     token it trains on), the micro-batches of `compute_logp` and of
     `ppo_update`, and `batch_check(batch)`. `root` (a temporary directory
     by default) is the run's file root, and `first_step` the global step a
-    resumed run starts at."""
+    resumed run starts at. With `xprof`, the run's last step is traced
+    through the train engine's env-gated window (`_xprof_window`)."""
     with contextlib.ExitStack() as stack:
         if root is None:
             root = stack.enter_context(tempfile.TemporaryDirectory())
@@ -3182,7 +3364,9 @@ def _loop_run(dev, tag: str, overrides: list[str], model_config=None, reward_fn=
                 f"experiment_name=chip-smoke-{tag.split('/')[0]}"]
         config, _ = load_expr_config(argv, GRPOConfig)
         torch.cuda.reset_peak_memory_stats(dev)
-        with _observe_loop(trace_step) as seen, _observe_dump() as dumps:
+        window = (_xprof_window(tag, _last_step_window(config)) if xprof
+                  else contextlib.nullcontext({}))
+        with _observe_loop(trace_step) as seen, _observe_dump() as dumps, window as xp:
             # ---- the main path: counts to 0 just before, read just after ----
             pa.launches = fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
             t0 = time.perf_counter()
@@ -3230,6 +3414,8 @@ def _loop_run(dev, tag: str, overrides: list[str], model_config=None, reward_fn=
                max_version_lag=max(r["version_lag"] for r in steps), steps=steps)
     if seen["traces"]:
         out["traced_step"] = dict(step=trace_step, **seen["traces"])
+    if "xprof" in xp:
+        out["xprof"] = xp["xprof"]
     if dumps:
         out["dumps"] = dumps
     return out
@@ -3299,7 +3485,8 @@ def phase_grpo_loop(dev: torch.device) -> dict:
                        result={str(k): v for k, v in learned.items()}),
          runs=list(runs.values()))
     total = {k: sum(r["launches"][k] for r in runs.values()) for k in runs["full"]["launches"]}
-    return dict(launches=total, by_run={t: r["launches"] for t, r in runs.items()})
+    return dict(launches=total, by_run={t: r["launches"] for t, r in runs.items()},
+                peak_gb=runs["full"]["max_memory_allocated_gb"])
 
 
 # phases: checkpoints, recovery and the SFT entry point
@@ -3807,7 +3994,8 @@ def _decoupled_loop(dev, root: str) -> dict:
         m0 = _server_get(addr, "/metrics")["kernel_launches"]
         check(all(v == 0 for v in m0.values()), f"d1: the server launched before the run: {m0}")
         torch.cuda.reset_peak_memory_stats(dev)
-        with _observe_decoupled() as seen:
+        with _observe_decoupled() as seen, _xprof_window(
+                "d1", _last_step_window(config)) as xp:
             # ---- the main path: counts to 0 just before, read just after ----
             pa.launches = fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
             t0 = time.perf_counter()
@@ -3897,7 +4085,7 @@ def _decoupled_loop(dev, root: str) -> dict:
     return dict(
         run="d1", model="Qwen2.5-1.5B", source=QWEN25_1_5B_SOURCE, layers=L,
         allocation_mode=DECOUPLED_ALLOC, overrides=DECOUPLED_OVERRIDES, wall_s=wall,
-        server_spawn_s=spawn_s, launches=launches, formulas=dict(
+        server_spawn_s=spawn_s, launches=launches, xprof=xp["xprof"], formulas=dict(
             paged_attention="server decode steps x L (read from its /metrics)",
             flash_attention_fwd="L x (logp mbs + 2 x trained mbs)",
             flash_attention_bwd_dq="L x trained mbs", flash_attention_bwd_dkv="L x trained mbs"),
@@ -4067,7 +4255,7 @@ def _flash_launches() -> dict:
 
 
 def _ppo_run(dev, tag: str, overrides: list[str], model_config=None,
-             critic_model_config=None, reward_fn=None) -> dict:
+             critic_model_config=None, reward_fn=None, xprof: bool = False) -> dict:
     """One run of the PPO entry point (`gsm8k_ppo.main`) on the PPO yaml
     with `overrides`, its kernel counts set to 0 just before and read just
     after: K3 = decode steps x L, K1/K2a/K2b on `_flash_want` over both
@@ -4083,7 +4271,9 @@ def _ppo_run(dev, tag: str, overrides: list[str], model_config=None,
                 f"experiment_name=chip-smoke-ppo-{tag}"]
         config, _ = load_expr_config(argv, PPOConfig)
         torch.cuda.reset_peak_memory_stats(dev)
-        with _observe_loop() as seen, _observe_passes() as passes:
+        window = (_xprof_window(f"ppo {tag}", _last_step_window(config)) if xprof
+                  else contextlib.nullcontext({}))
+        with _observe_loop() as seen, _observe_passes() as passes, window as xp:
             # ---- the main path: counts to 0 just before, read just after ----
             pa.launches = fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
             t0 = time.perf_counter()
@@ -4120,7 +4310,7 @@ def _ppo_run(dev, tag: str, overrides: list[str], model_config=None,
     for i, u in enumerate(seen["updates"]):
         steps[i]["max_memory_allocated_gb_at_actor_update"] = u["max_memory_allocated_gb"]
     return dict(run=tag, overrides=overrides, layers=L, dtype=engine.model_config.dtype,
-                wall_s=wall, launches=launches, formulas=dict(
+                wall_s=wall, launches=launches, xprof=xp.get("xprof"), formulas=dict(
                     paged_attention="decode steps x L",
                     flash_attention_fwd="L x (logp mbs + value mbs + (2 if remat else 1) x "
                                         "trained mbs of both engines)",
@@ -4160,11 +4350,12 @@ def phase_ppo(dev: torch.device) -> dict:
                           critic_model_config=dataclasses.replace(
                               QWEN25_1_5B, remat=True, is_critic=True,
                               num_hidden_layers=CUT_LAYERS),
-                          reward_fn=parity_reward)
+                          reward_fn=parity_reward, xprof=True)
     emit("ppo", entry_point="areal_tpu_torch/examples/gsm8k_ppo.py:main", yaml=PPO_YAML,
          full_model="Qwen2.5-1.5B", full_source=QWEN25_1_5B_SOURCE, runs=list(runs.values()))
     total = {k: sum(r["launches"][k] for r in runs.values()) for k in runs["p2"]["launches"]}
-    return dict(launches=total, by_run={t: r["launches"] for t, r in runs.items()})
+    return dict(launches=total, by_run={t: r["launches"] for t, r in runs.items()},
+                p2_peak_gb=runs["p2"]["max_memory_allocated_gb"])
 
 
 def _rw_pairs(rng, vocab: int, pairs: int) -> dict:
@@ -4294,7 +4485,8 @@ def phase_rw(dev: torch.device) -> dict:
          engine="areal_tpu_torch/engine/rw/rw_engine.py:TorchRWEngine",
          full_source=QWEN25_1_5B_SOURCE, runs=list(runs.values()))
     total = {k: sum(r["launches"][k] for r in runs.values()) for k in FLASH_COUNTERS}
-    return dict(launches=dict(total, paged_attention=0))
+    return dict(launches=dict(total, paged_attention=0),
+                r1_peak_gb=runs["r1"]["max_memory_allocated_gb"])
 
 
 def _feedback_spans(batch: dict) -> dict:
@@ -4344,7 +4536,7 @@ def phase_multi_turn(dev: torch.device) -> dict:
     runs["m2"] = _loop_run(dev, "m2", MT_FULL_OVERRIDES, yaml=MT_YAML,
                            model_config=dataclasses.replace(QWEN25_1_5B, remat=True,
                                                             num_hidden_layers=CUT_LAYERS),
-                           batch_check=_feedback_spans)
+                           batch_check=_feedback_spans, xprof=True)
     for tag, r in runs.items():
         check(r["workflow"] == "multi_turn", f"{tag}: workflow {r['workflow']}")
         check(r["max_version_lag"] <= 2, f"{tag}: version lag {r['max_version_lag']}")
@@ -4365,7 +4557,9 @@ def phase_multi_turn(dev: torch.device) -> dict:
 # phase: HF checkpoints from local paths (the GRPO entry point's actor and
 # reference policy, the offline evaluator, the decode server's
 # --model-path)
-HF_SHARD_BYTES = 2 << 30  # Qwen2.5-1.5B's 3.09 GB of bf16 tensors: 2 shards
+# Qwen2.5-1.5B's widths at CUT_LAYERS of its 28 layers (0.84 GB of bf16
+# tensors; 3.09 GB at full depth): 2 shards
+HF_SHARD_BYTES = 512 << 20
 HF_KL = 0.05
 # loop cell (c)'s traffic on the countdown dataset, the actor and the
 # reference policy loaded from the checkpoint
@@ -4409,16 +4603,17 @@ def _version_of(module: str) -> str | None:
 
 
 def _write_hf_checkpoint(dev, root: str) -> tuple[dict, dict]:
-    """Qwen2.5-1.5B at its published widths, bf16 weights from seed 0,
-    written sharded in HF format by the port's writer (`hf_io`) with
+    """Qwen2.5-1.5B at its published widths and CUT_LAYERS of its 28
+    layers, bf16 weights from seed 0, written sharded in HF format by the port's writer (`hf_io`) with
     `QWEN25_1_5B_HF` as its config.json: (the written tensors'
     `_bit_sums`, the write's record)."""
-    cfg = dataclasses.replace(QWEN25_1_5B, scan_layers=False)
+    cfg = dataclasses.replace(QWEN25_1_5B, scan_layers=False, num_hidden_layers=CUT_LAYERS)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
     t0 = time.perf_counter()
     hf_io.save_hf_params(params, cfg, root, upcast_bf16=False, max_shard_bytes=HF_SHARD_BYTES)
     with open(os.path.join(root, "config.json"), "w") as f:
-        json.dump(dict(QWEN25_1_5B_HF, architectures=["Qwen2ForCausalLM"]), f)
+        json.dump(dict(QWEN25_1_5B_HF, num_hidden_layers=CUT_LAYERS,
+                       architectures=["Qwen2ForCausalLM"]), f)
     write_s = time.perf_counter() - t0
     with open(os.path.join(root, "model.safetensors.index.json")) as f:
         shards = sorted(set(json.load(f)["weight_map"].values()))
@@ -4494,7 +4689,7 @@ def _hf_grpo(dev, ckpt: str, written: dict) -> dict:
     equal the actor's, the countdown reward scores every sample once."""
     with _observe_engines(written) as engines, _observe_countdown() as calls:
         run = _loop_run(dev, "h1", HF_OVERRIDES + [f"actor.path={ckpt}", f"ref.path={ckpt}"],
-                        batch_check=_ref_check)
+                        batch_check=_ref_check, xprof=True)
     check(len(engines) == 2, f"h1: {len(engines)} train engines, want actor and reference")
     for name, e in zip(("actor", "ref"), engines):
         check(e["path"] == ckpt and e["bit_equal"],
@@ -4599,7 +4794,7 @@ def _hf_serve(dev, ckpt: str, root: str) -> dict:
         steps_local = eng.decode_steps
     finally:
         eng.destroy()
-    L = QWEN25_1_5B.num_hidden_layers
+    L = CUT_LAYERS  # the checkpoint's depth
     k = server["kernel_launches"]
     check(k["paged_attention"] == L * k["decode_steps"] > 0, f"h3: server launches {k}")
     check(k3_local == L * steps_local > 0, f"h3: K3 {k3_local}, want {L} x {steps_local}")
@@ -4618,7 +4813,8 @@ def _hf_serve(dev, ckpt: str, root: str) -> dict:
 def phase_hf_path(dev: torch.device) -> dict:
     """HF checkpoints from local paths on the card:
 
-    (h0) Qwen2.5-1.5B at its published widths, bf16 weights from seed 0,
+    (h0) Qwen2.5-1.5B at its published widths and CUT_LAYERS of its 28
+         layers, bf16 weights from seed 0,
          written by the port's own writer in 2 shards with an index;
     (h1) the GRPO entry point on it, colocated, under loop cell (c)'s
          settings on the countdown dataset, with `actor.path` and
@@ -4665,7 +4861,8 @@ def phase_hf_path(dev: torch.device) -> dict:
     total = dict(h1["launches"])
     total["paged_attention"] += h2["launches"]["paged_attention"] + h3["launches"][
         "paged_attention"]
-    return dict(launches=total, by_run={r["run"]: r["launches"] for r in runs})
+    return dict(launches=total, by_run={r["run"]: r["launches"] for r in runs},
+                h1_peak_gb=h1["max_memory_allocated_gb"])
 
 
 # phase: code and tool RL (`areal_tpu_torch/examples/tir_math.py` over
@@ -4686,7 +4883,8 @@ TIR_OVERRIDES = TIR_OFFLINE + [o for o in FULL_OVERRIDES if not o.startswith(
 TIR_AUTO_EVAL = dict(data_names="synthetic-arith", tokenizer_path="synthetic-arith",
                      max_gen_tokens=64, n_sampling=4, max_problems=16, max_concurrent_jobs=2)
 TIR_AUTO_TIMEOUT = 300
-# (t2): tool rounds at Qwen2.5-1.5B's widths and depth with the arithmetic
+# (t2): tool rounds at Qwen2.5-1.5B's widths, CUT_LAYERS of its 28 layers,
+# with the arithmetic
 # tokenizer's vocabulary in place of 151,936 rows, and the random weights'
 # final norm scaled down, so that the sampler draws the 21 rows near
 # uniformly and meets a one-character marker every ~21 tokens (with the
@@ -4784,7 +4982,7 @@ def _tir_loop(dev, root: str) -> tuple[dict, tuple]:
     from areal_tpu_torch.examples import tir_math
     from areal_tpu_torch.utils.saver import Saver
 
-    full_cfg = dataclasses.replace(QWEN25_1_5B, remat=True)
+    full_cfg = dataclasses.replace(QWEN25_1_5B, remat=True, num_hidden_layers=CUT_LAYERS)
 
     def no_tool_tokens(batch):
         # compute_advantages rolled the loss mask by -1: undo it
@@ -4794,7 +4992,7 @@ def _tir_loop(dev, root: str) -> tuple[dict, tuple]:
     with _observe_tools() as calls:
         run = _loop_run(dev, "t1", TIR_OVERRIDES, model_config=full_cfg,
                         reward_fn=parity_reward, root=root, yaml=TIR_YAML,
-                        batch_check=no_tool_tokens, entry=tir_math.main)
+                        batch_check=no_tool_tokens, entry=tir_math.main, xprof=True)
     config, _ = load_expr_config(["--config", TIR_YAML, *TIR_OVERRIDES,
                                   f"cluster.fileroot={root}",
                                   "experiment_name=chip-smoke-t1"], GRPOConfig)
@@ -4851,12 +5049,12 @@ def _tir_watch(ev, published: list, root: str) -> dict:
 
 
 def _tir_engine(dev):
-    """(t2)'s model, actor and decode engine: Qwen2.5-1.5B's widths and
-    depth with the arithmetic tokenizer's rows, bf16, random weights; the
+    """(t2)'s model, actor and decode engine: Qwen2.5-1.5B's widths at
+    CUT_LAYERS of its 28 layers with the arithmetic tokenizer's rows, bf16, random weights; the
     engine with the tokenizer (stop strings) at (c)'s slots and context."""
     tok = ArithTokenizer()
     cfg = dataclasses.replace(QWEN25_1_5B, vocab_size=tok.vocab_size, scan_layers=False,
-                              remat=True)
+                              remat=True, num_hidden_layers=CUT_LAYERS)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 50), dev)
     params["final_norm"].mul_(TIR_FINAL_NORM_SCALE)
     actor_cfg = PPOActorConfig(
@@ -4987,7 +5185,7 @@ def _tir_rounds(dev, actor, engine, cfg) -> dict:
     # rows that spliced a tool's output: a version -1 past the prompt
     past = np.arange(batch["versions"].shape[1])[None] >= batch["begin_of_answer"][:, None]
     with_tool = int(((batch["versions"] == -1) & past).any(axis=1).sum())
-    return dict(run="t2", model="Qwen2.5-1.5B widths and depth, vocab 21 (the arithmetic "
+    return dict(run="t2", model="Qwen2.5-1.5B widths, 4 of 28 layers, vocab 21 (the arithmetic "
                 "tokenizer's rows in place of 151,936)", final_norm_scale=TIR_FINAL_NORM_SCALE, markers=dict(
                     python=py_markers, calculator=calc_markers),
                 rows=rows, rows_with_a_tool_round=with_tool, generated_shares=shares,
@@ -5149,7 +5347,8 @@ def phase_tir(dev: torch.device) -> dict:
 
     (t1) `tir_math.py` (the GRPO entry point with `workflow=tir`) on
          `tir_math.yaml` with its offline smoke overrides at loop cell
-         (c)'s size: Qwen2.5-1.5B at full width and depth, random weights
+         (c)'s size: Qwen2.5-1.5B at full width, CUT_LAYERS of its 28
+         layers, random weights
          from seed 0, `synthetic-arith`, 8 prompts x 4 samples, 256 new
          tokens, 32 slots, context 512, 128-step chunks,
          `ppo_n_minibatches` 2, 2 steps, a checkpoint every step; then the
@@ -5161,8 +5360,8 @@ def phase_tir(dev: torch.device) -> dict:
          L x trained mbs, the version lag within `max_head_offpolicyness`.
     (t2) tool rounds: `TIRWorkflow` with a python tool and the calculator
          on markers of arithmetic characters, at Qwen2.5-1.5B's widths and
-         depth with the arithmetic tokenizer's 21 rows in place of 151,936
-         (the one reduction) and the random weights' final norm scaled by
+         CUT_LAYERS of its 28 layers, with the arithmetic tokenizer's 21
+         rows in place of 151,936 and the random weights' final norm scaled by
          TIR_FINAL_NORM_SCALE (so that the sampler draws the rows near
          uniformly and meets the markers), 8 prompts x 4 samples,
          `max_tool_calls` 4. Each tool
@@ -5478,15 +5677,734 @@ def _varlen_library_ms(q, k, v, do, seg_np, g) -> dict:
                 "(window_size=(-1, 0), kv heads repeated)")
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase: chaos — the fault-injection harness on the GRPO path's kernels
+# ---------------------------------------------------------------------------
+
+# (x1) trainer chaos: a colocated GRPO loop killed at each seam and resumed
+CHAOS_KILL_SITES = ("recover.dump.save", "recover.dump.marker", "train.step",
+                    "train.weights.push")
+CHAOS_KILL_STEP = 2
+CHAOS_TRAIN = dict(n_prompts=8, group=2, prompt_len=48, new_tokens=64, steps=3,
+                   mb_tokens=4096)
+CHAOS_DECODE = dict(max_running_requests=16, context_length=256, page_size=128,
+                    new_tokens_per_chunk=64)
+# Qwen2.5-1.5B's widths at 1 of its 28 layers, and AdamW's first moment in
+# bf16: the legs build the trainer and the decode engine seven times, and
+# load or dump a recovery point (the embedding's 233M parameters dominate
+# it) twelve times
+CHAOS_LAYERS = 1
+CHAOS_LR = 1e-3
+# (x2) fleet chaos: two in-process servers, 8 greedy requests
+CHAOS_SERVE = dict(max_running_requests=8, context_length=256, page_size=128,
+                   new_tokens_per_chunk=32)
+CHAOS_REQUESTS = 8
+CHAOS_PROMPT_LEN = (16, 48)  # under a page: no prefix reuse between passes
+CHAOS_MAX_NEW = 32
+CHAOS_TIMEOUT = 300
+
+
+def chaos_reward(prompt, completion, prompt_ids, completion_ids, **kwargs) -> float:
+    """`bench.py` chaostrain's reward: a function of the first 8 tokens."""
+    return float(sum(completion_ids[:8]) % 7) / 7.0
+
+
+def _fingerprint(params: dict) -> str:
+    """sha256 of every parameter's bytes, in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(params):
+        h.update(name.encode())
+        t = params[name].detach().contiguous().cpu()
+        h.update(t.view(torch.uint8).numpy().tobytes() if t.numel() else b"")
+    return h.hexdigest()
+
+
+def _stat(stats: list[dict], suffix: str) -> float:
+    s = stats[0]
+    for k in sorted(s):
+        if k == suffix or k.endswith("/" + suffix):
+            return float(s[k])
+    raise KeyError(f"no stat ending in {suffix!r}: {sorted(s)[:8]}")
+
+
+def _link_tree(src: str, dst: str) -> None:
+    """Copy a recovery file root: its checkpoint files (written once, never
+    changed in place) as hard links, the sample ledger's journal (appended
+    and rolled back in place) as a copy."""
+    def link_or_copy(a, b):
+        if os.path.basename(a) == "ledger.wal":
+            return shutil.copy2(a, b)
+        os.link(a, b)
+        return b
+
+    shutil.copytree(src, dst, copy_function=link_or_copy)
+
+
+def _wave_rollout(engine, data, workflow, n_requests: int):
+    """`rollout_batch` with every request of the batch admitted in one
+    wave: queued while the decode engine is paused, then released, so a
+    replayed step prefills and decodes in the same shapes as its first
+    run."""
+    engine.pause_generation()
+    out: dict = {}
+
+    def run():
+        try:
+            out["batch"] = engine.rollout_batch(data, workflow=workflow)
+        except BaseException as e:  # noqa: BLE001 — re-raised on the caller's thread
+            out["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    deadline = time.monotonic() + CHAOS_TIMEOUT
+    while engine._request_q.qsize() < n_requests and t.is_alive():
+        check(time.monotonic() < deadline, "the chaos wave was never enqueued")
+        time.sleep(0.001)
+    engine.continue_generation()
+    t.join(CHAOS_TIMEOUT)
+    if "error" in out:
+        raise out["error"]
+    check("batch" in out, f"the chaos wave did not finish in {CHAOS_TIMEOUT} s")
+    return out["batch"]
+
+
+def chaos_train(dev, cfg, root: str, sizes: dict | None = None) -> dict:
+    """(x1): `bench.py` chaostrain on the port. A colocated GRPO loop
+    (`TorchDecodeEngine` + `TorchPPOActor`, `RLVRWorkflow`, an unshuffled
+    `SimpleDataLoader`, greedy decoding, batches sorted by rollout id,
+    `RecoverHandler` with a recovery point every step and the `SampleWAL`)
+    runs unfaulted as the oracle. Then the kill legs, one per kill site, in
+    a chain on one file root (the oracle's recovery point of the step
+    before `CHAOS_KILL_STEP`, its files hard-linked and its journal
+    copied): each leg is a trainer restarted from the root's newest
+    committed point and killed at that step by an `InjectedFault`, torn
+    down and resumed by the next leg's trainer, the last by the "resume"
+    leg, which runs to the end. Last, a leg whose newest committed step is
+    torn (a `recover.load` abort) and must resume from its predecessor.
+    Per leg: the step it was killed at, the step and version it resumed
+    at (the committed one, in the trainer and the engine), the WAL at the
+    resume (one entry per committed step), and the loss of every step it
+    trained equal to the oracle's; for the legs that run to the end, one
+    WAL entry per step with every trajectory once, versions that never go
+    back, and the final weights' sha256 equal to the oracle's; and (on the
+    card) K3 = L x decode steps, K1 = L x (logp mbs + 2 x trained mbs)
+    under remat, K2a = K2b = L x trained mbs."""
+    from areal_tpu_torch.api.cli_args import RecoverConfig
+    from areal_tpu_torch.api.io_struct import StepInfo
+    from areal_tpu_torch.core import fault_injection
+    from areal_tpu_torch.core.fault_injection import FaultPlan, FaultPoint, InjectedFault
+    from areal_tpu_torch.core.sample_ledger import SampleWAL
+    from areal_tpu_torch.dataset import SimpleDataLoader
+    from areal_tpu_torch.utils import recover as recover_mod
+    from areal_tpu_torch.utils.recover import RecoverHandler, ledger_wal_path
+    from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
+
+    sz = dict(CHAOS_TRAIN, **(sizes or {}))
+    n_prompts, group, steps = sz["n_prompts"], sz["group"], sz["steps"]
+    kill = CHAOS_KILL_STEP
+    samples = n_prompts * group
+    L = cfg.num_hidden_layers
+    rng = np.random.RandomState(SEED + 11)
+    # one epoch is `steps` batches: every leg sees the same prompts in the
+    # same order (the loader's position is checkpointed state)
+    dataset = [dict(input_ids=rng.randint(1, cfg.vocab_size, (sz["prompt_len"],)).tolist())
+               for _ in range(n_prompts * steps)]
+    ft_spec = FinetuneSpec(1, len(dataset), samples)
+    decode = dict(CHAOS_DECODE, **sz.get("decode", {}))
+    counts = dict(logp_mbs=0, train_mbs=0, decode_steps=0)
+
+    def rcfg(fileroot):
+        return RecoverConfig(experiment_name="chip-smoke", trial_name="chaos",
+                             fileroot=fileroot, mode="fault", freq_steps=1, keep_last=2)
+
+    def build(fileroot):
+        env = types.SimpleNamespace(rcfg=rcfg(fileroot))
+        actor = TorchPPOActor(PPOActorConfig(
+            experiment_name="chip-smoke", trial_name="chaos", path="",
+            init_from_scratch=True,  # the engine's fixed init seed: the same weights every leg
+            dtype=cfg.dtype, gradient_checkpointing=cfg.remat,
+            mb_spec=MicroBatchSpec(max_tokens_per_mb=sz["mb_tokens"]),
+            optimizer=OptimizerConfig(lr=CHAOS_LR, warmup_steps_proportion=0.0,
+                                      lr_scheduler_type="constant", gradient_clipping=1.0,
+                                      moment_dtype=cfg.dtype),
+            group_size=group, ppo_n_minibatches=1, eps_clip=0.2, kl_ctl=0.0,
+            # greedy group members are identical: group-level norms would
+            # zero every advantage and the oracle would never move
+            adv_norm=NormConfig(mean_level="batch", std_level="batch", group_size=group),
+            use_decoupled_loss=True, temperature=1.0), device=dev)
+        actor.model_config = cfg
+        actor.create_process_group()
+        actor.initialize(None, ft_spec)
+        rollout = TorchDecodeEngine(
+            TorchDecodeConfig(random_seed=SEED, dtype=cfg.dtype, kv_cache_dtype=cfg.dtype,
+                              **decode),
+            InferenceEngineConfig(max_concurrent_rollouts=samples * 2,
+                                  consumer_batch_size=samples,
+                                  max_head_offpolicyness=steps + 2, request_timeout=3600),
+            device=dev)
+        rollout.set_model(actor.params, cfg)
+        rollout.initialize()
+        actor.connect_engine(rollout, WeightUpdateMeta.from_memory())
+        rollout.attach_ledger_wal(ledger_wal_path(env.rcfg))
+        env.actor, env.rollout = actor, rollout
+        env.workflow = RLVRWorkflow(chaos_reward, GenerationHyperparameters(
+            n_samples=group, max_new_tokens=sz["new_tokens"], greedy=True))
+        env.loader = SimpleDataLoader(dataset, batch_size=n_prompts, shuffle=False)
+        env.handler = RecoverHandler(env.rcfg, ft_spec)
+        return env
+
+    def destroy(env):
+        counts["decode_steps"] += env.rollout.decode_steps
+        env.rollout.destroy()
+        env.actor.destroy()
+        env.actor = env.rollout = None
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+
+    def si(g):
+        return StepInfo(epoch=0, epoch_step=g, global_step=g, steps_per_epoch=steps)
+
+    def one_step(env, g, out) -> float:
+        batch = _wave_rollout(env.rollout, next(env.data_iter), env.workflow, samples)
+        # the executor hands results back in completion order: sort by the
+        # ledger's rollout id so a replayed step trains the same batch
+        order = np.argsort(np.asarray(batch["rollout_id"]), kind="stable")
+        batch = {k: np.asarray(v)[order] for k, v in batch.items()}
+        counts["logp_mbs"] += len(split_padded_tensor_dict_into_mb_list(
+            batch, env.actor.config.mb_spec).mbs)
+        batch["prox_logp"] = env.actor.compute_logp(batch)
+        env.actor.compute_advantages(batch)
+        stats = env.actor.ppo_update(batch)
+        counts["train_mbs"] += int(_stat(stats, "n_mbs"))
+        out["trained"][g] = _stat(stats, "loss")
+        env.actor.set_version(g + 1)
+        env.rollout.pause()
+        env.actor.update_weights(None)
+        env.rollout.set_version(g + 1)
+        env.rollout.resume()
+        return out["trained"][g]
+
+    def dump(env, g) -> bool:
+        """True when a dump seam fired: the handler degraded, and what is
+        on disk is what a trainer that died there leaves."""
+        before = fault_injection.snapshot()
+        env.handler.dump(env.actor, si(g), dataloader=env.loader, rollout=env.rollout)
+        after = fault_injection.snapshot()
+        return any(after.get(k, 0) > before.get(k, 0) for k in after)
+
+    def trainer(fileroot, committed: dict, resume: bool, plan=None, load_plan=None,
+                snapshot=None) -> dict:
+        """One trainer on `fileroot`: fresh, or restarted from its newest
+        committed recovery point (with `load_plan` armed for the load only),
+        then the steps to the end with `plan` armed, until an
+        `InjectedFault` kills it. `snapshot` receives a copy of the file
+        root once step `kill - 1` has committed (the kill legs start from
+        it: the steps before the kill are the oracle's). Its "losses" are
+        the committed steps', "trained" every loss it computed."""
+        env = build(fileroot)
+        out = dict(start=0, crashed_at=None, losses=dict(committed), trained={})
+        try:
+            if resume:
+                fault_injection.configure(load_plan)
+                try:
+                    info = env.handler.load(env.actor, dataloader=env.loader,
+                                            inference_engine=env.rollout,
+                                            weight_update_meta=WeightUpdateMeta.from_memory())
+                finally:
+                    fault_injection.deactivate()
+                check(info is not None, f"{fileroot}: no recoverable state after the crash")
+                out.update(start=info.last_step_info.next().global_step,
+                           resumed_version=env.actor.get_version(),
+                           engine_version=env.rollout.get_version(),
+                           wal_at_resume=check_wal(
+                               SampleWAL(ledger_wal_path(env.rcfg)).replay()))
+            env.data_iter = iter(env.loader)
+            fault_injection.configure(plan)
+            for g in range(out["start"], steps):
+                try:
+                    loss = one_step(env, g, out)
+                except InjectedFault:
+                    out["crashed_at"] = g
+                    break
+                if dump(env, g):
+                    out["crashed_at"] = g
+                    break
+                out["losses"][g] = loss
+                if snapshot is not None and g == kill - 1:
+                    _link_tree(fileroot, snapshot)
+            if out["crashed_at"] is None:
+                out.update(fp=_fingerprint(env.actor.params),
+                           wal=SampleWAL(ledger_wal_path(env.rcfg)).replay())
+        finally:
+            fault_injection.deactivate()
+            destroy(env)
+        return out
+
+    def check_wal(wal):
+        """The journal's entries and versions, and the rollouts of the
+        steps it holds lost or journaled twice."""
+        versions = [e["version"] for e in wal]
+        rids = [r for e in wal for r in e["rids"]]
+        return dict(entries=len(wal), versions=versions,
+                    lost=len(wal) * n_prompts - len(set(rids)),
+                    duplicated=len(rids) - len(set(rids)))
+
+    def leg_counts():
+        c = dict(counts)
+        counts.update(logp_mbs=0, train_mbs=0, decode_steps=0)
+        return c
+
+    def run_launches(fn, *args):
+        """`fn(*args)` with the kernel counts set to 0 just before and read
+        just after: (its result, the counts)."""
+        # ---- the main path: counts to 0 just before, read just after ----
+        pa.launches = fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+        out = fn(*args)
+        launches = dict(paged_attention=pa.launches, flash_attention_fwd=fa.launches_fwd,
+                        flash_attention_bwd_dq=fa.launches_dq,
+                        flash_attention_bwd_dkv=fa.launches_dkv)
+        # ---- end of the main path ----
+        return out, launches
+
+    def want_of(c):
+        return dict(paged_attention=L * c["decode_steps"],
+                    flash_attention_fwd=L * (c["logp_mbs"] + (2 if cfg.remat else 1)
+                                             * c["train_mbs"]),
+                    flash_attention_bwd_dq=L * c["train_mbs"],
+                    flash_attention_bwd_dkv=L * c["train_mbs"])
+
+    total = dict.fromkeys(("paged_attention", "flash_attention_fwd", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv"), 0)
+    legs = []
+
+    def finish_leg(tag, t0, launches, c, res, oracle):
+        """Record one leg: its kill, its resume and the losses it trained
+        against the oracle's; for a leg that ran to the end, its WAL and
+        its final weights too."""
+        want = want_of(c)
+        row = dict(leg=tag, seconds=time.perf_counter() - t0, crashed_at=res["crashed_at"],
+                   resumed_at=res["start"], resumed_version=res.get("resumed_version"),
+                   wal_at_resume=res.get("wal_at_resume"), trained_steps=sorted(res["trained"]),
+                   launches=launches, formulas=want, mbs=c)
+        if "wal_at_resume" in res:
+            committed = list(range(res["start"]))
+            check(res["resumed_version"] == res["start"] == res["engine_version"],
+                  f"{tag}: resumed at step {res['start']} with trainer version "
+                  f"{res['resumed_version']}, engine version {res['engine_version']}")
+            check(res["wal_at_resume"] == dict(entries=res["start"], versions=committed, lost=0,
+                                               duplicated=0),
+                  f"{tag}: the journal at the resume is {res['wal_at_resume']}, "
+                  f"want the committed steps {committed}")
+        if oracle is not None:
+            diff = [g for g in sorted(res["trained"])
+                    if res["trained"][g] != oracle["losses"][g]]
+            row["loss_steps_differing"] = diff
+            check(not diff, f"{tag}: losses differ from the oracle's at steps {diff}: "
+                            f"{[res['trained'][g] for g in diff]} vs "
+                            f"{[oracle['losses'][g] for g in diff]}")
+        if res["crashed_at"] is None:
+            wal = check_wal(res["wal"])
+            row.update(wal=wal, losses=[res["losses"][g] for g in range(steps)],
+                       fingerprint=res["fp"][:16])
+            check(wal == dict(entries=steps, versions=list(range(steps)), lost=0, duplicated=0),
+                  f"{tag}: not exactly once: {wal}")
+            if oracle is not None:
+                check(res["fp"] == oracle["fp"], f"{tag}: final weights differ from the oracle's")
+        if dev.type == "cuda":
+            check(launches == want, f"{tag}: launches {launches}, formulas {want}")
+        for k in total:
+            total[k] += launches[k]
+        legs.append(row)
+        return row
+
+    # -- the oracle ----------------------------------------------------
     t0 = time.perf_counter()
+    oracle_root = os.path.join(root, "oracle")
+    chain_root = os.path.join(root, "chain")
+    oracle, launches = run_launches(trainer, oracle_root, {}, False, None, None, chain_root)
+    o_losses = oracle["losses"]
+    check(oracle["crashed_at"] is None and len(o_losses) == steps,
+          f"the oracle crashed at {oracle['crashed_at']}")
+    finish_leg("oracle", t0, launches, leg_counts(), oracle, None)
+    check(len(set(o_losses.values())) > 1, f"the oracle's losses never move: {o_losses}")
+
+    # -- the kill legs, chained on one file root that starts as the
+    # oracle's recovery point of step kill - 1: each trainer is restarted
+    # from the newest committed point and killed at step `kill` (its seam's
+    # first visit); the next leg's trainer is its resume ----------------
+    committed = {g: o_losses[g] for g in range(kill)}
+    for site in CHAOS_KILL_SITES:
+        t0 = time.perf_counter()
+        plan = FaultPlan(seed=5, points=[FaultPoint(site=site, mode="abort", at=(0,),
+                                                    times=1)])
+        res, launches = run_launches(trainer, chain_root, committed, True, plan)
+        check(res["crashed_at"] == kill,
+              f"{site}: crashed at step {res['crashed_at']}, planned {kill}")
+        check(res["start"] == kill, f"{site}: restarted at step {res['start']}, want {kill}")
+        finish_leg(site, t0, launches, leg_counts(), res, oracle)
+    t0 = time.perf_counter()
+    res, launches = run_launches(trainer, chain_root, committed, True)
+    check(res["start"] == kill, f"resume: resumed at step {res['start']}, want {kill}")
+    finish_leg("resume", t0, launches, leg_counts(), res, oracle)
+    shutil.rmtree(chain_root, ignore_errors=True)
+
+    # -- the newest committed step torn: resume from its predecessor ------
+    t0 = time.perf_counter()
+    recover_mod.reset_metrics()
+    torn_plan = FaultPlan(seed=5, points=[FaultPoint(site="recover.load", mode="abort",
+                                                     at=(0,), times=1)])
+    res, launches = run_launches(trainer, oracle_root,
+                                 {g: o_losses[g] for g in range(steps - 1)}, True, None,
+                                 torn_plan)
+    skipped = recover_mod.get_metrics().get("recover_torn_skipped_total", 0)
+    check(skipped == 1, f"torn leg: {skipped} candidates skipped, want 1")
+    check(res["start"] == steps - 1, f"torn leg: resumed at {res['start']}, want {steps - 1}")
+    row = finish_leg("recover.load (newest torn)", t0, launches, leg_counts(), res, oracle)
+    row["torn_skipped"] = skipped
+    return dict(model=dict(layers=L, hidden=cfg.hidden_size, vocab=cfg.vocab_size,
+                           dtype=cfg.dtype), sizes=sz, kill_step=kill, legs=legs,
+                launches=total)
+
+
+def _chaos_wave(client, prompts: dict, tag: str) -> dict:
+    """Each request of `prompts` once through `client`, concurrently:
+    rid -> tokens."""
+    async def go():
+        async def one(rid):
+            r = await client.agenerate(ModelRequest(
+                rid=f"{tag}-{rid}", input_ids=prompts[rid],
+                gconfig=GenerationHyperparameters(max_new_tokens=CHAOS_MAX_NEW, greedy=True)))
+            return rid, list(r.output_tokens)
+
+        return await asyncio.gather(*[one(rid) for rid in prompts])
+
+    out = asyncio.run(asyncio.wait_for(go(), CHAOS_TIMEOUT))
+    check(len({rid for rid, _ in out}) == len(prompts), f"{tag}: a request was lost")
+    return dict(out)
+
+
+def _served_counts(addrs: list[str]) -> dict:
+    """The servers' admissions (prefills, forks and suffix prefills),
+    generated tokens and idempotency hits, summed, from `/metrics`."""
+    from areal_tpu_torch.utils.http import request_with_retry
+
+    tot = collections.Counter()
+    for a in addrs:
+        m = request_with_retry(a, "/metrics", method="GET", max_retries=1, timeout=30)
+        tot["admissions"] += (m["prefills_total"] + m["prefix_forks_total"]
+                              + m["prefix_inplace_total"] + m["suffix_prefills_total"])
+        tot["generated_tokens"] += m["generated_tokens_total"]
+        tot["idem_hits"] += m["idem_hits_total"]
+        tot["decode_steps"] += m["kernel_launches"]["decode_steps"]
+    return dict(tot)
+
+
+def chaos_fleet(dev, cfg) -> dict:
+    """(x2): `tests/test_chaos.py`'s chaos smoke without the router. Two
+    port `DecodeServer`s in this process, each over a `TorchDecodeEngine`
+    on the card with the same weights; a `RemoteInfEngine` sends 8 greedy
+    requests fault-free, then again under a plan of a `client.http.send`
+    abort, a `client.http.recv` error after effect, a torn
+    `client.http.body` and a `server.generate` delay. Checks: 0 lost,
+    tokens equal to the fault-free pass, one generation per request on the
+    servers together (their `/metrics`), at least 2 idempotency hits, all
+    four modes fired. Then a dcn push to one server with a
+    `server.weights.commit` abort: the server keeps its version and its
+    greedy probes; the next push lands version 1, and its probes equal an
+    in-process engine holding the pushed weights."""
+    from areal_tpu_torch.core import fault_injection
+    from areal_tpu_torch.core.fault_injection import FaultPlan, FaultPoint
+    from areal_tpu_torch.core.remote_inf_engine import RemoteInfEngine
+    from areal_tpu_torch.engine.torch_engine import TorchTrainEngine
+    from areal_tpu_torch.launcher.decode_server import DecodeServer
+    from areal_tpu_torch.utils.http import HttpRequestError
+
+    L = cfg.num_hidden_layers
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 40), dev)
+    dcfg = TorchDecodeConfig(random_seed=SEED, dtype=cfg.dtype, kv_cache_dtype=cfg.dtype,
+                             **CHAOS_SERVE)
+    engines, servers = [], []
+    out: dict = {}
+    try:
+        for _ in range(2):
+            eng = TorchDecodeEngine(dcfg, device=dev)
+            eng.set_model(params, cfg)
+            eng.initialize()
+            engines.append(eng)
+            servers.append(DecodeServer(dcfg, engine=eng))
+        addrs = [s.start("127.0.0.1", 0) for s in servers]
+        client = RemoteInfEngine(InferenceEngineConfig(
+            experiment_name="chip-smoke", trial_name="chaos", request_timeout=CHAOS_TIMEOUT,
+            request_retries=3, fleet_failover_retries=2, setup_timeout=60))
+        client.addresses = list(addrs)
+        rng = np.random.default_rng(SEED + 41)
+        prompts = {f"r{i}": rng.integers(1, cfg.vocab_size, int(rng.integers(
+            *CHAOS_PROMPT_LEN, endpoint=True))).tolist() for i in range(CHAOS_REQUESTS)}
+        # ---- the main path: counts to 0 just before, read just after ----
+        pa.launches = 0
+        c0 = _served_counts(addrs)
+        ref = _chaos_wave(client, prompts, "ref")
+        c1 = _served_counts(addrs)
+        plan = FaultPlan(seed=77, points=[
+            FaultPoint(site="client.http.send", mode="abort", at=(1,), times=1,
+                       match={"endpoint": "/generate"}),
+            FaultPoint(site="client.http.recv", mode="error_after_effect", at=(0,), times=1,
+                       match={"endpoint": "/generate"}),
+            FaultPoint(site="client.http.body", mode="torn", at=(2,), times=1,
+                       match={"endpoint": "/generate"}),
+            FaultPoint(site="server.generate", mode="delay", at=(1,), times=1, delay_s=0.1),
+        ])
+        fault_injection.configure(plan)
+        t0 = time.perf_counter()
+        try:
+            chaos = _chaos_wave(client, prompts, "chaos")
+        finally:
+            fired = fault_injection.snapshot()
+            fault_injection.deactivate()
+        chaos_s = time.perf_counter() - t0
+        c2 = _served_counts(addrs)
+        for e in engines:
+            e.pause_generation()  # drain the pass in flight before reading K3
+            e.continue_generation()
+        k3 = pa.launches
+        # ---- end of the main path ----
+        d_ref = {k: c1[k] - c0[k] for k in c0}
+        d_chaos = {k: c2[k] - c1[k] for k in c1}
+        out["wave"] = dict(requests=len(prompts), fired=fired, seconds=chaos_s,
+                           ref=d_ref, chaos=d_chaos, tokens_equal=chaos == ref,
+                           launches=dict(paged_attention=k3),
+                           formula=dict(paged_attention=f"{L} x {c2['decode_steps']} decode "
+                                                        f"steps"))
+        check(chaos == ref, f"chaos streams differ from the fault-free pass: "
+                            f"{[r for r in ref if chaos.get(r) != ref[r]]}")
+        for tag, d in (("fault-free", d_ref), ("chaos", d_chaos)):
+            check(d["admissions"] == len(prompts),
+                  f"{tag} pass: {d['admissions']} admissions for {len(prompts)} requests")
+            check(d["generated_tokens"] == len(prompts) * CHAOS_MAX_NEW,
+                  f"{tag} pass: {d['generated_tokens']} tokens generated, want "
+                  f"{len(prompts) * CHAOS_MAX_NEW}")
+        check(d_chaos["idem_hits"] >= 2, f"{d_chaos['idem_hits']} idempotency hits, want >= 2")
+        check({k.split("|")[1] for k in fired} == {"abort", "error_after_effect", "delay",
+                                                     "torn"}, f"modes fired: {fired}")
+        if dev.type == "cuda":
+            check(k3 == L * c2["decode_steps"],
+                  f"K3 {k3} launches, formula {L} x {c2['decode_steps']} decode steps")
+
+        # -- a dcn push whose commit aborts, then one that lands ----------
+        new = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 42), dev)
+        trainer = TorchTrainEngine(TrainEngineConfig(
+            experiment_name="chip-smoke", trial_name="chaos", init_from_scratch=True,
+            dtype=cfg.dtype, optimizer=None), device=dev)
+        trainer.create_process_group()
+        trainer.model_config = cfg
+        trainer.initialize(None, None, params=new)
+        pusher = RemoteInfEngine(InferenceEngineConfig(
+            experiment_name="chip-smoke", trial_name="chaos-push", request_retries=1,
+            request_timeout=CHAOS_TIMEOUT, setup_timeout=60))
+        pusher.addresses = [addrs[0]]
+        trainer.connect_engine(pusher, WeightUpdateMeta(type="dcn"))
+        probe_prompts = {f"p{i}": p for i, p in enumerate(list(prompts.values())[:4])}
+
+        def probes(client_or_engine) -> dict:
+            got = {}
+            for rid, p in probe_prompts.items():  # one at a time
+                req = ModelRequest(rid=f"probe-{rid}-{time.monotonic_ns()}", input_ids=p,
+                                   gconfig=GenerationHyperparameters(
+                                       max_new_tokens=CHAOS_MAX_NEW, greedy=True))
+                got[rid] = list(client_or_engine.generate(req).output_tokens)
+            return got
+
+        before = probes(pusher)
+        trainer.set_version(1)
+        fault_injection.configure(FaultPlan(points=[
+            FaultPoint(site="server.weights.commit", mode="abort", at=(0,), times=1)]))
+        try:
+            trainer.update_weights()
+            aborted = False
+        except HttpRequestError:
+            aborted = True
+        finally:
+            fired = fault_injection.snapshot()
+            fault_injection.deactivate()
+        v_after_abort = engines[0].get_version()
+        after_abort = probes(pusher)
+        check(aborted and fired == {"server.weights.commit|abort": 1},
+              f"the commit abort did not fail the push (fired {fired})")
+        check(v_after_abort == 0 and after_abort == before,
+              f"after the aborted commit: version {v_after_abort}, probes changed "
+              f"{after_abort != before}")
+        trainer.update_weights()
+        v_pushed = engines[0].get_version()
+        pushed = probes(pusher)
+        # the weights as the wire carries them: each float tensor cast to bf16
+        wire = {k: v.detach().to(torch.bfloat16).to(v.dtype) for k, v in trainer.params.items()}
+        engines[1].update_weights_from_distributed(WeightUpdateMeta.from_memory(), wire, cfg,
+                                                   version=1)
+        in_process = probes(engines[1])
+        check(v_pushed == 1, f"the second push landed version {v_pushed}, want 1")
+        check(pushed == in_process, "pushed server's probes differ from the in-process engine's")
+        check(pushed != before, "the pushed weights did not change the probes")
+        out["push"] = dict(aborted=aborted, fired=fired, version_after_abort=v_after_abort,
+                           probes_kept=after_abort == before, version_after_push=v_pushed,
+                           probes_equal_in_process=pushed == in_process,
+                           client=pusher.get_metrics())
+        trainer.destroy()
+    finally:
+        fault_injection.deactivate()
+        for s in servers:
+            s.stop()
+        for e in engines:
+            e.destroy()
+    out["launches"] = dict(out["wave"]["launches"])
+    return out
+
+
+def phase_chaos(dev: torch.device) -> dict:
+    """The fault-injection harness on the GRPO path's kernels at
+    Qwen2.5-1.5B's widths, `CHAOS_LAYERS` of its 28 layers, bf16, random
+    weights from the seed: (x1) `chaos_train`, (x2) `chaos_fleet`."""
+    cfg = dataclasses.replace(QWEN25_1_5B, num_hidden_layers=CHAOS_LAYERS, scan_layers=False,
+                              remat=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chaos-") as root:
+        train = chaos_train(dev, cfg, root)
+    train_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    fleet = chaos_fleet(dev, cfg)
+    fleet_s = time.perf_counter() - t1
+    launches = dict(train["launches"])
+    launches["paged_attention"] += fleet["launches"]["paged_attention"]
+    emit("chaos", model="Qwen2.5-1.5B", source=QWEN25_1_5B_SOURCE,
+         cut=f"{CHAOS_LAYERS} of 28 layers", x1_trainer=train, x1_seconds=train_s,
+         x2_fleet=fleet, x2_seconds=fleet_s, launches=launches)
+    return dict(launches=launches)
+
+
+def chaos_only() -> int:
+    """`--chaos`: the device and build phases, then the chaos phase alone."""
     dev, smi = phase_device()
     phase_build()
+    out = phase_chaos(dev)
+    print(smi, flush=True)
+    print(json.dumps({"chaos_launches": out["launches"]}), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# the memory estimator (`utils/hbm.py`) against the cells' measured peaks
+# ---------------------------------------------------------------------------
+
+HBM_ALLOC = "jax:d1+d1"  # one device a side: the allocations the port accepts
+
+
+def _hbm_cell(kind: str, tag: str, peak_gb: float, trainers: list, decode=None) -> dict:
+    """One cell's estimate beside its measured peak: `estimate_train_hbm`
+    for each trainer (name, model config, micro-batch tokens) and
+    `estimate_decode_hbm` for its decode engine (model config, slots,
+    context; the port provisions the dense pool), summed because they
+    share the card, and `check_hbm`'s report on the first trainer with the
+    decode engine (`HBM_ALLOC`, each half checked alone, as in JAX)."""
+    from areal_tpu_torch.api.alloc_mode import AllocationMode
+    from areal_tpu_torch.utils import hbm
+
+    parts = {name: hbm.estimate_train_hbm(cfg, microbatch_tokens=mb, remat=cfg.remat)
+             for name, cfg, mb in trainers}
+    _, cfg0, mb0 = trainers[0]
+    row: dict = dict(cell=tag)
+    if decode is not None:
+        dcfg, slots, ctx = decode
+        parts["decode"] = hbm.estimate_decode_hbm(dcfg, slots=slots, context_length=ctx,
+                                                  kv_cache_dtype=dcfg.dtype)
+        row["check_hbm"] = AllocationMode.from_str(HBM_ALLOC).check_hbm(
+            cfg0, kind, microbatch_tokens=mb0, remat=cfg0.remat, decode_slots=slots,
+            decode_context=ctx)
+    else:
+        hbm.check_fit(parts[trainers[0][0]], kind)
+    total = sum(e.total_bytes for e in parts.values())
+    peak = peak_gb * 1e9
+    row.update(estimate={k: e.breakdown() for k, e in parts.items()}, estimate_bytes=total,
+               measured_peak_bytes=int(peak), measured_over_estimate=peak / total,
+               under_estimate=peak > total)
+    return row
+
+
+def phase_hbm(dev: torch.device, loop: dict, train: dict, ppo: dict, rw: dict,
+              hf_path: dict) -> dict:
+    """(x4): the closed-form estimator beside `torch.cuda.max_memory_allocated`
+    for loop cell (c), the train cell, (p2), (r1) and (h1), with the ratio,
+    on the card's own row of `utils/hbm.py`; and `check_hbm` must refuse
+    Qwen2.5-7B training on one H100."""
+    from areal_tpu_torch.api.alloc_mode import AllocationMode, AllocationValidationError
+    from areal_tpu_torch.utils import hbm
+
+    kind = torch.cuda.get_device_name(dev)
+    total_memory = torch.cuda.get_device_properties(dev).total_memory
+    check(hbm.hbm_bytes(kind) == total_memory,
+          f"utils/hbm.py's row for {kind!r}: {hbm.hbm_bytes(kind)} bytes, the card reports "
+          f"{total_memory}")
+    c_cfg = dataclasses.replace(QWEN25_1_5B, remat=True)
+    cut = dataclasses.replace(c_cfg, num_hidden_layers=CUT_LAYERS)
+    rows = [
+        _hbm_cell(kind, "(c)", loop["peak_gb"], [("actor", c_cfg, 8192)], (c_cfg, 32, 512)),
+        _hbm_cell(kind, "train", train["peak_gb"], [("actor", train["cfg"], 8192)],
+                  (train["cfg"], TRAIN_ROLLOUT["max_running_requests"],
+                   TRAIN_ROLLOUT["context_length"])),
+        _hbm_cell(kind, "(p2)", ppo["p2_peak_gb"],
+                  [("actor", cut, 8192), ("critic", dataclasses.replace(cut, is_critic=True),
+                                          8192)], (cut, 32, 512)),
+        _hbm_cell(kind, "(r1)", rw["r1_peak_gb"],
+                  [("rw", dataclasses.replace(c_cfg, is_critic=True), RW_MB_TOKENS)]),
+        # the frozen reference policy's copy of the weights has no term in
+        # the estimator (nor in JAX's)
+        _hbm_cell(kind, "(h1)", hf_path["h1_peak_gb"], [("actor", cut, 8192)], (cut, 32, 512)),
+    ]
+    try:
+        AllocationMode.from_str(HBM_ALLOC).check_hbm(QWEN25_7B, kind, microbatch_tokens=8192,
+                                                     decode_pool_tokens=1 << 16)
+        refused = None
+    except AllocationValidationError as e:
+        refused = str(e)
+    check(refused is not None and refused.startswith("train half"),
+          f"check_hbm did not refuse Qwen2.5-7B training on one {kind}: {refused}")
+    emit("hbm", device=kind, total_memory=total_memory, allocation=HBM_ALLOC,
+         estimator="areal_tpu_torch/utils/hbm.py", cells=rows, qwen25_7b_train_refused=refused)
+    return dict(cells=rows)
+
+
+class _PhaseClock:
+    """Seconds of each phase of `main`, each lap since the one before."""
+
+    def __init__(self):
+        self.laps: dict[str, float] = {}
+        self._t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.laps[name] = now - self._t
+        self._t = now
+
+
+def main() -> int:
+    t0 = time.perf_counter()
+    clock = _PhaseClock()
+    dev, smi = phase_device()
+    clock.lap("device")
+    phase_build()
+    clock.lap("build")
     max_err = phase_kernel(dev)
+    clock.lap("kernel")
     phase_bad_table()
+    clock.lap("bad_table")
     phase_flash_kernel(dev)
+    clock.lap("flash_kernel")
     q_err = phase_quant_kernel(dev)
+    clock.lap("quant_kernel")
     v_err = phase_verify_kernel(dev)
+    clock.lap("verify_kernel")
     engine, cfg, launches = phase_serve(dev)
     try:
         batch = phase_step(engine, cfg)
@@ -5496,6 +6414,7 @@ def main() -> int:
         engine.destroy()
     del engine
     torch.cuda.empty_cache()
+    clock.lap("serve_step_profile")
     sched = phase_sched(dev)
     engine, cfg, s_launches = phase_serve_spec(dev, SERVE, "serve_spec")
     try:
@@ -5509,6 +6428,7 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
     emit("sched", **sched)
+    clock.lap("sched_serve_spec")
     engine, cfg, q_launches = phase_serve_int8(dev)
     try:
         batch = phase_quant_step(engine, cfg)
@@ -5531,44 +6451,64 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
     noise = phase_noise_line(dev)
+    clock.lap("int8_and_spec_int8")
     noise["launches_by_path"] = dict(serve_spec=s_launches["threefry_noise"],
                                      serve_spec_int8=s8_launches["threefry_noise"])
     emit("noise_line", **noise)
+    clock.lap("noise_line")
     loop = phase_grpo_loop(dev)
+    clock.lap("grpo_loop")
     torch.cuda.empty_cache()
     train = phase_train(dev)
+    clock.lap("train")
     torch.cuda.empty_cache()
     sft = phase_sft(dev)
+    clock.lap("sft")
     torch.cuda.empty_cache()
     sft_smoke = phase_sft_smoke(dev)
+    clock.lap("sft_smoke")
     recover = phase_grpo_recover(dev)
+    clock.lap("grpo_recover")
     aent = phase_aent(dev)
+    clock.lap("aent")
     torch.cuda.empty_cache()
     decoupled = phase_decoupled(dev)
+    clock.lap("decoupled")
     torch.cuda.empty_cache()
     ppo = phase_ppo(dev)
+    clock.lap("ppo")
     torch.cuda.empty_cache()
     rw = phase_rw(dev)
+    clock.lap("rw")
     torch.cuda.empty_cache()
     multi_turn = phase_multi_turn(dev)
+    clock.lap("multi_turn")
     torch.cuda.empty_cache()
     hf_path = phase_hf_path(dev)
+    clock.lap("hf_path")
     torch.cuda.empty_cache()
     tir = phase_tir(dev)
+    clock.lap("tir")
     torch.cuda.empty_cache()
+    phase_hbm(dev, loop, train, ppo, rw, hf_path)
+    clock.lap("hbm")
+    chaos = phase_chaos(dev)
+    clock.lap("chaos")
     # K1/K2a/K2b run in the GRPO loop, the train phase, both SFT runs, the
     # GRPO recovery runs, the AEnt run, the decoupled trainer, the PPO,
     # reward-model and multi-turn trainers, the GRPO run on a checkpoint
-    # with its reference policy and the TIR runs; K3 in every GRPO and PPO
-    # run (the decoupled one's in its server process), the evaluators, the
-    # server started on a checkpoint and the agents
+    # with its reference policy, the TIR runs and the chaos legs; K3 in every
+    # GRPO and PPO run (the decoupled one's in its server process), the
+    # evaluators, the server started on a checkpoint, the agents and the
+    # chaos legs and servers
     flash_paths = dict(grpo_loop=loop["launches"], train=train["launches"],
                        sft={k: sft["launches"][k] + sft_smoke["launches"][k]
                             for k in FLASH_COUNTERS},
                        grpo_recover=recover["launches"], aent=aent["launches"],
                        decoupled=decoupled["launches"], ppo=ppo["launches"],
                        rw=rw["launches"], multi_turn=multi_turn["launches"],
-                       hf_path=hf_path["launches"], tir=tir["launches"])
+                       hf_path=hf_path["launches"], tir=tir["launches"],
+                       chaos=chaos["launches"])
     # K3 runs in the serve, sched (its group waves) and train paths and in
     # the spec path's normal chunks; K5a in the int8 serve path and the int8 spec path's; K6 in both
     # int8 paths
@@ -5582,7 +6522,8 @@ def main() -> int:
                                      ppo=ppo["launches"]["paged_attention"],
                                      multi_turn=multi_turn["launches"]["paged_attention"],
                                      hf_path=hf_path["launches"]["paged_attention"],
-                                     tir=tir["launches"]["paged_attention"])
+                                     tir=tir["launches"]["paged_attention"],
+                                     chaos=chaos["launches"]["paged_attention"])
     paged["launches"] = sum(paged["launches_by_path"].values())
     q8["launches_by_path"] = dict(serve_int8=q_launches["paged_attention_q8"],
                                   serve_spec_int8=s8_launches["paged_attention_q8"])
@@ -5593,6 +6534,8 @@ def main() -> int:
     rows = [paged, *phase_flash_line(dev, train, flash_paths), q8, qmm_row, verify, verify_q8]
     for r in rows:
         check(r["launches"] > 0, f"{r['name']}: no launch on the main path")
+    clock.lap("kernels_line")
+    emit("phase_seconds", **clock.laps)
     print(json.dumps({"kernels": rows}), flush=True)
     emit("done", seconds=time.perf_counter() - t0)
     print(smi, flush=True)
@@ -5608,5 +6551,5 @@ if __name__ == "__main__":
     modes = {"--paged-times": paged_times_only, "--decode-sweep": decode_sweep_only,
              "--qmm-times": qmm_times_only, "--qmm-sweep": qmm_sweep_only,
              "--decoupled": decoupled_only, "--trainers": trainers_only,
-             "--hf-path": hf_path_only, "--tir": tir_only}
+             "--hf-path": hf_path_only, "--tir": tir_only, "--chaos": chaos_only}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] else main())

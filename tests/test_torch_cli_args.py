@@ -140,6 +140,8 @@ OVERRIDES = [
     "gconfig.top_k=50", "gconfig.max_tokens=512", "train_dataset.num_workers=4",
     "recover.retries=5", "stats_logger.tensorboard.path=/tmp/tb", "total_train_n_seqs=1000",
     "rollout.weight_sync_overlap=false", "actor.jax.zero1_optimizer=false", "cluster.n_nodes=2",
+    # refused until the fault-injection harness came (ROADMAP queue 1, item 7)
+    "rollout.fault_injection.enabled=true",
 ]
 
 
@@ -161,7 +163,6 @@ REFUSALS = [
     ("cluster.n_nodes=2", "item 5"),
     ("decode.role=prefill", "item 4"),
     ("decode.paged_attn_impl=xla", "item 3"),
-    ("rollout.fault_injection.enabled=true", "item 7"),
     ("actor.jax.virtual_pp_size=2", "item 5"),
     ("actor.jax.mesh_num_slices=2", "item 5"),
     ("actor.jax.offload_params=true", "item 7"),

@@ -68,6 +68,9 @@ def test_port_has_the_expected_modules():
         "areal_tpu_torch.utils.structured",
         "areal_tpu_torch.utils.seeding",
         "areal_tpu_torch.utils.timeutil",
+        "areal_tpu_torch.core.fault_injection",
+        "areal_tpu_torch.utils.perf_tracer",
+        "areal_tpu_torch.utils.hbm",
         "areal_tpu_torch.utils.evaluator",
         "areal_tpu_torch.utils.saver",
         "areal_tpu_torch.utils.stats_logger",
