@@ -394,10 +394,17 @@ class TorchDecodeConfig:
     # (max_running_requests x context_length). A smaller budget makes
     # dispatch preempt (requeue) the longest slot when the pool runs dry.
     kv_pool_tokens: int | None = None
-    kv_host_pool_mb: float = 0.0  # > 0: not in the port yet
-    kv_layout: str = "paged"  # "workspace": not in the port yet
-    # "auto" and "pallas" run the hand-written kernels; "xla" (the JAX
-    # engine's gather path, the workspace layout's oracle) is not ported
+    # Host-RAM tier under the pool (MiB; 0 disables): evicted parked and
+    # preempted slots' blocks are offloaded to pinned host memory and a
+    # resume promotes them back instead of prefilling
+    kv_host_pool_mb: float = 0.0
+    # "paged": attend in place through the block table; "workspace" (the
+    # numerics oracle): gather each slot's blocks, run the chunk over the
+    # dense workspace, scatter them back
+    kv_layout: str = "paged"
+    # "auto" and "pallas" run the hand-written kernels; "xla" is the JAX
+    # engine's gather path: gather once per chunk, plain attention, write
+    # back the chunk's rows
     paged_attn_impl: str = "auto"
     hbm_utilization: float = 0.85
     # prefill tokens admitted per scheduler pass before the next decode
@@ -444,13 +451,8 @@ class TorchDecodeConfig:
                 f"paged_attn_impl={self.paged_attn_impl!r} not in {PAGED_ATTN_IMPLS}"
             )
         _refuse(self, {
-            "kv_host_pool_mb": (float(self.kv_host_pool_mb) > 0, "item 3, host KV tier"),
             "tensor_parallel_size": (
                 int(self.tensor_parallel_size) > 1, "item 5, multi-GPU serving"
-            ),
-            "kv_layout": (self.kv_layout != "paged", "item 3, workspace KV layout"),
-            "paged_attn_impl": (
-                self.paged_attn_impl == "xla", "item 3, the workspace layout's gather path"
             ),
             "role": (self.role != "unified", "item 4, disaggregated prefill/decode roles"),
         })

@@ -47,10 +47,13 @@ Seams in the port (grep for `fault_injection.fire(` / `.afire(` / `.tear(`):
   dataloader.next       dataset/__init__.py  before each batch is yielded
                                              (the restored position
                                              re-yields it)
+  kv.swap_out           engine/kv_pool.py    HostKVStore.put (the D2H
+                                             offload of a parked or
+                                             preempted slot's blocks)
+  kv.swap_in            engine/kv_pool.py    HostKVStore.take (promotion)
 
 The JAX package's other seams belong to modules the port has not taken
-yet: `kv.swap_out` and `kv.swap_in` (the host KV tier, ROADMAP queue 1
-item 3.2), `server.prefill`, `kv.migrate.send` and `kv.migrate.recv`
+yet: `server.prefill`, `kv.migrate.send` and `kv.migrate.recv`
 (items 3.4 and 4.3), `router.schedule`, `router.poll` and
 `supervisor.*` (item 4.2). Each comes with its module.
 

@@ -1,5 +1,6 @@
-"""Paged KV-cache accounting (counterpart of `areal_tpu/engine/kv_pool.py`,
-`KVBlockAllocator` and `PoolDry`, :48-232).
+"""Paged KV-cache accounting and the host KV tier (counterpart of
+`areal_tpu/engine/kv_pool.py`: `KVBlockAllocator` and `PoolDry`, :48-182,
+`HostKVEntry` and `HostKVStore`, :183-537).
 
 One pool tensor `[L, n_blocks, block_size, nKV, hd]` per K/V lives on the
 device; the block tables that map each slot's logical rows to pool blocks
@@ -19,7 +20,13 @@ scored (the validity mask hides them).
 
 from __future__ import annotations
 
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Any
+
 import numpy as np
+
+from areal_tpu_torch.core import fault_injection
 
 
 class PoolDry(Exception):
@@ -163,3 +170,228 @@ class KVBlockAllocator:
             return int(self.tables[src, full]), got[0]
         self._note_peaks()
         return None
+
+
+@dataclass
+class HostKVEntry:
+    """One offloaded slot's KV (JAX :183-263): the slot's first `nb` pool
+    blocks gathered into `[L, nb, block_size, nKV, hd]` K/V tensors, and
+    the metadata a resume needs to promote them without a prefill.
+
+    On the card `k`/`v` are pinned host tensors whose copies from the
+    gathered device buffers (`dev`) may still be in flight on a side
+    stream; `event` marks their end. `HostKVStore` materializes them
+    behind a small pending window; `materialize` waits on the event and
+    drops the device buffers. On the CPU the copies are synchronous and
+    `event` is None.
+
+    Int8 pools: `ks`/`vs` are the scale blocks gathered with the data
+    (`[L, nb, nKV, block_size]`); the bytes and scales travel as they are,
+    so a promoted stream reads the exact bytes the original scatter wrote.
+    """
+
+    rid: str
+    k: Any
+    v: Any
+    nb: int
+    covered: int  # rows [0, covered) of the blocks are valid
+    tokens: list[int]  # the covered token ids, for the exact-resume check
+    base_key: np.ndarray  # the slot's sampling key, restored at promotion
+    # the weight version the KV was computed under; -1 unknown
+    weight_version: int = -1
+    ks: Any = None
+    vs: Any = None
+    nbytes: int = 0
+    pending: bool = field(default=False, repr=False)
+    event: Any = field(default=None, repr=False)
+    dev: tuple = field(default=(), repr=False)  # device buffers the copies read
+
+    def materialize(self) -> None:
+        """Finish the device-to-host copies (waiting only if they are still
+        in flight) and drop the device buffers."""
+        if self.pending and self.event is not None:
+            self.event.synchronize()
+        self.event = None
+        self.dev = ()
+        self.pending = False
+
+
+class HostKVStore:
+    """Host-RAM tier under the paged pool (JAX :266-537): a byte-budgeted
+    store of offloaded slots keyed by rid, with its own LRU.
+
+    The eviction paths that would drop a parked or preempted slot's blocks
+    offload them here instead, and a resume promotes them back into fresh
+    device blocks, so `kv_pool_tokens` is a working-set size, not a wall.
+
+    Not thread-safe by itself: the decode engine takes its `_host_lock`
+    around every call.
+
+    Counters (`swap_out_bytes_total`, `swap_in_bytes_total`, `hits`,
+    `misses`, `evictions`, `rejected_puts`, `reprefill_tokens_avoided`,
+    `version_rejects`) feed the engine's `get_metrics`. A miss is an
+    exact-resume lookup whose entry was dropped (LRU, a weight-install
+    clear: a bounded tombstone set remembers those rids) or went stale
+    (the prompt diverged); a request that was never offloaded counts
+    nothing.
+
+    The JAX store's fleet-fabric index (`match_blocks`, `fabric_keys`) and
+    its identity-only entries come with the KV fabric, ROADMAP.md queue 1,
+    items 3.4-3.5.
+    """
+
+    def __init__(self, budget_bytes: int, block_nbytes: int, block_size: int,
+                 pending_window: int = 2, tombstone_cap: int = 1024):
+        if not (budget_bytes > 0 and block_nbytes > 0 and block_size > 0):
+            raise ValueError("budget_bytes, block_nbytes and block_size must be positive")
+        self.budget_bytes = int(budget_bytes)
+        self.block_nbytes = int(block_nbytes)  # K+V bytes per pool block
+        self.block_size = int(block_size)
+        self.bytes_used = 0
+        self._entries: OrderedDict[str, HostKVEntry] = OrderedDict()
+        # rids whose entries were dropped: a later resume lookup of one is
+        # an honest miss; a bounded FIFO
+        self._tombstones: OrderedDict[str, None] = OrderedDict()
+        self._tombstone_cap = int(tombstone_cap)
+        # entries whose copies may still be in flight, oldest first,
+        # materialized once more than `pending_window` are outstanding
+        self._pending: list[str] = []
+        self._pending_window = max(int(pending_window), 0)
+        self.swap_out_bytes_total = 0
+        self.swap_in_bytes_total = 0
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.rejected_puts = 0
+        self.reprefill_tokens_avoided = 0
+        # lookups rejected for a weight version that is no longer the
+        # engine's (each also counts in `misses`)
+        self.version_rejects = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def resident_tokens(self) -> int:
+        return sum(e.covered for e in self._entries.values())
+
+    def occupancy(self) -> float:
+        return self.bytes_used / self.budget_bytes if self.budget_bytes else 0.0
+
+    def tombstone(self, rid: str) -> None:
+        """Mark `rid` known but unusable: its next exact-resume lookup
+        counts a miss."""
+        self._tombstones[rid] = None
+        self._tombstones.move_to_end(rid)
+        while len(self._tombstones) > self._tombstone_cap:
+            self._tombstones.popitem(last=False)
+
+    def _drop(self, rid: str, tombstone: bool) -> None:
+        e = self._entries.pop(rid, None)
+        if e is None:
+            return
+        self.bytes_used -= e.nbytes
+        if rid in self._pending:
+            self._pending.remove(rid)
+        if tombstone:
+            self.tombstone(rid)
+
+    def _drain_pending(self, keep: int) -> None:
+        while len(self._pending) > keep:
+            e = self._entries.get(self._pending.pop(0))
+            if e is not None:
+                e.materialize()
+
+    def put(self, entry: HostKVEntry) -> bool:
+        """Admit an offloaded slot's KV, evicting least recently used
+        entries to fit. False (counted in `rejected_puts`, the rid
+        tombstoned) when the entry alone exceeds the budget: the caller
+        drops the blocks, as with no tier."""
+        # the D2H offload seam: an abort models the host copy failing; the
+        # engine counts it and drops the blocks
+        fault_injection.fire("kv.swap_out", rid=entry.rid)
+        entry.nbytes = entry.nb * self.block_nbytes
+        if entry.nbytes > self.budget_bytes:
+            self.tombstone(entry.rid)
+            self.rejected_puts += 1
+            return False
+        self._drop(entry.rid, tombstone=False)  # replace, never duplicate
+        while self.bytes_used + entry.nbytes > self.budget_bytes:
+            self._drop(next(iter(self._entries)), tombstone=True)
+            self.evictions += 1
+        self._entries[entry.rid] = entry
+        self.bytes_used += entry.nbytes
+        if entry.pending:
+            self._pending.append(entry.rid)
+            self._drain_pending(self._pending_window)
+        self.swap_out_bytes_total += entry.nbytes
+        return True
+
+    def match(self, rid: str, covered: int, tokens: list[int],
+              weight_version: int | None = None) -> bool:
+        """Exact-resume peek: does an entry cover precisely `tokens`? A rid
+        that was offloaded but can no longer serve this resume counts a
+        miss (a stale entry is dropped); a rid never offloaded counts
+        nothing. An entry computed under another `weight_version` is
+        rejected as a miss too."""
+        e = self._entries.get(rid)
+        if e is None:
+            if rid in self._tombstones:
+                del self._tombstones[rid]
+                self.misses += 1
+            return False
+        if (weight_version is not None and e.weight_version >= 0
+                and e.weight_version != weight_version):
+            self._drop(rid, tombstone=False)
+            self.misses += 1
+            self.version_rejects += 1
+            return False
+        if e.covered == covered and e.tokens == tokens:
+            return True
+        self._drop(rid, tombstone=False)  # the prompt diverged
+        self.misses += 1
+        return False
+
+    def take(self, rid: str) -> HostKVEntry | None:
+        """Pop the entry for promotion, materialized. The caller reports
+        the outcome: `note_hit` after the upload, or `restore` when no
+        device blocks could back it."""
+        # the promotion seam: an abort models the upload dying before any
+        # state moved; the engine counts it and prefills instead
+        fault_injection.fire("kv.swap_in", rid=rid)
+        e = self._entries.pop(rid, None)
+        if e is None:
+            return None
+        self.bytes_used -= e.nbytes
+        if rid in self._pending:
+            self._pending.remove(rid)
+        e.materialize()
+        return e
+
+    def note_hit(self, entry: HostKVEntry) -> None:
+        self.hits += 1
+        self.swap_in_bytes_total += entry.nbytes
+        self.reprefill_tokens_avoided += entry.covered
+
+    def restore(self, entry: HostKVEntry) -> None:
+        """Undo a `take` whose promotion found no device blocks; the entry
+        goes back least recently used first, so a retry comes soon."""
+        self.bytes_used += entry.nbytes
+        self._entries[entry.rid] = entry
+        self._entries.move_to_end(entry.rid, last=False)
+
+    def peek(self, rid: str) -> HostKVEntry | None:
+        """The entry of `rid`, with no counter or LRU change."""
+        return self._entries.get(rid)
+
+    def flush_pending(self) -> None:
+        self._drain_pending(0)
+
+    def clear(self) -> int:
+        """Drop every entry (weight installs, abort, destroy: KV of old
+        weights never seeds generation under new ones). Each dropped rid is
+        tombstoned, so its resume counts a miss."""
+        n = len(self._entries)
+        for rid in list(self._entries):
+            self._drop(rid, tombstone=True)
+        self._pending.clear()
+        return n

@@ -46,6 +46,24 @@ serving core and its default scheduling).
   parked for its rid; a resume covering exactly the parked tokens
   prefills nothing. With no host KV tier, an evicted parked entry is
   dropped and its resume prefills.
+- **The host KV tier** (`kv_host_pool_mb > 0`, jax_decode.py:1917-2091).
+  Evicting a parked slot (`_evict_parked_lru`) or preempting an active one
+  (`_preempt`, its consumed coverage only) offloads its covering blocks
+  (and an int8 pool's scales) to pinned host memory (`HostKVStore`, its
+  own byte budget and LRU); a resume whose rid and tokens match an entry
+  exactly is promoted, its blocks uploaded into fresh pool blocks with its
+  sampling key, ahead of every other rung of the ladder, and prefills
+  nothing. A failed offload or promotion is counted and costs a prefill.
+  Weight installs and `destroy` clear the tier; `abort_all` keeps it, as
+  JAX does.
+- **Layouts** (`kv_layout`, `paged_attn_impl`; jax_decode.py:1325-1650).
+  "paged" with "auto"/"pallas" attends in place through the CUDA kernels;
+  "paged" with "xla" gathers each slot's blocks once per pass, runs the
+  workspace steps (`models/qwen2.decode_step`, `verify_step` through the
+  plain paged attention) and writes back only the pass's rows; the
+  "workspace" layout (the numerics oracle) gathers, runs the chunk on the
+  workspace and scatters the blocks back. The plain paths agree bit for
+  bit. An fp pool may be in float32 or bfloat16 under a model in either.
 - **Stop criteria**: stop ids and stop strings (incremental decode of
   the tail) both cut, the earlier boundary wins; then max_new_tokens.
 - **Frequency penalty** (OpenAI semantics): while any slot asks for one,
@@ -92,8 +110,8 @@ serving core and its default scheduling).
   `update_weights_from_disk` installs an HF checkpoint as a push does,
   reading it before the pause (JAX reads it inside).
 
-The JAX engine's host KV tier, workspace layout, session export and
-import, prefill-only admissions and KV fabric are later ROADMAP items.
+The JAX engine's session export and import, prefill-only admissions and
+KV fabric are later ROADMAP items (queue 1, items 3.4-3.5).
 """
 
 from __future__ import annotations
@@ -120,7 +138,7 @@ from areal_tpu_torch.api.cli_args import (
 from areal_tpu_torch.api.engine_api import InferenceEngine
 from areal_tpu_torch.api.io_struct import ModelRequest, ModelResponse
 from areal_tpu_torch.core.workflow_executor import WorkflowExecutor
-from areal_tpu_torch.engine.kv_pool import KVBlockAllocator, PoolDry
+from areal_tpu_torch.engine.kv_pool import HostKVEntry, HostKVStore, KVBlockAllocator, PoolDry
 from areal_tpu_torch.engine.sampling import sample, slot_base_key
 from areal_tpu_torch.models import hf_io
 from areal_tpu_torch.models.convert import to_tensor
@@ -129,6 +147,7 @@ from areal_tpu_torch.models.qwen2 import (
     ModelConfig,
     check_servable,
     check_supported,
+    decode_step,
     decode_step_paged,
     layer_views,
     named_shapes,
@@ -136,6 +155,7 @@ from areal_tpu_torch.models.qwen2 import (
     prefill_with_prefix,
     quantize_weights,
     torch_dtype,
+    verify_step,
     verify_step_paged,
 )
 from areal_tpu_torch.ops.kv_quant import (
@@ -163,6 +183,8 @@ _MIN_SHARED_PREFIX = 64
 _STOP_OVERLAP = 16
 # consumed passes kept in the rolling inter-token-latency windows
 _ITL_WINDOW = 512
+# fp pool dtypes the kernels read: q in f32 or bf16 over a pool in either
+_FP_POOL_DTYPES = ("float32", "bfloat16")
 
 
 def kernel_launches() -> dict[str, int]:
@@ -173,6 +195,10 @@ def kernel_launches() -> dict[str, int]:
         paged_attention_q8=_pa.launches_q8,
         paged_verify=_pa.launches_verify,
         paged_verify_q8=_pa.launches_verify_q8,
+        paged_attention_f32q_bf16pool=_pa.launches_f32q_bf16pool,
+        paged_attention_bf16q_f32pool=_pa.launches_bf16q_f32pool,
+        paged_verify_f32q_bf16pool=_pa.launches_verify_f32q_bf16pool,
+        paged_verify_bf16q_f32pool=_pa.launches_verify_bf16q_f32pool,
         quant_matmul=_qm.launches,
         threefry_noise=_tf.launches,
         flash_attention_fwd=_fa.launches_fwd,
@@ -331,6 +357,8 @@ class TorchDecodeEngine(InferenceEngine):
         self._v_scale: torch.Tensor | None = None
         self._w_quant = False  # weight_dtype == "int8"
         self._kv_quant = False  # kv_dtype == "int8"
+        self._xla = False  # paged_attn_impl == "xla": the gather path, no kernel
+        self._block_nbytes = 0  # K+V bytes of one pool block, scales included
         self._alloc: KVBlockAllocator | None = None
         self._slots: list[_Slot | None] = []
         # KV rows each slot holds, projected ahead by dispatched chunks
@@ -343,6 +371,18 @@ class TorchDecodeEngine(InferenceEngine):
         # the tokens those rows hold
         self._parked: dict[str, tuple[int, int, float]] = {}
         self._parked_tokens: dict[str, list[int]] = {}
+        # the host KV tier (kv_host_pool_mb > 0), its lock (taken by the
+        # scheduler and by get_metrics), the side stream its offload copies
+        # run on, and the device intervals of its copies still in flight
+        # (direction, start, end), oldest first, not yet in `_swap_secs`
+        self._host_store: HostKVStore | None = None
+        self._host_lock = threading.Lock()
+        self._copy_stream: "torch.cuda.Stream | None" = None
+        self._swap_events: list[tuple[str, Any, Any]] = []
+        self._swap_secs = {"out": 0.0, "in": 0.0}
+        self._n_offload_failures = 0
+        self._n_promote_failures = 0
+        self._ws_copy_bytes = 0  # gather/scatter bytes of the gather paths
         # the prefix registry: covered tokens -> donor slot, and its inverse
         self._prefix_lookup: dict[tuple[int, ...], int] = {}
         self._slot_prefix: list[tuple[int, ...] | None] = []
@@ -467,19 +507,31 @@ class TorchDecodeEngine(InferenceEngine):
             raise ValueError(f"kv_dtype={self.config.kv_dtype!r} not in {KV_DTYPES}")
         self._w_quant = self.config.weight_dtype == "int8"
         self._kv_quant = self.config.kv_dtype == "int8"
+        if self.config.kv_layout not in ("paged", "workspace"):
+            raise ValueError(f"kv_layout={self.config.kv_layout!r} not in ('paged', 'workspace')")
+        if self._kv_quant and self.config.kv_layout != "paged":
+            # the workspace layout is the fp numerics oracle (jax_decode.py:714-720)
+            raise ValueError(
+                "kv_dtype='int8' requires kv_layout='paged' "
+                "(kv_layout='workspace' stays the fp numerics oracle)"
+            )
+        # "auto" and "pallas" both mean the CUDA kernels; "xla" the gather path
+        self._xla = self.config.paged_attn_impl == "xla"
         if self.config.spec_decode == "ngram":
             # the verify kernels' limits on W and W x group
             check_verify_width(
                 int(self.config.spec_k) + 1,
                 cfg.num_attention_heads // cfg.num_key_value_heads,
             )
-        if not self._kv_quant and self.config.kv_cache_dtype != cfg.dtype:
-            # the fp kernel reads the pool in q's dtype; refuse the mismatch
-            # here, on the CPU and the card alike, not at the first step
+        if not self._kv_quant and self.config.kv_cache_dtype != cfg.dtype and not (
+                self.config.kv_cache_dtype in _FP_POOL_DTYPES and cfg.dtype in _FP_POOL_DTYPES):
+            # the kernels take q and an fp pool in f32 or bf16, in any pair;
+            # refuse another pool here, on the CPU and the card alike
             raise NotImplementedError(
-                f"kv_cache_dtype={self.config.kv_cache_dtype!r} differs from "
-                f"the model dtype {cfg.dtype!r}: an fp KV pool in another "
-                "dtype is not in the PyTorch port yet: ROADMAP.md queue 1, item 3"
+                f"kv_cache_dtype={self.config.kv_cache_dtype!r} under the model dtype "
+                f"{cfg.dtype!r}: an fp KV pool outside {_FP_POOL_DTYPES} in another "
+                "dtype than the model's is not in the PyTorch port yet: ROADMAP.md "
+                "queue 1, item 3.6"
             )
         if self._w_quant:
             # the installed fp kernels become q/scale pairs (idempotent)
@@ -501,6 +553,22 @@ class TorchDecodeEngine(InferenceEngine):
             cfg.num_key_value_heads, cfg.head_dim_,
         )
         kv_dtype = torch.int8 if self._kv_quant else torch_dtype(self.config.kv_cache_dtype)
+        # physical bytes of one block, K and V, int8 scales included: every
+        # byte counter of the tier and the gather paths derives from it
+        # (jax_decode.py:762-781)
+        self._block_nbytes = 2 * cfg.num_hidden_layers * bs * cfg.num_key_value_heads * (
+            cfg.head_dim_ * kv_dtype.itemsize + (4 if self._kv_quant else 0))
+        with self._host_lock:
+            self._host_store = (
+                HostKVStore(int(float(self.config.kv_host_pool_mb) * 1024 * 1024),
+                            self._block_nbytes, bs)
+                if float(self.config.kv_host_pool_mb) > 0 else None)
+        if self.device.type == "cuda" and self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        self._swap_events = []
+        self._swap_secs = {"out": 0.0, "in": 0.0}
+        self._n_offload_failures = self._n_promote_failures = 0
+        self._ws_copy_bytes = 0
         self._k_pool = torch.zeros(shape, dtype=kv_dtype, device=self.device)
         self._v_pool = torch.zeros(shape, dtype=kv_dtype, device=self.device)
         self._k_scale = self._v_scale = None
@@ -554,6 +622,10 @@ class TorchDecodeEngine(InferenceEngine):
         self._prefix_lookup.clear()
         self._parked.clear()
         self._parked_tokens.clear()
+        with self._host_lock:
+            if self._host_store is not None:
+                self._host_store.clear()
+            self._host_store = None
 
     def kv_pools(self):
         """The pool operands of `decode_step_paged`: the K and V pools, or
@@ -745,15 +817,20 @@ class TorchDecodeEngine(InferenceEngine):
         self._slot_prefix = [None] * len(self._slot_prefix)
 
     def _invalidate_parked(self) -> None:
-        """Drop every parked KV cache and the registry (weight installs,
-        under a pause): a resume would otherwise continue from KV the new
-        weights never produced, under their version stamp."""
+        """Drop every parked KV cache, the registry and the host tier
+        (weight installs, under a pause): a resume would otherwise continue
+        from KV the new weights never produced, under their version stamp.
+        The tier's dropped rids are tombstoned, so their resumes count as
+        misses and prefill (jax_decode.py:4815-4837)."""
         for rid in list(self._parked):
             slot, _, _ = self._parked.pop(rid)
             self._parked_tokens.pop(rid, None)
             self._alloc.free_slot(slot)
             self._slot_lengths[slot] = 0
         self._invalidate_prefixes()
+        with self._host_lock:
+            if self._host_store is not None:
+                self._host_store.clear()
 
     def _release_slot_blocks(self, slot: int) -> None:
         self._unregister_prefix(slot)
@@ -761,14 +838,18 @@ class TorchDecodeEngine(InferenceEngine):
         self._slot_lengths[slot] = 0
 
     def _evict_parked_lru(self, protect: frozenset[int] = frozenset()) -> int | None:
-        """Free the least recently parked slot and return it. With no host
-        KV tier the parked KV is dropped: its resume prefills."""
+        """Free the least recently parked slot and return it
+        (jax_decode.py:2439-2460). With the host KV tier its blocks are
+        offloaded first and its resume promotes them; with none (or a
+        failed offload) the parked KV is dropped and its resume prefills."""
         candidates = [r for r, (s, _, _) in self._parked.items() if s not in protect]
         if not candidates:
             return None
         rid = min(candidates, key=lambda r: self._parked[r][2])
-        slot, _, _ = self._parked.pop(rid)
-        self._parked_tokens.pop(rid, None)
+        slot, covered, _ = self._parked.pop(rid)
+        cached = self._parked_tokens.pop(rid, None)
+        if cached:
+            self._offload_slot_kv(rid, slot, covered, cached)
         self._release_slot_blocks(slot)
         return slot
 
@@ -820,6 +901,164 @@ class TorchDecodeEngine(InferenceEngine):
                 if pool is not None:
                     pool[:, d] = pool[:, s]
 
+    # -- host KV tier (jax_decode.py:1917-2091) -------------------------
+    def _pool_parts(self) -> tuple:
+        """The pool tensors a block carries: K and V data, and on an int8
+        pool their scales."""
+        return tuple(t for t in (self._k_pool, self._v_pool, self._k_scale, self._v_scale)
+                     if t is not None)
+
+    def _note_swap(self, way: str, start, end=None) -> None:
+        """Add one swap's copy time to `_swap_secs`: wall seconds on the
+        CPU (`start` alone); on the card a pair of device events, folded in
+        as soon as they have passed, so that only copies in flight wait."""
+        with self._events_lock:
+            if end is None:
+                self._swap_secs[way] += start
+            else:
+                self._swap_events.append((way, start, end))
+                self._fold_swaps(wait=False)
+
+    def _fold_swaps(self, wait: bool) -> None:
+        """Move the intervals of finished copies, oldest first, into
+        `_swap_secs`; with `wait`, all of them. Under `_events_lock`."""
+        while self._swap_events:
+            way, start, end = self._swap_events[0]
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                return
+            self._swap_secs[way] += start.elapsed_time(end) / 1e3
+            self._swap_events.pop(0)
+
+    def swap_rates(self) -> dict:
+        """Bytes and seconds of the tier's copies so far, each way (`out`:
+        the offloads' device-to-host copies; `in`: the promotions'
+        uploads): the store's byte counts, and the device time between
+        events around the copies on the card (waited for here), the wall
+        on the CPU."""
+        with self._events_lock:
+            self._fold_swaps(wait=True)
+            secs = dict(self._swap_secs)
+        with self._host_lock:
+            store = self._host_store  # falsy when empty (its __len__)
+            on = store is not None
+            nbytes = {"out": store.swap_out_bytes_total if on else 0,
+                      "in": store.swap_in_bytes_total if on else 0}
+        return {w: dict(bytes=nbytes[w], seconds=secs[w]) for w in ("out", "in")}
+
+    def _offload_slot_kv(self, rid: str, slot: int, covered: int, tokens: list[int]) -> bool:
+        """Swap a victim slot's KV to the host tier before its blocks are
+        freed (jax_decode.py:1957-2028). The covering blocks (and an int8
+        pool's scales) are gathered into fresh device buffers on the
+        decode stream, so the gather is queued before any later kernel
+        that reuses the freed blocks; on the card the copies into pinned
+        host memory then run on a side stream after an event, and the
+        buffers are kept (and `record_stream`ed) until the copy's event
+        has passed. False when the tier is off, the entry does not fit its
+        budget, or the offload failed (counted): the caller drops the
+        blocks, as with no tier, and the resume prefills."""
+        if self._host_store is None or covered <= 0:
+            return False
+        nb = self._alloc.blocks_for(covered)
+        if nb <= 0 or nb > int(self._alloc.nblocks[slot]):
+            return False
+        try:
+            t0 = time.perf_counter()
+            blocks = self._upload(self._alloc.row(slot, nb).astype(np.int64))
+            bufs = [t.index_select(1, blocks) for t in self._pool_parts()]
+            event = None
+            if self.device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record()
+                host = [torch.empty(b.shape, dtype=b.dtype, pin_memory=True) for b in bufs]
+                side = self._copy_stream
+                side.wait_event(ready)
+                with torch.cuda.stream(side):
+                    start = torch.cuda.Event(enable_timing=True)
+                    event = torch.cuda.Event(enable_timing=True)
+                    start.record(side)
+                    for h, b in zip(host, bufs):
+                        h.copy_(b, non_blocking=True)
+                    event.record(side)
+                for b in bufs:
+                    b.record_stream(side)
+                timing = (start, event)
+            else:
+                host = bufs  # the gather is the synchronous copy
+                timing = (time.perf_counter() - t0,)
+            k, v, *scales = host
+            entry = HostKVEntry(
+                rid=rid, k=k, v=v, ks=scales[0] if scales else None,
+                vs=scales[1] if scales else None, nb=nb, covered=int(covered),
+                tokens=list(tokens), base_key=np.array(self._slot_keys[slot]),
+                weight_version=int(self._version), pending=event is not None, event=event,
+                dev=tuple(bufs) if event is not None else (),
+            )
+            with self._host_lock:
+                kept = self._host_store.put(entry)
+            if kept:  # the store counts the bytes of the entries it keeps
+                self._note_swap("out", *timing)
+            return kept
+        except Exception as e:  # noqa: BLE001 — degrade to a prefill, never wedge
+            # a failed offload (host memory, a copy error, an injected
+            # fault) costs the resume a prefill, never the scheduler thread
+            self._n_offload_failures += 1
+            logger.warning(f"host-KV offload of {rid} failed: {e!r}")
+            return False
+
+    def _host_match(self, rid: str, covered: int, tokens: list[int]) -> bool:
+        """Exact-resume peek into the host tier (a stale entry is dropped
+        and counted a miss inside the store)."""
+        if self._host_store is None:
+            return False
+        with self._host_lock:
+            return self._host_store.match(rid, covered, tokens, weight_version=int(self._version))
+
+    def _host_promote(self, item: _Slot, slot: int, covered: int) -> bool:
+        """Promote the item's host entry into `slot` (jax_decode.py:
+        2040-2091): fresh device blocks and an upload of the stored bytes
+        on the decode stream, so the slot's first chunk, queued behind it,
+        reads them; no prefill. Restores the slot's sampling key and
+        registers the covered tokens as a prefix. Raises PoolDry, with the
+        entry put back, when the pool cannot back the blocks even after
+        reclaim; False only if the entry vanished."""
+        with self._host_lock:
+            entry = self._host_store.take(item.rid)
+        if entry is None:
+            return False
+        self._unregister_prefix(slot)
+        self._alloc.free_slot(slot)
+        self._slot_lengths[slot] = 0
+        if not self._ensure_tokens(slot, covered):
+            with self._host_lock:
+                self._host_store.restore(entry)
+            raise PoolDry("no device blocks for host-tier promotion")
+        blocks = self._upload(self._alloc.row(slot, entry.nb).astype(np.int64))
+        hosts = (entry.k, entry.v) + (() if entry.ks is None else (entry.ks, entry.vs))
+        cuda = self.device.type == "cuda"
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        else:
+            t0 = time.perf_counter()
+        for pool, host in zip(self._pool_parts(), hosts):
+            pool[:, blocks] = host.to(self.device, non_blocking=True)
+        if cuda:
+            end.record()
+            self._note_swap("in", start, end)
+        else:
+            self._note_swap("in", time.perf_counter() - t0)
+        self._slot_keys[slot] = entry.base_key
+        item.base_key = np.array(entry.base_key)
+        # rows [0, covered) hold exactly these tokens: a donor as valid as
+        # a prefill's
+        self._register_prefix(slot, list(entry.tokens))
+        with self._host_lock:
+            self._host_store.note_hit(entry)
+        return True
+
     # -- admission (jax_decode.py:2559-3093) ----------------------------
     def _admit(self) -> bool:
         """Admit queued requests into free slots down the ladder of the
@@ -847,14 +1086,17 @@ class TorchDecodeEngine(InferenceEngine):
                 continue
             needs_bucket = min(_next_bucket(P - 1), S) if P > 1 else 0
             covered_t = tuple(prompt[:-1]) if P > 1 else ()
+            # the host tier first: an exact offloaded match needs neither
+            # prefill nor fork, and its bytes are the original KV's
+            host_hit = P > 1 and self._host_match(item.rid, P - 1, prompt[:-1])
             donor = None
-            if P > 1:
+            if P > 1 and not host_hit:
                 donor = self._prefix_lookup.get(covered_t)
                 if donor is None:
                     donor = self._find_covering_donor(covered_t)
             partial = None
             is_wave_dup = P > 1 and covered_t in wave_primaries
-            if donor is None and P > 1 and not is_wave_dup:
+            if donor is None and P > 1 and not is_wave_dup and not host_hit:
                 found = self._find_shared_prefix(covered_t)
                 if found is not None:
                     donor_slot, plen = found
@@ -871,7 +1113,8 @@ class TorchDecodeEngine(InferenceEngine):
                     # fork + suffix instead of prefilling the shared history
                     self._overflow.insert(0, item)
                     break
-            if did_prefill and donor is None and not is_wave_dup and needs_bucket > budget:
+            if (did_prefill and donor is None and not is_wave_dup and not host_hit
+                    and needs_bucket > budget):
                 self._overflow.insert(0, item)
                 break
             # the resume check comes first: evicting before matching could
@@ -895,7 +1138,22 @@ class TorchDecodeEngine(InferenceEngine):
                     self._release_slot_blocks(slot)
             else:
                 slot = resumed
-            if resumed is None and P > 1 and donor is not None:
+            promoted = False
+            if resumed is None and host_hit:
+                try:
+                    promoted = self._host_promote(item, slot, P - 1)
+                except PoolDry:
+                    # the entry went back to the store: retry next pass
+                    self._overflow.insert(0, item)
+                    break
+                except Exception as e:  # noqa: BLE001 — degrade to a prefill
+                    # the promotion died (an unreadable entry, an upload
+                    # error, an injected fault): a miss, and the request
+                    # prefills below with the same stream (jax_decode.py:
+                    # 2750-2759)
+                    self._n_promote_failures += 1
+                    logger.warning(f"host-KV promotion of {item.rid} failed: {e!r}")
+            if resumed is None and P > 1 and not promoted and donor is not None:
                 if donor != slot:
                     self._unregister_prefix(slot)
                     try:
@@ -916,7 +1174,7 @@ class TorchDecodeEngine(InferenceEngine):
                     # overwrites those past P - 1, so trim the claim
                     self._n_prefix_inplace += 1
                 self._register_prefix(slot, list(covered_t))
-            elif resumed is None and P > 1 and partial is not None:
+            elif resumed is None and P > 1 and not promoted and partial is not None:
                 donor_slot, plen, sb = partial
                 budget -= sb
                 did_prefill = True
@@ -935,7 +1193,7 @@ class TorchDecodeEngine(InferenceEngine):
                     break
                 self._suffix_prefill(slot, prompt[plen : P - 1], plen, sb)
                 self._register_prefix(slot, list(covered_t))
-            elif resumed is None and P > 1:
+            elif resumed is None and P > 1 and not promoted:
                 pre = P - 1
                 bucket = min(_next_bucket(pre), S)
                 self._unregister_prefix(slot)
@@ -959,8 +1217,9 @@ class TorchDecodeEngine(InferenceEngine):
             self._slot_lengths[slot] = P - 1
             self._slot_epoch[slot] += 1
             # one base key per request, in first-admission order; a parked
-            # resume keeps its slot's key, a requeue carries its own
-            if resumed is not None:
+            # resume keeps its slot's key, a promotion restored the entry's,
+            # a requeue carries its own
+            if resumed is not None or promoted:
                 item.base_key = np.array(self._slot_keys[slot])
             elif item.base_key is not None:
                 self._slot_keys[slot] = item.base_key
@@ -1061,7 +1320,7 @@ class TorchDecodeEngine(InferenceEngine):
         ids[: len(suffix)] = suffix
         pos = np.arange(plen, plen + sb)
 
-        def prefix(pool, scales):  # [L, pb, nKV, hd] in the model dtype
+        def prefix(pool, scales):  # [L, pb, nKV, hd]: an fp pool's dtype (prefill casts)
             rows = pool[:, table].reshape(L, nb * bsz, nKV, hd)[:, :pb]
             if scales is None:
                 return rows
@@ -1096,8 +1355,17 @@ class TorchDecodeEngine(InferenceEngine):
 
     def _preempt(self, slot: int) -> None:
         """Pool pressure: requeue the slot's request at the front (it
-        re-admits with its consumed tokens) and free its blocks."""
+        re-admits with its consumed tokens) and free its blocks
+        (jax_decode.py:2497-2527). With the host KV tier the consumed
+        coverage, prompt[:-1] + tokens, is offloaded first: rows that
+        chunks still in flight write past it are never claimed, and the
+        re-admission promotes the rest instead of prefilling."""
         item = self._slots[slot]
+        if item is not None:
+            covered = len(item.prompt) - 1 + len(item.tokens)
+            if covered > 0:
+                self._offload_slot_kv(item.rid, slot, covered,
+                                      (item.prompt + item.tokens)[:covered])
         self._slots[slot] = None
         self._release_slot_blocks(slot)
         self._mark_slot_dirty(slot)
@@ -1299,6 +1567,17 @@ class TorchDecodeEngine(InferenceEngine):
             acc = None
             self.decode_steps += n_chunk
             self._slot_lengths[active] += n_chunk
+        # the gather paths' copies of the active KV (jax_decode.py:3499-3510,
+        # 3585-3601): the workspace gathers and scatters every slot's nb
+        # blocks, the paged gather path gathers them once (an int8 pool,
+        # in place, once per step), the kernels copy nothing
+        if self.config.kv_layout == "workspace":
+            copies = 2
+        elif not self._xla:
+            copies = 0
+        else:
+            copies = n_chunk if self._kv_quant and not W else 1
+        self._ws_copy_bytes += copies * R * nb * self._block_nbytes
         self._chunks_dispatched += 1
         host = [self._to_host(t) for t in (toks, logps) + (() if acc is None else (acc,))]
         event = None
@@ -1330,11 +1609,24 @@ class TorchDecodeEngine(InferenceEngine):
                 self._freq_counts = torch.zeros(
                     (R, self.model_config.vocab_size), dtype=torch.float32, device=dev)
             active_f = active_t.float()[:, None]
+        gather = self.config.kv_layout == "workspace" or (self._xla and not self._kv_quant)
+        if gather:
+            # the gather paths (jax_decode.py:1447-1549): each slot's nb
+            # blocks into a contiguous workspace in the pool's dtype
+            kc, vc = self._gather_workspace(table)
+            lengths0 = lengths
         for step in range(n_chunk):
-            logits = decode_step_paged(
-                self.params, tokens, lengths, k_pool, v_pool, table, self.model_config,
-                active=active_t, layers=self._layers,
-            )
+            if gather:
+                logits = decode_step(self.params, tokens, lengths, kc, vc, self.model_config,
+                                     active=active_t, layers=self._layers)
+            else:
+                # an int8 pool on the gather path attends in place through
+                # the plain version, as JAX's xla impl does
+                logits = decode_step_paged(
+                    self.params, tokens, lengths, k_pool, v_pool, table, self.model_config,
+                    active=active_t, layers=self._layers,
+                    **(dict(attn_fn=_pa.paged_attention_ref) if self._xla else {}),
+                )
             if use_freq:
                 logits = logits - ctl["freq_pens"][:, None] * self._freq_counts
             # the token at position `lengths` draws with fold_in(key, lengths)
@@ -1349,8 +1641,47 @@ class TorchDecodeEngine(InferenceEngine):
             logps[step] = logp
             lengths = lengths + active_t
             tokens = tok
+        if gather and self.config.kv_layout == "workspace":
+            self._scatter_workspace(table, kc, vc)
+        elif gather:
+            self._write_back_rows(table, kc, vc, lengths0, active_t, n_chunk)
         self._dev_last, self._dev_lengths = tokens, lengths
         return toks, logps
+
+    def _gather_workspace(self, table) -> tuple[torch.Tensor, torch.Tensor]:
+        """The [L, R, nb * bsz, nKV, hd] workspace of each slot's table
+        blocks, in the pool's dtype (a copy: the pass writes into it)."""
+        L, _, bsz, nKV, hd = self._k_pool.shape
+        R, nb = table.shape
+        idx = table.reshape(-1).long()
+        return tuple(p.index_select(1, idx).reshape(L, R, nb * bsz, nKV, hd)
+                     for p in (self._k_pool, self._v_pool))
+
+    def _scatter_workspace(self, table, kc, vc) -> None:
+        """Write every slot's workspace blocks back into the pool (the
+        workspace layout). Aliased blocks and the null block receive the
+        same bytes from each holder: no slot writes below its length, and
+        an inactive slot's rows pass through unchanged."""
+        L, _, bsz, nKV, hd = self._k_pool.shape
+        R, nb = table.shape
+        idx = table.reshape(-1).long()
+        self._k_pool[:, idx] = kc.reshape(L, R * nb, bsz, nKV, hd)
+        self._v_pool[:, idx] = vc.reshape(L, R * nb, bsz, nKV, hd)
+
+    def _write_back_rows(self, table, kc, vc, lengths0, active_t, n_chunk: int) -> None:
+        """The paged gather path's write-back (jax_decode.py:1479-1507):
+        only the n_chunk rows per slot from its length before the chunk,
+        at their pool coordinates; an inactive slot's rows go to the null
+        block 0."""
+        L, _, bsz, nKV, hd = self._k_pool.shape
+        R, nb = table.shape
+        pos = (lengths0[:, None] + torch.arange(n_chunk, device=self.device)).clamp(0, nb * bsz - 1)
+        slots = torch.arange(R, device=self.device)[:, None]
+        block = table.long().gather(1, (pos // bsz).clamp(0, nb - 1))
+        block = torch.where(active_t[:, None], block, 0).reshape(-1)
+        off = torch.where(active_t[:, None], pos % bsz, 0).reshape(-1)
+        for pool, ws in ((self._k_pool, kc), (self._v_pool, vc)):
+            pool[:, block, off] = ws[:, slots, pos].reshape(L, R * n_chunk, nKV, hd)
 
     def _verify_pass(self, active_t, last, lengths, table, ctl, drafts, dlens, W: int,
                      use_topp: bool, k_pool, v_pool):
@@ -1368,10 +1699,20 @@ class TorchDecodeEngine(InferenceEngine):
         R = active_t.shape[0]
         dev = self.device
         tokens = torch.cat([last[:, None], drafts], dim=1)
-        logits = verify_step_paged(
-            self.params, tokens, lengths, k_pool, v_pool, table, self.model_config,
-            active=active_t, layers=self._layers,
-        )  # [R, W, V]
+        if self.config.kv_layout == "workspace":
+            # gather, verify over the workspace, scatter the blocks back
+            kc, vc = self._gather_workspace(table)
+            logits = verify_step(self.params, tokens, lengths, kc, vc, self.model_config,
+                                 active=active_t, layers=self._layers)
+            self._scatter_workspace(table, kc, vc)
+        else:
+            # the paged gather path attends through the plain version, which
+            # gathers inside each layer (jax_decode.py:1604-1609)
+            logits = verify_step_paged(
+                self.params, tokens, lengths, k_pool, v_pool, table, self.model_config,
+                active=active_t, layers=self._layers,
+                **(dict(attn_fn=_pa.paged_attention_qlen_ref) if self._xla else {}),
+            )  # [R, W, V]
         positions = lengths[:, None] + torch.arange(W, device=dev)
 
         def rows(t):  # [R] -> [R * W], slot-major as the logits
@@ -1780,6 +2121,23 @@ class TorchDecodeEngine(InferenceEngine):
         prefix_hits = self._n_prefix_forks + self._n_prefix_inplace + self._n_suffix_prefills
         prefix_total = prefix_hits + self._n_prefills
         alloc = self._alloc
+        with self._host_lock:
+            hs = self._host_store
+            # `if hs` would be False for an empty store (its __len__)
+            on = hs is not None
+            host = dict(
+                enabled=on, budget=hs.budget_bytes if on else 0,
+                used=hs.bytes_used if on else 0, entries=len(hs) if on else 0,
+                tokens=hs.resident_tokens() if on else 0,
+                occupancy=round(hs.occupancy(), 6) if on else 0.0,
+                swap_out=hs.swap_out_bytes_total if on else 0,
+                swap_in=hs.swap_in_bytes_total if on else 0, hits=hs.hits if on else 0,
+                misses=hs.misses if on else 0, evictions=hs.evictions if on else 0,
+                rejected=hs.rejected_puts if on else 0,
+                avoided=hs.reprefill_tokens_avoided if on else 0,
+                version_rejects=hs.version_rejects if on else 0,
+            )
+        host_lookups = host["hits"] + host["misses"]
         return {
             "running_requests": running,
             "queued_requests": len(queued_items),
@@ -1811,6 +2169,28 @@ class TorchDecodeEngine(InferenceEngine):
             "kv_blocks_total": alloc.usable_blocks if alloc else 0,
             "kv_blocks_free": alloc.free_blocks if alloc else 0,
             "kv_tokens_allocated": alloc.allocated_tokens() if alloc else 0,
+            "kv_block_nbytes": self._block_nbytes,
+            # the host KV tier (jax_decode.py:5363-5392): all zeros when off
+            "kv_host_pool_enabled": host["enabled"],
+            "kv_host_pool_bytes": host["budget"],
+            "kv_host_pool_bytes_used": host["used"],
+            "kv_host_pool_entries": host["entries"],
+            "kv_host_pool_tokens": host["tokens"],
+            "kv_host_pool_occupancy": host["occupancy"],
+            "kv_swap_out_bytes_total": host["swap_out"],
+            "kv_swap_in_bytes_total": host["swap_in"],
+            "kv_host_hits_total": host["hits"],
+            "kv_host_misses_total": host["misses"],
+            "kv_host_evictions_total": host["evictions"],
+            "kv_host_rejected_puts_total": host["rejected"],
+            "kv_host_version_rejects_total": host["version_rejects"],
+            "kv_offload_failures_total": self._n_offload_failures,
+            "kv_promote_failures_total": self._n_promote_failures,
+            "kv_host_hit_rate": round(host["hits"] / host_lookups, 6) if host_lookups else 0.0,
+            "reprefill_tokens_avoided_total": host["avoided"],
+            # the gather paths' KV copies: workspace gather + scatter, the
+            # paged gather path the gather, the kernels none
+            "kv_workspace_copy_bytes_total": self._ws_copy_bytes,
             "kernel_launches": dict(
                 kernel_launches(), decode_steps=self.decode_steps,
                 verify_dispatches=self.verify_dispatches, prefill_calls=self.prefill_calls,

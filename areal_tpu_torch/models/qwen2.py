@@ -53,7 +53,11 @@ from torch.utils.checkpoint import checkpoint
 from areal_tpu_torch.ops.flash_attention import PADDING_SEGMENT, flash_attention, packed_layout
 from areal_tpu_torch.ops.fused_xent import chunked_clamped_entropy, chunked_label_logprobs
 from areal_tpu_torch.ops.kv_quant import quantize_kv, split_pool
-from areal_tpu_torch.ops.paged_attention import paged_attention, paged_attention_qlen
+from areal_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    paged_attention_qlen,
+    verify_attention,
+)
 from areal_tpu_torch.ops.quant import dequantize_absmax, quantize_absmax
 from areal_tpu_torch.ops.quant_matmul import quant_einsum
 
@@ -994,3 +998,77 @@ def verify_step_paged(
         h = _norm(x, lp["post_attn_norm"], cfg)
         x = x + mlp(lp, h, cfg, matmul_fn)
     return _logits(params, x, cfg).reshape(R, W, -1)
+
+
+def verify_step(
+    params: dict,
+    tokens,  # [R, W]: column 0 the slot's last token, then its draft
+    positions0,  # [R] row column 0 occupies
+    k_cache,  # [L, R, S, nKV, hd] per-slot contiguous workspace, in place
+    v_cache,  # [L, R, S, nKV, hd]
+    cfg: ModelConfig,
+    active=None,  # [R] bool: slot holds a live request
+    layers: list[dict] | None = None,  # layer_views(params, cfg), if kept
+    matmul_fn=quant_einsum,
+):
+    """The speculative verify step over the workspace layout (JAX :2295):
+    W positions per slot in one forward over a dense per-slot cache, which
+    the engine gathers from the pool's blocks and scatters back. Column j
+    of slot r sits at `positions0[r] + j`; returns logits [R, W, V] in
+    f32.
+
+    Each layer writes the R x W new rows at `(r, position)` of the cache
+    in place, cast to the cache's dtype; an inactive slot writes its old
+    rows back unchanged, so a parked or donor slot's KV passes through the
+    gather and scatter intact. Attention is `verify_attention` over the
+    cache (cast to q's dtype), the op sequence of the paged plain version,
+    so the workspace and paged layouts agree bit for bit. Positions are
+    clamped into the cache. A critic is refused (`check_servable`)."""
+    check_servable(cfg)
+    if layers is None:
+        layers = layer_views(params, cfg)
+    R, W = tokens.shape
+    S = k_cache.shape[2]
+    nH, nKV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    dev = tokens.device
+    positions = positions0.long()[:, None] + torch.arange(W, device=dev)  # [R, W]
+    x = _embed(params, tokens.reshape(-1), cfg)  # [R*W, H]
+    cos, sin = rope_table(positions.reshape(-1), hd, cfg.rope_theta, cfg.rope_scaling_)
+    valid = torch.arange(S, device=dev)[None, None, :] <= positions[:, :, None]
+    pos_c = positions.clamp(0, S - 1)
+    rows = torch.arange(R, device=dev)[:, None].expand(R, W)
+
+    def write(cache, new):  # [R, S, nKV, hd] <- [R*W, nKV, hd], in place
+        new = new.reshape(R, W, nKV, hd).to(cache.dtype)
+        if active is not None:
+            new = torch.where(active[:, None, None, None], new, cache[rows, pos_c])
+        cache[rows, pos_c] = new
+
+    for i, lp in enumerate(layers):
+        h = _norm(x, lp["input_norm"], cfg)
+        q, k_new, v_new = _project_qkv(lp, h, cos, sin, cfg, matmul_fn)
+        write(k_cache[i], k_new)
+        write(v_cache[i], v_new)
+        attn = verify_attention(q.reshape(R, W, nH, hd), k_cache[i], v_cache[i], valid)
+        x = x + _attn_out(lp, attn.reshape(R * W, nH, hd), matmul_fn)
+        h = _norm(x, lp["post_attn_norm"], cfg)
+        x = x + mlp(lp, h, cfg, matmul_fn)
+    return _logits(params, x, cfg).reshape(R, W, -1)
+
+
+def decode_step(
+    params: dict,
+    tokens,  # [R] current input token per slot
+    positions,  # [R] row the new token occupies
+    k_cache,  # [L, R, S, nKV, hd] per-slot contiguous workspace, in place
+    v_cache,  # [L, R, S, nKV, hd]
+    cfg: ModelConfig,
+    active=None,  # [R] bool: slot holds a live request
+    layers: list[dict] | None = None,
+    matmul_fn=quant_einsum,
+):
+    """One batched decode step over the workspace layout (JAX :2046):
+    `verify_step` with one position per slot (the masked row write, scores
+    in q's dtype). Returns logits [R, V] in f32."""
+    return verify_step(params, tokens[:, None], positions, k_cache, v_cache, cfg,
+                       active=active, layers=layers, matmul_fn=matmul_fn)[:, 0]

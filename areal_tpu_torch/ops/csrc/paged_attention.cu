@@ -195,6 +195,17 @@
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
+// the pool's element type, as the wrapper passes it
+constexpr int kPoolF32 = 0;
+constexpr int kPoolBF16 = 1;
+constexpr int kPoolI8 = 2;
+template <typename P>
+__host__ __device__ constexpr int pool_code() {
+  return std::is_same<P, float>::value ? kPoolF32 : std::is_same<P, bf16>::value ? kPoolBF16 : kPoolI8;
+}
+
 constexpr int kThreads = 1024;
 constexpr int kMaxGroup = 16;
 constexpr int kMaxPage = 256;
@@ -209,6 +220,10 @@ struct VecWidth<float> {
 template <>
 struct VecWidth<int8_t> {
   static constexpr int value = 16;
+};
+template <>
+struct VecWidth<bf16> {
+  static constexpr int value = 8;
 };
 
 __device__ __forceinline__ void load16(const float* p, float* out) {
@@ -226,13 +241,26 @@ __device__ __forceinline__ void load16(const int8_t* p, float* out) {
   for (int i = 0; i < 16; ++i) out[i] = static_cast<float>(b[i]);
 }
 
+// a bf16 pool under f32 q: each value widened exactly, as `.to(torch.float32)`
+__device__ __forceinline__ void load16(const bf16* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
 __device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float x, float* p) { *p = x; }
 
-// The first version's body of K3 (P = T, no scales) and K5a (P = int8_t,
-// f32 scales), instantiated for f32 q only: bf16 q takes the tensor-core
-// route.
+// The first version's body of K3 (P = T, no scales; P = bf16 for a bf16
+// pool under f32 q) and K5a (P = int8_t, f32 scales), instantiated for f32
+// q only: bf16 q takes the tensor-core route.
 template <typename T, typename P, int HD>
 __device__ __forceinline__ void paged_attn_body(
     const T* __restrict__ q,             // [R, nH, HD]
@@ -407,16 +435,17 @@ __device__ __forceinline__ void paged_attn_body(
   }
 }
 
-// K3 (f32): a pool in q's dtype
-template <typename T, int HD>
+// K3 (f32 q): an fp pool, P = T or a bf16 pool (each value widened exactly
+// after its load)
+template <typename T, typename P, int HD>
 __global__ void __launch_bounds__(kThreads)
-    paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                      const T* __restrict__ v_pool,
+    paged_attn_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
+                      const P* __restrict__ v_pool,
                       const int32_t* __restrict__ table,
                       const uint8_t* __restrict__ valid, T* __restrict__ out,
                       int nKV, int group, int bsz, int nb, int n_blocks,
                       float sm_scale) {
-  paged_attn_body<T, T, HD>(q, k_pool, nullptr, v_pool, nullptr, table, valid,
+  paged_attn_body<T, P, HD>(q, k_pool, nullptr, v_pool, nullptr, table, valid,
                             out, nKV, group, bsz, nb, n_blocks, sm_scale);
 }
 
@@ -442,8 +471,9 @@ constexpr int kVerifyMaxW = 16;
 constexpr int kVerifyMaxRows = 128;  // W * group
 constexpr int kTile = 32;  // first version: K/V rows scored per step, one per lane
 
-// The first version's body of K4 (P = T, no scales) and K5b (P = int8_t, f32
-// scales), instantiated for f32 q only: bf16 q takes the tensor-core route.
+// The first version's body of K4 (P = T, no scales; P = bf16 for a bf16 pool
+// under f32 q) and K5b (P = int8_t, f32 scales), instantiated for f32 q
+// only: bf16 q takes the tensor-core route.
 template <typename T, typename P, int HD>
 __device__ __forceinline__ void paged_verify_body(
     const T* __restrict__ q,             // [R, W, nH, HD]
@@ -635,16 +665,16 @@ __device__ __forceinline__ void paged_verify_body(
   }
 }
 
-// K4: a pool in q's dtype
-template <typename T, int HD>
+// K4 (f32 q): an fp pool, P = T or bf16
+template <typename T, typename P, int HD>
 __global__ void __launch_bounds__(kThreads)
-    paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                        const T* __restrict__ v_pool,
+    paged_verify_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
+                        const P* __restrict__ v_pool,
                         const int32_t* __restrict__ table,
                         const uint8_t* __restrict__ valid, T* __restrict__ out,
                         int W, int nKV, int group, int bsz, int nb,
                         int n_blocks, float sm_scale) {
-  paged_verify_body<T, T, HD>(q, k_pool, nullptr, v_pool, nullptr, table,
+  paged_verify_body<T, P, HD>(q, k_pool, nullptr, v_pool, nullptr, table,
                               valid, out, W, nKV, group, bsz, nb, n_blocks,
                               sm_scale);
 }
@@ -679,8 +709,6 @@ constexpr int kCombineThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
-using bf16 = __nv_bfloat16;
-
 struct VerifyArgs {
   const bf16* q;           // [R, W, nH, HD]
   const void* k_pool;      // [n_blocks, bsz, nKV, HD], bf16 or int8
@@ -702,7 +730,14 @@ struct VerifySmem {
   size_t q, kv, raw, scale, row_off, row_mask, live, list, total;
 };
 
-__host__ __device__ inline VerifySmem verify_smem(int M, int hd, int bsz, int pps, bool quant) {
+// Bytes of one shared row of raw (not bf16) pool elements: an int8 or f32
+// pool's rows are staged as they are, then widened or rounded to bf16.
+__host__ __device__ inline size_t raw_row_bytes(int hd, int pool) {
+  return (size_t)hd * (pool == kPoolF32 ? 4 : 1) + kVRawPad;
+}
+
+__host__ __device__ inline VerifySmem verify_smem(int M, int hd, int bsz, int pps, int pool) {
+  const bool raw = pool != kPoolBF16, quant = pool == kPoolI8;
   const size_t ld = (size_t)hd + kVRowPad;
   const size_t m_pad = (size_t)(M + 15) / 16 * 16;
   const size_t rows = (size_t)(pps * bsz + kVTile - 1) / kVTile * kVTile;
@@ -710,10 +745,10 @@ __host__ __device__ inline VerifySmem verify_smem(int M, int hd, int bsz, int pp
   size_t o = 0;
   s.q = o;
   o += m_pad * ld * 2;
-  s.kv = o;  // K and V bf16 tiles: two buffers, or one for int8 (widened here)
-  o += (quant ? 1 : 2) * 2 * (size_t)kVTile * ld * 2;
-  s.raw = o;  // int8 only: K and V int8 tiles, two buffers
-  if (quant) o += 2 * 2 * (size_t)kVTile * (hd + kVRawPad);
+  s.kv = o;  // K and V bf16 tiles: two buffers, or one for a raw pool (converted here)
+  o += (raw ? 1 : 2) * 2 * (size_t)kVTile * ld * 2;
+  s.raw = o;  // int8 or f32 pools only: K and V raw tiles, two buffers
+  if (raw) o += 2 * 2 * (size_t)kVTile * raw_row_bytes(hd, pool);
   s.scale = o;  // int8 only: K and V scales, two buffers
   if (quant) o += 2 * 2 * (size_t)kVTile * 4;
   s.row_off = o;  // per logical row of the split: pool row, or -1
@@ -796,14 +831,25 @@ __device__ __forceinline__ void acc_to_a(float (*c)[4], int kk, uint32_t* hi,
   split_pair(c[2 * kk + 1][2], c[2 * kk + 1][3], hi[3], lo[3]);
 }
 
+// 8 f32 values (32 bytes of shared memory, 16-byte aligned) rounded to bf16
+// to nearest even, as `.to(torch.bfloat16)`, into 16 bytes of a bf16 tile
+__device__ __forceinline__ void round8(const int8_t* src, bf16* dst) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 16);
+  *reinterpret_cast<uint4*>(dst) = make_uint4(
+      pair_bits(__floats2bfloat162_rn(a.x, a.y)), pair_bits(__floats2bfloat162_rn(a.z, a.w)),
+      pair_bits(__floats2bfloat162_rn(b.x, b.y)), pair_bits(__floats2bfloat162_rn(b.z, b.w)));
+}
+
 // One split of one (slot, kv head). Warp i owns query rows 16i..16i+15;
 // thread (g, t4) = (lane / 4, lane % 4) holds rows g and g + 8 of those
 // and, in each 8-column n-tile, columns 2 t4 and 2 t4 + 1 (K1's layout).
-template <bool kQuant, int HD>
+template <typename PoolT, int HD>
 __device__ __forceinline__ void verify_mma_body(const VerifyArgs& a) {
-  using PoolT = typename std::conditional<kQuant, int8_t, bf16>::type;
+  constexpr bool kQuant = std::is_same<PoolT, int8_t>::value;  // scales
+  constexpr bool kRaw = !std::is_same<PoolT, bf16>::value;     // staged, then converted
   constexpr int LD = HD + kVRowPad;
-  constexpr int LDR = HD + kVRawPad;  // bytes per shared int8 row
+  constexpr int LDR = HD * sizeof(PoolT) + kVRawPad;  // bytes per shared raw row
   constexpr int kTE = kVTile * LD;    // elements of one bf16 tile
   constexpr int KK = HD / 16;         // k-steps of S = Q K^T
   constexpr int NO = HD / 8;          // n-tiles of O
@@ -819,7 +865,7 @@ __device__ __forceinline__ void verify_mma_body(const VerifyArgs& a) {
   const int ntiles = (rows + kVTile - 1) / kVTile;
 
   extern __shared__ __align__(16) unsigned char smem_v[];
-  const VerifySmem lay = verify_smem(M, HD, a.bsz, a.pps, kQuant);
+  const VerifySmem lay = verify_smem(M, HD, a.bsz, a.pps, pool_code<PoolT>());
   bf16* q_s = reinterpret_cast<bf16*>(smem_v + lay.q);
   bf16* kv_s = reinterpret_cast<bf16*>(smem_v + lay.kv);
   int8_t* raw_s = reinterpret_cast<int8_t*>(smem_v + lay.raw);
@@ -911,7 +957,7 @@ __device__ __forceinline__ void verify_mma_body(const VerifyArgs& a) {
       const PoolT* pool = which ? v_pool : k_pool;
       const PoolT* src = pool + ((size_t)(off < 0 ? 0 : off) * a.nKV + h) * HD + ch * kElems;
       void* dst;
-      if constexpr (kQuant)
+      if constexpr (kRaw)
         dst = raw_s + ((b * 2 + which) * kVTile + row) * LDR + ch * 16;
       else
         dst = kv_s + (b * 2 + which) * kTE + row * LD + ch * 8;
@@ -958,7 +1004,15 @@ __device__ __forceinline__ void verify_mma_body(const VerifyArgs& a) {
     __syncthreads();
     const int x0 = list_s[i] * kVTile;
     const bf16* ks = kv_s;
-    if constexpr (kQuant) {
+    if constexpr (kRaw && !kQuant) {
+      // the f32 tiles rounded to bf16 to nearest even, as .to(torch.bfloat16)
+      const int8_t* src = raw_s + (i & 1) * 2 * kVTile * LDR;
+      for (int c = tid; c < 2 * kVTile * (HD / 8); c += nthr) {
+        const int rr = c / (HD / 8), ch = c % (HD / 8);  // rr: K rows, then V rows
+        round8(src + rr * LDR + ch * 32, kv_s + (rr / kVTile) * kTE + (rr % kVTile) * LD + ch * 8);
+      }
+      __syncthreads();
+    } else if constexpr (kQuant) {
       // the int8 tiles widened to bf16, unscaled (|x| <= 127 is exact)
       const int8_t* src = raw_s + (i & 1) * 2 * kVTile * LDR;
       for (int c = tid; c < 2 * kVTile * (HD / 16); c += nthr) {
@@ -1141,17 +1195,23 @@ __device__ __forceinline__ void verify_combine_body(const VerifyArgs& a) {
 // K4: a bf16 pool
 template <int HD>
 __global__ void __launch_bounds__(kVMaxThreads) paged_verify_mma_kernel(VerifyArgs a) {
-  verify_mma_body<false, HD>(a);
+  verify_mma_body<bf16, HD>(a);
+}
+
+// K4 over an f32 pool: its rows staged raw, then rounded to bf16
+template <int HD>
+__global__ void __launch_bounds__(kVMaxThreads) paged_verify_f32pool_mma_kernel(VerifyArgs a) {
+  verify_mma_body<float, HD>(a);
 }
 
 // K5b: an int8 pool with per-(row, kv head) f32 scales
 template <int HD>
 __global__ void __launch_bounds__(kVMaxThreads) paged_verify_q8_mma_kernel(VerifyArgs a) {
-  verify_mma_body<true, HD>(a);
+  verify_mma_body<int8_t, HD>(a);
 }
 
 // their combine passes (one body; two names, so a profile files each under
-// its kernel)
+// its kernel; an f32 pool's split kernel shares the bf16 pool's combine)
 template <int HD>
 __global__ void __launch_bounds__(kCombineThreads) paged_verify_combine_kernel(VerifyArgs a) {
   verify_combine_body<HD>(a);
@@ -1176,15 +1236,16 @@ struct DecodeSmem {
   size_t kv, raw, scale, row_off, live, list, total;
 };
 
-__host__ __device__ inline DecodeSmem decode_smem(int hd, int bsz, int pps, bool quant) {
+__host__ __device__ inline DecodeSmem decode_smem(int hd, int bsz, int pps, int pool) {
+  const bool raw = pool != kPoolBF16, quant = pool == kPoolI8;
   const size_t ld = (size_t)hd + kVRowPad;
   const size_t rows = (size_t)(pps * bsz + kVTile - 1) / kVTile * kVTile;
   DecodeSmem s;
   size_t o = 0;
-  s.kv = o;  // per warp: its K and V bf16 quarters, two buffers (int8: one, widened there)
-  o += (size_t)kDecodeWarps * (quant ? 1 : 2) * 2 * kQuarter * ld * 2;
-  s.raw = o;  // int8 only: per warp, its K and V int8 quarters, two buffers
-  if (quant) o += (size_t)kDecodeWarps * 2 * 2 * kQuarter * (hd + kVRawPad);
+  s.kv = o;  // per warp: its K and V bf16 quarters, two buffers (raw pools: one, converted there)
+  o += (size_t)kDecodeWarps * (raw ? 1 : 2) * 2 * kQuarter * ld * 2;
+  s.raw = o;  // int8 or f32 pools only: per warp, its K and V raw quarters, two buffers
+  if (raw) o += (size_t)kDecodeWarps * 2 * 2 * kQuarter * raw_row_bytes(hd, pool);
   s.scale = o;  // int8 only: per warp, its K and V scales, two buffers
   if (quant) o += (size_t)kDecodeWarps * 2 * 2 * kQuarter * 4;
   s.row_off = o;  // per logical row of the split: pool row, or -1 if not valid
@@ -1208,11 +1269,12 @@ __host__ __device__ inline DecodeSmem decode_smem(int hd, int bsz, int pps, bool
 // split's end the warps' states are merged in warp order with the
 // combine's formula. Thread (g, t4) = (lane / 4, lane % 4) holds query
 // rows g and g + 8 (K1's layout).
-template <bool kQuant, int HD>
+template <typename PoolT, int HD>
 __device__ __forceinline__ void decode_mma_body(const VerifyArgs& a) {
-  using PoolT = typename std::conditional<kQuant, int8_t, bf16>::type;
+  constexpr bool kQuant = std::is_same<PoolT, int8_t>::value;  // scales
+  constexpr bool kRaw = !std::is_same<PoolT, bf16>::value;     // staged, then converted
   constexpr int LD = HD + kVRowPad;
-  constexpr int LDR = HD + kVRawPad;   // bytes per shared int8 row
+  constexpr int LDR = HD * sizeof(PoolT) + kVRawPad;  // bytes per shared raw row
   constexpr int kQE = kQuarter * LD;   // elements of one bf16 quarter
   constexpr int KK = HD / 16;          // k-steps of S = Q K^T
   constexpr int NO = HD / 8;           // n-tiles of O
@@ -1243,8 +1305,8 @@ __device__ __forceinline__ void decode_mma_body(const VerifyArgs& a) {
   }
 
   extern __shared__ __align__(16) unsigned char smem_v[];
-  const DecodeSmem lay = decode_smem(HD, a.bsz, a.pps, kQuant);
-  bf16* kv_s = reinterpret_cast<bf16*>(smem_v + lay.kv) + warp * (kQuant ? 1 : 2) * 2 * kQE;
+  const DecodeSmem lay = decode_smem(HD, a.bsz, a.pps, pool_code<PoolT>());
+  bf16* kv_s = reinterpret_cast<bf16*>(smem_v + lay.kv) + warp * (kRaw ? 1 : 2) * 2 * kQE;
   int8_t* raw_s = reinterpret_cast<int8_t*>(smem_v + lay.raw) + warp * 2 * 2 * kQuarter * LDR;
   float* sc_s = reinterpret_cast<float*>(smem_v + lay.scale) + warp * 2 * 2 * kQuarter;
   int* off_s = reinterpret_cast<int*>(smem_v + lay.row_off);
@@ -1316,7 +1378,7 @@ __device__ __forceinline__ void decode_mma_body(const VerifyArgs& a) {
       const PoolT* pool = which ? v_pool : k_pool;
       const PoolT* src = pool + ((size_t)(off < 0 ? 0 : off) * a.nKV + h) * HD + ch * kElems;
       void* dst;
-      if constexpr (kQuant)
+      if constexpr (kRaw)
         dst = raw_s + ((b * 2 + which) * kQuarter + row) * LDR + ch * 16;
       else
         dst = kv_s + (b * 2 + which) * kQE + row * LD + ch * 8;
@@ -1352,7 +1414,15 @@ __device__ __forceinline__ void decode_mma_body(const VerifyArgs& a) {
     __syncwarp();
     const int x0 = list_s[i] * kVTile + warp * kQuarter;
     const bf16* ks = kv_s;
-    if constexpr (kQuant) {
+    if constexpr (kRaw && !kQuant) {
+      // the f32 quarters rounded to bf16 to nearest even, as .to(torch.bfloat16)
+      const int8_t* src = raw_s + (i & 1) * 2 * kQuarter * LDR;
+      for (int c = lane; c < 2 * kQuarter * (HD / 8); c += 32) {
+        const int rr = c / (HD / 8), ch = c % (HD / 8);  // rr: K rows, then V rows
+        round8(src + rr * LDR + ch * 32, kv_s + (rr / kQuarter) * kQE + (rr % kQuarter) * LD + ch * 8);
+      }
+      __syncwarp();
+    } else if constexpr (kQuant) {
       // the int8 quarters widened to bf16, unscaled (|x| <= 127 is exact)
       const int8_t* src = raw_s + (i & 1) * 2 * kQuarter * LDR;
       for (int c = lane; c < 2 * kQuarter * (HD / 16); c += 32) {
@@ -1519,17 +1589,23 @@ __device__ __forceinline__ void decode_mma_body(const VerifyArgs& a) {
 // K3: a bf16 pool
 template <int HD>
 __global__ void __launch_bounds__(kDecodeThreads) paged_attn_mma_kernel(VerifyArgs a) {
-  decode_mma_body<false, HD>(a);
+  decode_mma_body<bf16, HD>(a);
+}
+
+// K3 over an f32 pool: its rows staged raw, then rounded to bf16
+template <int HD>
+__global__ void __launch_bounds__(kDecodeThreads) paged_attn_f32pool_mma_kernel(VerifyArgs a) {
+  decode_mma_body<float, HD>(a);
 }
 
 // K5a: an int8 pool with per-(row, kv head) f32 scales
 template <int HD>
 __global__ void __launch_bounds__(kDecodeThreads) paged_attn_q8_mma_kernel(VerifyArgs a) {
-  decode_mma_body<true, HD>(a);
+  decode_mma_body<int8_t, HD>(a);
 }
 
 // their combine passes: the verify combine at W = 1, under K3's and K5a's
-// names so a profile files each under its kernel
+// names so a profile files each under its kernel (an f32 pool's with K3's)
 template <int HD>
 __global__ void __launch_bounds__(kCombineThreads) paged_attn_combine_kernel(VerifyArgs a) {
   verify_combine_body<HD>(a);
@@ -1583,13 +1659,13 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   } else {
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
-          paged_attn_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          paged_attn_kernel<T, P, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           (int)smem);
       if (e != cudaSuccess) return e;
     }
-    paged_attn_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k_pool),
-        static_cast<const T*>(a.v_pool), static_cast<const int32_t*>(a.table),
+    paged_attn_kernel<T, P, HD><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const P*>(a.k_pool),
+        static_cast<const P*>(a.v_pool), static_cast<const int32_t*>(a.table),
         static_cast<const uint8_t*>(a.valid), static_cast<T*>(a.out), a.nKV,
         a.group, a.bsz, a.nb, a.n_blocks, a.sm_scale);
   }
@@ -1623,13 +1699,13 @@ cudaError_t launch_verify(const Args& a, cudaStream_t stream) {
   } else {
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
-          paged_verify_kernel<T, HD>,
+          paged_verify_kernel<T, P, HD>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return e;
     }
-    paged_verify_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k_pool),
-        static_cast<const T*>(a.v_pool), static_cast<const int32_t*>(a.table),
+    paged_verify_kernel<T, P, HD><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const P*>(a.k_pool),
+        static_cast<const P*>(a.v_pool), static_cast<const int32_t*>(a.table),
         static_cast<const uint8_t*>(a.valid), static_cast<T*>(a.out), a.W,
         a.nKV, a.group, a.bsz, a.nb, a.n_blocks, a.sm_scale);
   }
@@ -1671,11 +1747,14 @@ cudaError_t dispatch_verify_f32(int hd, const Args& a, cudaStream_t stream) {
 
 // K4 / K5b (bf16 q): the split kernel, then (with more than one split) the
 // combine pass, both on `stream`
-template <bool kQuant, int HD>
+template <typename P, int HD>
 cudaError_t launch_verify_mma(const VerifyArgs& a, cudaStream_t stream) {
+  constexpr int kPool = pool_code<P>();
   const int M = a.W * a.group;
-  const size_t smem = verify_smem(M, HD, a.bsz, a.pps, kQuant).total;
-  const auto kernel = kQuant ? paged_verify_q8_mma_kernel<HD> : paged_verify_mma_kernel<HD>;
+  const size_t smem = verify_smem(M, HD, a.bsz, a.pps, kPool).total;
+  const auto kernel = kPool == kPoolI8    ? paged_verify_q8_mma_kernel<HD>
+                      : kPool == kPoolF32 ? paged_verify_f32pool_mma_kernel<HD>
+                                          : paged_verify_mma_kernel<HD>;
   static size_t opted_in = 48 * 1024;  // the dynamic shared memory this kernel may take
   if (smem > opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1687,16 +1766,19 @@ cudaError_t launch_verify_mma(const VerifyArgs& a, cudaStream_t stream) {
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.n_splits == 1) return e;
   const auto combine =
-      kQuant ? paged_verify_q8_combine_kernel<HD> : paged_verify_combine_kernel<HD>;
+      kPool == kPoolI8 ? paged_verify_q8_combine_kernel<HD> : paged_verify_combine_kernel<HD>;
   combine<<<dim3(a.W, a.nKV, a.R), kCombineThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 // K3 / K5a (bf16 q): the same two launches for one query per slot
-template <bool kQuant, int HD>
+template <typename P, int HD>
 cudaError_t launch_decode_mma(const VerifyArgs& a, cudaStream_t stream) {
-  const size_t smem = decode_smem(HD, a.bsz, a.pps, kQuant).total;
-  const auto kernel = kQuant ? paged_attn_q8_mma_kernel<HD> : paged_attn_mma_kernel<HD>;
+  constexpr int kPool = pool_code<P>();
+  const size_t smem = decode_smem(HD, a.bsz, a.pps, kPool).total;
+  const auto kernel = kPool == kPoolI8    ? paged_attn_q8_mma_kernel<HD>
+                      : kPool == kPoolF32 ? paged_attn_f32pool_mma_kernel<HD>
+                                          : paged_attn_mma_kernel<HD>;
   static size_t opted_in = 48 * 1024;
   if (smem > opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1707,28 +1789,28 @@ cudaError_t launch_decode_mma(const VerifyArgs& a, cudaStream_t stream) {
   kernel<<<dim3(a.n_splits, a.nKV, a.R), kDecodeThreads, smem, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.n_splits == 1) return e;
-  const auto combine = kQuant ? paged_attn_q8_combine_kernel<HD> : paged_attn_combine_kernel<HD>;
+  const auto combine =
+      kPool == kPoolI8 ? paged_attn_q8_combine_kernel<HD> : paged_attn_combine_kernel<HD>;
   combine<<<dim3(1, a.nKV, a.R), kCombineThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool kQuant, bool kDecode, int HD>
+template <typename P, bool kDecode, int HD>
 cudaError_t launch_mma(const VerifyArgs& a, cudaStream_t stream) {
-  return kDecode ? launch_decode_mma<kQuant, HD>(a, stream)
-                 : launch_verify_mma<kQuant, HD>(a, stream);
+  return kDecode ? launch_decode_mma<P, HD>(a, stream) : launch_verify_mma<P, HD>(a, stream);
 }
 
-template <bool kQuant, bool kDecode>
+template <typename P, bool kDecode>
 cudaError_t dispatch_mma(int hd, const VerifyArgs& a, cudaStream_t stream) {
   switch (hd) {
     case 16:
-      return launch_mma<kQuant, kDecode, 16>(a, stream);
+      return launch_mma<P, kDecode, 16>(a, stream);
     case 32:
-      return launch_mma<kQuant, kDecode, 32>(a, stream);
+      return launch_mma<P, kDecode, 32>(a, stream);
     case 64:
-      return launch_mma<kQuant, kDecode, 64>(a, stream);
+      return launch_mma<P, kDecode, 64>(a, stream);
     case 128:
-      return launch_mma<kQuant, kDecode, 128>(a, stream);
+      return launch_mma<P, kDecode, 128>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1749,14 +1831,14 @@ cudaError_t check_verify(int W, int group) {
   return cudaSuccess;
 }
 
-// Route a call by q's dtype: f32 to the first version (K3/K5a with a.W 0,
-// else K4/K5b), bf16 to the split kernels and their combine. `scratch`
-// holds the splits' partials ((hd + 2) floats per query row per split),
-// unused with one split or f32 q.
-template <bool kQuant>
+// Route a call by q's dtype, over a pool of element type P (float, bf16 or
+// int8_t): f32 q to the first version (K3/K5a with a.W 0, else K4/K5b), bf16
+// q to the split kernels and their combine. `scratch` holds the splits'
+// partials ((hd + 2) floats per query row per split), unused with one split
+// or f32 q.
+template <typename P>
 int paged_route(const Args& a, int hd, int is_bf16, float* scratch, int pages_per_split,
                 cudaStream_t stream) {
-  using P = typename std::conditional<kQuant, int8_t, float>::type;
   const bool decode = a.W == 0;
   if (!is_bf16)
     return decode ? dispatch_hd<float, P>(hd, a, stream) : dispatch_verify_f32<P>(hd, a, stream);
@@ -1773,8 +1855,17 @@ int paged_route(const Args& a, int hd, int is_bf16, float* scratch, int pages_pe
                scratch + rows * hd, scratch + rows * hd + rows, scratch,
                static_cast<bf16*>(a.out), a.R, W, a.nKV, a.group, a.bsz, a.nb,
                a.n_blocks, pages_per_split, n_splits, a.sm_scale};
-  return decode ? dispatch_mma<kQuant, true>(hd, v, stream)
-                : dispatch_mma<kQuant, false>(hd, v, stream);
+  return decode ? dispatch_mma<P, true>(hd, v, stream) : dispatch_mma<P, false>(hd, v, stream);
+}
+
+// An fp pool's route by its element type (kPoolF32 or kPoolBF16).
+int fp_route(const Args& a, int hd, int is_bf16, int pool, float* scratch, int pages_per_split,
+             cudaStream_t stream) {
+  if (pool == kPoolF32)
+    return paged_route<float>(a, hd, is_bf16, scratch, pages_per_split, stream);
+  if (pool == kPoolBF16)
+    return paged_route<bf16>(a, hd, is_bf16, scratch, pages_per_split, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1783,26 +1874,27 @@ int paged_route(const Args& a, int hd, int is_bf16, float* scratch, int pages_pe
 // contiguous tensor; `stream` is the caller's cudaStream_t. Each returns the
 // launch's cudaGetLastError() (0 on success); the wrapper raises on
 // anything else. R and nb must be at least 1: with no row to attend the
-// output is 0, which the wrapper returns without a launch. For bf16 q,
+// output is 0, which the wrapper returns without a launch. `pool` is the
+// pool's element type (0 f32, 1 bf16, 2 int8; the int8 entries take 2). For bf16 q,
 // `pages_per_split` pages of the table go to each block (at most 4096
 // rows), and `scratch` is f32 device memory of R * W * nH * n_splits *
 // (hd + 2) floats (W = 1 for K3 and K5a; n_splits = ceil(nb /
 // pages_per_split)), null allowed with one split.
 
-// K3: q [R, nH, hd], k_pool and v_pool in q's dtype (f32 or bf16).
+// K3: q [R, nH, hd] (f32 or bf16), k_pool and v_pool f32 or bf16.
 extern "C" int areal_paged_attention(const void* q, const void* k_pool,
                                      const void* v_pool, const void* table,
                                      const void* valid, void* out, int R,
                                      int nH, int nKV, int hd, int bsz, int nb,
-                                     int n_blocks, float sm_scale, int is_bf16,
+                                     int n_blocks, float sm_scale, int is_bf16, int pool,
                                      void* scratch, int pages_per_split, void* stream) {
   const cudaError_t e = check_args(R, nH, nKV, bsz, nb);
   if (e != cudaSuccess) return e;
   const Args a{q,     k_pool, nullptr, v_pool, nullptr, table,
                valid, out,    R,       nKV,    nH / nKV, bsz,
                nb,    n_blocks, sm_scale, 0};
-  return paged_route<false>(a, hd, is_bf16, static_cast<float*>(scratch), pages_per_split,
-                            static_cast<cudaStream_t>(stream));
+  return fp_route(a, hd, is_bf16, pool, static_cast<float*>(scratch), pages_per_split,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // K5a: q in f32 or bf16; int8 k/v pools with f32 scales [n_blocks, nKV, bsz].
@@ -1810,23 +1902,24 @@ extern "C" int areal_paged_attention_q8(
     const void* q, const void* k_pool, const void* k_scale, const void* v_pool,
     const void* v_scale, const void* table, const void* valid, void* out,
     int R, int nH, int nKV, int hd, int bsz, int nb, int n_blocks,
-    float sm_scale, int is_bf16, void* scratch, int pages_per_split, void* stream) {
-  const cudaError_t e = check_args(R, nH, nKV, bsz, nb);
+    float sm_scale, int is_bf16, int pool, void* scratch, int pages_per_split, void* stream) {
+  cudaError_t e = check_args(R, nH, nKV, bsz, nb);
+  if (e == cudaSuccess && pool != kPoolI8) e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return e;
   const Args a{q,     k_pool, k_scale, v_pool, v_scale, table,
                valid, out,    R,       nKV,    nH / nKV, bsz,
                nb,    n_blocks, sm_scale, 0};
-  return paged_route<true>(a, hd, is_bf16, static_cast<float*>(scratch), pages_per_split,
-                           static_cast<cudaStream_t>(stream));
+  return paged_route<int8_t>(a, hd, is_bf16, static_cast<float*>(scratch), pages_per_split,
+                             static_cast<cudaStream_t>(stream));
 }
 
-// K4: q [R, W, nH, hd], k_pool and v_pool in q's dtype (f32 or bf16), valid
+// K4: q [R, W, nH, hd] (f32 or bf16), k_pool and v_pool f32 or bf16, valid
 // [R, W, nb * bsz]; out [R, W, nH, hd].
 extern "C" int areal_paged_verify(const void* q, const void* k_pool,
                                   const void* v_pool, const void* table,
                                   const void* valid, void* out, int R, int W,
                                   int nH, int nKV, int hd, int bsz, int nb,
-                                  int n_blocks, float sm_scale, int is_bf16,
+                                  int n_blocks, float sm_scale, int is_bf16, int pool,
                                   void* scratch, int pages_per_split, void* stream) {
   cudaError_t e = check_args(R, nH, nKV, bsz, nb);
   if (e == cudaSuccess) e = check_verify(W, nH / nKV);
@@ -1834,8 +1927,8 @@ extern "C" int areal_paged_verify(const void* q, const void* k_pool,
   const Args a{q,     k_pool, nullptr, v_pool, nullptr, table,
                valid, out,    R,       nKV,    nH / nKV, bsz,
                nb,    n_blocks, sm_scale, W};
-  return paged_route<false>(a, hd, is_bf16, static_cast<float*>(scratch), pages_per_split,
-                            static_cast<cudaStream_t>(stream));
+  return fp_route(a, hd, is_bf16, pool, static_cast<float*>(scratch), pages_per_split,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // K5b: K4 on int8 k/v pools with f32 scales [n_blocks, nKV, bsz].
@@ -1843,24 +1936,25 @@ extern "C" int areal_paged_verify_q8(
     const void* q, const void* k_pool, const void* k_scale, const void* v_pool,
     const void* v_scale, const void* table, const void* valid, void* out,
     int R, int W, int nH, int nKV, int hd, int bsz, int nb, int n_blocks,
-    float sm_scale, int is_bf16, void* scratch, int pages_per_split, void* stream) {
+    float sm_scale, int is_bf16, int pool, void* scratch, int pages_per_split, void* stream) {
   cudaError_t e = check_args(R, nH, nKV, bsz, nb);
   if (e == cudaSuccess) e = check_verify(W, nH / nKV);
+  if (e == cudaSuccess && pool != kPoolI8) e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return e;
   const Args a{q,     k_pool, k_scale, v_pool, v_scale, table,
                valid, out,    R,       nKV,    nH / nKV, bsz,
                nb,    n_blocks, sm_scale, W};
-  return paged_route<true>(a, hd, is_bf16, static_cast<float*>(scratch), pages_per_split,
-                           static_cast<cudaStream_t>(stream));
+  return paged_route<int8_t>(a, hd, is_bf16, static_cast<float*>(scratch), pages_per_split,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // The dynamic shared memory of one block of a bf16 split kernel, as its
-// launch sizes it: K4 (K5b with `quant`) at W query positions, or K3 (K5a)
-// with W = 0.
+// launch sizes it: K4 (K5b over an int8 `pool`) at W query positions, or K3
+// (K5a) with W = 0.
 extern "C" long long areal_paged_smem_bytes(int W, int group, int hd, int bsz,
-                                            int pages_per_split, int quant) {
-  if (W == 0) return (long long)decode_smem(hd, bsz, pages_per_split, quant != 0).total;
-  return (long long)verify_smem(W * group, hd, bsz, pages_per_split, quant != 0).total;
+                                            int pages_per_split, int pool) {
+  if (W == 0) return (long long)decode_smem(hd, bsz, pages_per_split, pool).total;
+  return (long long)verify_smem(W * group, hd, bsz, pages_per_split, pool).total;
 }
 
 extern "C" const char* areal_cuda_error_string(int err) {

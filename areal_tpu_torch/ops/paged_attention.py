@@ -30,9 +30,21 @@ each) and a combine pass over the splits' f32 partials (scratch this
 module allocates); f32 q runs the first versions, one block per (kv head,
 slot).
 
-`launches` counts launches of the fp kernel (K3), `launches_q8` those of
-the int8 kernel (K5a), `launches_verify` and `launches_verify_q8` those of
-K4 and K5b, so a run can show that its main path went through them.
+An fp pool may be in the other dtype than q's (f32 q over a bf16 pool, bf16
+q over an f32 pool), as the decode engine's `kv_cache_dtype` allows: the
+plain versions cast the pool to q's dtype after the gather (the XLA path,
+:95-109). The kernels do the same: f32 q reads a bf16 pool through the
+first versions, widening each value exactly; bf16 q stages an f32 pool's
+rows in shared memory as they are and rounds them to bf16 to nearest even
+before the tensor cores read them, which is `.to(torch.bfloat16)`.
+
+`launches` counts launches of the fp kernel (K3) on a pool in q's dtype,
+`launches_q8` those of the int8 kernel (K5a), `launches_verify` and
+`launches_verify_q8` those of K4 and K5b, and `launches_f32q_bf16pool`,
+`launches_bf16q_f32pool`, `launches_verify_f32q_bf16pool` and
+`launches_verify_bf16q_f32pool` those of K3's and K4's variants over a pool
+in the other dtype, so a run can show that its main path went through
+them.
 """
 
 from __future__ import annotations
@@ -68,6 +80,12 @@ launches = 0
 launches_q8 = 0
 launches_verify = 0
 launches_verify_q8 = 0
+launches_f32q_bf16pool = 0
+launches_bf16q_f32pool = 0
+launches_verify_f32q_bf16pool = 0
+launches_verify_bf16q_f32pool = 0
+# the pool's element type as the kernels take it
+_POOL_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _lib: ctypes.CDLL | None = None
 _sms: dict[int, int] = {}  # SMs per CUDA device index
@@ -123,21 +141,34 @@ def paged_attention_qlen_ref(q, k_pool, v_pool, block_table, valid, *, sm_scale=
     R, W, nH, hd = q.shape
     bsz, nKV = k_pool.shape[1], k_pool.shape[2]
     nb = block_table.shape[1]
-    group = nH // nKV
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(hd)
     idx = block_table.reshape(-1).long()
     kc = _gather_dequant(k_pool, k_scales, idx, R, nb, bsz, nKV, hd, q.dtype)
     vc = _gather_dequant(v_pool, v_scales, idx, R, nb, bsz, nKV, hd, q.dtype)
+    return verify_attention(q, kc, vc, valid, sm_scale=sm_scale)
+
+
+def verify_attention(q, k_cache, v_cache, valid, *, sm_scale=None):
+    """W queries per slot over per-slot contiguous KV (JAX
+    `ops/chunked_attention.py::verify_attention`, :31-70): q `[R, W, nH,
+    hd]`, caches `[R, S, nKV, hd]` in any fp dtype (cast to q's), valid
+    `[R, W, S]`. The attention of `paged_attention_qlen_ref` after its
+    gather, and of the workspace layout's steps (`models/qwen2.verify_step`,
+    `decode_step`), so the layouts agree bit for bit. A query with no
+    valid row gives 0."""
+    R, W, nH, hd = q.shape
+    nKV = k_cache.shape[2]
+    group = nH // nKV
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
     qg = q.reshape(R, W, nKV, group, hd)
-    scores = torch.einsum("rwkgd,rskd->rwkgs", qg, kc.to(q.dtype))
+    scores = torch.einsum("rwkgd,rskd->rwkgs", qg, k_cache.to(q.dtype))
     if sm_scale == 1.0 / math.sqrt(hd):
         scores = (scores / math.sqrt(hd)).float()
     else:
         scores = (scores * sm_scale).float()
     scores = torch.where(valid[:, :, None, None, :], scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("rwkgs,rskd->rwkgd", probs, vc.to(q.dtype))
+    out = torch.einsum("rwkgs,rskd->rwkgd", probs, v_cache.to(q.dtype))
     out = torch.where(valid.any(dim=2)[:, :, None, None, None], out, 0)
     return out.reshape(R, W, nH, hd)
 
@@ -169,7 +200,8 @@ def _kernel_lib() -> ctypes.CDLL:
             ctypes.c_int,  # nb
             ctypes.c_int,  # n_blocks
             ctypes.c_float,  # sm_scale
-            ctypes.c_int,  # is_bf16
+            ctypes.c_int,  # is_bf16 (q)
+            ctypes.c_int,  # the pool's element type (_POOL_CODE)
             ctypes.c_void_p,  # scratch (bf16 q, more than one split)
             ctypes.c_int,  # pages_per_split (bf16 q)
             ctypes.c_void_p,  # stream
@@ -192,9 +224,9 @@ def _kernel_lib() -> ctypes.CDLL:
 
 
 def _check(q, k_pool, v_pool, block_table, valid, verify: bool = False) -> None:
-    """Refuse what the kernels do not take. Pools are tensors in q's dtype
-    (K3, K4) or `(int8 data, f32 scales [n_blocks, nKV, bsz])` tuples (K5a,
-    K5b). With `verify`, q is `[R, W, nH, hd]` and valid `[R, W, nb * bsz]`
+    """Refuse what the kernels do not take. Pools are f32 or bf16 tensors,
+    in q's dtype or the other (K3, K4), or `(int8 data, f32 scales
+    [n_blocks, nKV, bsz])` tuples (K5a, K5b). With `verify`, q is `[R, W, nH, hd]` and valid `[R, W, nb * bsz]`
     (K4, K5b), else q `[R, nH, hd]` and valid `[R, nb * bsz]`."""
     (k_pool, k_scales), (v_pool, v_scales) = split_pool(k_pool), split_pool(v_pool)
     if (k_scales is None) != (v_scales is None):
@@ -212,10 +244,10 @@ def _check(q, k_pool, v_pool, block_table, valid, verify: bool = False) -> None:
             raise ValueError(f"{name} must be contiguous")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or bfloat16")
-    pool_dtype = q.dtype if k_scales is None else torch.int8
-    if k_pool.dtype != pool_dtype or v_pool.dtype != pool_dtype:
+    pools = (torch.float32, torch.bfloat16) if k_scales is None else (torch.int8,)
+    if k_pool.dtype not in pools or v_pool.dtype != k_pool.dtype:
         raise TypeError(
-            f"pool dtypes {k_pool.dtype}/{v_pool.dtype} must be {pool_dtype}"
+            f"pool dtypes {k_pool.dtype}/{v_pool.dtype} must be one of {pools}, both alike"
         )
     if k_scales is not None:
         n_blocks, bsz, nKV = k_pool.shape[:3]
@@ -254,13 +286,15 @@ def _check(q, k_pool, v_pool, block_table, valid, verify: bool = False) -> None:
         )
     if verify:
         check_verify_width(q.shape[1], nH // nKV)
+    # the kernels read pool rows 16 bytes at a time (vector loads, cp.async),
+    # and the tensor-core route q's rows too
+    aligned = dict(k_pool=k_pool, v_pool=v_pool)
     if q.dtype == torch.bfloat16:
-        # the tensor-core route copies rows of q and the pools 16 bytes at a
-        # time (cp.async)
-        for name, t in dict(q=q, k_pool=k_pool, v_pool=v_pool).items():
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} starts at {t.data_ptr():#x}, not 16-byte "
-                                 "aligned: the bf16 paged kernels copy 16-byte rows")
+        aligned["q"] = q
+    for name, t in aligned.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} starts at {t.data_ptr():#x}, not 16-byte "
+                             "aligned: the paged kernels read 16-byte rows")
 
 
 def paged_attention(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):
@@ -321,6 +355,8 @@ def _launch(q, k_pool, v_pool, block_table, valid, sm_scale: float,
     (default: `decode_pages_per_split` or `verify_pages_per_split`) sets the
     blocks' share of the table; f32 q ignores it."""
     global launches, launches_q8, launches_verify, launches_verify_q8
+    global launches_f32q_bf16pool, launches_bf16q_f32pool
+    global launches_verify_f32q_bf16pool, launches_verify_bf16q_f32pool
     W = q.shape[1] if q.dim() == 4 else 0  # 0: one query per slot
     (k_data, k_scales), (v_data, v_scales) = split_pool(k_pool), split_pool(v_pool)
     R, nH, hd = q.shape[0], q.shape[-2], q.shape[-1]
@@ -340,7 +376,7 @@ def _launch(q, k_pool, v_pool, block_table, valid, sm_scale: float,
                            device=q.device) if bf16 and n_splits > 1 else None)
     tail = (
         block_table.data_ptr(), valid.data_ptr(), out.data_ptr(), R, *((W,) if W else ()),
-        nH, nKV, hd, bsz, nb, n_blocks, float(sm_scale), int(bf16),
+        nH, nKV, hd, bsz, nb, n_blocks, float(sm_scale), int(bf16), _POOL_CODE[k_data.dtype],
         None if scratch is None else scratch.data_ptr(), pages_per_split,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -356,10 +392,19 @@ def _launch(q, k_pool, v_pool, block_table, valid, sm_scale: float,
         msg = lib.areal_cuda_error_string(err).decode()
         kind = "verify" if W else "attention"
         raise RuntimeError(f"paged {kind} kernel launch failed: {msg} ({err})")
-    if W and k_scales is None:
+    mixed = k_scales is None and k_data.dtype != q.dtype
+    if W and mixed and bf16:
+        launches_verify_bf16q_f32pool += 1
+    elif W and mixed:
+        launches_verify_f32q_bf16pool += 1
+    elif W and k_scales is None:
         launches_verify += 1
     elif W:
         launches_verify_q8 += 1
+    elif mixed and bf16:
+        launches_bf16q_f32pool += 1
+    elif mixed:
+        launches_f32q_bf16pool += 1
     elif k_scales is None:
         launches += 1
     else:
@@ -376,11 +421,13 @@ def verify_pages_per_split(nb: int, bsz: int, R: int, nKV: int, n_sms: int) -> i
 
 
 def split_smem_bytes(W: int, group: int, hd: int, bsz: int, pages_per_split: int,
-                     quant: bool) -> int:
-    """Dynamic shared memory of one block of a bf16 split kernel, as its
-    launch sizes it: K4 (K5b with `quant`) at W query positions, or K3 (K5a)
-    with W = 0 (builds the library)."""
-    return _kernel_lib().areal_paged_smem_bytes(W, group, hd, bsz, pages_per_split, int(quant))
+                     pool: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of one block of a bf16 split kernel over a pool
+    of `pool` elements (bf16, int8 for K5a/K5b, or f32), as its launch
+    sizes it: K4 at W query positions, or K3 with W = 0 (builds the
+    library)."""
+    return _kernel_lib().areal_paged_smem_bytes(W, group, hd, bsz, pages_per_split,
+                                                _POOL_CODE[pool])
 
 
 def paged_attention_qlen(q, k_pool, v_pool, block_table, valid, *, sm_scale=None):

@@ -65,7 +65,17 @@ a colocated GRPO loop killed at four seams in turn (each trainer's
 successor its resume) and past a torn checkpoint, resumed bit-equal to an
 unfaulted oracle with every sample trained once, and two decode servers in this process under a four-mode fault
 plan with every request served once, then a weight push whose commit
-fails. The PPO, multi-turn, checkpoint, decoupled and TIR runs trace
+fails. Then the host KV tier, the gather paths and fp pools in another
+dtype, on the serve cell's weights: at 14 of its 28 layers, 16 requests
+parked, evicted to pinned host memory by a filler wave and promoted back
+with no prefill, their streams bit-equal to a never-evicted engine's,
+and the same requests under pool pressure, preempted slots offloaded and
+promoted; at 4 layers, a planted promotion fault that costs one prefill,
+an int8 pool's blocks through the tier, and the workspace layout and the
+paged gather path bit-equal to each other and beside the kernels; and
+Qwen2.5-1.5B (4 layers) with bf16 weights over an f32 pool and f32
+weights over a bf16 pool, on K3's and K4's mixed-dtype variants, which
+the kernel phase holds against their plain versions first. The PPO, multi-turn, checkpoint, decoupled and TIR runs trace
 their last train step through the train engine's own trace window
 (`AREAL_TPU_XPROF_DIR`). The decoupled, PPO, multi-turn, checkpoint and
 TIR (t1, t2) runs, the train phase and the SFT entry point at
@@ -117,6 +127,11 @@ runs only the chaos phase (after the device and build phases).
     python3 chip_smoke.py --tir
 
 runs only the tir phase (after the device and build phases).
+
+    python3 chip_smoke.py --kv-tier
+
+runs only the mixed-dtype kernel checks and the kv_tier phase (after the
+device and build phases), on the serve cell's weights made anew.
 
     python3 chip_smoke.py --qmm-sweep
 
@@ -172,6 +187,7 @@ from areal_tpu_torch.dataset.arith import ArithTokenizer
 from areal_tpu_torch.models.qwen2 import (
     decode_step_paged,
     init_params,
+    layer_views,
     prefill,
     segment_ids_from_cu_seqlens,
     verify_step_paged,
@@ -304,19 +320,23 @@ def phase_device() -> tuple[torch.device, str]:
 
 def _ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel from nvcc's `-Xptxas -v` report:
-    kernel<dtype,head_dim>, registers, spill bytes. The flash tensor-core
-    kernels (`*_mma_kernel<HD>`) take bf16 only."""
+    kernel<dtype,head_dim>, registers, spill bytes; a kernel templated on
+    its pool's type too (K3's and K4's f32-q first versions) reads
+    kernel<dtype,pool,head_dim>. The flash tensor-core kernels
+    (`*_mma_kernel<HD>`) take bf16 only."""
     out, name = [], None
+    types = {"f": "f32", "13__nv_bfloat16": "bf16", None: "bf16"}
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"\d((?:flash|paged|quant)_[a-z0-9_]+?kernel)I(f|13__nv_bfloat16)?Li(\d+)E"
-                          r"(?:Li(\d+)E)?", line)
-            dtype = "f32" if m and m.group(2) == "f" else "bf16"
+            m = re.search(r"\d((?:flash|paged|quant)_[a-z0-9_]+?kernel)I(f|13__nv_bfloat16)?"
+                          r"(f|13__nv_bfloat16)?Li(\d+)E(?:Li(\d+)E)?", line)
             if m and m.group(1).startswith("quant_matmul"):
                 # K6: <row fragments>
-                name = f"{m.group(1)}<{m.group(3)}>"
+                name = f"{m.group(1)}<{m.group(4)}>"
+            elif m and m.group(3):
+                name = f"{m.group(1)}<{types[m.group(2)]},{types[m.group(3)]},{m.group(4)}>"
             elif m:
-                name = f"{m.group(1)}<{dtype},{m.group(3)}>"
+                name = f"{m.group(1)}<{types[m.group(2)]},{m.group(4)}>"
             else:
                 name = line.split("'")[1]
         elif "spill stores" in line and name:
@@ -357,6 +377,13 @@ def phase_build() -> None:
         check(any(line.startswith(f"{kern}<bf16,128>:") and line.endswith("spills 0/0 bytes")
                   for line in found), f"{kern} spills at hd 128: {found}")
         paged_ptxas[kern] = found
+    # the variants over a pool in the other dtype (first versions for f32 q,
+    # tensor-core kernels for bf16 q): built at every head dim, reported
+    for kern in ("paged_attn_kernel<f32,bf16,", "paged_verify_kernel<f32,bf16,",
+                 "paged_attn_f32pool_mma_kernel<", "paged_verify_f32pool_mma_kernel<"):
+        found = [line for r in rows for line in r["ptxas"] if line.startswith(kern)]
+        check(len(found) == 4, f"{kern}: {len(found)} instantiations in the ptxas report")
+        paged_ptxas[kern] = found
     # K6's bf16 route at every row-tile size (the main path launches all
     # five: decode 1, verify 2-5, prefill 4-5)
     k6 = [line for r in rows for line in r["ptxas"] if line.startswith("quant_matmul_")]
@@ -375,19 +402,25 @@ def phase_build() -> None:
     # K4/K5b (bf16 q): q rows, K/V tiles (K5b: int8 tiles and scales beside
     # them), per-row masks and offsets of a split; page 128
     verify = {f"{'K5b' if quant else 'K4'}_W{W}_group{g}_hd{hd}_pages{pps}":
-              pa.split_smem_bytes(W, g, hd, 128, pps, quant)
+              pa.split_smem_bytes(W, g, hd, 128, pps, torch.int8 if quant else torch.bfloat16)
               for quant in (False, True)
               for W, g, hd, pps in ((5, 7, 128, 1), (5, 7, 128, 2), (5, 7, 128, 9), (9, 7, 128, 2),
                                     (16, 8, 128, 2), (16, 8, 128, 32), (9, 7, 64, 2))}
     # K3/K5a (bf16 q): q rows, each warp's K/V quarters (K5a: int8 quarters
     # and scales beside them), per-row offsets of a split; page 128
     decode = {f"{'K5a' if quant else 'K3'}_hd{hd}_pages{pps}":
-              pa.split_smem_bytes(0, 7, hd, 128, pps, quant)
+              pa.split_smem_bytes(0, 7, hd, 128, pps, torch.int8 if quant else torch.bfloat16)
               for quant in (False, True) for hd, pps in ((128, 1), (128, 2), (128, 10), (64, 1))}
+    # K3/K4 over an f32 pool (bf16 q): the f32 rows staged raw beside the
+    # bf16 tiles they are rounded into; page 128
+    f32_pool = {f"{'K4' if W else 'K3'}_W{W}_hd128_pages{pps}":
+                pa.split_smem_bytes(W, 7, 128, 128, pps, torch.float32)
+                for W, pps in ((0, 2), (0, 10), (5, 2), (5, 9))}
     emit("build", kernels=rows, wall_s=wall_s, k2a_ptxas=k2a, paged_ptxas=paged_ptxas,
          k6_ptxas=k6, k6_occupancy=k6_occupancy,
          shared_memory=dict(paged_attention_f32="dynamic, sized per launch",
                             paged_attention_bf16=decode, paged_verify_bf16=verify,
+                            paged_f32_pool=f32_pool,
                             flash_attention_T8192=smem, quant_matmul=qmm))
 
 
@@ -6375,6 +6408,730 @@ def phase_hbm(dev: torch.device, loop: dict, train: dict, ppo: dict, rw: dict,
     return dict(cells=rows)
 
 
+# ---------------------------------------------------------------------------
+# the host KV tier, the gather paths and fp pools in another dtype
+# ---------------------------------------------------------------------------
+
+# K3's and K4's variants over a pool in the other dtype than q's: (q dtype,
+# pool dtype) -> the wrapper's counter and the kernels line's name
+MIXED_VARIANTS = {
+    (False, torch.float32, torch.bfloat16): ("launches_f32q_bf16pool",
+                                             "paged_attention_f32q_bf16pool"),
+    (False, torch.bfloat16, torch.float32): ("launches_bf16q_f32pool",
+                                             "paged_attention_bf16q_f32pool"),
+    (True, torch.float32, torch.bfloat16): ("launches_verify_f32q_bf16pool",
+                                            "paged_verify_f32q_bf16pool"),
+    (True, torch.bfloat16, torch.float32): ("launches_verify_bf16q_f32pool",
+                                            "paged_verify_bf16q_f32pool"),
+}
+MIXED_KERNEL_NAMES = {False: "paged_attn_{}_kernel", True: "paged_verify_{}_kernel"}
+
+
+def _mixed_inputs(case: dict, verify: bool, qdt, pdt, dev, seed: int):
+    """A kernel case with its pools in `pdt` and q in `qdt`: K3's at the
+    serve batch (`_paged_case`), K4's at W = SPEC_K + 1 (`_verify_case`)."""
+    if verify:
+        q, k, v, table, valid = _verify_case(case, SPEC_K + 1, pdt, dev, seed)
+    else:
+        q, k, v, table, valid = _paged_case(case, pdt, dev, seed)
+    return q.to(qdt), k, v, table, valid
+
+
+def _mixed_timing_inputs(verify: bool, qdt, pdt, dev, layers: int = 4):
+    """The serve batch's shape for timing (as `_served_batch`: 16 slots of
+    64 + 128 to 1024 + 128 rows, Qwen2.5-7B's heads, page 128; K4 at W =
+    SPEC_K + 1 past each slot's rows) over `layers` pools in `pdt`, a
+    random block table, q in `qdt`."""
+    rng = np.random.default_rng(SEED + 45)
+    R, nH, nKV, hd, bsz = SERVE["max_running_requests"], 28, 4, 128, SERVE["page_size"]
+    W = SPEC_K + 1 if verify else 1
+    lengths = rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1, R) + 128
+    nb = -(-(int(lengths.max()) + W) // bsz)
+    table = torch.as_tensor(rng.permutation(R * nb).reshape(R, nb) + 1, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 45)
+    shape = (R * nb + 1, bsz, nKV, hd)
+    kp = [torch.randn(shape, generator=gen, device=dev).to(pdt) for _ in range(layers)]
+    vp = [torch.randn(shape, generator=gen, device=dev).to(pdt) for _ in range(layers)]
+    q = torch.randn((R, W, nH, hd), generator=gen, device=dev).to(qdt)
+    horizon = torch.as_tensor(lengths, device=dev)[:, None] + torch.arange(W, device=dev)
+    valid = (torch.arange(nb * bsz, device=dev)[None, None, :] <= horizon[:, :, None]).contiguous()
+    if not verify:
+        q, valid = q[:, 0].contiguous(), valid[:, 0].contiguous()
+    return q, kp, vp, table, valid
+
+
+def _mixed_ref(verify: bool, q, k, v, table, valid):
+    """The plain version of what the variant computes: the pool cast to q's
+    dtype (`kc.to(q.dtype)`, the XLA path), then attention in f32."""
+    fn = pa.paged_attention_qlen_ref if verify else pa.paged_attention_ref
+    return fn(q.float(), k.to(q.dtype).float(), v.to(q.dtype).float(), table, valid)
+
+
+def _mixed_bound(verify: bool, q, k, table, valid) -> tuple[float, str]:
+    """Bytes: each K and V row some query reads, in the pool's dtype, q and
+    the output in q's, the table and the mask, at HBM_BYTES_PER_S;
+    operations: 4 nH hd per valid (query, row) pair at q's dtype's peak."""
+    R, nb = table.shape
+    nH, hd = q.shape[-2], q.shape[-1]
+    nKV = k.shape[2]
+    rows = int((valid.any(dim=1) if verify else valid).sum().item())
+    pairs = int(valid.sum().item())
+    nbytes = (rows * nKV * 2 * hd * k.element_size() + 2 * q.numel() * q.element_size()
+              + R * nb * 4 + valid.numel())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * nH * hd * pairs / peak_flops(q.dtype) * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def phase_mixed_kernel(dev: torch.device) -> dict:
+    """K3's and K4's variants over a pool in the other dtype than q's (f32 q
+    over a bf16 pool: the first versions, each value widened exactly; bf16
+    q over an f32 pool: the tensor-core kernels, the f32 rows rounded to
+    bf16 to nearest even in shared memory) against their plain versions
+    on the serve shape of `KERNEL_CASES` (R 16, context 4096), a second
+    shape (K3: a group of 12; K4: 40-row pages, W 5) and the shape the
+    kv_tier phase's (d) leg gives them (Qwen2.5-1.5B's 12/2 heads, R 8,
+    context 2048, page 128; K4 at W = SPEC_K + 1), within `KERNEL_TOL`
+    of q's dtype, and against a planted fault (the first page of every
+    multi-page slot dropped from the plain version's mask), which must
+    read above it. At the serve batch (K4: the spec batch, W 5), rotating
+    over 4 layers' pools: ms as issued and on the device alone,
+    the plain version's ms and SDPA's on KV pre-gathered and cast to q's
+    dtype. Returns one kernels-line row per variant (launches filled in by
+    the kv_tier phase's (d) leg)."""
+    rows = {}
+    d_case = dict(KERNEL_CASES[1], name="kv_tier-d", R=KV_TIER_D_DECODE["max_running_requests"],
+                  max_len=KV_TIER_D_DECODE["context_length"])
+    for (verify, qdt, pdt), (_, name) in MIXED_VARIANTS.items():
+        checks = []
+        second = VERIFY_CASES[4] if verify else KERNEL_CASES[4]
+        for i, case in enumerate((KERNEL_CASES[0], second, d_case)):
+            q, k, v, table, valid = _mixed_inputs(case, verify, qdt, pdt, dev, SEED + 40 + i)
+            fn = pa.paged_attention_qlen if verify else pa.paged_attention
+            out = fn(q, k, v, table, valid)
+            ref = _mixed_ref(verify, q, k, v, table, valid)
+            dropped = valid.clone()
+            multi = (valid.any(dim=1) if verify else valid).sum(-1) > case["bsz"]
+            page0 = dropped[..., : case["bsz"]]
+            page0 &= ~multi.reshape(-1, *([1] * (valid.dim() - 1)))
+            ref_fault = _mixed_ref(verify, q, k, v, table, dropped)
+            torch.cuda.synchronize()
+            atol, rtol = KERNEL_TOL[qdt]
+            ratio = _tol_ratio(out, ref, atol, rtol)
+            fault = _tol_ratio(out, ref_fault, atol, rtol)
+            err = (out.float() - ref).abs().max().item()
+            checks.append(dict(case=case["name"], max_abs_err=err, tol_ratio=ratio,
+                               planted_fault_tol_ratio=fault))
+            check(math.isfinite(ratio) and ratio <= 1.0,
+                  f"{name} {case['name']}: {ratio} x the tolerance (max abs err {err})")
+            check(fault > 1.0, f"{name} {case['name']}: a dropped page passes the tolerance")
+        # timings at the serve (spec) batch, over 4 layers' pools
+        q, kp, vp, table, valid = _mixed_timing_inputs(verify, qdt, pdt, dev)
+        k = kp[0]
+        fn = pa.paged_attention_qlen if verify else pa.paged_attention
+        plain = pa.paged_attention_qlen_ref if verify else pa.paged_attention_ref
+        counter = MIXED_VARIANTS[(verify, qdt, pdt)][0]
+        calls = getattr(pa, counter)
+        ms = _time(lambda i: fn(q, kp[i % 4], vp[i % 4], table, valid), 200)
+        ms_device = _time_device(lambda i: fn(q, kp[i % 4], vp[i % 4], table, valid), 200)
+        check(getattr(pa, counter) > calls, f"{name}: timing did not launch the kernel")
+        plain_ms = _time(lambda i: plain(q, kp[i % 4], vp[i % 4], table, valid), 20)
+        R, nb = table.shape
+        bsz, nKV, hd = k.shape[1:]
+        nH = q.shape[-2]
+        idx = table.reshape(-1).long()
+
+        def gathered(pool):
+            g = pool.index_select(0, idx).reshape(R, nb * bsz, nKV, hd).to(qdt)
+            return g.permute(0, 2, 1, 3).repeat_interleave(nH // nKV, dim=1).contiguous()
+
+        ks, vs = [gathered(p) for p in kp], [gathered(p) for p in vp]
+        q4 = (q if verify else q[:, None]).permute(0, 2, 1, 3)  # [R, nH, W, hd]
+        mask = (valid if verify else valid[:, None])[:, None]  # [R, 1, W, span]
+        library_ms = _time(lambda i: torch.nn.functional.scaled_dot_product_attention(
+            q4, ks[i % 4], vs[i % 4], attn_mask=mask), 200)
+        bound_ms, bound_by = _mixed_bound(verify, q, k, table, valid)
+        q_name = "f32" if qdt == torch.float32 else "bf16"
+        p_name = "bf16" if pdt == torch.bfloat16 else "f32"
+        kernel = (f"paged_{'verify' if verify else 'attn'}_kernel<float, bf16>" if qdt == torch.float32
+                  else f"paged_{'verify' if verify else 'attn'}_f32pool_mma_kernel + combine")
+        rows[name] = dict(
+            name=name, route="cuda", source=KERNEL_SOURCE,
+            replaces=VERIFY_REPLACES if verify else KERNEL_REPLACES, kernel=kernel,
+            launches=0, max_abs_err=max(c["max_abs_err"] for c in checks),
+            ms=ms, ms_device=ms_device, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms,
+            library_call=f"scaled_dot_product_attention, KV pre-gathered and cast to {q_name}",
+            checks=checks,
+            shape=dict(R=R, W=q.shape[1] if verify else 1, nH=nH, nKV=nKV, hd=hd, bsz=bsz, nb=nb,
+                       q=q_name, pool=p_name),
+        )
+        del kp, vp, ks, vs
+        torch.cuda.empty_cache()
+    emit("mixed_kernel", tol={str(k).split(".")[-1]: v for k, v in KERNEL_TOL.items()},
+         variants=list(rows.values()))
+    return rows
+
+
+# the kv_tier phase: Qwen2.5-7B, bf16, 16 slots, context 4096, page 128, on
+# the serve cell's weights. KV_TIER_SETTINGS admits a whole 16-request wave
+# in one pass (16 prompts of up to 1024 tokens), so that a wave's prefills
+# are grouped alike in every engine.
+KV_TIER_SETTINGS = dict(SERVE, max_prefill_tokens=16384)
+KV_TIER_POOL = 20480  # (k1): the 16 parked slots fit; the fillers' admissions evict them
+KV_TIER_HOST_MB = 2048
+KV_TIER_PREEMPT_POOL = 12288  # (k2): 96 blocks for 16 slots of up to 10: active slots preempt
+KV_TIER_PROMPT = (512, 1024)
+KV_TIER_NEW = 256
+KV_TIER_FILL_PROMPT = (32, 96)
+KV_TIER_FILL_NEW = 16
+# every leg on the serve cell's weights at SERVE_LAYERS of its 28 layers:
+# on an H100 80GB HBM3 at 700 W, with (k1)-(k3) at 28 the phase took
+# 111.2 s, past the script's ~650 s budget
+KV_TIER_LAYERS = SERVE_LAYERS
+KV_TIER_INT8_REQUESTS = 8
+KV_TIER_W_REQUESTS = 8
+KV_TIER_W_NEW = 128
+# kernel paths against plain ones on whole streams: greedy tokens equal up
+# to a first divergence (a near tie that the two paths' roundings break
+# differently), logprobs within STREAM_LOGP_TOL there and at the
+# divergence, where both are the argmax's; and teacher-forced (`_forced`)
+# at every emitted token. The bound the script holds decode logprobs to
+# against the trainer's
+STREAM_LOGP_TOL = LOGP_MAX_ABS_DIFF
+
+
+def _tier_requests(rng, vocab: int, n: int, tag: str) -> list[ModelRequest]:
+    """`n` requests, prompts of 512-1024 tokens, 256 new tokens; the first
+    half greedy, the rest at temperature 1.0."""
+    out = []
+    for i in range(n):
+        ids = rng.integers(0, vocab, int(rng.integers(*KV_TIER_PROMPT, endpoint=True))).tolist()
+        g = GenerationHyperparameters(max_new_tokens=KV_TIER_NEW)
+        g = g.new(greedy=True) if i < n // 2 else g.new(temperature=1.0)
+        out.append(ModelRequest(rid=f"{tag}{i}", input_ids=ids, gconfig=g))
+    return out
+
+
+def _fillers(rng, vocab: int, n: int, tag: str) -> list[ModelRequest]:
+    g = GenerationHyperparameters(max_new_tokens=KV_TIER_FILL_NEW, greedy=True)
+    return [ModelRequest(rid=f"{tag}{i}", gconfig=g, input_ids=rng.integers(
+        0, vocab, int(rng.integers(*KV_TIER_FILL_PROMPT, endpoint=True))).tolist())
+        for i in range(n)]
+
+
+def _resumes(reqs, first) -> list[ModelRequest]:
+    """The client's resume of interrupted requests: prompt + partial tokens
+    under the same rid, the rest of the budget."""
+    return [ModelRequest(rid=r.rid, input_ids=r.input_ids + f.output_tokens,
+                         gconfig=r.gconfig.new(max_new_tokens=r.gconfig.max_new_tokens - f.output_len))
+            for r, f in zip(reqs, first)]
+
+
+def _tier_engine(dev, params, cfg, **settings):
+    eng = TorchDecodeEngine(TorchDecodeConfig(random_seed=SEED, **settings), device=dev)
+    eng.set_model(params, cfg)
+    return eng.initialize()
+
+
+def _exact(got: list, want: list, what: str) -> dict:
+    """Streams of the same kernels: tokens equal, logprobs within
+    KERNEL_TOL (bf16) of the reference; how many are bit-equal."""
+    atol, rtol = KERNEL_TOL[torch.bfloat16]
+    bit = 0
+    for i, ((gt, gl), (wt, wl)) in enumerate(zip(got, want)):
+        check(gt == wt, f"{what}: stream {i}'s tokens differ")
+        gl, wl = np.asarray(gl), np.asarray(wl)
+        check(bool((np.abs(gl - wl) <= atol + rtol * np.abs(wl)).all()),
+              f"{what}: stream {i}'s logprobs differ beyond KERNEL_TOL")
+        bit += bool(np.array_equal(gl, wl))
+    return dict(streams=len(got), tokens_equal=len(got), logprobs_bit_equal=bit)
+
+
+def _agree(got: list, want: list, greedy: list, what: str) -> dict:
+    """A kernel path's streams against a plain or differently batched one:
+    tokens equal up to a first divergence, logprobs within STREAM_LOGP_TOL
+    before it; a greedy stream's logprobs also at it (both are the argmax's
+    logprob: a near tie). Streams equal in full, and each one's prefix."""
+    prefixes, worst = [], 0.0
+    for i, ((gt, gl), (wt, wl)) in enumerate(zip(got, want)):
+        n = next((j for j, (a, b) in enumerate(zip(gt, wt)) if a != b), min(len(gt), len(wt)))
+        m = min(n + 1, len(gt), len(wt)) if greedy[i] else n
+        d = float(np.abs(np.asarray(gl[:m]) - np.asarray(wl[:m])).max()) if m else 0.0
+        check(d <= STREAM_LOGP_TOL, f"{what}: stream {i}'s logprobs differ by {d} before "
+                                    f"position {n}")
+        prefixes.append(n)
+        worst = max(worst, d)
+    return dict(streams=len(got), equal=sum(n == len(g[0]) == len(w[0]) for n, g, w in
+                                            zip(prefixes, got, want)),
+                agree_prefix=prefixes, logprob_max_abs_diff=worst)
+
+
+def _streams(resps) -> list:
+    return [(list(r.output_tokens), list(r.output_logprobs)) for r in resps]
+
+
+def _forced(params, cfg, reqs, streams, what: str, dev, planted: bool = False) -> dict:
+    """Teacher-forced: each stream's prompt and emitted tokens through the
+    plain dense forward (`prefill`: no hand-written kernel, attention in
+    the XLA op order), and every emitted token's logprob against the
+    stream's, to the stream's end (no other run's divergence ends it):
+    within STREAM_LOGP_TOL; a greedy stream's token the forward's argmax
+    up to STREAM_LOGP_TOL (a near tie). With `planted`, the longest
+    prompt's stream is scored again without its first page of context
+    (positions kept), which must read above the tolerance."""
+    layers = layer_views(params, cfg)
+
+    def score(ids, start, toks):
+        with torch.no_grad():
+            pos = torch.arange(start, start + len(ids), device=dev)
+            logits, _, _ = prefill(params, torch.as_tensor(ids, device=dev), pos, cfg,
+                                   layers=layers)
+            lp = torch.log_softmax(logits[-len(toks):], dim=-1)  # the rows that chose toks
+            got = lp.gather(1, torch.as_tensor(toks, device=dev)[:, None])[:, 0]
+            gap = (lp.max(dim=-1).values - got).max().item()
+            return got.double().cpu().numpy(), gap
+
+    worst = gap = total = 0.0
+    n = 0
+    for req, (toks, lps) in zip(reqs, streams):
+        got, g = score(req.input_ids + toks[:-1], 0, toks)
+        d = np.abs(got - np.asarray(lps, np.float64))
+        worst, total, n = max(worst, float(d.max())), total + float(d.sum()), n + d.size
+        if req.gconfig.greedy:
+            gap = max(gap, g)
+    check(worst <= STREAM_LOGP_TOL, f"{what}: teacher-forced logprobs differ by {worst}")
+    check(gap <= STREAM_LOGP_TOL, f"{what}: a greedy token is {gap} below the forward's argmax")
+    out = dict(tokens=n, max_abs_diff=worst, mean_abs_diff=total / n, greedy_argmax_gap=gap)
+    if planted:
+        i = max(range(len(reqs)), key=lambda j: len(reqs[j].input_ids))
+        toks, lps = streams[i]
+        page = KV_TIER_SETTINGS["page_size"]
+        got, _ = score((reqs[i].input_ids + toks[:-1])[page:], page, toks)
+        out["planted_fault_max_abs_diff"] = fault = float(np.abs(got - np.asarray(lps)).max())
+        check(fault > STREAM_LOGP_TOL, f"{what}: a dropped page of context reads {fault}, "
+                                       f"within {STREAM_LOGP_TOL}")
+    return out
+
+
+def _pinned_rates(nbytes: int, dev) -> dict:
+    """GB/s of one plain copy of `nbytes` each way between pinned host
+    memory and the card, and what the first pin of a buffer that size cost."""
+    t = time.perf_counter()
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    first_pin_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    del host
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)  # from the allocator's cache
+    cached_pin_ms = (time.perf_counter() - t) * 1e3
+    dev_buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    d2h = _time(lambda i: host.copy_(dev_buf, non_blocking=True), 5)
+    h2d = _time(lambda i: dev_buf.copy_(host, non_blocking=True), 5)
+    return dict(bytes=nbytes, d2h_gb_s=nbytes / d2h / 1e6, h2d_gb_s=nbytes / h2d / 1e6,
+                first_pin_ms=first_pin_ms, cached_pin_ms=cached_pin_ms)
+
+
+def _tier_metrics(eng) -> dict:
+    m = eng.get_metrics()
+    return {k: m[k] for k in m if k.startswith(("kv_host", "kv_swap", "kv_offload", "kv_promote",
+                                                "reprefill", "kv_block_nbytes"))}
+
+
+def _tier_k1(dev, params, cfg, oracle_reqs, oracle) -> dict:
+    """(k1): the 16 requests interrupted after their first chunk (parked),
+    16 fillers whose admissions evict every parked slot to the host tier,
+    then the 16 resumed under their rids: promoted, no prefill, the joined
+    streams the never-evicted engine's (`_exact`: the same waves, so the
+    same K3 splits and prefill groups)."""
+    n_chunk = KV_TIER_SETTINGS["new_tokens_per_chunk"]
+    eng = _tier_engine(dev, params, cfg, kv_pool_tokens=KV_TIER_POOL,
+                       kv_host_pool_mb=KV_TIER_HOST_MB, **KV_TIER_SETTINGS)
+    rng = np.random.default_rng(SEED + 51)
+    try:
+        first = _paused_wave(eng, oracle_reqs, interrupt=True)
+        for r in first:
+            check(r.stop_reason == "interrupt" and r.output_len == n_chunk,
+                  f"(k1) {r.stop_reason} after {r.output_len} tokens, want interrupt after {n_chunk}")
+        check(len(eng._parked) == len(oracle_reqs), f"(k1) {len(eng._parked)} parked")
+        covered = [len(r.input_ids) - 1 + f.output_len for r, f in zip(oracle_reqs, first)]
+        blocks = sum(-(-c // eng._alloc.block_size) for c in covered)
+        t = time.perf_counter()
+        _paused_wave(eng, _fillers(rng, cfg.vocab_size, len(oracle_reqs), "kf"))
+        fill_s = time.perf_counter() - t
+        m1 = _tier_metrics(eng)
+        check(m1["kv_host_pool_entries"] == len(oracle_reqs),
+              f"(k1) {m1['kv_host_pool_entries']} host entries after the fillers")
+        check(m1["kv_swap_out_bytes_total"] == blocks * m1["kv_block_nbytes"],
+              f"(k1) swapped out {m1['kv_swap_out_bytes_total']} B, want {blocks} blocks x "
+              f"{m1['kv_block_nbytes']}")
+        c1 = _sched_counts(eng)
+        t = time.perf_counter()
+        second = _paused_wave(eng, _resumes(oracle_reqs, first))
+        resume_s = time.perf_counter() - t
+        d = _delta(eng, c1)
+        m2 = _tier_metrics(eng)
+        check(d["prefill_calls"] == 0, f"(k1) the resumes ran {d['prefill_calls']} prefill forwards")
+        check(m2["kv_host_hits_total"] == len(oracle_reqs) and m2["kv_host_hit_rate"] == 1.0,
+              f"(k1) host hits {m2['kv_host_hits_total']}, hit rate {m2['kv_host_hit_rate']}")
+        check(m2["kv_offload_failures_total"] == 0 and m2["kv_promote_failures_total"] == 0,
+              f"(k1) failures: offload {m2['kv_offload_failures_total']}, "
+              f"promote {m2['kv_promote_failures_total']}")
+        check(m2["kv_swap_in_bytes_total"] == blocks * m2["kv_block_nbytes"],
+              f"(k1) swapped in {m2['kv_swap_in_bytes_total']} B, want {blocks} blocks")
+        joined = [(a.output_tokens + b.output_tokens, a.output_logprobs + b.output_logprobs)
+                  for a, b in zip(first, second)]
+        rates = eng.swap_rates()
+        return dict(
+            layers=cfg.num_hidden_layers, requests=len(oracle_reqs), blocks=blocks,
+            block_nbytes=m2["kv_block_nbytes"], fillers_s=fill_s, resume_s=resume_s,
+            resume_prefill_calls=d["prefill_calls"], resume_decode_steps=d["decode_steps"],
+            tier=m2, against_never_evicted=_exact(joined, oracle, "(k1) evicted vs never-evicted"),
+            swap=dict(out_bytes=rates["out"]["bytes"], out_s=rates["out"]["seconds"],
+                      out_gb_s=rates["out"]["bytes"] / rates["out"]["seconds"] / 1e9,
+                      in_bytes=rates["in"]["bytes"], in_s=rates["in"]["seconds"],
+                      in_gb_s=rates["in"]["bytes"] / rates["in"]["seconds"] / 1e9,
+                      plain_pinned=_pinned_rates(blocks * m2["kv_block_nbytes"] // len(oracle_reqs),
+                                                 dev)),
+        )
+    finally:
+        eng.destroy()
+
+
+def _tier_k3(dev, params, cfg, req, want) -> dict:
+    """(k3), 4 slots: the first of the 16 requests (greedy) interrupted,
+    evicted by 4 fillers, and a planted `kv.swap_in` fault at its
+    promotion: one promotion failure, one prefill, no offload failure, the
+    stream against the never-evicted one (`want`; `_agree`: the prefill
+    writes rows the decode steps had written, rounded otherwise) and
+    teacher-forced."""
+    from areal_tpu_torch.core import fault_injection
+
+    settings = dict(KV_TIER_SETTINGS, max_running_requests=4)
+    rng = np.random.default_rng(SEED + 56)
+    eng = _tier_engine(dev, params, cfg, kv_host_pool_mb=KV_TIER_HOST_MB, **settings)
+    try:
+        cut, = _paused_wave(eng, [req], interrupt=True)
+        _paused_wave(eng, _fillers(rng, cfg.vocab_size, settings["max_running_requests"], "kg"))
+        c3, m3 = _sched_counts(eng), _tier_metrics(eng)
+        check(m3["kv_host_pool_entries"] == 1, f"(k3) {m3['kv_host_pool_entries']} host entries")
+        fault_injection.configure(fault_injection.FaultPlan.from_json(
+            '{"points": [{"site": "kv.swap_in", "at": [0]}]}'))
+        try:
+            again, = _paused_wave(eng, _resumes([req], [cut]))
+        finally:
+            fault_injection.deactivate()
+        d3, m4 = _delta(eng, c3), _tier_metrics(eng)
+        check(m4["kv_promote_failures_total"] == 1, f"(k3) {m4['kv_promote_failures_total']} "
+                                                    "promotion failures, want 1")
+        check(d3["prefill_calls"] == 1 and d3["prefills"] == 1,
+              f"(k3) the faulted resume ran {d3['prefill_calls']} prefill forwards, want 1")
+        check(m4["kv_offload_failures_total"] == 0, "(k3) an offload failed")
+        stream = [(cut.output_tokens + again.output_tokens, cut.output_logprobs + again.output_logprobs)]
+        return dict(layers=cfg.num_hidden_layers, promote_failures=m4["kv_promote_failures_total"],
+                    prefill_calls=d3["prefill_calls"],
+                    against_never_evicted=_agree(stream, [want], [True], "(k3)"),
+                    forced=_forced(params, cfg, [req], stream, "(k3)", dev))
+    finally:
+        eng.destroy()
+
+
+def _tier_k2(dev, params, cfg, reqs, oracle) -> dict:
+    """(k2): the 16 requests on a pool of 12,288 tokens under run-ahead 1:
+    pool pressure preempts active slots, whose consumed coverage goes to
+    the host tier and is promoted at re-admission. The preemptions change
+    which slots share a step (so K3's split of a slot's table may differ
+    from the never-evicted run's): the streams are held to `_agree` and
+    teacher-forced, with its planted fault."""
+    eng = _tier_engine(dev, params, cfg, kv_pool_tokens=KV_TIER_PREEMPT_POOL,
+                       kv_host_pool_mb=KV_TIER_HOST_MB, **KV_TIER_SETTINGS)
+    try:
+        c0 = _sched_counts(eng)
+        t = time.perf_counter()
+        got = _paused_wave(eng, reqs)
+        wall = time.perf_counter() - t
+        d, m = _delta(eng, c0), _tier_metrics(eng)
+        check(eng.n_preemptions > 0 and m["kv_host_hits_total"] > 0,
+              f"(k2) {eng.n_preemptions} preemptions, {m['kv_host_hits_total']} host hits")
+        check(m["kv_offload_failures_total"] == 0 and m["kv_promote_failures_total"] == 0,
+              "(k2) an offload or a promotion failed")
+        for req, r in zip(reqs, got):
+            check(r.stop_reason == "length" and r.output_len == KV_TIER_NEW,
+                  f"(k2) {req.rid}: {r.stop_reason} after {r.output_len}")
+        return dict(preemptions=eng.n_preemptions, wall_s=wall, prefill_calls=d["prefill_calls"],
+                    decode_steps=d["decode_steps"], tier=m,
+                    against_never_evicted=_agree(_streams(got), oracle,
+                                                 [r.gconfig.greedy for r in reqs], "(k2)"),
+                    forced=_forced(params, cfg, reqs, _streams(got), "(k2)", dev, planted=True))
+    finally:
+        eng.destroy()
+
+
+def _layer_subset(params: dict, layers: int) -> dict:
+    """The first `layers` layers of a `layers_{i}/...` tree and the rest."""
+    return {k: t for k, t in params.items()
+            if not k.startswith("layers_") or int(k.split("/")[0].split("_")[1]) < layers}
+
+
+def _tier_k4(dev, params, cfg) -> dict:
+    """(k4): an int8 pool, 8 slots, 8 requests: evicted and resumed as
+    (k1), the streams bit-equal to a never-evicted int8 engine on the same
+    weights; K5a = decode steps x L over the evicted engine's leg, K3 = 0."""
+    L = cfg.num_hidden_layers
+    n = KV_TIER_INT8_REQUESTS
+    settings = dict(KV_TIER_SETTINGS, max_running_requests=n, kv_dtype="int8")
+    reqs = _tier_requests(np.random.default_rng(SEED + 52), cfg.vocab_size, n, "q")
+    oracle_eng = _tier_engine(dev, params, cfg, **settings)
+    try:
+        oracle = _streams(_paused_wave(oracle_eng, reqs))
+    finally:
+        oracle_eng.destroy()
+    eng = _tier_engine(dev, params, cfg, kv_host_pool_mb=KV_TIER_HOST_MB, **settings)
+    try:
+        steps0 = eng.decode_steps
+        pa.launches = pa.launches_q8 = 0
+        first = _paused_wave(eng, reqs, interrupt=True)
+        _paused_wave(eng, _fillers(np.random.default_rng(SEED + 53), cfg.vocab_size, n, "qf"))
+        c1 = _sched_counts(eng)
+        second = _paused_wave(eng, _resumes(reqs, first))
+        launches = dict(paged_attention=pa.launches, paged_attention_q8=pa.launches_q8)
+        d, m = _delta(eng, c1), _tier_metrics(eng)
+        steps = eng.decode_steps - steps0
+        check(launches["paged_attention_q8"] == steps * L and launches["paged_attention"] == 0,
+              f"(k4) K5a {launches['paged_attention_q8']} != {steps} steps x {L}, "
+              f"K3 {launches['paged_attention']}")
+        check(d["prefill_calls"] == 0 and m["kv_host_hits_total"] == n,
+              f"(k4) resume prefills {d['prefill_calls']}, host hits {m['kv_host_hits_total']}")
+        check(m["kv_offload_failures_total"] == 0 and m["kv_promote_failures_total"] == 0,
+              "(k4) an offload or a promotion failed")
+        joined = [(a.output_tokens + b.output_tokens, a.output_logprobs + b.output_logprobs)
+                  for a, b in zip(first, second)]
+        exact = _exact(joined, oracle, "(k4) int8 evicted vs never-evicted")
+        check(exact["logprobs_bit_equal"] == n, f"(k4) {exact['logprobs_bit_equal']} of {n} bit-equal")
+        return dict(layers=L, requests=n, launches=launches, decode_steps=steps,
+                    tier=m, against_never_evicted=exact)
+    finally:
+        eng.destroy()
+
+
+def _record_dispatches(eng) -> list:
+    """Wrap the engine's dispatch to record each pass's (nb, verify width)."""
+    log, orig = [], eng._dispatch_chunk
+
+    def dispatch(active):
+        rec = orig(active)
+        if rec is not None:
+            log.append((rec.nb, rec.spec_w))
+        return rec
+    eng._dispatch_chunk = dispatch
+    return log
+
+
+def _tier_w(dev, params, cfg) -> dict:
+    """(w): one greedy wave of 8 on three engines: the workspace layout,
+    the paged gather path (`paged_attn_impl="xla"`) and the paged kernels
+    with spec decode on. The two gather paths run the same plain
+    arithmetic: tokens and logprobs equal bit for bit. The kernels'
+    streams against them by `_agree`, and teacher-forced.
+    `kv_workspace_copy_bytes_total` equals copies x R x nb x block bytes
+    summed over each engine's passes (2 for the workspace, 1 for the
+    gather path, 0 for the kernels)."""
+    rng = np.random.default_rng(SEED + 54)
+    g = GenerationHyperparameters(max_new_tokens=KV_TIER_W_NEW, greedy=True)
+    reqs = [ModelRequest(rid=f"w{i}", gconfig=g, input_ids=rng.integers(
+        0, cfg.vocab_size, int(rng.integers(*KV_TIER_PROMPT, endpoint=True))).tolist())
+        for i in range(KV_TIER_W_REQUESTS)]
+    out, streams = {}, {}
+    for name, extra, copies in (("workspace", dict(kv_layout="workspace"), 2),
+                                ("xla", dict(paged_attn_impl="xla"), 1),
+                                ("kernels_spec", dict(spec_decode="ngram", spec_k=SPEC_K), 0)):
+        eng = _tier_engine(dev, params, cfg, **KV_TIER_SETTINGS, **extra)
+        try:
+            log = _record_dispatches(eng)
+            pa.launches = pa.launches_verify = 0
+            t = time.perf_counter()
+            streams[name] = _streams(_paused_wave(eng, reqs))
+            wall = time.perf_counter() - t
+            m = eng.get_metrics()
+            R = eng.config.max_running_requests
+            want = sum(copies * R * nb * m["kv_block_nbytes"] for nb, _ in log)
+            check(m["kv_workspace_copy_bytes_total"] == want,
+                  f"(w) {name}: copy bytes {m['kv_workspace_copy_bytes_total']}, want {want}")
+            launches = dict(paged_attention=pa.launches, paged_verify=pa.launches_verify)
+            L = cfg.num_hidden_layers
+            want_k3 = eng.decode_steps * L if copies == 0 else 0
+            want_k4 = eng.verify_dispatches * L if copies == 0 else 0
+            check(launches == dict(paged_attention=want_k3, paged_verify=want_k4),
+                  f"(w) {name}: launches {launches}, want K3 {want_k3}, K4 {want_k4}")
+            out[name] = dict(wall_s=wall, passes=len(log), copy_bytes=m["kv_workspace_copy_bytes_total"],
+                             launches=launches, decode_steps=eng.decode_steps,
+                             verify_dispatches=eng.verify_dispatches)
+        finally:
+            eng.destroy()
+    out["workspace_vs_xla"] = _exact(streams["xla"], streams["workspace"], "(w) xla vs workspace")
+    check(out["workspace_vs_xla"]["logprobs_bit_equal"] == len(reqs),
+          "(w) the gather path and the workspace layout are not bit-equal")
+    out["kernels_spec_vs_workspace"] = _agree(streams["kernels_spec"], streams["workspace"],
+                                              [True] * len(reqs), "(w) kernels vs workspace")
+    out["kernels_spec_forced"] = _forced(params, cfg, reqs, streams["kernels_spec"], "(w) kernels",
+                                         dev)
+    out["launches"] = out["kernels_spec"]["launches"]
+    return out
+
+
+@contextlib.contextmanager
+def _plain_paged_attention():
+    """The decode and verify steps' default attention swapped for the
+    plain versions (what `decode_step_paged` and `verify_step_paged` call
+    when the engine passes none)."""
+    saved = decode_step_paged.__defaults__, verify_step_paged.__defaults__
+
+    def swap(defaults, old, new):
+        return tuple(new if d is old else d for d in defaults)
+    decode_step_paged.__defaults__ = swap(saved[0], pa.paged_attention, pa.paged_attention_ref)
+    verify_step_paged.__defaults__ = swap(saved[1], pa.paged_attention_qlen,
+                                          pa.paged_attention_qlen_ref)
+    try:
+        yield
+    finally:
+        decode_step_paged.__defaults__, verify_step_paged.__defaults__ = saved
+
+
+KV_TIER_D_DECODE = dict(max_running_requests=8, context_length=2048, page_size=128,
+                        new_tokens_per_chunk=64, spec_decode="ngram", spec_k=SPEC_K)
+
+
+def _tier_d(dev) -> dict:
+    """(d): Qwen2.5-1.5B at full width, CUT_LAYERS deep, bf16 weights over
+    an f32 pool and f32 weights over a bf16 pool, 8 greedy self-quoting
+    requests each with spec decode on: K3's and K4's mixed variants
+    launched decode steps x L and verify forwards x L times, and the
+    streams against the same engine with the plain paged attention
+    swapped in (`_agree`) and teacher-forced."""
+    cfg0 = dataclasses.replace(QWEN25_1_5B, scan_layers=False, num_hidden_layers=CUT_LAYERS)
+    L = CUT_LAYERS
+    reqs = [r for r in _spec_requests(np.random.default_rng(SEED + 55), cfg0.vocab_size)[:8]]
+    reqs = [ModelRequest(rid=r.rid, input_ids=r.input_ids[:512], gconfig=r.gconfig) for r in reqs]
+    out, launches = {}, {}
+    for dtype, pool in (("bfloat16", "float32"), ("float32", "bfloat16")):
+        cfg = dataclasses.replace(cfg0, dtype=dtype, param_dtype=dtype)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        verify_key = (True, *(tuple(getattr(torch, x) for x in (dtype, pool))))
+        decode_key = (False, *verify_key[1:])
+        names = [MIXED_VARIANTS[decode_key], MIXED_VARIANTS[verify_key]]
+        settings = dict(KV_TIER_D_DECODE, dtype=dtype, kv_cache_dtype=pool)
+        eng = _tier_engine(dev, params, cfg, **settings)
+        try:
+            check(eng._k_pool.dtype == getattr(torch, pool), f"(d) pool {eng._k_pool.dtype}")
+            for counter, _ in names:
+                setattr(pa, counter, 0)
+            pa.launches = pa.launches_verify = 0
+            got = _streams(_paused_wave(eng, reqs))
+            n = {name: getattr(pa, counter) for counter, name in names}
+            steps, vd = eng.decode_steps, eng.verify_dispatches
+            check(vd > 0, f"(d) {dtype} over {pool}: no verify forward")
+            check(list(n.values()) == [steps * L, vd * L] and pa.launches == pa.launches_verify == 0,
+                  f"(d) {dtype} over {pool}: launches {n}, want {steps} x {L} and {vd} x {L}")
+            launches.update(n)
+        finally:
+            eng.destroy()
+        forced = _forced(params, cfg, reqs, got, f"(d) {dtype} over {pool}", dev)
+        with _plain_paged_attention():
+            eng = _tier_engine(dev, params, cfg, **settings)
+            try:
+                calls = sum(getattr(pa, c) for c, _ in names)
+                want = _streams(_paused_wave(eng, reqs))
+                check(sum(getattr(pa, c) for c, _ in names) == calls, "(d) the plain run launched")
+            finally:
+                eng.destroy()
+        del params
+        torch.cuda.empty_cache()
+        out[f"{dtype}_over_{pool}"] = dict(
+            decode_steps=steps, verify_dispatches=vd, launches=n,
+            against_plain=_agree(got, want, [True] * len(reqs), f"(d) {dtype} over {pool}"),
+            forced=forced)
+    out["launches"] = launches
+    return out
+
+
+def phase_kv_tier(dev: torch.device, params: dict, layers: int = KV_TIER_LAYERS) -> dict:
+    """The host KV tier, the gather paths and fp pools in another dtype on
+    the serve cell's Qwen2.5-7B weights (bf16, full width): the
+    never-evicted streams of the 16 requests first (a fresh engine with
+    the serve cell's dense pool), then (k1)-(k4) and (w) at `layers`
+    layers, and (d) on Qwen2.5-1.5B. Counts of K3, K4 and K5a are set to 0
+    before each leg's main path and read after it."""
+    cfg = dataclasses.replace(QWEN25_7B, scan_layers=False, num_hidden_layers=layers)
+    p = _layer_subset(params, layers)
+    reqs = _tier_requests(np.random.default_rng(SEED + 50), cfg.vocab_size, N_REQUESTS, "k")
+    times, out = {}, {}
+    t = time.perf_counter()
+    oracle_eng = _tier_engine(dev, p, cfg, **KV_TIER_SETTINGS)
+    try:
+        pa.launches = 0
+        oracle = _streams(_paused_wave(oracle_eng, reqs))
+        k3_launches_oracle = pa.launches
+    finally:
+        oracle_eng.destroy()
+    times["oracle"] = time.perf_counter() - t
+    t = time.perf_counter()
+    pa.launches = 0
+    out["k1"] = _tier_k1(dev, p, cfg, reqs, oracle)
+    out["k1"]["k3_launches"] = pa.launches
+    times["k1"] = time.perf_counter() - t
+    t = time.perf_counter()
+    pa.launches = 0
+    out["k2"] = _tier_k2(dev, p, cfg, reqs, oracle)
+    out["k2"]["k3_launches"] = pa.launches
+    times["k2"] = time.perf_counter() - t
+    t = time.perf_counter()
+    pa.launches = 0
+    out["k3"] = _tier_k3(dev, p, cfg, reqs[0], oracle[0])
+    out["k3"]["k3_launches"] = pa.launches
+    times["k3"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["k4"] = _tier_k4(dev, p, cfg)
+    times["k4"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["w"] = _tier_w(dev, p, cfg)
+    times["w"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["d"] = _tier_d(dev)
+    times["d"] = time.perf_counter() - t
+    k3 = k3_launches_oracle + out["k1"]["k3_launches"] + out["k2"]["k3_launches"] + \
+        out["k3"]["k3_launches"] + out["w"]["launches"]["paged_attention"]
+    out["launches"] = dict(paged_attention=k3, paged_attention_q8=out["k4"]["launches"]["paged_attention_q8"],
+                           paged_verify=out["w"]["launches"]["paged_verify"], **out["d"]["launches"])
+    emit("kv_tier", model="Qwen2.5-7B", source=QWEN25_7B_SOURCE, layers=layers,
+         settings=KV_TIER_SETTINGS, pool_tokens=dict(k1=KV_TIER_POOL, k2=KV_TIER_PREEMPT_POOL),
+         host_pool_mb=KV_TIER_HOST_MB, seconds=times, **out)
+    return out
+
+
+def kv_tier_only() -> int:
+    """`--kv-tier`: the device and build phases, the mixed-dtype kernel
+    checks, and the kv_tier phase on the serve cell's weights (the seeded
+    random weights after their push, `_pushed_params`)."""
+    clock = _PhaseClock()
+    dev, smi = phase_device()
+    phase_build()
+    clock.lap("build")
+    mixed = phase_mixed_kernel(dev)
+    clock.lap("mixed_kernel")
+    cfg = dataclasses.replace(QWEN25_7B, scan_layers=False)
+    tier = phase_kv_tier(dev, _pushed_params(dev, cfg))
+    clock.lap("kv_tier")
+    for name, n in tier["launches"].items():
+        if name in mixed:
+            mixed[name]["launches"] = n
+    emit("phase_seconds", **clock.laps)
+    print(json.dumps({"kernels": list(mixed.values())}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 class _PhaseClock:
     """Seconds of each phase of `main`, each lap since the one before."""
 
@@ -6405,16 +7162,23 @@ def main() -> int:
     clock.lap("quant_kernel")
     v_err = phase_verify_kernel(dev)
     clock.lap("verify_kernel")
+    mixed = phase_mixed_kernel(dev)
+    clock.lap("mixed_kernel")
     engine, cfg, launches = phase_serve(dev)
     try:
         batch = phase_step(engine, cfg)
         phase_profile(engine, cfg, batch)
         paged = phase_paged_line(engine, cfg, batch, launches, max_err)
+        served = engine.params  # the serve cell's weights, after its push
     finally:
         engine.destroy()
     del engine
     torch.cuda.empty_cache()
     clock.lap("serve_step_profile")
+    tier = phase_kv_tier(dev, served)
+    del served
+    torch.cuda.empty_cache()
+    clock.lap("kv_tier")
     sched = phase_sched(dev)
     engine, cfg, s_launches = phase_serve_spec(dev, SERVE, "serve_spec")
     try:
@@ -6523,15 +7287,23 @@ def main() -> int:
                                      multi_turn=multi_turn["launches"]["paged_attention"],
                                      hf_path=hf_path["launches"]["paged_attention"],
                                      tir=tir["launches"]["paged_attention"],
-                                     chaos=chaos["launches"]["paged_attention"])
+                                     chaos=chaos["launches"]["paged_attention"],
+                                     kv_tier=tier["launches"]["paged_attention"])
     paged["launches"] = sum(paged["launches_by_path"].values())
     q8["launches_by_path"] = dict(serve_int8=q_launches["paged_attention_q8"],
-                                  serve_spec_int8=s8_launches["paged_attention_q8"])
+                                  serve_spec_int8=s8_launches["paged_attention_q8"],
+                                  kv_tier=tier["launches"]["paged_attention_q8"])
     q8["launches"] = sum(q8["launches_by_path"].values())
     qmm_row["launches_by_path"] = dict(serve_int8=q_launches["quant_matmul"],
                                        serve_spec_int8=s8_launches["quant_matmul"])
     qmm_row["launches"] = sum(qmm_row["launches_by_path"].values())
-    rows = [paged, *phase_flash_line(dev, train, flash_paths), q8, qmm_row, verify, verify_q8]
+    verify["launches_by_path"] = dict(serve_spec=verify["launches"],
+                                      kv_tier=tier["launches"]["paged_verify"])
+    verify["launches"] = sum(verify["launches_by_path"].values())
+    for name, row in mixed.items():
+        row["launches"] = tier["launches"][name]
+    rows = [paged, *phase_flash_line(dev, train, flash_paths), q8, qmm_row, verify, verify_q8,
+            *mixed.values()]
     for r in rows:
         check(r["launches"] > 0, f"{r['name']}: no launch on the main path")
     clock.lap("kernels_line")
@@ -6551,5 +7323,6 @@ if __name__ == "__main__":
     modes = {"--paged-times": paged_times_only, "--decode-sweep": decode_sweep_only,
              "--qmm-times": qmm_times_only, "--qmm-sweep": qmm_sweep_only,
              "--decoupled": decoupled_only, "--trainers": trainers_only,
-             "--hf-path": hf_path_only, "--tir": tir_only, "--chaos": chaos_only}
+             "--hf-path": hf_path_only, "--tir": tir_only, "--chaos": chaos_only,
+             "--kv-tier": kv_tier_only}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] else main())

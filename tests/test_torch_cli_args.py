@@ -142,6 +142,8 @@ OVERRIDES = [
     "rollout.weight_sync_overlap=false", "actor.jax.zero1_optimizer=false", "cluster.n_nodes=2",
     # refused until the fault-injection harness came (ROADMAP queue 1, item 7)
     "rollout.fault_injection.enabled=true",
+    # refused until the host KV tier and the gather paths came (item 3)
+    "decode.paged_attn_impl=xla", "decode.kv_layout=workspace", "decode.kv_host_pool_mb=64",
 ]
 
 
@@ -162,7 +164,7 @@ REFUSALS = [
     ("launcher.supervisor.enabled=true", "item 4"),
     ("cluster.n_nodes=2", "item 5"),
     ("decode.role=prefill", "item 4"),
-    ("decode.paged_attn_impl=xla", "item 3"),
+    ("decode.role=decode", "item 4"),
     ("actor.jax.virtual_pp_size=2", "item 5"),
     ("actor.jax.mesh_num_slices=2", "item 5"),
     ("actor.jax.offload_params=true", "item 7"),

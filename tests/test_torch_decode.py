@@ -390,9 +390,9 @@ def test_device_none_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize(
     "setting",
-    [dict(kv_host_pool_mb=64.0), dict(tensor_parallel_size=2),
-     dict(kv_layout="workspace"), dict(role="prefill"),
-     dict(kv_cache_dtype="bfloat16")],  # the model here is float32
+    [dict(role="decode"), dict(tensor_parallel_size=2),
+     dict(tensor_parallel_size=4), dict(role="prefill"),
+     dict(kv_cache_dtype="float16")],  # the model here is float32
 )
 def test_unported_settings_raise(weights, setting):
     eng = TorchDecodeEngine(TorchDecodeConfig(**dict(SMALL, **setting)), device="cpu")

@@ -301,10 +301,10 @@ SCRATCH = ["--scratch-model", json.dumps(SMOKE_MODEL_DICT), "--dtype", "float32"
 
 @pytest.mark.parametrize("flags,item", [
     (["--role", "prefill"], "item 4"),
-    (["--kv-layout", "workspace"], "item 3"),
-    (["--kv-host-pool-mb", "64"], "item 3"),
+    (["--role", "decode"], "item 4"),
+    (["--tp-size", "4"], "item 5"),
     (["--tp-size", "2"], "item 5"),
-    (["--paged-attn-impl", "xla"], "item 3"),
+    (["--dtype", "float32", "--role", "decode"], "item 4"),
 ])
 def test_server_refuses_unported_flags(flags, item):
     with pytest.raises(NotImplementedError, match=item):
