@@ -236,9 +236,14 @@ class FaultInjectionConfig:
 
 @dataclass
 class RouterConfig:
-    """Fleet router policy (`areal_tpu/api/cli_args.py:515`). The router
-    is ROADMAP queue 1, item 4; a colocated run has none, so these are
-    accepted and not acted on."""
+    """Fleet router policy (`areal_tpu/api/cli_args.py:515`), read by
+    `launcher/router.py`'s `DecodeRouter`: the placement policy and its
+    prefix-affinity knobs, pressure-aware admission and the bounded queue,
+    the staleness gate, failover, the circuit breaker and route expiry.
+    `kv_fabric` and `kv_fabric_fetch_cost_factor` steer the KV fabric's
+    hints (ROADMAP queue 1, item 4.4) and are accepted and not acted on.
+    The router runs as its own process, as in JAX; `InferenceEngineConfig.
+    router` carries these values beside the client's."""
 
     schedule_policy: str = "prefix_affinity"
     max_concurrent_rollouts: int = 1024
@@ -267,9 +272,16 @@ class RouterConfig:
 
 @dataclass
 class SupervisorConfig:
-    """Fleet supervisor policy (`areal_tpu/api/cli_args.py:604`); the
-    supervisor is ROADMAP queue 1, item 4 (`enabled` is refused by
-    `LauncherConfig.check_supported`)."""
+    """Fleet supervisor policy (`areal_tpu/api/cli_args.py:604`), read by
+    `launcher/supervisor.py`'s `FleetSupervisor` and `plan_actions`: the
+    replica bounds, the hysteresis marks and cooldowns, spawn backoff and
+    crash-loop escalation, the drain deadline and health probing. The
+    supervisor runs as its own process (`python -m
+    areal_tpu_torch.launcher.supervisor`); no entry point starts one, as in
+    JAX, so `enabled` is accepted and read by none. The re-role knobs act
+    only on a disaggregated fleet, which the port cannot form yet (item
+    4.3), and `kv_fabric` and `warm_start_sessions` wait for the fabric
+    (item 4.4)."""
 
     enabled: bool = False
     tick_interval_s: float = 1.0
@@ -302,9 +314,9 @@ class InferenceEngineConfig:
     Capacity is counted in episodes (one GRPO group each). The port's
     `WorkflowExecutor` and engines read the first nine fields;
     `RemoteInfEngine` also reads the discovery, retry, failover and
-    staged-push fields. The router's (`router`, `router_request_timeout`)
-    steer the fleet router, ROADMAP queue 1, item 4, and are accepted and
-    not acted on. An enabled `fault_injection` arms the process-global
+    staged-push fields, and `router_request_timeout` when a fleet router
+    is registered (`router` holds the router's own policy, read by a
+    `DecodeRouter` built from it). An enabled `fault_injection` arms the process-global
     injector (`core/fault_injection.py`) when the remote client is built,
     and in the GRPO entry point's colocated branch (`build_rollout`)."""
 
@@ -331,8 +343,7 @@ class InferenceEngineConfig:
     fault_injection: FaultInjectionConfig = field(default_factory=FaultInjectionConfig)
 
     def check_supported(self) -> None:
-        """Every value here is accepted; a registered router is refused
-        where it would be used (`RemoteInfEngine.initialize`)."""
+        """Every value here is accepted."""
 
 
 @dataclass
@@ -353,14 +364,16 @@ class TorchDecodeConfig:
     `TorchDecodeEngine.initialize` refuses a verify width `spec_k + 1` past
     the verify kernels' limit (`ops.paged_attention.check_verify_width`).
     `kv_fabric` is accepted and not acted on: the fabric's content index and
-    peer fetch come with the fleet router, ROADMAP queue 1, item 4. Its device rung also acts in a lone JAX engine: a prompt that
+    peer fetch are ROADMAP queue 1, item 4.4. Its device rung also acts in a lone JAX engine: a prompt that
     shares only a block-aligned head with a registered conversation that
     diverges later forks those blocks there, and prefills in full here
     unless the registry holds that head as a key of its own. The decode
-    server (`launcher/decode_server.py`) reads `idempotency_*` and
-    `weight_staging_ttl_s`; its other knobs (`log_level`,
-    `enable_metrics`, `decode_log_interval`, `kv_migrate_chunk_mb`,
-    `kv_import_pool_mb`, `skip_tokenizer_init`, the `kv_fabric_*` limits)
+    server (`launcher/decode_server.py`) reads `idempotency_*`,
+    `weight_staging_ttl_s` and `kv_migrate_chunk_mb` (a migrated session's
+    frame size), and the engine `kv_import_pool_mb` (the host tier an
+    imported session lands in when `kv_host_pool_mb` is 0); the other knobs
+    (`log_level`, `enable_metrics`, `decode_log_interval`,
+    `skip_tokenizer_init`, the `kv_fabric_*` limits)
     and `hbm_utilization` are accepted and not acted on: the pool is sized
     by `kv_pool_tokens`, or the dense worst case.
 
@@ -454,7 +467,7 @@ class TorchDecodeConfig:
             "tensor_parallel_size": (
                 int(self.tensor_parallel_size) > 1, "item 5, multi-GPU serving"
             ),
-            "role": (self.role != "unified", "item 4, disaggregated prefill/decode roles"),
+            "role": (self.role != "unified", "item 4.3, disaggregated prefill/decode roles"),
         })
 
 
@@ -608,8 +621,9 @@ class LauncherConfig:
     launcher (`launcher/local.py`) runs one server and one trainer on one
     host and sets no resources, so these are accepted and not acted on
     (the slurm and ray launchers are ROADMAP queue 1, item 5);
-    `check_supported` refuses the fleet features of item 4, prefill
-    replicas and the supervisor."""
+    `check_supported` refuses prefill replicas (item 4.3). The supervisor
+    runs as its own process (`launcher/supervisor.py`), so
+    `supervisor.enabled` is accepted, as in JAX."""
 
     inference_server_cpus_per_accelerator: int = 4
     inference_server_mem_per_accelerator: int = 32 * 1024
@@ -623,9 +637,7 @@ class LauncherConfig:
 
     def check_supported(self) -> None:
         _refuse(self, {"prefill_replicas": (
-            int(self.prefill_replicas) > 0, "item 4, the prefill/decode roles")})
-        _refuse(self.supervisor, {"enabled": (
-            self.supervisor.enabled, "item 4, the fleet supervisor")}, "supervisor.")
+            int(self.prefill_replicas) > 0, "item 4.3, the prefill/decode roles")})
 
 
 @dataclass
@@ -653,8 +665,7 @@ class BaseExperimentConfig:
 
     def check_supported(self) -> None:
         """What an entry point refuses before it builds anything: more than
-        one node (item 5) and the launcher's fleet features, prefill
-        replicas and the supervisor (item 4)."""
+        one node (item 5) and prefill replicas (item 4.3)."""
         _refuse(self.cluster, {
             "n_nodes": (int(self.cluster.n_nodes) > 1, "item 5, multi-node runs"),
         }, "cluster.")

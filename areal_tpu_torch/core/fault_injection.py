@@ -51,11 +51,29 @@ Seams in the port (grep for `fault_injection.fire(` / `.afire(` / `.tear(`):
                                              offload of a parked or
                                              preempted slot's blocks)
   kv.swap_in            engine/kv_pool.py    HostKVStore.take (promotion)
+  kv.migrate.send       launcher/decode_server.py  before each frame a
+                                             migration sends (an abort is
+                                             the sender dying: the replay
+                                             under the same xid lands once)
+  kv.migrate.recv       launcher/decode_server.py  per received frame (fire
+                                             and tear: a torn frame is
+                                             refused before a byte stages)
+  router.poll           launcher/router.py   before each server's health
+                                             probe (an abort is a failed
+                                             poll)
+  router.schedule       launcher/router.py   top of /schedule_request (an
+                                             abort: the client falls back
+                                             to its local policy)
+  supervisor.health     launcher/supervisor.py  before each replica probe
+  supervisor.spawn      launcher/supervisor.py  before each spawn attempt
+                                             (an abort is a spawn failure)
+  supervisor.drain      launcher/supervisor.py  inside the drain deadline (a
+                                             delay is a hung drain)
+  supervisor.kill       launcher/supervisor.py  after a committed drain,
+                                             before the kill
 
-The JAX package's other seams belong to modules the port has not taken
-yet: `server.prefill`, `kv.migrate.send` and `kv.migrate.recv`
-(items 3.4 and 4.3), `router.schedule`, `router.poll` and
-`supervisor.*` (item 4.2). Each comes with its module.
+The JAX package's `server.prefill` belongs to the prefill role, which the
+port has not taken yet (ROADMAP.md queue 1, item 3.4).
 
 Fault modes:
 

@@ -30,9 +30,18 @@ Kept from the JAX client:
   process-global injector at construction (a disabled one leaves an armed
   injector as it is), and `client.weights.stage` fires per staged frame.
 
-Not here: the fleet router (`_schedule_via_router`) and the prefill
-handoff, ROADMAP.md queue 1, item 4 (a registered router is refused at
-`initialize`). Plain `threading.Lock`s stand in for `OrderedLock`.
+- Scheduling through a fleet router (JAX :236-347, :420-490, :599-636):
+  when one is registered under `names.rollout_router` (looked up again 30
+  s after a miss), `agenerate` asks its `/schedule_request` for each
+  request, shipping the remaining deadline and honouring a 429's
+  Retry-After within it, and falls back to the local policy when the
+  router fails. A failed-over submission is rescheduled with
+  `requeue=True`, and `/finish_request` releases the router's accounting
+  when the request ends.
+
+Not here: the prefill handoff (`_prefill_handoff`) and the fabric hint of
+a placement, ROADMAP.md queue 1, items 4.3-4.4; a unified fleet sets
+neither. Plain `threading.Lock`s stand in for `OrderedLock`.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import concurrent.futures
 import dataclasses
 import os
 import queue
+import random
 import threading
 import time
 import uuid
@@ -111,6 +121,10 @@ class RemoteInfEngine(InferenceEngine):
         self.tokenizer = tokenizer
         fault_injection.configure_from_config(config.fault_injection)
         self.addresses: list[str] = []
+        # the router's address ("" after a miss, looked up again once the
+        # cooldown clock passes)
+        self._router: str | None = None
+        self._router_next_lookup = 0.0
         # round-robin cursor, rid affinity and per-server estimated load,
         # touched by the rollout loop and by callers on other threads
         self._server_idx = 0  # guarded-by: _rid_lock
@@ -155,23 +169,9 @@ class RemoteInfEngine(InferenceEngine):
             "no decode servers found (addr arg, name_resolve, AREAL_LLM_SERVER_ADDRS all empty)"
         )
 
-    def _refuse_router(self) -> None:
-        if not (self.config.experiment_name and self.config.trial_name):
-            return
-        try:
-            router = name_resolve.get(
-                names.rollout_router(self.config.experiment_name, self.config.trial_name))
-        except name_resolve.NameEntryNotFoundError:
-            return
-        raise NotImplementedError(
-            f"a rollout router is registered ({router}); scheduling through it is not in "
-            "the PyTorch port yet: ROADMAP.md queue 1, item 4"
-        )
-
     def initialize(self, addr: str | list[str] | None = None, ft_spec: Any = None,
                    train_data_parallel_size: int | None = None) -> "RemoteInfEngine":
         self.addresses = self._discover_servers(addr)
-        self._refuse_router()
 
         async def _wait_all():
             await asyncio.gather(*[
@@ -191,6 +191,91 @@ class RemoteInfEngine(InferenceEngine):
             self._executor = None
 
     # -- scheduling -----------------------------------------------------
+    def _router_addr(self) -> str | None:
+        """The fleet router's address, if one registered: placement then
+        goes through its least-load and qid-affinity scheduling. A found
+        address is kept; a miss is looked up again after 30 s (the router
+        starts independently of the trainers)."""
+        if self._router:
+            return self._router
+        now = time.monotonic()
+        if now < self._router_next_lookup:
+            return None
+        self._router_next_lookup = now + 30.0
+        addr = ""
+        if self.config.experiment_name and self.config.trial_name:
+            try:
+                addr = name_resolve.get(
+                    names.rollout_router(self.config.experiment_name, self.config.trial_name))
+            except Exception as e:  # noqa: BLE001 — the router is optional
+                logger.debug(f"no rollout router registered ({e!r})")
+                addr = ""
+        self._router = addr
+        return addr or None
+
+    async def _schedule_via_router(self, req: ModelRequest, requeue: bool = False,
+                                   deadline: float | None = None) -> dict[str, Any] | None:
+        """The router's placement of `req` ({"url", "version"}), or None
+        with no router or when it fails (the local policy decides). A 429
+        waits its Retry-After, jittered, and asks again while the request's
+        deadline allows."""
+        router = self._router_addr()
+        if router is None:
+            return None
+        if deadline is None:
+            deadline = time.monotonic() + self.config.request_timeout
+        # the prefix the router's affinity hashes (64-token blocks, up to 4)
+        payload: dict[str, Any] = dict(
+            qid=req.rid, prompt_len=len(req.input_ids), group_size=req.gconfig.n_samples,
+            new_token_budget=req.gconfig.max_new_tokens,
+            input_prefix=[int(t) for t in req.input_ids[:256]],
+        )
+        if requeue:
+            payload["requeue"] = True
+        backoff = 1.0
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                logger.warning(f"router schedule for {req.rid} abandoned: deadline exhausted")
+                return None
+            # the router holds a queued request no longer than this
+            payload["deadline_s"] = remaining
+            try:
+                out = await arequest_with_retry(
+                    router, "/schedule_request", payload=payload, max_retries=2,
+                    timeout=min(self.config.router_request_timeout, remaining))
+                return out if out.get("url") else None
+            except HttpRequestError as e:
+                if e.status == 429 and time.monotonic() < deadline:
+                    # shed by the router's bounded queue: wait, do not
+                    # dogpile a server directly
+                    ra = e.body.get("retry_after")
+                    wait = float(ra) if ra is not None else backoff
+                    backoff = min(backoff * 2, 10.0)
+                    j = max(self.config.retry_jitter, 0.0)
+                    wait *= 1.0 + random.uniform(-j, j)
+                    await asyncio.sleep(max(0.0, min(wait, deadline - time.monotonic())))
+                    continue
+                return self._router_schedule_failed(e)
+            except Exception as e:  # noqa: BLE001 — the local policy decides
+                return self._router_schedule_failed(e)
+
+    def _router_schedule_failed(self, e: Exception) -> None:
+        logger.warning(f"router schedule failed ({e!r}); using local policy")
+        # forget the address: a restarted router registers a new one
+        self._router = ""
+        self._router_next_lookup = time.monotonic() + 30.0
+        return None
+
+    async def _finish_request_best_effort(self, rid: str) -> None:
+        """Release one unit of the router's accounting of `rid`; a failure
+        is logged (the router's TTL expiry releases a leaked unit)."""
+        try:
+            await arequest_with_retry(self._router, "/finish_request", payload=dict(qid=rid),
+                                      max_retries=1, timeout=10)
+        except Exception as e:  # noqa: BLE001 — accounting is best effort
+            logger.debug(f"finish_request({rid}) failed: {e!r}")
+
     def choose_server(self, rid: str | None = None, cost: float = 0.0,
                       exclude: str | None = None) -> str:
         """The server for `rid`: its affinity if it has one (and it is not
@@ -235,10 +320,12 @@ class RemoteInfEngine(InferenceEngine):
     # -- generation -----------------------------------------------------
     async def _generate_failover(self, req: ModelRequest, payload: dict[str, Any], addr: str,
                                  deadline: float) -> tuple[dict[str, Any], str]:
-        """POST /generate; when the retries to `addr` are exhausted, send
-        the same payload (same xid) to another server. Every attempt's
-        timeout is clipped to the request's remaining budget. Returns
-        (reply, the address that served it)."""
+        """POST /generate; when the retries to `addr` are exhausted (the
+        replica died), reschedule — through the router with requeue=True,
+        whose failover has moved the qid to a survivor, or locally without
+        `addr` — and send the same payload (same xid) there. Every
+        attempt's timeout is clipped to the request's remaining budget.
+        Returns (reply, the address that served it)."""
         for attempt in range(self.config.fleet_failover_retries + 1):
             remaining = deadline - time.monotonic()
             if remaining <= 0:
@@ -260,8 +347,12 @@ class RemoteInfEngine(InferenceEngine):
                 if attempt >= self.config.fleet_failover_retries:
                     raise
                 logger.warning(f"/generate to {addr} failed ({e!r}); failing over")
-                self._release_local(req.rid)
-                routed = self.choose_server(req.rid, cost=self._local_cost(req), exclude=addr)
+                sched = await self._schedule_via_router(req, requeue=True, deadline=deadline)
+                routed = sched["url"] if sched else None
+                if routed is None or routed == addr:
+                    self._release_local(req.rid)
+                    routed = self.choose_server(req.rid, cost=self._local_cost(req),
+                                                exclude=addr)
                 if routed == addr:
                     raise  # one server: nowhere to go
                 addr = routed
@@ -271,7 +362,9 @@ class RemoteInfEngine(InferenceEngine):
         """Generate with the interrupt-resume loop (JAX :532-621)."""
         start = time.monotonic()
         deadline = start + self.config.request_timeout
-        addr = self.choose_server(req.rid, cost=self._local_cost(req))
+        sched = await self._schedule_via_router(req, deadline=deadline)
+        routed = sched["url"] if sched else None
+        addr = routed or self.choose_server(req.rid, cost=self._local_cost(req))
         prompt = list(req.input_ids)
         acc_tokens: list[int] = []
         acc_logprobs: list[float] = []
@@ -304,6 +397,12 @@ class RemoteInfEngine(InferenceEngine):
                     await asyncio.sleep(ROLLOUT_POLL_WAIT_TIME)
         finally:
             self._release_local(req.rid)
+            if routed is not None:
+                try:
+                    # shielded: a cancelled rollout still releases its unit
+                    await asyncio.shield(self._finish_request_best_effort(req.rid))
+                except BaseException as e:  # noqa: BLE001 — the router's TTL backstops it
+                    logger.debug(f"finish_request({req.rid}) skipped: {e!r}")
         return ModelResponse(
             input_tokens=prompt,
             output_tokens=acc_tokens,

@@ -20,8 +20,13 @@ each byte once (duplicate and re-split retry frames are safe) and
 rejecting a torn frame before anything of it is staged; finished tensors
 are host torch tensors.
 
-The KV-session frames (`pack_kv_session`, `unpack_kv_sessions`) come with
-session migration, ROADMAP.md queue 1, item 3.4.
+A migrated KV session rides the same frames (`pack_kv_session`,
+`unpack_kv_sessions`, JAX :355-480): its gathered pool blocks as tensors
+`kvdata/<rid>/k` and `/v` (an int8 session's f32 scale blocks as `/ks` and
+`/vs`, the pool bytes as they are) and one JSON metadata blob as a uint8
+tensor `kvmeta/<rid>`, the resume contract of a host-tier entry. The same
+meta and arrays give the same frames in both packages, and each unpacks
+the other's.
 """
 
 from __future__ import annotations
@@ -350,3 +355,94 @@ def unpack_bucket(payload) -> dict[str, torch.Tensor]:
     st = WeightStaging()
     st.add_bucket(payload)
     return st.finalize()
+
+
+# -- KV-session migration frames (JAX :355-480) ------------------------------
+
+KV_META_PREFIX = "kvmeta/"
+KV_DATA_PREFIX = "kvdata/"
+
+# the resume contract the metadata must carry; `kv_dtype` defaults to "fp"
+# on read, and an int8 session also ships `ks`/`vs`
+_KV_META_REQUIRED = (
+    "rid", "covered", "tokens", "rope_delta", "base_key", "weight_version", "nb",
+)
+
+
+def _meta_blob(meta: dict) -> np.ndarray:
+    return np.frombuffer(json.dumps(meta, sort_keys=True).encode(), dtype=np.uint8)
+
+
+def pack_kv_session(meta: dict, k, v, ks=None, vs=None, chunk_mb: float = 64
+                    ) -> Iterator[bytes]:
+    """One session's blocks and resume metadata as wire frames, the
+    metadata first. `k`/`v` are host tensors or arrays `[L, nb, page, nKV,
+    hd]`; an int8 session (meta kv_dtype "int8") ships its int8 bytes as
+    they are with the f32 scales in `ks`/`vs`, which travel iff it is int8.
+    A `meta_only` session (an identity, no blocks) is the metadata alone."""
+    missing = [f for f in _KV_META_REQUIRED if f not in meta]
+    if missing:
+        raise ValueError(f"kv session meta missing fields: {missing}")
+    rid = str(meta["rid"])
+    if meta.get("meta_only"):
+        if k is not None or v is not None or ks is not None:
+            raise ValueError(f"meta-only kv session {rid!r} must not carry blocks")
+        yield from pack_buckets([(f"{KV_META_PREFIX}{rid}", _meta_blob(meta))],
+                                chunk_mb=chunk_mb)
+        return
+    if (str(meta.get("kv_dtype", "fp")) == "int8") != (ks is not None):
+        raise ValueError(
+            "kv session scales must travel iff meta kv_dtype == 'int8' "
+            f"(kv_dtype={meta.get('kv_dtype', 'fp')!r}, "
+            f"scales={'present' if ks is not None else 'absent'})"
+        )
+    named = [
+        (f"{KV_META_PREFIX}{rid}", _meta_blob(meta)),
+        (f"{KV_DATA_PREFIX}{rid}/k", k),
+        (f"{KV_DATA_PREFIX}{rid}/v", v),
+    ]
+    if ks is not None:
+        named += [(f"{KV_DATA_PREFIX}{rid}/ks", ks), (f"{KV_DATA_PREFIX}{rid}/vs", vs)]
+    yield from pack_buckets(named, chunk_mb=chunk_mb)
+
+
+def unpack_kv_sessions(staged: dict) -> list[tuple[dict, Any, Any, tuple | None]]:
+    """Finalized staging -> [(meta, k, v, scales)] per session, `scales`
+    (ks, vs) for an int8 session and None for an fp one (k and v None for
+    a meta-only session). Raises ValueError for a structurally incomplete
+    session (metadata without blocks, int8 blocks without scales, blocks
+    without metadata) or malformed metadata."""
+    out = []
+    meta_keys = sorted(n for n in staged if n.startswith(KV_META_PREFIX))
+    data_keys = {n for n in staged if n.startswith(KV_DATA_PREFIX)}
+    for mk in meta_keys:
+        rid = mk[len(KV_META_PREFIX):]
+        blob = staged[mk]
+        raw = blob.numpy().tobytes() if isinstance(blob, torch.Tensor) else np.asarray(
+            blob, dtype=np.uint8).tobytes()
+        try:
+            meta = json.loads(raw)
+        except ValueError as e:
+            raise ValueError(f"kv session {rid!r} metadata malformed: {e}") from None
+        if (not isinstance(meta, dict) or [f for f in _KV_META_REQUIRED if f not in meta]
+                or str(meta["rid"]) != rid):
+            raise ValueError(f"kv session {rid!r} metadata malformed")
+        if meta.get("meta_only"):
+            out.append((meta, None, None, None))
+            continue
+        kk, vk = f"{KV_DATA_PREFIX}{rid}/k", f"{KV_DATA_PREFIX}{rid}/v"
+        if kk not in staged or vk not in staged:
+            raise ValueError(f"kv session {rid!r} incomplete: missing blocks")
+        scales = None
+        if str(meta.get("kv_dtype", "fp")) == "int8":
+            sk, sv = f"{KV_DATA_PREFIX}{rid}/ks", f"{KV_DATA_PREFIX}{rid}/vs"
+            if sk not in staged or sv not in staged:
+                raise ValueError(f"kv session {rid!r} incomplete: int8 blocks without "
+                                 "scale blocks")
+            scales = (staged[sk], staged[sv])
+            data_keys -= {sk, sv}
+        out.append((meta, staged[kk], staged[vk], scales))
+        data_keys -= {kk, vk}
+    if data_keys:
+        raise ValueError(f"kv blocks without session metadata: {sorted(data_keys)[:4]}")
+    return out

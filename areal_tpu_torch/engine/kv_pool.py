@@ -83,6 +83,14 @@ class KVBlockAllocator:
     def usable_blocks(self) -> int:
         return self.n_blocks - 1
 
+    def fragmentation_blocks(self) -> int:
+        """Free blocks that cannot back another max-context admission: the
+        remainder after whole `max_blocks_per_slot` reservations (JAX
+        :94-99). Paged allocation needs no contiguity, so this is the only
+        structural waste a full-context request can see; the router's
+        admission subtracts it from a replica's headroom."""
+        return len(self._free) % self.max_blocks_per_slot
+
     def blocks_for(self, tokens: int) -> int:
         return max(-(-int(tokens) // self.block_size), 0)
 
@@ -201,6 +209,9 @@ class HostKVEntry:
     weight_version: int = -1
     ks: Any = None
     vs: Any = None
+    # the pool scheme that wrote k/v ("fp" | "int8"): an exported session
+    # carries it, and an import into a pool of the other scheme is refused
+    kv_dtype: str = "fp"
     nbytes: int = 0
     pending: bool = field(default=False, repr=False)
     event: Any = field(default=None, repr=False)
@@ -235,8 +246,10 @@ class HostKVStore:
     (the prompt diverged); a request that was never offloaded counts
     nothing.
 
-    The JAX store's fleet-fabric index (`match_blocks`, `fabric_keys`) and
-    its identity-only entries come with the KV fabric, ROADMAP.md queue 1,
+    Imported sessions (`TorchDecodeEngine.import_session`) land here too,
+    and a drain exports every resident entry (`rids`, `take`). The JAX
+    store's fleet-fabric index (`match_blocks`, `fabric_keys`) and its
+    identity-only entries come with the KV fabric, ROADMAP.md queue 1,
     items 3.4-3.5.
     """
 
@@ -270,6 +283,11 @@ class HostKVStore:
 
     def __len__(self) -> int:
         return len(self._entries)
+
+    def rids(self) -> list[str]:
+        """Resident entries' rids, least recently used first (a drain
+        exports every one of them)."""
+        return list(self._entries)
 
     def resident_tokens(self) -> int:
         return sum(e.covered for e in self._entries.values())

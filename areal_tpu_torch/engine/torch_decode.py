@@ -110,8 +110,16 @@ serving core and its default scheduling).
   `update_weights_from_disk` installs an HF checkpoint as a push does,
   reading it before the pause (JAX reads it inside).
 
-The JAX engine's session export and import, prefill-only admissions and
-KV fabric are later ROADMAP items (queue 1, items 3.4-3.5).
+- **Session migration** (jax_decode.py:4284-4815). `export_session` moves
+  a parked or host-tier session out as host tensors and its resume
+  metadata; `import_session` lands one in the host tier (made from
+  `kv_import_pool_mb` if the engine has none), where its resume is a
+  promotion with no prefill. Another weight version or pool dtype is an
+  honest miss. The decode server's `/drain` streams every exportable
+  session to survivors over the KV frames of `core/weight_transfer.py`.
+
+The JAX engine's prefill-only admissions (`aprefill`), identity-only
+sessions and KV fabric are later ROADMAP items (queue 1, items 3.4-3.5).
 """
 
 from __future__ import annotations
@@ -205,6 +213,17 @@ def kernel_launches() -> dict[str, int]:
         flash_attention_bwd_dq=_fa.launches_dq,
         flash_attention_bwd_dkv=_fa.launches_dkv,
     )
+
+
+def _host_tensor(x) -> torch.Tensor:
+    """A host tensor from a tensor or an array (a bfloat16 array, as the
+    JAX package's wire gives it, by its bits)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    a = np.ascontiguousarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _next_bucket(n: int, bucket: int = _PREFILL_BUCKET) -> int:
@@ -383,6 +402,11 @@ class TorchDecodeEngine(InferenceEngine):
         self._n_offload_failures = 0
         self._n_promote_failures = 0
         self._ws_copy_bytes = 0  # gather/scatter bytes of the gather paths
+        # session migration (export_session / import_session), under
+        # _metrics_lock: sessions and bytes each way, and imports refused
+        # for another weight version or pool dtype
+        self._migrate = dict(in_sessions=0, out_sessions=0, in_bytes=0, out_bytes=0,
+                             version_rejects=0, dtype_rejects=0)
         # the prefix registry: covered tokens -> donor slot, and its inverse
         self._prefix_lookup: dict[tuple[int, ...], int] = {}
         self._slot_prefix: list[tuple[int, ...] | None] = []
@@ -569,6 +593,8 @@ class TorchDecodeEngine(InferenceEngine):
         self._swap_secs = {"out": 0.0, "in": 0.0}
         self._n_offload_failures = self._n_promote_failures = 0
         self._ws_copy_bytes = 0
+        with self._metrics_lock:
+            self._migrate = dict.fromkeys(self._migrate, 0)
         self._k_pool = torch.zeros(shape, dtype=kv_dtype, device=self.device)
         self._v_pool = torch.zeros(shape, dtype=kv_dtype, device=self.device)
         self._k_scale = self._v_scale = None
@@ -610,6 +636,22 @@ class TorchDecodeEngine(InferenceEngine):
         if self._thread is not None:
             self._thread.join(timeout=60)
             self._thread = None
+        # a waiter of a request still queued or running gets an error, not
+        # a future that never resolves (a server killed mid-request answers
+        # its clients, who fail over)
+        pending = [s for s in self._slots if s is not None] + list(self._overflow)
+        while True:
+            try:
+                pending.append(self._request_q.get_nowait())
+            except queue.Empty:
+                break
+        gone = RuntimeError("decode engine destroyed")
+        for item in pending:
+            if item.future is not None and not item.future.done():
+                with contextlib.suppress(RuntimeError):  # its loop has closed
+                    item.loop.call_soon_threadsafe(_fail, item.future, gone)
+        self._slots = [None] * len(self._slots)
+        self._overflow = []
         if self._executor is not None:
             self._executor.destroy()
             self._executor = None
@@ -992,7 +1034,8 @@ class TorchDecodeEngine(InferenceEngine):
                 rid=rid, k=k, v=v, ks=scales[0] if scales else None,
                 vs=scales[1] if scales else None, nb=nb, covered=int(covered),
                 tokens=list(tokens), base_key=np.array(self._slot_keys[slot]),
-                weight_version=int(self._version), pending=event is not None, event=event,
+                weight_version=int(self._version), kv_dtype=self.config.kv_dtype,
+                pending=event is not None, event=event,
                 dev=tuple(bufs) if event is not None else (),
             )
             with self._host_lock:
@@ -1058,6 +1101,157 @@ class TorchDecodeEngine(InferenceEngine):
         with self._host_lock:
             self._host_store.note_hit(entry)
         return True
+
+    # -- session migration (jax_decode.py:4284-4480, 4630-4815) ---------
+    def list_exportable_sessions(self) -> list[str]:
+        """rids whose whole resumable KV this engine holds: parked slots,
+        then host-tier entries. A drain exports exactly these."""
+        with self._sched_lock:
+            rids = list(self._parked)
+            with self._host_lock:
+                if self._host_store is not None:
+                    rids += [r for r in self._host_store.rids() if r not in self._parked]
+        return rids
+
+    def _session_meta(self, rid: str, covered: int, tokens: list[int], base_key,
+                      weight_version: int, nb: int, kv_dtype: str) -> dict:
+        """The wire metadata of a session: a host-tier entry's resume
+        contract (`core/weight_transfer.py`'s `_KV_META_REQUIRED`)."""
+        return dict(rid=rid, covered=int(covered), tokens=[int(t) for t in tokens],
+                    rope_delta=0, base_key=[int(x) for x in np.asarray(base_key)],
+                    weight_version=int(weight_version), nb=int(nb), kv_dtype=str(kv_dtype))
+
+    def export_session(self, rid: str) -> dict | None:
+        """Move one session's resumable KV out of this engine: {"meta", "k",
+        "v"} with host tensors `[L, nb, page, nKV, hd]` (and "ks"/"vs", the
+        f32 scales `[L, nb, nKV, page]`, of an int8 pool, bytes as they
+        are), or None when `rid` holds no exportable session or the export
+        failed (logged; the session then re-prefills wherever it resumes).
+
+        A parked session's covering blocks are gathered under the scheduler
+        lock, on the decode stream, so the gather is queued before any later
+        pass can reuse them, and copied to the host before this returns; the
+        parked entry is dropped and its blocks stay registered as donor
+        material for same-prompt siblings. A host-tier session is taken
+        from the store. The metadata carries the weight version and the
+        pool dtype, which the importer checks."""
+        try:
+            with self._sched_lock, torch.no_grad():
+                parked = self._parked.get(rid)
+                if parked is not None:
+                    slot, covered, _ = parked
+                    tokens = list(self._parked_tokens.get(rid) or [])
+                    nb = self._alloc.blocks_for(covered)
+                    if (covered <= 0 or len(tokens) != covered or nb <= 0
+                            or nb > int(self._alloc.nblocks[slot])):
+                        return None
+                    blocks = self._upload(self._alloc.row(slot, nb).astype(np.int64))
+                    parts = [t.index_select(1, blocks).cpu() for t in self._pool_parts()]
+                    meta = self._session_meta(rid, covered, tokens, self._slot_keys[slot],
+                                              self._version, nb, self.config.kv_dtype)
+                    self._parked.pop(rid, None)
+                    self._parked_tokens.pop(rid, None)
+                    self._register_prefix(slot, tokens)
+                else:
+                    with self._host_lock:
+                        store = self._host_store
+                        entry = store.take(rid) if store is not None else None
+                    if entry is None:
+                        return None
+                    parts = [entry.k, entry.v] + ([] if entry.ks is None else [entry.ks, entry.vs])
+                    meta = self._session_meta(rid, entry.covered, entry.tokens, entry.base_key,
+                                              entry.weight_version, entry.nb, entry.kv_dtype)
+            out = dict(meta=meta, k=parts[0], v=parts[1])
+            if len(parts) == 4:
+                out["ks"], out["vs"] = parts[2], parts[3]
+            with self._metrics_lock:
+                self._migrate["out_sessions"] += 1
+                self._migrate["out_bytes"] += sum(t.numel() * t.element_size() for t in parts)
+            return out
+        except Exception as e:  # noqa: BLE001 — degrade to a re-prefill, never wedge
+            logger.warning(f"kv export of {rid} failed: {e!r}")
+            return None
+
+    def _ensure_host_store_locked(self, block_size: int) -> None:
+        """Under `_host_lock`: an imported session (or its miss tombstone)
+        needs a host tier to land in; without `kv_host_pool_mb` one is made,
+        bounded by `kv_import_pool_mb`, and evicts least recently used like
+        any tier."""
+        if self._host_store is None:
+            budget = max(float(self.config.kv_import_pool_mb), 1.0) * 1024 * 1024
+            self._host_store = HostKVStore(int(budget), max(self._block_nbytes, 1), block_size)
+
+    def _refuse_import(self, rid: str, block_size: int, why: str, counter: str) -> str:
+        """Tombstone `rid` so its resume counts an honest miss and
+        prefills, and count the refusal."""
+        with self._host_lock:
+            self._ensure_host_store_locked(block_size)
+            self._host_store.tombstone(rid)
+        with self._metrics_lock:
+            self._migrate[counter] += 1
+        logger.warning(f"kv import of {rid} refused: {why}")
+        return "stale_version" if counter == "version_rejects" else "kv_dtype_mismatch"
+
+    def import_session(self, meta: dict, k, v, ks=None, vs=None) -> str:
+        """Land a migrated session in the host tier, where the next
+        /generate of its rid promotes it through the `kv.swap_in` seam with
+        no prefill. Returns "ok"; "kv_dtype_mismatch" (the session's pool
+        scheme is not this engine's) or "stale_version" (its KV was
+        computed under another weight version), both with the rid
+        tombstoned, so its resume counts a miss and prefills; or "rejected"
+        (malformed, or over the tier's budget). `k`, `v`, `ks`, `vs` are
+        host tensors or arrays; an int8 session's land as they are.
+        Identity-only sessions (`meta_only`) come with the KV fabric and
+        are rejected."""
+        if self._alloc is None or self._k_pool is None:
+            return "rejected"
+        try:
+            rid = str(meta["rid"])
+            covered, nb = int(meta["covered"]), int(meta["nb"])
+            tokens = [int(t) for t in meta["tokens"]]
+            wv = int(meta.get("weight_version", -1))
+            sess_dtype = str(meta.get("kv_dtype", "fp"))
+            base_key = np.asarray(meta["base_key"], dtype=np.uint32)
+            rope_delta = int(meta.get("rope_delta", 0))
+            if meta.get("meta_only"):
+                return "rejected"
+            k, v = _host_tensor(k), _host_tensor(v)
+            ks = None if ks is None else _host_tensor(ks)
+            vs = None if vs is None else _host_tensor(vs)
+        except (KeyError, TypeError, ValueError):
+            return "rejected"
+        L, _, bs, nkv, hd = self._k_pool.shape
+        if (tuple(k.shape) != (L, nb, bs, nkv, hd) or tuple(v.shape) != tuple(k.shape)
+                or base_key.shape != (2,) or covered <= 0 or len(tokens) != covered
+                or self._alloc.blocks_for(covered) != nb or rope_delta != 0):
+            return "rejected"
+        if sess_dtype != self.config.kv_dtype:
+            # requantizing in flight would change the stream
+            return self._refuse_import(rid, bs, f"session kv_dtype {sess_dtype!r} != "
+                                                f"{self.config.kv_dtype!r}", "dtype_rejects")
+        if k.dtype != self._k_pool.dtype or v.dtype != k.dtype:
+            return "rejected"
+        if self._kv_quant and (ks is None or vs is None
+                               or tuple(ks.shape) != (L, nb, nkv, bs)
+                               or tuple(vs.shape) != tuple(ks.shape)
+                               or ks.dtype != torch.float32 or vs.dtype != torch.float32):
+            return "rejected"
+        if wv >= 0 and wv != self._version:
+            # the migration raced a weight commit
+            return self._refuse_import(rid, bs, f"weight version {wv} != {self._version}",
+                                       "version_rejects")
+        entry = HostKVEntry(rid=rid, k=k, v=v, ks=ks, vs=vs, nb=nb, covered=covered,
+                            tokens=tokens, base_key=base_key, weight_version=wv,
+                            kv_dtype=sess_dtype)
+        with self._host_lock:
+            self._ensure_host_store_locked(bs)
+            if not self._host_store.put(entry):
+                return "rejected"
+        with self._metrics_lock:
+            self._migrate["in_sessions"] += 1
+            self._migrate["in_bytes"] += sum(t.numel() * t.element_size()
+                                             for t in (k, v, ks, vs) if t is not None)
+        return "ok"
 
     # -- admission (jax_decode.py:2559-3093) ----------------------------
     def _admit(self) -> bool:
@@ -2114,6 +2308,7 @@ class TorchDecodeEngine(InferenceEngine):
             itl = np.asarray(self._chunk_itl_ms, dtype=np.float64)
             itl_wall = np.asarray(self._chunk_wall_itl_ms, dtype=np.float64)
             busy, idle = self._dev_busy_s, self._dev_idle_s
+            mig = dict(self._migrate)
 
         def pct(x, q):
             return float(np.percentile(x, q)) if x.size else 0.0
@@ -2156,6 +2351,14 @@ class TorchDecodeEngine(InferenceEngine):
             "itl_wall_p99_ms": pct(itl_wall, 99),
             "prefill_secs_total": round(self._prefill_secs, 6),
             "role": self.config.role,
+            # session migration (a drain): sessions and bytes each way, and
+            # imports refused as honest misses (jax_decode.py:5303-5310)
+            "kv_migrated_in_sessions_total": mig["in_sessions"],
+            "kv_migrated_out_sessions_total": mig["out_sessions"],
+            "kv_migrated_in_bytes_total": mig["in_bytes"],
+            "kv_migrated_out_bytes_total": mig["out_bytes"],
+            "kv_migrate_version_rejects_total": mig["version_rejects"],
+            "kv_migrate_dtype_rejects_total": mig["dtype_rejects"],
             "prefills_total": self._n_prefills,
             "prefix_forks_total": self._n_prefix_forks,
             "prefix_inplace_total": self._n_prefix_inplace,
@@ -2169,6 +2372,9 @@ class TorchDecodeEngine(InferenceEngine):
             "kv_blocks_total": alloc.usable_blocks if alloc else 0,
             "kv_blocks_free": alloc.free_blocks if alloc else 0,
             "kv_tokens_allocated": alloc.allocated_tokens() if alloc else 0,
+            # free blocks that cannot back another max-context admission
+            # (the router's admission subtracts them from the headroom)
+            "kv_pool_fragmentation": alloc.fragmentation_blocks() if alloc else 0,
             "kv_block_nbytes": self._block_nbytes,
             # the host KV tier (jax_decode.py:5363-5392): all zeros when off
             "kv_host_pool_enabled": host["enabled"],

@@ -32,10 +32,21 @@ Routes (JAX :1187-1202), with the JAX bodies and replies:
   POST /abort_weights           {"push_id"}: drop a failed push's staging
   POST /set_version             {"version": N}
 
-`/prefill`, `/kv_recv`, `/kv_commit` (session migration, ROADMAP.md
-queue 1, item 3.4), `/kv_fetch`, `/warm_start`, `/drain` and `/set_role`
-(the fleet, item 4) answer 501. The `kv_fabric` hint of a `/generate`
-body is ignored, as a lone engine does.
+  POST /kv_recv?xid=ID           one frame of a migrated KV session, staged
+                                per xid (duplicates merge; a torn frame is
+                                refused before a byte stages)
+  POST /kv_commit               {"xid"}: import the staged session(s) into
+                                the host tier; a replay of a finished xid
+                                answers the first result with "dedup"
+  POST /drain                   {"targets": [addr, ...]}: park what runs and
+                                stream every parked or host-tier session to
+                                the targets (JAX :1069-1162); a concurrent
+                                drain replays the first one's result
+
+`/prefill` (the prefill role, ROADMAP.md queue 1, item 3.4), `/set_role`
+(item 4.3), `/kv_fetch` and `/warm_start` (the KV fabric, item 4.4) answer
+501. The `kv_fabric` hint of a `/generate` body is ignored, as a lone
+engine does.
 
 Threading. The JAX server runs every handler on one event loop; here
 `http.server.ThreadingHTTPServer` runs each connection on a thread of its
@@ -46,10 +57,11 @@ a submission in flight waits on a `concurrent.futures.Future`.
 `/generate` calls the engine's blocking `generate`; the engine's
 scheduler is its own thread.
 
-Fault seams (`core/fault_injection.py`, JAX :274, :472, :512):
+Fault seams (`core/fault_injection.py`, JAX :274, :472, :512, :690, :988):
 `server.generate` before the idempotency table and the engine,
-`server.weights.stage` per received frame and `server.weights.commit`
-before `_ctl_lock` is taken. A raised `InjectedFault` answers 500, which
+`server.weights.stage` per received frame, `server.weights.commit`
+before `_ctl_lock` is taken, `kv.migrate.send` before each frame a drain
+sends and `kv.migrate.recv` (fire and tear) per frame received. A raised `InjectedFault` answers 500, which
 the client retries; a delay sleeps only the handler's own thread.
 
 Run one with `python -m areal_tpu_torch.launcher.decode_server
@@ -70,6 +82,7 @@ import dataclasses
 import json
 import os
 import signal
+import socket
 import socketserver
 import threading
 import time
@@ -98,13 +111,10 @@ _GCONFIG_FIELDS = {f.name for f in dataclasses.fields(GenerationHyperparameters)
 
 # routes of features still to port, and their ROADMAP.md queue 1 items
 _UNPORTED = {
-    "/prefill": "item 3.4, the prefill role and session migration",
-    "/kv_recv": "item 3.4, session migration",
-    "/kv_commit": "item 3.4, session migration",
-    "/kv_fetch": "item 4, the fleet KV fabric",
-    "/warm_start": "item 4, the fleet KV fabric",
-    "/drain": "item 4, the fleet supervisor",
-    "/set_role": "item 4, the prefill/decode roles",
+    "/prefill": "item 3.4, the prefill role",
+    "/kv_fetch": "item 4.4, the fleet KV fabric",
+    "/warm_start": "item 4.4, the fleet KV fabric",
+    "/set_role": "item 4.3, the prefill/decode roles",
 }
 
 
@@ -113,11 +123,15 @@ def _parse_gconfig(d: dict[str, Any]) -> GenerationHyperparameters:
 
 
 class _Reply(Exception):
-    """A non-200 JSON answer."""
+    """A non-200 JSON answer: {"status": "error", "message"} unless `body`
+    is given, with extra `headers` (the router's 429 and Retry-After)."""
 
-    def __init__(self, status: int, message: str):
+    def __init__(self, status: int, message: str, body: dict | None = None,
+                 headers: dict[str, str] | None = None):
         super().__init__(message)
         self.status = status
+        self.body = body if body is not None else {"status": "error", "message": message}
+        self.headers = headers or {}
 
 
 class DecodeServer:
@@ -165,6 +179,20 @@ class DecodeServer:
         self._idem: OrderedDict[str, dict[str, Any]] = OrderedDict()  # guarded-by: _idem_lock
         self._idem_hits = 0  # guarded-by: _idem_lock
         self._idem_lock = threading.Lock()
+        # session migration (JAX :172-198): inbound frames staged per xid
+        # (a replay's duplicate frames merge), finished commits per xid (a
+        # replayed commit answers from here and never imports twice), the
+        # server's own counters, and the drain in progress, whose result a
+        # concurrent /drain replays
+        self._kv_staging: OrderedDict[str, dict[str, Any]] = OrderedDict()  # guarded-by: _kv_lock
+        self._kv_done: OrderedDict[str, dict[str, Any]] = OrderedDict()  # guarded-by: _kv_lock
+        self._migrate_stats = dict(  # guarded-by: _kv_lock
+            out_sessions=0, out_bytes=0, out_failures=0, in_frames=0, in_commits=0,
+            commit_dedups=0, transfer_secs=0.0,
+        )
+        self._kv_lock = threading.Lock()
+        self._drain_inflight: concurrent.futures.Future | None = None  # guarded-by: _drain_lock
+        self._drain_lock = threading.Lock()
 
     # -- routes ---------------------------------------------------------
     def handle(self, method: str, path: str, query: dict, body: bytearray) -> dict:
@@ -181,6 +209,9 @@ class DecodeServer:
             ("POST", "/commit_weights"): self._commit_weights,
             ("POST", "/abort_weights"): self._abort_weights,
             ("POST", "/set_version"): self._set_version,
+            ("POST", "/kv_recv"): self._kv_recv,
+            ("POST", "/kv_commit"): self._kv_commit,
+            ("POST", "/drain"): self._drain,
         }
         if path in _UNPORTED:
             raise _Reply(501, f"{path} is not in the PyTorch port yet: ROADMAP.md queue 1, "
@@ -241,6 +272,11 @@ class DecodeServer:
         with self._idem_lock:
             out["idem_entries"] = len(self._idem)
             out["idem_hits_total"] = self._idem_hits
+        # the server's side of migration; the engine's kv_migrated_* keys
+        # sit beside it at the top level
+        with self._kv_lock:
+            out["kv_migrate"] = dict(self._migrate_stats, staging_xids=len(self._kv_staging),
+                                     done_xids=len(self._kv_done))
         return out
 
     def _prune_idem_locked(self) -> None:
@@ -447,32 +483,235 @@ class DecodeServer:
                 self._sync_stats["aborted_pushes"] += 1
         return {"status": "ok", "dropped": dropped}
 
+    # -- session migration (JAX :617-760, :976-1162) ---------------------
+    # The transfer has the weight push's shape: frames -> staging -> one
+    # commit. A sender's recovery is to replay the whole session under the
+    # same xid: duplicate frames merge, the commit deduplicates, and the
+    # session lands once.
+    _MIGRATE_TIMEOUT_S = 60.0
+    _KV_STAGING_MAX = 64
+    _KV_DONE_MAX = 1024
+
+    def _prune_kv_maps_locked(self) -> None:
+        now = time.monotonic()
+        ttl = self.config.idempotency_ttl_s
+        for xid in list(self._kv_done):
+            if now - self._kv_done[xid]["t"] > ttl:
+                del self._kv_done[xid]
+        while len(self._kv_done) > self._KV_DONE_MAX:
+            self._kv_done.popitem(last=False)
+        # staging whose frames stopped is a sender that died: its replay
+        # (same xid) starts again from empty staging
+        for xid in list(self._kv_staging):
+            if now - self._kv_staging[xid]["last_t"] > ttl:
+                del self._kv_staging[xid]
+        while len(self._kv_staging) > self._KV_STAGING_MAX:
+            victim, _ = self._kv_staging.popitem(last=False)
+            logger.warning(f"kv staging {victim} dropped (map full)")
+
+    def _stream_kv(self, target: str, sess: dict[str, Any], rid: str, xid: str,
+                   retries: int = 2) -> dict[str, Any] | None:
+        """Send one exported session to `target` under delivery id `xid`
+        (frames to /kv_recv, then /kv_commit), replaying the whole stream
+        up to `retries` times; None when every attempt failed (the session
+        then re-prefills where it resumes)."""
+        from areal_tpu_torch.core.weight_transfer import pack_kv_session
+        from areal_tpu_torch.utils.http import request_with_retry
+
+        frames = list(pack_kv_session(sess["meta"], sess.get("k"), sess.get("v"),
+                                      ks=sess.get("ks"), vs=sess.get("vs"),
+                                      chunk_mb=self.config.kv_migrate_chunk_mb))
+        nbytes = sum(len(f) for f in frames)
+        t0 = time.monotonic()
+        last: Exception | None = None
+        for attempt in range(retries + 1):
+            try:
+                for frame in frames:
+                    # an abort is the sender dying mid-stream: the replay
+                    # (same xid) must land the session once
+                    fault_injection.fire("kv.migrate.send", rid=rid, xid=xid, target=target,
+                                         attempt=attempt)
+                    request_with_retry(target, f"/kv_recv?xid={xid}", data=frame,
+                                       max_retries=2, timeout=self._MIGRATE_TIMEOUT_S)
+                out = request_with_retry(target, "/kv_commit", payload={"xid": xid, "rid": rid},
+                                         max_retries=2, timeout=self._MIGRATE_TIMEOUT_S)
+                dt = time.monotonic() - t0
+                with self._kv_lock:
+                    self._migrate_stats["out_sessions"] += 1
+                    self._migrate_stats["out_bytes"] += nbytes
+                    self._migrate_stats["transfer_secs"] += dt
+                return {"bytes": nbytes, "secs": dt, "commit": out}
+            except Exception as e:  # noqa: BLE001 — replay, then degrade
+                last = e
+                if attempt < retries:
+                    logger.warning(f"kv migration of {rid} to {target} failed ({e!r}); "
+                                   f"replaying under xid {xid}")
+        with self._kv_lock:
+            self._migrate_stats["out_failures"] += 1
+        logger.warning(f"kv migration of {rid} to {target} abandoned ({last!r}); the "
+                       "session resumes with a re-prefill")
+        return None
+
+    def _migrate_session_out(self, target: str, rid: str, xid: str,
+                             retries: int = 2) -> dict[str, Any] | None:
+        """Export `rid` (it leaves this engine) and stream it to `target`.
+        The replay budget is two whole streams under the same xid: a sender
+        death and a torn frame are independent failures, and two of them
+        on one session must not downgrade it to a re-prefill."""
+        sess = self.engine.export_session(rid)
+        if sess is None:
+            return None
+        return self._stream_kv(target, sess, rid, xid, retries=retries)
+
+    def _kv_recv(self, query, body) -> dict:
+        """Stage one inbound KV frame under its migration xid."""
+        xid = (query.get("xid") or [""])[0]
+        if not xid:
+            raise _Reply(400, "xid required")
+        # an abort is the receiver dying with the frame in hand; a torn
+        # frame fails the manifest check before a byte stages (500), and
+        # the sender's frame retry sends it again
+        fault_injection.fire("kv.migrate.recv", xid=xid, addr=str(self.addr or ""))
+        payload = fault_injection.tear("kv.migrate.recv", body, xid=xid)
+        from areal_tpu_torch.core.weight_transfer import WeightStaging
+
+        with self._kv_lock:
+            if xid in self._kv_done:
+                # a straggler of a committed migration: the commit's
+                # replay answers from the dedup table
+                return {"status": "ok", "staged": 0}
+            ent = self._kv_staging.get(xid)
+            if ent is None:
+                ent = self._kv_staging[xid] = {"staging": WeightStaging(),
+                                               "t0": time.monotonic()}
+            ent["last_t"] = time.monotonic()
+            try:
+                ent["staging"].add_bucket(payload)
+            except ValueError as e:  # a torn frame
+                raise _Reply(500, str(e)) from None
+            self._migrate_stats["in_frames"] += 1
+            staged = len(ent["staging"])
+            self._prune_kv_maps_locked()
+        return {"status": "ok", "staged": staged}
+
+    def _kv_commit(self, query, body) -> dict:
+        """Finalize and import a staged migration; idempotent per xid."""
+        from areal_tpu_torch.core.weight_transfer import unpack_kv_sessions
+
+        xid = str(self._json(body).get("xid") or "")
+        with self._kv_lock:
+            done = self._kv_done.get(xid)
+            if done is not None:
+                # the sender lost the answer and replayed: never import twice
+                self._kv_done.move_to_end(xid)
+                self._migrate_stats["commit_dedups"] += 1
+                return {**done["resp"], "dedup": True}
+            ent = self._kv_staging.get(xid)
+            if ent is None:
+                raise _Reply(400, f"no staged kv for {xid!r}")
+            try:
+                sessions = unpack_kv_sessions(ent["staging"].finalize())
+                if not sessions:
+                    raise ValueError("no complete kv session staged")
+            except (RuntimeError, ValueError) as e:
+                # incomplete or malformed: the staging stays for the
+                # sender's replay to top up and commit again
+                raise _Reply(400, str(e)) from None
+            del self._kv_staging[xid]
+            t0 = time.monotonic()
+            counts = dict(ok=0, stale_version=0, kv_dtype_mismatch=0, rejected=0)
+            rids = []
+            for meta, k, v, scales in sessions:
+                ks, vs = scales if scales is not None else (None, None)
+                verdict = self.engine.import_session(meta, k, v, ks, vs)
+                counts[verdict] = counts.get(verdict, 0) + 1
+                if verdict == "ok":
+                    rids.append(meta["rid"])
+            resp = {"status": "ok", "imported": counts["ok"],
+                    "stale_version": counts["stale_version"],
+                    "kv_dtype_mismatch": counts["kv_dtype_mismatch"],
+                    "rejected": counts["rejected"], "rids": rids}
+            self._kv_done[xid] = {"resp": resp, "t": time.monotonic()}
+            self._migrate_stats["in_commits"] += 1
+            self._migrate_stats["transfer_secs"] += time.monotonic() - t0
+            self._prune_kv_maps_locked()
+        return resp
+
+    def _drain(self, query, body) -> dict:
+        """Stream every resumable session to `targets` (a scale-down or a
+        replace): running requests end "interrupt" with their KV parked,
+        and each parked or host-tier session is exported and committed on
+        a target, where its resume is a promotion with no prefill.
+
+        Drains are serialized: a /drain that arrives while one runs waits
+        for it and replays its result, so no session is exported twice."""
+        req = self._json(body)
+        targets = [t for t in req.get("targets") or [] if t and t != self.addr]
+        if not targets:
+            raise _Reply(400, "targets required")
+        with self._drain_lock:
+            fut = self._drain_inflight
+            owner = fut is None or fut.done()
+            if owner:
+                fut = self._drain_inflight = concurrent.futures.Future()
+        if not owner:
+            resp, status = fut.result()
+            if status != 200:
+                raise _Reply(status, resp["message"])
+            return dict(resp, dedup="in_progress")
+        try:
+            resp, status = self._drain_once(req, targets), 200
+        except Exception as e:  # noqa: BLE001 — the waiters need a result
+            logger.error(f"/drain failed:\n{traceback.format_exc()}")
+            resp, status = {"status": "error", "message": repr(e)}, 500
+        fut.set_result((resp, status))
+        if status != 200:
+            raise _Reply(status, resp["message"])
+        return resp
+
+    def _drain_once(self, req: dict[str, Any], targets: list[str]) -> dict[str, Any]:
+        import uuid
+
+        # the whole drain holds _ctl_lock with generation paused, so a
+        # client's resume that reaches this server meanwhile waits in the
+        # queue and cannot take back a session before it is exported (the
+        # JAX server resumes generation before it exports, and such a
+        # resume wins the session there)
+        with self._ctl_lock:
+            self.engine.pause_generation()
+            try:
+                aborted = self.engine.abort_all() if req.get("abort_active", True) else 0
+                rids = self.engine.list_exportable_sessions()
+                drained = failed = total = 0
+                for i, rid in enumerate(rids):
+                    moved = self._migrate_session_out(targets[i % len(targets)], rid,
+                                                      f"drain-{uuid.uuid4().hex[:12]}")
+                    if moved is None:
+                        failed += 1
+                    else:
+                        drained += 1
+                        total += moved["bytes"]
+            finally:
+                if not self._client_paused:
+                    self.engine.continue_generation()
+        return {"status": "ok", "aborted": aborted, "sessions": len(rids),
+                "drained": drained, "failed": failed, "meta_only": 0, "bytes": total}
+
     # -- lifecycle ------------------------------------------------------
     def start(self, host: str = "0.0.0.0", port: int = 0) -> str:
         """Initialize an engine this server built, then listen; returns
         the address ("ip:port") clients reach it at."""
         if self._owns_engine:
             self.engine.initialize()
-        app = self
-
-        class Handler(_Handler):
-            server_app = app
-
-        self._httpd = _Server((host, port), Handler)
-        actual_port = self._httpd.server_address[1]
-        ip = gethostip() if host in ("0.0.0.0", "::", "") else host
-        self.addr = f"{ip}:{actual_port}"
-        self._serve_thread = threading.Thread(
-            target=self._httpd.serve_forever, kwargs=dict(poll_interval=0.2), daemon=True,
-            name="decode-server-http",
-        )
-        self._serve_thread.start()
+        self._httpd, self._serve_thread, self.addr = serve_app(self, host, port,
+                                                               "decode-server-http")
         logger.info(f"decode server listening on {self.addr}")
         return self.addr
 
     def stop(self) -> None:
         if self._httpd is not None:
             self._httpd.shutdown()
+            self._httpd.close_connections()
             self._httpd.server_close()
             self._httpd = None
         if self._serve_thread is not None:
@@ -488,8 +727,51 @@ class DecodeServer:
                          keepalive_ttl=None, replace=True)
 
 
+def serve_app(app: Any, host: str, port: int, name: str
+              ) -> tuple[ThreadingHTTPServer, threading.Thread, str]:
+    """Listen for `app` (an object with `handle(method, path, query,
+    body)`) on a daemon thread: (the server, its thread, "ip:port")."""
+
+    class Handler(_Handler):
+        server_app = app
+
+    httpd = _Server((host, port), Handler)
+    ip = gethostip() if host in ("0.0.0.0", "::", "") else host
+    thread = threading.Thread(target=httpd.serve_forever, kwargs=dict(poll_interval=0.2),
+                              daemon=True, name=name)
+    thread.start()
+    return httpd, thread, f"{ip}:{httpd.server_address[1]}"
+
+
 class _Server(ThreadingHTTPServer):
+    """Keeps its open connections, so that a stopped server closes its
+    kept-alive ones too instead of serving them on."""
+
     daemon_threads = True
+
+    def __init__(self, *args, **kwargs):
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
+        super().__init__(*args, **kwargs)
+
+    def process_request(self, request, client_address) -> None:
+        with self._conns_lock:
+            self._conns.add(request)
+        super().process_request(request, client_address)
+
+    def shutdown_request(self, request) -> None:
+        with self._conns_lock:
+            self._conns.discard(request)
+        super().shutdown_request(request)
+
+    def close_connections(self) -> None:
+        with self._conns_lock:
+            conns = list(self._conns)
+        for c in conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
 
     def server_bind(self) -> None:
         # HTTPServer.server_bind looks the bound address up in the
@@ -502,10 +784,13 @@ class _Server(ThreadingHTTPServer):
 
 
 class _Handler(BaseHTTPRequestHandler):
+    """JSON over HTTP/1.1 for an app with `handle(method, path, query,
+    body)`: the decode server, the router and the supervisor."""
+
     protocol_version = "HTTP/1.1"
     # the reply's headers and body go out in two writes
     disable_nagle_algorithm = True
-    server_app: DecodeServer
+    server_app: Any
 
     def log_message(self, format: str, *args) -> None:
         logger.debug(format % args)
@@ -529,6 +814,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _dispatch(self, method: str) -> None:
         url = urllib.parse.urlsplit(self.path)
+        headers: dict[str, str] = {}
         if self.headers.get("Transfer-Encoding", "").lower() == "chunked":
             status, out = 411, {"status": "error", "message": "send a Content-Length"}
             self.close_connection = True
@@ -538,7 +824,7 @@ class _Handler(BaseHTTPRequestHandler):
                 out, status = self.server_app.handle(
                     method, url.path, urllib.parse.parse_qs(url.query), body), 200
             except _Reply as e:
-                status, out = e.status, {"status": "error", "message": str(e)}
+                status, out, headers = e.status, e.body, e.headers
             except Exception as e:  # noqa: BLE001 — the server keeps serving
                 logger.error(f"{method} {url.path} failed:\n{traceback.format_exc()}")
                 status, out = 500, {"status": "error", "message": f"{type(e).__name__}: {e}"}
@@ -547,6 +833,8 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_response(status)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(data)))
+            for k, v in headers.items():
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(data)
         except ConnectionError as e:
@@ -645,7 +933,7 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--role", default="unified", choices=["unified", "prefill", "decode"],
                    help="disaggregated fleet role; the port serves 'unified' "
-                        "(ROADMAP.md queue 1, item 4)")
+                        "(ROADMAP.md queue 1, item 4.3)")
     p.add_argument("--kv-migrate-chunk-mb", type=float, default=64.0)
     p.add_argument("--kv-import-pool-mb", type=float, default=256.0)
     p.add_argument("--context-length", type=int, default=32768)

@@ -19,8 +19,12 @@ times when `recover.mode` is "auto" or "fault". Offline sentinel models
 
     python -m areal_tpu_torch.launcher.local entry.py --config cfg.yaml [k=v ...]
 
-More than one server or device is ROADMAP.md queue 1, item 5 (refused by
-`api/alloc_mode.py`); the fleet supervisor and router, item 4.
+More than one server or device in one allocation is ROADMAP.md queue 1,
+item 5 (refused by `api/alloc_mode.py`). A fleet of servers on one host is
+the supervisor's (`launcher/supervisor.py`): `spawn_decode_server` is its
+`spawn_fn` seam, one decode-server subprocess that registers itself and a
+`DecodeServerHandle` to kill it; the router (`launcher/router.py`) finds
+the servers through name_resolve.
 """
 
 from __future__ import annotations
@@ -44,6 +48,24 @@ RECOVER_TIME_INTERVAL = 10.0
 # the directory that holds the `areal_tpu_torch` package: on every job's
 # PYTHONPATH, so an entry point given as a file path imports the package
 _PACKAGE_ROOT = str(Path(__file__).resolve().parents[2])
+
+
+class DecodeServerHandle:
+    """A launched decode server as the supervisor sees it (JAX :41-57): the
+    address it registered under, and a kill that ends its process tree and
+    drops it from the launcher's jobs (a kill the supervisor asked for is
+    not a failure)."""
+
+    def __init__(self, launcher: "LocalLauncher", job: JobInfo, addr: str):
+        self._launcher = launcher
+        self.job = job
+        self.addr = addr
+
+    def kill(self) -> None:
+        if self.job.proc is not None:
+            kill_process_tree(self.job.proc)
+        if self.job in self._launcher.jobs:
+            self._launcher.jobs.remove(self.job)
 
 
 class LocalLauncher:
@@ -93,22 +115,28 @@ class LocalLauncher:
         ] + (extra_args or [])
         return self.submit(f"decode_server_{server_idx}", cmd, env=env)
 
-    def spawn_decode_server(self, *, model_path: str, extra_args: list[str] | None = None,
+    def spawn_decode_server(self, role: str = "unified", *, model_path: str,
+                            extra_args: list[str] | None = None,
                             env: dict[str, str] | None = None,
-                            timeout: float = 300.0) -> tuple[JobInfo, str]:
-        """Start one decode server and block until it has registered;
-        returns (its job, its address). A server that fails or does not
-        register in `timeout` is reaped and raises JobFailure."""
+                            timeout: float = 300.0) -> DecodeServerHandle:
+        """Start one decode server in `role` and block until it has
+        registered (JAX :139-196; the supervisor's `spawn_fn`). A server
+        that fails or does not register in `timeout` is reaped and raises
+        a recoverable JobFailure, which the supervisor's backoff and crash
+        loop own."""
         port = find_free_ports(1)[0]
         addr = f"{gethostip()}:{port}"
+        args = list(extra_args or [])
+        if role != "unified":
+            args += ["--role", role]
         job = self.submit_decode_server(len(self.jobs), model_path, port=port,
-                                        extra_args=extra_args, env=env)
+                                        extra_args=args, env=env)
         key = names.gen_server(self.experiment_name, self.trial_name, addr)
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline and job.state is not JobState.FAILED:
             try:
                 if name_resolve.get(key) == addr:
-                    return job, addr
+                    return DecodeServerHandle(self, job, addr)
             except name_resolve.NameEntryNotFoundError:
                 pass
             time.sleep(0.5)

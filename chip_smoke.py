@@ -48,7 +48,7 @@ point on `arith_grpo_multiturn_smoke.yaml` and at Qwen2.5-1.5B, its retries
 served from the decode engine's prefix registry. Last, checkpoints from
 local paths: a Qwen2.5-1.5B checkpoint written sharded in bf16 by the
 port's own writer, read back bit for bit by the GRPO entry point's actor
-and its frozen KL reference policy (3 steps on the countdown dataset), by
+and its frozen KL reference policy (2 steps on the countdown dataset), by
 the offline evaluator (`areal_tpu_torch/evaluation/eval_and_aggregate.py`)
 and by a decode server started with `--model-path`, whose greedy tokens
 must equal an in-process engine's. Last, code and tool RL: the TIR entry
@@ -63,23 +63,31 @@ five of those runs, and last the fault-injection harness
 (`areal_tpu_torch/core/fault_injection.py`) on the GRPO path's kernels:
 a colocated GRPO loop killed at four seams in turn (each trainer's
 successor its resume) and past a torn checkpoint, resumed bit-equal to an
-unfaulted oracle with every sample trained once, and two decode servers in this process under a four-mode fault
-plan with every request served once, then a weight push whose commit
-fails. Then the host KV tier, the gather paths and fp pools in another
-dtype, on the serve cell's weights: at 14 of its 28 layers, 16 requests
+unfaulted oracle with every sample trained once. Then the host KV tier, the gather paths and fp pools in another
+dtype, on the serve cell's weights at 4 of its 28 layers: 16 requests
 parked, evicted to pinned host memory by a filler wave and promoted back
 with no prefill, their streams bit-equal to a never-evicted engine's,
 and the same requests under pool pressure, preempted slots offloaded and
-promoted; at 4 layers, a planted promotion fault that costs one prefill,
+promoted; a planted promotion fault that costs one prefill,
 an int8 pool's blocks through the tier, and the workspace layout and the
 paged gather path bit-equal to each other and beside the kernels; and
 Qwen2.5-1.5B (4 layers) with bf16 weights over an f32 pool and f32
 weights over a bf16 pool, on K3's and K4's mixed-dtype variants, which
-the kernel phase holds against their plain versions first. The PPO, multi-turn, checkpoint, decoupled and TIR runs trace
+the kernel phase holds against their plain versions first. Last, the
+decode fleet on one card at Qwen2.5-1.5B's widths: port decode servers
+in this process behind the port's router and supervisor, a remote
+client routing GRPO groups through the router (streams equal to one
+engine's), the fault-injection plan of two servers through the router
+with a weight push whose commit fails, a drain-first scale-down under
+traffic whose resumes are promotions on the survivor, and planted
+supervisor transitions (a replace, a crash loop, a rollback, a replayed
+migration). The PPO, multi-turn, checkpoint, decoupled and TIR runs trace
 their last train step through the train engine's own trace window
 (`AREAL_TPU_XPROF_DIR`). The decoupled, PPO, multi-turn, checkpoint and
-TIR (t1, t2) runs, the train phase and the SFT entry point at
-Qwen2.5-1.5B take 4 of its 28 layers, and the chaos phase 1, so that the script keeps within its time
+TIR (t1, t2) runs, the train phase, the SFT entry point and the fleet at
+Qwen2.5-1.5B take 4 of its 28 layers, and the chaos phase 1, and the
+GRPO, decoupled, PPO and checkpoint runs at Qwen2.5-1.5B 2 steps, so
+that the script keeps within its time
 limit; each phase's seconds are printed. It checks that the
 kernels really carried each path. Each phase prints one JSON line; then
 come the `kernels` line, the card's name and power limit, and last
@@ -132,6 +140,10 @@ runs only the tir phase (after the device and build phases).
 
 runs only the mixed-dtype kernel checks and the kv_tier phase (after the
 device and build phases), on the serve cell's weights made anew.
+
+    python3 chip_smoke.py --fleet
+
+runs only the fleet phase (after the device and build phases).
 
     python3 chip_smoke.py --qmm-sweep
 
@@ -3048,7 +3060,9 @@ LEARN_OVERRIDES = [
     "evaluator.freq_steps=null",
 ]
 LEARN_LR = 3e-2
-FULL_STEPS = 3
+# 2 of the 3 steps PR 10-18 ran (a reduction for the time budget, PERF.md
+# section 4): the async overlap, the lag and the traced last step stay
+FULL_STEPS = 2
 FULL_OVERRIDES = [
     "train_dataset.batch_size=8", "gconfig.n_samples=4", "gconfig.max_new_tokens=256",
     "rollout.consumer_batch_size=8", "decode.context_length=512",
@@ -3466,8 +3480,8 @@ def phase_grpo_loop(dev: torch.device) -> dict:
         reward of the last 3 steps is above 0.9 and 0.05 above that of the
         first 3, and an lr=0 control run fails that check;
     (c) Qwen2.5-1.5B at its published widths and depth, bf16, random
-        weights, with the train phase's reward: 3 steps of 8 prompts x 4
-        samples, 256 new tokens, async (no recovery point: the sft and
+        weights, with the train phase's reward: `FULL_STEPS` steps of 8
+        prompts x 4 samples, 256 new tokens, async (no recovery point: the sft and
         grpo_recover phases dump and resume one).
 
     In every run K3 launches L per decode step and K1/K2a/K2b L per
@@ -4017,11 +4031,12 @@ def _decoupled_loop(dev, root: str) -> dict:
     name_resolve.reconfigure(config.cluster.name_resolve)
     launcher = local.LocalLauncher(config.experiment_name, config.trial_name, root)
     t_spawn = time.perf_counter()
-    job, addr = launcher.spawn_decode_server(
+    handle = launcher.spawn_decode_server(
         model_path=config.tokenizer_path,
         extra_args=local._server_args(config, dev) + [
             "--scratch-model", _scratch_model_json(full_cfg)],
         env=name_resolve.to_env(config.cluster.name_resolve), timeout=SERVER_TIMEOUT)
+    job, addr = handle.job, handle.addr
     spawn_s = time.perf_counter() - t_spawn
     try:
         m0 = _server_get(addr, "/metrics")["kernel_launches"]
@@ -4366,8 +4381,8 @@ def phase_ppo(dev: torch.device) -> dict:
          CUT_LAYERS, for both the actor
          and the critic (a value head in place of the tied LM head), bf16,
          random weights, with the colocated decode engine, on loop cell
-         (c)'s traffic and the train phase's reward: 3 steps of 8 prompts x
-         4 samples, 256 new tokens, 32 slots, context 512, 128-step chunks,
+         (c)'s traffic and the train phase's reward: `FULL_STEPS` steps of 8
+         prompts x 4 samples, 256 new tokens, 32 slots, context 512, 128-step chunks,
          remat, `ppo_n_minibatches` 2 for each engine.
 
     Each run: K3 = decode steps x L; K1/K2a/K2b on `_flash_want` over both
@@ -4799,8 +4814,9 @@ def _hf_serve(dev, ckpt: str, root: str) -> dict:
     for k, v in HF_SERVE.items():
         args += [f"--{k.replace('_', '-')}", str(v)]
     t0 = time.perf_counter()
-    job, addr = launcher.spawn_decode_server(model_path=ckpt, extra_args=args,
-                                             env=name_resolve.to_env(nr), timeout=SERVER_TIMEOUT)
+    handle = launcher.spawn_decode_server(model_path=ckpt, extra_args=args,
+                                          env=name_resolve.to_env(nr), timeout=SERVER_TIMEOUT)
+    job, addr = handle.job, handle.addr
     spawn_s = time.perf_counter() - t0
     try:
         # ---- the main path (the server's counts start at 0) ----
@@ -4851,7 +4867,8 @@ def phase_hf_path(dev: torch.device) -> dict:
          written by the port's own writer in 2 shards with an index;
     (h1) the GRPO entry point on it, colocated, under loop cell (c)'s
          settings on the countdown dataset, with `actor.path` and
-         `ref.path` at the checkpoint and `actor.kl_ctl` 0.05, 3 steps:
+         `ref.path` at the checkpoint and `actor.kl_ctl` 0.05, `FULL_STEPS`
+         steps:
          both engines load it with the written tensors' bit sums (the
          reference without an optimizer), step 0's reference logprobs
          equal the actor's within the bf16 logprob tolerances, the
@@ -5729,8 +5746,11 @@ CHAOS_DECODE = dict(max_running_requests=16, context_length=256, page_size=128,
 CHAOS_LAYERS = 1
 CHAOS_LR = 1e-3
 # (x2) fleet chaos: two in-process servers, 8 greedy requests
+# one prefill a pass: a prompt's KV is the same bytes whether it was
+# prefilled beside others or alone, so the probes around the failed
+# commit fork from donors whose rows any admission order gives alike
 CHAOS_SERVE = dict(max_running_requests=8, context_length=256, page_size=128,
-                   new_tokens_per_chunk=32)
+                   new_tokens_per_chunk=32, max_prefill_tokens=64)
 CHAOS_REQUESTS = 8
 CHAOS_PROMPT_LEN = (16, 48)  # under a page: no prefix reuse between passes
 CHAOS_MAX_NEW = 32
@@ -6136,23 +6156,29 @@ def _served_counts(addrs: list[str]) -> dict:
 
 
 def chaos_fleet(dev, cfg) -> dict:
-    """(x2): `tests/test_chaos.py`'s chaos smoke without the router. Two
-    port `DecodeServer`s in this process, each over a `TorchDecodeEngine`
-    on the card with the same weights; a `RemoteInfEngine` sends 8 greedy
-    requests fault-free, then again under a plan of a `client.http.send`
-    abort, a `client.http.recv` error after effect, a torn
-    `client.http.body` and a `server.generate` delay. Checks: 0 lost,
+    """(f2): `tests/test_chaos.py`'s chaos smoke through the router
+    (:521-605). Two port `DecodeServer`s in this process, each over a
+    `TorchDecodeEngine` on the card with the same weights, behind the
+    port's `DecodeRouter`, which a `RemoteInfEngine` finds through
+    name_resolve; the client sends 8 greedy requests fault-free, then again
+    under a plan of a `client.http.send` abort, a `client.http.recv` error
+    after effect, a torn `client.http.body`, a `server.generate` delay, a
+    `router.schedule` abort of both tries of one request (it falls back to
+    the client's local policy) and a `router.poll` delay. Checks: 0 lost,
     tokens equal to the fault-free pass, one generation per request on the
     servers together (their `/metrics`), at least 2 idempotency hits, all
-    four modes fired. Then a dcn push to one server with a
-    `server.weights.commit` abort: the server keeps its version and its
-    greedy probes; the next push lands version 1, and its probes equal an
-    in-process engine holding the pushed weights."""
+    four modes and both router seams fired. Then a dcn push to one server
+    with a `server.weights.commit` abort: the server keeps its version and
+    its greedy probes; the next push lands version 1, and its probes equal
+    an in-process engine holding the pushed weights."""
+    from areal_tpu_torch.api.cli_args import RouterConfig
     from areal_tpu_torch.core import fault_injection
     from areal_tpu_torch.core.fault_injection import FaultPlan, FaultPoint
     from areal_tpu_torch.core.remote_inf_engine import RemoteInfEngine
     from areal_tpu_torch.engine.torch_engine import TorchTrainEngine
     from areal_tpu_torch.launcher.decode_server import DecodeServer
+    from areal_tpu_torch.launcher.router import DecodeRouter
+    from areal_tpu_torch.utils import name_resolve
     from areal_tpu_torch.utils.http import HttpRequestError
 
     L = cfg.num_hidden_layers
@@ -6161,6 +6187,8 @@ def chaos_fleet(dev, cfg) -> dict:
                              **CHAOS_SERVE)
     engines, servers = [], []
     out: dict = {}
+    name_resolve.reconfigure(NameResolveConfig(type="memory"))
+    router = DecodeRouter("chip-smoke", "chaos", config=RouterConfig(health_poll_interval=0.2))
     try:
         for _ in range(2):
             eng = TorchDecodeEngine(dcfg, device=dev)
@@ -6169,6 +6197,10 @@ def chaos_fleet(dev, cfg) -> dict:
             engines.append(eng)
             servers.append(DecodeServer(dcfg, engine=eng))
         addrs = [s.start("127.0.0.1", 0) for s in servers]
+        for srv in servers:
+            srv.register("chip-smoke", "chaos", srv.addr)
+        router.start("127.0.0.1", 0)
+        _wait_router(router, addrs)
         client = RemoteInfEngine(InferenceEngineConfig(
             experiment_name="chip-smoke", trial_name="chaos", request_timeout=CHAOS_TIMEOUT,
             request_retries=3, fleet_failover_retries=2, setup_timeout=60))
@@ -6189,7 +6221,13 @@ def chaos_fleet(dev, cfg) -> dict:
             FaultPoint(site="client.http.body", mode="torn", at=(2,), times=1,
                        match={"endpoint": "/generate"}),
             FaultPoint(site="server.generate", mode="delay", at=(1,), times=1, delay_s=0.1),
+            # both tries of one request's placement: it falls back to the
+            # client's local policy
+            FaultPoint(site="router.schedule", mode="abort", times=2,
+                       match={"qid": "chaos-r3"}),
+            FaultPoint(site="router.poll", mode="delay", at=(0,), times=1, delay_s=0.2),
         ])
+        ref_routed = router._metrics()["schedules_total"]
         fault_injection.configure(plan)
         t0 = time.perf_counter()
         try:
@@ -6198,6 +6236,11 @@ def chaos_fleet(dev, cfg) -> dict:
             fired = fault_injection.snapshot()
             fault_injection.deactivate()
         chaos_s = time.perf_counter() - t0
+        check(fired.get("router.schedule|abort") == 2 and fired.get("router.poll|delay") == 1
+              and client._router == "", f"router seams: fired {fired}, client router "
+                                        f"{client._router!r}")
+        check(ref_routed == len(prompts), f"the fault-free pass placed {ref_routed} requests "
+                                          f"through the router, want {len(prompts)}")
         c2 = _served_counts(addrs)
         for e in engines:
             e.pause_generation()  # drain the pass in flight before reading K3
@@ -6222,6 +6265,8 @@ def chaos_fleet(dev, cfg) -> dict:
         check(d_chaos["idem_hits"] >= 2, f"{d_chaos['idem_hits']} idempotency hits, want >= 2")
         check({k.split("|")[1] for k in fired} == {"abort", "error_after_effect", "delay",
                                                      "torn"}, f"modes fired: {fired}")
+        out["wave"]["router_schedules"] = dict(fault_free=ref_routed,
+                                               total=router._metrics()["schedules_total"])
         if dev.type == "cuda":
             check(k3 == L * c2["decode_steps"],
                   f"K3 {k3} launches, formula {L} x {c2['decode_steps']} decode steps")
@@ -6287,10 +6332,12 @@ def chaos_fleet(dev, cfg) -> dict:
         trainer.destroy()
     finally:
         fault_injection.deactivate()
+        router.stop()
         for s in servers:
             s.stop()
         for e in engines:
             e.destroy()
+        name_resolve.reconfigure(NameResolveConfig(type="memory"))
     out["launches"] = dict(out["wave"]["launches"])
     return out
 
@@ -6298,22 +6345,18 @@ def chaos_fleet(dev, cfg) -> dict:
 def phase_chaos(dev: torch.device) -> dict:
     """The fault-injection harness on the GRPO path's kernels at
     Qwen2.5-1.5B's widths, `CHAOS_LAYERS` of its 28 layers, bf16, random
-    weights from the seed: (x1) `chaos_train`, (x2) `chaos_fleet`."""
+    weights from the seed: (x1) `chaos_train`. The fleet's chaos, (x2)
+    before the router came, is the fleet phase's (f2)."""
     cfg = dataclasses.replace(QWEN25_1_5B, num_hidden_layers=CHAOS_LAYERS, scan_layers=False,
                               remat=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chaos-") as root:
         train = chaos_train(dev, cfg, root)
     train_s = time.perf_counter() - t0
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    fleet = chaos_fleet(dev, cfg)
-    fleet_s = time.perf_counter() - t1
     launches = dict(train["launches"])
-    launches["paged_attention"] += fleet["launches"]["paged_attention"]
     emit("chaos", model="Qwen2.5-1.5B", source=QWEN25_1_5B_SOURCE,
          cut=f"{CHAOS_LAYERS} of 28 layers", x1_trainer=train, x1_seconds=train_s,
-         x2_fleet=fleet, x2_seconds=fleet_s, launches=launches)
+         launches=launches)
     return dict(launches=launches)
 
 
@@ -6324,6 +6367,548 @@ def chaos_only() -> int:
     out = phase_chaos(dev)
     print(smi, flush=True)
     print(json.dumps({"chaos_launches": out["launches"]}), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phase: fleet — the router, session migration with /drain, the supervisor
+# ---------------------------------------------------------------------------
+
+FLEET_LAYERS = CUT_LAYERS
+# each replica's engine; one prefill per scheduler pass (the first
+# admission always goes through, the budget's floor is one 64-token
+# bucket), so a stream's arithmetic does not depend on what else a pass
+# admitted and a replica's streams equal one engine's token for token
+FLEET_SERVE = dict(max_running_requests=16, context_length=1024, page_size=128,
+                   new_tokens_per_chunk=32, max_prefill_tokens=64, kv_pool_tokens=16384)
+FLEET_GROUPS, FLEET_GROUP_SIZE = 8, 4  # (f1): one qid a group
+FLEET_PROMPT = (64, 256)
+FLEET_F1_NEW = 128
+FLEET_F3_REQUESTS, FLEET_F3_NEW = 16, 256
+FLEET_F4_REQUESTS, FLEET_F4_NEW = 8, 128
+FLEET_EXP = "chip-smoke-fleet"
+FLEET_TIMEOUT = 300
+
+
+def _wait_router(router, addrs: list[str], timeout: float = 60.0) -> None:
+    """Until the router's poll has seen every server of `addrs`."""
+    deadline = time.monotonic() + timeout
+    while True:
+        with router._lock:
+            seen = set(router.servers)
+        if set(addrs) <= seen:
+            return
+        check(time.monotonic() < deadline, f"the router never saw {addrs} (it sees {seen})")
+        time.sleep(0.05)
+
+
+class _FleetReplica:
+    """One in-process replica on the card: a port `DecodeServer` over its
+    own `TorchDecodeEngine`, registered for the router, its served
+    requests logged (rid, input length, whether it completed). `kill` is
+    the supervisor's: the server stops, the engine is destroyed (its
+    requests in flight answer 500), the registration goes."""
+
+    def __init__(self, dev, params, cfg, trial: str, **settings):
+        from areal_tpu_torch.launcher.decode_server import DecodeServer
+
+        dcfg = TorchDecodeConfig(random_seed=SEED, dtype=cfg.dtype, kv_cache_dtype=cfg.dtype,
+                                 **dict(FLEET_SERVE, **settings))
+        self.engine = TorchDecodeEngine(dcfg, device=dev)
+        self.engine.set_model(params, cfg)
+        self.engine.initialize()
+        self.served: list[tuple[str, int, bool]] = []
+        orig = self.engine.generate
+
+        def generate(req, timeout=None):
+            try:
+                resp = orig(req, timeout)
+            except BaseException:
+                self.served.append((req.rid, len(req.input_ids), False))
+                raise
+            self.served.append((req.rid, len(req.input_ids), resp.stop_reason != "interrupt"))
+            return resp
+        self.engine.generate = generate
+        self.server = DecodeServer(dcfg, engine=self.engine)
+        self.addr = self.server.start("127.0.0.1", 0)
+        self.server.register(FLEET_EXP, trial, self.addr)
+        self.killed = False
+
+    def kill(self) -> None:
+        self.killed = True
+        self.server.stop()
+        self.engine.destroy()
+
+    def close(self) -> None:
+        if not self.killed:
+            self.kill()
+
+
+def _fleet_prompts(rng, vocab: int, n: int) -> list[list[int]]:
+    return [rng.integers(1, vocab, int(rng.integers(*FLEET_PROMPT, endpoint=True))).tolist()
+            for _ in range(n)]
+
+
+def _fleet_client(trial: str):
+    from areal_tpu_torch.core.remote_inf_engine import RemoteInfEngine
+
+    return RemoteInfEngine(InferenceEngineConfig(
+        experiment_name=FLEET_EXP, trial_name=trial, request_timeout=FLEET_TIMEOUT,
+        request_retries=3, fleet_failover_retries=3, setup_timeout=60))
+
+
+def _fleet_wave(client, reqs: list[ModelRequest]) -> list:
+    async def go():
+        return await asyncio.gather(*[client.agenerate(r) for r in reqs])
+    return asyncio.run(asyncio.wait_for(go(), FLEET_TIMEOUT))
+
+
+def _fleet_reference(dev, params, cfg, reqs: list[ModelRequest]) -> tuple[list, float]:
+    """The same requests on one in-process engine, never interrupted: the
+    streams and the wall seconds."""
+    eng = _tier_engine(dev, params, cfg, dtype=cfg.dtype, kv_cache_dtype=cfg.dtype,
+                       **FLEET_SERVE)
+    try:
+        async def go():
+            return await asyncio.gather(*[eng.agenerate(r) for r in reqs])
+        t0 = time.perf_counter()
+        out = _streams(asyncio.run(asyncio.wait_for(go(), FLEET_TIMEOUT)))
+        return out, time.perf_counter() - t0
+    finally:
+        eng.destroy()
+
+
+def _drained_replica(replicas):
+    """Wrap each replica's `_drain_once` to record its answer and seconds."""
+    log: list = []
+    for rep in replicas:
+        orig = rep.server._drain_once
+
+        def drain_once(req, targets, orig=orig, rep=rep):
+            t0 = time.perf_counter()
+            out = orig(req, targets)
+            log.append(dict(out, replica=rep.addr, seconds=time.perf_counter() - t0))
+            return out
+        rep.server._drain_once = drain_once
+    return log
+
+
+def _generated(replicas) -> list[int]:
+    return [r.engine.get_metrics()["generated_tokens_total"] for r in replicas]
+
+
+def _mid_stream(replicas, base: list[int], min_tokens: int, running: int = 1,
+                timeout: float = 120.0) -> None:
+    """Until `running` requests run on the replicas together, each replica
+    runs some, and each has emitted `min_tokens` since `base` (its
+    `_generated` count before the traffic)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        ms = [r.engine.get_metrics() for r in replicas]
+        if (sum(m["running_requests"] for m in ms) >= running
+                and all(m["running_requests"] >= 1 and m["generated_tokens_total"] - b
+                        >= min_tokens for m, b in zip(ms, base))):
+            return
+        check(time.monotonic() < deadline, f"traffic never ran on every replica: {ms}")
+        time.sleep(0.02)  # the replicas' schedulers share this process's GIL
+
+
+def _no_spawn(role: str):
+    raise RuntimeError("this leg spawns no replica")
+
+
+def _fleet_f1(dev, params, cfg, router, replicas, client) -> dict:
+    """(f1) routing: 8 prompts x 4 samples, one qid a group, 128 new tokens,
+    greedy, `prefix_affinity` over two servers."""
+    L = cfg.num_hidden_layers
+    rng = np.random.default_rng(SEED + 60)
+    prompts = _fleet_prompts(rng, cfg.vocab_size, FLEET_GROUPS)
+    g = GenerationHyperparameters(max_new_tokens=FLEET_F1_NEW, greedy=True)
+    reqs = [ModelRequest(rid=f"f1-g{i}", input_ids=p, gconfig=g)
+            for i, p in enumerate(prompts) for _ in range(FLEET_GROUP_SIZE)]
+    want, ref_s = _fleet_reference(dev, params, cfg, reqs)
+    latencies: list[float] = []
+    orig = router._schedule_request
+
+    def timed(req):
+        t0 = time.perf_counter()
+        try:
+            return orig(req)
+        finally:
+            latencies.append(time.perf_counter() - t0)
+    router._schedule_request = timed
+    steps0 = [r.engine.decode_steps for r in replicas]
+    # ---- the main path: counts to 0 just before, read just after ----
+    pa.launches = 0
+    t0 = time.perf_counter()
+    got = _streams(_fleet_wave(client, reqs))
+    wall = time.perf_counter() - t0
+    for r in replicas:
+        r.engine.pause_generation()  # drain the pass in flight before reading K3
+        r.engine.continue_generation()
+    k3 = pa.launches
+    # ---- end of the main path ----
+    router._schedule_request = orig
+    steps = sum(r.engine.decode_steps - s for r, s in zip(replicas, steps0))
+    homes = {}
+    for r in replicas:
+        for rid, _, _ in r.served:
+            if rid.startswith("f1-"):
+                homes.setdefault(rid, set()).add(r.addr)
+    per_server = {r.addr: sum(rid.startswith("f1-") for rid, _, _ in r.served) for r in replicas}
+    exact = _exact(got, want, "(f1) routed streams vs one engine's")
+    time.sleep(0.1)  # the clients' last /finish_request
+    m = router._metrics()
+    check(all(len(h) == 1 for h in homes.values()) and len(homes) == FLEET_GROUPS,
+          f"(f1) a group split across servers: {homes}")
+    check(all(n > 0 for n in per_server.values()), f"(f1) a server served nothing: {per_server}")
+    check(m["tracked_qids"] == 0 and sum(m["request_counts"].values()) == 0,
+          f"(f1) the router still holds {m['tracked_qids']} qids, {m['request_counts']}")
+    check(m["schedules_total"] == len(reqs), f"(f1) {m['schedules_total']} placements")
+    if dev.type == "cuda":
+        check(k3 == L * steps, f"(f1) K3 {k3} launches, formula {L} x {steps} decode steps")
+    lat = np.asarray(latencies) * 1e3
+    return dict(requests=len(reqs), groups=FLEET_GROUPS, new_tokens=FLEET_F1_NEW,
+                seconds=wall, reference_s=ref_s, decode_steps=steps, per_server=per_server,
+                against_one_engine=exact,
+                affinity_hits=m["affinity_hits_total"], schedules=m["schedules_total"],
+                schedule_ms=dict(p50=float(np.percentile(lat, 50)),
+                                 p99=float(np.percentile(lat, 99)), n=len(lat)),
+                launches=dict(paged_attention=k3),
+                formula=dict(paged_attention=f"{L} x {steps} decode steps"))
+
+
+def _fleet_f3(dev, params, cfg, router, replicas, client) -> dict:
+    """(f3) drain-first scale-down: 16 greedy requests of 256 new tokens
+    over two servers; a supervisor whose policy plans a scale-down while
+    they run drains the victim to the survivor, then kills it; the
+    clients' resumes fail over through the router."""
+    from areal_tpu_torch.api.cli_args import SupervisorConfig
+    from areal_tpu_torch.launcher.supervisor import FleetSupervisor
+
+    rng = np.random.default_rng(SEED + 61)
+    g = GenerationHyperparameters(max_new_tokens=FLEET_F3_NEW, greedy=True)
+    reqs = [ModelRequest(rid=f"f3-{i}", input_ids=p, gconfig=g)
+            for i, p in enumerate(_fleet_prompts(rng, cfg.vocab_size, FLEET_F3_REQUESTS))]
+    want, ref_s = _fleet_reference(dev, params, cfg, reqs)
+    drains = _drained_replica(replicas)
+    before = {r.addr: r.engine.get_metrics() for r in replicas}
+    # idle at any load (util <= 1.0), never pressured: it plans a scale-down
+    sup = FleetSupervisor(router.addr, _no_spawn, experiment_name=FLEET_EXP, trial_name="f1",
+                          config=SupervisorConfig(min_replicas=1, max_replicas=2,
+                                                  scale_down_util=1.0, scale_up_util=1e9,
+                                                  scale_down_cooldown_s=0.0,
+                                                  tick_interval_s=0.1, drain_deadline_s=120.0))
+    for r in replicas:
+        sup.adopt(r)
+    out: dict = {}
+    t = threading.Thread(target=lambda: out.update(r=_fleet_wave(client, reqs)))
+    t0 = time.perf_counter()
+    base = _generated(replicas)
+    t.start()
+    # most requests admitted (one prefill a pass) and none finished
+    _mid_stream(replicas, base, 2 * FLEET_F3_REQUESTS, running=FLEET_F3_REQUESTS * 3 // 4)
+    t_sup = time.perf_counter()
+    sup.start("127.0.0.1", 0)
+    deadline = time.monotonic() + FLEET_TIMEOUT
+    while sup.get_metrics()["kills_total"] < 1:
+        check(time.monotonic() < deadline, f"(f3) no kill: {sup.get_metrics()}")
+        time.sleep(0.01)
+    transition_s = time.perf_counter() - t_sup
+    t.join(FLEET_TIMEOUT)
+    wall = time.perf_counter() - t0
+    sup.stop()
+    sm = sup.get_metrics()
+    check("r" in out, "(f3) the clients did not finish")
+    victim = next(r for r in replicas if r.killed)
+    survivor = next(r for r in replicas if not r.killed)
+    (drain,) = drains
+    check(drain["replica"] == victim.addr, f"(f3) the drain was on {drain['replica']}")
+    interrupted = {rid for rid, _, done in victim.served if rid.startswith("f3-") and not done}
+    check(drain["drained"] == drain["sessions"] and drain["failed"] == 0,
+          f"(f3) drain {drain}")
+    # one prefill a pass: requests still queued at the drain end with no
+    # session and start afresh elsewhere; those that ran are the sessions
+    check(0 < drain["sessions"] <= len(interrupted),
+          f"(f3) {drain['sessions']} sessions drained, {len(interrupted)} requests cut")
+    check(sm["scale_downs_total"] == 1 and sm["kills_total"] == 1
+          and sm["drain_rollbacks_total"] == 0, f"(f3) supervisor {sm}")
+    sv0, sv1 = before[survivor.addr], survivor.engine.get_metrics()
+    admitted = sum(1 for rid, _, _ in survivor.served if rid.startswith("f3-"))
+    hits = sv1["kv_host_hits_total"] - sv0["kv_host_hits_total"]
+    prefills = sv1["prefills_total"] - sv0["prefills_total"]
+    # every drained session resumed on the survivor as a promotion, and
+    # every other admission there was a request it took fresh
+    check(hits == drain["drained"], f"(f3) {hits} host hits for {drain['drained']} sessions")
+    check(prefills == admitted - hits, f"(f3) survivor prefills {prefills}, admissions "
+                                       f"{admitted}, promotions {hits}")
+    block = sv1["kv_block_nbytes"]
+    moved_in = sv1["kv_migrated_in_bytes_total"] - sv0["kv_migrated_in_bytes_total"]
+    itemsize = torch.empty(0, dtype=getattr(torch, cfg.dtype)).element_size()
+    check(block == 2 * cfg.num_hidden_layers * FLEET_SERVE["page_size"]
+          * cfg.num_key_value_heads * cfg.head_dim_ * itemsize, f"(f3) block bytes {block}")
+    check(moved_in > 0 and moved_in % block == 0
+          and sv1["kv_migrated_in_sessions_total"] - sv0["kv_migrated_in_sessions_total"]
+          == drain["drained"], f"(f3) {moved_in} bytes in, block {block}")
+    stats = victim.server._migrate_stats
+    check(stats["out_sessions"] == drain["drained"] and stats["out_failures"] == 0,
+          f"(f3) victim's migration {stats}")
+    exact = _exact(_streams(out["r"]), want, "(f3) drained streams vs never-interrupted")
+    return dict(requests=len(reqs), new_tokens=FLEET_F3_NEW, seconds=wall,
+                reference_s=ref_s, until_mid_stream_s=t_sup - t0,
+                transition_s=transition_s, drain=drain, victim_migration=dict(stats),
+                migrated_blocks=moved_in // block, block_nbytes=block,
+                migrate_gb_s=(stats["out_bytes"] / stats["transfer_secs"] / 1e9
+                              if stats["transfer_secs"] else None),
+                survivor=dict(admissions=admitted, host_hits=hits, prefills=prefills),
+                supervisor=sm, against_never_interrupted=exact)
+
+
+def _fleet_f4(dev, params, cfg) -> dict:
+    """(f4) planted transitions on a fresh pair: a replace from
+    `supervisor.health` aborts, a crash loop from `supervisor.spawn` aborts,
+    a rollback from a `supervisor.drain` delay, and a `kv.migrate.send`
+    abort replayed under the same xid."""
+    from areal_tpu_torch.api.cli_args import RouterConfig, SupervisorConfig
+    from areal_tpu_torch.core import fault_injection
+    from areal_tpu_torch.core.fault_injection import FaultPlan, FaultPoint
+    from areal_tpu_torch.launcher.router import DecodeRouter
+    from areal_tpu_torch.launcher.supervisor import FleetSupervisor
+    from areal_tpu_torch.utils.http import request_with_retry
+
+    out: dict = {}
+    reps = [_FleetReplica(dev, params, cfg, "f4") for _ in range(2)]
+    spawned: list = []
+    router = DecodeRouter(FLEET_EXP, "f4", config=RouterConfig(
+        schedule_policy="round_robin", health_poll_interval=0.1, dead_after_failures=2))
+    router.start("127.0.0.1", 0)
+    try:
+        _wait_router(router, [r.addr for r in reps])
+        client = _fleet_client("f4")
+        client.addresses = [r.addr for r in reps]
+        rng = np.random.default_rng(SEED + 62)
+        g = GenerationHyperparameters(max_new_tokens=FLEET_F4_NEW, greedy=True)
+        reqs = [ModelRequest(rid=f"f4-{i}", input_ids=p, gconfig=g)
+                for i, p in enumerate(_fleet_prompts(rng, cfg.vocab_size, FLEET_F4_REQUESTS))]
+        want, out["reference_s"] = _fleet_reference(dev, params, cfg, reqs)
+
+        # -- a replace: the victim's health probes abort -------------------
+        def spawn_fn(role):
+            spawned.append(_FleetReplica(dev, params, cfg, "f4"))
+            return spawned[-1]
+
+        sup = FleetSupervisor(router.addr, spawn_fn, experiment_name=FLEET_EXP, trial_name="f4",
+                              config=SupervisorConfig(min_replicas=2, max_replicas=2,
+                                                      health_fail_threshold=2,
+                                                      replace_cooldown_s=0.0,
+                                                      tick_interval_s=0.1))
+        for r in reps:
+            sup.adopt(r)
+        res: dict = {}
+        t = threading.Thread(target=lambda: res.update(r=_fleet_wave(client, reqs)))
+        base = _generated(reps)
+        t.start()
+        _mid_stream(reps, base, 2 * FLEET_F4_REQUESTS)
+        victim = reps[0]
+        fault_injection.configure(FaultPlan(points=[FaultPoint(
+            site="supervisor.health", mode="abort", times=2, match={"target": victim.addr})]))
+        t0 = time.perf_counter()
+        sup.start("127.0.0.1", 0)
+        deadline = time.monotonic() + FLEET_TIMEOUT
+        while not spawned or sup.get_metrics()["fleet_alive"] < 2:
+            check(time.monotonic() < deadline, f"(f4) no replace: {sup.get_metrics()}")
+            time.sleep(0.01)
+        replace_s = time.perf_counter() - t0
+        fired = fault_injection.snapshot()
+        fault_injection.deactivate()
+        t.join(FLEET_TIMEOUT)
+        sup.stop()
+        m = sup.get_metrics()
+        check("r" in res, "(f4) replace: the clients did not finish")
+        check(m["replacements_total"] == 1 and m["kills_total"] == 1 and victim.killed
+              and m["spawn_attempts_total"] == 1 and len(spawned) == 1,
+              f"(f4) replace: {m}, spawned {len(spawned)}")
+        done = collections.Counter(rid for r in reps + spawned for rid, _, ok in r.served
+                                   if ok and rid.startswith("f4-"))
+        check(done == {r.rid: 1 for r in reqs}, f"(f4) completions per request: {done}")
+        exact = _exact(_streams(res["r"]), want, "(f4) replaced replica's requests")
+        rm = router._metrics()
+        cut = sum(1 for rid, _, ok in victim.served if not ok)
+        check(cut > 0, "(f4) the victim held no request when it was killed")
+        # the supervisor deregisters the victim before the kill, so the
+        # router drops it from discovery; the cut requests' retries come
+        # back to the router with requeue=True
+        check(rm["client_requeues_total"] >= cut,
+              f"(f4) {rm['client_requeues_total']} requeues for {cut} cut requests")
+        health = request_with_retry(spawned[0].addr, "/health", method="GET")
+        out["replace"] = dict(fired=fired, seconds=replace_s, supervisor=m, cut_requests=cut,
+                              completions=dict(done), against_never_interrupted=exact,
+                              router=dict(failovers=rm["failovers_total"],
+                                          requeues=rm["requeues_total"],
+                                          client_requeues=rm["client_requeues_total"]),
+                              respawned_health=health["status"])
+        fleet = [reps[1], spawned[0]]
+        _wait_router(router, [r.addr for r in fleet])
+
+        # -- a crash loop: every spawn attempt aborts ----------------------
+        calls: list = []
+        sup = FleetSupervisor(router.addr, lambda role: calls.append(role),
+                              config=SupervisorConfig(min_replicas=2, max_replicas=3,
+                                                      scale_up_util=0.0, spawn_max_attempts=3,
+                                                      spawn_backoff_s=0.05,
+                                                      spawn_backoff_max_s=0.1,
+                                                      scale_up_cooldown_s=0.0))
+        for r in fleet:
+            sup.adopt(r)
+        fault_injection.configure(FaultPlan(points=[FaultPoint(
+            site="supervisor.spawn", mode="abort", times=3)]))
+        t0 = time.perf_counter()
+        extra = 5  # ticks after the crash loop: no further spawn
+        for _ in range(60):
+            sup._tick()
+            for w in list(sup._workers):
+                w.join(30)
+            if sup.get_metrics()["crash_loops_total"]:
+                extra -= 1
+                if extra < 0:
+                    break
+            time.sleep(0.05)
+        crash_s = time.perf_counter() - t0
+        fired = fault_injection.snapshot()
+        fault_injection.deactivate()
+        m = sup.get_metrics()
+        check(m["crash_loops_total"] == 1 and m["spawn_failures_total"] == 3
+              and m["spawn_attempts_total"] == 3 and m["scale_ups_total"] == 1 and not calls,
+              f"(f4) crash loop: {m}, spawn_fn calls {len(calls)}")
+        out["crash_loop"] = dict(fired=fired, supervisor=m, seconds=crash_s)
+
+        # -- a rollback: the drain hangs past its deadline -----------------
+        sup = FleetSupervisor(router.addr, _no_spawn, config=SupervisorConfig(
+            min_replicas=1, max_replicas=2, scale_down_util=1.0, scale_up_util=1e9,
+            scale_down_cooldown_s=600.0, drain_deadline_s=0.5))
+        for r in fleet:
+            sup.adopt(r)
+        fault_injection.configure(FaultPlan(points=[FaultPoint(
+            site="supervisor.drain", mode="delay", at=(0,), times=1, delay_s=1.0)]))
+        sup._tick()
+        for w in list(sup._workers):
+            w.join(30)
+        fired = fault_injection.snapshot()
+        fault_injection.deactivate()
+        m = sup.get_metrics()
+        time.sleep(0.7)  # the hung call ends, and sends nothing
+        probe = request_with_retry(fleet[0].addr, "/generate", payload=dict(
+            input_ids=reqs[0].input_ids, gconfig=dict(max_new_tokens=8, greedy=True)),
+            timeout=60)
+        check(m["drain_rollbacks_total"] == 1 and m["kills_total"] == 0
+              and not any(r.killed for r in fleet) and len(probe["output_tokens"]) == 8,
+              f"(f4) rollback: {m}")
+        check(all(r.server._drain_inflight is None for r in fleet),
+              "(f4) rollback: a drain reached a replica")
+        out["rollback"] = dict(fired=fired, supervisor=m)
+
+        # -- a kv.migrate.send abort inside a drain ------------------------
+        src, dst = fleet
+        res = {}
+        t = threading.Thread(target=lambda: res.update(r=[
+            request_with_retry(src.addr, "/generate", payload=dict(
+                rid=r.rid + "-d", input_ids=r.input_ids,
+                gconfig=dict(max_new_tokens=FLEET_F4_NEW, greedy=True)), timeout=120)
+            for r in reqs[:1]]))
+        base = _generated([src])
+        t.start()
+        _mid_stream([src], base, 4)
+        fault_injection.configure(FaultPlan(points=[FaultPoint(
+            site="kv.migrate.send", mode="abort", at=(0,), times=1)]))
+        dst0 = dst.engine.get_metrics()
+        drain = request_with_retry(src.addr, "/drain", payload=dict(targets=[dst.addr]),
+                                   timeout=120, max_retries=1)
+        fired = fault_injection.snapshot()
+        fault_injection.deactivate()
+        t.join(120)
+        dst1 = dst.engine.get_metrics()
+        dm = request_with_retry(dst.addr, "/metrics", method="GET")
+        check(fired == {"kv.migrate.send|abort": 1} and drain["drained"] == drain["sessions"]
+              and drain["failed"] == 0 and drain["sessions"] >= 1, f"(f4) replay: {drain}, "
+                                                                    f"fired {fired}")
+        landed = dst1["kv_migrated_in_sessions_total"] - dst0["kv_migrated_in_sessions_total"]
+        check(landed == drain["drained"] and dm["kv_migrate"]["commit_dedups"] == 0,
+              f"(f4) replay: {landed} sessions landed for {drain['drained']}")
+        out["migrate_replay"] = dict(fired=fired, drain=drain, landed=landed,
+                                     server=dm["kv_migrate"])
+    finally:
+        fault_injection.deactivate()
+        router.stop()
+        for r in reps + spawned:
+            r.close()
+    return out
+
+
+def phase_fleet(dev: torch.device) -> dict:
+    """The decode fleet on one card (ROADMAP queue 1, item 4.2): Qwen2.5-1.5B
+    at full width, `FLEET_LAYERS` of its 28 layers, bf16, one set of random
+    weights from the seed for every replica; each replica a port
+    `DecodeServer` over a `TorchDecodeEngine` in this process, the port's
+    router and supervisor on loopback, a `RemoteInfEngine` finding the
+    router through name_resolve. (f1) routing, (f2) chaos through the
+    router, (f3) a drain-first scale-down, (f4) planted transitions."""
+    from areal_tpu_torch.api.cli_args import RouterConfig
+    from areal_tpu_torch.launcher.router import DecodeRouter
+    from areal_tpu_torch.utils import name_resolve
+
+    cfg = dataclasses.replace(QWEN25_1_5B, num_hidden_layers=FLEET_LAYERS, scan_layers=False)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 59), dev)
+    name_resolve.reconfigure(NameResolveConfig(type="memory"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs: dict = {}
+    t0 = time.perf_counter()
+    reps = [_FleetReplica(dev, params, cfg, "f1") for _ in range(2)]
+    router = DecodeRouter(FLEET_EXP, "f1", config=RouterConfig(
+        schedule_policy="prefix_affinity", health_poll_interval=0.1, dead_after_failures=2))
+    router.start("127.0.0.1", 0)
+    try:
+        _wait_router(router, [r.addr for r in reps])
+        client = _fleet_client("f1")
+        client.addresses = [r.addr for r in reps]
+        f1 = _fleet_f1(dev, params, cfg, router, reps, client)
+        secs["f1"] = time.perf_counter() - t0
+        emit("fleet_f1", seconds_leg=secs["f1"], **f1)
+        t1 = time.perf_counter()
+        f3 = _fleet_f3(dev, params, cfg, router, reps, client)
+        secs["f3"] = time.perf_counter() - t1
+        emit("fleet_f3", seconds_leg=secs["f3"], **f3)
+    finally:
+        router.stop()
+        for r in reps:
+            r.close()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    f4 = _fleet_f4(dev, params, cfg)
+    secs["f4"] = time.perf_counter() - t2
+    emit("fleet_f4", seconds_leg=secs["f4"], **f4)
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    # (x2)'s own geometry: CHAOS_LAYERS of the 28 layers
+    f2 = chaos_fleet(dev, dataclasses.replace(cfg, num_hidden_layers=CHAOS_LAYERS))
+    secs["f2"] = time.perf_counter() - t3
+    name_resolve.reconfigure(NameResolveConfig(type="memory"))
+    launches = dict(paged_attention=f1["launches"]["paged_attention"]
+                    + f2["launches"]["paged_attention"])
+    emit("fleet", model="Qwen2.5-1.5B", source=QWEN25_1_5B_SOURCE,
+         cut=f"{FLEET_LAYERS} of 28 layers", replica=FLEET_SERVE, f2_chaos=f2, seconds=secs,
+         device_memory_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         launches=launches)
+    del params
+    return dict(launches=launches)
+
+
+def fleet_only() -> int:
+    """`--fleet`: the device and build phases, then the fleet phase alone."""
+    dev, smi = phase_device()
+    phase_build()
+    out = phase_fleet(dev)
+    print(smi, flush=True)
+    print(json.dumps({"fleet_launches": out["launches"]}), flush=True)
     return 0
 
 
@@ -6585,10 +7170,12 @@ KV_TIER_PROMPT = (512, 1024)
 KV_TIER_NEW = 256
 KV_TIER_FILL_PROMPT = (32, 96)
 KV_TIER_FILL_NEW = 16
-# every leg on the serve cell's weights at SERVE_LAYERS of its 28 layers:
-# on an H100 80GB HBM3 at 700 W, with (k1)-(k3) at 28 the phase took
-# 111.2 s, past the script's ~650 s budget
-KV_TIER_LAYERS = SERVE_LAYERS
+# every leg on the serve cell's weights at CUT_LAYERS (4) of its 28 layers
+# since the fleet phase came (at SERVE_LAYERS, 14, the phase took 79.5-118.5
+# s on an H100 80GB HBM3 at 700 W; with (k1)-(k3) at 28, 111.2 s): the
+# checks are per layer and per block (launch formulas, swap bytes by
+# `kv_block_nbytes`, streams bit-equal)
+KV_TIER_LAYERS = CUT_LAYERS
 KV_TIER_INT8_REQUESTS = 8
 KV_TIER_W_REQUESTS = 8
 KV_TIER_W_NEW = 128
@@ -6602,8 +7189,8 @@ STREAM_LOGP_TOL = LOGP_MAX_ABS_DIFF
 
 
 def _tier_requests(rng, vocab: int, n: int, tag: str) -> list[ModelRequest]:
-    """`n` requests, prompts of 512-1024 tokens, 256 new tokens; the first
-    half greedy, the rest at temperature 1.0."""
+    """`n` requests, prompts of 512-1024 tokens, `KV_TIER_NEW` new tokens;
+    the first half greedy, the rest at temperature 1.0."""
     out = []
     for i in range(n):
         ids = rng.integers(0, vocab, int(rng.integers(*KV_TIER_PROMPT, endpoint=True))).tolist()
@@ -7258,6 +7845,9 @@ def main() -> int:
     clock.lap("hbm")
     chaos = phase_chaos(dev)
     clock.lap("chaos")
+    torch.cuda.empty_cache()
+    fleet = phase_fleet(dev)
+    clock.lap("fleet")
     # K1/K2a/K2b run in the GRPO loop, the train phase, both SFT runs, the
     # GRPO recovery runs, the AEnt run, the decoupled trainer, the PPO,
     # reward-model and multi-turn trainers, the GRPO run on a checkpoint
@@ -7288,7 +7878,8 @@ def main() -> int:
                                      hf_path=hf_path["launches"]["paged_attention"],
                                      tir=tir["launches"]["paged_attention"],
                                      chaos=chaos["launches"]["paged_attention"],
-                                     kv_tier=tier["launches"]["paged_attention"])
+                                     kv_tier=tier["launches"]["paged_attention"],
+                                     fleet=fleet["launches"]["paged_attention"])
     paged["launches"] = sum(paged["launches_by_path"].values())
     q8["launches_by_path"] = dict(serve_int8=q_launches["paged_attention_q8"],
                                   serve_spec_int8=s8_launches["paged_attention_q8"],
@@ -7324,5 +7915,5 @@ if __name__ == "__main__":
              "--qmm-times": qmm_times_only, "--qmm-sweep": qmm_sweep_only,
              "--decoupled": decoupled_only, "--trainers": trainers_only,
              "--hf-path": hf_path_only, "--tir": tir_only, "--chaos": chaos_only,
-             "--kv-tier": kv_tier_only}
+             "--kv-tier": kv_tier_only, "--fleet": fleet_only}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] else main())

@@ -22,6 +22,7 @@
 
 import json
 import logging
+import time
 
 import numpy as np
 import pytest
@@ -204,9 +205,12 @@ def _smoke_server(nfs_root: str):
 
 def test_entry_point_refusals(tmp_path):
     """The DECOUPLED branch runs against a decode server (one device per
-    side); more than one device is item 5, the fleet's router, prefill
-    replicas and supervisor item 4, the vision workflow and datasets item
-    6."""
+    side), and through a registered fleet router (item 4.2) when there is
+    one; `launcher.supervisor.enabled` is accepted (the supervisor runs as
+    its own process). More than one device is item 5, prefill replicas
+    item 4.3, the vision workflow and datasets item 6."""
+    from areal_tpu_torch.api.cli_args import RouterConfig
+    from areal_tpu_torch.launcher.router import DecodeRouter
     from areal_tpu_torch.utils import name_resolve, names
 
     base = ["--config", YAML, f"cluster.fileroot={tmp_path}"]
@@ -222,12 +226,25 @@ def test_entry_point_refusals(tmp_path):
             assert 0 <= step - batch["versions"][gen].min() <= 2
         with pytest.raises(NotImplementedError, match="item 5"):
             main(base + nfs + ["allocation_mode=jax:d2t1+d1"], device="cpu")
-        for over in ("launcher.prefill_replicas=1", "launcher.supervisor.enabled=true"):
-            with pytest.raises(NotImplementedError, match="item 4"):
-                main(base + nfs + ["allocation_mode=jax:d1t1+d1", over], device="cpu")
-        name_resolve.add(names.rollout_router("arith-grpo-smoke", "run0"), "127.0.0.1:1")
-        with pytest.raises(NotImplementedError, match="item 4"):
-            main(base + nfs + ["allocation_mode=jax:d1t1+d1"], device="cpu")
+        with pytest.raises(NotImplementedError, match="item 4.3"):
+            main(base + nfs + ["allocation_mode=jax:d1t1+d1", "launcher.prefill_replicas=1"],
+                 device="cpu")
+        # a registered router places every generation, and the supervisor
+        # switch is accepted
+        router = DecodeRouter("arith-grpo-smoke", "run0",
+                              config=RouterConfig(health_poll_interval=0.2))
+        router.start("127.0.0.1", 0)
+        try:
+            time.sleep(0.5)
+            history = main(base + nfs + ["allocation_mode=jax:d1t1+d1", "total_train_steps=1",
+                                         "evaluator.freq_steps=null",
+                                         "launcher.supervisor.enabled=true"], device="cpu")
+            m = router._metrics()
+        finally:
+            router.stop()
+        assert len(history) == 1
+        assert m["servers"] == [srv.addr] and m["schedules_total"] > 0
+        assert m["tracked_qids"] == 0  # every placement released
     finally:
         srv.stop()
         name_resolve.reconfigure(t_cli.NameResolveConfig(type="memory"))

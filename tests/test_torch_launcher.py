@@ -335,8 +335,10 @@ def test_launcher_refusals(tmp_path):
     _, cfg = _config(tmp_path, "allocation_mode=jax:d2+d1")
     with pytest.raises(NotImplementedError, match="item 5"):
         local.run_experiment(cfg, ["true"], device="cpu")
-    _, cfg = _config(tmp_path, "allocation_mode=jax:d1+d1", "launcher.supervisor.enabled=true")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    # the supervisor is accepted since item 4.2 came; prefill replicas are
+    # still refused
+    _, cfg = _config(tmp_path, "allocation_mode=jax:d1+d1", "launcher.prefill_replicas=1")
+    with pytest.raises(NotImplementedError, match="item 4.3"):
         local.run_experiment(cfg, ["true"], device="cpu")
     with pytest.raises(SystemExit):
         local.main(["not-a-script"])

@@ -274,10 +274,10 @@ def test_stale_push_id_answers_409(fleet, direction):
 
 def test_unported_routes_answer_501(fleet):
     addr = fleet["jax-client/torch-server"]["addr"]
-    for route, item in (("/prefill", "item 3.4"), ("/kv_recv", "item 3.4"),
-                        ("/kv_commit", "item 3.4"), ("/kv_fetch", "item 4"),
-                        ("/warm_start", "item 4"), ("/drain", "item 4"),
-                        ("/set_role", "item 4")):
+    # the prefill role and the KV fabric; /kv_recv, /kv_commit and /drain
+    # serve since session migration came (item 4.2)
+    for route, item in (("/prefill", "item 3.4"), ("/kv_fetch", "item 4.4"),
+                        ("/warm_start", "item 4.4"), ("/set_role", "item 4.3")):
         with pytest.raises(thttp.HttpRequestError) as e:
             _t_post(addr, route, payload={})
         # a 5xx is retried; the last answer is the cause
