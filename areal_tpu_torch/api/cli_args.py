@@ -240,9 +240,8 @@ class RouterConfig:
     `launcher/router.py`'s `DecodeRouter`: the placement policy and its
     prefix-affinity knobs, pressure-aware admission and the bounded queue,
     the staleness gate, failover, the circuit breaker and route expiry.
-    `kv_fabric` and `kv_fabric_fetch_cost_factor` steer the KV fabric's
-    hints (ROADMAP queue 1, item 4.4) and are accepted and not acted on.
-    The router runs as its own process, as in JAX; `InferenceEngineConfig.
+    `kv_fabric` turns on the fabric's local routes and fetch hints, priced
+    at `kv_fabric_fetch_cost_factor` of a prefill. The router runs as its own process, as in JAX; `InferenceEngineConfig.
     router` carries these values beside the client's."""
 
     schedule_policy: str = "prefix_affinity"
@@ -279,9 +278,10 @@ class SupervisorConfig:
     supervisor runs as its own process (`python -m
     areal_tpu_torch.launcher.supervisor`); no entry point starts one, as in
     JAX, so `enabled` is accepted and read by none. The re-role knobs act
-    only on a disaggregated fleet, which the port cannot form yet (item
-    4.3), and `kv_fabric` and `warm_start_sessions` wait for the fabric
-    (item 4.4)."""
+    on a fleet with prefill and decode replicas; `kv_fabric` turns on the
+    warm start of a spawned replica (`warm_start_sessions` runs from its
+    peers) and the identity-only drain of sessions the survivors can
+    serve again."""
 
     enabled: bool = False
     tick_interval_s: float = 1.0
@@ -346,6 +346,10 @@ class InferenceEngineConfig:
         """Every value here is accepted."""
 
 
+# a decode replica's role in a disaggregated fleet (jax_decode.py:721-727)
+ROLES = ("unified", "prefill", "decode")
+
+
 @dataclass
 class TorchDecodeConfig:
     """Decode engine config, mirroring `JaxDecodeConfig`
@@ -363,19 +367,23 @@ class TorchDecodeConfig:
     `spec_k` and `spec_ngram_max` as in the JAX engine;
     `TorchDecodeEngine.initialize` refuses a verify width `spec_k + 1` past
     the verify kernels' limit (`ops.paged_attention.check_verify_width`).
-    `kv_fabric` is accepted and not acted on: the fabric's content index and
-    peer fetch are ROADMAP queue 1, item 4.4. Its device rung also acts in a lone JAX engine: a prompt that
-    shares only a block-aligned head with a registered conversation that
-    diverges later forks those blocks there, and prefills in full here
-    unless the registry holds that head as a key of its own. The decode
-    server (`launcher/decode_server.py`) reads `idempotency_*`,
+    `kv_fabric` (on, as in JAX) keys every registration's and host entry's
+    complete blocks by content: a prompt that shares a block-aligned head
+    with a registration that diverges later forks those blocks and
+    prefills the suffix, and a run in the host tier (offloaded by any rid
+    or fetched from a sibling) is uploaded likewise; runs of at least
+    `kv_fabric_min_blocks` blocks, and the shared-prefix floor, are used;
+    `kv_fabric_digest_max` caps the digest `get_metrics` advertises, and
+    the decode server waits `kv_fabric_fetch_timeout_s` on a peer's
+    `/kv_fetch`. `role` ("unified", "prefill" or "decode") steers the
+    router; every replica serves every route. The decode server
+    (`launcher/decode_server.py`) reads `idempotency_*`,
     `weight_staging_ttl_s` and `kv_migrate_chunk_mb` (a migrated session's
     frame size), and the engine `kv_import_pool_mb` (the host tier an
     imported session lands in when `kv_host_pool_mb` is 0); the other knobs
     (`log_level`, `enable_metrics`, `decode_log_interval`,
-    `skip_tokenizer_init`, the `kv_fabric_*` limits)
-    and `hbm_utilization` are accepted and not acted on: the pool is sized
-    by `kv_pool_tokens`, or the dense worst case.
+    `skip_tokenizer_init`) and `hbm_utilization` are accepted and not acted
+    on: the pool is sized by `kv_pool_tokens`, or the dense worst case.
 
     The serving dtype is the installed model's (`ModelConfig.dtype`).
     `dtype` keeps its JAX name and default; as in the JAX engine
@@ -395,7 +403,7 @@ class TorchDecodeConfig:
     kv_cache_dtype: str = "bfloat16"
     kv_dtype: str = "fp"  # "fp" | "int8"
     weight_dtype: str = "fp"  # "fp" | "int8"
-    # replica role in a disaggregated fleet; the port serves "unified"
+    # replica role in a disaggregated fleet
     role: str = "unified"  # "unified" | "prefill" | "decode"
     kv_migrate_chunk_mb: float = 64.0
     kv_import_pool_mb: float = 256.0
@@ -467,7 +475,6 @@ class TorchDecodeConfig:
             "tensor_parallel_size": (
                 int(self.tensor_parallel_size) > 1, "item 5, multi-GPU serving"
             ),
-            "role": (self.role != "unified", "item 4.3, disaggregated prefill/decode roles"),
         })
 
 
@@ -621,7 +628,9 @@ class LauncherConfig:
     launcher (`launcher/local.py`) runs one server and one trainer on one
     host and sets no resources, so these are accepted and not acted on
     (the slurm and ray launchers are ROADMAP queue 1, item 5);
-    `check_supported` refuses prefill replicas (item 4.3). The supervisor
+    `check_supported` refuses prefill replicas: they need more than one
+    generation server (gen dp >= 2, JAX `launcher/local.py:325-334`), item
+    4.1. The supervisor
     runs as its own process (`launcher/supervisor.py`), so
     `supervisor.enabled` is accepted, as in JAX."""
 
@@ -637,7 +646,8 @@ class LauncherConfig:
 
     def check_supported(self) -> None:
         _refuse(self, {"prefill_replicas": (
-            int(self.prefill_replicas) > 0, "item 4.3, the prefill/decode roles")})
+            int(self.prefill_replicas) > 0,
+            "item 4.1, more than one generation server (prefill replicas need gen dp >= 2)")})
 
 
 @dataclass
@@ -665,7 +675,7 @@ class BaseExperimentConfig:
 
     def check_supported(self) -> None:
         """What an entry point refuses before it builds anything: more than
-        one node (item 5) and prefill replicas (item 4.3)."""
+        one node (item 5) and prefill replicas (item 4.1)."""
         _refuse(self.cluster, {
             "n_nodes": (int(self.cluster.n_nodes) > 1, "item 5, multi-node runs"),
         }, "cluster.")

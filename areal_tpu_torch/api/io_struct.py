@@ -38,7 +38,9 @@ class ModelResponse:
     output_logprobs: list[float] = field(default_factory=list)
     # weight version that produced each output token
     output_versions: list[int] = field(default_factory=list)
-    stop_reason: Literal["length", "stop", "interrupt"] = "stop"
+    # "prefill": a prefill-only request (the prefill role); its KV is
+    # parked or exported and no token was generated
+    stop_reason: Literal["length", "stop", "interrupt", "prefill"] = "stop"
     tokenizer: Any = None
 
     # statistics (seconds)

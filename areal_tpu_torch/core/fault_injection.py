@@ -23,6 +23,8 @@ Seams in the port (grep for `fault_injection.fire(` / `.afire(` / `.tear(`):
   client.http.body      utils/http.py        torn/truncated response body
   client.weights.stage  core/remote_inf_engine.py  per staged frame
   server.generate       launcher/decode_server.py  before the engine runs
+  server.prefill        launcher/decode_server.py  /prefill, before the
+                                             engine runs
   server.weights.stage  launcher/decode_server.py  per received frame
   server.weights.commit launcher/decode_server.py  before the install
                                              (outside `_ctl_lock`)
@@ -71,9 +73,6 @@ Seams in the port (grep for `fault_injection.fire(` / `.afire(` / `.tear(`):
                                              delay is a hung drain)
   supervisor.kill       launcher/supervisor.py  after a committed drain,
                                              before the kill
-
-The JAX package's `server.prefill` belongs to the prefill role, which the
-port has not taken yet (ROADMAP.md queue 1, item 3.4).
 
 Fault modes:
 

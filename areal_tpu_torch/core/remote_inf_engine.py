@@ -39,9 +39,13 @@ Kept from the JAX client:
   `requeue=True`, and `/finish_request` releases the router's accounting
   when the request ends.
 
-Not here: the prefill handoff (`_prefill_handoff`) and the fabric hint of
-a placement, ROADMAP.md queue 1, items 4.3-4.4; a unified fleet sets
-neither. Plain `threading.Lock`s stand in for `OrderedLock`.
+- A placement's extras (JAX :491-580): a `prefill_url` (a disaggregated
+  fleet) makes the first submission a handoff (`_prefill_handoff`): the
+  prompt runs on the prefill replica, which streams its KV to the decode
+  replica, and the /generate that follows resumes it with no prefill; a
+  failed handoff leaves the decode replica to prefill. A `kv_fabric` hint
+  rides on the first submission's body. Plain `threading.Lock`s stand in
+  for `OrderedLock`.
 """
 
 from __future__ import annotations
@@ -358,6 +362,30 @@ class RemoteInfEngine(InferenceEngine):
                 addr = routed
         raise AssertionError("unreachable")
 
+    async def _prefill_handoff(self, rid: str, payload: dict[str, Any], prefill_addr: str,
+                               decode_addr: str, deadline: float) -> bool:
+        """Run the prompt on the prefill replica, which streams its KV to
+        the decode replica server to server (the client carries no KV);
+        True when it landed. Best effort: one retry with the same xid (the
+        prefill route and the receiver's commit deduplicate, so a death
+        mid-transfer lands the session once), and any failure leaves the
+        decode replica to prefill itself."""
+        p = dict(payload, target=decode_addr, xid=f"pf-{uuid.uuid4().hex}")
+        last: Exception | None = None
+        for _ in range(2):
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return False
+            try:
+                out = await arequest_with_retry(prefill_addr, "/prefill", payload=p,
+                                                max_retries=1, timeout=min(60.0, remaining))
+                return bool(out.get("migrated"))
+            except Exception as e:  # noqa: BLE001 — degrade to the decode replica's prefill
+                last = e
+        logger.warning(f"prefill handoff for {rid} via {prefill_addr} failed ({last!r}); "
+                       f"{decode_addr} will prefill itself")
+        return False
+
     async def agenerate(self, req: ModelRequest) -> ModelResponse:
         """Generate with the interrupt-resume loop (JAX :532-621)."""
         start = time.monotonic()
@@ -365,6 +393,8 @@ class RemoteInfEngine(InferenceEngine):
         sched = await self._schedule_via_router(req, deadline=deadline)
         routed = sched["url"] if sched else None
         addr = routed or self.choose_server(req.rid, cost=self._local_cost(req))
+        # a disaggregated fleet: the router named a prefill replica too
+        prefill_url = sched.get("prefill_url") if sched else None
         prompt = list(req.input_ids)
         acc_tokens: list[int] = []
         acc_logprobs: list[float] = []
@@ -380,6 +410,16 @@ class RemoteInfEngine(InferenceEngine):
                     min_new_tokens=max(0, req.gconfig.min_new_tokens - len(acc_tokens)),
                 )
                 payload = self.backend.build_generate_payload(work)
+                if sched and sched.get("kv_fabric") and not acc_tokens:
+                    # a sibling holds this prompt's prefix: the decode
+                    # server fetches it (the first submission only; a
+                    # resume has its KV already)
+                    payload["kv_fabric"] = sched["kv_fabric"]
+                if prefill_url and prefill_url != addr:
+                    # the first submission only: a resume continues from
+                    # KV the decode replica holds
+                    await self._prefill_handoff(req.rid, payload, prefill_url, addr, deadline)
+                    prefill_url = None
                 # one delivery id per submission: its retries and failover
                 # reuse it, a resume is a new submission
                 payload["xid"] = uuid.uuid4().hex

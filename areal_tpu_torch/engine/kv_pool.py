@@ -212,10 +212,23 @@ class HostKVEntry:
     # the pool scheme that wrote k/v ("fp" | "int8"): an exported session
     # carries it, and an import into a pool of the other scheme is refused
     kv_dtype: str = "fp"
+    # the fabric's content keys of the entry's complete blocks
+    # (`core/kv_fabric.chain_keys` over `tokens` at the pool's block size,
+    # salted with the weight version and the dtype): the store indexes
+    # them, so `match_blocks` serves a matching run to any request. Empty
+    # when the fabric is off.
+    block_keys: tuple[int, ...] = ()
     nbytes: int = 0
     pending: bool = field(default=False, repr=False)
     event: Any = field(default=None, repr=False)
     dev: tuple = field(default=(), repr=False)  # device buffers the copies read
+
+    @property
+    def meta_only(self) -> bool:
+        """An identity-only entry (a cheap drain): resume metadata with no
+        KV bytes. The blocks come back from the fleet or by a prefill; it
+        never serves a block match."""
+        return self.k is None
 
     def materialize(self) -> None:
         """Finish the device-to-host copies (waiting only if they are still
@@ -247,10 +260,10 @@ class HostKVStore:
     nothing.
 
     Imported sessions (`TorchDecodeEngine.import_session`) land here too,
-    and a drain exports every resident entry (`rids`, `take`). The JAX
-    store's fleet-fabric index (`match_blocks`, `fabric_keys`) and its
-    identity-only entries come with the KV fabric, ROADMAP.md queue 1,
-    items 3.4-3.5.
+    and a drain exports every resident entry (`rids`, `take`). The fabric's
+    block index maps each resident block's content key to its entry
+    (`match_blocks`, `fabric_keys`); an identity-only entry (`meta_only`)
+    is never indexed.
     """
 
     def __init__(self, budget_bytes: int, block_nbytes: int, block_size: int,
@@ -270,6 +283,10 @@ class HostKVStore:
         # materialized once more than `pending_window` are outstanding
         self._pending: list[str] = []
         self._pending_window = max(int(pending_window), 0)
+        # the fabric's block index: content key -> (rid, ordinal) of a
+        # resident entry holding that block. The first writer wins (equal
+        # keys mean equal bytes); identity-only entries are never indexed.
+        self._block_index: dict[int, tuple[str, int]] = {}
         self.swap_out_bytes_total = 0
         self.swap_in_bytes_total = 0
         self.hits = 0
@@ -303,11 +320,24 @@ class HostKVStore:
         while len(self._tombstones) > self._tombstone_cap:
             self._tombstones.popitem(last=False)
 
+    def _unindex(self, e: HostKVEntry) -> None:
+        for key in e.block_keys:
+            owner = self._block_index.get(key)
+            if owner is not None and owner[0] == e.rid:
+                del self._block_index[key]
+
+    def _index(self, e: HostKVEntry) -> None:
+        if e.meta_only:
+            return
+        for i, key in enumerate(e.block_keys):
+            self._block_index.setdefault(key, (e.rid, i))
+
     def _drop(self, rid: str, tombstone: bool) -> None:
         e = self._entries.pop(rid, None)
         if e is None:
             return
         self.bytes_used -= e.nbytes
+        self._unindex(e)
         if rid in self._pending:
             self._pending.remove(rid)
         if tombstone:
@@ -327,7 +357,11 @@ class HostKVStore:
         # the D2H offload seam: an abort models the host copy failing; the
         # engine counts it and drops the blocks
         fault_injection.fire("kv.swap_out", rid=entry.rid)
-        entry.nbytes = entry.nb * self.block_nbytes
+        # an identity-only entry is charged a nominal footprint for its
+        # token list, so it ages out under pressure without competing with
+        # block bytes
+        entry.nbytes = (entry.nb * self.block_nbytes if not entry.meta_only
+                        else 64 + 4 * len(entry.tokens))
         if entry.nbytes > self.budget_bytes:
             self.tombstone(entry.rid)
             self.rejected_puts += 1
@@ -338,6 +372,7 @@ class HostKVStore:
             self.evictions += 1
         self._entries[entry.rid] = entry
         self.bytes_used += entry.nbytes
+        self._index(entry)
         if entry.pending:
             self._pending.append(entry.rid)
             self._drain_pending(self._pending_window)
@@ -356,6 +391,10 @@ class HostKVStore:
             if rid in self._tombstones:
                 del self._tombstones[rid]
                 self.misses += 1
+            return False
+        if e.meta_only:
+            # no bytes to promote: the engine claims the sampling key on
+            # its own and rebuilds the blocks through the fabric or a prefill
             return False
         if (weight_version is not None and e.weight_version >= 0
                 and e.weight_version != weight_version):
@@ -380,6 +419,7 @@ class HostKVStore:
         if e is None:
             return None
         self.bytes_used -= e.nbytes
+        self._unindex(e)
         if rid in self._pending:
             self._pending.remove(rid)
         e.materialize()
@@ -395,11 +435,38 @@ class HostKVStore:
         goes back least recently used first, so a retry comes soon."""
         self.bytes_used += entry.nbytes
         self._entries[entry.rid] = entry
+        self._index(entry)
         self._entries.move_to_end(entry.rid, last=False)
 
     def peek(self, rid: str) -> HostKVEntry | None:
         """The entry of `rid`, with no counter or LRU change."""
         return self._entries.get(rid)
+
+    def match_blocks(self, chain: list[int],
+                     min_blocks: int = 1) -> tuple[HostKVEntry, int] | None:
+        """The longest content-keyed run the store can serve: the largest
+        n >= `min_blocks` with chain[n-1] indexed, as (entry, n). The keys
+        bind positions, so the entry's first n blocks hold exactly the
+        request's first n blocks of tokens. Counts nothing: the engine
+        attributes fabric hits, and a block match must not move the
+        exact-resume hit rate."""
+        for n in range(len(chain), max(0, min_blocks - 1), -1):
+            owner = self._block_index.get(chain[n - 1])
+            if owner is None:
+                continue
+            rid, ordinal = owner
+            e = self._entries.get(rid)
+            # an ordinal off the chain's position is a 64-bit collision
+            # between prefixes of different lengths
+            if e is None or e.meta_only or ordinal != n - 1 or e.nb < n:
+                continue
+            e.materialize()
+            return e, n
+        return None
+
+    def fabric_keys(self) -> list[int]:
+        """Resident content keys that can be served (the /metrics digest)."""
+        return list(self._block_index)
 
     def flush_pending(self) -> None:
         self._drain_pending(0)
@@ -412,4 +479,5 @@ class HostKVStore:
         for rid in list(self._entries):
             self._drop(rid, tombstone=True)
         self._pending.clear()
+        self._block_index.clear()
         return n

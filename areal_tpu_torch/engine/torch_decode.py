@@ -118,8 +118,26 @@ serving core and its default scheduling).
   honest miss. The decode server's `/drain` streams every exportable
   session to survivors over the KV frames of `core/weight_transfer.py`.
 
-The JAX engine's prefill-only admissions (`aprefill`), identity-only
-sessions and KV fabric are later ROADMAP items (queue 1, items 3.4-3.5).
+- **Prefill-only admissions** (`aprefill`, jax_decode.py:3753-3790): the
+  prefill role's entry point. The request is admitted down the same
+  ladder, retired with stop reason "prefill" right after the wave's
+  prefills ran, and parked exactly as an interrupted one (covered =
+  prompt[:-1]), ready for a local resume or an export to a decode replica.
+
+- **The KV fabric** (`kv_fabric`, on by default as in JAX;
+  `core/kv_fabric.py`). Every registration's complete blocks are keyed
+  by content (chained blake2b over the tokens, salted with the weight
+  version and the pool dtype) into a device index (`_fabric_dev`), and
+  host-tier entries into the store's. An admission with no exact donor
+  and no registered prefix looks for the longest keyed run, first on the
+  device (a registration that diverges later: fork and suffix prefill),
+  then in the host tier (offloaded by any rid, or fetched from a sibling:
+  upload and suffix prefill). `export_fabric_blocks` copies runs out for
+  a sibling's `/kv_fetch` or `/warm_start`; `export_session(rid,
+  refetchable)` sends identity only (`meta_only`) when the survivors'
+  digest covers every complete block, and `import_session` lands such a
+  session as an identity whose resume keeps its sampling key and rebuilds
+  the blocks through the fabric or a prefill.
 """
 
 from __future__ import annotations
@@ -139,12 +157,14 @@ import torch
 import torch.nn.functional as F
 
 from areal_tpu_torch.api.cli_args import (
+    ROLES,
     GenerationHyperparameters,
     InferenceEngineConfig,
     TorchDecodeConfig,
 )
 from areal_tpu_torch.api.engine_api import InferenceEngine
 from areal_tpu_torch.api.io_struct import ModelRequest, ModelResponse
+from areal_tpu_torch.core import kv_fabric
 from areal_tpu_torch.core.workflow_executor import WorkflowExecutor
 from areal_tpu_torch.engine.kv_pool import HostKVEntry, HostKVStore, KVBlockAllocator, PoolDry
 from areal_tpu_torch.engine.sampling import sample, slot_base_key
@@ -294,6 +314,9 @@ class _Slot:
     # [2] uint32 sampling key, set at the first admission and kept across
     # pool-pressure preemption and parking (jax_decode.py:2955-2969)
     base_key: np.ndarray | None = None
+    # the prefill role's admission (`aprefill`): retired with stop reason
+    # "prefill" right after its prefill, its KV parked
+    prefill_only: bool = False
 
 
 @dataclass
@@ -410,6 +433,19 @@ class TorchDecodeEngine(InferenceEngine):
         # the prefix registry: covered tokens -> donor slot, and its inverse
         self._prefix_lookup: dict[tuple[int, ...], int] = {}
         self._slot_prefix: list[tuple[int, ...] | None] = []
+        # the fabric's device index over the same registrations, by pool
+        # block: content key -> (donor slot, depth in complete blocks), and
+        # each slot's chain (jax_decode.py:456-480). Scheduler-owned.
+        self._fabric_on = bool(config.kv_fabric)
+        self._fabric_dev: dict[int, tuple[int, int]] = {}
+        self._slot_fabric_keys: dict[int, list[int]] = {}
+        # fabric hits, apart from the exact-resume host hits: "remote" when
+        # the bytes came over the wire (a "fabric-*" entry), "local" when
+        # another local rid produced them (scheduler-owned)
+        self._fabric_hits = dict(local=0, remote=0, local_tokens=0, remote_tokens=0)
+        # the fabric's wire, under _metrics_lock: fetched runs and their
+        # bytes, and sessions exported as identity only
+        self._fabric_wire = dict(fetch_bytes=0, sessions_in=0, meta_only_exports=0)
         # run-ahead: dispatched passes, oldest first, and the device-chained
         # (last token, length) per slot; `_patch_slots` lists slots whose
         # host truth diverged from the chain since the last dispatch
@@ -434,6 +470,12 @@ class TorchDecodeEngine(InferenceEngine):
         self._metrics_lock = threading.Lock()
         self._chunk_itl_ms: deque[float] = deque(maxlen=_ITL_WINDOW)
         self._chunk_wall_itl_ms: deque[float] = deque(maxlen=_ITL_WINDOW)
+        # TTFT's prefill and transfer shares (jax_decode.py:498-499): the
+        # host wall of each admitted slot's prefill dispatch, and of each
+        # promotion's upload (a migrated or fetched session trades the one
+        # for the other)
+        self._ttft_prefill_ms: deque[float] = deque(maxlen=_ITL_WINDOW)
+        self._ttft_transfer_ms: deque[float] = deque(maxlen=_ITL_WINDOW)
         self._dev_busy_s = 0.0
         self._dev_idle_s = 0.0
         self._chunks_dispatched = 0
@@ -529,6 +571,8 @@ class TorchDecodeEngine(InferenceEngine):
             )
         if self.config.kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype={self.config.kv_dtype!r} not in {KV_DTYPES}")
+        if self.config.role not in ROLES:
+            raise ValueError(f"role={self.config.role!r} not in {ROLES}")
         self._w_quant = self.config.weight_dtype == "int8"
         self._kv_quant = self.config.kv_dtype == "int8"
         if self.config.kv_layout not in ("paged", "workspace"):
@@ -595,6 +639,8 @@ class TorchDecodeEngine(InferenceEngine):
         self._ws_copy_bytes = 0
         with self._metrics_lock:
             self._migrate = dict.fromkeys(self._migrate, 0)
+            self._fabric_wire = dict.fromkeys(self._fabric_wire, 0)
+        self._fabric_hits = dict.fromkeys(self._fabric_hits, 0)
         self._k_pool = torch.zeros(shape, dtype=kv_dtype, device=self.device)
         self._v_pool = torch.zeros(shape, dtype=kv_dtype, device=self.device)
         self._k_scale = self._v_scale = None
@@ -613,6 +659,7 @@ class TorchDecodeEngine(InferenceEngine):
         self._admission_seq = 0
         self._parked, self._parked_tokens = {}, {}
         self._prefix_lookup, self._slot_prefix = {}, [None] * R
+        self._fabric_dev, self._slot_fabric_keys = {}, {}
         self._inflight = deque()
         self._dev_last = self._dev_lengths = None
         self._patch_slots = set()
@@ -693,12 +740,13 @@ class TorchDecodeEngine(InferenceEngine):
         return h
 
     @contextlib.contextmanager
-    def _prefill_call(self, tokens: int):
-        """One prefill forward with its pool writes: counted in
-        `prefill_calls` and `prefill_tokens`, and timed into
+    def _prefill_call(self, tokens: int, slots: int = 1):
+        """One prefill forward of `slots` requests with its pool writes:
+        counted in `prefill_calls` and `prefill_tokens`, and timed into
         `prefill_seconds` between device events on the card (read later,
         so the scheduler never waits on them), by the wall clock on the
-        CPU."""
+        CPU. Its host wall, shared out per slot, is TTFT's prefill share."""
+        t_wall = time.monotonic()
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -713,6 +761,9 @@ class TorchDecodeEngine(InferenceEngine):
             self._prefill_secs += time.perf_counter() - t0
         self.prefill_calls += 1
         self.prefill_tokens += tokens
+        per = (time.monotonic() - t_wall) * 1000.0 / max(slots, 1)
+        with self._metrics_lock:
+            self._ttft_prefill_ms.extend([per] * max(slots, 1))
 
     # -- scheduler ------------------------------------------------------
     def _scheduler_loop(self) -> None:
@@ -816,6 +867,11 @@ class TorchDecodeEngine(InferenceEngine):
             self._slot_prefix[slot] = None
             if self._prefix_lookup.get(key) == slot:
                 self._prefix_lookup.pop(key, None)
+        # the fabric's keys go with the registration that owns them: a fork
+        # must never read blocks the slot's next occupant writes
+        for fk in self._slot_fabric_keys.pop(slot, ()):
+            if self._fabric_dev.get(fk, (None, 0))[0] == slot:
+                del self._fabric_dev[fk]
 
     def _register_prefix(self, slot: int, covered: list[int]) -> None:
         self._unregister_prefix(slot)
@@ -824,6 +880,15 @@ class TorchDecodeEngine(InferenceEngine):
         key = tuple(covered)
         self._slot_prefix[slot] = key
         self._prefix_lookup[key] = slot
+        if self._fabric_on and self._alloc is not None:
+            # the registration's complete blocks, keyed by content
+            fks = kv_fabric.chain_keys(covered, self._alloc.block_size, int(self._version),
+                                       str(self.config.kv_dtype))
+            if fks:
+                self._slot_fabric_keys[slot] = fks
+                for i, fk in enumerate(fks):
+                    # the first writer wins: equal keys mean equal bytes
+                    self._fabric_dev.setdefault(fk, (slot, i + 1))
 
     def _find_shared_prefix(self, covered: tuple[int, ...]):
         """Longest registered key of at least `_MIN_SHARED_PREFIX` tokens
@@ -857,6 +922,105 @@ class TorchDecodeEngine(InferenceEngine):
                 self._slot_lengths[i] = 0
         self._prefix_lookup.clear()
         self._slot_prefix = [None] * len(self._slot_prefix)
+        # keys are salted with the weight version: new chains never match
+        # these, so clear them rather than leak them
+        self._fabric_dev.clear()
+        self._slot_fabric_keys.clear()
+
+    # -- the KV fabric's rungs (jax_decode.py:2219-2361) ----------------
+    def _fabric_floor_blocks(self) -> int:
+        """The shortest run (in blocks) either fabric rung serves: the
+        shared-prefix floor (below it a prefill beats fork + suffix) or
+        `kv_fabric_min_blocks`, whichever is larger."""
+        bs = self._alloc.block_size
+        return max(-(-_MIN_SHARED_PREFIX // bs), max(1, int(self.config.kv_fabric_min_blocks)))
+
+    def _fabric_dev_match(self, chain: list[int], covered: int) -> tuple[int, int] | None:
+        """The device rung: the longest keyed run a resident registration
+        can donate, as (donor slot, prefix length), even when that
+        registration diverges from this prompt past the run."""
+        bs = self._alloc.block_size
+        for n in range(len(chain), self._fabric_floor_blocks() - 1, -1):
+            plen = n * bs
+            if plen >= covered:
+                continue  # the suffix prefill needs a suffix
+            hit = self._fabric_dev.get(chain[n - 1])
+            if hit is None:
+                continue
+            slot, depth = hit
+            keys = self._slot_fabric_keys.get(slot)
+            # a depth off the chain's position is a 64-bit collision
+            # between prefixes of different lengths
+            if keys is None or depth != n or len(keys) < n or keys[n - 1] != chain[n - 1]:
+                continue
+            return slot, plen
+        return None
+
+    def _claim_meta_identity(self, item: _Slot) -> None:
+        """An identity-only session (a cheap drain) carries no KV: take its
+        sampling key, so the resumed stream samples as it would have, and
+        let the ladder rebuild the blocks (the fabric or a prefill)."""
+        if self._host_store is None:
+            return
+        try:
+            with self._host_lock:
+                e = self._host_store.peek(item.rid)
+                if e is None or not e.meta_only:
+                    return
+                e = self._host_store.take(item.rid)
+        except Exception as e:  # noqa: BLE001 — degrade to a fresh key, never wedge
+            # an injected swap-in fault: the resume goes on as a fresh request
+            logger.warning(f"meta-only claim of {item.rid} failed: {e!r}")
+            return
+        if e is not None and item.base_key is None:
+            item.base_key = np.array(e.base_key, dtype=np.uint32)
+
+    def _promote_fabric_blocks(self, item: _Slot, slot: int, chain: list[int],
+                               covered: int) -> int:
+        """The host rung: seed `slot` with the longest keyed run the host
+        tier holds (offloaded by any rid, or fetched from a sibling) and
+        return its length in tokens (0: none). The upload is queued on the
+        decode stream ahead of the suffix prefill that reads it. The entry
+        stays in the store for later matches. Raises PoolDry when the pool
+        cannot back the run even after reclaim; a failed upload is a miss,
+        counted in `kv_promote_failures_total`."""
+        if self._host_store is None or not chain:
+            return 0
+        bs = self._alloc.block_size
+        floor = self._fabric_floor_blocks()
+        max_n = min(len(chain), (covered - 1) // bs)  # keep a suffix
+        if max_n < floor:
+            return 0
+        with self._host_lock:
+            m = self._host_store.match_blocks(chain[:max_n], min_blocks=floor)
+        if m is None:
+            return 0
+        entry, n = m
+        plen = n * bs
+        t0 = time.monotonic()
+        try:
+            self._unregister_prefix(slot)
+            self._alloc.free_slot(slot)
+            self._slot_lengths[slot] = 0
+            if not self._ensure_tokens(slot, plen):
+                raise PoolDry("no device blocks for fabric promotion")
+            blocks = self._upload(self._alloc.row(slot, n).astype(np.int64))
+            hosts = (entry.k, entry.v) + (() if entry.ks is None else (entry.ks, entry.vs))
+            for pool, host in zip(self._pool_parts(), hosts):
+                pool[:, blocks] = host[:, :n].to(self.device, non_blocking=True)
+        except PoolDry:
+            raise
+        except Exception as e:  # noqa: BLE001 — degrade to a prefill, never wedge
+            self._n_promote_failures += 1
+            logger.warning(f"fabric block promotion failed: {e!r}")
+            return 0
+        self._register_prefix(slot, [int(t) for t in entry.tokens[:plen]])
+        way = "remote" if entry.rid.startswith("fabric-") else "local"
+        self._fabric_hits[way] += 1
+        self._fabric_hits[f"{way}_tokens"] += plen
+        with self._metrics_lock:
+            self._ttft_transfer_ms.append((time.monotonic() - t0) * 1000.0)
+        return plen
 
     def _invalidate_parked(self) -> None:
         """Drop every parked KV cache, the registry and the host tier
@@ -1035,6 +1199,9 @@ class TorchDecodeEngine(InferenceEngine):
                 vs=scales[1] if scales else None, nb=nb, covered=int(covered),
                 tokens=list(tokens), base_key=np.array(self._slot_keys[slot]),
                 weight_version=int(self._version), kv_dtype=self.config.kv_dtype,
+                block_keys=(tuple(kv_fabric.chain_keys(
+                    tokens, self._alloc.block_size, int(self._version),
+                    str(self.config.kv_dtype))) if self._fabric_on else ()),
                 pending=event is not None, event=event,
                 dev=tuple(bufs) if event is not None else (),
             )
@@ -1066,6 +1233,7 @@ class TorchDecodeEngine(InferenceEngine):
         registers the covered tokens as a prefix. Raises PoolDry, with the
         entry put back, when the pool cannot back the blocks even after
         reclaim; False only if the entry vanished."""
+        t_promote = time.monotonic()
         with self._host_lock:
             entry = self._host_store.take(item.rid)
         if entry is None:
@@ -1100,6 +1268,9 @@ class TorchDecodeEngine(InferenceEngine):
         self._register_prefix(slot, list(entry.tokens))
         with self._host_lock:
             self._host_store.note_hit(entry)
+        # the upload's host wall is this request's TTFT transfer share
+        with self._metrics_lock:
+            self._ttft_transfer_ms.append((time.monotonic() - t_promote) * 1000.0)
         return True
 
     # -- session migration (jax_decode.py:4284-4480, 4630-4815) ---------
@@ -1121,12 +1292,34 @@ class TorchDecodeEngine(InferenceEngine):
                     rope_delta=0, base_key=[int(x) for x in np.asarray(base_key)],
                     weight_version=int(weight_version), nb=int(nb), kv_dtype=str(kv_dtype))
 
-    def export_session(self, rid: str) -> dict | None:
+    def _refetchable_meta(self, refetchable: "set[int] | None", tokens: list[int],
+                          weight_version: int, kv_dtype: str) -> bool:
+        """The cheap drain's test: every complete block of the session is
+        keyed and resident somewhere among the survivors (`refetchable`,
+        the union of their digests), so identity alone can travel."""
+        if not refetchable or not self._fabric_on:
+            return False
+        keys = kv_fabric.chain_keys(tokens, self._alloc.block_size, weight_version, kv_dtype)
+        return bool(keys) and all(k in refetchable for k in keys)
+
+    def _export_meta_only(self, meta: dict) -> dict:
+        meta["meta_only"] = True
+        with self._metrics_lock:
+            self._migrate["out_sessions"] += 1
+            self._fabric_wire["meta_only_exports"] += 1
+        return dict(meta=meta)
+
+    def export_session(self, rid: str, refetchable: "set[int] | None" = None) -> dict | None:
         """Move one session's resumable KV out of this engine: {"meta", "k",
         "v"} with host tensors `[L, nb, page, nKV, hd]` (and "ks"/"vs", the
         f32 scales `[L, nb, nKV, page]`, of an int8 pool, bytes as they
         are), or None when `rid` holds no exportable session or the export
         failed (logged; the session then re-prefills wherever it resumes).
+        With `refetchable` (the content keys the surviving fleet serves), a
+        session whose complete blocks all lie among them leaves as
+        {"meta": {..., "meta_only": True}}, with no KV bytes: the importer
+        keeps its sampling key and rebuilds the blocks through the fabric or
+        a suffix prefill (jax_decode.py:4298-4480).
 
         A parked session's covering blocks are gathered under the scheduler
         lock, on the decode stream, so the gather is queued before any later
@@ -1145,6 +1338,14 @@ class TorchDecodeEngine(InferenceEngine):
                     if (covered <= 0 or len(tokens) != covered or nb <= 0
                             or nb > int(self._alloc.nblocks[slot])):
                         return None
+                    if self._refetchable_meta(refetchable, tokens, int(self._version),
+                                              str(self.config.kv_dtype)):
+                        meta = self._session_meta(rid, covered, tokens, self._slot_keys[slot],
+                                                  self._version, nb, self.config.kv_dtype)
+                        self._parked.pop(rid, None)
+                        self._parked_tokens.pop(rid, None)
+                        self._register_prefix(slot, tokens)
+                        return self._export_meta_only(meta)
                     blocks = self._upload(self._alloc.row(slot, nb).astype(np.int64))
                     parts = [t.index_select(1, blocks).cpu() for t in self._pool_parts()]
                     meta = self._session_meta(rid, covered, tokens, self._slot_keys[slot],
@@ -1158,9 +1359,13 @@ class TorchDecodeEngine(InferenceEngine):
                         entry = store.take(rid) if store is not None else None
                     if entry is None:
                         return None
-                    parts = [entry.k, entry.v] + ([] if entry.ks is None else [entry.ks, entry.vs])
                     meta = self._session_meta(rid, entry.covered, entry.tokens, entry.base_key,
                                               entry.weight_version, entry.nb, entry.kv_dtype)
+                    if entry.meta_only or self._refetchable_meta(
+                            refetchable, [int(t) for t in entry.tokens],
+                            int(entry.weight_version), str(entry.kv_dtype)):
+                        return self._export_meta_only(meta)
+                    parts = [entry.k, entry.v] + ([] if entry.ks is None else [entry.ks, entry.vs])
             out = dict(meta=meta, k=parts[0], v=parts[1])
             if len(parts) == 4:
                 out["ks"], out["vs"] = parts[2], parts[3]
@@ -1171,6 +1376,84 @@ class TorchDecodeEngine(InferenceEngine):
         except Exception as e:  # noqa: BLE001 — degrade to a re-prefill, never wedge
             logger.warning(f"kv export of {rid} failed: {e!r}")
             return None
+
+    def export_fabric_blocks(self, keys: "list[int] | None" = None, top: int = 0) -> list[dict]:
+        """Serve the fabric (jax_decode.py:4482-4629): COPY keyed block runs
+        out, dropping nothing here. `keys`, a content chain (block 0
+        first): the longest run this replica holds, on the device first and
+        in the host tier second, as one session whose meta carries
+        `fabric=True` and a rid made from its last key ("fabric-<hex>").
+        `top`: the `top` longest resident chains (a cold sibling's warm
+        start). Returns sessions shaped like `export_session`'s; empty when
+        nothing matches or the export failed (logged)."""
+        if not self._fabric_on or self._alloc is None:
+            return []
+        bs = self._alloc.block_size
+
+        def session(chain: list[int], n: int, tokens: list[int], wv: int, kv_dtype: str,
+                    parts: list) -> dict:
+            meta = dict(rid=f"fabric-{chain[n - 1] & 0xFFFFFFFFFFFFFFFF:016x}",
+                        covered=n * bs, tokens=[int(t) for t in tokens[:n * bs]],
+                        rope_delta=0,
+                        # a run is never resumed by rid: the sampling key
+                        # travels with sessions, not with runs
+                        base_key=[0, 0], weight_version=int(wv), nb=n,
+                        kv_dtype=str(kv_dtype), fabric=True)
+            sess = dict(meta=meta, k=parts[0], v=parts[1])
+            if len(parts) == 4:
+                sess["ks"], sess["vs"] = parts[2], parts[3]
+            return sess
+
+        def resolve_locked(chain: list[int]) -> dict | None:
+            for n in range(len(chain), 0, -1):  # the device rung
+                hit = self._fabric_dev.get(chain[n - 1])
+                if hit is None:
+                    continue
+                slot, depth = hit
+                fks = self._slot_fabric_keys.get(slot)
+                toks = self._slot_prefix[slot]
+                if (fks is None or toks is None or depth != n or len(fks) < n
+                        or fks[n - 1] != chain[n - 1] or len(toks) < n * bs):
+                    continue
+                blocks = self._upload(self._alloc.row(slot, n).astype(np.int64))
+                parts = [t.index_select(1, blocks).cpu() for t in self._pool_parts()]
+                return session(chain, n, list(toks), self._version, self.config.kv_dtype, parts)
+            with self._host_lock:  # the host rung
+                m = self._host_store.match_blocks(chain) if self._host_store is not None else None
+                if m is None:
+                    return None
+                e, n = m
+                parts = [t[:, :n].clone() for t in (e.k, e.v, e.ks, e.vs) if t is not None]
+                return session(chain, n, e.tokens, e.weight_version, e.kv_dtype, parts)
+
+        out: list[dict] = []
+        try:
+            with self._sched_lock, torch.no_grad():
+                chains: list[list[int]] = [[int(x) for x in keys]] if keys else []
+                if top > 0:
+                    # the longest resident chains: the device's, then the
+                    # host entries' complete blocks
+                    cand = [list(fks) for fks in self._slot_fabric_keys.values()]
+                    with self._host_lock:
+                        if self._host_store is not None:
+                            for r in self._host_store.rids():
+                                e = self._host_store.peek(r)
+                                if e is not None and e.block_keys:
+                                    cand.append(list(e.block_keys))
+                    cand.sort(key=len, reverse=True)
+                    chains.extend(cand[:int(top)])
+                seen: set[str] = set()
+                for chain in chains:
+                    if not chain:
+                        continue
+                    sess = resolve_locked(chain)
+                    if sess is None or sess["meta"]["rid"] in seen:
+                        continue
+                    seen.add(sess["meta"]["rid"])
+                    out.append(sess)
+        except Exception as e:  # noqa: BLE001 — the requester prefills, never wedge
+            logger.warning(f"fabric block export failed: {e!r}")
+        return out
 
     def _ensure_host_store_locked(self, block_size: int) -> None:
         """Under `_host_lock`: an imported session (or its miss tombstone)
@@ -1200,9 +1483,13 @@ class TorchDecodeEngine(InferenceEngine):
         computed under another weight version), both with the rid
         tombstoned, so its resume counts a miss and prefills; or "rejected"
         (malformed, or over the tier's budget). `k`, `v`, `ks`, `vs` are
-        host tensors or arrays; an int8 session's land as they are.
-        Identity-only sessions (`meta_only`) come with the KV fabric and
-        are rejected."""
+        host tensors or arrays; an int8 session's land as they are. An
+        identity-only session (`meta_only`, a cheap drain) lands as an
+        identity with no version or dtype test: its resume takes the
+        sampling key and rebuilds the blocks through the fabric or a
+        prefill. A fabric run (`fabric` in meta, from `/kv_fetch` or
+        `/warm_start`) lands as any session, its bytes counted as the
+        fabric's, and its blocks are indexed for every request."""
         if self._alloc is None or self._k_pool is None:
             return "rejected"
         try:
@@ -1213,14 +1500,27 @@ class TorchDecodeEngine(InferenceEngine):
             sess_dtype = str(meta.get("kv_dtype", "fp"))
             base_key = np.asarray(meta["base_key"], dtype=np.uint32)
             rope_delta = int(meta.get("rope_delta", 0))
-            if meta.get("meta_only"):
-                return "rejected"
-            k, v = _host_tensor(k), _host_tensor(v)
+            meta_only = bool(meta.get("meta_only"))
+            if not meta_only:
+                k, v = _host_tensor(k), _host_tensor(v)
             ks = None if ks is None else _host_tensor(ks)
             vs = None if vs is None else _host_tensor(vs)
         except (KeyError, TypeError, ValueError):
             return "rejected"
         L, _, bs, nkv, hd = self._k_pool.shape
+        if meta_only:
+            # identity only: the same for any weights
+            if covered <= 0 or len(tokens) != covered or base_key.shape != (2,):
+                return "rejected"
+            entry = HostKVEntry(rid=rid, k=None, v=None, nb=nb, covered=covered, tokens=tokens,
+                                base_key=base_key, weight_version=wv, kv_dtype=sess_dtype)
+            with self._host_lock:
+                self._ensure_host_store_locked(bs)
+                if not self._host_store.put(entry):
+                    return "rejected"
+            with self._metrics_lock:
+                self._migrate["in_sessions"] += 1
+            return "ok"
         if (tuple(k.shape) != (L, nb, bs, nkv, hd) or tuple(v.shape) != tuple(k.shape)
                 or base_key.shape != (2,) or covered <= 0 or len(tokens) != covered
                 or self._alloc.blocks_for(covered) != nb or rope_delta != 0):
@@ -1240,17 +1540,28 @@ class TorchDecodeEngine(InferenceEngine):
             # the migration raced a weight commit
             return self._refuse_import(rid, bs, f"weight version {wv} != {self._version}",
                                        "version_rejects")
+        # the blocks are indexed for every request (and join this replica's
+        # digest), salted with the session's version: a legacy -1 never
+        # matches a current chain
         entry = HostKVEntry(rid=rid, k=k, v=v, ks=ks, vs=vs, nb=nb, covered=covered,
                             tokens=tokens, base_key=base_key, weight_version=wv,
-                            kv_dtype=sess_dtype)
+                            kv_dtype=sess_dtype,
+                            block_keys=(tuple(kv_fabric.chain_keys(tokens, bs, wv, sess_dtype))
+                                        if self._fabric_on else ()))
         with self._host_lock:
             self._ensure_host_store_locked(bs)
             if not self._host_store.put(entry):
                 return "rejected"
+        nbytes = sum(t.numel() * t.element_size() for t in (k, v, ks, vs) if t is not None)
         with self._metrics_lock:
-            self._migrate["in_sessions"] += 1
-            self._migrate["in_bytes"] += sum(t.numel() * t.element_size()
-                                             for t in (k, v, ks, vs) if t is not None)
+            if meta.get("fabric"):
+                # a fetched run, not a moved session: the migration counters
+                # keep meaning whole sessions
+                self._fabric_wire["sessions_in"] += 1
+                self._fabric_wire["fetch_bytes"] += nbytes
+            else:
+                self._migrate["in_sessions"] += 1
+                self._migrate["in_bytes"] += nbytes
         return "ok"
 
     # -- admission (jax_decode.py:2559-3093) ----------------------------
@@ -1267,6 +1578,9 @@ class TorchDecodeEngine(InferenceEngine):
         wave_primaries: dict[tuple[int, ...], int] = {}
         wave_pending: list[tuple[int, np.ndarray, int, int, tuple]] = []
         wave_forks: list[tuple[int, int, tuple, int]] = []
+        # prefill-only admissions, retired after the wave's prefills wrote
+        # their KV and before any chunk can run for them
+        prefill_done: list[int] = []
         while True:
             item = self._next_request()
             if item is None:
@@ -1280,6 +1594,10 @@ class TorchDecodeEngine(InferenceEngine):
                 continue
             needs_bucket = min(_next_bucket(P - 1), S) if P > 1 else 0
             covered_t = tuple(prompt[:-1]) if P > 1 else ()
+            if P > 1:
+                # an identity-only session gives up its sampling key here,
+                # then goes down the ladder as a fresh request would
+                self._claim_meta_identity(item)
             # the host tier first: an exact offloaded match needs neither
             # prefill nor fork, and its bytes are the original KV's
             host_hit = P > 1 and self._host_match(item.rid, P - 1, prompt[:-1])
@@ -1289,9 +1607,21 @@ class TorchDecodeEngine(InferenceEngine):
                 if donor is None:
                     donor = self._find_covering_donor(covered_t)
             partial = None
+            partial_fabric = False
             is_wave_dup = P > 1 and covered_t in wave_primaries
+            # the content chain of the covered prefix, for the fabric's
+            # device rung here and its host rung once a slot is chosen
+            req_chain: list[int] = []
+            if self._fabric_on and donor is None and P > 1 and not is_wave_dup and not host_hit:
+                req_chain = kv_fabric.chain_keys(prompt[:-1], self._alloc.block_size,
+                                                 int(self._version), str(self.config.kv_dtype))
             if donor is None and P > 1 and not is_wave_dup and not host_hit:
                 found = self._find_shared_prefix(covered_t)
+                if found is None and req_chain:
+                    # the device rung: the longest block run shared with any
+                    # registration, even one that diverges past it
+                    found = self._fabric_dev_match(req_chain, P - 1)
+                    partial_fabric = found is not None
                 if found is not None:
                     donor_slot, plen = found
                     sb = min(_pow2_bucket(P - 1 - plen), S)
@@ -1347,6 +1677,22 @@ class TorchDecodeEngine(InferenceEngine):
                     # 2750-2759)
                     self._n_promote_failures += 1
                     logger.warning(f"host-KV promotion of {item.rid} failed: {e!r}")
+            if (resumed is None and not promoted and donor is None and partial is None
+                    and not is_wave_dup and req_chain):
+                # the fabric's host rung: a keyed run offloaded by any rid,
+                # or fetched from a sibling, seeds this slot, and the suffix
+                # goes through the partial path below with the slot as its
+                # own donor
+                try:
+                    fplen = self._promote_fabric_blocks(item, slot, req_chain, P - 1)
+                except PoolDry:
+                    self._overflow.insert(0, item)
+                    break
+                if fplen > 0:
+                    sb = min(_pow2_bucket(P - 1 - fplen), S)
+                    if fplen + sb <= S:
+                        partial = (slot, fplen, sb)
+                        partial_fabric = False  # counted by the rung
             if resumed is None and P > 1 and not promoted and donor is not None:
                 if donor != slot:
                     self._unregister_prefix(slot)
@@ -1373,6 +1719,10 @@ class TorchDecodeEngine(InferenceEngine):
                 budget -= sb
                 did_prefill = True
                 self._n_suffix_prefills += 1
+                if partial_fabric:
+                    # the device rung: another local rid's blocks served
+                    self._fabric_hits["local"] += 1
+                    self._fabric_hits["local_tokens"] += plen
                 try:
                     if donor_slot != slot:
                         self._unregister_prefix(slot)
@@ -1410,6 +1760,8 @@ class TorchDecodeEngine(InferenceEngine):
             self._slots[slot] = item
             self._slot_lengths[slot] = P - 1
             self._slot_epoch[slot] += 1
+            if item.prefill_only:
+                prefill_done.append(slot)
             # one base key per request, in first-admission order; a parked
             # resume keeps its slot's key, a promotion restored the entry's,
             # a requeue carries its own
@@ -1424,6 +1776,15 @@ class TorchDecodeEngine(InferenceEngine):
             self._mark_slot_dirty(slot)
             admitted = True
         self._flush_wave(wave_pending, wave_forks)
+        # prefill-only requests retire now, parked as an interrupted one
+        # (covered = prompt[:-1]); one a wave fork's fallback requeued
+        # comes back on a later pass and retires then
+        for slot in prefill_done:
+            item = self._slots[slot]
+            if item is None or not item.prefill_only:
+                continue
+            item.stop_reason = "prefill"
+            self._retire(slot)
         return admitted
 
     def _flush_wave(self, pending: list, forks: list) -> None:
@@ -1476,7 +1837,7 @@ class TorchDecodeEngine(InferenceEngine):
         nb_w = -(-bucket // bsz)
         pad = nb_w * bsz - bucket
         rows = np.concatenate([self._alloc.row(s, nb_w) for s in slots]).astype(np.int64)
-        with self._prefill_call(int(sum(lens))):
+        with self._prefill_call(int(sum(lens)), slots=B):
             rows = self._upload(rows)
             _, k, v = prefill(self.params, self._upload(ids), torch.arange(bucket, device=self.device),
                               cfg, with_logits=False, layers=self._layers)  # [B, L, bucket, nKV, hd]
@@ -2040,14 +2401,17 @@ class TorchDecodeEngine(InferenceEngine):
         item.stop_reason = reason
 
     def _retire(self, slot: int) -> None:
-        """Free the slot (jax_decode.py:3161-3194). An interrupted request
-        parks its KV for a resume under its rid; a finished one registers
+        """Free the slot (jax_decode.py:3161-3194). An interrupted or
+        prefill-only request parks its KV for a resume under its rid; a
+        finished one registers
         its whole conversation as donor material and keeps its blocks."""
         item = self._slots[slot]
         self._slots[slot] = None
         self._mark_slot_dirty(slot)
         covered = int(self._slot_lengths[slot])
-        if item is not None and item.stop_reason == "interrupt":
+        # "prefill" is the prefill role's park: no token generated, the
+        # covered rows are the prompt's KV, ready to export
+        if item is not None and item.stop_reason in ("interrupt", "prefill"):
             self._parked[item.rid] = (slot, covered, time.monotonic())
             self._parked_tokens[item.rid] = (item.prompt + item.tokens)[:covered]
         else:
@@ -2103,14 +2467,43 @@ class TorchDecodeEngine(InferenceEngine):
             raise RuntimeError("decode engine crashed") from self._thread_exc
         return await future
 
+    async def aprefill(self, req: ModelRequest) -> ModelResponse:
+        """Run only the prompt's prefill, park its KV and return (stop
+        reason "prefill", no output token): the prefill role's entry point
+        (jax_decode.py:3753-3790). The parked session is what an
+        interrupted request leaves (covered = prompt[:-1], the sampling key
+        given in admission order), so a /generate with the same rid and
+        prompt resumes it with no prefill, here or on a decode replica it
+        was exported to. Prefix sharing applies as for any admission."""
+        if self._thread_exc is not None:
+            raise RuntimeError("decode engine crashed") from self._thread_exc
+        if self._thread is None:
+            raise RuntimeError("engine not initialized: call initialize()")
+        if not req.input_ids:
+            raise ValueError("empty prompt")
+        loop = asyncio.get_running_loop()
+        future: asyncio.Future = loop.create_future()
+        self._request_q.put(_Slot(rid=req.rid, prompt=list(req.input_ids), gconfig=req.gconfig,
+                                  future=future, loop=loop, prefill_only=True))
+        if self._thread_exc is not None:
+            raise RuntimeError("decode engine crashed") from self._thread_exc
+        return await future
+
     def generate(self, req: ModelRequest, timeout: float | None = None) -> ModelResponse:
         """Blocking wrapper over `agenerate` (its own event loop thread)."""
+        return self._blocking(self.agenerate, req, timeout)
+
+    def prefill(self, req: ModelRequest, timeout: float | None = None) -> ModelResponse:
+        """Blocking wrapper over `aprefill`."""
+        return self._blocking(self.aprefill, req, timeout)
+
+    def _blocking(self, afn, req: ModelRequest, timeout: float | None) -> ModelResponse:
         done = threading.Event()
         result: list = [None, None]
 
         async def _run():
             try:
-                result[0] = await self.agenerate(req)
+                result[0] = await afn(req)
             except BaseException as e:  # noqa: BLE001 — re-raised below
                 result[1] = e
             finally:
@@ -2278,6 +2671,8 @@ class TorchDecodeEngine(InferenceEngine):
         with self._metrics_lock:
             self._chunk_itl_ms.clear()
             self._chunk_wall_itl_ms.clear()
+            self._ttft_prefill_ms.clear()
+            self._ttft_transfer_ms.clear()
             self._dev_busy_s = 0.0
             self._dev_idle_s = 0.0
             self._last_ready_t = None
@@ -2309,6 +2704,21 @@ class TorchDecodeEngine(InferenceEngine):
             itl_wall = np.asarray(self._chunk_wall_itl_ms, dtype=np.float64)
             busy, idle = self._dev_busy_s, self._dev_idle_s
             mig = dict(self._migrate)
+            wire = dict(self._fabric_wire)
+            ttft_prefill = np.asarray(self._ttft_prefill_ms, dtype=np.float64)
+            ttft_transfer = np.asarray(self._ttft_transfer_ms, dtype=np.float64)
+        hits = dict(self._fabric_hits)
+        # the fabric's digest: the keys this replica can serve, from the
+        # device index (read without the scheduler lock, as JAX does: a
+        # resize mid-copy retries) and the host tier
+        fabric_keys: list[int] = []
+        if self._fabric_on:
+            for _ in range(3):
+                try:
+                    fabric_keys = list(self._fabric_dev)
+                    break
+                except RuntimeError:
+                    continue
 
         def pct(x, q):
             return float(np.percentile(x, q)) if x.size else 0.0
@@ -2320,6 +2730,8 @@ class TorchDecodeEngine(InferenceEngine):
             hs = self._host_store
             # `if hs` would be False for an empty store (its __len__)
             on = hs is not None
+            if self._fabric_on and on:
+                fabric_keys.extend(hs.fabric_keys())
             host = dict(
                 enabled=on, budget=hs.budget_bytes if on else 0,
                 used=hs.bytes_used if on else 0, entries=len(hs) if on else 0,
@@ -2350,6 +2762,12 @@ class TorchDecodeEngine(InferenceEngine):
             "itl_wall_p50_ms": pct(itl_wall, 50),
             "itl_wall_p99_ms": pct(itl_wall, 99),
             "prefill_secs_total": round(self._prefill_secs, 6),
+            # TTFT's shares: the prefill dispatch wall per admitted slot,
+            # and the promotions' upload wall (jax_decode.py:5276-5300)
+            "ttft_prefill_p50_ms": pct(ttft_prefill, 50),
+            "ttft_prefill_p99_ms": pct(ttft_prefill, 99),
+            "ttft_transfer_p50_ms": pct(ttft_transfer, 50),
+            "ttft_transfer_p99_ms": pct(ttft_transfer, 99),
             "role": self.config.role,
             # session migration (a drain): sessions and bytes each way, and
             # imports refused as honest misses (jax_decode.py:5303-5310)
@@ -2393,7 +2811,24 @@ class TorchDecodeEngine(InferenceEngine):
             "kv_offload_failures_total": self._n_offload_failures,
             "kv_promote_failures_total": self._n_promote_failures,
             "kv_host_hit_rate": round(host["hits"] / host_lookups, 6) if host_lookups else 0.0,
-            "reprefill_tokens_avoided_total": host["avoided"],
+            # the KV fabric (jax_decode.py:5391-5412), apart from the
+            # exact-resume counters above
+            "kv_fabric_enabled": self._fabric_on,
+            "kv_fabric_local_hits_total": hits["local"],
+            "kv_fabric_remote_hits_total": hits["remote"],
+            "kv_fabric_local_tokens_avoided_total": hits["local_tokens"],
+            "kv_fabric_remote_tokens_avoided_total": hits["remote_tokens"],
+            "kv_fabric_fetch_bytes_total": wire["fetch_bytes"],
+            "kv_fabric_sessions_in_total": wire["sessions_in"],
+            "kv_fabric_meta_only_exports_total": wire["meta_only_exports"],
+            "kv_fabric_blocks_resident": len(dict.fromkeys(fabric_keys)),
+            "kv_fabric_digest": (
+                kv_fabric.encode_digest(dict.fromkeys(fabric_keys),
+                                        cap=int(self.config.kv_fabric_digest_max))
+                if self._fabric_on else ""),
+            # prefills skipped by any reuse: exact host resumes and fabric runs
+            "reprefill_tokens_avoided_total": (host["avoided"] + hits["local_tokens"]
+                                               + hits["remote_tokens"]),
             # the gather paths' KV copies: workspace gather + scatter, the
             # paged gather path the gather, the kernels none
             "kv_workspace_copy_bytes_total": self._ws_copy_bytes,

@@ -4,18 +4,27 @@ a `TorchDecodeEngine` behind the JSON-over-HTTP control plane that
 
 Routes (JAX :1187-1202), with the JAX bodies and replies:
 
-  GET  /health                  {"status": "ok", "version": N, "role"}
+  GET  /health                  {"status": "ok", "version": N, "role"}: the
+                                router's role-aware pick reads the role
   GET  /info                    model and config metadata
   GET  /metrics                 engine load and latency counters, the
                                 weight sync's counters (`weight_sync`), the
                                 idempotency table's size and hits, and the
                                 port's `kernel_launches` and
-                                `device_memory_peak`
+                                `device_memory_peak`, and the fabric's
+                                server side (`kv_fabric`)
   POST /generate                one completion with token logprobs and
                                 versions; an "xid" makes it idempotent: a
                                 duplicate of a submission in flight waits
                                 for the same result, a duplicate of a
-                                finished one gets the cached reply
+                                finished one gets the cached reply. A
+                                "kv_fabric" hint ({"peer", "keys"}) from the
+                                router pulls the peer's block runs into
+                                the host tier first (`_fabric_prefetch`)
+  POST /prefill                 the prefill role: prefill only, park the KV
+                                and, with "target", stream the session to
+                                that decode replica; idempotent per xid
+                                (JAX :909-975)
   POST /pause_generation        pause on a pass boundary; {"abort": true}
                                 ends running requests with stop reason
                                 "interrupt" (their KV stays parked)
@@ -38,15 +47,22 @@ Routes (JAX :1187-1202), with the JAX bodies and replies:
   POST /kv_commit               {"xid"}: import the staged session(s) into
                                 the host tier; a replay of a finished xid
                                 answers the first result with "dedup"
-  POST /drain                   {"targets": [addr, ...]}: park what runs and
-                                stream every parked or host-tier session to
-                                the targets (JAX :1069-1162); a concurrent
-                                drain replays the first one's result
-
-`/prefill` (the prefill role, ROADMAP.md queue 1, item 3.4), `/set_role`
-(item 4.3), `/kv_fetch` and `/warm_start` (the KV fabric, item 4.4) answer
-501. The `kv_fabric` hint of a `/generate` body is ignored, as a lone
-engine does.
+  POST /kv_fetch                {"keys" or "top", "target"}: copy the
+                                longest keyed block runs (or the `top`
+                                longest resident chains) to `target` over
+                                the migration wire (JAX :762-812)
+  POST /warm_start              {"peers", "max_sessions"}: pull each peer's
+                                longest runs here before taking traffic
+                                (JAX :865-907)
+  POST /drain                   {"targets": [addr, ...], "refetchable"?}:
+                                park what runs and stream every parked or
+                                host-tier session to the targets; a session
+                                whose complete blocks the `refetchable`
+                                digest covers goes as identity only
+                                (JAX :1069-1162); a concurrent drain
+                                replays the first one's result
+  POST /set_role                {"role"}: flip the role the router reads
+                                (the supervisor's re-role, after a drain)
 
 Threading. The JAX server runs every handler on one event loop; here
 `http.server.ThreadingHTTPServer` runs each connection on a thread of its
@@ -59,6 +75,7 @@ scheduler is its own thread.
 
 Fault seams (`core/fault_injection.py`, JAX :274, :472, :512, :690, :988):
 `server.generate` before the idempotency table and the engine,
+`server.prefill` likewise for `/prefill`,
 `server.weights.stage` per received frame, `server.weights.commit`
 before `_ctl_lock` is taken, `kv.migrate.send` before each frame a drain
 sends and `kv.migrate.recv` (fire and tear) per frame received. A raised `InjectedFault` answers 500, which
@@ -93,12 +110,13 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
 from areal_tpu_torch.api.cli_args import (
+    ROLES,
     GenerationHyperparameters,
     InferenceEngineConfig,
     TorchDecodeConfig,
 )
 from areal_tpu_torch.api.io_struct import ModelRequest, WeightUpdateMeta
-from areal_tpu_torch.core import fault_injection
+from areal_tpu_torch.core import fault_injection, kv_fabric
 from areal_tpu_torch.core.weight_transfer import WeightStaging, frame_raw_nbytes
 from areal_tpu_torch.models.convert import to_layout
 from areal_tpu_torch.models.qwen2 import ModelConfig
@@ -109,13 +127,6 @@ logger = logging.getLogger("decode_server")
 
 _GCONFIG_FIELDS = {f.name for f in dataclasses.fields(GenerationHyperparameters)}
 
-# routes of features still to port, and their ROADMAP.md queue 1 items
-_UNPORTED = {
-    "/prefill": "item 3.4, the prefill role",
-    "/kv_fetch": "item 4.4, the fleet KV fabric",
-    "/warm_start": "item 4.4, the fleet KV fabric",
-    "/set_role": "item 4.3, the prefill/decode roles",
-}
 
 
 def _parse_gconfig(d: dict[str, Any]) -> GenerationHyperparameters:
@@ -193,6 +204,15 @@ class DecodeServer:
         self._kv_lock = threading.Lock()
         self._drain_inflight: concurrent.futures.Future | None = None  # guarded-by: _drain_lock
         self._drain_lock = threading.Lock()
+        # the fabric's server side (JAX :200-214): outbound fetches in
+        # flight by hint (requests with the same hint on other threads wait
+        # on one fetch), and the counters /metrics reports as "kv_fabric"
+        self._fabric_inflight: dict[str, concurrent.futures.Future] = {}  # guarded-by: _fabric_lock
+        self._fabric_stats = dict(  # guarded-by: _fabric_lock
+            fetch_attempts=0, fetch_sessions=0, fetch_bytes=0, fetch_failures=0,
+            serve_sessions=0, serve_bytes=0, warm_start_sessions=0, warm_start_bytes=0,
+        )
+        self._fabric_lock = threading.Lock()
 
     # -- routes ---------------------------------------------------------
     def handle(self, method: str, path: str, query: dict, body: bytearray) -> dict:
@@ -209,13 +229,14 @@ class DecodeServer:
             ("POST", "/commit_weights"): self._commit_weights,
             ("POST", "/abort_weights"): self._abort_weights,
             ("POST", "/set_version"): self._set_version,
+            ("POST", "/prefill"): self._prefill,
             ("POST", "/kv_recv"): self._kv_recv,
             ("POST", "/kv_commit"): self._kv_commit,
+            ("POST", "/kv_fetch"): self._kv_fetch,
+            ("POST", "/warm_start"): self._warm_start,
             ("POST", "/drain"): self._drain,
+            ("POST", "/set_role"): self._set_role,
         }
-        if path in _UNPORTED:
-            raise _Reply(501, f"{path} is not in the PyTorch port yet: ROADMAP.md queue 1, "
-                              f"{_UNPORTED[path]}")
         fn = routes.get((method, path))
         if fn is None:
             raise _Reply(404 if all(p != path for _, p in routes) else 405,
@@ -277,6 +298,10 @@ class DecodeServer:
         with self._kv_lock:
             out["kv_migrate"] = dict(self._migrate_stats, staging_xids=len(self._kv_staging),
                                      done_xids=len(self._kv_done))
+        # the fabric's server side; the engine's kv_fabric_* keys (hits,
+        # tokens avoided, the digest) are at the top level
+        with self._fabric_lock:
+            out["kv_fabric"] = dict(self._fabric_stats, inflight=len(self._fabric_inflight))
         return out
 
     def _prune_idem_locked(self) -> None:
@@ -290,6 +315,50 @@ class DecodeServer:
             victim = next((x for x, e in self._idem.items() if e["done"]), next(iter(self._idem)))
             del self._idem[victim]
 
+    def _idempotent(self, xid: str | None, run) -> dict:
+        """`run()` once per xid: a duplicate of a submission in flight waits
+        for the same result, a duplicate of a finished one gets the cached
+        reply (with "dedup"), and a failed run leaves no entry, so its
+        retry runs again."""
+        if xid is None:
+            return run()
+        with self._idem_lock:
+            prior = self._idem.get(xid)
+            if prior is not None:
+                # a duplicate delivery: never run twice
+                self._idem_hits += 1
+                if prior["done"]:
+                    self._idem.move_to_end(xid)
+                    return {**prior["resp"], "dedup": "completed"}
+            else:
+                ent = {"done": False, "fut": concurrent.futures.Future(), "t": time.monotonic()}
+                self._idem[xid] = ent
+        if prior is not None:
+            return {**prior["fut"].result(), "dedup": "in_progress"}
+        try:
+            out = run()
+        except BaseException as e:
+            with self._idem_lock:
+                if self._idem.get(xid) is ent:
+                    del self._idem[xid]
+            ent["fut"].set_exception(e)
+            raise
+        with self._idem_lock:
+            if self._idem.get(xid) is ent:
+                self._idem[xid] = {"done": True, "resp": out, "t": time.monotonic()}
+                self._idem.move_to_end(xid)
+            self._prune_idem_locked()
+        ent["fut"].set_result(out)
+        return out
+
+    @staticmethod
+    def _request(req_body: dict) -> ModelRequest:
+        return ModelRequest(
+            rid=req_body.get("rid") or ModelRequest().rid,
+            input_ids=[int(t) for t in req_body["input_ids"]],
+            gconfig=_parse_gconfig(req_body.get("gconfig", {})),
+        )
+
     def _generate(self, query, body) -> dict:
         req_body = self._json(body)
         xid = req_body.get("xid")
@@ -297,53 +366,51 @@ class DecodeServer:
         # state moves; a delay sleeps this handler's thread only
         fault_injection.fire("server.generate", rid=str(req_body.get("rid") or ""),
                              xid=str(xid or ""), addr=str(self.addr or ""))
-        ent = None
-        if xid is not None:
-            with self._idem_lock:
-                prior = self._idem.get(xid)
-                if prior is not None:
-                    # a duplicate delivery: never generate twice
-                    self._idem_hits += 1
-                    if prior["done"]:
-                        self._idem.move_to_end(xid)
-                        return {**prior["resp"], "dedup": "completed"}
-                else:
-                    ent = {"done": False, "fut": concurrent.futures.Future(),
-                           "t": time.monotonic()}
-                    self._idem[xid] = ent
-            if prior is not None:
-                return {**prior["fut"].result(), "dedup": "in_progress"}
-        req = ModelRequest(
-            rid=req_body.get("rid") or ModelRequest().rid,
-            input_ids=[int(t) for t in req_body["input_ids"]],
-            gconfig=_parse_gconfig(req_body.get("gconfig", {})),
-        )
-        try:
+
+        def run() -> dict:
+            req = self._request(req_body)
+            hint = req_body.get("kv_fabric")
+            if hint and self.config.kv_fabric:
+                # the router says a sibling holds this prefix: pull its
+                # runs into the host tier before admission looks
+                self._fabric_prefetch(hint)
             resp = self.engine.generate(req)
-        except BaseException as e:
-            if ent is not None:
-                with self._idem_lock:
-                    if self._idem.get(xid) is ent:
-                        del self._idem[xid]
-                ent["fut"].set_exception(e)
-            raise
-        out = {
-            "output_tokens": resp.output_tokens,
-            "output_logprobs": resp.output_logprobs,
-            "output_versions": resp.output_versions,
-            "stop_reason": resp.stop_reason,
-            "latency": resp.latency,
-            "ttft": resp.ttft,
-            "itl": resp.itl,
-        }
-        if ent is not None:
-            with self._idem_lock:
-                if self._idem.get(xid) is ent:
-                    self._idem[xid] = {"done": True, "resp": out, "t": time.monotonic()}
-                    self._idem.move_to_end(xid)
-                self._prune_idem_locked()
-            ent["fut"].set_result(out)
-        return out
+            return {
+                "output_tokens": resp.output_tokens,
+                "output_logprobs": resp.output_logprobs,
+                "output_versions": resp.output_versions,
+                "stop_reason": resp.stop_reason,
+                "latency": resp.latency,
+                "ttft": resp.ttft,
+                "itl": resp.itl,
+            }
+
+        return self._idempotent(xid, run)
+
+    def _prefill(self, query, body) -> dict:
+        """The prefill role's hot path (JAX :909-975): prefill only, park
+        the KV and, with a "target", stream the session to that decode
+        replica, whose /generate of the same rid then resumes it with no
+        prefill. Idempotent per xid, as /generate."""
+        req_body = self._json(body)
+        xid = req_body.get("xid")
+        fault_injection.fire("server.prefill", rid=str(req_body.get("rid") or ""),
+                             xid=str(xid or ""), addr=str(self.addr or ""))
+
+        def run() -> dict:
+            req = self._request(req_body)
+            resp = self.engine.prefill(req)
+            out: dict[str, Any] = {"status": "ok", "stop_reason": resp.stop_reason,
+                                   "latency": resp.latency, "migrated": False, "kv_bytes": 0}
+            target = req_body.get("target")
+            if target and target != self.addr:
+                moved = self._migrate_session_out(target, req.rid, xid or f"pf-{req.rid}")
+                if moved is not None:
+                    out.update(migrated=True, kv_bytes=moved["bytes"],
+                               transfer_secs=moved["secs"])
+            return out
+
+        return self._idempotent(xid, run)
 
     def _pause(self, query, body) -> dict:
         req_body = self._json(body, optional=True)
@@ -552,16 +619,24 @@ class DecodeServer:
                        "session resumes with a re-prefill")
         return None
 
-    def _migrate_session_out(self, target: str, rid: str, xid: str,
-                             retries: int = 2) -> dict[str, Any] | None:
+    def _migrate_session_out(self, target: str, rid: str, xid: str, retries: int = 2,
+                             refetchable: "set[int] | None" = None) -> dict[str, Any] | None:
         """Export `rid` (it leaves this engine) and stream it to `target`.
         The replay budget is two whole streams under the same xid: a sender
         death and a torn frame are independent failures, and two of them
-        on one session must not downgrade it to a re-prefill."""
-        sess = self.engine.export_session(rid)
+        on one session must not downgrade it to a re-prefill. With
+        `refetchable` (the keys the survivors serve), a session they cover
+        goes as identity only (`meta_only` in the result)."""
+        # the plain call when no digest came (an engine without the fabric
+        # takes the rid alone), as JAX keeps it (:1145-1148)
+        sess = (self.engine.export_session(rid) if refetchable is None
+                else self.engine.export_session(rid, refetchable))
         if sess is None:
             return None
-        return self._stream_kv(target, sess, rid, xid, retries=retries)
+        out = self._stream_kv(target, sess, rid, xid, retries=retries)
+        if out is not None:
+            out["meta_only"] = bool(sess["meta"].get("meta_only"))
+        return out
 
     def _kv_recv(self, query, body) -> dict:
         """Stage one inbound KV frame under its migration xid."""
@@ -637,6 +712,117 @@ class DecodeServer:
             self._prune_kv_maps_locked()
         return resp
 
+    # -- the KV fabric (JAX :762-907) -------------------------------------
+    def _kv_fetch(self, query, body) -> dict:
+        """Serve keyed block runs to a sibling: resolve the chain in "keys"
+        (a list or a digest), or the `top` longest resident chains for a
+        warm start, and push the runs to "target" over the migration wire.
+        Nothing here is dropped; a failed push costs the requester a
+        prefill."""
+        import uuid
+
+        req = self._json(body)
+        target = str(req.get("target") or "")
+        if not target or target == self.addr:
+            raise _Reply(400, "target required")
+        keys = req.get("keys")
+        if isinstance(keys, str):
+            keys = kv_fabric.decode_digest(keys)
+        keys = [int(x) for x in (keys or [])]
+        top = int(req.get("top") or 0)
+        if not keys and top <= 0:
+            raise _Reply(400, "keys or top required")
+        sessions = self.engine.export_fabric_blocks(keys=keys or None, top=top)
+        served = nbytes = 0
+        xid_base = str(req.get("xid") or f"fab-{uuid.uuid4().hex[:12]}")
+        for i, sess in enumerate(sessions):
+            moved = self._stream_kv(target, sess, sess["meta"]["rid"], f"{xid_base}-{i}")
+            if moved is not None:
+                served += 1
+                nbytes += moved["bytes"]
+        with self._fabric_lock:
+            self._fabric_stats["serve_sessions"] += served
+            self._fabric_stats["serve_bytes"] += nbytes
+        return {"status": "ok", "resolved": len(sessions), "sessions": served, "bytes": nbytes}
+
+    def _fabric_prefetch(self, hint: dict[str, Any]) -> None:
+        """Act on a router hint ({"peer", "keys"}) before the engine sees
+        the request: pull the matching runs from the peer, so admission
+        finds them in the host tier. Requests with the same hint on other
+        threads wait on the one fetch (no lock is held while waiting). Any
+        failure degrades to a local prefill, with the same stream."""
+        from areal_tpu_torch.utils.http import request_with_retry
+
+        peer = str(hint.get("peer") or "")
+        keys = hint.get("keys")
+        if not peer or not keys or peer == self.addr:
+            return
+        dedup = keys if isinstance(keys, str) else ",".join(map(str, keys))
+        with self._fabric_lock:
+            fut = self._fabric_inflight.get(dedup)
+            owner = fut is None
+            if owner:
+                fut = self._fabric_inflight[dedup] = concurrent.futures.Future()
+                self._fabric_stats["fetch_attempts"] += 1
+        if not owner:
+            fut.result()  # the owner always sets a result
+            return
+        out = None
+        try:
+            out = request_with_retry(peer, "/kv_fetch", payload={"keys": keys, "target": self.addr},
+                                     max_retries=1,
+                                     timeout=float(self.config.kv_fabric_fetch_timeout_s))
+            with self._fabric_lock:
+                self._fabric_stats["fetch_sessions"] += int(out.get("sessions") or 0)
+                self._fabric_stats["fetch_bytes"] += int(out.get("bytes") or 0)
+        except Exception as e:  # noqa: BLE001 — degrade to a local prefill, never wedge
+            with self._fabric_lock:
+                self._fabric_stats["fetch_failures"] += 1
+            logger.warning(f"fabric prefetch from {peer} failed ({e!r}); prefilling locally")
+        finally:
+            with self._fabric_lock:
+                self._fabric_inflight.pop(dedup, None)
+            fut.set_result(out)
+
+    def _warm_start(self, query, body) -> dict:
+        """Before this replica takes traffic, ask each peer to push its
+        longest resident runs here; a peer that cannot serve adds nothing."""
+        from areal_tpu_torch.utils.http import request_with_retry
+
+        req = self._json(body)
+        peers = [p for p in req.get("peers") or [] if p and p != self.addr]
+        k = int(req.get("max_sessions") or 4)
+        if not peers or k <= 0:
+            raise _Reply(400, "peers required")
+        sessions = nbytes = failures = 0
+        for peer in peers:
+            try:
+                out = request_with_retry(peer, "/kv_fetch", payload={"top": k, "target": self.addr},
+                                         max_retries=1,
+                                         timeout=float(self.config.kv_fabric_fetch_timeout_s))
+                sessions += int(out.get("sessions") or 0)
+                nbytes += int(out.get("bytes") or 0)
+            except Exception as e:  # noqa: BLE001 — best effort
+                failures += 1
+                logger.warning(f"warm start from {peer} failed: {e!r}")
+        with self._fabric_lock:
+            self._fabric_stats["warm_start_sessions"] += sessions
+            self._fabric_stats["warm_start_bytes"] += nbytes
+        return {"status": "ok", "peers": len(peers), "sessions": sessions, "bytes": nbytes,
+                "failures": failures}
+
+    def _set_role(self, query, body) -> dict:
+        """Flip this replica's role (the supervisor's re-role, after a
+        drain). Every replica serves every route; the role only steers the
+        router, which reads it at its next poll."""
+        role = str(self._json(body).get("role", "")).lower()
+        if role not in ROLES:
+            raise _Reply(400, f"bad role {role!r}")
+        old = self.config.role
+        self.config.role = role
+        logger.info(f"role flipped {old} -> {role}")
+        return {"status": "ok", "old_role": old, "role": role}
+
     def _drain(self, query, body) -> dict:
         """Stream every resumable session to `targets` (a scale-down or a
         replace): running requests end "interrupt" with their KV parked,
@@ -672,30 +858,41 @@ class DecodeServer:
     def _drain_once(self, req: dict[str, Any], targets: list[str]) -> dict[str, Any]:
         import uuid
 
+        # the cheap drain: sessions whose blocks the survivors can fetch
+        # by content key travel as identity only (the supervisor sends the
+        # union of the survivors' digests)
+        refetchable: set[int] | None = None
+        rf = req.get("refetchable")
+        if rf is not None and self.config.kv_fabric:
+            if isinstance(rf, str):
+                rf = kv_fabric.decode_digest(rf)
+            refetchable = {int(x) for x in rf}
         # the whole drain holds _ctl_lock with generation paused, so a
         # client's resume that reaches this server meanwhile waits in the
         # queue and cannot take back a session before it is exported (the
         # JAX server resumes generation before it exports, and such a
-        # resume wins the session there)
+        # resume wins the session there; ROADMAP.md queue 3)
         with self._ctl_lock:
             self.engine.pause_generation()
             try:
                 aborted = self.engine.abort_all() if req.get("abort_active", True) else 0
                 rids = self.engine.list_exportable_sessions()
-                drained = failed = total = 0
+                drained = failed = total = meta_only = 0
                 for i, rid in enumerate(rids):
                     moved = self._migrate_session_out(targets[i % len(targets)], rid,
-                                                      f"drain-{uuid.uuid4().hex[:12]}")
+                                                      f"drain-{uuid.uuid4().hex[:12]}",
+                                                      refetchable=refetchable)
                     if moved is None:
                         failed += 1
                     else:
                         drained += 1
                         total += moved["bytes"]
+                        meta_only += moved["meta_only"]
             finally:
                 if not self._client_paused:
                     self.engine.continue_generation()
         return {"status": "ok", "aborted": aborted, "sessions": len(rids),
-                "drained": drained, "failed": failed, "meta_only": 0, "bytes": total}
+                "drained": drained, "failed": failed, "meta_only": meta_only, "bytes": total}
 
     # -- lifecycle ------------------------------------------------------
     def start(self, host: str = "0.0.0.0", port: int = 0) -> str:
@@ -931,9 +1128,9 @@ def main(argv: list[str] | None = None) -> None:
     p = argparse.ArgumentParser(description="areal_tpu_torch decode server")
     p.add_argument("--model-path", default="")
     p.add_argument("--dtype", default="bfloat16")
-    p.add_argument("--role", default="unified", choices=["unified", "prefill", "decode"],
-                   help="disaggregated fleet role; the port serves 'unified' "
-                        "(ROADMAP.md queue 1, item 4.3)")
+    p.add_argument("--role", default="unified", choices=list(ROLES),
+                   help="disaggregated fleet role: the router picks prefill replicas for "
+                        "/prefill and decode replicas for /generate")
     p.add_argument("--kv-migrate-chunk-mb", type=float, default=64.0)
     p.add_argument("--kv-import-pool-mb", type=float, default=256.0)
     p.add_argument("--context-length", type=int, default=32768)

@@ -34,13 +34,24 @@ circuit breaker trips after `breaker_trip_after` bad polls (failed, slow or
 metrics-erroring), probes half-open and closes when a probe request
 finishes.
 
-The same decisions as the JAX router on a unified fleet. Left out, with
-the KV fabric and the prefill/decode roles (ROADMAP.md queue 1, items
-4.3-4.4): the fabric index, remote-fetch hints and fabric-local routes
-(`_fabric_chain`'s digests, `_fabric_best_locked`), and the disaggregated
-pick (`_pick_disagg_locked`). Port replicas advertise no
-`kv_fabric_digest` and no role but "unified", and on such replicas the
-JAX router decides as this one does.
+**The KV fabric** (`kv_fabric`, JAX :395-412, :699-744, :895-983): each
+poll's `kv_fabric_digest` becomes the replica's entry in the fabric
+index (dropped on failover). With no affinity entry, `prefix_affinity`
+routes to a candidate that holds a resident run of the prompt's chain
+(`fabric_local_routes_total`); and when another replica holds a longer
+run than the chosen one, the placement carries a `kv_fabric` hint
+({"peer", "keys"}), priced at `kv_fabric_fetch_cost_factor` of a prefill,
+which the decode server acts on before admission
+(`fabric_remote_hints_total`).
+
+**Roles** (JAX :745-860). With prefill-role and decode-role replicas
+alive, `_pick_disagg_locked` picks a decode home by pool headroom,
+charged only the decode share, and a prefill replica by prefix affinity,
+charged the prompt; the placement's `prefill_url` tells the client to
+hand off (`disagg_schedules_total`). With every prefill replica
+saturated, no `prefill_url` is given and the decode replica prefills.
+
+The same decisions as the JAX router, fleet for fleet.
 
 Threading. JAX runs every handler and the poll loop on one event loop
 under an `asyncio.Lock`; here `ThreadingHTTPServer` runs each connection on
@@ -64,20 +75,16 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
-import hashlib
 import json
 import math
 import signal
-import struct
 import threading
 import time
 from collections import OrderedDict, defaultdict, deque
 from typing import Any
 
-import numpy as np
-
 from areal_tpu_torch.api.cli_args import RouterConfig
-from areal_tpu_torch.core import fault_injection
+from areal_tpu_torch.core import fault_injection, kv_fabric
 from areal_tpu_torch.launcher.decode_server import _Reply, serve_app
 from areal_tpu_torch.utils import logging, name_resolve, names
 from areal_tpu_torch.utils.http import request_with_retry
@@ -111,10 +118,11 @@ _GUARDED_BY = {
     "DecodeRouter._accepted": "_lock",
     "DecodeRouter._breaker": "_lock",
     "DecodeRouter._roles": "_lock",
+    "DecodeRouter._fabric_index": "_lock",
 }
 
 # /metrics keys the admission controller snapshots per replica (JAX
-# :110-147, less the KV fabric's and the prefill role's, items 4.3-4.4)
+# :110-147)
 _PRESSURE_KEYS = (
     "running_requests",
     "queued_requests",
@@ -128,7 +136,13 @@ _PRESSURE_KEYS = (
     "kv_host_pool_enabled",
     "kv_host_pool_occupancy",
     "prefix_cache_hit_rate",
+    # the fabric: the digest feeds the fetch hints, the counters the fleet
+    # sums on /metrics
     "kv_dtype",
+    "kv_fabric_digest",
+    "kv_fabric_local_hits_total",
+    "kv_fabric_remote_hits_total",
+    "kv_fabric_fetch_bytes_total",
     "reprefill_tokens_avoided_total",
     "role",
     "kv_migrated_in_sessions_total",
@@ -136,40 +150,11 @@ _PRESSURE_KEYS = (
     "kv_migrated_in_bytes_total",
     "kv_migrated_out_bytes_total",
     "kv_migrate_version_rejects_total",
+    "ttft_prefill_p99_ms",
+    "ttft_transfer_p99_ms",
     "prefill_secs_total",
     "device_busy_s",
 )
-
-# root parent of every prefix chain (`areal_tpu/core/kv_fabric.py:39`)
-_CHAIN_ROOT = 0x9E3779B97F4A7C15
-
-
-def _content_key(parent: int, block, weight_version: int, kv_dtype: str) -> int:
-    """64-bit content key of one block of tokens, chained on its parent's
-    (`kv_fabric.content_key`): blake2b, so the same in every process, and
-    salted by weight version and kv dtype, so a weight flip retires every
-    affinity entry."""
-    h = hashlib.blake2b(digest_size=8)
-    h.update(struct.pack("<Qq", parent & 0xFFFFFFFFFFFFFFFF, int(weight_version)))
-    h.update(kv_dtype.encode())
-    h.update(np.asarray(block, dtype=np.uint32).tobytes())
-    return int.from_bytes(h.digest(), "little")
-
-
-def prefix_chain(tokens, block_size: int, weight_version: int, kv_dtype: str,
-                 max_blocks: int = 0) -> list[int]:
-    """Chained content keys of every complete block of `tokens`, block 0
-    first (`kv_fabric.chain_keys`); `max_blocks` > 0 caps the chain."""
-    bs = max(1, int(block_size))
-    nb = len(tokens) // bs
-    if max_blocks > 0:
-        nb = min(nb, max_blocks)
-    keys, parent = [], _CHAIN_ROOT
-    for i in range(nb):
-        parent = _content_key(parent, tokens[i * bs:(i + 1) * bs], weight_version, kv_dtype)
-        keys.append(parent)
-    return keys
-
 
 class _Waiter:
     """One queued /schedule_request: placed by the queue's drain, or shed."""
@@ -242,9 +227,17 @@ class DecodeRouter:
             breaker_probe_expiries_total=0,
             breaker_closes_total=0,
             deadline_sheds_total=0,
+            disagg_schedules_total=0,
+            fabric_local_routes_total=0,
+            fabric_remote_hints_total=0,
         )
-        # replica role from /health ("unified" on every port replica)
+        # replica role from /health: a fleet with prefill and decode
+        # replicas alive schedules prefill by prefix affinity and decode by
+        # pool headroom
         self._roles: dict[str, str] = {}
+        # the fabric index: each replica's advertised content keys (its
+        # last digest; a key it evicted drops out at the next poll)
+        self._fabric_index: dict[str, set[int]] = {}
         # per-replica circuit breaker: state closed / open / half_open,
         # `bad` consecutive bad polls, `probes` in-flight half-open probe
         # requests, `probe_t` the last probe's charge (expired after
@@ -355,11 +348,17 @@ class DecodeRouter:
                         and s in self._measured_tokens):
                     del self._measured_tokens[s]
                     self._pressure.pop(s, None)
+                    self._fabric_index.pop(s, None)
                 continue
             self._metrics_fail[s] = 0
             self._measured_tokens[s] = load
             if pressure is not None:
                 self._pressure[s] = pressure
+                dig = pressure.get("kv_fabric_digest")
+                if dig:
+                    self._fabric_index[s] = set(kv_fabric.decode_digest(dig))
+                else:
+                    self._fabric_index.pop(s, None)
             # subtract only what the measurement could have seen
             self._est_since_poll[s] = max(0.0, self._est_since_poll[s] - est_snapshot)
 
@@ -446,6 +445,8 @@ class DecodeRouter:
         self._counters["requeues_total"] += moved
         self._measured_tokens.pop(dead, None)
         self._pressure.pop(dead, None)
+        # nor can a dead replica serve fabric fetches
+        self._fabric_index.pop(dead, None)
         # a replica back from the dead starts with a clean breaker
         self._breaker.pop(dead, None)
         if moved or stale:
@@ -500,7 +501,8 @@ class DecodeRouter:
         keep = set(discovered) | set(self._seed_servers)
         per_server = (self._request_counts, self._token_usage, self._est_since_poll,
                       self._metrics_fail, self._health_fail, self._measured_tokens,
-                      self._pressure, self._versions, self._breaker, self._roles)
+                      self._pressure, self._versions, self._breaker, self._roles,
+                      self._fabric_index)
         tracked = set().union(*(d for d in per_server if d is not self._versions))
         for s in tracked - keep:
             for d in per_server:
@@ -574,10 +576,11 @@ class DecodeRouter:
                 return str(d)
         return "bfloat16"
 
-    def _prefix_hashes(self, req: dict[str, Any]) -> list[int]:
-        """Block-bucketed prefix keys of the prompt, longest first: the
-        content chain of `input_prefix` at `prefix_block_tokens`, salted by
-        the fleet's weight version and kv dtype."""
+    def _fabric_chain(self, req: dict[str, Any]) -> list[int]:
+        """The content chain of the prompt's prefix at
+        `prefix_block_tokens`, block 0 first: the keys the engines index
+        their blocks under (`kv_fabric.chain_keys`, salted by the fleet's
+        weight version and kv dtype), so a match here means resident bytes."""
         prefix = req.get("input_prefix")
         if not prefix:
             return []
@@ -585,34 +588,60 @@ class DecodeRouter:
         nb = min(len(prefix) // block, self.config.prefix_max_blocks)
         if nb <= 0:
             return []
-        chain = prefix_chain(prefix, block, self.fleet_version, self._fleet_kv_dtype(),
-                             max_blocks=nb)
-        return list(reversed(chain))
+        return kv_fabric.chain_keys(prefix, block, self.fleet_version, self._fleet_kv_dtype(),
+                                    max_blocks=nb)
 
-    def _pick_locked(self, req: dict[str, Any]) -> tuple[str | None, float]:
-        """(server, prefix discount tokens) for `req`, or (None, 0) when no
-        server is admissible now (the caller queues). The discount is the
-        prompt work the server skips because it holds the prefix already:
-        the accounting charges the marginal cost."""
+    def _prefix_hashes(self, req: dict[str, Any]) -> list[int]:
+        """The prefix chain, longest first (the affinity map's keys)."""
+        return list(reversed(self._fabric_chain(req)))
+
+    def _fabric_best_locked(self, chain: list[int], skip: str | None = None
+                            ) -> tuple[str | None, int]:
+        """(server, blocks) of the longest resident run of `chain` among
+        the advertised digests, `skip` aside."""
+        best_s, best_n = None, 0
+        for s, keys in self._fabric_index.items():
+            if s == skip or s not in self.servers:
+                continue
+            n = kv_fabric.longest_run(chain, keys)
+            if n > best_n:
+                best_s, best_n = s, n
+        return best_s, best_n
+
+    def _role_of(self, s: str) -> str:
+        return self._roles.get(s, "unified")
+
+    def _pick_locked(self, req: dict[str, Any]) -> tuple[str | None, float, str | None]:
+        """(server, prefix discount tokens, prefill server) for `req`, or
+        (None, 0, None) when no server is admissible now (the caller
+        queues). The discount is the prompt work the server skips because
+        it holds the prefix already, or because the prompt's KV arrives
+        from a prefill replica: the accounting charges the marginal cost.
+        A prefill server of None means no handoff."""
         qid = req.get("qid")
         prev_url = req.get("previous_server_url")
         if (prev_url and prev_url in self.servers
                 and req.get("previous_version") == self.fleet_version
                 and self._breaker_admits(prev_url)):
-            # a resume on the same weights: its KV is parked there
-            return prev_url, 0.0
+            # a resume on the same weights: its KV is parked there, and a
+            # handoff would recompute it
+            return prev_url, 0.0, None
         if qid and qid in self._qid_to_server:
             cached = self._qid_to_server[qid]
             # a tripped breaker diverts affine traffic; the mapping stays
             if cached in self.servers and self._breaker_admits(cached):
-                return cached, 0.0
+                return cached, 0.0, None
         need = self._request_cost(req)
+        prefill_pool = [s for s in self.servers if self._role_of(s) == "prefill"]
+        decode_pool = [s for s in self.servers if self._role_of(s) != "prefill"]
+        if prefill_pool and decode_pool:
+            return self._pick_disagg_locked(req, prefill_pool, decode_pool)
         candidates = [s for s in self.servers if self._admissible(s, need)]
         if not candidates:
-            return None, 0.0
+            return None, 0.0, None
         policy = self.schedule_policy
         if policy == "prefix_affinity":
-            return self._pick_prefix_affine_locked(req, candidates, need)
+            return (*self._pick_prefix_affine_locked(req, candidates, need), None)
         if policy == "round_robin":
             addr = candidates[self._rr % len(candidates)]
             self._rr += 1
@@ -622,7 +651,33 @@ class DecodeRouter:
             addr = min(candidates, key=self._token_load)
         else:
             raise _Reply(400, f"unknown schedule policy {policy}")
-        return addr, 0.0
+        return addr, 0.0, None
+
+    def _pick_disagg_locked(self, req: dict[str, Any], prefill_pool: list[str],
+                            decode_pool: list[str]) -> tuple[str | None, float, str | None]:
+        """The role-aware pick: a decode home by pool headroom (the memory
+        a decode replica runs out of), charged only the decode share since
+        the prompt's KV comes over the wire, and a prefill replica by
+        prefix affinity (where donor forks save compute)."""
+        prompt_cost = float(req.get("prompt_len", 0))
+        decode_need = max(self._request_cost(req) - prompt_cost, 0.0)
+        decode_cands = [s for s in decode_pool if self._admissible(s, decode_need)]
+        if not decode_cands:
+            return None, 0.0, None
+        headrooms = {s: self._kv_headroom(s, decode_need) for s in decode_cands}
+        if all(h is not None for h in headrooms.values()):
+            addr = max(decode_cands, key=lambda s: headrooms[s])
+        else:
+            addr = min(decode_cands, key=self._token_load)
+        prefill_cands = [s for s in prefill_pool if self._admissible(s, prompt_cost)]
+        prefill_addr = None
+        if prefill_cands:
+            prefill_addr, _ = self._pick_prefix_affine_locked(req, prefill_cands, prompt_cost)
+            # a charge the prefill replica's next poll replaces
+            self._est_since_poll[prefill_addr] += prompt_cost
+        discount = prompt_cost if prefill_addr is not None else 0.0
+        self._counters["disagg_schedules_total"] += 1
+        return addr, discount, prefill_addr
 
     def _pick_prefix_affine_locked(self, req: dict[str, Any], candidates: list[str],
                                    need: float) -> tuple[str, float]:
@@ -648,6 +703,20 @@ class DecodeRouter:
             self._counters["affinity_hits_total"] += 1
             chosen, discount = affine, saved
             break
+        if chosen is None and hashes and self.config.kv_fabric:
+            # no affinity entry, but a candidate may hold the blocks anyway
+            # (deduplicated from another request, or fetched earlier): route
+            # by its advertised run, priced as affinity is
+            chain = hashes[::-1]
+            run_of = {s: kv_fabric.longest_run(chain, self._fabric_index[s])
+                      for s in candidates if s in self._fabric_index}
+            cand = max(run_of, key=lambda s: run_of[s]) if run_of else None
+            if cand is not None and run_of[cand] > 0:
+                saved = min(run_of[cand] * block, float(req.get("prompt_len", 0)))
+                if (self._token_load(cand) + need - saved
+                        <= self.config.affinity_load_factor * (self._token_load(best) + need)):
+                    chosen, discount = cand, saved
+                    self._counters["fabric_local_routes_total"] += 1
         if chosen is None:
             chosen = best
         for h in hashes:
@@ -657,10 +726,25 @@ class DecodeRouter:
 
     def _try_schedule_locked(self, req: dict[str, Any]) -> dict[str, Any] | None:
         """Pick and account, or None when every replica is saturated."""
-        addr, discount = self._pick_locked(req)
+        addr, discount, prefill_addr = self._pick_locked(req)
         if addr is None:
             return None
         qid = req.get("qid")
+        fabric_hint = None
+        chain = self._fabric_chain(req) if self.config.kv_fabric else []
+        if chain:
+            block = max(1, self.config.prefix_block_tokens)
+            local = kv_fabric.longest_run(chain, self._fabric_index.get(addr, frozenset()))
+            peer, run = self._fabric_best_locked(chain, skip=addr)
+            if peer is not None and run > local:
+                # the peer holds `run - local` more blocks than the chosen
+                # replica; fetching them costs the factor of prefilling
+                # them, and the rest is discounted
+                factor = min(max(float(self.config.kv_fabric_fetch_cost_factor), 0.0), 1.0)
+                saved = (run - local) * block * (1.0 - factor)
+                discount = min(discount + saved, float(req.get("prompt_len", 0)))
+                fabric_hint = {"peer": peer, "keys": kv_fabric.encode_digest(chain[:run])}
+                self._counters["fabric_remote_hints_total"] += 1
         cost = max(self._request_cost(req) - discount, 0.0)
         self._counters["schedules_total"] += 1
         self._breaker_charge_locked(addr)
@@ -672,7 +756,15 @@ class DecodeRouter:
             self._qid_cost[qid] = self._qid_cost.get(qid, 0.0) + cost
             self._qid_pending[qid] = self._qid_pending.get(qid, 0) + 1
             self._qid_touched[qid] = time.monotonic()
-        return {"url": addr, "version": self.fleet_version}
+        out = {"url": addr, "version": self.fleet_version}
+        if fabric_hint is not None:
+            # the decode server pulls these runs from the peer first
+            out["kv_fabric"] = fabric_hint
+        if prefill_addr is not None:
+            # the client prefills here first (/prefill streams the KV to
+            # `url`), then its /generate on `url` resumes with no prefill
+            out["prefill_url"] = prefill_addr
+        return out
 
     def _drain_queue_locked(self) -> None:
         """Place queued requests in FIFO order while pressure allows; an
@@ -847,10 +939,14 @@ class DecodeRouter:
                 return sum(int(p.get(key, 0) or 0) for p in self._pressure.values())
 
             return {
+                "kv_fabric_local_hits_total": fleet_sum("kv_fabric_local_hits_total"),
+                "kv_fabric_remote_hits_total": fleet_sum("kv_fabric_remote_hits_total"),
+                "kv_fabric_fetch_bytes_total": fleet_sum("kv_fabric_fetch_bytes_total"),
                 "reprefill_tokens_avoided_total": fleet_sum("reprefill_tokens_avoided_total"),
+                "fabric_indexed_servers": len(self._fabric_index),
                 "schedule_policy": self.schedule_policy,
                 "servers": list(self.servers),
-                "roles": {s: self._roles.get(s, "unified") for s in self.servers},
+                "roles": {s: self._role_of(s) for s in self.servers},
                 "kv_migrated_sessions_total": fleet_sum("kv_migrated_in_sessions_total"),
                 "kv_migrated_bytes_total": fleet_sum("kv_migrated_in_bytes_total"),
                 "queue_depth": sum(1 for w in self._waitq if not w.done()),

@@ -30,9 +30,8 @@ The safe transitions:
               its failover requeues their qids and the clients' xid
               retries land once on the servers' idempotency tables.
   re-role     a replica of a disaggregated fleet is drained and flipped
-              through `/set_role`. The planner's branch is whole, but the
-              port's replicas are all "unified" (item 4.3), so it never
-              fires here.
+              through `/set_role` when the prefill share of the fleet's
+              work leaves `rerole_band` around the prefill replicas' share.
 
 Drain first is safe: a drained replica has exported every resumable
 session to the survivors (their resumes are promotions with no prefill)
@@ -51,9 +50,12 @@ failure: backoff, then the crash loop), `supervisor.drain` inside the
 drain's deadline (a delay is a hung drain: rollback, and the drain is
 never sent) and `supervisor.kill` after a committed drain, before the kill.
 
-The fabric's `_refetchable_digest` and the warm start of a spawned replica
-wait for the KV fabric (item 4.4): a drain sends every session's bytes,
-as JAX does when no digest is available.
+The KV fabric (`kv_fabric`, JAX :810-900): a spawned replica pulls its
+peers' longest resident block runs (`/warm_start`, `warm_start_sessions`)
+before it is registered, so its first requests promote instead of
+prefilling; and a drain sends the union of the survivors' digests
+(`_refetchable_digest`), so a session they can serve again leaves as
+identity only.
 
 Run: ``python -m areal_tpu_torch.launcher.supervisor --experiment-name e
 --trial-name t --router host:port --model-path <checkpoint>``: spawned
@@ -73,7 +75,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Mapping, Protocol
 
 from areal_tpu_torch.api.cli_args import SupervisorConfig
-from areal_tpu_torch.core import fault_injection
+from areal_tpu_torch.core import fault_injection, kv_fabric
 from areal_tpu_torch.launcher.decode_server import _Reply, serve_app
 from areal_tpu_torch.utils import logging, name_resolve, names
 from areal_tpu_torch.utils.http import request_with_retry
@@ -577,6 +579,8 @@ class FleetSupervisor:
             slot.addr = handle.addr
             slot.fail_count = 0
             slot.health_fails = 0
+            peers = [s.addr for s in self._slots.values()
+                     if s.addr and s.addr != handle.addr and s.handle is not None]
         # the new replica's boot configuration, logged: a mixed fleet
         # (kv_dtype, weight_dtype) refuses its peers' sessions
         try:
@@ -588,6 +592,19 @@ class FleetSupervisor:
                         f"version={info.get('version')}")
         except Exception as e:  # noqa: BLE001 — observability only
             logger.debug(f"/info probe of {handle.addr} failed: {e!r}")
+        if peers and cfg.kv_fabric:
+            # the warm start: the siblings' longest runs land in the new
+            # replica's host tier before the router sends it traffic; a
+            # failure is a cold cache
+            try:
+                out = request_with_retry(
+                    handle.addr, "/warm_start",
+                    payload={"peers": peers, "max_sessions": int(cfg.warm_start_sessions)},
+                    timeout=cfg.drain_deadline_s, max_retries=1)
+                logger.info(f"slot {slot.slot_id} warm start: {out.get('sessions', 0)} "
+                            f"sessions, {out.get('bytes', 0)} bytes from {len(peers)} peers")
+            except Exception as e:  # noqa: BLE001 — a cold start is fine
+                logger.warning(f"warm start of {handle.addr} failed: {e!r}")
         self._register(handle.addr)
         logger.info(f"slot {slot.slot_id} spawned {handle.addr} role={slot.role}")
 
@@ -603,13 +620,41 @@ class FleetSupervisor:
         except Exception as e:  # noqa: BLE001 — a later tick replans
             logger.warning(f"{act.kind} of {slot.addr} failed: {e!r}")
 
+    def _refetchable_digest(self, survivors: list[str], victim: str | None) -> str | None:
+        """The union of the survivors' advertised content keys (their
+        `kv_fabric_digest` in the router's pressure snapshots): a session
+        whose blocks all lie in it drains as identity only, since a
+        survivor serves the bytes again over /kv_fetch."""
+        router = self._poll_router()
+        if not router:
+            return None
+        alive = set(survivors)
+        keys: set[int] = set()
+        for s, p in (router.get("pressure") or {}).items():
+            if s == victim or s not in alive:
+                continue
+            dig = (p or {}).get("kv_fabric_digest")
+            if dig:
+                keys |= set(kv_fabric.decode_digest(dig))
+        if not keys:
+            return None
+        return kv_fabric.encode_digest(sorted(keys), cap=kv_fabric.DIGEST_HARD_CAP)
+
     def _drain(self, slot: _Slot, survivors: list[str]) -> bool:
         """POST /drain within drain_deadline_s: True once it committed
         (every exportable session landed on a survivor), False when it
         failed or ran past the deadline (the caller rolls back). The
         `supervisor.drain` seam sits inside the deadline, and a drain whose
         deadline passed before it was sent is never sent."""
-        payload = {"targets": survivors}
+        payload: dict[str, Any] = {"targets": survivors}
+        if self.config.kv_fabric:
+            try:
+                refetchable = self._refetchable_digest(survivors, slot.addr)
+            except Exception as e:  # noqa: BLE001 — a full drain is always right
+                logger.debug(f"refetchable digest unavailable: {e!r}")
+                refetchable = None
+            if refetchable:
+                payload["refetchable"] = refetchable
         expired = threading.Event()
         out: dict[str, Any] = {}
 

@@ -9,7 +9,7 @@ It builds the port's CUDA kernels from the sources in the checkout, holds
 each against its plain PyTorch version on the card, then drives the main
 paths with seeded random weights in bf16: it serves 16 concurrent
 requests through `TorchDecodeEngine` at Qwen2.5-7B's full width and depth,
-drives the decode scheduler's defaults on such an engine, at 14 of its 28
+drives the decode scheduler's defaults on such an engine, at 4 of its 28
 layers as the spec and int8 engines below (GRPO groups
 forked from one prefill under run-ahead 1 and 0, a multi-turn suffix
 prefill, interrupt and parked-KV resume, stop strings, and the frequency
@@ -81,7 +81,13 @@ engine's), the fault-injection plan of two servers through the router
 with a weight push whose commit fails, a drain-first scale-down under
 traffic whose resumes are promotions on the survivor, and planted
 supervisor transitions (a replace, a crash loop, a rollback, a replayed
-migration). The PPO, multi-turn, checkpoint, decoupled and TIR runs trace
+migration); then the prefill/decode roles and the KV fabric: a mixed
+trace handed off from a prefill replica to a decode replica by the
+client (and the same trace on two unified replicas, for the ITL
+readings), a block-aligned head forked from a registration that
+diverges later, a run fetched from a sibling on a hint, a scale-up
+warm-started from its peers, a scale-down drained as identities only,
+and a re-role under traffic. The PPO, multi-turn, checkpoint, decoupled and TIR runs trace
 their last train step through the train engine's own trace window
 (`AREAL_TPU_XPROF_DIR`). The decoupled, PPO, multi-turn, checkpoint and
 TIR (t1, t2) runs, the train phase, the SFT entry point and the fleet at
@@ -1229,8 +1235,9 @@ def _serve_traffic(engine, cfg, rng) -> dict:
 # int8 serve cells, built on the same engine settings, run SERVE_LAYERS of
 # them to keep the script within its time limit (their decode steps are
 # host-bound: the launches per step scale with the depth); widths stay the
-# published ones and every launch formula reads its own L
-SERVE_LAYERS = 14
+# published ones and every launch formula reads its own L. 4 since the
+# fleet phase's (f5)-(f7) came (14 before, 28 before that)
+SERVE_LAYERS = 4
 
 
 def _serve_engine(dev: torch.device, settings: dict, layers: int = SERVE_LAYERS):
@@ -6388,6 +6395,22 @@ FLEET_F3_REQUESTS, FLEET_F3_NEW = 16, 256
 FLEET_F4_REQUESTS, FLEET_F4_NEW = 8, 128
 FLEET_EXP = "chip-smoke-fleet"
 FLEET_TIMEOUT = 300
+# (f5): JAX bench.py's bench_disagg trace (:1659-1700), greedy: decode-heavy
+# requests (short prompts, long generations) and prefill-heavy ones
+FLEET_F5_DECODE = dict(n=8, prompt=(64, 128), new=256)
+FLEET_F5_PREFILL = dict(n=8, prompt=(640, 896), new=16)
+# the prefill replica holds every parked session until its export, and the
+# router must find it admissible for the whole trace: a larger pool, and a
+# host tier that keeps an evicted parked session exportable
+FLEET_PREFILL_ROLE = dict(role="prefill", kv_pool_tokens=32768, kv_host_pool_mb=512.0)
+# one pool block of the fleet's model: 4 layers x K,V x 128 rows x 2 kv
+# heads x 128 x 2 bytes (bf16)
+FLEET_BLOCK_NBYTES = 524_288
+# (f6): a 4-block head shared by requests whose tails diverge
+FLEET_F6_HEAD, FLEET_F6_TAIL, FLEET_F6_NEW = 512, 100, 16
+FLEET_F6D_REQUESTS, FLEET_F6D_PROMPT, FLEET_F6D_NEW = 4, (200, 300), 128
+# (f7): the re-role leg's traffic
+FLEET_F7_REQUESTS, FLEET_F7_NEW = 12, 128
 
 
 def _wait_router(router, addrs: list[str], timeout: float = 60.0) -> None:
@@ -6418,6 +6441,8 @@ class _FleetReplica:
         self.engine.set_model(params, cfg)
         self.engine.initialize()
         self.served: list[tuple[str, int, bool]] = []
+        # rid -> (latency, ttft, tokens) of a served request (the engine's clock)
+        self.timing: dict[str, tuple[float, float, int]] = {}
         orig = self.engine.generate
 
         def generate(req, timeout=None):
@@ -6427,6 +6452,7 @@ class _FleetReplica:
                 self.served.append((req.rid, len(req.input_ids), False))
                 raise
             self.served.append((req.rid, len(req.input_ids), resp.stop_reason != "interrupt"))
+            self.timing[req.rid] = (resp.latency, resp.ttft, len(resp.output_tokens))
             return resp
         self.engine.generate = generate
         self.server = DecodeServer(dcfg, engine=self.engine)
@@ -6844,6 +6870,444 @@ def _fleet_f4(dev, params, cfg) -> dict:
     return out
 
 
+def _fleet_router(trial: str, reps: list):
+    """A started port router over `reps` (trial `trial`), once its poll
+    has seen every replica and its role."""
+    from areal_tpu_torch.api.cli_args import RouterConfig
+    from areal_tpu_torch.launcher.router import DecodeRouter
+
+    router = DecodeRouter(FLEET_EXP, trial, config=RouterConfig(
+        schedule_policy="prefix_affinity", health_poll_interval=0.1, dead_after_failures=2))
+    router.start("127.0.0.1", 0)
+    _wait_router(router, [r.addr for r in reps])
+    deadline = time.monotonic() + 30
+    while True:
+        with router._lock:
+            roles = {s: router._roles.get(s) for s in router.servers}
+        if all(roles.get(r.addr) == r.engine.config.role for r in reps):
+            return router
+        check(time.monotonic() < deadline, f"the router never saw the roles: {roles}")
+        time.sleep(0.05)
+
+
+def _f5_trace(cfg) -> tuple[list[ModelRequest], set[str]]:
+    """bench_disagg's mixed trace, decode-heavy and prefill-heavy requests
+    interleaved; the decode-heavy rids."""
+    rng = np.random.default_rng(SEED + 63)
+    reqs, heavy = [], set()
+    for i in range(FLEET_F5_DECODE["n"]):
+        for kind, spec in (("d", FLEET_F5_DECODE), ("p", FLEET_F5_PREFILL)):
+            n = int(rng.integers(*spec["prompt"], endpoint=True))
+            reqs.append(ModelRequest(rid=f"f5-{kind}{i}",
+                                     input_ids=rng.integers(1, cfg.vocab_size, n).tolist(),
+                                     gconfig=GenerationHyperparameters(
+                                         max_new_tokens=spec["new"], greedy=True)))
+            if kind == "d":
+                heavy.add(reqs[-1].rid)
+    return reqs, heavy
+
+
+def _f5_run(dev, params, cfg, roles: tuple, trial: str, reqs, heavy, want) -> dict:
+    """The trace on replicas of `roles` behind a port router, through the
+    client: its streams against one engine's, each replica's counters
+    over the run, K3's launches and the ITL readings: the decode-heavy
+    requests' mean wall ITL (the engine's latency less its TTFT over the
+    tokens after the first), its p50 and p99 over them, and the decoding
+    replicas' wall ITL windows (bench_disagg's reading)."""
+    L = cfg.num_hidden_layers
+    reps = [_FleetReplica(dev, params, cfg, trial, **(FLEET_PREFILL_ROLE if r == "prefill"
+                                                       else dict(role=r))) for r in roles]
+    router = None
+    try:
+        router = _fleet_router(trial, reps)
+        client = _fleet_client(trial)
+        client.addresses = [r.addr for r in reps]
+        for r in reps:
+            r.engine.reset_timing_windows()
+        m0 = [r.engine.get_metrics() for r in reps]
+        steps0 = [r.engine.decode_steps for r in reps]
+        # ---- the main path: counts to 0 just before, read just after ----
+        pa.launches = 0
+        t0 = time.perf_counter()
+        got = _streams(_fleet_wave(client, reqs))
+        wall = time.perf_counter() - t0
+        for r in reps:
+            r.engine.pause_generation()  # drain the pass in flight before reading K3
+            r.engine.continue_generation()
+        k3 = pa.launches
+        # ---- end of the main path ----
+        m1 = [r.engine.get_metrics() for r in reps]
+        steps = [r.engine.decode_steps - s for r, s in zip(reps, steps0)]
+        rm = router._metrics()
+        decoding = [r for r in reps if r.engine.config.role != "prefill"]
+        samples = np.asarray([x for r in decoding for x in r.engine._chunk_wall_itl_ms])
+        per = []
+        for r in decoding:
+            for rid, (lat, ttft, n) in r.timing.items():
+                if rid in heavy and n > 1:
+                    per.append((lat - ttft) / (n - 1) * 1e3)
+        check(len(per) == len(heavy), f"(f5) {trial}: {len(per)} decode-heavy timings")
+        exact = _exact(got, want, f"(f5) {trial} streams vs one engine's")
+        if dev.type == "cuda":
+            check(k3 == L * sum(steps), f"(f5) {trial}: K3 {k3} launches, formula {L} x "
+                                        f"{sum(steps)} decode steps")
+        delta = [{k: b[k] - a[k] for k in ("prefills_total", "suffix_prefills_total",
+                                           "prefix_forks_total", "kv_host_hits_total",
+                                           "kv_migrated_in_sessions_total",
+                                           "kv_migrated_in_bytes_total",
+                                           "kv_migrated_out_sessions_total",
+                                           "kv_migrated_out_bytes_total")}
+                 for a, b in zip(m0, m1)]
+        return dict(roles=list(roles), seconds=wall, decode_steps=steps,
+                    against_one_engine=exact, per_replica=delta,
+                    router=dict(disagg=rm["disagg_schedules_total"],
+                                schedules=rm["schedules_total"]),
+                    itl_heavy_mean_ms=dict(p50=float(np.percentile(per, 50)),
+                                           p99=float(np.percentile(per, 99)), n=len(per)),
+                    itl_wall_window_ms=dict(p50=float(np.percentile(samples, 50)),
+                                            p99=float(np.percentile(samples, 99)),
+                                            n=int(samples.size)),
+                    ttft_transfer_p99_ms=[m["ttft_transfer_p99_ms"] for m in m1],
+                    ttft_prefill_p99_ms=[m["ttft_prefill_p99_ms"] for m in m1],
+                    launches=dict(paged_attention=k3),
+                    formula=dict(paged_attention=f"{L} x {sum(steps)} decode steps"))
+    finally:
+        if router is not None:
+            router.stop()
+        for r in reps:
+            r.close()
+
+
+def _fleet_f5(dev, params, cfg) -> dict:
+    """(f5) the disaggregated handoff: a prefill replica and a decode
+    replica behind the router, every request handed off by the client;
+    then the same trace on two unified replicas, for the ITL readings."""
+    reqs, heavy = _f5_trace(cfg)
+    want, ref_s = _fleet_reference(dev, params, cfg, reqs)
+    dis = _f5_run(dev, params, cfg, ("prefill", "decode"), "f5", reqs, heavy, want)
+    pre, dec = dis["per_replica"]
+    n = len(reqs)
+    blocks = sum(-(-(len(r.input_ids) - 1) // FLEET_SERVE["page_size"]) for r in reqs)
+    check(dis["router"]["disagg"] == n, f"(f5) {dis['router']} placements for {n}")
+    check(pre["kv_migrated_out_sessions_total"] == dec["kv_migrated_in_sessions_total"] == n
+          and dec["kv_host_hits_total"] == n,
+          f"(f5) handoffs: prefill replica {pre}, decode replica {dec}")
+    check(dec["prefills_total"] == dec["suffix_prefills_total"] == 0 and pre["prefills_total"] == n,
+          f"(f5) the decode replica prefilled: {dec}")
+    check(dec["kv_migrated_in_bytes_total"] == blocks * FLEET_BLOCK_NBYTES,
+          f"(f5) {dec['kv_migrated_in_bytes_total']} bytes for {blocks} blocks of "
+          f"{FLEET_BLOCK_NBYTES}")
+    check(dis["decode_steps"][0] == 0, f"(f5) the prefill replica decoded: {dis['decode_steps']}")
+    uni = _f5_run(dev, params, cfg, ("unified", "unified"), "f5u", reqs, heavy, want)
+    return dict(requests=n, decode_heavy=FLEET_F5_DECODE, prefill_heavy=FLEET_F5_PREFILL,
+                reference_s=ref_s, migrated_blocks=blocks, block_nbytes=FLEET_BLOCK_NBYTES,
+                disagg=dis, unified=uni, card=nvidia_smi(),
+                launches=dict(paged_attention=dis["launches"]["paged_attention"]
+                              + uni["launches"]["paged_attention"]))
+
+
+def _f6_prompts(cfg, rng, n_tails: int) -> tuple[list[int], list[list[int]]]:
+    head = rng.integers(1, cfg.vocab_size, FLEET_F6_HEAD).tolist()
+    return head, [head + rng.integers(1, cfg.vocab_size, FLEET_F6_TAIL).tolist()
+                  for _ in range(n_tails)]
+
+
+def _fleet_f6(dev, params, cfg) -> dict:
+    """(f6) the fabric: (a) the device rung on one engine, (b) a fetch from
+    a sibling on a router hint, (c) a supervisor's scale-up warm-started
+    from its peers, (d) a scale-down drained as identities only."""
+    from areal_tpu_torch.api.cli_args import SupervisorConfig
+    from areal_tpu_torch.core import kv_fabric
+    from areal_tpu_torch.launcher.supervisor import FleetSupervisor
+    from areal_tpu_torch.utils.http import request_with_retry
+
+    L = cfg.num_hidden_layers
+    out: dict = {}
+    g = GenerationHyperparameters(max_new_tokens=FLEET_F6_NEW, greedy=True)
+    rng = np.random.default_rng(SEED + 64)
+    head, tails = _f6_prompts(cfg, rng, 5)
+
+    def chain(tokens):
+        return kv_fabric.chain_keys(tokens, FLEET_SERVE["page_size"], 0, "fp")
+
+    # -- (a) a head shared with a registration that diverges later ---------
+    runs = {}
+    for name, fabric in (("fabric", True), ("off", False)):
+        eng = _tier_engine(dev, params, cfg, dtype=cfg.dtype, kv_cache_dtype=cfg.dtype,
+                           kv_fabric=fabric, **FLEET_SERVE)
+        try:
+            eng.generate(ModelRequest(rid="a1", input_ids=tails[0], gconfig=g))
+            m0, s0 = eng.get_metrics(), eng.decode_steps
+            pa.launches = 0
+            r = eng.generate(ModelRequest(rid="a2", input_ids=tails[1], gconfig=g))
+            eng.pause_generation()
+            eng.continue_generation()
+            k3 = pa.launches
+            m1 = eng.get_metrics()
+            if dev.type == "cuda":
+                check(k3 == L * (eng.decode_steps - s0), f"(f6a) {name}: K3 {k3} launches")
+            runs[name] = (_streams([r]), {k: m1[k] - m0[k] for k in (
+                "prefills_total", "suffix_prefills_total", "prefix_forks_total",
+                "kv_fabric_local_hits_total", "kv_fabric_local_tokens_avoided_total")}, k3)
+        finally:
+            eng.destroy()
+    (got, fab, k3a), (want, off, _) = runs["fabric"], runs["off"]
+    check(fab == dict(prefills_total=0, suffix_prefills_total=1, prefix_forks_total=0,
+                      kv_fabric_local_hits_total=1,
+                      kv_fabric_local_tokens_avoided_total=FLEET_F6_HEAD),
+          f"(f6a) the fabric engine's second request: {fab}")
+    check(off["prefills_total"] == 1 and off["kv_fabric_local_hits_total"] == 0,
+          f"(f6a) the kv_fabric=False engine: {off}")
+    check(got[0][0] == want[0][0], "(f6a) the fork + suffix stream's tokens differ from a "
+                                   "full prefill's")
+    out["a"] = dict(fabric=fab, off=off, tokens_equal=True, k3=k3a)
+
+    # -- (b) a sibling's run fetched on a hint ------------------------------
+    a, b = (_FleetReplica(dev, params, cfg, "f6") for _ in range(2))
+    router = None
+    spawned: list = []
+    try:
+        router = _fleet_router("f6", [a, b])
+        post = dict(gconfig=dict(max_new_tokens=FLEET_F6_NEW, greedy=True))
+        request_with_retry(a.addr, "/generate", payload=dict(post, rid="b1",
+                                                             input_ids=tails[2]), timeout=120)
+        b0 = b.engine.get_metrics()
+        keys = kv_fabric.encode_digest(chain(head))
+        t0 = time.perf_counter()
+        on_b = request_with_retry(b.addr, "/generate", payload=dict(
+            post, rid="b2", input_ids=tails[3], kv_fabric=dict(peer=a.addr, keys=keys)),
+            timeout=120)
+        fetch_s = time.perf_counter() - t0
+        b1 = b.engine.get_metrics()
+        on_a = request_with_retry(a.addr, "/generate", payload=dict(post, rid="b3",
+                                                                    input_ids=tails[3]),
+                                  timeout=120)
+        fetched = b1["kv_fabric_fetch_bytes_total"] - b0["kv_fabric_fetch_bytes_total"]
+        hits = b1["kv_fabric_remote_hits_total"] - b0["kv_fabric_remote_hits_total"]
+        check(hits == 1 and fetched == 4 * FLEET_BLOCK_NBYTES
+              and b1["prefills_total"] == b0["prefills_total"],
+              f"(f6b) B: {hits} remote hits, {fetched} bytes fetched")
+        check(on_b["output_tokens"] == on_a["output_tokens"]
+              and on_b["output_logprobs"] == on_a["output_logprobs"],
+              "(f6b) B's stream differs from A's")
+        out["b"] = dict(fetched_bytes=fetched, remote_hits=hits, seconds=fetch_s,
+                        bit_equal=True, ttft_transfer_p99_ms=b1["ttft_transfer_p99_ms"],
+                        server=request_with_retry(b.addr, "/metrics",
+                                                  method="GET")["kv_fabric"])
+
+        # -- (c) a scale-up warm-started from its peers ---------------------
+        def spawn_fn(role):
+            spawned.append(_FleetReplica(dev, params, cfg, "f6", role=role))
+            return spawned[-1]
+
+        sup = FleetSupervisor(router.addr, spawn_fn, experiment_name=FLEET_EXP,
+                              trial_name="f6", config=SupervisorConfig(
+                                  min_replicas=2, max_replicas=3, scale_up_cooldown_s=0.0,
+                                  warm_start_sessions=4))
+        for r in (a, b):
+            sup.adopt(r)
+        sup._poll_router = lambda: {"queue_depth": 10}  # pressure: a scale-up
+        t0 = time.perf_counter()
+        sup._tick()
+        for w in list(sup._workers):
+            w.join(120)
+        warm_s = time.perf_counter() - t0
+        check(len(spawned) == 1, f"(f6c) {len(spawned)} replicas spawned")
+        c = spawned[0]
+        cm0 = request_with_retry(c.addr, "/metrics", method="GET")
+        r = request_with_retry(c.addr, "/generate", payload=dict(post, rid="c1",
+                                                                 input_ids=tails[4]),
+                               timeout=120)
+        cm1 = c.engine.get_metrics()
+        warm = cm0["kv_fabric"]
+        check(warm["warm_start_sessions"] >= 1 and cm0["kv_fabric_sessions_in_total"] >= 1,
+              f"(f6c) warm start: {warm}")
+        check(cm1["kv_fabric_remote_hits_total"] - cm0["kv_fabric_remote_hits_total"] == 1
+              and cm1["prefills_total"] == cm0["prefills_total"] == 0
+              and len(r["output_tokens"]) == FLEET_F6_NEW,
+              f"(f6c) the first request on the new replica: {cm1['prefills_total']} prefills")
+        out["c"] = dict(seconds=warm_s, warm_start=warm,
+                        resident_blocks=cm0["kv_fabric_blocks_resident"],
+                        supervisor=sup.get_metrics())
+    finally:
+        if router is not None:
+            router.stop()
+        for r in [a, b] + spawned:
+            r.close()
+    out["d"] = _fleet_f6d(dev, params, cfg)
+    return out
+
+
+def _fleet_f6d(dev, params, cfg) -> dict:
+    """(f6d) a scale-down whose survivor's digest covers the victim's
+    sessions: the survivor ran the same requests to the end first, the
+    victim is drained mid-stream, the sessions leave as identities only,
+    and their resumes on the survivor rebuild from its blocks."""
+    from areal_tpu_torch.api.cli_args import SupervisorConfig
+    from areal_tpu_torch.launcher.supervisor import FleetSupervisor
+    from areal_tpu_torch.utils.http import request_with_retry
+
+    rng = np.random.default_rng(SEED + 65)
+    g = GenerationHyperparameters(max_new_tokens=FLEET_F6D_NEW, greedy=True)
+    reqs = [ModelRequest(rid=f"f6d-{i}", input_ids=rng.integers(
+                1, cfg.vocab_size, int(rng.integers(*FLEET_F6D_PROMPT, endpoint=True))).tolist(),
+                gconfig=g) for i in range(FLEET_F6D_REQUESTS)]
+    surv, victim = (_FleetReplica(dev, params, cfg, "f6d") for _ in range(2))
+    router = None
+    try:
+        router = _fleet_router("f6d", [surv, victim])
+
+        # the survivor's own run, never interrupted, is the reference
+        async def on_survivor():
+            return await asyncio.gather(*[surv.engine.agenerate(r) for r in reqs])
+        want = _streams(asyncio.run(on_survivor()))
+        deadline = time.monotonic() + 30
+        while not (router._pressure.get(surv.addr) or {}).get("kv_fabric_digest"):
+            check(time.monotonic() < deadline, "(f6d) the router never saw the digest")
+            time.sleep(0.05)
+        time.sleep(0.3)  # a poll after the last retirement
+        drains = _drained_replica([victim])
+        sup = FleetSupervisor(router.addr, _no_spawn, experiment_name=FLEET_EXP,
+                              trial_name="f6d", config=SupervisorConfig(
+                                  min_replicas=1, max_replicas=2, drain_deadline_s=120.0))
+        sup.adopt(surv)
+        slot = sup.adopt(victim)
+        res: dict = {}
+
+        def run(r):
+            res[r.rid] = request_with_retry(victim.addr, "/generate", payload=dict(
+                rid=r.rid, input_ids=r.input_ids, gconfig=dict(
+                    max_new_tokens=FLEET_F6D_NEW, greedy=True)), timeout=120)
+        threads = [threading.Thread(target=run, args=(r,)) for r in reqs]
+        base = _generated([victim])
+        for t in threads:
+            t.start()
+        _mid_stream([victim], base, 4 * FLEET_F6D_REQUESTS, running=FLEET_F6D_REQUESTS)
+        s0 = surv.engine.get_metrics()
+        kill = sup._kill
+
+        def kill_after_replies(victim_slot):
+            # the interrupted requests' replies leave before the kill
+            for t in threads:
+                t.join(120)
+            kill(victim_slot)
+        sup._kill = kill_after_replies
+        sup._do_scale_down(sup._slots[slot])
+        for t in threads:
+            t.join(120)
+        (drain,) = drains
+        s1 = surv.engine.get_metrics()
+        check(victim.killed and sup.get_metrics()["scale_downs_total"] == 1,
+              f"(f6d) scale-down: {sup.get_metrics()}")
+        check(drain["sessions"] >= 1 and drain["meta_only"] == drain["sessions"]
+              == drain["drained"] and drain["failed"] == 0, f"(f6d) drain {drain}")
+        check(s1["kv_migrated_in_bytes_total"] == s0["kv_migrated_in_bytes_total"]
+              and s1["kv_migrated_in_sessions_total"] - s0["kv_migrated_in_sessions_total"]
+              == drain["sessions"], f"(f6d) block bytes on the wire: {drain}")
+        # the clients' resumes on the survivor: prompt + what they got
+        resumed = []
+        for r in reqs:
+            part = res[r.rid]
+            toks = list(part["output_tokens"])
+            if part["stop_reason"] == "interrupt":
+                more = request_with_retry(surv.addr, "/generate", payload=dict(
+                    rid=r.rid, input_ids=r.input_ids + toks, gconfig=dict(
+                        max_new_tokens=FLEET_F6D_NEW - len(toks), greedy=True)), timeout=120)
+                resumed.append(r.rid)
+                part = dict(output_tokens=toks + more["output_tokens"],
+                            output_logprobs=list(part["output_logprobs"])
+                            + more["output_logprobs"])
+            res[r.rid] = (part["output_tokens"], part["output_logprobs"])
+        s2 = surv.engine.get_metrics()
+        check(len(resumed) >= drain["sessions"], f"(f6d) {len(resumed)} resumes")
+        rebuilt = {k: s2[k] - s1[k] for k in ("prefills_total", "prefix_forks_total",
+                                               "prefix_inplace_total", "suffix_prefills_total",
+                                               "kv_fabric_local_hits_total")}
+        check(rebuilt["prefills_total"] == 0, f"(f6d) the resumes prefilled: {rebuilt}")
+        exact = _exact([res[r.rid] for r in reqs], want, "(f6d) drained streams")
+        return dict(drain=drain, resumes=len(resumed), rebuilt=rebuilt,
+                    against_never_interrupted=exact)
+    finally:
+        if router is not None:
+            router.stop()
+        for r in (surv, victim):
+            r.close()
+
+
+def _fleet_f7(dev, params, cfg) -> dict:
+    """(f7) a re-role: a supervisor over a prefill and two decode replicas,
+    told that the fleet's work is all prefill, drains a decode replica
+    under traffic and flips it through /set_role; every request completes
+    once."""
+    from areal_tpu_torch.api.cli_args import SupervisorConfig
+    from areal_tpu_torch.launcher.supervisor import FleetSupervisor
+
+    rng = np.random.default_rng(SEED + 66)
+    g = GenerationHyperparameters(max_new_tokens=FLEET_F7_NEW, greedy=True)
+    reqs = [ModelRequest(rid=f"f7-{i}", input_ids=p, gconfig=g)
+            for i, p in enumerate(_fleet_prompts(rng, cfg.vocab_size, FLEET_F7_REQUESTS))]
+    reps = [_FleetReplica(dev, params, cfg, "f7", **FLEET_PREFILL_ROLE),
+            _FleetReplica(dev, params, cfg, "f7", role="decode"),
+            _FleetReplica(dev, params, cfg, "f7", role="decode")]
+    router = None
+    try:
+        router = _fleet_router("f7", reps)
+        client = _fleet_client("f7")
+        client.addresses = [r.addr for r in reps]
+        drains = _drained_replica(reps)
+        sup = FleetSupervisor(router.addr, _no_spawn, experiment_name=FLEET_EXP,
+                              trial_name="f7", config=SupervisorConfig(
+                                  min_replicas=1, max_replicas=3, rerole_band=0.25,
+                                  rerole_cooldown_s=0.0, scale_up_util=1e9,
+                                  scale_down_util=-1.0, drain_deadline_s=120.0))
+        for r in reps:
+            sup.adopt(r, role=r.engine.config.role)
+        real = sup._poll_router
+        fake = {"pre": 0.0}
+
+        def poll():
+            # the router's view, with every replica's device time prefill:
+            # the prefill share is 1, past the band around 1 of 3
+            m = real()
+            fake["pre"] += 1.0
+            for p in (m or {}).get("pressure", {}).values():
+                p["prefill_secs_total"], p["device_busy_s"] = fake["pre"], 0.0
+            return m
+        sup._poll_router = poll
+        res: dict = {}
+        t = threading.Thread(target=lambda: res.update(r=_fleet_wave(client, reqs)))
+        base = _generated(reps[1:])
+        t0 = time.perf_counter()
+        t.start()
+        _mid_stream(reps[1:], base, 2 * FLEET_F7_REQUESTS, running=FLEET_F7_REQUESTS // 2)
+        deadline = time.monotonic() + FLEET_TIMEOUT
+        while sup.get_metrics()["reroles_total"] < 1:
+            check(time.monotonic() < deadline, f"(f7) no re-role: {sup.get_metrics()}")
+            sup._tick()
+            for w in list(sup._workers):
+                w.join(120)
+        rerole_s = time.perf_counter() - t0
+        t.join(FLEET_TIMEOUT)
+        m = sup.get_metrics()
+        check("r" in res, "(f7) the clients did not finish")
+        (drain,) = drains
+        roles = [r.engine.config.role for r in reps]
+        check(m["reroles_total"] == 1 and m["drain_rollbacks_total"] == 0
+              and drain["failed"] == 0 and sorted(roles) == ["decode", "prefill", "prefill"],
+              f"(f7) re-role: {m}, drain {drain}, roles {roles}")
+        done = collections.Counter(rid for r in reps for rid, _, ok in r.served if ok)
+        check(done == {r.rid: 1 for r in reqs}, f"(f7) completions per request: {done}")
+        check(all(len(r.output_tokens) == FLEET_F7_NEW for r in res["r"]),
+              "(f7) a request came back short")
+        return dict(requests=len(reqs), seconds=rerole_s, drain=drain, roles=roles,
+                    supervisor=m, completions=len(done))
+    finally:
+        if router is not None:
+            router.stop()
+        for r in reps:
+            r.close()
+
+
 def phase_fleet(dev: torch.device) -> dict:
     """The decode fleet on one card (ROADMAP queue 1, item 4.2): Qwen2.5-1.5B
     at full width, `FLEET_LAYERS` of its 28 layers, bf16, one set of random
@@ -6851,7 +7315,9 @@ def phase_fleet(dev: torch.device) -> dict:
     `DecodeServer` over a `TorchDecodeEngine` in this process, the port's
     router and supervisor on loopback, a `RemoteInfEngine` finding the
     router through name_resolve. (f1) routing, (f2) chaos through the
-    router, (f3) a drain-first scale-down, (f4) planted transitions."""
+    router, (f3) a drain-first scale-down, (f4) planted transitions, (f5)
+    the disaggregated handoff (and the same trace on two unified replicas),
+    (f6) the KV fabric, (f7) a re-role."""
     from areal_tpu_torch.api.cli_args import RouterConfig
     from areal_tpu_torch.launcher.router import DecodeRouter
     from areal_tpu_torch.utils import name_resolve
@@ -6887,13 +7353,21 @@ def phase_fleet(dev: torch.device) -> dict:
     secs["f4"] = time.perf_counter() - t2
     emit("fleet_f4", seconds_leg=secs["f4"], **f4)
     torch.cuda.empty_cache()
+    later = {}
+    for leg, fn in (("f5", _fleet_f5), ("f6", _fleet_f6), ("f7", _fleet_f7)):
+        t = time.perf_counter()
+        later[leg] = fn(dev, params, cfg)
+        secs[leg] = time.perf_counter() - t
+        emit(f"fleet_{leg}", seconds_leg=secs[leg], **later[leg])
+        torch.cuda.empty_cache()
     t3 = time.perf_counter()
     # (x2)'s own geometry: CHAOS_LAYERS of the 28 layers
     f2 = chaos_fleet(dev, dataclasses.replace(cfg, num_hidden_layers=CHAOS_LAYERS))
     secs["f2"] = time.perf_counter() - t3
     name_resolve.reconfigure(NameResolveConfig(type="memory"))
     launches = dict(paged_attention=f1["launches"]["paged_attention"]
-                    + f2["launches"]["paged_attention"])
+                    + f2["launches"]["paged_attention"]
+                    + later["f5"]["launches"]["paged_attention"] + later["f6"]["a"]["k3"])
     emit("fleet", model="Qwen2.5-1.5B", source=QWEN25_1_5B_SOURCE,
          cut=f"{FLEET_LAYERS} of 28 layers", replica=FLEET_SERVE, f2_chaos=f2, seconds=secs,
          device_memory_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,

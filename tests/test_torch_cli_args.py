@@ -146,6 +146,8 @@ OVERRIDES = [
     "decode.paged_attn_impl=xla", "decode.kv_layout=workspace", "decode.kv_host_pool_mb=64",
     # refused until the router and the supervisor came (item 4.2)
     "launcher.supervisor.enabled=true",
+    # refused until the prefill/decode roles came (item 4.3)
+    "decode.role=prefill", "decode.role=decode",
 ]
 
 
@@ -162,13 +164,15 @@ REFUSALS = [
     ("stats_logger.wandb.mode=online", "item 7"),
     ("stats_logger.swanlab.mode=cloud", "item 7"),
     ("stats_logger.tensorboard.path=/tmp/tb", "item 7"),
-    ("launcher.prefill_replicas=1", "item 4.3"),
+    # prefill replicas need more than one generation server (item 4.1);
+    # the roles themselves are accepted since they came (items 4.3-4.4)
+    ("launcher.prefill_replicas=1", "item 4.1"),
     # the supervisor runs as its own process and is accepted since it came
     # (item 4.2); tensor-parallel serving is still refused
     ("decode.tensor_parallel_size=2", "item 5"),
     ("cluster.n_nodes=2", "item 5"),
-    ("decode.role=prefill", "item 4.3"),
-    ("decode.role=decode", "item 4.3"),
+    ("launcher.prefill_replicas=2", "item 4.1"),
+    ("decode.tensor_parallel_size=4", "item 5"),
     ("actor.jax.virtual_pp_size=2", "item 5"),
     ("actor.jax.mesh_num_slices=2", "item 5"),
     ("actor.jax.offload_params=true", "item 7"),

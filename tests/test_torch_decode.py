@@ -388,10 +388,12 @@ def test_device_none_without_a_card_raises(monkeypatch):
     assert TorchDecodeEngine(TorchDecodeConfig(), device="cpu").device.type == "cpu"
 
 
+# the roles are accepted since they came (ROADMAP queue 1, items 4.3-4.4):
+# a role beside a setting still refused is refused for that setting
 @pytest.mark.parametrize(
     "setting",
-    [dict(role="decode"), dict(tensor_parallel_size=2),
-     dict(tensor_parallel_size=4), dict(role="prefill"),
+    [dict(role="decode", tensor_parallel_size=2), dict(tensor_parallel_size=2),
+     dict(tensor_parallel_size=4), dict(role="prefill", kv_cache_dtype="float16"),
      dict(kv_cache_dtype="float16")],  # the model here is float32
 )
 def test_unported_settings_raise(weights, setting):
@@ -399,6 +401,21 @@ def test_unported_settings_raise(weights, setting):
     eng.set_model(weights[1], TCFG)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.initialize()
+
+
+@pytest.mark.parametrize("role", ["unified", "prefill", "decode", "router"])
+def test_roles_are_accepted_as_in_jax(weights, role):
+    eng = TorchDecodeEngine(TorchDecodeConfig(**dict(SMALL, role=role)), device="cpu")
+    eng.set_model(weights[1], TCFG)
+    if role == "router":  # not a role: JAX's ValueError (jax_decode.py:721-727)
+        with pytest.raises(ValueError, match="role='router'"):
+            eng.initialize()
+        return
+    eng.initialize()
+    try:
+        assert eng.get_metrics()["role"] == role
+    finally:
+        eng.destroy()
 
 
 def test_model_path_loads_the_checkpoint(weights, tmp_path):

@@ -101,6 +101,7 @@ def test_port_has_the_expected_modules():
         "areal_tpu_torch.launcher.decode_server",
         "areal_tpu_torch.launcher.router",
         "areal_tpu_torch.launcher.supervisor",
+        "areal_tpu_torch.core.kv_fabric",
         "areal_tpu_torch.engine.ppo.critic",
         "areal_tpu_torch.engine.rw",
         "areal_tpu_torch.engine.rw.rw_engine",

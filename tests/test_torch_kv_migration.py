@@ -1,7 +1,7 @@
 """Session migration on the CPU: the port's counterparts of
-`tests/test_kv_migration.py` (the unified fleet's part; the prefill role
-is ROADMAP queue 1, item 3.4) and of the fragmentation key the router
-admits on.
+`tests/test_kv_migration.py` (the unified fleet's part; the prefill role's
+is in `tests/test_torch_disagg.py`) and of the fragmentation key the
+router admits on.
 
 - `pack_kv_session` frames are byte-equal to JAX's for the same meta and
   arrays (fp, int8, identity-only), and each package unpacks the other's.
@@ -421,11 +421,21 @@ def test_import_rejects_malformed_sessions(weights):
             dst.destroy()
     dst = _engine(weights)
     try:
-        # the port's own refusals: another fp dtype, an identity-only session
+        # the port's own refusal: another fp dtype
         assert dst.import_session(meta, k.double(), v.double()) == "rejected"
-        assert dst.import_session(dict(meta, meta_only=True), None, None) == "rejected"
     finally:
         dst.destroy()
+    # an identity-only session (a cheap drain) lands as JAX's does, and a
+    # malformed one is rejected by both
+    for jax_engine in (True, False):
+        dst = _engine(weights, jax_engine)
+        try:
+            assert dst.import_session(dict(meta, meta_only=True), None, None) == "ok"
+            assert dst.import_session(dict(meta, meta_only=True, covered=meta["covered"] + 1),
+                                      None, None) == "rejected"
+            assert dst.get_metrics()["kv_migrated_in_sessions_total"] == 1
+        finally:
+            dst.destroy()
 
 
 def test_export_from_host_tier_after_eviction(weights):

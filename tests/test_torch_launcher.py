@@ -299,12 +299,14 @@ def test_backoff_schedule_matches_jax():
 SCRATCH = ["--scratch-model", json.dumps(SMOKE_MODEL_DICT), "--dtype", "float32"]
 
 
+# the roles serve since they came (items 4.3-4.4; `tests/test_torch_disagg.py`
+# starts a server with one); tensor-parallel serving is refused with any
 @pytest.mark.parametrize("flags,item", [
-    (["--role", "prefill"], "item 4"),
-    (["--role", "decode"], "item 4"),
+    (["--role", "prefill", "--tp-size", "2"], "item 5"),
+    (["--role", "decode", "--tp-size", "8"], "item 5"),
     (["--tp-size", "4"], "item 5"),
     (["--tp-size", "2"], "item 5"),
-    (["--dtype", "float32", "--role", "decode"], "item 4"),
+    (["--dtype", "float32", "--role", "decode", "--tp-size", "3"], "item 5"),
 ])
 def test_server_refuses_unported_flags(flags, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -336,9 +338,9 @@ def test_launcher_refusals(tmp_path):
     with pytest.raises(NotImplementedError, match="item 5"):
         local.run_experiment(cfg, ["true"], device="cpu")
     # the supervisor is accepted since item 4.2 came; prefill replicas are
-    # still refused
+    # still refused: they need more than one generation server (item 4.1)
     _, cfg = _config(tmp_path, "allocation_mode=jax:d1+d1", "launcher.prefill_replicas=1")
-    with pytest.raises(NotImplementedError, match="item 4.3"):
+    with pytest.raises(NotImplementedError, match="item 4.1"):
         local.run_experiment(cfg, ["true"], device="cpu")
     with pytest.raises(SystemExit):
         local.main(["not-a-script"])

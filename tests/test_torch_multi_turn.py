@@ -137,6 +137,68 @@ def _counts(eng):
                 suffix_prefills=eng._n_suffix_prefills)
 
 
+class Rounds:
+    """Hand a workflow's requests to an engine in rounds, so that the
+    engine's schedule, and so its prefill and fork counters, do not depend
+    on when the episodes' requests reach it.
+
+    A trajectory is one call of `wf.<method>` (its requests go one after
+    another). A round starts once all `expected` trajectories have started,
+    none of the last round's requests is still in the engine, and every
+    live trajectory waits on a request: the round's requests, sorted by
+    prompt, are queued while the engine is paused and admitted as one wave.
+    Which slot a request takes, and which donor registrations survive, then
+    follow from the inputs alone, in either package. Without rounds they
+    follow the order in which tool calls and reward threads return, which
+    differs between two runs under load."""
+
+    def __init__(self, eng, wf, method: str, expected: int):
+        self.eng, self.inner = eng, eng.agenerate
+        self.expected, self.started, self.live, self.in_flight = expected, 0, 0, 0
+        self.pending: list = []
+        trajectory = getattr(wf, method)
+
+        async def counted(*args, **kwargs):
+            self.started += 1
+            self.live += 1
+            try:
+                return await trajectory(*args, **kwargs)
+            finally:
+                self.live -= 1
+                self._maybe_release()
+
+        setattr(wf, method, counted)
+        eng.agenerate = self.agenerate  # the workflows call engine.agenerate
+
+    async def agenerate(self, req):
+        fut = asyncio.get_running_loop().create_future()
+        self.pending.append((list(req.input_ids), req, fut))
+        self._maybe_release()
+        return await fut
+
+    def _maybe_release(self) -> None:
+        if (self.started < self.expected or self.in_flight or not self.pending
+                or len(self.pending) < self.live):
+            return
+        batch = sorted(self.pending, key=lambda p: p[0])
+        self.pending, self.in_flight = [], len(batch)
+        asyncio.ensure_future(self._run(batch))
+
+    async def _run(self, batch) -> None:
+        self.eng.pause_generation()
+        tasks = [asyncio.ensure_future(self.inner(req)) for _, req, _ in batch]
+        while self.eng._request_q.qsize() < len(batch):
+            await asyncio.sleep(0.001)
+        self.eng.continue_generation()
+        for (_, _, fut), task in zip(batch, tasks):
+            try:
+                fut.set_result(await task)
+            except BaseException as e:  # noqa: BLE001 — the trajectory raises it
+                fut.set_exception(e)
+            self.in_flight -= 1
+        self._maybe_release()
+
+
 def test_greedy_engines_give_equal_conversations():
     jparams = jq.init_params(jq.ModelConfig(**KW), jax.random.PRNGKey(3))
     tcfg = tq.ModelConfig(**KW)
@@ -152,6 +214,7 @@ def test_greedy_engines_give_equal_conversations():
     try:
         wf = JMultiTurn(j_reward, j_cli.GenerationHyperparameters(**gconf), JTok(), max_turns=2,
                         turn_discount=0.8)
+        Rounds(jeng, wf, "arun_episode", len(items))
         out["jax"] = jeng.rollout_batch([dict(x) for x in items], workflow=wf)
         counts["jax"] = _counts(jeng)
     finally:
@@ -163,6 +226,7 @@ def test_greedy_engines_give_equal_conversations():
     try:
         wf = TMultiTurn(t_reward, t_cli.GenerationHyperparameters(**gconf), TTok(), max_turns=2,
                         turn_discount=0.8)
+        Rounds(teng, wf, "arun_episode", len(items))
         out["torch"] = teng.rollout_batch([dict(x) for x in items], workflow=wf)
         counts["torch"] = _counts(teng)
     finally:

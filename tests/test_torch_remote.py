@@ -273,16 +273,29 @@ def test_stale_push_id_answers_409(fleet, direction):
 
 
 def test_unported_routes_answer_501(fleet):
+    """The four routes that answered 501 until the prefill/decode roles and
+    the KV fabric came serve now (no route answers 501): each package's
+    server gives the same 400 to a bad body, `/prefill` parks a prompt, and
+    `/set_role` flips the role `/health` reports."""
     addr = fleet["jax-client/torch-server"]["addr"]
-    # the prefill role and the KV fabric; /kv_recv, /kv_commit and /drain
-    # serve since session migration came (item 4.2)
-    for route, item in (("/prefill", "item 3.4"), ("/kv_fetch", "item 4.4"),
-                        ("/warm_start", "item 4.4"), ("/set_role", "item 4.3")):
-        with pytest.raises(thttp.HttpRequestError) as e:
-            _t_post(addr, route, payload={})
-        # a 5xx is retried; the last answer is the cause
-        cause = e.value.__cause__
-        assert cause.status == 501 and item in cause.body["message"]
+    jaddr = fleet["torch-client/jax-server"]["addr"]
+    bad = (("/kv_fetch", {}, "target required"),
+           ("/kv_fetch", {"target": "127.0.0.1:1"}, "keys or top required"),
+           ("/warm_start", {}, "peers required"),
+           ("/set_role", {"role": "neither"}, "bad role 'neither'"))
+    for route, body, message in bad:
+        for a in (addr, jaddr):
+            with pytest.raises(thttp.HttpRequestError) as e:
+                _t_post(a, route, payload=body)
+            assert e.value.status == 400 and e.value.body["message"] == message, (a, route)
+    for a in (addr, jaddr):
+        out = _t_post(a, "/prefill", payload=dict(rid=f"pf-{a}", input_ids=[3, 14, 15, 9, 2],
+                                                   gconfig=dict(max_new_tokens=4)))
+        assert out["stop_reason"] == "prefill" and out["migrated"] is False
+        flip = _t_post(a, "/set_role", payload={"role": "decode"})
+        assert (flip["old_role"], flip["role"]) == ("unified", "decode")
+        assert thttp.request_with_retry(a, "/health", method="GET")["role"] == "decode"
+        assert _t_post(a, "/set_role", payload={"role": "unified"})["role"] == "unified"
     info = thttp.request_with_retry(addr, "/info", method="GET")
     assert info["kv_layout"] == "paged" and info["role"] == "unified"
     m = thttp.request_with_retry(addr, "/metrics", method="GET")

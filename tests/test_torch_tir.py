@@ -53,6 +53,7 @@ from areal_tpu_torch.models.convert import params_from_numpy
 from areal_tpu_torch.models.smoke import SMOKE_MODEL_DICT
 from areal_tpu_torch.workflow import tir as ttir
 from tests.test_tir import _CharTok
+from tests.test_torch_multi_turn import Rounds
 
 ROOT = Path(__file__).resolve().parents[1]
 PKGS = {"jax": (jtir, j_cli, JResponse), "torch": (ttir, t_cli, TResponse)}
@@ -360,6 +361,8 @@ def test_greedy_engines_run_both_tools_alike():
             wf = mod.TIRWorkflow(lambda p, c, pi, ci, **kw: float(len(c) % 2),
                                  cli.GenerationHyperparameters(**gconf), tok, max_tool_calls=4,
                                  tools=tools)
+            # each sample is a trajectory; see Rounds
+            Rounds(eng, wf, "_one_sample", len(items) * gconf["n_samples"])
             out[name] = eng.rollout_batch([dict(x) for x in items], workflow=wf)
             counts[name] = _counts(eng)
         finally:
