@@ -12,7 +12,7 @@ that the port refuses what it cannot run yet, with its ROADMAP.md item:
 - a side of more than one device (`jax:d2+d1`, `d4t2`): queue 1, item 5;
 - a training backend other than `jax` (`fsdp`, `megatron`): item 5;
 - a generation backend other than `jax` (`sglang`, `vllm`,
-  `jetstream`) and the MoE hybrid sections (`attn:...|ffn:...`): item 6.
+  `jetstream`) and the MoE hybrid sections (`attn:...|ffn:...`): item 6.7.
 
 What is left is one device per side: the empty string (COLOCATE),
 `jax:d1+d1`, `jax:d1t1+d1` (DECOUPLED_TRAIN) and their spellings.
@@ -310,12 +310,12 @@ def _refuse_unported(mode: "AllocationMode", expr: str) -> None:
         if getattr(strategy, "moe_hybrid", False):
             raise NotImplementedError(
                 f"allocation_mode={expr!r}: MoE hybrid sections are not in the PyTorch "
-                "port yet: ROADMAP.md queue 1, item 6"
+                "port yet: ROADMAP.md queue 1, item 6.7"
             )
         if side == "generation" and backend not in (None, "jax"):
             raise NotImplementedError(
                 f"allocation_mode={expr!r}: the {backend!r} serving backend is not in the "
-                "PyTorch port yet: ROADMAP.md queue 1, item 6"
+                "PyTorch port yet: ROADMAP.md queue 1, item 6.7"
             )
         if side == "training" and backend not in (None, "jax"):
             raise NotImplementedError(

@@ -20,6 +20,10 @@ class ModelRequest:
     )
     metadata: dict[str, Any] = field(default_factory=dict)
     tokenizer: Any = None
+    # VLM inputs (JAX :32-42): the decode engine's tower takes processed
+    # patch dicts {"pixel_values", "image_grid_thw"}; the HTTP client
+    # base64-encodes each entry
+    image_data: list[Any] | None = None
 
     def copy(self) -> "ModelRequest":
         return ModelRequest(
@@ -28,6 +32,7 @@ class ModelRequest:
             gconfig=self.gconfig.new(),
             metadata=dict(self.metadata),
             tokenizer=self.tokenizer,
+            image_data=list(self.image_data) if self.image_data else None,
         )
 
 
@@ -87,7 +92,7 @@ class WeightUpdateMeta:
       kernels at the trainer and must match the servers' `weight_dtype`.
 
     `use_lora` (a LoRA delta push) is refused (ROADMAP.md queue 1,
-    item 6)."""
+    item 6.7)."""
 
     type: Literal["disk", "memory", "dcn"] = "memory"
     path: str | None = None

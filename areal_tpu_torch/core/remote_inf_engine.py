@@ -96,11 +96,37 @@ class RemoteBackend:
     HEALTH_ENDPOINT = "/health"
 
     def build_generate_payload(self, req: ModelRequest) -> dict[str, Any]:
-        return {
+        payload = {
             "rid": req.rid,
             "input_ids": [int(t) for t in req.input_ids],
             "gconfig": dataclasses.asdict(req.gconfig),
         }
+        if req.image_data:
+            payload["image_data"] = [self._encode_image_impl(img) for img in req.image_data]
+        return payload
+
+    @staticmethod
+    def _encode_image_impl(img: Any) -> str:
+        """bytes, a base64 string or a PIL-style image -> a base64 string
+        (JAX :89-106). The decode engine's tower takes processed patch
+        dicts, which this refuses, so a decoupled vision run fails here as
+        in JAX (ROADMAP queue 3)."""
+        import base64
+
+        if isinstance(img, (bytes, bytearray)):
+            return base64.b64encode(img).decode()
+        if isinstance(img, str):
+            return img
+        if hasattr(img, "save"):  # a PIL.Image
+            import io
+
+            buf = io.BytesIO()
+            img.save(buf, format="PNG")
+            return base64.b64encode(buf.getvalue()).decode()
+        raise TypeError(
+            f"image_data entries must be bytes, base64 str, or PIL images; "
+            f"got {type(img).__name__}"
+        )
 
     def parse_generate_response(self, data: dict[str, Any]) -> dict[str, Any]:
         return {

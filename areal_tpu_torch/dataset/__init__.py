@@ -8,11 +8,13 @@ to a loader that returns items in the framework's schema: {"messages" |
 `datasets.load_dataset` as the JAX package does, with the same canonical
 hub ids, or a local directory or file given as the path; the code
 benchmarks (`humaneval`, `openai_humaneval`, `mbpp`) read a local `.jsonl`
-directly and send any other path to their hub id; `countdown` and
-`synthetic-arith` are made offline from a seed. `transformers` and
-`datasets` are imported inside the functions that need them, so the port
-imports without them. The vision datasets are refused with the ROADMAP
-item that ports them, and so is sharding a dataset over hosts.
+directly and send any other path to their hub id; `countdown`,
+`synthetic-arith` and `synthetic-vision` are made offline from a seed;
+the vision datasets `clevr_count_70k` and `geometry3k` map to the
+vision-RLVR schema {messages, images, answer} (`_vqa_loader`).
+`transformers` and `datasets` are imported inside the functions that
+need them, so the port imports without them. Sharding a dataset over
+hosts is refused with the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -24,9 +26,6 @@ import numpy as np
 from areal_tpu_torch.core import fault_injection
 from areal_tpu_torch.models.smoke import OFFLINE_SENTINELS
 _REGISTRY: dict[str, Callable] = {}
-
-# the vision datasets of the JAX registry
-_UNPORTED = ("clevr_count_70k", "geometry3k", "synthetic-vision")
 
 
 def register_dataset(name: str):
@@ -67,10 +66,6 @@ def get_custom_dataset(
             "ROADMAP.md queue 1, item 5"
         )
     name = path.split("/")[-1].lower()
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"dataset {path!r} is not in the PyTorch port yet: ROADMAP.md queue 1, item 6"
-        )
     if name in _REGISTRY:
         return _REGISTRY[name](
             path=path, split=split, type=type, tokenizer=tokenizer,
@@ -278,6 +273,80 @@ def _hh_rlhf(path: str, split: str, type: str, tokenizer=None, max_length=None, 
         return out
 
     return ds.map(to_item, remove_columns=ds.column_names)
+
+
+def _vqa_loader(path: str, split: str):
+    """The CLEVR / Geometry3K mapper (JAX :421-453): {problem or question,
+    image or images, answer} -> the vision-RLVR item schema {messages,
+    images, answer}; a local directory or file given as the path loads
+    through `datasets.load_dataset` as any hub id does."""
+    import datasets as hf_datasets
+
+    ds = hf_datasets.load_dataset(path, split=split)
+
+    def to_item(x):
+        question = x.get("problem", x.get("question", ""))
+        return dict(
+            messages=[
+                {
+                    "role": "user",
+                    "content": [
+                        {"type": "image"},
+                        {"type": "text", "text": question},
+                    ],
+                }
+            ],
+            images=x.get("images", [x.get("image")]),
+            answer=str(x.get("answer", "")),
+        )
+
+    keep = [c for c in ds.column_names if c in ("images", "image")]
+    return ds.map(
+        to_item, remove_columns=[c for c in ds.column_names if c not in keep]
+    )
+
+
+@register_dataset("clevr_count_70k")
+def _clevr_count(path: str, split: str, type: str, tokenizer=None, max_length=None, **kw):
+    """CLEVR counting VQA (vision RLVR; JAX :456)."""
+    return _vqa_loader(path, split)
+
+
+@register_dataset("synthetic-vision")
+def _synthetic_vision(path: str, split: str, type: str, tokenizer=None, max_length=None,
+                      **kw):
+    """The offline vision-RLVR dataset (JAX :462-497; no hub, no
+    processor): processed patch dicts in the window-major format the
+    decode engine's tower takes, with pre-tokenized prompts that carry
+    `SMOKE_IMAGE_TOKEN` spans; the vision counterpart of synthetic-arith.
+    The same seed gives JAX's items bit for bit."""
+    from areal_tpu_torch.models.smoke import SMOKE_IMAGE_TOKEN, smoke_vision_config
+
+    vis = smoke_vision_config()
+    n_items = kw.get("n_items", 256 if split == "train" else 64)
+    rng = np.random.RandomState(kw.get("seed", 0) + (split == "train"))
+    items = []
+    for _ in range(n_items):
+        count = int(rng.randint(1, 5))
+        # a 1x4x4 patch grid -> 16 patches -> 4 merged image tokens; the
+        # pixel intensity encodes the "object count", so it is learnable
+        pixels = (
+            rng.randn(16, vis.patch_dim).astype(np.float32) * 0.1
+            + count / 4.0
+        )
+        image = dict(
+            pixel_values=pixels,
+            image_grid_thw=np.array([[1, 4, 4]], dtype=np.int64),
+        )
+        prompt = [5, *([SMOKE_IMAGE_TOKEN] * 4), 9, 2]
+        items.append(dict(input_ids=prompt, images=[image], answer=str(count)))
+    return items
+
+
+@register_dataset("geometry3k")
+def _geometry3k(path: str, split: str, type: str, tokenizer=None, max_length=None, **kw):
+    """Geometry3K multimodal geometry problems (JAX :500)."""
+    return _vqa_loader(path, split)
 
 
 @register_dataset("torl_data")

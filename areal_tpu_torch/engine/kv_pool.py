@@ -212,6 +212,12 @@ class HostKVEntry:
     # the pool scheme that wrote k/v ("fp" | "int8"): an exported session
     # carries it, and an import into a pool of the other scheme is refused
     kv_dtype: str = "fp"
+    # the slot's m-rope position delta (an image session's; 0 for text),
+    # restored at promotion (JAX :183-263)
+    rope_delta: int = 0
+    # an image session: its KV depends on pixels its tokens cannot key, so
+    # it takes no fabric keys and never travels as identity only
+    image: bool = False
     # the fabric's content keys of the entry's complete blocks
     # (`core/kv_fabric.chain_keys` over `tokens` at the pool's block size,
     # salted with the weight version and the dtype): the store indexes

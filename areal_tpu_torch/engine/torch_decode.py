@@ -138,6 +138,20 @@ serving core and its default scheduling).
   digest covers every complete block, and `import_session` lands such a
   session as an identity whose resume keeps its sampling key and rebuilds
   the blocks through the fabric or a prefill.
+
+- **Vision** (jax_decode.py:925-1144, 2884-2912). `set_vision_model`
+  installs a Qwen2-VL / Qwen2.5-VL tower (`models/qwen2_vl.py`); a
+  checkpoint whose config has `vision_config` loads its `visual.*` tower
+  at `initialize`. A request carrying `image_data` (processed patch
+  dicts) is encoded at admission, its vision vectors spliced over the
+  image-pad positions, and prefilled on its own from those embeddings
+  with m-rope tables; its slot then decodes with its m-rope position
+  delta as a rotary offset (`_slot_rope_delta`, in every decode and
+  verify pass). Image KV depends on pixels the tokens cannot see, so an
+  image slot never forks, never joins a wave, never suffix-prefills,
+  never registers as a donor and stays out of the fabric and of
+  identity-only drains; its delta travels with it through the host tier
+  and session migration. Without a tower an image request raises.
 """
 
 from __future__ import annotations
@@ -170,6 +184,7 @@ from areal_tpu_torch.engine.kv_pool import HostKVEntry, HostKVStore, KVBlockAllo
 from areal_tpu_torch.engine.sampling import sample, slot_base_key
 from areal_tpu_torch.models import hf_io
 from areal_tpu_torch.models.convert import to_tensor
+from areal_tpu_torch.models import qwen2_vl
 from areal_tpu_torch.models.qwen2 import (
     WEIGHT_DTYPES,
     ModelConfig,
@@ -317,6 +332,8 @@ class _Slot:
     # the prefill role's admission (`aprefill`): retired with stop reason
     # "prefill" right after its prefill, its KV parked
     prefill_only: bool = False
+    # processed patch dicts of a VLM request (ModelRequest.image_data)
+    image_data: list | None = None
 
 
 @dataclass
@@ -460,6 +477,15 @@ class TorchDecodeEngine(InferenceEngine):
         # frequency penalty: [R, V] f32 token counts, made on first use
         self._freq_counts: torch.Tensor | None = None
         self._slot_used_freq: np.ndarray | None = None
+        # the vision tower (set_vision_model), and per slot the m-rope
+        # position delta its decode adds to the rotary position and
+        # whether its KV came from an image prefill
+        self._vision_params: dict[str, torch.Tensor] | None = None
+        self._vision_config: qwen2_vl.VisionConfig | None = None
+        self._image_token_id: int | None = None
+        self._mrope_sections: tuple[int, ...] | None = None
+        self._slot_rope_delta: np.ndarray | None = None
+        self._slot_image: np.ndarray | None = None
         # prefill device intervals not yet read into prefill_seconds
         self._prefill_events: list[tuple[Any, Any]] = []
         self._prefill_secs = 0.0
@@ -564,6 +590,7 @@ class TorchDecodeEngine(InferenceEngine):
                                             param_dtype=self.config.dtype)
             self.set_model(hf_io.load_hf_params(self.config.model_path, mc, device=self.device),
                            mc)
+            self._maybe_load_vision_tower(self.config.model_path)
         cfg = self.model_config
         if self.config.weight_dtype not in WEIGHT_DTYPES:
             raise ValueError(
@@ -656,6 +683,8 @@ class TorchDecodeEngine(InferenceEngine):
         self._slot_keys = np.zeros((R, 2), dtype=np.int64)
         self._slot_epoch = np.zeros(R, dtype=np.int64)
         self._slot_used_freq = np.zeros(R, dtype=bool)
+        self._slot_rope_delta = np.zeros(R, dtype=np.int64)
+        self._slot_image = np.zeros(R, dtype=bool)
         self._admission_seq = 0
         self._parked, self._parked_tokens = {}, {}
         self._prefix_lookup, self._slot_prefix = {}, [None] * R
@@ -707,6 +736,7 @@ class TorchDecodeEngine(InferenceEngine):
         self._k_pool = self._v_pool = self._k_scale = self._v_scale = None
         self._dev_last = self._dev_lengths = self._ctl = self._dev_table = None
         self._freq_counts = None
+        self._vision_params = None
         self._alloc = None
         self._prefix_lookup.clear()
         self._parked.clear()
@@ -720,6 +750,125 @@ class TorchDecodeEngine(InferenceEngine):
         """The pool operands of `decode_step_paged`: the K and V pools, or
         `(int8 data, f32 scales)` tuples when kv_dtype="int8"."""
         return join_pool(self._k_pool, self._k_scale), join_pool(self._v_pool, self._v_scale)
+
+    # -- the vision tower (jax_decode.py:925-1083) -----------------------
+    def _maybe_load_vision_tower(self, model_path: str) -> None:
+        """A VLM checkpoint (its config.json carries "vision_config") also
+        installs its `visual.*` tower, its image token and its m-rope
+        sections, so image requests serve from the checkpoint alone.
+        The tower's geometry is the vision_config's own; only a Qwen2-VL
+        layout takes the language model's width as its merger output (the
+        JAX engine lays the language width over a Qwen2.5-VL tower's
+        `hidden_size` too: ROADMAP queue 3)."""
+        import json
+        import os
+
+        cfg_path = os.path.join(model_path, "config.json")
+        if not os.path.exists(cfg_path):
+            return
+        with open(cfg_path) as f:
+            raw = json.load(f)
+        if "vision_config" not in raw:
+            return
+        vc = dict(raw["vision_config"])
+        if "out_hidden_size" in vc or "intermediate_size" in vc:
+            vc.setdefault("out_hidden_size", raw["hidden_size"])
+        else:
+            vc["hidden_size"] = raw["hidden_size"]
+        vcfg = qwen2_vl.VisionConfig.from_hf_dict(vc)
+        rs = raw.get("rope_scaling") or {}
+        mrope = (tuple(rs["mrope_section"])
+                 if rs.get("type", rs.get("rope_type")) in ("mrope", "default")
+                 and "mrope_section" in rs else None)
+        self.set_vision_model(hf_io.load_hf_vision_params(model_path, vcfg, device=self.device),
+                              vcfg, raw.get("image_token_id", 151655), mrope_sections=mrope)
+        logger.info(f"vision tower loaded: depth={vcfg.depth} embed={vcfg.embed_dim}")
+
+    def set_vision_model(self, vision_params: dict[str, torch.Tensor],
+                         vision_config: "qwen2_vl.VisionConfig", image_token_id: int,
+                         mrope_sections: tuple[int, ...] | None = None) -> None:
+        """Install a vision tower (`models/qwen2_vl.py`'s flat parameters,
+        copied onto the engine's device) so requests carrying
+        `image_data` serve instead of raising. Each entry of `image_data`
+        is a processed patch dict in the HF AutoProcessor's format:
+        {"pixel_values": [N, patch_dim] WINDOW-MAJOR rows,
+        "image_grid_thw": [n, 3]}. `mrope_sections` turns on Qwen2-VL's
+        m-rope positions (rope_scaling.mrope_section); without them an
+        image prompt takes 1-D positions."""
+        want = qwen2_vl.vision_param_shapes(vision_config)
+        if set(vision_params) != set(want):
+            missing = sorted(set(want) - set(vision_params))[:5]
+            extra = sorted(set(vision_params) - set(want))[:5]
+            raise KeyError(f"vision parameter names differ: missing {missing}, extra {extra}")
+        for name, t in vision_params.items():
+            if tuple(t.shape) != tuple(want[name]):
+                raise ValueError(f"{name}: shape {tuple(t.shape)} != {want[name]}")
+        self._vision_params = {k: v.detach().to(self.device, copy=True)
+                               for k, v in vision_params.items()}
+        self._vision_config = vision_config
+        self._image_token_id = int(image_token_id)
+        self._mrope_sections = (tuple(int(x) for x in mrope_sections)
+                                if mrope_sections else None)
+
+    def _encode_images(self, image_data: list) -> torch.Tensor:
+        """Processed patch dicts -> [K, hidden] language-space embeddings
+        in the model's dtype, on the engine's device. pixel_values rows
+        are window-major already (the HF processor's order), and the 2-D
+        rope coordinates follow the same permutation. The JAX engine pads
+        rows to buckets so that `jit` compiles once per bucket; here every
+        row is real, so no `valid` mask is needed."""
+        vcfg = self._vision_config
+        pv = np.concatenate([np.asarray(d["pixel_values"], dtype=np.float32) for d in image_data])
+        thw = np.concatenate([np.asarray(d["image_grid_thw"]).reshape(-1, 3) for d in image_data])
+        coords = qwen2_vl.patch_grid_coords(thw, vcfg.spatial_merge_size).astype(np.int64)
+        dtype = torch_dtype(self.model_config.dtype)
+        return qwen2_vl.forward_vision(self._vision_params, self._upload(pv).to(dtype),
+                                       self._upload(coords), vcfg)
+
+    def _image_rope_tables(self, prompt: list[int], image_data: list, bucket: int):
+        """(cos, sin) [bucket, hd/2] on the device, and the rope delta, of a
+        multimodal prompt (jax_decode.py:1048-1083). With m-rope sections,
+        HF get_rope_index positions (`qwen2_vl.mrope_positions`), the
+        rows past the prompt continuing scalar positions; without, 1-D
+        positions and delta 0."""
+        cfg = self.model_config
+        if self._mrope_sections is None:
+            pos3 = np.broadcast_to(np.arange(bucket, dtype=np.int32), (3, bucket))
+            delta = 0
+        else:
+            thw = np.concatenate([np.asarray(d["image_grid_thw"]).reshape(-1, 3)
+                                  for d in image_data])
+            pos, delta = qwen2_vl.mrope_positions(
+                np.asarray(prompt, dtype=np.int64), thw, self._image_token_id,
+                self._vision_config.spatial_merge_size)
+            pos3 = np.zeros((3, bucket), dtype=np.int32)
+            n = min(pos.shape[1], bucket)
+            pos3[:, :n] = pos[:, :n]
+            if bucket > n:  # the pad tail: scalar positions on from the last
+                cont = pos[:, n - 1].max() + 1 + np.arange(bucket - n)
+                pos3[:, n:] = cont[None, :]
+        sections = self._mrope_sections or (cfg.head_dim_ // 2,)
+        cos, sin = qwen2_vl.mrope_table(pos3, cfg.head_dim_, cfg.rope_theta, sections)
+        return cos.to(self.device), sin.to(self.device), int(delta)
+
+    def _image_prefill(self, slot: int, item: _Slot, prompt: list[int], ids: np.ndarray,
+                       pre: int, bucket: int) -> None:
+        """Prefill one image request into the slot's first blocks (fp or
+        int8 pool alike, jax_decode.py:1085-1144): the tower's vectors
+        spliced over the image-pad positions of the request's own prompt
+        (generated tokens of a requeued request never splice), m-rope
+        tables for every row, and the slot's rope delta set."""
+        img = self._encode_images(item.image_data)
+        cos, sin, delta = self._image_rope_tables(prompt, item.image_data, bucket)
+        self._slot_rope_delta[slot] = delta
+        ids_t = self._upload(ids)
+        splice_ids = np.array(ids)
+        splice_ids[len(item.prompt):] = 0
+        embeds = qwen2_vl.splice_image_embeds(
+            self.params["embed/embedding"][ids_t].to(torch_dtype(self.model_config.dtype)),
+            self._upload(splice_ids), img, self._image_token_id)
+        self._prefill_batch([slot], ids[None], [pre], bucket,
+                            embeds=embeds[None], rope=(cos[None], sin[None]))
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device. On the card the copy goes
@@ -875,7 +1024,9 @@ class TorchDecodeEngine(InferenceEngine):
 
     def _register_prefix(self, slot: int, covered: list[int]) -> None:
         self._unregister_prefix(slot)
-        if not covered:
+        if not covered or self._slot_image[slot]:
+            # image KV depends on pixels the token key cannot see: a text
+            # request with the same tokens must never fork from it
             return
         key = tuple(covered)
         self._slot_prefix[slot] = key
@@ -1014,6 +1165,7 @@ class TorchDecodeEngine(InferenceEngine):
             self._n_promote_failures += 1
             logger.warning(f"fabric block promotion failed: {e!r}")
             return 0
+        self._slot_rope_delta[slot] = 0
         self._register_prefix(slot, [int(t) for t in entry.tokens[:plen]])
         way = "remote" if entry.rid.startswith("fabric-") else "local"
         self._fabric_hits[way] += 1
@@ -1194,14 +1346,18 @@ class TorchDecodeEngine(InferenceEngine):
                 host = bufs  # the gather is the synchronous copy
                 timing = (time.perf_counter() - t0,)
             k, v, *scales = host
+            image = bool(self._slot_image[slot])
             entry = HostKVEntry(
                 rid=rid, k=k, v=v, ks=scales[0] if scales else None,
                 vs=scales[1] if scales else None, nb=nb, covered=int(covered),
                 tokens=list(tokens), base_key=np.array(self._slot_keys[slot]),
                 weight_version=int(self._version), kv_dtype=self.config.kv_dtype,
+                rope_delta=int(self._slot_rope_delta[slot]), image=image,
+                # an image session's blocks are keyed by no content chain
                 block_keys=(tuple(kv_fabric.chain_keys(
                     tokens, self._alloc.block_size, int(self._version),
-                    str(self.config.kv_dtype))) if self._fabric_on else ()),
+                    str(self.config.kv_dtype)))
+                    if self._fabric_on and not image else ()),
                 pending=event is not None, event=event,
                 dev=tuple(bufs) if event is not None else (),
             )
@@ -1262,9 +1418,10 @@ class TorchDecodeEngine(InferenceEngine):
         else:
             self._note_swap("in", time.perf_counter() - t0)
         self._slot_keys[slot] = entry.base_key
+        self._slot_rope_delta[slot] = entry.rope_delta
         item.base_key = np.array(entry.base_key)
         # rows [0, covered) hold exactly these tokens: a donor as valid as
-        # a prefill's
+        # a prefill's (an image slot's never register)
         self._register_prefix(slot, list(entry.tokens))
         with self._host_lock:
             self._host_store.note_hit(entry)
@@ -1285,19 +1442,23 @@ class TorchDecodeEngine(InferenceEngine):
         return rids
 
     def _session_meta(self, rid: str, covered: int, tokens: list[int], base_key,
-                      weight_version: int, nb: int, kv_dtype: str) -> dict:
+                      weight_version: int, nb: int, kv_dtype: str, rope_delta: int,
+                      image: bool) -> dict:
         """The wire metadata of a session: a host-tier entry's resume
-        contract (`core/weight_transfer.py`'s `_KV_META_REQUIRED`)."""
+        contract (`core/weight_transfer.py`'s `_KV_META_REQUIRED`), and
+        whether it is an image session."""
         return dict(rid=rid, covered=int(covered), tokens=[int(t) for t in tokens],
-                    rope_delta=0, base_key=[int(x) for x in np.asarray(base_key)],
-                    weight_version=int(weight_version), nb=int(nb), kv_dtype=str(kv_dtype))
+                    rope_delta=int(rope_delta), base_key=[int(x) for x in np.asarray(base_key)],
+                    weight_version=int(weight_version), nb=int(nb), kv_dtype=str(kv_dtype),
+                    image=bool(image))
 
     def _refetchable_meta(self, refetchable: "set[int] | None", tokens: list[int],
-                          weight_version: int, kv_dtype: str) -> bool:
+                          weight_version: int, kv_dtype: str, image: bool) -> bool:
         """The cheap drain's test: every complete block of the session is
         keyed and resident somewhere among the survivors (`refetchable`,
-        the union of their digests), so identity alone can travel."""
-        if not refetchable or not self._fabric_on:
+        the union of their digests), so identity alone can travel. Never
+        for an image session, whose KV no chain keys."""
+        if image or not refetchable or not self._fabric_on:
             return False
         keys = kv_fabric.chain_keys(tokens, self._alloc.block_size, weight_version, kv_dtype)
         return bool(keys) and all(k in refetchable for k in keys)
@@ -1338,10 +1499,12 @@ class TorchDecodeEngine(InferenceEngine):
                     if (covered <= 0 or len(tokens) != covered or nb <= 0
                             or nb > int(self._alloc.nblocks[slot])):
                         return None
+                    rd, image = int(self._slot_rope_delta[slot]), bool(self._slot_image[slot])
                     if self._refetchable_meta(refetchable, tokens, int(self._version),
-                                              str(self.config.kv_dtype)):
+                                              str(self.config.kv_dtype), image):
                         meta = self._session_meta(rid, covered, tokens, self._slot_keys[slot],
-                                                  self._version, nb, self.config.kv_dtype)
+                                                  self._version, nb, self.config.kv_dtype, rd,
+                                                  image)
                         self._parked.pop(rid, None)
                         self._parked_tokens.pop(rid, None)
                         self._register_prefix(slot, tokens)
@@ -1349,10 +1512,15 @@ class TorchDecodeEngine(InferenceEngine):
                     blocks = self._upload(self._alloc.row(slot, nb).astype(np.int64))
                     parts = [t.index_select(1, blocks).cpu() for t in self._pool_parts()]
                     meta = self._session_meta(rid, covered, tokens, self._slot_keys[slot],
-                                              self._version, nb, self.config.kv_dtype)
+                                              self._version, nb, self.config.kv_dtype, rd, image)
                     self._parked.pop(rid, None)
                     self._parked_tokens.pop(rid, None)
-                    self._register_prefix(slot, tokens)
+                    if image:
+                        # no donor material: the blocks go (the JAX engine
+                        # registers them, ROADMAP queue 3)
+                        self._release_slot_blocks(slot)
+                    else:
+                        self._register_prefix(slot, tokens)
                 else:
                     with self._host_lock:
                         store = self._host_store
@@ -1360,10 +1528,11 @@ class TorchDecodeEngine(InferenceEngine):
                     if entry is None:
                         return None
                     meta = self._session_meta(rid, entry.covered, entry.tokens, entry.base_key,
-                                              entry.weight_version, entry.nb, entry.kv_dtype)
+                                              entry.weight_version, entry.nb, entry.kv_dtype,
+                                              entry.rope_delta, entry.image)
                     if entry.meta_only or self._refetchable_meta(
                             refetchable, [int(t) for t in entry.tokens],
-                            int(entry.weight_version), str(entry.kv_dtype)):
+                            int(entry.weight_version), str(entry.kv_dtype), entry.image):
                         return self._export_meta_only(meta)
                     parts = [entry.k, entry.v] + ([] if entry.ks is None else [entry.ks, entry.vs])
             out = dict(meta=meta, k=parts[0], v=parts[1])
@@ -1500,6 +1669,7 @@ class TorchDecodeEngine(InferenceEngine):
             sess_dtype = str(meta.get("kv_dtype", "fp"))
             base_key = np.asarray(meta["base_key"], dtype=np.uint32)
             rope_delta = int(meta.get("rope_delta", 0))
+            image = bool(meta.get("image", False))
             meta_only = bool(meta.get("meta_only"))
             if not meta_only:
                 k, v = _host_tensor(k), _host_tensor(v)
@@ -1513,7 +1683,8 @@ class TorchDecodeEngine(InferenceEngine):
             if covered <= 0 or len(tokens) != covered or base_key.shape != (2,):
                 return "rejected"
             entry = HostKVEntry(rid=rid, k=None, v=None, nb=nb, covered=covered, tokens=tokens,
-                                base_key=base_key, weight_version=wv, kv_dtype=sess_dtype)
+                                base_key=base_key, weight_version=wv, kv_dtype=sess_dtype,
+                                rope_delta=rope_delta, image=image)
             with self._host_lock:
                 self._ensure_host_store_locked(bs)
                 if not self._host_store.put(entry):
@@ -1523,7 +1694,7 @@ class TorchDecodeEngine(InferenceEngine):
             return "ok"
         if (tuple(k.shape) != (L, nb, bs, nkv, hd) or tuple(v.shape) != tuple(k.shape)
                 or base_key.shape != (2,) or covered <= 0 or len(tokens) != covered
-                or self._alloc.blocks_for(covered) != nb or rope_delta != 0):
+                or self._alloc.blocks_for(covered) != nb):
             return "rejected"
         if sess_dtype != self.config.kv_dtype:
             # requantizing in flight would change the stream
@@ -1542,12 +1713,12 @@ class TorchDecodeEngine(InferenceEngine):
                                        "version_rejects")
         # the blocks are indexed for every request (and join this replica's
         # digest), salted with the session's version: a legacy -1 never
-        # matches a current chain
+        # matches a current chain; an image session's never
         entry = HostKVEntry(rid=rid, k=k, v=v, ks=ks, vs=vs, nb=nb, covered=covered,
                             tokens=tokens, base_key=base_key, weight_version=wv,
-                            kv_dtype=sess_dtype,
+                            kv_dtype=sess_dtype, rope_delta=rope_delta, image=image,
                             block_keys=(tuple(kv_fabric.chain_keys(tokens, bs, wv, sess_dtype))
-                                        if self._fabric_on else ()))
+                                        if self._fabric_on and not image else ()))
         with self._host_lock:
             self._ensure_host_store_locked(bs)
             if not self._host_store.put(entry):
@@ -1601,21 +1772,25 @@ class TorchDecodeEngine(InferenceEngine):
             # the host tier first: an exact offloaded match needs neither
             # prefill nor fork, and its bytes are the original KV's
             host_hit = P > 1 and self._host_match(item.rid, P - 1, prompt[:-1])
+            # an image request's KV depends on pixels the token key cannot
+            # see: it never forks, joins a wave or suffix-prefills
+            image = bool(item.image_data)
             donor = None
-            if P > 1 and not host_hit:
+            if P > 1 and not image and not host_hit:
                 donor = self._prefix_lookup.get(covered_t)
                 if donor is None:
                     donor = self._find_covering_donor(covered_t)
             partial = None
             partial_fabric = False
-            is_wave_dup = P > 1 and covered_t in wave_primaries
+            is_wave_dup = P > 1 and not image and covered_t in wave_primaries
             # the content chain of the covered prefix, for the fabric's
             # device rung here and its host rung once a slot is chosen
             req_chain: list[int] = []
-            if self._fabric_on and donor is None and P > 1 and not is_wave_dup and not host_hit:
+            if (self._fabric_on and donor is None and P > 1 and not image and not is_wave_dup
+                    and not host_hit):
                 req_chain = kv_fabric.chain_keys(prompt[:-1], self._alloc.block_size,
                                                  int(self._version), str(self.config.kv_dtype))
-            if donor is None and P > 1 and not is_wave_dup and not host_hit:
+            if donor is None and P > 1 and not image and not is_wave_dup and not host_hit:
                 found = self._find_shared_prefix(covered_t)
                 if found is None and req_chain:
                     # the device rung: the longest block run shared with any
@@ -1653,6 +1828,10 @@ class TorchDecodeEngine(InferenceEngine):
                         break
                     free = [evicted]
                 slot = free[0]
+                # a new occupant: an image prefill sets its delta, a
+                # promotion restores it (jax_decode.py:2722)
+                self._slot_rope_delta[slot] = 0
+                self._slot_image[slot] = image
                 if self._freq_counts is not None and self._slot_used_freq[slot]:
                     # a new occupant starts from zero penalty counts
                     self._freq_counts[slot].zero_()
@@ -1755,8 +1934,13 @@ class TorchDecodeEngine(InferenceEngine):
                     self._n_prefills += 1
                     ids = np.zeros(bucket, dtype=np.int64)
                     ids[:pre] = prompt[:-1]
-                    wave_primaries[covered_t] = slot
-                    wave_pending.append((slot, ids, pre, bucket, covered_t))
+                    if image:
+                        # one image request at a time, inside the budget
+                        # (jax_decode.py:2884-2912); never a donor
+                        self._image_prefill(slot, item, prompt, ids, pre, bucket)
+                    else:
+                        wave_primaries[covered_t] = slot
+                        wave_pending.append((slot, ids, pre, bucket, covered_t))
             self._slots[slot] = item
             self._slot_lengths[slot] = P - 1
             self._slot_epoch[slot] += 1
@@ -1825,11 +2009,13 @@ class TorchDecodeEngine(InferenceEngine):
             self._register_prefix(dst, list(covered_t))
 
     def _prefill_batch(self, slots: list[int], ids: np.ndarray, lens: list[int],
-                       bucket: int) -> None:
+                       bucket: int, embeds=None, rope=None) -> None:
         """One prefill forward of len(slots) prompts padded to `bucket`
         (rows [B, bucket] in `ids`) into each slot's first blocks. Rows
         past a prompt's length hold the pad tokens' KV; decode overwrites
-        each of them before the validity mask lets it be read."""
+        each of them before the validity mask lets it be read. An image
+        prefill passes its spliced `embeds` [B, bucket, H] and its m-rope
+        tables `rope` ([B, bucket, hd/2] cos and sin)."""
         cfg = self.model_config
         B = len(slots)
         L, nKV, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim_
@@ -1840,7 +2026,10 @@ class TorchDecodeEngine(InferenceEngine):
         with self._prefill_call(int(sum(lens)), slots=B):
             rows = self._upload(rows)
             _, k, v = prefill(self.params, self._upload(ids), torch.arange(bucket, device=self.device),
-                              cfg, with_logits=False, layers=self._layers)  # [B, L, bucket, nKV, hd]
+                              cfg, with_logits=False, layers=self._layers, input_embeds=embeds,
+                              rope_cos=None if rope is None else rope[0],
+                              rope_sin=None if rope is None else rope[1],
+                              )  # [B, L, bucket, nKV, hd]
             if pad:
                 k = F.pad(k, (0, 0, 0, 0, 0, pad))
                 v = F.pad(v, (0, 0, 0, 0, 0, pad))
@@ -1993,6 +2182,7 @@ class TorchDecodeEngine(InferenceEngine):
             temps=self._upload(temps), top_ps=self._upload(top_ps),
             greedy=self._upload(greedy), freq_pens=self._upload(pens),
             base_keys=self._upload(self._slot_keys),
+            rope_delta=self._upload(self._slot_rope_delta),
         )
         return self._ctl
 
@@ -2173,13 +2363,14 @@ class TorchDecodeEngine(InferenceEngine):
         for step in range(n_chunk):
             if gather:
                 logits = decode_step(self.params, tokens, lengths, kc, vc, self.model_config,
-                                     active=active_t, layers=self._layers)
+                                     active=active_t, layers=self._layers,
+                                     rope_offset=ctl["rope_delta"])
             else:
                 # an int8 pool on the gather path attends in place through
                 # the plain version, as JAX's xla impl does
                 logits = decode_step_paged(
                     self.params, tokens, lengths, k_pool, v_pool, table, self.model_config,
-                    active=active_t, layers=self._layers,
+                    active=active_t, layers=self._layers, rope_offset=ctl["rope_delta"],
                     **(dict(attn_fn=_pa.paged_attention_ref) if self._xla else {}),
                 )
             if use_freq:
@@ -2258,14 +2449,15 @@ class TorchDecodeEngine(InferenceEngine):
             # gather, verify over the workspace, scatter the blocks back
             kc, vc = self._gather_workspace(table)
             logits = verify_step(self.params, tokens, lengths, kc, vc, self.model_config,
-                                 active=active_t, layers=self._layers)
+                                 active=active_t, layers=self._layers,
+                                 rope_offset=ctl["rope_delta"])
             self._scatter_workspace(table, kc, vc)
         else:
             # the paged gather path attends through the plain version, which
             # gathers inside each layer (jax_decode.py:1604-1609)
             logits = verify_step_paged(
                 self.params, tokens, lengths, k_pool, v_pool, table, self.model_config,
-                active=active_t, layers=self._layers,
+                active=active_t, layers=self._layers, rope_offset=ctl["rope_delta"],
                 **(dict(attn_fn=_pa.paged_attention_qlen_ref) if self._xla else {}),
             )  # [R, W, V]
         positions = lengths[:, None] + torch.arange(W, device=dev)
@@ -2415,9 +2607,11 @@ class TorchDecodeEngine(InferenceEngine):
             self._parked[item.rid] = (slot, covered, time.monotonic())
             self._parked_tokens[item.rid] = (item.prompt + item.tokens)[:covered]
         else:
-            if item is not None and covered > 0:
+            if item is not None and covered > 0 and not item.image_data:
                 self._register_prefix(slot, (item.prompt + item.tokens)[:covered])
             else:
+                # an image slot is never donor material: its blocks go
+                self._unregister_prefix(slot)
                 self._alloc.free_slot(slot)
             self._slot_lengths[slot] = 0
         if item is not None:
@@ -2451,6 +2645,7 @@ class TorchDecodeEngine(InferenceEngine):
                 "gconfig.stop (stop strings) requires the engine to be "
                 "constructed with a tokenizer; use stop_token_ids otherwise"
             )
+        self._check_vision(req)
         loop = asyncio.get_running_loop()
         future: asyncio.Future = loop.create_future()
         item = _Slot(
@@ -2459,6 +2654,7 @@ class TorchDecodeEngine(InferenceEngine):
             gconfig=req.gconfig,
             future=future,
             loop=loop,
+            image_data=req.image_data,
         )
         self._request_q.put(item)
         # the death handler sets _thread_exc before draining the queue, so
@@ -2481,13 +2677,24 @@ class TorchDecodeEngine(InferenceEngine):
             raise RuntimeError("engine not initialized: call initialize()")
         if not req.input_ids:
             raise ValueError("empty prompt")
+        self._check_vision(req)
         loop = asyncio.get_running_loop()
         future: asyncio.Future = loop.create_future()
         self._request_q.put(_Slot(rid=req.rid, prompt=list(req.input_ids), gconfig=req.gconfig,
-                                  future=future, loop=loop, prefill_only=True))
+                                  future=future, loop=loop, prefill_only=True,
+                                  image_data=req.image_data))
         if self._thread_exc is not None:
             raise RuntimeError("decode engine crashed") from self._thread_exc
         return await future
+
+    def _check_vision(self, req: ModelRequest) -> None:
+        """An image request with no tower installed fails loudly, never as
+        image-blind text (jax_decode.py:3721, 3768)."""
+        if req.image_data and self._vision_params is None:
+            raise NotImplementedError(
+                "TorchDecodeEngine has no vision tower installed; call "
+                "set_vision_model() (models/qwen2_vl.py) to serve image inputs"
+            )
 
     def generate(self, req: ModelRequest, timeout: float | None = None) -> ModelResponse:
         """Blocking wrapper over `agenerate` (its own event loop thread)."""
@@ -2576,7 +2783,7 @@ class TorchDecodeEngine(InferenceEngine):
             if name.startswith("lora/"):
                 raise NotImplementedError(
                     "LoRA delta push is not in the PyTorch port yet "
-                    "(ROADMAP.md queue 1, item 6)"
+                    "(ROADMAP.md queue 1, item 6.7)"
                 )
             if name not in self.params:
                 raise KeyError(

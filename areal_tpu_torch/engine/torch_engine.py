@@ -358,7 +358,7 @@ class TorchTrainEngine(TrainEngine):
         cfg = self.config
         if cfg.use_lora:
             raise NotImplementedError(
-                "use_lora=True is not in the PyTorch port yet: ROADMAP.md queue 1, item 6"
+                "use_lora=True is not in the PyTorch port yet: ROADMAP.md queue 1, item 6.7"
             )
         self.ft_spec = ft_spec
         if self.model_config is None:
@@ -527,7 +527,7 @@ class TorchTrainEngine(TrainEngine):
         fault_injection.fire("train.weights.push", version=self.get_version())
         if meta.use_lora:
             raise NotImplementedError(
-                "LoRA delta push is not in the PyTorch port yet: ROADMAP.md queue 1, item 6"
+                "LoRA delta push is not in the PyTorch port yet: ROADMAP.md queue 1, item 6.7"
             )
         if meta.type == "memory":
             named = {k: v.detach() for k, v in self.params.items()}
@@ -600,7 +600,7 @@ class TorchTrainEngine(TrainEngine):
             raise ValueError("update_weights_async takes a 'dcn' WeightUpdateMeta")
         if meta.use_lora:
             raise NotImplementedError(
-                "LoRA delta push is not in the PyTorch port yet: ROADMAP.md queue 1, item 6"
+                "LoRA delta push is not in the PyTorch port yet: ROADMAP.md queue 1, item 6.7"
             )
         engine = self.rollout_engine
         if engine is None:

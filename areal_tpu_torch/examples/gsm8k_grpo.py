@@ -10,8 +10,11 @@ group of `n_samples` answers per prompt) or "multi_turn"
 up to `max_turns`, the reward discounted by `turn_discount` per extra
 turn) or "tir" (`workflow/tir.py`: ```python blocks run in a sandbox
 mid-generation and their output is spliced back as context, up to
-`max_tool_calls` per sample); "vision_rlvr" is refused (ROADMAP queue 1,
-item 6).
+`max_tool_calls` per sample) or "vision_rlvr" (`workflow/vision_rlvr.py`:
+image requests served by the decode engine's vision tower, training
+token-only; `clevr_grpo.py` is this entry point with it). A vision run
+installs a tower on the colocated engine: the checkpoint's at
+`decode.model_path`, else the offline smoke tower.
 `allocation_mode` says where rollouts decode:
 
 - empty (COLOCATE): a `TorchDecodeEngine` in process on the trainer's
@@ -67,6 +70,7 @@ from areal_tpu_torch.utils.stats_logger import StatsLogger
 from areal_tpu_torch.workflow.multi_turn import MultiTurnWorkflow
 from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
 from areal_tpu_torch.workflow.tir import TIRWorkflow
+from areal_tpu_torch.workflow.vision_rlvr import VisionRLVRWorkflow
 
 WORKFLOWS = ("rlvr", "multi_turn", "vision_rlvr", "tir")
 
@@ -78,23 +82,29 @@ def gsm8k_reward_fn(prompt, completion, prompt_ids, completion_ids, **data):
 
 
 def pick_reward_fn(dataset_path: str):
-    """The dataset's reward (JAX :52-82): `countdown` and `synthetic-arith`
-    their own, the vision datasets refused (ROADMAP.md queue 1, item 6),
-    any other name the math grader."""
+    """The dataset's reward (JAX :52-82): `countdown`, `synthetic-arith`
+    and the vision datasets their own, any other name the math grader."""
     name = dataset_path.split("/")[-1].lower()
     if name == "countdown":
         from areal_tpu_torch.reward.countdown import countdown_reward
 
         return countdown_reward
+    if name == "clevr_count_70k":
+        from areal_tpu_torch.reward.vqa import clevr_count_reward
+
+        return clevr_count_reward
+    if name == "geometry3k":
+        from areal_tpu_torch.reward.vqa import geometry3k_reward
+
+        return geometry3k_reward
     if name == "synthetic-arith":
         from areal_tpu_torch.dataset.arith import arith_reward_fn
 
         return arith_reward_fn
-    if name in ("clevr_count_70k", "geometry3k", "synthetic-vision"):
-        raise NotImplementedError(
-            f"the reward function of dataset {dataset_path!r} is not in the PyTorch "
-            "port yet: ROADMAP.md queue 1, item 6"
-        )
+    if name == "synthetic-vision":
+        from areal_tpu_torch.reward.vqa import synthetic_vision_reward
+
+        return synthetic_vision_reward
     return gsm8k_reward_fn
 
 
@@ -126,6 +136,28 @@ def build_rollout(config: GRPOConfig, alloc: AllocationMode, actor: TorchPPOActo
     rollout = TorchDecodeEngine(config.decode, config.rollout, tokenizer=tokenizer,
                                 device=device)
     rollout.set_model(actor.params, actor.model_config)
+    if config.workflow == "vision_rlvr":
+        if config.decode.model_path:
+            # the checkpoint's tower (the JAX engine loads it only when it
+            # reads the language model from the path too, so its colocated
+            # vision run serves no image: ROADMAP queue 3)
+            rollout._maybe_load_vision_tower(config.decode.model_path)
+        else:
+            # offline vision smoke (JAX :109-125): the tiny tower and the
+            # smoke image token, so synthetic-vision serves end to end
+            import torch
+
+            from areal_tpu_torch.models.qwen2_vl import init_vision_params
+            from areal_tpu_torch.models.smoke import (
+                SMOKE_IMAGE_TOKEN,
+                smoke_mrope_sections,
+                smoke_vision_config,
+            )
+
+            vis = smoke_vision_config()
+            rollout.set_vision_model(
+                init_vision_params(vis, torch.Generator().manual_seed(7)), vis,
+                SMOKE_IMAGE_TOKEN, mrope_sections=smoke_mrope_sections())
     rollout.initialize()
     return rollout, WeightUpdateMeta.from_memory(alloc)
 
@@ -154,11 +186,6 @@ def main(
     alloc = check_allocation(config.allocation_mode)
     if config.workflow not in WORKFLOWS:
         raise ValueError(f"workflow={config.workflow!r} not in {WORKFLOWS}")
-    if config.workflow == "vision_rlvr":
-        raise NotImplementedError(
-            f"workflow={config.workflow!r} is not in the PyTorch port yet: "
-            "ROADMAP.md queue 1, item 6"
-        )
 
     actor = TorchPPOActor(config.actor, device=device)
     if model_config is not None:
@@ -222,6 +249,16 @@ def main(
         if getattr(tokenizer, "eos_token_id", None) is not None:
             if tokenizer.eos_token_id not in config.gconfig.stop_token_ids:
                 config.gconfig.stop_token_ids.append(tokenizer.eos_token_id)
+        processor = None
+        if config.workflow == "vision_rlvr":
+            from areal_tpu_torch.models.smoke import OFFLINE_SENTINELS
+
+            # offline, synthetic-vision ships pre-tokenized prompts and
+            # processed patches: no processor (JAX :216-225)
+            if config.tokenizer_path not in OFFLINE_SENTINELS:
+                from transformers import AutoProcessor
+
+                processor = AutoProcessor.from_pretrained(config.tokenizer_path)
 
         def make_workflow(gconfig, dump_dir=None):
             if config.workflow == "multi_turn":
@@ -244,6 +281,14 @@ def main(
                     tokenizer=tokenizer,
                     max_tool_calls=config.max_tool_calls,
                     tool_timeout_seconds=config.tool_timeout_seconds,
+                    dump_dir=dump_dir,
+                )
+            if config.workflow == "vision_rlvr":
+                return VisionRLVRWorkflow(
+                    reward_fn=reward_fn,
+                    gconfig=gconfig,
+                    tokenizer=tokenizer,
+                    processor=processor,
                     dump_dir=dump_dir,
                 )
             return RLVRWorkflow(

@@ -357,6 +357,7 @@ class DecodeServer:
             rid=req_body.get("rid") or ModelRequest().rid,
             input_ids=[int(t) for t in req_body["input_ids"]],
             gconfig=_parse_gconfig(req_body.get("gconfig", {})),
+            image_data=req_body.get("image_data"),
         )
 
     def _generate(self, query, body) -> dict:
@@ -500,7 +501,7 @@ class DecodeServer:
         push_id = req_body.get("push_id")
         if req_body.get("lora_scale") is not None:
             raise _Reply(501, "LoRA delta push is not in the PyTorch port yet: ROADMAP.md "
-                              "queue 1, item 6")
+                              "queue 1, item 6.7")
         # before the lock (JAX :512-516): a delay never stalls a pause or an
         # install, an abort leaves the staged weights and the old version
         fault_injection.fire("server.weights.commit", push_id=str(push_id or ""),

@@ -4,7 +4,9 @@ The JAX package keeps parameters as a nested dict of arrays; the port
 keeps a flat dict of tensors under the `/`-joined names of that tree
 (the wire names of `core/weight_transfer.py`). Both accept the scanned
 (`layers` stacked `[L, ...]`) and unscanned (`layers_{i}`) forms, whichever
-`cfg.scan_layers` says. Only numpy crosses between the packages.
+`cfg.scan_layers` says. The vision tower's tree (`models/qwen2_vl.py`)
+moves the same way, its `blocks` stacked `[depth, ...]` in both. Only
+numpy crosses between the packages.
 """
 
 from __future__ import annotations
@@ -112,4 +114,29 @@ def to_layout(named: dict, cfg: ModelConfig) -> dict:
         if sorted(layers) != list(range(L)):
             raise KeyError(f"layers_*/{leaf}: layers {sorted(layers)} of {L}")
         out[f"layers/{leaf}"] = torch.stack([layers[i] for i in range(L)])
+    return out
+
+
+def vision_params_from_numpy(
+    tree: dict, vcfg, dtype: torch.dtype | None = None,
+    device: torch.device | str = "cpu",
+) -> dict[str, torch.Tensor]:
+    """The JAX vision tower's tree (numpy leaves, `blocks` stacked) -> the
+    port's flat tensor dict (`models/qwen2_vl.vision_param_shapes`), in
+    each leaf's own dtype unless `dtype` is given. Names and shapes must
+    match `vcfg` exactly."""
+    from areal_tpu_torch.models.qwen2_vl import vision_param_shapes
+
+    named = flatten_names(tree)
+    want = vision_param_shapes(vcfg)
+    if set(named) != set(want):
+        missing = sorted(set(want) - set(named))[:5]
+        extra = sorted(set(named) - set(want))[:5]
+        raise KeyError(f"vision parameter names differ: missing {missing}, extra {extra}")
+    out = {}
+    for name, arr in named.items():
+        t = to_tensor(arr)
+        if tuple(t.shape) != tuple(want[name]):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {want[name]}")
+        out[name] = t.to(device=device, dtype=dtype or t.dtype)
     return out

@@ -23,8 +23,14 @@ either form, a tied head with or without `lm_head.weight` on disk.
 A critic's value head is HF's token-classification `score.weight`
 `[1, H]` and `score.bias` `[1]` (JAX :62-65); a critic loaded from a
 causal-LM checkpoint starts from a zero value head and drops `lm_head`,
-as in JAX (:267-277). MoE, Qwen3's q/k norms, GPT-2 and the vision tower
-are ROADMAP queue 1, item 6.
+as in JAX (:267-277). MoE, Qwen3's q/k norms and GPT-2 are ROADMAP
+queue 1, item 6.7.
+
+A Qwen2-VL / Qwen2.5-VL checkpoint's `visual.*` tensors load into the
+vision tower's parameters (`load_hf_vision_params`, JAX :515-628), as
+strictly as JAX: a `visual.*` tensor the mapping does not know, or a
+block missing from a stack, raises. The language model's loader skips
+them.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import torch
 
 from areal_tpu_torch.models.qwen2 import ModelConfig, named_shapes, torch_dtype
 
-_ITEM6 = "is not in the PyTorch port yet: ROADMAP.md queue 1, item 6 (model breadth)"
+_ITEM6 = "is not in the PyTorch port yet: ROADMAP.md queue 1, item 6.7 (model breadth)"
 
 # safetensors dtype names
 _ST_DTYPES = {
@@ -140,7 +146,7 @@ _LAYER_NAMES = {v: k for k, v in _LAYER_TABLE.items()}
 def hf_name_to_ours(name: str) -> tuple[str, ...] | None:
     """One HF tensor name -> its path in the unstacked tree (JAX :50), or
     None for a tensor the qwen2 family does not read (rotary buffers; the
-    families of item 6, which `assemble_params` then finds missing)."""
+    families of item 6.7, which `assemble_params` then finds missing)."""
     name = name.removeprefix("model.")
     if name == "embed_tokens.weight":
         return ("embed", "embedding")
@@ -332,6 +338,90 @@ def save_hf_params(params: dict[str, torch.Tensor], cfg: ModelConfig, out_dir: s
     return out_dir
 
 
-def load_hf_vision_params(model_dir: str, vcfg) -> dict:
-    """The vision tower's weights (JAX `load_hf_vision_params`)."""
-    raise NotImplementedError(f"the vision tower (models/qwen2_vl.py) {_ITEM6}")
+_VISION_TOP = {
+    # conv (D, C, t, p, p) -> the matmul kernel [C*t*p*p, D]
+    "visual.patch_embed.proj.weight": ("patch_embed/kernel", "conv"),
+    "visual.merger.ln_q.weight": ("merger/ln_q/scale", None),
+    "visual.merger.ln_q.bias": ("merger/ln_q/bias", None),
+    "visual.merger.mlp.0.weight": ("merger/fc1_kernel", "t"),
+    "visual.merger.mlp.0.bias": ("merger/fc1_bias", None),
+    "visual.merger.mlp.2.weight": ("merger/fc2_kernel", "t"),
+    "visual.merger.mlp.2.bias": ("merger/fc2_bias", None),
+}
+_VISION_BLOCK = {
+    "norm1.weight": ("norm1/scale", None),
+    "norm1.bias": ("norm1/bias", None),
+    "norm2.weight": ("norm2/scale", None),
+    "norm2.bias": ("norm2/bias", None),
+    "attn.qkv.weight": ("attn/qkv_kernel", "qkv"),
+    "attn.qkv.bias": ("attn/qkv_bias", "qkv_bias"),
+    "attn.proj.weight": ("attn/proj_kernel", "proj"),
+    "attn.proj.bias": ("attn/proj_bias", None),
+    # Qwen2-VL's gelu MLP
+    "mlp.fc1.weight": ("mlp/fc1_kernel", "t"),
+    "mlp.fc1.bias": ("mlp/fc1_bias", None),
+    "mlp.fc2.weight": ("mlp/fc2_kernel", "t"),
+    "mlp.fc2.bias": ("mlp/fc2_bias", None),
+    # Qwen2.5-VL's SwiGLU MLP
+    "mlp.gate_proj.weight": ("mlp/gate_kernel", "t"),
+    "mlp.gate_proj.bias": ("mlp/gate_bias", None),
+    "mlp.up_proj.weight": ("mlp/up_kernel", "t"),
+    "mlp.up_proj.bias": ("mlp/up_bias", None),
+    "mlp.down_proj.weight": ("mlp/down_kernel", "t"),
+    "mlp.down_proj.bias": ("mlp/down_bias", None),
+}
+
+
+def load_hf_vision_params(model_dir: str, vcfg, device: torch.device | str = "cpu"
+                          ) -> dict[str, torch.Tensor]:
+    """The `visual.*` tensors of an HF checkpoint directory -> the vision
+    tower's parameters (`models/qwen2_vl.vision_param_shapes`), each in
+    its stored dtype, on `device` (JAX :525). Raises ValueError on a
+    `visual.*` tensor the mapping does not know (a tower architecture the
+    port cannot run must not load "successfully" with weights dropped)
+    and on a block missing from a stack."""
+    import re
+
+    D, nH, hd, L = vcfg.embed_dim, vcfg.num_heads, vcfg.head_dim, vcfg.depth
+
+    def conv(kind, w):
+        if kind == "conv":
+            return w.reshape(D, -1).t().contiguous()
+        if kind == "t":
+            return w.t().contiguous()
+        if kind == "qkv":  # [3*nH*hd, D] -> [D, 3, nH, hd]
+            return w.reshape(3, nH, hd, D).permute(3, 0, 1, 2).contiguous()
+        if kind == "qkv_bias":
+            return w.reshape(3, nH, hd)
+        if kind == "proj":  # [D, nH*hd] -> [nH, hd, D]
+            return w.t().contiguous().reshape(nH, hd, D)
+        return w
+
+    out: dict[str, torch.Tensor] = {}
+    stacks: dict[str, list] = {}
+    unmatched: list[str] = []
+    for name, w in _iter_hf_tensors(model_dir):
+        if not name.startswith("visual."):
+            continue
+        w = w.to(device)
+        if name in _VISION_TOP:
+            path, kind = _VISION_TOP[name]
+            out[path] = conv(kind, w)
+            continue
+        m = re.match(r"visual\.blocks\.(\d+)\.(.+)", name)
+        if m and m.group(2) in _VISION_BLOCK:
+            path, kind = _VISION_BLOCK[m.group(2)]
+            stacks.setdefault(path, [None] * L)[int(m.group(1))] = conv(kind, w)
+            continue
+        unmatched.append(name)
+    if unmatched:
+        raise ValueError(
+            "unrecognized visual.* tensors (vision architecture not "
+            f"supported by this loader): {sorted(unmatched)[:8]}..."
+        )
+    for path, ws in stacks.items():
+        missing = [i for i, x in enumerate(ws) if x is None]
+        if missing:
+            raise ValueError(f"vision blocks missing layer(s) {missing} for {tuple(path.split('/'))}")
+        out[f"blocks/{path}"] = torch.stack(ws)
+    return out

@@ -144,10 +144,20 @@ class ModelConfig:
         else:
             hf = dict(path_or_dict)
         model_type = hf.get("model_type", "qwen2")
+        if model_type in ("qwen2_vl", "qwen2_5_vl"):
+            # JAX reads these types with qkv_bias=False (its :261), yet the
+            # language model of both checkpoints carries q/k/v biases: an
+            # HF VL checkpoint's decoder is served as model_type "qwen2"
+            # (ROADMAP.md queue 3)
+            raise NotImplementedError(
+                f"model_type={model_type!r}: its language model has q/k/v biases, which "
+                "the JAX package drops for this type; write the checkpoint's config "
+                "with model_type 'qwen2' (ROADMAP.md queue 3)"
+            )
         if model_type not in ("qwen2", "llama", "mistral"):
             raise NotImplementedError(
                 f"model_type={model_type!r} is not in the PyTorch port yet "
-                "(ROADMAP.md queue 1, item 6)"
+                "(ROADMAP.md queue 1, item 6.7)"
             )
         L = hf["num_hidden_layers"]
         # HF windows layers >= max_window_layers; Qwen2.5 ships 28/28 (none)
@@ -161,7 +171,7 @@ class ModelConfig:
         if windowed:
             raise NotImplementedError(
                 "sliding-window attention is not in the PyTorch port yet "
-                "(ROADMAP.md queue 1, item 6)"
+                "(ROADMAP.md queue 1, item 6.7)"
             )
         rope_kw: dict = {}
         rs = hf.get("rope_scaling") or {}
@@ -181,10 +191,12 @@ class ModelConfig:
                 rope_scaling_type="linear",
                 rope_scaling_factor=rs.get("factor", 1.0),
             )
-        elif rs_type not in (None, "default"):
+        elif rs_type not in (None, "default", "mrope"):
+            # "mrope" (Qwen2-VL's mrope_section) keeps 1-D rope for text: the
+            # decode engine builds an image prompt's m-rope tables itself
             raise NotImplementedError(
                 f"rope_scaling type {rs_type!r} not implemented "
-                "(supported: llama3, linear)"
+                "(supported: llama3, linear, mrope)"
             )
         kw = dict(
             vocab_size=hf["vocab_size"],
@@ -228,7 +240,7 @@ def check_supported(cfg: ModelConfig) -> None:
         if unsupported:
             raise NotImplementedError(
                 f"{name}={getattr(cfg, name)!r} is not in the PyTorch port "
-                "yet (ROADMAP.md queue 1, item 6)"
+                "yet (ROADMAP.md queue 1, item 6.7)"
             )
 
 
@@ -674,7 +686,7 @@ def resolve_attn_impl(cfg: ModelConfig) -> str:
     if cfg.attn_impl in ("ring", "chunked"):
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} is not in the PyTorch port yet: "
-            "ROADMAP.md queue 1, item 5 (ring) and item 6 (chunked)"
+            "ROADMAP.md queue 1, item 5 (ring) and item 6.7 (chunked)"
         )
     return "flash" if cfg.attn_impl == "auto" else cfg.attn_impl
 
@@ -808,7 +820,8 @@ class LMHead:
 
 def prefill(params: dict, input_ids, position_ids, cfg: ModelConfig,
             with_logits: bool = True, layers: list[dict] | None = None,
-            prefix_k=None, prefix_v=None, prefix_len=None):
+            prefix_k=None, prefix_v=None, prefix_len=None,
+            input_embeds=None, rope_cos=None, rope_sin=None):
     """Causal forward over ONE sequence [T] (JAX :1872), or over B distinct
     sequences [B, T] that share a bucket (the JAX engine's vmap of it,
     `jax_decode.py:1818-1879`). Returns (logits [(B,) T, V] f32 or None,
@@ -827,7 +840,13 @@ def prefill(params: dict, input_ids, position_ids, cfg: ModelConfig,
     for a SUFFIX prefill of one sequence (partial prefix sharing). Every
     token also attends to the prefix rows < prefix_len, and
     `position_ids` must then be the absolute positions (prefix_len +
-    arange). One layer body serves both modes, as in JAX."""
+    arange). One layer body serves both modes, as in JAX.
+
+    `input_embeds` [(B,) T, H] replaces the token-embedding lookup (the
+    multimodal path: vision vectors spliced over the image-pad positions,
+    `models/qwen2_vl.splice_image_embeds`), and `rope_cos`/`rope_sin`
+    [(B,) T, hd/2] replace the 1-D rope tables (Qwen2-VL m-rope,
+    `models/qwen2_vl.mrope_table`), as JAX :1872-1920 does."""
     check_servable(cfg)
     if layers is None:
         layers = layer_views(params, cfg)
@@ -835,8 +854,15 @@ def prefill(params: dict, input_ids, position_ids, cfg: ModelConfig,
     ids = input_ids if batched else input_ids[None]
     B, T = ids.shape
     pos = position_ids if position_ids.dim() == 2 else position_ids[None].expand(B, T)
-    x = _embed(params, ids.reshape(-1), cfg)  # [B*T, H]
-    cos, sin = rope_table(pos.reshape(-1), cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling_)
+    if input_embeds is not None:
+        x = input_embeds.reshape(B * T, -1).to(torch_dtype(cfg.dtype))
+    else:
+        x = _embed(params, ids.reshape(-1), cfg)  # [B*T, H]
+    if rope_cos is not None:
+        hd2 = rope_cos.shape[-1]
+        cos, sin = rope_cos.reshape(B * T, hd2), rope_sin.reshape(B * T, hd2)
+    else:
+        cos, sin = rope_table(pos.reshape(-1), cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling_)
     mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
     if prefix_k is not None:
         if batched:
@@ -895,6 +921,7 @@ def decode_step_paged(
     attn_fn=paged_attention,
     layers: list[dict] | None = None,  # layer_views(params, cfg), if kept
     matmul_fn=quant_einsum,
+    rope_offset=None,  # [R] added to the rotary position only
 ):
     """One batched decode step attending directly over the paged pool
     (JAX :2153): `verify_step_paged` with one position per slot, its
@@ -915,7 +942,12 @@ def decode_step_paged(
     its scales land at `scales[dest_block, :, dest_off]`, and attention
     reads the row just written through its int8 form. Quantized weights
     run through `matmul_fn` (`quant_einsum`; chip checks swap in its plain
-    version)."""
+    version).
+
+    `rope_offset` shifts the ROTARY position only, never the KV row (JAX
+    :2064-2082): m-rope compresses an image's positions, so an image
+    slot's text sits at rotary position row + its delta, where one scalar
+    for all three sections is exactly 1-D rope."""
 
     def one_query(q, kp, vp, table, valid):  # [R, 1, nH, hd] -> [R, 1, nH, hd]
         return attn_fn(q[:, 0], kp, vp, table, valid[:, 0])[:, None]
@@ -923,6 +955,7 @@ def decode_step_paged(
     return verify_step_paged(
         params, tokens[:, None], positions, k_pool, v_pool, block_tables, cfg,
         active=active, attn_fn=one_query, layers=layers, matmul_fn=matmul_fn,
+        rope_offset=rope_offset,
     )[:, 0]
 
 
@@ -938,6 +971,7 @@ def verify_step_paged(
     attn_fn=paged_attention_qlen,
     layers: list[dict] | None = None,  # layer_views(params, cfg), if kept
     matmul_fn=quant_einsum,
+    rope_offset=None,  # [R] added to the rotary position only
 ):
     """W positions per slot in one forward over the paged pool, the
     speculative verify step (JAX :2414-2546). Column j of slot r sits at
@@ -953,8 +987,9 @@ def verify_step_paged(
     before attention reads them, in one stream's order. An int8 pool
     quantizes the W rows at the scatter and writes their scales to
     `scales[dest_block, :, dest_off]`, as `decode_step_paged` does for its
-    one row. Matmuls run through `matmul_fn` at T = R x W rows. A critic
-    is refused (`check_servable`)."""
+    one row. Matmuls run through `matmul_fn` at T = R x W rows.
+    `rope_offset` [R] shifts slot r's rotary positions only (JAX :2456).
+    A critic is refused (`check_servable`)."""
     check_servable(cfg)
     if layers is None:
         layers = layer_views(params, cfg)
@@ -967,7 +1002,8 @@ def verify_step_paged(
     dev = tokens.device
     positions = positions0.long()[:, None] + torch.arange(W, device=dev)  # [R, W]
     x = _embed(params, tokens.reshape(-1), cfg)  # [R*W, H]
-    cos, sin = rope_table(positions.reshape(-1), hd, cfg.rope_theta, cfg.rope_scaling_)
+    rope_pos = positions if rope_offset is None else positions + rope_offset.long()[:, None]
+    cos, sin = rope_table(rope_pos.reshape(-1), hd, cfg.rope_theta, cfg.rope_scaling_)
     valid = torch.arange(span, device=dev)[None, None, :] <= positions[:, :, None]
 
     blk_col = (positions // bsz).clamp(0, nb - 1)
@@ -1010,6 +1046,7 @@ def verify_step(
     active=None,  # [R] bool: slot holds a live request
     layers: list[dict] | None = None,  # layer_views(params, cfg), if kept
     matmul_fn=quant_einsum,
+    rope_offset=None,  # [R] added to the rotary position only
 ):
     """The speculative verify step over the workspace layout (JAX :2295):
     W positions per slot in one forward over a dense per-slot cache, which
@@ -1023,7 +1060,8 @@ def verify_step(
     gather and scatter intact. Attention is `verify_attention` over the
     cache (cast to q's dtype), the op sequence of the paged plain version,
     so the workspace and paged layouts agree bit for bit. Positions are
-    clamped into the cache. A critic is refused (`check_servable`)."""
+    clamped into the cache. `rope_offset` [R] shifts slot r's rotary
+    positions only (JAX :2336). A critic is refused (`check_servable`)."""
     check_servable(cfg)
     if layers is None:
         layers = layer_views(params, cfg)
@@ -1033,7 +1071,8 @@ def verify_step(
     dev = tokens.device
     positions = positions0.long()[:, None] + torch.arange(W, device=dev)  # [R, W]
     x = _embed(params, tokens.reshape(-1), cfg)  # [R*W, H]
-    cos, sin = rope_table(positions.reshape(-1), hd, cfg.rope_theta, cfg.rope_scaling_)
+    rope_pos = positions if rope_offset is None else positions + rope_offset.long()[:, None]
+    cos, sin = rope_table(rope_pos.reshape(-1), hd, cfg.rope_theta, cfg.rope_scaling_)
     valid = torch.arange(S, device=dev)[None, None, :] <= positions[:, :, None]
     pos_c = positions.clamp(0, S - 1)
     rows = torch.arange(R, device=dev)[:, None].expand(R, W)
@@ -1066,9 +1105,12 @@ def decode_step(
     active=None,  # [R] bool: slot holds a live request
     layers: list[dict] | None = None,
     matmul_fn=quant_einsum,
+    rope_offset=None,  # [R] added to the rotary position only
 ):
     """One batched decode step over the workspace layout (JAX :2046):
     `verify_step` with one position per slot (the masked row write, scores
-    in q's dtype). Returns logits [R, V] in f32."""
+    in q's dtype), `rope_offset` shifting the rotary position only.
+    Returns logits [R, V] in f32."""
     return verify_step(params, tokens[:, None], positions, k_cache, v_cache, cfg,
-                       active=active, layers=layers, matmul_fn=matmul_fn)[:, 0]
+                       active=active, layers=layers, matmul_fn=matmul_fn,
+                       rope_offset=rope_offset)[:, 0]

@@ -9,7 +9,7 @@ It builds the port's CUDA kernels from the sources in the checkout, holds
 each against its plain PyTorch version on the card, then drives the main
 paths with seeded random weights in bf16: it serves 16 concurrent
 requests through `TorchDecodeEngine` at Qwen2.5-7B's full width and depth,
-drives the decode scheduler's defaults on such an engine, at 4 of its 28
+drives the decode scheduler's defaults on such an engine, at 2 of its 28
 layers as the spec and int8 engines below (GRPO groups
 forked from one prefill under run-ahead 1 and 0, a multi-turn suffix
 prefill, interrupt and parked-KV resume, stop strings, and the frequency
@@ -48,7 +48,7 @@ point on `arith_grpo_multiturn_smoke.yaml` and at Qwen2.5-1.5B, its retries
 served from the decode engine's prefix registry. Last, checkpoints from
 local paths: a Qwen2.5-1.5B checkpoint written sharded in bf16 by the
 port's own writer, read back bit for bit by the GRPO entry point's actor
-and its frozen KL reference policy (2 steps on the countdown dataset), by
+and its frozen KL reference policy (1 step on the countdown dataset), by
 the offline evaluator (`areal_tpu_torch/evaluation/eval_and_aggregate.py`)
 and by a decode server started with `--model-path`, whose greedy tokens
 must equal an in-process engine's. Last, code and tool RL: the TIR entry
@@ -87,12 +87,22 @@ client (and the same trace on two unified replicas, for the ITL
 readings), a block-aligned head forked from a registration that
 diverges later, a run fetched from a sibling on a hint, a scale-up
 warm-started from its peers, a scale-down drained as identities only,
-and a re-role under traffic. The PPO, multi-turn, checkpoint, decoupled and TIR runs trace
+and a re-role under traffic. Last, vision RLVR at Qwen2.5-VL-3B's
+published widths: 16 image requests (a CLEVR image's 187 image tokens
+each) and 8 text ones through one engine at full depth, their image
+slots decoding with their m-rope deltas through the paged kernel and
+the greedy ones held against a plain oracle (a dense prefill from
+spliced embeddings and m-rope tables) beside two planted faults; the
+tower read back bit for bit from a checkpoint the script writes;
+`areal_tpu_torch/examples/clevr_grpo.py` on its docstring's offline
+recipe; and the GRPO entry point with `workflow=vision_rlvr` on that
+checkpoint. The PPO, multi-turn, checkpoint, decoupled and TIR runs trace
 their last train step through the train engine's own trace window
 (`AREAL_TPU_XPROF_DIR`). The decoupled, PPO, multi-turn, checkpoint and
-TIR (t1, t2) runs, the train phase, the SFT entry point and the fleet at
-Qwen2.5-1.5B take 4 of its 28 layers, and the chaos phase 1, and the
-GRPO, decoupled, PPO and checkpoint runs at Qwen2.5-1.5B 2 steps, so
+TIR (t1, t2) runs, the train phase and the SFT entry point at
+Qwen2.5-1.5B take 4 of its 28 layers, the chaos phase and the fleet 1,
+the GRPO, decoupled and PPO runs at Qwen2.5-1.5B 2 steps, the checkpoint
+and TIR runs 1, and the vision phase's checkpoint 4 of Qwen2.5-VL-3B's 36, so
 that the script keeps within its time
 limit; each phase's seconds are printed. It checks that the
 kernels really carried each path. Each phase prints one JSON line; then
@@ -151,6 +161,10 @@ device and build phases), on the serve cell's weights made anew.
 
 runs only the fleet phase (after the device and build phases).
 
+    python3 chip_smoke.py --vision
+
+runs only the vision phase (after the device and build phases).
+
     python3 chip_smoke.py --qmm-sweep
 
 times the bf16 K6 kernel at Qwen2.5-7B's four (K, N) shapes at T 16 and 80
@@ -203,6 +217,7 @@ from areal_tpu_torch.engine.torch_decode import TorchDecodeEngine
 from areal_tpu_torch.examples import gsm8k_grpo
 from areal_tpu_torch.dataset.arith import ArithTokenizer
 from areal_tpu_torch.models.qwen2 import (
+    ModelConfig,
     decode_step_paged,
     init_params,
     layer_views,
@@ -213,14 +228,26 @@ from areal_tpu_torch.models.qwen2 import (
 from areal_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
 from areal_tpu_torch.ops.quant import quantize_absmax
 from areal_tpu_torch.models import hf_io
+from areal_tpu_torch.models.qwen2_vl import (
+    VisionConfig,
+    forward_vision,
+    init_vision_params,
+    mrope_positions,
+    mrope_table,
+    patch_grid_coords,
+    splice_image_embeds,
+)
 from areal_tpu_torch.models.smoke import (
     QWEN25_1_5B,
     QWEN25_1_5B_HF,
     QWEN25_1_5B_SOURCE,
     QWEN25_7B,
     QWEN25_7B_SOURCE,
+    QWEN25_VL_3B_HF,
+    QWEN25_VL_3B_SOURCE,
     smoke_model_config,
 )
+from areal_tpu_torch.reward.vqa import synthetic_vision_reward
 from areal_tpu_torch.ops import _build
 from areal_tpu_torch.ops import flash_attention as fa
 from areal_tpu_torch.ops import paged_attention as pa
@@ -279,6 +306,9 @@ KERNEL_CASES = [
     dict(name="small-page", nH=4, nKV=2, hd=16, bsz=16, R=8, max_len=512),
     # a group above 8: the bf16 kernels' query rows g + 8 of the m16 tile
     dict(name="group-12", nH=24, nKV=2, hd=128, bsz=64, R=8, max_len=1000),
+    # the vision phase's (v1) engine: Qwen2.5-VL-3B's 16/2 heads (a group
+    # of 8, the m16 tile's g + 8 rows exactly), 32 slots, context 4096
+    dict(name="qwen2.5-vl-3b", nH=16, nKV=2, hd=128, bsz=128, R=32, max_len=4096),
 ]
 # pages per split of the bf16 decode kernels' sweep (checked and timed);
 # None: the whole table in one split
@@ -613,7 +643,11 @@ FLASH_CASES = [
     dict(name="small", nH=4, nKV=2, hd=16, T=1000, n_seqs=9),
     # hd 32, one kv head for a group of 6, a ragged T
     dict(name="hd32-mqa", nH=6, nKV=1, hd=32, T=777, n_seqs=5),
+    # the vision phase's (v3) trainer: Qwen2.5-VL-3B's 16/2 heads, a
+    # micro-batch of 4 image rollouts of ~290 tokens
+    dict(name="qwen2.5-vl-3b", nH=16, nKV=2, hd=128, T=1216, n_seqs=4),
 ]
+FLASH_MISALIGNED_CASE = 4  # hd32-mqa
 FLASH_PAD = 45  # pad-tail rows (segment -1): fully masked, o 0 and lse -1e30
 # (a, rtol): an element passes when |x - ref| <= a * max|ref| + rtol * |ref|,
 # ref the plain version on the f32-upcast inputs. f32: summation order
@@ -752,7 +786,8 @@ def phase_flash_kernel(dev: torch.device) -> dict:
             del xs, got, fs, ref, fault, term
     # the bf16 kernels copy 16-byte rows: a misaligned view raises in the
     # wrapper and never reaches them
-    q, k, v, ids, _, _ = _flash_case(FLASH_CASES[-1], torch.bfloat16, dev, SEED, False)
+    q, k, v, ids, _, _ = _flash_case(FLASH_CASES[FLASH_MISALIGNED_CASE], torch.bfloat16, dev,
+                                     SEED, False)
     shifted = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(q.shape)
     shifted.copy_(q)
     try:
@@ -1235,9 +1270,10 @@ def _serve_traffic(engine, cfg, rng) -> dict:
 # int8 serve cells, built on the same engine settings, run SERVE_LAYERS of
 # them to keep the script within its time limit (their decode steps are
 # host-bound: the launches per step scale with the depth); widths stay the
-# published ones and every launch formula reads its own L. 4 since the
-# fleet phase's (f5)-(f7) came (14 before, 28 before that)
-SERVE_LAYERS = 4
+# published ones and every launch formula reads its own L. 2 since the
+# vision phase came (4 since the fleet phase's (f5)-(f7), 14 before, 28
+# before that)
+SERVE_LAYERS = 2
 
 
 def _serve_engine(dev: torch.device, settings: dict, layers: int = SERVE_LAYERS):
@@ -2572,7 +2608,7 @@ def phase_qmm_line(engine, cfg, launches: int, max_err: float) -> dict:
     (`_time_device`); `host_bound_ms` is the T 16 layer timed as the other
     kernels are, which the host's launch rate sets. The plain version and
     the library yardstick, the bf16 cuBLAS matmul on the weights
-    pre-dequantized to bf16 (what the fp engine runs, over 4 layers), take
+    pre-dequantized to bf16 (what the fp engine runs, over up to 4 layers), take
     the same 7 products. `torch._weight_int8pack_mm` (int8 weights, a scale
     per column) is timed too where this torch has it for CUDA (as launched,
     since it synchronizes). No yardstick is called by the port."""
@@ -2590,19 +2626,20 @@ def phase_qmm_line(engine, cfg, launches: int, max_err: float) -> dict:
     host_ms = _time(lambda i: [qm.quant_matmul(xs[n][16], *w[i % len(w)][n]) for n in QMM_NAMES], 50)
     check(qm.launches > calls, "timing did not launch the kernel")
     plain_ms = _time_device(
-        lambda i: [qm.quant_matmul_ref(xs[n][16], *w[i % 4][n], torch.bfloat16) for n in QMM_NAMES],
+        lambda i: [qm.quant_matmul_ref(xs[n][16], *w[i % len(w)][n], torch.bfloat16)
+                   for n in QMM_NAMES],
         10)
     # library yardsticks, on weights dequantized ahead of time (not timed)
     wd = [{n: (q.float() * s[None, :]).to(torch.bfloat16) for n, (q, s) in lw.items()}
           for lw in w[:4]]
-    library = {T: _time_device(lambda i, T=T: [xs[n][T] @ wd[i % 4][n] for n in QMM_NAMES],
+    library = {T: _time_device(lambda i, T=T: [xs[n][T] @ wd[i % len(wd)][n] for n in QMM_NAMES],
                                50 if T <= 80 else 10) for T in QMM_LINE_T}
     int8pack = None
     if torch._C._dispatch_has_kernel_for_dispatch_key("aten::_weight_int8pack_mm", "CUDA"):
         wt = [{n: (q.t().contiguous(), s.to(torch.bfloat16)) for n, (q, s) in lw.items()}
               for lw in w[:4]]
         # timed as launched: the call synchronizes, so it cannot be queued
-        int8pack = _time(lambda i: [torch._weight_int8pack_mm(xs[n][16], *wt[i % 4][n])
+        int8pack = _time(lambda i: [torch._weight_int8pack_mm(xs[n][16], *wt[i % len(wt)][n])
                                     for n in QMM_NAMES], 20)
         del wt
     del wd
@@ -4618,9 +4655,11 @@ HF_SHARD_BYTES = 512 << 20
 HF_KL = 0.05
 # loop cell (c)'s traffic on the countdown dataset, the actor and the
 # reference policy loaded from the checkpoint
+HF_STEPS = FULL_STEPS
 HF_OVERRIDES = FULL_OVERRIDES + [
     "train_dataset.path=countdown", "actor.init_from_scratch=false", f"actor.kl_ctl={HF_KL}",
-    "ref.dtype=bfloat16", "ref.mb_spec.max_tokens_per_mb=8192"]
+    "ref.dtype=bfloat16", "ref.mb_spec.max_tokens_per_mb=8192",
+    f"total_train_steps={HF_STEPS}"]
 HF_EVAL = ["--data-names", "synthetic-arith", "--tokenizer-path", "synthetic-arith",
            "--max-problems", "16", "--n-sampling", "4", "--max-gen-tokens", "64"]
 HF_METRICS = {"n_problems", "n_samples", "mean_reward", "pass_at_1", "pass@1", "pass@4",
@@ -4874,8 +4913,8 @@ def phase_hf_path(dev: torch.device) -> dict:
          written by the port's own writer in 2 shards with an index;
     (h1) the GRPO entry point on it, colocated, under loop cell (c)'s
          settings on the countdown dataset, with `actor.path` and
-         `ref.path` at the checkpoint and `actor.kl_ctl` 0.05, `FULL_STEPS`
-         steps:
+         `ref.path` at the checkpoint and `actor.kl_ctl` 0.05, `HF_STEPS`
+         step:
          both engines load it with the written tensors' bit sums (the
          reference without an optimizer), step 0's reference logprobs
          equal the actor's within the bf16 logprob tolerances, the
@@ -4931,6 +4970,7 @@ TIR_YAML = str(Path(__file__).resolve().parent / "examples" / "configs" / "tir_m
 TIR_OFFLINE = ["tokenizer_path=synthetic-arith", "train_dataset.path=synthetic-arith",
                "actor.path=", "decode.model_path=", "actor.init_from_scratch=true",
                "valid_dataset.path=synthetic-arith"]
+# two checkpoints, so the watcher publishes two evaluations in step order
 TIR_STEPS = 2
 # (t1): loop cell (c)'s size on the yaml, and a checkpoint every step
 TIR_OVERRIDES = TIR_OFFLINE + [o for o in FULL_OVERRIDES if not o.startswith(
@@ -5408,7 +5448,7 @@ def phase_tir(dev: torch.device) -> dict:
          layers, random weights
          from seed 0, `synthetic-arith`, 8 prompts x 4 samples, 256 new
          tokens, 32 slots, context 512, 128-step chunks,
-         `ppo_n_minibatches` 2, 2 steps, a checkpoint every step; then the
+         `ppo_n_minibatches` 2, `TIR_STEPS` step, a checkpoint every step; then the
          checkpoint watcher (`AutomaticEvaluator`, its default command)
          scores each checkpoint in a child process on the card, beside
          (t2) and (t3), and publishes each once, in step order. The arithmetic tokenizer
@@ -6381,7 +6421,9 @@ def chaos_only() -> int:
 # phase: fleet — the router, session migration with /drain, the supervisor
 # ---------------------------------------------------------------------------
 
-FLEET_LAYERS = CUT_LAYERS
+# 1 of Qwen2.5-1.5B's 28 layers (`CUT_LAYERS`, 4, before the vision
+# phase came), to pay for the vision phase (PERF.md section 4)
+FLEET_LAYERS = 1
 # each replica's engine; one prefill per scheduler pass (the first
 # admission always goes through, the budget's floor is one 64-token
 # bucket), so a stream's arithmetic does not depend on what else a pass
@@ -6403,9 +6445,9 @@ FLEET_F5_PREFILL = dict(n=8, prompt=(640, 896), new=16)
 # router must find it admissible for the whole trace: a larger pool, and a
 # host tier that keeps an evicted parked session exportable
 FLEET_PREFILL_ROLE = dict(role="prefill", kv_pool_tokens=32768, kv_host_pool_mb=512.0)
-# one pool block of the fleet's model: 4 layers x K,V x 128 rows x 2 kv
+# one pool block of the fleet's model: its layers x K,V x 128 rows x 2 kv
 # heads x 128 x 2 bytes (bf16)
-FLEET_BLOCK_NBYTES = 524_288
+FLEET_BLOCK_NBYTES = FLEET_LAYERS * 2 * 128 * 2 * 128 * 2
 # (f6): a 4-block head shared by requests whose tails diverge
 FLEET_F6_HEAD, FLEET_F6_TAIL, FLEET_F6_NEW = 512, 100, 16
 FLEET_F6D_REQUESTS, FLEET_F6D_PROMPT, FLEET_F6D_NEW = 4, (200, 300), 128
@@ -7386,6 +7428,534 @@ def fleet_only() -> int:
     return 0
 
 
+# phase: vision RLVR (`areal_tpu_torch/models/qwen2_vl.py`, the decode
+# engine's image admissions and per-slot rope offsets,
+# `workflow/vision_rlvr.py`, `examples/clevr_grpo.py`) at Qwen2.5-VL-3B's
+# published widths
+VL_IMAGE_TOKEN = QWEN25_VL_3B_HF["image_token_id"]
+VL_START, VL_END = QWEN25_VL_3B_HF["vision_start_token_id"], QWEN25_VL_3B_HF["vision_end_token_id"]
+VL_SECTIONS = tuple(QWEN25_VL_3B_HF["rope_scaling"]["mrope_section"])
+# a 480x320 CLEVR image under the Qwen2.5-VL processor's resize to
+# multiples of 28 (476x308): 22 x 34 patches of 14, 748 rows of 1176
+# values, 187 image tokens after the 2x2 merge
+VL_GRID = (1, 22, 34)
+VL_TEXT_VOCAB = 151643  # ordinary tokens: below the special ones
+# clevr_grpo.yaml's decode settings
+VL_DECODE = dict(max_running_requests=32, context_length=4096, new_tokens_per_chunk=128,
+                 page_size=128)
+VL_IMAGES, VL_TEXTS, VL_GREEDY, VL_NEW = 16, 8, 4, 128
+VL_IMAGE_TEXT = (20, 60)  # text tokens around an image span
+VL_TEXT_LEN = (64, 256)  # the text-only prompts
+VL_ORACLE_TOKENS = 16
+# bf16 logprobs of the engine's tokens (K3 decode, rope offsets) against
+# the plain oracle's (a dense prefill from spliced embeddings and m-rope
+# tables). With random weights the bf16 logits spread little (logprobs
+# near -11.9), and their step at their magnitude is 2^-9: the two paths'
+# rounding orders differ by up to two such steps a token (0.0039), the
+# planted rope-delta fault by six (0.0117, mean 0.0046; readings on an
+# H100 80GB HBM3 at 700 W). The tolerance is three steps, and a mean of
+# 0.002
+VL_LOGP_TOL = dict(max_abs=3 * 2.0 ** -9, mean_abs=0.002)
+# (v3) step 0's decode logprobs (K3, the checkpoint's 4 layers) against
+# the oracle with the image, and the trainer's (K1) against its
+# token-only view, over 16 rows of 64 tokens: each read one bf16 step at
+# most (max 0.00196 and 0.00191, mean 0.00039 and 0.00042), and the
+# decode logprobs one position late a mean of 0.30 (readings on an H100
+# 80GB HBM3 at 700 W). The bound is two steps, and a mean of 0.001
+VL_LOOP_TOL = dict(max_abs=2 * 2.0 ** -9, mean_abs=0.001)
+VL_YAML = str(Path(__file__).resolve().parent / "examples" / "configs" / "clevr_grpo.yaml")
+# `examples/clevr_grpo.py`'s docstring: the offline recipe
+VL_OFFLINE = ["tokenizer_path=synthetic-arith", "train_dataset.path=synthetic-vision",
+              "actor.path=", "decode.model_path=", "actor.init_from_scratch=true"]
+VL_STEPS = 2
+# (v2): clevr_grpo.yaml's groups of 8, 8 prompts a step (16 in the yaml)
+VL_OFFLINE_SIZE = [f"total_train_steps={VL_STEPS}", "train_dataset.batch_size=8",
+                   "rollout.consumer_batch_size=64"]
+VL_MAX_LAG = 4  # clevr_grpo.yaml's rollout.max_head_offpolicyness
+VL_DATASET = "chip-smoke-clevr"
+# (v3): 4 prompts x 4 samples, 64 new tokens, on the (v1b) checkpoint
+VL_LOOP = ["tokenizer_path=synthetic-arith", f"train_dataset.path={VL_DATASET}",
+           "actor.init_from_scratch=false", "train_dataset.batch_size=4", "gconfig.n_samples=4",
+           "gconfig.max_new_tokens=64", "rollout.consumer_batch_size=4", "actor.group_size=4",
+           "decode.context_length=1024", "decode.dtype=bfloat16",
+           "decode.kv_cache_dtype=bfloat16", "actor.mb_spec.max_tokens_per_mb=8192",
+           "saver.freq_epochs=null", "recover.mode=disabled", "evaluator.freq_steps=null",
+           "actor.use_decoupled_loss=true", f"total_train_steps={VL_STEPS}"]
+VL_SHARD_BYTES = 512 << 20
+
+
+def _vl_image(rng) -> dict:
+    t, h, w = VL_GRID
+    vcfg = VisionConfig.from_hf_dict(QWEN25_VL_3B_HF["vision_config"])
+    return dict(pixel_values=rng.standard_normal((t * h * w, vcfg.patch_dim), dtype=np.float32),
+                image_grid_thw=np.array([VL_GRID], dtype=np.int64))
+
+
+def _vl_prompt(rng, n_text: int) -> list[int]:
+    """Text, one image span (187 image tokens between the vision start and
+    end tokens), text: `n_text` ordinary tokens in all."""
+    n_img = VL_GRID[0] * (VL_GRID[1] // 2) * (VL_GRID[2] // 2)
+    head = rng.integers(0, VL_TEXT_VOCAB, n_text // 2).tolist()
+    tail = rng.integers(0, VL_TEXT_VOCAB, n_text - n_text // 2).tolist()
+    return head + [VL_START] + [VL_IMAGE_TOKEN] * n_img + [VL_END] + tail
+
+
+def _vl_model(dev):
+    """Qwen2.5-VL-3B's language model (full depth) and tower, bf16, random
+    weights from SEED."""
+    cfg = ModelConfig.from_hf_config(QWEN25_VL_3B_HF, dtype="bfloat16", param_dtype="bfloat16",
+                                     scan_layers=False)
+    vcfg = VisionConfig.from_hf_dict(QWEN25_VL_3B_HF["vision_config"])
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    vparams = init_vision_params(vcfg, torch.Generator(device=dev).manual_seed(SEED + 1),
+                                 dtype=torch.bfloat16, device=dev)
+    return cfg, vcfg, params, vparams
+
+
+def _vl_engine_model(engine) -> dict:
+    """What `_vl_oracle` reads of a decode engine: its language model and
+    tower."""
+    return dict(params=engine.params, cfg=engine.model_config, layers=engine._layers,
+                vparams=engine._vision_params, vcfg=engine._vision_config)
+
+
+def _vl_oracle(model: dict, prompt: list[int], image: dict, tokens: list[int],
+               with_image: bool = True) -> dict:
+    """The plain oracle: the logprob of each of `tokens` after `prompt`
+    from one dense prefill of prompt + tokens[:-1] (by causality, the
+    per-step full prefill's logits) through the plain path
+    (`models/qwen2.prefill`: dense attention, no kernel). `with_image`:
+    the tower's vectors spliced over the image-pad positions and m-rope
+    tables (the decode engine's view); else token embeddings and 1-D
+    positions (the trainer's view)."""
+    cfg, params = model["cfg"], model["params"]
+    dev = params["embed/embedding"].device
+    seq = list(prompt) + list(tokens[:-1])
+    with torch.no_grad():
+        ids = torch.as_tensor(seq, device=dev)
+        extra = {}
+        if with_image:
+            thw = np.asarray(image["image_grid_thw"]).reshape(-1, 3)
+            coords = patch_grid_coords(thw, 2).astype(np.int64)
+            img = forward_vision(model["vparams"], torch.as_tensor(
+                image["pixel_values"], device=dev).to(torch.bfloat16),
+                torch.as_tensor(coords, device=dev), model["vcfg"])
+            splice_ids = ids.clone()
+            splice_ids[len(prompt):] = 0  # generated tokens never splice
+            embeds = splice_image_embeds(params["embed/embedding"][ids].to(torch.bfloat16),
+                                         splice_ids, img, VL_IMAGE_TOKEN)
+            pos3, _ = mrope_positions(np.asarray(seq), thw, VL_IMAGE_TOKEN, 2)
+            cos, sin = mrope_table(pos3, cfg.head_dim_, cfg.rope_theta, VL_SECTIONS)
+            extra = dict(input_embeds=embeds, rope_cos=cos.to(dev), rope_sin=sin.to(dev))
+        logits, _, _ = prefill(params, ids, torch.arange(len(seq), device=dev), cfg,
+                               layers=model["layers"], **extra)
+        logp = torch.log_softmax(logits[len(prompt) - 1:], dim=-1)
+        want = torch.as_tensor(tokens, device=dev)
+        return dict(logp=logp.gather(1, want[:, None])[:, 0].cpu().numpy(),
+                    argmax=logp.argmax(-1).cpu().numpy())
+
+
+def _vl_agreement(engine, req, resp) -> dict:
+    toks = list(resp.output_tokens[:VL_ORACLE_TOKENS])
+    o = _vl_oracle(_vl_engine_model(engine), req.input_ids, req.image_data[0], toks)
+    d = np.abs(np.asarray(resp.output_logprobs[:len(toks)]) - o["logp"])
+    return dict(tokens=len(toks), max_abs=float(d.max()), mean_abs=float(d.mean()),
+                equal_token_share=float(np.mean(o["argmax"] == np.asarray(toks))))
+
+
+def _vl_within(a: dict, tol: dict = VL_LOGP_TOL) -> bool:
+    return a["max_abs"] <= tol["max_abs"] and a["mean_abs"] <= tol["mean_abs"]
+
+
+@contextlib.contextmanager
+def _observe_image_prefills():
+    """Each image admission's slot rope delta right after its prefill,
+    beside `mrope_positions`'s delta for the request's prompt."""
+    seen = []
+    image_prefill = TorchDecodeEngine._image_prefill
+
+    def observed(self, slot, item, prompt, ids, pre, bucket):
+        image_prefill(self, slot, item, prompt, ids, pre, bucket)
+        thw = np.concatenate([np.asarray(d["image_grid_thw"]).reshape(-1, 3)
+                              for d in item.image_data])
+        _, want = mrope_positions(np.asarray(prompt), thw, self._image_token_id,
+                                  self._vision_config.spatial_merge_size)
+        seen.append(dict(rid=item.rid, delta=int(self._slot_rope_delta[slot]), want=int(want)))
+
+    TorchDecodeEngine._image_prefill = observed
+    try:
+        yield seen
+    finally:
+        TorchDecodeEngine._image_prefill = image_prefill
+
+
+VL_PLANTED = ("rope_delta_0", "pad_embeds")
+
+
+def _vl_planted(engine, req) -> dict:
+    """The first greedy image request twice more in one wave on the same
+    engine, each copy with a planted fault: its m-rope delta forced to 0
+    (text decodes at its row, not its m-rope position), or its image
+    vectors replaced by the pad token's embedding. Their logprobs against
+    the oracle's."""
+    image_prefill, encode = engine._image_prefill, engine._encode_images
+
+    def planted(slot, item, prompt, ids, pre, bucket):
+        if item.rid == "pad_embeds":
+            def pad_embeds(image_data):
+                n = encode(image_data).shape[0]
+                return engine.params["embed/embedding"][VL_IMAGE_TOKEN].expand(n, -1).to(
+                    torch.bfloat16)
+            engine._encode_images = pad_embeds
+        try:
+            image_prefill(slot, item, prompt, ids, pre, bucket)
+        finally:
+            engine.__dict__.pop("_encode_images", None)
+        if item.rid == "rope_delta_0":
+            engine._slot_rope_delta[slot] = 0
+
+    engine._image_prefill = planted
+    try:
+        g = GenerationHyperparameters(greedy=True, max_new_tokens=VL_ORACLE_TOKENS)
+        resps = _paused_wave(engine, [ModelRequest(rid=f, input_ids=req.input_ids, gconfig=g,
+                                                   image_data=req.image_data)
+                                      for f in VL_PLANTED])
+    finally:
+        engine.__dict__.pop("_image_prefill", None)
+    return {f: _vl_agreement(engine, req, r) for f, r in zip(VL_PLANTED, resps)}
+
+
+def _vl_serve(dev, cfg, vcfg, params, vparams) -> dict:
+    """(v1) one engine at full width and depth with clevr_grpo.yaml's
+    decode settings: 16 image requests and 8 text-only ones in one wave."""
+    engine = TorchDecodeEngine(TorchDecodeConfig(random_seed=SEED, **VL_DECODE), device=dev)
+    engine.set_model(params, cfg)
+    engine.set_vision_model(vparams, vcfg, VL_IMAGE_TOKEN, mrope_sections=VL_SECTIONS)
+    engine.initialize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rng = np.random.default_rng(SEED + 70)
+    images = [_vl_image(rng) for _ in range(VL_IMAGES)]
+    reqs = []
+    for i, image in enumerate(images):
+        g = dict(greedy=True) if i < VL_GREEDY else dict(temperature=1.0)
+        reqs.append(ModelRequest(input_ids=_vl_prompt(rng, int(rng.integers(*VL_IMAGE_TEXT))),
+                                 gconfig=GenerationHyperparameters(max_new_tokens=VL_NEW, **g),
+                                 image_data=[image]))
+    for n in rng.integers(*VL_TEXT_LEN, VL_TEXTS):
+        reqs.append(ModelRequest(input_ids=rng.integers(0, VL_TEXT_VOCAB, int(n)).tolist(),
+                                 gconfig=GenerationHyperparameters(max_new_tokens=VL_NEW,
+                                                                   temperature=1.0)))
+    try:
+        with _observe_image_prefills() as deltas:
+            # ---- the main path: counts to 0 just before, read just after ----
+            pa.launches = 0
+            t0 = time.perf_counter()
+            resps = _paused_wave(engine, reqs)
+            wall = time.perf_counter() - t0
+            k3 = pa.launches
+            # ---- end of the main path ----
+        L, steps = cfg.num_hidden_layers, engine.decode_steps
+        check(k3 == L * steps > 0, f"vision (v1): K3 {k3}, want {L} x {steps}")
+        check(len(deltas) == VL_IMAGES, f"vision (v1): {len(deltas)} image prefills")
+        check(all(d["delta"] == d["want"] for d in deltas), f"vision (v1): deltas {deltas}")
+        check(all(len(r.output_tokens) == VL_NEW and np.isfinite(r.output_logprobs).all()
+                  for r in resps), "vision (v1): a request stopped early or a logprob is not finite")
+        agree = [_vl_agreement(engine, reqs[i], resps[i]) for i in range(VL_GREEDY)]
+        faults = _vl_planted(engine, reqs[0])
+        emit("vision_oracle", tolerance=VL_LOGP_TOL, greedy=agree, planted=faults)
+        for i, a in enumerate(agree):
+            check(_vl_within(a), f"vision (v1): greedy image request {i} against the oracle {a}")
+        for f, a in faults.items():
+            check(not _vl_within(a), f"vision (v1): planted {f} within the tolerance: {a}")
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        # the tower per image, traced (device ms summed over its kernels,
+        # wall up to a synchronize: ~1,300 kernels a call overrun the
+        # launch queue behind `_time_device_and_host`'s sleep); an image
+        # prefill beside a text prefill of the same length
+        _traced(engine._encode_images, [images[0]])
+        _, tower = _traced(engine._encode_images, [images[1]])
+        prefill_ms = {}
+        for kind in ("image", "text", "image", "text"):
+            req = reqs[0] if kind == "image" else ModelRequest(
+                input_ids=rng.integers(0, VL_TEXT_VOCAB, len(reqs[0].input_ids)).tolist(),
+                gconfig=GenerationHyperparameters(max_new_tokens=1))
+            s0 = engine.prefill_seconds
+            engine.prefill(ModelRequest(input_ids=req.input_ids, gconfig=req.gconfig,
+                                        image_data=req.image_data))
+            prefill_ms[kind] = (engine.prefill_seconds - s0) * 1e3  # the second of each
+        return dict(run="v1", requests=dict(image=VL_IMAGES, text=VL_TEXTS, greedy=VL_GREEDY,
+                                            new_tokens=VL_NEW),
+                    settings=VL_DECODE, wall_s=wall, decode_steps=steps,
+                    launches=dict(paged_attention=k3), formulas=dict(paged_attention="decode steps x L"),
+                    prefill_calls=engine.prefill_calls, image_prefills=len(deltas),
+                    rope_deltas=sorted({d["delta"] for d in deltas}),
+                    oracle_tolerance=VL_LOGP_TOL, oracle=agree, planted=faults,
+                    tower_ms_per_image=dict(device=tower["device_total_ms"],
+                                            as_issued=tower["wall_ms"], kernels=tower["kernels"]),
+                    prefill_ms=dict(image_request=prefill_ms["image"],
+                                    text_request_same_length=prefill_ms["text"],
+                                    prompt_tokens=len(reqs[0].input_ids)),
+                    max_memory_allocated_gb=peak, images=images, engine=engine)
+    except BaseException:
+        engine.destroy()
+        raise
+
+
+def _vl_hf_visual(vparams: dict, vcfg) -> dict:
+    """The tower's tensors under their HF `visual.*` names and layouts (the
+    inverse of `hf_io.load_hf_vision_params`)."""
+    D, nH, hd = vcfg.embed_dim, vcfg.num_heads, vcfg.head_dim
+    out = {"visual.patch_embed.proj.weight": vparams["patch_embed/kernel"].t().reshape(
+        D, vcfg.in_channels, vcfg.temporal_patch_size, vcfg.patch_size, vcfg.patch_size)}
+    for i, name in (("0", "fc1"), ("2", "fc2")):
+        out[f"visual.merger.mlp.{i}.weight"] = vparams[f"merger/{name}_kernel"].t()
+        out[f"visual.merger.mlp.{i}.bias"] = vparams[f"merger/{name}_bias"]
+    out["visual.merger.ln_q.weight"] = vparams["merger/ln_q/scale"]
+    for b in range(vcfg.depth):
+        p = f"visual.blocks.{b}."
+        out[p + "norm1.weight"] = vparams["blocks/norm1/scale"][b]
+        out[p + "norm2.weight"] = vparams["blocks/norm2/scale"][b]
+        out[p + "attn.qkv.weight"] = vparams["blocks/attn/qkv_kernel"][b].reshape(D, 3 * nH * hd).t()
+        out[p + "attn.qkv.bias"] = vparams["blocks/attn/qkv_bias"][b].reshape(-1)
+        out[p + "attn.proj.weight"] = vparams["blocks/attn/proj_kernel"][b].reshape(nH * hd, D).t()
+        out[p + "attn.proj.bias"] = vparams["blocks/attn/proj_bias"][b]
+        for m in ("gate", "up", "down"):
+            out[p + f"mlp.{m}_proj.weight"] = vparams[f"blocks/mlp/{m}_kernel"][b].t()
+            out[p + f"mlp.{m}_proj.bias"] = vparams[f"blocks/mlp/{m}_bias"][b]
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+def _vl_checkpoint(dev, root: str, cfg, params, vparams, vcfg) -> dict:
+    """(v1b)'s checkpoint: config.json as Qwen2.5-VL-3B's (the language
+    model as model_type "qwen2"), the language model at CUT_LAYERS of its
+    36 layers and the tower at full depth, bf16, sharded with an index."""
+    cut = dataclasses.replace(cfg, num_hidden_layers=CUT_LAYERS)
+    lm = {k: v for k, v in params.items()
+          if not k.startswith("layers_") or int(k.split("/")[0][7:]) < CUT_LAYERS}
+    t0 = time.perf_counter()
+    hf_io.save_hf_params(lm, cut, root, upcast_bf16=False, max_shard_bytes=VL_SHARD_BYTES)
+    visual = _vl_hf_visual(vparams, vcfg)
+    hf_io.write_safetensors(visual, os.path.join(root, "visual.safetensors"))
+    index = os.path.join(root, "model.safetensors.index.json")
+    with open(index) as f:
+        idx = json.load(f)
+    for name in visual:
+        idx["weight_map"][name] = "visual.safetensors"
+    del visual
+    with open(index, "w") as f:
+        json.dump(idx, f)
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(dict(QWEN25_VL_3B_HF, num_hidden_layers=CUT_LAYERS,
+                       architectures=["Qwen2ForCausalLM"]), f)
+    return dict(path=root, write_s=time.perf_counter() - t0, disk_bytes=_dir_bytes(root),
+                shards=sorted(set(idx["weight_map"].values())))
+
+
+def _vl_from_checkpoint(dev, ckpt: str, v1: dict) -> dict:
+    """(v1b) an engine started with `model_path` on the checkpoint loads
+    the tower through `_maybe_load_vision_tower`; on (v1)'s pixels its
+    image vectors are bit-equal to the in-memory tower's."""
+    t0 = time.perf_counter()
+    eng = TorchDecodeEngine(TorchDecodeConfig(model_path=ckpt, dtype="bfloat16",
+                                              kv_cache_dtype="bfloat16", max_running_requests=4,
+                                              context_length=1024, page_size=128), device=dev)
+    eng.initialize()
+    load_s = time.perf_counter() - t0
+    try:
+        check(eng._vision_params is not None and eng._mrope_sections == VL_SECTIONS
+              and eng._image_token_id == VL_IMAGE_TOKEN,
+              f"vision (v1b): tower {eng._vision_params is not None}, sections "
+              f"{eng._mrope_sections}, image token {eng._image_token_id}")
+        mem = v1["engine"]
+        with torch.no_grad():
+            equal = [torch.equal(eng._encode_images([im]), mem._encode_images([im]))
+                     for im in v1["images"][:4]]
+        check(all(equal), f"vision (v1b): the loaded tower's vectors differ {equal}")
+        return dict(run="v1b", load_s=load_s, layers=eng.model_config.num_hidden_layers,
+                    tower_depth=eng._vision_config.depth, images_bit_equal=len(equal))
+    finally:
+        eng.destroy()
+
+
+def _vl_items(split: str) -> list[dict]:
+    """(v3)'s items in synthetic-vision's schema, at the checkpoint's
+    patch size and the CLEVR grid: pre-tokenized prompts with image-pad
+    spans and processed patch dicts, made from the seed."""
+    rng = np.random.default_rng(SEED + 71 + (split == "train"))
+    out = []
+    for _ in range(16):
+        count = int(rng.integers(1, 5))
+        image = _vl_image(rng)
+        out.append(dict(input_ids=_vl_prompt(rng, int(rng.integers(*VL_IMAGE_TEXT))),
+                        images=[image], answer=str(count)))
+    return out
+
+
+def _vl_dataset() -> None:
+    """Register `_vl_items` under VL_DATASET."""
+    from areal_tpu_torch.dataset import register_dataset
+
+    @register_dataset(VL_DATASET)
+    def _items(path, split, type, tokenizer=None, max_length=None, **kw):
+        return _vl_items(split)
+
+
+def _vl_loop_logps(cfg, vcfg, ckpt: str, dev):
+    """(v3)'s batch check. Under the decoupled loss `compute_advantages`
+    leaves the decode engine's logprobs in `logprobs` and the trainer's
+    recomputed ones in `prox_logp`, both at position t for token t + 1,
+    where its rolled `loss_mask` marks them. Step 0's batch is all of
+    weight version 0, the checkpoint's: each row's `logprobs` are held
+    against the plain oracle with the row's image (`_vl_oracle`), its
+    `prox_logp` against the oracle's token-only view (the trainer sees no
+    image, 1-D positions), both within VL_LOOP_TOL, and a planted fault,
+    the decode logprobs read one position late, must miss it. Every step
+    prints the two side by side and their gap."""
+    images = {tuple(it["input_ids"]): it["images"][0] for it in _vl_items("train")}
+    calls = []
+
+    def batch_check(batch: dict) -> dict:
+        lm = batch["loss_mask"] > 0
+        gen, tr = batch["logprobs"][lm], batch["prox_logp"][lm]
+        d = np.abs(gen - tr)
+        row = dict(decode_logp_mean=float(gen.mean()), trainer_logp_mean=float(tr.mean()),
+                   decode_first=[round(float(x), 4) for x in gen[:6]],
+                   trainer_first=[round(float(x), 4) for x in tr[:6]],
+                   max_abs_diff=float(d.max()), mean_abs_diff=float(d.mean()))
+        calls.append(row)
+        if len(calls) > 1:
+            return row
+        check(bool((batch["versions"][batch["versions"] >= 0] == 0).all()),
+              "vision (v3): step 0 trains on a token of another weight version")
+        cut = dataclasses.replace(cfg, num_hidden_layers=CUT_LAYERS)
+        params = hf_io.load_hf_params(ckpt, cut, dtype="bfloat16", device=dev)
+        model = dict(params=params, cfg=cut, layers=None, vcfg=vcfg,
+                     vparams=hf_io.load_hf_vision_params(ckpt, vcfg, device=dev))
+        seen, text, late = [], [], []
+        for i in range(batch["input_ids"].shape[0]):
+            n, p = int(batch["attention_mask"][i].sum()), int(batch["begin_of_answer"][i])
+            at = np.arange(p - 1, n - 1)  # position t predicts token t + 1
+            check(bool(lm[i, at].all()) and int(lm[i].sum()) == len(at),
+                  f"vision (v3): row {i}'s rolled loss mask is not its completion")
+            ids = batch["input_ids"][i, :n].tolist()
+            prompt, tokens = ids[:p], ids[p:]
+            image = images[tuple(prompt)]
+            o = _vl_oracle(model, prompt, image, tokens)["logp"]
+            t = _vl_oracle(model, prompt, image, tokens, with_image=False)["logp"]
+            seen.append(np.abs(batch["logprobs"][i, at] - o))
+            text.append(np.abs(batch["prox_logp"][i, at] - t))
+            late.append(np.abs(batch["logprobs"][i, at + 1] - o))
+        del model, params
+        torch.cuda.empty_cache()
+        readings = {name: dict(max_abs=float(np.concatenate(x).max()),
+                               mean_abs=float(np.concatenate(x).mean()))
+                    for name, x in (("decode", seen), ("trainer", text),
+                                    ("decode_one_late", late))}
+        emit("vision_loop_oracle", tolerance=VL_LOOP_TOL, rows=len(seen),
+             tokens=int(sum(len(x) for x in seen)), readings=readings)
+        for name in ("decode", "trainer"):
+            check(_vl_within(readings[name], VL_LOOP_TOL),
+                  f"vision (v3): the {name} logprobs against the oracle {readings[name]}")
+        check(not _vl_within(readings["decode_one_late"], VL_LOOP_TOL),
+              f"vision (v3): decode logprobs one position late pass {readings['decode_one_late']}")
+        row["oracle"] = readings
+        return row
+
+    return batch_check
+
+
+def phase_vision(dev: torch.device) -> dict:
+    """Vision RLVR on the card:
+
+    (v1) Qwen2.5-VL-3B at its published widths and depth (36 layers,
+         bf16, random weights from SEED) with its tower (32 blocks) in
+         memory, clevr_grpo.yaml's decode settings: 16 image requests of
+         187 image tokens at CLEVR's processed grid plus 20-60 text
+         tokens and 8 text-only ones of 64-256 tokens, 128 new tokens
+         each, 4 image requests greedy; K3 = decode steps x 36; each image
+         slot's rope delta is `mrope_positions`'s (-170); the 4 greedy
+         streams' first 16 logprobs agree with the plain oracle within
+         VL_LOGP_TOL, and two planted faults (the delta forced to 0, the
+         image vectors replaced by the pad token's) miss it; the tower's
+         ms per image, an image prefill beside a text prefill of the same
+         length, peak memory;
+    (v1b) a checkpoint of the language model at CUT_LAYERS and the tower
+         at full depth: an engine started on it loads the tower, and its
+         vectors on (v1)'s pixels are bit-equal;
+    (v2) `examples/clevr_grpo.py` with its docstring's offline overrides
+         for VL_STEPS steps of 8 prompts x 8 samples: the loss, K3 and
+         K1/K2a/K2b on their formulas, the version lag within
+         max_head_offpolicyness;
+    (v3) the GRPO entry point with `workflow=vision_rlvr` on (v1b)'s
+         checkpoint (actor and decode engine) under the decoupled loss:
+         4 prompts x 4 samples, 64 new tokens, VL_STEPS steps, the launch
+         formulas; step 0's decode logprobs against the oracle with each
+         row's image and the trainer's against its token-only view, at the
+         same positions, within VL_LOOP_TOL, and the decode logprobs read
+         one position late outside it (`_vl_loop_logps`)."""
+    from areal_tpu_torch.examples import clevr_grpo
+
+    t0 = time.perf_counter()
+    cfg, vcfg, params, vparams = _vl_model(dev)
+    v1 = _vl_serve(dev, cfg, vcfg, params, vparams)
+    times = dict(v1=time.perf_counter() - t0)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            t = time.perf_counter()
+            ckpt = _vl_checkpoint(dev, os.path.join(root, "qwen2.5-vl-3b"), cfg, params,
+                                  vparams, vcfg)
+            del params, vparams
+            torch.cuda.empty_cache()
+            v1b = _vl_from_checkpoint(dev, ckpt["path"], v1)
+            v1["engine"].destroy()
+            torch.cuda.empty_cache()
+            times["v1b"] = time.perf_counter() - t
+            t = time.perf_counter()
+            v2 = _loop_run(dev, "v2", VL_OFFLINE + VL_OFFLINE_SIZE, yaml=VL_YAML,
+                           entry=clevr_grpo.main)
+            check(v2["max_version_lag"] <= VL_MAX_LAG, f"vision (v2): lag {v2['max_version_lag']}")
+            times["v2"] = time.perf_counter() - t
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            _vl_dataset()
+            v3 = _loop_run(dev, "v3", VL_LOOP + [f"actor.path={ckpt['path']}",
+                                                 f"decode.model_path={ckpt['path']}",
+                                                 "workflow=vision_rlvr"],
+                           yaml=VL_YAML,
+                           batch_check=_vl_loop_logps(cfg, vcfg, ckpt["path"], dev),
+                           reward_fn=synthetic_vision_reward)
+            times["v3"] = time.perf_counter() - t
+    finally:
+        v1["engine"].destroy()
+    v1 = {k: v for k, v in v1.items() if k not in ("engine", "images")}
+    runs = [v1, v1b, v2, v3]
+    emit("vision", model="Qwen2.5-VL-3B-Instruct", source=QWEN25_VL_3B_SOURCE,
+         layers=cfg.num_hidden_layers, tower_depth=vcfg.depth, grid=VL_GRID,
+         checkpoint=ckpt, seconds=times,
+         rewards={r["run"]: [s["reward_mean"] for s in r["steps"]] for r in (v2, v3)},
+         entry_points=["areal_tpu_torch/examples/clevr_grpo.py:main",
+                       "areal_tpu_torch/examples/gsm8k_grpo.py:main workflow=vision_rlvr"],
+         runs=runs)
+    total = {k: v2["launches"][k] + v3["launches"][k] for k in v2["launches"]}
+    total["paged_attention"] += v1["launches"]["paged_attention"]
+    return dict(launches=total, by_run={r["run"]: r.get("launches") for r in runs})
+
+
+def vision_only() -> int:
+    """`--vision`: the device and build phases, K3 and K1/K2a/K2b against
+    their plain versions (the vision shapes among their cases), then the
+    vision phase alone."""
+    dev, smi = phase_device()
+    phase_build()
+    phase_kernel(dev)
+    phase_flash_kernel(dev)
+    out = phase_vision(dev)
+    print(smi, flush=True)
+    print(json.dumps({"vision_launches": out["launches"]}), flush=True)
+    return 0
+
+
 # ---------------------------------------------------------------------------
 # the memory estimator (`utils/hbm.py`) against the cells' measured peaks
 # ---------------------------------------------------------------------------
@@ -8322,6 +8892,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     fleet = phase_fleet(dev)
     clock.lap("fleet")
+    torch.cuda.empty_cache()
+    vision = phase_vision(dev)
+    clock.lap("vision")
     # K1/K2a/K2b run in the GRPO loop, the train phase, both SFT runs, the
     # GRPO recovery runs, the AEnt run, the decoupled trainer, the PPO,
     # reward-model and multi-turn trainers, the GRPO run on a checkpoint
@@ -8336,7 +8909,7 @@ def main() -> int:
                        decoupled=decoupled["launches"], ppo=ppo["launches"],
                        rw=rw["launches"], multi_turn=multi_turn["launches"],
                        hf_path=hf_path["launches"], tir=tir["launches"],
-                       chaos=chaos["launches"])
+                       chaos=chaos["launches"], vision=vision["launches"])
     # K3 runs in the serve, sched (its group waves) and train paths and in
     # the spec path's normal chunks; K5a in the int8 serve path and the int8 spec path's; K6 in both
     # int8 paths
@@ -8353,7 +8926,8 @@ def main() -> int:
                                      tir=tir["launches"]["paged_attention"],
                                      chaos=chaos["launches"]["paged_attention"],
                                      kv_tier=tier["launches"]["paged_attention"],
-                                     fleet=fleet["launches"]["paged_attention"])
+                                     fleet=fleet["launches"]["paged_attention"],
+                                     vision=vision["launches"]["paged_attention"])
     paged["launches"] = sum(paged["launches_by_path"].values())
     q8["launches_by_path"] = dict(serve_int8=q_launches["paged_attention_q8"],
                                   serve_spec_int8=s8_launches["paged_attention_q8"],
@@ -8389,5 +8963,5 @@ if __name__ == "__main__":
              "--qmm-times": qmm_times_only, "--qmm-sweep": qmm_sweep_only,
              "--decoupled": decoupled_only, "--trainers": trainers_only,
              "--hf-path": hf_path_only, "--tir": tir_only, "--chaos": chaos_only,
-             "--kv-tier": kv_tier_only, "--fleet": fleet_only}
+             "--kv-tier": kv_tier_only, "--fleet": fleet_only, "--vision": vision_only}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] else main())

@@ -110,10 +110,68 @@ def test_jax_export_read_by_port(tie, dtype, scan, tmp_path):
 
 def test_hf_refuses_other_families(tmp_path):
     cfg = tq.ModelConfig(**MODEL, model_type="gpt2")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 6.7"):
         t_hf.load_hf_params(str(tmp_path), cfg)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t_hf.load_hf_vision_params(str(tmp_path), None)
+
+
+def test_hf_reads_the_vision_tower(tmp_path):
+    """A checkpoint holding a language model and a Qwen2.5-VL tower: the
+    language loader skips `visual.*`, and `load_hf_vision_params` reads
+    the tower, equal to JAX's loader leaf for leaf and to the tensors
+    written (`tests/test_torch_qwen2_vl.py` holds both families)."""
+    from areal_tpu.models import qwen2_vl as jv
+    from areal_tpu_torch.models import qwen2_vl as tv
+
+    vc = dict(hidden_size=16, depth=2, num_heads=2, intermediate_size=32, patch_size=2,
+              temporal_patch_size=1, out_hidden_size=MODEL["hidden_size"])
+    vcfg, jvcfg = tv.VisionConfig.from_hf_dict(vc), jv.VisionConfig.from_hf_dict(vc)
+    vis = tv.init_vision_params(vcfg, torch.Generator().manual_seed(5))
+    tensors = {"visual.patch_embed.proj.weight": vis["patch_embed/kernel"].t().reshape(
+        16, 3, 1, 2, 2).contiguous(), "visual.merger.ln_q.weight": vis["merger/ln_q/scale"]}
+    for k in ("fc1", "fc2"):
+        i = "0" if k == "fc1" else "2"
+        tensors[f"visual.merger.mlp.{i}.weight"] = vis[f"merger/{k}_kernel"].t().contiguous()
+        tensors[f"visual.merger.mlp.{i}.bias"] = vis[f"merger/{k}_bias"]
+    for b in range(2):
+        p = f"visual.blocks.{b}."
+        tensors[p + "norm1.weight"] = vis["blocks/norm1/scale"][b]
+        tensors[p + "norm2.weight"] = vis["blocks/norm2/scale"][b]
+        tensors[p + "attn.qkv.weight"] = vis["blocks/attn/qkv_kernel"][b].reshape(
+            16, 48).t().contiguous()
+        tensors[p + "attn.qkv.bias"] = vis["blocks/attn/qkv_bias"][b].reshape(48)
+        tensors[p + "attn.proj.weight"] = vis["blocks/attn/proj_kernel"][b].reshape(
+            16, 16).t().contiguous()
+        tensors[p + "attn.proj.bias"] = vis["blocks/attn/proj_bias"][b]
+        for m in ("gate", "up", "down"):
+            tensors[p + f"mlp.{m}_proj.weight"] = vis[f"blocks/mlp/{m}_kernel"][b].t().contiguous()
+            tensors[p + f"mlp.{m}_proj.bias"] = vis[f"blocks/mlp/{m}_bias"][b]
+    cfg = tq.ModelConfig(**MODEL)
+    lm = tq.init_params(cfg, torch.Generator().manual_seed(6))
+    t_hf.save_hf_params(lm, cfg, str(tmp_path))
+    t_hf.write_safetensors(tensors, str(tmp_path / "visual.safetensors"))
+    shards = {"model.safetensors": t_hf.read_safetensors(str(tmp_path / "model.safetensors")),
+              "visual.safetensors": tensors}
+    weight_map = {n: f for f, ts in shards.items() for n in ts}
+    (tmp_path / "model.safetensors.index.json").write_text(
+        json.dumps(dict(metadata=dict(total_size=0), weight_map=weight_map)))
+    got = t_hf.load_hf_vision_params(str(tmp_path), vcfg)
+    assert set(got) == set(vis)
+    for name, t in vis.items():
+        assert torch.equal(got[name], t), name
+    want = j_hf.load_hf_vision_params(str(tmp_path), jvcfg)
+    flat = {}
+    for k, v in want.items():
+        for k2, v2 in v.items():
+            if isinstance(v2, dict):
+                flat.update({f"{k}/{k2}/{k3}": v3 for k3, v3 in v2.items()})
+            else:
+                flat[f"{k}/{k2}"] = v2
+    assert set(flat) == set(got)
+    for name, arr in flat.items():
+        np.testing.assert_array_equal(got[name].numpy(), np.asarray(arr))
+    reread = t_hf.load_hf_params(str(tmp_path), cfg)
+    for name, t in lm.items():
+        assert torch.equal(reread[name], t), name
 
 
 # ---------------------------------------------------------------------------

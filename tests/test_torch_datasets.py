@@ -10,8 +10,10 @@
   files that records each call, so no hub id is ever fetched: both
   packages must ask for the same (path, config, split), and their rl, sft
   and rw items must be equal.
-- The code and vision datasets, and sharding over hosts, are refused with
-  their ROADMAP items.
+- The code and vision datasets load as JAX's do: the code benchmarks and
+  `clevr_count_70k` / `geometry3k` from local rows, `synthetic-vision`
+  from its seed, bit for bit. Sharding over hosts is refused with its
+  ROADMAP item.
 """
 
 import json
@@ -199,17 +201,52 @@ CODE_HUBS = {"humaneval": "openai/openai_humaneval",
              "mbpp": "google-research-datasets/mbpp"}
 
 
+VQA_ROWS = {
+    "clevr_count_70k": [dict(problem="How many spheres?", image="img0.png", answer=3),
+                        dict(question="How many cubes?", image="img1.png", answer=2)],
+    "geometry3k": [dict(problem="Find x.", images=["a.png", "b.png"], answer="B"),
+                   dict(problem="Find the area.", images=["c.png"], answer="12\\sqrt{3}")],
+}
+
+
+def _vision_items_equal(t: list, j: list) -> None:
+    """Items equal, arrays bit for bit (dtype and bytes)."""
+    assert len(t) == len(j)
+    for a, b in zip(t, j):
+        assert set(a) == set(b) and a["input_ids"] == b["input_ids"]
+        assert a["answer"] == b["answer"] and len(a["images"]) == len(b["images"]) == 1
+        for k in ("pixel_values", "image_grid_thw"):
+            x, y = a["images"][0][k], b["images"][0][k]
+            assert x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
+
+
 @pytest.mark.parametrize("name", ["humaneval", "openai/openai_humaneval", "mbpp",
                                   "clevr_count_70k", "geometry3k", "synthetic-vision"])
-def test_code_and_vision_datasets_are_refused(name, local_hub):
-    """The vision datasets are refused with item 6. The code benchmarks
-    are ported: a name that is no local file goes to its hub id through
-    `load_dataset` (here the recording reader), as in JAX."""
-    if name not in CODE_HUBS:
-        with pytest.raises(NotImplementedError, match="item 6"):
-            td.get_custom_dataset(path=name, split="test")
-        return
+def test_code_and_vision_datasets(name, local_hub):
+    """The code benchmarks: a name that is no local file goes to its hub
+    id through `load_dataset` (here the recording reader), as in JAX. The
+    vision datasets: `clevr_count_70k` and `geometry3k` read a local
+    directory given as the path and map its rows to {messages, images,
+    answer} as JAX does; `synthetic-vision` gives JAX's items for the
+    same seed and split, arrays bit for bit."""
     write, calls = local_hub
+    if name == "synthetic-vision":
+        for split, seed in (("train", 0), ("test", 5)):
+            t = td.get_custom_dataset(path=name, split=split, n_items=16, seed=seed)
+            j = jd.get_custom_dataset(path=name, split=split, n_items=16, seed=seed)
+            _vision_items_equal(t, j)
+        assert t[0]["input_ids"] == [5, 31, 31, 31, 31, 9, 2]
+        assert {x["answer"] for x in t} <= {"1", "2", "3", "4"}
+        return
+    if name in VQA_ROWS:
+        path = write(name, VQA_ROWS[name], "test")
+        t, j, asked = _both(calls, path=path, split="test", type="rl")
+        assert asked == [(path, None, "test")] and t == j
+        q = t[0]["messages"][0]["content"]
+        assert q[0] == {"type": "image"} and q[1]["type"] == "text"
+        assert [str(x["answer"]) for x in t] == [str(r["answer"]) for r in VQA_ROWS[name]]
+        assert t[0]["images"] == VQA_ROWS[name][0].get("images", ["img0.png"])
+        return
     hub = CODE_HUBS[name]
     rows = [dict(task_id="T/0", prompt="def f():\n", entry_point="f",
                  test="def check(c):\n    assert c() is None\n", text="f", code="",

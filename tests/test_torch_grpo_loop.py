@@ -140,7 +140,12 @@ class _Records(logging.Handler):
 def test_entry_point_two_steps(tmp_path):
     """The yaml unchanged but for the step count and the run's paths; as
     `test_examples_smoke.py::test_grpo_example_smoke` checks the JAX
-    example's output."""
+    example's output. Under the yaml's decoupled loss, step 0's trained
+    batch pairs each token's decode-engine logprob (`logprobs`, rolled by
+    `compute_advantages`) with the trainer's (`prox_logp`) at the same
+    position, where the rolled loss mask marks it: both score the same
+    token under the same weights (atol 1e-5), and a one-token shift
+    does not."""
     records = _Records()
     log = logging.getLogger("areal_tpu_torch.stats_logger")
     log.addHandler(records)
@@ -161,6 +166,14 @@ def test_entry_point_two_steps(tmp_path):
         assert batch["rollout_version"].max() <= step
         gen = batch["attention_mask"].astype(bool) & (batch["versions"] >= 0)
         assert 0 <= step - batch["versions"][gen].min() <= 2
+    b0 = history[0]["batch"]
+    trained = b0["loss_mask"] > 0
+    assert trained.any()
+    np.testing.assert_allclose(b0["logprobs"][trained], b0["prox_logp"][trained],
+                               atol=1e-5, rtol=0)
+    for shift in (1, -1):
+        moved = np.roll(b0["prox_logp"], shift, axis=-1)[trained]
+        assert np.abs(b0["logprobs"][trained] - moved).mean() > 0.1
     assert (tmp_path / "logs" / "grpo-smoke-test" / "run0" / "config.yaml").exists()
 
 
@@ -208,8 +221,10 @@ def test_entry_point_refusals(tmp_path):
     side), and through a registered fleet router (item 4.2) when there is
     one; `launcher.supervisor.enabled` is accepted (the supervisor runs as
     its own process). More than one device is item 5, prefill replicas
-    item 4.1 (they need more than one generation server), the vision
-    workflow and datasets item 6."""
+    item 4.1 (they need more than one generation server). The vision
+    workflow is one of the entry point's workflows, and the vision
+    datasets have JAX's rewards (`tests/test_torch_vision.py` runs
+    `clevr_grpo.py`)."""
     from areal_tpu_torch.api.cli_args import RouterConfig
     from areal_tpu_torch.launcher.router import DecodeRouter
     from areal_tpu_torch.utils import name_resolve, names
@@ -255,12 +270,16 @@ def test_entry_point_refusals(tmp_path):
     finally:
         srv.stop()
         name_resolve.reconfigure(t_cli.NameResolveConfig(type="memory"))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        main(base + ["workflow=vision_rlvr"], device="cpu")
+    from areal_tpu_torch.examples.gsm8k_grpo import WORKFLOWS, pick_reward_fn
+    from areal_tpu_torch.reward import vqa
+
+    assert "vision_rlvr" in WORKFLOWS
     with pytest.raises(ValueError, match="workflow"):
         main(base + ["workflow=nope"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        main(base + ["train_dataset.path=clevr_count_70k"], device="cpu")
+    for path, fn in (("clevr_count_70k", vqa.clevr_count_reward),
+                     ("/data/geometry3k", vqa.geometry3k_reward),
+                     ("synthetic-vision", vqa.synthetic_vision_reward)):
+        assert pick_reward_fn(path) is fn
     with pytest.raises(ValueError, match="vocab is fixed at 32"):
         smoke_model_config(vocab_size=33)
     assert smoke_model_config(vocab_size=21).vocab_size == 32

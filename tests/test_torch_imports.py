@@ -129,6 +129,10 @@ def test_port_has_the_expected_modules():
         "areal_tpu_torch.experimental.openai.types",
         "areal_tpu_torch.experimental.openai.client",
         "areal_tpu_torch.evaluation.auto",
+        "areal_tpu_torch.models.qwen2_vl",
+        "areal_tpu_torch.reward.vqa",
+        "areal_tpu_torch.workflow.vision_rlvr",
+        "areal_tpu_torch.examples.clevr_grpo",
         "chip_smoke",
     ):
         assert want in names
@@ -170,8 +174,8 @@ print("ok", len({modules!r}))
 
 def test_offline_paths_run_without_transformers_and_datasets():
     """What `chip_smoke.py` runs on a machine with neither package: the
-    offline tokenizer, the countdown and synthetic-arith datasets, their
-    rewards and the math grader."""
+    offline tokenizer, the countdown, synthetic-arith and synthetic-vision
+    datasets, their rewards and the math grader."""
     out = _run_blocked("""
 from areal_tpu_torch.dataset import get_custom_dataset, load_tokenizer
 from areal_tpu_torch.examples.gsm8k_grpo import pick_reward_fn
@@ -186,6 +190,9 @@ assert reward(None, "<answer>" + x["solution"] + "</answer>", [], [],
 arith = get_custom_dataset("synthetic-arith", split="test", type="sft")
 assert arith and tok.decode(arith[0]["input_ids"])
 assert pick_reward_fn("synthetic-arith")(None, "", [], [], answer="1") == 0.0
+vis = get_custom_dataset("synthetic-vision", split="test", n_items=2)
+assert vis[0]["images"][0]["pixel_values"].shape == (16, 12)
+assert pick_reward_fn("synthetic-vision")(None, None, [], [3, 2], answer="2") == 1.0
 assert math_equal(r"\\frac{1}{2}", "0.5") and not math_equal("1/2", "0.6")
 try:
     load_tokenizer("/models/some-tokenizer")
