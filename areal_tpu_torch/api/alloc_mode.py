@@ -307,11 +307,6 @@ def _refuse_unported(mode: "AllocationMode", expr: str) -> None:
     for side, backend, strategy in sides:
         if strategy is None:
             continue
-        if getattr(strategy, "moe_hybrid", False):
-            raise NotImplementedError(
-                f"allocation_mode={expr!r}: MoE hybrid sections are not in the PyTorch "
-                "port yet: ROADMAP.md queue 1, item 6.7"
-            )
         if side == "generation" and backend not in (None, "jax"):
             raise NotImplementedError(
                 f"allocation_mode={expr!r}: the {backend!r} serving backend is not in the "
@@ -321,6 +316,15 @@ def _refuse_unported(mode: "AllocationMode", expr: str) -> None:
             raise NotImplementedError(
                 f"allocation_mode={expr!r}: the {backend!r} training backend is not in the "
                 "PyTorch port yet: ROADMAP.md queue 1, item 5"
+            )
+        if getattr(strategy, "moe_hybrid", False) and (
+            strategy.world_size > 1 or strategy.expert_parallel_size > 1
+        ):
+            # a one-device hybrid section is the one-device strategy, as
+            # JAX reads it (its :251-282)
+            raise NotImplementedError(
+                f"allocation_mode={expr!r}: a MoE hybrid {side} section over more than one "
+                "device is expert parallelism, which spans devices: ROADMAP.md queue 1, item 5"
             )
         if strategy.world_size > 1 or strategy.expert_parallel_size > 1:
             raise NotImplementedError(

@@ -412,11 +412,30 @@ class RemoteInfEngine(InferenceEngine):
                        f"{decode_addr} will prefill itself")
         return False
 
+    async def _schedule_or_release(self, req: ModelRequest, deadline: float):
+        """`_schedule_via_router`, whose placement is released when the
+        caller is cancelled (a pause drain, the runner's shutdown) while the
+        request is in flight: the router may have counted it already, and
+        the release in `agenerate`'s `finally` is not reached yet."""
+        task = asyncio.ensure_future(self._schedule_via_router(req, deadline=deadline))
+        try:
+            return await asyncio.shield(task)
+        except asyncio.CancelledError:
+            try:
+                placed = await asyncio.wait_for(
+                    asyncio.shield(task), timeout=self.config.router_request_timeout)
+            except BaseException:  # noqa: BLE001 — the router's TTL backstops it
+                task.cancel()
+                placed = None
+            if placed:
+                await self._finish_request_best_effort(req.rid)
+            raise
+
     async def agenerate(self, req: ModelRequest) -> ModelResponse:
         """Generate with the interrupt-resume loop (JAX :532-621)."""
         start = time.monotonic()
         deadline = start + self.config.request_timeout
-        sched = await self._schedule_via_router(req, deadline=deadline)
+        sched = await self._schedule_or_release(req, deadline)
         routed = sched["url"] if sched else None
         addr = routed or self.choose_server(req.rid, cost=self._local_cost(req))
         # a disaggregated fleet: the router named a prefill replica too

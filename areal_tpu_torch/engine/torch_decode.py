@@ -22,6 +22,14 @@ serving core and its default scheduling).
   input, so every generated token is sampled by the decode loop. Prefill
   work per pass is capped at `max_prefill_tokens`; a fork is no prefill
   work.
+- **MoE routing groups** (Qwen3-MoE, Qwen2-MoE, Mixtral;
+  `models/qwen2.moe_mlp`). Every model call routes under JAX's mask: a
+  batched prefill routes each row on its own over its bucket, its pad tail
+  claiming no expert capacity (JAX prefills one sequence per call,
+  vmapped); a decode step groups the R slots, a verify pass the R x W
+  tokens, each under the slots' `active` mask, which stays fixed over a
+  chunk. Capacity makes a MoE stream depend on its batchmates: the
+  batch-invariance of the dense streams holds for dense models only.
 - **The prefix registry.** Every prefill and fork registers the slot's
   covered tokens (`_register_prefix`); a retired slot registers its whole
   conversation and keeps its blocks as donor material until pool
@@ -556,10 +564,14 @@ class TorchDecodeEngine(InferenceEngine):
                 self._prefill_secs += start.elapsed_time(end) / 1e3
 
     # -- lifecycle ------------------------------------------------------
-    def set_model(self, params: dict[str, torch.Tensor], model_config: ModelConfig) -> None:
-        """Install weights (the port's flat name -> tensor dict). Always
-        copies onto the engine's device: the caller keeps its tensors. A
-        critic (a value head, no LM head) is refused."""
+    def set_model(self, params: dict[str, torch.Tensor], model_config: ModelConfig,
+                  donate: bool = False) -> None:
+        """Install weights (the port's flat name -> tensor dict). Copies
+        onto the engine's device, so the caller keeps its tensors, unless
+        `donate`: then a tensor already on the device is taken as it is
+        (Qwen3-30B-A3B's 61 GB cannot sit on an 80 GB card twice), and the
+        engine's weight pushes write into it. A critic (a value head, no
+        LM head) is refused."""
         check_supported(model_config)
         check_servable(model_config)
         want = named_shapes(model_config)
@@ -572,7 +584,7 @@ class TorchDecodeEngine(InferenceEngine):
                 raise ValueError(f"{name}: shape {tuple(t.shape)} != {want[name]}")
         self.model_config = model_config
         self.params = {
-            k: v.detach().to(self.device, copy=True) for k, v in params.items()
+            k: v.detach().to(self.device, copy=not donate) for k, v in params.items()
         }
         # per-layer views, built once: weight pushes copy in place
         self._layers = layer_views(self.params, model_config)
@@ -2023,12 +2035,16 @@ class TorchDecodeEngine(InferenceEngine):
         nb_w = -(-bucket // bsz)
         pad = nb_w * bsz - bucket
         rows = np.concatenate([self._alloc.row(s, nb_w) for s in slots]).astype(np.int64)
+        # the real tokens of each row: a MoE layer routes each row on its
+        # own, its pad tail claiming no capacity (jax_decode.py:1834-1838)
+        valid = np.arange(bucket)[None, :] < np.asarray(lens)[:, None]
         with self._prefill_call(int(sum(lens)), slots=B):
             rows = self._upload(rows)
             _, k, v = prefill(self.params, self._upload(ids), torch.arange(bucket, device=self.device),
                               cfg, with_logits=False, layers=self._layers, input_embeds=embeds,
                               rope_cos=None if rope is None else rope[0],
                               rope_sin=None if rope is None else rope[1],
+                              valid=self._upload(valid),
                               )  # [B, L, bucket, nKV, hd]
             if pad:
                 k = F.pad(k, (0, 0, 0, 0, 0, pad))
@@ -2076,6 +2092,7 @@ class TorchDecodeEngine(InferenceEngine):
             ks, vs = prefill_with_prefix(
                 self.params, self._upload(ids), prefix(self._k_pool, self._k_scale),
                 prefix(self._v_pool, self._v_scale), plen, cfg, layers=self._layers,
+                valid=self._upload(np.arange(sb) < len(suffix)),
             )  # [L, sb, nKV, hd]
             blocks, offs = self._upload(row[pos // bsz]), self._upload(pos % bsz)
             if self._kv_quant:

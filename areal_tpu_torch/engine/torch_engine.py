@@ -640,19 +640,23 @@ class TorchTrainEngine(TrainEngine):
         out["position_ids"] = torch.from_numpy(pos).to(self.device)
         return out
 
-    def _model_out(self, mb: dict[str, torch.Tensor], fn: Callable | None):
+    def _model_out(self, mb: dict[str, torch.Tensor], fn: Callable | None,
+                   with_aux: bool = False):
         """Logits (a critic's values `[T]`), or an `LMHead` for
-        `hidden_loss`-tagged functions, which a critic refuses."""
+        `hidden_loss`-tagged functions, which a critic refuses; with
+        `with_aux`, (that, the MoE router aux loss summed over layers)."""
         hidden = bool(getattr(fn, "hidden_loss", False))
         if hidden and self.model_config.is_critic:
             raise ValueError(
                 "a hidden_loss-tagged function reads the LM head; a critic has a value head"
             )
-        x = model_forward(
+        out = model_forward(
             self.params, mb["input_ids"], mb["position_ids"], mb["segment_ids"],
-            self.model_config, return_hidden=hidden, layers=self._layers,
+            self.model_config, return_hidden=hidden, layers=self._layers, with_aux=with_aux,
         )
-        return LMHead(x, self.params, self.model_config) if hidden else x
+        x, aux = out if with_aux else (out, None)
+        x = LMHead(x, self.params, self.model_config) if hidden else x
+        return (x, aux) if with_aux else x
 
     def train_batch(
         self,
@@ -672,6 +676,10 @@ class TorchTrainEngine(TrainEngine):
         weights = [float(loss_weight_fn(mb)) for mb in mb_list.mbs]
         total_weight = float(sum(weights)) or 1.0
         aux_mode = bool(getattr(loss_fn, "returns_aux", False))
+        # a MoE model's router balance loss joins each micro-batch's loss
+        # before its weight (JAX :1464-1483)
+        mcfg = self.model_config
+        with_aux = bool(mcfg.num_experts and mcfg.router_aux_loss_coef > 0)
         plist = list(self.params.values())
         grad_dtype = torch_dtype(self.config.grad_reduce_dtype)
         losses, mb_stat_list = [], []
@@ -679,8 +687,12 @@ class TorchTrainEngine(TrainEngine):
             acc = [torch.zeros_like(p, dtype=grad_dtype) for p in plist]
             for mb, w in zip(mb_list.mbs, weights):
                 dev_mb = self._device_mb(mb)
-                res = loss_fn(self._model_out(dev_mb, loss_fn), dev_mb)
+                out = self._model_out(dev_mb, loss_fn, with_aux=with_aux)
+                x, aux = out if with_aux else (out, None)
+                res = loss_fn(x, dev_mb)
                 loss, stats = res if aux_mode else (res, {})
+                if with_aux:
+                    loss = loss + mcfg.router_aux_loss_coef * aux
                 grads = torch.autograd.grad(loss, plist, allow_unused=True)
                 with torch.no_grad():
                     for a, g in zip(acc, grads):

@@ -4,7 +4,10 @@ The JAX package keeps parameters as a nested dict of arrays; the port
 keeps a flat dict of tensors under the `/`-joined names of that tree
 (the wire names of `core/weight_transfer.py`). Both accept the scanned
 (`layers` stacked `[L, ...]`) and unscanned (`layers_{i}`) forms, whichever
-`cfg.scan_layers` says. The vision tower's tree (`models/qwen2_vl.py`)
+`cfg.scan_layers` says. A MoE layer's leaves (`mlp/router_kernel`, the
+experts `mlp/{gate,up,down}_kernel` `[E, ...]`, stacked `[L, E, ...]`,
+Qwen2-MoE's `mlp/shared_*`) and Qwen3's `attn/{q,k}_norm` move under the
+same names as every other leaf. The vision tower's tree (`models/qwen2_vl.py`)
 moves the same way, its `blocks` stacked `[depth, ...]` in both. Only
 numpy crosses between the packages.
 """

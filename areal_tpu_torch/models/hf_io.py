@@ -1,7 +1,14 @@
 """HF checkpoint <-> the port's parameters (counterpart of
-`areal_tpu/models/hf_io.py`), trimmed to the qwen2 family: Qwen2 and
-Qwen2.5 (q/k/v biases, tied or untied head), and Llama and Mistral, which
-share its tensor names.
+`areal_tpu/models/hf_io.py`): Qwen2 and Qwen2.5 (q/k/v biases, tied or
+untied head), Llama and Mistral, which share its tensor names, Qwen3
+(`self_attn.{q,k}_norm`), and the MoE families: Qwen3-MoE and Qwen2-MoE
+(`mlp.gate` the router, `mlp.experts.{m}.{gate,up,down}_proj`, Qwen2-MoE's
+`mlp.shared_expert.*` and `mlp.shared_expert_gate`) and Mixtral
+(`block_sparse_moe.gate`, `block_sparse_moe.experts.{m}.w1/w3/w2` for
+gate/up/down). A load stacks each layer's experts `[E, ...]` (JAX
+:252-266) and raises on an expert index outside the model's E or one
+missing from a stack; a save unstacks them under the family's names (JAX
+:344-420).
 
 HF stores each linear weight as `[out, in]`; the port keeps the JAX
 package's einsum layout (`[in, out]`, heads split out), so a load is a
@@ -23,8 +30,7 @@ either form, a tied head with or without `lm_head.weight` on disk.
 A critic's value head is HF's token-classification `score.weight`
 `[1, H]` and `score.bias` `[1]` (JAX :62-65); a critic loaded from a
 causal-LM checkpoint starts from a zero value head and drops `lm_head`,
-as in JAX (:267-277). MoE, Qwen3's q/k norms and GPT-2 are ROADMAP
-queue 1, item 6.7.
+as in JAX (:267-277). GPT-2 and Gemma are ROADMAP queue 1, item 6.7.
 
 A Qwen2-VL / Qwen2.5-VL checkpoint's `visual.*` tensors load into the
 vision tower's parameters (`load_hf_vision_params`, JAX :515-628), as
@@ -42,7 +48,7 @@ import struct
 import numpy as np
 import torch
 
-from areal_tpu_torch.models.qwen2 import ModelConfig, named_shapes, torch_dtype
+from areal_tpu_torch.models.qwen2 import HF_FAMILIES, ModelConfig, named_shapes, torch_dtype
 
 _ITEM6 = "is not in the PyTorch port yet: ROADMAP.md queue 1, item 6.7 (model breadth)"
 
@@ -134,19 +140,37 @@ _LAYER_TABLE = {
     "self_attn.q_proj.bias": ("attn", "q_bias"),
     "self_attn.k_proj.bias": ("attn", "k_bias"),
     "self_attn.v_proj.bias": ("attn", "v_bias"),
+    "self_attn.q_norm.weight": ("attn", "q_norm"),
+    "self_attn.k_norm.weight": ("attn", "k_norm"),
     "mlp.gate_proj.weight": ("mlp", "gate_kernel"),
     "mlp.up_proj.weight": ("mlp", "up_kernel"),
     "mlp.down_proj.weight": ("mlp", "down_kernel"),
+    "mlp.gate.weight": ("mlp", "router_kernel"),
+    "mlp.shared_expert.gate_proj.weight": ("mlp", "shared_gate_kernel"),
+    "mlp.shared_expert.up_proj.weight": ("mlp", "shared_up_kernel"),
+    "mlp.shared_expert.down_proj.weight": ("mlp", "shared_down_kernel"),
+    "mlp.shared_expert_gate.weight": ("mlp", "shared_router_kernel"),
+    "block_sparse_moe.gate.weight": ("mlp", "router_kernel"),
     "input_layernorm.weight": ("input_norm",),
     "post_attention_layernorm.weight": ("post_attn_norm",),
 }
-_LAYER_NAMES = {v: k for k, v in _LAYER_TABLE.items()}
+_LAYER_NAMES = {v: k for k, v in _LAYER_TABLE.items() if not k.startswith("block_sparse_moe.")}
+# an expert's projection -> its stacked leaf: the qwen MoE names, then
+# Mixtral's (w1 gate, w3 up, w2 down: HF MixtralBlockSparseTop2MLP)
+_EXPERT_LEAVES = {
+    "mlp.experts": {"gate_proj": "gate_kernel", "up_proj": "up_kernel",
+                    "down_proj": "down_kernel"},
+    "block_sparse_moe.experts": {"w1": "gate_kernel", "w3": "up_kernel", "w2": "down_kernel"},
+}
+_EXPERT_NAMES = {fam: {v: k for k, v in t.items()} for fam, t in _EXPERT_LEAVES.items()}
 
 
 def hf_name_to_ours(name: str) -> tuple[str, ...] | None:
     """One HF tensor name -> its path in the unstacked tree (JAX :50), or
-    None for a tensor the qwen2 family does not read (rotary buffers; the
-    families of item 6.7, which `assemble_params` then finds missing)."""
+    None for a tensor the port does not read (rotary buffers; the families
+    of item 6.7, which `assemble_params` then finds missing). Expert m's
+    projection maps to (`layers_{i}`, "mlp", f"expert_{m}", leaf), which
+    `assemble_params` stacks."""
     name = name.removeprefix("model.")
     if name == "embed_tokens.weight":
         return ("embed", "embedding")
@@ -163,12 +187,18 @@ def hf_name_to_ours(name: str) -> tuple[str, ...] | None:
         rest = ".".join(parts[2:])
         if rest in _LAYER_TABLE:
             return (f"layers_{int(parts[1])}",) + _LAYER_TABLE[rest]
+        for fam, leaves in _EXPERT_LEAVES.items():
+            sub = rest[len(fam) + 1:].split(".") if rest.startswith(fam + ".") else []
+            if len(sub) == 3 and sub[1] in leaves and sub[2] == "weight":
+                return (f"layers_{int(parts[1])}", "mlp", f"expert_{int(sub[0])}", leaves[sub[1]])
     return None
 
 
 def ours_name_to_hf(path: tuple[str, ...], model_type: str = "qwen2") -> str:
-    """A path of the unstacked tree -> its HF tensor name (JAX :361)."""
-    if model_type not in ("qwen2", "llama", "mistral"):
+    """A path of the unstacked tree -> its HF tensor name for
+    `model_type`'s layout (JAX :361): only the MoE names differ by family,
+    Mixtral's `block_sparse_moe.*` against the qwen `mlp.*`."""
+    if model_type not in HF_FAMILIES:
         raise NotImplementedError(f"model_type={model_type!r} {_ITEM6}")
     if path == ("embed", "embedding"):
         return "model.embed_tokens.weight"
@@ -180,12 +210,22 @@ def ours_name_to_hf(path: tuple[str, ...], model_type: str = "qwen2") -> str:
         return "score.weight"
     if path == ("value_head", "bias"):
         return "score.bias"
-    if path[0].startswith("layers_") and path[1:] in _LAYER_NAMES:
-        return f"model.layers.{int(path[0].split('_')[1])}." + _LAYER_NAMES[path[1:]]
+    if path[0].startswith("layers_"):
+        pre = f"model.layers.{int(path[0].split('_')[1])}."
+        fam = "block_sparse_moe" if model_type == "mixtral" else "mlp"
+        if len(path) == 4 and path[1] == "mlp" and path[2].startswith("expert_"):
+            m = int(path[2].split("_")[1])
+            return f"{pre}{fam}.experts.{m}.{_EXPERT_NAMES[fam + '.experts'][path[3]]}.weight"
+        if path[1:] == ("mlp", "router_kernel"):
+            return f"{pre}{fam}.gate.weight"
+        if path[1:] in _LAYER_NAMES:
+            return pre + _LAYER_NAMES[path[1:]]
     raise KeyError(path)
 
 
-_MATRICES = ("gate_kernel", "up_kernel", "down_kernel", "kernel")
+_MATRICES = ("gate_kernel", "up_kernel", "down_kernel", "kernel", "router_kernel",
+             "shared_gate_kernel", "shared_up_kernel", "shared_down_kernel",
+             "shared_router_kernel")
 
 
 def _convert_tensor(path: tuple[str, ...], w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -223,13 +263,19 @@ def _unconvert_tensor(path: tuple[str, ...], w: torch.Tensor, cfg: ModelConfig) 
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.model_type not in ("qwen2", "llama", "mistral"):
+    if cfg.model_type not in HF_FAMILIES:
         raise NotImplementedError(f"model_type={cfg.model_type!r} {_ITEM6}")
+
+
+def _is_expert_leaf(path: tuple, cfg: ModelConfig) -> bool:
+    return bool(cfg.num_experts) and len(path) == 3 and path[1] == "mlp" and path[2] in (
+        "gate_kernel", "up_kernel", "down_kernel")
 
 
 def flatten_params(params: dict[str, torch.Tensor], cfg: ModelConfig) -> dict[tuple, torch.Tensor]:
     """The port's parameters -> {path of the unstacked tree: tensor}
-    (JAX :323): stacked `layers/...` leaves split into `layers_{i}`."""
+    (JAX :323): stacked `layers/...` leaves split into `layers_{i}`, and a
+    MoE layer's `[E, ...]` experts into `expert_{m}` paths (JAX :340-352)."""
     flat: dict[tuple, torch.Tensor] = {}
     for name, t in params.items():
         path = tuple(name.split("/"))
@@ -238,7 +284,34 @@ def flatten_params(params: dict[str, torch.Tensor], cfg: ModelConfig) -> dict[tu
                 flat[(f"layers_{i}",) + path[1:]] = t[i]
         else:
             flat[path] = t
+    for path in [p for p in flat if _is_expert_leaf(p, cfg)]:
+        t = flat.pop(path)
+        for m in range(cfg.num_experts):
+            flat[path[:2] + (f"expert_{m}", path[2])] = t[m]
     return flat
+
+
+def _stack_experts(flat: dict[tuple, torch.Tensor], cfg: ModelConfig) -> dict[tuple, torch.Tensor]:
+    """(..., "expert_{m}", leaf) entries -> one (..., leaf) `[E, ...]` each
+    (JAX :252-266). An index outside the model's E, or a stack missing an
+    expert, raises: a checkpoint the model cannot hold must not load with
+    experts dropped."""
+    out, stacks = {}, {}
+    for p, w in flat.items():
+        if len(p) == 4 and p[2].startswith("expert_"):
+            m = int(p[2].split("_")[1])
+            if not 0 <= m < cfg.num_experts:
+                raise ValueError(f"expert {m} of {p[0]}/{p[3]} is outside the model's "
+                                 f"{cfg.num_experts} experts")
+            stacks.setdefault(p[:2] + (p[3],), {})[m] = w
+        else:
+            out[p] = w
+    for p, by_m in stacks.items():
+        missing = [m for m in range(cfg.num_experts) if m not in by_m]
+        if missing:
+            raise ValueError(f"{'/'.join(p)}: experts {missing[:8]} missing from the checkpoint")
+        out[p] = torch.stack([by_m[m] for m in range(cfg.num_experts)])
+    return out
 
 
 def assemble_params(flat: dict[tuple, torch.Tensor], cfg: ModelConfig,
@@ -292,7 +365,7 @@ def load_hf_params(model_dir: str, cfg: ModelConfig, dtype: str | None = None,
         path = hf_name_to_ours(name)
         if path is not None:
             flat[path] = _convert_tensor(path, w.to(device), cfg)
-    return assemble_params(flat, cfg, dtype or cfg.param_dtype)
+    return assemble_params(_stack_experts(flat, cfg), cfg, dtype or cfg.param_dtype)
 
 
 def save_hf_params(params: dict[str, torch.Tensor], cfg: ModelConfig, out_dir: str, *,

@@ -1,11 +1,14 @@
 """Qwen2-class decoder (counterpart of `areal_tpu/models/qwen2.py`): the
 packed training forward and the serving path.
 
-The dense GLU / RMSNorm / RoPE decoder of Qwen2 and Qwen2.5 (qkv bias,
-tied or untied head), which Llama and Mistral share when unwindowed.
-The JAX decoder's other families (MoE, Qwen3 q/k norm, Gemma, GPT-2,
-sliding windows, LoRA) are refused by `check_supported` until their
-ROADMAP item ports them. A critic (`is_critic`) ends in the scalar value
+The GLU / RMSNorm / RoPE decoder of Qwen2 and Qwen2.5 (qkv bias, tied
+or untied head), which Llama and Mistral share when unwindowed; Qwen3's
+per-head q/k RMSNorms before rope (`cfg.qk_norm`); and the MoE families
+(Qwen3-MoE, Qwen2-MoE with its sigmoid-gated shared expert, Mixtral),
+whose MLP is `moe_mlp`: top-k routing with a per-group capacity and the
+Switch load-balancing aux loss (JAX :1294-1407). The JAX decoder's other
+families (Gemma, GPT-2, sliding windows, LoRA) are refused by
+`check_supported` until ROADMAP item 6.7 ports them. A critic (`is_critic`) ends in the scalar value
 head `value_head/kernel` `[H, 1]` and `value_head/bias` `[1]` instead of
 the LM head: `forward` returns f32 values `[T]`. It trains and scores, and
 never serves: `prefill` and the paged steps refuse it
@@ -34,7 +37,9 @@ matmul kernel (q/k/v/o, gate/up/down) into two tensors, `<path>/q` (int8,
 the kernel's shape) and `<path>/scale` (f32, its output dims), the JAX
 wire names. The serving path's matmuls go through `_w_einsum`, which runs
 the fp matmul unchanged for a tensor and `ops/quant_matmul.quant_einsum`
-for a quantized pair. Embedding, LM head, norms and biases stay fp.
+for a quantized pair. Embedding, LM head, norms and biases stay fp, and
+so does a MoE layer's MLP (router, experts, shared expert), as in JAX
+`_map_wq_layer` (:846-855).
 """
 
 from __future__ import annotations
@@ -62,6 +67,11 @@ from areal_tpu_torch.ops.quant import dequantize_absmax, quantize_absmax
 from areal_tpu_torch.ops.quant_matmul import quant_einsum
 
 _NEG_INF = -1e30
+
+# the HF model types the port reads (`ModelConfig.from_hf_config`,
+# `models/hf_io.py`); JAX :196-308 reads gemma and gpt2 besides (ROADMAP.md
+# queue 1, item 6.7)
+HF_FAMILIES = ("qwen2", "llama", "mistral", "qwen3", "qwen3_moe", "qwen2_moe", "mixtral")
 
 
 @dataclass(frozen=True)
@@ -137,7 +147,10 @@ class ModelConfig:
     @classmethod
     def from_hf_config(cls, path_or_dict, **overrides) -> "ModelConfig":
         """Build from an HF `config.json` (a dict, or a model directory)
-        for the dense families the port serves (JAX :169)."""
+        for the families the port serves (JAX :196-308): the dense qwen2,
+        llama and mistral, Qwen3 (q/k norms, no qkv bias), and the MoE
+        families qwen3_moe, qwen2_moe (a shared expert) and mixtral, with
+        JAX's defaults and refusals."""
         if isinstance(path_or_dict, str):
             with open(os.path.join(path_or_dict, "config.json")) as f:
                 hf = json.load(f)
@@ -154,24 +167,39 @@ class ModelConfig:
                 "the JAX package drops for this type; write the checkpoint's config "
                 "with model_type 'qwen2' (ROADMAP.md queue 3)"
             )
-        if model_type not in ("qwen2", "llama", "mistral"):
+        if model_type == "gemma2":
+            # JAX refuses it too (its :309-313)
+            raise NotImplementedError(
+                "gemma2 (attention softcapping, pre+post norms, sliding "
+                "window) is not implemented; supported gemma family: gemma"
+            )
+        if model_type not in HF_FAMILIES:
             raise NotImplementedError(
                 f"model_type={model_type!r} is not in the PyTorch port yet "
                 "(ROADMAP.md queue 1, item 6.7)"
             )
         L = hf["num_hidden_layers"]
-        # HF windows layers >= max_window_layers; Qwen2.5 ships 28/28 (none)
-        windowed = (
-            model_type == "mistral" and hf.get("sliding_window")
-        ) or (
-            model_type == "qwen2"
-            and hf.get("use_sliding_window")
-            and (hf.get("max_window_layers", L) or L) < L
-        )
+        windowed = False
+        if model_type in ("mistral", "mixtral"):
+            windowed = bool(hf.get("sliding_window"))
+        elif model_type != "llama":
+            # HF windows the layers >= max_window_layers (JAX :216-236):
+            # a missing key, None or >= L windows none (Qwen2.5 ships
+            # 28/28), 0 windows every layer, anything between mixes them
+            mwl = hf.get("max_window_layers", L)
+            windowed = bool(hf.get("use_sliding_window")) and mwl is not None and mwl < L
         if windowed:
             raise NotImplementedError(
                 "sliding-window attention is not in the PyTorch port yet "
                 "(ROADMAP.md queue 1, item 6.7)"
+            )
+        if model_type == "qwen2_moe" and (
+            hf.get("mlp_only_layers") or hf.get("decoder_sparse_step", 1) != 1
+        ):
+            # a dense/sparse layer mix breaks the uniform layer stack (JAX :283-290)
+            raise NotImplementedError(
+                "qwen2_moe with mlp_only_layers/decoder_sparse_step != 1 "
+                "(heterogeneous dense/sparse layers) is not supported"
             )
         rope_kw: dict = {}
         rs = hf.get("rope_scaling") or {}
@@ -213,20 +241,52 @@ class ModelConfig:
             tie_word_embeddings=hf.get("tie_word_embeddings", False),
             max_position_embeddings=hf.get("max_position_embeddings", 32768),
             model_type=model_type,
-            qkv_bias=model_type == "qwen2",
+            qkv_bias=model_type in ("qwen2", "qwen2_moe"),
+            qk_norm=model_type in ("qwen3", "qwen3_moe"),
             hidden_act=hf.get("hidden_act", "silu"),
             **rope_kw,
         )
+        if model_type == "qwen3_moe":
+            kw.update(
+                num_experts=hf.get("num_experts", 0),
+                num_experts_per_tok=hf.get("num_experts_per_tok", 2),
+                moe_intermediate_size=hf.get("moe_intermediate_size"),
+                norm_topk_prob=hf.get("norm_topk_prob", True),
+                router_aux_loss_coef=hf.get("router_aux_loss_coef", 0.0),
+            )
+        elif model_type == "qwen2_moe":
+            # routed experts and a sigmoid-gated shared expert
+            kw.update(
+                num_experts=hf.get("num_experts", 60),
+                num_experts_per_tok=hf.get("num_experts_per_tok", 4),
+                moe_intermediate_size=hf.get("moe_intermediate_size"),
+                shared_expert_intermediate_size=hf.get("shared_expert_intermediate_size", 0),
+                norm_topk_prob=hf.get("norm_topk_prob", False),
+                router_aux_loss_coef=hf.get("router_aux_loss_coef", 0.0),
+            )
+        elif model_type == "mixtral":
+            # top-k over the full softmax, renormalized; the experts reuse
+            # intermediate_size
+            kw.update(
+                num_experts=hf.get("num_local_experts", 8),
+                num_experts_per_tok=hf.get("num_experts_per_tok", 2),
+                moe_intermediate_size=hf["intermediate_size"],
+                norm_topk_prob=True,
+                router_aux_loss_coef=hf.get("router_aux_loss_coef", 0.0),
+            )
         kw.update(overrides)
         return cls(**kw)
+
+    @property
+    def moe_intermediate_size_(self) -> int:
+        return self.moe_intermediate_size or self.intermediate_size
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a model feature outside the port's
-    dense serving path, naming the ROADMAP item that ports it."""
+    decoder (the dense GLU family, q/k norms and MoE layers), naming the
+    ROADMAP item that ports it."""
     todo = {
-        "num_experts": cfg.num_experts != 0,
-        "qk_norm": cfg.qk_norm,
         "norm_type": cfg.norm_type != "rmsnorm",
         "norm_zero_centered": cfg.norm_zero_centered,
         "normalize_embed": cfg.normalize_embed,
@@ -269,6 +329,7 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _layer_shapes(cfg: ModelConfig) -> dict:
+    """One layer's shape tree, in the JAX key order (:385-438)."""
     H, M = cfg.hidden_size, cfg.intermediate_size
     nH, nKV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
     attn = {
@@ -279,16 +340,26 @@ def _layer_shapes(cfg: ModelConfig) -> dict:
     }
     if cfg.qkv_bias:
         attn.update(q_bias=(nH, hd), k_bias=(nKV, hd), v_bias=(nKV, hd))
-    return {
-        "attn": attn,
-        "mlp": {
-            "gate_kernel": (H, M),
-            "up_kernel": (H, M),
-            "down_kernel": (M, H),
-        },
-        "input_norm": (H,),
-        "post_attn_norm": (H,),
-    }
+    if cfg.qk_norm:
+        attn.update(q_norm=(hd,), k_norm=(hd,))
+    if cfg.num_experts:
+        E, Me, Ms = cfg.num_experts, cfg.moe_intermediate_size_, cfg.shared_expert_intermediate_size
+        mlp = {
+            "router_kernel": (H, E),
+            "gate_kernel": (E, H, Me),
+            "up_kernel": (E, H, Me),
+            "down_kernel": (E, Me, H),
+        }
+        if Ms:
+            mlp.update(
+                shared_gate_kernel=(H, Ms),
+                shared_up_kernel=(H, Ms),
+                shared_down_kernel=(Ms, H),
+                shared_router_kernel=(H, 1),
+            )
+    else:
+        mlp = {"gate_kernel": (H, M), "up_kernel": (H, M), "down_kernel": (M, H)}
+    return {"attn": attn, "mlp": mlp, "input_norm": (H,), "post_attn_norm": (H,)}
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
@@ -343,11 +414,17 @@ def init_params(
     """Random weights with the distribution of the JAX `init_params`
     (:766-800): truncated normal on [-2, 2] scaled by 1/sqrt(fan_in) for
     matrices, ones for norms, zeros for biases; stored in
-    `cfg.param_dtype`. `generator` must live on `device`."""
+    `cfg.param_dtype`. `generator` must live on `device`.
+
+    On the card a stacked `layers/...` leaf is drawn a layer at a time, so
+    the f32 temporary is one layer's (Qwen3-30B-A3B's stacked experts
+    would need 38.6 GB at once); the CPU draws each leaf whole, as it
+    always has, so a seed gives the CPU tests the weights it gave them."""
     dtype = torch_dtype(cfg.param_dtype)
     out = {}
     for name, shape in named_shapes(cfg).items():
-        core = shape[1:] if name.startswith("layers/") else shape
+        stacked = name.startswith("layers/")
+        core = shape[1:] if stacked else shape
         if name.endswith("_bias") or name == "value_head/bias":
             out[name] = torch.zeros(shape, dtype=dtype, device=device)
             continue
@@ -357,10 +434,15 @@ def init_params(
         # fan-in = the contracted input dim (JAX :781): last-but-one for
         # stacked/3-D kernels whose dim -2 dominates, else the first
         fan_in = shape[-2] if len(shape) >= 3 and shape[-2] >= shape[0] else shape[0]
-        t = torch.empty(shape, dtype=torch.float32, device=device)
-        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-        out[name] = t.mul_(1.0 / math.sqrt(max(fan_in, 1))).to(dtype)
-        del t
+        scale = 1.0 / math.sqrt(max(fan_in, 1))
+        w = torch.empty(shape, dtype=dtype, device=device)
+        per_layer = stacked and torch.device(device).type == "cuda"
+        for part in (w.unbind(0) if per_layer else (w,)):
+            t = torch.empty(part.shape, dtype=torch.float32, device=device)
+            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            part.copy_(t.mul_(scale))
+            del t
+        out[name] = w
     return out
 
 
@@ -438,19 +520,27 @@ def _wq_axes(path: str) -> tuple[int, ...] | None:
     return wq_contraction_axes(leaf, stacked=layer == "layers")
 
 
+def _is_expert_stack(name: str, t: torch.Tensor) -> bool:
+    """True for a MoE layer's expert kernels (`mlp/gate_kernel` ...
+    `[(L,) E, ...]`), which carry one axis more than a dense MLP's. MoE
+    layers stay fp (JAX `_map_wq_layer`, :846-855), which a push that
+    quantizes one leaf at a time decides from the leaf alone."""
+    return name.split("/")[1] == "mlp" and t.dim() == (4 if name.startswith("layers/") else 3)
+
+
 def map_quant_kernels(params: dict, fn) -> dict:
     """The flat parameter dict with `fn(leaf, contraction_axes)` applied to
     every weight-quantizable kernel, scanned (`layers/...`) or per layer
-    (`layers_{i}/...`); everything else passes through. A quantized kernel
-    reaches `fn` as {"q": ..., "scale": ...}; `fn` returns a tensor (kept
-    under the kernel's name) or such a dict (kept as `<name>/q`,
-    `<name>/scale`)."""
+    (`layers_{i}/...`); everything else passes through, a MoE layer's
+    experts included. A quantized kernel reaches `fn` as {"q": ...,
+    "scale": ...}; `fn` returns a tensor (kept under the kernel's name) or
+    such a dict (kept as `<name>/q`, `<name>/scale`)."""
     out, pairs = {}, {}
     for name, t in params.items():
         head, _, last = name.rpartition("/")
         if last in _WQ_PARTS and _wq_axes(head) is not None:
             pairs.setdefault(head, {})[last] = t
-        elif _wq_axes(name) is not None:
+        elif _wq_axes(name) is not None and not _is_expert_stack(name, t):
             pairs[name] = t
         else:
             out[name] = t
@@ -578,8 +668,9 @@ def _w_einsum(x, lp: dict, name: str, n_contract: int, qmm=quant_einsum):
 
 
 def _project_qkv(lp: dict, x, cos, sin, cfg: ModelConfig, qmm=quant_einsum):
-    """QKV projection + bias + rope (JAX :1844). x [T, H]; cos/sin
-    [T, hd/2]."""
+    """QKV projection + bias + q/k norm + rope (JAX :1844). x [T, H];
+    cos/sin [T, hd/2]. Qwen3's per-head RMSNorms run before rope, as at
+    JAX :1209 and :1854."""
     q = _w_einsum(x, lp, "attn/q_kernel", 1, qmm)
     k = _w_einsum(x, lp, "attn/k_kernel", 1, qmm)
     v = _w_einsum(x, lp, "attn/v_kernel", 1, qmm)
@@ -587,6 +678,9 @@ def _project_qkv(lp: dict, x, cos, sin, cfg: ModelConfig, qmm=quant_einsum):
         q = q + lp["attn/q_bias"]
         k = k + lp["attn/k_bias"]
         v = v + lp["attn/v_bias"]
+    if cfg.qk_norm:
+        q = _norm(q, lp["attn/q_norm"], cfg)
+        k = _norm(k, lp["attn/k_norm"], cfg)
     cos_b = cos[:, None, :].to(q.dtype)
     sin_b = sin[:, None, :].to(q.dtype)
 
@@ -610,6 +704,123 @@ def mlp(lp: dict, x, cfg: ModelConfig, qmm=quant_einsum):
     gate = _w_einsum(x, lp, "mlp/gate_kernel", 1, qmm)
     up = _w_einsum(x, lp, "mlp/up_kernel", 1, qmm)
     return _w_einsum(act(gate) * up, lp, "mlp/down_kernel", 1, qmm)
+
+
+# measurement hooks of `moe_mlp`, None on every path a user runs: when set,
+# `moe_picks` is given each call's top-k picks [N, K] and returns the picks
+# to route (a check replays one run's routes in another), and
+# `moe_observer` sees each call's (picks, keep [N, K] bool, valid [N] or
+# None) after the capacity assignment (a check counts the dropped picks)
+moe_picks = None
+moe_observer = None
+
+
+def _moe_group_size(T: int, target: int) -> int:
+    """The largest divisor of T that is <= target (JAX :1294)."""
+    S = min(T, target)
+    while T % S:
+        S -= 1
+    return S
+
+
+def moe_mlp(lp: dict, x, cfg: ModelConfig, valid=None, seq_len: int | None = None,
+            with_aux: bool = True):
+    """Grouped GShard-style MoE (JAX `moe_mlp`, :1302-1407): x [N, H] ->
+    (y [N, H], aux scalar f32, or None without `with_aux`).
+
+    Tokens route in groups of S, the largest divisor of the sequence
+    length <= `cfg.moe_group_size`, each expert taking at most
+    C = ceil(S K / E capacity_factor) tokens of a group. `seq_len` is the
+    length of the sequences x concatenates (a batched prefill's rows), so
+    that a group never straddles two of them; x is one sequence by
+    default. The router and its softmax run in f32; the top K picks break
+    ties by the lower expert index, as `lax.top_k` does (a stable sort);
+    `cfg.norm_topk_prob` renormalizes them. `valid` [N] bool: a False
+    token claims no capacity and gets no routed output. The k-th choices
+    claim slots after every (k-1)-th choice of the group, in token order
+    (one running count over the group's picks laid out choice-major); a
+    pick past C is dropped. Every expert runs on its C slots of every
+    group, as JAX's dense dispatch does; the dispatch and combine here
+    index the slots instead of multiplying one-hot [G, S, E, C] tensors,
+    which gives the same sums (the combine accumulates in f32 over the
+    K picks, with the gates rounded to the experts' dtype as JAX's
+    `combine.astype(ye.dtype)` does), with no host sync. A Qwen2-MoE
+    shared expert adds `sigmoid(x w_r) * mlp_s(x)`. The aux loss is the
+    Switch balance term E * sum_e frac_e * mean_prob_e over the valid
+    tokens (over all N when `seq_len` cuts x into several sequences)."""
+    N, H = x.shape
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    S = _moe_group_size(seq_len or N, cfg.moe_group_size)
+    G = N // S
+    C = max(1, int(math.ceil(S * K / E * cfg.capacity_factor)))
+    dev = x.device
+
+    probs = torch.softmax(x.float() @ lp["mlp/router_kernel"].float(), dim=-1)  # [N, E]
+    gate_vals, topk_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, topk_idx = gate_vals[:, :K], topk_idx[:, :K]
+    if moe_picks is not None:
+        topk_idx = moe_picks(topk_idx)
+        gate_vals = probs.gather(1, topk_idx)
+    if cfg.norm_topk_prob:
+        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    if valid is not None:
+        gate_vals = gate_vals * valid[:, None].to(gate_vals.dtype)
+
+    # capacity: each pick's place among its expert's picks of the group,
+    # the k-th choices after every (k-1)-th
+    oh = F.one_hot(topk_idx, E)  # [N, K, E]
+    if valid is not None:
+        oh = oh * valid[:, None, None]
+    oh = oh.reshape(G, S, K, E).transpose(1, 2).reshape(G, K * S, E)
+    pos = (oh.cumsum(dim=1) - oh).reshape(G, K, S, E).transpose(1, 2)  # [G, S, K, E]
+    p = pos.gather(3, topk_idx.reshape(G, S, K, 1)).reshape(N, K)
+    keep = p < C
+    if valid is not None:
+        keep = keep & valid[:, None]
+    if moe_observer is not None:
+        moe_observer(topk_idx, keep, valid)
+    # slot (expert e, group g, c) of the [E, G, C] expert batch
+    group = (torch.arange(N, device=dev) // S)[:, None]
+    slot = (topk_idx * G + group) * C + p.clamp(max=C - 1)  # [N, K]
+
+    # dispatch: each kept pick's token lands in its slot, a dropped one in
+    # a trash slot past the batch; empty slots read the zero row N
+    src = torch.full((E * G * C + 1,), N, dtype=torch.long, device=dev)
+    src.scatter_(0, torch.where(keep, slot, E * G * C).reshape(-1),
+                 torch.arange(N, device=dev).repeat_interleave(K))
+    xe = torch.cat([x, x.new_zeros(1, H)])[src[:-1]].reshape(E, G * C, H)
+    act = act_fn(cfg)
+    he = act(torch.bmm(xe, lp["mlp/gate_kernel"])) * torch.bmm(xe, lp["mlp/up_kernel"])
+    ye = torch.bmm(he, lp["mlp/down_kernel"]).reshape(E * G * C, -1)  # [E G C, H]
+    w = (gate_vals * keep).to(ye.dtype).float()  # [N, K]
+    y = (w[..., None] * ye[slot].float()).sum(dim=1).to(ye.dtype).to(x.dtype)
+
+    if cfg.shared_expert_intermediate_size:
+        ys = (act(x @ lp["mlp/shared_gate_kernel"]) * (x @ lp["mlp/shared_up_kernel"])
+              ) @ lp["mlp/shared_down_kernel"]
+        g = torch.sigmoid(x.float() @ lp["mlp/shared_router_kernel"].float()).to(x.dtype)
+        y = y + g * ys
+    if not with_aux:
+        return y, None
+
+    # the Switch balance loss over the real tokens; the counts are exact
+    # integers in f32, so their sum order does not matter
+    w_tok = (torch.ones(N, device=dev) if valid is None else valid.float())
+    denom = w_tok.sum().clamp(min=1.0)
+    assigned = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
+        0, topk_idx.reshape(-1), w_tok[:, None].expand(N, K).reshape(-1))
+    frac = assigned / (denom * K)
+    mean_prob = (probs * w_tok[:, None]).sum(dim=0) / denom
+    aux = E * torch.sum(frac * mean_prob)
+    return y, aux
+
+
+def _ffn(lp: dict, x, cfg: ModelConfig, qmm=quant_einsum, valid=None, seq_len=None):
+    """A serving layer's MLP: `moe_mlp` under `valid` (no aux) for a MoE
+    model, the gated MLP otherwise."""
+    if cfg.num_experts:
+        return moe_mlp(lp, x, cfg, valid=valid, seq_len=seq_len, with_aux=False)[0]
+    return mlp(lp, x, cfg, qmm)
 
 
 def _embed(params: dict, ids, cfg: ModelConfig):
@@ -704,10 +915,16 @@ def attention(lp: dict, x, cos, sin, layout, cfg: ModelConfig):
     return _attn_out(lp, out)
 
 
-def decoder_layer(lp: dict, x, cos, sin, layout, cfg: ModelConfig):
-    """One pre-norm decoder layer (JAX :1423) of the dense family."""
+def decoder_layer(lp: dict, x, cos, sin, layout, cfg: ModelConfig, valid=None):
+    """One pre-norm decoder layer (JAX :1423): (hidden [T, H], the router's
+    aux loss, None for a dense layer). A MoE layer routes under `valid`,
+    the tokens outside the padding segment."""
     x = x + attention(lp, _norm(x, lp["input_norm"], cfg), cos, sin, layout, cfg)
-    return x + mlp(lp, _norm(x, lp["post_attn_norm"], cfg), cfg)
+    h = _norm(x, lp["post_attn_norm"], cfg)
+    if cfg.num_experts:
+        y, aux = moe_mlp(lp, h, cfg, valid=valid)
+        return x + y, aux
+    return x + mlp(lp, h, cfg), None
 
 
 _REMAT_POLICIES = ("full", "dots_saveable", "dots_with_no_batch_dims_saveable")
@@ -722,13 +939,16 @@ def forward(
     *,
     return_hidden: bool = False,
     layers: list[dict] | None = None,
+    with_aux: bool = False,
 ):
     """Packed forward (JAX :1445): [T] ids -> [T, V] f32 logits (f32
     values [T] for a critic), or the post-final-norm hidden states [T, H]
     with `return_hidden` (the fused LM-loss path, `LMHead`; a critic
     refuses it, JAX :1541). `segment_ids` [T] mark sequence membership;
     attention is causal within a segment. It trains fp weights: an
-    int8-quantized tree (`quantize_weights`) is refused.
+    int8-quantized tree (`quantize_weights`) is refused. `with_aux`
+    returns (out, aux): the MoE layers' router aux losses summed in f32,
+    0 for a dense model (JAX :1520-1568).
 
     With `cfg.remat` and gradients enabled, each layer runs under
     `torch.utils.checkpoint` (non-reentrant): its activations are
@@ -759,17 +979,25 @@ def forward(
     else:
         layout = packed_layout(segment_ids)
     remat = cfg.remat and torch.is_grad_enabled()
+    valid = segment_ids != PADDING_SEGMENT if cfg.num_experts else None
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layers:
         if remat:
-            x = checkpoint(decoder_layer, lp, x, cos, sin, layout, cfg, use_reentrant=False)
+            # the layer's aux comes out of the checkpoint with its output
+            x, aux = checkpoint(decoder_layer, lp, x, cos, sin, layout, cfg, valid,
+                                use_reentrant=False)
         else:
-            x = decoder_layer(lp, x, cos, sin, layout, cfg)
+            x, aux = decoder_layer(lp, x, cos, sin, layout, cfg, valid)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = _norm(x, params["final_norm"], cfg)
     if return_hidden:
-        return x
-    if cfg.is_critic:
-        return _head_values(params, x, cfg)
-    return _head_logits(params, x, cfg)
+        out = x
+    elif cfg.is_critic:
+        out = _head_values(params, x, cfg)
+    else:
+        out = _head_logits(params, x, cfg)
+    return (out, aux_total) if with_aux else out
 
 
 class LMHead:
@@ -821,7 +1049,7 @@ class LMHead:
 def prefill(params: dict, input_ids, position_ids, cfg: ModelConfig,
             with_logits: bool = True, layers: list[dict] | None = None,
             prefix_k=None, prefix_v=None, prefix_len=None,
-            input_embeds=None, rope_cos=None, rope_sin=None):
+            input_embeds=None, rope_cos=None, rope_sin=None, valid=None):
     """Causal forward over ONE sequence [T] (JAX :1872), or over B distinct
     sequences [B, T] that share a bucket (the JAX engine's vmap of it,
     `jax_decode.py:1818-1879`). Returns (logits [(B,) T, V] f32 or None,
@@ -846,7 +1074,12 @@ def prefill(params: dict, input_ids, position_ids, cfg: ModelConfig,
     multimodal path: vision vectors spliced over the image-pad positions,
     `models/qwen2_vl.splice_image_embeds`), and `rope_cos`/`rope_sin`
     [(B,) T, hd/2] replace the 1-D rope tables (Qwen2-VL m-rope,
-    `models/qwen2_vl.mrope_table`), as JAX :1872-1920 does."""
+    `models/qwen2_vl.mrope_table`), as JAX :1872-1920 does.
+
+    `valid` [(B,) T] bool marks the real (not bucket-pad) tokens, which
+    alone claim expert capacity in a MoE layer (JAX :1969). Each row
+    routes on its own over its T tokens, as the JAX engine's vmap of the
+    one-sequence prefill does (`jax_decode.py:1819-1842`)."""
     check_servable(cfg)
     if layers is None:
         layers = layer_views(params, cfg)
@@ -883,7 +1116,7 @@ def prefill(params: dict, input_ids, position_ids, cfg: ModelConfig,
         attn = torch.stack([_dense_attention(q[b], kk[b], vv[b], mask) for b in range(B)])
         x = x + _attn_out(lp, attn.reshape(B * T, nH, hd))
         h = _norm(x, lp["post_attn_norm"], cfg)
-        x = x + mlp(lp, h, cfg)
+        x = x + _ffn(lp, h, cfg, valid=None if valid is None else valid.reshape(-1), seq_len=T)
         ks.append(k)
         vs.append(v)
     k_all, v_all = torch.stack(ks, dim=1), torch.stack(vs, dim=1)  # [B, L, T, nKV, hd]
@@ -895,17 +1128,19 @@ def prefill(params: dict, input_ids, position_ids, cfg: ModelConfig,
 
 
 def prefill_with_prefix(params: dict, input_ids, prefix_k, prefix_v, prefix_len: int,
-                        cfg: ModelConfig, layers: list[dict] | None = None):
+                        cfg: ModelConfig, layers: list[dict] | None = None, valid=None):
     """Causal forward over a SUFFIX [T] (bucket-padded) whose context is
     cached prefix KV `[L, Tp, nKV, hd]` (JAX :2008): each suffix token
     attends to the prefix rows < prefix_len and, causally, to the earlier
     suffix tokens; suffix token i sits at absolute position prefix_len + i
     for rope. Returns the suffix's (k, v) [L, T, nKV, hd], to be written
-    at offset prefix_len. A thin wrapper over `prefill`: one layer body."""
+    at offset prefix_len. A thin wrapper over `prefill`: one layer body.
+    `valid` [T] marks the real suffix tokens for MoE routing (JAX :2016)."""
     T = input_ids.shape[0]
     positions = prefix_len + torch.arange(T, device=input_ids.device)
     _, ks, vs = prefill(params, input_ids, positions, cfg, with_logits=False, layers=layers,
-                        prefix_k=prefix_k, prefix_v=prefix_v, prefix_len=prefix_len)
+                        prefix_k=prefix_k, prefix_v=prefix_v, prefix_len=prefix_len,
+                        valid=valid)
     return ks, vs
 
 
@@ -989,12 +1224,15 @@ def verify_step_paged(
     `scales[dest_block, :, dest_off]`, as `decode_step_paged` does for its
     one row. Matmuls run through `matmul_fn` at T = R x W rows.
     `rope_offset` [R] shifts slot r's rotary positions only (JAX :2456).
-    A critic is refused (`check_servable`)."""
+    A MoE layer routes the R x W tokens as one sequence, an inactive
+    slot's W tokens claiming no capacity (JAX :2478-2510). A critic is
+    refused (`check_servable`)."""
     check_servable(cfg)
     if layers is None:
         layers = layer_views(params, cfg)
     (k_data, k_scales), (v_data, v_scales) = split_pool(k_pool), split_pool(v_pool)
     R, W = tokens.shape
+    active_flat = None if active is None else active.repeat_interleave(W)
     bsz = k_data.shape[2]
     nb = block_tables.shape[1]
     span = nb * bsz
@@ -1032,7 +1270,7 @@ def verify_step_paged(
         attn = attn_fn(q.reshape(R, W, nH, hd), kp, vp, block_tables, valid)
         x = x + _attn_out(lp, attn.reshape(R * W, nH, hd), matmul_fn)
         h = _norm(x, lp["post_attn_norm"], cfg)
-        x = x + mlp(lp, h, cfg, matmul_fn)
+        x = x + _ffn(lp, h, cfg, matmul_fn, valid=active_flat)
     return _logits(params, x, cfg).reshape(R, W, -1)
 
 
@@ -1061,11 +1299,13 @@ def verify_step(
     cache (cast to q's dtype), the op sequence of the paged plain version,
     so the workspace and paged layouts agree bit for bit. Positions are
     clamped into the cache. `rope_offset` [R] shifts slot r's rotary
-    positions only (JAX :2336). A critic is refused (`check_servable`)."""
+    positions only (JAX :2336). MoE routing is `verify_step_paged`'s. A
+    critic is refused (`check_servable`)."""
     check_servable(cfg)
     if layers is None:
         layers = layer_views(params, cfg)
     R, W = tokens.shape
+    active_flat = None if active is None else active.repeat_interleave(W)
     S = k_cache.shape[2]
     nH, nKV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
     dev = tokens.device
@@ -1091,7 +1331,7 @@ def verify_step(
         attn = verify_attention(q.reshape(R, W, nH, hd), k_cache[i], v_cache[i], valid)
         x = x + _attn_out(lp, attn.reshape(R * W, nH, hd), matmul_fn)
         h = _norm(x, lp["post_attn_norm"], cfg)
-        x = x + mlp(lp, h, cfg, matmul_fn)
+        x = x + _ffn(lp, h, cfg, matmul_fn, valid=active_flat)
     return _logits(params, x, cfg).reshape(R, W, -1)
 
 

@@ -9,7 +9,9 @@ Qwen2.5-VL-3B-Instruct checkpoint's config (its language model and its
 vision tower) that the chip check's vision phase serves and trains.
 `SMOKE_IMAGE_TOKEN`, `smoke_vision_config` and `smoke_mrope_sections`
 are the offline vision smoke's tower beside the smoke decoder (JAX
-:23-54).
+:23-54). `QWEN3_30B_A3B_HF` and `QWEN15_MOE_A27B_HF` are the published
+configs of the two MoE models the chip check serves and trains: Qwen3-MoE
+(q/k norms, 128 experts, 8 a token) and Qwen2-MoE (a shared expert, MHA).
 """
 
 from __future__ import annotations
@@ -129,6 +131,69 @@ QWEN25_VL_3B_HF = dict(
         tokens_per_second=2,
         temporal_patch_size=2,
     ),
+)
+
+# Qwen3-30B-A3B at its published widths: 48 layers of 32/4 heads (hd
+# 128, q/k norms) over 128 experts of width 768, 8 a token. 30,532,122,624
+# parameters (623,120,640 a layer), 61.06 GB in bf16; its KV is 98,304
+# bytes a token.
+QWEN3_30B_A3B_SOURCE = "https://huggingface.co/Qwen/Qwen3-30B-A3B/blob/main/config.json"
+QWEN3_30B_A3B_HF = dict(
+    model_type="qwen3_moe",
+    vocab_size=151936,
+    hidden_size=2048,
+    intermediate_size=6144,
+    moe_intermediate_size=768,
+    num_hidden_layers=48,
+    num_attention_heads=32,
+    num_key_value_heads=4,
+    head_dim=128,
+    num_experts=128,
+    num_experts_per_tok=8,
+    norm_topk_prob=True,
+    router_aux_loss_coef=0.001,
+    decoder_sparse_step=1,
+    mlp_only_layers=[],
+    max_position_embeddings=40960,
+    max_window_layers=48,
+    rope_theta=1000000.0,
+    rms_norm_eps=1e-06,
+    tie_word_embeddings=False,
+    hidden_act="silu",
+    attention_bias=False,
+    use_sliding_window=False,
+    sliding_window=None,
+    torch_dtype="bfloat16",
+)
+
+# Qwen1.5-MoE-A2.7B at its published widths: 24 layers of 16/16 heads
+# (MHA, q/k/v biases) over 60 experts of width 1408, 4 a token, beside a
+# sigmoid-gated shared expert of width 5632. 14.3B parameters.
+QWEN15_MOE_A27B_SOURCE = "https://huggingface.co/Qwen/Qwen1.5-MoE-A2.7B/blob/main/config.json"
+QWEN15_MOE_A27B_HF = dict(
+    model_type="qwen2_moe",
+    vocab_size=151936,
+    hidden_size=2048,
+    intermediate_size=5632,
+    moe_intermediate_size=1408,
+    shared_expert_intermediate_size=5632,
+    num_hidden_layers=24,
+    num_attention_heads=16,
+    num_key_value_heads=16,
+    num_experts=60,
+    num_experts_per_tok=4,
+    norm_topk_prob=False,
+    router_aux_loss_coef=0.001,
+    decoder_sparse_step=1,
+    max_position_embeddings=8192,
+    max_window_layers=21,
+    rope_theta=1000000.0,
+    rms_norm_eps=1e-06,
+    tie_word_embeddings=False,
+    hidden_act="silu",
+    use_sliding_window=False,
+    sliding_window=32768,
+    torch_dtype="bfloat16",
 )
 
 # Offline vision smoke: a tiny Qwen2-VL-class tower beside the smoke

@@ -23,7 +23,7 @@ gate, RLVR episodes, decoupled-PPO update and weight push) on
 lr=0 control, and at Qwen2.5-1.5B full width and depth, and runs three
 colocated GRPO iterations (rollout, `compute_logp`, `compute_advantages`,
 `ppo_update`, weight push) through `TorchPPOActor` at Qwen2.5-1.5B full
-width (4 of its 28 layers). Then the trainer's persistence and the SFT path: the
+width (2 of its 28 layers). Then the trainer's persistence and the SFT path: the
 port's SFT entry point (`areal_tpu_torch/examples/gsm8k_sft.py`) at
 Qwen2.5-1.5B full width, 4 steps with an HF export, 2 steps
 with a recovery point and a resume to 4 that must equal the uninterrupted
@@ -64,14 +64,14 @@ five of those runs, and last the fault-injection harness
 a colocated GRPO loop killed at four seams in turn (each trainer's
 successor its resume) and past a torn checkpoint, resumed bit-equal to an
 unfaulted oracle with every sample trained once. Then the host KV tier, the gather paths and fp pools in another
-dtype, on the serve cell's weights at 4 of its 28 layers: 16 requests
+dtype, on the serve cell's weights at 2 of its 28 layers: 16 requests
 parked, evicted to pinned host memory by a filler wave and promoted back
 with no prefill, their streams bit-equal to a never-evicted engine's,
 and the same requests under pool pressure, preempted slots offloaded and
 promoted; a planted promotion fault that costs one prefill,
 an int8 pool's blocks through the tier, and the workspace layout and the
 paged gather path bit-equal to each other and beside the kernels; and
-Qwen2.5-1.5B (4 layers) with bf16 weights over an f32 pool and f32
+Qwen2.5-1.5B (2 layers) with bf16 weights over an f32 pool and f32
 weights over a bf16 pool, on K3's and K4's mixed-dtype variants, which
 the kernel phase holds against their plain versions first. Last, the
 decode fleet on one card at Qwen2.5-1.5B's widths: port decode servers
@@ -100,9 +100,9 @@ checkpoint. The PPO, multi-turn, checkpoint, decoupled and TIR runs trace
 their last train step through the train engine's own trace window
 (`AREAL_TPU_XPROF_DIR`). The decoupled, PPO, multi-turn, checkpoint and
 TIR (t1, t2) runs, the train phase and the SFT entry point at
-Qwen2.5-1.5B take 4 of its 28 layers, the chaos phase and the fleet 1,
+Qwen2.5-1.5B take 2 of its 28 layers, the chaos phase and the fleet 1,
 the GRPO, decoupled and PPO runs at Qwen2.5-1.5B 2 steps, the checkpoint
-and TIR runs 1, and the vision phase's checkpoint 4 of Qwen2.5-VL-3B's 36, so
+and TIR runs 1, and the vision phase's checkpoint 2 of Qwen2.5-VL-3B's 36, so
 that the script keeps within its time
 limit; each phase's seconds are printed. It checks that the
 kernels really carried each path. Each phase prints one JSON line; then
@@ -221,6 +221,7 @@ from areal_tpu_torch.models.qwen2 import (
     decode_step_paged,
     init_params,
     layer_views,
+    named_shapes,
     prefill,
     segment_ids_from_cu_seqlens,
     verify_step_paged,
@@ -245,6 +246,10 @@ from areal_tpu_torch.models.smoke import (
     QWEN25_7B_SOURCE,
     QWEN25_VL_3B_HF,
     QWEN25_VL_3B_SOURCE,
+    QWEN3_30B_A3B_HF,
+    QWEN3_30B_A3B_SOURCE,
+    QWEN15_MOE_A27B_HF,
+    QWEN15_MOE_A27B_SOURCE,
     smoke_model_config,
 )
 from areal_tpu_torch.reward.vqa import synthetic_vision_reward
@@ -309,6 +314,11 @@ KERNEL_CASES = [
     # the vision phase's (v1) engine: Qwen2.5-VL-3B's 16/2 heads (a group
     # of 8, the m16 tile's g + 8 rows exactly), 32 slots, context 4096
     dict(name="qwen2.5-vl-3b", nH=16, nKV=2, hd=128, bsz=128, R=32, max_len=4096),
+    # the moe phase's engines: Qwen3-30B-A3B's 32/4 heads at (m1)'s 32
+    # slots of 2048, and Qwen1.5-MoE-A2.7B's MHA 16/16 (a group of 1: one
+    # live row of the m16 tile) at (m3)'s 16 slots
+    dict(name="qwen3-30b-a3b", nH=32, nKV=4, hd=128, bsz=128, R=32, max_len=2048),
+    dict(name="qwen1.5-moe", nH=16, nKV=16, hd=128, bsz=128, R=16, max_len=2048),
 ]
 # pages per split of the bf16 decode kernels' sweep (checked and timed);
 # None: the whole table in one split
@@ -646,6 +656,11 @@ FLASH_CASES = [
     # the vision phase's (v3) trainer: Qwen2.5-VL-3B's 16/2 heads, a
     # micro-batch of 4 image rollouts of ~290 tokens
     dict(name="qwen2.5-vl-3b", nH=16, nKV=2, hd=128, T=1216, n_seqs=4),
+    # the moe phase's (m2) trainer: Qwen3-30B-A3B's 32/4 heads, a
+    # micro-batch of 16 of its 32 rollouts of ~280 tokens; and Qwen1.5-MoE's
+    # MHA 16/16 at the same micro-batch
+    dict(name="qwen3-30b-a3b", nH=32, nKV=4, hd=128, T=4480, n_seqs=16),
+    dict(name="qwen1.5-moe", nH=16, nKV=16, hd=128, T=4480, n_seqs=16),
 ]
 FLASH_MISALIGNED_CASE = 4  # hd32-mqa
 FLASH_PAD = 45  # pad-tail rows (segment -1): fully masked, o 0 and lse -1e30
@@ -3121,9 +3136,9 @@ LOOP_TIMINGS = ("rollout", "recompute_logp", "compute_advantage", "train_step",
                 "update_weights")
 # Qwen2.5-1.5B's depth (28 layers) in the train, SFT, decoupled (d1), PPO
 # (p2), multi-turn (m2), checkpoint (h0-h3) and TIR (t1, t2) runs, cut to keep the
-# script within its time limit; their widths stay the published ones and
-# their launch formulas read their own L
-CUT_LAYERS = 4
+# script within its time limit (4 until the moe phase came); their widths
+# stay the published ones and their launch formulas read their own L
+CUT_LAYERS = 2
 
 
 def dense_reward(prompt, completion, prompt_ids, completion_ids, **kwargs) -> float:
@@ -4649,8 +4664,8 @@ def phase_multi_turn(dev: torch.device) -> dict:
 # phase: HF checkpoints from local paths (the GRPO entry point's actor and
 # reference policy, the offline evaluator, the decode server's
 # --model-path)
-# Qwen2.5-1.5B's widths at CUT_LAYERS of its 28 layers (0.84 GB of bf16
-# tensors; 3.09 GB at full depth): 2 shards
+# Qwen2.5-1.5B's widths at CUT_LAYERS of its 28 layers (0.65 GB of bf16
+# tensors at 2; 3.09 GB at full depth): 2 shards
 HF_SHARD_BYTES = 512 << 20
 HF_KL = 0.05
 # loop cell (c)'s traffic on the countdown dataset, the actor and the
@@ -5282,7 +5297,7 @@ def _tir_rounds(dev, actor, engine, cfg) -> dict:
     # rows that spliced a tool's output: a version -1 past the prompt
     past = np.arange(batch["versions"].shape[1])[None] >= batch["begin_of_answer"][:, None]
     with_tool = int(((batch["versions"] == -1) & past).any(axis=1).sum())
-    return dict(run="t2", model="Qwen2.5-1.5B widths, 4 of 28 layers, vocab 21 (the arithmetic "
+    return dict(run="t2", model=f"Qwen2.5-1.5B widths, {CUT_LAYERS} of 28 layers, vocab 21 (the arithmetic "
                 "tokenizer's rows in place of 151,936)", final_norm_scale=TIR_FINAL_NORM_SCALE, markers=dict(
                     python=py_markers, calculator=calc_markers),
                 rows=rows, rows_with_a_tool_round=with_tool, generated_shares=shares,
@@ -7456,12 +7471,13 @@ VL_ORACLE_TOKENS = 16
 # H100 80GB HBM3 at 700 W). The tolerance is three steps, and a mean of
 # 0.002
 VL_LOGP_TOL = dict(max_abs=3 * 2.0 ** -9, mean_abs=0.002)
-# (v3) step 0's decode logprobs (K3, the checkpoint's 4 layers) against
+# (v3) step 0's decode logprobs (K3, the checkpoint's CUT_LAYERS) against
 # the oracle with the image, and the trainer's (K1) against its
 # token-only view, over 16 rows of 64 tokens: each read one bf16 step at
 # most (max 0.00196 and 0.00191, mean 0.00039 and 0.00042), and the
 # decode logprobs one position late a mean of 0.30 (readings on an H100
-# 80GB HBM3 at 700 W). The bound is two steps, and a mean of 0.001
+# 80GB HBM3 at 700 W, at 4 layers). The bound is two steps, and a mean
+# of 0.001
 VL_LOOP_TOL = dict(max_abs=2 * 2.0 ** -9, mean_abs=0.001)
 VL_YAML = str(Path(__file__).resolve().parent / "examples" / "configs" / "clevr_grpo.yaml")
 # `examples/clevr_grpo.py`'s docstring: the offline recipe
@@ -7957,6 +7973,392 @@ def vision_only() -> int:
 
 
 # ---------------------------------------------------------------------------
+# the MoE families: Qwen3-30B-A3B and Qwen1.5-MoE-A2.7B
+# ---------------------------------------------------------------------------
+
+# (m1): Qwen3-30B-A3B at all 48 layers, 32 greedy requests in one wave:
+# a prefill budget of every slot's context admits the whole wave in one
+# pass (at the default 8,192 tokens it took three, and four 128-step
+# chunks in place of two)
+MOE_DECODE = dict(max_running_requests=32, context_length=2048, page_size=128,
+                  new_tokens_per_chunk=128, max_prefill_tokens=32 * 1024)
+MOE_REQUESTS = 32
+MOE_PROMPT = (128, 1024)
+MOE_NEW = 256
+# 30,532,122,624 parameters in bf16; the dense pool of 32 slots x 16 pages
+# of 128 tokens and the null page (513 pages) at 98,304 bytes a token (48
+# layers x K and V x 4 heads x 128 x 2 bytes)
+MOE_RECKONED_WEIGHTS_GB = 61.06
+MOE_RECKONED_KV_GB = 6.455
+# (m2): the GRPO entry point at Qwen3-30B-A3B's widths and 4 of its 48
+# layers (3.11B parameters), with (c)'s traffic
+MOE_LOOP_LAYERS = 4
+MOE_LOOP_LAG = 2  # arith_grpo_smoke.yaml's rollout.max_head_offpolicyness
+# (m3): Qwen1.5-MoE-A2.7B at 2 of its 24 layers, 16 greedy requests
+MOE15_LAYERS = 2
+MOE15_DECODE = dict(max_running_requests=16, context_length=2048, page_size=128,
+                    new_tokens_per_chunk=128, max_prefill_tokens=16 * 1024)
+MOE15_REQUESTS = 16
+# the step gate: a one-ulp bf16 difference between K3 and the plain path
+# crosses near ties of the random routers and flips picks, and a flipped
+# pick changes the hidden state of every layer after it; so the step's
+# logits are compared with the plain run's picks replayed in every run,
+# and the share of the (layer, slot, k) picks that the kernel path would
+# have chosen otherwise stays below this bound. Measured on the H100: 5.1%
+# of Qwen3-30B-A3B's 48 x 32 (layer, slot) pick sets differ under the
+# replay (6.6% with K3's own routes, where 1 of 32 slots routes alike in
+# all 48 layers); the bound holds the picks themselves, with margin
+MOE_FLIP_BOUND = 0.02
+
+
+@contextlib.contextmanager
+def _observe_routes():
+    """While it is open, `moe_mlp` reports each call's routing: the picks
+    claimed and kept, summed on the device apart for decode steps (one
+    token a slot) and the rest (prefills)."""
+    from areal_tpu_torch.models import qwen2 as model
+
+    rec = dict(counts={}, decode_rows=None)
+
+    def observe(topk_idx, keep, valid):
+        n, k = topk_idx.shape
+        kind = "decode" if n == rec["decode_rows"] else "other"
+        picks = (torch.full((), n, device=keep.device) if valid is None
+                 else valid.sum()) * k
+        row = torch.stack([picks.float(), keep.sum().float()])
+        rec["counts"][kind] = rec["counts"].get(kind, 0) + row
+
+    prev, model.moe_observer = model.moe_observer, observe
+    try:
+        yield rec
+    finally:
+        model.moe_observer = prev
+
+
+def _drop_shares(rec: dict) -> dict:
+    out = {}
+    for kind, t in rec["counts"].items():
+        picks, kept = (float(x) for x in t.tolist())
+        out[kind] = dict(picks=picks, dropped=picks - kept,
+                         dropped_share=(picks - kept) / picks if picks else 0.0)
+    return out
+
+
+def _moe_requests(rng, vocab: int, n: int, prompt: tuple, new: int) -> list[ModelRequest]:
+    return [ModelRequest(rid=f"moe{i}", input_ids=rng.integers(
+        0, vocab, int(rng.integers(*prompt, endpoint=True))).tolist(),
+        gconfig=GenerationHyperparameters(max_new_tokens=new, greedy=True))
+        for i in range(n)]
+
+
+def _dropped_first_page(attn_fn, bsz: int):
+    """`attn_fn` with the first page of every multi-page slot left out of
+    its valid rows: the step gate's planted fault."""
+    def fn(q, k_pool, v_pool, table, valid):
+        dropped = valid.clone()
+        dropped[:, :bsz] &= ~(valid.sum(1) > bsz)[:, None]
+        return attn_fn(q, k_pool, v_pool, table, dropped)
+    return fn
+
+
+@contextlib.contextmanager
+def _route_replay():
+    """While it is open, `moe_mlp`'s picks pass through `rec`: each call's
+    own picks are appended to `rec["own"]`, and while `rec["replay"]` holds
+    a run's recorded picks, call i routes with its i-th entry instead."""
+    from areal_tpu_torch.models import qwen2 as model
+
+    rec = dict(own=[], replay=None)
+
+    def picks(topk_idx):
+        i = len(rec["own"])
+        rec["own"].append(topk_idx)
+        return topk_idx if rec["replay"] is None else rec["replay"][i]
+
+    prev, model.moe_picks = model.moe_picks, picks
+    try:
+        yield rec
+    finally:
+        model.moe_picks = prev
+
+
+def _moe_step_gate(engine, cfg, rng, prompt: tuple, tag: str) -> dict:
+    """One decode step of the engine's R slots over its served pool (its
+    allocator's blocks, every slot active, lengths in the traffic's range
+    plus half its new tokens). The plain paged attention (the JAX XLA
+    arithmetic) runs it first with its own routes; then K3, the plain path
+    with f32 attention, and the f32 path with a planted fault (the first
+    page of every slot dropped) run it with those routes replayed, so
+    that only attention differs. The check, phase `step`'s rule on every
+    slot: the kernel path's logits are no further from the f32-attention
+    logits than the plain bf16 path's are, or than 4 bf16 ulps of the
+    largest logit, whichever is larger; the planted fault reads further.
+    Routes: the share of the (layer, slot, k) picks that K3's path would
+    have chosen otherwise under the replay (attention ulps crossing a near
+    tie) stays below MOE_FLIP_BOUND; K3's path with its own routes is read
+    beside it (a flip there changes every later layer), with the slots
+    whose routes agree in all layers."""
+    R, L = engine.config.max_running_requests, cfg.num_hidden_layers
+    bsz = engine._alloc.block_size
+    engine.pause_generation()
+    lengths = rng.integers(prompt[0], prompt[1] + 1, R) + MOE_NEW // 2
+    for r in range(R):
+        check(engine._alloc.ensure(r, int(lengths[r]) + 1), f"{tag}: pool cannot back the step")
+    nb = int(engine._alloc.nblocks.max())
+    dev = engine.device
+    table = torch.from_numpy(engine._alloc.table_slice(nb)).to(dev)
+    positions = torch.as_tensor(lengths, device=dev)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, R), device=dev)
+    active = torch.ones(R, dtype=torch.bool, device=dev)
+
+    def step(rec, fn, replay=None):
+        rec["own"], rec["replay"] = [], replay
+        out = decode_step_paged(engine.params, tokens, positions, engine._k_pool,
+                                engine._v_pool, table, cfg, active=active, attn_fn=fn,
+                                layers=engine._layers)
+        check(len(rec["own"]) == L, f"{tag}: {len(rec['own'])} routed layers, want {L}")
+        return out, torch.stack([t.sort(dim=-1).values for t in rec["own"]])  # [L, R, K]
+
+    with _route_replay() as rec, torch.no_grad():
+        plain, plain_picks = step(rec, pa.paged_attention_ref)
+        routes = list(rec["own"])
+        free, free_picks = step(rec, pa.paged_attention)
+        kernel, own_picks = step(rec, pa.paged_attention, routes)
+        f32, _ = step(rec, _attn_f32, routes)
+        fault, _ = step(rec, _dropped_first_page(_attn_f32, bsz), routes)
+    torch.cuda.synchronize()
+    # a pick of K3's path absent from the plain run's set: [L, R, K]
+    flipped = ~(own_picks[..., :, None] == plain_picks[..., None, :]).any(-1)
+    flips = flipped.any(-1)  # [L, R], under the replay
+    free_flips = (free_picks != plain_picks).any(-1)  # [L, R], K3's own routes
+    scale = f32.abs().max().item()
+    kernel_vs_f32 = (kernel - f32).abs().max().item()
+    plain_vs_f32 = (plain - f32).abs().max().item()
+    fault_vs_f32 = (fault - f32).abs().max().item()
+    tol = max(plain_vs_f32, 4 * 2.0 ** (math.floor(math.log2(scale)) - 7))
+    out = dict(slots=R, flip_bound=MOE_FLIP_BOUND,
+               flipped_pick_share=flipped.float().mean().item(),
+               flipped_pick_set_share=flips.float().mean().item(),
+               flipped_slots_by_layer=flips.sum(1).tolist(),
+               own_routes=dict(flipped_pick_set_share=free_flips.float().mean().item(),
+                               slots_agreeing_in_every_layer=int((~free_flips.any(0)).sum()),
+                               first_flip_layer=torch.where(
+                                   free_flips.any(0), free_flips.float().argmax(0), -1).tolist(),
+                               max_abs_logit_diff=(free - plain).abs().max().item()),
+               max_abs_logit=scale, tol=tol, kernel_vs_f32_attn=kernel_vs_f32,
+               plain_vs_f32_attn=plain_vs_f32, fault_vs_f32_attn=fault_vs_f32,
+               kernel_vs_plain=(kernel - plain).abs().max().item())
+    emit(f"moe_step_gate_{tag}", **out)
+    check(torch.isfinite(kernel).all().item(), f"{tag}: kernel-path logits not finite")
+    check(kernel_vs_f32 <= tol, f"{tag}: kernel path {kernel_vs_f32} from the f32-attention "
+                                f"logits > {tol} (plain bf16 path: {plain_vs_f32})")
+    check(fault_vs_f32 > tol, f"{tag}: the dropped page reads {fault_vs_f32} <= {tol}")
+    check(out["flipped_pick_share"] <= MOE_FLIP_BOUND,
+          f"{tag}: {out['flipped_pick_share']} of the (layer, slot) picks flip under K3")
+    engine.continue_generation()
+    return out
+
+
+def _moe_serve(dev, cfg, settings: dict, n: int, tag: str, rng) -> dict:
+    """A decode engine at `cfg` (weights drawn on the card from SEED and
+    donated to it), one wave of `n` greedy requests of MOE_PROMPT tokens and
+    MOE_NEW new ones, K3 = decode steps x L, then the step gate."""
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = TorchDecodeEngine(TorchDecodeConfig(random_seed=SEED, **settings), device=dev)
+    engine.set_model(params, cfg, donate=True)
+    del params
+    try:
+        engine.initialize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        weights_gb = sum(t.numel() * t.element_size() for t in engine.params.values()) / 1e9
+        kv_gb = sum(t.numel() * t.element_size() for t in (engine._k_pool, engine._v_pool)) / 1e9
+        reqs = _moe_requests(rng, cfg.vocab_size, n, MOE_PROMPT, MOE_NEW)
+        retries0 = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
+        with _observe_routes() as rec:
+            rec["decode_rows"] = settings["max_running_requests"]
+            # ---- the main path: counts to 0 just before, read just after ----
+            pa.launches = 0
+            t = time.perf_counter()
+            resps = _paused_wave(engine, reqs)
+            wall = time.perf_counter() - t
+            k3 = pa.launches
+            # ---- end of the main path ----
+            drops = _drop_shares(rec)
+        L, steps = cfg.num_hidden_layers, engine.decode_steps
+        check(k3 == L * steps > 0, f"{tag}: K3 {k3}, want {L} x {steps}")
+        check(all(len(r.output_tokens) == MOE_NEW and np.isfinite(r.output_logprobs).all()
+                  and max(r.output_logprobs) <= 0 for r in resps),
+              f"{tag}: a request stopped early or a logprob is not finite and <= 0")
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        # the caching allocator near a full card: its peak reservation and
+        # the allocations it retried after freeing its cache (each a sync)
+        reserved = torch.cuda.max_memory_reserved(dev) / 1e9
+        retries = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0) - retries0
+        gate = _moe_step_gate(engine, cfg, rng, MOE_PROMPT, tag)
+        ttft = [r.ttft * 1e3 for r in resps]
+        return dict(run=tag, layers=L, settings=settings, requests=n, prompt=MOE_PROMPT,
+                    new_tokens=MOE_NEW, init_s=init_s, weights_gb=weights_gb, kv_pool_gb=kv_gb,
+                    max_memory_allocated_gb=peak, max_memory_reserved_gb=reserved,
+                    alloc_retries=retries, wall_s=wall, decode_steps=steps,
+                    decode_tok_s=engine.decode_tokens / engine.decode_seconds,
+                    decode_step_ms=engine.decode_seconds / steps * 1e3,
+                    ttft_p50_ms=float(np.percentile(ttft, 50)),
+                    prefill_calls=engine.prefill_calls, prefill_s=engine.prefill_seconds,
+                    routing=drops, launches=dict(paged_attention=k3),
+                    formulas=dict(paged_attention="decode steps x L"), step_gate=gate)
+    finally:
+        engine.destroy()
+        del engine
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _observe_moe_train():
+    """While the entry point runs: each trained micro-batch's router aux
+    loss (read from the forward `train_batch` runs with `with_aux`) and
+    each `train_batch`'s stats, by optimizer step."""
+    from areal_tpu_torch.engine import torch_engine
+
+    seen = dict(aux=[], steps=[])
+    fwd = torch_engine.model_forward
+    train_batch = torch_engine.TorchTrainEngine.train_batch
+
+    def forward(*args, **kwargs):
+        out = fwd(*args, **kwargs)
+        if kwargs.get("with_aux"):
+            seen["aux"].append(out[1].detach())
+        return out
+
+    def batch(self, *args, **kwargs):
+        n0 = len(seen["aux"])
+        stats = train_batch(self, *args, **kwargs)
+        seen["steps"].append(dict(stats=stats, aux=[float(a) for a in seen["aux"][n0:]]))
+        return stats
+
+    torch_engine.model_forward, torch_engine.TorchTrainEngine.train_batch = forward, batch
+    try:
+        yield seen
+    finally:
+        torch_engine.model_forward, torch_engine.TorchTrainEngine.train_batch = fwd, train_batch
+
+
+def _moe_loop(dev) -> dict:
+    """(m2) the GRPO entry point at Qwen3-30B-A3B's widths, MOE_LOOP_LAYERS
+    of its 48 layers, remat, router_aux_loss_coef 0.001 as published, on
+    (c)'s traffic (`FULL_OVERRIDES`: synthetic-arith, 8 prompts x 4
+    samples, 256 new tokens, 2 steps). K3 and K1/K2a/K2b on `_loop_run`'s
+    formulas, the version lag within 2, the aux loss finite and above 0 in
+    every trained micro-batch of every step, MFU (`utils/flops.py`) and
+    `utils/hbm.py`'s estimate beside the peak. The decode engine's and the
+    trainer's logprobs of each step's batch are printed side by side with
+    their gap, not gated: a decode step groups its 32 slots for routing, a
+    trainer micro-batch its packed stream, and capacity drops differ."""
+    cfg = ModelConfig.from_hf_config(QWEN3_30B_A3B_HF, dtype="bfloat16", param_dtype="bfloat16",
+                                     scan_layers=False, num_hidden_layers=MOE_LOOP_LAYERS,
+                                     remat=True)
+    gaps = []
+
+    def batch_check(batch: dict) -> dict:
+        lm = batch["loss_mask"] > 0
+        d = np.abs(batch["logprobs"][lm] - batch["prox_logp"][lm])
+        row = dict(decode_logp_mean=float(batch["logprobs"][lm].mean()),
+                   trainer_logp_mean=float(batch["prox_logp"][lm].mean()),
+                   max_abs_diff=float(d.max()), mean_abs_diff=float(d.mean()))
+        gaps.append(row)
+        return dict(logp_gap=row)
+
+    with _observe_moe_train() as seen:
+        run = _loop_run(dev, "m2", FULL_OVERRIDES + ["actor.use_decoupled_loss=true"],
+                        model_config=cfg, reward_fn=parity_reward, batch_check=batch_check)
+    check(run["max_version_lag"] <= MOE_LOOP_LAG, f"moe (m2): lag {run['max_version_lag']}")
+    steps = seen["steps"]
+    check(len(steps) >= FULL_STEPS, f"moe (m2): {len(steps)} train_batch calls")
+    for i, s in enumerate(steps):
+        check(s["aux"] and all(math.isfinite(a) and a > 0 for a in s["aux"]),
+              f"moe (m2) train_batch {i}: aux losses {s['aux']}")
+    kind = torch.cuda.get_device_name(dev)
+    hbm_row = _hbm_cell(kind, "(m2)", run["max_memory_allocated_gb"],
+                        [("actor", cfg, 8192)], (cfg, 32, 512))
+    run.update(model="Qwen3-30B-A3B", router_aux_loss_coef=cfg.router_aux_loss_coef,
+               params=sum(math.prod(s) for s in named_shapes(cfg).values()),
+               train_batches=[dict(aux=s["aux"], loss=s["stats"]["loss"],
+                                   mfu=s["stats"]["mfu"],
+                                   tokens_per_s=s["stats"]["tokens_per_sec_per_chip"],
+                                   train_batch_s=s["stats"]["train_batch_time"])
+                              for s in steps], hbm=hbm_row)
+    return run
+
+
+def phase_moe(dev: torch.device) -> dict:
+    """The MoE families on the card, random bf16 weights drawn there from
+    SEED:
+
+    (m1) Qwen3-30B-A3B at its published widths and all 48 layers
+         (61.06 GB of weights) in one decode engine (32 slots, context
+         2048, page 128): 32 greedy requests of 128-1024 random tokens
+         and 256 new ones in one wave; K3 = decode steps x 48; resident
+         weight and pool bytes beside the reckoned ones, peak memory,
+         decode tokens/s, ms a step, TTFT p50, the share of routed picks
+         dropped at capacity (decode steps and prefills apart); then one
+         engine step through K3 against the plain paths with the plain
+         run's routes replayed, with a planted dropped page that must
+         read outside the tolerance, and the picks K3's path would flip
+         (`_moe_step_gate`);
+    (m2) the GRPO entry point at Qwen3-30B-A3B's widths and 4 layers
+         (`_moe_loop`);
+    (m3) Qwen1.5-MoE-A2.7B (MHA 16/16, a shared expert) at 2 of its 24
+         layers: 16 greedy requests, gated as (m1)."""
+    rng = np.random.default_rng(SEED + 90)
+    t0 = time.perf_counter()
+    cfg = ModelConfig.from_hf_config(QWEN3_30B_A3B_HF, dtype="bfloat16", param_dtype="bfloat16",
+                                     scan_layers=False)
+    m1 = _moe_serve(dev, cfg, MOE_DECODE, MOE_REQUESTS, "m1", rng)
+    emit("moe_run", **m1)
+    check(abs(m1["weights_gb"] - MOE_RECKONED_WEIGHTS_GB) < 0.01,
+          f"moe (m1): {m1['weights_gb']} GB of weights, reckoned {MOE_RECKONED_WEIGHTS_GB}")
+    check(abs(m1["kv_pool_gb"] - MOE_RECKONED_KV_GB) < 0.01,
+          f"moe (m1): a {m1['kv_pool_gb']} GB pool, reckoned {MOE_RECKONED_KV_GB}")
+    times = dict(m1=time.perf_counter() - t0)
+    t = time.perf_counter()
+    m2 = _moe_loop(dev)
+    emit("moe_run", **m2)
+    times["m2"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    cfg15 = ModelConfig.from_hf_config(QWEN15_MOE_A27B_HF, dtype="bfloat16",
+                                       param_dtype="bfloat16", scan_layers=False,
+                                       num_hidden_layers=MOE15_LAYERS)
+    m3 = _moe_serve(dev, cfg15, MOE15_DECODE, MOE15_REQUESTS, "m3", rng)
+    emit("moe_run", **m3)
+    times["m3"] = time.perf_counter() - t
+    emit("moe", models=dict(m1="Qwen3-30B-A3B", m2="Qwen3-30B-A3B", m3="Qwen1.5-MoE-A2.7B"),
+         sources=dict(qwen3_30b_a3b=QWEN3_30B_A3B_SOURCE, qwen15_moe=QWEN15_MOE_A27B_SOURCE),
+         reckoned=dict(weights_gb=MOE_RECKONED_WEIGHTS_GB, kv_pool_gb=MOE_RECKONED_KV_GB),
+         seconds=times, launches={r["run"]: r["launches"] for r in (m1, m2, m3)})
+    total = dict(m2["launches"])
+    total["paged_attention"] += m1["launches"]["paged_attention"] + m3["launches"]["paged_attention"]
+    return dict(launches=total, by_run={r["run"]: r["launches"] for r in (m1, m2, m3)})
+
+
+def moe_only() -> int:
+    """`--moe`: the device and build phases, K3 and K1/K2a/K2b against
+    their plain versions (the MoE shapes among their cases), then the moe
+    phase alone."""
+    dev, smi = phase_device()
+    phase_build()
+    phase_kernel(dev)
+    phase_flash_kernel(dev)
+    out = phase_moe(dev)
+    print(smi, flush=True)
+    print(json.dumps({"moe_launches": out["launches"]}), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # the memory estimator (`utils/hbm.py`) against the cells' measured peaks
 # ---------------------------------------------------------------------------
 
@@ -8214,7 +8616,7 @@ KV_TIER_PROMPT = (512, 1024)
 KV_TIER_NEW = 256
 KV_TIER_FILL_PROMPT = (32, 96)
 KV_TIER_FILL_NEW = 16
-# every leg on the serve cell's weights at CUT_LAYERS (4) of its 28 layers
+# every leg on the serve cell's weights at CUT_LAYERS (2) of its 28 layers
 # since the fleet phase came (at SERVE_LAYERS, 14, the phase took 79.5-118.5
 # s on an H100 80GB HBM3 at 700 W; with (k1)-(k3) at 28, 111.2 s): the
 # checks are per layer and per block (launch formulas, swap bytes by
@@ -8895,6 +9297,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     vision = phase_vision(dev)
     clock.lap("vision")
+    torch.cuda.empty_cache()
+    moe = phase_moe(dev)
+    clock.lap("moe")
     # K1/K2a/K2b run in the GRPO loop, the train phase, both SFT runs, the
     # GRPO recovery runs, the AEnt run, the decoupled trainer, the PPO,
     # reward-model and multi-turn trainers, the GRPO run on a checkpoint
@@ -8909,7 +9314,8 @@ def main() -> int:
                        decoupled=decoupled["launches"], ppo=ppo["launches"],
                        rw=rw["launches"], multi_turn=multi_turn["launches"],
                        hf_path=hf_path["launches"], tir=tir["launches"],
-                       chaos=chaos["launches"], vision=vision["launches"])
+                       chaos=chaos["launches"], vision=vision["launches"],
+                       moe=moe["launches"])
     # K3 runs in the serve, sched (its group waves) and train paths and in
     # the spec path's normal chunks; K5a in the int8 serve path and the int8 spec path's; K6 in both
     # int8 paths
@@ -8927,7 +9333,8 @@ def main() -> int:
                                      chaos=chaos["launches"]["paged_attention"],
                                      kv_tier=tier["launches"]["paged_attention"],
                                      fleet=fleet["launches"]["paged_attention"],
-                                     vision=vision["launches"]["paged_attention"])
+                                     vision=vision["launches"]["paged_attention"],
+                                     moe=moe["launches"]["paged_attention"])
     paged["launches"] = sum(paged["launches_by_path"].values())
     q8["launches_by_path"] = dict(serve_int8=q_launches["paged_attention_q8"],
                                   serve_spec_int8=s8_launches["paged_attention_q8"],
@@ -8963,5 +9370,6 @@ if __name__ == "__main__":
              "--qmm-times": qmm_times_only, "--qmm-sweep": qmm_sweep_only,
              "--decoupled": decoupled_only, "--trainers": trainers_only,
              "--hf-path": hf_path_only, "--tir": tir_only, "--chaos": chaos_only,
-             "--kv-tier": kv_tier_only, "--fleet": fleet_only, "--vision": vision_only}
+             "--kv-tier": kv_tier_only, "--fleet": fleet_only, "--vision": vision_only,
+             "--moe": moe_only}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] else main())

@@ -251,7 +251,10 @@ def test_entry_point_refusals(tmp_path):
                               config=RouterConfig(health_poll_interval=0.2))
         router.start("127.0.0.1", 0)
         try:
-            time.sleep(0.5)
+            # the router lists the server once its health poll has seen it
+            deadline = time.monotonic() + 30
+            while router._metrics()["servers"] != [srv.addr] and time.monotonic() < deadline:
+                time.sleep(0.05)
             history = main(base + nfs + ["allocation_mode=jax:d1t1+d1", "total_train_steps=1",
                                          "evaluator.freq_steps=null",
                                          "launcher.supervisor.enabled=true"], device="cpu")

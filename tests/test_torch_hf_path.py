@@ -157,12 +157,15 @@ def test_logits_match_transformers_and_jax(ckpts, kind):
 
 
 @pytest.mark.parametrize("hf", [
-    dict(model_type="qwen3"),
+    dict(model_type="gemma"),
     dict(model_type="gpt2", n_embd=64, n_layer=2, n_head=4, n_positions=256),
-    dict(model_type="qwen2_moe"), dict(model_type="mistral", sliding_window=64),
+    dict(model_type="qwen2", use_sliding_window=True, sliding_window=64, max_window_layers=0),
+    dict(model_type="mistral", sliding_window=64),
 ])
 def test_other_families_are_refused(hf):
-    """JAX loads these; the port refuses them with item 6 (model breadth)."""
+    """JAX loads these; the port refuses them with item 6 (model breadth).
+    Qwen3 and the MoE families load since they were ported
+    (tests/test_torch_model_families.py)."""
     base = dict(HF, num_hidden_layers=2)
     with pytest.raises(NotImplementedError, match="item 6"):
         tq.ModelConfig.from_hf_config(dict(base, **hf))

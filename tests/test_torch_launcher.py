@@ -83,7 +83,7 @@ def _summary(mod, expr):
 
 ONE_DEVICE = ["", "  ", "jax:d1+d1", "jax:d1t1+d1", "jax: d1 t1 + jax:d1p1", "jax:d1 + d 1",
               "jax:t1d1+d1t1p1c1", "d1", "d1t1p1", "jax:d1|d1", "jax:d1|jax:d1", "jax:d1",
-              "jax:d1+eval", "jax:d1+cpu"]
+              "jax:d1+eval", "jax:d1+cpu", "(attn:d1|ffn:d1)", "jax:attn:d1|ffn:d1+d1"]
 REJECTED = ["d0", "d01", "jax:d1+", "jax:d1t1+d1+d1", "eval", "jax:d1|eval", "d2d4",
             "d1 d1", "jax:d1d1+d1", "notavalidmode:::", "jax:e1+d1", "jax:c1+d1",
             "megatron:d4+jax:d4", "jax:d2|d8", "(attn:d2t2|ffn:d2e2", "(attn:d4t2|ffn:d2e2)",
@@ -91,7 +91,7 @@ REJECTED = ["d0", "d01", "jax:d1+", "jax:d1t1+d1+d1", "eval", "jax:d1|eval", "d2
 REFUSED = {"d2": "item 5", "jax:d2+d1": "item 5", "jax:d1+d2": "item 5", "jax:d1t2+d1": "item 5",
            "jax:d4t2+eval": "item 5", "d4t2p1": "item 5", "fsdp:d1": "item 5",
            "jax:d1+fsdp:d1": "item 5", "sglang:d1+d1": "item 6", "vllm:d1": "item 6",
-           "(attn:d1|ffn:d1)": "item 6", "jax:attn:d1|ffn:d1+d1": "item 6"}
+           "(attn:d2|ffn:e2)": "item 5", "(attn:d1t2|ffn:e2)": "item 5"}
 
 
 @pytest.mark.parametrize("expr", ONE_DEVICE + REJECTED)

@@ -210,12 +210,13 @@ def test_decode_step_paged_matches_jax(name):
 
 
 def test_unsupported_model_features_raise():
-    for kw in (dict(num_experts=4), dict(sliding_window=8), dict(lora_rank=2),
+    # MoE layers and q/k norms are ported (tests/test_torch_moe.py)
+    for kw in (dict(pos_embed="learned"), dict(sliding_window=8), dict(lora_rank=2),
                dict(norm_type="layernorm"), dict(mlp_style="fc"),
-               dict(qk_norm=True), dict(attn_out_bias=True),
+               dict(normalize_embed=True), dict(attn_out_bias=True),
                dict(norm_zero_centered=True)):
         cfg = tq.ModelConfig(**dict(CONFIGS["smoke"], **kw))
         with pytest.raises(NotImplementedError):
             tq.param_shapes(cfg)
     with pytest.raises(NotImplementedError):
-        tq.ModelConfig.from_hf_config(dict(QWEN25_7B_HF, model_type="qwen2_moe"))
+        tq.ModelConfig.from_hf_config(dict(QWEN25_7B_HF, model_type="gemma"))
